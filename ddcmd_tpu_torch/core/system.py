@@ -1,0 +1,230 @@
+"""SYSTEM assembly: deck + collection -> runnable simulation pieces.
+
+Counterpart of ddcmd_tpu/core/system.py (system_init, ddcMD
+src/system.c; simulate_init, src/simulate.c:104-297), cut to the decks
+the port runs: MARTINI potentials over single-bead residues in an
+orthorhombic box.  Anything else raises NotImplementedError naming the
+ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..io.collection import CollectionData, read_collection
+from ..objects import DeckError, ObjectDB
+from ..objects import units as U
+from .box import Box
+from .groups import Group, GroupTable, group_from_deck
+from .species import Species, species_from_deck
+from .state import State
+
+
+@dataclass
+class SimulateConfig:
+    dt: float                  # internal ps
+    maxloop: int
+    loop: int
+    time: float                # internal ps
+    printrate: int
+    deltaloop: int | None
+    integrator_name: str
+    system_name: str
+    printinfo_name: str | None
+    ddc_update_rate: int
+
+
+@dataclass
+class SystemDef:
+    """Host-side assembled system (everything needed to build device fns)."""
+
+    db: ObjectDB
+    cfg: SimulateConfig
+    species: list[Species]
+    groups: list[Group]
+    group_table: GroupTable
+    potentials: list               # list of (type, name, parms)
+    box: Box
+    state: State
+    collection: CollectionData
+    neighbor_deltaR: float         # skin, internal
+    rcut_max: float                # max potential cutoff, internal
+    integrator_type: str
+    integrator_parms: dict
+    n_constraints: int = 0
+    random_seed: int = 0
+
+
+def _find_simulate(db: ObjectDB) -> SimulateConfig:
+    sims = db.by_class("SIMULATE")
+    if not sims:
+        raise DeckError("no SIMULATE object in deck")
+    sim = sims[0]
+    return SimulateConfig(
+        dt=sim.get_with_units("dt", "1.0", "t"),
+        maxloop=sim.get_int("maxloop", 0),
+        loop=sim.get_int("loop", 0),
+        time=U.parse_with_units(" ".join(sim.raw("time", "0.0")), "t"),
+        printrate=sim.get_int("printrate", 1),
+        deltaloop=sim.get_int("deltaloop", 0) or None,
+        integrator_name=sim.get_str("integrator", "nglf"),
+        system_name=sim.get_str("system", "system"),
+        printinfo_name=sim.get_str("printinfo", "") or None,
+        ddc_update_rate=_ddc_update_rate(db, sim),
+    )
+
+
+def _ddc_update_rate(db: ObjectDB, sim) -> int:
+    name = sim.get_str("ddc", "")
+    if name:
+        ddc = db.find(name, "DDC")
+        if ddc is not None:
+            return ddc.get_int("updateRate", 20)
+    return 20
+
+
+def _check_static_box(boxobj) -> None:
+    """A prescribed box(t) (boxPrescriptiveTime.c) is not ported."""
+    moving = (boxobj.has("dudt") or boxobj.get_literal("Veq", "").strip()
+              or any(abs(x) > 0 for x in boxobj.get_floatv(
+                  "deformationRate", "0"))
+              or any(abs(x) > 0 for x in boxobj.get_floatv(
+                  "rotationMatrix", "0")))
+    if moving:
+        raise NotImplementedError(
+            "prescribed box(t) is not ported yet (ROADMAP queue 1, item 22)")
+
+
+def _check_single_bead(db: ObjectDB, mmff_name: str) -> None:
+    """Single-bead residues carry no bonded topology; residues with
+    bonds, angles, torsions, exclusions, pairs or constraints are slice 2
+    (ROADMAP queue 1, items 11-13)."""
+    mmff = db.get(mmff_name, "MMFF")
+    for rp_name in mmff.get_strv("resiParms"):
+        rp = db.get(rp_name, "RESIPARMS")
+        for key in ("bondList", "angleList", "dihedralList",
+                    "exclusionList", "constraintList", "pairList"):
+            if rp.get_strv(key):
+                raise NotImplementedError(
+                    f"residue {rp_name} carries a bonded topology "
+                    f"({key}); bonded Martini is slice 2 (ROADMAP queue 1, "
+                    "items 11-13)")
+
+
+def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
+                 device="cpu", pad_multiple: int = 128) -> SystemDef:
+    cfg = _find_simulate(db)
+    sysobj = db.get(cfg.system_name, "SYSTEM")
+
+    # --- box (h possibly merged in from restart) ---------------------------
+    boxobj = db.get(sysobj.get_str("box", "box"), "BOX")
+    pbc = boxobj.get_int("pbc", 7)
+    hvals = boxobj.get_with_unitsv("h", "", "l") if boxobj.has("h") else None
+    _check_static_box(boxobj)
+
+    # --- collection ----------------------------------------------------------
+    colname = sysobj.get_str("collection", "collection")
+    colobj = db.find(colname, "COLLECTION")
+    if colobj is None or not colobj.has("files"):
+        raise DeckError("COLLECTION with files= required (restart must be compiled in)")
+    col = read_collection(colobj.get_str("files"), base_dir,
+                          header_length=colobj.get_int("headerLength", 0))
+    if hvals is None:
+        hvals = [v * U.ANG_TO_LENGTH for v in col.header.get_floatv("h")]
+    box = Box.from_h(np.asarray(hvals).reshape(3, 3), pbc=pbc, dtype=dtype,
+                     device=device)
+
+    # --- species -------------------------------------------------------------
+    sp_names_decl = sysobj.get_strv("species")
+    if not sp_names_decl:
+        sp_names_decl = list(dict.fromkeys(col.species_names))
+    species = []
+    for i, name in enumerate(sp_names_decl):
+        if db.find(name, "SPECIES") is not None:
+            species.extend(species_from_deck(db, [name]))
+            species[-1].index = i
+        else:
+            species.append(Species(name=name, index=i, type="ATOM",
+                                   charge=0.0, mass=1.0))
+    sp_index = {s.name: s.index for s in species}
+
+    # --- groups ----------------------------------------------------------------
+    grp_names = sysobj.get_strv("groups")
+    if not grp_names:
+        grp_names = sorted(set(col.group_names))
+    groups = [group_from_deck(db, n, i) for i, n in enumerate(grp_names)]
+    grp_index = {g.name: g.index for g in groups}
+    group_table = GroupTable.build(groups)
+
+    # --- per-particle arrays ------------------------------------------------------
+    try:
+        sidx = np.array([sp_index[s] for s in col.species_names], dtype=np.int64)
+    except KeyError as e:
+        raise DeckError(f"collection references unknown species {e}") from None
+    try:
+        gidx = np.array([grp_index[g] for g in col.group_names], dtype=np.int64)
+    except KeyError as e:
+        raise DeckError(f"collection references unknown group {e}") from None
+
+    # --- potentials ------------------------------------------------------------
+    potentials = []
+    rcut_max = 0.0
+    for pname in sysobj.get_strv("potential"):
+        ptype = db.get(pname, "POTENTIAL").get_str("type").upper()
+        if ptype != "MARTINI":
+            raise NotImplementedError(
+                f"POTENTIAL type {ptype} is not ported yet (ROADMAP queue 1, "
+                "items 16-21)")
+        from ..potentials.martini import compile_martini
+
+        _check_single_bead(db, pname)
+        parms = compile_martini(db, pname)
+        rcut_max = max(rcut_max, parms.rcut)
+        potentials.append(("MARTINI", pname, parms))
+
+    mass = np.array([species[i].mass for i in sidx])
+    charge = np.array([species[i].charge for i in sidx])
+    state = State.create(col.r, col.v, charge, mass, sidx, gidx, col.gid,
+                         dtype=dtype, device=device, pad_multiple=pad_multiple)
+
+    # Martini species need their LJ type index instead of species index for
+    # the nonbond table lookup
+    for _, _, parms in potentials:
+        tmap = np.zeros(len(species), dtype=np.int64)
+        for s in species:
+            if s.name not in parms.species_to_type:
+                raise DeckError(f"species {s.name} has no MMFF atom type")
+            tmap[s.index] = parms.species_to_type[s.name]
+        parms.species_lj_type = tmap  # attached for force-builder use
+
+    # --- neighbor config ----------------------------------------------------------
+    nbrobj = db.find(sysobj.get_str("neighbor", "nbr"), "NEIGHBOR")
+    deltaR = nbrobj.get_with_units("deltaR", "4.0", "l") if nbrobj else 0.4
+
+    # --- integrator ------------------------------------------------------------------
+    iobj = db.get(cfg.integrator_name, "INTEGRATOR")
+    itype = iobj.get_str("type").upper()
+    iparms = dict(T=iobj.get_with_units("T", "310", "T"),
+                  beta=iobj.get_with_units("beta", "0.0", "1/pressure"))
+
+    # --- random seed ---------------------------------------------------------------
+    seed = 0
+    rname = sysobj.get_str("random", "")
+    if rname:
+        robj = db.find(rname, "RANDOM")
+        if robj is not None:
+            seed = robj.get_int("seed", 0)
+            if robj.get_int("randomizeSeed", 0):
+                seed = int.from_bytes(os.urandom(4), "little")
+
+    return SystemDef(
+        db=db, cfg=cfg, species=species, groups=groups, group_table=group_table,
+        potentials=potentials, box=box, state=state, collection=col,
+        neighbor_deltaR=deltaR, rcut_max=rcut_max,
+        integrator_type=itype, integrator_parms=iparms,
+        n_constraints=sysobj.get_int("nConstraints", 0), random_seed=seed,
+    )

@@ -1,0 +1,153 @@
+"""The port's host layer (deck parser, collection reader, builders,
+build_system, Martini tables) against the JAX package, the port's
+jax-free import and its device policy."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ddcmd_tpu.core.system import build_system as j_build_system
+from ddcmd_tpu.models import load as j_load
+from ddcmd_tpu.models import martini_water as j_martini_water
+from ddcmd_tpu.potentials.martini import martini_device_tables as j_tables
+import ddcmd_tpu_torch
+from ddcmd_tpu_torch.core.system import build_system as t_build_system
+from ddcmd_tpu_torch.models import load as t_load
+from ddcmd_tpu_torch.models import martini_water as t_martini_water
+from ddcmd_tpu_torch.potentials.martini import martini_device_tables as t_tables
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _decks(tmp_path, n=400, edit=None):
+    """The same martini_water deck built by both packages' builders."""
+    jd, td = tmp_path / "jax", tmp_path / "torch"
+    jd.mkdir()
+    td.mkdir()
+    j_martini_water(str(jd), n=n)
+    t_martini_water(str(td), n=n)
+    if edit is not None:
+        for d in (jd, td):
+            p = d / "object.data"
+            p.write_text(edit(p.read_text()))
+    return str(jd), str(td)
+
+
+def test_builders_write_identical_decks(tmp_path):
+    jd, td = _decks(tmp_path)
+    for name in ("object.data", "martini.data", "atoms#000000"):
+        with open(os.path.join(jd, name)) as a, \
+                open(os.path.join(td, name)) as b:
+            assert a.read() == b.read(), name
+
+
+def test_deck_parses_to_same_objects(tmp_path):
+    jd, td = _decks(tmp_path)
+    jdb, _ = j_load(jd)
+    tdb, _ = t_load(td)
+    assert sorted(jdb.objects) == sorted(tdb.objects)
+    for key, jo in jdb.objects.items():
+        to = tdb.objects[key]
+        assert (to.name, to.objclass, to.keywords) == \
+            (jo.name, jo.objclass, jo.keywords)
+
+
+def test_build_system_matches_jax(tmp_path):
+    jd, td = _decks(tmp_path)
+    jsd = j_build_system(j_load(jd)[0], jd)
+    tsd = t_build_system(t_load(td)[0], td)
+    js, ts = jsd.state, tsd.state
+    assert ts.n_local == js.n_local and ts.n_pad == js.n_pad
+    for name in ("r", "v", "f", "pe", "q", "mass", "species", "group"):
+        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                      np.asarray(getattr(js, name)),
+                                      err_msg=name)
+    np.testing.assert_array_equal(ts.gid[:ts.n_local], js.gid64())
+    np.testing.assert_array_equal(ts.fmask.numpy(), np.asarray(js.fmask))
+    np.testing.assert_array_equal(tsd.box.h.numpy(), np.asarray(jsd.box.h))
+    assert tsd.box.pbc == jsd.box.pbc
+    assert (tsd.neighbor_deltaR, tsd.rcut_max, tsd.integrator_type,
+            tsd.random_seed, tsd.n_constraints) == \
+        (jsd.neighbor_deltaR, jsd.rcut_max, jsd.integrator_type,
+         jsd.random_seed, jsd.n_constraints)
+    assert tsd.cfg.dt == jsd.cfg.dt
+    assert tsd.cfg.ddc_update_rate == jsd.cfg.ddc_update_rate
+    assert tsd.integrator_parms["T"] == jsd.integrator_parms["T"]
+
+    half = 0.5 * jsd.cfg.dt
+    for t in (0.0, 3.7):
+        jc = jsd.group_table.coefficients(t, half)
+        tc = tsd.group_table.coefficients(t, half)
+        for a, b in zip(tc, jc[:4]):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    jp, tp = jsd.potentials[0][2], tsd.potentials[0][2]
+    np.testing.assert_array_equal(tp.species_lj_type, jp.species_lj_type)
+    jtab, ttab = j_tables(jp), t_tables(tp)
+    for k in ("sigma", "eps", "shift"):
+        np.testing.assert_array_equal(ttab[k].numpy(), np.asarray(jtab[k]))
+    for k in ("rcut2", "krf", "crf", "keR"):
+        assert ttab[k] == float(jtab[k]), k
+
+
+@pytest.mark.parametrize("edit,what", [
+    (lambda s: s.replace("type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
+                         "type=BERENDSEN; Teq=310.0K; tau=1.0ps;"),
+     "GROUP"),
+    (lambda s: s.replace("type=NGLF; T=310.0K;",
+                         "type=NGLF; T=310.0K; beta=4.6e-5/bar; "
+                         "tauBarostat=1ps;"),
+     "barostat"),
+    (lambda s: s.replace("type=MARTINI;", "type=EAM;"), "POTENTIAL"),
+])
+def test_unported_deck_features_raise(tmp_path, edit, what):
+    """Deck features outside the slice raise NotImplementedError naming
+    what is missing, never run a different model silently."""
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    _, td = _decks(tmp_path, edit=edit)
+    with pytest.raises(NotImplementedError, match=what):
+        Simulation(t_load(td)[0], td, run_dir=td, device="cpu")
+
+
+def test_tf32_pinned_off():
+    assert ddcmd_tpu_torch.__name__ == "ddcmd_tpu_torch"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+_NO_JAX_RUN = r"""
+import json, sys
+import ddcmd_tpu_torch
+from ddcmd_tpu_torch.models import martini_water
+from ddcmd_tpu_torch.run import cli
+martini_water(sys.argv[1], n=400)
+sim = cli.run(["simulate", "-o", sys.argv[1] + "/object.data", "-n", "5",
+               "--run-dir", sys.argv[1], "--device", "cpu"])
+print(json.dumps({"loop": sim.ss.loop,
+                  "eion": float(sim.ss.energy.eion),
+                  "jax": sorted(m for m in sys.modules
+                                if m == "jax" or m.startswith("jax.")
+                                or m == "ddcmd_tpu"
+                                or m.startswith("ddcmd_tpu."))}))
+"""
+
+
+def test_port_imports_no_jax(tmp_path):
+    """`import ddcmd_tpu_torch` plus a 5-step CPU run, in a fresh
+    interpreter, leave jax and the JAX package out of sys.modules."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _NO_JAX_RUN, str(tmp_path)],
+                         capture_output=True, text=True, env=env, cwd=REPO,
+                         timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["jax"] == []
+    assert res["loop"] == 5 and np.isfinite(res["eion"])
