@@ -8,6 +8,7 @@ triclinic h raises NotImplementedError (ROADMAP queue 1, item 20).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,6 +37,14 @@ class Box:
     @property
     def lengths(self) -> torch.Tensor:
         return torch.diagonal(self.h)
+
+    @property
+    def volume(self) -> torch.Tensor:
+        return torch.prod(self.lengths)
+
+    def scale(self, lam: torch.Tensor) -> "Box":
+        """h <- diag(lam) @ h (barostat volume change, nglfconstraint.c:64)."""
+        return dataclasses.replace(self, h=lam[:, None] * self.h)
 
     def back_in_box(self, r: torch.Tensor) -> torch.Tensor:
         """Wrap positions into the origin-centred box (backInBox_fast)."""

@@ -2,9 +2,10 @@
 
 Counterpart of ddcmd_tpu/core/system.py (system_init, ddcMD
 src/system.c; simulate_init, src/simulate.c:104-297), cut to the decks
-the port runs: MARTINI potentials over single-bead residues in an
-orthorhombic box.  Anything else raises NotImplementedError naming the
-ROADMAP item that ports it.
+the port runs: MARTINI potentials in an orthorhombic box, with the
+covalent topology of the residues (bonds, angles, exclusions,
+constraints) instantiated over the collection.  Anything else raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -36,6 +37,13 @@ class SimulateConfig:
     system_name: str
     printinfo_name: str | None
     ddc_update_rate: int
+    checkpointrate: int = 0
+    snapshotrate: int = 0
+    nLoopDigits: int = 6
+    gidFormat: str = "dec"
+    nfiles: int = 1            # checkpoint shard count (Pio_setNumWriteFiles)
+    # FULL = f8 velocities; BRIEF = f4 velocities in binary checkpoints
+    checkpointprecision: str = "FULL"
 
 
 @dataclass
@@ -57,6 +65,8 @@ class SystemDef:
     integrator_parms: dict
     n_constraints: int = 0
     random_seed: int = 0
+    bonded: object | None = None   # potentials.bonded.BondedTerms
+    residue_instances: list | None = None  # (res_name, state rows) pairs
 
 
 def _find_simulate(db: ObjectDB) -> SimulateConfig:
@@ -75,6 +85,13 @@ def _find_simulate(db: ObjectDB) -> SimulateConfig:
         system_name=sim.get_str("system", "system"),
         printinfo_name=sim.get_str("printinfo", "") or None,
         ddc_update_rate=_ddc_update_rate(db, sim),
+        checkpointrate=sim.get_int("checkpointrate", 0),
+        snapshotrate=sim.get_int("snapshotrate", 0),
+        nLoopDigits=sim.get_int("nLoopDigits", 6),
+        gidFormat=sim.get_str("gidFormat", "dec"),
+        nfiles=max(1, sim.get_int("nfiles", 1)),
+        checkpointprecision=sim.get_str("checkpointprecision",
+                                        "FULL").upper(),
     )
 
 
@@ -99,20 +116,18 @@ def _check_static_box(boxobj) -> None:
             "prescribed box(t) is not ported yet (ROADMAP queue 1, item 22)")
 
 
-def _check_single_bead(db: ObjectDB, mmff_name: str) -> None:
-    """Single-bead residues carry no bonded topology; residues with
-    bonds, angles, torsions, exclusions, pairs or constraints are slice 2
-    (ROADMAP queue 1, items 11-13)."""
+def _check_bonded_families(db: ObjectDB, mmff_name: str) -> None:
+    """Bonded families the port does not evaluate yet (torsions,
+    impropers, bonded LJ pairs; CMAP comes only with CHARMM) raise."""
     mmff = db.get(mmff_name, "MMFF")
     for rp_name in mmff.get_strv("resiParms"):
         rp = db.get(rp_name, "RESIPARMS")
-        for key in ("bondList", "angleList", "dihedralList",
-                    "exclusionList", "constraintList", "pairList"):
+        for key in ("dihedralList", "pairList"):
             if rp.get_strv(key):
                 raise NotImplementedError(
-                    f"residue {rp_name} carries a bonded topology "
-                    f"({key}); bonded Martini is slice 2 (ROADMAP queue 1, "
-                    "items 11-13)")
+                    f"residue {rp_name} carries {key}: torsions, impropers "
+                    "and bonded LJ pairs are not ported yet (ROADMAP queue "
+                    "1, item 12)")
 
 
 def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
@@ -181,7 +196,7 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
                 "items 16-21)")
         from ..potentials.martini import compile_martini
 
-        _check_single_bead(db, pname)
+        _check_bonded_families(db, pname)
         parms = compile_martini(db, pname)
         rcut_max = max(rcut_max, parms.rcut)
         potentials.append(("MARTINI", pname, parms))
@@ -193,7 +208,8 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
 
     # Martini species need their LJ type index instead of species index for
     # the nonbond table lookup
-    for _, _, parms in potentials:
+    bonded = residue_instances = None
+    for _, pname, parms in potentials:
         tmap = np.zeros(len(species), dtype=np.int64)
         for s in species:
             if s.name not in parms.species_to_type:
@@ -201,15 +217,26 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
             tmap[s.index] = parms.species_to_type[s.name]
         parms.species_lj_type = tmap  # attached for force-builder use
 
+        # covalent topology: residue templates instantiated over the
+        # collection (genMartiniConn analog, bioMartini.c:567-830)
+        from ..potentials.bonded import (compile_residue_types,
+                                         instantiate_bonded, scan_residues)
+
+        res_types = compile_residue_types(db, pname, parms.rcut)
+        residue_instances = scan_residues(res_types, col.species_names,
+                                          col.gid)
+        bonded = instantiate_bonded(res_types, residue_instances, parms.rcut)
+
     # --- neighbor config ----------------------------------------------------------
     nbrobj = db.find(sysobj.get_str("neighbor", "nbr"), "NEIGHBOR")
     deltaR = nbrobj.get_with_units("deltaR", "4.0", "l") if nbrobj else 0.4
 
     # --- integrator ------------------------------------------------------------------
-    iobj = db.get(cfg.integrator_name, "INTEGRATOR")
-    itype = iobj.get_str("type").upper()
-    iparms = dict(T=iobj.get_with_units("T", "310", "T"),
-                  beta=iobj.get_with_units("beta", "0.0", "1/pressure"))
+    itype, iparms = integrator_parms_from_deck(db, cfg.integrator_name)
+
+    n_constraints = sysobj.get_int("nConstraints", 0)
+    if bonded is not None and bonded.n_constraints > 0:
+        n_constraints = bonded.n_constraints  # countConstraints analog
 
     # --- random seed ---------------------------------------------------------------
     seed = 0
@@ -226,5 +253,22 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
         potentials=potentials, box=box, state=state, collection=col,
         neighbor_deltaR=deltaR, rcut_max=rcut_max,
         integrator_type=itype, integrator_parms=iparms,
-        n_constraints=sysobj.get_int("nConstraints", 0), random_seed=seed,
+        n_constraints=n_constraints, random_seed=seed, bonded=bonded,
+        residue_instances=residue_instances,
     )
+
+
+def integrator_parms_from_deck(db: ObjectDB, name: str):
+    """(type, parms) for an INTEGRATOR deck object: the thermostat target
+    and the Berendsen barostat parameters of NGLFCONSTRAINT
+    (nglfconstraint.c:64-85)."""
+    iobj = db.get(name, "INTEGRATOR")
+    itype = iobj.get_str("type").upper()
+    iparms = dict(
+        T=iobj.get_with_units("T", "310", "T"),
+        P0=iobj.get_with_units("P0", "0.0", "pressure"),
+        beta=iobj.get_with_units("beta", "0.0", "1/pressure"),
+        tauBarostat=iobj.get_with_units("tauBarostat", "0.0", "t"),
+        isotropic=bool(iobj.get_int("isotropic", 0)),
+    )
+    return itype, iparms

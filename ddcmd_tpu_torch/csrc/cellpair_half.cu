@@ -1,10 +1,14 @@
 // Half-stencil (Newton's third law) cell-pair kernel: shifted LJ plus
-// optional reaction-field Coulomb, for the Martini/PAIR nonbond term.
+// optional reaction-field Coulomb, for the Martini/PAIR nonbond term,
+// optionally with in-kernel bonded-pair exclusions.
 //
 // Replaces the TPU kernel ddcmd_tpu/ops/pallas_cellpair.py:_kernel_half
 // (tile math in _pair_tile, bcast variant).  Same record contract:
 //   slots    (ncell, 8, cap) f32, rows [x y z q type valid ex6 ex7],
-//            cell-centred coordinates, cells filled rank-contiguously
+//            cell-centred coordinates, cells filled rank-contiguously;
+//            ex6 = exclusion component id, ex7 = B + 2^-(intra+1) with B
+//            the particle's exclusion bitmask over its component
+//            (run/forces.py:_excl_channels; zero rows without exclusions)
 //   stencil  (ncell, S*4) int32 [cell dx dy dz]*S, self block first
 //   L8       8 f32 [L/n (3), rcut^2, 0...]
 //   counts   (ncell,) int32 per-cell occupancy
@@ -37,6 +41,13 @@
 // periodic images become atomics; sums are therefore not deterministic
 // and every comparison states a tolerance.
 //
+// Exclusions (kExcl): pair (p, q) is masked -- no LJ, no RF, nothing --
+// when the component ids match and bit intra_q of B_p is set, decoded as
+// parity(floor(B_p * 2^-intra_q)) from the f32 channels (_pair_tile:
+// 205-222).  B < 2^12 and 2^-intra >= 2^-11, so every step of that test
+// is exact in f32.  The bonded rf_add term adds back the RF part the
+// reference keeps for excluded pairs; nothing is computed and subtracted.
+//
 // Built with nvcc -O3 for sm_90a, without --use_fast_math and with
 // --fmad=false: the division is IEEE and the distance arithmetic rounds
 // exactly as the plain PyTorch twin's, so both take the same cutoff
@@ -55,7 +66,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool kCoulomb>
+template <bool kCoulomb, bool kExcl>
 __global__ void __launch_bounds__(1024)
 cellpair_half_kernel(const float* __restrict__ slots,
                      const int* __restrict__ stencil,
@@ -76,7 +87,9 @@ cellpair_half_kernel(const float* __restrict__ slots,
   float* qq = qz + cap;          // charge
   float* qt = qq + cap;          // LJ type (exact small integer in f32)
   float* qv = qt + cap;          // valid
-  float* aq = qv + cap;          // 4*cap q-side sums [fx fy fz pe]
+  float* qm = qv + cap;          // exclusion component id
+  float* qw = qm + cap;          // 2^-(intra+1): the fraction of ex7
+  float* aq = qw + cap;          // 4*cap q-side sums [fx fy fz pe]
   float* tab = aq + 4 * cap;     // 3*T*T [sigma eps shift]
   __shared__ float red[kMaxWarps][7];
 
@@ -102,6 +115,11 @@ cellpair_half_kernel(const float* __restrict__ slots,
   qq[i] = Q[3 * cap + i];
   qt[i] = Q[4 * cap + i];
   qv[i] = Q[5 * cap + i];
+  if (kExcl) {
+    qm[i] = Q[6 * cap + i];
+    const float w7 = Q[7 * cap + i];
+    qw[i] = w7 - floorf(w7);
+  }
   aq[i] = 0.f;
   aq[cap + i] = 0.f;
   aq[2 * cap + i] = 0.f;
@@ -124,6 +142,8 @@ cellpair_half_kernel(const float* __restrict__ slots,
     // T == 1 (uniform type): one parameter set whatever the type rows say
     const int prow = T == 1 ? 0 : static_cast<int>(P[4 * cap + i]) * T;
     const float pv = P[5 * cap + i];
+    const float pm = kExcl ? P[6 * cap + i] : 0.f;
+    const float pb = kExcl ? floorf(P[7 * cap + i]) : 0.f;   // B_p
     int j = i % nq;
     for (int k = 0; k < nq; ++k, j = (j + 1 == nq) ? 0 : j + 1) {
       if (s == 0 && j <= i) continue;   // self block: each pair once
@@ -132,6 +152,10 @@ cellpair_half_kernel(const float* __restrict__ slots,
       const float dz = pz - qz[j];
       const float d2 = dx * dx + dy * dy + dz * dz;
       if (!(pv * qv[j] > 0.f) || !(d2 < rcut2)) continue;
+      if (kExcl && pm == qm[j]) {
+        const float t_bit = floorf(pb * (qw[j] + qw[j]));  // B_p / 2^intra_q
+        if (t_bit - 2.0f * floorf(t_bit * 0.5f) > 0.5f) continue;
+      }
       const int pt = T == 1 ? 0 : prow + static_cast<int>(qt[j]);
       const float sg = tab[pt];
       const float ep = tab[TT + pt];
@@ -199,23 +223,23 @@ cellpair_half_kernel(const float* __restrict__ slots,
   }
 }
 
-template <bool kCoulomb>
+template <bool kCoulomb, bool kExcl>
 cudaError_t launch(const float* slots, const int* stencil, const float* L8,
                    const int* counts, const float* sigma, const float* eps,
                    const float* shift, float* out_p, float* out_q,
                    float* out_cell, int ncell, int cap, int n_stencil, int T,
                    float krf, float crf, float keR, cudaStream_t stream) {
   const size_t smem =
-      (10 * static_cast<size_t>(cap) + 3 * static_cast<size_t>(T) * T) *
+      (12 * static_cast<size_t>(cap) + 3 * static_cast<size_t>(T) * T) *
       sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        cellpair_half_kernel<kCoulomb>,
+        cellpair_half_kernel<kCoulomb, kExcl>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(n_stencil, ncell);
-  cellpair_half_kernel<kCoulomb><<<grid, cap, smem, stream>>>(
+  cellpair_half_kernel<kCoulomb, kExcl><<<grid, cap, smem, stream>>>(
       slots, stencil, L8, counts, sigma, eps, shift, out_p, out_q, out_cell,
       cap, n_stencil, T, krf, crf, keR);
   return cudaGetLastError();
@@ -232,14 +256,16 @@ extern "C" int ddcmd_cellpair_half(const float* slots, const int* stencil,
                                    float* out_q, float* out_cell, int ncell,
                                    int cap, int n_stencil, int T, float krf,
                                    float crf, float keR, int coulomb,
-                                   void* stream) {
+                                   int excl, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      coulomb ? launch<true>(slots, stencil, L8, counts, sigma, eps, shift,
-                             out_p, out_q, out_cell, ncell, cap, n_stencil, T,
-                             krf, crf, keR, st)
-              : launch<false>(slots, stencil, L8, counts, sigma, eps, shift,
-                              out_p, out_q, out_cell, ncell, cap, n_stencil,
-                              T, krf, crf, keR, st);
+  auto go = [&](auto fn) {
+    return fn(slots, stencil, L8, counts, sigma, eps, shift, out_p, out_q,
+              out_cell, ncell, cap, n_stencil, T, krf, crf, keR, st);
+  };
+  cudaError_t err;
+  if (coulomb)
+    err = excl ? go(launch<true, true>) : go(launch<true, false>);
+  else
+    err = excl ? go(launch<false, true>) : go(launch<false, false>);
   return static_cast<int>(err);
 }

@@ -1,17 +1,26 @@
-"""NGLF integrator: leapfrog with GROUP half-kicks.
+"""NGLF integrator family: leapfrog with GROUP half-kicks.
 
 Counterpart of ddcmd_tpu/integrators/nglf.py (reference nglf, ddcMD
-src/nglf.c:67-112) without barostat, constraints, shear hooks or box(t):
+src/nglf.c:67-112; NGLFCONSTRAINT, src/nglfconstraint.c) without shear
+hooks or box(t):
 
+  0. NGLFCONSTRAINT with beta > 0: Berendsen barostat
+     (changeVolume, nglfconstraint.c:64-85,510-575) -- from the molecular
+     pressure tensor, lambda = cbrt(1 + (P - P0) beta dt / tau),
+     semi-anisotropic (Pxx, Pyy averaged; Pzz separate) or isotropic;
+     h <- diag(lambda) h, positions rescaled
   1. GROUP velocityUpdate(FRONT, 0.5 dt)     [half kick]
+     + constraint projection (front mode, live box)
   2. r += dt v                                [drift]
   3. forces
   4. GROUP velocityUpdate(BACK, 0.5 dt)      [half kick]
+     + RATTLE projection (back mode, live box)
   5. kinetic terms
 
 Positions are NOT wrapped after the drift: the cell-pair engine's static
 image shifts need positions consistent with the rebuild-time binning, so
-the run loop wraps at each rebuild instead.
+the run loop wraps at each rebuild instead.  The barostat's affine
+rescale keeps them consistent: cell centres scale with the box.
 """
 
 from __future__ import annotations
@@ -20,8 +29,11 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
+import torch
+
 from ..core.energy import EnergyInfo, kinetic_terms
 from ..core.groups import velocity_update
+from ..objects import units as U
 
 
 @dataclass
@@ -39,20 +51,57 @@ class StepState:
         return dataclasses.replace(self, **kw)
 
 
-def make_nglf_step(force_fn: Callable, dt: float):
+def barostat_scale(state, box, virial, barostat: dict, dt: float,
+                   molecular_virial_fn: Callable | None = None):
+    """Berendsen box rescale at the start of a step (changeVolume,
+    nglfconstraint.c:518-527): returns (state, box) with h <- diag(lam) h
+    and positions rescaled.  `virial` is the last force evaluation's;
+    the pressure tensor uses the molecular virial and the target T."""
+    if molecular_virial_fn is not None:
+        virial = molecular_virial_fn(state, box, virial)
+    kT = barostat["T"] * U.kB
+    eye = torch.eye(3, dtype=virial.dtype, device=virial.device)
+    p_tensor = ((virial + barostat["n_molecules"] * kT * eye) / box.volume
+                - barostat["P0"] * eye)
+    btt = barostat["beta"] * dt / barostat["tau"]
+    if barostat["isotropic"]:
+        p_iso = torch.trace(p_tensor) / 3.0
+        lam = torch.pow(1.0 + p_iso * btt, 1.0 / 3.0).expand(3)
+    else:
+        # semi-anisotropic: Pxx and Pyy averaged, Pzz separate
+        pxx = 0.5 * (p_tensor[0, 0] + p_tensor[1, 1])
+        lam = torch.pow(1.0 + torch.stack([pxx, pxx, p_tensor[2, 2]]) * btt,
+                        1.0 / 3.0)
+    return state.replace(r=state.r * lam), box.scale(lam)
+
+
+def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
+                   constraint_fn: Callable | None = None,
+                   molecular_virial_fn: Callable | None = None):
     """step(ss, handle, coeffs, noise_front, noise_back) -> StepState.
 
     force_fn(state, box, handle) -> (f (N,3), e_pot, virial (3,3), pe (N,));
     noise_front/noise_back: (n_pad, 3) standard-normal draws for the two
-    half-kicks (core.groups.kick_noise)."""
+    half-kicks (core.groups.kick_noise).
+    barostat: None or dict(P0, beta, tau, T, isotropic, n_molecules).
+    constraint_fn(state, dt, mode, box_lengths) -> state with projected
+    velocities; molecular_virial_fn(state, box, virial) -> the virial
+    corrected for intra-molecular force moments."""
 
     def step(ss: StepState, handle, coeffs, noise_front, noise_back):
         state, box = ss.state, ss.box
         half = 0.5 * dt
-        mask = state.mask
+        if barostat is not None:
+            state, box = barostat_scale(state, box, ss.energy.virial,
+                                        barostat, dt, molecular_virial_fn)
 
+        mask = state.mask
         v = velocity_update("front", state.v, state.f, state.mass,
                             state.group, coeffs, half, noise_front, mask)
+        if constraint_fn is not None:
+            # live box geometry: the barostat above may have rescaled it
+            v = constraint_fn(state.replace(v=v), dt, "front",
+                              box_lengths=box.lengths).v
         state = state.replace(v=v, r=state.r + dt * v)
 
         f, e_pot, virial, pe = force_fn(state, box, handle)
@@ -60,6 +109,9 @@ def make_nglf_step(force_fn: Callable, dt: float):
 
         v = velocity_update("back", state.v, f, state.mass, state.group,
                             coeffs, half, noise_back, mask)
+        if constraint_fn is not None:
+            v = constraint_fn(state.replace(v=v), dt, "back",
+                              box_lengths=box.lengths).v
         state = state.replace(v=v)
 
         fmask = state.fmask

@@ -1,5 +1,6 @@
-"""Model families: programmatic deck builders (the Martini water box)."""
+"""Model families: programmatic deck builders (the Martini water box and
+the Martini DPPC bilayer)."""
 
-from .builders import load, martini_water, write_atoms
+from .builders import load, martini_bilayer, martini_water, write_atoms
 
-__all__ = ["load", "martini_water", "write_atoms"]
+__all__ = ["load", "martini_bilayer", "martini_water", "write_atoms"]

@@ -1,9 +1,10 @@
 """Programmatic model families: deck builders for canonical systems.
 
 A copy of the JAX package's builders, cut to the families the port runs:
-the Martini water box (the main path), the atoms-file writer and the
-loader.  Everything is written in the same deck grammar the parser reads
-back (objects/parser.py), so both packages build identical decks.
+the Martini water box (slice 1), the Martini DPPC bilayer (slice 2), the
+atoms-file writer and the loader.  Everything is written in the same deck
+grammar the parser reads back (objects/parser.py), so both packages build
+identical decks.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import os
 
 import numpy as np
 
-__all__ = ["write_atoms", "martini_water", "load"]
+__all__ = ["write_atoms", "martini_water", "martini_bilayer", "load"]
 
 
 def write_atoms(path, r, v, species, groups, h, classes=None):
@@ -88,6 +89,224 @@ P4_P4 LJPARMS { atomtypeI=P4; indexI=0; atomtypeJ=P4; indexJ=0;
         f.write(deck)
     with open(os.path.join(out_dir, "martini.data"), "w") as f:
         f.write(mmff)
+    return out_dir
+
+
+# ---------------------------------------------------------------------------
+# Martini DPPC-like bilayer (the reference's production-class workload:
+# the full bioMartini pipeline ddcMD src/bioMartini.c:1357 --
+# nonbond + bonds + cosine angles + constraints (genConstraint :445) +
+# RF electrostatics + semi-anisotropic NPT, at ~100k beads)
+# ---------------------------------------------------------------------------
+
+# 12-bead DPPC topology (atom order = RTF order = species signature):
+#   0 NC3(Q0,+1)  1 PO4(Qa,-1)  2 GL1(Na)  3 GL2(Na)
+#   4-7 C1A..C4A(C1)            8-11 C1B..C4B(C1)
+_DPPC_ATOMS = [("NC3", "Q0", 1.0), ("PO4", "Qa", -1.0),
+               ("GL1", "Na", 0.0), ("GL2", "Na", 0.0),
+               ("C1A", "C1", 0.0), ("C2A", "C1", 0.0),
+               ("C3A", "C1", 0.0), ("C4A", "C1", 0.0),
+               ("C1B", "C1", 0.0), ("C2B", "C1", 0.0),
+               ("C3B", "C1", 0.0), ("C4B", "C1", 0.0)]
+# harmonic bonds (i, j, b0 nm); kb = 1250 kJ/mol/nm^2 (Martini v2 DPPC)
+_DPPC_BONDS = [(1, 2, 0.47), (2, 3, 0.37), (2, 4, 0.47), (4, 5, 0.47),
+               (5, 6, 0.47), (6, 7, 0.47), (3, 8, 0.47), (8, 9, 0.47),
+               (9, 10, 0.47), (10, 11, 0.47)]
+# G96 cosine angles (i, j, k, theta0 deg); k = 25 kJ/mol.  The MMFF
+# func=2 form is kt*(cosA - t0)^2 so kt = k/2, t0 = cos(theta0).
+_DPPC_ANGLES = [(1, 2, 3, 120.0), (1, 2, 4, 180.0), (2, 4, 5, 180.0),
+                (4, 5, 6, 180.0), (5, 6, 7, 180.0), (3, 8, 9, 180.0),
+                (8, 9, 10, 180.0), (9, 10, 11, 180.0)]
+# the NC3-PO4 link rides the constraint solver (r0 = 0.47) so the
+# workload exercises genConstraint/NGLFCONSTRAINT at scale.  (Standard
+# Martini DPPC uses a 1250 bond here; divergence is intentional and the
+# physics is equivalent at dt=20fs.)
+_DPPC_CONS = [(0, 1, 0.47)]
+
+# Martini v2-level LJ matrix for the 5 bead types used here.
+_LJ_TYPES = ["Q0", "Qa", "Na", "C1", "P4"]
+_LJ_EPS = {("Q0", "Q0"): 3.5, ("Q0", "Qa"): 4.5, ("Q0", "Na"): 4.0,
+           ("Q0", "C1"): 2.0, ("Q0", "P4"): 5.6,
+           ("Qa", "Qa"): 5.0, ("Qa", "Na"): 4.0, ("Qa", "C1"): 2.0,
+           ("Qa", "P4"): 5.6,
+           ("Na", "Na"): 4.0, ("Na", "C1"): 2.7, ("Na", "P4"): 4.0,
+           ("C1", "C1"): 3.5, ("C1", "P4"): 2.0,
+           ("P4", "P4"): 5.0}
+# super-repulsive charged/apolar pairs get the wide core (Martini v2)
+_LJ_SIGMA_BIG = {("Q0", "C1"), ("Qa", "C1")}
+
+
+def _dppc_mmff() -> str:
+    """MMFF object tree for DPPC + W (bioMMFF.c schema)."""
+    out = ["bilayer MMFF {",
+           "  resiParms= DPPC W ;",
+           "  atomTypeList= " + " ".join(_LJ_TYPES) + " ;",
+           "  ljParms= " + " ".join(
+               f"{a}_{b}" for i, a in enumerate(_LJ_TYPES)
+               for b in _LJ_TYPES[i:]) + " ;",
+           "}"]
+    for i, t in enumerate(_LJ_TYPES):
+        out.append(f"{t} MASSPARMS {{ atomType={t}; atomTypeID={i}; "
+                   f"mass=72.0 amu; }}")
+    for i, a in enumerate(_LJ_TYPES):
+        for b in _LJ_TYPES[i:]:
+            eps = _LJ_EPS[(a, b)]
+            sig = 0.62 if (a, b) in _LJ_SIGMA_BIG else 0.47
+            out.append(f"{a}_{b} LJPARMS {{ atomtypeI={a}; "
+                       f"indexI={_LJ_TYPES.index(a)}; atomtypeJ={b}; "
+                       f"indexJ={_LJ_TYPES.index(b)}; sigma={sig} nm; "
+                       f"eps={eps} kJ*mol^-1; }}")
+    atoms = " ".join(f"DPPC_{an}" for an, _, _ in _DPPC_ATOMS)
+    out += [
+        "DPPC RESIPARMS {",
+        "  resID=1; resType=0; resName=DPPC; charge=0.0;",
+        "  groupList=DPPC_g0; centerAtom=0;",
+        "  bondList= " + " ".join(f"DPPC_b{i}"
+                                  for i in range(len(_DPPC_BONDS))) + " ;",
+        "  angleList= " + " ".join(f"DPPC_a{i}"
+                                   for i in range(len(_DPPC_ANGLES))) + " ;",
+        "  constraintList= DPPC_cl ;",
+        "}",
+        f"DPPC_g0 GROUPPARMS {{ groupID=0; atomList= {atoms} ; }}",
+    ]
+    for aid, (an, at, q) in enumerate(_DPPC_ATOMS):
+        out.append(f"DPPC_{an} ATOMPARMS {{ atomID={aid}; atomName={an}; "
+                   f"atomType={at}; atomTypeID={_LJ_TYPES.index(at)}; "
+                   f"charge={q}; mass=72.0 amu; }}")
+    for bi, (i, j, b0) in enumerate(_DPPC_BONDS):
+        out.append(f"DPPC_b{bi} BONDPARMS {{ atomI={i}; atomJ={j}; func=1; "
+                   f"kb=1250 kJ*mol^-1*nm^-2; b0={b0} nm; }}")
+    for ai, (i, j, k, th0) in enumerate(_DPPC_ANGLES):
+        t0 = np.cos(np.deg2rad(th0))
+        out.append(f"DPPC_a{ai} ANGLEPARMS {{ atomI={i}; atomJ={j}; "
+                   f"atomK={k}; func=2; ktheta=12.5 kJ*mol^-1; "
+                   f"theta0={t0:.6f}; }}")
+    out.append("DPPC_cl CONSLISTPARMS { constraintSubList= "
+               + " ".join(f"DPPC_c{i}" for i in range(len(_DPPC_CONS)))
+               + " ; }")
+    for ci, (i, j, r0) in enumerate(_DPPC_CONS):
+        out.append(f"DPPC_c{ci} CONSPARMS {{ atomI={i}; atomJ={j}; func=1; "
+                   f"r0={r0} nm; }}")
+    out += [
+        "W RESIPARMS { resID=2; resType=0; resName=W; charge=0.0;",
+        "  groupList=W_g0; centerAtom=0; }",
+        "W_g0 GROUPPARMS { groupID=0; atomList= W_W ; }",
+        "W_W ATOMPARMS { atomID=0; atomName=W; atomType=P4; "
+        f"atomTypeID={_LJ_TYPES.index('P4')}; charge=0.0; mass=72.0 amu; }}",
+    ]
+    return "\n".join(out) + "\n"
+
+
+def martini_bilayer(out_dir, *, nx=48, ny=48, apl_nm2=0.64, water_nm=2.2,
+                    density_nm3=7.47, T=323.0, dt_fs=20.0, seed=4,
+                    beta_per_bar=3.0e-4, tau_ps=1.0, isotropic=0):
+    """DPPC-like Martini bilayer in water: 2*nx*ny lipids (12 beads each)
+    + two water slabs of thickness `water_nm`.  Defaults give ~100k beads
+    (48x48: 55,296 lipid + ~45,000 W).  Semi-anisotropic NPT via
+    NGLFCONSTRAINT (changeVolume, ddcMD src/nglfconstraint.c:64).
+
+    The start is built NEAR EQUILIBRIUM on purpose: apl 0.64 nm^2 (fluid
+    DPPC/Martini at 323 K), ladder spacing = bond b0, Maxwell-Boltzmann
+    velocities at T.  A colder/denser lattice start (apl 0.55, 0 K)
+    relaxed so violently under dt=20 fs NPT that the potential-energy
+    avalanche overheated the box to ~4800 K and core overlaps tripped
+    the kill switch faster than the rollback ladder could recover."""
+    rng = np.random.default_rng(seed)
+    a = float(np.sqrt(apl_nm2))          # in-plane lattice (nm)
+    Lx, Ly = nx * a, ny * a
+    dzb = 0.47                           # bead ladder spacing = bond b0 (nm)
+    z_gl = 2.10                          # glycerol plane: C4 tails end at
+    #                                      z=0.30, leaving a 0.6 nm
+    #                                      inter-leaflet gap
+    z_head = z_gl + 2 * dzb              # NC3 at 3.0
+    z_w0 = z_head + 0.30                 # water slab starts
+    Lz = 2.0 * (z_w0 + water_nm)
+
+    # per-lipid bead template (dx, dy, z), TOP leaflet.  The sn-2 chain
+    # sits on the (a/2, a/2) checkerboard so all chain columns form a
+    # square sub-lattice of spacing a/sqrt(2) (~0.57 nm > sigma): no
+    # chain-chain core overlaps at apl ~0.64.
+    bx = a / 2
+    g2 = 0.37 / np.sqrt(2.0)             # GL1->GL2 diagonal (|b0| = 0.37)
+    tmpl = [(0.0, 0.0, z_gl + 2 * dzb),          # NC3
+            (0.0, 0.0, z_gl + dzb),              # PO4
+            (0.0, 0.0, z_gl),                    # GL1
+            (g2, g2, z_gl),                      # GL2
+            (0.0, 0.0, z_gl - dzb), (0.0, 0.0, z_gl - 2 * dzb),
+            (0.0, 0.0, z_gl - 3 * dzb), (0.0, 0.0, z_gl - 4 * dzb),
+            (bx, bx, z_gl - dzb), (bx, bx, z_gl - 2 * dzb),
+            (bx, bx, z_gl - 3 * dzb), (bx, bx, z_gl - 4 * dzb)]
+    names = [an for an, _, _ in _DPPC_ATOMS]
+
+    r, species = [], []
+    for leaf in (+1, -1):
+        for ix in range(nx):
+            for iy in range(ny):
+                x0 = (ix + 0.25) * a - Lx / 2 + rng.uniform(-0.02, 0.02)
+                y0 = (iy + 0.25) * a - Ly / 2 + rng.uniform(-0.02, 0.02)
+                for (dx, dy, z) in tmpl:
+                    r.append((x0 + dx, y0 + dy, leaf * z))
+                species.extend(f"{an}xDPPC" for an in names)
+    n_lipid_beads = len(r)
+
+    # water slabs on a jittered cubic grid at the waterbox density
+    # (round, don't floor: floored counts with span-filling spacing left
+    # the slab ~40% under-dense and the barostat collapsed the vacuum)
+    s = (1.0 / density_nm3) ** (1.0 / 3.0)
+    mx, my = max(1, round(Lx / s)), max(1, round(Ly / s))
+    mz = max(1, round(water_nm / s))
+    for leaf in (+1, -1):
+        for ix in range(mx):
+            for iy in range(my):
+                for iz in range(mz):
+                    x = (ix + 0.5) * Lx / mx - Lx / 2
+                    y = (iy + 0.5) * Ly / my - Ly / 2
+                    z = leaf * (z_w0 + (iz + 0.5) * water_nm / mz)
+                    jit = rng.uniform(-0.04, 0.04, 3)
+                    r.append((x + jit[0], y + jit[1], z + jit[2]))
+                    species.append("WxW")
+    n = len(r)
+    r = np.asarray(r) * 10.0             # -> Angstrom for write_atoms
+    # Maxwell-Boltzmann at T (all beads 72 amu): nm/ps -> Angstrom/fs
+    from ..objects.units import kB
+
+    v = rng.normal(size=(n, 3)) * np.sqrt(kB * T / 72.0) * 0.01
+    write_atoms(os.path.join(out_dir, "atoms#000000"), r, v, species,
+                ["free"] * n, np.diag([Lx * 10, Ly * 10, Lz * 10]))
+
+    lipid_species = " ".join(f"{an}xDPPC" for an in names)
+    # SPECIES declarations carry mass/charge (reference decks declare
+    # every <atomName>x<resName> species; examples/waterbox/object.data:111)
+    species_decls = "\n".join(
+        f"{an}xDPPC SPECIES {{ type=ATOM; charge={q}; id={i}; "
+        f"mass=72.0 amu; }}"
+        for i, (an, _, q) in enumerate(_DPPC_ATOMS)) + (
+        f"\nWxW SPECIES {{ type=ATOM; charge=0.0; id={len(_DPPC_ATOMS)}; "
+        f"mass=72.0 amu; }}")
+    deck = f"""
+simulate SIMULATE {{ type=MD; system=system; integrator=integ; dt={dt_fs};
+  maxloop=1000000; printrate=200; checkpointrate=50000; ddc=ddc; }}
+ddc DDC {{ updateRate=12; }}
+bilayer POTENTIAL {{ type=MARTINI; parmfile=bilayer.data;
+  cutoff=11 Angstrom; rcoulomb=11 Angstrom; epsilon_r=15; epsilon_rf=-1; }}
+integ INTEGRATOR {{ type=NGLFCONSTRAINT; T={T}K; P0=1.0 bar;
+  beta={beta_per_bar}/bar; tauBarostat={tau_ps} ps; isotropic={isotropic}; }}
+system SYSTEM {{ type=NORMAL; potential=bilayer; neighbor=nbr; groups=free;
+  box=box; collection=collection; moleculeClass=moleculeClass; }}
+box BOX {{ type=ORTHORHOMBIC; pbc=7;
+  h= {Lx * 10:.6f} 0 0 0 {Ly * 10:.6f} 0 0 0 {Lz * 10:.6f} ; }}
+nbr NEIGHBOR {{ type=NORMAL; deltaR=3.0 Angstrom; }}
+free GROUP {{ type=LANGEVIN; Teq={T}K; tau=1.0ps; }}
+collection COLLECTION {{ mode=VARRECORDASCII; size={n}; files=atoms#; }}
+moleculeClass MOLECULECLASS {{ molecules= DppcM WatM ; }}
+DppcM MOLECULE {{ ownershipSpecies=NC3xDPPC; species= {lipid_species} ; }}
+WatM MOLECULE {{ ownershipSpecies=WxW; species= WxW ; }}
+{species_decls}
+"""
+    with open(os.path.join(out_dir, "object.data"), "w") as f:
+        f.write(deck)
+    with open(os.path.join(out_dir, "bilayer.data"), "w") as f:
+        f.write(_dppc_mmff())
     return out_dir
 
 

@@ -1,22 +1,32 @@
-"""Half-stencil cell-pair engine: planning, slot packing and the kernel.
+"""Half-stencil cell-pair engine: planning, slot packing and the kernels.
 
-Counterpart of ddcmd_tpu/ops/pallas_cellpair.py for the main path:
+Counterpart of ddcmd_tpu/ops/pallas_cellpair.py for the main paths:
 `plan_lanes` (fat cells sized to a lane capacity), `pack_stencil` and
-`pack_slots` (the (ncell, 8, cap) record contract), the kernel wrapper
-`cellpair_half` with its plain PyTorch twin `cellpair_half_plain`, and
-`cellpair_eval_half` (the counterpart of pallas_cellpair_eval_half):
-pack, run the kernel, scatter the per-slot results back to particles.
+`pack_slots` (the (ncell, 8, cap) record contract, with the in-kernel
+exclusion channels in rows 6-7), the column plan (`choose_col_group`,
+`col_plan_grid`, `pack_stencil_col`), two kernels with their plain
+PyTorch twins:
 
-The kernel is hand-written CUDA (csrc/cellpair_half.cu).  It is compiled
-with nvcc on first use into `ddcmd_tpu_torch/_build/` and loaded with
-ctypes; nothing is compiled or imported for it when this module loads.
-On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
-launches the kernel or raises.
+  cellpair_half      / cellpair_half_plain      per-cell kernel (TPU #1)
+  cellpair_half_col  / cellpair_half_col_plain  column kernel   (TPU #2)
+
+and `cellpair_eval_half` (the counterpart of pallas_cellpair_eval_half):
+pack, run the kernel the plan picks, scatter the per-slot results back to
+particles.
+
+The kernels are hand-written CUDA (csrc/cellpair_half.cu,
+csrc/cellpair_half_col.cu), compiled with nvcc on first use into
+`ddcmd_tpu_torch/_build/` (one nvcc process per source, started
+together) and loaded with ctypes; nothing is compiled or imported for
+them when this module loads.  On a CPU tensor a wrapper runs its plain
+twin; on a CUDA tensor it launches its kernel or raises.
 
 The TPU kernel's `_alias_groups_half` (merging stencil directions that
 reach one cell through two periodic images before its in-order q-side
-read-modify-write) has no counterpart: the CUDA kernel adds the q side
-with atomics and the twin with index_add_, both exact under aliasing.
+read-modify-write) has no counterpart: the CUDA kernels add the q side
+with atomics and the twins with index_add_, both exact under aliasing.
+The column plan keeps JAX's alias-deduplicated union all the same, so
+the union tables equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,18 +41,22 @@ import threading
 import numpy as np
 import torch
 
-from .cellpair import CellBlockGrid, _build_stencil, _cell_coords
+from .cellpair import CellBlockGrid, _build_stencil, _cell_coords, _half_dirs
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "cellpair_half.cu")
 _BUILD = os.path.join(_PKG, "_build")
-_LIB_PATH = os.path.join(_BUILD, "libcellpair_half.so")
+# kernel name -> CUDA source; each builds into _build/lib<name>.so
+KERNEL_SOURCES = {
+    name: os.path.join(_PKG, "csrc", name + ".cu")
+    for name in ("cellpair_half", "cellpair_half_col")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# shared memory a block may use on sm_90 (227 KB)
+SMEM_LIMIT = 232448
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -53,13 +67,16 @@ LANE_CAP = 128
 
 
 def plan_lanes(box_lengths, rcut: float, skin: float, n_particles: int,
-               density_safety: float = 1.3) -> CellBlockGrid:
+               density_safety: float = 1.3,
+               plan_margin: float = 1.0) -> CellBlockGrid:
     """Plan a FAT cell grid: cells as large as the lane capacity allows
     (expected occupancy * safety <= LANE_CAP) but never smaller than
-    rlist, then greedily coarsened; cap rounds up to a multiple of 128.
-    Same plan as the JAX package at its defaults (static box)."""
+    rlist * plan_margin, then greedily coarsened; cap rounds up to a
+    multiple of 128.  plan_margin > 1 reserves shrink headroom for NPT
+    runs.  Same plan as the JAX package at its default lane cap."""
     L = np.asarray(box_lengths, dtype=np.float64)
     rlist = rcut + skin
+    rplan = rlist * plan_margin
     vol = float(np.prod(L))
     density = n_particles / vol
 
@@ -72,14 +89,14 @@ def plan_lanes(box_lengths, rcut: float, skin: float, n_particles: int,
 
     edge_cap = ((LANE_CAP - 4) / (density * density_safety)) ** (1.0 / 3.0)
     ncells = [min(max(1, int(math.ceil(l / edge_cap))),
-                  max(1, int(math.floor(l / rlist)))) for l in L]
+                  max(1, int(math.floor(l / rplan)))) for l in L]
     # refine to feasibility (the closed-form edge ignores the Poisson
     # tail), adding cells on the fattest axis while the rlist floor allows
     for _ in range(64):
         if need(ncells) <= LANE_CAP:
             break
         grow = [i for i in range(3)
-                if ncells[i] + 1 <= max(1, int(math.floor(L[i] / rlist)))]
+                if ncells[i] + 1 <= max(1, int(math.floor(L[i] / rplan)))]
         if not grow:
             break                        # rlist-floored: cap absorbs the rest
         i = max(grow, key=lambda j: L[j] / ncells[j])
@@ -126,22 +143,94 @@ def frac_centers(grid: CellBlockGrid) -> np.ndarray:
     return (c3 + np.float32(0.5)) / n - np.float32(0.5)
 
 
-def grid_tensors(grid: CellBlockGrid, device) -> dict:
+# ---------------------------------------------------------------------------
+# the column plan (TPU kernel #2's host side)
+# ---------------------------------------------------------------------------
+
+def choose_col_group(grid: CellBlockGrid) -> int:
+    """Column-group size G for the column kernel: G z-contiguous cells
+    share one CTA and one staged union of stencil blocks.  The JAX
+    package's rule for its default (bcast) variant: grids under 256 cells
+    stay on the per-cell kernel; otherwise the largest G <= g_max that
+    divides nz, with g_max 5 at cap <= 128 and 3 above."""
+    nz = grid.ncells[2]
+    if grid.ncell < 256:
+        return 1
+    g_max = 5 if grid.cap <= 128 else 3
+    for G in range(min(g_max, nz), 1, -1):
+        if nz % G == 0 and grid.ncell > G:
+            return G
+    return 1
+
+
+def col_plan_grid(grid: CellBlockGrid, G: int):
+    """(union_dirs, member_u) for a column of G z-contiguous cells: the
+    distinct (dx, dy, dzu) block offsets from the column's base cell,
+    deduplicated by periodic alias class (on small-nz grids several union
+    directions reach one cell through different images, e.g. dzu = -1 and
+    G-1 when nz == G), and member_u[g][s] = the union index of member g's
+    s-th half-stencil block.  The per-member image shift stays the static
+    direction (dz = dzu - g); only the block index changes."""
+    nx, ny, nz = grid.ncells
+    dirs = _half_dirs()
+    raw = sorted({(dx, dy, dz + g) for (dx, dy, dz) in dirs
+                  for g in range(G)})
+    reps: dict = {}
+    for d in raw:
+        reps.setdefault((d[0] % nx, d[1] % ny, d[2] % nz), d)
+    union = sorted(reps.values())
+    uidx = {k: i for i, (k, _) in
+            enumerate(sorted(reps.items(), key=lambda kv: kv[1]))}
+    member = tuple(
+        tuple(uidx[(dx % nx, dy % ny, (dz + g) % nz)]
+              for (dx, dy, dz) in dirs)
+        for g in range(G))
+    return union, member
+
+
+def pack_stencil_col(grid: CellBlockGrid, G: int) -> np.ndarray:
+    """(ncol, U) int32 union-block cell ids per column (pairwise distinct
+    within a column); the image shifts are the static directions."""
+    nx, ny, nz = grid.ncells
+    assert nz % G == 0
+    union, _ = col_plan_grid(grid, G)
+    ncol = grid.ncell // G
+    base = np.arange(ncol) * G
+    cx, rem = np.divmod(base, ny * nz)
+    cy, cz = np.divmod(rem, nz)
+    out = np.zeros((ncol, len(union)), np.int32)
+    for u, (dx, dy, dzu) in enumerate(union):
+        out[:, u] = ((((cx + dx) % nx) * ny + ((cy + dy) % ny)) * nz
+                     + ((cz + dzu) % nz))
+    return out
+
+
+def grid_tensors(grid: CellBlockGrid, device, G: int = 1) -> dict:
     """The grid's constant device tensors, made once per plan so the
-    per-step path copies nothing from the host."""
-    return dict(
-        stencil=torch.as_tensor(pack_stencil(grid), device=device),
+    per-step path copies nothing from the host.  G > 1 selects the column
+    kernel: `stencil` is then pack_stencil_col's (ncol, U) table and
+    `member_u` col_plan_grid's (G, 14) map."""
+    gt = dict(
         frac_centers=torch.as_tensor(frac_centers(grid), device=device),
         ncells=torch.tensor(grid.ncells, dtype=torch.float32, device=device),
-    )
+        G=G)
+    if G > 1:
+        _, member = col_plan_grid(grid, G)
+        gt["stencil"] = torch.as_tensor(pack_stencil_col(grid, G),
+                                        device=device)
+        gt["member_u"] = torch.as_tensor(np.asarray(member, np.int32),
+                                         device=device)
+    else:
+        gt["stencil"] = torch.as_tensor(pack_stencil(grid), device=device)
+    return gt
 
 
 def pack_slots(r, q, tidx, perm, box_lengths, grid: CellBlockGrid,
-               frac_centers_t):
+               frac_centers_t, excl_vals=None):
     """(ncell, 8, cap) f32 slot records in cell-centred coordinates:
-    rows [x, y, z, q, type, valid, ex6, ex7] (ex6/ex7, the in-kernel
-    exclusion channels, are zero: exclusions are slice 2).  Returns
-    (slots, centers)."""
+    rows [x, y, z, q, type, valid, ex6, ex7].  ex6/ex7 are the in-kernel
+    exclusion channels (run/forces._excl_channels), zero without
+    exclusions.  Returns (slots, centers)."""
     n_pad = r.shape[0]
     dt = torch.float32
     ncell, cap = grid.ncell, grid.cap
@@ -152,27 +241,33 @@ def pack_slots(r, q, tidx, perm, box_lengths, grid: CellBlockGrid,
     t_ext = torch.cat([tidx.to(dt), zero])
     v_ext = torch.cat([torch.ones((n_pad,), dtype=dt, device=r.device),
                        zero])
+    if excl_vals is None:
+        ex = torch.zeros((ncell, cap, 2), dtype=dt, device=r.device)
+    else:
+        e_ext = torch.cat([excl_vals.to(dt), zero.expand(1, 2)])
+        ex = e_ext[perm].reshape(ncell, cap, 2)
     P = r_ext[perm].reshape(ncell, cap, 3) - centers[:, None, :]
     rec = torch.cat([
         P,
         q_ext[perm].reshape(ncell, cap, 1),
         t_ext[perm].reshape(ncell, cap, 1),
         v_ext[perm].reshape(ncell, cap, 1),
-        torch.zeros((ncell, cap, 2), dtype=dt, device=r.device),
+        ex,
     ], dim=2)                                                   # (C,cap,8)
     return rec.transpose(1, 2).contiguous(), centers
 
 
 # ---------------------------------------------------------------------------
-# the kernel: plain twin, build, wrapper
+# plain twins
 # ---------------------------------------------------------------------------
 
 def cellpair_half_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
-                        krf: float, crf: float, keR: float, coulomb: bool):
-    """Plain PyTorch version of the kernel (same contract and outputs).
-    Loops over the stencil blocks so memory stays at (ncell, cap, cap)
-    per block; the q side is scattered with index_add_.  `counts` is not
-    needed: empty slots carry valid = 0."""
+                        krf: float, crf: float, keR: float, coulomb: bool,
+                        excl: bool = False):
+    """Plain PyTorch version of the per-cell kernel (same contract and
+    outputs).  Loops over the stencil blocks so memory stays at (ncell,
+    cap, cap) per block; the q side is scattered with index_add_.
+    `counts` is not needed: empty slots carry valid = 0."""
     del counts
     ncell, _, cap = slots.shape
     S = stencil.shape[1] // 4
@@ -184,6 +279,9 @@ def cellpair_half_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
     px, py, pz = slots[:, 0, :, None], slots[:, 1, :, None], slots[:, 2, :, None]
     pq, pv = slots[:, 3, :, None], slots[:, 5, :, None]
     pt = slots[:, 4].long()
+    if excl:
+        # exclusion channels: row6 = component id, row7 = B + 2^-(intra+1)
+        pm, pb = slots[:, 6, :, None], torch.floor(slots[:, 7, :, None])
     upper = (torch.arange(cap, device=dev)[None, :]
              > torch.arange(cap, device=dev)[:, None])        # j > i
     out_p = torch.zeros((ncell, cap, 4), dtype=dt, device=dev)
@@ -200,6 +298,13 @@ def cellpair_half_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
         valid = (pv * Q[:, 5, None, :] > 0) & (d2 < rcut2)
         if s == 0:
             valid = valid & upper
+        if excl:
+            # a pair is masked when the components match and bit intra_q
+            # of B_p is set: every step exact in f32
+            qw = Q[:, 7, None, :] - torch.floor(Q[:, 7, None, :])
+            t_bit = torch.floor(pb * (qw + qw))
+            bit = t_bit - 2.0 * torch.floor(t_bit * 0.5)
+            valid = valid & ~((pm == Q[:, 6, None, :]) & (bit > 0.5))
         w = valid.to(dt)
         d2s = torch.where(valid, d2, torch.ones_like(d2))
         ir2 = 1.0 / d2s
@@ -235,155 +340,303 @@ def cellpair_half_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
     return out_p.reshape(ncell * cap, 4), out_q, out_cell
 
 
+def col_to_cell_stencil(stencil_col, member_u):
+    """The per-cell half stencil (ncell, 14*4) a column table encodes:
+    member g of column c is cell c*G + g, its s-th block the union block
+    member_u[g][s] with the static shift of direction s."""
+    ncol = stencil_col.shape[0]
+    G, S = member_u.shape
+    tgt = stencil_col[:, member_u.reshape(-1).long()].reshape(ncol, G, S)
+    d = torch.tensor(_half_dirs(), dtype=stencil_col.dtype,
+                     device=stencil_col.device)                # (S, 3)
+    packed = torch.cat([tgt[..., None], d.expand(ncol, G, S, 3)], dim=3)
+    return packed.reshape(ncol * G, S * 4).contiguous()
+
+
+def cellpair_half_col_plain(slots, stencil_col, member_u, L8, counts, sigma,
+                            eps, shift, *, krf: float, crf: float,
+                            keR: float, coulomb: bool, excl: bool = False):
+    """Plain PyTorch version of the column kernel: the same sweep as the
+    per-cell twin over the per-cell stencil the column table encodes, the
+    per-cell [e, virial6] summed per column."""
+    G = member_u.shape[0]
+    out_p, out_q, out_cell = cellpair_half_plain(
+        slots, col_to_cell_stencil(stencil_col, member_u), L8, counts,
+        sigma, eps, shift, krf=krf, crf=crf, keR=keR, coulomb=coulomb,
+        excl=excl)
+    return out_p, out_q, out_cell.reshape(-1, G, 8).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
 def nvcc_path() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/cellpair_half.cu")
+                           "build the kernels in csrc/")
     return nvcc
 
 
-def build_kernel(force: bool = False) -> str:
-    """Compile csrc/cellpair_half.cu with nvcc into _build/ (when missing,
-    older than the source, or `force`); returns the library path.  The
-    compiler's report (-Xptxas -v: registers, shared memory, spills) is
-    kept beside it in _build/cellpair_half.ptxas.txt."""
+def lib_path(name: str) -> str:
+    return os.path.join(_BUILD, f"lib{name}.so")
+
+
+def build_kernels(force: bool = False, names=None) -> dict:
+    """Compile the CUDA sources with nvcc into _build/ (those missing,
+    older than their source, or all with `force`), one nvcc process per
+    source, all started together; returns {name: library path}.  Each
+    compiler report (-Xptxas -v: registers, shared memory, spills) is kept
+    beside its library in _build/<name>.ptxas.txt."""
     with _lock:
-        return _build_locked(force)
+        return _build_locked(list(names or KERNEL_SOURCES), force)
 
 
-def _build_locked(force: bool) -> str:
-    if (not force and os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
-        return _LIB_PATH
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-    with open(os.path.join(_BUILD, "cellpair_half.ptxas.txt"), "w") as f:
-        f.write(res.stdout + res.stderr)
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
+def _build_locked(names, force: bool) -> dict:
+    todo = [n for n in names
+            if force or not os.path.exists(lib_path(n))
+            or os.path.getmtime(lib_path(n))
+            < os.path.getmtime(KERNEL_SOURCES[n])]
+    if todo:
+        os.makedirs(_BUILD, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        for n in todo:
+            tmp = f"{lib_path(n)}.{os.getpid()}.tmp"
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCES[n]],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {KERNEL_SOURCES[n]}:\n{err}")
+                continue
+            with open(os.path.join(_BUILD, f"{n}.ptxas.txt"), "w") as f:
+                f.write(out + err)
+            os.replace(tmp, lib_path(n))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return {n: lib_path(n) for n in names}
 
 
-def _kernel_lib():
-    global _lib
+_ARGTYPES = {
+    # pointers..., ints (shape), floats (krf crf keR), coulomb, excl, stream
+    "cellpair_half": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                      + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p]),
+    "cellpair_half_col": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                          + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                          + [ctypes.c_void_p]),
+}
+
+
+def _kernel_fn(name: str):
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(_build_locked(False))
-            fn = lib.ddcmd_cellpair_half
+        if name not in _libs:
+            lib = ctypes.CDLL(_build_locked([name], False)[name])
+            fn = getattr(lib, "ddcmd_" + name)
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                           + [ctypes.c_float] * 3 + [ctypes.c_int,
-                                                     ctypes.c_void_p])
-            _lib = lib
-        return _lib
+            fn.argtypes = _ARGTYPES[name]
+            _libs[name] = (lib, fn)
+        return _libs[name][1]
 
 
-def _check_args(slots, stencil, L8, counts, sigma, eps, shift):
-    if slots.dim() != 3 or slots.shape[1] != 8:
-        raise ValueError(f"slots must be (ncell, 8, cap), got {tuple(slots.shape)}")
-    ncell, _, cap = slots.shape
-    T = sigma.shape[0] if sigma.dim() == 2 else -1
-    want = {"slots": (slots, torch.float32, (ncell, 8, cap)),
-            "stencil": (stencil, torch.int32, (ncell, stencil.shape[-1])),
-            "L8": (L8, torch.float32, (1, 8)),
-            "counts": (counts, torch.int32, (ncell,)),
-            "sigma": (sigma, torch.float32, (T, T)),
-            "eps": (eps, torch.float32, (T, T)),
-            "shift": (shift, torch.float32, (T, T))}
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check(want: dict, device):
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: want {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != slots.device:
-            raise ValueError(f"{name} is on {t.device}, slots on {slots.device}")
-    if stencil.shape[1] % 4 or T < 1:
-        raise ValueError("stencil must be (ncell, S*4); tables (T, T), T >= 1")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, slots on {device}")
+
+
+def _check_common(slots, L8, counts, sigma, eps, shift):
+    if slots.dim() != 3 or slots.shape[1] != 8:
+        raise ValueError(f"slots must be (ncell, 8, cap), got {tuple(slots.shape)}")
+    ncell, _, cap = slots.shape
+    T = sigma.shape[0] if sigma.dim() == 2 else -1
+    if T < 1:
+        raise ValueError("tables must be (T, T), T >= 1")
+    _check({"slots": (slots, torch.float32, (ncell, 8, cap)),
+            "L8": (L8, torch.float32, (1, 8)),
+            "counts": (counts, torch.int32, (ncell,)),
+            "sigma": (sigma, torch.float32, (T, T)),
+            "eps": (eps, torch.float32, (T, T)),
+            "shift": (shift, torch.float32, (T, T))}, slots.device)
+    if slots.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cuda or cpu, not {slots.device}")
+    if slots.device.type == "cuda" and (cap % 32 or not 32 <= cap <= 1024):
+        raise ValueError(f"cap={cap}: the kernels take multiples of 32 up to 1024")
+    return ncell, cap, T
 
 
 def cellpair_half(slots, stencil, L8, counts, sigma, eps, shift, *,
                   krf: float, crf: float, keR: float, coulomb: bool,
                   excl: bool = False):
-    """N3L half-stencil pair sweep (contract in csrc/cellpair_half.cu).
+    """N3L half-stencil pair sweep, one CTA per (direction, cell)
+    (contract in csrc/cellpair_half.cu); excl=True masks the pairs the
+    record rows 6-7 exclude.
 
     Returns (per-slot p side (ncell*cap, 4) [f, pe], accumulated q side
     (ncell, 8, cap), per-cell (ncell, 8) [e, virial6]).  A CPU tensor runs
     cellpair_half_plain; a CUDA tensor launches the kernel (counted in
-    `cellpair_half.launches`) or raises."""
-    if excl:
-        raise NotImplementedError(
-            "in-kernel exclusions are slice 2 (ROADMAP queue 2, kernel "
-            "item 1: the excl channels)")
-    _check_args(slots, stencil, L8, counts, sigma, eps, shift)
+    `cellpair_half.launches`, and in `cellpair_half.launches_excl` when
+    excl) or raises."""
+    ncell, cap, T = _check_common(slots, L8, counts, sigma, eps, shift)
+    if stencil.dim() != 2 or stencil.shape[1] % 4:
+        raise ValueError("stencil must be (ncell, S*4)")
+    _check({"stencil": (stencil, torch.int32, (ncell, stencil.shape[1]))},
+           slots.device)
+    kw = dict(krf=krf, crf=crf, keR=keR, coulomb=coulomb, excl=excl)
     if slots.device.type == "cpu":
         return cellpair_half_plain(slots, stencil, L8, counts, sigma, eps,
-                                   shift, krf=krf, crf=crf, keR=keR,
-                                   coulomb=coulomb)
-    if slots.device.type != "cuda":
-        raise ValueError(f"cellpair_half runs on cuda or cpu, not {slots.device}")
-    ncell, _, cap = slots.shape
-    T = sigma.shape[0]
-    if cap % 32 or not 32 <= cap <= 1024:
-        raise ValueError(f"cap={cap}: the kernel takes multiples of 32 up to 1024")
+                                   shift, **kw)
     if ncell > 65535:
         raise ValueError(f"ncell={ncell} exceeds the grid's y extent (65535)")
-    if (10 * cap + 3 * T * T) * 4 > 227 * 1024:
+    if (12 * cap + 3 * T * T) * 4 > SMEM_LIMIT:
         raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
-    lib = _kernel_lib()
+    fn = _kernel_fn("cellpair_half")
     out_p = torch.zeros((ncell * cap, 4), dtype=torch.float32, device=slots.device)
     out_q = torch.zeros((ncell, 8, cap), dtype=torch.float32, device=slots.device)
     out_cell = torch.zeros((ncell, 8), dtype=torch.float32, device=slots.device)
     with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ddcmd_cellpair_half(
-            slots.data_ptr(), stencil.data_ptr(), L8.data_ptr(),
-            counts.data_ptr(), sigma.data_ptr(), eps.data_ptr(),
-            shift.data_ptr(), out_p.data_ptr(), out_q.data_ptr(),
-            out_cell.data_ptr(), ncell, cap, stencil.shape[1] // 4, T,
-            krf, crf, keR, int(bool(coulomb)), stream)
+        err = fn(slots.data_ptr(), stencil.data_ptr(), L8.data_ptr(),
+                 counts.data_ptr(), sigma.data_ptr(), eps.data_ptr(),
+                 shift.data_ptr(), out_p.data_ptr(), out_q.data_ptr(),
+                 out_cell.data_ptr(), ncell, cap, stencil.shape[1] // 4, T,
+                 krf, crf, keR, int(bool(coulomb)), int(bool(excl)), stream)
     if err != 0:
         raise RuntimeError(f"cellpair_half launch failed: CUDA error {err}")
     cellpair_half.launches += 1
+    if excl:
+        cellpair_half.launches_excl += 1
     return out_p, out_q, out_cell
 
 
-cellpair_half.launches = 0
+cellpair_half.launches = 0          # every launch of the kernel
+cellpair_half.launches_excl = 0     # the launches with exclusions
+
+
+def col_smem_bytes(U: int, cap: int, T: int, excl: bool) -> int:
+    """Dynamic shared memory of the column kernel (csrc/cellpair_half_col.cu):
+    U staged union blocks of 6 record rows (8 with exclusions), U 4-row
+    q-side accumulators, a 4-row p-side accumulator, the (T, T) tables and
+    the U block occupancies."""
+    rows = 8 if excl else 6
+    return 4 * (U * (rows + 4) * cap + 4 * cap + 3 * T * T + U)
+
+
+def cellpair_half_col(slots, stencil_col, member_u, L8, counts, sigma, eps,
+                      shift, *, krf: float, crf: float, keR: float,
+                      coulomb: bool, excl: bool = False):
+    """Column variant: one CTA per column of G z-contiguous cells, the
+    column's U union blocks staged once in shared memory (contract in
+    csrc/cellpair_half_col.cu).  stencil_col (ncol, U) from
+    pack_stencil_col, member_u (G, 14) from col_plan_grid.
+
+    Returns (per-slot p side (ncell*cap, 4), accumulated q side (ncell, 8,
+    cap), per-column (ncol, 8) [e, virial6]).  A CPU tensor runs
+    cellpair_half_col_plain; a CUDA tensor launches the kernel (counted in
+    `cellpair_half_col.launches`) or raises -- also when the staged union
+    does not fit in shared memory (never running another kernel instead)."""
+    ncell, cap, T = _check_common(slots, L8, counts, sigma, eps, shift)
+    if stencil_col.dim() != 2 or member_u.dim() != 2 \
+            or member_u.shape[1] != 14:
+        raise ValueError("stencil_col must be (ncol, U), member_u (G, 14)")
+    ncol, U = stencil_col.shape
+    G = member_u.shape[0]
+    if ncol * G != ncell:
+        raise ValueError(f"{ncol} columns of {G} cells != {ncell} cells")
+    _check({"stencil_col": (stencil_col, torch.int32, (ncol, U)),
+            "member_u": (member_u, torch.int32, (G, 14))}, slots.device)
+    kw = dict(krf=krf, crf=crf, keR=keR, coulomb=coulomb, excl=excl)
+    if slots.device.type == "cpu":
+        return cellpair_half_col_plain(slots, stencil_col, member_u, L8,
+                                       counts, sigma, eps, shift, **kw)
+    if cap > 512:
+        raise ValueError(f"cap={cap}: the column kernel takes cap <= 512")
+    smem = col_smem_bytes(U, cap, T, excl)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"column kernel: {U} union blocks at cap={cap} need {smem} bytes "
+            f"of shared memory, more than the {SMEM_LIMIT} a block may use")
+    fn = _kernel_fn("cellpair_half_col")
+    out_p = torch.zeros((ncell * cap, 4), dtype=torch.float32, device=slots.device)
+    out_q = torch.zeros((ncell, 8, cap), dtype=torch.float32, device=slots.device)
+    out_col = torch.zeros((ncol, 8), dtype=torch.float32, device=slots.device)
+    with torch.cuda.device(slots.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(slots.data_ptr(), stencil_col.data_ptr(),
+                 member_u.data_ptr(), L8.data_ptr(), counts.data_ptr(),
+                 sigma.data_ptr(), eps.data_ptr(), shift.data_ptr(),
+                 out_p.data_ptr(), out_q.data_ptr(), out_col.data_ptr(),
+                 ncol, cap, G, U, T, krf, crf, keR, int(bool(coulomb)),
+                 int(bool(excl)), stream)
+    if err != 0:
+        raise RuntimeError(f"cellpair_half_col launch failed: CUDA error {err}")
+    cellpair_half_col.launches += 1
+    return out_p, out_q, out_col
+
+
+cellpair_half_col.launches = 0
+
+
+def kernel_inputs(r, q, tidx, perm, box_lengths, grid: CellBlockGrid,
+                  tables, gt: dict, coulomb: bool, excl_vals=None):
+    """(kernel, args, kw): the wrapper the plan picks -- the column kernel
+    when gt["G"] > 1, else the per-cell kernel -- and its arguments as
+    cellpair_eval_half packs them.  `grid` comes from half_grid(), `gt`
+    from grid_tensors(grid, device, G); excl_vals (n_pad, 2) are the
+    exclusion channels or None."""
+    n_pad = r.shape[0]
+    ncell, cap = grid.ncell, grid.cap
+    slots, _ = pack_slots(r, q, tidx, perm, box_lengths, grid,
+                          gt["frac_centers"], excl_vals=excl_vals)
+    L8 = torch.nn.functional.pad(box_lengths.to(torch.float32)
+                                 / gt["ncells"], (0, 5))
+    L8[3] = tables["rcut2"]
+    # per-cell occupancy: slots fill rank-contiguously, so the count of
+    # filled slots bounds both loops of the kernels exactly
+    counts = (perm.reshape(ncell, cap) != n_pad).sum(
+        dim=1, dtype=torch.int32)
+    kw = dict(krf=tables["krf"], crf=tables["crf"], keR=tables["keR"],
+              coulomb=coulomb, excl=excl_vals is not None)
+    tabs = (tables["sigma"], tables["eps"], tables["shift"])
+    if gt["G"] > 1:
+        return cellpair_half_col, (slots, gt["stencil"], gt["member_u"],
+                                   L8.reshape(1, 8), counts, *tabs), kw
+    return cellpair_half, (slots, gt["stencil"], L8.reshape(1, 8), counts,
+                           *tabs), kw
 
 
 def cellpair_eval_half(r, q, tidx, perm, box_lengths, grid: CellBlockGrid,
-                       tables, gt: dict, coulomb: bool):
+                       tables, gt: dict, coulomb: bool, excl_vals=None):
     """Forces, energy, virial and per-particle pe of the pair term through
-    the kernel (counterpart of pallas_cellpair_eval_half).  `grid` comes
-    from half_grid(), `gt` from grid_tensors(grid, device); q-side
-    reactions arrive pre-accumulated per target cell."""
+    the kernel the plan picks (counterpart of pallas_cellpair_eval_half;
+    arguments as kernel_inputs).  q-side reactions arrive pre-accumulated
+    per target cell."""
     n_pad = r.shape[0]
-    dt = torch.float32
     ncell, cap = grid.ncell, grid.cap
-    slots, _ = pack_slots(r, q, tidx, perm, box_lengths, grid,
-                          gt["frac_centers"])
-    L8 = torch.nn.functional.pad(box_lengths.to(dt) / gt["ncells"], (0, 5))
-    L8[3] = tables["rcut2"]
-    # per-cell occupancy: slots fill rank-contiguously, so the count of
-    # filled slots bounds both loops of the kernel exactly
-    counts = (perm.reshape(ncell, cap) != n_pad).sum(
-        dim=1, dtype=torch.int32)
-    out_p, out_q, out_cells = cellpair_half(
-        slots, gt["stencil"], L8.reshape(1, 8), counts, tables["sigma"],
-        tables["eps"], tables["shift"], krf=tables["krf"], crf=tables["crf"],
-        keR=tables["keR"], coulomb=coulomb)
+    kernel, args, kw = kernel_inputs(r, q, tidx, perm, box_lengths, grid,
+                                     tables, gt, coulomb, excl_vals)
+    out_p, out_q, out_cells = kernel(*args, **kw)
 
     back = out_q.transpose(1, 2).reshape(ncell * cap, 8)
     F = out_p[:, 0:3] + back[:, 0:3]
     pe_slot = out_p[:, 3] + back[:, 3]
     # each particle owns one slot; empty slots write the spill row n_pad
-    f = torch.zeros((n_pad + 1, 3), dtype=dt, device=r.device)
+    f = torch.zeros((n_pad + 1, 3), dtype=torch.float32, device=r.device)
     f[perm] = F
-    pe = torch.zeros((n_pad + 1,), dtype=dt, device=r.device)
+    pe = torch.zeros((n_pad + 1,), dtype=torch.float32, device=r.device)
     pe[perm] = pe_slot
     e = out_cells[:, 0].sum()
     v6 = out_cells[:, 1:7].sum(dim=0)

@@ -2,24 +2,102 @@
 
 Counterpart of ddcmd_tpu/run/forces.py:build_force_fn, ported for the
 MARTINI nonbond term on the kernel branch (ddcenergy analog, ddcMD
-src/ddcenergy.c:160-238).
+src/ddcenergy.c:160-238) and the residue-template batched bonded terms.
+Excluded (bonded) pairs are masked inside the pair kernel through the
+record's exclusion channels, and the bonded block adds back only the
+reaction-field part the reference keeps for them (excl_mode "rf_add").
 """
 
 from __future__ import annotations
+
+from collections import defaultdict
 
 import numpy as np
 import torch
 
 from ..core.system import SystemDef
+from ..objects import units as U
 from ..ops.cellpair import half_grid
-from ..ops.cellpair_half import cellpair_eval_half, grid_tensors
+from ..ops.cellpair_half import (cellpair_eval_half, choose_col_group,
+                                 grid_tensors, kernel_inputs)
 from ..potentials.martini import martini_device_tables
+
+# widest exclusion component the exact-f32 record encoding carries
+EXCL_MAX_MEMBERS = 12
+
+
+def _inlist_excl(sysdef: SystemDef) -> bool:
+    """True when the pair kernel masks excluded pairs in-kernel (and the
+    bonded block adds back only the kept RF term): the MARTINI nonbond
+    term with an exclusion list.  The port has no compute-then-subtract
+    path, so this is every deck with exclusions."""
+    return (sysdef.bonded is not None
+            and sysdef.bonded.exclusions is not None
+            and any(p[0] == "MARTINI" for p in sysdef.potentials))
+
+
+def _excl_channels(exclusions, n_pad: int):
+    """Per-particle in-kernel exclusion channels (n_pad, 2) f32:
+    [component_id, B + 2^-(intra+1)] with B the exclusion bitmask over the
+    particle's connected component of the exclusion graph.  All values are
+    exact in f32 when every component has <= 12 members (B < 2^12,
+    2^-(intra+1) >= 2^-12).  A wider component raises: the JAX package
+    demotes such decks to its (N,K)-list engine, which the port does not
+    have yet (ROADMAP queue 1, item 19), and the port never falls back to
+    compute-then-subtract (the f32 residual of a deep bond compression is
+    an energy-injecting catapult)."""
+    ex = np.asarray(exclusions)
+    if len(ex) == 0:
+        return None
+    parent = np.arange(n_pad)
+
+    def find(x):
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    for i, j in ex:
+        parent[find(int(i))] = find(int(j))
+    comps = defaultdict(list)
+    for i, j in ex:
+        comps[find(int(i))].append(int(i))
+        comps[find(int(j))].append(int(j))
+    vals = np.zeros((n_pad, 2), np.float32)
+    intra = {}
+    for cid, (root, members) in enumerate(comps.items()):
+        members = sorted(set(members))
+        if len(members) > EXCL_MAX_MEMBERS:
+            raise NotImplementedError(
+                f"an exclusion component of {len(members)} particles "
+                f"(rows {members[:4]}...) exceeds the {EXCL_MAX_MEMBERS} the "
+                "in-kernel exclusion channels encode exactly; such decks "
+                "need the (N,K)-list engine, not ported yet (ROADMAP queue "
+                "1, item 19)")
+        for k, m in enumerate(members):
+            intra[m] = k
+            vals[m, 0] = float(cid + 1)
+    B = np.zeros(n_pad, np.int64)
+    for i, j in ex:
+        B[int(i)] |= 1 << intra[int(j)]
+        B[int(j)] |= 1 << intra[int(i)]
+    rows = np.asarray(sorted(intra.keys()))
+    # the fraction stores 2^-(intra+1) (intra=0 must stay fractional); the
+    # kernel doubles it back -- both steps exact powers of two
+    vals[rows, 1] = (B[rows] + np.exp2(
+        -np.asarray([intra[m] for m in rows], np.float64) - 1.0)
+    ).astype(np.float32)
+    return vals
 
 
 def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
     """Returns force_fn(state, box, perm) -> (f, e_pot, virial, pe), with
     perm the slot permutation from ops.cellpair.build_cell_slots on
-    `grid` (a plan_lanes grid)."""
+    `grid` (a plan_lanes grid).  The pair term runs the column kernel when
+    choose_col_group gives G > 1, else the per-cell kernel.  The term list
+    is kept as force_fn.terms (per-term profiling)."""
     state = sysdef.state
     device = state.device
     n_loc = state.n_local
@@ -44,21 +122,64 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
                           shift=tables["shift"][t0:t0 + 1, t0:t0 + 1])
             tmap = torch.zeros_like(tmap)
         hg = half_grid(grid)
-        gt = grid_tensors(hg, device)
+        gt = grid_tensors(hg, device, choose_col_group(hg))
+        excl_vals = None
+        if _inlist_excl(sysdef):
+            excl_vals = torch.as_tensor(
+                _excl_channels(sysdef.bonded.exclusions, state.n_pad),
+                device=device)
 
         def martini_term(state, box, perm, tables=tables, tmap=tmap,
-                         hg=hg, gt=gt, coul=coul):
+                         hg=hg, gt=gt, coul=coul, excl_vals=excl_vals):
             tidx = tmap[state.species]
             f, e, virial, pe = cellpair_eval_half(
                 state.r, state.q, tidx, perm, box.lengths, hg, tables, gt,
-                coulomb=coul)
+                coulomb=coul, excl_vals=excl_vals)
             if not coul:
                 return f, e, virial, pe
             e_self_i = (-0.5 * state.q * state.q * state.fmask
                         * tables["keR"] * tables["crf"])
             return f, e + e_self_i.sum(), virial, pe + e_self_i
 
+        def pair_kernel_inputs(state, box, perm, tables=tables, tmap=tmap,
+                               hg=hg, gt=gt, coul=coul, excl_vals=excl_vals):
+            """(kernel, args, kw) of the pair kernel call martini_term
+            makes (chip_smoke.py holds the kernel against its twin on
+            these)."""
+            return kernel_inputs(state.r, state.q, tmap[state.species],
+                                 perm, box.lengths, hg, tables, gt, coul,
+                                 excl_vals)
+
+        martini_term.kernel_inputs = pair_kernel_inputs
+        martini_term.grid = hg
         terms.append(martini_term)
+
+    # covalent terms (bonds, angles, exclusion RF corrections)
+    bt = sysdef.bonded
+    if bt is not None and any(v for k, v in bt.counts().items()
+                              if k not in ("n_constraints", "cons_groups")):
+        from ..potentials.bonded import device_bonded_tables
+        from ..potentials.bonded_batch import (batched_bonded_eval,
+                                               build_batched_bonded)
+
+        mparms = next(p[2] for p in sysdef.potentials if p[0] == "MARTINI")
+        btab = device_bonded_tables(
+            bt, dtype, "cpu",
+            lj_sigma=mparms.sigma, lj_eps=mparms.eps, lj_shift=mparms.shift,
+            rcut=mparms.rcut, keR=U.ke / mparms.epsilon_r,
+            charges=state.q.cpu().numpy(),
+            species_lj_type=mparms.species_lj_type,
+            species_per_particle=state.species.cpu().numpy(),
+            excl_mode="rf_add", krf=mparms.krf, crf=mparms.crf)
+        n_pad = state.n_pad
+        bplan = build_batched_bonded(btab, sysdef.residue_instances, n_pad,
+                                     dtype, device)
+        if bplan is not None:
+            def bonded_term(state, box, perm, bplan=bplan, n_pad=n_pad):
+                return batched_bonded_eval(state.r, box.lengths, bplan,
+                                           n_pad, dtype)
+
+            terms.append(bonded_term)
 
     def force_fn(state, box, perm):
         f = torch.zeros((state.n_pad, 3), dtype=dtype, device=device)
@@ -73,4 +194,5 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
         # the JAX package: every term keeps e == sum(pe))
         return f, pe.sum(), virial, pe
 
+    force_fn.terms = terms
     return force_fn

@@ -1,8 +1,9 @@
 """simulateMaster: the MD run loop, fixed-cadence shape.
 
 Counterpart of ddcmd_tpu/run/simulate.py (reference ddcMD
-src/masters.c:369-559), reduced to the main path: NGLF without barostat
-or constraints, MARTINI nonbond through the cell-pair kernel.
+src/masters.c:369-559), reduced to the main paths: NGLF / NGLFCONSTRAINT
+with the Berendsen barostat and RATTLE constraints, MARTINI nonbond
+through the cell-pair kernels plus the batched bonded terms.
 
 One dispatch runs k steps as n_rebuilds blocks of `updateRate` steps:
 each block wraps positions and rebuilds the cell slots, then runs its
@@ -12,15 +13,23 @@ reduced on the device and copied to the host once at the end of the
 dispatch (the JAX package's superchunk_fixed, simulate.py:489-537).
 The host then checks them:
 
-  * overflow (a rebuild dropped particles): the dispatch is discarded,
-    the planner's density safety grows by 1.3 and the grid is replanned;
+  * overflow (a rebuild dropped particles, or a shrinking box took a
+    cell edge below rlist -- `cell_edge_bad`): the dispatch is discarded
+    and the grid replanned at the live box; if that changes nothing, the
+    planner's density safety grows by 1.3 first.  Dynamic-box decks that
+    keep overflowing halve the dispatch so the host replans along the
+    compression;
   * non-finite energy: the kill switch raises (masters.c:470-475);
-  * verlet-skin staleness (2 max|dr| >= deltaR on a step that reused a
-    list): the dispatch is discarded and redone from the intact
-    pre-dispatch state at halved rebuild cadence.  The thermostat noise
-    is keyed by global step, so the redo replays the same noise.  Eight
-    clean dispatches in a row double the cadence back; a stale redo
+  * verlet-skin staleness (2 (max|dr| + 2 max|dh|) >= deltaR on a step
+    that reused a list, dh the box motion since the rebuild): the
+    dispatch is discarded and redone from the intact pre-dispatch state
+    at halved rebuild cadence.  The thermostat noise is keyed by global
+    step, so the redo replays the same noise.  Eight clean dispatches in
+    a row double the cadence (and the dispatch) back; a stale redo
     restarts that count.
+
+Dynamic boxes (barostat) plan the grid with a 1.08 margin on rlist, so
+compression does not trip the cell-edge guard right away.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 
 from ..core.energy import EnergyInfo
 from ..core.groups import kick_noise
+from ..core.molecule import build_molecule_class, make_molecular_virial_fn
 from ..core.system import build_system
 from ..integrators.nglf import StepState, first_energy_call, make_nglf_step
 from ..objects import ObjectDB
@@ -42,11 +52,17 @@ from ..ops.cellpair_half import plan_lanes
 from .forces import build_force_fn
 from .printinfo import PrintInfo
 
-# integrator types that run the plain NGLF step when no barostat is set
+# integrator types that run the NGLF step
 _NGLF_TYPES = ("NGLF", "NGLFCONSTRAINT", "NGLFCONSTRAINTGPU",
                "NGLFCONSTRAINTGPULANGEVIN", "NGLFGPU", "NGLFGPULANGEVIN",
                "NGLFNEW")
+# the ones with the Berendsen barostat (when beta > 0)
+_BAROSTAT_TYPES = ("NGLFCONSTRAINT", "NGLFCONSTRAINTGPU",
+                   "NGLFCONSTRAINTGPULANGEVIN", "NGLFGPU", "NGLFGPULANGEVIN",
+                   "NGLFNEW")
 _NOISE_CALLSITE_NGLF = 0
+# columns of the per-step row a dispatch returns
+_ROW = ("eion", "rk", "tr_virial", "tr_tion", "volume", "Lx", "Ly", "Lz")
 
 
 class Simulation:
@@ -64,34 +80,44 @@ class Simulation:
             raise NotImplementedError(
                 f"integrator {sd.integrator_type} is not ported yet "
                 "(ROADMAP queue 1, item 22)")
-        if sd.integrator_parms["beta"] > 0:
-            raise NotImplementedError(
-                "the Berendsen barostat is not ported yet (ROADMAP queue 1, "
-                "item 8)")
-        if sd.n_constraints:
-            raise NotImplementedError(
-                "constraints are slice 2 (ROADMAP queue 1, item 13)")
         if sd.box.pbc & 7 != 7:
             raise NotImplementedError(
                 "non-periodic axes run on the fallback cell engine, not "
                 "ported yet (ROADMAP queue 1, item 20)")
+        ip = sd.integrator_parms
+        sysobj = db.get(sd.cfg.system_name, "SYSTEM")
+        self.molecules = build_molecule_class(
+            db, sysobj, sd.collection.species_names, sd.collection.gid)
+        self.n_molecules = (self.molecules.n_molecules if self.molecules
+                            else sd.state.n_local)
+        # the Berendsen barostat belongs to the constraint integrators;
+        # plain NGLF ignores beta, as the reference's nglf.c does
+        self.barostat = None
+        if sd.integrator_type in _BAROSTAT_TYPES and ip["beta"] > 0:
+            self.barostat = dict(P0=ip["P0"], beta=ip["beta"],
+                                 tau=ip["tauBarostat"], T=ip["T"],
+                                 isotropic=ip["isotropic"],
+                                 n_molecules=self.n_molecules)
+        self.mol_virial_fn = make_molecular_virial_fn(
+            self.molecules, device=self.device)
+        self.constraint_fn = self._make_constraint_fn()
+        # dynamic boxes plan with shrink headroom (simulate.py:120-128)
+        self._plan_margin = 1.08 if self.barostat is not None else 1.0
         self._density_safety = 1.3
         self.grid = plan_lanes(sd.box.lengths.cpu().numpy().astype(np.float64),
                                sd.rcut_max, sd.neighbor_deltaR,
-                               sd.state.n_local)
-        self.force_fn = build_force_fn(sd, self.grid)
-        self.step_fn = make_nglf_step(self.force_fn, sd.cfg.dt)
+                               sd.state.n_local,
+                               plan_margin=self._plan_margin)
+        self._build_step()
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         self.coeffs = sd.group_table.coefficients(
             sd.cfg.time, 0.5 * sd.cfg.dt, device=self.device)
-        # the box is static (no barostat, no box(t)): its printed volume
-        # and lengths are host constants
-        L = sd.box.lengths.cpu().numpy()
-        self._box_host = (float(np.prod(L.astype(np.float64))),
-                          L.astype(np.float64))
         self._generator = torch.Generator(device=self.device)
         self._forced_spr = None
+        self._forced_dispatch = None
         self._clean_disp = 0
+        # counts of discarded dispatches, by cause
+        self.redos = {"stale": 0, "overflow": 0}
         # (steps, seconds) of each accepted dispatch, host clock around
         # work that ends in the dispatch's one device sync
         self.dispatch_log: list[tuple[int, float]] = []
@@ -102,27 +128,75 @@ class Simulation:
 
     # ------------------------------------------------------------------
 
+    def _make_constraint_fn(self):
+        """Residue-template batched RATTLE when the topology allows it
+        (every Martini deck), the generic projector otherwise
+        (simulate.py:265-295)."""
+        sd = self.sysdef
+        uses = ("CONSTRAINT" in sd.integrator_type
+                or "RATTLE" in sd.integrator_type
+                or sd.integrator_type == "NGLFNEW")
+        bt = sd.bonded
+        if bt is None or bt.n_constraints == 0 or not uses:
+            return None
+        from ..integrators.constraints import (build_constraint_fn,
+                                               build_constraint_fn_batched)
+
+        L = sd.box.lengths.cpu().numpy().astype(np.float64)
+        fn = build_constraint_fn_batched(
+            bt.cons_atoms, bt.cons_pairs, bt.cons_dist, sd.state.n_pad,
+            torch.float32, sd.residue_instances, box_lengths=L,
+            device=self.device)
+        if fn is None:
+            fn = build_constraint_fn(
+                bt.cons_atoms, bt.cons_pairs, bt.cons_dist, sd.state.n_pad,
+                torch.float32, box_lengths=L, device=self.device)
+        return fn
+
+    def _build_step(self):
+        sd = self.sysdef
+        self.force_fn = build_force_fn(sd, self.grid)
+        self.step_fn = make_nglf_step(
+            self.force_fn, sd.cfg.dt, barostat=self.barostat,
+            constraint_fn=self.constraint_fn,
+            molecular_virial_fn=self.mol_virial_fn)
+        # the cell-edge guard's per-axis bound, made once per plan
+        self._edge_min = (torch.tensor(self.grid.ncells, dtype=torch.float32,
+                                       device=self.device)
+                          * float(self.grid.rlist))
+
     def replan(self):
-        """Re-plan the cell grid at the current density safety; the cap
-        never shrinks (the overflow ladder only grows it)."""
+        """Re-plan the cell grid at the live box and the current density
+        safety; the cap never shrinks (the overflow ladder only grows it)."""
         sd = self.sysdef
         prev_cap = self.grid.cap
+        L = self.ss.box.lengths.cpu().numpy().astype(np.float64)
         self.grid = plan_lanes(
-            self._box_host[1], sd.rcut_max, sd.neighbor_deltaR,
-            sd.state.n_local, density_safety=self._density_safety)
+            L, sd.rcut_max, sd.neighbor_deltaR, sd.state.n_local,
+            density_safety=self._density_safety,
+            plan_margin=self._plan_margin)
         if self.grid.cap < prev_cap:
             self.grid = self.grid.with_cap(prev_cap)
-        self.force_fn = build_force_fn(sd, self.grid)
-        self.step_fn = make_nglf_step(self.force_fn, sd.cfg.dt)
+        self._build_step()
+
+    def _grid_stale(self, slack: float = 1.0) -> bool:
+        """True when the live box has shrunk a cell edge below
+        slack * rlist: the cell plan itself must change."""
+        L = self.ss.box.lengths.cpu().numpy().astype(np.float64)
+        return bool(np.any(L / np.asarray(self.grid.ncells)
+                           < self.grid.rlist * slack))
 
     def _build_nbr(self, ss: StepState):
         """Wrap at rebuild; steps between rebuilds leave positions
-        unwrapped so the cell-block image shifts stay exact."""
+        unwrapped so the cell-block image shifts stay exact.  The
+        overflow flag also covers a live cell edge below rlist (a
+        shrinking box with a static cell count misses one-shell pairs)."""
         r = ss.box.back_in_box(ss.state.r)
         ss = ss.replace(state=ss.state.replace(r=r))
         perm, overflow = build_cell_slots(r, ss.state.fmask, ss.box.lengths,
                                           self.grid)
-        return ss, perm, overflow
+        edge_bad = torch.any(ss.box.lengths < self._edge_min)
+        return ss, perm, overflow | edge_bad
 
     def first_energy(self) -> StepState:
         # a silent overflow would return energies from a dropped-pair
@@ -132,11 +206,23 @@ class Simulation:
             if not bool(ov):
                 self.ss = first_energy_call(ss, self.force_fn, perm)
                 return self.ss
-            self._density_safety *= 1.3
-            self.replan()
+            self._replan_after_overflow()
         raise RuntimeError(
             "neighbor overflow persists in first_energy after repeated "
             "replans")
+
+    def _replan_after_overflow(self):
+        """A moving box replans at the live box first (a compression that
+        took a cell edge below rlist needs a new cell plan, a denser box a
+        new occupancy plan); when that changes nothing, or the box never
+        moved, the density safety grows by 1.3 before the replan."""
+        if self.barostat is not None or self._grid_stale(slack=1.05):
+            old = (self.grid.ncells, self.grid.cap)
+            self.replan()
+            if (self.grid.ncells, self.grid.cap) != old:
+                return
+        self._density_safety *= 1.3
+        self.replan()
 
     def _noise(self, step: int) -> torch.Tensor:
         return kick_noise(self._generator, self.sysdef.random_seed, step,
@@ -145,8 +231,9 @@ class Simulation:
 
     def _dispatch(self, ss: StepState, n_rebuilds: int, spr: int):
         """n_rebuilds * spr steps with no host sync until the end.
-        Returns (ss, rows (k, 4) [eion, rk, tr virial, tr tion] as numpy,
-        overflow, worst displacement of a step whose list was reused)."""
+        Returns (ss, rows (k, len(_ROW)) as numpy, overflow, worst
+        displacement plus twice the box motion of a step whose list was
+        reused)."""
         dev = self.device
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         worst = torch.zeros((), dtype=torch.float32, device=dev)
@@ -154,27 +241,39 @@ class Simulation:
         for _ in range(n_rebuilds):
             ss, perm, ov = self._build_nbr(ss)
             overflow = overflow | ov
-            r0 = ss.state.r
+            r0, h0 = ss.state.r, ss.box.h
             fmask = ss.state.fmask
             for i in range(spr):
                 noise = self._noise(ss.loop)
                 ss = self.step_fn(ss, perm, self.coeffs, noise[0], noise[1])
                 if i < spr - 1:
-                    # staleness only matters if more steps use this list
+                    # staleness only matters if more steps use this list;
+                    # box motion since the rebuild counts too (a barostat
+                    # moves boundary-wrapped particles by ~|dh|)
                     dr = ss.box.min_image(ss.state.r - r0)
                     md2 = torch.max((dr * dr).sum(dim=1) * fmask)
-                    worst = torch.maximum(worst, torch.sqrt(md2))
+                    eff = torch.sqrt(md2)
+                    if self.barostat is not None:
+                        eff = eff + 2.0 * torch.max(torch.abs(ss.box.h - h0))
+                    worst = torch.maximum(worst, eff)
                 e = ss.energy
+                L = ss.box.lengths
                 rows.append(torch.stack([e.eion, e.rk, torch.trace(e.virial),
-                                         torch.trace(e.tion)]))
+                                         torch.trace(e.tion), torch.prod(L),
+                                         L[0], L[1], L[2]]))
         flags = torch.stack([overflow.to(torch.float32), worst])
         host = torch.cat([torch.stack(rows).reshape(-1), flags]).cpu()
         host = host.numpy().astype(np.float64)
-        return ss, host[:-2].reshape(-1, 4), bool(host[-2]), float(host[-1])
+        return (ss, host[:-2].reshape(-1, len(_ROW)), bool(host[-2]),
+                float(host[-1]))
 
     def run(self, n_loops: int | None = None, *, print_fn=None,
+            on_checkpoint=None,
             max_steps_per_dispatch: int = 400) -> StepState:
-        """Run the MD loop; returns the final StepState."""
+        """Run the MD loop; returns the final StepState.  With
+        on_checkpoint (called with the Simulation) set, checkpoints are
+        written at the deck's checkpointrate and snapshots (atoms + bxyz)
+        at its snapshotrate, as the JAX package's run loop does."""
         sd = self.sysdef
         cfg = sd.cfg
         if n_loops is None:
@@ -185,7 +284,11 @@ class Simulation:
         done = 0
         ov_retries = 0
         while done < n_loops:
-            k = min(n_loops - done, max_steps_per_dispatch)
+            k = min(n_loops - done, max_steps_per_dispatch,
+                    self._forced_dispatch or n_loops)
+            for rate in (cfg.checkpointrate, cfg.snapshotrate):
+                if on_checkpoint and rate:
+                    k = min(k, rate - self.ss.loop % rate)
             spr = min(update_rate, self._forced_spr or update_rate)
             if k >= spr:
                 n_rebuilds = k // spr
@@ -201,12 +304,17 @@ class Simulation:
             seconds = _time.perf_counter() - t0
             if overflow:
                 ov_retries += 1
+                self.redos["overflow"] += 1
+                self._clean_disp = 0
                 if ov_retries > 8:
                     raise RuntimeError(
                         "neighbor overflow persists after repeated replans "
                         f"(loop {self.ss.loop})")
-                self._density_safety *= 1.3
-                self.replan()
+                if self.barostat is not None and ov_retries >= 3:
+                    # a compression faster than one dispatch: advance in
+                    # shorter dispatches so the replans follow the box
+                    self._forced_dispatch = max(spr, k // 2)
+                self._replan_after_overflow()
                 continue
             ov_retries = 0
             bad = ~np.isfinite(rows[:, 0] + rows[:, 1])
@@ -220,43 +328,57 @@ class Simulation:
                     f"neighbor list went stale (2*max_disp={2 * worst:.3f} "
                     f"nm >= deltaR={sd.neighbor_deltaR}); halving rebuild "
                     "cadence and redoing the dispatch", stacklevel=2)
+                self.redos["stale"] += 1
                 self._forced_spr = max(1, spr // 2)
                 self._clean_disp = 0
                 continue
-            if self._forced_spr is not None:
+            if self._forced_spr is not None or \
+                    self._forced_dispatch is not None:
                 self._clean_disp += 1
                 if self._clean_disp >= 8:
                     self._clean_disp = 0
-                    fs = 2 * self._forced_spr
-                    self._forced_spr = None if fs >= update_rate else fs
+                    if self._forced_spr is not None:
+                        fs = 2 * self._forced_spr
+                        self._forced_spr = None if fs >= update_rate else fs
+                    if self._forced_dispatch is not None:
+                        fd = 2 * self._forced_dispatch
+                        self._forced_dispatch = (
+                            None if fd >= max_steps_per_dispatch else fd)
             self.ss = ss_new
             done += k
             self.dispatch_log.append((k, seconds))
             self._emit_prints(rows, k, print_fn)
+            if on_checkpoint and cfg.checkpointrate \
+                    and self.ss.loop % cfg.checkpointrate == 0:
+                on_checkpoint(self)
+            if on_checkpoint and cfg.snapshotrate \
+                    and self.ss.loop % cfg.snapshotrate == 0:
+                from ..io.restart import write_snapshot
+
+                write_snapshot(self, self.run_dir)
         return self.ss
 
     def _emit_prints(self, rows, k, print_fn):
         cfg = self.sysdef.cfg
         n_global = self.sysdef.state.n_local
-        vol, lengths = self._box_host
         loop_end = self.ss.loop
         for j in range(k):
             loop = loop_end - k + 1 + j
             if not (cfg.printrate and loop % cfg.printrate == 0):
                 continue
-            eion, rk, tr_vir, tr_tion = rows[j]
+            eion, rk, tr_vir, tr_tion, vol = rows[j, :5]
             dof = 3.0 * n_global - self.sysdef.n_constraints
             temperature = 2.0 * rk / (dof * U.kB)
             if self.printinfo.print_molecular_pressure:
-                # single-bead molecules: molecular virial == virial;
-                # P = (tr_virial + 3 N_mol kB T) / 3V (molecularPressure.c)
-                pressure = ((tr_vir + 3.0 * n_global * U.kB * temperature)
-                            / (3.0 * vol))
+                # P = (tr_virial + 3 N_mol kB T) / 3V (molecularPressure.c),
+                # with the atomic virial as the JAX package prints it
+                pressure = ((tr_vir + 3.0 * self.n_molecules * U.kB
+                             * temperature) / (3.0 * vol))
             else:
                 pressure = (tr_vir + tr_tion) / (3.0 * vol)
             time_ps = self.ss.time - (k - 1 - j) * cfg.dt
             line = self.printinfo.row(loop, time_ps, eion, rk, temperature,
-                                      pressure, vol, lengths, n_global)
+                                      pressure, vol, rows[j, 5:8], n_global)
             if print_fn:
                 print_fn(line)
             else:
@@ -265,6 +387,8 @@ class Simulation:
 
 def simulate_master(db: ObjectDB, base_dir: str = ".", run_dir: str = ".",
                     n_loops: int | None = None, device=None) -> Simulation:
+    from ..io.restart import write_checkpoint
+
     sim = Simulation(db, base_dir, run_dir=run_dir, device=device)
-    sim.run(n_loops)
+    sim.run(n_loops, on_checkpoint=lambda s: write_checkpoint(s, run_dir))
     return sim

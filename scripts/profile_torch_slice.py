@@ -1,14 +1,21 @@
-"""Where the time goes in the PyTorch port's main path, on the GPU.
+"""Where the time goes in the PyTorch port's main paths, on the GPU.
 
     python scripts/profile_torch_slice.py [--n 6173] [--steps 200]
+    python scripts/profile_torch_slice.py --bilayer 48 [--steps 200]
 
-Runs the Martini water box NVT through ddcmd_tpu_torch's Simulation,
-equilibrates for --warm steps, times --steps steps, then traces the
-same number of steps with torch.profiler.  Prints steps/s (untraced),
-the device busy share (summed kernel time over wall time), kernel
-launches per step and the CUDA kernels by total time, then one JSON
-line with the same numbers.  The Chrome trace goes to --out when given.
-Needs a CUDA card.
+Runs the Martini water box NVT (default) or the Martini DPPC bilayer NPT
+(--bilayer NX: 2*NX*NX lipids plus water, NX = 48 is the ~100k-bead
+full width; equilibrated at dt = 5 fs) through ddcmd_tpu_torch's
+Simulation: --warm steps, then --steps timed steps, then the same number
+traced with torch.profiler.  Prints steps/s (untraced), the device busy
+share (summed kernel time over wall time), kernel launches per step and
+the CUDA kernels by total time.  For the bilayer it also takes each
+phase alone at the equilibrated state (pair kernel term, bonded term,
+RATTLE front and back, molecular virial, barostat with the molecular
+virial, rebuild, one whole step): its device time and kernel launches
+per call from a profiler trace, and its time per call between CUDA
+events over back-to-back calls.  One JSON line at the end carries the
+numbers; the Chrome trace goes to --out when given.  Needs a CUDA card.
 """
 
 import argparse
@@ -23,13 +30,74 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ddcmd_tpu_torch.models import load, martini_water  # noqa: E402
+from ddcmd_tpu_torch.models import load, martini_bilayer, martini_water  # noqa: E402
 from ddcmd_tpu_torch.run.simulate import Simulation  # noqa: E402
+
+
+def event_ms(fn, n=50):
+    """ms per call of fn, CUDA events around n back-to-back calls: the
+    device's wall time, which includes its idle gaps when the host's
+    launch rate bounds the calls."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def kernel_us(fn, n=20):
+    """(device us, kernel launches) per call of fn: the summed time of the
+    CUDA kernels it launches, from a torch.profiler trace of n calls."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in ks) / n, len(ks) / n
+
+
+def phase_times(sim):
+    """{phase: (event ms per call, device us per call, launches per
+    call)} of each bilayer phase at sim's current state."""
+    from ddcmd_tpu_torch.integrators.nglf import barostat_scale
+
+    ss, perm, _ = sim._build_nbr(sim.ss)
+    st, box = ss.state, ss.box
+    dt = sim.sysdef.cfg.dt
+    pair, bonded = sim.force_fn.terms[0], sim.force_fn.terms[1]
+    zero = torch.zeros_like(st.r)
+    phases = {
+        "pair": lambda: pair(st, box, perm),
+        "bonded": lambda: bonded(st, box, perm),
+        "rattle_front": lambda: sim.constraint_fn(
+            st, dt, "front", box_lengths=box.lengths),
+        "rattle_back": lambda: sim.constraint_fn(
+            st, dt, "back", box_lengths=box.lengths),
+        "molecular_virial": lambda: sim.mol_virial_fn(
+            st, box, ss.energy.virial),
+        "barostat": lambda: barostat_scale(
+            st, box, ss.energy.virial, sim.barostat, dt, sim.mol_virial_fn),
+        "rebuild": lambda: sim._build_nbr(ss),
+        "step": lambda: sim.step_fn(ss, perm, sim.coeffs, zero, zero),
+    }
+    return {name: (event_ms(fn), *kernel_us(fn))
+            for name, fn in phases.items()}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--n", type=int, default=6173)
+    p.add_argument("--bilayer", type=int, default=0, metavar="NX",
+                   help="profile the DPPC bilayer with NX x NX lipids a "
+                        "leaflet instead of the water box")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--warm", type=int, default=1000)
     p.add_argument("--out", default=None,
@@ -38,7 +106,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA device")
     with tempfile.TemporaryDirectory() as d:
-        martini_water(d, n=args.n)
+        if args.bilayer:
+            martini_bilayer(d, nx=args.bilayer, ny=args.bilayer, dt_fs=5.0)
+        else:
+            martini_water(d, n=args.n)
         db, base = load(d)
         sim = Simulation(db, base, run_dir=d, device="cuda")
         quiet = lambda line: None                              # noqa: E731
@@ -58,6 +129,7 @@ def main(argv=None):
                     max_steps_per_dispatch=args.steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        phases = phase_times(sim) if args.bilayer else {}
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
@@ -66,6 +138,10 @@ def main(argv=None):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     steps = args.steps + 1           # run() starts with one first_energy
+    what = (f"bilayer nx={args.bilayer}" if args.bilayer
+            else f"water n={args.n}")
+    print(f"{what}, {sim.sysdef.state.n_local} beads, cells "
+          f"{sim.grid.ncells} cap {sim.grid.cap}, redos {sim.redos}")
     print(f"unprofiled: {steps} steps in {plain_wall:.4f} s = "
           f"{steps / plain_wall:.1f} steps/s; profiled: {wall:.4f} s, "
           f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e4 / wall:.1f}% "
@@ -74,15 +150,24 @@ def main(argv=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, c) in top:
         print(f"{t / steps:10.2f} us/step {c / steps:6.2f}/step  {name[:90]}")
+    for name, (ms, dev_us, nk) in phases.items():
+        print(f"phase {name:18s} device {dev_us:9.2f} us/call in "
+              f"{nk:6.1f} kernels; {1e3 * ms:9.2f} us/call between CUDA "
+              "events (host-bound calls included)")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
     print(json.dumps({
+        "what": what,
         "steps_per_s": steps / plain_wall,
         "busy_share_profiled": busy_us / 1e6 / wall,
         "busy_share_unprofiled": busy_us / 1e6 / plain_wall,
         "launches_per_step": len(kernels) / steps,
-        "top_us_per_step": {n[:60]: t / steps for n, (t, _) in top[:8]}}))
+        "top_us_per_step": {n[:60]: t / steps for n, (t, _) in top[:8]},
+        "phase_device_us_per_call": {k: v[1] for k, v in phases.items()},
+        "phase_launches_per_call": {k: v[2] for k, v in phases.items()},
+        "phase_event_us_per_call": {k: 1e3 * v[0]
+                                    for k, v in phases.items()}}))
 
 
 if __name__ == "__main__":

@@ -219,7 +219,7 @@ def test_wrapper_on_jax_packed_slots(n, L):
 
 def test_wrapper_checks_its_arguments():
     """Wrong dtype, shape or layout is refused before any kernel sees it;
-    exclusions (slice 2) raise NotImplementedError."""
+    empty exclusion channels (rows 6-7 zero) mask nothing."""
     ncell, cap = 8, 128
     slots = torch.zeros((ncell, 8, cap))
     stencil = torch.zeros((ncell, 56), dtype=torch.int32)
@@ -236,10 +236,11 @@ def test_wrapper_checks_its_arguments():
     with pytest.raises(ValueError):
         tch.cellpair_half(slots.transpose(1, 2).contiguous().transpose(1, 2),
                           stencil, L8, counts, tab, tab, tab, **kw)
-    with pytest.raises(NotImplementedError):
-        tch.cellpair_half(slots, stencil, L8, counts, tab, tab, tab,
-                          excl=True, **kw)
     out_p, out_q, out_cell = tch.cellpair_half(slots, stencil, L8, counts,
                                                tab, tab, tab, **kw)
     assert out_p.shape == (ncell * cap, 4)
     assert out_q.shape == (ncell, 8, cap) and out_cell.shape == (ncell, 8)
+    ex = tch.cellpair_half(slots, stencil, L8, counts, tab, tab, tab,
+                           excl=True, **kw)
+    for a, b in zip(ex, (out_p, out_q, out_cell)):
+        assert torch.equal(a, b)

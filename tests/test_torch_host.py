@@ -101,10 +101,8 @@ def test_build_system_matches_jax(tmp_path):
     (lambda s: s.replace("type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
                          "type=BERENDSEN; Teq=310.0K; tau=1.0ps;"),
      "GROUP"),
-    (lambda s: s.replace("type=NGLF; T=310.0K;",
-                         "type=NGLF; T=310.0K; beta=4.6e-5/bar; "
-                         "tauBarostat=1ps;"),
-     "barostat"),
+    (lambda s: s.replace("type=NGLF; T=310.0K;", "type=NPTGLF; T=310.0K;"),
+     "integrator"),
     (lambda s: s.replace("type=MARTINI;", "type=EAM;"), "POTENTIAL"),
 ])
 def test_unported_deck_features_raise(tmp_path, edit, what):
