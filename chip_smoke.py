@@ -19,6 +19,11 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
        and cap plan_lanes and choose_col_group give), on a charged grid
        with nz == G (aliased union), and against the per-cell kernel on
        the same full-bilayer slots;
+     - the per-cell EAM kernels (density and force pass) on the nc = 12
+       crystal's slots: RATIONAL (the deck's form), FS, SC, EXP, AT and
+       a T = 2 FS alloy with an asymmetric density; the column EAM
+       kernels on the nc = 32 crystal's slots, on an nz == G grid, and
+       against the per-cell EAM kernels on the nc = 32 slots;
   4. water slice: the Martini water box through `ddcmd_tpu_torch.run.cli
      simulate`, 3000 NVT steps in dispatches of 400;
   5. small-bilayer slice: a 2,888-bead bilayer through the CLI, 400 NPT
@@ -26,9 +31,16 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
   6. bilayer slice: the ~100k-bead DPPC bilayer through the CLI in two
      stages, as bench.py runs it: 3000 steps at dt = 5 fs, a checkpoint,
      then 8000 NPT steps at dt = 20 fs from that restart;
-  7. agreement: small deterministic runs on the card (water box; a small
-     bilayer with bonds, constraints, exclusions and the barostat)
-     against the same runs on the CPU (plain twins).
+  7. EAM crystal, nc = 12 (6,912 Cu atoms, RATIONAL, per-cell EAM
+     kernels): 3000 NVT steps through the CLI, a checkpoint, then 2000
+     NVE steps (a FREE group) from that restart, whose energy drift is
+     read;
+  8. EAM crystal, nc = 32 (131,072 atoms, column EAM kernels): 2000 NVT
+     steps through the CLI;
+  9. agreement: small deterministic runs on the card (water box; a small
+     bilayer with bonds, constraints, exclusions and the barostat; a
+     500-atom EAM crystal) against the same runs on the CPU (plain
+     twins).
 
 Every main-path phase sets the launch counters to 0 just before it and
 reads them just after.  Prints the kernels' JSON line, the card line,
@@ -60,7 +72,23 @@ RUN_STEPS = 8000
 SMALL_NX, SMALL_STEPS = 8, 400
 BILAYER_T = 323.0
 TEMP_TOL = 10.0          # K, on the mean T over the last TAIL steps
+EAM_NC, EAM_STEPS, EAM_NVE_STEPS = 12, 3000, 2000
+EAM_BIG_NC, EAM_BIG_STEPS = 32, 2000
+EAM_BIG_PLAN = ((11, 12, 12), 4, 29)    # its cells, G and union size U
+EAM_T = 300.0
+NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
+# the analytic EAM forms besides the crystal's RATIONAL, one species each
+# (per-species values in the units compile_eam documents; rmax = the
+# crystal's 5.5 A, so all forms share its plan)
+EAM_FORM_DECKS = {
+    "FS": "form=FS; Cu = 0.8 2.0 1.5 5.0 7.0 3.6;",
+    "SC": "form=SC; Cu = 0.012 3.61 9 6 39.432;",
+    "EXP": ("form=EXP; atomvolume=11.81 Angstrom^3; phi_e=0.59 eV; "
+            "r_e=2.556 Angstrom; alpha=5.09; beta=5.85; gamma=8.0; "
+            "E_c=3.54 eV;"),
+    "AT": "form=AT; Cu = 1.5 1.0 2.4 1.0 4.5 0.1 -0.02 0.001 4.0;",
+}
 
 
 def phase(name, text):
@@ -263,6 +291,251 @@ def sim_kernel_inputs(sim):
     return kernel, args, kw, term.grid
 
 
+def eam_deck(d, nc, printrate, free=False):
+    """eam_crystal deck (4 nc^3 Cu atoms, RATIONAL); free=True swaps the
+    Langevin group for FREE (NVE, deterministic)."""
+    from ddcmd_tpu_torch.models import eam_crystal
+
+    eam_crystal(d, nc=nc)
+    p = os.path.join(d, "object.data")
+    with open(p) as f:
+        text = f.read()
+    text = text.replace("printrate=100;", f"printrate={printrate};")
+    if free:
+        text = text.replace(f"type=LANGEVIN; Teq={EAM_T}K; tau=0.1ps;",
+                            "type=FREE;")
+    with open(p, "w") as f:
+        f.write(text)
+    return p
+
+
+def eam_form_tables(form, dev):
+    """Kernel tables of one EAM_FORM_DECKS form for one species, Cu."""
+    from ddcmd_tpu_torch.core.species import Species
+    from ddcmd_tpu_torch.objects import ObjectDB
+    from ddcmd_tpu_torch.ops.eam_half import eam_kernel_tables
+    from ddcmd_tpu_torch.potentials.eam import compile_eam, eam_device_tables
+
+    db = ObjectDB()
+    db.compile_string("pot POTENTIAL { type=EAM; rmax=5.5 Angstrom; "
+                      + EAM_FORM_DECKS[form] + " }")
+    parms = compile_eam(db, "pot", [Species("Cu", 0, "ATOM", 0.0, 63.55)])
+    return eam_kernel_tables(eam_device_tables(parms, device=dev))
+
+
+def eam_alloy_tables(dev):
+    """A T = 2 FS alloy whose density b is asymmetric (the JAX package's
+    tests/test_pallas_cellpair.py alloy): the case that tells
+    rho(t_p, t_q) from rho(t_q, t_p)."""
+    from ddcmd_tpu_torch.objects import units as U
+    from ddcmd_tpu_torch.ops.eam_half import eam_kernel_tables
+    from ddcmd_tpu_torch.potentials.eam import EamParms, eam_device_tables
+
+    eV, Ang, rcut = U.unit_scale("eV"), U.unit_scale("Angstrom"), 0.55
+    parms = EamParms(
+        "FS", 2, rcut,
+        dict(a=np.array([[0.8, 0.7], [0.7, 0.9]]) * eV,
+             b=np.array([[2.0, 3.5], [1.2, 2.6]]) * eV * eV,
+             c=np.array([[1.5, 1.4], [1.4, 1.6]]) * Ang,
+             m=np.full((2, 2), 5.0), n=np.full((2, 2), 7.0),
+             ro=np.full((2, 2), 1.0) * Ang, x=np.full((2, 2), rcut)), {})
+    return eam_kernel_tables(eam_device_tables(parms, device=dev))
+
+
+def with_tables(slots, args, tables, seed=None):
+    """The same packed call with another form's parameter table (the
+    last argument); with a seed, the records' species row set to random
+    types 0..T-1 (an alloy on the same positions)."""
+    if seed is not None:
+        T = int(tables["n_species"])
+        t = np.random.default_rng(seed).integers(0, T, slots.shape[::2])
+        slots = slots.clone()
+        slots[:, 4, :] = torch.as_tensor(t, dtype=torch.float32,
+                                         device=slots.device)
+    kw = dict(form=tables["form"], T=int(tables["n_species"]),
+              degree=tables["degree"])
+    return slots, (*args[:-1], tables["params"]), kw
+
+
+def eam_sums(rho_out, force_out):
+    """Per-slot rho, total pe (pass A); per-slot force, virial6 (pass B)."""
+    (p, q), (fp, fq, cell) = rho_out, force_out
+    ncell, _, cap = q.shape
+    rho = (p[:, 0] + q[:, 0].reshape(-1)).double()
+    e = (p[:, 1].double().sum() + q[:, 1].double().sum())
+    f = (fp + fq[:, 0:3].transpose(1, 2).reshape(ncell * cap, 3)).double()
+    assert not q[:, 2:].any() and not fq[:, 3:].any(), "unused q-side rows"
+    return rho, e, f, cell[:, 0:6].double().sum(0)
+
+
+def eam_agree(name, got, ref):
+    """Raise unless two eam_sums agree within the tolerances of
+    tests/test_pallas_cellpair.py:305-309 (energy rel 2e-5, force 5e-5
+    of max(1, |f|max), virial rel 5e-3 abs 1.0; rho per slot, as the
+    energy, rel 2e-5 of its largest value); returns (max |d rho|, max
+    |d f|, force scale)."""
+    (r1, e1, f1, v1), (r0, e0, f0, v0) = got, ref
+    rerr = float((r1 - r0).abs().max())
+    scale = max(1.0, float(f0.abs().max()))
+    ferr = float((f1 - f0).abs().max())
+    checks = {
+        "rho": rerr <= 2e-5 * float(r0.abs().max()),
+        "e": abs(float(e1 - e0)) <= 2e-5 * abs(float(e0)),
+        "force": ferr < 5e-5 * scale,
+        "virial": bool(((v1 - v0).abs() <= 5e-3 * v0.abs() + 1.0).all()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: outputs disagree: {checks} (rho err "
+                             f"{rerr:.3g}, force err {ferr:.3g}, scale "
+                             f"{scale:.4g})")
+    return rerr, ferr, scale
+
+
+def eam_compare(name, kernels, plains, slots, args, kw, tables):
+    """Both EAM kernels against their twins on the same CUDA tensors:
+    pass A on `slots`, pass B on a copy holding the twin's dF in row 6.
+    Returns {"rho": (max |d rho|, ms, plain ms), "force": (max |d f|,
+    ms, plain ms)}."""
+    from ddcmd_tpu_torch.ops.eam_half import embed_slots
+
+    (rho_k, force_k), (rho_p, force_p) = kernels, plains
+    ref_a = rho_p(slots, *args, **kw)
+    fslots = slots.clone()
+    embed_slots(fslots, *ref_a, tables)
+    got = eam_sums(rho_k(slots, *args, **kw), force_k(fslots, *args, **kw))
+    ref = eam_sums(ref_a, force_p(fslots, *args, **kw))
+    torch.cuda.synchronize()
+    rerr, ferr, scale = eam_agree(name, got, ref)
+    t = {"rho": (rerr, time_calls(lambda: rho_k(slots, *args, **kw),
+                                  TIMED_CALLS),
+                 time_calls(lambda: rho_p(slots, *args, **kw), PLAIN_CALLS)),
+         "force": (ferr, time_calls(lambda: force_k(fslots, *args, **kw),
+                                    TIMED_CALLS),
+                   time_calls(lambda: force_p(fslots, *args, **kw),
+                              PLAIN_CALLS))}
+    phase("kernel", f"{name}: rho err {rerr:.3g}, force err {ferr:.3g} "
+          f"(scale {scale:.4g}), e {float(got[1]):.8g} vs "
+          f"{float(ref[1]):.8g}; rho kernel {1e3 * t['rho'][1]:.2f} us/call, "
+          f"plain {1e3 * t['rho'][2]:.2f}; force kernel "
+          f"{1e3 * t['force'][1]:.2f} us/call, plain "
+          f"{1e3 * t['force'][2]:.2f}")
+    return t
+
+
+def eam_sim_inputs(nc, dev):
+    """The EAM call the main path makes on the nc crystal's start state:
+    (rho kernel, force kernel, slots, args, kw, tables, half grid, G)."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    with tempfile.TemporaryDirectory() as d:
+        eam_deck(d, nc, 100)
+        sim = Simulation(*load(d), run_dir=d, device=dev)
+    ss, perm, ov = sim._build_nbr(sim.ss)
+    assert not bool(ov), "overflow packing the comparison case"
+    term = sim.force_fn.terms[0]
+    return (*term.kernel_inputs(ss.state, ss.box, perm), term.tables,
+            term.grid, term.G)
+
+
+def eam_crystal_inputs(nc, G, tables, dev, seed=3):
+    """eam_kernel_inputs for a jittered fcc crystal of nc^3 unit cells on
+    its plan_lanes grid, with the column group forced to G and random
+    species 0..T-1."""
+    from ddcmd_tpu_torch.ops.cellpair import build_cell_slots, half_grid
+    from ddcmd_tpu_torch.ops.cellpair_half import grid_tensors, plan_lanes
+    from ddcmd_tpu_torch.ops.eam_half import eam_kernel_inputs
+
+    a = 0.3615
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+    rng = np.random.default_rng(seed)
+    r = ((cells[:, None, :] + base).reshape(-1, 3) * a - nc * a / 2
+         + rng.standard_normal((4 * nc ** 3, 3)) * 0.006)
+    n = len(r)
+    L = torch.tensor([nc * a] * 3, dtype=torch.float32, device=dev)
+    rt = torch.tensor(r, dtype=torch.float32, device=dev)
+    fmask = torch.ones(n, device=dev)
+    grid = plan_lanes([nc * a] * 3, 0.55, 0.1, n)
+    perm, ov = build_cell_slots(rt, fmask, L, grid)
+    assert not bool(ov), "overflow packing the comparison case"
+    hg = half_grid(grid)
+    sidx = torch.as_tensor(rng.integers(0, int(tables["n_species"]), n),
+                           device=dev)
+    return eam_kernel_inputs(rt, sidx, fmask, perm, L, hg, tables,
+                             grid_tensors(hg, dev, G)), hg
+
+
+def eam_kernel_phase(dev):
+    """Phase 3, EAM; returns {kernel entry: (max_abs_err, ms, plain_ms)}
+    of the main-path case of each EAM kernel."""
+    from ddcmd_tpu_torch.ops import eam_half as eh
+    from ddcmd_tpu_torch.ops.cellpair_half import pack_stencil
+
+    cell = ((eh.eam_rho_half, eh.eam_force_half),
+            (eh.eam_rho_half_plain, eh.eam_force_half_plain))
+    col = ((eh.eam_rho_half_col, eh.eam_force_half_col),
+           (eh.eam_rho_half_col_plain, eh.eam_force_half_col_plain))
+    res = {}
+    # per-cell, on the nc = 12 crystal's slots: the deck's RATIONAL, the
+    # other forms and the asymmetric alloy on the same positions
+    rho_k, _, slots, args, kw, tables, hg, G = eam_sim_inputs(EAM_NC, dev)
+    assert rho_k is eh.eam_rho_half and G == 1, (rho_k, G)
+    assert (hg.ncells, hg.cap) == ((4, 5, 5), 128), (hg.ncells, hg.cap)
+    what = f"nc={EAM_NC} crystal, {hg.ncell} cells, cap {hg.cap}"
+    t = eam_compare(f"per-cell EAM RATIONAL T=1: {what}", *cell, slots,
+                    args, kw, tables)
+    res["eam_rho"], res["eam_force"] = t["rho"], t["force"]
+    for form in EAM_FORM_DECKS:
+        ft = eam_form_tables(form, dev)
+        eam_compare(f"per-cell EAM {form} T=1: {what}", *cell,
+                    *with_tables(slots, args, ft), ft)
+    at = eam_alloy_tables(dev)
+    eam_compare(f"per-cell EAM FS alloy T=2 (asymmetric rho): {what}", *cell,
+                *with_tables(slots, args, at, seed=5), at)
+    del slots, args
+
+    # column, on the nc = 32 crystal's slots, then against the per-cell
+    # kernels on the same slots
+    rho_k, _, slots, args, kw, tables, hg, G = eam_sim_inputs(EAM_BIG_NC, dev)
+    U = args[0].shape[1]
+    assert rho_k is eh.eam_rho_half_col and (hg.ncells, G, U) == \
+        EAM_BIG_PLAN, (rho_k, hg.ncells, G, U)
+    t = eam_compare(f"column EAM RATIONAL T=1: nc={EAM_BIG_NC} crystal, "
+                    f"{hg.ncell} cells, cap {hg.cap}, G={G}, U={U}", *col,
+                    slots, args, kw, tables)
+    res["eam_rho_col"], res["eam_force_col"] = t["rho"], t["force"]
+    cell_args = (torch.as_tensor(pack_stencil(hg), device=dev), *args[2:])
+    fslots = slots.clone()
+    eh.embed_slots(fslots, *eh.eam_rho_half_plain(slots, *cell_args, **kw),
+                   tables)
+    got = eam_sums(eh.eam_rho_half_col(slots, *args, **kw),
+                   eh.eam_force_half_col(fslots, *args, **kw))
+    ref = eam_sums(eh.eam_rho_half(slots, *cell_args, **kw),
+                   eh.eam_force_half(fslots, *cell_args, **kw))
+    torch.cuda.synchronize()
+    rerr, ferr, scale = eam_agree("column vs per-cell EAM", got, ref)
+    ms_rho = time_calls(lambda: eh.eam_rho_half(slots, *cell_args, **kw),
+                        TIMED_CALLS)
+    ms_force = time_calls(lambda: eh.eam_force_half(fslots, *cell_args, **kw),
+                          TIMED_CALLS)
+    phase("kernel", f"column vs per-cell EAM kernels on the nc={EAM_BIG_NC} "
+          f"slots: rho err {rerr:.3g}, force err {ferr:.3g} (scale "
+          f"{scale:.4g}); per-cell rho kernel {1e3 * ms_rho:.2f} us/call, "
+          f"force kernel {1e3 * ms_force:.2f} us/call")
+    del slots, fslots, args, cell_args
+
+    # column on a grid with nz == G (aliased union), the alloy
+    at = eam_alloy_tables(dev)
+    (rho_k, _, slots, args, kw), hg = eam_crystal_inputs(8, 3, at, dev)
+    assert rho_k is eh.eam_rho_half_col and hg.ncells[2] == 3, hg.ncells
+    eam_compare(f"column EAM FS alloy T=2: nc=8 crystal, cells {hg.ncells}, "
+                f"nz == G = 3 (aliased union, U={args[0].shape[1]})", *col,
+                slots, args, kw, at)
+    return res
+
+
 def kernel_phase(dev):
     """Phase 3; returns {kernel entry: (max_abs_err, ms, plain_ms)} of
     the main-path case of each kernel."""
@@ -354,6 +627,82 @@ def kernel_phase(dev):
     return res
 
 
+def eam_slice_phases(card, counters_zero, counters, eam_counters):
+    """Phases 7 and 8, the EAM crystal through the CLI; returns the EAM
+    kernels' launch counts of their main-path runs."""
+    from ddcmd_tpu_torch.io.restart import write_checkpoint
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+
+    # --- phase 7: the EAM crystal, nc = 12, per-cell EAM kernels ------------
+    with tempfile.TemporaryDirectory() as d_eq, \
+            tempfile.TemporaryDirectory() as d:
+        deck_eq = eam_deck(d_eq, EAM_NC, printrate=10)
+        deck = eam_deck(d, EAM_NC, printrate=10, free=True)
+        counters_zero()
+        sim = cli_run(["simulate", "-o", deck_eq, "-n", str(EAM_STEPS),
+                       "--run-dir", d_eq])
+        n_rho, n_force, n_rho_col, n_force_col = eam_counters()
+        assert n_rho >= EAM_STEPS and n_force >= EAM_STEPS, eam_counters()
+        assert n_rho_col == n_force_col == 0 and not any(counters()), (
+            eam_counters(), counters())
+        launches = {"eam_rho": n_rho, "eam_force": n_force}
+        rows = read_rows(d_eq)
+        assert sim.ss.loop == EAM_STEPS and np.isfinite(rows).all()
+        temp = float(rows[rows[:, 0] > EAM_STEPS - TAIL][:, 5].mean())
+        assert abs(temp - EAM_T) <= TEMP_TOL, f"mean T over the last {TAIL}: {temp}"
+        rate, steps = tail_rate(sim)
+        n_eam = sim.sysdef.state.n_local
+        phase("eam", f"eam_crystal nc={EAM_NC}: {n_eam} atoms, cells "
+              f"{sim.grid.ncells} cap {sim.grid.cap} "
+              f"G={sim.force_fn.terms[0].G}, {EAM_STEPS} NVT steps at dt=2 fs "
+              f"(dispatch {DISPATCH}): mean T {temp:.2f} K over the last "
+              f"{TAIL} steps, Etot/atom {rows[-1, 2]:.6f} eV, rho/force "
+              f"kernel launches {n_rho}/{n_force}, redos {sim.redos}, "
+              f"{rate:.1f} steps/s over the last {steps} steps on {card}")
+        # the NVE leg: the same deck with a FREE group from a checkpoint
+        write_checkpoint(sim, d)
+        run_dir = os.path.join(d, "run")
+        sim = cli_run(["simulate", "-o", deck, "-r",
+                       os.path.join(d, "restart"), "-n", str(EAM_NVE_STEPS),
+                       "--run-dir", run_dir])
+        rows = read_rows(run_dir)
+    assert sim.ss.loop == EAM_STEPS + EAM_NVE_STEPS and np.isfinite(rows).all()
+    drift = float(np.abs(rows[:, 2] - rows[0, 2]).max())
+    rate, steps = tail_rate(sim)
+    phase("eam", f"NVE leg: {EAM_NVE_STEPS} steps from the checkpoint, "
+          f"max |Etot - Etot0| {drift:.3g} eV/atom (bound {NVE_DRIFT_TOL}), "
+          f"mean T {rows[:, 5].mean():.2f} K, {rate:.1f} steps/s")
+    assert drift < NVE_DRIFT_TOL, f"NVE drift {drift} eV/atom"
+
+    # --- phase 8: the EAM crystal, nc = 32, column EAM kernels ---------------
+    with tempfile.TemporaryDirectory() as d:
+        deck = eam_deck(d, EAM_BIG_NC, printrate=10)
+        counters_zero()
+        sim = cli_run(["simulate", "-o", deck, "-n", str(EAM_BIG_STEPS),
+                       "--run-dir", d])
+        n_rho, n_force, n_rho_col, n_force_col = eam_counters()
+        rows = read_rows(d)
+    assert n_rho_col >= EAM_BIG_STEPS and n_force_col >= EAM_BIG_STEPS, \
+        eam_counters()
+    assert n_rho == n_force == 0 and not any(counters()), (
+        eam_counters(), counters())
+    launches["eam_rho_col"], launches["eam_force_col"] = n_rho_col, n_force_col
+    assert sim.ss.loop == EAM_BIG_STEPS and np.isfinite(rows).all()
+    temp = float(rows[rows[:, 0] > EAM_BIG_STEPS - TAIL][:, 5].mean())
+    assert abs(temp - EAM_T) <= TEMP_TOL, f"mean T over the last {TAIL}: {temp}"
+    rate, steps = tail_rate(sim)
+    term = sim.force_fn.terms[0]
+    phase("eam", f"eam_crystal nc={EAM_BIG_NC}: {sim.sysdef.state.n_local} "
+          f"atoms, {EAM_BIG_STEPS} NVT steps at dt=2 fs: cells "
+          f"{term.grid.ncells} ({term.grid.ncell}) cap {term.grid.cap} "
+          f"G={term.G} U={len(ch.col_plan_grid(term.grid, term.G)[0])}; mean "
+          f"T {temp:.2f} K over the last {TAIL} steps, Etot/atom "
+          f"{rows[-1, 2]:.6f} eV, column rho/force launches "
+          f"{n_rho_col}/{n_force_col}, redos {sim.redos}, {rate:.1f} steps/s "
+          f"over the last {steps} steps on {card}")
+    return launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -362,6 +711,7 @@ def main(argv=None):
     from ddcmd_tpu_torch.integrators.constraints import constraint_residual
     from ddcmd_tpu_torch.io.restart import write_checkpoint
     from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.ops import eam_half as eh
     from ddcmd_tpu_torch.ops.cellpair_half import build_kernels
 
     dev = torch.device(DEVICE)
@@ -381,17 +731,26 @@ def main(argv=None):
     phase("build", f"{len(libs)} sources in parallel in {build_s:.2f} s")
 
     res = kernel_phase(dev)
+    res.update(eam_kernel_phase(dev))
     if "--kernels-only" in argv:
         return
 
+    counted = (ch.cellpair_half, ch.cellpair_half_col, eh.eam_rho_half,
+               eh.eam_force_half, eh.eam_rho_half_col, eh.eam_force_half_col)
+
     def counters_zero():
-        ch.cellpair_half.launches = 0
         ch.cellpair_half.launches_excl = 0
-        ch.cellpair_half_col.launches = 0
+        for k in counted:
+            k.launches = 0
 
     def counters():
+        """(pair, pair with exclusions, pair column) launches"""
         return (ch.cellpair_half.launches, ch.cellpair_half.launches_excl,
                 ch.cellpair_half_col.launches)
+
+    def eam_counters():
+        """(rho, force, rho column, force column) launches"""
+        return tuple(k.launches for k in counted[2:])
 
     launches = {}
     # --- phase 4: the water slice through the CLI ---------------------------
@@ -405,6 +764,7 @@ def main(argv=None):
     assert sim.device == dev and sim.ss.loop == SLICE_STEPS
     assert np.isfinite(rows).all(), "non-finite printinfo row"
     assert n_all >= SLICE_STEPS and n_excl == 0 and n_col == 0, counters()
+    assert not any(eam_counters()), eam_counters()
     launches["cellpair_half"] = n_all
     temp = float(rows[rows[:, 0] > SLICE_STEPS - TAIL][:, 5].mean())
     assert abs(temp - 310.0) <= TEMP_TOL, f"mean T over the last {TAIL} steps: {temp}"
@@ -474,12 +834,9 @@ def main(argv=None):
                                 bt.cons_dist, box_lengths=L1)
     assert resid < 5e-3, f"RATTLE residual {resid}"
     rate, steps = tail_rate(sim)
-    from ddcmd_tpu_torch.ops.cellpair import half_grid
-    from ddcmd_tpu_torch.ops.cellpair_half import choose_col_group
-
     phase("bilayer", f"stage 2: {sd.state.n_local} beads, {RUN_STEPS} NPT "
           f"steps at dt=20 fs from the restart (dispatch {DISPATCH}): "
-          f"cells {sim.grid.ncells} G={choose_col_group(half_grid(sim.grid))} "
+          f"cells {sim.grid.ncells} G={sim.force_fn.terms[0].G} "
           f"cap {sim.grid.cap}; stale redos {sim.redos['stale']}, overflow "
           f"replans {sim.redos['overflow']}; box {L0.round(4).tolist()} -> "
           f"{L1.round(4).tolist()} nm; mean T {temp:.2f} K over the last "
@@ -487,7 +844,10 @@ def main(argv=None):
           f"{resid:.3g}; column kernel launches {n_col}; {rate:.2f} steps/s "
           f"over the last {steps} steps on {card}")
 
-    # --- phase 7: small-input agreement, card vs CPU -------------------------
+    launches.update(eam_slice_phases(card, counters_zero, counters,
+                                     eam_counters))
+
+    # --- phase 9: small-input agreement, card vs CPU -------------------------
     def final(where, make_deck, n):
         with tempfile.TemporaryDirectory() as d:
             deck = make_deck(d)
@@ -500,7 +860,9 @@ def main(argv=None):
     cases = (("water 400 beads FREE 40 steps",
               lambda d: water_deck(d, 400, printrate=100, free=True), 40),
              ("bilayer nx=4 FREE NPT 20 steps",
-              lambda d: bilayer_deck(d, 4, 20.0, 100, free=True), 20))
+              lambda d: bilayer_deck(d, 4, 20.0, 100, free=True), 20),
+             ("EAM crystal nc=5 (500 atoms) FREE 40 steps",
+              lambda d: eam_deck(d, 5, 100, free=True), 40))
     for name, make_deck, n in cases:
         (e1, k1, r1, L1), (e0, k0, r0, L0) = (final(w, make_deck, n)
                                               for w in ("cuda", "cpu"))
@@ -517,19 +879,22 @@ def main(argv=None):
             raise AssertionError(f"{name}: card run disagrees with the CPU run")
     assert "jax" not in sys.modules
 
-    replaces = {"cellpair_half": "ddcmd_tpu/ops/pallas_cellpair.py:559",
-                "cellpair_half_excl": "ddcmd_tpu/ops/pallas_cellpair.py:559",
-                "cellpair_half_col": "ddcmd_tpu/ops/pallas_cellpair.py:837"}
-    source = {"cellpair_half": "ddcmd_tpu_torch/csrc/cellpair_half.cu",
-              "cellpair_half_excl": "ddcmd_tpu_torch/csrc/cellpair_half.cu",
-              "cellpair_half_col": "ddcmd_tpu_torch/csrc/cellpair_half_col.cu"}
+    kernels = {   # entry: (source, the TPU kernel it replaces)
+        "cellpair_half": ("cellpair_half.cu", "pallas_cellpair.py:559"),
+        "cellpair_half_excl": ("cellpair_half.cu", "pallas_cellpair.py:559"),
+        "cellpair_half_col": ("cellpair_half_col.cu", "pallas_cellpair.py:837"),
+        "eam_rho": ("eam_half.cu", "pallas_eam.py:230"),
+        "eam_force": ("eam_half.cu", "pallas_eam.py:269"),
+        "eam_rho_col": ("eam_half_col.cu", "pallas_eam.py:363"),
+        "eam_force_col": ("eam_half_col.cu", "pallas_eam.py:411"),
+    }
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source[name],
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda",
+         "source": "ddcmd_tpu_torch/csrc/" + src,
+         "replaces": "ddcmd_tpu/ops/" + tpu, "launches": launches[name],
          "max_abs_err": res[name][0], "ms": res[name][1],
          "plain_ms": res[name][2]}
-        for name in ("cellpair_half", "cellpair_half_excl",
-                     "cellpair_half_col")]}))
+        for name, (src, tpu) in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,10 +2,11 @@
 
 Counterpart of ddcmd_tpu/core/system.py (system_init, ddcMD
 src/system.c; simulate_init, src/simulate.c:104-297), cut to the decks
-the port runs: MARTINI potentials in an orthorhombic box, with the
+the port runs in an orthorhombic box: MARTINI potentials, with the
 covalent topology of the residues (bonds, angles, exclusions,
-constraints) instantiated over the collection.  Anything else raises
-NotImplementedError naming the ROADMAP item that ports it.
+constraints) instantiated over the collection, and EAM metals of ATOM
+species.  Anything else raises NotImplementedError naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -190,16 +191,22 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
     rcut_max = 0.0
     for pname in sysobj.get_strv("potential"):
         ptype = db.get(pname, "POTENTIAL").get_str("type").upper()
-        if ptype != "MARTINI":
+        if ptype == "MARTINI":
+            from ..potentials.martini import compile_martini
+
+            _check_bonded_families(db, pname)
+            parms = compile_martini(db, pname)
+        elif ptype == "EAM":
+            from ..potentials.eam import compile_eam
+
+            # the EAM type index is the species index
+            parms = compile_eam(db, pname, species, base_dir)
+        else:
             raise NotImplementedError(
                 f"POTENTIAL type {ptype} is not ported yet (ROADMAP queue 1, "
-                "items 16-21)")
-        from ..potentials.martini import compile_martini
-
-        _check_bonded_families(db, pname)
-        parms = compile_martini(db, pname)
+                "items 19-21)")
         rcut_max = max(rcut_max, parms.rcut)
-        potentials.append(("MARTINI", pname, parms))
+        potentials.append((ptype, pname, parms))
 
     mass = np.array([species[i].mass for i in sidx])
     charge = np.array([species[i].charge for i in sidx])
@@ -209,7 +216,9 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
     # Martini species need their LJ type index instead of species index for
     # the nonbond table lookup
     bonded = residue_instances = None
-    for _, pname, parms in potentials:
+    for ptype, pname, parms in potentials:
+        if ptype != "MARTINI":
+            continue
         tmap = np.zeros(len(species), dtype=np.int64)
         for s in species:
             if s.name not in parms.species_to_type:

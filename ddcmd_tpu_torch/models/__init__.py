@@ -1,6 +1,8 @@
-"""Model families: programmatic deck builders (the Martini water box and
-the Martini DPPC bilayer)."""
+"""Model families: programmatic deck builders (the Martini water box,
+the Martini DPPC bilayer and the EAM copper crystal)."""
 
-from .builders import load, martini_bilayer, martini_water, write_atoms
+from .builders import (eam_crystal, load, martini_bilayer, martini_water,
+                       write_atoms)
 
-__all__ = ["load", "martini_bilayer", "martini_water", "write_atoms"]
+__all__ = ["eam_crystal", "load", "martini_bilayer", "martini_water",
+           "write_atoms"]

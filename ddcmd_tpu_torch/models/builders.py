@@ -2,7 +2,7 @@
 
 A copy of the JAX package's builders, cut to the families the port runs:
 the Martini water box (slice 1), the Martini DPPC bilayer (slice 2), the
-atoms-file writer and the loader.  Everything is written in the same deck
+EAM copper crystal (slice 3), the atoms-file writer and the loader.  Everything is written in the same deck
 grammar the parser reads back (objects/parser.py), so both packages build
 identical decks.
 """
@@ -13,7 +13,8 @@ import os
 
 import numpy as np
 
-__all__ = ["write_atoms", "martini_water", "martini_bilayer", "load"]
+__all__ = ["write_atoms", "eam_crystal", "martini_water", "martini_bilayer",
+           "load"]
 
 
 def write_atoms(path, r, v, species, groups, h, classes=None):
@@ -43,6 +44,48 @@ def _lattice(n_target, L, jitter, seed):
                  -1).reshape(-1, 3)[:n_target]
     r = ((g + 0.5) / m - 0.5) * L + (rng.random((n_target, 3)) - 0.5) * jitter
     return r, rng
+
+
+def eam_crystal(out_dir, *, nc=8, a_lat=3.615, T=300.0, dt_fs=2.0,
+                seed=1, jitter=0.03):
+    """FCC copper with the RATIONAL EAM form (eam_rational.c analog) --
+    4 nc^3 atoms."""
+    L = a_lat * nc
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+    r = (cells[:, None, :] + base[None, :, :]).reshape(-1, 3) * a_lat - L / 2
+    rng = np.random.default_rng(seed)
+    r = r + rng.standard_normal(r.shape) * jitter
+    n = len(r)
+    v = np.zeros((n, 3))
+    write_atoms(os.path.join(out_dir, "atoms#000000"), r, v,
+                ["Cu"] * n, ["free"] * n, np.diag([L] * 3))
+    rc2 = 5.5 ** 2
+    deck = f"""
+simulate SIMULATE {{ type=MD; system=system; integrator=nglf; dt={dt_fs};
+  maxloop=100000; printrate=100; checkpointrate=10000; ddc=ddc; }}
+ddc DDC {{ updateRate=20; }}
+pot POTENTIAL {{ type=EAM; form=RATIONAL; rmax=5.5 Angstrom;
+  density_type=elementwise; }}
+Cu_embedding FIT {{ cutoff=1e30; orderP=2; orderQ=1; P=0 -0.3 0.002;
+  Q=1 0.05; xUnits=NONE; yUnits=eV; }}
+Cu_density FIT {{ cutoff={rc2}; orderP=0; orderQ=2; P={3.6 ** 4}; Q=0 0 1;
+  xUnits=Angstrom^2; yUnits=NONE; }}
+Cu_Cu_2body FIT {{ cutoff={rc2}; orderP=0; orderQ=3; P={0.012 * 3.6 ** 6};
+  Q=0 0 0 1; xUnits=Angstrom^2; yUnits=eV; }}
+nglf INTEGRATOR {{ type=NGLF; T={T}K; }}
+system SYSTEM {{ type=NORMAL; potential=pot; neighbor=nbr; groups=free;
+  box=box; collection=collection; species=Cu; }}
+Cu SPECIES {{ type=ATOM; mass=63.55; charge=0; }}
+box BOX {{ type=ORTHORHOMBIC; pbc=7; h= {L} 0 0 0 {L} 0 0 0 {L} ; }}
+nbr NEIGHBOR {{ type=NORMAL; deltaR=1.0; }}
+free GROUP {{ type=LANGEVIN; Teq={T}K; tau=0.1ps; }}
+collection COLLECTION {{ mode=VARRECORDASCII; size={n}; files=atoms#; }}
+"""
+    with open(os.path.join(out_dir, "object.data"), "w") as f:
+        f.write(deck)
+    return out_dir
 
 
 def martini_water(out_dir, *, n=6173, density_nm3=7.47, T=310.0,

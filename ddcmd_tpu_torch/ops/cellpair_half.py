@@ -4,8 +4,8 @@ Counterpart of ddcmd_tpu/ops/pallas_cellpair.py for the main paths:
 `plan_lanes` (fat cells sized to a lane capacity), `pack_stencil` and
 `pack_slots` (the (ncell, 8, cap) record contract, with the in-kernel
 exclusion channels in rows 6-7), the column plan (`choose_col_group`,
-`col_plan_grid`, `pack_stencil_col`), two kernels with their plain
-PyTorch twins:
+`fit_col_group`, `col_plan_grid`, `pack_stencil_col`), two kernels with
+their plain PyTorch twins:
 
   cellpair_half      / cellpair_half_plain      per-cell kernel (TPU #1)
   cellpair_half_col  / cellpair_half_col_plain  column kernel   (TPU #2)
@@ -15,7 +15,8 @@ pack, run the kernel the plan picks, scatter the per-slot results back to
 particles.
 
 The kernels are hand-written CUDA (csrc/cellpair_half.cu,
-csrc/cellpair_half_col.cu), compiled with nvcc on first use into
+csrc/cellpair_half_col.cu; the EAM kernels of ops/eam_half.py build
+here too), compiled with nvcc on first use into
 `ddcmd_tpu_torch/_build/` (one nvcc process per source, started
 together) and loaded with ctypes; nothing is compiled or imported for
 them when this module loads.  On a CPU tensor a wrapper runs its plain
@@ -48,7 +49,10 @@ _BUILD = os.path.join(_PKG, "_build")
 # kernel name -> CUDA source; each builds into _build/lib<name>.so
 KERNEL_SOURCES = {
     name: os.path.join(_PKG, "csrc", name + ".cu")
-    for name in ("cellpair_half", "cellpair_half_col")}
+    for name in ("cellpair_half", "cellpair_half_col", "eam_half",
+                 "eam_half_col")}
+# headers the sources include (a newer header rebuilds every library)
+KERNEL_HEADERS = [os.path.join(_PKG, "csrc", "eam_forms.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -160,6 +164,22 @@ def choose_col_group(grid: CellBlockGrid) -> int:
     for G in range(min(g_max, nz), 1, -1):
         if nz % G == 0 and grid.ncell > G:
             return G
+    return 1
+
+
+def fit_col_group(grid: CellBlockGrid, G: int, smem_bytes_fn) -> int:
+    """The plan's G on this card: the largest divisor of nz that is <= G
+    and whose staged union fits in a block's shared memory
+    (smem_bytes_fn(U) <= SMEM_LIMIT, U the union size at that G); 1 -- the
+    per-cell kernel -- when none fits.  Decided at plan time from the
+    byte counts the column kernels launch with, so no launch is refused
+    mid-run.  choose_col_group stays the JAX package's rule, which its
+    VMEM limit bounds instead."""
+    nz = grid.ncells[2]
+    for g in range(G, 1, -1):
+        if nz % g == 0 and \
+                smem_bytes_fn(len(col_plan_grid(grid, g)[0])) <= SMEM_LIMIT:
+            return g
     return 1
 
 
@@ -394,10 +414,11 @@ def build_kernels(force: bool = False, names=None) -> dict:
 
 
 def _build_locked(names, force: bool) -> dict:
+    newest_header = max(os.path.getmtime(h) for h in KERNEL_HEADERS)
     todo = [n for n in names
             if force or not os.path.exists(lib_path(n))
             or os.path.getmtime(lib_path(n))
-            < os.path.getmtime(KERNEL_SOURCES[n])]
+            < max(os.path.getmtime(KERNEL_SOURCES[n]), newest_header)]
     if todo:
         os.makedirs(_BUILD, exist_ok=True)
         nvcc = nvcc_path()
@@ -429,6 +450,10 @@ _ARGTYPES = {
     "cellpair_half_col": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                           + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                           + [ctypes.c_void_p]),
+    # pointers..., ints (shape, npar, degree, form, force), stream
+    "eam_half": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "eam_half_col": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                     + [ctypes.c_void_p]),
 }
 
 

@@ -1,8 +1,9 @@
 """Force orchestration: one force function from all potentials.
 
 Counterpart of ddcmd_tpu/run/forces.py:build_force_fn, ported for the
-MARTINI nonbond term on the kernel branch (ddcenergy analog, ddcMD
-src/ddcenergy.c:160-238) and the residue-template batched bonded terms.
+MARTINI nonbond term and the analytic EAM term on the kernel branch
+(ddcenergy analog, ddcMD src/ddcenergy.c:160-238) and the
+residue-template batched bonded terms.
 Excluded (bonded) pairs are masked inside the pair kernel through the
 record's exclusion channels, and the bonded block adds back only the
 reaction-field part the reference keeps for them (excl_mode "rf_add").
@@ -19,7 +20,12 @@ from ..core.system import SystemDef
 from ..objects import units as U
 from ..ops.cellpair import half_grid
 from ..ops.cellpair_half import (cellpair_eval_half, choose_col_group,
-                                 grid_tensors, kernel_inputs)
+                                 col_smem_bytes, fit_col_group, grid_tensors,
+                                 kernel_inputs)
+from ..ops.eam_half import (eam_col_smem_bytes, eam_eval_half,
+                            eam_half_supported, eam_kernel_inputs,
+                            eam_kernel_tables, n_params)
+from ..potentials.eam import eam_device_tables
 from ..potentials.martini import martini_device_tables
 
 # widest exclusion component the exact-f32 record encoding carries
@@ -95,14 +101,20 @@ def _excl_channels(exclusions, n_pad: int):
 def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
     """Returns force_fn(state, box, perm) -> (f, e_pot, virial, pe), with
     perm the slot permutation from ops.cellpair.build_cell_slots on
-    `grid` (a plan_lanes grid).  The pair term runs the column kernel when
-    choose_col_group gives G > 1, else the per-cell kernel.  The term list
-    is kept as force_fn.terms (per-term profiling)."""
+    `grid` (a plan_lanes grid).  The MARTINI pair term and the EAM term
+    run their column kernels when choose_col_group gives G > 1 and
+    fit_col_group keeps a G > 1 whose staged union fits in shared
+    memory, else their per-cell kernels.  The term list is kept as
+    force_fn.terms (per-term profiling); each kernel term carries
+    `kernel_inputs` (the call it makes, for chip_smoke.py) and `grid`."""
     state = sysdef.state
     device = state.device
     n_loc = state.n_local
     terms = []
     for ptype, _, parms in sysdef.potentials:
+        if ptype == "EAM":
+            terms.append(_eam_term(parms, grid, device))
+            continue
         if ptype != "MARTINI":
             raise NotImplementedError(f"force term {ptype}")
         tables = martini_device_tables(parms, dtype=dtype, device=device)
@@ -121,13 +133,16 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
                           eps=tables["eps"][t0:t0 + 1, t0:t0 + 1],
                           shift=tables["shift"][t0:t0 + 1, t0:t0 + 1])
             tmap = torch.zeros_like(tmap)
-        hg = half_grid(grid)
-        gt = grid_tensors(hg, device, choose_col_group(hg))
         excl_vals = None
         if _inlist_excl(sysdef):
             excl_vals = torch.as_tensor(
                 _excl_channels(sysdef.bonded.exclusions, state.n_pad),
                 device=device)
+        hg = half_grid(grid)
+        T = tables["sigma"].shape[0]
+        G = fit_col_group(hg, choose_col_group(hg), lambda U: col_smem_bytes(
+            U, hg.cap, T, excl_vals is not None))
+        gt = grid_tensors(hg, device, G)
 
         def martini_term(state, box, perm, tables=tables, tmap=tmap,
                          hg=hg, gt=gt, coul=coul, excl_vals=excl_vals):
@@ -152,6 +167,7 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
 
         martini_term.kernel_inputs = pair_kernel_inputs
         martini_term.grid = hg
+        martini_term.G = G
         terms.append(martini_term)
 
     # covalent terms (bonds, angles, exclusion RF corrections)
@@ -196,3 +212,38 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
 
     force_fn.terms = terms
     return force_fn
+
+
+def _eam_term(parms, grid, device):
+    """The EAM term on the kernel branch (run/forces.py:290-339 of the JAX
+    package): the species index is the EAM type index.  Forms outside
+    the kernels (TABULAR, more than 4 species) raise."""
+    tables = eam_device_tables(parms, device=device)
+    if not eam_half_supported(tables):
+        raise NotImplementedError(
+            f"EAM form {tables['form']} with {tables['n_species']} species: "
+            "the EAM kernels take the analytic forms with 1-4 species; the "
+            "cell-block EAM engine the rest runs on is not ported yet "
+            "(ROADMAP queue 1, item 17)")
+    tables = eam_kernel_tables(tables)
+    hg = half_grid(grid)
+    npar = n_params(tables["form"], tables["degree"])
+    G = fit_col_group(hg, choose_col_group(hg), lambda U: eam_col_smem_bytes(
+        U, hg.cap, tables["n_species"], npar))
+    gt = grid_tensors(hg, device, G)
+
+    def eam_term(state, box, perm):
+        return eam_eval_half(state.r, state.species, state.fmask, perm,
+                             box.lengths, hg, tables, gt)
+
+    def eam_inputs(state, box, perm):
+        """(rho_kernel, force_kernel, slots, args, kw) of the two passes
+        eam_term runs (chip_smoke.py holds them against their twins)."""
+        return eam_kernel_inputs(state.r, state.species, state.fmask, perm,
+                                 box.lengths, hg, tables, gt)
+
+    eam_term.kernel_inputs = eam_inputs
+    eam_term.tables = tables
+    eam_term.grid = hg
+    eam_term.G = G
+    return eam_term

@@ -3,7 +3,10 @@
 Counterpart of ddcmd_tpu/run/simulate.py (reference ddcMD
 src/masters.c:369-559), reduced to the main paths: NGLF / NGLFCONSTRAINT
 with the Berendsen barostat and RATTLE constraints, MARTINI nonbond
-through the cell-pair kernels plus the batched bonded terms.
+through the cell-pair kernels plus the batched bonded terms, and
+analytic EAM through the two-pass EAM kernels (an EAM deck the kernels
+do not take raises NotImplementedError when the force function is
+built).
 
 One dispatch runs k steps as n_rebuilds blocks of `updateRate` steps:
 each block wraps positions and rebuilds the cell slots, then runs its

@@ -2,12 +2,15 @@
 
     python scripts/profile_torch_slice.py [--n 6173] [--steps 200]
     python scripts/profile_torch_slice.py --bilayer 48 [--steps 200]
+    python scripts/profile_torch_slice.py --eam 12 [--steps 200]
 
-Runs the Martini water box NVT (default) or the Martini DPPC bilayer NPT
+Runs the Martini water box NVT (default), the Martini DPPC bilayer NPT
 (--bilayer NX: 2*NX*NX lipids plus water, NX = 48 is the ~100k-bead
-full width; equilibrated at dt = 5 fs) through ddcmd_tpu_torch's
-Simulation: --warm steps, then --steps timed steps, then the same number
-traced with torch.profiler.  Prints steps/s (untraced), the device busy
+full width; equilibrated at dt = 5 fs) or the EAM copper crystal NVT
+(--eam NC: 4*NC^3 atoms; NC = 12 runs the per-cell EAM kernels, NC = 32
+the column ones) through ddcmd_tpu_torch's Simulation: --warm steps,
+then --steps timed steps, then the same number traced with
+torch.profiler.  Prints steps/s (untraced), the device busy
 share (summed kernel time over wall time), kernel launches per step and
 the CUDA kernels by total time.  For the bilayer it also takes each
 phase alone at the equilibrated state (pair kernel term, bonded term,
@@ -30,7 +33,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ddcmd_tpu_torch.models import load, martini_bilayer, martini_water  # noqa: E402
+from ddcmd_tpu_torch.models import (eam_crystal, load, martini_bilayer,  # noqa: E402
+                                    martini_water)
 from ddcmd_tpu_torch.run.simulate import Simulation  # noqa: E402
 
 
@@ -98,6 +102,9 @@ def main(argv=None):
     p.add_argument("--bilayer", type=int, default=0, metavar="NX",
                    help="profile the DPPC bilayer with NX x NX lipids a "
                         "leaflet instead of the water box")
+    p.add_argument("--eam", type=int, default=0, metavar="NC",
+                   help="profile the EAM copper crystal of 4*NC^3 atoms "
+                        "instead of the water box")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--warm", type=int, default=1000)
     p.add_argument("--out", default=None,
@@ -108,6 +115,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as d:
         if args.bilayer:
             martini_bilayer(d, nx=args.bilayer, ny=args.bilayer, dt_fs=5.0)
+        elif args.eam:
+            eam_crystal(d, nc=args.eam)
         else:
             martini_water(d, n=args.n)
         db, base = load(d)
@@ -139,9 +148,12 @@ def main(argv=None):
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     steps = args.steps + 1           # run() starts with one first_energy
     what = (f"bilayer nx={args.bilayer}" if args.bilayer
+            else f"eam_crystal nc={args.eam}" if args.eam
             else f"water n={args.n}")
-    print(f"{what}, {sim.sysdef.state.n_local} beads, cells "
-          f"{sim.grid.ncells} cap {sim.grid.cap}, redos {sim.redos}")
+    print(f"{what}, {sim.sysdef.state.n_local} particles, cells "
+          f"{sim.grid.ncells} cap {sim.grid.cap} "
+          f"G={sim.force_fn.terms[0].G}, redos {sim.redos}, on "
+          f"{torch.cuda.get_device_name(0)}")
     print(f"unprofiled: {steps} steps in {plain_wall:.4f} s = "
           f"{steps / plain_wall:.1f} steps/s; profiled: {wall:.4f} s, "
           f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e4 / wall:.1f}% "

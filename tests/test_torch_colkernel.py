@@ -268,3 +268,57 @@ def test_deep_compression_has_no_nonbond_force(bilayer):
     assert np.abs(ft[2:4]).max() < 1e5
     scale = max(1.0, np.abs(fj).max())
     assert np.abs(ft - fj).max() / scale < 2e-4
+
+
+# (plan box, particles, rcut, skin): the 49k water box (nz = 9) and the
+# 131,072-atom copper crystal's grid (11, 12, 12)
+FIT_PLANS = {"water49k": ((23.6, 23.6, 23.6), 49384, 1.1, 0.3),
+             "grid_11_12_12": ([32 * 0.3615] * 3, 4 * 32 ** 3, 0.55, 0.1)}
+
+
+@pytest.mark.parametrize("plan,excl,G", [("water49k", False, 1),
+                                         ("water49k", True, 1),
+                                         ("grid_11_12_12", False, 2),
+                                         ("grid_11_12_12", True, 1)])
+def test_fit_col_group_lowers_g_to_fit(plan, excl, G):
+    """Both plans with the cap grown to 256, as the overflow ladder does:
+    the JAX rule gives G = 3, U = 24, whose staged union needs 250,252
+    bytes (T = 5 tables) of the 232,448 a block may use.  The fit rule
+    lowers G to the largest divisor of nz whose union fits.  On the
+    (11, 12, 12) grid that is G = 2 (U = 19, 199,032 bytes) without
+    exclusions; with exclusions G = 2 still needs 237,944 bytes, so the
+    per-cell kernel (G = 1) runs.  The water box's nz = 9 has no divisor
+    between 1 and 3, so it goes to the per-cell kernel either way."""
+    L, n, rcut, skin = FIT_PLANS[plan]
+    th = tcp.half_grid(tch.plan_lanes(L, rcut, skin, n,
+                                      plan_margin=1.08).with_cap(256))
+    assert tch.choose_col_group(th) == 3
+    assert len(tch.col_plan_grid(th, 3)[0]) == 24
+    assert tch.col_smem_bytes(24, 256, 5, False) == 250_252 > tch.SMEM_LIMIT
+    assert tch.col_smem_bytes(19, 256, 5, False) == 199_032
+    assert tch.col_smem_bytes(19, 256, 5, True) == 237_944 > tch.SMEM_LIMIT
+    if th.ncells[2] % 2 == 0:
+        assert len(tch.col_plan_grid(th, 2)[0]) == 19
+    assert tch.fit_col_group(th, 3, lambda u: tch.col_smem_bytes(
+        u, 256, 5, excl)) == G
+
+
+@pytest.mark.parametrize("cap,G", [(128, 4), (256, 3), (384, 1)])
+def test_fit_col_group_eam_bytes(cap, G):
+    """The same rule on the EAM force pass's byte count (the larger pass)
+    over the 131,072-atom copper crystal's grid (11, 12, 12): at cap 128
+    G = 4 (U = 29) fits, at cap 256 the JAX rule's G = 3 (U = 24) fits,
+    at cap 384 neither G = 3 nor G = 2 (U = 19) does, so the per-cell
+    EAM kernels run."""
+    from ddcmd_tpu_torch.ops import eam_half as teh
+
+    npar = teh.n_params("RATIONAL", 4)
+    th = tcp.half_grid(tch.plan_lanes([32 * 0.3615] * 3, 0.55, 0.1,
+                                      4 * 32 ** 3).with_cap(cap))
+    assert th.ncells == (11, 12, 12)
+    fits = {g: teh.eam_col_smem_bytes(len(tch.col_plan_grid(th, g)[0]), cap,
+                                      1, npar) <= tch.SMEM_LIMIT
+            for g in (2, 3, 4)}
+    assert tch.fit_col_group(th, tch.choose_col_group(th), lambda u:
+                             teh.eam_col_smem_bytes(u, cap, 1, npar)) == G
+    assert fits[G] if G > 1 else not (fits[2] or fits[3])

@@ -103,7 +103,7 @@ def test_build_system_matches_jax(tmp_path):
      "GROUP"),
     (lambda s: s.replace("type=NGLF; T=310.0K;", "type=NPTGLF; T=310.0K;"),
      "integrator"),
-    (lambda s: s.replace("type=MARTINI;", "type=EAM;"), "POTENTIAL"),
+    (lambda s: s.replace("type=MARTINI;", "type=PAIR;"), "POTENTIAL"),
 ])
 def test_unported_deck_features_raise(tmp_path, edit, what):
     """Deck features outside the slice raise NotImplementedError naming
