@@ -24,6 +24,16 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
        a T = 2 FS alloy with an asymmetric density; the column EAM
        kernels on the nc = 32 crystal's slots, on an nz == G grid, and
        against the per-cell EAM kernels on the nc = 32 slots;
+     - the extended-grid kernels (TPU #6, #7) of the brick mesh: the pair
+       kernel on the (1,1,1) water plan's slots (and against the
+       per-cell kernel there), on one brick of a (2,2,2) plan at the
+       water density with its halo shell filled (charged, T = 2) and on
+       a grid with 2-cell periodic axes; the EAM passes on the (1,1,1)
+       nc = 32 plan and on one brick of a (2,2,2) plan at the copper
+       density; the sentinel cell's q side stays exactly 0;
+     and, for each main-path case, the least time the card could take
+     (bound_ms: operations over the f32 peak or bytes over the memory
+     rate, from the candidate and in-cutoff pairs these inputs hold);
   4. water slice: the Martini water box through `ddcmd_tpu_torch.run.cli
      simulate`, 3000 NVT steps in dispatches of 400;
   5. small-bilayer slice: a 2,888-bead bilayer through the CLI, 400 NPT
@@ -40,7 +50,12 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
   9. agreement: small deterministic runs on the card (water box; a small
      bilayer with bonds, constraints, exclusions and the barostat; a
      500-atom EAM crystal) against the same runs on the CPU (plain
-     twins).
+     twins);
+ 10. mesh water: `ParallelSimulation` on the water box at (1,1,1): first
+     energy against the single-device Simulation's, 3000 NVT steps in
+     dispatches of 400 through the extended-grid pair kernel only;
+ 11. mesh EAM: the nc = 32 crystal (131,072 atoms) the same way, 2000
+     NVT steps through the two extended-grid EAM passes only.
 
 Every main-path phase sets the launch counters to 0 just before it and
 reads them just after.  Prints the kernels' JSON line, the card line,
@@ -78,6 +93,17 @@ EAM_BIG_PLAN = ((11, 12, 12), 4, 29)    # its cells, G and union size U
 EAM_T = 300.0
 NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
+MESH_STEPS, MESH_EAM_STEPS = 3000, 2000
+# the least time the card could take (H100 SXM peaks at 700 W): f32
+# outside the tensor cores, and HBM3
+PEAK_F32, PEAK_BW = 67e12, 3.35e12
+# f32 operations each kernel does, counted from its source: the distance
+# test of every candidate pair (3 sub, 3 mul, 2 add, the validity product)
+# and the arithmetic of an in-cutoff pair (csrc/cellpair_half.cu: LJ 41,
+# reaction field 14 more; csrc/eam_half.cu with eam_forms.cuh, RATIONAL of
+# Horner degree D: density pass 19 + 16 (D - 1), force pass 40 + 16 (D - 1))
+OPS_TEST = 9
+OPS_LJ, OPS_RF = 41, 14
 # the analytic EAM forms besides the crystal's RATIONAL, one species each
 # (per-species values in the units compile_eam documents; rmax = the
 # crystal's 5.5 A, so all forms share its plan)
@@ -166,28 +192,98 @@ def packed_inputs(r, q, tidx, L, grid, tables, dev, G=1):
     return (slots, gt["stencil"], L8, counts, *tabs)
 
 
+def pad_p(out_p, out_q):
+    """The p side padded to every slot cell of out_q (an extended grid's
+    p side covers its first n_prog cells only)."""
+    ncell, _, cap = out_q.shape
+    return torch.nn.functional.pad(out_p, (0, 0, 0,
+                                           ncell * cap - out_p.shape[0]))
+
+
 def per_slot(out_p, out_q, out_cell):
     ncell, _, cap = out_q.shape
+    out_p = pad_p(out_p, out_q)
     back = out_q.transpose(1, 2).reshape(ncell * cap, 8)
     f = (out_p[:, :3] + back[:, :3]).double()
     pe = (out_p[:, 3] + back[:, 3]).double()
     return f, pe, out_cell[:, 0].double().sum(), out_cell[:, 1:7].double().sum(0)
 
 
-def compare(name, kernel, plain, args, kw):
+def cell_view(args):
+    """(slots, per-cell stencil, L8, counts) of a kernel call's arguments,
+    a column call's table unfolded into the per-cell stencil it encodes."""
+    from ddcmd_tpu_torch.ops.cellpair_half import col_to_cell_stencil
+
+    if args[2].dtype == torch.int32:            # (slots, stencil_col, member_u, ...)
+        return (args[0], col_to_cell_stencil(args[1], args[2]), args[3],
+                args[4])
+    return args[:4]
+
+
+def sweep_work(slots, stencil, L8, counts):
+    """(candidate pair tests, in-cutoff pairs) of one half-stencil sweep
+    on these inputs, as the kernels trim it: counts[c] * counts[tgt]
+    candidates per (cell, direction), counts[c] (counts[c] - 1) / 2 in the
+    self block; in cutoff: both slots valid and 0 < d2 < rcut^2."""
+    n_prog, cap = stencil.shape[0], slots.shape[2]
+    L8 = L8.reshape(-1)
+    home = slots[:n_prog]
+    nc = counts[:n_prog].long()
+    upper = (torch.arange(cap, device=slots.device)[None, :]
+             > torch.arange(cap, device=slots.device)[:, None])
+    cand = hits = 0
+    for s in range(stencil.shape[1] // 4):
+        tgt = stencil[:, 4 * s].long()
+        cand += int((nc * (nc - 1) // 2).sum() if s == 0
+                    else (nc * counts[tgt].long()).sum())
+        sh = stencil[:, 4 * s + 1:4 * s + 4].float() * L8[0:3]
+        Q = slots[tgt]
+        d2 = sum((home[:, a, :, None] - (Q[:, a] + sh[:, a:a + 1])[:, None, :])
+                 ** 2 for a in range(3))
+        ok = (home[:, 5, :, None] * Q[:, 5, None, :] > 0) & (d2 < L8[3]) \
+            & (d2 > 0)
+        if s == 0:
+            ok &= upper
+        hits += int(ok.sum())
+    return cand, hits
+
+
+def bound(args, outs, ops_pair):
+    """(bound_ms, bound_by, candidates, in-cutoff pairs): the larger of
+    the f32 operations these inputs need over PEAK_F32 and the bytes the
+    call must move (each input read once, each output written once) over
+    PEAK_BW."""
+    cand, hits = sweep_work(*cell_view(args))
+    ops = OPS_TEST * cand + ops_pair * hits
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
+                 if torch.is_tensor(t))
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BW
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", cand, hits)
+
+
+def compare(name, kernel, plain, args, kw, with_bound=False):
     """Kernel vs plain twin on the same CUDA tensors, at the tolerances
     of tests/test_pallas_cellpair.py; returns (max_abs_err of the force,
-    ms per kernel call, ms per plain call)."""
-    got = per_slot(*kernel(*args, **kw))
+    ms per kernel call, ms per plain call, bound_ms, bound_by), the bound
+    None unless with_bound."""
+    outs = kernel(*args, **kw)
+    got = per_slot(*outs)
     ref = per_slot(*plain(*args, **kw))
     torch.cuda.synchronize()
     ferr, scale = agree(name, got, ref)
     ms = time_calls(lambda: kernel(*args, **kw), TIMED_CALLS)
     plain_ms = time_calls(lambda: plain(*args, **kw), PLAIN_CALLS)
+    bnd, by, text = None, None, ""
+    if with_bound:
+        bnd, by, cand, hits = bound(
+            args, outs, OPS_LJ + (OPS_RF if kw["coulomb"] else 0))
+        text = (f"; bound {1e3 * bnd:.3f} us ({by}; {cand} candidate "
+                f"pairs, {hits} in cutoff)")
     phase("kernel", f"{name}: force err {ferr:.3g} (scale {scale:.4g}), "
           f"e {float(got[2]):.6g} vs {float(ref[2]):.6g}; kernel "
-          f"{1e3 * ms:.2f} us/call, plain {1e3 * plain_ms:.2f} us/call")
-    return ferr, ms, plain_ms
+          f"{1e3 * ms:.2f} us/call, plain {1e3 * plain_ms:.2f} us/call{text}")
+    return ferr, ms, plain_ms, bnd, by
 
 
 def agree(name, got, ref):
@@ -360,6 +456,7 @@ def with_tables(slots, args, tables, seed=None):
 def eam_sums(rho_out, force_out):
     """Per-slot rho, total pe (pass A); per-slot force, virial6 (pass B)."""
     (p, q), (fp, fq, cell) = rho_out, force_out
+    p, fp = pad_p(p, q), pad_p(fp, fq)
     ncell, _, cap = q.shape
     rho = (p[:, 0] + q[:, 0].reshape(-1)).double()
     e = (p[:, 1].double().sum() + q[:, 1].double().sum())
@@ -391,34 +488,49 @@ def eam_agree(name, got, ref):
     return rerr, ferr, scale
 
 
-def eam_compare(name, kernels, plains, slots, args, kw, tables):
+def eam_compare(name, kernels, plains, slots, args, kw, tables,
+                with_bound=False):
     """Both EAM kernels against their twins on the same CUDA tensors:
     pass A on `slots`, pass B on a copy holding the twin's dF in row 6.
-    Returns {"rho": (max |d rho|, ms, plain ms), "force": (max |d f|,
-    ms, plain ms)}."""
+    Returns {"rho": (max |d rho|, ms, plain ms, bound_ms, bound_by),
+    "force": (max |d f|, ms, plain ms, bound_ms, bound_by)}, the bounds
+    None unless with_bound (RATIONAL forms only)."""
     from ddcmd_tpu_torch.ops.eam_half import embed_slots
 
     (rho_k, force_k), (rho_p, force_p) = kernels, plains
     ref_a = rho_p(slots, *args, **kw)
     fslots = slots.clone()
     embed_slots(fslots, *ref_a, tables)
-    got = eam_sums(rho_k(slots, *args, **kw), force_k(fslots, *args, **kw))
+    out_a, out_b = rho_k(slots, *args, **kw), force_k(fslots, *args, **kw)
+    got = eam_sums(out_a, out_b)
     ref = eam_sums(ref_a, force_p(fslots, *args, **kw))
     torch.cuda.synchronize()
     rerr, ferr, scale = eam_agree(name, got, ref)
+    bnd = {"rho": (None, None), "force": (None, None)}
+    text = ""
+    if with_bound:
+        assert kw["form"] == "RATIONAL", kw
+        horner = 16 * (kw["degree"] - 1)
+        ba = bound((slots, *args), out_a, 19 + horner)
+        bb = bound((fslots, *args), out_b, 40 + horner)
+        bnd = {"rho": ba[:2], "force": bb[:2]}
+        text = (f"; bounds {1e3 * ba[0]:.3f} / {1e3 * bb[0]:.3f} us "
+                f"({ba[1]} / {bb[1]}; {ba[2]} candidate pairs, {ba[3]} in "
+                "cutoff)")
     t = {"rho": (rerr, time_calls(lambda: rho_k(slots, *args, **kw),
                                   TIMED_CALLS),
-                 time_calls(lambda: rho_p(slots, *args, **kw), PLAIN_CALLS)),
+                 time_calls(lambda: rho_p(slots, *args, **kw), PLAIN_CALLS),
+                 *bnd["rho"]),
          "force": (ferr, time_calls(lambda: force_k(fslots, *args, **kw),
                                     TIMED_CALLS),
                    time_calls(lambda: force_p(fslots, *args, **kw),
-                              PLAIN_CALLS))}
+                              PLAIN_CALLS), *bnd["force"])}
     phase("kernel", f"{name}: rho err {rerr:.3g}, force err {ferr:.3g} "
           f"(scale {scale:.4g}), e {float(got[1]):.8g} vs "
           f"{float(ref[1]):.8g}; rho kernel {1e3 * t['rho'][1]:.2f} us/call, "
           f"plain {1e3 * t['rho'][2]:.2f}; force kernel "
           f"{1e3 * t['force'][1]:.2f} us/call, plain "
-          f"{1e3 * t['force'][2]:.2f}")
+          f"{1e3 * t['force'][2]:.2f}{text}")
     return t
 
 
@@ -485,7 +597,7 @@ def eam_kernel_phase(dev):
     assert (hg.ncells, hg.cap) == ((4, 5, 5), 128), (hg.ncells, hg.cap)
     what = f"nc={EAM_NC} crystal, {hg.ncell} cells, cap {hg.cap}"
     t = eam_compare(f"per-cell EAM RATIONAL T=1: {what}", *cell, slots,
-                    args, kw, tables)
+                    args, kw, tables, with_bound=True)
     res["eam_rho"], res["eam_force"] = t["rho"], t["force"]
     for form in EAM_FORM_DECKS:
         ft = eam_form_tables(form, dev)
@@ -504,7 +616,7 @@ def eam_kernel_phase(dev):
         EAM_BIG_PLAN, (rho_k, hg.ncells, G, U)
     t = eam_compare(f"column EAM RATIONAL T=1: nc={EAM_BIG_NC} crystal, "
                     f"{hg.ncell} cells, cap {hg.cap}, G={G}, U={U}", *col,
-                    slots, args, kw, tables)
+                    slots, args, kw, tables, with_bound=True)
     res["eam_rho_col"], res["eam_force_col"] = t["rho"], t["force"]
     cell_args = (torch.as_tensor(pack_stencil(hg), device=dev), *args[2:])
     fslots = slots.clone()
@@ -567,7 +679,7 @@ def kernel_phase(dev):
               coulomb=False)
     res["cellpair_half"] = compare(
         "per-cell: waterbox 6173 beads, 80 cells, cap 128, T=1", *pair,
-        args, kw)
+        args, kw, with_bound=True)
     for n_syn, L_syn in ((800, 6.6), (220, 4.2), (60, 2.6)):
         r, q, tidx, tabs, rcut = synthetic(n_syn, L_syn)
         g = plan_lanes([L_syn] * 3, rcut, 0.3, n_syn)
@@ -586,7 +698,8 @@ def kernel_phase(dev):
     res["cellpair_half_excl"] = compare(
         f"per-cell + exclusions: bilayer nx={SMALL_NX} "
         f"{sim.sysdef.state.n_local} beads, cells {hg.ncells}, cap "
-        f"{hg.cap}, T={a[-1].shape[0]}, Coulomb", *pair, a, kw)
+        f"{hg.cap}, T={a[-1].shape[0]}, Coulomb", *pair, a, kw,
+        with_bound=True)
 
     # (b) the column kernel on the full bilayer's packed slots
     with tempfile.TemporaryDirectory() as d:
@@ -598,7 +711,7 @@ def kernel_phase(dev):
     res["cellpair_half_col"] = compare(
         f"column + exclusions: full bilayer {sim.sysdef.state.n_local} "
         f"beads, cells {hg.ncells}, G={G}, U={a[1].shape[1]}, cap "
-        f"{hg.cap}", *col, a, kw)
+        f"{hg.cap}", *col, a, kw, with_bound=True)
     # (d) column kernel vs per-cell kernel on the same slots
     from ddcmd_tpu_torch.ops.cellpair_half import pack_stencil
 
@@ -627,9 +740,212 @@ def kernel_phase(dev):
     return res
 
 
+def brick_inputs(r, q, tidx, L, shape, idx3, rcut, skin, rcut2, dev):
+    """One brick's extended-grid call of a `shape` plan, as the mesh step
+    packs it: the rows whose brick-frame fraction lies in brick idx3's
+    core or halo shell (so the halo cells are filled), binned and packed
+    on the card.  Returns (plan, (slots, stencil, L8, counts))."""
+    from ddcmd_tpu_torch.parallel import shard_cells as sc
+
+    cp = sc.plan_shard_cells(L, shape, rcut, skin, len(r))
+    geom = sc.dev_geom(cp, idx3, dev)
+    Lv = torch.tensor(L, dtype=torch.float32, device=dev)
+    u = sc.brick_frame_frac(torch.tensor(r, dtype=torch.float32, device=dev),
+                            Lv, cp, geom)
+    inside = torch.ones(len(r), dtype=torch.bool, device=dev)
+    for a in range(3):
+        if cp.open_axes[a]:
+            h = 1.0 / cp.ncore[a]
+            inside &= (u[:, a] >= -0.5 - h) & (u[:, a] < 0.5 + h)
+    perm, counts, ov = sc.bin_pool_ext(u, inside, cp)
+    assert not bool(ov), "overflow packing the comparison case"
+    span_cart = geom[1] * Lv
+    slots = sc.pack_slots_ext(u, torch.tensor(q, device=dev),
+                              torch.tensor(tidx, device=dev), perm,
+                              span_cart, cp)
+    return cp, (slots, torch.as_tensor(cp.stencil_packed, device=dev),
+                sc.ext_L8(span_cart, cp, rcut2), counts)
+
+
+def sentinel_zero(name, out_q):
+    """The sentinel's q-side rows (the last slot cell) stay exactly 0."""
+    if out_q[-1].any():
+        raise AssertionError(f"{name}: out_q[sentinel] is not 0")
+
+
+def fcc(nc, seed, a=0.3615):
+    """A jittered fcc crystal of nc^3 unit cells: (positions, box edge)."""
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+    rng = np.random.default_rng(seed)
+    r = ((cells[:, None, :] + base).reshape(-1, 3) * a - nc * a / 2
+         + rng.standard_normal((4 * nc ** 3, 3)) * 0.006)
+    return r, nc * a
+
+
+def ext_kernel_phase(dev):
+    """Phase 3, extended grids (TPU #6 and #7); returns {kernel entry:
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by)} of the mesh phases'
+    calls, the (1,1,1) plans."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.ops import eam_half as eh
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    ext = (ch.cellpair_half_ext, ch.cellpair_half_plain)
+    res = {}
+    # (a) the (1,1,1) water plan's slots, and #1 on the same cells
+    with tempfile.TemporaryDirectory() as d:
+        water_deck(d, 6173, 100)
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+    kernel, args, kw = ps.step_fn.kernel_inputs(ps.fields, ps.mask)
+    cp = ps.cplan
+    assert kernel is ch.cellpair_half_ext and cp.n_slot == cp.n_prog + 1
+    res["cellpair_half_ext"] = compare(
+        f"extended grid (1,1,1): water box 6173 beads, {cp.n_prog} core "
+        f"cells + sentinel, cap {cp.cap}, T=1", *ext, args, kw,
+        with_bound=True)
+    outs = kernel(*args, **kw)
+    sentinel_zero("extended grid (1,1,1)", outs[1])
+    slots, stencil, L8, counts = args[:4]
+    npc = cp.n_prog * cp.cap
+    got = per_slot(*outs)
+    ref = per_slot(*ch.cellpair_half(slots[:cp.n_prog].contiguous(), stencil,
+                                     L8, counts[:cp.n_prog].contiguous(),
+                                     *args[4:], **kw))
+    torch.cuda.synchronize()
+    ferr, scale = agree("extended vs per-cell kernel",
+                        (got[0][:npc], got[1][:npc], got[2], got[3]), ref)
+    phase("kernel", f"extended-grid vs per-cell kernel on the (1,1,1) water "
+          f"slots: force err {ferr:.3g} (scale {scale:.4g})")
+    del ps
+
+    # (b) one brick of a (2,2,2) plan at the water density: charged, T=2
+    r, q, tidx, tabs, rcut = synthetic(6173, 9.4)
+    cp, a = brick_inputs(r, q, tidx, [9.4] * 3, (2, 2, 2), (1, 0, 1), rcut,
+                         0.4, tabs["rcut2"], dev)
+    t3 = [torch.tensor(np.asarray(tabs[k]), dtype=torch.float32, device=dev)
+          for k in ("sigma", "eps", "shift")]
+    kwc = dict(krf=tabs["krf"], crf=tabs["crf"], keR=tabs["keR"],
+               coulomb=True)
+    halo = int(a[3][cp.n_prog:-1].sum())
+    assert halo > 0 and int(a[3][-1]) == 0, (halo, int(a[3][-1]))
+    compare(f"extended grid, brick (1,0,1) of (2,2,2): charged T=2 n=6173 "
+            f"L=9.4, ncore {cp.ncore}, {cp.n_slot} slot cells, "
+            f"{int(a[3][:cp.n_prog].sum())} core + {halo} halo particles",
+            *ext, (*a, *t3), kwc)
+    sentinel_zero("extended grid (2,2,2) brick", ch.cellpair_half_ext(
+        *a, *t3, **kwc)[1])
+
+    # (c) 2-cell periodic axes: a (2,1,1) plan in a 9.4 x 3.2 x 3.2 box
+    L = np.array([9.4, 3.2, 3.2])
+    m = np.round(L * 7.47 ** (1 / 3)).astype(int)     # the water density
+    g = np.stack(np.meshgrid(*[np.arange(k) for k in m], indexing="ij"),
+                 -1).reshape(-1, 3)
+    rng = np.random.default_rng(5)
+    n = len(g)
+    r = ((g + 0.5) / m - 0.5) * L + (rng.random((n, 3)) - 0.5) * 0.1
+    q = rng.choice([-1.0, 0.0, 1.0], size=n) * 0.3
+    tidx = rng.integers(0, 2, size=n)
+    cp, a = brick_inputs(r, q, tidx, L, (2, 1, 1), (1, 0, 0), rcut, 0.4,
+                         tabs["rcut2"], dev)
+    assert cp.ncore[1:] == (2, 2), cp.ncore
+    compare(f"extended grid, brick (1,0,0) of (2,1,1): box {L.tolist()}, "
+            f"{n} beads, ncore "
+            f"{cp.ncore} (2-cell periodic y and z)", *ext, (*a, *t3), kwc)
+
+    # (d) EAM: the (1,1,1) nc = 32 plan, then a brick of a (2,2,2) plan at
+    # the copper density
+    eam_ext = ((eh.eam_rho_half_ext, eh.eam_force_half_ext),
+               (eh.eam_rho_half_plain, eh.eam_force_half_plain))
+    with tempfile.TemporaryDirectory() as d:
+        eam_deck(d, EAM_BIG_NC, 100)
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+    kernel, args, kw = ps.step_fn.kernel_inputs(ps.fields, ps.mask)
+    cp, tables = ps.cplan, ps.tables
+    assert kernel is eh.eam_rho_half_ext
+    t = eam_compare(f"extended-grid EAM (1,1,1): nc={EAM_BIG_NC} crystal, "
+                    f"{cp.n_prog} core cells + sentinel, cap {cp.cap}",
+                    *eam_ext, args[0], args[1:], kw, tables, with_bound=True)
+    res["eam_rho_ext"], res["eam_force_ext"] = t["rho"], t["force"]
+    sentinel_zero("extended-grid EAM (1,1,1)", kernel(*args, **kw)[1])
+    del ps, args
+    r, L = fcc(EAM_BIG_NC, seed=4)
+    cp, a = brick_inputs(r, np.zeros(len(r)), np.zeros(len(r), np.int64),
+                         [L] * 3, (2, 2, 2), (0, 1, 1), 0.55, 0.1,
+                         tables["rcut2"], dev)
+    eam_compare(f"extended-grid EAM, brick (0,1,1) of (2,2,2): nc="
+                f"{EAM_BIG_NC} crystal, ncore {cp.ncore}, {cp.n_slot} slot "
+                f"cells, {int(a[3][cp.n_prog:].sum())} halo atoms", *eam_ext,
+                a[0], (*a[1:], tables["params"]), kw, tables)
+    fslots = a[0].clone()
+    fslots[:, 6, :] = 0.01
+    for k in eam_ext[0]:
+        sentinel_zero(f"{k.__name__} brick", k(fslots, *a[1:],
+                                                tables["params"], **kw)[1])
+    return res
+
+
+def mesh_phases(card, dev, counters_zero, counters, single_rates):
+    """Phases 10 and 11: ParallelSimulation at (1,1,1) on the card;
+    returns the extended-grid kernels' launch counts of their runs."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    launches = {}
+    cases = (("water", lambda d: water_deck(d, 6173, 10), MESH_STEPS, 310.0,
+              ("cellpair_half_ext",)),
+             ("eam", lambda d: eam_deck(d, EAM_BIG_NC, 10), MESH_EAM_STEPS,
+              EAM_T, ("eam_rho_ext", "eam_force_ext")))
+    for name, make_deck, steps, T0, kernels in cases:
+        with tempfile.TemporaryDirectory() as d:
+            make_deck(d)
+            sim = Simulation(*load(d), run_dir=d, device=dev)
+            sim.first_energy()
+            e1 = float(sim.ss.energy.eion)
+            del sim
+            ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+        e_mesh = ps.first_energy()
+        rel = abs(e_mesh - e1) / abs(e1)
+        assert rel <= 2e-5, f"{name}: mesh first energy {e_mesh} vs {e1}"
+        lines = []
+        counters_zero()
+        ps.run(steps, print_fn=lines.append, max_steps_per_dispatch=DISPATCH)
+        c = counters()
+        for k in kernels:
+            assert c[k] >= steps, c
+            launches[k] = c[k]
+        assert not any(v for k, v in c.items() if k not in kernels), c
+        n = ps.sysdef.state.n_local
+        assert ps.loop == steps and int(ps.mask.sum()) == n
+        loops = np.array([int(ln.split()[0]) for ln in lines])
+        temps = np.array([float(ln.split("T=")[1]) for ln in lines])
+        epot = np.array([float(ln.split("epot/N=")[1].split()[0])
+                         for ln in lines])
+        assert np.isfinite(temps).all() and np.isfinite(epot).all(), \
+            "non-finite scalars"
+        temp = float(temps[loops > steps - TAIL].mean())
+        assert abs(temp - T0) <= TEMP_TOL, f"{name}: mean T {temp}"
+        rate, tail = tail_rate(ps)
+        cp = ps.cplan
+        phase("mesh", f"{name} at (1,1,1): {n} particles, ncore {cp.ncore} "
+              f"cap {cp.cap}; first energy {e_mesh:.8g} vs single-device "
+              f"{e1:.8g} (rel {rel:.2g}); {steps} NVT steps (dispatch "
+              f"{DISPATCH}): mean T {temp:.2f} K over the last {TAIL} steps, "
+              f"launches {[c[k] for k in kernels]}, {rate:.1f} steps/s over "
+              f"the last {tail} steps vs single-device "
+              f"{single_rates[name]:.1f} (JAX yardstick: within ~15% of "
+              f"unsharded, bench.py:307-308; not gated) on {card}")
+        del ps
+    return launches
+
+
 def eam_slice_phases(card, counters_zero, counters, eam_counters):
     """Phases 7 and 8, the EAM crystal through the CLI; returns the EAM
-    kernels' launch counts of their main-path runs."""
+    kernels' launch counts of their main-path runs and phase 8's steps/s
+    over its last TAIL steps."""
     from ddcmd_tpu_torch.io.restart import write_checkpoint
     from ddcmd_tpu_torch.ops import cellpair_half as ch
 
@@ -700,7 +1016,7 @@ def eam_slice_phases(card, counters_zero, counters, eam_counters):
           f"{rows[-1, 2]:.6f} eV, column rho/force launches "
           f"{n_rho_col}/{n_force_col}, redos {sim.redos}, {rate:.1f} steps/s "
           f"over the last {steps} steps on {card}")
-    return launches
+    return launches, rate
 
 
 def main(argv=None):
@@ -732,11 +1048,14 @@ def main(argv=None):
 
     res = kernel_phase(dev)
     res.update(eam_kernel_phase(dev))
+    res.update(ext_kernel_phase(dev))
     if "--kernels-only" in argv:
         return
 
     counted = (ch.cellpair_half, ch.cellpair_half_col, eh.eam_rho_half,
-               eh.eam_force_half, eh.eam_rho_half_col, eh.eam_force_half_col)
+               eh.eam_force_half, eh.eam_rho_half_col, eh.eam_force_half_col,
+               ch.cellpair_half_ext, eh.eam_rho_half_ext,
+               eh.eam_force_half_ext)
 
     def counters_zero():
         ch.cellpair_half.launches_excl = 0
@@ -750,7 +1069,18 @@ def main(argv=None):
 
     def eam_counters():
         """(rho, force, rho column, force column) launches"""
-        return tuple(k.launches for k in counted[2:])
+        return tuple(k.launches for k in counted[2:6])
+
+    def ext_counters():
+        """(pair, rho, force) launches of the extended-grid kernels"""
+        return tuple(k.launches for k in counted[6:])
+
+    def all_counters():
+        """{kernels JSON entry: launches} of every counted kernel"""
+        names = ("cellpair_half", "cellpair_half_col", "eam_rho",
+                 "eam_force", "eam_rho_col", "eam_force_col",
+                 "cellpair_half_ext", "eam_rho_ext", "eam_force_ext")
+        return dict(zip(names, (k.launches for k in counted)))
 
     launches = {}
     # --- phase 4: the water slice through the CLI ---------------------------
@@ -764,8 +1094,10 @@ def main(argv=None):
     assert sim.device == dev and sim.ss.loop == SLICE_STEPS
     assert np.isfinite(rows).all(), "non-finite printinfo row"
     assert n_all >= SLICE_STEPS and n_excl == 0 and n_col == 0, counters()
-    assert not any(eam_counters()), eam_counters()
+    assert not any(eam_counters()) and not any(ext_counters()), (
+        eam_counters(), ext_counters())
     launches["cellpair_half"] = n_all
+    single_rates = {"water": tail_rate(sim)[0]}
     temp = float(rows[rows[:, 0] > SLICE_STEPS - TAIL][:, 5].mean())
     assert abs(temp - 310.0) <= TEMP_TOL, f"mean T over the last {TAIL} steps: {temp}"
     rate, steps = tail_rate(sim)
@@ -844,8 +1176,10 @@ def main(argv=None):
           f"{resid:.3g}; column kernel launches {n_col}; {rate:.2f} steps/s "
           f"over the last {steps} steps on {card}")
 
-    launches.update(eam_slice_phases(card, counters_zero, counters,
-                                     eam_counters))
+    eam_launches, single_rates["eam"] = eam_slice_phases(
+        card, counters_zero, counters, eam_counters)
+    launches.update(eam_launches)
+    assert not any(ext_counters()), ext_counters()
 
     # --- phase 9: small-input agreement, card vs CPU -------------------------
     def final(where, make_deck, n):
@@ -877,23 +1211,35 @@ def main(argv=None):
               f"box {L1.round(5).tolist()} vs {L0.round(5).tolist()}")
         if not ok:
             raise AssertionError(f"{name}: card run disagrees with the CPU run")
+
+    # --- phases 10 and 11: ParallelSimulation at (1,1,1) ------------------
+    launches.update(mesh_phases(card, dev, counters_zero, all_counters,
+                                single_rates))
     assert "jax" not in sys.modules
 
+    cellpair, eam = "ddcmd_tpu/ops/pallas_cellpair.py", "ddcmd_tpu/ops/pallas_eam.py"
+    shard = "ddcmd_tpu/parallel/pallas_shard.py"
     kernels = {   # entry: (source, the TPU kernel it replaces)
-        "cellpair_half": ("cellpair_half.cu", "pallas_cellpair.py:559"),
-        "cellpair_half_excl": ("cellpair_half.cu", "pallas_cellpair.py:559"),
-        "cellpair_half_col": ("cellpair_half_col.cu", "pallas_cellpair.py:837"),
-        "eam_rho": ("eam_half.cu", "pallas_eam.py:230"),
-        "eam_force": ("eam_half.cu", "pallas_eam.py:269"),
-        "eam_rho_col": ("eam_half_col.cu", "pallas_eam.py:363"),
-        "eam_force_col": ("eam_half_col.cu", "pallas_eam.py:411"),
+        "cellpair_half": ("cellpair_half.cu", f"{cellpair}:559"),
+        "cellpair_half_excl": ("cellpair_half.cu", f"{cellpair}:559"),
+        "cellpair_half_col": ("cellpair_half_col.cu", f"{cellpair}:837"),
+        "eam_rho": ("eam_half.cu", f"{eam}:230"),
+        "eam_force": ("eam_half.cu", f"{eam}:269"),
+        "eam_rho_col": ("eam_half_col.cu", f"{eam}:363"),
+        "eam_force_col": ("eam_half_col.cu", f"{eam}:411"),
+        "cellpair_half_ext": ("cellpair_half.cu", f"{shard}:361"),
+        "eam_rho_ext": ("eam_half.cu", f"{shard}:434"),
+        "eam_force_ext": ("eam_half.cu", f"{shard}:434"),
     }
+    # no single PyTorch call computes a cell-list half-stencil sum, so
+    # library_ms is null for every kernel
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": "ddcmd_tpu_torch/csrc/" + src,
-         "replaces": "ddcmd_tpu/ops/" + tpu, "launches": launches[name],
-         "max_abs_err": res[name][0], "ms": res[name][1],
-         "plain_ms": res[name][2]}
+         "source": "ddcmd_tpu_torch/csrc/" + src, "replaces": tpu,
+         "launches": launches[name], "max_abs_err": res[name][0],
+         "ms": res[name][1], "plain_ms": res[name][2],
+         "bound_ms": res[name][3], "bound_by": res[name][4],
+         "library_ms": None}
         for name, (src, tpu) in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

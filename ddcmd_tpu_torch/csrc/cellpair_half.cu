@@ -107,6 +107,10 @@ cellpair_half_kernel(const float* __restrict__ slots,
   // counts come from the caller: never let them index past the tile
   const int np = min(counts[c], cap);
   const int nq = min(counts[tgt], cap);
+  // a block with no p or no q particle (an empty cell, or on an extended
+  // grid a direction that reaches the sentinel) adds nothing, so the
+  // whole CTA leaves before staging (np and nq are uniform over the block)
+  if (np == 0 || nq == 0) return;
 
   const float* Q = slots + static_cast<size_t>(tgt) * kRec * cap;
   qx[i] = Q[i] + sx;
@@ -268,4 +272,37 @@ extern "C" int ddcmd_cellpair_half(const float* slots, const int* stencil,
   else
     err = excl ? go(launch<false, true>) : go(launch<false, false>);
   return static_cast<int>(err);
+}
+
+// The sweep on a brick's EXTENDED cell grid (replaces the TPU kernel
+// ddcmd_tpu/parallel/pallas_shard.py:make_shard_pallas_kernel, which runs
+// _kernel_half verbatim over the core cells): programs over the n_prog
+// core cells only, slot space over n_slot = n_prog + halo shell + 1
+// sentinel cells.  Contract as above except
+//   slots    (n_slot, 8, cap); core cells first, halo shell, sentinel last
+//   stencil  (n_prog, S*4); a direction that leaves the grid on an open
+//            axis points at the sentinel, whose count is 0
+//   counts   (n_slot,) -- every slot cell's occupancy, halo cells
+//            included, since the q sweep is trimmed with counts[tgt]
+//   out_p    (n_prog*cap, 4); out_q (n_slot, 8, cap); out_cell (n_prog, 8)
+// The device code indexes p by its program cell and q by the stencil
+// target, so this is the per-cell launch with n_prog rows of programs;
+// what is new is the contract that the q side spans n_slot cells.  The
+// CTAs whose direction reaches the sentinel (count 0) leave at once, so
+// the sentinel's out_q rows stay exactly 0.  What bounds it is the
+// per-cell kernel's: the shared-memory distance test over every
+// candidate pair of a live block.
+extern "C" int ddcmd_cellpair_half_ext(const float* slots, const int* stencil,
+                                       const float* L8, const int* counts,
+                                       const float* sigma, const float* eps,
+                                       const float* shift, float* out_p,
+                                       float* out_q, float* out_cell,
+                                       int n_prog, int n_slot, int cap,
+                                       int n_stencil, int T, float krf,
+                                       float crf, float keR, int coulomb,
+                                       int excl, void* stream) {
+  if (n_prog > n_slot) return static_cast<int>(cudaErrorInvalidValue);
+  return ddcmd_cellpair_half(slots, stencil, L8, counts, sigma, eps, shift,
+                             out_p, out_q, out_cell, n_prog, cap, n_stencil,
+                             T, krf, crf, keR, coulomb, excl, stream);
 }

@@ -105,6 +105,10 @@ eam_half_kernel(const float* __restrict__ slots,
   // counts come from the caller: never let them index past the tile
   const int np = min(counts[c], cap);
   const int nq = min(counts[tgt], cap);
+  // a block with no p or no q particle (an empty cell, or on an extended
+  // grid a direction that reaches the sentinel) adds nothing; the CTA
+  // leaves before staging (np and nq are uniform over the block)
+  if (np == 0 || nq == 0) return;
 
   const float* Q = slots + static_cast<size_t>(tgt) * kRec * cap;
   qx[i] = Q[i] + sx;
@@ -253,4 +257,46 @@ extern "C" int ddcmd_eam_half(const float* slots, const int* stencil,
   return static_cast<int>(kLaunch[form][force ? 1 : 0](
       slots, stencil, L8, counts, params, out_p, out_q, out_cell, ncell, cap,
       n_stencil, T, npar, degree, static_cast<cudaStream_t>(stream)));
+}
+
+// The two passes on a brick's EXTENDED cell grid (replace the TPU kernels
+// ddcmd_tpu/parallel/pallas_shard.py:make_shard_eam_kernels, which run
+// _rho_kernel / _force_kernel verbatim over the core cells): programs
+// over the n_prog core cells only, slot space over n_slot = n_prog + halo
+// shell + 1 sentinel cells.  Contract as ddcmd_eam_half except
+//   slots    (n_slot, 8, cap); core cells first, halo shell, sentinel last
+//   stencil  (n_prog, S*4); out-of-grid directions point at the sentinel
+//   counts   (n_slot,) -- every slot cell's occupancy (sentinel 0)
+//   out_p    (n_prog*cap, 2|3); out_q (n_slot, 8, cap); out_cell (n_prog, 8)
+// p is indexed by the program cell and q by the stencil target, so these
+// are the per-cell launches with n_prog rows of programs; the CTAs whose
+// direction reaches the sentinel (count 0) leave at once, so its out_q
+// rows stay exactly 0.
+// The q-side shares that land in halo cells are the caller's to reduce
+// home (parallel/brick.halo_reduce_3d).  Bound as the per-cell passes: the
+// shared-memory distance test over every candidate pair.
+extern "C" int ddcmd_eam_rho_half_ext(const float* slots, const int* stencil,
+                                      const float* L8, const int* counts,
+                                      const float* params, float* out_p,
+                                      float* out_q, int n_prog, int n_slot,
+                                      int cap, int n_stencil, int T, int npar,
+                                      int degree, int form, void* stream) {
+  if (n_prog > n_slot) return static_cast<int>(cudaErrorInvalidValue);
+  return ddcmd_eam_half(slots, stencil, L8, counts, params, out_p, out_q,
+                        nullptr, n_prog, cap, n_stencil, T, npar, degree,
+                        form, 0, stream);
+}
+
+extern "C" int ddcmd_eam_force_half_ext(const float* slots,
+                                        const int* stencil, const float* L8,
+                                        const int* counts,
+                                        const float* params, float* out_p,
+                                        float* out_q, float* out_cell,
+                                        int n_prog, int n_slot, int cap,
+                                        int n_stencil, int T, int npar,
+                                        int degree, int form, void* stream) {
+  if (n_prog > n_slot) return static_cast<int>(cudaErrorInvalidValue);
+  return ddcmd_eam_half(slots, stencil, L8, counts, params, out_p, out_q,
+                        out_cell, n_prog, cap, n_stencil, T, npar, degree,
+                        form, 1, stream);
 }

@@ -9,6 +9,7 @@ their plain PyTorch twins:
 
   cellpair_half      / cellpair_half_plain      per-cell kernel (TPU #1)
   cellpair_half_col  / cellpair_half_col_plain  column kernel   (TPU #2)
+  cellpair_half_ext  / cellpair_half_plain      extended grid   (TPU #6)
 
 and `cellpair_eval_half` (the counterpart of pallas_cellpair_eval_half):
 pack, run the kernel the plan picks, scatter the per-slot results back to
@@ -285,28 +286,33 @@ def cellpair_half_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
                         krf: float, crf: float, keR: float, coulomb: bool,
                         excl: bool = False):
     """Plain PyTorch version of the per-cell kernel (same contract and
-    outputs).  Loops over the stencil blocks so memory stays at (ncell,
-    cap, cap) per block; the q side is scattered with index_add_.
-    `counts` is not needed: empty slots carry valid = 0."""
+    outputs) and of the extended-grid kernel: the p side runs over the
+    first n_prog = stencil.shape[0] cells of `slots` (all of them on a
+    single-device grid), the q side over every slot cell.  Loops over the
+    stencil blocks so memory stays at (n_prog, cap, cap) per block; the q
+    side is scattered with index_add_.  `counts` is not needed: empty
+    slots carry valid = 0."""
     del counts
     ncell, _, cap = slots.shape
+    n_prog = stencil.shape[0]
     S = stencil.shape[1] // 4
     T = sigma.shape[0]
     dt = slots.dtype
     dev = slots.device
     L8 = L8.reshape(-1)
     rcut2 = L8[3]
-    px, py, pz = slots[:, 0, :, None], slots[:, 1, :, None], slots[:, 2, :, None]
-    pq, pv = slots[:, 3, :, None], slots[:, 5, :, None]
-    pt = slots[:, 4].long()
+    home = slots[:n_prog]
+    px, py, pz = home[:, 0, :, None], home[:, 1, :, None], home[:, 2, :, None]
+    pq, pv = home[:, 3, :, None], home[:, 5, :, None]
+    pt = home[:, 4].long()
     if excl:
         # exclusion channels: row6 = component id, row7 = B + 2^-(intra+1)
-        pm, pb = slots[:, 6, :, None], torch.floor(slots[:, 7, :, None])
+        pm, pb = home[:, 6, :, None], torch.floor(home[:, 7, :, None])
     upper = (torch.arange(cap, device=dev)[None, :]
              > torch.arange(cap, device=dev)[:, None])        # j > i
-    out_p = torch.zeros((ncell, cap, 4), dtype=dt, device=dev)
+    out_p = torch.zeros((n_prog, cap, 4), dtype=dt, device=dev)
     out_q4 = torch.zeros((ncell, 4, cap), dtype=dt, device=dev)
-    out_cell = torch.zeros((ncell, 8), dtype=dt, device=dev)
+    out_cell = torch.zeros((n_prog, 8), dtype=dt, device=dev)
     for s in range(S):
         tgt = stencil[:, 4 * s].long()
         sh = stencil[:, 4 * s + 1:4 * s + 4].to(dt) * L8[0:3]  # (C,3)
@@ -357,7 +363,7 @@ def cellpair_half_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
             -(fdz * dz).sum((1, 2)), -(fdx * dy).sum((1, 2)),
             -(fdx * dz).sum((1, 2)), -(fdy * dz).sum((1, 2))], dim=1)
     out_q = torch.cat([out_q4, torch.zeros_like(out_q4)], dim=1)
-    return out_p.reshape(ncell * cap, 4), out_q, out_cell
+    return out_p.reshape(n_prog * cap, 4), out_q, out_cell
 
 
 def col_to_cell_stencil(stencil_col, member_u):
@@ -454,13 +460,24 @@ _ARGTYPES = {
     "eam_half": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "eam_half_col": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                      + [ctypes.c_void_p]),
+    # the extended-grid entry points: (n_prog, n_slot) replace ncell
+    "cellpair_half_ext": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                          + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                          + [ctypes.c_void_p]),
+    "eam_rho_half_ext": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                         + [ctypes.c_void_p]),
+    "eam_force_half_ext": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p]),
 }
 
 
-def _kernel_fn(name: str):
+def _kernel_fn(name: str, source: str | None = None):
+    """The C entry point ddcmd_<name> of _build/lib<source>.so (source
+    defaults to name), built on first use."""
+    source = source or name
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(_build_locked([name], False)[name])
+            lib = ctypes.CDLL(_build_locked([source], False)[source])
             fn = getattr(lib, "ddcmd_" + name)
             fn.restype = ctypes.c_int
             fn.argtypes = _ARGTYPES[name]
@@ -549,6 +566,66 @@ def cellpair_half(slots, stencil, L8, counts, sigma, eps, shift, *,
 
 cellpair_half.launches = 0          # every launch of the kernel
 cellpair_half.launches_excl = 0     # the launches with exclusions
+
+
+def check_ext(slots, stencil, counts):
+    """(n_prog, n_slot, cap) of an extended-grid call: stencil rows are
+    the n_prog core cells, slots and counts span all n_slot cells."""
+    if slots.dim() != 3 or slots.shape[1] != 8:
+        raise ValueError(f"slots must be (n_slot, 8, cap), got {tuple(slots.shape)}")
+    if stencil.dim() != 2 or stencil.shape[1] % 4:
+        raise ValueError("stencil must be (n_prog, S*4)")
+    n_slot, _, cap = slots.shape
+    n_prog = stencil.shape[0]
+    if not 1 <= n_prog <= n_slot:
+        raise ValueError(f"{n_prog} programs over {n_slot} slot cells")
+    _check({"stencil": (stencil, torch.int32, (n_prog, stencil.shape[1])),
+            "counts": (counts, torch.int32, (n_slot,))}, slots.device)
+    if slots.device.type == "cuda" and n_prog > 65535:
+        raise ValueError(f"n_prog={n_prog} exceeds the grid's y extent (65535)")
+    return n_prog, n_slot, cap
+
+
+def cellpair_half_ext(slots, stencil, L8, counts, sigma, eps, shift, *,
+                      krf: float, crf: float, keR: float, coulomb: bool,
+                      excl: bool = False):
+    """The per-cell sweep on a brick's extended cell grid (contract in
+    csrc/cellpair_half.cu:ddcmd_cellpair_half_ext): programs over the
+    n_prog core cells (stencil rows), slots (n_slot, 8, cap) and counts
+    (n_slot,) over core, halo shell and sentinel.
+
+    Returns (p side (n_prog*cap, 4) [f, pe], accumulated q side (n_slot,
+    8, cap), per-core-cell (n_prog, 8) [e, virial6]).  A CPU tensor runs
+    cellpair_half_plain; a CUDA tensor launches the kernel (counted in
+    `cellpair_half_ext.launches`) or raises."""
+    n_prog, n_slot, cap = check_ext(slots, stencil, counts)
+    _, _, T = _check_common(slots, L8, counts, sigma, eps, shift)
+    kw = dict(krf=krf, crf=crf, keR=keR, coulomb=coulomb, excl=excl)
+    if slots.device.type == "cpu":
+        return cellpair_half_plain(slots, stencil, L8, counts, sigma, eps,
+                                   shift, **kw)
+    if (12 * cap + 3 * T * T) * 4 > SMEM_LIMIT:
+        raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
+    fn = _kernel_fn("cellpair_half_ext", "cellpair_half")
+    dev = slots.device
+    out_p = torch.zeros((n_prog * cap, 4), dtype=torch.float32, device=dev)
+    out_q = torch.zeros((n_slot, 8, cap), dtype=torch.float32, device=dev)
+    out_cell = torch.zeros((n_prog, 8), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(slots.data_ptr(), stencil.data_ptr(), L8.data_ptr(),
+                 counts.data_ptr(), sigma.data_ptr(), eps.data_ptr(),
+                 shift.data_ptr(), out_p.data_ptr(), out_q.data_ptr(),
+                 out_cell.data_ptr(), n_prog, n_slot, cap,
+                 stencil.shape[1] // 4, T, krf, crf, keR, int(bool(coulomb)),
+                 int(bool(excl)), stream)
+    if err != 0:
+        raise RuntimeError(f"cellpair_half_ext launch failed: CUDA error {err}")
+    cellpair_half_ext.launches += 1
+    return out_p, out_q, out_cell
+
+
+cellpair_half_ext.launches = 0
 
 
 def col_smem_bytes(U: int, cap: int, T: int, excl: bool) -> int:

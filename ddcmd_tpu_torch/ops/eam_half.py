@@ -8,6 +8,8 @@ SC / EXP / AT / RATIONAL) and alloys of 1-4 species:
   eam_force_half     / eam_force_half_plain      per-cell pass B (TPU #4)
   eam_rho_half_col   / eam_rho_half_col_plain    column pass A   (TPU #5)
   eam_force_half_col / eam_force_half_col_plain  column pass B   (TPU #5)
+  eam_rho_half_ext   / eam_rho_half_plain        extended-grid pass A (TPU #7)
+  eam_force_half_ext / eam_force_half_plain      extended-grid pass B (TPU #7)
 
 and `eam_eval_half` (pallas_eam_eval): pack the slot records with the
 particle mask folded into the validity row, run pass A, add the two
@@ -30,7 +32,7 @@ import torch
 
 from ..potentials.eam import _embedding, _pair_eval
 from .cellpair import CellBlockGrid
-from .cellpair_half import (SMEM_LIMIT, _check, _kernel_fn,
+from .cellpair_half import (SMEM_LIMIT, _check, _kernel_fn, check_ext,
                             col_to_cell_stencil, pack_slots)
 
 FORMS = ("FS", "SC", "EXP", "AT", "RATIONAL")     # eam::Form order
@@ -95,15 +97,18 @@ def _unpack(form: str, params, degree: int) -> dict:
 
 def _blocks(slots, stencil, L8):
     """The half-stencil sweep the twins share: for each direction s, the
-    target cells and the (ncell, cap, cap) pair geometry (dx, dy, dz,
+    target cells and the (n_prog, cap, cap) pair geometry (dx, dy, dz,
     d2s, ir, ir2, valid) of the home cells' p slots against the shifted
-    q blocks (_pair_tile, bcast variant)."""
-    ncell, _, cap = slots.shape
+    q blocks (_pair_tile, bcast variant).  The home cells are the first
+    n_prog = stencil.shape[0] slot cells: all of them on a single-device
+    grid, the core cells on a brick's extended grid."""
+    _, _, cap = slots.shape
     dt = slots.dtype
     L8 = L8.reshape(-1)
     rcut2 = L8[3]
-    px, py, pz = slots[:, 0, :, None], slots[:, 1, :, None], slots[:, 2, :, None]
-    pv = slots[:, 5, :, None]
+    home = slots[:stencil.shape[0]]
+    px, py, pz = home[:, 0, :, None], home[:, 1, :, None], home[:, 2, :, None]
+    pv = home[:, 5, :, None]
     upper = (torch.arange(cap, device=slots.device)[None, :]
              > torch.arange(cap, device=slots.device)[:, None])   # j > i
     for s in range(stencil.shape[1] // 4):
@@ -136,23 +141,25 @@ def _typed(form, pt, T, ptype, Q, d2s, ir, ir2, derivative):
 
 def eam_rho_half_plain(slots, stencil, L8, counts, params, *, form: str,
                        T: int, degree: int):
-    """Plain PyTorch version of the per-cell density pass: (per-slot p
-    side (ncell*cap, 2) [rho, pe], accumulated q side (ncell, 8, cap)
-    rows [rho, pe, 0...]).  Loops over the stencil blocks; the q side is
-    scattered with index_add_.  `counts` is not needed: empty slots carry
-    valid = 0."""
+    """Plain PyTorch version of the per-cell density pass, and of the
+    extended-grid one (p side over the first n_prog = stencil.shape[0]
+    cells): (per-slot p side (n_prog*cap, 2) [rho, pe], accumulated q
+    side (ncell, 8, cap) rows [rho, pe, 0...]).  Loops over the stencil
+    blocks; the q side is scattered with index_add_.  `counts` is not
+    needed: empty slots carry valid = 0."""
     del counts
     ncell, _, cap = slots.shape
+    n_prog = stencil.shape[0]
     pt = _unpack(form, params, degree)
-    ptype = slots[:, 4].long()[:, :, None]
-    out_p = torch.zeros((ncell, cap, 2), dtype=slots.dtype, device=slots.device)
+    ptype = slots[:n_prog, 4].long()[:, :, None]
+    out_p = torch.zeros((n_prog, cap, 2), dtype=slots.dtype, device=slots.device)
     acc = torch.zeros((ncell, 2, cap), dtype=slots.dtype, device=slots.device)
     for tgt, Q, _, d2s, ir, ir2, valid in _blocks(slots, stencil, L8):
         e, p, pT = (torch.where(valid, x, 0.0) for x in
                     _typed(form, pt, T, ptype, Q, d2s, ir, ir2, False))
         out_p += torch.stack([p.sum(2), 0.5 * e.sum(2)], dim=2)
         acc.index_add_(0, tgt, torch.stack([pT.sum(1), 0.5 * e.sum(1)], 1))
-    return (out_p.reshape(ncell * cap, 2),
+    return (out_p.reshape(n_prog * cap, 2),
             torch.cat([acc, torch.zeros((ncell, 6, cap), dtype=slots.dtype,
                                         device=slots.device)], dim=1))
 
@@ -160,17 +167,19 @@ def eam_rho_half_plain(slots, stencil, L8, counts, params, *, form: str,
 def eam_force_half_plain(slots, stencil, L8, counts, params, *, form: str,
                          T: int, degree: int):
     """Plain PyTorch version of the per-cell force pass (dF in record row
-    6): (p-side force (ncell*cap, 3), accumulated q-side reaction (ncell,
-    8, cap) rows [fx, fy, fz, 0...], per-cell (ncell, 8) [vxx vyy vzz vxy
-    vxz vyz 0 0] with each pair once)."""
+    6), and of the extended-grid one (p side over the first n_prog =
+    stencil.shape[0] cells): (p-side force (n_prog*cap, 3), accumulated
+    q-side reaction (ncell, 8, cap) rows [fx, fy, fz, 0...], per-home-cell
+    (n_prog, 8) [vxx vyy vzz vxy vxz vyz 0 0] with each pair once)."""
     del counts
     ncell, _, cap = slots.shape
+    n_prog = stencil.shape[0]
     pt = _unpack(form, params, degree)
-    ptype = slots[:, 4].long()[:, :, None]
-    dFp = slots[:, 6, :, None]
-    out_f = torch.zeros((ncell, cap, 3), dtype=slots.dtype, device=slots.device)
+    ptype = slots[:n_prog, 4].long()[:, :, None]
+    dFp = slots[:n_prog, 6, :, None]
+    out_f = torch.zeros((n_prog, cap, 3), dtype=slots.dtype, device=slots.device)
     acc = torch.zeros((ncell, 3, cap), dtype=slots.dtype, device=slots.device)
-    out_cell = torch.zeros((ncell, 8), dtype=slots.dtype, device=slots.device)
+    out_cell = torch.zeros((n_prog, 8), dtype=slots.dtype, device=slots.device)
     for tgt, Q, (dx, dy, dz), d2s, ir, ir2, valid in _blocks(slots, stencil, L8):
         de, dp, dpT = _typed(form, pt, T, ptype, Q, d2s, ir, ir2, True)
         coef = torch.where(valid, de + dFp * dp + Q[:, 6, None, :] * dpT, 0.0)
@@ -182,7 +191,7 @@ def eam_force_half_plain(slots, stencil, L8, counts, params, *, form: str,
             (fdx * dx).sum((1, 2)), (fdy * dy).sum((1, 2)),
             (fdz * dz).sum((1, 2)), (fdx * dy).sum((1, 2)),
             (fdx * dz).sum((1, 2)), (fdy * dz).sum((1, 2))], dim=1)
-    return (out_f.reshape(ncell * cap, 3),
+    return (out_f.reshape(n_prog * cap, 3),
             torch.cat([acc, torch.zeros((ncell, 5, cap), dtype=slots.dtype,
                                         device=slots.device)], dim=1),
             out_cell)
@@ -296,6 +305,72 @@ def eam_force_half(slots, stencil, L8, counts, params, *, form: str, T: int,
 
 eam_rho_half.launches = 0
 eam_force_half.launches = 0
+
+
+def _eam_half_ext(force: bool, slots, stencil, L8, counts, params, *, form,
+                  T, degree):
+    n_prog, n_slot, cap = check_ext(slots, stencil, counts)
+    _, _, npar = _check_eam(slots, L8, counts, params, form, T, degree)
+    kw = dict(form=form, T=T, degree=degree)
+    if slots.device.type == "cpu":
+        plain = eam_force_half_plain if force else eam_rho_half_plain
+        return plain(slots, stencil, L8, counts, params, **kw)
+    if ((9 if force else 7) * cap + T * T * npar) * 4 > SMEM_LIMIT:
+        raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
+    dev = slots.device
+    out_p = torch.zeros((n_prog * cap, 3 if force else 2),
+                        dtype=torch.float32, device=dev)
+    out_q = torch.zeros((n_slot, 8, cap), dtype=torch.float32, device=dev)
+    ptrs = [slots.data_ptr(), stencil.data_ptr(), L8.data_ptr(),
+            counts.data_ptr(), params.data_ptr(), out_p.data_ptr(),
+            out_q.data_ptr()]
+    if force:
+        out_cell = torch.zeros((n_prog, 8), dtype=torch.float32, device=dev)
+        ptrs.append(out_cell.data_ptr())
+    name = "eam_force_half_ext" if force else "eam_rho_half_ext"
+    fn = _kernel_fn(name, "eam_half")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*ptrs, n_prog, n_slot, cap, stencil.shape[1] // 4, T, npar,
+                 degree, FORMS.index(form), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return (out_p, out_q, out_cell) if force else (out_p, out_q)
+
+
+def eam_rho_half_ext(slots, stencil, L8, counts, params, *, form: str,
+                     T: int, degree: int):
+    """The density pass on a brick's extended cell grid (contract in
+    csrc/eam_half.cu:ddcmd_eam_rho_half_ext): programs over the n_prog
+    core cells (stencil rows), slots and counts over all n_slot cells.
+    Returns (p side (n_prog*cap, 2) [rho, pe], accumulated q side (n_slot,
+    8, cap)).  A CPU tensor runs eam_rho_half_plain; a CUDA tensor
+    launches the kernel (counted in `eam_rho_half_ext.launches`) or
+    raises."""
+    out = _eam_half_ext(False, slots, stencil, L8, counts, params, form=form,
+                        T=T, degree=degree)
+    if slots.device.type == "cuda":
+        eam_rho_half_ext.launches += 1
+    return out
+
+
+def eam_force_half_ext(slots, stencil, L8, counts, params, *, form: str,
+                       T: int, degree: int):
+    """The force pass (dF in record row 6) on a brick's extended cell
+    grid (contract in csrc/eam_half.cu:ddcmd_eam_force_half_ext).
+    Returns (p-side force (n_prog*cap, 3), q-side reaction (n_slot, 8,
+    cap), per-core-cell (n_prog, 8) [virial6, 0, 0]).  A CPU tensor runs
+    eam_force_half_plain; a CUDA tensor launches the kernel (counted in
+    `eam_force_half_ext.launches`) or raises."""
+    out = _eam_half_ext(True, slots, stencil, L8, counts, params, form=form,
+                        T=T, degree=degree)
+    if slots.device.type == "cuda":
+        eam_force_half_ext.launches += 1
+    return out
+
+
+eam_rho_half_ext.launches = 0
+eam_force_half_ext.launches = 0
 
 
 def eam_col_smem_bytes(U: int, cap: int, T: int, npar: int,
@@ -422,8 +497,11 @@ def embed_slots(slots, out_p, acc_a, tables):
     """Between the passes: rho = p side + q side of pass A per slot, the
     embedding F(rho), dF(rho) with torch ops, dF written into record row
     6 of `slots` in place (pass A does not read it).  Returns the
-    per-slot energy, half the pair energies plus F."""
+    per-slot energy, half the pair energies plus F.  On an extended grid
+    the p side covers the first n_prog cells only (the rest add none)."""
     ncell, _, cap = slots.shape
+    out_p = torch.nn.functional.pad(out_p, (0, 0, 0,
+                                            ncell * cap - out_p.shape[0]))
     rho = out_p[:, 0] + acc_a[:, 0, :].reshape(-1)             # (ncell*cap,)
     pe_pair = out_p[:, 1] + acc_a[:, 1, :].reshape(-1)
     valid = slots[:, 5, :].reshape(-1) > 0

@@ -1,0 +1,253 @@
+"""3D brick domain decomposition over a (nx, ny, nz) rank mesh.
+
+Counterpart of ddcmd_tpu/parallel/brick.py (the reference's CUBIC domain
+lattice, ddcMD src/ddc.h:42, with plane-pruned halos, ddcSendRecv.c:
+63-85), for uniform walls in an orthorhombic box.  Halo exchange and
+migration use the staged scheme -- exchange +-x, then +-y including the
+x ghosts, then +-z -- so three rounds of fixed-capacity buffers cover
+faces, edges and corners.  Axes of one brick exchange nothing: the cell
+stencil wraps there as on a single device.  An axis of two bricks sends
+both windows to its one neighbour (parallel/mesh.BrickMesh.exchange
+tells them apart).
+
+Positions are GLOBAL origin-centred coordinates; ownership and halo
+windows live in fractional coordinates s = r / L.  Load-balanced walls,
+Voronoi domains, molecule-coherent migration and triclinic boxes raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .slab import compact_rows
+
+WALLS_ITEM = ("load-balanced brick walls are not ported yet (ROADMAP queue "
+              "1, item 25: the mesh's load balance, loadbalance.py)")
+
+@dataclass(frozen=True)
+class BrickPlan:
+    shape: tuple[int, int, int]      # bricks per axis
+    local_cap: int
+    halo_cap: int                    # per direction per phase
+    migrate_cap: int
+    rlist: float
+
+    @property
+    def n_dev(self) -> int:
+        nx, ny, nz = self.shape
+        return nx * ny * nz
+
+    @property
+    def ghost_cap(self) -> int:
+        # 2*halo per OPEN-axis phase: axes of one brick are skipped
+        return 2 * self.halo_cap * sum(1 for s in self.shape if s > 1)
+
+
+def geom_frac(box_geom):
+    """(frac_fn, per_cart): origin-centred fractional coordinates
+    s = r / L and the fractional width of one Cartesian length unit (1/L)
+    per axis.  A (3, 3) h raises."""
+    g = box_geom
+    if g.dim() != 1:
+        raise NotImplementedError(
+            "triclinic brick meshes are not ported yet (ROADMAP queue 1, "
+            "item 20)")
+    return (lambda rr: rr / g), 1.0 / g
+
+
+def _axis_bounds(n: int, idx: int, walls=None):
+    """FRACTIONAL [lo, hi) in [-0.5, 0.5) of brick `idx` of `n` along one
+    axis, uniform walls (host floats rounded as the JAX package's f32)."""
+    if walls is not None:
+        raise NotImplementedError(WALLS_ITEM)
+    w = np.float32(1.0 / n)
+    lo = np.float32(-0.5) + w * np.float32(idx)
+    return float(lo), float(lo + w)
+
+
+def _with_count(buf: dict, n) -> dict:
+    """A buffer dict with its fill count riding along as a (1,) field."""
+    return dict(buf, __n=n.reshape(1))
+
+
+def halo_exchange_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan,
+                     mesh):
+    """Collect ghost particles from all 26 neighbour bricks via 3 staged
+    face exchanges.  fields: (local_cap, ...) tensors with 'r'.  Returns
+    (ghost fields (ghost_cap, ...), ghost_mask, overflow, routing):
+    `routing` holds per active phase (ax_i, src_lo, n_lo, src_hi, n_hi,
+    ghost_off), src_* the POOL rows this rank put into its lo/hi windows
+    (the ddcSendRecvTables analog).  halo_refresh_3d re-ships live values
+    along it; halo_reduce_3d reduces ghost contributions back through
+    it."""
+    dev = fields["r"].device
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    ghosts = {k: v[:0] for k, v in fields.items()}
+    gmask = torch.zeros((0,), dtype=torch.bool, device=dev)
+    routing = []
+
+    frac, per_cart = geom_frac(box_lengths)
+    pool, pool_mask = fields, valid_mask
+    for ax_i in range(3):
+        n = plan.shape[ax_i]
+        if n == 1:
+            continue
+        lo, hi = _axis_bounds(n, mesh.idx3[ax_i])
+        win_f = plan.rlist * per_cart[ax_i]
+        x = frac(pool["r"])[:, ax_i]
+        sel_lo = pool_mask & (x < lo + win_f)
+        sel_hi = pool_mask & (x >= hi - win_f)
+        if n == 2:
+            # both windows land on the SAME neighbour: an atom within
+            # rlist of both faces must ship only once or its pairs
+            # double-count
+            sel_hi = sel_hi & ~sel_lo
+        aux = dict(pool, __row=torch.arange(pool_mask.shape[0], device=dev))
+        buf_lo, n_lo, ov1 = compact_rows(aux, sel_lo, plan.halo_cap)
+        buf_hi, n_hi, ov2 = compact_rows(aux, sel_hi, plan.halo_cap)
+        src_lo, src_hi = buf_lo.pop("__row"), buf_hi.pop("__row")
+        overflow = overflow | ov1 | ov2
+
+        from_lo, from_hi = mesh.exchange(_with_count(buf_lo, n_lo),
+                                         _with_count(buf_hi, n_hi), ax_i)
+        idx = torch.arange(plan.halo_cap, device=dev)
+        new_mask = torch.cat([idx < from_lo.pop("__n"),
+                              idx < from_hi.pop("__n")])
+        routing.append((ax_i, src_lo, n_lo, src_hi, n_hi, gmask.shape[0]))
+        ghosts = {k: torch.cat([ghosts[k], from_lo[k], from_hi[k]])
+                  for k in ghosts}
+        gmask = torch.cat([gmask, new_mask])
+        # the next phase selects from local + all ghosts so far
+        pool = {k: torch.cat([fields[k], ghosts[k]]) for k in fields}
+        pool_mask = torch.cat([valid_mask, gmask])
+
+    pad = plan.ghost_cap - gmask.shape[0]
+    if pad > 0:
+        ghosts = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+                  for k, v in ghosts.items()}
+        gmask = torch.cat([gmask, gmask.new_zeros((pad,))])
+    return ghosts, gmask, overflow, tuple(routing)
+
+
+def halo_refresh_3d(local_vals, routing, plan: BrickPlan, mesh):
+    """Re-ship per-particle values along the FROZEN routing: the per-step
+    position halo against cached send lists (ddcUpdate, ddcMD
+    src/ddcUpdate.c:40-89).  local_vals (local_cap, C).  Returns the
+    (local_cap + ghost_cap, C) pool with the ghost rows refreshed."""
+    n_local = local_vals.shape[0]
+    pool = torch.cat([local_vals, local_vals.new_zeros(
+        (plan.ghost_cap,) + tuple(local_vals.shape[1:]))])
+    for (ax_i, src_lo, _n_lo, src_hi, _n_hi, goff) in routing:
+        from_lo, from_hi = mesh.exchange({"v": pool[src_lo]},
+                                         {"v": pool[src_hi]}, ax_i)
+        start = n_local + goff
+        pool[start:start + 2 * plan.halo_cap] = torch.cat(
+            [from_lo["v"], from_hi["v"]])
+    return pool
+
+
+def halo_reduce_3d(pool_vals, routing, plan: BrickPlan, n_local: int, mesh):
+    """Reduce ghost-row contributions back to their source rows through
+    the frozen routing, phases in REVERSE (ddcUpdateForce, ddcMD
+    src/ddcUpdate.c:140).  pool_vals (local_cap + ghost_cap, C), ghost
+    rows holding the shares computed here for other ranks' atoms.
+    Returns (local_cap, C)."""
+    idx = torch.arange(plan.halo_cap, device=pool_vals.device)
+    ones = (1,) * (pool_vals.dim() - 1)
+    for (ax_i, src_lo, n_lo, src_hi, n_hi, goff) in reversed(routing):
+        start = n_local + goff
+        blk = pool_vals[start:start + 2 * plan.halo_cap]
+        # our lo ghosts came from the -1 neighbour's hi window: their
+        # shares go back down, and vice versa; what arrives are the
+        # shares of OUR src_lo / src_hi rows
+        back_lo, back_hi = mesh.exchange({"v": blk[:plan.halo_cap]},
+                                         {"v": blk[plan.halo_cap:]}, ax_i)
+        add_hi = torch.where((idx < n_hi).reshape((-1,) + ones),
+                             back_hi["v"], 0.0)
+        add_lo = torch.where((idx < n_lo).reshape((-1,) + ones),
+                             back_lo["v"], 0.0)
+        pool_vals = pool_vals.index_add(0, src_hi, add_hi)
+        pool_vals = pool_vals.index_add(0, src_lo, add_lo)
+    return pool_vals[:n_local]
+
+
+def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
+    """Staged 1-hop migration along x, then y, then z (<= 1 brick hop per
+    axis per call, the lazy re-bisect assumption).  Returns (fields,
+    mask, overflow)."""
+    if "hgid" in fields:
+        raise NotImplementedError(
+            "molecule-coherent migration (head-bead gid) is not ported yet "
+            "(ROADMAP queue 1, item 25: the bilayer under the mesh)")
+    dev = fields["r"].device
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    cur, mask = fields, valid_mask
+    frac, _ = geom_frac(box_lengths)
+    for ax_i in range(3):
+        n = plan.shape[ax_i]
+        if n == 1:
+            continue
+        lo, hi = _axis_bounds(n, mesh.idx3[ax_i])
+        x = frac(cur["r"])[:, ax_i]
+        go_lo = mask & (x < lo)
+        go_hi = mask & (x >= hi)
+        stay = mask & ~(go_lo | go_hi)
+        buf_lo, n_lo, ov1 = compact_rows(cur, go_lo, plan.migrate_cap)
+        buf_hi, n_hi, ov2 = compact_rows(cur, go_hi, plan.migrate_cap)
+        from_lo, from_hi = mesh.exchange(_with_count(buf_lo, n_lo),
+                                         _with_count(buf_hi, n_hi), ax_i)
+        idx = torch.arange(plan.migrate_cap, device=dev)
+        pool_mask = torch.cat([stay, idx < from_lo.pop("__n"),
+                               idx < from_hi.pop("__n")])
+        pool = {k: torch.cat([cur[k], from_lo[k], from_hi[k]]) for k in cur}
+        cur, count, ov3 = compact_rows(pool, pool_mask, plan.local_cap)
+        mask = torch.arange(plan.local_cap, device=dev) < count
+        overflow = overflow | ov1 | ov2 | ov3
+    return cur, mask, overflow
+
+
+def gid64(gid) -> np.ndarray:
+    """int64 global ids from either package's layout: (n,) integers, or
+    the JAX package's (n, 2) uint32 [low, high] pairs."""
+    g = np.asarray(gid)
+    if g.ndim == 2:
+        return g[:, 0].astype(np.int64) | (g[:, 1].astype(np.int64) << 32)
+    return g.astype(np.int64)
+
+
+def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
+    """Host-side: split arrays into flat (n_dev*local_cap, ...) buffers by
+    brick; brick order is rank order, rank = (ix*ny + iy)*nz + iz.
+    Returns (buffers, mask, per-brick counts).  Either package's `gid`
+    layout splits into identical buffers (each keeps its own layout)."""
+    r = np.asarray(arrays["r"])
+    nx, ny, nz = plan.shape
+    L = np.asarray(box_lengths, dtype=np.float64)
+    if L.ndim != 1:
+        raise NotImplementedError(
+            "triclinic brick meshes are not ported yet (ROADMAP queue 1, "
+            "item 20)")
+    fr = r / L[None, :] + 0.5
+    fr = fr - np.floor(fr)
+    cj = [np.clip(np.floor(fr[:, a] * plan.shape[a]).astype(int),
+                  0, plan.shape[a] - 1) for a in range(3)]
+    dest = (cj[0] * ny + cj[1]) * nz + cj[2]
+    counts = np.zeros(plan.n_dev, dtype=np.int32)
+    for d in range(plan.n_dev):
+        counts[d] = int((dest == d).sum())
+        if counts[d] > plan.local_cap:
+            raise ValueError(f"brick {d} needs {counts[d]} > cap {plan.local_cap}")
+    out = {}
+    for k, a in arrays.items():
+        a = np.asarray(a)
+        buf = np.zeros((plan.n_dev, plan.local_cap) + a.shape[1:], dtype=a.dtype)
+        for d in range(plan.n_dev):
+            sel = a[dest == d]
+            buf[d, : len(sel)] = sel
+        out[k] = buf.reshape((plan.n_dev * plan.local_cap,) + a.shape[1:])
+    mask = (np.arange(plan.local_cap)[None, :] < counts[:, None]).reshape(-1)
+    return out, mask, counts

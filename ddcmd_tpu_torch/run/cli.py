@@ -5,7 +5,8 @@
 Counterpart of ddcmd_tpu/run/cli.py (reference CLI, ddcMD
 src/commandLineOptions.c:69-120).  Only the simulate master is ported;
 the others raise NotImplementedError (ROADMAP queue 1, item 23).  The
-device defaults to CUDA when a card is present.
+run goes to the CUDA card; without one it raises unless --device cpu
+asks for the CPU.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def run(argv=None):
                    help="override number of loops (deltaloop)")
     p.add_argument("--run-dir", default=".")  # created if absent (below)
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available)")
+                   help="torch device (default: cuda; the CPU only as "
+                        "--device cpu)")
     args = p.parse_args(argv)
     if args.master != "simulate":
         raise NotImplementedError(

@@ -1,0 +1,332 @@
+"""Deck-driven MD over a brick mesh, one rank per brick.
+
+Counterpart of ddcmd_tpu/run/parallel_sim.py:ParallelSimulation for the
+NVT decks of the Martini water box and the EAM crystal: `ddc DDC {lx=2;
+ly=2; lz=2;}` (the reference's domain lattice keywords, ddc.c:35-137)
+or the `shape` argument selects the mesh, and each rank runs
+parallel/brickstep_cells.BrickStepCells on its brick through the
+extended-grid kernels (TPU kernels #6 and #7).
+
+Ranks come from torch.distributed (the caller initialises the process
+group: NCCL for CUDA tensors, one card per rank; gloo for the CPU).  A
+(1, 1, 1) mesh needs no process group.  Every rank builds the system
+from the deck, keeps the rows of its own brick, and runs the same host
+loop; the per-step scalars and the overflow flag are mesh-wide, so all
+ranks take the same decisions.
+
+Deck features outside the NVT path raise NotImplementedError naming
+their ROADMAP item: bonded terms, constraints and exclusions, the
+barostat, load balance (and with it the pxyz decomposition restart), a
+geometry the cell engine cannot take (the JAX package then runs its
+(N,K)-list engine, item 19).  The checkpoint writer, rebalance, the
+gathered view and the sharded analyses are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import time as _time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..core.system import build_system
+from ..objects import ObjectDB
+from ..objects import units as U
+from ..ops.eam_half import eam_half_supported, eam_kernel_tables
+from ..parallel.brick import BrickPlan, distribute_bricks, gid64
+from ..parallel.brickstep_cells import BrickStepCells
+from ..parallel.mesh import BrickMesh
+from ..parallel.shard_cells import plan_shard_cells
+from ..potentials.eam import eam_device_tables
+from ..potentials.martini import martini_device_tables
+from .simulate import _BAROSTAT_TYPES, _NGLF_TYPES
+
+_MESH_ITEM = "ROADMAP queue 1, item 25"
+
+
+def _cap(x: int) -> int:
+    return ((int(x) + 7) // 8) * 8
+
+
+def _mesh_device(device):
+    """`device` when given, else this rank's CUDA card (cuda:LOCAL_RANK
+    under a launcher, cuda:0 alone); raises without a card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to run the '
+                           "mesh on the CPU (gloo ranks)")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return torch.device(f"cuda:{local}")
+
+
+class ParallelSimulation:
+    """Sharded run: the NVT water box and EAM crystal over a mesh."""
+
+    def __init__(self, db: ObjectDB, base_dir: str = ".", *, shape=None,
+                 device=None):
+        self.device = dev = _mesh_device(device)
+        sd = build_system(db, base_dir, dtype=torch.float32, device="cpu")
+        self.sysdef = sd
+        if sd.integrator_type not in _NGLF_TYPES:
+            raise NotImplementedError(
+                f"integrator {sd.integrator_type} is not ported yet "
+                "(ROADMAP queue 1, item 22)")
+        ip = sd.integrator_parms
+        if sd.integrator_type in _BAROSTAT_TYPES and ip["beta"] > 0:
+            raise NotImplementedError(
+                f"the barostat under the mesh (chunk_npt) is not ported yet "
+                f"({_MESH_ITEM}: the bilayer under the mesh)")
+        bt = sd.bonded
+        if bt is not None and any(bt.counts().values()):
+            raise NotImplementedError(
+                "bonded terms, constraints and exclusions under the mesh are "
+                f"not ported yet ({_MESH_ITEM}: the bilayer under the mesh)")
+
+        sim = db.by_class("SIMULATE")[0]
+        ddc = db.find(sim.get_str("ddc", "ddc"), "DDC")
+        if ddc is not None and ddc.get_str("loadBalance", ""):
+            raise NotImplementedError(
+                "load balance under the mesh is not ported yet "
+                f"({_MESH_ITEM}: parallel/loadbalance.py, voronoi.py)")
+        if shape is None and ddc is not None and ddc.has("lx"):
+            shape = (ddc.get_int("lx", 1), ddc.get_int("ly", 1),
+                     ddc.get_int("lz", 1))
+        if shape is None:
+            shape = ((dist.get_world_size() if dist.is_initialized() else 1),
+                     1, 1)
+        self.shape = tuple(int(s) for s in shape)
+        self.mesh = BrickMesh(self.shape, dev)
+        n_dev = self.mesh.size
+
+        ptype, _, parms = sd.potentials[0]
+        if len(sd.potentials) != 1:
+            raise NotImplementedError(
+                "one nonbond potential per deck under the mesh")
+        n = sd.state.n_local
+        if ptype == "MARTINI":
+            tables = martini_device_tables(parms, device=dev)
+            tmap = np.asarray(parms.species_lj_type)
+            self.force_kind = "martini"
+            # uniform-LJ-type collapse: scalar parameters in the kernel
+            used = np.unique(tmap[sd.state.species[:n].numpy()])
+            if len(used) == 1:
+                t0 = int(used[0])
+                tables = dict(tables, **{
+                    k: tables[k][t0:t0 + 1, t0:t0 + 1]
+                    for k in ("sigma", "eps", "shift")})
+                tmap = np.zeros_like(tmap)
+        else:
+            tables = eam_device_tables(parms, device=dev)
+            if not eam_half_supported(tables):
+                raise NotImplementedError(
+                    f"EAM form {tables['form']} with {tables['n_species']} "
+                    "species: the EAM kernels take the analytic forms with "
+                    "1-4 species; the (N,K)-list engine the JAX package "
+                    "runs then is not ported yet (ROADMAP queue 1, item 19)")
+            tables = eam_kernel_tables(tables)
+            tmap = np.arange(len(sd.species))
+            self.force_kind = "eam"
+        self.tables, self._tmap = tables, tmap
+        self._coulomb = bool(np.any(sd.state.q[:n].numpy() != 0.0))
+
+        L = sd.box.lengths.numpy().astype(np.float64)
+        rlist = sd.rcut_max + sd.neighbor_deltaR
+        # halo windows scale with rlist / brick width (parallel_sim.py:
+        # 182-202 of the JAX package)
+        per_dev = max(1, n // n_dev)
+        width = min(L[a] / self.shape[a] for a in range(3))
+        frac = min(1.0, rlist / width)
+        halo_est = int(per_dev * (1 + 2 * frac) ** 2 * frac * 1.8) + 64
+        self.plan = BrickPlan(
+            shape=self.shape,
+            local_cap=_cap(n) if n_dev == 1 else _cap(4 * n // n_dev),
+            halo_cap=_cap(max(3 * n // n_dev // 2, halo_est)),
+            migrate_cap=_cap(max(256, n // (4 * n_dev))), rlist=rlist)
+        self._check_geometry(L, rlist)
+        self._box_L = L
+        self.chunk_steps = max(1, int(sd.cfg.ddc_update_rate))
+        self.coeffs = sd.group_table.coefficients(
+            sd.cfg.time, 0.5 * sd.cfg.dt, device=dev)
+        self._density_safety = 1.3
+        self._build_step_fns()
+
+        self._host_arrays = dict(
+            r=sd.state.r[:n].numpy(), v=sd.state.v[:n].numpy(),
+            q=sd.state.q[:n].numpy(), mass=sd.state.mass[:n].numpy(),
+            species=sd.state.species[:n].numpy(),
+            group=sd.state.group[:n].numpy(),
+            gid=gid64(sd.collection.gid))
+        self._distribute(self._host_arrays)
+        self.f = None
+        self.loop = sd.cfg.loop
+        # (steps, seconds) of each accepted dispatch, host clock around
+        # work that ends in the dispatch's one device-to-host read
+        self.dispatch_log: list[tuple[int, float]] = []
+
+    # ------------------------------------------------------------------
+
+    def _check_geometry(self, L, rlist):
+        """The cell engine's gate (_pick_shard_engine): every open axis
+        needs bricks >= rlist, and >= 2 rlist on a 2-brick axis (an atom
+        within rlist of both faces would need two ghost images).  Where
+        the JAX package falls back to its (N,K)-list engine, raise."""
+        for a in range(3):
+            na = self.shape[a]
+            span = L[a] / na
+            if na > 1 and span < rlist * (2.0 if na == 2 else 1.0):
+                raise NotImplementedError(
+                    f"axis {a}: brick {span:.3f} too narrow for rlist "
+                    f"{rlist:.3f}; the (N,K)-list mesh engine the JAX "
+                    "package runs then is not ported yet (ROADMAP queue 1, "
+                    "item 19)")
+
+    def _build_step_fns(self):
+        sd = self.sysdef
+        self.cplan = plan_shard_cells(
+            self._box_L, self.shape, sd.rcut_max, sd.neighbor_deltaR,
+            sd.state.n_local,
+            density_safety=self._density_safety)
+        self.step_fn = BrickStepCells(
+            self.mesh, self.plan, self.cplan, self.tables, self.coeffs,
+            sd.cfg.dt, self._box_L, self._tmap, sd.random_seed,
+            self.chunk_steps, coulomb=self._coulomb,
+            force_kind=self.force_kind)
+
+    def _distribute(self, arrays):
+        """This rank's brick of the host arrays, on the device."""
+        buf, mask, _ = distribute_bricks(arrays, self._box_L, self.plan)
+        cap, rank = self.plan.local_cap, self.mesh.rank
+        rows = slice(rank * cap, (rank + 1) * cap)
+        self.fields = {k: torch.as_tensor(v[rows], device=self.device)
+                       for k, v in buf.items()}
+        self.mask = torch.as_tensor(mask[rows], device=self.device)
+
+    def gather_by_gid(self, names=("r", "v")) -> dict:
+        """Every rank's owned rows of the named fields (and "f") on the
+        host, in the collection's original order (the pio gather
+        analog: rows keyed by gid)."""
+        m = self.mesh.all_gather(self.mask.to(torch.int64)).cpu().numpy()
+        m = m.reshape(-1).astype(bool)
+        g = self.mesh.all_gather(self.fields["gid"]).cpu().numpy()
+        g = g.reshape(-1)[m]
+        col = gid64(self.sysdef.collection.gid)
+        pos = {int(x): i for i, x in enumerate(col)}
+        idx = np.fromiter((pos[int(x)] for x in g), dtype=np.int64,
+                          count=len(g))
+        out = {}
+        for k in names:
+            t = self.f if k == "f" else self.fields[k]
+            a = self.mesh.all_gather(t).cpu().numpy()
+            a = a.reshape((-1,) + a.shape[2:])[m]
+            full = np.zeros((len(col),) + a.shape[1:], a.dtype)
+            full[idx] = a
+            out[k] = full
+        return out
+
+    def first_energy(self) -> float:
+        self.f, e, _virial, ov = self.step_fn.first_forces(self.fields,
+                                                           self.mask)
+        if bool(ov):
+            raise RuntimeError("neighbor overflow at first energy")
+        return float(e)
+
+    def _print_scalars(self, scalars, print_fn, loop0):
+        sd = self.sysdef
+        if not (print_fn and sd.cfg.printrate):
+            return
+        n = sd.state.n_local
+        for j in range(scalars.shape[0]):
+            loop = loop0 + j + 1
+            if loop % sd.cfg.printrate == 0:
+                e_pot, rk = float(scalars[j, 0]), float(scalars[j, 1])
+                T = 2.0 * rk / (3.0 * n * U.kB)
+                print_fn(f"{loop:10d} epot/N={e_pot / n:14.6f} "
+                         f"ekin/N={rk / n:12.6f} T={T:10.2f}")
+
+    def _dispatch(self, kind: str, n_super: int = 0):
+        """One dispatch from the current state, one device-to-host read
+        at its end: (new state, scalars (k, 7) numpy, overflow, steps)."""
+        st = self.step_fn
+        if kind == "super":
+            out = st.superchunk(self.fields, self.mask, self.f, self.loop,
+                                n_super)
+        elif kind == "chunk":
+            out = st.chunk(self.fields, self.mask, self.f, self.loop)
+        else:
+            fields, f, scal, ov = st.step(self.fields, self.mask, self.f,
+                                          self.loop)
+            out = (fields, self.mask, f, scal[None], ov)
+        fields, mask, f, scal, ov = out
+        host = torch.cat([scal.reshape(-1),
+                          ov.to(scal.dtype).reshape(1)]).cpu().numpy()
+        rows = host[:-1].astype(np.float64).reshape(-1, 7)
+        return (fields, mask, f), rows, bool(host[-1]), rows.shape[0]
+
+    def run(self, n_loops: int, *, print_fn=None,
+            max_steps_per_dispatch: int | None = None):
+        """Chunked dispatch: ddc updateRate steps plus one migration per
+        chunk; with max_steps_per_dispatch >= 2 chunks, that many chunks
+        per dispatch (the superchunk).  Leftover loops take the per-step
+        path.  An overflowing dispatch rolls back to the state before it
+        and escalates: (1) host redistribute, (2) replan with a larger
+        cell capacity, (3) raise."""
+        if self.f is None:
+            self.first_energy()
+        done = 0
+        k = self.chunk_steps
+        M = (max_steps_per_dispatch // k if max_steps_per_dispatch
+             and max_steps_per_dispatch >= 2 * k else 0)
+        redis_tries = 0
+        while done < n_loops:
+            if M and done + M * k <= n_loops:
+                kind = "super"
+            elif done + k <= n_loops:
+                kind = "chunk"
+            else:
+                kind = "step"
+            t0 = _time.perf_counter()
+            state, rows, ov, steps = self._dispatch(kind, M)
+            seconds = _time.perf_counter() - t0
+            if ov:
+                if kind == "step":
+                    raise RuntimeError(f"overflow at loop {self.loop}")
+                redis_tries += 1
+                if redis_tries > 2:
+                    raise RuntimeError(f"overflow in {kind} at loop "
+                                       f"{self.loop}")
+                if redis_tries == 1:
+                    self.redistribute()
+                else:
+                    self.replan()
+                continue
+            redis_tries = 0
+            if not np.isfinite(rows[:, :2]).all():
+                raise FloatingPointError(
+                    f"non-finite energy after loop {self.loop} (reference "
+                    "kill switch, masters.c:470-475)")
+            self.fields, self.mask, self.f = state
+            self._print_scalars(rows, print_fn, self.loop)
+            self.loop += steps
+            done += steps
+            self.dispatch_log.append((steps, seconds))
+        return self
+
+    def redistribute(self):
+        """Host-exact re-assignment of every particle to its brick (no
+        replan): recovers from a migration or halo overflow."""
+        g = self.gather_by_gid(("r", "v"))
+        arrays = dict(self._host_arrays, r=g["r"], v=g["v"])
+        self._distribute(arrays)
+        self.f = None
+        self.first_energy()
+
+    def replan(self):
+        """Replan the cell grid with 1.3x the density safety (a larger cell
+        capacity, as the single-device run loop grows it) and
+        redistribute."""
+        self._density_safety *= 1.3
+        self._build_step_fns()
+        self.redistribute()

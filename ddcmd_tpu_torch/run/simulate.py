@@ -68,14 +68,24 @@ _NOISE_CALLSITE_NGLF = 0
 _ROW = ("eion", "rk", "tr_virial", "tr_tion", "volume", "Lx", "Ly", "Lz")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a run uses: `device` when given, else the CUDA card.
+    Without a card a run raises: the CPU runs only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'no CUDA device: pass device="cpu" (the CLI\'s --device '
+                'cpu) to run on the CPU')
+        device = "cuda"
+    return torch.device(device)
+
+
 class Simulation:
     """Owns the force and step functions and the host loop."""
 
     def __init__(self, db: ObjectDB, base_dir: str = ".", *,
                  run_dir: str = ".", device=None):
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.run_dir = run_dir
         self.sysdef = sd = build_system(db, base_dir, dtype=torch.float32,
                                         device=self.device)
@@ -390,6 +400,8 @@ class Simulation:
 
 def simulate_master(db: ObjectDB, base_dir: str = ".", run_dir: str = ".",
                     n_loops: int | None = None, device=None) -> Simulation:
+    """Run the deck on `device` (the CUDA card by default; raises without
+    one) with checkpoints and snapshots at the deck's rates."""
     from ..io.restart import write_checkpoint
 
     sim = Simulation(db, base_dir, run_dir=run_dir, device=device)

@@ -3,12 +3,15 @@
     python scripts/profile_torch_slice.py [--n 6173] [--steps 200]
     python scripts/profile_torch_slice.py --bilayer 48 [--steps 200]
     python scripts/profile_torch_slice.py --eam 12 [--steps 200]
+    python scripts/profile_torch_slice.py --mesh [--eam 32] [--steps 200]
 
 Runs the Martini water box NVT (default), the Martini DPPC bilayer NPT
 (--bilayer NX: 2*NX*NX lipids plus water, NX = 48 is the ~100k-bead
 full width; equilibrated at dt = 5 fs) or the EAM copper crystal NVT
 (--eam NC: 4*NC^3 atoms; NC = 12 runs the per-cell EAM kernels, NC = 32
-the column ones) through ddcmd_tpu_torch's Simulation: --warm steps,
+the column ones) through ddcmd_tpu_torch's Simulation, or with --mesh
+through ParallelSimulation on a (1,1,1) brick mesh (the extended-grid
+kernels; water box or crystal only): --warm steps,
 then --steps timed steps, then the same number traced with
 torch.profiler.  Prints steps/s (untraced), the device busy
 share (summed kernel time over wall time), kernel launches per step and
@@ -35,6 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ddcmd_tpu_torch.models import (eam_crystal, load, martini_bilayer,  # noqa: E402
                                     martini_water)
+from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation  # noqa: E402
 from ddcmd_tpu_torch.run.simulate import Simulation  # noqa: E402
 
 
@@ -105,6 +109,9 @@ def main(argv=None):
     p.add_argument("--eam", type=int, default=0, metavar="NC",
                    help="profile the EAM copper crystal of 4*NC^3 atoms "
                         "instead of the water box")
+    p.add_argument("--mesh", action="store_true",
+                   help="run ParallelSimulation on a (1,1,1) mesh instead "
+                        "of Simulation (water box or --eam)")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--warm", type=int, default=1000)
     p.add_argument("--out", default=None,
@@ -112,6 +119,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA device")
+    if args.mesh and args.bilayer:
+        raise SystemExit("profile_torch_slice: the bilayer does not run "
+                         "under the mesh yet")
     with tempfile.TemporaryDirectory() as d:
         if args.bilayer:
             martini_bilayer(d, nx=args.bilayer, ny=args.bilayer, dt_fs=5.0)
@@ -120,7 +130,11 @@ def main(argv=None):
         else:
             martini_water(d, n=args.n)
         db, base = load(d)
-        sim = Simulation(db, base, run_dir=d, device="cuda")
+        if args.mesh:
+            sim = ParallelSimulation(db, base, shape=(1, 1, 1),
+                                     device="cuda")
+        else:
+            sim = Simulation(db, base, run_dir=d, device="cuda")
         quiet = lambda line: None                              # noqa: E731
         sim.run(args.warm, print_fn=quiet)
         torch.cuda.synchronize()
@@ -146,13 +160,19 @@ def main(argv=None):
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    steps = args.steps + 1           # run() starts with one first_energy
+    # Simulation.run starts with one first_energy; the mesh's run does not
+    steps = args.steps + (0 if args.mesh else 1)
     what = (f"bilayer nx={args.bilayer}" if args.bilayer
             else f"eam_crystal nc={args.eam}" if args.eam
             else f"water n={args.n}")
-    print(f"{what}, {sim.sysdef.state.n_local} particles, cells "
-          f"{sim.grid.ncells} cap {sim.grid.cap} "
-          f"G={sim.force_fn.terms[0].G}, redos {sim.redos}, on "
+    if args.mesh:
+        what += " mesh (1,1,1)"
+        plan = (f"core cells {sim.cplan.ncore} cap {sim.cplan.cap}, "
+                f"rebuild every {sim.chunk_steps} steps")
+    else:
+        plan = (f"cells {sim.grid.ncells} cap {sim.grid.cap} "
+                f"G={sim.force_fn.terms[0].G}, redos {sim.redos}")
+    print(f"{what}, {sim.sysdef.state.n_local} particles, {plan}, on "
           f"{torch.cuda.get_device_name(0)}")
     print(f"unprofiled: {steps} steps in {plain_wall:.4f} s = "
           f"{steps / plain_wall:.1f} steps/s; profiled: {wall:.4f} s, "

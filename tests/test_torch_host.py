@@ -123,10 +123,14 @@ def test_tf32_pinned_off():
 
 
 _NO_JAX_RUN = r"""
-import json, sys
+import importlib, json, pkgutil, sys
 import ddcmd_tpu_torch
+import ddcmd_tpu_torch.parallel
+import ddcmd_tpu_torch.run.parallel_sim
 from ddcmd_tpu_torch.models import martini_water
 from ddcmd_tpu_torch.run import cli
+for m in pkgutil.iter_modules(ddcmd_tpu_torch.parallel.__path__):
+    importlib.import_module("ddcmd_tpu_torch.parallel." + m.name)
 martini_water(sys.argv[1], n=400)
 sim = cli.run(["simulate", "-o", sys.argv[1] + "/object.data", "-n", "5",
                "--run-dir", sys.argv[1], "--device", "cpu"])
@@ -140,8 +144,9 @@ print(json.dumps({"loop": sim.ss.loop,
 
 
 def test_port_imports_no_jax(tmp_path):
-    """`import ddcmd_tpu_torch` plus a 5-step CPU run, in a fresh
-    interpreter, leave jax and the JAX package out of sys.modules."""
+    """`import ddcmd_tpu_torch`, every module of ddcmd_tpu_torch.parallel
+    and run.parallel_sim, plus a 5-step CPU run, in a fresh interpreter,
+    leave jax and the JAX package out of sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", _NO_JAX_RUN, str(tmp_path)],
                          capture_output=True, text=True, env=env, cwd=REPO,
