@@ -24,16 +24,25 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
        a T = 2 FS alloy with an asymmetric density; the column EAM
        kernels on the nc = 32 crystal's slots, on an nz == G grid, and
        against the per-cell EAM kernels on the nc = 32 slots;
+     - the full-stencil kernel (TPU #3) on the water box's records, on
+       the full bilayer's (T = 5, reaction field) and on charged grids
+       with 2-cell axes, each also against the per-cell kernel on the
+       same records;
      - the extended-grid kernels (TPU #6, #7) of the brick mesh: the pair
        kernel on the (1,1,1) water plan's slots (and against the
        per-cell kernel there), on one brick of a (2,2,2) plan at the
-       water density with its halo shell filled (charged, T = 2) and on
-       a grid with 2-cell periodic axes; the EAM passes on the (1,1,1)
-       nc = 32 plan and on one brick of a (2,2,2) plan at the copper
-       density; the sentinel cell's q side stays exactly 0;
+       water density with its halo shell filled (charged, T = 2), on
+       a grid with 2-cell periodic axes, and with exclusions on the full
+       bilayer's (1,1,1) plan and on one brick of the nx = 8 bilayer's
+       (2,2,2) plan; the EAM passes on the (1,1,1) nc = 32 plan and on
+       one brick of a (2,2,2) plan at the copper density; the sentinel
+       cell's q side stays exactly 0;
      and, for each main-path case, the least time the card could take
      (bound_ms: operations over the f32 peak or bytes over the memory
      rate, from the candidate and in-cutoff pairs these inputs hold);
+     then TPU #3's own main path, its entry point cellpair_eval_full on
+     the water box's and the full bilayer's start states (no simulate
+     path reaches it), against the half-stencil evaluation;
   4. water slice: the Martini water box through `ddcmd_tpu_torch.run.cli
      simulate`, 3000 NVT steps in dispatches of 400;
   5. small-bilayer slice: a 2,888-bead bilayer through the CLI, 400 NPT
@@ -55,12 +64,17 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      energy against the single-device Simulation's, 3000 NVT steps in
      dispatches of 400 through the extended-grid pair kernel only;
  11. mesh EAM: the nc = 32 crystal (131,072 atoms) the same way, 2000
-     NVT steps through the two extended-grid EAM passes only.
+     NVT steps through the two extended-grid EAM passes only;
+ 12. mesh bilayer (run inside phase 6, from its 20 fs restart): the
+     100,296-bead bilayer through `ParallelSimulation` at (1,1,1), first
+     energy against the single-device Simulation's on the same restart,
+     2000 NPT steps (bonds, angles, RATTLE, in-kernel exclusions) through
+     the extended-grid pair kernel with exclusions only.
 
-Every main-path phase sets the launch counters to 0 just before it and
-reads them just after.  Prints the kernels' JSON line, the card line,
-and last {"ok": true, "device": {...}}.  --kernels-only stops after
-phase 3 and prints no result.
+Every main-path phase (and each entry-point call of TPU #3) sets the
+launch counters to 0 just before it and reads them just after.  Prints
+the kernels' JSON line, the card line, and last {"ok": true, "device":
+{...}}.  --kernels-only stops after phase 3 and prints no result.
 """
 
 import contextlib
@@ -72,6 +86,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -93,7 +108,7 @@ EAM_BIG_PLAN = ((11, 12, 12), 4, 29)    # its cells, G and union size U
 EAM_T = 300.0
 NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
-MESH_STEPS, MESH_EAM_STEPS = 3000, 2000
+MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 3000, 2000, 2000
 # the least time the card could take (H100 SXM peaks at 700 W): f32
 # outside the tensor cores, and HBM3
 PEAK_F32, PEAK_BW = 67e12, 3.35e12
@@ -200,12 +215,19 @@ def pad_p(out_p, out_q):
                                            ncell * cap - out_p.shape[0]))
 
 
-def per_slot(out_p, out_q, out_cell):
-    ncell, _, cap = out_q.shape
-    out_p = pad_p(out_p, out_q)
-    back = out_q.transpose(1, 2).reshape(ncell * cap, 8)
-    f = (out_p[:, :3] + back[:, :3]).double()
-    pe = (out_p[:, 3] + back[:, 3]).double()
+def per_slot(*outs):
+    """(f, pe per slot, e, virial6) of a pair kernel's outputs: (out_p,
+    out_q, out_cell) of a half-stencil kernel, (out_p, out_cell) of the
+    full-stencil kernel, which writes no q side."""
+    out_p, out_cell = outs[0], outs[-1]
+    f, pe = out_p[:, :3].double(), out_p[:, 3].double()
+    if len(outs) == 3:
+        out_q = outs[1]
+        ncell, _, cap = out_q.shape
+        out_p = pad_p(out_p, out_q)
+        back = out_q.transpose(1, 2).reshape(ncell * cap, 8)
+        f = (out_p[:, :3] + back[:, :3]).double()
+        pe = (out_p[:, 3] + back[:, 3]).double()
     return f, pe, out_cell[:, 0].double().sum(), out_cell[:, 1:7].double().sum(0)
 
 
@@ -220,11 +242,47 @@ def cell_view(args):
     return args[:4]
 
 
+def full_call(grid, args, kw, dev):
+    """The full-stencil call (TPU #3) on the records of a half-stencil
+    or column call's arguments: the same slots, L8, counts and tables
+    with `grid`'s 27-direction stencil (grid: the plan_lanes grid).
+    Returns (args, kw, hargs): hargs the per-cell half-stencil call (#1)
+    on the same records, which tests each unordered pair once."""
+    from ddcmd_tpu_torch.ops.cellpair import half_grid
+    from ddcmd_tpu_torch.ops.cellpair_full import self_index
+    from ddcmd_tpu_torch.ops.cellpair_half import pack_stencil
+
+    slots, _, L8, counts = cell_view(args)
+    rest = (L8, counts, *args[-3:])
+    fargs = (slots, torch.as_tensor(pack_stencil(grid), device=dev), *rest)
+    hargs = (slots, torch.as_tensor(pack_stencil(half_grid(grid)),
+                                    device=dev), *rest)
+    return fargs, dict(s_self=self_index(grid), krf=kw["krf"], crf=kw["crf"],
+                       keR=kw["keR"], coulomb=kw["coulomb"]), hargs
+
+
+def full_vs_half(name, fargs, fkw, hargs):
+    """#3 against #1 (no exclusions) on the same records: the same
+    physics, summed in another order, at the tolerances of agree()."""
+    from ddcmd_tpu_torch.ops import cellpair_full as cf
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+
+    hkw = {k: v for k, v in fkw.items() if k != "s_self"}
+    got = per_slot(*cf.cellpair_full(*fargs, **fkw))
+    ref = per_slot(*ch.cellpair_half(*hargs, **hkw))
+    torch.cuda.synchronize()
+    ferr, scale = agree(f"full vs half stencil: {name}", got, ref)
+    phase("kernel", f"full-stencil #3 vs half-stencil #1 on {name}: force "
+          f"err {ferr:.3g} (scale {scale:.4g}), e {float(got[2]):.8g} vs "
+          f"{float(ref[2]):.8g}")
+
+
 def sweep_work(slots, stencil, L8, counts):
     """(candidate pair tests, in-cutoff pairs) of one half-stencil sweep
     on these inputs, as the kernels trim it: counts[c] * counts[tgt]
-    candidates per (cell, direction), counts[c] (counts[c] - 1) / 2 in the
-    self block; in cutoff: both slots valid and 0 < d2 < rcut^2."""
+    candidates per (cell, direction), counts[c] (counts[c] - 1) / 2 in
+    the self block 0; in cutoff: both slots valid and 0 < d2 < rcut^2.
+    Each unordered pair is counted once."""
     n_prog, cap = stencil.shape[0], slots.shape[2]
     L8 = L8.reshape(-1)
     home = slots[:n_prog]
@@ -248,12 +306,16 @@ def sweep_work(slots, stencil, L8, counts):
     return cand, hits
 
 
-def bound(args, outs, ops_pair):
+def bound(args, outs, ops_pair, work=None):
     """(bound_ms, bound_by, candidates, in-cutoff pairs): the larger of
     the f32 operations these inputs need over PEAK_F32 and the bytes the
     call must move (each input read once, each output written once) over
-    PEAK_BW."""
-    cand, hits = sweep_work(*cell_view(args))
+    PEAK_BW.  The operations are those of a half-stencil sweep
+    (sweep_work) of `work`, a half-stencil call's arguments on the same
+    records (`args` by default): a full-stencil call computes the same
+    function, each pair tested from both sides, and its bound counts
+    each pair once."""
+    cand, hits = sweep_work(*cell_view(args if work is None else work))
     ops = OPS_TEST * cand + ops_pair * hits
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
                  if torch.is_tensor(t))
@@ -262,11 +324,11 @@ def bound(args, outs, ops_pair):
             "operations" if t_ops >= t_bytes else "bytes", cand, hits)
 
 
-def compare(name, kernel, plain, args, kw, with_bound=False):
+def compare(name, kernel, plain, args, kw, with_bound=False, work=None):
     """Kernel vs plain twin on the same CUDA tensors, at the tolerances
     of tests/test_pallas_cellpair.py; returns (max_abs_err of the force,
     ms per kernel call, ms per plain call, bound_ms, bound_by), the bound
-    None unless with_bound."""
+    None unless with_bound (its operations from `work`, see bound)."""
     outs = kernel(*args, **kw)
     got = per_slot(*outs)
     ref = per_slot(*plain(*args, **kw))
@@ -277,7 +339,8 @@ def compare(name, kernel, plain, args, kw, with_bound=False):
     bnd, by, text = None, None, ""
     if with_bound:
         bnd, by, cand, hits = bound(
-            args, outs, OPS_LJ + (OPS_RF if kw["coulomb"] else 0))
+            args, outs, OPS_LJ + (OPS_RF if kw["coulomb"] else 0),
+            work=work)
         text = (f"; bound {1e3 * bnd:.3f} us ({by}; {cand} candidate "
                 f"pairs, {hits} in cutoff)")
     phase("kernel", f"{name}: force err {ferr:.3g} (scale {scale:.4g}), "
@@ -653,6 +716,7 @@ def kernel_phase(dev):
     the main-path case of each kernel."""
     from ddcmd_tpu_torch.core.system import build_system
     from ddcmd_tpu_torch.models import load, martini_water
+    from ddcmd_tpu_torch.ops import cellpair_full as cf
     from ddcmd_tpu_torch.ops import cellpair_half as ch
     from ddcmd_tpu_torch.ops.cellpair_half import plan_lanes
     from ddcmd_tpu_torch.potentials.martini import martini_device_tables
@@ -660,6 +724,7 @@ def kernel_phase(dev):
 
     pair = (ch.cellpair_half, ch.cellpair_half_plain)
     col = (ch.cellpair_half_col, ch.cellpair_half_col_plain)
+    full = (cf.cellpair_full, cf.cellpair_full_plain)
     res = {}
     with tempfile.TemporaryDirectory() as d:
         martini_water(d, n=6173)
@@ -680,14 +745,24 @@ def kernel_phase(dev):
     res["cellpair_half"] = compare(
         "per-cell: waterbox 6173 beads, 80 cells, cap 128, T=1", *pair,
         args, kw, with_bound=True)
+    # TPU #3, the full stencil, on the same water records, and against #1
+    fa, fkw, ha = full_call(grid, args, kw, dev)
+    compare("full stencil: waterbox 6173 beads, 80 cells, cap 128, T=1",
+            *full, fa, fkw, with_bound=True, work=ha)
+    full_vs_half("the water slots", fa, fkw, ha)
     for n_syn, L_syn in ((800, 6.6), (220, 4.2), (60, 2.6)):
         r, q, tidx, tabs, rcut = synthetic(n_syn, L_syn)
         g = plan_lanes([L_syn] * 3, rcut, 0.3, n_syn)
         a = packed_inputs(r, q, tidx, [L_syn] * 3, g, tabs, dev)
-        compare(f"per-cell: charged T=2 n={n_syn} L={L_syn} cells "
-                f"{g.ncells}", *pair, a,
-                dict(krf=tabs["krf"], crf=tabs["crf"], keR=tabs["keR"],
-                     coulomb=True))
+        kwc = dict(krf=tabs["krf"], crf=tabs["crf"], keR=tabs["keR"],
+                   coulomb=True)
+        what = f"charged T=2 n={n_syn} L={L_syn} cells {g.ncells}"
+        compare(f"per-cell: {what}", *pair, a, kwc)
+        if 2 in g.ncells:
+            # #3 where -1 and +1 reach one cell through two images
+            fa, fkw, ha = full_call(g, a, kwc, dev)
+            compare(f"full stencil: {what} (2-cell axes)", *full, fa, fkw)
+            full_vs_half(what, fa, fkw, ha)
 
     # (a) per-cell kernel with exclusions on a small bilayer
     with tempfile.TemporaryDirectory() as d:
@@ -725,7 +800,15 @@ def kernel_phase(dev):
     phase("kernel", f"column vs per-cell kernel on the full bilayer slots: "
           f"force err {ferr:.3g} (scale {scale:.4g}); per-cell kernel "
           f"{1e3 * ms_cell:.2f} us/call")
-    del sim, a, cell_args
+    # (e) TPU #3 on the full bilayer's records (it has no exclusions:
+    # rows 6-7 are not read), and against #1 without exclusions there
+    fa, fkw, ha = full_call(sim.grid, a, kw, dev)
+    res["cellpair_full"] = compare(
+        f"full stencil: full bilayer {sim.sysdef.state.n_local} beads, "
+        f"cells {sim.grid.ncells}, cap {hg.cap}, T={a[-1].shape[0]}, "
+        f"Coulomb", *full, fa, fkw, with_bound=True, work=ha)
+    full_vs_half("the full bilayer slots", fa, fkw, ha)
+    del sim, a, cell_args, fa, ha
 
     # (c) the column kernel on a charged grid with nz == G
     r, q, tidx, tabs, rcut = synthetic(6173, 9.4)
@@ -740,11 +823,76 @@ def kernel_phase(dev):
     return res
 
 
-def brick_inputs(r, q, tidx, L, shape, idx3, rcut, skin, rcut2, dev):
+def full_entry_phase(dev, counters_zero, all_counters):
+    """TPU #3 through its entry point, its main path (no simulate path
+    reaches it): make_cellpair_full + cellpair_eval_full on the water
+    box's and the full bilayer's start states, every launch counter set
+    to 0 just before each call and read just after; the result held
+    against cellpair_eval_half (#1 without exclusions) on the same state
+    at the tolerances of agree().  Returns #3's launches."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.ops.cellpair import half_grid
+    from ddcmd_tpu_torch.ops.cellpair_full import (cellpair_eval_full,
+                                                   make_cellpair_full)
+    from ddcmd_tpu_torch.ops.cellpair_half import (cellpair_eval_half,
+                                                   grid_tensors, pack_stencil)
+    from ddcmd_tpu_torch.potentials.martini import martini_device_tables
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    launches = 0
+    for name, make_deck in (
+            ("water box", lambda d: water_deck(d, 6173, 100)),
+            ("full bilayer", lambda d: bilayer_deck(d, BILAYER_NX, EQ_DT,
+                                                    200))):
+        with tempfile.TemporaryDirectory() as d:
+            make_deck(d)
+            sim = Simulation(*load(d), run_dir=d, device=dev)
+        ss, perm, ov = sim._build_nbr(sim.ss)
+        assert not bool(ov), "overflow packing the entry-point case"
+        st, sd = ss.state, sim.sysdef
+        parms = next(p[2] for p in sd.potentials if p[0] == "MARTINI")
+        tables = martini_device_tables(parms, device=dev)
+        tidx = torch.as_tensor(parms.species_lj_type, device=dev)[st.species]
+        coul = bool(st.q.abs().max() > 0)
+        grid = sim.grid
+        stencil = torch.as_tensor(pack_stencil(grid), device=dev)
+        eval_fn = make_cellpair_full(grid, tables, coulomb=coul)
+        counters_zero()
+        f, e, vir, pe = cellpair_eval_full(st.r, st.q, tidx, perm,
+                                           ss.box.lengths, grid, tables,
+                                           stencil, eval_fn)
+        torch.cuda.synchronize()
+        c = all_counters()
+        assert c["cellpair_full"] == 1 and sum(c.values()) == 1, c
+        launches += c["cellpair_full"]
+        hg = half_grid(grid)
+        ref = cellpair_eval_half(st.r, st.q, tidx, perm, ss.box.lengths, hg,
+                                 tables, grid_tensors(hg, dev), coulomb=coul)
+        v6 = lambda v: torch.stack([v[0, 0], v[1, 1], v[2, 2], v[0, 1],  # noqa: E731
+                                    v[0, 2], v[1, 2]]).double()
+        ok = torch.isfinite(f).all() and torch.isfinite(e)
+        assert ok, f"{name}: non-finite entry-point result"
+        ferr, scale = agree(f"entry point on the {name}",
+                            (f.double(), pe.double(), e.double(), v6(vir)),
+                            (ref[0].double(), ref[3].double(),
+                             ref[1].double(), v6(ref[2])))
+        phase("full-entry", f"cellpair_eval_full on the {name} "
+              f"({st.n_local} particles, cells {grid.ncells}, cap "
+              f"{grid.cap}, T={tables['sigma'].shape[0]}, Coulomb {coul}): "
+              f"e {float(e):.8g} vs half-stencil {float(ref[1]):.8g}, "
+              f"force err {ferr:.3g} (scale {scale:.4g}); #3 launched "
+              f"{c['cellpair_full']} time(s), no other kernel")
+        del sim, ss, st
+    return launches
+
+
+def brick_inputs(r, q, tidx, L, shape, idx3, rcut, skin, rcut2, dev,
+                 ex=None):
     """One brick's extended-grid call of a `shape` plan, as the mesh step
     packs it: the rows whose brick-frame fraction lies in brick idx3's
     core or halo shell (so the halo cells are filled), binned and packed
-    on the card.  Returns (plan, (slots, stencil, L8, counts))."""
+    on the card, with the exclusion channels `ex` (n, 2) when given.
+    Returns (plan, (slots, stencil, L8, counts))."""
     from ddcmd_tpu_torch.parallel import shard_cells as sc
 
     cp = sc.plan_shard_cells(L, shape, rcut, skin, len(r))
@@ -760,11 +908,35 @@ def brick_inputs(r, q, tidx, L, shape, idx3, rcut, skin, rcut2, dev):
     perm, counts, ov = sc.bin_pool_ext(u, inside, cp)
     assert not bool(ov), "overflow packing the comparison case"
     span_cart = geom[1] * Lv
-    slots = sc.pack_slots_ext(u, torch.tensor(q, device=dev),
-                              torch.tensor(tidx, device=dev), perm,
-                              span_cart, cp)
+    slots = sc.pack_slots_ext(
+        u, torch.tensor(q, device=dev), torch.tensor(tidx, device=dev), perm,
+        span_cart, cp, None if ex is None else torch.tensor(ex, device=dev))
     return cp, (slots, torch.as_tensor(cp.stencil_packed, device=dev),
                 sc.ext_L8(span_cart, cp, rcut2), counts)
+
+
+def bilayer_arrays(nx, dev):
+    """The nx bilayer deck's start state on the host: positions in the
+    box, charges, LJ types, exclusion channels (run/forces.
+    _excl_channels), box lengths, rcut and skin, and the Martini kernel
+    tables on `dev` (T = 5, reaction field)."""
+    from ddcmd_tpu_torch.core.system import build_system
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.potentials.martini import martini_device_tables
+    from ddcmd_tpu_torch.run.forces import _excl_channels
+
+    with tempfile.TemporaryDirectory() as d:
+        bilayer_deck(d, nx, EQ_DT, 200)
+        sd = build_system(load(d)[0], d)
+    n = sd.state.n_local
+    parms = sd.potentials[0][2]
+    return dict(r=sd.box.back_in_box(sd.state.r)[:n].numpy(),
+                q=sd.state.q[:n].numpy(),
+                tidx=parms.species_lj_type[sd.state.species[:n].numpy()],
+                ex=_excl_channels(sd.bonded.exclusions, n),
+                L=sd.box.lengths.numpy().astype(np.float64),
+                rcut=sd.rcut_max, skin=sd.neighbor_deltaR,
+                tables=martini_device_tables(parms, device=dev))
 
 
 def sentinel_zero(name, out_q):
@@ -855,7 +1027,40 @@ def ext_kernel_phase(dev):
             f"{n} beads, ncore "
             f"{cp.ncore} (2-cell periodic y and z)", *ext, (*a, *t3), kwc)
 
-    # (d) EAM: the (1,1,1) nc = 32 plan, then a brick of a (2,2,2) plan at
+    # (d) #6 with exclusions: the full bilayer's (1,1,1) plan, then one
+    # brick of a (2,2,2) plan of the nx = 8 bilayer
+    with tempfile.TemporaryDirectory() as d:
+        bilayer_deck(d, BILAYER_NX, EQ_DT, 200)
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+    kernel, args, kw = ps.step_fn.kernel_inputs(ps.fields, ps.mask)
+    cp = ps.cplan
+    assert kernel is ch.cellpair_half_ext and kw["excl"], kw
+    res["cellpair_half_ext_excl"] = compare(
+        f"extended grid (1,1,1) + exclusions: full bilayer "
+        f"{ps.sysdef.state.n_local} beads, {cp.n_prog} core cells "
+        f"{cp.ncore} + sentinel, cap {cp.cap}, T={args[-1].shape[0]}, "
+        f"Coulomb", *ext, args, kw, with_bound=True)
+    sentinel_zero("extended grid (1,1,1) + exclusions",
+                  kernel(*args, **kw)[1])
+    del ps, args
+    b = bilayer_arrays(SMALL_NX, dev)
+    t5 = [b["tables"][k] for k in ("sigma", "eps", "shift")]
+    kwx = dict(krf=b["tables"]["krf"], crf=b["tables"]["crf"],
+               keR=b["tables"]["keR"], coulomb=True, excl=True)
+    cp, a = brick_inputs(b["r"], b["q"], b["tidx"], b["L"], (2, 2, 2),
+                         (1, 1, 0), b["rcut"], b["skin"],
+                         b["tables"]["rcut2"], dev, ex=b["ex"])
+    halo = int(a[3][cp.n_prog:-1].sum())
+    assert halo > 0 and int(a[3][-1]) == 0, (halo, int(a[3][-1]))
+    assert a[0][:, 6].any(), "no exclusion channels in the records"
+    compare(f"extended grid + exclusions, brick (1,1,0) of (2,2,2): bilayer "
+            f"nx={SMALL_NX} {len(b['r'])} beads, ncore {cp.ncore}, "
+            f"{cp.n_slot} slot cells, {int(a[3][:cp.n_prog].sum())} core + "
+            f"{halo} halo beads, T=5, Coulomb", *ext, (*a, *t5), kwx)
+    sentinel_zero("extended grid + exclusions (2,2,2) brick",
+                  ch.cellpair_half_ext(*a, *t5, **kwx)[1])
+
+    # (e) EAM: the (1,1,1) nc = 32 plan, then a brick of a (2,2,2) plan at
     # the copper density
     eam_ext = ((eh.eam_rho_half_ext, eh.eam_force_half_ext),
                (eh.eam_rho_half_plain, eh.eam_force_half_plain))
@@ -921,7 +1126,8 @@ def mesh_phases(card, dev, counters_zero, counters, single_rates):
         n = ps.sysdef.state.n_local
         assert ps.loop == steps and int(ps.mask.sum()) == n
         loops = np.array([int(ln.split()[0]) for ln in lines])
-        temps = np.array([float(ln.split("T=")[1]) for ln in lines])
+        temps = np.array([float(ln.split("T=")[1].split()[0])
+                          for ln in lines])
         epot = np.array([float(ln.split("epot/N=")[1].split()[0])
                          for ln in lines])
         assert np.isfinite(temps).all() and np.isfinite(epot).all(), \
@@ -940,6 +1146,70 @@ def mesh_phases(card, dev, counters_zero, counters, single_rates):
               f"unsharded, bench.py:307-308; not gated) on {card}")
         del ps
     return launches
+
+
+def mesh_bilayer_phase(card, dev, d, counters_zero, all_counters,
+                       single_rate):
+    """Phase 12: the full bilayer through ParallelSimulation at (1,1,1)
+    from phase 6's 20 fs restart in `d`: first energy against the
+    single-device Simulation's on the same restart, then MESH_BL_STEPS
+    NPT steps through #6 with exclusions only.  Returns #6-excl's
+    launches."""
+    from ddcmd_tpu_torch.integrators.constraints import constraint_residual
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    restart = os.path.join(d, "restart")
+    sim = Simulation(*load(d, restart), run_dir=d, device=dev)
+    sim.first_energy()
+    e1 = float(sim.ss.energy.eion)
+    del sim
+    ps = ParallelSimulation(*load(d, restart), shape=(1, 1, 1), device=dev)
+    e_mesh = ps.first_energy()
+    rel = abs(e_mesh - e1) / abs(e1)
+    assert rel <= 2e-5, f"mesh bilayer first energy {e_mesh} vs {e1}"
+    L0 = ps.Lv.cpu().numpy().astype(np.float64)
+    lines = []
+    loop0 = ps.loop
+    counters_zero()
+    ps.run(MESH_BL_STEPS, print_fn=lines.append,
+           max_steps_per_dispatch=DISPATCH)
+    c = all_counters()
+    steps = MESH_BL_STEPS
+    assert c["cellpair_half_ext_excl"] >= steps, c
+    assert c["cellpair_half_ext"] == c["cellpair_half_ext_excl"], c
+    assert not any(v for k, v in c.items()
+                   if k not in ("cellpair_half_ext",
+                                "cellpair_half_ext_excl")), c
+    n = ps.sysdef.state.n_local
+    assert ps.loop == loop0 + steps and int(ps.mask.sum()) == n
+    loops = np.array([int(ln.split()[0]) for ln in lines])
+    temps = np.array([float(ln.split("T=")[1].split()[0]) for ln in lines])
+    assert np.isfinite(temps).all(), "non-finite scalars"
+    temp = float(temps[loops > loop0 + steps - TAIL].mean())
+    assert abs(temp - BILAYER_T) <= TEMP_TOL, f"mesh bilayer mean T {temp}"
+    L1 = ps.Lv.cpu().numpy().astype(np.float64)
+    assert np.isfinite(L1).all() and (np.abs(L1 / L0 - 1.0) <= 0.2).all(), \
+        (L0, L1)
+    bt = ps.sysdef.bonded
+    resid = constraint_residual(
+        SimpleNamespace(r=ps.gather_by_gid(("r",))["r"]), bt.cons_atoms,
+        bt.cons_pairs, bt.cons_dist, box_lengths=L1)
+    assert resid < 5e-3, f"mesh bilayer RATTLE residual {resid}"
+    rate, tail = tail_rate(ps)
+    cp = ps.cplan
+    phase("mesh", f"bilayer at (1,1,1): {n} beads, ncore {cp.ncore} cap "
+          f"{cp.cap}, chunk {ps.chunk_steps} steps; first energy "
+          f"{e_mesh:.8g} vs single-device {e1:.8g} (rel {rel:.2g}) on the "
+          f"20 fs restart; {steps} NPT steps (dispatch {DISPATCH}): box "
+          f"{L0.round(4).tolist()} -> {L1.round(4).tolist()} nm, mean T "
+          f"{temp:.2f} K over the last {TAIL} steps, RATTLE residual "
+          f"{resid:.3g}, #6 with exclusions launched "
+          f"{c['cellpair_half_ext_excl']} times, {rate:.1f} steps/s over the "
+          f"last {tail} steps vs single-device {single_rate:.1f} (stage 2, "
+          f"same call) on {card}")
+    return c["cellpair_half_ext_excl"]
 
 
 def eam_slice_phases(card, counters_zero, counters, eam_counters):
@@ -1026,6 +1296,7 @@ def main(argv=None):
     import ddcmd_tpu_torch  # noqa: F401  (pins TF32 off)
     from ddcmd_tpu_torch.integrators.constraints import constraint_residual
     from ddcmd_tpu_torch.io.restart import write_checkpoint
+    from ddcmd_tpu_torch.ops import cellpair_full as cf
     from ddcmd_tpu_torch.ops import cellpair_half as ch
     from ddcmd_tpu_torch.ops import eam_half as eh
     from ddcmd_tpu_torch.ops.cellpair_half import build_kernels
@@ -1046,19 +1317,14 @@ def main(argv=None):
         phase("build", f"{name}.cu -> {os.path.relpath(lib)}; ptxas: {ptxas}")
     phase("build", f"{len(libs)} sources in parallel in {build_s:.2f} s")
 
-    res = kernel_phase(dev)
-    res.update(eam_kernel_phase(dev))
-    res.update(ext_kernel_phase(dev))
-    if "--kernels-only" in argv:
-        return
-
     counted = (ch.cellpair_half, ch.cellpair_half_col, eh.eam_rho_half,
                eh.eam_force_half, eh.eam_rho_half_col, eh.eam_force_half_col,
                ch.cellpair_half_ext, eh.eam_rho_half_ext,
-               eh.eam_force_half_ext)
+               eh.eam_force_half_ext, cf.cellpair_full)
 
     def counters_zero():
         ch.cellpair_half.launches_excl = 0
+        ch.cellpair_half_ext.launches_excl = 0
         for k in counted:
             k.launches = 0
 
@@ -1072,17 +1338,27 @@ def main(argv=None):
         return tuple(k.launches for k in counted[2:6])
 
     def ext_counters():
-        """(pair, rho, force) launches of the extended-grid kernels"""
+        """(pair, rho, force) launches of the extended-grid kernels, and
+        the full-stencil kernel's"""
         return tuple(k.launches for k in counted[6:])
 
     def all_counters():
         """{kernels JSON entry: launches} of every counted kernel"""
         names = ("cellpair_half", "cellpair_half_col", "eam_rho",
                  "eam_force", "eam_rho_col", "eam_force_col",
-                 "cellpair_half_ext", "eam_rho_ext", "eam_force_ext")
-        return dict(zip(names, (k.launches for k in counted)))
+                 "cellpair_half_ext", "eam_rho_ext", "eam_force_ext",
+                 "cellpair_full")
+        return dict(zip(names, (k.launches for k in counted)),
+                    cellpair_half_excl=ch.cellpair_half.launches_excl,
+                    cellpair_half_ext_excl=ch.cellpair_half_ext.launches_excl)
 
-    launches = {}
+    res = kernel_phase(dev)
+    res.update(eam_kernel_phase(dev))
+    res.update(ext_kernel_phase(dev))
+    launches = {"cellpair_full": full_entry_phase(dev, counters_zero,
+                                                  all_counters)}
+    if "--kernels-only" in argv:
+        return
     # --- phase 4: the water slice through the CLI ---------------------------
     with tempfile.TemporaryDirectory() as d:
         deck = water_deck(d, 6173, printrate=10)
@@ -1150,31 +1426,38 @@ def main(argv=None):
                        "--run-dir", run_dir])
         n_all, n_excl, n_col = counters()
         rows = read_rows(run_dir)
-    sd = sim.sysdef
-    assert sim.ss.loop == EQ_STEPS + RUN_STEPS, sim.ss.loop
-    assert np.isfinite(rows).all(), "non-finite printinfo row"
-    assert n_col >= RUN_STEPS, counters()
-    launches["cellpair_half_col"] = n_col
-    L0 = sd.box.lengths.cpu().numpy().astype(np.float64)
-    L1 = sim.ss.box.lengths.cpu().numpy().astype(np.float64)
-    assert np.allclose(L0, L_eq, rtol=1e-6), (L0, L_eq)
-    assert np.isfinite(L1).all() and (np.abs(L1 / L0 - 1.0) <= 0.2).all(), (L0, L1)
-    temp = float(rows[rows[:, 0] > EQ_STEPS + RUN_STEPS - TAIL][:, 5].mean())
-    assert abs(temp - BILAYER_T) <= TEMP_TOL, f"mean T over the last {TAIL}: {temp}"
-    bt = sd.bonded
-    resid = constraint_residual(sim.ss.state, bt.cons_atoms, bt.cons_pairs,
-                                bt.cons_dist, box_lengths=L1)
-    assert resid < 5e-3, f"RATTLE residual {resid}"
-    rate, steps = tail_rate(sim)
-    phase("bilayer", f"stage 2: {sd.state.n_local} beads, {RUN_STEPS} NPT "
-          f"steps at dt=20 fs from the restart (dispatch {DISPATCH}): "
-          f"cells {sim.grid.ncells} G={sim.force_fn.terms[0].G} "
-          f"cap {sim.grid.cap}; stale redos {sim.redos['stale']}, overflow "
-          f"replans {sim.redos['overflow']}; box {L0.round(4).tolist()} -> "
-          f"{L1.round(4).tolist()} nm; mean T {temp:.2f} K over the last "
-          f"{TAIL} steps; Etot/bead {rows[-1, 2]:.6f} eV; RATTLE residual "
-          f"{resid:.3g}; column kernel launches {n_col}; {rate:.2f} steps/s "
-          f"over the last {steps} steps on {card}")
+        sd = sim.sysdef
+        assert sim.ss.loop == EQ_STEPS + RUN_STEPS, sim.ss.loop
+        assert np.isfinite(rows).all(), "non-finite printinfo row"
+        assert n_col >= RUN_STEPS, counters()
+        launches["cellpair_half_col"] = n_col
+        L0 = sd.box.lengths.cpu().numpy().astype(np.float64)
+        L1 = sim.ss.box.lengths.cpu().numpy().astype(np.float64)
+        assert np.allclose(L0, L_eq, rtol=1e-6), (L0, L_eq)
+        assert np.isfinite(L1).all() and \
+            (np.abs(L1 / L0 - 1.0) <= 0.2).all(), (L0, L1)
+        tail = rows[rows[:, 0] > EQ_STEPS + RUN_STEPS - TAIL]
+        temp = float(tail[:, 5].mean())
+        assert abs(temp - BILAYER_T) <= TEMP_TOL, \
+            f"mean T over the last {TAIL}: {temp}"
+        bt = sd.bonded
+        resid = constraint_residual(sim.ss.state, bt.cons_atoms, bt.cons_pairs,
+                                    bt.cons_dist, box_lengths=L1)
+        assert resid < 5e-3, f"RATTLE residual {resid}"
+        rate, steps = tail_rate(sim)
+        phase("bilayer", f"stage 2: {sd.state.n_local} beads, {RUN_STEPS} NPT "
+              f"steps at dt=20 fs from the restart (dispatch {DISPATCH}): "
+              f"cells {sim.grid.ncells} G={sim.force_fn.terms[0].G} "
+              f"cap {sim.grid.cap}; stale redos {sim.redos['stale']}, "
+              f"overflow replans {sim.redos['overflow']}; box "
+              f"{L0.round(4).tolist()} -> "
+              f"{L1.round(4).tolist()} nm; mean T {temp:.2f} K over the last "
+              f"{TAIL} steps; Etot/bead {rows[-1, 2]:.6f} eV; RATTLE residual "
+              f"{resid:.3g}; column kernel launches {n_col}; {rate:.2f} "
+              f"steps/s over the last {steps} steps on {card}")
+        # --- phase 12: the same restart through the mesh at (1,1,1) --------
+        launches["cellpair_half_ext_excl"] = mesh_bilayer_phase(
+            card, dev, d, counters_zero, all_counters, rate)
 
     eam_launches, single_rates["eam"] = eam_slice_phases(
         card, counters_zero, counters, eam_counters)
@@ -1228,6 +1511,8 @@ def main(argv=None):
         "eam_rho_col": ("eam_half_col.cu", f"{eam}:363"),
         "eam_force_col": ("eam_half_col.cu", f"{eam}:411"),
         "cellpair_half_ext": ("cellpair_half.cu", f"{shard}:361"),
+        "cellpair_half_ext_excl": ("cellpair_half.cu", f"{shard}:361"),
+        "cellpair_full": ("cellpair_full.cu", f"{cellpair}:389"),
         "eam_rho_ext": ("eam_half.cu", f"{shard}:434"),
         "eam_force_ext": ("eam_half.cu", f"{shard}:434"),
     }

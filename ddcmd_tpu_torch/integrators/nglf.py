@@ -51,6 +51,23 @@ class StepState:
         return dataclasses.replace(self, **kw)
 
 
+def barostat_lambda(vir_diag, volume, barostat: dict, dt: float):
+    """Berendsen per-axis scale lam = cbrt(1 + (P - P0) beta dt / tau)
+    (changeVolume, nglfconstraint.c:64-85) from the diagonal of the
+    (molecular) virial and the volume: the pressure tensor's diagonal is
+    (vir_aa + N_mol kB T) / V at the target T.  Isotropic, or
+    semi-anisotropic (Pxx and Pyy averaged, Pzz separate).  The one
+    formula of the single-device step (barostat_scale) and the mesh step
+    (parallel/brickstep_cells)."""
+    p = ((vir_diag + barostat["n_molecules"] * barostat["T"] * U.kB)
+         / volume - barostat["P0"])
+    btt = barostat["beta"] * dt / barostat["tau"]
+    if barostat["isotropic"]:
+        return torch.pow(1.0 + p.sum() / 3.0 * btt, 1.0 / 3.0).expand(3)
+    pxx = 0.5 * (p[0] + p[1])
+    return torch.pow(1.0 + torch.stack([pxx, pxx, p[2]]) * btt, 1.0 / 3.0)
+
+
 def barostat_scale(state, box, virial, barostat: dict, dt: float,
                    molecular_virial_fn: Callable | None = None):
     """Berendsen box rescale at the start of a step (changeVolume,
@@ -59,19 +76,7 @@ def barostat_scale(state, box, virial, barostat: dict, dt: float,
     the pressure tensor uses the molecular virial and the target T."""
     if molecular_virial_fn is not None:
         virial = molecular_virial_fn(state, box, virial)
-    kT = barostat["T"] * U.kB
-    eye = torch.eye(3, dtype=virial.dtype, device=virial.device)
-    p_tensor = ((virial + barostat["n_molecules"] * kT * eye) / box.volume
-                - barostat["P0"] * eye)
-    btt = barostat["beta"] * dt / barostat["tau"]
-    if barostat["isotropic"]:
-        p_iso = torch.trace(p_tensor) / 3.0
-        lam = torch.pow(1.0 + p_iso * btt, 1.0 / 3.0).expand(3)
-    else:
-        # semi-anisotropic: Pxx and Pyy averaged, Pzz separate
-        pxx = 0.5 * (p_tensor[0, 0] + p_tensor[1, 1])
-        lam = torch.pow(1.0 + torch.stack([pxx, pxx, p_tensor[2, 2]]) * btt,
-                        1.0 / 3.0)
+    lam = barostat_lambda(torch.diagonal(virial), box.volume, barostat, dt)
     return state.replace(r=state.r * lam), box.scale(lam)
 
 

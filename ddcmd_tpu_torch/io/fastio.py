@@ -1,7 +1,8 @@
 """ctypes binding for the native record codec.
 
-The C source is the JAX package's `ddcmd_tpu/native/recio.c`, read by
-file path (importing `ddcmd_tpu` would import jax).  It is compiled
+The C source is the port's own copy of the JAX package's codec,
+`ddcmd_tpu_torch/csrc/recio.c`: the port reads no file of the JAX
+package.  It is compiled
 with the host C compiler on first use into `ddcmd_tpu_torch/_build/`;
 every caller falls back to the pure-Python path when the toolchain or
 the source is unavailable, so the native layer is an accelerator, never
@@ -26,7 +27,7 @@ _tried = False
 
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "ddcmd_tpu", "native", "recio.c")
+_SRC = os.path.join(_PKG, "csrc", "recio.c")
 _BUILD = os.path.join(_PKG, "_build")
 
 

@@ -16,8 +16,9 @@ pack, run the kernel the plan picks, scatter the per-slot results back to
 particles.
 
 The kernels are hand-written CUDA (csrc/cellpair_half.cu,
-csrc/cellpair_half_col.cu; the EAM kernels of ops/eam_half.py build
-here too), compiled with nvcc on first use into
+csrc/cellpair_half_col.cu; the full-stencil kernel of
+ops/cellpair_full.py and the EAM kernels of ops/eam_half.py build here
+too), compiled with nvcc on first use into
 `ddcmd_tpu_torch/_build/` (one nvcc process per source, started
 together) and loaded with ctypes; nothing is compiled or imported for
 them when this module loads.  On a CPU tensor a wrapper runs its plain
@@ -50,8 +51,8 @@ _BUILD = os.path.join(_PKG, "_build")
 # kernel name -> CUDA source; each builds into _build/lib<name>.so
 KERNEL_SOURCES = {
     name: os.path.join(_PKG, "csrc", name + ".cu")
-    for name in ("cellpair_half", "cellpair_half_col", "eam_half",
-                 "eam_half_col")}
+    for name in ("cellpair_half", "cellpair_half_col", "cellpair_full",
+                 "eam_half", "eam_half_col")}
 # headers the sources include (a newer header rebuilds every library)
 KERNEL_HEADERS = [os.path.join(_PKG, "csrc", "eam_forms.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -456,6 +457,10 @@ _ARGTYPES = {
     "cellpair_half_col": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                           + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                           + [ctypes.c_void_p]),
+    # pointers..., ints (ncell cap S s_self T), floats, coulomb, stream
+    "cellpair_full": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                      + [ctypes.c_float] * 3 + [ctypes.c_int]
+                      + [ctypes.c_void_p]),
     # pointers..., ints (shape, npar, degree, form, force), stream
     "eam_half": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "eam_half_col": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
@@ -597,7 +602,8 @@ def cellpair_half_ext(slots, stencil, L8, counts, sigma, eps, shift, *,
     Returns (p side (n_prog*cap, 4) [f, pe], accumulated q side (n_slot,
     8, cap), per-core-cell (n_prog, 8) [e, virial6]).  A CPU tensor runs
     cellpair_half_plain; a CUDA tensor launches the kernel (counted in
-    `cellpair_half_ext.launches`) or raises."""
+    `cellpair_half_ext.launches`, and in `cellpair_half_ext.launches_excl`
+    when excl) or raises."""
     n_prog, n_slot, cap = check_ext(slots, stencil, counts)
     _, _, T = _check_common(slots, L8, counts, sigma, eps, shift)
     kw = dict(krf=krf, crf=crf, keR=keR, coulomb=coulomb, excl=excl)
@@ -622,10 +628,13 @@ def cellpair_half_ext(slots, stencil, L8, counts, sigma, eps, shift, *,
     if err != 0:
         raise RuntimeError(f"cellpair_half_ext launch failed: CUDA error {err}")
     cellpair_half_ext.launches += 1
+    if excl:
+        cellpair_half_ext.launches_excl += 1
     return out_p, out_q, out_cell
 
 
 cellpair_half_ext.launches = 0
+cellpair_half_ext.launches_excl = 0
 
 
 def col_smem_bytes(U: int, cap: int, T: int, excl: bool) -> int:

@@ -1,0 +1,116 @@
+"""Sharded bonded terms: gid-keyed covalent topology on a rank mesh.
+
+Counterpart of ddcmd_tpu/parallel/bonded_shard.py (the reference keeps
+covalent term lists on every rank and its MOLECULE ddcRule keeps whole
+molecules on one rank, ddcRuleMolecule.c:43; each rank evaluates the
+terms whose atoms it owns).  The per-term parameters are row-independent
+constants, so the term lists ride along on every rank keyed by global
+id; each rank resolves gids to its local + ghost pool rows (a stable
+argsort of the pool gids and searchsorted: a pure gather, no
+communication) once per rebuild, and weights each term by whether this
+rank owns it.  Molecule-coherent migration (parallel/brick.py, the head
+bead's position decides) makes every owned term's atoms present.
+
+Keys: a gid is one int64 (parallel/brick.gid64, which also keys the
+JAX package's (n, 2) [lo, hi] layout as lo + (hi << 32), its pack_gid).
+torch always has int64, so the JAX package's gate on gids above 2^31
+without x64 (its bonded_gid_tables) has no counterpart here.
+
+Terms resolve per residue type (resolve_batched, on a
+build_batched_bonded(gid=...) plan).  The JAX package's per-term
+resolver (bonded_gid_tables, leftover_gid_tables, resolve_terms) serves
+junction terms that cross residue instances; build_batched_bonded
+raises for those (ROADMAP queue 1, item 12), so it has no counterpart
+here yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+def _sorted_pool(pool_gid64, pool_mask):
+    """(order, sorted keys) of the pool gids, masked rows keyed past every
+    gid.  The argsort is stable, so among equal gids the lowest pool row
+    (a local row before its ghost images) is found first, as in the JAX
+    package."""
+    big = torch.iinfo(torch.int64).max
+    keyed = torch.where(pool_mask, pool_gid64,
+                        torch.full_like(pool_gid64, big))
+    order = torch.argsort(keyed, stable=True)
+    return order, keyed[order]
+
+
+def _lookup(order, sg, g):
+    """(rows, found) of gids `g` (any shape) in the sorted pool."""
+    n_pool = sg.shape[0]
+    pos = torch.searchsorted(sg, g.reshape(-1)).clamp(0, n_pool - 1)
+    pos = pos.reshape(g.shape)
+    return order[pos], sg[pos] == g
+
+
+def resolve_batched(plan: dict, pool_gid64, pool_mask, local_cap: int):
+    """Per rank: each residue type's (M, A) instance gids (a plan built
+    with build_batched_bonded(gid=...) or build_constraint_templates) ->
+    pool rows.  An instance is owned iff all its atoms resolve and its
+    first atom is a local row.  Returns a list aligned with plan["types"]
+    of (rows (M*A,) int64 [missing -> n_pool], w (M,) f32)."""
+    order, sg = _sorted_pool(pool_gid64, pool_mask)
+    n_pool = sg.shape[0]
+    out = []
+    for tp in plan["types"]:
+        rows, found = _lookup(order, sg, tp["gids"])
+        owned = found.all(dim=-1) & (rows[:, 0] < local_cap)
+        rows = torch.where(found, rows, torch.full_like(rows, n_pool))
+        out.append((rows.reshape(-1), owned.to(torch.float32)))
+    return out
+
+
+def constraint_gid_tables(bt, gid, device="cpu"):
+    """Host side: gid-keyed constraint groups, dict(cons_gids (G, m)
+    int64 [pad -> -1], cons_pairs, cons_dist), or None without
+    constraints."""
+    if bt.cons_atoms is None or bt.n_constraints == 0:
+        return None
+    gid = np.asarray(gid, np.int64)
+    ca = np.asarray(bt.cons_atoms)
+    cg = np.where(ca >= 0, gid[np.clip(ca, 0, len(gid) - 1)], -1)
+    return dict(cons_gids=torch.as_tensor(cg, device=device),
+                cons_pairs=np.asarray(bt.cons_pairs),
+                cons_dist=np.asarray(bt.cons_dist))
+
+
+def resolve_constraints(cons_gids, pool_gid64, pool_mask, local_cap: int):
+    """Per rank: (G, m) gid-keyed groups -> rows.  A group is owned iff
+    every non-pad atom resolves to a LOCAL row, it has at least one, and
+    its first atom is local.  Returns (atoms (G, m) int64 [pad or missing
+    -> n_pool], group_w (G,) f32)."""
+    order, sg = _sorted_pool(pool_gid64, pool_mask)
+    n_pool = sg.shape[0]
+    pad = cons_gids < 0
+    rows, found = _lookup(order, sg, cons_gids)
+    found = found & ~pad
+    local = found & (rows < local_cap)
+    owned = (local | pad).all(dim=-1) & local.any(dim=-1) & local[:, 0]
+    atoms = torch.where(local, rows, torch.full_like(rows, n_pool))
+    return atoms, owned.to(torch.float32)
+
+
+def molecule_gid_tables(mol, gid, device="cpu"):
+    """Gid-keyed membership of the multi-bead molecules for the sharded
+    molecular virial (molecularPressure.c:22-67): dict(mol_gids (M, A)
+    int64 [pad -> -1]), or None when no molecule has more than one bead
+    (single-bead molecules contribute nothing and are dropped)."""
+    if mol is None or mol.is_trivial:
+        return None
+    amask = np.asarray(mol.atom_mask)
+    nz = amask.sum(axis=1) > 1.0
+    if not nz.any():
+        return None
+    gid = np.asarray(gid, np.int64)
+    rows = np.asarray(mol.atom_rows)[nz]
+    amask = amask[nz]
+    A = int(np.count_nonzero(amask, axis=1).max())
+    mg = np.where(amask[:, :A] > 0,
+                  gid[np.clip(rows[:, :A], 0, len(gid) - 1)], -1)
+    return dict(mol_gids=torch.as_tensor(mg, device=device))

@@ -11,9 +11,12 @@ both windows to its one neighbour (parallel/mesh.BrickMesh.exchange
 tells them apart).
 
 Positions are GLOBAL origin-centred coordinates; ownership and halo
-windows live in fractional coordinates s = r / L.  Load-balanced walls,
-Voronoi domains, molecule-coherent migration and triclinic boxes raise
-NotImplementedError naming their ROADMAP item.
+windows live in fractional coordinates s = r / L.  With an `hgid` field
+(the gid of each particle's molecule head bead) migration and the
+initial distribution are molecule-coherent: the head bead's position
+decides for the whole molecule (the reference's MOLECULE ddcRule,
+ddcRuleMolecule.c:43).  Load-balanced walls, Voronoi domains and
+triclinic boxes raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -175,14 +178,23 @@ def halo_reduce_3d(pool_vals, routing, plan: BrickPlan, n_local: int, mesh):
     return pool_vals[:n_local]
 
 
+def _head_positions(cur: dict, mask):
+    """Each particle's molecule HEAD bead position (its own position when
+    the head is not among this rank's valid rows)."""
+    big = torch.iinfo(torch.int64).max
+    keyed = torch.where(mask, cur["gid"], torch.full_like(cur["gid"], big))
+    order = torch.argsort(keyed, stable=True)
+    sgg = keyed[order]
+    pos = torch.searchsorted(sgg, cur["hgid"]).clamp(0, keyed.shape[0] - 1)
+    ok = (sgg[pos] == cur["hgid"])[:, None]
+    return torch.where(ok, cur["r"][order[pos]], cur["r"])
+
+
 def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
     """Staged 1-hop migration along x, then y, then z (<= 1 brick hop per
-    axis per call, the lazy re-bisect assumption).  Returns (fields,
-    mask, overflow)."""
-    if "hgid" in fields:
-        raise NotImplementedError(
-            "molecule-coherent migration (head-bead gid) is not ported yet "
-            "(ROADMAP queue 1, item 25: the bilayer under the mesh)")
+    axis per call, the lazy re-bisect assumption).  With an `hgid` field
+    the destination is the molecule head bead's brick, so a molecule
+    always moves as one unit.  Returns (fields, mask, overflow)."""
     dev = fields["r"].device
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     cur, mask = fields, valid_mask
@@ -192,7 +204,8 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
         if n == 1:
             continue
         lo, hi = _axis_bounds(n, mesh.idx3[ax_i])
-        x = frac(cur["r"])[:, ax_i]
+        rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
+        x = frac(rr)[:, ax_i]
         go_lo = mask & (x < lo)
         go_hi = mask & (x >= hi)
         stay = mask & ~(go_lo | go_hi)
@@ -223,8 +236,13 @@ def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
     """Host-side: split arrays into flat (n_dev*local_cap, ...) buffers by
     brick; brick order is rank order, rank = (ix*ny + iy)*nz + iz.
     Returns (buffers, mask, per-brick counts).  Either package's `gid`
-    layout splits into identical buffers (each keeps its own layout)."""
+    layout splits into identical buffers (each keeps its own layout).
+    With `hgid` a particle goes to its molecule head bead's brick."""
     r = np.asarray(arrays["r"])
+    if "hgid" in arrays:
+        g64, h64 = gid64(arrays["gid"]), gid64(arrays["hgid"])
+        order = np.argsort(g64, kind="stable")
+        r = r[order[np.searchsorted(g64, h64, sorter=order)]]
     nx, ny, nz = plan.shape
     L = np.asarray(box_lengths, dtype=np.float64)
     if L.ndim != 1:

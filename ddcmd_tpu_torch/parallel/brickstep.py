@@ -1,8 +1,9 @@
 """Brick-mesh step helpers shared by the mesh engines.
 
 Counterpart of the helpers of ddcmd_tpu/parallel/brickstep.py
-(_wrap, _volume), orthorhombic only; _perp_widths serves the NPT
-chunk, which waits with the bilayer.  The (N,K)-list brick
+(_wrap, _volume), orthorhombic only: the NPT chunk's brick guard reads
+the box lengths themselves where the JAX package takes the
+perpendicular widths of a triclinic h (_perp_widths).  The (N,K)-list brick
 engine of that module, make_brick_step, is not ported (ROADMAP queue 1,
 item 19); the cell engine is parallel/brickstep_cells.
 """

@@ -28,8 +28,9 @@ The kernels are the extended-grid entry points of the port's half-stencil
 kernels (ops/cellpair_half.cellpair_half_ext, ops/eam_half.eam_*_half_ext,
 TPU kernels #6 and #7).  Unlike the TPU kernel's trimmed p side, they trim
 both loops with per-cell counts, so `bin_pool_ext` counts every slot cell
-(halo cells included, the sentinel 0).  Load-balanced walls raise
-NotImplementedError.
+(halo cells included, the sentinel 0).  Records carry the in-kernel
+exclusion channels of the pool rows when the step passes them.
+Load-balanced walls raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -136,12 +137,13 @@ def _alias_groups_ext(ncore, open_axes):
 
 
 def plan_shard_cells(box_lengths, shape, rcut, skin, n_global,
-                     density_safety: float = 1.3,
+                     density_safety: float = 1.3, plan_margin: float = 1.0,
                      walls=None) -> ShardCellPlan:
     """Plan the per-rank extended grid: fat core cells over the brick span
     (open axes) or the whole box (periodic axes), at the GLOBAL density
-    (ops/cellpair_half.plan_lanes).  The JAX package's plan at its default
-    lane capacity and density safety."""
+    (ops/cellpair_half.plan_lanes).  plan_margin > 1 keeps the cell edge
+    >= rlist * plan_margin: shrink headroom for a barostat.  The JAX
+    package's plan at its default lane capacity and density safety."""
     if walls is not None:
         raise NotImplementedError(WALLS_ITEM)
     L = np.asarray(box_lengths, dtype=np.float64)
@@ -156,7 +158,8 @@ def plan_shard_cells(box_lengths, shape, rcut, skin, n_global,
                 " -- 1-hop halos cannot cover the cutoff; use fewer "
                 "bricks along this axis")
     n_brick = max(1, int(math.ceil(n_global / float(np.prod(shape)))))
-    g = plan_lanes(spans, rcut, skin, n_brick, density_safety=density_safety)
+    g = plan_lanes(spans, rcut, skin, n_brick, density_safety=density_safety,
+                   plan_margin=plan_margin)
     ncore = g.ncells
     next3, n_prog, n_slot, ext2slot, slot2ext = _build_ext_tables(
         ncore, open_axes)
@@ -250,11 +253,13 @@ def bin_pool_ext(u, pool_mask, plan: ShardCellPlan):
     return perm, counts, overflow
 
 
-def pack_slots_ext(u, q, tidx, perm, span_cart, plan: ShardCellPlan):
+def pack_slots_ext(u, q, tidx, perm, span_cart, plan: ShardCellPlan,
+                   ex_pool=None):
     """(n_slot, 8, cap) slot records in CELL-CENTRED brick-frame Cartesian
-    coordinates, rows [x y z q type valid 0 0] (the exclusion channels of
-    rows 6-7 stay zero: exclusions under the mesh are not ported).
-    span_cart (3,): this rank's Cartesian brick span."""
+    coordinates, rows [x y z q type valid ex6 ex7]: ex6/ex7 are the pool
+    rows' in-kernel exclusion channels (n_pool, 2) (run/forces.
+    _excl_channels; ghosts carry their owners' values), zero without
+    exclusions.  span_cart (3,): this rank's Cartesian brick span."""
     dt = torch.float32
     n_pool = u.shape[0]
     dev = u.device
@@ -267,12 +272,17 @@ def pack_slots_ext(u, q, tidx, perm, span_cart, plan: ShardCellPlan):
     t_ext = torch.cat([tidx.to(dt), zero])
     v_ext = torch.cat([torch.ones((n_pool,), dtype=dt, device=dev), zero])
     P = r_ext[perm].reshape(n_slot, cap, 3) - centers[:, None, :]
+    if ex_pool is None:
+        ex = torch.zeros((n_slot, cap, 2), dtype=dt, device=dev)
+    else:
+        ex = torch.cat([ex_pool.to(dt), zero.expand(1, 2)])[perm]
+        ex = ex.reshape(n_slot, cap, 2)
     rec = torch.cat([
         P,
         q_ext[perm].reshape(n_slot, cap, 1),
         t_ext[perm].reshape(n_slot, cap, 1),
         v_ext[perm].reshape(n_slot, cap, 1),
-        torch.zeros((n_slot, cap, 2), dtype=dt, device=dev),
+        ex,
     ], dim=2)
     return rec.transpose(1, 2).contiguous()
 
@@ -291,17 +301,18 @@ def ext_L8(span_cart, plan: ShardCellPlan, rcut2: float):
 # ---------------------------------------------------------------------------
 
 def make_shard_pair_kernel(plan: ShardCellPlan, tables, coulomb: bool,
-                           device):
+                           device, excl: bool = False):
     """The LJ + RF sweep over the n_prog CORE cells with slot space over
-    the n_slot extended cells (TPU kernel #6).  Returns eval(slots, L8,
-    counts) -> (p side (n_prog*cap, 4) [f, pe], accumulated q side
-    (n_slot, 8, cap), per-core-cell (n_prog, 8) [e, virial6])."""
+    the n_slot extended cells (TPU kernel #6); excl=True masks the pairs
+    the record rows 6-7 exclude.  Returns eval(slots, L8, counts) -> (p
+    side (n_prog*cap, 4) [f, pe], accumulated q side (n_slot, 8, cap),
+    per-core-cell (n_prog, 8) [e, virial6])."""
     stencil = torch.as_tensor(plan.stencil_packed, device=device)
     tabs = [torch.as_tensor(tables[k], dtype=torch.float32,
                             device=device).contiguous()
             for k in ("sigma", "eps", "shift")]
     kw = dict(krf=float(tables["krf"]), crf=float(tables["crf"]),
-              keR=float(tables["keR"]), coulomb=coulomb)
+              keR=float(tables["keR"]), coulomb=coulomb, excl=excl)
 
     def eval_fn(slots, L8, counts):
         return cellpair_half_ext(slots, stencil, L8, counts, *tabs, **kw)
@@ -387,15 +398,16 @@ def shard_eam_force(slots, L8, counts, dF_pool, perm, plan: ShardCellPlan,
 
 
 def shard_pair_eval(u, q, tidx, perm, counts, span_cart, plan: ShardCellPlan,
-                    tables, eval_fn):
+                    tables, eval_fn, ex_pool=None):
     """Per-rank pair forces, virial and per-row energy on the POOL (local
     + ghost) rows.  Each block pair is evaluated once mesh-wide
     (core-cell ownership); the returned f / pe carry the ghost rows'
     reaction shares, which the caller must reverse-reduce home
-    (halo_reduce_3d).  Returns (f (n_pool, 3), virial (3, 3), pe
-    (n_pool,))."""
+    (halo_reduce_3d).  ex_pool (n_pool, 2): the exclusion channels, for
+    an eval_fn made with excl=True.  Returns (f (n_pool, 3), virial
+    (3, 3), pe (n_pool,))."""
     n_pool = u.shape[0]
-    slots = pack_slots_ext(u, q, tidx, perm, span_cart, plan)
+    slots = pack_slots_ext(u, q, tidx, perm, span_cart, plan, ex_pool)
     L8 = ext_L8(span_cart, plan, tables["rcut2"])
     out_p, out_q, out_cells = eval_fn(slots, L8, counts)
     back = out_q[:, 0:4, :].transpose(1, 2).reshape(plan.n_slot * plan.cap, 4)

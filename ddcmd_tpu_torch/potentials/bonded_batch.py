@@ -39,11 +39,13 @@ def _np(x):
 
 
 def build_batched_bonded(terms: dict, residue_instances, n_pad: int,
-                         dtype=torch.float32, device="cpu"):
+                         dtype=torch.float32, device="cpu", gid=None):
     """Split the term tables (device_bonded_tables) into per-residue-type
     batches.  Returns the batch plan, or None when there is nothing to
-    evaluate.  Raises NotImplementedError for what the port cannot
-    evaluate (see the module docstring)."""
+    evaluate.  With `gid` (rows -> global ids) each type also carries its
+    instances' gids, tp["gids"] (M, A) int64, for the sharded resolver
+    (parallel/bonded_shard.resolve_batched).  Raises NotImplementedError
+    for what the port cannot evaluate (see the module docstring)."""
     for key in _UNPORTED:
         if key in terms:
             raise NotImplementedError(
@@ -134,11 +136,13 @@ def build_batched_bonded(terms: dict, residue_instances, n_pad: int,
         slots = np.concatenate([fams[k]["loc_np"][:, rr]
                                 for k, R, _ in _FAMS if k in fams
                                 for rr in range(R)])
-        plan.append(dict(
-            name=type_names[t], fams=fams, M=M, A=A,
-            rows=None if contiguous else ten(flat),
-            start=start if contiguous else None,
-            slots=ten(slots)))
+        tp = dict(name=type_names[t], fams=fams, M=M, A=A,
+                  rows=None if contiguous else ten(flat),
+                  start=start if contiguous else None,
+                  slots=ten(slots))
+        if gid is not None:
+            tp["gids"] = ten(np.asarray(gid, np.int64)[rows])
+        plan.append(tp)
     meta = dict(excl_mode=terms.get("excl_mode"), rcut2=terms.get("rcut2"),
                 excl_krf=terms.get("excl_krf"),
                 excl_crf=terms.get("excl_crf"))
@@ -149,25 +153,52 @@ def _min_image(d, L):
     return d - L * torch.round(d / L)
 
 
-def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype):
+def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
+                        resolved=None):
     """Evaluate the batched types; returns (f (n_pad, 3), e, virial (3, 3),
     pe (n_pad,)) with e == sum(pe), as the JAX package's
-    batched_bonded_eval."""
+    batched_bonded_eval.
+
+    resolved: None on a single device (rows baked into the plan), or on
+    a rank of the mesh a list aligned with plan["types"] of (rows (M*A,)
+    pool rows [missing -> n_pad], w (M,) ownership weights) from
+    parallel/bonded_shard.resolve_batched.  Instances this rank does not
+    own are evaluated on a fixed unit geometry with weight 0 (1/r stays
+    finite), so each instance's terms land exactly once across the mesh;
+    their rows, the missing ones included, receive exact zeros."""
     L = box_lengths.to(dtype)
     meta = plan["meta"]
     dev = r.device
-    f = torch.zeros((n_pad, 3), dtype=dtype, device=dev)
-    pe = torch.zeros((n_pad,), dtype=dtype, device=dev)
+    # one spill row past n_pad takes what missing rows would receive
+    n_out = n_pad + (resolved is not None)
+    f = torch.zeros((n_out, 3), dtype=dtype, device=dev)
+    pe = torch.zeros((n_out,), dtype=dtype, device=dev)
     e = torch.zeros((), dtype=dtype, device=dev)
     virial = torch.zeros((3, 3), dtype=dtype, device=dev)
+    units = torch.eye(3, dtype=dtype, device=dev)
 
-    for tp in plan["types"]:
+    for itp, tp in enumerate(plan["types"]):
         M, A = tp["M"], tp["A"]
-        if tp["start"] is not None:
+        w_inst = None
+        if resolved is not None:
+            rows_t, w_inst = resolved[itp]
+            blk = r[rows_t.clamp(max=n_pad - 1)]
+        elif tp["start"] is not None:
             blk = r[tp["start"]:tp["start"] + M * A]
         else:
             blk = r[tp["rows"]]
         rm = blk.reshape(M, A, 3)
+
+        def san(dr, axis, w_inst=w_inst):
+            """Disowned instances gather arbitrary rows: unit geometry."""
+            if w_inst is None:
+                return dr
+            return torch.where((w_inst > 0)[:, None, None], dr, units[axis])
+
+        def wmul(x, w_inst=w_inst):
+            if w_inst is None:
+                return x
+            return x * w_inst.reshape((M,) + (1,) * (x.dim() - 1))
 
         contribs_f = []        # (M, T, 3) per role, in slot order
         contribs_pe = []       # (M, T) per role
@@ -181,12 +212,12 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype):
             fam = fams["bonds"]
             li, lj = fam["loc"]
             parm = fam["bond_parms"]                     # (M, T, 2)
-            dr = _min_image(rm[:, li] - rm[:, lj], L)
+            dr = san(_min_image(rm[:, li] - rm[:, lj], L), 0)
             b = torch.sqrt((dr * dr).sum(-1))
             kb, b0 = parm[..., 0], parm[..., 1]
             db = b - b0
-            eb = kb * db * db                            # no 1/2 (CHARMM)
-            fi = (-2.0 * kb * db / b)[..., None] * dr
+            eb = wmul(kb * db * db)                      # no 1/2 (CHARMM)
+            fi = wmul(-2.0 * kb * db / b)[..., None] * dr
             emit([fi, -fi], [0.5 * eb, 0.5 * eb])
             virial = virial + torch.einsum("mta,mtc->ac", fi, dr)
             e = e + eb.sum()
@@ -196,8 +227,8 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype):
             li, lj, lk = fam["loc"]
             parm = fam["angle_parms"]                    # (M, T, 2)
             kind = fam["angle_kind"][..., 0]             # (M, T)
-            rij = _min_image(rm[:, li] - rm[:, lj], L)
-            rkj = _min_image(rm[:, lk] - rm[:, lj], L)
+            rij = san(_min_image(rm[:, li] - rm[:, lj], L), 0)
+            rkj = san(_min_image(rm[:, lk] - rm[:, lj], L), 1)
             bij = torch.sqrt((rij * rij).sum(-1))
             bkj = torch.sqrt((rkj * rkj).sum(-1))
             uij = rij / bij[..., None]
@@ -217,6 +248,7 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype):
             for k in range(3):
                 e_a = torch.where(kind == k, e_k[k], e_a)
                 coef = torch.where(kind == k, coef_k[k], coef)
+            e_a, coef = wmul(e_a), wmul(coef)
             fi = (coef / bij)[..., None] * (ukj - uij * cosA[..., None])
             fk = (coef / bkj)[..., None] * (uij - ukj * cosA[..., None])
             emit([fi, -(fi + fk), fk], [zero, e_a, zero])
@@ -228,9 +260,9 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype):
             fam = fams["exclusions"]
             li, lj = fam["loc"]
             qq = fam["excl_qq"][..., 0]                  # (M, T)
-            dr = _min_image(rm[:, li] - rm[:, lj], L)
+            dr = san(_min_image(rm[:, li] - rm[:, lj], L), 0)
             r2 = (dr * dr).sum(-1)
-            w = (r2 < meta["rcut2"]).to(dtype)
+            w = wmul((r2 < meta["rcut2"]).to(dtype))
             # rf_add: the pair kernel masked these pairs; add back only
             # the RF polarization part (bioMartini.c:1124-1208)
             e_x = qq * (meta["excl_krf"] * r2 - meta["excl_crf"]) * w
@@ -248,11 +280,14 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype):
         PEmol = torch.zeros((M, A), dtype=dtype, device=dev)
         PEmol.index_add_(1, tp["slots"], PEc)
         # f and pe are this call's own buffers: add in place
-        if tp["start"] is not None:
+        if resolved is not None:
+            f.index_add_(0, rows_t, Fmol.reshape(M * A, 3))
+            pe.index_add_(0, rows_t, PEmol.reshape(M * A))
+        elif tp["start"] is not None:
             s0, s1 = tp["start"], tp["start"] + M * A
             f[s0:s1] += Fmol.reshape(M * A, 3)
             pe[s0:s1] += PEmol.reshape(M * A)
         else:
             f.index_add_(0, tp["rows"], Fmol.reshape(M * A, 3))
             pe.index_add_(0, tp["rows"], PEmol.reshape(M * A))
-    return f, e, virial, pe
+    return f[:n_pad], e, virial, pe[:n_pad]

@@ -98,6 +98,30 @@ def _excl_channels(exclusions, n_pad: int):
     return vals
 
 
+def bonded_tables(sysdef: SystemDef, dtype=torch.float32):
+    """The covalent terms' tables on the host (device_bonded_tables in
+    `rf_add` mode: the pair kernel masks the excluded pairs and the
+    exclusion term adds back only their kept RF part), or None when the
+    topology has no bonded term to evaluate (constraints alone add
+    none)."""
+    bt = sysdef.bonded
+    if bt is None or not any(v for k, v in bt.counts().items()
+                             if k not in ("n_constraints", "cons_groups")):
+        return None
+    from ..potentials.bonded import device_bonded_tables
+
+    state = sysdef.state
+    mparms = next(p[2] for p in sysdef.potentials if p[0] == "MARTINI")
+    return device_bonded_tables(
+        bt, dtype, "cpu",
+        lj_sigma=mparms.sigma, lj_eps=mparms.eps, lj_shift=mparms.shift,
+        rcut=mparms.rcut, keR=U.ke / mparms.epsilon_r,
+        charges=state.q.cpu().numpy(),
+        species_lj_type=mparms.species_lj_type,
+        species_per_particle=state.species.cpu().numpy(),
+        excl_mode="rf_add", krf=mparms.krf, crf=mparms.crf)
+
+
 def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
     """Returns force_fn(state, box, perm) -> (f, e_pot, virial, pe), with
     perm the slot permutation from ops.cellpair.build_cell_slots on
@@ -171,22 +195,11 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
         terms.append(martini_term)
 
     # covalent terms (bonds, angles, exclusion RF corrections)
-    bt = sysdef.bonded
-    if bt is not None and any(v for k, v in bt.counts().items()
-                              if k not in ("n_constraints", "cons_groups")):
-        from ..potentials.bonded import device_bonded_tables
+    btab = bonded_tables(sysdef, dtype)
+    if btab is not None:
         from ..potentials.bonded_batch import (batched_bonded_eval,
                                                build_batched_bonded)
 
-        mparms = next(p[2] for p in sysdef.potentials if p[0] == "MARTINI")
-        btab = device_bonded_tables(
-            bt, dtype, "cpu",
-            lj_sigma=mparms.sigma, lj_eps=mparms.eps, lj_shift=mparms.shift,
-            rcut=mparms.rcut, keR=U.ke / mparms.epsilon_r,
-            charges=state.q.cpu().numpy(),
-            species_lj_type=mparms.species_lj_type,
-            species_per_particle=state.species.cpu().numpy(),
-            excl_mode="rf_add", krf=mparms.krf, crf=mparms.crf)
         n_pad = state.n_pad
         bplan = build_batched_bonded(btab, sysdef.residue_instances, n_pad,
                                      dtype, device)

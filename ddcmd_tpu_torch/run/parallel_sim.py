@@ -1,11 +1,23 @@
 """Deck-driven MD over a brick mesh, one rank per brick.
 
 Counterpart of ddcmd_tpu/run/parallel_sim.py:ParallelSimulation for the
-NVT decks of the Martini water box and the EAM crystal: `ddc DDC {lx=2;
-ly=2; lz=2;}` (the reference's domain lattice keywords, ddc.c:35-137)
-or the `shape` argument selects the mesh, and each rank runs
-parallel/brickstep_cells.BrickStepCells on its brick through the
+decks of the Martini water box, the Martini bilayer and the EAM crystal:
+`ddc DDC {lx=2; ly=2; lz=2;}` (the reference's domain lattice keywords,
+ddc.c:35-137) or the `shape` argument selects the mesh, and each rank
+runs parallel/brickstep_cells.BrickStepCells on its brick through the
 extended-grid kernels (TPU kernels #6 and #7).
+
+Covalent topologies (the bilayer) ride along keyed by global id: the
+residue-template bonded terms in `rf_add` mode beside the pair kernel's
+in-kernel exclusion mask, the template-batched RATTLE groups (or the
+generic groups of a topology that is not template-regular) and the
+multi-bead molecules of the molecular virial, all resolved per rank at
+each rebuild (parallel/bonded_shard.py); migration is molecule-coherent,
+the head bead of each chain deciding.  The NGLFCONSTRAINT family with
+beta > 0 runs the Berendsen barostat in the NPT chunk, which carries
+the live box and the molecular virial diagonal; the cell plan then keeps
+an 8% shrink margin, and the overflow ladder replans against the live
+box.
 
 Ranks come from torch.distributed (the caller initialises the process
 group: NCCL for CUDA tensors, one card per rank; gloo for the CPU).  A
@@ -14,12 +26,13 @@ from the deck, keeps the rows of its own brick, and runs the same host
 loop; the per-step scalars and the overflow flag are mesh-wide, so all
 ranks take the same decisions.
 
-Deck features outside the NVT path raise NotImplementedError naming
-their ROADMAP item: bonded terms, constraints and exclusions, the
-barostat, load balance (and with it the pxyz decomposition restart), a
+Deck features outside these paths raise NotImplementedError naming
+their ROADMAP item: load balance (and with it the pxyz decomposition
+restart), an exclusion component wider than the in-kernel encoding or a
 geometry the cell engine cannot take (the JAX package then runs its
-(N,K)-list engine, item 19).  The checkpoint writer, rebalance, the
-gathered view and the sharded analyses are not ported yet.
+(N,K)-list engine, item 19), bonded families the port does not evaluate
+(item 12).  The checkpoint writer, rebalance, the gathered view and the
+sharded analyses are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,19 +44,27 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.molecule import build_molecule_class
 from ..core.system import build_system
 from ..objects import ObjectDB
 from ..objects import units as U
 from ..ops.eam_half import eam_half_supported, eam_kernel_tables
+from ..parallel.bonded_shard import (constraint_gid_tables,
+                                     molecule_gid_tables)
 from ..parallel.brick import BrickPlan, distribute_bricks, gid64
 from ..parallel.brickstep_cells import BrickStepCells
 from ..parallel.mesh import BrickMesh
 from ..parallel.shard_cells import plan_shard_cells
 from ..potentials.eam import eam_device_tables
 from ..potentials.martini import martini_device_tables
-from .simulate import _BAROSTAT_TYPES, _NGLF_TYPES
+from .forces import _excl_channels, bonded_tables
+from .printinfo import PrintInfo
+from .simulate import _BAROSTAT_TYPES, _NGLF_TYPES, uses_constraints
 
 _MESH_ITEM = "ROADMAP queue 1, item 25"
+# NPT decks plan cells with shrink headroom (the JAX package's
+# plan_shard_cells margin for NPT decks)
+_NPT_PLAN_MARGIN = 1.08
 
 
 def _cap(x: int) -> int:
@@ -62,8 +83,26 @@ def _mesh_device(device):
     return torch.device(f"cuda:{local}")
 
 
+def chain_head_gids(gid, residue_instances, chain_links) -> np.ndarray:
+    """(n,) int64: the gid of each particle's molecule head, the first atom
+    of its CHAIN (a maximal run of residue instances joined by junction
+    terms; `chain_links` lists each instance i joined to instance i + 1).
+    A residue-level head would split a chain across ranks."""
+    gid = np.asarray(gid, np.int64)
+    hgid = gid.copy()
+    linked = set(np.asarray(chain_links).tolist()) \
+        if chain_links is not None else set()
+    head_rows = None
+    for i, (_name, rows) in enumerate(residue_instances or []):
+        if head_rows is None or (i - 1) not in linked:
+            head_rows = rows
+        hgid[np.asarray(rows)] = gid[head_rows[0]]
+    return hgid
+
+
 class ParallelSimulation:
-    """Sharded run: the NVT water box and EAM crystal over a mesh."""
+    """Sharded run of a Martini (water box, bilayer) or EAM deck over a
+    brick mesh, NVT or Berendsen NPT."""
 
     def __init__(self, db: ObjectDB, base_dir: str = ".", *, shape=None,
                  device=None):
@@ -74,16 +113,6 @@ class ParallelSimulation:
             raise NotImplementedError(
                 f"integrator {sd.integrator_type} is not ported yet "
                 "(ROADMAP queue 1, item 22)")
-        ip = sd.integrator_parms
-        if sd.integrator_type in _BAROSTAT_TYPES and ip["beta"] > 0:
-            raise NotImplementedError(
-                f"the barostat under the mesh (chunk_npt) is not ported yet "
-                f"({_MESH_ITEM}: the bilayer under the mesh)")
-        bt = sd.bonded
-        if bt is not None and any(bt.counts().values()):
-            raise NotImplementedError(
-                "bonded terms, constraints and exclusions under the mesh are "
-                f"not ported yet ({_MESH_ITEM}: the bilayer under the mesh)")
 
         sim = db.by_class("SIMULATE")[0]
         ddc = db.find(sim.get_str("ddc", "ddc"), "DDC")
@@ -146,27 +175,92 @@ class ParallelSimulation:
             halo_cap=_cap(max(3 * n // n_dev // 2, halo_est)),
             migrate_cap=_cap(max(256, n // (4 * n_dev))), rlist=rlist)
         self._check_geometry(L, rlist)
-        self._box_L = L
         self.chunk_steps = max(1, int(sd.cfg.ddc_update_rate))
         self.coeffs = sd.group_table.coefficients(
             sd.cfg.time, 0.5 * sd.cfg.dt, device=dev)
         self._density_safety = 1.3
+        gid = gid64(sd.collection.gid)
+        self._setup_barostat(db, gid)
+        self._setup_topology(gid)
+        # the live box (moves under the barostat) and the last molecular
+        # virial diagonal the next NPT step's lambda reads
+        self.Lv = torch.as_tensor(L, dtype=torch.float32, device=dev)
+        self.vird = torch.zeros(3, dtype=torch.float32, device=dev)
         self._build_step_fns()
 
         self._host_arrays = dict(
             r=sd.state.r[:n].numpy(), v=sd.state.v[:n].numpy(),
             q=sd.state.q[:n].numpy(), mass=sd.state.mass[:n].numpy(),
             species=sd.state.species[:n].numpy(),
-            group=sd.state.group[:n].numpy(),
-            gid=gid64(sd.collection.gid))
+            group=sd.state.group[:n].numpy(), gid=gid)
+        if self._hgid is not None:
+            self._host_arrays["hgid"] = self._hgid
+        if self._excl_vals is not None:
+            self._host_arrays["excl"] = self._excl_vals[:n]
         self._distribute(self._host_arrays)
         self.f = None
         self.loop = sd.cfg.loop
+        self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         # (steps, seconds) of each accepted dispatch, host clock around
         # work that ends in the dispatch's one device-to-host read
         self.dispatch_log: list[tuple[int, float]] = []
 
     # ------------------------------------------------------------------
+
+    def _setup_barostat(self, db, gid):
+        """The Berendsen barostat of the NGLFCONSTRAINT family (beta > 0)
+        and, for multi-bead molecules, the gid-keyed molecule table of
+        the sharded molecular virial (JAX parallel_sim.py:266-295)."""
+        sd = self.sysdef
+        ip = sd.integrator_parms
+        self.barostat, self._mol_gids = None, None
+        self.n_molecules = sd.state.n_local
+        if sd.integrator_type not in _BAROSTAT_TYPES or not ip["beta"] > 0:
+            return
+        sysobj = db.get(sd.cfg.system_name, "SYSTEM")
+        mols = build_molecule_class(db, sysobj, sd.collection.species_names,
+                                    sd.collection.gid)
+        if mols:
+            self.n_molecules = mols.n_molecules
+            if mols.n_molecules < sd.state.n_local:
+                tab = molecule_gid_tables(mols, gid)
+                self._mol_gids = None if tab is None else tab["mol_gids"]
+        self.barostat = dict(P0=ip["P0"], beta=ip["beta"],
+                             tau=ip["tauBarostat"], T=ip["T"],
+                             isotropic=ip["isotropic"],
+                             n_molecules=self.n_molecules)
+
+    def _setup_topology(self, gid):
+        """Gid-keyed covalent tables (JAX parallel_sim.py:226-401): the
+        batched bonded plan in rf_add mode beside the in-kernel exclusion
+        channels, the RATTLE templates (or generic groups), and the
+        chain-head gids of molecule-coherent migration."""
+        sd = self.sysdef
+        bt = sd.bonded
+        self._bonded_plan = self._cons_templates = self._cons_tables = None
+        self._hgid = self._excl_vals = None
+        if bt is None:
+            return
+        from ..integrators.constraints import build_constraint_templates
+        from ..potentials.bonded_batch import build_batched_bonded
+
+        n = sd.state.n_local
+        if bt.exclusions is not None and self.force_kind == "martini":
+            # raises (item 19) for a component wider than the encoding
+            self._excl_vals = _excl_channels(bt.exclusions, n)
+        btab = bonded_tables(sd)
+        if btab is not None:
+            self._bonded_plan = build_batched_bonded(
+                btab, sd.residue_instances, n, torch.float32, self.device,
+                gid=gid)
+        if uses_constraints(sd):
+            self._cons_templates = build_constraint_templates(
+                bt.cons_atoms, bt.cons_pairs, bt.cons_dist,
+                sd.residue_instances, gid)
+            if self._cons_templates is None:
+                self._cons_tables = constraint_gid_tables(bt, gid)
+        self._hgid = chain_head_gids(gid, sd.residue_instances,
+                                     bt.chain_links)
 
     def _check_geometry(self, L, rlist):
         """The cell engine's gate (_pick_shard_engine): every open axis
@@ -183,27 +277,35 @@ class ParallelSimulation:
                     "package runs then is not ported yet (ROADMAP queue 1, "
                     "item 19)")
 
+    def _live_L(self) -> np.ndarray:
+        return self.Lv.cpu().numpy().astype(np.float64)
+
     def _build_step_fns(self):
+        """Plan the extended grid at the LIVE box and build the step."""
         sd = self.sysdef
+        L = self._live_L()
         self.cplan = plan_shard_cells(
-            self._box_L, self.shape, sd.rcut_max, sd.neighbor_deltaR,
-            sd.state.n_local,
-            density_safety=self._density_safety)
+            L, self.shape, sd.rcut_max, sd.neighbor_deltaR, sd.state.n_local,
+            density_safety=self._density_safety,
+            plan_margin=_NPT_PLAN_MARGIN if self.barostat else 1.0)
         self.step_fn = BrickStepCells(
             self.mesh, self.plan, self.cplan, self.tables, self.coeffs,
-            sd.cfg.dt, self._box_L, self._tmap, sd.random_seed,
-            self.chunk_steps, coulomb=self._coulomb,
-            force_kind=self.force_kind)
+            sd.cfg.dt, L, self._tmap, sd.random_seed, self.chunk_steps,
+            coulomb=self._coulomb, force_kind=self.force_kind,
+            excl=self._excl_vals is not None, bonded_plan=self._bonded_plan,
+            cons_templates=self._cons_templates,
+            cons_tables=self._cons_tables, mol_gids=self._mol_gids,
+            barostat=self.barostat)
 
     def _distribute(self, arrays):
-        """This rank's brick of the host arrays, on the device."""
-        buf, mask, _ = distribute_bricks(arrays, self._box_L, self.plan)
+        """This rank's brick of the host arrays at the live box, on the
+        device."""
+        buf, mask, _ = distribute_bricks(arrays, self._live_L(), self.plan)
         cap, rank = self.plan.local_cap, self.mesh.rank
         rows = slice(rank * cap, (rank + 1) * cap)
         self.fields = {k: torch.as_tensor(v[rows], device=self.device)
                        for k, v in buf.items()}
         self.mask = torch.as_tensor(mask[rows], device=self.device)
-
     def gather_by_gid(self, names=("r", "v")) -> dict:
         """Every rank's owned rows of the named fields (and "f") on the
         host, in the collection's original order (the pio gather
@@ -227,52 +329,79 @@ class ParallelSimulation:
         return out
 
     def first_energy(self) -> float:
-        self.f, e, _virial, ov = self.step_fn.first_forces(self.fields,
-                                                           self.mask)
+        """Forces and energy of the current state at the live box; keeps
+        the molecular virial diagonal the next NPT step reads."""
+        self.f, e, virial, ov = self.step_fn.first_forces(
+            self.fields, self.mask, self.Lv)
         if bool(ov):
             raise RuntimeError("neighbor overflow at first energy")
+        self.vird = torch.diagonal(virial).clone()
         return float(e)
 
     def _print_scalars(self, scalars, print_fn, loop0):
+        """One line per printrate row: energies per particle, T over
+        3 n - n_constraints degrees of freedom, and the pressure as the
+        single-device printinfo computes it -- molecular, (tr W + 3
+        N_mol kB T) / 3V, when the deck's PRINTINFO asks for it, else
+        (tr W + 2 Ekin) / 3V -- in the PRINTINFO pressure unit, and the
+        volume (internal units)."""
         sd = self.sysdef
         if not (print_fn and sd.cfg.printrate):
             return
         n = sd.state.n_local
+        pinfo = self.printinfo
         for j in range(scalars.shape[0]):
             loop = loop0 + j + 1
-            if loop % sd.cfg.printrate == 0:
-                e_pot, rk = float(scalars[j, 0]), float(scalars[j, 1])
-                T = 2.0 * rk / (3.0 * n * U.kB)
-                print_fn(f"{loop:10d} epot/N={e_pot / n:14.6f} "
-                         f"ekin/N={rk / n:12.6f} T={T:10.2f}")
+            if loop % sd.cfg.printrate:
+                continue
+            e_pot, rk, tr_vir, vol = (float(scalars[j, 0]),
+                                      float(scalars[j, 1]),
+                                      float(scalars[j, 2]),
+                                      float(scalars[j, 6]))
+            T = 2.0 * rk / ((3.0 * n - sd.n_constraints) * U.kB)
+            if pinfo.print_molecular_pressure:
+                p = (tr_vir + 3.0 * self.n_molecules * U.kB * T) / (3.0 * vol)
+            else:
+                p = (tr_vir + 2.0 * rk) / (3.0 * vol)
+            print_fn(f"{loop:10d} epot/N={e_pot / n:14.6f} "
+                     f"ekin/N={rk / n:12.6f} T={T:10.2f} "
+                     f"P={pinfo.c_press * p:14.6f} V={vol:12.4f}")
 
-    def _dispatch(self, kind: str, n_super: int = 0):
+    def _dispatch(self, kind: str, n_super: int = 0, steps: int = 0):
         """One dispatch from the current state, one device-to-host read
-        at its end: (new state, scalars (k, 7) numpy, overflow, steps)."""
+        at its end: (new state (fields, mask, f[, vird, Lv]), scalars
+        (k, 7) numpy, overflow, steps).  kind "super" runs n_super
+        chunks, "chunk" one chunk (NPT: of `steps` steps), "step" one NVT
+        step without migration."""
         st = self.step_fn
+        npt = (self.vird, self.Lv) if self.barostat else ()
         if kind == "super":
-            out = st.superchunk(self.fields, self.mask, self.f, self.loop,
-                                n_super)
+            state, scal, ov = st.superchunk(self.fields, self.mask, self.f,
+                                            self.loop, n_super, *npt)
+        elif kind == "chunk" and npt:
+            *state, scal, ov = st.chunk_npt(self.fields, self.mask, self.f,
+                                            *npt, self.loop, steps or None)
         elif kind == "chunk":
-            out = st.chunk(self.fields, self.mask, self.f, self.loop)
+            *state, scal, ov = st.chunk(self.fields, self.mask, self.f,
+                                        self.loop)
         else:
             fields, f, scal, ov = st.step(self.fields, self.mask, self.f,
                                           self.loop)
-            out = (fields, self.mask, f, scal[None], ov)
-        fields, mask, f, scal, ov = out
+            state, scal = (fields, self.mask, f), scal[None]
         host = torch.cat([scal.reshape(-1),
                           ov.to(scal.dtype).reshape(1)]).cpu().numpy()
         rows = host[:-1].astype(np.float64).reshape(-1, 7)
-        return (fields, mask, f), rows, bool(host[-1]), rows.shape[0]
+        return tuple(state), rows, bool(host[-1]), rows.shape[0]
 
     def run(self, n_loops: int, *, print_fn=None,
             max_steps_per_dispatch: int | None = None):
         """Chunked dispatch: ddc updateRate steps plus one migration per
         chunk; with max_steps_per_dispatch >= 2 chunks, that many chunks
         per dispatch (the superchunk).  Leftover loops take the per-step
-        path.  An overflowing dispatch rolls back to the state before it
-        and escalates: (1) host redistribute, (2) replan with a larger
-        cell capacity, (3) raise."""
+        path (NVT) or one shorter NPT chunk.  An overflowing dispatch
+        rolls back to the state before it (the box and virial diagonal
+        too) and escalates: (1) host redistribute, (2) replan at the live
+        box, (3) raise."""
         if self.f is None:
             self.first_energy()
         done = 0
@@ -281,14 +410,16 @@ class ParallelSimulation:
              and max_steps_per_dispatch >= 2 * k else 0)
         redis_tries = 0
         while done < n_loops:
+            steps = 0
             if M and done + M * k <= n_loops:
                 kind = "super"
             elif done + k <= n_loops:
                 kind = "chunk"
             else:
-                kind = "step"
+                kind = "chunk" if self.barostat else "step"
+                steps = n_loops - done
             t0 = _time.perf_counter()
-            state, rows, ov, steps = self._dispatch(kind, M)
+            state, rows, ov, steps = self._dispatch(kind, M, steps)
             seconds = _time.perf_counter() - t0
             if ov:
                 if kind == "step":
@@ -307,7 +438,9 @@ class ParallelSimulation:
                 raise FloatingPointError(
                     f"non-finite energy after loop {self.loop} (reference "
                     "kill switch, masters.c:470-475)")
-            self.fields, self.mask, self.f = state
+            self.fields, self.mask, self.f = state[:3]
+            if self.barostat:
+                self.vird, self.Lv = state[3:]
             self._print_scalars(rows, print_fn, self.loop)
             self.loop += steps
             done += steps
@@ -315,8 +448,9 @@ class ParallelSimulation:
         return self
 
     def redistribute(self):
-        """Host-exact re-assignment of every particle to its brick (no
-        replan): recovers from a migration or halo overflow."""
+        """Host-exact re-assignment of every particle to its brick at the
+        live box (no replan): recovers from a migration or halo
+        overflow."""
         g = self.gather_by_gid(("r", "v"))
         arrays = dict(self._host_arrays, r=g["r"], v=g["v"])
         self._distribute(arrays)
@@ -324,9 +458,22 @@ class ParallelSimulation:
         self.first_energy()
 
     def replan(self):
-        """Replan the cell grid with 1.3x the density safety (a larger cell
-        capacity, as the single-device run loop grows it) and
-        redistribute."""
-        self._density_safety *= 1.3
+        """Replan the cell grid at the LIVE box (a barostat-compressed box
+        can take a cell edge below rlist; fewer, larger cells restore the
+        one-shell stencil), with 1.3x the density safety when that
+        changes nothing (a larger cell capacity, as the single-device run
+        loop grows it), and redistribute.  A brick narrower than rlist at
+        the live box makes the decomposition itself infeasible: raise."""
+        L = self._live_L()
+        widths = L / np.asarray(self.shape, np.float64)
+        if widths.min() < self.plan.rlist:
+            raise RuntimeError(
+                f"brick decomposition infeasible at the live box: narrowest "
+                f"brick {widths.min():.4f} < rlist {self.plan.rlist:.4f} "
+                f"(box {L}); use fewer bricks along the compressed axis")
+        old = (self.cplan.ncore, self.cplan.cap)
         self._build_step_fns()
+        if (self.cplan.ncore, self.cplan.cap) == old:
+            self._density_safety *= 1.3
+            self._build_step_fns()
         self.redistribute()

@@ -68,6 +68,15 @@ _NOISE_CALLSITE_NGLF = 0
 _ROW = ("eion", "rk", "tr_virial", "tr_tion", "volume", "Lx", "Ly", "Lz")
 
 
+def uses_constraints(sd) -> bool:
+    """True when the deck's integrator projects constraints (the
+    NGLFCONSTRAINT family, RATTLE, NGLFNEW) and its topology has some."""
+    uses = ("CONSTRAINT" in sd.integrator_type
+            or "RATTLE" in sd.integrator_type
+            or sd.integrator_type == "NGLFNEW")
+    return uses and sd.bonded is not None and sd.bonded.n_constraints > 0
+
+
 def resolve_device(device=None) -> torch.device:
     """The device a run uses: `device` when given, else the CUDA card.
     Without a card a run raises: the CPU runs only when asked for."""
@@ -146,11 +155,8 @@ class Simulation:
         (every Martini deck), the generic projector otherwise
         (simulate.py:265-295)."""
         sd = self.sysdef
-        uses = ("CONSTRAINT" in sd.integrator_type
-                or "RATTLE" in sd.integrator_type
-                or sd.integrator_type == "NGLFNEW")
         bt = sd.bonded
-        if bt is None or bt.n_constraints == 0 or not uses:
+        if not uses_constraints(sd):
             return None
         from ..integrators.constraints import (build_constraint_fn,
                                                build_constraint_fn_batched)

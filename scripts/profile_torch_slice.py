@@ -3,7 +3,7 @@
     python scripts/profile_torch_slice.py [--n 6173] [--steps 200]
     python scripts/profile_torch_slice.py --bilayer 48 [--steps 200]
     python scripts/profile_torch_slice.py --eam 12 [--steps 200]
-    python scripts/profile_torch_slice.py --mesh [--eam 32] [--steps 200]
+    python scripts/profile_torch_slice.py --mesh [--eam 32 | --bilayer 48]
 
 Runs the Martini water box NVT (default), the Martini DPPC bilayer NPT
 (--bilayer NX: 2*NX*NX lipids plus water, NX = 48 is the ~100k-bead
@@ -11,12 +11,13 @@ full width; equilibrated at dt = 5 fs) or the EAM copper crystal NVT
 (--eam NC: 4*NC^3 atoms; NC = 12 runs the per-cell EAM kernels, NC = 32
 the column ones) through ddcmd_tpu_torch's Simulation, or with --mesh
 through ParallelSimulation on a (1,1,1) brick mesh (the extended-grid
-kernels; water box or crystal only): --warm steps,
+kernels; the bilayer there with exclusions, bonded terms, RATTLE and
+the NPT chunk): --warm steps,
 then --steps timed steps, then the same number traced with
 torch.profiler.  Prints steps/s (untraced), the device busy
 share (summed kernel time over wall time), kernel launches per step and
-the CUDA kernels by total time.  For the bilayer it also takes each
-phase alone at the equilibrated state (pair kernel term, bonded term,
+the CUDA kernels by total time.  For the bilayer's Simulation it also
+takes each phase alone at the equilibrated state (pair kernel term, bonded term,
 RATTLE front and back, molecular virial, barostat with the molecular
 virial, rebuild, one whole step): its device time and kernel launches
 per call from a profiler trace, and its time per call between CUDA
@@ -111,7 +112,7 @@ def main(argv=None):
                         "instead of the water box")
     p.add_argument("--mesh", action="store_true",
                    help="run ParallelSimulation on a (1,1,1) mesh instead "
-                        "of Simulation (water box or --eam)")
+                        "of Simulation")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--warm", type=int, default=1000)
     p.add_argument("--out", default=None,
@@ -119,9 +120,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA device")
-    if args.mesh and args.bilayer:
-        raise SystemExit("profile_torch_slice: the bilayer does not run "
-                         "under the mesh yet")
     with tempfile.TemporaryDirectory() as d:
         if args.bilayer:
             martini_bilayer(d, nx=args.bilayer, ny=args.bilayer, dt_fs=5.0)
@@ -152,7 +150,7 @@ def main(argv=None):
                     max_steps_per_dispatch=args.steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        phases = phase_times(sim) if args.bilayer else {}
+        phases = phase_times(sim) if args.bilayer and not args.mesh else {}
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)

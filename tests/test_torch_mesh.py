@@ -169,8 +169,11 @@ def test_device_defaults_to_cuda(tmp_path, monkeypatch):
     (lambda s: s.replace("type=NGLF; T=310.0K;",
                          "type=NGLFCONSTRAINT; T=310.0K; beta=1e-5; "
                          "tauBarostat=1ps;"), "barostat"),
-])
+], ids=["edit0-load balance", "edit1-barostat"])
 def test_unported_mesh_features_raise(tmp_path, edit, what):
+    """Load balance under the mesh raises naming its ROADMAP item.  The
+    barostat, refused here before the NPT chunk was ported, now builds:
+    the NPT water deck carries its barostat into the mesh step."""
     d = str(tmp_path)
     martini_water(d, n=400)
     p = os.path.join(d, "object.data")
@@ -180,5 +183,10 @@ def test_unported_mesh_features_raise(tmp_path, edit, what):
     assert new != text
     with open(p, "w") as f:
         f.write(new)
+    if what == "barostat":
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
+        assert ps.barostat is not None and ps.step_fn.barostat is not None
+        assert ps.barostat["n_molecules"] == 400      # single-bead waters
+        return
     with pytest.raises(NotImplementedError, match=what):
         ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -120,3 +121,49 @@ def chunk_migrate(rank, deck_dir, shape, out):
         np.savez(out, n=int(n[0]), moved=int(moved[0]), loop=ps.loop,
                  gids0=gids0, gids1=gids1,
                  finite=bool(torch.isfinite(ps.f[ps.mask]).all()))
+
+
+def bilayer_npt(rank, deck_dir, shape, out, npt=True):
+    """The bilayer through the mesh: first forces (gathered by gid) and
+    energy; with `npt`, one NPT step from the first state (its box
+    against barostat_scale on the same virial), then one NPT chunk with
+    migration: every rank's owned (gid, head gid), the constraint
+    residual and the box after it."""
+    from ddcmd_tpu_torch.core.box import Box
+    from ddcmd_tpu_torch.integrators.constraints import constraint_residual
+    from ddcmd_tpu_torch.integrators.nglf import barostat_scale
+
+    ps = _psim(deck_dir, shape)
+    e = ps.first_energy()
+    g = ps.gather_by_gid(("f",))
+    if not npt:
+        if rank == 0:
+            np.savez(out, e=e, f=g["f"], excl=ps.step_fn.excl,
+                     npt=ps.barostat is not None)
+        return
+    st = ps.step_fn
+    _, _, _, _, L1, _, ov1 = st.chunk_npt(ps.fields, ps.mask, ps.f, ps.vird,
+                                          ps.Lv, ps.loop, steps=1)
+    box0 = Box.from_h(np.diag(ps.Lv.numpy()))
+    _, box1 = barostat_scale(ps.sysdef.state, box0, torch.diag(ps.vird),
+                             ps.barostat, ps.sysdef.cfg.dt)
+    lines = []
+    ps.run(ps.chunk_steps, print_fn=lines.append)
+    m = ps.mesh.all_gather(ps.mask.to(torch.int64)).numpy().reshape(-1)
+    owned = m.astype(bool)
+    gids = ps.mesh.all_gather(ps.fields["gid"]).numpy().reshape(-1)[owned]
+    hgids = ps.mesh.all_gather(ps.fields["hgid"]).numpy().reshape(-1)[owned]
+    where = np.repeat(np.arange(ps.mesh.size), ps.plan.local_cap)[owned]
+    r = ps.gather_by_gid(("r",))["r"]
+    if rank == 0:
+        bt = ps.sysdef.bonded
+        resid = constraint_residual(
+            SimpleNamespace(r=r), bt.cons_atoms, bt.cons_pairs,
+            bt.cons_dist, box_lengths=ps.Lv.numpy())
+        np.savez(out, e=e, f=g["f"], L1=L1.numpy(),
+                 L1_ref=box1.lengths.numpy(), ov1=bool(ov1),
+                 gids=gids, hgids=hgids, where=where, resid=resid,
+                 L=ps.Lv.numpy(), loop=ps.loop, chunk=ps.chunk_steps,
+                 excl=ps.step_fn.excl, npt=ps.barostat is not None,
+                 finite=bool(torch.isfinite(ps.f[ps.mask]).all()),
+                 n_lines=len(lines))
