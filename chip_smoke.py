@@ -23,7 +23,13 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
        crystal's slots: RATIONAL (the deck's form), FS, SC, EXP, AT and
        a T = 2 FS alloy with an asymmetric density; the column EAM
        kernels on the nc = 32 crystal's slots, on an nz == G grid, and
-       against the per-cell EAM kernels on the nc = 32 slots;
+       against the per-cell EAM kernels on the nc = 32 slots (their times
+       side by side, and beside the times of the bodies they replaced);
+       both on a ragged occupancy (cells of 0, 1, 31, 32, 33 and cap live
+       slots, a tenth of the slots masked inside the counts) at cap 128
+       and at cap 256;
+     - the per-cell pair and EAM kernels on plans of more than 65,535
+       cells at cap 32, most cells empty;
      - the full-stencil kernel (TPU #3) on the water box's records, on
        the full bilayer's (T = 5, reaction field) and on charged grids
        with 2-cell axes, each also against the per-cell kernel on the
@@ -39,7 +45,7 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
        cell's q side stays exactly 0;
      and, for each main-path case, the least time the card could take
      (bound_ms: operations over the f32 peak or bytes over the memory
-     rate, from the candidate and in-cutoff pairs these inputs hold);
+     rate, from the in-cutoff pairs these inputs hold);
      then TPU #3's own main path, its entry point cellpair_eval_full on
      the water box's and the full bilayer's start states (no simulate
      path reaches it), against the half-stencil evaluation;
@@ -106,17 +112,31 @@ EAM_NC, EAM_STEPS, EAM_NVE_STEPS = 12, 3000, 2000
 EAM_BIG_NC, EAM_BIG_STEPS = 32, 2000
 EAM_BIG_PLAN = ((11, 12, 12), 4, 29)    # its cells, G and union size U
 EAM_T = 300.0
+# us/call of the EAM bodies this design replaced (PERF.md, H100 80GB HBM3
+# at 700 W): one CTA of cap threads per (direction, cell), the form
+# arithmetic inside the distance sweep; the column kernel with its union
+# staged in shared memory, one CTA an SM
+OLD_BODY_US = {"eam_rho": 106.6, "eam_force": 93.7, "eam_rho_col": 1155.4,
+               "eam_force_col": 1388.3, "eam_rho_ext": 484.4,
+               "eam_force_ext": 589.6, "eam_rho_on_col_slots": 477.3,
+               "eam_force_on_col_slots": 590.0}
+RAGGED_COUNTS = (0, 1, 31, 32, 33)        # live slots of the ragged cells,
+RAGGED_CAPS = (128, 256)                  # and cap itself, at each of these caps
+BIG_NCELLS = (41, 40, 40)                 # 65,600 cells: past a 16-bit grid axis
 NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
 MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 3000, 2000, 2000
 # the least time the card could take (H100 SXM peaks at 700 W): f32
 # outside the tensor cores, and HBM3
 PEAK_F32, PEAK_BW = 67e12, 3.35e12
-# f32 operations each kernel does, counted from its source: the distance
-# test of every candidate pair (3 sub, 3 mul, 2 add, the validity product)
-# and the arithmetic of an in-cutoff pair (csrc/cellpair_half.cu: LJ 41,
-# reaction field 14 more; csrc/eam_half.cu with eam_forms.cuh, RATIONAL of
-# Horner degree D: density pass 19 + 16 (D - 1), force pass 40 + 16 (D - 1))
+# f32 operations the function needs, whatever the algorithm: for each
+# in-cutoff pair of these inputs its distance test (3 sub, 3 mul, 2 add,
+# the validity product) and its arithmetic, counted from the sources
+# (csrc/cellpair_half.cu: LJ 41, reaction field 14 more; csrc/eam_half.cu
+# with eam_forms.cuh, RATIONAL of Horner degree D: density pass 19 + 16 (D
+# - 1), force pass 40 + 16 (D - 1)).  The tests of pairs outside the
+# cutoff are a cell list's overhead, not the function's work (an exact
+# prune can skip them), so the bound does not count them
 OPS_TEST = 9
 OPS_LJ, OPS_RF = 41, 14
 # the analytic EAM forms besides the crystal's RATIONAL, one species each
@@ -154,8 +174,6 @@ def nvcc_line():
 def synthetic(n, L, seed=11):
     """Charged two-type LJ + RF system on a jittered lattice (the
     JAX package's tests/test_nbr_martini.make_system)."""
-    from ddcmd_tpu_torch.objects import units as U
-
     rng = np.random.default_rng(seed)
     m = int(np.ceil(n ** (1 / 3)))
     g = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
@@ -163,6 +181,13 @@ def synthetic(n, L, seed=11):
     r = (g + 0.5) / m * L - 0.5 * L + (rng.random((n, 3)) - 0.5) * (0.25 * L / m)
     q = rng.choice([-1.0, 0.0, 1.0], size=n) * 0.3
     tidx = rng.integers(0, 2, size=n)
+    return (r, q, tidx, *synthetic_tables())
+
+
+def synthetic_tables():
+    """(tables, rcut) of synthetic's two LJ types with a reaction field."""
+    from ddcmd_tpu_torch.objects import units as U
+
     sigma = np.array([[0.47, 0.57], [0.57, 0.47]])
     eps = np.array([[5.0, 5.6], [5.6, 5.0]])
     rcut = 1.1
@@ -171,7 +196,62 @@ def synthetic(n, L, seed=11):
     tables = dict(sigma=sigma, eps=eps, shift=-4 * eps * (sr6 ** 2 - sr6),
                   rcut2=f32(rcut ** 2), krf=f32(0.5 / rcut ** 3),
                   crf=f32(1.5 / rcut), keR=f32(U.ke / 15.0))
-    return r, q, tidx, tables, rcut
+    return tables, rcut
+
+
+def made_grid(ncells, cap, rlist):
+    """A cell grid of a given shape and capacity (plan_lanes sizes its
+    own from the density)."""
+    from ddcmd_tpu_torch.ops.cellpair import CellBlockGrid, _build_stencil
+
+    return CellBlockGrid(tuple(ncells), cap, rlist, *_build_stencil(ncells))
+
+
+def ragged_system(ncells=(3, 3, 4), cap=128, seed=23):
+    """A box of `ncells` cells whose occupancies cycle through
+    RAGGED_COUNTS and cap (0, 1, 31, 32, 33 and cap atoms), what the
+    kernels' tile cutting and queue flush must survive: each cell's atoms
+    sit on a jittered m x m x 4 sub-lattice strictly inside it (m = 6 in
+    cells of 1.3 nm at cap 128, 8 in cells of 1.73 nm at cap 256; closest
+    pairs ~2 A), in shuffled order, with random species 0/1 and a
+    particle mask that drops a tenth of them.  Binned with a mask of ones
+    the dropped atoms stay inside the cells' counts.  Returns (r (n, 3)
+    f32, box lengths, species (n,), mask (n,) f32, grid), all host."""
+    m = {128: 6, 256: 8}[cap]
+    edge = 1.3 * m / 6
+    assert cap <= m * m * 4
+    occupancy = (*RAGGED_COUNTS, cap)
+    rng = np.random.default_rng(seed)
+    sites = (np.stack(np.meshgrid(np.arange(m), np.arange(m), np.arange(4),
+                                  indexing="ij"), -1).reshape(-1, 3) + 0.5) \
+        / np.array([m, m, 4]) * edge
+    L = np.array(ncells, np.float64) * edge
+    r = []
+    for k, c3 in enumerate(np.ndindex(*ncells)):
+        pick = rng.permutation(len(sites))[:occupancy[k % len(occupancy)]]
+        r.append(np.array(c3) * edge - L / 2 + sites[pick])
+    r = np.concatenate(r)
+    r = r + np.clip(rng.standard_normal(r.shape) * 0.01, -0.03, 0.03)
+    r = r[rng.permutation(len(r))].astype(np.float32)
+    n = len(r)
+    return (r, L.tolist(), rng.integers(0, 2, n),
+            (rng.random(n) >= 0.1).astype(np.float32),
+            made_grid(ncells, cap, 0.65))
+
+
+def slab_lattice(ncells, edge, layers=3, per_edge=3, seed=29):
+    """Atoms on a jittered cubic lattice (per_edge^3 a cell, never
+    crossing a cell face) in the first `layers` cell layers along x of a
+    box of `ncells` cells of `edge` nm; the rest of the box is empty.
+    Returns (r (n, 3), box lengths)."""
+    h = edge / per_edge
+    m = [layers * per_edge, ncells[1] * per_edge, ncells[2] * per_edge]
+    g = np.stack(np.meshgrid(*[np.arange(k) for k in m], indexing="ij"),
+                 -1).reshape(-1, 3)
+    L = np.array(ncells, np.float64) * edge
+    rng = np.random.default_rng(seed)
+    r = (g + 0.5) * h - L / 2 + (rng.random(g.shape) - 0.5) * 0.2 * h
+    return r, L.tolist()
 
 
 def packed_inputs(r, q, tidx, L, grid, tables, dev, G=1):
@@ -278,11 +358,12 @@ def full_vs_half(name, fargs, fkw, hargs):
 
 
 def sweep_work(slots, stencil, L8, counts):
-    """(candidate pair tests, in-cutoff pairs) of one half-stencil sweep
-    on these inputs, as the kernels trim it: counts[c] * counts[tgt]
-    candidates per (cell, direction), counts[c] (counts[c] - 1) / 2 in
-    the self block 0; in cutoff: both slots valid and 0 < d2 < rcut^2.
-    Each unordered pair is counted once."""
+    """(candidate pairs, in-cutoff pairs) of one half-stencil sweep on
+    these inputs.  Candidates, reported only: counts[c] * counts[tgt] per
+    (cell, direction), counts[c] (counts[c] - 1) / 2 in the self block 0,
+    what a sweep trimmed by `counts` alone would test.  In cutoff, what
+    the bound counts: both slots valid and 0 < d2 < rcut^2.  Each
+    unordered pair is counted once."""
     n_prog, cap = stencil.shape[0], slots.shape[2]
     L8 = L8.reshape(-1)
     home = slots[:n_prog]
@@ -310,13 +391,13 @@ def bound(args, outs, ops_pair, work=None):
     """(bound_ms, bound_by, candidates, in-cutoff pairs): the larger of
     the f32 operations these inputs need over PEAK_F32 and the bytes the
     call must move (each input read once, each output written once) over
-    PEAK_BW.  The operations are those of a half-stencil sweep
-    (sweep_work) of `work`, a half-stencil call's arguments on the same
-    records (`args` by default): a full-stencil call computes the same
-    function, each pair tested from both sides, and its bound counts
-    each pair once."""
+    PEAK_BW.  The operations are the distance test and the ops_pair
+    operations of every in-cutoff pair (sweep_work) of `work`, a
+    half-stencil call's arguments on the same records (`args` by
+    default): a full-stencil call computes the same function, each pair
+    met from both sides, and its bound counts each pair once."""
     cand, hits = sweep_work(*cell_view(args if work is None else work))
-    ops = OPS_TEST * cand + ops_pair * hits
+    ops = (OPS_TEST + ops_pair) * hits
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
                  if torch.is_tensor(t))
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BW
@@ -698,7 +779,11 @@ def eam_kernel_phase(dev):
     phase("kernel", f"column vs per-cell EAM kernels on the nc={EAM_BIG_NC} "
           f"slots: rho err {rerr:.3g}, force err {ferr:.3g} (scale "
           f"{scale:.4g}); per-cell rho kernel {1e3 * ms_rho:.2f} us/call, "
-          f"force kernel {1e3 * ms_force:.2f} us/call")
+          f"force kernel {1e3 * ms_force:.2f} us/call, beside the column "
+          f"kernels' {1e3 * res['eam_rho_col'][1]:.2f}, "
+          f"{1e3 * res['eam_force_col'][1]:.2f} in this run")
+    res["eam_rho_on_col_slots"] = (rerr, ms_rho)
+    res["eam_force_on_col_slots"] = (ferr, ms_force)
     del slots, fslots, args, cell_args
 
     # column on a grid with nz == G (aliased union), the alloy
@@ -708,7 +793,97 @@ def eam_kernel_phase(dev):
     eam_compare(f"column EAM FS alloy T=2: nc=8 crystal, cells {hg.ncells}, "
                 f"nz == G = 3 (aliased union, U={args[0].shape[1]})", *col,
                 slots, args, kw, at)
+    for cap in RAGGED_CAPS:
+        ragged_eam_cases(dev, cell, col, tables, at, cap)
+    big_grid_cases(dev, tables)
     return res
+
+
+def ragged_eam_cases(dev, cell, col, tables, alloy, cap):
+    """The per-cell and column EAM kernels against their plain versions
+    on ragged_system(cap=cap): RATIONAL with one species and the
+    asymmetric T = 2 alloy, the column kernels at G = 2 and at G = nz =
+    4."""
+    from ddcmd_tpu_torch.ops.cellpair import build_cell_slots, half_grid
+    from ddcmd_tpu_torch.ops.cellpair_half import grid_tensors
+    from ddcmd_tpu_torch.ops.eam_half import eam_kernel_inputs
+
+    r, L, sidx, fmask, grid = ragged_system(cap=cap)
+    n = len(r)
+    rt = torch.tensor(r, device=dev)
+    Lt = torch.tensor(L, dtype=torch.float32, device=dev)
+    # binned unmasked, so the masked atoms keep their slots
+    perm, ov = build_cell_slots(rt, torch.ones(n, device=dev), Lt, grid)
+    assert not bool(ov), "overflow packing the ragged case"
+    hg = half_grid(grid)
+    for name, tab, species in (("RATIONAL T=1", tables, np.zeros(n, np.int64)),
+                               ("FS alloy T=2", alloy, sidx)):
+        for G in (1, 2, 4):
+            _, _, slots, args, kw = eam_kernel_inputs(
+                rt, torch.as_tensor(species, device=dev),
+                torch.tensor(fmask, device=dev), perm, Lt, hg, tab,
+                grid_tensors(hg, dev, G))
+            counts = args[-2]
+            live = torch.arange(hg.cap, device=dev)[None, :] < counts[:, None]
+            assert sorted(set(counts.tolist())) == [*RAGGED_COUNTS, cap], \
+                sorted(set(counts.tolist()))
+            assert bool(((slots[:, 5] == 0) & live).any()), \
+                "no masked slot inside the counts"
+            what = ("per-cell EAM" if G == 1 else
+                    f"column EAM G={G} (U={args[0].shape[1]})")
+            eam_compare(f"{what} {name}: ragged occupancy, cells "
+                        f"{hg.ncells} of {(*RAGGED_COUNTS, cap)} live slots, "
+                        f"{int((fmask == 0).sum())} of {n} atoms masked",
+                        *(cell if G == 1 else col), slots, args, kw, tab)
+
+
+def big_grid_cases(dev, tables):
+    """Plans of more than 65,535 cells (BIG_NCELLS) at cap 32, atoms in
+    three cell layers and the rest empty: the per-cell pair kernel (#1,
+    charged, T = 2) and the per-cell EAM kernels (#4, the crystal's
+    RATIONAL) against their plain versions."""
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.ops import eam_half as eh
+    from ddcmd_tpu_torch.ops.cellpair import build_cell_slots, half_grid
+    from ddcmd_tpu_torch.ops.cellpair_half import grid_tensors
+
+    ncell = int(np.prod(BIG_NCELLS))
+    assert ncell > 65535
+    # #1: cells of 1.5 nm at rlist 1.4, 27 beads a live cell
+    tabs, rcut = synthetic_tables()
+    r, L = slab_lattice(BIG_NCELLS, 1.5)
+    rng = np.random.default_rng(31)
+    a = packed_inputs(r, rng.choice([-1.0, 0.0, 1.0], size=len(r)) * 0.3,
+                      rng.integers(0, 2, size=len(r)), L,
+                      made_grid(BIG_NCELLS, 32, rcut + 0.3), tabs, dev)
+    empty = float((a[3] == 0).float().mean())
+    assert a[0].shape[0] == ncell and empty > 0.9, (a[0].shape, empty)
+    compare(f"per-cell: {ncell} cells {BIG_NCELLS}, cap 32, {len(r)} beads, "
+            f"{100 * empty:.1f}% of the cells empty, charged T=2",
+            ch.cellpair_half, ch.cellpair_half_plain, a,
+            dict(krf=tabs["krf"], crf=tabs["crf"], keR=tabs["keR"],
+                 coulomb=True))
+    del a
+    # #4: cells of 0.75 nm at rlist 0.65, 27 atoms a live cell, 2.5 A apart
+    r, L = slab_lattice(BIG_NCELLS, 0.75)
+    n = len(r)
+    grid = made_grid(BIG_NCELLS, 32, 0.65)
+    rt = torch.tensor(r, dtype=torch.float32, device=dev)
+    Lt = torch.tensor(L, dtype=torch.float32, device=dev)
+    fmask = torch.ones(n, device=dev)
+    perm, ov = build_cell_slots(rt, fmask, Lt, grid)
+    assert not bool(ov), "overflow packing the big-grid case"
+    hg = half_grid(grid)
+    rho_k, force_k, slots, args, kw = eh.eam_kernel_inputs(
+        rt, torch.zeros(n, dtype=torch.int64, device=dev), fmask, perm, Lt,
+        hg, tables, grid_tensors(hg, dev, 1))
+    empty = float((args[-2] == 0).float().mean())
+    assert slots.shape[0] == ncell and empty > 0.9, (slots.shape, empty)
+    eam_compare(f"per-cell EAM RATIONAL T=1: {ncell} cells {BIG_NCELLS}, cap "
+                f"32, {n} atoms, {100 * empty:.1f}% of the cells empty",
+                (rho_k, force_k),
+                (eh.eam_rho_half_plain, eh.eam_force_half_plain), slots,
+                args, kw, tables)
 
 
 def kernel_phase(dev):
@@ -1500,6 +1675,10 @@ def main(argv=None):
                                 single_rates))
     assert "jax" not in sys.modules
 
+    for name, old_us in OLD_BODY_US.items():
+        phase("redesign", f"{name}: {1e3 * res[name][1]:.2f} us/call, the "
+              f"body it replaced {old_us:.1f} us/call "
+              f"({old_us / (1e3 * res[name][1]):.2f}x) on {card}")
     cellpair, eam = "ddcmd_tpu/ops/pallas_cellpair.py", "ddcmd_tpu/ops/pallas_eam.py"
     shard = "ddcmd_tpu/parallel/pallas_shard.py"
     kernels = {   # entry: (source, the TPU kernel it replaces)

@@ -18,11 +18,12 @@
 //   out_q    (ncell, 8, cap) q-side reaction [fx fy fz pe 0 0 0 0]
 //   out_cell (ncell, 8)      [e vxx vyy vzz vxy vxz vyz 0], each pair once
 //
-// Launch shape: one CTA per (stencil direction, home cell), cap threads,
-// thread i owns p-slot i.  The CTA stages its q block (shifted into the
-// home cell's frame) in shared memory, sweeps j < counts[tgt] (j > i in
-// the self block), keeps the p side in registers and accumulates the q
-// side in shared memory; both then go to global memory with atomicAdd.
+// Launch shape: one CTA per (home cell, stencil direction), the cell on
+// blockIdx.x, cap threads, thread i owns p-slot i.  The CTA stages its q
+// block (shifted into the home cell's frame) in shared memory, sweeps
+// j < counts[tgt] (j > i in the self block), keeps the p side in
+// registers and accumulates the q side in shared memory; both then go to
+// global memory with atomicAdd.
 //
 // What bounds it on an H100: at the waterbox shapes (80 cells, cap 128,
 // ~77 beads a cell) a CTA evaluates ~6k candidate pairs of which ~2% lie
@@ -93,8 +94,8 @@ cellpair_half_kernel(const float* __restrict__ slots,
   float* tab = aq + 4 * cap;     // 3*T*T [sigma eps shift]
   __shared__ float red[kMaxWarps][7];
 
-  const int s = blockIdx.x;      // stencil direction (0 = self block)
-  const int c = blockIdx.y;      // home cell
+  const int c = blockIdx.x;      // home cell (x: no 65,535 bound on a plan)
+  const int s = blockIdx.y;      // stencil direction (0 = self block)
   const int i = threadIdx.x;     // p slot
   const int TT = T * T;
 
@@ -242,7 +243,7 @@ cudaError_t launch(const float* slots, const int* stencil, const float* L8,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(n_stencil, ncell);
+  const dim3 grid(ncell, n_stencil);
   cellpair_half_kernel<kCoulomb, kExcl><<<grid, cap, smem, stream>>>(
       slots, stencil, L8, counts, sigma, eps, shift, out_p, out_q, out_cell,
       cap, n_stencil, T, krf, crf, keR);

@@ -1,6 +1,6 @@
-// Two-pass EAM on the half stencil (Newton's third law), one cell per
-// CTA row: pass A (density) and pass B (force) for the analytic forms
-// FS / SC / EXP / AT / RATIONAL, alloys of 1-4 species.
+// Two-pass EAM on the half stencil (Newton's third law), per cell: pass A
+// (density) and pass B (force) for the analytic forms FS / SC / EXP / AT /
+// RATIONAL, alloys of 1-4 species.
 //
 // Replaces the TPU kernels ddcmd_tpu/ops/pallas_eam.py:_rho_kernel (pass
 // A) and _force_kernel (pass B), with their tile math (_geometry,
@@ -27,27 +27,34 @@
 // asymmetric-alloy combine (eam.c:166-190), with force -coef*d on p and
 // +coef*d on q.
 //
-// Launch shape: as csrc/cellpair_half.cu, one CTA per (stencil direction,
-// home cell), cap threads, thread i owns p-slot i.  The CTA stages its q
-// block (shifted into the home cell's frame, plus dF in pass B) and the
-// parameter table in shared memory, sweeps j < counts[tgt] from a
-// per-thread start (j = i + k mod nq), keeps the p side in registers and
-// accumulates the q side in shared memory with atomics; both then go to
-// global memory with atomicAdd.  The TPU kernels' in-order q-side
-// read-modify-write (race-free only because the TPU grid is sequential)
-// and their alias groups become these atomics, so sums are not
-// deterministic and every comparison states a tolerance.
+// Launch shape: one CTA of kThreads threads per (home cell, group of
+// stencil directions), the cell on blockIdx.x (so a plan may hold more
+// than 65,535 cells) and the group on blockIdx.y.  The CTA stages the
+// home cell and its group's q blocks once, pruned to the atoms that can
+// have a partner, its warps sweep (direction, p tile, q chunk) items
+// with the two-phase body of csrc/eam_sweep.cuh, and the sums leave
+// shared memory once: the p side with a plain store when the CTA holds
+// all directions of its cell (one group), else with atomicAdd; the q
+// side with one atomicAdd per live slot of each target cell (other cells
+// add to the same rows).  The host picks the group size: as many
+// directions as fit in kSmemBudget bytes of shared memory (4 at cap 128,
+// so ~9 CTAs share an SM), fewer when the grid has too few cells to give
+// each SM of the card kFillCtasPerSm CTAs.  A CTA whose home cell is
+// empty leaves at once and a direction whose target is empty (on an
+// extended grid: the sentinel) stages and adds nothing, so such out_q rows
+// stay exactly 0.
+// The TPU kernels' in-order q-side read-modify-write (race-free only
+// because the TPU grid is sequential) and their alias groups become
+// atomics, so sums are not deterministic and every comparison states a
+// tolerance.
 //
-// What bounds it on an H100: at the copper crystal's shapes (fcc at
-// a = 3.615 A, rcut 5.5 A, 100 cells of ~69 atoms at cap 128) a p atom
-// meets ~970 candidates in its 14 blocks and ~27 of them lie inside the
-// cutoff, so, as for the LJ kernel, the shared-memory reads and compare
-// of the distance test over every candidate bound the sweep; the form
-// arithmetic (exp/log/pow, or two rational Horner sums; twice for the
-// transposed density of an alloy) and the q-side shared atomics run for
-// the ~3% inside.  The slots (100 cells x 4 KB) stay in L2.  Occupancy
-// trimming (loop bounds from counts) removes the padded part of the
-// cap^2 tile exactly.
+// What bounds it on an H100, and what the design does about it: see
+// csrc/eam_sweep.cuh.  Operations, not bytes (the crystal's slots stay in
+// L2): of the ~970 candidates a p atom has in its 14 blocks the box
+// pruning leaves about a quarter to the distance test, and what then
+// weighs most is phase 2's shared-memory float atomics (compare-and-swap
+// loops on this card) and the staging, both a matter of latency that the
+// many small CTAs an SM hide.
 //
 // Built with nvcc -O3 for sm_90a, without --use_fast_math and with
 // --fmad=false, so the distance arithmetic and the cutoff decisions
@@ -55,21 +62,22 @@
 
 #include <cuda_runtime.h>
 
-#include "eam_forms.cuh"
+#include "eam_sweep.cuh"
 
 namespace {
 
-constexpr int kRec = 8;        // record rows per slot
-constexpr int kMaxWarps = 32;  // cap <= 1024
+using eam::kRec;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kThreads = 128;   // CTA size: 4 warps
+
+// shared memory a CTA aims to stay under, so that several share an SM
+constexpr int kSmemBudget = 24 * 1024;
+// CTAs the grid should hold at least for each SM of the card, else the
+// directions of a cell are spread over more CTAs
+constexpr int kFillCtasPerSm = 4;
 
 template <int kForm, bool kForce>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kThreads)
 eam_half_kernel(const float* __restrict__ slots,
                 const int* __restrict__ stencil,
                 const float* __restrict__ L8,
@@ -78,133 +86,77 @@ eam_half_kernel(const float* __restrict__ slots,
                 float* __restrict__ out_p,
                 float* __restrict__ out_q,
                 float* __restrict__ out_cell,
-                int cap, int n_stencil, int T, int npar, int D) {
-  constexpr int kRows = kForce ? 6 : 5;   // staged: x y z type valid [dF]
-  constexpr int kAcc = kForce ? 3 : 2;    // q side: [fx fy fz] or [rho pe]
-  extern __shared__ float smem[];
-  float* qx = smem;              // q block, shifted into the p frame
-  float* qy = qx + cap;
-  float* qz = qy + cap;
-  float* qt = qz + cap;          // species index (exact small integer)
-  float* qv = qt + cap;          // valid
-  float* qf = qv + cap;          // dF (pass B)
-  float* aq = smem + kRows * cap;
-  float* tab = aq + kAcc * cap;  // T*T*npar parameter rows
-  __shared__ float red[kMaxWarps][6];
+                int cap, int n_stencil, int T, int npar, int D, int dg) {
+  constexpr int kAcc = kForce ? 3 : 2;    // [fx fy fz] or [rho pe]
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int s = blockIdx.x;      // stencil direction (0 = self block)
-  const int c = blockIdx.y;      // home cell
-  const int i = threadIdx.x;     // p slot
-
-  const int* st = stencil + (static_cast<size_t>(c) * n_stencil + s) * 4;
-  const int tgt = st[0];
-  const float sx = static_cast<float>(st[1]) * L8[0];
-  const float sy = static_cast<float>(st[2]) * L8[1];
-  const float sz = static_cast<float>(st[3]) * L8[2];
-  const float rcut2 = L8[3];
+  const int c = blockIdx.x;               // home cell
+  const int s0 = blockIdx.y * dg;         // first stencil direction
+  const int nd = min(dg, n_stencil - s0);
+  const int t = threadIdx.x;
   // counts come from the caller: never let them index past the tile
   const int np = min(counts[c], cap);
-  const int nq = min(counts[tgt], cap);
-  // a block with no p or no q particle (an empty cell, or on an extended
-  // grid a direction that reaches the sentinel) adds nothing; the CTA
-  // leaves before staging (np and nq are uniform over the block)
-  if (np == 0 || nq == 0) return;
+  // an empty home cell adds nothing: the CTA leaves before staging
+  if (np == 0) return;
 
-  const float* Q = slots + static_cast<size_t>(tgt) * kRec * cap;
-  qx[i] = Q[i] + sx;
-  qy[i] = Q[cap + i] + sy;
-  qz[i] = Q[2 * cap + i] + sz;
-  qt[i] = Q[4 * cap + i];
-  qv[i] = Q[5 * cap + i];
-  if (kForce) qf[i] = Q[6 * cap + i];
+  const int ntab = T * T * npar;
+  const eam::Layout lay =
+      eam::make_layout(cap, dg, dg, ntab, kForce, kThreads / 32);
+  const eam::View v = eam::make_view(smem, lay, dg, dg);
+  __shared__ float pbox[kThreads / 32][6];
+  if (t < nd) {
+    const int* st = stencil + (static_cast<size_t>(c) * n_stencil + s0 + t) * 4;
+    v.dtgt[t] = st[0];
+    v.dcnt[t] = min(counts[st[0]], cap);
+    v.dblk[t] = t;
+    v.dsh[3 * t] = static_cast<float>(st[1]) * L8[0];
+    v.dsh[3 * t + 1] = static_cast<float>(st[2]) * L8[1];
+    v.dsh[3 * t + 2] = static_cast<float>(st[3]) * L8[2];
+  }
+  if (t == 0) *v.next = 0;
+  for (int k = t; k < ntab; k += kThreads) v.tab[k] = params[k];
+  eam::stage_home<kForce>(v, slots + static_cast<size_t>(c) * kRec * cap, cap,
+                          np, T, pbox);
+  __syncthreads();
+  for (int idx = t; idx < nd * cap; idx += kThreads) {
+    const int d = idx / cap;
+    const int j = idx - d * cap;
+    if (j >= v.dcnt[d]) continue;
 #pragma unroll
-  for (int k = 0; k < kAcc; ++k) aq[k * cap + i] = 0.f;
-  for (int k = i; k < T * T * npar; k += blockDim.x) tab[k] = params[k];
+    for (int k = 0; k < kAcc; ++k) v.aq[(d * kAcc + k) * cap + j] = 0.f;
+  }
+  const float rcut2 = L8[3];
+  // the self block is stencil direction 0
+  const int dself = s0 == 0 ? 0 : -1;
+  eam::stage_dirs<kForce>(v, slots, cap, np, nd, dself, T,
+                          sqrtf(rcut2) * eam::kBoxSlack, pbox);
   __syncthreads();
 
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;   // p side: [rho pe] or [fx fy fz]
-  float vxx = 0.f, vyy = 0.f, vzz = 0.f, vxy = 0.f, vxz = 0.f, vyz = 0.f;
-  if (i < np && nq > 0) {
-    const float* P = slots + static_cast<size_t>(c) * kRec * cap;
-    const float px = P[i];
-    const float py = P[cap + i];
-    const float pz = P[2 * cap + i];
-    const int tp = T == 1 ? 0 : static_cast<int>(P[4 * cap + i]);
-    const float pv = P[5 * cap + i];
-    const float dFp = kForce ? P[6 * cap + i] : 0.f;
-    const float* prow = tab + tp * T * npar;   // rows (t_p, *)
-    int j = i % nq;
-    for (int k = 0; k < nq; ++k, j = (j + 1 == nq) ? 0 : j + 1) {
-      if (s == 0 && j <= i) continue;   // self block: each pair once
-      const float dx = px - qx[j];
-      const float dy = py - qy[j];
-      const float dz = pz - qz[j];
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      if (!(pv * qv[j] > 0.f) || !(d2 < rcut2) || !(d2 > 0.f)) continue;
-      const float ir = 1.0f / sqrtf(d2);
-      const float ir2 = 1.0f / d2;
-      const int tq = T == 1 ? 0 : static_cast<int>(qt[j]);
-      float e, p;
-      eam::pair_eval<kForm, kForce>(prow + tq * npar, D, d2, ir, ir2, e, p);
-      float pT = p;                     // density term on the q side
-      if (tq != tp) {
-        float eT;
-        eam::pair_eval<kForm, kForce>(tab + (tq * T + tp) * npar, D, d2, ir,
-                                      ir2, eT, pT);
-      }
-      if (!kForce) {
-        a0 += p;
-        a1 += 0.5f * e;
-        atomicAdd(&aq[j], pT);
-        atomicAdd(&aq[cap + j], 0.5f * e);
-      } else {
-        const float coef = e + dFp * p + qf[j] * pT;
-        const float fdx = coef * dx;
-        const float fdy = coef * dy;
-        const float fdz = coef * dz;
-        a0 -= fdx;
-        a1 -= fdy;
-        a2 -= fdz;
-        vxx -= fdx * dx;
-        vyy -= fdy * dy;
-        vzz -= fdz * dz;
-        vxy -= fdx * dy;
-        vxz -= fdx * dz;
-        vyz -= fdy * dz;
-        atomicAdd(&aq[j], fdx);
-        atomicAdd(&aq[cap + j], fdy);
-        atomicAdd(&aq[2 * cap + j], fdz);
-      }
-    }
-    float* op = out_p + (static_cast<size_t>(c) * cap + i) * kAcc;
-    atomicAdd(op, a0);
-    atomicAdd(op + 1, a1);
-    if (kForce) atomicAdd(op + 2, a2);
-  }
+  float vir[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  eam::sweep<kForm, kForce>(v, cap, nd, dself, rcut2, T, npar, D, vir);
   __syncthreads();
 
-  if (i < nq) {
-    float* oq = out_q + static_cast<size_t>(tgt) * kRec * cap;
-#pragma unroll
-    for (int k = 0; k < kAcc; ++k) atomicAdd(&oq[k * cap + i], aq[k * cap + i]);
+  const bool whole = gridDim.y == 1;      // this CTA holds the whole cell
+  for (int idx = t; idx < np * kAcc; idx += kThreads) {
+    const int i = idx / kAcc;
+    const int k = idx - i * kAcc;
+    float* o = out_p + (static_cast<size_t>(c) * cap + i) * kAcc + k;
+    if (whole)
+      *o = v.ap[k * cap + i];
+    else
+      atomicAdd(o, v.ap[k * cap + i]);
   }
-
-  if (kForce) {
-    float vals[6] = {vxx, vyy, vzz, vxy, vxz, vyz};
-    const int lane = i & 31;
-    const int warp = i >> 5;
+  for (int idx = t; idx < nd * cap; idx += kThreads) {
+    const int d = idx / cap;
+    const int j = idx - d * cap;
+    if (j >= v.dcnt[d]) continue;
+    float* oq = out_q + static_cast<size_t>(v.dtgt[d]) * kRec * cap + j;
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float v = warp_sum(vals[k]);
-      if (lane == 0) red[warp][k] = v;
-    }
-    __syncthreads();
-    if (i < 6) {
-      float t = 0.f;
-      for (int w = 0; w < (blockDim.x >> 5); ++w) t += red[w][i];
-      atomicAdd(&out_cell[static_cast<size_t>(c) * 8 + i], t);
-    }
+    for (int k = 0; k < kAcc; ++k)
+      atomicAdd(&oq[k * cap], v.aq[(d * kAcc + k) * cap + j]);
   }
+  if (kForce)
+    eam::reduce_virial<false>(vir, out_cell + static_cast<size_t>(c) * 8);
 }
 
 template <int kForm, bool kForce>
@@ -213,19 +165,39 @@ cudaError_t launch(const float* slots, const int* stencil, const float* L8,
                    float* out_q, float* out_cell, int ncell, int cap,
                    int n_stencil, int T, int npar, int D,
                    cudaStream_t stream) {
-  const size_t smem = ((kForce ? 9 : 7) * static_cast<size_t>(cap) +
-                       static_cast<size_t>(T) * T * npar) *
-                      sizeof(float);
+  if (ncell < 1 || n_stencil < 1 || cap < 32 || cap > eam::kMaxCap ||
+      cap % 32)
+    return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int ntab = T * T * npar;
+  auto bytes = [&](int nd) {
+    return eam::make_layout(cap, nd, nd, ntab, kForce, kThreads / 32).bytes;
+  };
+  // directions a CTA: all that fit in the budget (at least one) ...
+  int fit = n_stencil < eam::kMaxDirs ? n_stencil : eam::kMaxDirs;
+  while (fit > 1 && bytes(fit) > kSmemBudget) --fit;
+  if (bytes(fit) > eam::kSmemMax) return cudaErrorInvalidValue;
+  // ... spread over more CTAs when the grid has few cells
+  const int want = (kFillCtasPerSm * sms + ncell - 1) / ncell;
+  int groups = (n_stencil + fit - 1) / fit;
+  if (groups < want) groups = want < n_stencil ? want : n_stencil;
+  const int dg = (n_stencil + groups - 1) / groups;
+  groups = (n_stencil + dg - 1) / dg;
+  const int smem = bytes(dg);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        eam_half_kernel<kForm, kForce>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(eam_half_kernel<kForm, kForce>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(n_stencil, ncell);
-  eam_half_kernel<kForm, kForce><<<grid, cap, smem, stream>>>(
+  const dim3 grid(ncell, groups);
+  eam_half_kernel<kForm, kForce><<<grid, kThreads, smem, stream>>>(
       slots, stencil, L8, counts, params, out_p, out_q, out_cell, cap,
-      n_stencil, T, npar, D);
+      n_stencil, T, npar, D, dg);
   return cudaGetLastError();
 }
 
@@ -269,12 +241,12 @@ extern "C" int ddcmd_eam_half(const float* slots, const int* stencil,
 //   counts   (n_slot,) -- every slot cell's occupancy (sentinel 0)
 //   out_p    (n_prog*cap, 2|3); out_q (n_slot, 8, cap); out_cell (n_prog, 8)
 // p is indexed by the program cell and q by the stencil target, so these
-// are the per-cell launches with n_prog rows of programs; the CTAs whose
-// direction reaches the sentinel (count 0) leave at once, so its out_q
+// are the per-cell launches with n_prog cells of programs; a direction
+// that reaches the sentinel (count 0) stages and adds nothing, so its out_q
 // rows stay exactly 0.
 // The q-side shares that land in halo cells are the caller's to reduce
 // home (parallel/brick.halo_reduce_3d).  Bound as the per-cell passes: the
-// shared-memory distance test over every candidate pair.
+// distance test over every candidate pair (csrc/eam_sweep.cuh).
 extern "C" int ddcmd_eam_rho_half_ext(const float* slots, const int* stencil,
                                       const float* L8, const int* counts,
                                       const float* params, float* out_p,

@@ -25,28 +25,36 @@
 //           q-side rows [fx fy fz 0...]; out_col (ncol, 8)
 //           [vxx vyy vzz vxy vxz vyz 0 0], each pair once
 //
-// Launch shape: one CTA per column, NG * cap threads (NG = 512 / cap, at
-// most 4).  The CTA stages the column's U union blocks once in shared
-// memory (x y z type valid, plus dF in pass B) -- the Hopper counterpart
-// of the TPU kernels' union DMA -- with one q-side accumulator per union
-// block (2 rows in pass A, 3 in pass B), then sweeps each member cell
-// against its 14 direction blocks: thread (k, i) owns p-slot i and the
-// directions s = k, k + NG, ...  p-side sums go to a shared per-member
-// accumulator, q-side sums to the union block's accumulator (shared
-// atomics), then to global memory with one atomicAdd per live slot.
-// Periodic aliasing (nz == G) needs nothing more: the union is
-// deduplicated on the host and every contribution is an atomic add.
+// Launch shape: one CTA of kThreads threads per column, three an SM.  What the
+// column keeps from the TPU kernels' union is the q side: one accumulator
+// block per union block (2 rows of cap in pass A, 3 in pass B) stays in
+// shared memory for the whole column, so a target cell that several
+// members reach gets one atomicAdd per live slot and column, not one per
+// member and direction; and each member's p side is stored, not added
+// (a slot belongs to one column).  The records are not kept: the slots
+// of the 131,072-atom crystal are 6.5 MB in a 50 MB L2, so each member
+// stages its own q blocks from there, kColDirs directions a round,
+// shifted into its frame and pruned to the atoms that can have a partner
+// (csrc/eam_sweep.cuh), and the CTA's warps sweep the round's
+// (direction, p tile, q chunk) items with the two-phase body of
+// csrc/eam_sweep.cuh.  Periodic aliasing (nz == G) needs nothing more:
+// the union is deduplicated on the host, two directions of a member that
+// reach one block through different images are staged apart with their
+// own shifts, and every contribution is an atomic add.
 //
-// Shared memory: U * (kRows + kAcc) * cap + kAcc * cap + T*T*npar floats
-// plus U ints -- pass B at U = 29, cap 128: 134 KB, so one CTA per SM.
-// ops/eam_half.py:eam_col_smem_bytes mirrors this count, and the plan
-// (ops/cellpair_half.py:fit_col_group) lowers G until the union fits.
+// Shared memory (eam::make_layout with kColDirs staged blocks and U
+// accumulator blocks): at U = 29, cap 128, one species, RATIONAL, pass A
+// with 14 staged directions takes 70 KB and pass B with 7 takes 71 KB, so
+// three CTAs share an SM and the crystal's 396 columns are one wave.
+// ops/eam_half.py:eam_col_smem_bytes mirrors the count, and the plan
+// (ops/cellpair_half.py:fit_col_group) lowers G until it fits.
 //
-// What bounds it on an H100: as the per-cell EAM kernel, the distance
-// test over ~970 candidates per p atom (~3% inside the 5.5 A cutoff at
-// the copper crystal's cap 128 cells), now with 16 warps per SM instead
-// of many small CTAs; the staging saves device-memory reads that the L2
-// would mostly serve anyway (the 131,072-atom crystal's slots are 6.5 MB).
+// What bounds it on an H100, and what the design does about it: see
+// csrc/eam_sweep.cuh (operations, not bytes).  Beside the per-cell kernel
+// on the same slots it saves global atomics and loses on latency: three
+// CTAs of 8 warps an SM, with a barrier before and after each round's
+// staging, hide phase 2's compare-and-swap loops less well than the
+// per-cell grid's many small CTAs.
 //
 // Built with nvcc -O3 for sm_90a, without --use_fast_math and with
 // --fmad=false.  Sums are accumulated with atomics and are therefore not
@@ -54,16 +62,21 @@
 
 #include <cuda_runtime.h>
 
-#include "eam_forms.cuh"
+#include "eam_sweep.cuh"
 
 namespace {
 
-constexpr int kRec = 8;        // record rows per slot
-constexpr int kDirsN = 14;     // half stencil: self + 13 positive offsets
-// at most 512 threads a CTA and one CTA per SM (the staged union takes
-// most of the shared memory): a budget of 128 registers a thread
-constexpr int kMaxThreads = 512;
-constexpr int kMaxWarps = kMaxThreads / 32;
+using eam::kDirsN;
+using eam::kRec;
+
+// directions a member stages per round: all 14 in pass A, 7 in pass B,
+// whose dF rows and third accumulator row would otherwise leave an SM
+// room for two CTAs, not three
+template <bool kForce>
+constexpr int kColDirs = kForce ? 7 : 14;
+// CTA size: 12 warps on pass A's 14 directions, 8 on pass B's 7
+template <bool kForce>
+constexpr int kThreads = kForce ? 256 : 384;
 
 // _half_dirs(): self first, then the lexicographically positive offsets
 __constant__ int kDirs[kDirsN][3] = {
@@ -71,14 +84,8 @@ __constant__ int kDirs[kDirsN][3] = {
     {1, -1, -1}, {1, -1, 0}, {1, -1, 1}, {1, 0, -1}, {1, 0, 0},
     {1, 0, 1},   {1, 1, -1}, {1, 1, 0},  {1, 1, 1}};
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <int kForm, bool kForce>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(kThreads<kForce>, 3)
 eam_half_col_kernel(const float* __restrict__ slots,
                     const int* __restrict__ stencil_col,
                     const int* __restrict__ member_u,
@@ -89,168 +96,83 @@ eam_half_col_kernel(const float* __restrict__ slots,
                     float* __restrict__ out_q,
                     float* __restrict__ out_col,
                     int cap, int G, int U, int T, int npar, int D) {
-  constexpr int kRows = kForce ? 6 : 5;   // staged: x y z type valid [dF]
   constexpr int kAcc = kForce ? 3 : 2;    // [fx fy fz] or [rho pe]
-  extern __shared__ float smem[];
-  float* rec = smem;                        // U * kRows * cap
-  float* aq = rec + U * kRows * cap;        // U * kAcc * cap q-side sums
-  float* ap = aq + U * kAcc * cap;          // kAcc * cap p-side (member)
-  float* tab = ap + kAcc * cap;             // T*T*npar parameter rows
-  int* nu = reinterpret_cast<int*>(tab + T * T * npar);   // U occupancies
-  __shared__ float red[kMaxWarps][6];
+  constexpr int kNt = kThreads<kForce>;   // threads of this CTA
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int c = blockIdx.x;                 // column
+  const int c = blockIdx.x;               // column
   const int t = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int ng = nthr / cap;                // direction groups
-  const int grp = t / cap;
-  const int i = t - grp * cap;              // p slot
   const int* ucell = stencil_col + static_cast<size_t>(c) * U;
+  const int ntab = T * T * npar;
+  const eam::Layout lay = eam::make_layout(cap, kColDirs<kForce>, U, ntab,
+                                           kForce, kNt / 32);
+  const eam::View v = eam::make_view(smem, lay, kColDirs<kForce>, U);
 
-  // --- stage the union once -------------------------------------------
-  for (int k = t; k < U * cap; k += nthr) {
-    const int u = k / cap;
-    const int j = k - u * cap;
-    const float* Q = slots + static_cast<size_t>(ucell[u]) * kRec * cap;
-    float* R = rec + u * kRows * cap;
-    R[j] = Q[j];
-    R[cap + j] = Q[cap + j];
-    R[2 * cap + j] = Q[2 * cap + j];
-    R[3 * cap + j] = Q[4 * cap + j];        // species index
-    R[4 * cap + j] = Q[5 * cap + j];        // valid
-    if (kForce) R[5 * cap + j] = Q[6 * cap + j];   // dF
-    float* A = aq + u * kAcc * cap;
-#pragma unroll
-    for (int a = 0; a < kAcc; ++a) A[a * cap + j] = 0.f;
-  }
-  for (int k = t; k < T * T * npar; k += nthr) tab[k] = params[k];
+  __shared__ float pbox[kNt / 32][6];
   // counts come from the caller: never let them index past the tile
-  for (int u = t; u < U; u += nthr) nu[u] = min(counts[ucell[u]], cap);
+  for (int u = t; u < U; u += kNt) v.bnq[u] = min(counts[ucell[u]], cap);
+  for (int k = t; k < U * kAcc * cap; k += kNt) v.aq[k] = 0.f;
+  for (int k = t; k < ntab; k += kNt) v.tab[k] = params[k];
+  __syncthreads();
 
-  const float Lx = L8[0], Ly = L8[1], Lz = L8[2];
   const float rcut2 = L8[3];
-  float vxx = 0.f, vyy = 0.f, vzz = 0.f, vxy = 0.f, vxz = 0.f, vyz = 0.f;
-
+  const float rc = sqrtf(rcut2) * eam::kBoxSlack;
+  float vir[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int g = 0; g < G; ++g) {
     const int cell = c * G + g;
-    for (int k = t; k < kAcc * cap; k += nthr) ap[k] = 0.f;
-    __syncthreads();   // union staged (first member) and ap cleared
-
     const int* mu = member_u + g * kDirsN;
-    const int uself = mu[0];
-    const int np = nu[uself];
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    if (i < np) {
-      const float* P = rec + uself * kRows * cap;
-      const float px = P[i];
-      const float py = P[cap + i];
-      const float pz = P[2 * cap + i];
-      const int tp = T == 1 ? 0 : static_cast<int>(P[3 * cap + i]);
-      const float pv = P[4 * cap + i];
-      const float dFp = kForce ? P[5 * cap + i] : 0.f;
-      const float* prow = tab + tp * T * npar;   // rows (t_p, *)
-      for (int s = grp; s < kDirsN; s += ng) {
+    const int np = v.bnq[mu[0]];
+    if (np == 0) continue;                // uniform over the CTA
+    for (int s0 = 0; s0 < kDirsN; s0 += kColDirs<kForce>) {
+      const int nd = min(kColDirs<kForce>, kDirsN - s0);
+      const int dself = s0 == 0 ? 0 : -1; // the self block is direction 0
+      __syncthreads();                    // the sweep before is done
+      if (t < nd) {
+        const int s = s0 + t;
         const int u = mu[s];
-        const int nq = nu[u];
-        if (nq == 0) continue;
-        const float sx = static_cast<float>(kDirs[s][0]) * Lx;
-        const float sy = static_cast<float>(kDirs[s][1]) * Ly;
-        const float sz = static_cast<float>(kDirs[s][2]) * Lz;
-        const float* Q = rec + u * kRows * cap;
-        float* A = aq + u * kAcc * cap;
-        int j = i % nq;
-        for (int k = 0; k < nq; ++k, j = (j + 1 == nq) ? 0 : j + 1) {
-          if (s == 0 && j <= i) continue;   // self block: each pair once
-          const float dx = px - (Q[j] + sx);
-          const float dy = py - (Q[cap + j] + sy);
-          const float dz = pz - (Q[2 * cap + j] + sz);
-          const float d2 = dx * dx + dy * dy + dz * dz;
-          if (!(pv * Q[4 * cap + j] > 0.f) || !(d2 < rcut2) || !(d2 > 0.f))
-            continue;
-          const float ir = 1.0f / sqrtf(d2);
-          const float ir2 = 1.0f / d2;
-          const int tq = T == 1 ? 0 : static_cast<int>(Q[3 * cap + j]);
-          float e, p;
-          eam::pair_eval<kForm, kForce>(prow + tq * npar, D, d2, ir, ir2, e,
-                                        p);
-          float pT = p;                     // density term on the q side
-          if (tq != tp) {
-            float eT;
-            eam::pair_eval<kForm, kForce>(tab + (tq * T + tp) * npar, D, d2,
-                                          ir, ir2, eT, pT);
-          }
-          if (!kForce) {
-            a0 += p;
-            a1 += 0.5f * e;
-            atomicAdd(&A[j], pT);
-            atomicAdd(&A[cap + j], 0.5f * e);
-          } else {
-            const float coef = e + dFp * p + Q[5 * cap + j] * pT;
-            const float fdx = coef * dx;
-            const float fdy = coef * dy;
-            const float fdz = coef * dz;
-            a0 -= fdx;
-            a1 -= fdy;
-            a2 -= fdz;
-            vxx -= fdx * dx;
-            vyy -= fdy * dy;
-            vzz -= fdz * dz;
-            vxy -= fdx * dy;
-            vxz -= fdx * dz;
-            vyz -= fdy * dz;
-            atomicAdd(&A[j], fdx);
-            atomicAdd(&A[cap + j], fdy);
-            atomicAdd(&A[2 * cap + j], fdz);
-          }
-        }
+        v.dtgt[t] = ucell[u];
+        v.dcnt[t] = v.bnq[u];
+        v.dblk[t] = u;
+        v.dsh[3 * t] = static_cast<float>(kDirs[s][0]) * L8[0];
+        v.dsh[3 * t + 1] = static_cast<float>(kDirs[s][1]) * L8[1];
+        v.dsh[3 * t + 2] = static_cast<float>(kDirs[s][2]) * L8[2];
       }
-      if (ng == 1) {
-        ap[i] = a0;
-        ap[cap + i] = a1;
-        if (kForce) ap[2 * cap + i] = a2;
-      } else {
-        atomicAdd(&ap[i], a0);
-        atomicAdd(&ap[cap + i], a1);
-        if (kForce) atomicAdd(&ap[2 * cap + i], a2);
-      }
+      if (t == 0) *v.next = 0;
+      // the home cell once a member (its box too: pbox stays)
+      if (s0 == 0)
+        eam::stage_home<kForce>(
+            v, slots + static_cast<size_t>(cell) * kRec * cap, cap, np, T,
+            pbox);
+      __syncthreads();
+      eam::stage_dirs<kForce>(v, slots, cap, np, nd, dself, T, rc, pbox);
+      __syncthreads();
+      eam::sweep<kForm, kForce>(v, cap, nd, dself, rcut2, T, npar, D, vir);
     }
     __syncthreads();
-    if (t < cap && t < np) {
-      float* op = out_p + (static_cast<size_t>(cell) * cap + t) * kAcc;
-#pragma unroll
-      for (int a = 0; a < kAcc; ++a) op[a] = ap[a * cap + t];
+    // the member's p side: this column owns the slots, so a plain store
+    for (int idx = t; idx < np * kAcc; idx += kNt) {
+      const int i = idx / kAcc;
+      const int k = idx - i * kAcc;
+      out_p[(static_cast<size_t>(cell) * cap + i) * kAcc + k] =
+          v.ap[k * cap + i];
     }
-    __syncthreads();   // ap read out before the next member clears it
   }
+  __syncthreads();
 
   // --- q side: one atomic add per live slot of every union block --------
-  for (int k = t; k < U * cap; k += nthr) {
+  for (int k = t; k < U * cap; k += kNt) {
     const int u = k / cap;
     const int j = k - u * cap;
-    if (j >= nu[u]) continue;
-    const float* A = aq + u * kAcc * cap;
-    float* oq = out_q + static_cast<size_t>(ucell[u]) * kRec * cap;
+    if (j >= v.bnq[u]) continue;
+    float* oq = out_q + static_cast<size_t>(ucell[u]) * kRec * cap + j;
 #pragma unroll
-    for (int a = 0; a < kAcc; ++a) atomicAdd(&oq[a * cap + j], A[a * cap + j]);
+    for (int a = 0; a < kAcc; ++a)
+      atomicAdd(&oq[a * cap], v.aq[(u * kAcc + a) * cap + j]);
   }
 
   // --- per-column virial (pass B) ----------------------------------------
-  if (kForce) {
-    float vals[6] = {vxx, vyy, vzz, vxy, vxz, vyz};
-    const int lane = t & 31;
-    const int warp = t >> 5;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float v = warp_sum(vals[k]);
-      if (lane == 0) red[warp][k] = v;
-    }
-    __syncthreads();
-    if (t < 6) {
-      float sum = 0.f;
-      for (int w = 0; w < (nthr >> 5); ++w) sum += red[w][t];
-      out_col[static_cast<size_t>(c) * 8 + t] = sum;
-    }
-  }
+  if (kForce)
+    eam::reduce_virial<true>(vir, out_col + static_cast<size_t>(c) * 8);
 }
 
 template <int kForm, bool kForce>
@@ -259,22 +181,21 @@ cudaError_t launch(const float* slots, const int* stencil_col,
                    const float* params, float* out_p, float* out_q,
                    float* out_col, int ncol, int cap, int G, int U, int T,
                    int npar, int D, cudaStream_t stream) {
-  const int rows = kForce ? 9 : 7;          // staged + accumulator rows
-  const int acc = kForce ? 3 : 2;
-  const size_t smem =
-      (static_cast<size_t>(U) * rows * cap + static_cast<size_t>(acc) * cap +
-       static_cast<size_t>(T) * T * npar + U) *
-      sizeof(float);
-  if (cap % 32 != 0 || cap < 32 || cap > kMaxThreads)
+  if (ncol < 1 || G < 1 || U < 1 || cap < 32 || cap > eam::kMaxCap ||
+      cap % 32)
     return cudaErrorInvalidValue;
+  const int smem =
+      eam::make_layout(cap, kColDirs<kForce>, U, T * T * npar, kForce,
+                       kThreads<kForce> / 32)
+          .bytes;
+  if (smem > eam::kSmemMax) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         eam_half_col_kernel<kForm, kForce>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const int ng = kMaxThreads / cap < 4 ? kMaxThreads / cap : 4;
-  eam_half_col_kernel<kForm, kForce><<<ncol, ng * cap, smem, stream>>>(
+  eam_half_col_kernel<kForm, kForce><<<ncol, kThreads<kForce>, smem, stream>>>(
       slots, stencil_col, member_u, L8, counts, params, out_p, out_q, out_col,
       cap, G, U, T, npar, D);
   return cudaGetLastError();

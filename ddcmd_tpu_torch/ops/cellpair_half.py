@@ -54,7 +54,8 @@ KERNEL_SOURCES = {
     for name in ("cellpair_half", "cellpair_half_col", "cellpair_full",
                  "eam_half", "eam_half_col")}
 # headers the sources include (a newer header rebuilds every library)
-KERNEL_HEADERS = [os.path.join(_PKG, "csrc", "eam_forms.cuh")]
+KERNEL_HEADERS = [os.path.join(_PKG, "csrc", h)
+                  for h in ("eam_forms.cuh", "eam_sweep.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -528,7 +529,7 @@ def _check_common(slots, L8, counts, sigma, eps, shift):
 def cellpair_half(slots, stencil, L8, counts, sigma, eps, shift, *,
                   krf: float, crf: float, keR: float, coulomb: bool,
                   excl: bool = False):
-    """N3L half-stencil pair sweep, one CTA per (direction, cell)
+    """N3L half-stencil pair sweep, one CTA per (cell, direction)
     (contract in csrc/cellpair_half.cu); excl=True masks the pairs the
     record rows 6-7 exclude.
 
@@ -546,8 +547,6 @@ def cellpair_half(slots, stencil, L8, counts, sigma, eps, shift, *,
     if slots.device.type == "cpu":
         return cellpair_half_plain(slots, stencil, L8, counts, sigma, eps,
                                    shift, **kw)
-    if ncell > 65535:
-        raise ValueError(f"ncell={ncell} exceeds the grid's y extent (65535)")
     if (12 * cap + 3 * T * T) * 4 > SMEM_LIMIT:
         raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
     fn = _kernel_fn("cellpair_half")
@@ -586,8 +585,6 @@ def check_ext(slots, stencil, counts):
         raise ValueError(f"{n_prog} programs over {n_slot} slot cells")
     _check({"stencil": (stencil, torch.int32, (n_prog, stencil.shape[1])),
             "counts": (counts, torch.int32, (n_slot,))}, slots.device)
-    if slots.device.type == "cuda" and n_prog > 65535:
-        raise ValueError(f"n_prog={n_prog} exceeds the grid's y extent (65535)")
     return n_prog, n_slot, cap
 
 

@@ -18,7 +18,8 @@ torch ops, write dF into record row 6, run pass B, and scatter the
 per-slot force and energy back to particles.
 
 The kernels are hand-written CUDA (csrc/eam_half.cu, csrc/eam_half_col.cu,
-the per-pair forms in csrc/eam_forms.cuh), built and loaded like the pair
+their shared two-phase sweep in csrc/eam_sweep.cuh, the per-pair forms in
+csrc/eam_forms.cuh), built and loaded like the pair
 kernels (ops/cellpair_half.py: nvcc on first use into _build/, ctypes).
 The TPU kernels bake the form parameters in as constants; here they
 travel as a (T*T, npar) table (`eam_kernel_tables`), one row per ordered
@@ -36,6 +37,13 @@ from .cellpair_half import (SMEM_LIMIT, _check, _kernel_fn, check_ext,
                             col_to_cell_stencil, pack_slots)
 
 FORMS = ("FS", "SC", "EXP", "AT", "RATIONAL")     # eam::Form order
+# launch constants of the kernels (kThreads of csrc/eam_half.cu; kThreads
+# and kColDirs of csrc/eam_half_col.cu, keyed by `force`: the force and
+# the density pass; kQueue of csrc/eam_sweep.cuh), which the
+# shared-memory counts mirror
+EAM_CELL_THREADS, EAM_QUEUE = 128, 64
+EAM_COL_THREADS = {True: 256, False: 384}
+EAM_COL_DIRS = {True: 7, False: 14}
 # parameter row of each closed form, in the column order eam_forms.cuh
 # reads; a RATIONAL row is [phi_cut, rho_cut, phiP, phiQ, rhoP, rhoQ]
 # with each coefficient block `degree` wide
@@ -253,9 +261,7 @@ def _eam_half(force: bool, slots, stencil, L8, counts, params, *, form, T,
     if slots.device.type == "cpu":
         plain = eam_force_half_plain if force else eam_rho_half_plain
         return plain(slots, stencil, L8, counts, params, **kw)
-    if ncell > 65535:
-        raise ValueError(f"ncell={ncell} exceeds the grid's y extent (65535)")
-    if ((9 if force else 7) * cap + T * T * npar) * 4 > SMEM_LIMIT:
+    if eam_cell_smem_bytes(cap, T, npar, force) > SMEM_LIMIT:
         raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
     fn = _kernel_fn("eam_half")
     dev = slots.device
@@ -277,8 +283,8 @@ def _eam_half(force: bool, slots, stencil, L8, counts, params, *, form, T,
 
 def eam_rho_half(slots, stencil, L8, counts, params, *, form: str, T: int,
                  degree: int):
-    """EAM density pass on the half stencil, one CTA per (direction, cell)
-    (contract in csrc/eam_half.cu).  Returns (p side (ncell*cap, 2) [rho,
+    """EAM density pass on the half stencil, one CTA per (cell, group of
+    directions) (contract in csrc/eam_half.cu).  Returns (p side (ncell*cap, 2) [rho,
     pe], accumulated q side (ncell, 8, cap) rows [rho, pe, 0...]).  A CPU
     tensor runs eam_rho_half_plain; a CUDA tensor launches the kernel
     (counted in `eam_rho_half.launches`) or raises."""
@@ -315,7 +321,7 @@ def _eam_half_ext(force: bool, slots, stencil, L8, counts, params, *, form,
     if slots.device.type == "cpu":
         plain = eam_force_half_plain if force else eam_rho_half_plain
         return plain(slots, stencil, L8, counts, params, **kw)
-    if ((9 if force else 7) * cap + T * T * npar) * 4 > SMEM_LIMIT:
+    if eam_cell_smem_bytes(cap, T, npar, force) > SMEM_LIMIT:
         raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
     dev = slots.device
     out_p = torch.zeros((n_prog * cap, 3 if force else 2),
@@ -373,15 +379,36 @@ eam_rho_half_ext.launches = 0
 eam_force_half_ext.launches = 0
 
 
+def _sweep_smem_bytes(cap: int, nd: int, nblk: int, ntab: int,
+                      force: bool, threads: int) -> int:
+    """Dynamic shared memory of a CTA of the EAM kernels
+    (csrc/eam_sweep.cuh:make_layout): the home cell and nd staged
+    direction blocks as 16-byte records, their dF rows in the force pass,
+    a p-side accumulator and nblk q-side accumulator blocks of 2 (3) rows
+    of cap, the kept p slots of each direction, the parameter table, a
+    64-entry hit ring per warp and the integer tables."""
+    acc, df = (3, 1) if force else (2, 0)
+    return (16 * cap * (1 + nd) + 4 * cap * df * (1 + nd)
+            + 4 * acc * cap * (1 + nblk) + 4 * cap * nd + 4 * ntab
+            + 4 * EAM_QUEUE * (threads // 32) + 4 * (8 * nd + nblk + 4))
+
+
+def eam_cell_smem_bytes(cap: int, T: int, npar: int,
+                        force: bool = True) -> int:
+    """The least dynamic shared memory a per-cell EAM pass launches with
+    (csrc/eam_half.cu): one direction a CTA.  The launch takes more
+    directions a CTA while they fit its budget."""
+    return _sweep_smem_bytes(cap, 1, 1, T * T * npar, force,
+                             EAM_CELL_THREADS)
+
+
 def eam_col_smem_bytes(U: int, cap: int, T: int, npar: int,
                        force: bool = True) -> int:
     """Dynamic shared memory of a column EAM pass (csrc/eam_half_col.cu):
-    U staged union blocks of 5 record rows (6 in the force pass, with dF)
-    and their 2 (3) q-side accumulator rows, a 2 (3) row p-side
-    accumulator, the parameter table and the U block occupancies.  The
-    force pass is the larger."""
-    rows, acc = (6, 3) if force else (5, 2)
-    return 4 * (U * (rows + acc) * cap + acc * cap + T * T * npar + U)
+    EAM_COL_DIRS[force] staged direction blocks a round and one q-side
+    accumulator block per union block.  The force pass is the larger."""
+    return _sweep_smem_bytes(cap, EAM_COL_DIRS[force], U, T * T * npar,
+                             force, EAM_COL_THREADS[force])
 
 
 def _eam_half_col(force: bool, slots, stencil_col, member_u, L8, counts,
@@ -400,8 +427,6 @@ def _eam_half_col(force: bool, slots, stencil_col, member_u, L8, counts,
     if slots.device.type == "cpu":
         plain = eam_force_half_col_plain if force else eam_rho_half_col_plain
         return plain(slots, stencil_col, member_u, L8, counts, params, **kw)
-    if cap > 512:
-        raise ValueError(f"cap={cap}: the column kernels take cap <= 512")
     smem = eam_col_smem_bytes(U, cap, T, npar, force)
     if smem > SMEM_LIMIT:
         raise ValueError(
@@ -429,11 +454,11 @@ def _eam_half_col(force: bool, slots, stencil_col, member_u, L8, counts,
 def eam_rho_half_col(slots, stencil_col, member_u, L8, counts, params, *,
                      form: str, T: int, degree: int):
     """Column density pass: one CTA per column of G z-contiguous cells,
-    the column's U union blocks staged once in shared memory (contract in
-    csrc/eam_half_col.cu).  Returns as eam_rho_half.  A CPU tensor runs
-    eam_rho_half_col_plain; a CUDA tensor launches the kernel (counted in
-    `eam_rho_half_col.launches`) or raises -- also when the staged union
-    does not fit in shared memory."""
+    the q-side sums of the column's U union blocks kept in shared memory
+    (contract in csrc/eam_half_col.cu).  Returns as eam_rho_half.  A CPU
+    tensor runs eam_rho_half_col_plain; a CUDA tensor launches the kernel
+    (counted in `eam_rho_half_col.launches`) or raises -- also when the
+    union's sums do not fit in shared memory."""
     out = _eam_half_col(False, slots, stencil_col, member_u, L8, counts,
                         params, form=form, T=T, degree=degree)
     if slots.device.type == "cuda":

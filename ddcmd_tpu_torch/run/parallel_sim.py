@@ -59,7 +59,8 @@ from ..potentials.eam import eam_device_tables
 from ..potentials.martini import martini_device_tables
 from .forces import _excl_channels, bonded_tables
 from .printinfo import PrintInfo
-from .simulate import _BAROSTAT_TYPES, _NGLF_TYPES, uses_constraints
+from .simulate import (_BAROSTAT_TYPES, _NGLF_TYPES,
+                       refuse_unported_outputs, uses_constraints)
 
 _MESH_ITEM = "ROADMAP queue 1, item 25"
 # NPT decks plan cells with shrink headroom (the JAX package's
@@ -109,6 +110,8 @@ class ParallelSimulation:
         self.device = dev = _mesh_device(device)
         sd = build_system(db, base_dir, dtype=torch.float32, device="cpu")
         self.sysdef = sd
+        self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
+        refuse_unported_outputs(db, sd, self.printinfo)
         if sd.integrator_type not in _NGLF_TYPES:
             raise NotImplementedError(
                 f"integrator {sd.integrator_type} is not ported yet "
@@ -200,7 +203,6 @@ class ParallelSimulation:
         self._distribute(self._host_arrays)
         self.f = None
         self.loop = sd.cfg.loop
-        self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         # (steps, seconds) of each accepted dispatch, host clock around
         # work that ends in the dispatch's one device-to-host read
         self.dispatch_log: list[tuple[int, float]] = []

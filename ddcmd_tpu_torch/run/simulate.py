@@ -77,6 +77,36 @@ def uses_constraints(sd) -> bool:
     return uses and sd.bonded is not None and sd.bonded.n_constraints > 0
 
 
+def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo):
+    """Raise NotImplementedError for the outputs a deck asks for that the
+    port does not write yet, instead of running to the end without them:
+    SIMULATE analysis= / transform= lists and PRINTINFO printStress
+    (which attaches STRESSWRITE) wait for ROADMAP item 24; printGraphs
+    and the per-group energy files (written at printrate when the SYSTEM
+    has more than one group) for item 23.  Both drivers call this when
+    they are built (ddcmd_tpu/run/simulate.py:189-221,1105-1118)."""
+    simobj = db.by_class("SIMULATE")[0]
+    for key, cls in (("analysis", "ANALYSIS"), ("transform", "TRANSFORM")):
+        names = [n for n in simobj.get_strv(key) if db.find(n, cls)]
+        if names:
+            raise NotImplementedError(
+                f"SIMULATE {key}={' '.join(names)}: analyses and transforms "
+                "are not ported yet (ROADMAP queue 1, item 24)")
+    if printinfo.print_stress:
+        raise NotImplementedError(
+            "PRINTINFO printStress attaches the STRESSWRITE analysis, not "
+            "ported yet (ROADMAP queue 1, item 24)")
+    if printinfo.print_graphs:
+        raise NotImplementedError(
+            "PRINTINFO printGraphs: the graph files are not ported yet "
+            "(ROADMAP queue 1, item 23)")
+    if len(sd.groups) > 1 and sd.cfg.printrate:
+        raise NotImplementedError(
+            f"{len(sd.groups)} groups with printrate={sd.cfg.printrate}: the "
+            "per-group energy files are not ported yet (ROADMAP queue 1, "
+            "item 23)")
+
+
 def resolve_device(device=None) -> torch.device:
     """The device a run uses: `device` when given, else the CUDA card.
     Without a card a run raises: the CPU runs only when asked for."""
@@ -98,6 +128,8 @@ class Simulation:
         self.run_dir = run_dir
         self.sysdef = sd = build_system(db, base_dir, dtype=torch.float32,
                                         device=self.device)
+        self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
+        refuse_unported_outputs(db, sd, self.printinfo)
         if sd.integrator_type not in _NGLF_TYPES:
             raise NotImplementedError(
                 f"integrator {sd.integrator_type} is not ported yet "
@@ -131,7 +163,6 @@ class Simulation:
                                sd.state.n_local,
                                plan_margin=self._plan_margin)
         self._build_step()
-        self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         self.coeffs = sd.group_table.coefficients(
             sd.cfg.time, 0.5 * sd.cfg.dt, device=self.device)
         self._generator = torch.Generator(device=self.device)

@@ -303,13 +303,15 @@ def test_fit_col_group_lowers_g_to_fit(plan, excl, G):
         u, 256, 5, excl)) == G
 
 
-@pytest.mark.parametrize("cap,G", [(128, 4), (256, 3), (384, 1)])
+@pytest.mark.parametrize("cap,G", [(128, 4), (256, 3), (384, 3), (512, 2),
+                                   (1024, 1)])
 def test_fit_col_group_eam_bytes(cap, G):
     """The same rule on the EAM force pass's byte count (the larger pass)
-    over the 131,072-atom copper crystal's grid (11, 12, 12): at cap 128
-    G = 4 (U = 29) fits, at cap 256 the JAX rule's G = 3 (U = 24) fits,
-    at cap 384 neither G = 3 nor G = 2 (U = 19) does, so the per-cell
-    EAM kernels run."""
+    over the 131,072-atom copper crystal's grid (11, 12, 12).  The column
+    kernels keep the union's q-side sums in shared memory, not its
+    records: at cap 128 G = 4 (U = 29) fits, at cap 256 and 384 the JAX
+    rule's G = 3 (U = 24), at cap 512 only G = 2 (U = 19), and at cap 1024
+    neither, so the per-cell EAM kernels run."""
     from ddcmd_tpu_torch.ops import eam_half as teh
 
     npar = teh.n_params("RATIONAL", 4)

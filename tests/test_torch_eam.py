@@ -255,7 +255,11 @@ def _case_parms(case, crystal_deck):
     return _parms("jax", case, 1), False
 
 
-def _jax_eval(r, L, sidx, grid, perm, parms, G):
+def _box(L):
+    return [L] * 3 if np.isscalar(L) else list(L)
+
+
+def _jax_eval(r, L, sidx, grid, perm, parms, G, fmask=None):
     tables = jeam.eam_device_tables(parms, dtype=jnp.float32)
     hg = j_half_grid(grid)
     if G > 1:
@@ -265,17 +269,20 @@ def _jax_eval(r, L, sidx, grid, perm, parms, G):
     else:
         rho_fn, force_fn = jpe.make_pallas_eam(hg, tables, interpret=True)
         stencil = jpc.pack_stencil(hg)
-    n = len(r)
+    fmask = np.ones(len(r), np.float32) if fmask is None else fmask
     out = jpe.pallas_eam_eval(jnp.asarray(r), jnp.asarray(sidx, jnp.int32),
-                              jnp.ones(n, jnp.float32), jnp.asarray(perm),
-                              jnp.asarray([L] * 3, jnp.float32), hg, tables,
+                              jnp.asarray(fmask, jnp.float32),
+                              jnp.asarray(perm),
+                              jnp.asarray(_box(L), jnp.float32), hg, tables,
                               jnp.asarray(stencil), rho_fn, force_fn)
     return tuple(np.asarray(x, np.float64) for x in out)
 
 
-def _port_eval(r, L, sidx, perm, parms, G):
+def _port_eval(r, L, sidx, perm, parms, G, fmask=None, tg=None):
     n = len(r)
-    tg = tch.plan_lanes([L] * 3, 0.55, 0.1, n)
+    if tg is None:
+        tg = tch.plan_lanes(_box(L), 0.55, 0.1, n)
+    fmask = torch.ones(n) if fmask is None else torch.tensor(fmask)
     hg = tcp.half_grid(tg)
     gt = tch.grid_tensors(hg, "cpu", G)
     tables = teh.eam_kernel_tables(team.eam_device_tables(parms))
@@ -283,8 +290,8 @@ def _port_eval(r, L, sidx, perm, parms, G):
                                      teh.eam_rho_half_col,
                                      teh.eam_force_half_col)]
     out = teh.eam_eval_half(torch.tensor(r), torch.tensor(sidx),
-                            torch.ones(n), torch.tensor(perm),
-                            torch.tensor([L] * 3, dtype=torch.float32), hg,
+                            fmask, torch.tensor(perm),
+                            torch.tensor(_box(L), dtype=torch.float32), hg,
                             tables, gt)
     # CPU tensors: the twins ran, no kernel launched
     assert counters == [k.launches for k in (
@@ -332,6 +339,47 @@ def test_col_twins_match_pallas_interpret(case, crystal500, crystal_deck):
                        _jax_eval(r, L, sidx, grid, perm, parms, 2))
 
 
+@pytest.fixture(scope="module")
+def ragged():
+    """chip_smoke.ragged_system(): cells of 0, 1, 31, 32, 33 and cap live
+    slots, a tenth of the atoms masked inside the counts -- the case the
+    card's kernel-vs-plain comparison runs -- with the JAX package's grid
+    of the same shape and its perm (binned unmasked, so the masked atoms
+    keep their slots)."""
+    import chip_smoke
+    from ddcmd_tpu.ops.cellpair import (CellBlockGrid, _build_stencil,
+                                        build_cell_slots)
+
+    r, L, sidx2, fmask, tg = chip_smoke.ragged_system()
+    jg = CellBlockGrid(tg.ncells, tg.cap, tg.rlist, *_build_stencil(tg.ncells))
+    perm, ov = build_cell_slots(jnp.asarray(r), jnp.ones(len(r), jnp.float32),
+                                jnp.asarray(L, jnp.float32), jg)
+    assert not bool(ov)
+    perm = np.asarray(perm)
+    tperm, tov = tcp.build_cell_slots(torch.tensor(r), torch.ones(len(r)),
+                                      torch.tensor(L, dtype=torch.float32), tg)
+    assert not bool(tov) and np.array_equal(tperm.numpy(), perm)
+    counts = (perm.reshape(tg.ncell, tg.cap) != len(r)).sum(1)
+    assert sorted(set(counts.tolist())) == [*chip_smoke.RAGGED_COUNTS, tg.cap]
+    assert 0 < (fmask == 0).sum() < len(r) // 5
+    return r, L, sidx2, fmask, tg, jg, perm
+
+
+@pytest.mark.parametrize("case,G", [("RATIONAL", 1), ("RATIONAL", 2),
+                                    ("alloy", 4)])
+def test_ragged_twins_match_pallas_interpret(case, G, ragged, crystal_deck):
+    """The per-cell (G = 1) and column plain versions == the Pallas
+    kernels in interpret mode on the ragged occupancy, so the card's
+    comparison of the CUDA kernels on this case rests on a twin that is
+    itself held to the JAX package here."""
+    r, L, sidx2, fmask, tg, jg, perm = ragged
+    parms, alloy = _case_parms(case, crystal_deck)
+    sidx = sidx2 if alloy else np.zeros(len(r), np.int64)
+    _assert_eval_close(
+        _port_eval(r, L, sidx, perm, parms, G, fmask=fmask, tg=tg),
+        _jax_eval(r, L, sidx, jg, perm, parms, G, fmask=fmask))
+
+
 # ---------------------------------------------------------------------------
 # (e) the slice's two plans
 # ---------------------------------------------------------------------------
@@ -358,7 +406,7 @@ def test_crystal_plans(nc, ncells, G, U, monkeypatch):
     assert fit == G
     if U is not None:
         assert len(tch.col_plan_grid(th, G)[0]) == U
-        assert teh.eam_col_smem_bytes(U, 128, 1, npar) == 135_356
+        assert teh.eam_col_smem_bytes(U, 128, 1, npar) == 72_620
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,19 @@ def _decks(tmp_path, n=400, edit=None):
     return str(jd), str(td)
 
 
+def _sim_key(text, keyword):
+    """The deck with `keyword` added to its SIMULATE object."""
+    new = text.replace("type=MD;", "type=MD; " + keyword, 1)
+    assert new != text
+    return new
+
+
+def _printinfo(text, keyword):
+    """The deck with a PRINTINFO object that sets `keyword`."""
+    return (_sim_key(text, "printinfo=pinfo;")
+            + "pinfo PRINTINFO { " + keyword + " }\n")
+
+
 def test_builders_write_identical_decks(tmp_path):
     jd, td = _decks(tmp_path)
     for name in ("object.data", "martini.data", "atoms#000000"):
@@ -104,15 +117,56 @@ def test_build_system_matches_jax(tmp_path):
     (lambda s: s.replace("type=NGLF; T=310.0K;", "type=NPTGLF; T=310.0K;"),
      "integrator"),
     (lambda s: s.replace("type=MARTINI;", "type=PAIR;"), "POTENTIAL"),
+    # outputs the JAX Simulation writes at their rates: each raises naming
+    # its ROADMAP item instead of running to the end without the output
+    (lambda s: _sim_key(s, "analysis=rdf;")
+     + "rdf ANALYSIS { type=PAIRCORRELATION; eval_rate=10; }\n",
+     r"analysis=rdf.*item 24"),
+    (lambda s: _sim_key(s, "transform=therm;")
+     + "therm TRANSFORM { type=THERMALIZE; rate=10; }\n",
+     r"transform=therm.*item 24"),
+    (lambda s: _printinfo(s, "printStress=1;"), r"printStress.*item 24"),
+    (lambda s: _printinfo(s, "printGraphs=1;"), r"printGraphs.*item 23"),
+    (lambda s: s.replace("groups=solvent;", "groups=solvent frozen;")
+     + "frozen GROUP { type=FREE; }\n", r"per-group energy.*item 23"),
+    (lambda s: _printinfo(s, "printStress=1;"), r"mesh:printStress.*item 24"),
 ])
 def test_unported_deck_features_raise(tmp_path, edit, what):
     """Deck features outside the slice raise NotImplementedError naming
-    what is missing, never run a different model silently."""
+    what is missing, never run a different model silently; a `mesh:`
+    case goes through ParallelSimulation at (1,1,1) over gloo."""
     from ddcmd_tpu_torch.run.simulate import Simulation
 
     _, td = _decks(tmp_path, edit=edit)
-    with pytest.raises(NotImplementedError, match=what):
-        Simulation(t_load(td)[0], td, run_dir=td, device="cpu")
+    if not what.startswith("mesh:"):
+        with pytest.raises(NotImplementedError, match=what):
+            Simulation(t_load(td)[0], td, run_dir=td, device="cpu")
+        return
+    import torch.distributed as dist
+
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(NotImplementedError, match=what[len("mesh:"):]):
+            ParallelSimulation(t_load(td)[0], td, shape=(1, 1, 1),
+                               device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_deck_without_outputs_builds(tmp_path):
+    """The guard refuses only what a deck asks for: the plain water deck
+    (one group, no analyses, no PRINTINFO flags) builds in both drivers."""
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    _, td = _decks(tmp_path)
+    sim = Simulation(t_load(td)[0], td, run_dir=td, device="cpu")
+    assert not sim.printinfo.print_stress and not sim.printinfo.print_graphs
+    ps = ParallelSimulation(t_load(td)[0], td, shape=(1, 1, 1), device="cpu")
+    assert len(ps.sysdef.groups) == 1
 
 
 def test_tf32_pinned_off():

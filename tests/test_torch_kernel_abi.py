@@ -1,0 +1,137 @@
+"""The seam between the port's CUDA sources and their ctypes wrappers,
+checked without a compiler: every extern "C" prototype in csrc/*.cu
+against the argument kinds the wrappers bind, and the shared-memory
+counts the column plan is fitted with against the sources' constants."""
+
+import ctypes
+import glob
+import os
+import re
+
+import pytest
+
+from ddcmd_tpu_torch.ops import cellpair_half as tch
+from ddcmd_tpu_torch.ops import eam_half as teh
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(tch.__file__)), os.pardir,
+                    "csrc")
+_PROTO = re.compile(r'extern\s+"C"\s+int\s+ddcmd_(\w+)\s*\(([^)]*)\)', re.S)
+
+
+def _prototypes():
+    """{entry point: [ctypes kind of each argument]} of csrc/*.cu."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        with open(path) as f:
+            for name, args in _PROTO.findall(f.read()):
+                kinds = []
+                for a in args.split(","):
+                    a = " ".join(a.split())
+                    if "*" in a:
+                        kinds.append(ctypes.c_void_p)
+                    elif a.startswith("int "):
+                        kinds.append(ctypes.c_int)
+                    elif a.startswith("float "):
+                        kinds.append(ctypes.c_float)
+                    else:
+                        raise AssertionError(f"{name}: argument {a!r}")
+                out[name] = kinds
+    return out
+
+
+def test_every_entry_point_is_bound():
+    assert sorted(_prototypes()) == sorted(tch._ARGTYPES)
+    assert len(tch._ARGTYPES) == 8
+
+
+@pytest.mark.parametrize("name", sorted(tch._ARGTYPES))
+def test_argtypes_match_prototype(name):
+    """Argument count and pointer / int / float kinds: a pointer bound as
+    an int would be cut to 32 bits."""
+    assert tch._ARGTYPES[name] == _prototypes()[name]
+
+
+def _constant(source, name):
+    with open(os.path.join(CSRC, source)) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    assert m, (source, name)
+    return int(m.group(1))
+
+
+def _layout_bytes(cap, nd, nblk, ntab, force, threads):
+    """csrc/eam_sweep.cuh:make_layout, written once more: the order of
+    its regions and the bytes of each, for a CTA of `threads`."""
+    acc = 3 if force else 2
+    warps = threads // 32
+    o = cap * 16                                   # p4
+    o += nd * cap * 16                             # q4
+    o += cap * 4 if force else 0                   # pdf
+    o += nd * cap * 4 if force else 0              # qdf
+    o += acc * cap * 4                             # ap
+    o += nblk * acc * cap * 4                      # aq
+    o += nd * cap * 4                              # plist
+    o += ntab * 4                                  # tab
+    o += warps * _constant("eam_sweep.cuh", "kQueue") * 4
+    o += (8 * nd + nblk + 4) * 4                   # integer tables
+    return o
+
+
+@pytest.mark.parametrize("U,cap,T,form,degree", [
+    (29, 128, 1, "RATIONAL", 4),      # the nc = 32 crystal's plan
+    (27, 128, 2, "FS", 0),            # an alloy on an nz == G union
+    (25, 256, 4, "AT", 0),
+    (8, 512, 1, "SC", 0),             # a wide cap
+])
+@pytest.mark.parametrize("force", [False, True])
+def test_eam_smem_counts_mirror_the_sources(U, cap, T, form, degree, force):
+    npar = teh.n_params(form, degree)
+    with open(os.path.join(CSRC, "eam_half_col.cu")) as f:
+        col = f.read()
+    for name, mirror in (("kColDirs", teh.EAM_COL_DIRS),
+                         ("kThreads", teh.EAM_COL_THREADS)):
+        m = re.search(rf"{name} = kForce \? (\d+) : (\d+);", col)
+        assert mirror == {True: int(m.group(1)), False: int(m.group(2))}, name
+    nd = teh.EAM_COL_DIRS[force]
+    assert (teh.EAM_CELL_THREADS, teh.EAM_QUEUE) == (
+        _constant("eam_half.cu", "kThreads"),
+        _constant("eam_sweep.cuh", "kQueue"))
+    assert teh.eam_col_smem_bytes(U, cap, T, npar, force) == \
+        _layout_bytes(cap, nd, U, T * T * npar, force,
+                      teh.EAM_COL_THREADS[force])
+    assert teh.eam_cell_smem_bytes(cap, T, npar, force) == \
+        _layout_bytes(cap, 1, 1, T * T * npar, force, teh.EAM_CELL_THREADS)
+    # the column launch sizes its shared memory with make_layout on the
+    # same (cap, kColDirs, U, T*T*npar) the wrapper's count takes
+    with open(os.path.join(CSRC, "eam_half_col.cu")) as f:
+        assert re.search(r"make_layout\(cap, kColDirs<kForce>, U, "
+                         r"T \* T \* npar,\s+kForce,\s+kThreads<kForce> / 32\)"
+                         r"\s*\.bytes", f.read())
+    assert teh.eam_col_smem_bytes(U, cap, T, npar, force) <= tch.SMEM_LIMIT
+    assert _constant("eam_sweep.cuh", "kSmemMax") == tch.SMEM_LIMIT
+
+
+def test_no_wrapper_caps_the_cell_count():
+    """The cell rides blockIdx.x in every per-cell source, and no wrapper
+    refuses a plan for its cell count."""
+    for mod in (tch, teh):
+        with open(mod.__file__) as f:
+            text = f.read()
+        assert "65535" not in text and "65,535" not in text, mod.__name__
+    for source in ("cellpair_half.cu", "eam_half.cu"):
+        with open(os.path.join(CSRC, source)) as f:
+            text = f.read()
+        assert re.search(r"const int c = blockIdx\.x;", text), source
+        assert re.search(r"const dim3 grid\(ncell, \w+\);", text), source
+
+
+def test_headers_rebuild_their_sources():
+    """Every header a source includes is in KERNEL_HEADERS, so editing it
+    rebuilds the libraries."""
+    listed = {os.path.basename(h) for h in tch.KERNEL_HEADERS}
+    included = set()
+    for path in glob.glob(os.path.join(CSRC, "*.cu*")):
+        with open(path) as f:
+            included |= set(re.findall(r'#include "(\w+\.cuh)"', f.read()))
+    assert included == listed
+    for h in tch.KERNEL_HEADERS:
+        assert os.path.exists(h), h
