@@ -18,7 +18,14 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      - the column kernel on the full bilayer's packed slots (the grid, G
        and cap plan_lanes and choose_col_group give), on a charged grid
        with nz == G (aliased union), and against the per-cell kernel on
-       the same full-bilayer slots;
+       the same full-bilayer slots (their times side by side, and beside
+       the times of the bodies they replaced);
+     - both pair kernels on a ragged occupancy (cells of 0, 1, 31, 32, 33
+       and cap live slots, a tenth of the live slots masked) at cap 128
+       and 256, charged, two LJ types, without and with exclusion
+       channels, the column kernel at G = 2 and G = nz = 4; and on the
+       same slots packed from a binning made before the particles moved
+       by up to half the skin, so particles lie outside their cells;
      - the per-cell EAM kernels (density and force pass) on the nc = 12
        crystal's slots: RATIONAL (the deck's form), FS, SC, EXP, AT and
        a T = 2 FS alloy with an asymmetric density; the column EAM
@@ -45,7 +52,9 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
        cell's q side stays exactly 0;
      and, for each main-path case, the least time the card could take
      (bound_ms: operations over the f32 peak or bytes over the memory
-     rate, from the in-cutoff pairs these inputs hold);
+     rate, from the in-cutoff pairs these inputs hold), and for the water
+     box's #1 and #6 the kernel's device time (torch.profiler), which the
+     event time around the wrapper (its host time) hides on 80 cells;
      then TPU #3's own main path, its entry point cellpair_eval_full on
      the water box's and the full bilayer's start states (no simulate
      path reaches it), against the half-stencil evaluation;
@@ -112,17 +121,22 @@ EAM_NC, EAM_STEPS, EAM_NVE_STEPS = 12, 3000, 2000
 EAM_BIG_NC, EAM_BIG_STEPS = 32, 2000
 EAM_BIG_PLAN = ((11, 12, 12), 4, 29)    # its cells, G and union size U
 EAM_T = 300.0
-# us/call of the EAM bodies this design replaced (PERF.md, H100 80GB HBM3
-# at 700 W): one CTA of cap threads per (direction, cell), the form
-# arithmetic inside the distance sweep; the column kernel with its union
-# staged in shared memory, one CTA an SM
+# us/call of the bodies the sweep design replaced (PERF.md, H100 80GB
+# HBM3 at 700 W): one CTA of cap threads per
+# (direction, cell), the pair arithmetic inside the distance sweep; the
+# column kernels with their union staged in shared memory, one CTA an SM
 OLD_BODY_US = {"eam_rho": 106.6, "eam_force": 93.7, "eam_rho_col": 1155.4,
                "eam_force_col": 1388.3, "eam_rho_ext": 484.4,
                "eam_force_ext": 589.6, "eam_rho_on_col_slots": 477.3,
-               "eam_force_on_col_slots": 590.0}
+               "eam_force_on_col_slots": 590.0,
+               "cellpair_half": 84.9, "cellpair_half_excl": 55.5,
+               "cellpair_half_col": 713.8, "cellpair_half_ext": 120.5,
+               "cellpair_half_ext_excl": 272.4,
+               "cellpair_half_on_col_slots": 275.0}
 RAGGED_COUNTS = (0, 1, 31, 32, 33)        # live slots of the ragged cells,
 RAGGED_CAPS = (128, 256)                  # and cap itself, at each of these caps
 BIG_NCELLS = (41, 40, 40)                 # 65,600 cells: past a 16-bit grid axis
+RAGGED_RCUT, RAGGED_SKIN = 0.6, 0.3       # the pair kernels' ragged cases
 NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
 MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 3000, 2000, 2000
@@ -254,26 +268,36 @@ def slab_lattice(ncells, edge, layers=3, per_edge=3, seed=29):
     return r, L.tolist()
 
 
-def packed_inputs(r, q, tidx, L, grid, tables, dev, G=1):
+def packed_inputs(r, q, tidx, L, grid, tables, dev, G=1, ex=None,
+                  r_pack=None, valid=None):
     """Pack as the main path does (cellpair_eval_half), on the card; the
-    arguments of the column kernel when G > 1."""
+    arguments of the column kernel when G > 1.  ex (n, 2): the exclusion
+    channels; r_pack: the positions packed into slots binned at r (a
+    stale binning); valid (n,): the validity row of each particle (1 by
+    default)."""
     from ddcmd_tpu_torch.ops.cellpair import build_cell_slots, half_grid
     from ddcmd_tpu_torch.ops.cellpair_half import grid_tensors, pack_slots
 
     n = len(r)
     n_pad = ((n + 127) // 128) * 128
-    pad = lambda a, shape: np.concatenate(                      # noqa: E731
-        [np.asarray(a), np.zeros((n_pad - n,) + shape)])
-    rt = torch.tensor(pad(r, (3,)), dtype=torch.float32, device=dev)
-    qt = torch.tensor(pad(q, ()), dtype=torch.float32, device=dev)
-    tt = torch.tensor(pad(tidx, ()), dtype=torch.int64, device=dev)
+    pad = lambda a, shape: torch.tensor(np.concatenate(          # noqa: E731
+        [np.asarray(a), np.zeros((n_pad - n,) + shape)]),
+        dtype=torch.float32, device=dev)
+    rt = pad(r, (3,))
+    qt = pad(q, ())
+    tt = pad(tidx, ()).long()
     fmask = (torch.arange(n_pad, device=dev) < n).float()
     Lt = torch.tensor(L, dtype=torch.float32, device=dev)
     perm, ov = build_cell_slots(rt, fmask, Lt, grid)
     assert not bool(ov), "overflow packing the comparison case"
     hg = half_grid(grid)
     gt = grid_tensors(hg, dev, G)
-    slots, _ = pack_slots(rt, qt, tt, perm, Lt, hg, gt["frac_centers"])
+    slots, _ = pack_slots(rt if r_pack is None else pad(r_pack, (3,)), qt,
+                          tt, perm, Lt, hg, gt["frac_centers"],
+                          excl_vals=None if ex is None else pad(ex, (2,)))
+    if valid is not None:
+        vt = torch.cat([pad(valid, ()), torch.zeros(1, device=dev)])
+        slots[:, 5, :] = vt[perm].reshape(hg.ncell, hg.cap)
     L8 = torch.zeros((1, 8), dtype=torch.float32, device=dev)
     L8[0, :3] = Lt / gt["ncells"]
     L8[0, 3] = tables["rcut2"]
@@ -405,11 +429,15 @@ def bound(args, outs, ops_pair, work=None):
             "operations" if t_ops >= t_bytes else "bytes", cand, hits)
 
 
-def compare(name, kernel, plain, args, kw, with_bound=False, work=None):
+def compare(name, kernel, plain, args, kw, with_bound=False, work=None,
+            device_key=None):
     """Kernel vs plain twin on the same CUDA tensors, at the tolerances
     of tests/test_pallas_cellpair.py; returns (max_abs_err of the force,
     ms per kernel call, ms per plain call, bound_ms, bound_by), the bound
-    None unless with_bound (its operations from `work`, see bound)."""
+    None unless with_bound (its operations from `work`, see bound).  With
+    device_key, the kernels of that name are also timed on the device
+    (device_us), which on small grids the event time around the wrapper,
+    its host time, hides."""
     outs = kernel(*args, **kw)
     got = per_slot(*outs)
     ref = per_slot(*plain(*args, **kw))
@@ -418,12 +446,16 @@ def compare(name, kernel, plain, args, kw, with_bound=False, work=None):
     ms = time_calls(lambda: kernel(*args, **kw), TIMED_CALLS)
     plain_ms = time_calls(lambda: plain(*args, **kw), PLAIN_CALLS)
     bnd, by, text = None, None, ""
+    if device_key:
+        dev_us = device_us(lambda: kernel(*args, **kw), TIMED_CALLS,
+                           device_key)
+        text += f"; device {dev_us:.2f} us/call (profiler)"
     if with_bound:
         bnd, by, cand, hits = bound(
             args, outs, OPS_LJ + (OPS_RF if kw["coulomb"] else 0),
             work=work)
-        text = (f"; bound {1e3 * bnd:.3f} us ({by}; {cand} candidate "
-                f"pairs, {hits} in cutoff)")
+        text += (f"; bound {1e3 * bnd:.3f} us ({by}; {cand} candidate "
+                 f"pairs, {hits} in cutoff)")
     phase("kernel", f"{name}: force err {ferr:.3g} (scale {scale:.4g}), "
           f"e {float(got[2]):.6g} vs {float(ref[2]):.6g}; kernel "
           f"{1e3 * ms:.2f} us/call, plain {1e3 * plain_ms:.2f} us/call{text}")
@@ -446,6 +478,24 @@ def agree(name, got, ref):
         raise AssertionError(f"{name}: outputs disagree: {checks} (force "
                              f"err {ferr:.3g}, scale {scale:.4g})")
     return ferr, scale
+
+
+def device_us(fn, n, key):
+    """Mean device time, us, of the kernels whose name holds `key` that
+    one call of fn launches (torch.profiler over n calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if key in e.key) / n
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no {key} kernel")
+    return us
 
 
 def time_calls(fn, n):
@@ -919,7 +969,7 @@ def kernel_phase(dev):
               coulomb=False)
     res["cellpair_half"] = compare(
         "per-cell: waterbox 6173 beads, 80 cells, cap 128, T=1", *pair,
-        args, kw, with_bound=True)
+        args, kw, with_bound=True, device_key="cellpair_half_kernel")
     # TPU #3, the full stencil, on the same water records, and against #1
     fa, fkw, ha = full_call(grid, args, kw, dev)
     compare("full stencil: waterbox 6173 beads, 80 cells, cap 128, T=1",
@@ -974,7 +1024,9 @@ def kernel_phase(dev):
                          TIMED_CALLS)
     phase("kernel", f"column vs per-cell kernel on the full bilayer slots: "
           f"force err {ferr:.3g} (scale {scale:.4g}); per-cell kernel "
-          f"{1e3 * ms_cell:.2f} us/call")
+          f"{1e3 * ms_cell:.2f} us/call, beside the column kernel's "
+          f"{1e3 * res['cellpair_half_col'][1]:.2f} in this run")
+    res["cellpair_half_on_col_slots"] = (ferr, ms_cell)
     # (e) TPU #3 on the full bilayer's records (it has no exclusions:
     # rows 6-7 are not read), and against #1 without exclusions there
     fa, fkw, ha = full_call(sim.grid, a, kw, dev)
@@ -995,7 +1047,104 @@ def kernel_phase(dev):
             f"(aliased union, U={a[1].shape[1]})", *col, a,
             dict(krf=tabs["krf"], crf=tabs["crf"], keR=tabs["keR"],
                  coulomb=True))
+    for cap in RAGGED_CAPS:
+        ragged_pair_cases(dev, cap)
     return res
+
+
+def ragged_pair_tables():
+    """(tables, rcut) of two LJ types with a reaction field at
+    RAGGED_RCUT, sized for ragged_system's ~2 A closest pairs."""
+    from ddcmd_tpu_torch.objects import units as U
+
+    sigma = np.array([[0.20, 0.24], [0.24, 0.22]])
+    eps = np.array([[5.0, 5.6], [5.6, 4.4]])
+    rcut = RAGGED_RCUT
+    sr6 = (sigma / rcut) ** 6
+    f32 = lambda x: float(np.float32(x))                       # noqa: E731
+    return dict(sigma=sigma, eps=eps, shift=-4 * eps * (sr6 ** 2 - sr6),
+                rcut2=f32(rcut ** 2), krf=f32(0.5 / rcut ** 3),
+                crf=f32(1.5 / rcut), keR=f32(U.ke / 15.0)), rcut
+
+
+def chain_exclusions(r, rng):
+    """Exclusion pairs of chains of four mutual near neighbours (three
+    bonds and the two 1-3 pairs each) over about a third of the
+    particles, as the exclusion channels encode them."""
+    free = np.ones(len(r), bool)
+    pairs = []
+    for i in rng.permutation(len(r))[:len(r) // 12]:
+        if not free[i]:
+            continue
+        d = np.linalg.norm(r - r[i], axis=1)
+        d[~free] = np.inf
+        chain = np.argsort(d)[:4]
+        if not np.isfinite(d[chain]).all():
+            continue
+        free[chain] = False
+        a, b, c, e = (int(x) for x in chain)
+        pairs += [(a, b), (b, c), (c, e), (a, c), (b, e)]
+    return np.asarray(pairs, np.int64)
+
+
+def drift(rng, n, skin=RAGGED_SKIN):
+    """(n, 3) displacements of at most skin / 2: one common step of 0.9
+    skin / 2 along +-x, which carries the particles near an x face across
+    it, and a jitter of at most 0.1 skin / 2 each, which moves them apart
+    by less than their closest distance."""
+    u = np.array([rng.choice([-1.0, 1.0]), 0.0, 0.0])
+    j = rng.standard_normal((n, 3))
+    j *= rng.random((n, 1)) / np.linalg.norm(j, axis=1, keepdims=True)
+    return (0.9 * u + 0.1 * j) * skin / 2
+
+
+def ragged_pair_cases(dev, cap):
+    """The pair kernels against their plain versions on
+    ragged_system(cap=cap), charged, T = 2, a tenth of the live slots
+    masked in the validity row: #1, and #2 at G = 2 and at G = nz = 4,
+    without and with exclusion channels; then the same on a drifted
+    state: the slots packed from a binning made before every particle
+    moved by up to RAGGED_SKIN / 2, so particles lie outside their cells
+    (what the box pruning must not drop a pair for)."""
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.run.forces import _excl_channels
+
+    r, L, tidx, valid, grid = ragged_system(cap=cap)
+    n = len(r)
+    rng = np.random.default_rng(41)
+    q = rng.choice([-0.3, 0.0, 0.3], n)
+    tabs, _ = ragged_pair_tables()
+    kw = dict(krf=tabs["krf"], crf=tabs["crf"], keR=tabs["keR"],
+              coulomb=True)
+    moved = r + drift(rng, n)
+    pair = {1: (ch.cellpair_half, ch.cellpair_half_plain)}
+    pair[2] = pair[4] = (ch.cellpair_half_col, ch.cellpair_half_col_plain)
+    for drifted in (False, True):
+        ex = _excl_channels(chain_exclusions(moved if drifted else r, rng), n)
+        for excl in (False, True):
+            for G in (1, 2, 4):
+                a = packed_inputs(r, q, tidx, L, grid, tabs, dev, G=G,
+                                  ex=ex if excl else None,
+                                  r_pack=moved if drifted else None,
+                                  valid=valid)
+                counts = a[-4]
+                live = torch.arange(cap, device=dev)[None, :] < counts[:, None]
+                assert sorted(set(counts.tolist())) == \
+                    [*RAGGED_COUNTS, cap], sorted(set(counts.tolist()))
+                assert bool(((a[0][:, 5] == 0) & live).any()), \
+                    "no masked slot inside the counts"
+                if drifted:
+                    edge = float(L[0]) / grid.ncells[0]
+                    outside = (a[0][:, 0:3].abs() > edge / 2).any(1) & live
+                    assert bool(outside.any()), "no particle left its cell"
+                what = "per-cell" if G == 1 else \
+                    f"column G={G} (U={a[1].shape[1]})"
+                state = ("drifted by up to skin/2 after binning"
+                         if drifted else "ragged occupancy")
+                compare(f"{what}{' + exclusions' if excl else ''}: {state}, "
+                        f"cells {grid.ncells} of {(*RAGGED_COUNTS, cap)} live "
+                        f"slots, {int((valid == 0).sum())} of {n} masked, "
+                        "charged T=2", *pair[G], a, dict(kw, excl=excl))
 
 
 def full_entry_phase(dev, counters_zero, all_counters):
@@ -1152,7 +1301,7 @@ def ext_kernel_phase(dev):
     res["cellpair_half_ext"] = compare(
         f"extended grid (1,1,1): water box 6173 beads, {cp.n_prog} core "
         f"cells + sentinel, cap {cp.cap}, T=1", *ext, args, kw,
-        with_bound=True)
+        with_bound=True, device_key="cellpair_half_kernel")
     outs = kernel(*args, **kw)
     sentinel_zero("extended grid (1,1,1)", outs[1])
     slots, stencil, L8, counts = args[:4]
@@ -1684,7 +1833,7 @@ def main(argv=None):
     kernels = {   # entry: (source, the TPU kernel it replaces)
         "cellpair_half": ("cellpair_half.cu", f"{cellpair}:559"),
         "cellpair_half_excl": ("cellpair_half.cu", f"{cellpair}:559"),
-        "cellpair_half_col": ("cellpair_half_col.cu", f"{cellpair}:837"),
+        "cellpair_half_col": ("cellpair_half.cu", f"{cellpair}:837"),
         "eam_rho": ("eam_half.cu", f"{eam}:230"),
         "eam_force": ("eam_half.cu", f"{eam}:269"),
         "eam_rho_col": ("eam_half_col.cu", f"{eam}:363"),

@@ -1,9 +1,13 @@
-// Half-stencil (Newton's third law) cell-pair kernel: shifted LJ plus
+// Half-stencil (Newton's third law) cell-pair kernels: shifted LJ plus
 // optional reaction-field Coulomb, for the Martini/PAIR nonbond term,
-// optionally with in-kernel bonded-pair exclusions.
+// optionally with in-kernel bonded-pair exclusions.  One device body, three
+// entry points: per cell (ddcmd_cellpair_half), on a brick's extended grid
+// (ddcmd_cellpair_half_ext) and over column tables
+// (ddcmd_cellpair_half_col).
 //
-// Replaces the TPU kernel ddcmd_tpu/ops/pallas_cellpair.py:_kernel_half
-// (tile math in _pair_tile, bcast variant).  Same record contract:
+// ddcmd_cellpair_half replaces the TPU kernel
+// ddcmd_tpu/ops/pallas_cellpair.py:_kernel_half (tile math in _pair_tile,
+// bcast variant).  Record contract:
 //   slots    (ncell, 8, cap) f32, rows [x y z q type valid ex6 ex7],
 //            cell-centred coordinates, cells filled rank-contiguously;
 //            ex6 = exclusion component id, ex7 = B + 2^-(intra+1) with B
@@ -17,37 +21,38 @@
 //   out_p    (ncell*cap, 4)  p-side [fx fy fz pe] per slot
 //   out_q    (ncell, 8, cap) q-side reaction [fx fy fz pe 0 0 0 0]
 //   out_cell (ncell, 8)      [e vxx vyy vzz vxy vxz vyz 0], each pair once
-//
-// Launch shape: one CTA per (home cell, stencil direction), the cell on
-// blockIdx.x, cap threads, thread i owns p-slot i.  The CTA stages its q
-// block (shifted into the home cell's frame) in shared memory, sweeps
-// j < counts[tgt] (j > i in the self block), keeps the p side in
-// registers and accumulates the q side in shared memory; both then go to
-// global memory with atomicAdd.
-//
-// What bounds it on an H100: at the waterbox shapes (80 cells, cap 128,
-// ~77 beads a cell) a CTA evaluates ~6k candidate pairs of which ~2% lie
-// inside the cutoff, so the sweep is bound by the shared-memory reads
-// and compare of the distance test, not by device memory (the whole slot
-// array is 330 KB and stays in L2) and not by the LJ arithmetic.  The
-// design answers that by
-//   - trimming both loops to live occupancy (exact: cells fill
-//     rank-contiguously), which removes ~64% of the padded cap^2 tile;
-//   - starting each thread's sweep at a different j (j = i + k mod nq),
-//     so the rare q-side shared atomics of one warp hit distinct words;
-//   - staging every q record once per CTA, so each pair costs three
-//     conflict-free shared loads.
-// The TPU kernel's in-order read-modify-write of the q side (race-free
-// only because the TPU grid runs in sequence) and its merge of aliased
-// periodic images become atomics; sums are therefore not deterministic
-// and every comparison states a tolerance.
-//
-// Exclusions (kExcl): pair (p, q) is masked -- no LJ, no RF, nothing --
-// when the component ids match and bit intra_q of B_p is set, decoded as
-// parity(floor(B_p * 2^-intra_q)) from the f32 channels (_pair_tile:
-// 205-222).  B < 2^12 and 2^-intra >= 2^-11, so every step of that test
-// is exact in f32.  The bonded rf_add term adds back the RF part the
+// Which pairs count, and the exact in-kernel exclusion test: see
+// csrc/pair_hit.cuh.  The bonded rf_add term adds back the RF part the
 // reference keeps for excluded pairs; nothing is computed and subtracted.
+//
+// Launch shape: one CTA of kThreads threads per (home cell, group of
+// stencil directions), the cell on blockIdx.x (so a plan may hold more
+// than 65,535 cells) and the group on blockIdx.y.  The CTA stages the
+// home cell and its group's q blocks once, pruned to the particles that
+// can have a partner, its warps sweep (direction, p tile, q chunk) items
+// with the two-phase body of csrc/sweep.cuh and the pair hit evaluator of
+// csrc/pair_hit.cuh, and the sums leave shared memory once: the p side
+// with a plain store when the CTA holds all directions of its cell (one
+// group), else with one atomicAdd per live slot and value; the q side
+// with one atomicAdd per kept q slot and value (the self block: every
+// live slot), since other CTAs add to the same rows.  The host picks the
+// group size: as many directions as fit in kSmemBudget bytes of shared
+// memory, fewer when the grid has too few cells to give each SM of the
+// card kFillCtasPerSm CTAs (the water box's 80 cells take 14 CTAs a
+// cell, a direction each; the bilayer's 1,200 four).  A CTA whose home cell is empty leaves at
+// once and a direction whose target is empty (on an extended grid: the
+// sentinel) stages and adds nothing, so such out_q rows stay exactly 0.
+// The TPU kernel's in-order q-side read-modify-write (race-free only
+// because the TPU grid runs in sequence) and its merge of aliased
+// periodic images become atomics, so sums are not deterministic and every
+// comparison states a tolerance.
+//
+// What bounds it on an H100, and what the design does about it: see
+// csrc/sweep.cuh.  Operations, not bytes (the slots stay in L2): of the
+// ~1,100 candidates a p bead has in its 14 blocks the box pruning leaves
+// about a quarter to the distance test, and what then weighs most is
+// phase 2's eight shared-memory float atomics a hit and the staging, both
+// a matter of latency that the many small CTAs an SM hide.
 //
 // Built with nvcc -O3 for sm_90a, without --use_fast_math and with
 // --fmad=false: the division is IEEE and the distance arithmetic rounds
@@ -56,21 +61,62 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_hit.cuh"
+
 namespace {
 
-constexpr int kRec = 8;        // record rows per slot
-constexpr int kMaxWarps = 32;  // cap <= 1024
+using sweep::kDirsN;
+using sweep::kHalfDirs;
+using sweep::kRec;
 
-__device__ __forceinline__ float warp_sum(float v) {
+constexpr int kThreads = 128;   // CTA size: 4 warps
+
+// shared memory a CTA aims to stay under, so that several share an SM
+constexpr int kSmemBudget = 32 * 1024;
+// CTAs the grid should hold at least for each SM of the card, else the
+// directions of a cell are spread over more CTAs (8: the water box's
+// kernel took 35.2 us of device time, against 40.0 at 4, on an H100 80GB
+// HBM3 at 700 W; PERF.md)
+constexpr int kFillCtasPerSm = 8;
+
+// Where a CTA's directions come from: the per-cell stencil rows [cell dx
+// dy dz]*S, the image shift d * L/n ...
+struct StencilDirs {
+  const int* stencil;
+  int n_stencil;
+  __device__ __forceinline__ int sums_row(int c) const { return c; }
+  __device__ __forceinline__ void get(int c, int s, const float* L8,
+                                      int& tgt, float (&sh)[3]) const {
+    const int* st = stencil + (static_cast<size_t>(c) * n_stencil + s) * 4;
+    tgt = st[0];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
+    for (int a = 0; a < 3; ++a) sh[a] = static_cast<float>(st[1 + a]) * L8[a];
+  }
+};
 
-template <bool kCoulomb, bool kExcl>
-__global__ void __launch_bounds__(1024)
-cellpair_half_kernel(const float* __restrict__ slots,
-                     const int* __restrict__ stencil,
+// ... or the column tables: cell c is member g = c % G of column c / G,
+// its s-th block the union block member_u[g][s] of that column, shifted
+// by the static direction kHalfDirs[s] * L/n; the column's [e, virial6]
+// is one row
+struct ColumnDirs {
+  const int* stencil_col;
+  const int* member_u;
+  int G, U;
+  __device__ __forceinline__ int sums_row(int c) const { return c / G; }
+  __device__ __forceinline__ void get(int c, int s, const float* L8,
+                                      int& tgt, float (&sh)[3]) const {
+    const int col = c / G;
+    const int u = member_u[(c - col * G) * kDirsN + s];
+    tgt = stencil_col[static_cast<size_t>(col) * U + u];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      sh[a] = static_cast<float>(kHalfDirs[s][a]) * L8[a];
+  }
+};
+
+template <bool kCoulomb, bool kExcl, class Dirs>
+__global__ void __launch_bounds__(kThreads)
+cellpair_half_kernel(const float* __restrict__ slots, Dirs dirs,
                      const float* __restrict__ L8,
                      const int* __restrict__ counts,
                      const float* __restrict__ sigma,
@@ -78,176 +124,146 @@ cellpair_half_kernel(const float* __restrict__ slots,
                      const float* __restrict__ shift,
                      float* __restrict__ out_p,
                      float* __restrict__ out_q,
-                     float* __restrict__ out_cell,
+                     float* __restrict__ out_sums,
                      int cap, int n_stencil, int T,
-                     float krf, float crf, float keR) {
-  extern __shared__ float smem[];
-  float* qx = smem;              // q block, shifted into the p frame
-  float* qy = qx + cap;
-  float* qz = qy + cap;
-  float* qq = qz + cap;          // charge
-  float* qt = qq + cap;          // LJ type (exact small integer in f32)
-  float* qv = qt + cap;          // valid
-  float* qm = qv + cap;          // exclusion component id
-  float* qw = qm + cap;          // 2^-(intra+1): the fraction of ex7
-  float* aq = qw + cap;          // 4*cap q-side sums [fx fy fz pe]
-  float* tab = aq + 4 * cap;     // 3*T*T [sigma eps shift]
-  __shared__ float red[kMaxWarps][7];
+                     float krf, float crf, float keR, int dg) {
+  using Hit = ljpair::Hit<kCoulomb, kExcl>;
+  constexpr int kAcc = Hit::kAcc;
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int c = blockIdx.x;      // home cell (x: no 65,535 bound on a plan)
-  const int s = blockIdx.y;      // stencil direction (0 = self block)
-  const int i = threadIdx.x;     // p slot
-  const int TT = T * T;
-
-  const int* st = stencil + (static_cast<size_t>(c) * n_stencil + s) * 4;
-  const int tgt = st[0];
-  const float sx = static_cast<float>(st[1]) * L8[0];
-  const float sy = static_cast<float>(st[2]) * L8[1];
-  const float sz = static_cast<float>(st[3]) * L8[2];
-  const float rcut2 = L8[3];
+  const int c = blockIdx.x;               // home cell
+  const int s0 = blockIdx.y * dg;         // first stencil direction
+  const int nd = min(dg, n_stencil - s0);
+  const int t = threadIdx.x;
   // counts come from the caller: never let them index past the tile
   const int np = min(counts[c], cap);
-  const int nq = min(counts[tgt], cap);
-  // a block with no p or no q particle (an empty cell, or on an extended
-  // grid a direction that reaches the sentinel) adds nothing, so the
-  // whole CTA leaves before staging (np and nq are uniform over the block)
-  if (np == 0 || nq == 0) return;
+  // an empty home cell adds nothing: the CTA leaves before staging
+  if (np == 0) return;
 
-  const float* Q = slots + static_cast<size_t>(tgt) * kRec * cap;
-  qx[i] = Q[i] + sx;
-  qy[i] = Q[cap + i] + sy;
-  qz[i] = Q[2 * cap + i] + sz;
-  qq[i] = Q[3 * cap + i];
-  qt[i] = Q[4 * cap + i];
-  qv[i] = Q[5 * cap + i];
-  if (kExcl) {
-    qm[i] = Q[6 * cap + i];
-    const float w7 = Q[7 * cap + i];
-    qw[i] = w7 - floorf(w7);
-  }
-  aq[i] = 0.f;
-  aq[cap + i] = 0.f;
-  aq[2 * cap + i] = 0.f;
-  aq[3 * cap + i] = 0.f;
-  for (int k = i; k < TT; k += blockDim.x) {
-    tab[k] = sigma[k];
-    tab[TT + k] = eps[k];
-    tab[2 * TT + k] = shift[k];
-  }
-  __syncthreads();
-
-  float fx = 0.f, fy = 0.f, fz = 0.f, pe = 0.f, e = 0.f;
-  float vxx = 0.f, vyy = 0.f, vzz = 0.f, vxy = 0.f, vxz = 0.f, vyz = 0.f;
-  if (i < np && nq > 0) {
-    const float* P = slots + static_cast<size_t>(c) * kRec * cap;
-    const float px = P[i];
-    const float py = P[cap + i];
-    const float pz = P[2 * cap + i];
-    const float pq = P[3 * cap + i];
-    // T == 1 (uniform type): one parameter set whatever the type rows say
-    const int prow = T == 1 ? 0 : static_cast<int>(P[4 * cap + i]) * T;
-    const float pv = P[5 * cap + i];
-    const float pm = kExcl ? P[6 * cap + i] : 0.f;
-    const float pb = kExcl ? floorf(P[7 * cap + i]) : 0.f;   // B_p
-    int j = i % nq;
-    for (int k = 0; k < nq; ++k, j = (j + 1 == nq) ? 0 : j + 1) {
-      if (s == 0 && j <= i) continue;   // self block: each pair once
-      const float dx = px - qx[j];
-      const float dy = py - qy[j];
-      const float dz = pz - qz[j];
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      if (!(pv * qv[j] > 0.f) || !(d2 < rcut2)) continue;
-      if (kExcl && pm == qm[j]) {
-        const float t_bit = floorf(pb * (qw[j] + qw[j]));  // B_p / 2^intra_q
-        if (t_bit - 2.0f * floorf(t_bit * 0.5f) > 0.5f) continue;
-      }
-      const int pt = T == 1 ? 0 : prow + static_cast<int>(qt[j]);
-      const float sg = tab[pt];
-      const float ep = tab[TT + pt];
-      const float sh = tab[2 * TT + pt];
-      const float ir2 = 1.0f / d2;
-      const float s2 = sg * sg * ir2;
-      const float s6 = s2 * s2 * s2;
-      const float s12 = s6 * s6;
-      float epair = 4.0f * ep * (s12 - s6) + sh;
-      float dvdr = 24.0f * ep * (s6 - 2.0f * s12) * ir2;
-      if (kCoulomb) {
-        const float ir = 1.0f / sqrtf(d2);
-        const float kqq = keR * pq * qq[j];
-        epair += kqq * (ir + krf * d2 - crf);
-        dvdr += kqq * (2.0f * krf - ir2 * ir);
-      }
-      const float fdx = dvdr * dx;
-      const float fdy = dvdr * dy;
-      const float fdz = dvdr * dz;
-      fx -= fdx;
-      fy -= fdy;
-      fz -= fdz;
-      pe += 0.5f * epair;
-      e += epair;
-      vxx -= fdx * dx;
-      vyy -= fdy * dy;
-      vzz -= fdz * dz;
-      vxy -= fdx * dy;
-      vxz -= fdx * dz;
-      vyz -= fdy * dz;
-      atomicAdd(&aq[j], fdx);
-      atomicAdd(&aq[cap + j], fdy);
-      atomicAdd(&aq[2 * cap + j], fdz);
-      atomicAdd(&aq[3 * cap + j], 0.5f * epair);
-    }
-    float* op = out_p + (static_cast<size_t>(c) * cap + i) * 4;
-    atomicAdd(op, fx);
-    atomicAdd(op + 1, fy);
-    atomicAdd(op + 2, fz);
-    atomicAdd(op + 3, pe);
-  }
-  __syncthreads();
-
-  if (i < nq) {
-    float* oq = out_q + static_cast<size_t>(tgt) * kRec * cap;
-    atomicAdd(&oq[i], aq[i]);
-    atomicAdd(&oq[cap + i], aq[cap + i]);
-    atomicAdd(&oq[2 * cap + i], aq[2 * cap + i]);
-    atomicAdd(&oq[3 * cap + i], aq[3 * cap + i]);
-  }
-
-  float vals[7] = {e, vxx, vyy, vzz, vxy, vxz, vyz};
-  const int lane = i & 31;
-  const int warp = i >> 5;
+  const int TT = T * T;
+  const sweep::Layout lay =
+      ljpair::make_layout(cap, dg, dg, T, kExcl, kThreads / 32);
+  const sweep::View v = sweep::make_view(smem, lay, dg, dg);
+  const Hit f{T, TT, krf, crf, keR};
+  __shared__ float pbox[kThreads / 32][6];
+  if (t < nd) {
+    int tgt;
+    float sh[3];
+    dirs.get(c, s0 + t, L8, tgt, sh);
+    v.dtgt[t] = tgt;
+    v.dcnt[t] = min(counts[tgt], cap);
+    v.dblk[t] = t;
 #pragma unroll
-  for (int k = 0; k < 7; ++k) {
-    const float v = warp_sum(vals[k]);
-    if (lane == 0) red[warp][k] = v;
+    for (int a = 0; a < 3; ++a) v.dsh[3 * t + a] = sh[a];
   }
+  if (t == 0) *v.next = 0;
+  for (int k = t; k < TT; k += kThreads) {
+    v.tab[k] = sigma[k];
+    v.tab[TT + k] = eps[k];
+    v.tab[2 * TT + k] = shift[k];
+  }
+  sweep::stage_home(v, f, slots + static_cast<size_t>(c) * kRec * cap, cap,
+                    np, pbox);
   __syncthreads();
-  if (i < 7) {
-    float t = 0.f;
-    for (int w = 0; w < (blockDim.x >> 5); ++w) t += red[w][i];
-    atomicAdd(&out_cell[static_cast<size_t>(c) * 8 + i], t);
+  for (int idx = t; idx < nd * cap; idx += kThreads) {
+    const int d = idx / cap;
+    const int j = idx - d * cap;
+    if (j >= v.dcnt[d]) continue;
+#pragma unroll
+    for (int k = 0; k < kAcc; ++k) v.aq[(d * kAcc + k) * cap + j] = 0.f;
   }
+  const float rcut2 = L8[3];
+  // the self block is stencil direction 0
+  const int dself = s0 == 0 ? 0 : -1;
+  sweep::stage_dirs(v, f, slots, cap, np, nd, dself,
+                    sqrtf(rcut2) * sweep::kBoxSlack, pbox);
+  __syncthreads();
+
+  float sums[Hit::kSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  sweep::sweep(v, f, cap, nd, dself, rcut2, sums);
+  __syncthreads();
+
+  const bool whole = gridDim.y == 1;      // this CTA holds the whole cell
+  for (int idx = t; idx < np * kAcc; idx += kThreads) {
+    const int i = idx / kAcc;
+    const int k = idx - i * kAcc;
+    float* o = out_p + (static_cast<size_t>(c) * cap + i) * kAcc + k;
+    if (whole)
+      *o = v.ap[k * cap + i];
+    else
+      atomicAdd(o, v.ap[k * cap + i]);
+  }
+  // the q side of the kept entries only: no other q slot has a partner
+  for (int idx = t; idx < nd * cap; idx += kThreads) {
+    const int d = idx / cap;
+    const int pos = idx - d * cap;
+    if (pos >= v.dnq[d]) continue;        // the self block: its live slots
+    const int j = d == dself ? pos : Hit::slot_of(v.q4[d * cap + pos].w);
+    float* oq = out_q + static_cast<size_t>(v.dtgt[d]) * kRec * cap + j;
+#pragma unroll
+    for (int k = 0; k < kAcc; ++k)
+      atomicAdd(&oq[k * cap], v.aq[(d * kAcc + k) * cap + j]);
+  }
+  sweep::reduce_sums<false>(
+      sums, out_sums + static_cast<size_t>(dirs.sums_row(c)) * 8);
 }
 
-template <bool kCoulomb, bool kExcl>
-cudaError_t launch(const float* slots, const int* stencil, const float* L8,
+template <bool kCoulomb, bool kExcl, class Dirs>
+cudaError_t launch(const float* slots, Dirs dirs, const float* L8,
                    const int* counts, const float* sigma, const float* eps,
                    const float* shift, float* out_p, float* out_q,
-                   float* out_cell, int ncell, int cap, int n_stencil, int T,
+                   float* out_sums, int ncell, int cap, int n_stencil, int T,
                    float krf, float crf, float keR, cudaStream_t stream) {
-  const size_t smem =
-      (12 * static_cast<size_t>(cap) + 3 * static_cast<size_t>(T) * T) *
-      sizeof(float);
+  if (ncell < 1 || n_stencil < 1 || T < 1 || cap < 32 ||
+      cap > sweep::kMaxCap || cap % 32)
+    return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  auto bytes = [&](int nd) {
+    return ljpair::make_layout(cap, nd, nd, T, kExcl, kThreads / 32).bytes;
+  };
+  // directions a CTA: all that fit in the budget (at least one) ...
+  int fit = n_stencil < sweep::kMaxDirs ? n_stencil : sweep::kMaxDirs;
+  while (fit > 1 && bytes(fit) > kSmemBudget) --fit;
+  if (bytes(fit) > sweep::kSmemMax) return cudaErrorInvalidValue;
+  // ... spread over more CTAs when the grid has few cells
+  const int want = (kFillCtasPerSm * sms + ncell - 1) / ncell;
+  int groups = (n_stencil + fit - 1) / fit;
+  if (groups < want) groups = want < n_stencil ? want : n_stencil;
+  const int dg = (n_stencil + groups - 1) / groups;
+  groups = (n_stencil + dg - 1) / dg;
+  const int smem = bytes(dg);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cellpair_half_kernel<kCoulomb, kExcl>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(cellpair_half_kernel<kCoulomb, kExcl, Dirs>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(ncell, n_stencil);
-  cellpair_half_kernel<kCoulomb, kExcl><<<grid, cap, smem, stream>>>(
-      slots, stencil, L8, counts, sigma, eps, shift, out_p, out_q, out_cell,
-      cap, n_stencil, T, krf, crf, keR);
+  const dim3 grid(ncell, groups);
+  cellpair_half_kernel<kCoulomb, kExcl, Dirs><<<grid, kThreads, smem, stream>>>(
+      slots, dirs, L8, counts, sigma, eps, shift, out_p, out_q, out_sums,
+      cap, n_stencil, T, krf, crf, keR, dg);
   return cudaGetLastError();
+}
+
+template <class Dirs>
+cudaError_t launch_any(int coulomb, int excl, const float* slots, Dirs dirs,
+                       const float* L8, const int* counts, const float* sigma,
+                       const float* eps, const float* shift, float* out_p,
+                       float* out_q, float* out_sums, int ncell, int cap,
+                       int n_stencil, int T, float krf, float crf, float keR,
+                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto fn) {
+    return fn(slots, dirs, L8, counts, sigma, eps, shift, out_p, out_q,
+              out_sums, ncell, cap, n_stencil, T, krf, crf, keR, st);
+  };
+  if (coulomb)
+    return excl ? go(launch<true, true, Dirs>) : go(launch<true, false, Dirs>);
+  return excl ? go(launch<false, true, Dirs>) : go(launch<false, false, Dirs>);
 }
 
 }  // namespace
@@ -262,17 +278,10 @@ extern "C" int ddcmd_cellpair_half(const float* slots, const int* stencil,
                                    int cap, int n_stencil, int T, float krf,
                                    float crf, float keR, int coulomb,
                                    int excl, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto fn) {
-    return fn(slots, stencil, L8, counts, sigma, eps, shift, out_p, out_q,
-              out_cell, ncell, cap, n_stencil, T, krf, crf, keR, st);
-  };
-  cudaError_t err;
-  if (coulomb)
-    err = excl ? go(launch<true, true>) : go(launch<true, false>);
-  else
-    err = excl ? go(launch<false, true>) : go(launch<false, false>);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_any(
+      coulomb, excl, slots, StencilDirs{stencil, n_stencil}, L8, counts,
+      sigma, eps, shift, out_p, out_q, out_cell, ncell, cap, n_stencil, T,
+      krf, crf, keR, stream));
 }
 
 // The sweep on a brick's EXTENDED cell grid (replaces the TPU kernel
@@ -284,15 +293,15 @@ extern "C" int ddcmd_cellpair_half(const float* slots, const int* stencil,
 //   stencil  (n_prog, S*4); a direction that leaves the grid on an open
 //            axis points at the sentinel, whose count is 0
 //   counts   (n_slot,) -- every slot cell's occupancy, halo cells
-//            included, since the q sweep is trimmed with counts[tgt]
+//            included, since the q side is staged from counts[tgt]
 //   out_p    (n_prog*cap, 4); out_q (n_slot, 8, cap); out_cell (n_prog, 8)
 // The device code indexes p by its program cell and q by the stencil
-// target, so this is the per-cell launch with n_prog rows of programs;
-// what is new is the contract that the q side spans n_slot cells.  The
-// CTAs whose direction reaches the sentinel (count 0) leave at once, so
-// the sentinel's out_q rows stay exactly 0.  What bounds it is the
-// per-cell kernel's: the shared-memory distance test over every
-// candidate pair of a live block.
+// target, so this is the per-cell launch with n_prog cells of programs;
+// what is new is the contract that the q side spans n_slot cells.  A
+// direction that reaches the sentinel (count 0) stages and adds nothing,
+// so the sentinel's out_q rows stay exactly 0.  Bound as the per-cell
+// kernel: the distance test over every candidate pair the pruning keeps
+// (csrc/sweep.cuh).
 extern "C" int ddcmd_cellpair_half_ext(const float* slots, const int* stencil,
                                        const float* L8, const int* counts,
                                        const float* sigma, const float* eps,
@@ -306,4 +315,42 @@ extern "C" int ddcmd_cellpair_half_ext(const float* slots, const int* stencil,
   return ddcmd_cellpair_half(slots, stencil, L8, counts, sigma, eps, shift,
                              out_p, out_q, out_cell, n_prog, cap, n_stencil,
                              T, krf, crf, keR, coulomb, excl, stream);
+}
+
+// The sweep over COLUMN tables (replaces the TPU kernel
+// ddcmd_tpu/ops/pallas_cellpair.py:_kernel_half_col, the tile math of
+// _kernel_half over G z-contiguous cells sharing a union of U blocks).
+// Contract as ddcmd_cellpair_half except
+//   stencil_col (ncol, U) int32: the U union blocks of column c (cells
+//               pairwise distinct within a column; ops/cellpair_half.py:
+//               pack_stencil_col); the members of column c are the cells
+//               c*G .. c*G+G-1
+//   member_u    (G, 14) int32: union index of member g's s-th half-stencil
+//               block, shifted by the static direction kHalfDirs[s] *
+//               L/ncells (col_plan_grid)
+//   out_col     (ncol, 8) [e vxx vyy vzz vxy vxz vyz 0], each pair once
+// The TPU kernel stages the union once per column, saving its DMA; here
+// the slots stay in L2 and a column is G cells of the per-cell launch,
+// each (member, group of directions) a CTA that reads its blocks through
+// the tables.  The union-staging design (one CTA a column, the union's
+// q-side sums in shared memory, each member staged and swept in rounds
+// of seven directions) measured 190 us on the full bilayer's slots
+// against 118 for this launch (H100 80GB HBM3, 700 W; PERF.md):
+// the bilayer's 240 columns are 240 CTAs, one partial wave, whose phase-2
+// shared atomics 16 warps an SM hide worse than the per-cell grid's.
+// Periodic aliasing (nz == G) needs nothing more: two directions of a
+// member that reach one block through different images are staged apart
+// with their own shifts, and every contribution is an atomic add.
+extern "C" int ddcmd_cellpair_half_col(
+    const float* slots, const int* stencil_col, const int* member_u,
+    const float* L8, const int* counts, const float* sigma, const float* eps,
+    const float* shift, float* out_p, float* out_q, float* out_col, int ncol,
+    int cap, int G, int U, int T, float krf, float crf, float keR,
+    int coulomb, int excl, void* stream) {
+  if (ncol < 1 || G < 1 || U < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_any(
+      coulomb, excl, slots, ColumnDirs{stencil_col, member_u, G, U}, L8,
+      counts, sigma, eps, shift, out_p, out_q, out_col, ncol * G, cap,
+      kDirsN, T, krf, crf, keR, stream));
 }

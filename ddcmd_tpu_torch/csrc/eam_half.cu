@@ -32,7 +32,8 @@
 // than 65,535 cells) and the group on blockIdx.y.  The CTA stages the
 // home cell and its group's q blocks once, pruned to the atoms that can
 // have a partner, its warps sweep (direction, p tile, q chunk) items
-// with the two-phase body of csrc/eam_sweep.cuh, and the sums leave
+// with the two-phase body of csrc/sweep.cuh (the EAM hit evaluator in
+// csrc/eam_sweep.cuh), and the sums leave
 // shared memory once: the p side with a plain store when the CTA holds
 // all directions of its cell (one group), else with atomicAdd; the q
 // side with one atomicAdd per live slot of each target cell (other cells
@@ -49,7 +50,7 @@
 // tolerance.
 //
 // What bounds it on an H100, and what the design does about it: see
-// csrc/eam_sweep.cuh.  Operations, not bytes (the crystal's slots stay in
+// csrc/sweep.cuh.  Operations, not bytes (the crystal's slots stay in
 // L2): of the ~970 candidates a p atom has in its 14 blocks the box
 // pruning leaves about a quarter to the distance test, and what then
 // weighs most is phase 2's shared-memory float atomics (compare-and-swap
@@ -100,9 +101,10 @@ eam_half_kernel(const float* __restrict__ slots,
   if (np == 0) return;
 
   const int ntab = T * T * npar;
-  const eam::Layout lay =
+  const sweep::Layout lay =
       eam::make_layout(cap, dg, dg, ntab, kForce, kThreads / 32);
-  const eam::View v = eam::make_view(smem, lay, dg, dg);
+  const sweep::View v = sweep::make_view(smem, lay, dg, dg);
+  const eam::Hit<kForm, kForce> f{T, npar, D};
   __shared__ float pbox[kThreads / 32][6];
   if (t < nd) {
     const int* st = stencil + (static_cast<size_t>(c) * n_stencil + s0 + t) * 4;
@@ -115,8 +117,8 @@ eam_half_kernel(const float* __restrict__ slots,
   }
   if (t == 0) *v.next = 0;
   for (int k = t; k < ntab; k += kThreads) v.tab[k] = params[k];
-  eam::stage_home<kForce>(v, slots + static_cast<size_t>(c) * kRec * cap, cap,
-                          np, T, pbox);
+  sweep::stage_home(v, f, slots + static_cast<size_t>(c) * kRec * cap, cap,
+                    np, pbox);
   __syncthreads();
   for (int idx = t; idx < nd * cap; idx += kThreads) {
     const int d = idx / cap;
@@ -128,12 +130,12 @@ eam_half_kernel(const float* __restrict__ slots,
   const float rcut2 = L8[3];
   // the self block is stencil direction 0
   const int dself = s0 == 0 ? 0 : -1;
-  eam::stage_dirs<kForce>(v, slots, cap, np, nd, dself, T,
-                          sqrtf(rcut2) * eam::kBoxSlack, pbox);
+  sweep::stage_dirs(v, f, slots, cap, np, nd, dself,
+                    sqrtf(rcut2) * sweep::kBoxSlack, pbox);
   __syncthreads();
 
   float vir[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  eam::sweep<kForm, kForce>(v, cap, nd, dself, rcut2, T, npar, D, vir);
+  sweep::sweep(v, f, cap, nd, dself, rcut2, vir);
   __syncthreads();
 
   const bool whole = gridDim.y == 1;      // this CTA holds the whole cell
@@ -156,7 +158,7 @@ eam_half_kernel(const float* __restrict__ slots,
       atomicAdd(&oq[k * cap], v.aq[(d * kAcc + k) * cap + j]);
   }
   if (kForce)
-    eam::reduce_virial<false>(vir, out_cell + static_cast<size_t>(c) * 8);
+    sweep::reduce_sums<false>(vir, out_cell + static_cast<size_t>(c) * 8);
 }
 
 template <int kForm, bool kForce>
@@ -246,7 +248,7 @@ extern "C" int ddcmd_eam_half(const float* slots, const int* stencil,
 // rows stay exactly 0.
 // The q-side shares that land in halo cells are the caller's to reduce
 // home (parallel/brick.halo_reduce_3d).  Bound as the per-cell passes: the
-// distance test over every candidate pair (csrc/eam_sweep.cuh).
+// distance test over every candidate pair (csrc/sweep.cuh).
 extern "C" int ddcmd_eam_rho_half_ext(const float* slots, const int* stencil,
                                       const float* L8, const int* counts,
                                       const float* params, float* out_p,

@@ -5,15 +5,15 @@
 // Replaces the TPU kernels ddcmd_tpu/ops/pallas_eam.py:_rho_kernel_col
 // (pass A) and _force_kernel_col (pass B), with their union geometry
 // (_geometry_col, _member_tile).  The physics is csrc/eam_half.cu's
-// (pair forms in csrc/eam_forms.cuh); the column layout is
-// csrc/cellpair_half_col.cu's.  Contract:
+// (pair forms in csrc/eam_forms.cuh); the column tables are the pair
+// kernel's (csrc/cellpair_half.cu:ddcmd_cellpair_half_col).  Contract:
 //   slots       (ncell, 8, cap) f32, rows [x y z q type valid dF 0]
 //   stencil_col (ncol, U) int32: the U union blocks of column c (cells
 //               pairwise distinct within a column; ops/cellpair_half.py:
 //               pack_stencil_col); the members of column c are the cells
 //               c*G .. c*G+G-1
 //   member_u    (G, 14) int32: union index of member g's s-th half-stencil
-//               block, shifted by the static direction kDirs[s] * L/ncells
+//               block, shifted by the static direction kHalfDirs[s] * L/ncells
 //   L8          8 f32 [L/n (3), rcut^2, 0...]
 //   counts      (ncell,) int32 per-cell occupancy
 //   params      (T*T, npar) f32, row t_p*T + t_q (csrc/eam_forms.cuh)
@@ -35,9 +35,9 @@
 // of the 131,072-atom crystal are 6.5 MB in a 50 MB L2, so each member
 // stages its own q blocks from there, kColDirs directions a round,
 // shifted into its frame and pruned to the atoms that can have a partner
-// (csrc/eam_sweep.cuh), and the CTA's warps sweep the round's
+// (csrc/sweep.cuh), and the CTA's warps sweep the round's
 // (direction, p tile, q chunk) items with the two-phase body of
-// csrc/eam_sweep.cuh.  Periodic aliasing (nz == G) needs nothing more:
+// csrc/sweep.cuh and the EAM hit evaluator of csrc/eam_sweep.cuh.  Periodic aliasing (nz == G) needs nothing more:
 // the union is deduplicated on the host, two directions of a member that
 // reach one block through different images are staged apart with their
 // own shifts, and every contribution is an atomic add.
@@ -50,7 +50,7 @@
 // (ops/cellpair_half.py:fit_col_group) lowers G until it fits.
 //
 // What bounds it on an H100, and what the design does about it: see
-// csrc/eam_sweep.cuh (operations, not bytes).  Beside the per-cell kernel
+// csrc/sweep.cuh (operations, not bytes).  Beside the per-cell kernel
 // on the same slots it saves global atomics and loses on latency: three
 // CTAs of 8 warps an SM, with a barrier before and after each round's
 // staging, hide phase 2's compare-and-swap loops less well than the
@@ -78,11 +78,7 @@ constexpr int kColDirs = kForce ? 7 : 14;
 template <bool kForce>
 constexpr int kThreads = kForce ? 256 : 384;
 
-// _half_dirs(): self first, then the lexicographically positive offsets
-__constant__ int kDirs[kDirsN][3] = {
-    {0, 0, 0},   {0, 0, 1},  {0, 1, -1}, {0, 1, 0},  {0, 1, 1},
-    {1, -1, -1}, {1, -1, 0}, {1, -1, 1}, {1, 0, -1}, {1, 0, 0},
-    {1, 0, 1},   {1, 1, -1}, {1, 1, 0},  {1, 1, 1}};
+using sweep::kHalfDirs;
 
 template <int kForm, bool kForce>
 __global__ void __launch_bounds__(kThreads<kForce>, 3)
@@ -104,9 +100,10 @@ eam_half_col_kernel(const float* __restrict__ slots,
   const int t = threadIdx.x;
   const int* ucell = stencil_col + static_cast<size_t>(c) * U;
   const int ntab = T * T * npar;
-  const eam::Layout lay = eam::make_layout(cap, kColDirs<kForce>, U, ntab,
-                                           kForce, kNt / 32);
-  const eam::View v = eam::make_view(smem, lay, kColDirs<kForce>, U);
+  const sweep::Layout lay = eam::make_layout(cap, kColDirs<kForce>, U, ntab,
+                                             kForce, kNt / 32);
+  const sweep::View v = sweep::make_view(smem, lay, kColDirs<kForce>, U);
+  const eam::Hit<kForm, kForce> f{T, npar, D};
 
   __shared__ float pbox[kNt / 32][6];
   // counts come from the caller: never let them index past the tile
@@ -116,7 +113,7 @@ eam_half_col_kernel(const float* __restrict__ slots,
   __syncthreads();
 
   const float rcut2 = L8[3];
-  const float rc = sqrtf(rcut2) * eam::kBoxSlack;
+  const float rc = sqrtf(rcut2) * sweep::kBoxSlack;
   float vir[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int g = 0; g < G; ++g) {
     const int cell = c * G + g;
@@ -133,20 +130,19 @@ eam_half_col_kernel(const float* __restrict__ slots,
         v.dtgt[t] = ucell[u];
         v.dcnt[t] = v.bnq[u];
         v.dblk[t] = u;
-        v.dsh[3 * t] = static_cast<float>(kDirs[s][0]) * L8[0];
-        v.dsh[3 * t + 1] = static_cast<float>(kDirs[s][1]) * L8[1];
-        v.dsh[3 * t + 2] = static_cast<float>(kDirs[s][2]) * L8[2];
+        v.dsh[3 * t] = static_cast<float>(kHalfDirs[s][0]) * L8[0];
+        v.dsh[3 * t + 1] = static_cast<float>(kHalfDirs[s][1]) * L8[1];
+        v.dsh[3 * t + 2] = static_cast<float>(kHalfDirs[s][2]) * L8[2];
       }
       if (t == 0) *v.next = 0;
       // the home cell once a member (its box too: pbox stays)
       if (s0 == 0)
-        eam::stage_home<kForce>(
-            v, slots + static_cast<size_t>(cell) * kRec * cap, cap, np, T,
-            pbox);
+        sweep::stage_home(v, f, slots + static_cast<size_t>(cell) * kRec * cap,
+                          cap, np, pbox);
       __syncthreads();
-      eam::stage_dirs<kForce>(v, slots, cap, np, nd, dself, T, rc, pbox);
+      sweep::stage_dirs(v, f, slots, cap, np, nd, dself, rc, pbox);
       __syncthreads();
-      eam::sweep<kForm, kForce>(v, cap, nd, dself, rcut2, T, npar, D, vir);
+      sweep::sweep(v, f, cap, nd, dself, rcut2, vir);
     }
     __syncthreads();
     // the member's p side: this column owns the slots, so a plain store
@@ -172,7 +168,7 @@ eam_half_col_kernel(const float* __restrict__ slots,
 
   // --- per-column virial (pass B) ----------------------------------------
   if (kForce)
-    eam::reduce_virial<true>(vir, out_col + static_cast<size_t>(c) * 8);
+    sweep::reduce_sums<true>(vir, out_col + static_cast<size_t>(c) * 8);
 }
 
 template <int kForm, bool kForce>

@@ -4,8 +4,8 @@ Counterpart of ddcmd_tpu/ops/pallas_cellpair.py for the main paths:
 `plan_lanes` (fat cells sized to a lane capacity), `pack_stencil` and
 `pack_slots` (the (ncell, 8, cap) record contract, with the in-kernel
 exclusion channels in rows 6-7), the column plan (`choose_col_group`,
-`fit_col_group`, `col_plan_grid`, `pack_stencil_col`), two kernels with
-their plain PyTorch twins:
+`fit_col_group`, `col_plan_grid`, `pack_stencil_col`), three entry points
+of one pair kernel with their plain PyTorch twins:
 
   cellpair_half      / cellpair_half_plain      per-cell kernel (TPU #1)
   cellpair_half_col  / cellpair_half_col_plain  column kernel   (TPU #2)
@@ -15,10 +15,10 @@ and `cellpair_eval_half` (the counterpart of pallas_cellpair_eval_half):
 pack, run the kernel the plan picks, scatter the per-slot results back to
 particles.
 
-The kernels are hand-written CUDA (csrc/cellpair_half.cu,
-csrc/cellpair_half_col.cu; the full-stencil kernel of
-ops/cellpair_full.py and the EAM kernels of ops/eam_half.py build here
-too), compiled with nvcc on first use into
+The kernel is hand-written CUDA (csrc/cellpair_half.cu on the sweep of
+csrc/sweep.cuh and the hit evaluator of csrc/pair_hit.cuh; the
+full-stencil kernel of ops/cellpair_full.py and the EAM kernels of
+ops/eam_half.py build here too), compiled with nvcc on first use into
 `ddcmd_tpu_torch/_build/` (one nvcc process per source, started
 together) and loaded with ctypes; nothing is compiled or imported for
 them when this module loads.  On a CPU tensor a wrapper runs its plain
@@ -51,16 +51,22 @@ _BUILD = os.path.join(_PKG, "_build")
 # kernel name -> CUDA source; each builds into _build/lib<name>.so
 KERNEL_SOURCES = {
     name: os.path.join(_PKG, "csrc", name + ".cu")
-    for name in ("cellpair_half", "cellpair_half_col", "cellpair_full",
-                 "eam_half", "eam_half_col")}
+    for name in ("cellpair_half", "cellpair_full", "eam_half",
+                 "eam_half_col")}
 # headers the sources include (a newer header rebuilds every library)
 KERNEL_HEADERS = [os.path.join(_PKG, "csrc", h)
-                  for h in ("eam_forms.cuh", "eam_sweep.cuh")]
+                  for h in ("sweep.cuh", "pair_hit.cuh", "eam_forms.cuh",
+                            "eam_sweep.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 # shared memory a block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
+# the pair kernel's CTA size (kThreads of csrc/cellpair_half.cu) and the
+# hit ring of csrc/sweep.cuh (kQueue), which the shared-memory counts
+# mirror
+PAIR_CELL_THREADS = 128
+SWEEP_QUEUE = 64
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -155,8 +161,8 @@ def frac_centers(grid: CellBlockGrid) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def choose_col_group(grid: CellBlockGrid) -> int:
-    """Column-group size G for the column kernel: G z-contiguous cells
-    share one CTA and one staged union of stencil blocks.  The JAX
+    """Column-group size G for the column kernels: G z-contiguous cells
+    share one union of stencil blocks (TPU #2 stages it once).  The JAX
     package's rule for its default (bcast) variant: grids under 256 cells
     stay on the per-cell kernel; otherwise the largest G <= g_max that
     divides nz, with g_max 5 at cap <= 128 and 3 above."""
@@ -172,7 +178,7 @@ def choose_col_group(grid: CellBlockGrid) -> int:
 
 def fit_col_group(grid: CellBlockGrid, G: int, smem_bytes_fn) -> int:
     """The plan's G on this card: the largest divisor of nz that is <= G
-    and whose staged union fits in a block's shared memory
+    and whose column kernel fits in a block's shared memory
     (smem_bytes_fn(U) <= SMEM_LIMIT, U the union size at that G); 1 -- the
     per-cell kernel -- when none fits.  Decided at plan time from the
     byte counts the column kernels launch with, so no launch is refused
@@ -529,9 +535,9 @@ def _check_common(slots, L8, counts, sigma, eps, shift):
 def cellpair_half(slots, stencil, L8, counts, sigma, eps, shift, *,
                   krf: float, crf: float, keR: float, coulomb: bool,
                   excl: bool = False):
-    """N3L half-stencil pair sweep, one CTA per (cell, direction)
-    (contract in csrc/cellpair_half.cu); excl=True masks the pairs the
-    record rows 6-7 exclude.
+    """N3L half-stencil pair sweep, one CTA per (cell, group of
+    directions) (contract in csrc/cellpair_half.cu); excl=True masks the
+    pairs the record rows 6-7 exclude.
 
     Returns (per-slot p side (ncell*cap, 4) [f, pe], accumulated q side
     (ncell, 8, cap), per-cell (ncell, 8) [e, virial6]).  A CPU tensor runs
@@ -547,7 +553,7 @@ def cellpair_half(slots, stencil, L8, counts, sigma, eps, shift, *,
     if slots.device.type == "cpu":
         return cellpair_half_plain(slots, stencil, L8, counts, sigma, eps,
                                    shift, **kw)
-    if (12 * cap + 3 * T * T) * 4 > SMEM_LIMIT:
+    if cell_smem_bytes(cap, T, excl) > SMEM_LIMIT:
         raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
     fn = _kernel_fn("cellpair_half")
     out_p = torch.zeros((ncell * cap, 4), dtype=torch.float32, device=slots.device)
@@ -607,7 +613,7 @@ def cellpair_half_ext(slots, stencil, L8, counts, sigma, eps, shift, *,
     if slots.device.type == "cpu":
         return cellpair_half_plain(slots, stencil, L8, counts, sigma, eps,
                                    shift, **kw)
-    if (12 * cap + 3 * T * T) * 4 > SMEM_LIMIT:
+    if cell_smem_bytes(cap, T, excl) > SMEM_LIMIT:
         raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
     fn = _kernel_fn("cellpair_half_ext", "cellpair_half")
     dev = slots.device
@@ -634,28 +640,48 @@ cellpair_half_ext.launches = 0
 cellpair_half_ext.launches_excl = 0
 
 
-def col_smem_bytes(U: int, cap: int, T: int, excl: bool) -> int:
-    """Dynamic shared memory of the column kernel (csrc/cellpair_half_col.cu):
-    U staged union blocks of 6 record rows (8 with exclusions), U 4-row
-    q-side accumulators, a 4-row p-side accumulator, the (T, T) tables and
-    the U block occupancies."""
-    rows = 8 if excl else 6
-    return 4 * (U * (rows + 4) * cap + 4 * cap + 3 * T * T + U)
+def sweep_smem_bytes(cap: int, nd: int, nblk: int, ntab: int, nx: int,
+                     acc: int, threads: int) -> int:
+    """Dynamic shared memory of a CTA of the sweep kernels
+    (csrc/sweep.cuh:make_layout): the home cell and nd staged direction
+    blocks as 16-byte records with nx extra rows of cap each, a p-side
+    accumulator and nblk q-side accumulator blocks of `acc` rows of cap,
+    the kept p slots of each direction, a table of ntab floats, a
+    SWEEP_QUEUE-entry hit ring per warp and the integer tables."""
+    return (16 * cap * (1 + nd) + 4 * cap * nx * (1 + nd)
+            + 4 * acc * cap * (1 + nblk) + 4 * cap * nd + 4 * ntab
+            + 4 * SWEEP_QUEUE * (threads // 32) + 4 * (8 * nd + nblk + 4))
+
+
+def _pair_extra_rows(excl: bool) -> int:
+    """Extra rows a staged pair slot carries (csrc/pair_hit.cuh): the
+    charge, and with exclusions the component id and one more channel."""
+    return 3 if excl else 1
+
+
+def cell_smem_bytes(cap: int, T: int, excl: bool) -> int:
+    """The least dynamic shared memory the pair kernel launches with
+    (csrc/cellpair_half.cu): one direction a CTA, per cell or over column
+    tables alike, so whatever a column's union.  The launch takes more
+    directions a CTA while they fit its budget."""
+    return sweep_smem_bytes(cap, 1, 1, 3 * T * T, _pair_extra_rows(excl), 4,
+                            PAIR_CELL_THREADS)
 
 
 def cellpair_half_col(slots, stencil_col, member_u, L8, counts, sigma, eps,
                       shift, *, krf: float, crf: float, keR: float,
                       coulomb: bool, excl: bool = False):
-    """Column variant: one CTA per column of G z-contiguous cells, the
-    column's U union blocks staged once in shared memory (contract in
-    csrc/cellpair_half_col.cu).  stencil_col (ncol, U) from
+    """The pair sweep over column tables: G z-contiguous cells a column,
+    each (member, group of directions) a CTA of the per-cell body that
+    reads its blocks through the tables (contract in csrc/cellpair_half.cu:
+    ddcmd_cellpair_half_col).  stencil_col (ncol, U) from
     pack_stencil_col, member_u (G, 14) from col_plan_grid.
 
     Returns (per-slot p side (ncell*cap, 4), accumulated q side (ncell, 8,
     cap), per-column (ncol, 8) [e, virial6]).  A CPU tensor runs
     cellpair_half_col_plain; a CUDA tensor launches the kernel (counted in
-    `cellpair_half_col.launches`) or raises -- also when the staged union
-    does not fit in shared memory (never running another kernel instead)."""
+    `cellpair_half_col.launches`) or raises -- also when a CTA does not
+    fit in shared memory (never running another kernel instead)."""
     ncell, cap, T = _check_common(slots, L8, counts, sigma, eps, shift)
     if stencil_col.dim() != 2 or member_u.dim() != 2 \
             or member_u.shape[1] != 14:
@@ -670,14 +696,12 @@ def cellpair_half_col(slots, stencil_col, member_u, L8, counts, sigma, eps,
     if slots.device.type == "cpu":
         return cellpair_half_col_plain(slots, stencil_col, member_u, L8,
                                        counts, sigma, eps, shift, **kw)
-    if cap > 512:
-        raise ValueError(f"cap={cap}: the column kernel takes cap <= 512")
-    smem = col_smem_bytes(U, cap, T, excl)
+    smem = cell_smem_bytes(cap, T, excl)
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"column kernel: {U} union blocks at cap={cap} need {smem} bytes "
-            f"of shared memory, more than the {SMEM_LIMIT} a block may use")
-    fn = _kernel_fn("cellpair_half_col")
+            f"column kernel: cap={cap}, T={T} need {smem} bytes of shared "
+            f"memory, more than the {SMEM_LIMIT} a block may use")
+    fn = _kernel_fn("cellpair_half_col", "cellpair_half")
     out_p = torch.zeros((ncell * cap, 4), dtype=torch.float32, device=slots.device)
     out_q = torch.zeros((ncell, 8, cap), dtype=torch.float32, device=slots.device)
     out_col = torch.zeros((ncol, 8), dtype=torch.float32, device=slots.device)

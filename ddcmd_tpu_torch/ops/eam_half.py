@@ -18,7 +18,8 @@ torch ops, write dF into record row 6, run pass B, and scatter the
 per-slot force and energy back to particles.
 
 The kernels are hand-written CUDA (csrc/eam_half.cu, csrc/eam_half_col.cu,
-their shared two-phase sweep in csrc/eam_sweep.cuh, the per-pair forms in
+the two-phase sweep of csrc/sweep.cuh they share with the pair kernels,
+their hit evaluator in csrc/eam_sweep.cuh, the per-pair forms in
 csrc/eam_forms.cuh), built and loaded like the pair
 kernels (ops/cellpair_half.py: nvcc on first use into _build/, ctypes).
 The TPU kernels bake the form parameters in as constants; here they
@@ -33,15 +34,16 @@ import torch
 
 from ..potentials.eam import _embedding, _pair_eval
 from .cellpair import CellBlockGrid
-from .cellpair_half import (SMEM_LIMIT, _check, _kernel_fn, check_ext,
-                            col_to_cell_stencil, pack_slots)
+from .cellpair_half import (SMEM_LIMIT, SWEEP_QUEUE, _check, _kernel_fn,
+                            check_ext, col_to_cell_stencil, pack_slots,
+                            sweep_smem_bytes)
 
 FORMS = ("FS", "SC", "EXP", "AT", "RATIONAL")     # eam::Form order
 # launch constants of the kernels (kThreads of csrc/eam_half.cu; kThreads
 # and kColDirs of csrc/eam_half_col.cu, keyed by `force`: the force and
-# the density pass; kQueue of csrc/eam_sweep.cuh), which the
-# shared-memory counts mirror
-EAM_CELL_THREADS, EAM_QUEUE = 128, 64
+# the density pass; kQueue of csrc/sweep.cuh), which the shared-memory
+# counts mirror
+EAM_CELL_THREADS, EAM_QUEUE = 128, SWEEP_QUEUE
 EAM_COL_THREADS = {True: 256, False: 384}
 EAM_COL_DIRS = {True: 7, False: 14}
 # parameter row of each closed form, in the column order eam_forms.cuh
@@ -382,15 +384,10 @@ eam_force_half_ext.launches = 0
 def _sweep_smem_bytes(cap: int, nd: int, nblk: int, ntab: int,
                       force: bool, threads: int) -> int:
     """Dynamic shared memory of a CTA of the EAM kernels
-    (csrc/eam_sweep.cuh:make_layout): the home cell and nd staged
-    direction blocks as 16-byte records, their dF rows in the force pass,
-    a p-side accumulator and nblk q-side accumulator blocks of 2 (3) rows
-    of cap, the kept p slots of each direction, the parameter table, a
-    64-entry hit ring per warp and the integer tables."""
-    acc, df = (3, 1) if force else (2, 0)
-    return (16 * cap * (1 + nd) + 4 * cap * df * (1 + nd)
-            + 4 * acc * cap * (1 + nblk) + 4 * cap * nd + 4 * ntab
-            + 4 * EAM_QUEUE * (threads // 32) + 4 * (8 * nd + nblk + 4))
+    (csrc/eam_sweep.cuh:make_layout on csrc/sweep.cuh's): the dF rows (pass
+    B) as the one extra row, 2 (3) accumulator rows."""
+    return sweep_smem_bytes(cap, nd, nblk, ntab, 1 if force else 0,
+                            3 if force else 2, threads)
 
 
 def eam_cell_smem_bytes(cap: int, T: int, npar: int,

@@ -19,9 +19,9 @@ import torch
 from ..core.system import SystemDef
 from ..objects import units as U
 from ..ops.cellpair import half_grid
-from ..ops.cellpair_half import (cellpair_eval_half, choose_col_group,
-                                 col_smem_bytes, fit_col_group, grid_tensors,
-                                 kernel_inputs)
+from ..ops.cellpair_half import (cell_smem_bytes, cellpair_eval_half,
+                                 choose_col_group, fit_col_group,
+                                 grid_tensors, kernel_inputs)
 from ..ops.eam_half import (eam_col_smem_bytes, eam_eval_half,
                             eam_half_supported, eam_kernel_inputs,
                             eam_kernel_tables, n_params)
@@ -127,7 +127,7 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
     perm the slot permutation from ops.cellpair.build_cell_slots on
     `grid` (a plan_lanes grid).  The MARTINI pair term and the EAM term
     run their column kernels when choose_col_group gives G > 1 and
-    fit_col_group keeps a G > 1 whose staged union fits in shared
+    fit_col_group keeps a G > 1 whose column kernel fits in shared
     memory, else their per-cell kernels.  The term list is kept as
     force_fn.terms (per-term profiling); each kernel term carries
     `kernel_inputs` (the call it makes, for chip_smoke.py) and `grid`."""
@@ -164,8 +164,8 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
                 device=device)
         hg = half_grid(grid)
         T = tables["sigma"].shape[0]
-        G = fit_col_group(hg, choose_col_group(hg), lambda U: col_smem_bytes(
-            U, hg.cap, T, excl_vals is not None))
+        G = fit_col_group(hg, choose_col_group(hg), lambda U: cell_smem_bytes(
+            hg.cap, T, excl_vals is not None))
         gt = grid_tensors(hg, device, G)
 
         def martini_term(state, box, perm, tables=tables, tmap=tmap,

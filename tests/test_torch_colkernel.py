@@ -276,31 +276,33 @@ FIT_PLANS = {"water49k": ((23.6, 23.6, 23.6), 49384, 1.1, 0.3),
              "grid_11_12_12": ([32 * 0.3615] * 3, 4 * 32 ** 3, 0.55, 0.1)}
 
 
-@pytest.mark.parametrize("plan,excl,G", [("water49k", False, 1),
-                                         ("water49k", True, 1),
-                                         ("grid_11_12_12", False, 2),
-                                         ("grid_11_12_12", True, 1)])
+@pytest.mark.parametrize("plan,excl,G", [("water49k", False, 3),
+                                         ("water49k", True, 3),
+                                         ("grid_11_12_12", False, 3),
+                                         ("grid_11_12_12", True, 3)])
 def test_fit_col_group_lowers_g_to_fit(plan, excl, G):
-    """Both plans with the cap grown to 256, as the overflow ladder does:
-    the JAX rule gives G = 3, U = 24, whose staged union needs 250,252
-    bytes (T = 5 tables) of the 232,448 a block may use.  The fit rule
-    lowers G to the largest divisor of nz whose union fits.  On the
-    (11, 12, 12) grid that is G = 2 (U = 19, 199,032 bytes) without
-    exclusions; with exclusions G = 2 still needs 237,944 bytes, so the
-    per-cell kernel (G = 1) runs.  The water box's nz = 9 has no divisor
-    between 1 and 3, so it goes to the per-cell kernel either way."""
+    """Both plans with the cap grown to 384, as the overflow ladder may
+    grow it: the JAX rule gives G = 3, U = 24.  The pair kernel's column
+    launch is its per-cell CTA over the column tables, so its shared
+    memory does not grow with U (T = 5 tables, with or without the two
+    exclusion rows, well within the 232,448 bytes a block may use) and
+    the fit rule keeps G = 3.  A count that grows with U past the limit
+    at U = 24 is lowered to the largest divisor of nz whose union fits:
+    G = 2 (U = 19) on the (11, 12, 12) grid, and the per-cell kernel on
+    the water box, whose nz = 9 has no divisor 2."""
     L, n, rcut, skin = FIT_PLANS[plan]
     th = tcp.half_grid(tch.plan_lanes(L, rcut, skin, n,
-                                      plan_margin=1.08).with_cap(256))
+                                      plan_margin=1.08).with_cap(384))
     assert tch.choose_col_group(th) == 3
     assert len(tch.col_plan_grid(th, 3)[0]) == 24
-    assert tch.col_smem_bytes(24, 256, 5, False) == 250_252 > tch.SMEM_LIMIT
-    assert tch.col_smem_bytes(19, 256, 5, False) == 199_032
-    assert tch.col_smem_bytes(19, 256, 5, True) == 237_944 > tch.SMEM_LIMIT
+    assert tch.cell_smem_bytes(384, 5, excl) <= tch.SMEM_LIMIT
     if th.ncells[2] % 2 == 0:
         assert len(tch.col_plan_grid(th, 2)[0]) == 19
-    assert tch.fit_col_group(th, 3, lambda u: tch.col_smem_bytes(
-        u, 256, 5, excl)) == G
+    assert tch.fit_col_group(th, 3, lambda u: tch.cell_smem_bytes(
+        384, 5, excl)) == G
+    lowered = 2 if th.ncells[2] % 2 == 0 else 1
+    assert tch.fit_col_group(th, 3, lambda u: tch.SMEM_LIMIT + (u > 19)) \
+        == lowered
 
 
 @pytest.mark.parametrize("cap,G", [(128, 4), (256, 3), (384, 3), (512, 2),

@@ -58,22 +58,30 @@ def _constant(source, name):
     return int(m.group(1))
 
 
-def _layout_bytes(cap, nd, nblk, ntab, force, threads):
-    """csrc/eam_sweep.cuh:make_layout, written once more: the order of
-    its regions and the bytes of each, for a CTA of `threads`."""
-    acc = 3 if force else 2
+def _sweep_layout_bytes(cap, nd, nblk, ntab, nx, acc, threads, queue):
+    """csrc/sweep.cuh:make_layout, written once more: the order of its
+    regions and the bytes of each, for a CTA of `threads` with hit rings
+    of `queue` entries."""
     warps = threads // 32
     o = cap * 16                                   # p4
     o += nd * cap * 16                             # q4
-    o += cap * 4 if force else 0                   # pdf
-    o += nd * cap * 4 if force else 0              # qdf
+    o += nx * cap * 4                              # px
+    o += nd * nx * cap * 4                         # qx
     o += acc * cap * 4                             # ap
     o += nblk * acc * cap * 4                      # aq
     o += nd * cap * 4                              # plist
     o += ntab * 4                                  # tab
-    o += warps * _constant("eam_sweep.cuh", "kQueue") * 4
+    o += warps * queue * 4                         # hit rings
     o += (8 * nd + nblk + 4) * 4                   # integer tables
     return o
+
+
+def _layout_bytes(cap, nd, nblk, ntab, force, threads):
+    """csrc/eam_sweep.cuh:make_layout (dF as the one extra row in pass B,
+    2 or 3 accumulator rows) on the sweep layout."""
+    return _sweep_layout_bytes(cap, nd, nblk, ntab, 1 if force else 0,
+                               3 if force else 2, threads,
+                               _constant("sweep.cuh", "kQueue"))
 
 
 @pytest.mark.parametrize("U,cap,T,form,degree", [
@@ -94,7 +102,7 @@ def test_eam_smem_counts_mirror_the_sources(U, cap, T, form, degree, force):
     nd = teh.EAM_COL_DIRS[force]
     assert (teh.EAM_CELL_THREADS, teh.EAM_QUEUE) == (
         _constant("eam_half.cu", "kThreads"),
-        _constant("eam_sweep.cuh", "kQueue"))
+        _constant("sweep.cuh", "kQueue"))
     assert teh.eam_col_smem_bytes(U, cap, T, npar, force) == \
         _layout_bytes(cap, nd, U, T * T * npar, force,
                       teh.EAM_COL_THREADS[force])
@@ -107,7 +115,38 @@ def test_eam_smem_counts_mirror_the_sources(U, cap, T, form, degree, force):
                          r"T \* T \* npar,\s+kForce,\s+kThreads<kForce> / 32\)"
                          r"\s*\.bytes", f.read())
     assert teh.eam_col_smem_bytes(U, cap, T, npar, force) <= tch.SMEM_LIMIT
-    assert _constant("eam_sweep.cuh", "kSmemMax") == tch.SMEM_LIMIT
+    assert _constant("sweep.cuh", "kSmemMax") == tch.SMEM_LIMIT
+
+
+# (cap, T, excl, bytes of one direction, directions the launch stages at
+# its 32 KB budget): the full bilayer (T = 5, exclusions), the water box
+# (T = 1), a replanned cap, the widest cap
+PAIR_LAYOUTS = [(128, 5, True, 13_152, 4), (128, 1, False, 10_816, 5),
+                (384, 5, False, 30_560, 1), (1024, 5, True, 95_584, 1)]
+
+
+@pytest.mark.parametrize("cap,T,excl,one_dir,fit", PAIR_LAYOUTS)
+def test_pair_smem_counts_mirror_the_layout(cap, T, excl, one_dir, fit):
+    """The pair kernel's shared-memory counts (ops/cellpair_half.py, which
+    the plan's fit_col_group and the wrappers use) against the sweep
+    layout written once more above: charge (and with exclusions two
+    channels more) as the extra rows, 4 accumulator rows, the (T, T)
+    sigma / eps / shift tables, PAIR_CELL_THREADS a CTA (the column
+    launch is the same CTA over the column tables).  At the bilayer's and
+    the water box's shapes the launch stages 4 and 5 directions within
+    its 32 KB budget."""
+    nx = 3 if excl else 1
+
+    def layout(nd):
+        return _sweep_layout_bytes(cap, nd, nd, 3 * T * T, nx, 4,
+                                   tch.PAIR_CELL_THREADS, tch.SWEEP_QUEUE)
+
+    assert tch.cell_smem_bytes(cap, T, excl) == one_dir == layout(1)
+    assert tch.sweep_smem_bytes(cap, 3, 5, 7, 2, 4, 128) == \
+        _sweep_layout_bytes(cap, 3, 5, 7, 2, 4, 128, tch.SWEEP_QUEUE)
+    budget = 32 * 1024
+    assert layout(fit) <= budget or fit == 1
+    assert layout(fit + 1) > budget
 
 
 def test_no_wrapper_caps_the_cell_count():
