@@ -38,9 +38,12 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      - the per-cell pair and EAM kernels on plans of more than 65,535
        cells at cap 32, most cells empty;
      - the full-stencil kernel (TPU #3) on the water box's records, on
-       the full bilayer's (T = 5, reaction field) and on charged grids
-       with 2-cell axes, each also against the per-cell kernel on the
-       same records;
+       the full bilayer's (T = 5, reaction field; two calls also against
+       each other), on charged grids with 2- and 1-cell axes, on the
+       ragged and drifted records at cap 128 and 256 and on the
+       65,600-cell plan at cap 32, each but the last also against the
+       per-cell kernel on the same records, and its device time on the
+       water box's and the full bilayer's records;
      - the extended-grid kernels (TPU #6, #7) of the brick mesh: the pair
        kernel on the (1,1,1) water plan's slots (and against the
        per-cell kernel there), on one brick of a (2,2,2) plan at the
@@ -124,7 +127,9 @@ EAM_T = 300.0
 # us/call of the bodies the sweep design replaced (PERF.md, H100 80GB
 # HBM3 at 700 W): one CTA of cap threads per
 # (direction, cell), the pair arithmetic inside the distance sweep; the
-# column kernels with their union staged in shared memory, one CTA an SM
+# column kernels with their union staged in shared memory, one CTA an SM;
+# the full stencil (#3) with one CTA of cap threads a cell over its 27
+# blocks
 OLD_BODY_US = {"eam_rho": 106.6, "eam_force": 93.7, "eam_rho_col": 1155.4,
                "eam_force_col": 1388.3, "eam_rho_ext": 484.4,
                "eam_force_ext": 589.6, "eam_rho_on_col_slots": 477.3,
@@ -132,7 +137,8 @@ OLD_BODY_US = {"eam_rho": 106.6, "eam_force": 93.7, "eam_rho_col": 1155.4,
                "cellpair_half": 84.9, "cellpair_half_excl": 55.5,
                "cellpair_half_col": 713.8, "cellpair_half_ext": 120.5,
                "cellpair_half_ext_excl": 272.4,
-               "cellpair_half_on_col_slots": 275.0}
+               "cellpair_half_on_col_slots": 275.0,
+               "cellpair_full": 672.6, "cellpair_full_water": 224.2}
 RAGGED_COUNTS = (0, 1, 31, 32, 33)        # live slots of the ragged cells,
 RAGGED_CAPS = (128, 256)                  # and cap itself, at each of these caps
 BIG_NCELLS = (41, 40, 40)                 # 65,600 cells: past a 16-bit grid axis
@@ -890,8 +896,10 @@ def ragged_eam_cases(dev, cell, col, tables, alloy, cap):
 def big_grid_cases(dev, tables):
     """Plans of more than 65,535 cells (BIG_NCELLS) at cap 32, atoms in
     three cell layers and the rest empty: the per-cell pair kernel (#1,
-    charged, T = 2) and the per-cell EAM kernels (#4, the crystal's
-    RATIONAL) against their plain versions."""
+    charged, T = 2), the full-stencil kernel (#3) on the same records and
+    the per-cell EAM kernels (#4, the crystal's RATIONAL) against their
+    plain versions."""
+    from ddcmd_tpu_torch.ops import cellpair_full as cf
     from ddcmd_tpu_torch.ops import cellpair_half as ch
     from ddcmd_tpu_torch.ops import eam_half as eh
     from ddcmd_tpu_torch.ops.cellpair import build_cell_slots, half_grid
@@ -903,17 +911,21 @@ def big_grid_cases(dev, tables):
     tabs, rcut = synthetic_tables()
     r, L = slab_lattice(BIG_NCELLS, 1.5)
     rng = np.random.default_rng(31)
+    grid = made_grid(BIG_NCELLS, 32, rcut + 0.3)
     a = packed_inputs(r, rng.choice([-1.0, 0.0, 1.0], size=len(r)) * 0.3,
-                      rng.integers(0, 2, size=len(r)), L,
-                      made_grid(BIG_NCELLS, 32, rcut + 0.3), tabs, dev)
+                      rng.integers(0, 2, size=len(r)), L, grid, tabs, dev)
     empty = float((a[3] == 0).float().mean())
     assert a[0].shape[0] == ncell and empty > 0.9, (a[0].shape, empty)
-    compare(f"per-cell: {ncell} cells {BIG_NCELLS}, cap 32, {len(r)} beads, "
-            f"{100 * empty:.1f}% of the cells empty, charged T=2",
-            ch.cellpair_half, ch.cellpair_half_plain, a,
-            dict(krf=tabs["krf"], crf=tabs["crf"], keR=tabs["keR"],
-                 coulomb=True))
-    del a
+    what = (f"{ncell} cells {BIG_NCELLS}, cap 32, {len(r)} beads, "
+            f"{100 * empty:.1f}% of the cells empty, charged T=2")
+    kw = dict(krf=tabs["krf"], crf=tabs["crf"], keR=tabs["keR"],
+              coulomb=True)
+    compare(f"per-cell: {what}", ch.cellpair_half, ch.cellpair_half_plain, a,
+            kw)
+    fa, fkw, _ = full_call(grid, a, kw, dev)
+    compare(f"full stencil: {what}", cf.cellpair_full, cf.cellpair_full_plain,
+            fa, fkw)
+    del a, fa
     # #4: cells of 0.75 nm at rlist 0.65, 27 atoms a live cell, 2.5 A apart
     r, L = slab_lattice(BIG_NCELLS, 0.75)
     n = len(r)
@@ -972,8 +984,9 @@ def kernel_phase(dev):
         args, kw, with_bound=True, device_key="cellpair_half_kernel")
     # TPU #3, the full stencil, on the same water records, and against #1
     fa, fkw, ha = full_call(grid, args, kw, dev)
-    compare("full stencil: waterbox 6173 beads, 80 cells, cap 128, T=1",
-            *full, fa, fkw, with_bound=True, work=ha)
+    res["cellpair_full_water"] = compare(
+        "full stencil: waterbox 6173 beads, 80 cells, cap 128, T=1", *full,
+        fa, fkw, with_bound=True, work=ha, device_key="cellpair_full_kernel")
     full_vs_half("the water slots", fa, fkw, ha)
     for n_syn, L_syn in ((800, 6.6), (220, 4.2), (60, 2.6)):
         r, q, tidx, tabs, rcut = synthetic(n_syn, L_syn)
@@ -983,10 +996,12 @@ def kernel_phase(dev):
                    coulomb=True)
         what = f"charged T=2 n={n_syn} L={L_syn} cells {g.ncells}"
         compare(f"per-cell: {what}", *pair, a, kwc)
-        if 2 in g.ncells:
-            # #3 where -1 and +1 reach one cell through two images
+        if min(g.ncells) <= 2:
+            # #3 where -1 and +1 reach one cell through two images (2-cell
+            # axes) or are the home cell's own images (1-cell axes)
             fa, fkw, ha = full_call(g, a, kwc, dev)
-            compare(f"full stencil: {what} (2-cell axes)", *full, fa, fkw)
+            compare(f"full stencil: {what} ({min(g.ncells)}-cell axes)",
+                    *full, fa, fkw)
             full_vs_half(what, fa, fkw, ha)
 
     # (a) per-cell kernel with exclusions on a small bilayer
@@ -1033,8 +1048,15 @@ def kernel_phase(dev):
     res["cellpair_full"] = compare(
         f"full stencil: full bilayer {sim.sysdef.state.n_local} beads, "
         f"cells {sim.grid.ncells}, cap {hg.cap}, T={a[-1].shape[0]}, "
-        f"Coulomb", *full, fa, fkw, with_bound=True, work=ha)
+        f"Coulomb", *full, fa, fkw, with_bound=True, work=ha,
+        device_key="cellpair_full_kernel")
     full_vs_half("the full bilayer slots", fa, fkw, ha)
+    # its atomic sums are unordered: two calls agree within tolerance
+    ferr, scale = agree("two calls of #3 on the full bilayer slots",
+                        per_slot(*cf.cellpair_full(*fa, **fkw)),
+                        per_slot(*cf.cellpair_full(*fa, **fkw)))
+    phase("kernel", f"two calls of #3 on the full bilayer slots: force "
+          f"err {ferr:.3g} (scale {scale:.4g})")
     del sim, a, cell_args, fa, ha
 
     # (c) the column kernel on a charged grid with nz == G
@@ -1102,10 +1124,12 @@ def ragged_pair_cases(dev, cap):
     """The pair kernels against their plain versions on
     ragged_system(cap=cap), charged, T = 2, a tenth of the live slots
     masked in the validity row: #1, and #2 at G = 2 and at G = nz = 4,
-    without and with exclusion channels; then the same on a drifted
+    without and with exclusion channels, and #3 over the full stencil of
+    the same records (also against #1); then the same on a drifted
     state: the slots packed from a binning made before every particle
     moved by up to RAGGED_SKIN / 2, so particles lie outside their cells
     (what the box pruning must not drop a pair for)."""
+    from ddcmd_tpu_torch.ops import cellpair_full as cf
     from ddcmd_tpu_torch.ops import cellpair_half as ch
     from ddcmd_tpu_torch.run.forces import _excl_channels
 
@@ -1119,6 +1143,7 @@ def ragged_pair_cases(dev, cap):
     moved = r + drift(rng, n)
     pair = {1: (ch.cellpair_half, ch.cellpair_half_plain)}
     pair[2] = pair[4] = (ch.cellpair_half_col, ch.cellpair_half_col_plain)
+    full = (cf.cellpair_full, cf.cellpair_full_plain)
     for drifted in (False, True):
         ex = _excl_channels(chain_exclusions(moved if drifted else r, rng), n)
         for excl in (False, True):
@@ -1141,10 +1166,64 @@ def ragged_pair_cases(dev, cap):
                     f"column G={G} (U={a[1].shape[1]})"
                 state = ("drifted by up to skin/2 after binning"
                          if drifted else "ragged occupancy")
-                compare(f"{what}{' + exclusions' if excl else ''}: {state}, "
-                        f"cells {grid.ncells} of {(*RAGGED_COUNTS, cap)} live "
-                        f"slots, {int((valid == 0).sum())} of {n} masked, "
-                        "charged T=2", *pair[G], a, dict(kw, excl=excl))
+                text = (f"{state}, cells {grid.ncells} of "
+                        f"{(*RAGGED_COUNTS, cap)} live slots, "
+                        f"{int((valid == 0).sum())} of {n} masked, charged T=2")
+                compare(f"{what}{' + exclusions' if excl else ''}: {text}",
+                        *pair[G], a, dict(kw, excl=excl))
+                if G == 1 and not excl:
+                    # #3 over the 27 directions on the same records
+                    fa, fkw, ha = full_call(grid, a, kw, dev)
+                    compare(f"full stencil: {text}", *full, fa, fkw)
+                    full_vs_half(text, fa, fkw, ha)
+
+
+ENTRY_DECKS = (("water box", lambda d: water_deck(d, 6173, 100)),
+               ("full bilayer", lambda d: bilayer_deck(d, BILAYER_NX, EQ_DT,
+                                                       200)))
+
+
+def start_sim(make_deck, dev):
+    """A Simulation on the start state of the deck make_deck(dir) writes."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    with tempfile.TemporaryDirectory() as d:
+        make_deck(d)
+        return Simulation(*load(d), run_dir=d, device=dev)
+
+
+def entry_calls(sim, dev):
+    """TPU #3's entry point on sim's current state: (full, half, what),
+    full() = make_cellpair_full + cellpair_eval_full, half() =
+    cellpair_eval_half (#1 without exclusions) on the same state, each
+    returning (f, e, virial, pe), and a description of the state."""
+    from ddcmd_tpu_torch.ops.cellpair import half_grid
+    from ddcmd_tpu_torch.ops.cellpair_full import (cellpair_eval_full,
+                                                   make_cellpair_full)
+    from ddcmd_tpu_torch.ops.cellpair_half import (cellpair_eval_half,
+                                                   grid_tensors, pack_stencil)
+    from ddcmd_tpu_torch.potentials.martini import martini_device_tables
+
+    ss, perm, ov = sim._build_nbr(sim.ss)
+    assert not bool(ov), "overflow packing the entry-point case"
+    st, sd = ss.state, sim.sysdef
+    parms = next(p[2] for p in sd.potentials if p[0] == "MARTINI")
+    tables = martini_device_tables(parms, device=dev)
+    tidx = torch.as_tensor(parms.species_lj_type, device=dev)[st.species]
+    coul = bool(st.q.abs().max() > 0)
+    grid = sim.grid
+    stencil = torch.as_tensor(pack_stencil(grid), device=dev)
+    eval_fn = make_cellpair_full(grid, tables, coulomb=coul)
+    hg = half_grid(grid)
+    gt = grid_tensors(hg, dev)
+    r, q, L = st.r, st.q, ss.box.lengths
+    what = (f"{st.n_local} particles, cells {grid.ncells}, cap {grid.cap}, "
+            f"T={tables['sigma'].shape[0]}, Coulomb {coul}")
+    return ((lambda: cellpair_eval_full(r, q, tidx, perm, L, grid, tables,
+                                        stencil, eval_fn)),
+            (lambda: cellpair_eval_half(r, q, tidx, perm, L, hg, tables, gt,
+                                        coulomb=coul)), what)
 
 
 def full_entry_phase(dev, counters_zero, all_counters):
@@ -1154,44 +1233,16 @@ def full_entry_phase(dev, counters_zero, all_counters):
     to 0 just before each call and read just after; the result held
     against cellpair_eval_half (#1 without exclusions) on the same state
     at the tolerances of agree().  Returns #3's launches."""
-    from ddcmd_tpu_torch.models import load
-    from ddcmd_tpu_torch.ops.cellpair import half_grid
-    from ddcmd_tpu_torch.ops.cellpair_full import (cellpair_eval_full,
-                                                   make_cellpair_full)
-    from ddcmd_tpu_torch.ops.cellpair_half import (cellpair_eval_half,
-                                                   grid_tensors, pack_stencil)
-    from ddcmd_tpu_torch.potentials.martini import martini_device_tables
-    from ddcmd_tpu_torch.run.simulate import Simulation
-
     launches = 0
-    for name, make_deck in (
-            ("water box", lambda d: water_deck(d, 6173, 100)),
-            ("full bilayer", lambda d: bilayer_deck(d, BILAYER_NX, EQ_DT,
-                                                    200))):
-        with tempfile.TemporaryDirectory() as d:
-            make_deck(d)
-            sim = Simulation(*load(d), run_dir=d, device=dev)
-        ss, perm, ov = sim._build_nbr(sim.ss)
-        assert not bool(ov), "overflow packing the entry-point case"
-        st, sd = ss.state, sim.sysdef
-        parms = next(p[2] for p in sd.potentials if p[0] == "MARTINI")
-        tables = martini_device_tables(parms, device=dev)
-        tidx = torch.as_tensor(parms.species_lj_type, device=dev)[st.species]
-        coul = bool(st.q.abs().max() > 0)
-        grid = sim.grid
-        stencil = torch.as_tensor(pack_stencil(grid), device=dev)
-        eval_fn = make_cellpair_full(grid, tables, coulomb=coul)
+    for name, make_deck in ENTRY_DECKS:
+        full, half, what = entry_calls(start_sim(make_deck, dev), dev)
         counters_zero()
-        f, e, vir, pe = cellpair_eval_full(st.r, st.q, tidx, perm,
-                                           ss.box.lengths, grid, tables,
-                                           stencil, eval_fn)
+        f, e, vir, pe = full()
         torch.cuda.synchronize()
         c = all_counters()
         assert c["cellpair_full"] == 1 and sum(c.values()) == 1, c
         launches += c["cellpair_full"]
-        hg = half_grid(grid)
-        ref = cellpair_eval_half(st.r, st.q, tidx, perm, ss.box.lengths, hg,
-                                 tables, grid_tensors(hg, dev), coulomb=coul)
+        ref = half()
         v6 = lambda v: torch.stack([v[0, 0], v[1, 1], v[2, 2], v[0, 1],  # noqa: E731
                                     v[0, 2], v[1, 2]]).double()
         ok = torch.isfinite(f).all() and torch.isfinite(e)
@@ -1200,13 +1251,13 @@ def full_entry_phase(dev, counters_zero, all_counters):
                             (f.double(), pe.double(), e.double(), v6(vir)),
                             (ref[0].double(), ref[3].double(),
                              ref[1].double(), v6(ref[2])))
-        phase("full-entry", f"cellpair_eval_full on the {name} "
-              f"({st.n_local} particles, cells {grid.ncells}, cap "
-              f"{grid.cap}, T={tables['sigma'].shape[0]}, Coulomb {coul}): "
+        ms = time_calls(full, PLAIN_CALLS)
+        phase("full-entry", f"cellpair_eval_full on the {name} ({what}): "
               f"e {float(e):.8g} vs half-stencil {float(ref[1]):.8g}, "
               f"force err {ferr:.3g} (scale {scale:.4g}); #3 launched "
-              f"{c['cellpair_full']} time(s), no other kernel")
-        del sim, ss, st
+              f"{c['cellpair_full']} time(s), no other kernel; "
+              f"{1e3 * ms:.2f} us a call (events)")
+        del full, half
     return launches
 
 
@@ -1840,7 +1891,7 @@ def main(argv=None):
         "eam_force_col": ("eam_half_col.cu", f"{eam}:411"),
         "cellpair_half_ext": ("cellpair_half.cu", f"{shard}:361"),
         "cellpair_half_ext_excl": ("cellpair_half.cu", f"{shard}:361"),
-        "cellpair_full": ("cellpair_full.cu", f"{cellpair}:389"),
+        "cellpair_full": ("cellpair_half.cu", f"{cellpair}:389"),
         "eam_rho_ext": ("eam_half.cu", f"{shard}:434"),
         "eam_force_ext": ("eam_half.cu", f"{shard}:434"),
     }

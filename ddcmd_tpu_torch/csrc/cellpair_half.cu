@@ -1,9 +1,10 @@
-// Half-stencil (Newton's third law) cell-pair kernels: shifted LJ plus
-// optional reaction-field Coulomb, for the Martini/PAIR nonbond term,
-// optionally with in-kernel bonded-pair exclusions.  One device body, three
-// entry points: per cell (ddcmd_cellpair_half), on a brick's extended grid
-// (ddcmd_cellpair_half_ext) and over column tables
-// (ddcmd_cellpair_half_col).
+// Cell-pair kernels: shifted LJ plus optional reaction-field Coulomb, for
+// the Martini/PAIR nonbond term.  One device body, four entry points:
+// three over the half stencil (Newton's third law, optionally with
+// in-kernel bonded-pair exclusions) -- per cell (ddcmd_cellpair_half), on
+// a brick's extended grid (ddcmd_cellpair_half_ext) and over column
+// tables (ddcmd_cellpair_half_col) -- and one over the full 27-direction
+// stencil (ddcmd_cellpair_full), which adds only the p side of each pair.
 //
 // ddcmd_cellpair_half replaces the TPU kernel
 // ddcmd_tpu/ops/pallas_cellpair.py:_kernel_half (tile math in _pair_tile,
@@ -39,9 +40,10 @@
 // group size: as many directions as fit in kSmemBudget bytes of shared
 // memory, fewer when the grid has too few cells to give each SM of the
 // card kFillCtasPerSm CTAs (the water box's 80 cells take 14 CTAs a
-// cell, a direction each; the bilayer's 1,200 four).  A CTA whose home cell is empty leaves at
-// once and a direction whose target is empty (on an extended grid: the
-// sentinel) stages and adds nothing, so such out_q rows stay exactly 0.
+// cell, a direction each, 27 with the full stencil; the bilayer's 1,200
+// four).  A CTA whose home cell is empty leaves at once and a direction
+// whose target is empty (on an extended grid: the sentinel) stages and
+// adds nothing, so such out_q rows stay exactly 0.
 // The TPU kernel's in-order q-side read-modify-write (race-free only
 // because the TPU grid runs in sequence) and its merge of aliased
 // periodic images become atomics, so sums are not deterministic and every
@@ -74,10 +76,13 @@ constexpr int kThreads = 128;   // CTA size: 4 warps
 // shared memory a CTA aims to stay under, so that several share an SM
 constexpr int kSmemBudget = 32 * 1024;
 // CTAs the grid should hold at least for each SM of the card, else the
-// directions of a cell are spread over more CTAs (8: the water box's
-// kernel took 35.2 us of device time, against 40.0 at 4, on an H100 80GB
-// HBM3 at 700 W; PERF.md)
-constexpr int kFillCtasPerSm = 8;
+// directions of a cell are spread over more CTAs.  16: on the water box's
+// 80 cells both stencils then take one direction a CTA -- the full
+// stencil's kernel took 29.4 us of device time against 34.0-34.3 at 8
+// (two directions a CTA); the half stencil's launch is one direction a
+// CTA from 8 on (35.2 us, against 40.0 at 4) -- on an H100 80GB HBM3 at
+// 700 W (PERF.md)
+constexpr int kFillCtasPerSm = 16;
 
 // Where a CTA's directions come from: the per-cell stencil rows [cell dx
 // dy dz]*S, the image shift d * L/n ...
@@ -114,20 +119,21 @@ struct ColumnDirs {
   }
 };
 
-template <bool kCoulomb, bool kExcl, class Dirs>
-__global__ void __launch_bounds__(kThreads)
-cellpair_half_kernel(const float* __restrict__ slots, Dirs dirs,
-                     const float* __restrict__ L8,
-                     const int* __restrict__ counts,
-                     const float* __restrict__ sigma,
-                     const float* __restrict__ eps,
-                     const float* __restrict__ shift,
-                     float* __restrict__ out_p,
-                     float* __restrict__ out_q,
-                     float* __restrict__ out_sums,
-                     int cap, int n_stencil, int T,
-                     float krf, float crf, float keR, int dg) {
-  using Hit = ljpair::Hit<kCoulomb, kExcl>;
+// One CTA: home cell blockIdx.x, stencil directions blockIdx.y * dg ..
+// (at most dg of them); s_self is the stencil index of the self block.
+// kFull: the full stencil -- every j != i in the self block, only the p
+// side added (no q-side blocks, out_q unused), the CTA's [e, virial6]
+// halved, since every pair is met from both of its cells.
+template <bool kFull, bool kCoulomb, bool kExcl, class Dirs>
+__device__ __forceinline__ void pair_cta(
+    const float* __restrict__ slots, const Dirs& dirs,
+    const float* __restrict__ L8, const int* __restrict__ counts,
+    const float* __restrict__ sigma, const float* __restrict__ eps,
+    const float* __restrict__ shift, float* __restrict__ out_p,
+    float* __restrict__ out_q, float* __restrict__ out_sums, int cap,
+    int n_stencil, int s_self, int T, float krf, float crf, float keR,
+    int dg) {
+  using Hit = ljpair::Hit<kCoulomb, kExcl, !kFull>;
   constexpr int kAcc = Hit::kAcc;
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -141,9 +147,10 @@ cellpair_half_kernel(const float* __restrict__ slots, Dirs dirs,
   if (np == 0) return;
 
   const int TT = T * T;
+  const int nblk = kFull ? 0 : dg;        // q-side accumulator blocks
   const sweep::Layout lay =
-      ljpair::make_layout(cap, dg, dg, T, kExcl, kThreads / 32);
-  const sweep::View v = sweep::make_view(smem, lay, dg, dg);
+      ljpair::make_layout(cap, dg, nblk, T, kExcl, kThreads / 32);
+  const sweep::View v = sweep::make_view(smem, lay, dg, nblk);
   const Hit f{T, TT, krf, crf, keR};
   __shared__ float pbox[kThreads / 32][6];
   if (t < nd) {
@@ -165,7 +172,7 @@ cellpair_half_kernel(const float* __restrict__ slots, Dirs dirs,
   sweep::stage_home(v, f, slots + static_cast<size_t>(c) * kRec * cap, cap,
                     np, pbox);
   __syncthreads();
-  for (int idx = t; idx < nd * cap; idx += kThreads) {
+  for (int idx = t; !kFull && idx < nd * cap; idx += kThreads) {
     const int d = idx / cap;
     const int j = idx - d * cap;
     if (j >= v.dcnt[d]) continue;
@@ -173,14 +180,14 @@ cellpair_half_kernel(const float* __restrict__ slots, Dirs dirs,
     for (int k = 0; k < kAcc; ++k) v.aq[(d * kAcc + k) * cap + j] = 0.f;
   }
   const float rcut2 = L8[3];
-  // the self block is stencil direction 0
-  const int dself = s0 == 0 ? 0 : -1;
+  // the self block, if it is among this CTA's directions
+  const int dself = s_self >= s0 && s_self < s0 + nd ? s_self - s0 : -1;
   sweep::stage_dirs(v, f, slots, cap, np, nd, dself,
                     sqrtf(rcut2) * sweep::kBoxSlack, pbox);
   __syncthreads();
 
   float sums[Hit::kSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  sweep::sweep(v, f, cap, nd, dself, rcut2, sums);
+  sweep::sweep<Hit, kFull>(v, f, cap, nd, dself, rcut2, sums);
   __syncthreads();
 
   const bool whole = gridDim.y == 1;      // this CTA holds the whole cell
@@ -194,7 +201,7 @@ cellpair_half_kernel(const float* __restrict__ slots, Dirs dirs,
       atomicAdd(o, v.ap[k * cap + i]);
   }
   // the q side of the kept entries only: no other q slot has a partner
-  for (int idx = t; idx < nd * cap; idx += kThreads) {
+  for (int idx = t; !kFull && idx < nd * cap; idx += kThreads) {
     const int d = idx / cap;
     const int pos = idx - d * cap;
     if (pos >= v.dnq[d]) continue;        // the self block: its live slots
@@ -204,16 +211,56 @@ cellpair_half_kernel(const float* __restrict__ slots, Dirs dirs,
     for (int k = 0; k < kAcc; ++k)
       atomicAdd(&oq[k * cap], v.aq[(d * kAcc + k) * cap + j]);
   }
+  if (kFull) {
+#pragma unroll
+    for (int k = 0; k < Hit::kSums; ++k) sums[k] *= 0.5f;
+  }
   sweep::reduce_sums<false>(
       sums, out_sums + static_cast<size_t>(dirs.sums_row(c)) * 8);
 }
 
 template <bool kCoulomb, bool kExcl, class Dirs>
-cudaError_t launch(const float* slots, Dirs dirs, const float* L8,
-                   const int* counts, const float* sigma, const float* eps,
-                   const float* shift, float* out_p, float* out_q,
-                   float* out_sums, int ncell, int cap, int n_stencil, int T,
-                   float krf, float crf, float keR, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+cellpair_half_kernel(const float* __restrict__ slots, Dirs dirs,
+                     const float* __restrict__ L8,
+                     const int* __restrict__ counts,
+                     const float* __restrict__ sigma,
+                     const float* __restrict__ eps,
+                     const float* __restrict__ shift,
+                     float* __restrict__ out_p,
+                     float* __restrict__ out_q,
+                     float* __restrict__ out_sums,
+                     int cap, int n_stencil, int T,
+                     float krf, float crf, float keR, int dg) {
+  // the half stencil's self block is direction 0
+  pair_cta<false, kCoulomb, kExcl>(slots, dirs, L8, counts, sigma, eps,
+                                   shift, out_p, out_q, out_sums, cap,
+                                   n_stencil, 0, T, krf, crf, keR, dg);
+}
+
+template <bool kCoulomb>
+__global__ void __launch_bounds__(kThreads)
+cellpair_full_kernel(const float* __restrict__ slots, StencilDirs dirs,
+                     const float* __restrict__ L8,
+                     const int* __restrict__ counts,
+                     const float* __restrict__ sigma,
+                     const float* __restrict__ eps,
+                     const float* __restrict__ shift,
+                     float* __restrict__ out_p,
+                     float* __restrict__ out_cell,
+                     int cap, int n_stencil, int s_self, int T,
+                     float krf, float crf, float keR, int dg) {
+  pair_cta<true, kCoulomb, false>(slots, dirs, L8, counts, sigma, eps,
+                                  shift, out_p, nullptr, out_cell, cap,
+                                  n_stencil, s_self, T, krf, crf, keR, dg);
+}
+
+// The launch shape over ncell cells of n_stencil directions each: dg
+// directions a CTA, `groups` CTAs a cell, `smem` bytes a CTA, with
+// bytes(nd) a CTA's shared memory at nd directions.
+template <class Bytes>
+cudaError_t launch_shape(int ncell, int cap, int n_stencil, int T,
+                         Bytes bytes, int& dg, int& groups, int& smem) {
   if (ncell < 1 || n_stencil < 1 || T < 1 || cap < 32 ||
       cap > sweep::kMaxCap || cap % 32)
     return cudaErrorInvalidValue;
@@ -222,30 +269,77 @@ cudaError_t launch(const float* slots, Dirs dirs, const float* L8,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  auto bytes = [&](int nd) {
-    return ljpair::make_layout(cap, nd, nd, T, kExcl, kThreads / 32).bytes;
-  };
   // directions a CTA: all that fit in the budget (at least one) ...
   int fit = n_stencil < sweep::kMaxDirs ? n_stencil : sweep::kMaxDirs;
   while (fit > 1 && bytes(fit) > kSmemBudget) --fit;
   if (bytes(fit) > sweep::kSmemMax) return cudaErrorInvalidValue;
   // ... spread over more CTAs when the grid has few cells
   const int want = (kFillCtasPerSm * sms + ncell - 1) / ncell;
-  int groups = (n_stencil + fit - 1) / fit;
+  groups = (n_stencil + fit - 1) / fit;
   if (groups < want) groups = want < n_stencil ? want : n_stencil;
-  const int dg = (n_stencil + groups - 1) / groups;
+  dg = (n_stencil + groups - 1) / groups;
   groups = (n_stencil + dg - 1) / dg;
-  const int smem = bytes(dg);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(cellpair_half_kernel<kCoulomb, kExcl, Dirs>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
+  smem = bytes(dg);
+  return cudaSuccess;
+}
+
+// a kernel's dynamic shared memory past the default 48 KB
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// the shared memory of a pair CTA of nd directions
+template <bool kFull, bool kExcl>
+struct PairBytes {
+  int cap, T;
+  int operator()(int nd) const {
+    return ljpair::make_layout(cap, nd, kFull ? 0 : nd, T, kExcl,
+                               kThreads / 32).bytes;
   }
+};
+
+template <bool kCoulomb, bool kExcl, class Dirs>
+cudaError_t launch(const float* slots, Dirs dirs, const float* L8,
+                   const int* counts, const float* sigma, const float* eps,
+                   const float* shift, float* out_p, float* out_q,
+                   float* out_sums, int ncell, int cap, int n_stencil, int T,
+                   float krf, float crf, float keR, cudaStream_t stream) {
+  int dg = 0, groups = 0, smem = 0;
+  cudaError_t err = launch_shape(ncell, cap, n_stencil, T,
+                                 PairBytes<false, kExcl>{cap, T}, dg,
+                                 groups, smem);
+  if (err == cudaSuccess)
+    err = allow_smem(cellpair_half_kernel<kCoulomb, kExcl, Dirs>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(ncell, groups);
   cellpair_half_kernel<kCoulomb, kExcl, Dirs><<<grid, kThreads, smem, stream>>>(
       slots, dirs, L8, counts, sigma, eps, shift, out_p, out_q, out_sums,
       cap, n_stencil, T, krf, crf, keR, dg);
+  return cudaGetLastError();
+}
+
+template <bool kCoulomb>
+cudaError_t launch_full(const float* slots, StencilDirs dirs,
+                        const float* L8, const int* counts,
+                        const float* sigma, const float* eps,
+                        const float* shift, float* out_p, float* out_cell,
+                        int ncell, int cap, int n_stencil, int s_self, int T,
+                        float krf, float crf, float keR,
+                        cudaStream_t stream) {
+  int dg = 0, groups = 0, smem = 0;
+  cudaError_t err = launch_shape(ncell, cap, n_stencil, T,
+                                 PairBytes<true, false>{cap, T}, dg, groups,
+                                 smem);
+  if (err == cudaSuccess)
+    err = allow_smem(cellpair_full_kernel<kCoulomb>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ncell, groups);
+  cellpair_full_kernel<kCoulomb><<<grid, kThreads, smem, stream>>>(
+      slots, dirs, L8, counts, sigma, eps, shift, out_p, out_cell, cap,
+      n_stencil, s_self, T, krf, crf, keR, dg);
   return cudaGetLastError();
 }
 
@@ -353,4 +447,56 @@ extern "C" int ddcmd_cellpair_half_col(
       coulomb, excl, slots, ColumnDirs{stencil_col, member_u, G, U}, L8,
       counts, sigma, eps, shift, out_p, out_q, out_col, ncol * G, cap,
       kDirsN, T, krf, crf, keR, stream));
+}
+
+// The sweep over the FULL 27-direction stencil (replaces the TPU kernel
+// ddcmd_tpu/ops/pallas_cellpair.py:_kernel, built by make_pallas_cellpair:
+// no Newton's third law, each cell sums the forces on its own particles
+// only).  Record contract as ddcmd_cellpair_half (rows 6-7 are not read:
+// the full kernel has no exclusions) except
+//   stencil  (ncell, S*4) int32 [cell dx dy dz]*S, the 27 directions
+//   s_self   the stencil index of the (0,0,0) direction: the self pair
+//            j == i is dropped there only.  On a 2-cell axis the -1 and
+//            +1 directions reach one cell through two images and both
+//            count; on a 1-cell axis the wrapped self images are real
+//            pairs -- neither is dropped.
+// Outputs (zeroed by the caller; every element defined, the padding slots
+// and the rows of empty cells exactly 0):
+//   out_p    (ncell*cap, 4)  [fx fy fz pe] per slot, pe = 1/2 sum e
+//   out_cell (ncell, 8)      [e vxx vyy vzz vxy vxz vyz 0] per cell, every
+//            ordered pair at half weight (so each unordered pair once)
+// The CTA is the half-stencil one with the p-side-only hit evaluator: it
+// stages no q-side blocks and adds back no q side, the self block keeps
+// every j != i, and every other direction is pruned as for the half
+// stencil (q slots within rcut of the home box, then p slots within rcut
+// of the kept box: symmetric in p and q).  The sums are atomic and
+// unordered, so the output is not deterministic (the TPU kernel's
+// determinism comes from its sequential grid); every comparison states a
+// tolerance.  What bounds it: as for the half stencil, the distance tests
+// the pruning leaves and phase 2's shared float atomics -- twice the
+// hits of the half stencil (each pair from both cells), four atomics
+// each instead of eight -- and the staging of 27 directions.  On the full
+// bilayer's start slots it took 132 us of device time against the half
+// stencil's 119 on the same records; a whole cell a CTA (27 directions,
+// ~90 KB, two CTAs an SM) 269 us, the 48 and 64 KB budgets 137 and 166
+// (H100 80GB HBM3, 700 W; PERF.md).
+extern "C" int ddcmd_cellpair_full(const float* slots, const int* stencil,
+                                   const float* L8, const int* counts,
+                                   const float* sigma, const float* eps,
+                                   const float* shift, float* out_p,
+                                   float* out_cell, int ncell, int cap,
+                                   int n_stencil, int s_self, int T,
+                                   float krf, float crf, float keR,
+                                   int coulomb, void* stream) {
+  if (s_self < 0 || s_self >= n_stencil)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const StencilDirs dirs{stencil, n_stencil};
+  return static_cast<int>(
+      coulomb ? launch_full<true>(slots, dirs, L8, counts, sigma, eps, shift,
+                                  out_p, out_cell, ncell, cap, n_stencil,
+                                  s_self, T, krf, crf, keR, st)
+              : launch_full<false>(slots, dirs, L8, counts, sigma, eps,
+                                   shift, out_p, out_cell, ncell, cap,
+                                   n_stencil, s_self, T, krf, crf, keR, st));
 }

@@ -1,9 +1,11 @@
-// The pair hit evaluator of the half-stencil LJ + reaction-field kernels
-// (csrc/cellpair_half.cu: per cell, extended grid, column) for the shared
-// two-phase sweep of csrc/sweep.cuh, which holds the design and what
-// bounds it.  Replaces the tile math of the TPU kernels
+// The pair hit evaluator of the LJ + reaction-field kernels
+// (csrc/cellpair_half.cu: per cell, extended grid, column, full stencil)
+// for the shared two-phase sweep of csrc/sweep.cuh, which holds the
+// design and what bounds it.  Replaces the tile math of the TPU kernels
 // ddcmd_tpu/ops/pallas_cellpair.py:_kernel_half / _kernel_half_col
-// (_pair_tile, bcast variant, with in-kernel exclusions).
+// (_pair_tile, bcast variant, with in-kernel exclusions) and, with
+// kQSide = false, of _kernel (the full stencil: no exclusions, and each
+// pair met from both cells adds only its p side).
 //
 // A staged slot carries its LJ type in w (p side: the float, an exact
 // small integer; q side: slot | type << 10, as bits) and kX extra rows:
@@ -35,8 +37,9 @@ __host__ __device__ constexpr int extra_rows(bool excl) {
 }
 
 // The sweep layout of a pair kernel: 4 accumulator rows [fx fy fz pe],
-// the (T, T) sigma / eps / shift tables.  ops/cellpair_half.py mirrors
-// the total (sweep_smem_bytes).
+// the (T, T) sigma / eps / shift tables, nblk q-side accumulator blocks
+// (0 for the full stencil).  ops/cellpair_half.py mirrors the total
+// (sweep_smem_bytes).
 __host__ __device__ inline sweep::Layout make_layout(int cap, int nd,
                                                      int nblk, int T,
                                                      bool excl, int nwarps) {
@@ -44,7 +47,9 @@ __host__ __device__ inline sweep::Layout make_layout(int cap, int nd,
                             nwarps);
 }
 
-template <bool kCoulomb, bool kExcl>
+// kQSide: a hit adds its q side too (the half stencil); without it only
+// its p side (the full stencil, whose CTA stages no q-side blocks)
+template <bool kCoulomb, bool kExcl, bool kQSide = true>
 struct Hit {
   static constexpr int kX = extra_rows(kExcl);
   static constexpr int kAcc = 4;                 // [fx fy fz pe]
@@ -126,15 +131,19 @@ struct Hit {
     const float fdy = dvdr * dy;
     const float fdz = dvdr * dz;
     const float half = 0.5f * epair;
-    float* A = v.aq + v.dblk[d] * kAcc * cap;
     sweep::shared_add(&v.ap[i], -fdx);
     sweep::shared_add(&v.ap[cap + i], -fdy);
     sweep::shared_add(&v.ap[2 * cap + i], -fdz);
     sweep::shared_add(&v.ap[3 * cap + i], half);
-    sweep::shared_add(&A[j], fdx);
-    sweep::shared_add(&A[cap + j], fdy);
-    sweep::shared_add(&A[2 * cap + j], fdz);
-    sweep::shared_add(&A[3 * cap + j], half);
+    if (kQSide) {
+      float* A = v.aq + v.dblk[d] * kAcc * cap;
+      sweep::shared_add(&A[j], fdx);
+      sweep::shared_add(&A[cap + j], fdy);
+      sweep::shared_add(&A[2 * cap + j], fdz);
+      sweep::shared_add(&A[3 * cap + j], half);
+    }
+    // each pair once; the full-stencil CTA, which meets every pair from
+    // both cells, halves its sums (exact in f32)
     sums[0] += epair;
     sums[1] -= fdx * dx;
     sums[2] -= fdy * dy;

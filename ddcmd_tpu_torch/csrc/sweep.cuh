@@ -1,10 +1,15 @@
-// The two-phase half-stencil sweep every cell-list kernel of the port
-// that adds both sides of a pair shares: the EAM passes (csrc/eam_half.cu,
-// csrc/eam_half_col.cu, hit evaluator in csrc/eam_sweep.cuh) and the LJ +
-// reaction-field pair kernels (csrc/cellpair_half.cu, hit evaluator in
-// csrc/pair_hit.cuh).  A warp sweeps a tile of 32 kept p slots of a home
-// cell against a chunk of 32 kept q slots of one staged half-stencil
-// direction; what a hit adds is the evaluator's.
+// The two-phase cell-list sweep every kernel of the port shares: the
+// half-stencil kernels that add both sides of a pair -- the EAM passes
+// (csrc/eam_half.cu, csrc/eam_half_col.cu, hit evaluator in
+// csrc/eam_sweep.cuh) and the LJ + reaction-field pair kernels
+// (csrc/cellpair_half.cu, hit evaluator in csrc/pair_hit.cuh) -- and the
+// full-stencil pair kernel (csrc/cellpair_half.cu:ddcmd_cellpair_full),
+// which meets every pair from both cells and adds one side (the p side)
+// of each.  A warp sweeps a tile of 32 kept p slots of a home cell against
+// a chunk of 32 kept q slots of one staged stencil direction; what a hit
+// adds is the evaluator's.  The numbers below are the half stencil's; the
+// full stencil has 27 directions and twice the hits, each adding half as
+// much.
 //
 // What bounds such a sweep on an H100: at the shapes of the port's decks
 // (cells of ~70-85 particles at cap 128, about two cutoffs wide) a p
@@ -23,7 +28,8 @@
 //     that passes the distance test is never dropped (|dx| <= rcut
 //     follows from d2 < rcut^2; the margin kBoxSlack covers rounding).
 //     That leaves about a quarter of the tests.  The self block is kept
-//     whole and in place (its pairs are j > i);
+//     whole and in place (its pairs are j > i; with the full stencil
+//     every j != i);
 //   - two phases.  Phase 1 is the distance test alone: a lane holds one
 //     kept p slot in registers and the warp walks the kept q slots in
 //     chunks of 32, unrolled: one 16-byte shared load (a broadcast) and a
@@ -341,11 +347,12 @@ static_assert(kMaxCap <= (1 << 10) && kMaxDirs <= (1 << 12),
 // The sweep of the staged directions by the CTA's warps, after a barrier
 // behind stage_dirs.  Items are (direction d, tile of 32 kept p slots,
 // chunk of 32 kept q slots), drawn from *v.next (set to 0 before that
-// barrier); dself is the self block (pairs j > i only) or -1.  A pair
-// (p, q) is a hit when both slots are valid and d2 < rcut2 (and d2 > 0
-// with F::kNonzeroD2).  Each lane adds its hits' per-CTA terms to sums.
+// barrier); dself is the self block or -1, whose pairs are j > i only,
+// or with kAllSelf (the full stencil) every j != i.  A pair (p, q) is a
+// hit when both slots are valid and d2 < rcut2 (and d2 > 0 with
+// F::kNonzeroD2).  Each lane adds its hits' per-CTA terms to sums.
 // Every thread of the CTA calls this; nd <= kMaxDirs.
-template <class F>
+template <class F, bool kAllSelf = false>
 __device__ __forceinline__ void sweep(const View& v, const F& f, int cap,
                                       int nd, int dself, float rcut2,
                                       float (&sums)[F::kSums]) {
@@ -378,7 +385,7 @@ __device__ __forceinline__ void sweep(const View& v, const F& f, int cap,
     const bool self = d == dself;
     // the self block takes j > i only (there i = k and a q slot's
     // position is its slot): the chunks before a tile's own hold none
-    if (self && j0 < (tile << 5)) continue;
+    if (!kAllSelf && self && j0 < (tile << 5)) continue;
     int i = 0;
     float4 P = make_float4(0.f, 0.f, 0.f, -1.f);
     if (k < v.dnp[d]) {
@@ -404,10 +411,13 @@ __device__ __forceinline__ void sweep(const View& v, const F& f, int cap,
     if (!pv) mask = 0u;
     if (self) {                        // drop the bits of j <= i
       const int keep = i - j0 + 1;
-      if (keep >= 32)
+      if (kAllSelf) {                  // ... or, all pairs kept, of j == i
+        if (keep > 0 && keep <= 32) mask &= ~(1u << (keep - 1));
+      } else if (keep >= 32) {
         mask = 0u;
-      else if (keep > 0)
+      } else if (keep > 0) {
         mask &= kFull << keep;
+      }
     }
     // compact: every lane with a bit left queues its lowest one
     for (unsigned any = __ballot_sync(kFull, mask != 0u); any != 0u;

@@ -5,14 +5,27 @@ Counterpart of the full-stencil part of ddcmd_tpu/ops/pallas_cellpair.py:
 entry point `pallas_cellpair_eval`, a drop-in replacement for the
 cell-block engine's `cellpair_eval`.  Every cell sums over all 27
 neighbour blocks and writes only its own particles' forces (no Newton's
-third law, no q side), which makes the sweep deterministic at the price
-of testing every pair twice.  No simulate path runs it: the main paths
-take the half-stencil kernels of ops/cellpair_half.py.
+third law, no q side), at the price of meeting every pair twice, once
+from each of its cells.  No simulate path runs it: the main paths take
+the half-stencil kernels of ops/cellpair_half.py.
 
-  cellpair_full / cellpair_full_plain   kernel (csrc/cellpair_full.cu)
-                                        and its plain PyTorch version
+  cellpair_full / cellpair_full_plain   kernel (csrc/cellpair_half.cu:
+                                        ddcmd_cellpair_full) and its
+                                        plain PyTorch version
   make_cellpair_full                    <- make_pallas_cellpair
   cellpair_eval_full                    <- pallas_cellpair_eval
+
+The kernel is the half-stencil kernels' CTA (csrc/sweep.cuh's pruned
+two-phase sweep) over the 27 directions with a hit evaluator that adds
+only the p side (csrc/pair_hit.cuh, kQSide = false): the self block keeps
+every j != i, the other directions are box-pruned as for the half
+stencil, the CTA stages no q-side blocks and halves its [e, virial6].
+What bounds it on an H100 is what bounds the half stencil -- the distance
+tests the pruning leaves and phase 2's shared-memory float atomics --
+with twice the hits and half the atomics a hit.  Its sums are atomic and
+unordered, so results are not deterministic from run to run (the TPU
+kernel's determinism is its sequential grid's): every comparison states a
+tolerance.
 
 The grid is a plan_lanes grid with its full 27-direction stencil
 (ops/cellpair._build_stencil) and pack_stencil's table; slots are
@@ -26,8 +39,17 @@ import numpy as np
 import torch
 
 from .cellpair import CellBlockGrid
-from .cellpair_half import (SMEM_LIMIT, _check, _check_common, _kernel_fn,
-                            frac_centers, pack_slots)
+from .cellpair_half import (PAIR_CELL_THREADS, SMEM_LIMIT, _check,
+                            _check_common, _kernel_fn, frac_centers,
+                            pack_slots, sweep_smem_bytes)
+
+
+def full_smem_bytes(cap: int, T: int) -> int:
+    """The least dynamic shared memory the full-stencil kernel launches
+    with (csrc/cellpair_half.cu:ddcmd_cellpair_full): one direction a CTA,
+    the charge as the one extra row, 4 accumulator rows, no q-side blocks.
+    The launch takes more directions a CTA while they fit its budget."""
+    return sweep_smem_bytes(cap, 1, 0, 3 * T * T, 1, 4, PAIR_CELL_THREADS)
 
 
 def self_index(grid: CellBlockGrid) -> int:
@@ -104,9 +126,10 @@ def cellpair_full_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
 def cellpair_full(slots, stencil, L8, counts, sigma, eps, shift, *,
                   s_self: int, krf: float, crf: float, keR: float,
                   coulomb: bool):
-    """Full 27-stencil pair sweep, one CTA per cell (contract in
-    csrc/cellpair_full.cu); `s_self` is the stencil index of the (0,0,0)
-    direction, where the self pair is masked.
+    """Full 27-stencil pair sweep, one CTA per (cell, group of
+    directions) (contract in csrc/cellpair_half.cu:ddcmd_cellpair_full);
+    `s_self` is the stencil index of the (0,0,0) direction, where the self
+    pair is masked.
 
     Returns (per-slot (ncell*cap, 4) [f, pe], per-cell (ncell, 8) [e,
     virial6]).  A CPU tensor runs cellpair_full_plain; a CUDA tensor
@@ -124,12 +147,13 @@ def cellpair_full(slots, stencil, L8, counts, sigma, eps, shift, *,
     if slots.device.type == "cpu":
         return cellpair_full_plain(slots, stencil, L8, counts, sigma, eps,
                                    shift, **kw)
-    if (6 * cap + 3 * T * T) * 4 > SMEM_LIMIT:
+    if full_smem_bytes(cap, T) > SMEM_LIMIT:
         raise ValueError(f"T={T} tables do not fit in shared memory at cap={cap}")
-    fn = _kernel_fn("cellpair_full")
-    out_p = torch.empty((ncell * cap, 4), dtype=torch.float32,
+    fn = _kernel_fn("cellpair_full", "cellpair_half")
+    # zeroed: the kernel adds into them where a cell's directions are split
+    out_p = torch.zeros((ncell * cap, 4), dtype=torch.float32,
                         device=slots.device)
-    out_cell = torch.empty((ncell, 8), dtype=torch.float32,
+    out_cell = torch.zeros((ncell, 8), dtype=torch.float32,
                            device=slots.device)
     with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -4,8 +4,8 @@ Counterpart of ddcmd_tpu/ops/pallas_cellpair.py for the main paths:
 `plan_lanes` (fat cells sized to a lane capacity), `pack_stencil` and
 `pack_slots` (the (ncell, 8, cap) record contract, with the in-kernel
 exclusion channels in rows 6-7), the column plan (`choose_col_group`,
-`fit_col_group`, `col_plan_grid`, `pack_stencil_col`), three entry points
-of one pair kernel with their plain PyTorch twins:
+`fit_col_group`, `col_plan_grid`, `pack_stencil_col`), three half-stencil
+entry points of one pair kernel with their plain PyTorch twins:
 
   cellpair_half      / cellpair_half_plain      per-cell kernel (TPU #1)
   cellpair_half_col  / cellpair_half_col_plain  column kernel   (TPU #2)
@@ -16,12 +16,12 @@ pack, run the kernel the plan picks, scatter the per-slot results back to
 particles.
 
 The kernel is hand-written CUDA (csrc/cellpair_half.cu on the sweep of
-csrc/sweep.cuh and the hit evaluator of csrc/pair_hit.cuh; the
-full-stencil kernel of ops/cellpair_full.py and the EAM kernels of
-ops/eam_half.py build here too), compiled with nvcc on first use into
-`ddcmd_tpu_torch/_build/` (one nvcc process per source, started
-together) and loaded with ctypes; nothing is compiled or imported for
-them when this module loads.  On a CPU tensor a wrapper runs its plain
+csrc/sweep.cuh and the hit evaluator of csrc/pair_hit.cuh; its fourth
+entry point is the full-stencil kernel of ops/cellpair_full.py, and the
+EAM kernels of ops/eam_half.py build here too), compiled with nvcc on
+first use into `ddcmd_tpu_torch/_build/` (one nvcc process per source,
+started together) and loaded with ctypes; nothing is compiled or
+imported for them when this module loads.  On a CPU tensor a wrapper runs its plain
 twin; on a CUDA tensor it launches its kernel or raises.
 
 The TPU kernel's `_alias_groups_half` (merging stencil directions that
@@ -51,8 +51,7 @@ _BUILD = os.path.join(_PKG, "_build")
 # kernel name -> CUDA source; each builds into _build/lib<name>.so
 KERNEL_SOURCES = {
     name: os.path.join(_PKG, "csrc", name + ".cu")
-    for name in ("cellpair_half", "cellpair_full", "eam_half",
-                 "eam_half_col")}
+    for name in ("cellpair_half", "eam_half", "eam_half_col")}
 # headers the sources include (a newer header rebuilds every library)
 KERNEL_HEADERS = [os.path.join(_PKG, "csrc", h)
                   for h in ("sweep.cuh", "pair_hit.cuh", "eam_forms.cuh",

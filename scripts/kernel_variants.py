@@ -1,7 +1,7 @@
 """Device time of the sweep kernels on a main path's slots, for the
 sources as they are or with text substitutions of your own.
 
-    python scripts/kernel_variants.py [--family eam|pair] [--nc 32]
+    python scripts/kernel_variants.py [--family eam|pair|full] [--nc 32]
         [--calls 20] [--sub FILE OLD NEW [--sub ...]]
 
 Needs one CUDA card and nvcc.  Copies the package to a temporary
@@ -20,6 +20,12 @@ device_us):
         (#2) on the same slots; then #1 on the 2,888-bead bilayer's (36
         cells, exclusions) and on the 6,173-bead water box's (80 cells,
         T = 1) start slots.
+  full  the full-stencil kernel (TPU #3) on the full bilayer's start
+        slots (plan (15,16,5), cap 128, T = 5, reaction field) and on the
+        water box's (80 cells, T = 1), each beside #1 on the same records
+        (with the main path's exclusions on the bilayer, and without, the
+        same function as #3); also #3's time by CUDA events and that of
+        one call of its entry point cellpair_eval_full on each state.
 
 Without --sub the kernels are also held against the plain PyTorch
 version at chip_smoke.py's tolerances.  A substitution that takes work
@@ -85,16 +91,11 @@ def eam_family(cs, args, dev, checked):
 
 
 def pair_family(cs, args, dev, checked):
-    from ddcmd_tpu_torch.models import load
     from ddcmd_tpu_torch.ops import cellpair_half as ch
-    from ddcmd_tpu_torch.run.simulate import Simulation
 
     def start_call(make_deck):
         """The pair call the main path makes on a deck's start state."""
-        with tempfile.TemporaryDirectory() as d:
-            make_deck(d)
-            sim = Simulation(*load(d), run_dir=d, device=dev)
-            return cs.sim_kernel_inputs(sim)
+        return cs.sim_kernel_inputs(cs.start_sim(make_deck, dev))
 
     kernel, a, kw, hg = start_call(lambda d: cs.bilayer_deck(
         d, cs.BILAYER_NX, cs.EQ_DT, 200))
@@ -126,9 +127,48 @@ def pair_family(cs, args, dev, checked):
             f"{t[3]:.1f}")
 
 
+def full_family(cs, args, dev, checked):
+    from ddcmd_tpu_torch.ops import cellpair_full as cf
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+
+    out = []
+    for name, make_deck in reversed(cs.ENTRY_DECKS):
+        sim = cs.start_sim(make_deck, dev)
+        _, a, kw, _ = cs.sim_kernel_inputs(sim)
+        fa, fkw, ha = cs.full_call(sim.grid, a, kw, dev)
+        hkw = {k: v for k, v in fkw.items() if k != "s_self"}
+        calls = [lambda: cf.cellpair_full(*fa, **fkw),
+                 lambda: ch.cellpair_half(*ha, **hkw)]
+        if kw["excl"]:      # the main path's call: #1 with exclusions
+            calls.append(lambda: ch.cellpair_half(*ha, **kw))
+        t = [cs.device_us(calls[0], args.calls, "cellpair_full_kernel")]
+        t += [cs.device_us(fn, args.calls, "cellpair_half_kernel")
+              for fn in calls[1:]]
+        ev = 1e3 * cs.time_calls(calls[0], args.calls)
+        if checked:
+            cs.agree(f"{name}: #3 vs plain", cs.per_slot(*calls[0]()),
+                     cs.per_slot(*cf.cellpair_full_plain(*fa, **fkw)))
+            cs.agree(f"{name}: #3 vs #1", cs.per_slot(*calls[0]()),
+                     cs.per_slot(*calls[1]()))
+        del a, fa, ha, calls
+        full, _, what = cs.entry_calls(sim, dev)
+        entry = 1e3 * cs.time_calls(full, args.calls)
+        del sim, full
+        excl = (f", #1 with the main path's exclusions {t[2]:.1f}"
+                if len(t) > 2 else "")
+        out.append(f"{name} ({what}): device us per launch: #3 {t[0]:.1f} "
+                   f"(events {ev:.1f}), #1 on the same records {t[1]:.1f}"
+                   f"{excl}; #3 / #1 {t[0] / t[1]:.2f}; one "
+                   f"cellpair_eval_full call {entry:.1f} us (events)")
+    return "; ".join(out)
+
+
+FAMILIES = {"eam": eam_family, "pair": pair_family, "full": full_family}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--family", choices=("eam", "pair"), default="eam")
+    p.add_argument("--family", choices=sorted(FAMILIES), default="eam")
     p.add_argument("--nc", type=int, default=32)
     p.add_argument("--calls", type=int, default=20)
     p.add_argument("--sub", nargs=3, action="append", default=[],
@@ -144,8 +184,7 @@ def main():
 
         assert ch.__file__.startswith(tmp), ch.__file__
         dev = torch.device("cuda:0")
-        run = eam_family if args.family == "eam" else pair_family
-        text = run(cs, args, dev, checked=not args.sub)
+        text = FAMILIES[args.family](cs, args, dev, checked=not args.sub)
         note = (f"{len(args.sub)} substitutions, sums not checked"
                 if args.sub else "as built, agrees with the plain version")
         print(f"{text} ({note}) on {cs.card_line()}", flush=True)

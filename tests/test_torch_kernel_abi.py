@@ -10,6 +10,7 @@ import re
 
 import pytest
 
+from ddcmd_tpu_torch.ops import cellpair_full as tcf
 from ddcmd_tpu_torch.ops import cellpair_half as tch
 from ddcmd_tpu_torch.ops import eam_half as teh
 
@@ -147,6 +148,34 @@ def test_pair_smem_counts_mirror_the_layout(cap, T, excl, one_dir, fit):
     budget = 32 * 1024
     assert layout(fit) <= budget or fit == 1
     assert layout(fit + 1) > budget
+
+
+# (cap, T, bytes of one direction, directions the launch stages at its
+# 32 KB budget) of the full-stencil kernel: no q-side blocks
+FULL_LAYOUTS = [(32, 1, 3_004, 27), (32, 5, 3_292, 27),
+                (128, 1, 8_764, 8), (128, 5, 9_052, 8),
+                (256, 1, 16_444, 3), (256, 5, 16_732, 3)]
+
+
+@pytest.mark.parametrize("cap,T,one_dir,fit", FULL_LAYOUTS)
+def test_full_smem_counts_mirror_the_layout(cap, T, one_dir, fit):
+    """The full-stencil kernel's shared-memory count (ops/cellpair_full.py,
+    which its wrapper checks) against the sweep layout written once more
+    above with no q-side accumulator blocks (nblk = 0): the charge as the
+    one extra row, 4 accumulator rows, the (T, T) tables, PAIR_CELL_THREADS
+    a CTA.  The launch stages `fit` of the 27 directions within its 32 KB
+    budget; the source sizes the layout with nblk = 0."""
+    def layout(nd):
+        return _sweep_layout_bytes(cap, nd, 0, 3 * T * T, 1, 4,
+                                   tch.PAIR_CELL_THREADS, tch.SWEEP_QUEUE)
+
+    assert tcf.full_smem_bytes(cap, T) == one_dir == layout(1)
+    budget = 32 * 1024
+    assert layout(fit) <= budget
+    assert fit == 27 or layout(fit + 1) > budget
+    with open(os.path.join(CSRC, "cellpair_half.cu")) as f:
+        assert re.search(r"make_layout\(cap, nd, kFull \? 0 : nd, T, kExcl,",
+                         f.read())
 
 
 def test_no_wrapper_caps_the_cell_count():

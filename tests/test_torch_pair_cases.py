@@ -8,7 +8,8 @@ binning made before the particles moved by up to half the skin, most of
 it one common step, so particles near a face lie outside their cells).
 Charged, two LJ types, with and without exclusion channels; the per-cell
 kernel (TPU #1) and the column kernel (TPU #2) at G = nz = 3, an aliased
-union."""
+union; the full-stencil kernel (TPU #3) on the same records, its 27
+directions reaching the 2-cell axes' one neighbour through two images."""
 
 import functools
 
@@ -25,6 +26,7 @@ from ddcmd_tpu.ops.cellpair import build_cell_slots as j_build_cell_slots
 from ddcmd_tpu.ops.cellpair import half_grid as j_half_grid
 from ddcmd_tpu.run.forces import _excl_channels as j_excl_channels
 from ddcmd_tpu_torch.ops import cellpair as tcp
+from ddcmd_tpu_torch.ops import cellpair_full as tcf
 from ddcmd_tpu_torch.ops import cellpair_half as tch
 
 torch.set_num_threads(2)
@@ -168,3 +170,40 @@ def test_col_plain_matches_pallas_interpret(stale, excl):
     assert t_out[2].shape == (jh.ncell // G, 8)
     _assert_raw_close(t_out, _run_jax(jh, excl, G, slots, cstencil, L8,
                                       counts))
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["ragged", "stale"])
+def test_full_plain_matches_pallas_interpret(stale):
+    """cellpair_full on CPU tensors (its plain version) == the JAX
+    package's make_pallas_cellpair (TPU #3) in interpret mode on the same
+    records, over the full 27-direction stencil, at the tolerances of
+    tests/test_torch_fullpair.py: force 2e-5 of scale, pe rtol 1e-3 /
+    atol 1e-3, e rtol 1e-4 / atol 1e-2, virial rtol 2e-3 / atol 0.5, per
+    cell.  The exclusion rows are zero here; the full kernel reads none."""
+    import chip_smoke as cs
+
+    _, slots, _, _, L8, counts = _case(stale, False)
+    rlist = cs.RAGGED_RCUT + cs.RAGGED_SKIN
+    jg = JGrid(NCELLS, CAP, rlist, *j_build_stencil(NCELLS))
+    stencil = jpc.pack_stencil(jg)
+    grid = cs.made_grid(NCELLS, CAP, rlist)
+    np.testing.assert_array_equal(tch.pack_stencil(grid), stencil)
+    jt = {k: jnp.asarray(v) for k, v in _tables().items()}
+    j_p, j_cell = (np.asarray(o) for o in jpc.make_pallas_cellpair(
+        jg, jt, coulomb=True, interpret=True)(
+            jnp.asarray(slots), jnp.asarray(stencil), jnp.asarray(L8)))
+    tabs, kw = _torch_tables()
+    before = tcf.cellpair_full.launches
+    t_p, t_cell = (x.numpy() for x in tcf.cellpair_full(
+        torch.tensor(slots), torch.tensor(stencil), torch.tensor(L8),
+        torch.tensor(counts), *tabs, s_self=tcf.self_index(grid), **kw))
+    assert tcf.cellpair_full.launches == before    # CPU: the plain version
+    assert t_p.shape == (len(slots) * CAP, 4) and t_cell.shape == (len(slots), 8)
+    scale = max(1.0, float(np.abs(j_p[:, :3]).max()))
+    assert np.abs(t_p[:, :3] - j_p[:, :3]).max() / scale < 2e-5
+    np.testing.assert_allclose(t_p[:, 3], j_p[:, 3], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(t_cell[:, 0], j_cell[:, 0, 0], rtol=1e-4,
+                               atol=1e-2)
+    np.testing.assert_allclose(t_cell[:, 1:7], j_cell[:, 1:7, 0], rtol=2e-3,
+                               atol=0.5)
+    np.testing.assert_array_equal(t_cell[:, 7], 0.0)
