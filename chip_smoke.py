@@ -87,7 +87,28 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      100,296-bead bilayer through `ParallelSimulation` at (1,1,1), first
      energy against the single-device Simulation's on the same restart,
      2000 NPT steps (bonds, angles, RATTLE, in-kernel exclusions) through
-     the extended-grid pair kernel with exclusions only.
+     the extended-grid pair kernel with exclusions only;
+ 13. PAIR: the Lennard-Jones fluid (models.lj_fluid, LANGEVIN 120 K)
+     through the CLI at 4,096 atoms (3000 steps, per-cell kernel) and
+     131,072 atoms (2000 steps, the kernel its plan gives), the plan and
+     the kernel printed, the mean T gated, that kernel held against its
+     plain version on the run's slots; a two-species variant (per-pair
+     PAIRPARMS, T = 2) through the CLI at 4,096 atoms and on the
+     131,072-atom start state, kernel vs plain on its slots;
+ 14. mesh PAIR: the 131,072-atom fluid through `ParallelSimulation` at
+     (1,1,1): first energy against the single-device one, 2000 NVT
+     steps through the extended-grid pair kernel only;
+ 15. NPT water: the water box under the reference deck's NGLFCONSTRAINT
+     barostat (P0 1 bar, beta 3.0e-4/bar, tauBarostat 1 ps), 3000 steps
+     through the CLI and 3000 through the mesh at (1,1,1) (first energy
+     against Simulation's): mean T and the box gated, mean P printed;
+ 16. the plain cell-block engine, which launches no kernel: (a) the
+     4,096-atom fluid's first energy and forces against the kernels' on
+     the same state; (b) a pbc = 3 REFLECT slab of 4,096 atoms, 2000 f32
+     steps, every atom within the walls; (c) a monoclinic box (tilt 0.2)
+     of 13,824 atoms, 1000 steps in f32 and in f64, their first energies
+     against each other, the NVE drift printed; (d) small slab and
+     triclinic runs on the card against the same runs on the CPU.
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -96,6 +117,7 @@ the kernels' JSON line, the card line, and last {"ok": true, "device":
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -146,6 +168,18 @@ RAGGED_RCUT, RAGGED_SKIN = 0.6, 0.3       # the pair kernels' ragged cases
 NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
 MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 3000, 2000, 2000
+# PAIR Lennard-Jones fluids (models.lj_fluid: 0.0208 atoms/A^3, 8.5 A
+# cutoff, 1.2 A skin, LANGEVIN 120 K): 4,096 atoms (58.2 A box) and
+# 131,072 (184.9 A), the two-species variant's steps, the mesh's
+LJ_N, LJ_STEPS, LJ_BIG_N, LJ_BIG_STEPS = 4096, 3000, 131072, 2000
+LJ_T2_STEPS, MESH_LJ_STEPS, LJ_T = 500, 2000, 120.0
+# the reference deck's integrator (BASELINE.md:14) on the water box
+NPT_INTEGRATOR = ("type=NGLFCONSTRAINT; T=310.0K; P0=1.0 bar; "
+                  "beta=3.0e-4/bar; tauBarostat=1.0 ps;")
+NPT_STEPS = 3000
+# the plain cell-block engine: the REFLECT slab's steps, the monoclinic
+# box's lattice edge (24^3 = 13,824 atoms) and steps
+CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 2000, 24, 1000
 # the least time the card could take (H100 SXM peaks at 700 W): f32
 # outside the tensor cores, and HBM3
 PEAK_F32, PEAK_BW = 67e12, 3.35e12
@@ -1664,6 +1698,469 @@ def eam_slice_phases(card, counters_zero, counters, eam_counters):
     return launches, rate
 
 
+def lj_deck(d, n, printrate, two=False, free=False, edit=None):
+    """lj_fluid deck (LANGEVIN 120 K, 8.5 A cutoff, 1.2 A skin, 4 fs) at
+    the builder's density; two=True makes every odd atom a second
+    species, with the three species pairs as PAIRPARMS objects (T = 2);
+    free=True swaps the Langevin group for FREE; edit(text) edits the
+    deck further."""
+    from ddcmd_tpu_torch.models import lj_fluid
+
+    lj_fluid(d, n=n)
+    p = os.path.join(d, "object.data")
+    with open(p) as f:
+        text = f.read()
+    text = text.replace("printrate=100;", f"printrate={printrate};")
+    if free:
+        text = text.replace("type=LANGEVIN; Teq=120.0K; tau=0.5ps;",
+                            "type=FREE;")
+    if two:
+        text = (text.replace("species=Ar;", "species=Ar Kr;")
+                + "Kr SPECIES { type=ATOM; mass=83.8; charge=0; }\n"
+                "Ar-Ar PAIRPARMS { eps=0.0104 eV; sigma=3.4 Angstrom; }\n"
+                "Ar-Kr PAIRPARMS { eps=0.0123 eV; sigma=3.5 Angstrom; }\n"
+                "Kr-Kr PAIRPARMS { eps=0.0141 eV; sigma=3.6 Angstrom; }\n")
+        atoms = os.path.join(d, "atoms#000000")
+        with open(atoms) as f:
+            lines = f.read().split("\n")
+        for i, ln in enumerate(lines):
+            head = ln.split(" ", 1)[0]
+            if head.isdigit() and int(head) % 2:
+                lines[i] = ln.replace(" ATOM Ar ", " ATOM Kr ", 1)
+        with open(atoms, "w") as f:
+            f.write("\n".join(lines))
+    if edit is not None:
+        text = edit(text)
+    with open(p, "w") as f:
+        f.write(text)
+    return p
+
+
+def slab_edit(text):
+    """pbc = 3 with REFLECT walls in z (tests/test_pbc.py:83-120)."""
+    return (text.replace("pbc=7", "pbc=3")
+            .replace("potential=pot;", "potential=pot walls;")
+            + "\nwalls POTENTIAL { type=REFLECT; }\n")
+
+
+def triclinic_deck(d, m, tilt=0.2, spacing=4.0, seed=5, printrate=50):
+    """An LJ fluid on an m^3 lattice (4 A spacing, sigma 3.4 A, 7 A
+    cutoff) in a monoclinic box with b = (tilt L, L, 0) and a FREE group
+    on NGLF, dt 4 fs, as tests/test_triclinic.py:142-200 builds its 216
+    atoms."""
+    L = m * spacing
+    h = np.diag([L, L, L]).astype(np.float64)
+    h[0, 1] = tilt * L
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    # a jitter of 0.48 A whatever m (0.02 of the 216-atom box's edge)
+    s = (g + 0.5) / m - 0.5 + (rng.random((m ** 3, 3)) - 0.5) * 0.12 / m
+    r = s @ h.T
+    n = len(r)
+    v = rng.standard_normal((n, 3)) * 0.002
+    rows = [f"{i} ATOM Ar free " + " ".join("%.8f" % x for x in r[i])
+            + " " + " ".join("%.8f" % x for x in v[i]) for i in range(n)]
+    hflat = " ".join("%.6f" % x for x in h.reshape(-1))
+    with open(os.path.join(d, "atoms#000000"), "w") as f:
+        f.write(f"particle FILEHEADER {{type=MULTILINE; "
+                f"datatype=VARRECORDASCII; checksum=NONE;\nloop=0; "
+                f"time=0.0;\nnfiles=1; nrecord={n}; nfields=10;\n"
+                f"field_names=id class type group rx ry rz vx vy vz;\n"
+                f"field_types=u s s s f f f f f f;\nh= {hflat} ;\n}}\n\n"
+                + "\n".join(rows) + "\n")
+    p = os.path.join(d, "object.data")
+    with open(p, "w") as f:
+        f.write(f"""
+simulate SIMULATE {{ type=MD; system=system; integrator=nve; dt=4;
+  maxloop=100000; printrate={printrate}; ddc=ddc; }}
+ddc DDC {{ updateRate=10; }}
+pot POTENTIAL {{ type=PAIR; cutoff=7.0 Angstrom; eps=0.01 eV;
+  sigma=3.4 Angstrom; }}
+nve INTEGRATOR {{ type=NGLF; T=100K; }}
+system SYSTEM {{ type=NORMAL; potential=pot; neighbor=nbr; groups=free;
+  box=box; collection=collection; species=Ar; }}
+Ar SPECIES {{ type=ATOM; mass=39.948; charge=0; }}
+box BOX {{ type=GENERAL; pbc=7; h= {hflat} ; }}
+nbr NEIGHBOR {{ type=NORMAL; deltaR=1.2; }}
+free GROUP {{ type=FREE; }}
+collection COLLECTION {{ mode=VARRECORDASCII; size={n}; files=atoms#; }}
+""")
+    return p
+
+
+def npt_water_deck(d, n, printrate, free=False):
+    """martini_water under the reference deck's integrator (BASELINE.md:14):
+    NGLFCONSTRAINT, T 310 K, P0 1 bar, beta 3.0e-4/bar, tauBarostat 1 ps."""
+    p = water_deck(d, n, printrate, free=free)
+    with open(p) as f:
+        text = f.read()
+    with open(p, "w") as f:
+        f.write(text.replace("type=NGLF; T=310.0K;", NPT_INTEGRATOR))
+    return p
+
+
+def mesh_lines(lines):
+    """(loops, T, epot/N, P, V) of the mesh's print lines."""
+    def col(key):
+        return np.array([float(ln.split(key)[1].split()[0]) for ln in lines])
+
+    loops = np.array([int(ln.split()[0]) for ln in lines])
+    out = (loops, col("T="), col("epot/N="), col("P="), col("V="))
+    assert all(np.isfinite(a).all() for a in out[1:]), "non-finite scalars"
+    return out
+
+
+def pair_phases(card, dev, counters_zero, all_counters):
+    """Phases 13 and 14: PAIR Lennard-Jones fluids through the CLI on the
+    pair kernels (#1 at n = 4,096, the plan's kernel at n = 131,072), a
+    T = 2 variant with its kernel held against the plain version on its
+    slots, then the n = 131,072 deck through ParallelSimulation at
+    (1,1,1) on #6.  Returns ({kernel entry: launches}, {name: steps/s})."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    launches = {"cellpair_half": 0, "cellpair_half_col": 0,
+                "cellpair_half_ext": 0}
+    rates = {}
+    for n, steps in ((LJ_N, LJ_STEPS), (LJ_BIG_N, LJ_BIG_STEPS)):
+        with tempfile.TemporaryDirectory() as d:
+            deck = lj_deck(d, n, printrate=10)
+            counters_zero()
+            sim = cli_run(["simulate", "-o", deck, "-n", str(steps),
+                           "--run-dir", d])
+            c = all_counters()
+            rows = read_rows(d)
+        term = sim.force_fn.terms[0]
+        name = "cellpair_half_col" if term.G > 1 else "cellpair_half"
+        assert sim.engine == "kernel" and sim.ss.loop == steps
+        assert c[name] >= steps, c
+        assert not any(v for k, v in c.items() if k != name), c
+        assert np.isfinite(rows).all(), "non-finite printinfo row"
+        temp = float(rows[rows[:, 0] > steps - TAIL][:, 5].mean())
+        assert abs(temp - LJ_T) <= TEMP_TOL, f"lj n={n}: mean T {temp}"
+        launches[name] += c[name]
+        rate, tail = tail_rate(sim)
+        rates[f"lj{n}"] = rate
+        kernel, args, kw, _ = sim_kernel_inputs(sim)
+        plain = (ch.cellpair_half_col_plain if term.G > 1
+                 else ch.cellpair_half_plain)
+        res = compare(f"{name} on the lj_fluid n={n} slots after {steps} "
+                      "steps", kernel, plain, args, kw, with_bound=True)
+        edge = 10 * float(sim.ss.box.lengths[0])
+        phase("pair", f"lj_fluid {n} atoms (box {edge:.1f} A), LANGEVIN "
+              f"{LJ_T:.0f} K, {steps} steps: cells {sim.grid.ncells} cap "
+              f"{sim.grid.cap} G={term.G}, {name} "
+              f"launched {c[name]} times and no other kernel; mean T "
+              f"{temp:.2f} K over the last {TAIL} steps, Etot/atom "
+              f"{rows[-1, 2]:.6f}; redos {sim.redos}; {rate:.1f} steps/s "
+              f"over the last {tail} steps; kernel {1e3 * res[1]:.2f} vs "
+              f"plain {1e3 * res[2]:.2f} us/call on {card}")
+        del sim
+    # T = 2: per-pair PAIRPARMS; the run's kernel and the column kernel
+    # against their plain versions on its slots
+    for n, steps in ((LJ_N, LJ_T2_STEPS), (LJ_BIG_N, 0)):
+        with tempfile.TemporaryDirectory() as d:
+            deck = lj_deck(d, n, printrate=10, two=True)
+            if steps:
+                counters_zero()
+                sim = cli_run(["simulate", "-o", deck, "-n", str(steps),
+                               "--run-dir", d])
+                c = all_counters()
+                rows = read_rows(d)
+                assert np.isfinite(rows).all(), "non-finite printinfo row"
+            else:
+                sim = Simulation(*load(d), run_dir=d, device=dev)
+        term = sim.force_fn.terms[0]
+        assert sim.sysdef.potentials[0][2].n_species == 2
+        kernel, args, kw, _ = sim_kernel_inputs(sim)
+        assert args[5 if term.G > 1 else 4].shape == (2, 2), "T != 2"
+        plain = (ch.cellpair_half_col_plain if term.G > 1
+                 else ch.cellpair_half_plain)
+        name = "cellpair_half_col" if term.G > 1 else "cellpair_half"
+        compare(f"{name}, T=2 lj_fluid n={n} slots (cells {sim.grid.ncells}"
+                f" cap {sim.grid.cap} G={term.G})", kernel, plain, args, kw)
+        if steps:
+            assert c[name] >= steps and not any(
+                v for k, v in c.items() if k != name), c
+            launches[name] += c[name]
+            phase("pair", f"T=2 lj_fluid {n} atoms, {steps} steps through "
+                  f"the CLI: {name} launched {c[name]} times, T "
+                  f"{rows[-1, 5]:.2f} K")
+        del sim
+    # --- phase 14: the n = 131,072 deck through the mesh at (1,1,1) -------
+    with tempfile.TemporaryDirectory() as d:
+        lj_deck(d, LJ_BIG_N, printrate=10)
+        sim = Simulation(*load(d), run_dir=d, device=dev)
+        sim.first_energy()
+        e1 = float(sim.ss.energy.eion)
+        del sim
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+    e_mesh = ps.first_energy()
+    rel = abs(e_mesh - e1) / abs(e1)
+    assert rel <= 2e-5, f"PAIR mesh first energy {e_mesh} vs {e1}"
+    lines = []
+    counters_zero()
+    ps.run(MESH_LJ_STEPS, print_fn=lines.append,
+           max_steps_per_dispatch=DISPATCH)
+    c = all_counters()
+    assert c["cellpair_half_ext"] >= MESH_LJ_STEPS, c
+    assert not any(v for k, v in c.items() if k != "cellpair_half_ext"), c
+    launches["cellpair_half_ext"] += c["cellpair_half_ext"]
+    n = ps.sysdef.state.n_local
+    assert ps.loop == MESH_LJ_STEPS and int(ps.mask.sum()) == n
+    loops, temps, _, _, _ = mesh_lines(lines)
+    temp = float(temps[loops > MESH_LJ_STEPS - TAIL].mean())
+    assert abs(temp - LJ_T) <= TEMP_TOL, f"PAIR mesh mean T {temp}"
+    rate, tail = tail_rate(ps)
+    rates["lj_mesh"] = rate
+    phase("mesh", f"lj_fluid {n} atoms at (1,1,1): ncore {ps.cplan.ncore} "
+          f"cap {ps.cplan.cap}, force kind {ps.force_kind} (RF constants "
+          f"0); first energy {e_mesh:.8g} vs single-device {e1:.8g} (rel "
+          f"{rel:.2g}); {MESH_LJ_STEPS} NVT steps: #6 launched "
+          f"{c['cellpair_half_ext']} times and no other kernel, mean T "
+          f"{temp:.2f} K over the last {TAIL} steps, {rate:.1f} steps/s over "
+          f"the last {tail} steps vs single-device "
+          f"{rates[f'lj{LJ_BIG_N}']:.1f} on {card}")
+    return launches, rates
+
+
+def npt_water_phase(card, dev, counters_zero, all_counters):
+    """Phase 15: the reference deck's NPT water box (item 26) through the
+    CLI and through the mesh at (1,1,1), NPT_STEPS each from the lattice
+    start; the mesh's first energy against Simulation's.  Returns
+    ({kernel entry: launches}, {name: steps/s})."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    with tempfile.TemporaryDirectory() as d:
+        deck = npt_water_deck(d, 6173, printrate=10)
+        counters_zero()
+        sim = cli_run(["simulate", "-o", deck, "-n", str(NPT_STEPS),
+                       "--run-dir", d])
+        c = all_counters()
+        rows = read_rows(d)
+        assert sim.barostat is not None and sim.ss.loop == NPT_STEPS
+        assert c["cellpair_half"] >= NPT_STEPS, c
+        assert not any(v for k, v in c.items() if k != "cellpair_half"), c
+        assert np.isfinite(rows).all(), "non-finite printinfo row"
+        L0 = sim.sysdef.box.lengths.cpu().numpy().astype(np.float64)
+        L1 = sim.ss.box.lengths.cpu().numpy().astype(np.float64)
+        assert np.isfinite(L1).all() and \
+            (np.abs(L1 / L0 - 1.0) <= 0.2).all(), (L0, L1)
+        tail_rows = rows[rows[:, 0] > NPT_STEPS - TAIL]
+        temp = float(tail_rows[:, 5].mean())
+        assert abs(temp - 310.0) <= TEMP_TOL, f"NPT water mean T {temp}"
+        p_mean = float(tail_rows[:, 6].mean())
+        p_sd = float(tail_rows[:, 6].std())
+        rate, tail = tail_rate(sim)
+        e_first = None
+        phase("npt-water", f"martini_water 6173 beads, NGLFCONSTRAINT P0 1 "
+              f"bar beta 3.0e-4/bar tau 1 ps, {NPT_STEPS} steps through the "
+              f"CLI: cells {sim.grid.ncells} cap {sim.grid.cap}, #1 launched "
+              f"{c['cellpair_half']} times; box {(10 * L0).round(3).tolist()} "
+              f"-> {(10 * L1).round(3).tolist()} A; mean T {temp:.2f} K, "
+              f"mean P {p_mean:.4g} +- {p_sd:.3g} "
+              f"{sim.printinfo.u_press} over the last {TAIL} steps (a 6k-bead "
+              f"box's pressure is not gated); redos {sim.redos}; {rate:.1f} "
+              f"steps/s over the last {tail} steps on {card}")
+        launches = {"cellpair_half": c["cellpair_half"]}
+        rates = {"npt_water": rate}
+        del sim
+        from ddcmd_tpu_torch.run.simulate import Simulation
+
+        s0 = Simulation(*load(d), run_dir=d, device=dev)
+        s0.first_energy()
+        e_first = float(s0.ss.energy.eion)
+        del s0
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+    e_mesh = ps.first_energy()
+    rel = abs(e_mesh - e_first) / abs(e_first)
+    assert rel <= 2e-5, f"NPT water mesh first energy {e_mesh} vs {e_first}"
+    L0 = ps.Lv.cpu().numpy().astype(np.float64)
+    lines = []
+    counters_zero()
+    ps.run(NPT_STEPS, print_fn=lines.append, max_steps_per_dispatch=DISPATCH)
+    c = all_counters()
+    assert c["cellpair_half_ext"] >= NPT_STEPS, c
+    assert not any(v for k, v in c.items() if k != "cellpair_half_ext"), c
+    launches["cellpair_half_ext"] = c["cellpair_half_ext"]
+    assert ps.loop == NPT_STEPS and int(ps.mask.sum()) == 6173
+    loops, temps, _, press, _ = mesh_lines(lines)
+    sel = loops > NPT_STEPS - TAIL
+    temp = float(temps[sel].mean())
+    assert abs(temp - 310.0) <= TEMP_TOL, f"NPT water mesh mean T {temp}"
+    L1 = ps.Lv.cpu().numpy().astype(np.float64)
+    assert np.isfinite(L1).all() and (np.abs(L1 / L0 - 1.0) <= 0.2).all(), \
+        (L0, L1)
+    rate, tail = tail_rate(ps)
+    rates["npt_water_mesh"] = rate
+    phase("npt-water", f"mesh at (1,1,1): first energy {e_mesh:.8g} vs "
+          f"Simulation {e_first:.8g} (rel {rel:.2g}); {NPT_STEPS} NPT steps "
+          f"(chunk {ps.chunk_steps}): #6 launched {c['cellpair_half_ext']} "
+          f"times, box {(10 * L0).round(3).tolist()} -> "
+          f"{(10 * L1).round(3).tolist()} A, mean T {temp:.2f} K, mean P "
+          f"{press[sel].mean():.4g} +- {press[sel].std():.3g} over the last "
+          f"{TAIL} steps; {rate:.1f} steps/s over the last {tail} steps on "
+          f"{card}")
+    return launches, rates
+
+
+def cellblock_phase(card, dev, counters_zero, all_counters):
+    """Phase 16: the plain cell-block engine on the card, which launches
+    no kernel: (a) lj_fluid n = 4,096 first energy and forces on it
+    against the kernel engine on the same state; (b) the pbc = 3 REFLECT
+    slab at n = 4,096 with a FREE group, CB_SLAB_STEPS f32 steps; (c) a
+    monoclinic box (tilt 0.2) of 13,824 atoms with a FREE group,
+    CB_TRI_STEPS steps in f32 and in f64; (d) small deterministic slab
+    and triclinic runs on the card against the same runs on the CPU."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.cli import load_db
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    def idle(what):
+        c = all_counters()
+        assert not any(c.values()), f"{what}: kernels launched {c}"
+
+    # (a) the kernels' f32 state on both engines; the kernels' forces are
+    # held to the cell-block engine's in f64 on that state (its f32
+    # |p|^2 + |q|^2 - 2 p.q distances carry ~2e-5 of the force scale, as
+    # the JAX engine's do)
+    with tempfile.TemporaryDirectory() as d:
+        lj_deck(d, LJ_N, printrate=100)
+        kern = Simulation(*load(d), run_dir=d, device=dev)
+        kern.first_energy()
+        st, box = kern.ss.state, kern.ss.box
+        counters_zero()
+        cbs = {}
+        for dt in (torch.float32, torch.float64):
+            s = Simulation(*load(d), run_dir=d, device=dev,
+                           engine="cellblock", dtype=dt)
+            s.ss = s.ss.replace(
+                state=s.ss.state.replace(r=st.r.to(dt)),
+                box=dataclasses.replace(s.ss.box, h=box.h.to(dt)))
+            s.first_energy()
+            cbs[dt] = s
+        torch.cuda.synchronize()
+        idle("cellblock first energy")
+    n = kern.sysdef.state.n_local
+    ref = cbs[torch.float64]
+    f_ref = ref.ss.state.f[:n]
+    scale = float(f_ref.abs().max())
+    e_ref = float(ref.ss.energy.eion)
+
+    def err(sim):
+        return (float((sim.ss.state.f[:n].double() - f_ref).abs().max()),
+                float(sim.ss.energy.eion))
+
+    ferr, e0 = err(kern)
+    ferr32, e32 = err(cbs[torch.float32])
+    assert ferr <= 2e-5 * scale and abs(e0 - e_ref) <= 1e-4 * abs(e_ref), \
+        (ferr, scale, e0, e_ref)
+    phase("cellblock", f"(a) lj_fluid {n} atoms, first energy on the cell-"
+          f"block engine (cells {ref.grid.ncells} cap {ref.grid.cap}, no "
+          f"kernel launched) in f64 vs the kernels (cells "
+          f"{kern.grid.ncells} cap {kern.grid.cap}): e {e_ref:.10g} vs "
+          f"{e0:.8g}, force err {ferr:.3g} (scale {scale:.4g}); the "
+          f"cell-block engine in f32: e {e32:.8g}, force err {ferr32:.3g}")
+    del kern, cbs, ref
+
+    # (b) the REFLECT slab
+    def slab(d, n, printrate):
+        return lj_deck(d, n, printrate, free=True, edit=slab_edit)
+
+    with tempfile.TemporaryDirectory() as d:
+        slab(d, LJ_N, 100)
+        sim = Simulation(*load(d), run_dir=d, device=dev)
+        assert sim.engine == "cellblock" and sim.post_drift_fn is not None
+        sim.first_energy()
+        e0 = float(sim.ss.energy.eion + sim.ss.energy.rk)
+        counters_zero()
+        t0 = time.perf_counter()
+        sim.run(CB_SLAB_STEPS, print_fn=lambda s: None,
+                max_steps_per_dispatch=DISPATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        idle("REFLECT slab")
+    r = sim.ss.state.r[:n].cpu().numpy()
+    half = 0.5 * float(sim.ss.box.lengths[2])
+    assert np.isfinite(r).all(), "non-finite slab positions"
+    assert (np.abs(r[:, 2]) <= half * (1 + 1e-6)).all(), "atom past a wall"
+    e1 = float(sim.ss.energy.eion + sim.ss.energy.rk)
+    phase("cellblock", f"(b) pbc=3 REFLECT slab, {n} atoms FREE, "
+          f"{CB_SLAB_STEPS} f32 steps: every atom within +-Lz/2 "
+          f"(max |z| {np.abs(r[:, 2]).max() * 10:.4f} of {half * 10:.4f} A), "
+          f"Etot {e0:.6g} -> {e1:.6g} kJ/mol (drift {e1 - e0:.4g}, "
+          f"{(e1 - e0) / n:.3g} a atom), redos {sim.redos}, "
+          f"{CB_SLAB_STEPS / secs:.1f} steps/s on {card}")
+    del sim
+
+    # (c) the monoclinic box, f32 then f64
+    e_first = {}
+    for dtype in (torch.float32, torch.float64):
+        with tempfile.TemporaryDirectory() as d:
+            deck = triclinic_deck(d, CB_TRI_M)
+            sim = Simulation(load_db([deck], None, d), d, run_dir=d,
+                             device=dev, dtype=dtype)
+            assert sim.engine == "cellblock" and not sim.sysdef.box.ortho
+            sim.first_energy()
+            e_first[dtype] = float(sim.ss.energy.eion)
+            e0 = e_first[dtype] + float(sim.ss.energy.rk)
+            counters_zero()
+            t0 = time.perf_counter()
+            sim.run(CB_TRI_STEPS, print_fn=lambda s: None,
+                    max_steps_per_dispatch=DISPATCH)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            idle(f"triclinic {dtype}")
+        e1 = float(sim.ss.energy.eion + sim.ss.energy.rk)
+        n = sim.sysdef.state.n_local
+        assert np.isfinite(e1), "non-finite triclinic energy"
+        phase("cellblock", f"(c) monoclinic box tilt 0.2, {n} atoms FREE, "
+              f"{CB_TRI_STEPS} {str(dtype)[6:]} steps: cells "
+              f"{sim.grid.ncells} cap {sim.grid.cap}; NVE drift "
+              f"{e1 - e0:.4g} kJ/mol ({(e1 - e0) / n:.3g} a atom; the CPU test"
+              f" gates 3e-4 a atom at 216 atoms); redos {sim.redos}; "
+              f"{CB_TRI_STEPS / secs:.1f} steps/s on {card}")
+        del sim
+    rel = abs(e_first[torch.float64] - e_first[torch.float32]) / abs(
+        e_first[torch.float64])
+    assert rel <= 1e-4, f"triclinic f64 vs f32 first energy: rel {rel}"
+    phase("cellblock", f"(c) first energy f64 {e_first[torch.float64]:.10g} "
+          f"vs f32 {e_first[torch.float32]:.8g} (rel {rel:.2g})")
+
+    # (d) card vs CPU, small deterministic runs
+    def final(where, make_deck, dtype, n_steps):
+        with tempfile.TemporaryDirectory() as d:
+            deck = make_deck(d)
+            s = Simulation(load_db([deck], None, d), d, run_dir=d,
+                           device=where, dtype=dtype)
+            counters_zero()
+            s.run(n_steps, print_fn=lambda line: None)
+            idle(f"{where} run")
+            return (float(s.ss.energy.eion), float(s.ss.energy.rk),
+                    s.ss.state.r.cpu().double().numpy(),
+                    s.ss.box.h.cpu().double().numpy())
+
+    cases = (("pbc=3 REFLECT slab 256 atoms FREE f32 40 steps",
+              lambda d: slab(d, 256, 100), torch.float32, 40),
+             ("monoclinic 125 atoms FREE f64 40 steps",
+              lambda d: triclinic_deck(d, 5), torch.float64, 40))
+    for name, make_deck, dtype, n_steps in cases:
+        (e1, k1, r1, h1), (e0, k0, r0, h0) = (
+            final(w, make_deck, dtype, n_steps) for w in (dev, "cpu"))
+        dr = np.abs(r1 - r0).max()
+        ok = (math.isclose(e1, e0, rel_tol=1e-4, abs_tol=1e-2)
+              and math.isclose(k1, k0, rel_tol=1e-3, abs_tol=1e-2)
+              and dr < 1e-3 and np.allclose(h1, h0, rtol=1e-5))
+        phase("agree", f"{name}, card vs CPU: eion {e1:.6g} vs {e0:.6g}, rk "
+              f"{k1:.6g} vs {k0:.6g}, max |dr| {dr:.3g} nm")
+        if not ok:
+            raise AssertionError(f"{name}: card and CPU runs disagree")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -1873,6 +2370,12 @@ def main(argv=None):
     # --- phases 10 and 11: ParallelSimulation at (1,1,1) ------------------
     launches.update(mesh_phases(card, dev, counters_zero, all_counters,
                                 single_rates))
+    # --- phases 13-16: PAIR, the NPT water box, the cell-block engine -------
+    pair_launches, _ = pair_phases(card, dev, counters_zero, all_counters)
+    npt_launches, _ = npt_water_phase(card, dev, counters_zero, all_counters)
+    for k, v in (*pair_launches.items(), *npt_launches.items()):
+        launches[k] += v
+    cellblock_phase(card, dev, counters_zero, all_counters)
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..objects import DeckError, ObjectDB
+from .box import nearest_image
 
 
 @dataclass
@@ -113,7 +114,6 @@ def make_molecular_virial_fn(mol: MoleculeClass | None, dtype=torch.float32,
     mrange = torch.arange(Mn, device=device)
 
     def fn(state, box, virial):
-        L = box.lengths
         if contiguous:
             r = state.r[start:start + Mn * A].reshape(Mn, A, 3)
             f = state.f[start:start + Mn * A].reshape(Mn, A, 3)
@@ -123,8 +123,7 @@ def make_molecular_virial_fn(mol: MoleculeClass | None, dtype=torch.float32,
             f = state.f[rows]
             m = state.mass[rows] * amask         # (M, A)
         r0 = r[mrange, own]                      # (M, 3) owner atom
-        d = r - r0[:, None, :]
-        d = d - L * torch.round(d / L)           # nearestImage
+        d = nearest_image(r - r0[:, None, :], box.geom)   # nearestImage
         M = m.sum(dim=1, keepdim=True)
         com = (m[:, :, None] * d).sum(dim=1) / M
         d = (d - com[:, None, :]) * amask[:, :, None]

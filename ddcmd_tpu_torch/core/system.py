@@ -2,11 +2,12 @@
 
 Counterpart of ddcmd_tpu/core/system.py (system_init, ddcMD
 src/system.c; simulate_init, src/simulate.c:104-297), cut to the decks
-the port runs in an orthorhombic box: MARTINI potentials, with the
-covalent topology of the residues (bonds, angles, exclusions,
-constraints) instantiated over the collection, and EAM metals of ATOM
-species.  Anything else raises NotImplementedError naming the ROADMAP
-item that ports it.
+the port runs: MARTINI potentials, with the covalent topology of the
+residues (bonds, angles, exclusions, constraints) instantiated over the
+collection, PAIR Lennard-Jones, EAM metals of ATOM species, RESTRAINT
+springs and REFLECT walls, in an orthorhombic or a triclinic box.
+Anything else raises NotImplementedError naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -201,10 +202,29 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
 
             # the EAM type index is the species index
             parms = compile_eam(db, pname, species, base_dir)
+        elif ptype == "PAIR":
+            from ..potentials.pair import compile_pair
+
+            parms = compile_pair(db, pname, species, base_dir)
+        elif ptype == "RESTRAINT":
+            from ..potentials.restraint import compile_restraint
+
+            parms = compile_restraint(db, pname)
+            if parms is not None:
+                potentials.append((ptype, pname, parms))
+            continue
+        elif ptype == "REFLECT":
+            # a post-drift hook of the step (potentials/reflect.py)
+            potentials.append((ptype, pname, None))
+            continue
         else:
+            # PAIRENERGY and ORDERSH run on the (N,K)-list engine, CHARMM
+            # needs the junction terms
+            item = {"PAIRENERGY": 19, "ORDERSH": 19, "CHARMM": 12}.get(ptype,
+                                                                      21)
             raise NotImplementedError(
                 f"POTENTIAL type {ptype} is not ported yet (ROADMAP queue 1, "
-                "items 19-21)")
+                f"item {item})")
         rcut_max = max(rcut_max, parms.rcut)
         potentials.append((ptype, pname, parms))
 

@@ -32,10 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _nearest(a, Lv):
-    """Minimum image of displacement(s) a (..., 3) for lengths Lv (3,)."""
-    return a - Lv * torch.round(a / Lv)
+from ..core.box import nearest_image
 
 
 def _closed_form_lambda(a, vab, mu, d2, dt, mode_front):
@@ -92,7 +89,7 @@ def make_constraint_project(cons_pairs, cons_dist, dtype, m: int,
             rmI, rmJ = rm_g[gidx, gi], rm_g[gidx, gj]
             a = rI - rJ
             if Lv is not None:
-                a = _nearest(a, Lv)
+                a = nearest_image(a, Lv)
             w = pv * group_w
             mu = rmI + rmJ
             A = (a * a).sum(-1)
@@ -121,7 +118,7 @@ def make_constraint_project(cons_pairs, cons_dist, dtype, m: int,
         w = pair_valid * group_w[:, None]                   # (G, n)
         r_ab = sel @ r_g                                     # (G, n, 3)
         if Lv is not None:          # a molecule may straddle the wrapped box
-            r_ab = _nearest(r_ab, Lv)
+            r_ab = nearest_image(r_ab, Lv)
         selm = sel * rm_g[:, None, :]                        # (G, n, m)
         M = (r_ab @ r_ab.transpose(1, 2)) * (selm @ sel.transpose(1, 2))
         M = M * (w[:, :, None] * w[:, None, :]) + torch.diag_embed(1.0 - w)
@@ -281,7 +278,7 @@ def build_constraint_fn_batched(cons_atoms, cons_pairs, cons_dist,
             for k, (li, lj) in enumerate(zip(tp["li"], tp["lj"])):
                 a = rb[:, li] - rb[:, lj]                # (M, 3)
                 if Lv is not None:
-                    a = _nearest(a, Lv)
+                    a = nearest_image(a, Lv)
                 rmI, rmJ = rm[:, li], rm[:, lj]
                 lam = _closed_form_lambda(a, vb[:, li] - vb[:, lj],
                                           rmI + rmJ, tp["d2"][k], dt,
@@ -325,7 +322,7 @@ def build_constraint_templates(cons_atoms, cons_pairs, cons_dist,
             i, j = int(li[k]), int(lj[k])
             a = (rb3[:, i] - rb3[:, j]).T                # (M, 3)
             if Lv is not None:
-                a = _nearest(a, Lv)
+                a = nearest_image(a, Lv)
             # disowned instances gather arbitrary (possibly coincident)
             # rows: swap in unit geometry so 1/A stays finite
             a = torch.where((w > 0)[:, None], a, unit)

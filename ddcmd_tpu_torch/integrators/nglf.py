@@ -2,7 +2,7 @@
 
 Counterpart of ddcmd_tpu/integrators/nglf.py (reference nglf, ddcMD
 src/nglf.c:67-112; NGLFCONSTRAINT, src/nglfconstraint.c) without shear
-hooks or box(t):
+hooks or box(t); the geometry is the box's (lengths, or a triclinic h):
 
   0. NGLFCONSTRAINT with beta > 0: Berendsen barostat
      (changeVolume, nglfconstraint.c:64-85,510-575) -- from the molecular
@@ -12,6 +12,7 @@ hooks or box(t):
   1. GROUP velocityUpdate(FRONT, 0.5 dt)     [half kick]
      + constraint projection (front mode, live box)
   2. r += dt v                                [drift]
+     + post-drift hook (REFLECT walls, reflect.c:41)
   3. forces
   4. GROUP velocityUpdate(BACK, 0.5 dt)      [half kick]
      + RATTLE projection (back mode, live box)
@@ -82,7 +83,8 @@ def barostat_scale(state, box, virial, barostat: dict, dt: float,
 
 def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
                    constraint_fn: Callable | None = None,
-                   molecular_virial_fn: Callable | None = None):
+                   molecular_virial_fn: Callable | None = None,
+                   post_drift_fn: Callable | None = None):
     """step(ss, handle, coeffs, noise_front, noise_back) -> StepState.
 
     force_fn(state, box, handle) -> (f (N,3), e_pot, virial (3,3), pe (N,));
@@ -90,8 +92,10 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
     half-kicks (core.groups.kick_noise).
     barostat: None or dict(P0, beta, tau, T, isotropic, n_molecules).
     constraint_fn(state, dt, mode, box_lengths) -> state with projected
-    velocities; molecular_virial_fn(state, box, virial) -> the virial
-    corrected for intra-molecular force moments."""
+    velocities (box_lengths the box's geometry: a triclinic box hands its
+    h); molecular_virial_fn(state, box, virial) -> the virial corrected
+    for intra-molecular force moments; post_drift_fn(state, box) -> state
+    after the drift (REFLECT walls)."""
 
     def step(ss: StepState, handle, coeffs, noise_front, noise_back):
         state, box = ss.state, ss.box
@@ -106,8 +110,10 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
         if constraint_fn is not None:
             # live box geometry: the barostat above may have rescaled it
             v = constraint_fn(state.replace(v=v), dt, "front",
-                              box_lengths=box.lengths).v
+                              box_lengths=box.geom).v
         state = state.replace(v=v, r=state.r + dt * v)
+        if post_drift_fn is not None:
+            state = post_drift_fn(state, box)
 
         f, e_pot, virial, pe = force_fn(state, box, handle)
         state = state.replace(f=f, pe=pe)
@@ -116,7 +122,7 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
                             coeffs, half, noise_back, mask)
         if constraint_fn is not None:
             v = constraint_fn(state.replace(v=v), dt, "back",
-                              box_lengths=box.lengths).v
+                              box_lengths=box.geom).v
         state = state.replace(v=v)
 
         fmask = state.fmask

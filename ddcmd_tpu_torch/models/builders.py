@@ -2,7 +2,8 @@
 
 A copy of the JAX package's builders, cut to the families the port runs:
 the Martini water box (slice 1), the Martini DPPC bilayer (slice 2), the
-EAM copper crystal (slice 3), the atoms-file writer and the loader.  Everything is written in the same deck
+EAM copper crystal (slice 3), the Lennard-Jones fluid (slice 9), the
+atoms-file writer and the loader.  Everything is written in the same deck
 grammar the parser reads back (objects/parser.py), so both packages build
 identical decks.
 """
@@ -13,8 +14,8 @@ import os
 
 import numpy as np
 
-__all__ = ["write_atoms", "eam_crystal", "martini_water", "martini_bilayer",
-           "load"]
+__all__ = ["write_atoms", "lj_fluid", "eam_crystal", "martini_water",
+           "martini_bilayer", "load"]
 
 
 def write_atoms(path, r, v, species, groups, h, classes=None):
@@ -44,6 +45,70 @@ def _lattice(n_target, L, jitter, seed):
                  -1).reshape(-1, 3)[:n_target]
     r = ((g + 0.5) / m - 0.5) * L + (rng.random((n_target, 3)) - 0.5) * jitter
     return r, rng
+
+
+def lj_fluid(out_dir, *, n=4096, density=0.0208, T=120.0,
+             eps_ev=0.0104, sigma_ang=3.4, mass=39.948, dt_fs=4.0,
+             cutoff_ang=8.5, seed=0, integrator="NGLF", table=False):
+    """Lennard-Jones fluid (argon-like) at number density (1/Ang^3).
+
+    table=True writes the same LJ sampled into per-interval cubic Taylor
+    rows (table_function_uniform format, table_function.c:85-101) and a
+    function=TableFunction deck — the tabulated-PAIR fixture.
+    """
+    L = (n / density) ** (1 / 3)
+    r, rng = _lattice(n, L, 0.05 * L / n ** (1 / 3), seed)
+    kB_ev = 8.617333e-5
+    # write_atoms emits velocities in Angstrom/fs: 1 amu*(Ang/fs)^2 =
+    # 103.64 eV, so v = sqrt(kB T / (m * 103.64)) gives T exactly
+    v = rng.standard_normal((n, 3)) * np.sqrt(kB_ev * T / (mass * 103.64))
+    v *= 1e-2  # start cool; the thermostat warms it
+    write_atoms(os.path.join(out_dir, "atoms#000000"), r, v,
+                ["Ar"] * n, ["free"] * n, np.diag([L] * 3))
+    if table:
+        def vfun(rr):
+            s6 = (sigma_ang / rr) ** 6
+            return 4 * eps_ev * (s6 ** 2 - s6)
+
+        def dv(rr):
+            s6 = (sigma_ang / rr) ** 6
+            return 24 * eps_ev * (s6 - 2 * s6 ** 2) / rr
+
+        x = np.linspace(0.8 * sigma_ang, cutoff_ang + 0.2, 512)
+        h = 1e-4
+        rows = []
+        for xi in x:
+            d2 = (dv(xi + h) - dv(xi - h)) / (2 * h)
+            d3 = (dv(xi + h) - 2 * dv(xi) + dv(xi - h)) / h ** 2
+            rows.append([xi, vfun(xi), dv(xi), d2 / 2, d3 / 6])
+        with open(os.path.join(out_dir, "table.data"), "w") as f:
+            for row in rows:
+                f.write(" ".join("%.12e" % z for z in row) + "\n")
+        pot = (f"pot POTENTIAL {{ type=PAIR; function=TableFunction;\n"
+               f"  number_intervals={len(x)}; number_terms=4;\n"
+               f"  filename=table.data; table_energyUnits=eV;\n"
+               f"  table_lengthUnits=Angstrom;\n"
+               f"  Rmax={cutoff_ang} Angstrom; }}")
+    else:
+        pot = (f"pot POTENTIAL {{ type=PAIR; cutoff={cutoff_ang} Angstrom;\n"
+               f"  eps={eps_ev} eV; sigma={sigma_ang} Angstrom; }}")
+    deck = f"""
+simulate SIMULATE {{ type=MD; system=system; integrator=integ; dt={dt_fs};
+  maxloop=100000; printrate=100; checkpointrate=10000; ddc=ddc; }}
+ddc DDC {{ updateRate=20; }}
+{pot}
+integ INTEGRATOR {{ type={integrator}; T={T}K; }}
+system SYSTEM {{ type=NORMAL; potential=pot; neighbor=nbr; groups=free;
+  box=box; collection=collection; species=Ar; }}
+Ar SPECIES {{ type=ATOM; mass={mass}; charge=0; }}
+box BOX {{ type=ORTHORHOMBIC; pbc=7; h= {L:.6f} 0 0 0 {L:.6f} 0 0 0 {L:.6f} ; }}
+nbr NEIGHBOR {{ type=NORMAL; deltaR=1.2; }}
+free GROUP {{ type=LANGEVIN; Teq={T}K; tau=0.5ps; }}
+collection COLLECTION {{ mode=VARRECORDASCII; size={n}; files=atoms#; }}
+"""
+    with open(os.path.join(out_dir, "object.data"), "w") as f:
+        f.write(deck)
+    return out_dir
 
 
 def eam_crystal(out_dir, *, nc=8, a_lat=3.615, T=300.0, dt_fs=2.0,

@@ -44,7 +44,8 @@ import threading
 import numpy as np
 import torch
 
-from .cellpair import CellBlockGrid, _build_stencil, _cell_coords, _half_dirs
+from .cellpair import (CellBlockGrid, _build_stencil, _cell_coords,
+                       _half_dirs, excluded_pairs)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD = os.path.join(_PKG, "_build")
@@ -314,7 +315,7 @@ def cellpair_half_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
     pt = home[:, 4].long()
     if excl:
         # exclusion channels: row6 = component id, row7 = B + 2^-(intra+1)
-        pm, pb = home[:, 6, :, None], torch.floor(home[:, 7, :, None])
+        p_ch = home[:, 6:8].transpose(1, 2)
     upper = (torch.arange(cap, device=dev)[None, :]
              > torch.arange(cap, device=dev)[:, None])        # j > i
     out_p = torch.zeros((n_prog, cap, 4), dtype=dt, device=dev)
@@ -332,12 +333,7 @@ def cellpair_half_plain(slots, stencil, L8, counts, sigma, eps, shift, *,
         if s == 0:
             valid = valid & upper
         if excl:
-            # a pair is masked when the components match and bit intra_q
-            # of B_p is set: every step exact in f32
-            qw = Q[:, 7, None, :] - torch.floor(Q[:, 7, None, :])
-            t_bit = torch.floor(pb * (qw + qw))
-            bit = t_bit - 2.0 * torch.floor(t_bit * 0.5)
-            valid = valid & ~((pm == Q[:, 6, None, :]) & (bit > 0.5))
+            valid = valid & ~excluded_pairs(p_ch, Q[:, 6:8].transpose(1, 2))
         w = valid.to(dt)
         d2s = torch.where(valid, d2, torch.ones_like(d2))
         ir2 = 1.0 / d2s

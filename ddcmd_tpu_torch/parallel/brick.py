@@ -58,7 +58,7 @@ def geom_frac(box_geom):
     if g.dim() != 1:
         raise NotImplementedError(
             "triclinic brick meshes are not ported yet (ROADMAP queue 1, "
-            "item 20)")
+            "item 25)")
     return (lambda rr: rr / g), 1.0 / g
 
 
@@ -248,7 +248,7 @@ def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
     if L.ndim != 1:
         raise NotImplementedError(
             "triclinic brick meshes are not ported yet (ROADMAP queue 1, "
-            "item 20)")
+            "item 25)")
     fr = r / L[None, :] + 0.5
     fr = fr - np.floor(fr)
     cj = [np.clip(np.floor(fr[:, a] * plan.shape[a]).astype(int),

@@ -329,8 +329,9 @@ def device_bonded_tables(bt: BondedTerms, dtype=torch.float32, device="cpu",
         t["sigma_flat"] = ten(np.asarray(lj_sigma).reshape(-1), dtype)
         t["eps_flat"] = ten(np.asarray(lj_eps).reshape(-1), dtype)
         t["shift_flat"] = ten(np.asarray(lj_shift).reshape(-1), dtype)
-        t["rcut2"] = float(np.float32(rcut ** 2))
+        # host scalars, rounded as the pair engine rounds them
+        t["rcut2"] = float(torch.tensor(rcut ** 2, dtype=dtype))
         t["excl_mode"] = "rf_add"
-        t["excl_krf"] = float(np.float32(krf))
-        t["excl_crf"] = float(np.float32(crf))
+        t["excl_krf"] = float(torch.tensor(krf, dtype=dtype))
+        t["excl_crf"] = float(torch.tensor(crf, dtype=dtype))
     return t

@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.box import nearest_image
+
 # families evaluated here: key -> (arity R, parm keys)
 _FAMS = (
     ("bonds", 2, ("bond_parms",)),
@@ -149,10 +151,6 @@ def build_batched_bonded(terms: dict, residue_instances, n_pad: int,
     return dict(types=plan, meta=meta)
 
 
-def _min_image(d, L):
-    return d - L * torch.round(d / L)
-
-
 def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
                         resolved=None):
     """Evaluate the batched types; returns (f (n_pad, 3), e, virial (3, 3),
@@ -212,7 +210,7 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
             fam = fams["bonds"]
             li, lj = fam["loc"]
             parm = fam["bond_parms"]                     # (M, T, 2)
-            dr = san(_min_image(rm[:, li] - rm[:, lj], L), 0)
+            dr = san(nearest_image(rm[:, li] - rm[:, lj], L), 0)
             b = torch.sqrt((dr * dr).sum(-1))
             kb, b0 = parm[..., 0], parm[..., 1]
             db = b - b0
@@ -227,8 +225,8 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
             li, lj, lk = fam["loc"]
             parm = fam["angle_parms"]                    # (M, T, 2)
             kind = fam["angle_kind"][..., 0]             # (M, T)
-            rij = san(_min_image(rm[:, li] - rm[:, lj], L), 0)
-            rkj = san(_min_image(rm[:, lk] - rm[:, lj], L), 1)
+            rij = san(nearest_image(rm[:, li] - rm[:, lj], L), 0)
+            rkj = san(nearest_image(rm[:, lk] - rm[:, lj], L), 1)
             bij = torch.sqrt((rij * rij).sum(-1))
             bkj = torch.sqrt((rkj * rkj).sum(-1))
             uij = rij / bij[..., None]
@@ -260,7 +258,7 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
             fam = fams["exclusions"]
             li, lj = fam["loc"]
             qq = fam["excl_qq"][..., 0]                  # (M, T)
-            dr = san(_min_image(rm[:, li] - rm[:, lj], L), 0)
+            dr = san(nearest_image(rm[:, li] - rm[:, lj], L), 0)
             r2 = (dr * dr).sum(-1)
             w = wmul((r2 < meta["rcut2"]).to(dtype))
             # rf_add: the pair kernel masked these pairs; add back only

@@ -115,17 +115,17 @@ def compile_martini(db: ObjectDB, potential_name: str = "martini") -> MartiniPar
 def martini_device_tables(parms: MartiniParms, dtype=torch.float32,
                           device="cpu"):
     """(T,T) parameter tensors on the device; the scalars stay host
-    floats rounded to f32 (the kernel takes them as launch arguments, so
-    reading them never synchronises with the device)."""
-    def f32(x):
-        return float(np.float32(x))
+    floats rounded as `dtype` rounds them (the kernel takes them as launch
+    arguments, so reading them never synchronises with the device)."""
+    def scalar(x):
+        return float(torch.tensor(x, dtype=dtype))
 
     return dict(
         sigma=torch.as_tensor(parms.sigma, dtype=dtype, device=device),
         eps=torch.as_tensor(parms.eps, dtype=dtype, device=device),
         shift=torch.as_tensor(parms.shift, dtype=dtype, device=device),
-        rcut2=f32(parms.rcut ** 2),
-        krf=f32(parms.krf),
-        crf=f32(parms.crf),
-        keR=f32(U.ke / parms.epsilon_r),
+        rcut2=scalar(parms.rcut ** 2),
+        krf=scalar(parms.krf),
+        crf=scalar(parms.crf),
+        keR=scalar(U.ke / parms.epsilon_r),
     )

@@ -1,12 +1,13 @@
 """Command-line entry:
 `python -m ddcmd_tpu_torch.run.cli simulate -o deck [-r restart] [-n N]
-[--run-dir D] [--device cuda|cpu]`.
+[--run-dir D] [--device cuda|cpu] [--f64]`.
 
 Counterpart of ddcmd_tpu/run/cli.py (reference CLI, ddcMD
 src/commandLineOptions.c:69-120).  Only the simulate master is ported;
 the others raise NotImplementedError (ROADMAP queue 1, item 23).  The
 run goes to the CUDA card; without one it raises unless --device cpu
-asks for the CPU.
+asks for the CPU.  --f64 runs in float64, on the plain cell-block engine
+(the kernels are f32).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import torch
 
 from ..objects import ObjectDB
 
@@ -54,6 +57,8 @@ def run(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; the CPU only as "
                         "--device cpu)")
+    p.add_argument("--f64", action="store_true",
+                   help="run in float64 (the plain cell-block engine)")
     args = p.parse_args(argv)
     if args.master != "simulate":
         raise NotImplementedError(
@@ -67,8 +72,10 @@ def run(argv=None):
 
     from .simulate import simulate_master
 
-    return simulate_master(db, base_dir, run_dir=args.run_dir,
-                           n_loops=args.nloops, device=args.device)
+    return simulate_master(
+        db, base_dir, run_dir=args.run_dir, n_loops=args.nloops,
+        device=args.device,
+        dtype=torch.float64 if args.f64 else torch.float32)
 
 
 def main(argv=None) -> int:

@@ -1,12 +1,13 @@
 """Force orchestration: one force function from all potentials.
 
-Counterpart of ddcmd_tpu/run/forces.py:build_force_fn, ported for the
-MARTINI nonbond term and the analytic EAM term on the kernel branch
-(ddcenergy analog, ddcMD src/ddcenergy.c:160-238) and the
-residue-template batched bonded terms.
-Excluded (bonded) pairs are masked inside the pair kernel through the
-record's exclusion channels, and the bonded block adds back only the
-reaction-field part the reference keeps for them (excl_mode "rf_add").
+Counterpart of ddcmd_tpu/run/forces.py:build_force_fn (ddcenergy analog,
+ddcMD src/ddcenergy.c:160-238): the MARTINI nonbond and PAIR
+Lennard-Jones terms on the pair kernels or on the plain cell-block
+engine, the analytic EAM term on its kernels, RESTRAINT springs and the
+residue-template batched bonded terms.  Excluded (bonded) pairs are
+masked inside the pair engine through the record's exclusion channels,
+and the bonded block adds back only the reaction-field part the
+reference keeps for them (excl_mode "rf_add").
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 
 from ..core.system import SystemDef
 from ..objects import units as U
-from ..ops.cellpair import half_grid
+from ..ops import cellpair as cb
+from ..ops.cellpair import half_back_map, half_grid, pbc_allowed
 from ..ops.cellpair_half import (cell_smem_bytes, cellpair_eval_half,
                                  choose_col_group, fit_col_group,
                                  grid_tensors, kernel_inputs)
@@ -27,6 +29,8 @@ from ..ops.eam_half import (eam_col_smem_bytes, eam_eval_half,
                             eam_kernel_tables, n_params)
 from ..potentials.eam import eam_device_tables
 from ..potentials.martini import martini_device_tables
+from ..potentials.pair import pair_device_tables
+from ..potentials.restraint import restraint_eval
 
 # widest exclusion component the exact-f32 record encoding carries
 EXCL_MAX_MEMBERS = 12
@@ -122,77 +126,69 @@ def bonded_tables(sysdef: SystemDef, dtype=torch.float32):
         excl_mode="rf_add", krf=mparms.krf, crf=mparms.crf)
 
 
-def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
+def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
+                   engine: str = "kernel"):
     """Returns force_fn(state, box, perm) -> (f, e_pot, virial, pe), with
     perm the slot permutation from ops.cellpair.build_cell_slots on
-    `grid` (a plan_lanes grid).  The MARTINI pair term and the EAM term
-    run their column kernels when choose_col_group gives G > 1 and
-    fit_col_group keeps a G > 1 whose column kernel fits in shared
-    memory, else their per-cell kernels.  The term list is kept as
+    `grid`.
+
+    engine "kernel" (the JAX package's "pallas"; `grid` a plan_lanes
+    grid, f32): the MARTINI and PAIR pair terms run their column kernel
+    when choose_col_group gives G > 1 and fit_col_group keeps a G > 1
+    whose column kernel fits in shared memory, else their per-cell
+    kernel; EAM its two-pass kernels.  engine "cellblock" (a
+    CellBlockGrid.plan grid, any dtype, triclinic boxes, pbc < 7): the
+    pair terms run the plain cell-block engine of ops/cellpair.py, which
+    launches no kernel; EAM raises (item 17).  The term list is kept as
     force_fn.terms (per-term profiling); each kernel term carries
-    `kernel_inputs` (the call it makes, for chip_smoke.py) and `grid`."""
+    `kernel_inputs` (the call it makes, for chip_smoke.py), `grid` and
+    `G`."""
     state = sysdef.state
     device = state.device
     n_loc = state.n_local
+    excl_vals = None
+    if _inlist_excl(sysdef):
+        excl_vals = torch.as_tensor(
+            _excl_channels(sysdef.bonded.exclusions, state.n_pad),
+            device=device)
     terms = []
     for ptype, _, parms in sysdef.potentials:
         if ptype == "EAM":
+            if engine != "kernel":
+                raise NotImplementedError(
+                    "EAM on the cell-block engine (a triclinic box, pbc < 7 "
+                    "or f64) is not ported yet (ROADMAP queue 1, item 17)")
             terms.append(_eam_term(parms, grid, device))
-            continue
-        if ptype != "MARTINI":
+        elif ptype == "MARTINI":
+            tables = martini_device_tables(parms, dtype=dtype, device=device)
+            tmap = torch.as_tensor(parms.species_lj_type, device=device)
+            # reaction-field Coulomb is dead weight when every local charge
+            # is zero (the Martini water box): skip the per-pair RF math and
+            # the (zero) self energy
+            coul = bool(np.any(state.q[:n_loc].cpu().numpy() != 0.0))
+            # uniform-type fast path: scalar LJ parameters in the kernel
+            used = np.unique(parms.species_lj_type[
+                state.species[:n_loc].cpu().numpy()])
+            if len(used) == 1:
+                t0 = int(used[0])
+                tables = dict(tables, **{
+                    k: tables[k][t0:t0 + 1, t0:t0 + 1]
+                    for k in ("sigma", "eps", "shift")})
+                tmap = torch.zeros_like(tmap)
+            terms.append(_pair_term(tables, tmap, coul, excl_vals, grid,
+                                    engine, sysdef.box.pbc, device))
+        elif ptype == "PAIR":
+            # the species index is the type index, the (T, T) tables whole,
+            # Coulomb off (run/forces.py:245-283 of the JAX package); a
+            # TableFunction raises here (item 19)
+            tables = pair_device_tables(parms, dtype=dtype, device=device)
+            tmap = torch.arange(parms.n_species, device=device)
+            terms.append(_pair_term(tables, tmap, False, None, grid, engine,
+                                    sysdef.box.pbc, device))
+        elif ptype == "RESTRAINT":
+            terms.append(_restraint_term(state, parms, dtype, device))
+        elif ptype != "REFLECT":     # REFLECT is a post-drift hook
             raise NotImplementedError(f"force term {ptype}")
-        tables = martini_device_tables(parms, dtype=dtype, device=device)
-        tmap = torch.as_tensor(parms.species_lj_type, device=device)
-        # reaction-field Coulomb is dead weight when every local charge
-        # is zero (the Martini water box): skip the per-pair RF math and
-        # the (zero) self energy
-        coul = bool(np.any(state.q[:n_loc].cpu().numpy() != 0.0))
-        # uniform-type fast path: scalar LJ parameters in the kernel
-        used = np.unique(parms.species_lj_type[
-            state.species[:n_loc].cpu().numpy()])
-        if len(used) == 1:
-            t0 = int(used[0])
-            tables = dict(tables,
-                          sigma=tables["sigma"][t0:t0 + 1, t0:t0 + 1],
-                          eps=tables["eps"][t0:t0 + 1, t0:t0 + 1],
-                          shift=tables["shift"][t0:t0 + 1, t0:t0 + 1])
-            tmap = torch.zeros_like(tmap)
-        excl_vals = None
-        if _inlist_excl(sysdef):
-            excl_vals = torch.as_tensor(
-                _excl_channels(sysdef.bonded.exclusions, state.n_pad),
-                device=device)
-        hg = half_grid(grid)
-        T = tables["sigma"].shape[0]
-        G = fit_col_group(hg, choose_col_group(hg), lambda U: cell_smem_bytes(
-            hg.cap, T, excl_vals is not None))
-        gt = grid_tensors(hg, device, G)
-
-        def martini_term(state, box, perm, tables=tables, tmap=tmap,
-                         hg=hg, gt=gt, coul=coul, excl_vals=excl_vals):
-            tidx = tmap[state.species]
-            f, e, virial, pe = cellpair_eval_half(
-                state.r, state.q, tidx, perm, box.lengths, hg, tables, gt,
-                coulomb=coul, excl_vals=excl_vals)
-            if not coul:
-                return f, e, virial, pe
-            e_self_i = (-0.5 * state.q * state.q * state.fmask
-                        * tables["keR"] * tables["crf"])
-            return f, e + e_self_i.sum(), virial, pe + e_self_i
-
-        def pair_kernel_inputs(state, box, perm, tables=tables, tmap=tmap,
-                               hg=hg, gt=gt, coul=coul, excl_vals=excl_vals):
-            """(kernel, args, kw) of the pair kernel call martini_term
-            makes (chip_smoke.py holds the kernel against its twin on
-            these)."""
-            return kernel_inputs(state.r, state.q, tmap[state.species],
-                                 perm, box.lengths, hg, tables, gt, coul,
-                                 excl_vals)
-
-        martini_term.kernel_inputs = pair_kernel_inputs
-        martini_term.grid = hg
-        martini_term.G = G
-        terms.append(martini_term)
 
     # covalent terms (bonds, angles, exclusion RF corrections)
     btab = bonded_tables(sysdef, dtype)
@@ -205,7 +201,7 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
                                      dtype, device)
         if bplan is not None:
             def bonded_term(state, box, perm, bplan=bplan, n_pad=n_pad):
-                return batched_bonded_eval(state.r, box.lengths, bplan,
+                return batched_bonded_eval(state.r, box.geom, bplan,
                                            n_pad, dtype)
 
             terms.append(bonded_term)
@@ -225,6 +221,74 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32):
 
     force_fn.terms = terms
     return force_fn
+
+
+def _pair_term(tables, tmap, coul, excl_vals, grid, engine, pbc, device):
+    """The shifted-LJ (+ reaction field) term of a MARTINI or PAIR
+    potential on the engine: the pair kernels on a plan_lanes grid, or
+    the plain cell-block engine (with the pbc < 7 stencil mask) on a
+    CellBlockGrid.plan grid.  With Coulomb on, the reaction field's self
+    energy is added per particle."""
+    hg = half_grid(grid)
+    if engine == "cellblock":
+        back = half_back_map(hg)
+        allowed = pbc_allowed(hg, pbc)
+
+        def pair(state, box, perm):
+            return cb.cellpair_eval_half(
+                state.r, state.q, tmap[state.species], perm, box.geom, hg,
+                tables, back, coulomb=coul, allowed=allowed,
+                excl_vals=excl_vals)
+        G = None
+    else:
+        T = tables["sigma"].shape[0]
+        G = fit_col_group(hg, choose_col_group(hg), lambda U: cell_smem_bytes(
+            hg.cap, T, excl_vals is not None))
+        gt = grid_tensors(hg, device, G)
+
+        def pair(state, box, perm):
+            return cellpair_eval_half(
+                state.r, state.q, tmap[state.species], perm, box.lengths, hg,
+                tables, gt, coulomb=coul, excl_vals=excl_vals)
+
+    def pair_term(state, box, perm):
+        f, e, virial, pe = pair(state, box, perm)
+        if not coul:
+            return f, e, virial, pe
+        e_self_i = (-0.5 * state.q * state.q * state.fmask
+                    * tables["keR"] * tables["crf"])
+        return f, e + e_self_i.sum(), virial, pe + e_self_i
+
+    if engine != "cellblock":
+        def pair_kernel_inputs(state, box, perm):
+            """(kernel, args, kw) of the pair kernel call pair_term makes
+            (chip_smoke.py holds the kernel against its twin on these)."""
+            return kernel_inputs(state.r, state.q, tmap[state.species],
+                                 perm, box.lengths, hg, tables, gt, coul,
+                                 excl_vals)
+
+        pair_term.kernel_inputs = pair_kernel_inputs
+    pair_term.grid = hg
+    pair_term.G = G
+    return pair_term
+
+
+def _restraint_term(state, parms, dtype, device):
+    """Harmonic restraints (run/forces.py:369-384 of the JAX package): the
+    restrained gids map to state rows once, on the host."""
+    row_of = {int(g): i for i, g in enumerate(state.gid[:state.n_local])}
+    rows = torch.as_tensor([row_of[int(g)] for g in parms.gids],
+                           device=device)
+
+    def ten(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    r0, kb, am = ten(parms.r0), ten(parms.kb), ten(parms.axis_mask)
+
+    def restraint_term(state, box, perm):
+        return restraint_eval(state.r, box.geom, rows, r0, kb, am)
+
+    return restraint_term
 
 
 def _eam_term(parms, grid, device):

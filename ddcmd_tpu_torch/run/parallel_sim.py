@@ -1,7 +1,8 @@
 """Deck-driven MD over a brick mesh, one rank per brick.
 
 Counterpart of ddcmd_tpu/run/parallel_sim.py:ParallelSimulation for the
-decks of the Martini water box, the Martini bilayer and the EAM crystal:
+decks of the Martini water box, the Martini bilayer, PAIR Lennard-Jones
+fluids and the EAM crystal:
 `ddc DDC {lx=2; ly=2; lz=2;}` (the reference's domain lattice keywords,
 ddc.c:35-137) or the `shape` argument selects the mesh, and each rank
 runs parallel/brickstep_cells.BrickStepCells on its brick through the
@@ -26,12 +27,19 @@ from the deck, keeps the rows of its own brick, and runs the same host
 loop; the per-step scalars and the overflow flag are mesh-wide, so all
 ranks take the same decisions.
 
+A PAIR deck runs as the JAX package runs it: the MARTINI kernel with the
+species index as type and the reaction-field constants zero.
+
 Deck features outside these paths raise NotImplementedError naming
 their ROADMAP item: load balance (and with it the pxyz decomposition
-restart), an exclusion component wider than the in-kernel encoding or a
-geometry the cell engine cannot take (the JAX package then runs its
-(N,K)-list engine, item 19), bonded families the port does not evaluate
-(item 12).  The checkpoint writer, rebalance, the gathered view and the
+restart), triclinic bricks and non-periodic axes (item 25: the JAX mesh
+reads no pbc bit and would run such a deck fully periodic), an
+exclusion component wider than the in-kernel encoding, a geometry the
+cell engine cannot take or a tabulated PAIR (the JAX package then runs
+its (N,K)-list engine, item 19), bonded families the port does not
+evaluate (item 12), NGLFNEW with constraints (the JAX mesh projects
+constraints only for CONSTRAINT integrators, its Simulation also for
+NGLFNEW).  The checkpoint writer, rebalance, the gathered view and the
 sharded analyses are not ported yet.
 """
 
@@ -57,6 +65,7 @@ from ..parallel.mesh import BrickMesh
 from ..parallel.shard_cells import plan_shard_cells
 from ..potentials.eam import eam_device_tables
 from ..potentials.martini import martini_device_tables
+from ..potentials.pair import pair_device_tables
 from .forces import _excl_channels, bonded_tables
 from .printinfo import PrintInfo
 from .simulate import (_BAROSTAT_TYPES, _NGLF_TYPES,
@@ -116,6 +125,21 @@ class ParallelSimulation:
             raise NotImplementedError(
                 f"integrator {sd.integrator_type} is not ported yet "
                 "(ROADMAP queue 1, item 22)")
+        if not sd.box.ortho:
+            raise NotImplementedError(
+                f"triclinic bricks are not ported yet ({_MESH_ITEM})")
+        if sd.box.pbc & 7 != 7:
+            raise NotImplementedError(
+                f"pbc={sd.box.pbc} under the mesh: the JAX mesh reads no pbc "
+                "bit and would run the deck fully periodic; non-periodic "
+                f"bricks are not ported yet ({_MESH_ITEM})")
+        if sd.integrator_type == "NGLFNEW" and uses_constraints(sd):
+            raise NotImplementedError(
+                "NGLFNEW with constraints under the mesh: the JAX mesh "
+                "projects constraints only for CONSTRAINT integrators "
+                "(parallel_sim.py:249), its Simulation also for NGLFNEW "
+                "(simulate.py:270-272); the port takes neither rule here "
+                f"({_MESH_ITEM})")
 
         sim = db.by_class("SIMULATE")[0]
         ddc = db.find(sim.get_str("ddc", "ddc"), "DDC")
@@ -150,6 +174,13 @@ class ParallelSimulation:
                     k: tables[k][t0:t0 + 1, t0:t0 + 1]
                     for k in ("sigma", "eps", "shift")})
                 tmap = np.zeros_like(tmap)
+        elif ptype == "PAIR":
+            # the MARTINI kernel with zero reaction-field constants, the
+            # species index as type (parallel_sim.py:74-92 of the JAX
+            # package); a TableFunction raises (item 19)
+            tables = pair_device_tables(parms, device=dev)
+            tmap = np.arange(len(sd.species))
+            self.force_kind = "martini"
         else:
             tables = eam_device_tables(parms, device=dev)
             if not eam_half_supported(tables):

@@ -2,11 +2,18 @@
 
 Counterpart of ddcmd_tpu/run/simulate.py (reference ddcMD
 src/masters.c:369-559), reduced to the main paths: NGLF / NGLFCONSTRAINT
-with the Berendsen barostat and RATTLE constraints, MARTINI nonbond
-through the cell-pair kernels plus the batched bonded terms, and
-analytic EAM through the two-pass EAM kernels (an EAM deck the kernels
-do not take raises NotImplementedError when the force function is
-built).
+with the Berendsen barostat and RATTLE constraints, MARTINI nonbond and
+PAIR Lennard-Jones through the cell-pair kernels plus the batched bonded
+terms, analytic EAM through the two-pass EAM kernels (an EAM deck the
+kernels do not take raises NotImplementedError when the force function
+is built), RESTRAINT springs and REFLECT walls.
+
+The engine is the JAX package's choice (simulate.py:50-118) cut to what
+is ported: the kernels ("kernel", the JAX package's "pallas") for f32,
+orthorhombic, fully periodic decks; the plain cell-block engine
+("cellblock", ops/cellpair.cellpair_eval_half, no kernel) for decks
+with non-periodic axes, triclinic boxes or f64.  Its plan is
+CellBlockGrid.plan's, and an overflow grows its cap by 1.5.
 
 One dispatch runs k steps as n_rebuilds blocks of `updateRate` steps:
 each block wraps positions and rebuilds the cell slots, then runs its
@@ -50,7 +57,7 @@ from ..core.system import build_system
 from ..integrators.nglf import StepState, first_energy_call, make_nglf_step
 from ..objects import ObjectDB
 from ..objects import units as U
-from ..ops.cellpair import build_cell_slots
+from ..ops.cellpair import CellBlockGrid, build_cell_slots
 from ..ops.cellpair_half import plan_lanes
 from .forces import build_force_fn
 from .printinfo import PrintInfo
@@ -119,14 +126,38 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def choose_engine(sd, dtype, engine: str = "auto") -> str:
+    """The pair engine of a deck: "kernel" for an f32, orthorhombic, fully
+    periodic deck, "cellblock" when the deck forces it (pbc < 7, a
+    triclinic box, f64), as the JAX package's auto choice on a TPU
+    (simulate.py:50-118).  An explicit engine is kept; "kernel" on a deck
+    that forces the cell-block engine raises instead of moving off the
+    kernels unasked."""
+    forced = [why for why, yes in (
+        (f"dtype {dtype}", dtype != torch.float32),
+        (f"pbc={sd.box.pbc}", sd.box.pbc & 7 != 7),
+        ("a triclinic box", not sd.box.ortho)) if yes]
+    if engine == "auto":
+        return "cellblock" if forced else "kernel"
+    if engine not in ("kernel", "cellblock"):
+        raise ValueError(f"engine {engine!r}: auto, kernel or cellblock")
+    if engine == "kernel" and forced:
+        raise ValueError(
+            f"engine 'kernel' cannot run {', '.join(forced)}: the kernels "
+            "take f32, orthorhombic, fully periodic decks")
+    return engine
+
+
 class Simulation:
     """Owns the force and step functions and the host loop."""
 
     def __init__(self, db: ObjectDB, base_dir: str = ".", *,
-                 run_dir: str = ".", device=None):
+                 run_dir: str = ".", device=None, dtype=torch.float32,
+                 engine: str = "auto"):
         self.device = resolve_device(device)
         self.run_dir = run_dir
-        self.sysdef = sd = build_system(db, base_dir, dtype=torch.float32,
+        self.dtype = dtype
+        self.sysdef = sd = build_system(db, base_dir, dtype=dtype,
                                         device=self.device)
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         refuse_unported_outputs(db, sd, self.printinfo)
@@ -134,10 +165,7 @@ class Simulation:
             raise NotImplementedError(
                 f"integrator {sd.integrator_type} is not ported yet "
                 "(ROADMAP queue 1, item 22)")
-        if sd.box.pbc & 7 != 7:
-            raise NotImplementedError(
-                "non-periodic axes run on the fallback cell engine, not "
-                "ported yet (ROADMAP queue 1, item 20)")
+        self.engine = choose_engine(sd, dtype, engine)
         ip = sd.integrator_parms
         sysobj = db.get(sd.cfg.system_name, "SYSTEM")
         self.molecules = build_molecule_class(
@@ -153,18 +181,20 @@ class Simulation:
                                  isotropic=ip["isotropic"],
                                  n_molecules=self.n_molecules)
         self.mol_virial_fn = make_molecular_virial_fn(
-            self.molecules, device=self.device)
+            self.molecules, dtype=dtype, device=self.device)
         self.constraint_fn = self._make_constraint_fn()
+        self.post_drift_fn = None
+        if any(p[0] == "REFLECT" for p in sd.potentials):
+            from ..potentials.reflect import reflect
+
+            self.post_drift_fn = reflect
         # dynamic boxes plan with shrink headroom (simulate.py:120-128)
         self._plan_margin = 1.08 if self.barostat is not None else 1.0
         self._density_safety = 1.3
-        self.grid = plan_lanes(sd.box.lengths.cpu().numpy().astype(np.float64),
-                               sd.rcut_max, sd.neighbor_deltaR,
-                               sd.state.n_local,
-                               plan_margin=self._plan_margin)
+        self.grid = self._plan(sd.box)
         self._build_step()
         self.coeffs = sd.group_table.coefficients(
-            sd.cfg.time, 0.5 * sd.cfg.dt, device=self.device)
+            sd.cfg.time, 0.5 * sd.cfg.dt, dtype=dtype, device=self.device)
         self._generator = torch.Generator(device=self.device)
         self._forced_spr = None
         self._forced_dispatch = None
@@ -176,15 +206,16 @@ class Simulation:
         self.dispatch_log: list[tuple[int, float]] = []
         self.ss = StepState(
             state=sd.state, box=sd.box,
-            energy=EnergyInfo.zero(device=self.device),
+            energy=EnergyInfo.zero(dtype=dtype, device=self.device),
             loop=sd.cfg.loop, time=sd.cfg.time)
 
     # ------------------------------------------------------------------
 
     def _make_constraint_fn(self):
-        """Residue-template batched RATTLE when the topology allows it
-        (every Martini deck), the generic projector otherwise
-        (simulate.py:265-295)."""
+        """Residue-template batched RATTLE when the topology allows it in
+        an orthorhombic box (every Martini deck), the generic projector
+        otherwise (simulate.py:265-295); both take the live geometry per
+        call."""
         sd = self.sysdef
         bt = sd.bonded
         if not uses_constraints(sd):
@@ -193,38 +224,53 @@ class Simulation:
                                                build_constraint_fn_batched)
 
         L = sd.box.lengths.cpu().numpy().astype(np.float64)
-        fn = build_constraint_fn_batched(
-            bt.cons_atoms, bt.cons_pairs, bt.cons_dist, sd.state.n_pad,
-            torch.float32, sd.residue_instances, box_lengths=L,
-            device=self.device)
+        fn = None
+        if sd.box.ortho:
+            fn = build_constraint_fn_batched(
+                bt.cons_atoms, bt.cons_pairs, bt.cons_dist, sd.state.n_pad,
+                self.dtype, sd.residue_instances, box_lengths=L,
+                device=self.device)
         if fn is None:
             fn = build_constraint_fn(
                 bt.cons_atoms, bt.cons_pairs, bt.cons_dist, sd.state.n_pad,
-                torch.float32, box_lengths=L, device=self.device)
+                self.dtype, box_lengths=L, device=self.device)
         return fn
+
+    def _plan(self, box) -> CellBlockGrid:
+        """The engine's cell plan at `box`: plan_lanes for the kernels,
+        CellBlockGrid.plan (perpendicular spans) for the cell-block
+        engine."""
+        sd = self.sysdef
+        geom = box.geom.cpu().numpy().astype(np.float64)
+        if self.engine == "kernel":
+            return plan_lanes(geom, sd.rcut_max, sd.neighbor_deltaR,
+                              sd.state.n_local,
+                              density_safety=self._density_safety,
+                              plan_margin=self._plan_margin)
+        return CellBlockGrid.plan(geom, sd.rcut_max, sd.neighbor_deltaR,
+                                  sd.state.n_local,
+                                  plan_margin=self._plan_margin)
 
     def _build_step(self):
         sd = self.sysdef
-        self.force_fn = build_force_fn(sd, self.grid)
+        self.force_fn = build_force_fn(sd, self.grid, self.dtype,
+                                       self.engine)
         self.step_fn = make_nglf_step(
             self.force_fn, sd.cfg.dt, barostat=self.barostat,
             constraint_fn=self.constraint_fn,
-            molecular_virial_fn=self.mol_virial_fn)
+            molecular_virial_fn=self.mol_virial_fn,
+            post_drift_fn=self.post_drift_fn)
         # the cell-edge guard's per-axis bound, made once per plan
-        self._edge_min = (torch.tensor(self.grid.ncells, dtype=torch.float32,
+        self._edge_min = (torch.tensor(self.grid.ncells, dtype=self.dtype,
                                        device=self.device)
                           * float(self.grid.rlist))
 
     def replan(self):
-        """Re-plan the cell grid at the live box and the current density
-        safety; the cap never shrinks (the overflow ladder only grows it)."""
-        sd = self.sysdef
+        """Re-plan the cell grid at the live box (and, for the kernels,
+        the current density safety); the cap never shrinks (the overflow
+        ladder only grows it)."""
         prev_cap = self.grid.cap
-        L = self.ss.box.lengths.cpu().numpy().astype(np.float64)
-        self.grid = plan_lanes(
-            L, sd.rcut_max, sd.neighbor_deltaR, sd.state.n_local,
-            density_safety=self._density_safety,
-            plan_margin=self._plan_margin)
+        self.grid = self._plan(self.ss.box)
         if self.grid.cap < prev_cap:
             self.grid = self.grid.with_cap(prev_cap)
         self._build_step()
@@ -232,8 +278,8 @@ class Simulation:
     def _grid_stale(self, slack: float = 1.0) -> bool:
         """True when the live box has shrunk a cell edge below
         slack * rlist: the cell plan itself must change."""
-        L = self.ss.box.lengths.cpu().numpy().astype(np.float64)
-        return bool(np.any(L / np.asarray(self.grid.ncells)
+        spans = self.ss.box.perp_spans.cpu().numpy().astype(np.float64)
+        return bool(np.any(spans / np.asarray(self.grid.ncells)
                            < self.grid.rlist * slack))
 
     def _build_nbr(self, ss: StepState):
@@ -243,9 +289,9 @@ class Simulation:
         shrinking box with a static cell count misses one-shell pairs)."""
         r = ss.box.back_in_box(ss.state.r)
         ss = ss.replace(state=ss.state.replace(r=r))
-        perm, overflow = build_cell_slots(r, ss.state.fmask, ss.box.lengths,
+        perm, overflow = build_cell_slots(r, ss.state.fmask, ss.box.geom,
                                           self.grid)
-        edge_bad = torch.any(ss.box.lengths < self._edge_min)
+        edge_bad = torch.any(ss.box.perp_spans < self._edge_min)
         return ss, perm, overflow | edge_bad
 
     def first_energy(self) -> StepState:
@@ -265,19 +311,25 @@ class Simulation:
         """A moving box replans at the live box first (a compression that
         took a cell edge below rlist needs a new cell plan, a denser box a
         new occupancy plan); when that changes nothing, or the box never
-        moved, the density safety grows by 1.3 before the replan."""
+        moved, the kernels' density safety grows by 1.3 before the
+        replan, the cell-block engine's cap by 1.5 (recapacity,
+        simulate.py:611-634)."""
         if self.barostat is not None or self._grid_stale(slack=1.05):
             old = (self.grid.ncells, self.grid.cap)
             self.replan()
             if (self.grid.ncells, self.grid.cap) != old:
                 return
+        if self.engine == "cellblock":
+            self.grid = self.grid.with_cap(int(self.grid.cap * 1.5))
+            self._build_step()
+            return
         self._density_safety *= 1.3
         self.replan()
 
     def _noise(self, step: int) -> torch.Tensor:
         return kick_noise(self._generator, self.sysdef.random_seed, step,
                           _NOISE_CALLSITE_NGLF,
-                          (2, self.ss.state.n_pad, 3))
+                          (2, self.ss.state.n_pad, 3), dtype=self.dtype)
 
     def _dispatch(self, ss: StepState, n_rebuilds: int, spr: int):
         """n_rebuilds * spr steps with no host sync until the end.
@@ -286,7 +338,7 @@ class Simulation:
         reused)."""
         dev = self.device
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        worst = torch.zeros((), dtype=torch.float32, device=dev)
+        worst = torch.zeros((), dtype=self.dtype, device=dev)
         rows = []
         for _ in range(n_rebuilds):
             ss, perm, ov = self._build_nbr(ss)
@@ -309,9 +361,9 @@ class Simulation:
                 e = ss.energy
                 L = ss.box.lengths
                 rows.append(torch.stack([e.eion, e.rk, torch.trace(e.virial),
-                                         torch.trace(e.tion), torch.prod(L),
+                                         torch.trace(e.tion), ss.box.volume,
                                          L[0], L[1], L[2]]))
-        flags = torch.stack([overflow.to(torch.float32), worst])
+        flags = torch.stack([overflow.to(self.dtype), worst])
         host = torch.cat([torch.stack(rows).reshape(-1), flags]).cpu()
         host = host.numpy().astype(np.float64)
         return (ss, host[:-2].reshape(-1, len(_ROW)), bool(host[-2]),
@@ -347,7 +399,8 @@ class Simulation:
             k = n_rebuilds * spr
             if sd.group_table.time_dependent:
                 self.coeffs = sd.group_table.coefficients(
-                    self.ss.time, 0.5 * cfg.dt, device=self.device)
+                    self.ss.time, 0.5 * cfg.dt, dtype=self.dtype,
+                    device=self.device)
             t0 = _time.perf_counter()
             ss_new, rows, overflow, worst = self._dispatch(self.ss,
                                                            n_rebuilds, spr)
@@ -436,11 +489,13 @@ class Simulation:
 
 
 def simulate_master(db: ObjectDB, base_dir: str = ".", run_dir: str = ".",
-                    n_loops: int | None = None, device=None) -> Simulation:
+                    n_loops: int | None = None, device=None,
+                    dtype=torch.float32) -> Simulation:
     """Run the deck on `device` (the CUDA card by default; raises without
-    one) with checkpoints and snapshots at the deck's rates."""
+    one) in `dtype` with checkpoints and snapshots at the deck's rates."""
     from ..io.restart import write_checkpoint
 
-    sim = Simulation(db, base_dir, run_dir=run_dir, device=device)
+    sim = Simulation(db, base_dir, run_dir=run_dir, device=device,
+                     dtype=dtype)
     sim.run(n_loops, on_checkpoint=lambda s: write_checkpoint(s, run_dir))
     return sim

@@ -3,13 +3,18 @@
     python scripts/profile_torch_slice.py [--n 6173] [--steps 200]
     python scripts/profile_torch_slice.py --bilayer 48 [--steps 200]
     python scripts/profile_torch_slice.py --eam 12 [--steps 200]
+    python scripts/profile_torch_slice.py --lj 131072 [--mesh]
+    python scripts/profile_torch_slice.py --npt [--mesh]
     python scripts/profile_torch_slice.py --mesh [--eam 32 | --bilayer 48]
 
 Runs the Martini water box NVT (default), the Martini DPPC bilayer NPT
 (--bilayer NX: 2*NX*NX lipids plus water, NX = 48 is the ~100k-bead
 full width; equilibrated at dt = 5 fs) or the EAM copper crystal NVT
 (--eam NC: 4*NC^3 atoms; NC = 12 runs the per-cell EAM kernels, NC = 32
-the column ones) through ddcmd_tpu_torch's Simulation, or with --mesh
+the column ones), the PAIR Lennard-Jones fluid NVT (--lj N atoms at the
+builder's density) or the water box under the reference deck's
+NGLFCONSTRAINT barostat (--npt: P0 1 bar, beta 3.0e-4/bar, tauBarostat
+1 ps) through ddcmd_tpu_torch's Simulation, or with --mesh
 through ParallelSimulation on a (1,1,1) brick mesh (the extended-grid
 kernels; the bilayer there with exclusions, bonded terms, RATTLE and
 the NPT chunk): --warm steps,
@@ -37,10 +42,15 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ddcmd_tpu_torch.models import (eam_crystal, load, martini_bilayer,  # noqa: E402
-                                    martini_water)
+from ddcmd_tpu_torch.models import (eam_crystal, lj_fluid, load,  # noqa: E402
+                                    martini_bilayer, martini_water)
 from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation  # noqa: E402
 from ddcmd_tpu_torch.run.simulate import Simulation  # noqa: E402
+
+
+# the reference deck's integrator (BASELINE.md:14)
+NPT = ("type=NGLFCONSTRAINT; T=310.0K; P0=1.0 bar; beta=3.0e-4/bar; "
+       "tauBarostat=1.0 ps;")
 
 
 def event_ms(fn, n=50):
@@ -110,6 +120,12 @@ def main(argv=None):
     p.add_argument("--eam", type=int, default=0, metavar="NC",
                    help="profile the EAM copper crystal of 4*NC^3 atoms "
                         "instead of the water box")
+    p.add_argument("--lj", type=int, default=0, metavar="N",
+                   help="profile the PAIR Lennard-Jones fluid of N atoms "
+                        "instead of the water box")
+    p.add_argument("--npt", action="store_true",
+                   help="run the water box under the reference deck's "
+                        "NGLFCONSTRAINT barostat")
     p.add_argument("--mesh", action="store_true",
                    help="run ParallelSimulation on a (1,1,1) mesh instead "
                         "of Simulation")
@@ -125,8 +141,16 @@ def main(argv=None):
             martini_bilayer(d, nx=args.bilayer, ny=args.bilayer, dt_fs=5.0)
         elif args.eam:
             eam_crystal(d, nc=args.eam)
+        elif args.lj:
+            lj_fluid(d, n=args.lj)
         else:
             martini_water(d, n=args.n)
+            if args.npt:
+                deck = os.path.join(d, "object.data")
+                with open(deck) as f:
+                    text = f.read()
+                with open(deck, "w") as f:
+                    f.write(text.replace("type=NGLF; T=310.0K;", NPT))
         db, base = load(d)
         if args.mesh:
             sim = ParallelSimulation(db, base, shape=(1, 1, 1),
@@ -162,7 +186,8 @@ def main(argv=None):
     steps = args.steps + (0 if args.mesh else 1)
     what = (f"bilayer nx={args.bilayer}" if args.bilayer
             else f"eam_crystal nc={args.eam}" if args.eam
-            else f"water n={args.n}")
+            else f"lj_fluid n={args.lj}" if args.lj
+            else f"water n={args.n}" + (" NPT" if args.npt else ""))
     if args.mesh:
         what += " mesh (1,1,1)"
         plan = (f"core cells {sim.cplan.ncore} cap {sim.cplan.cap}, "

@@ -4,6 +4,7 @@ jax-free import and its device policy."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -45,6 +46,14 @@ def _sim_key(text, keyword):
     new = text.replace("type=MD;", "type=MD; " + keyword, 1)
     assert new != text
     return new
+
+
+def _tilted(text):
+    """The deck's box with its b vector tilted by 0.1 L in x."""
+    m = re.search(r"h= (\S+) 0 0 0 (\S+) 0 0 0 (\S+) ;", text)
+    L = float(m.group(1))
+    return text.replace(m.group(0), f"h= {L} {0.1 * L:.6f} 0 0 {L} 0 0 0 "
+                        f"{L} ;")
 
 
 def _printinfo(text, keyword):
@@ -116,7 +125,8 @@ def test_build_system_matches_jax(tmp_path):
      "GROUP"),
     (lambda s: s.replace("type=NGLF; T=310.0K;", "type=NPTGLF; T=310.0K;"),
      "integrator"),
-    (lambda s: s.replace("type=MARTINI;", "type=PAIR;"), "POTENTIAL"),
+    # PAIR runs now; PAIRENERGY waits for the (N,K)-list engine (item 19)
+    (lambda s: s.replace("type=MARTINI;", "type=PAIRENERGY;"), "POTENTIAL"),
     # outputs the JAX Simulation writes at their rates: each raises naming
     # its ROADMAP item instead of running to the end without the output
     (lambda s: _sim_key(s, "analysis=rdf;")
@@ -130,6 +140,10 @@ def test_build_system_matches_jax(tmp_path):
     (lambda s: s.replace("groups=solvent;", "groups=solvent frozen;")
      + "frozen GROUP { type=FREE; }\n", r"per-group energy.*item 23"),
     (lambda s: _printinfo(s, "printStress=1;"), r"mesh:printStress.*item 24"),
+    # what the mesh still refuses where Simulation runs the deck on its
+    # cell-block engine: a triclinic box and non-periodic axes
+    (lambda s: _tilted(s), r"mesh:triclinic.*item 25"),
+    (lambda s: s.replace("pbc=7;", "pbc=3;"), r"mesh:pbc=3.*item 25"),
 ])
 def test_unported_deck_features_raise(tmp_path, edit, what):
     """Deck features outside the slice raise NotImplementedError naming
