@@ -108,7 +108,21 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      steps, every atom within the walls; (c) a monoclinic box (tilt 0.2)
      of 13,824 atoms, 1000 steps in f32 and in f64, their first energies
      against each other, the NVE drift printed; (d) small slab and
-     triclinic runs on the card against the same runs on the CPU.
+     triclinic runs on the card against the same runs on the CPU;
+ 17. tabulated EAM (tabular_eam_deck samples the crystal's three FIT
+     functions into table files in the run directory): (b, in phase 3)
+     the tabularFit=rational refit's kernels (#4 on the nc = 12 refit
+     deck's slots, #5 on the nc = 32 one's, #7 on its (1,1,1) plan) in
+     their RATIONAL_SHIFTED form against their plain versions, with
+     device times and bounds; (c) the refit through the CLI at nc = 12
+     (#4) and nc = 32 (#5), 2000 NVT steps each, first energies against
+     the RATIONAL deck's, and at nc = 32 through the mesh at (1,1,1) (#7,
+     first energy against Simulation's); (d) the unfitted nc = 32 TABULAR
+     deck on the plain cell-block EAM engine (no kernel), its first
+     energy and forces against the RATIONAL deck's kernels', 100 steps
+     with the peak memory; small triclinic, f64 and five-species EAM
+     decks on the card against the CPU.  The refit runs print steps/s,
+     the busy share and CUDA kernels a step of a profiled window.
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -135,10 +149,11 @@ SLICE_STEPS = 3000
 DISPATCH = 400
 TAIL = 1000              # steps the temperature and rate are read over
 TIMED_CALLS = 200        # kernel calls per timing
-PLAIN_CALLS = 10         # plain-twin calls per timing (slow at full size)
+PLAIN_CALLS = 3          # plain-twin calls per timing, after one warm-up
+                         # call (each takes 10-500 ms at full size)
 BILAYER_NX = 48          # the builder's default: ~100k beads
 EQ_STEPS, EQ_DT = 3000, 5.0
-RUN_STEPS = 8000
+RUN_STEPS = 4000
 SMALL_NX, SMALL_STEPS = 8, 400
 BILAYER_T = 323.0
 TEMP_TOL = 10.0          # K, on the mean T over the last TAIL steps
@@ -146,6 +161,21 @@ EAM_NC, EAM_STEPS, EAM_NVE_STEPS = 12, 3000, 2000
 EAM_BIG_NC, EAM_BIG_STEPS = 32, 2000
 EAM_BIG_PLAN = ((11, 12, 12), 4, 29)    # its cells, G and union size U
 EAM_T = 300.0
+# the TABULAR decks' sampled functions (tabular_eam_deck)
+TAB_R_ROWS, TAB_RHO_ROWS, TAB_RHO_MAX = 4000, 8000, 400.0
+# phase 17: the refit decks' steps through the CLI (nc = 12 and 32) and
+# the mesh, the unfitted TABULAR deck's on the cell-block EAM engine, the
+# steps of a busy-share window
+TAB_STEPS, MESH_TAB_STEPS, TAB_CB_STEPS, PROFILE_STEPS = 2000, 2000, 100, 10
+# the refit's first energy against the RATIONAL deck's, and the table
+# lookups' energy and forces (the JAX package's tests/test_eam.py
+# tolerances for tabularFit=rational and for tabular against analytic)
+FIT_E_REL, TAB_E_REL, TAB_F_REL = 5e-3, 2e-3, 2e-2
+# a five-species FS alloy (alloy_eam_deck): per-species a b c m n l of
+# form FS, near the copper values of EAM_FORM_DECKS
+ALLOY_FS = {"Cu": "0.8 2.0 1.5 5.0 7.0 3.6", "Ag": "0.7 2.6 1.6 5.5 7.5 4.1",
+            "Au": "0.75 2.3 1.55 5.2 7.2 3.8", "Ni": "0.85 1.8 1.45 4.8 6.8 3.5",
+            "Pd": "0.72 2.4 1.58 5.4 7.4 4.0"}
 # us/call of the bodies the sweep design replaced (PERF.md, H100 80GB
 # HBM3 at 700 W): one CTA of cap threads per
 # (direction, cell), the pair arithmetic inside the distance sweep; the
@@ -167,6 +197,7 @@ BIG_NCELLS = (41, 40, 40)                 # 65,600 cells: past a 16-bit grid axi
 RAGGED_RCUT, RAGGED_SKIN = 0.6, 0.3       # the pair kernels' ragged cases
 NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
+T_START = time.perf_counter()   # the phase lines' clock
 MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 3000, 2000, 2000
 # PAIR Lennard-Jones fluids (models.lj_fluid: 0.0208 atoms/A^3, 8.5 A
 # cutoff, 1.2 A skin, LANGEVIN 120 K): 4,096 atoms (58.2 A box) and
@@ -179,7 +210,7 @@ NPT_INTEGRATOR = ("type=NGLFCONSTRAINT; T=310.0K; P0=1.0 bar; "
 NPT_STEPS = 3000
 # the plain cell-block engine: the REFLECT slab's steps, the monoclinic
 # box's lattice edge (24^3 = 13,824 atoms) and steps
-CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 2000, 24, 1000
+CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 2000, 24, 500
 # the least time the card could take (H100 SXM peaks at 700 W): f32
 # outside the tensor cores, and HBM3
 PEAK_F32, PEAK_BW = 67e12, 3.35e12
@@ -187,8 +218,8 @@ PEAK_F32, PEAK_BW = 67e12, 3.35e12
 # in-cutoff pair of these inputs its distance test (3 sub, 3 mul, 2 add,
 # the validity product) and its arithmetic, counted from the sources
 # (csrc/cellpair_half.cu: LJ 41, reaction field 14 more; csrc/eam_half.cu
-# with eam_forms.cuh, RATIONAL of Horner degree D: density pass 19 + 16 (D
-# - 1), force pass 40 + 16 (D - 1)).  The tests of pairs outside the
+# with eam_forms.cuh, RATIONAL of Horner degree D: density pass 13 + 8 (D
+# - 1), force pass 40 + 16 (D - 1): eam_ops).  The tests of pairs outside the
 # cutoff are a cell list's overhead, not the function's work (an exact
 # prune can skip them), so the bound does not count them
 OPS_TEST = 9
@@ -207,7 +238,8 @@ EAM_FORM_DECKS = {
 
 
 def phase(name, text):
-    print(f"[{name}] {text}", flush=True)
+    print(f"[{name}] {text} [{time.perf_counter() - T_START:.1f} s]",
+          flush=True)
 
 
 def card_line():
@@ -484,7 +516,7 @@ def compare(name, kernel, plain, args, kw, with_bound=False, work=None,
     torch.cuda.synchronize()
     ferr, scale = agree(name, got, ref)
     ms = time_calls(lambda: kernel(*args, **kw), TIMED_CALLS)
-    plain_ms = time_calls(lambda: plain(*args, **kw), PLAIN_CALLS)
+    plain_ms = time_calls(lambda: plain(*args, **kw), PLAIN_CALLS, warm=1)
     bnd, by, text = None, None, ""
     if device_key:
         dev_us = device_us(lambda: kernel(*args, **kw), TIMED_CALLS,
@@ -538,8 +570,8 @@ def device_us(fn, n, key):
     return us
 
 
-def time_calls(fn, n):
-    for _ in range(3):
+def time_calls(fn, n, warm=3):
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -639,6 +671,103 @@ def eam_deck(d, nc, printrate, free=False):
     return p
 
 
+
+def tabular_eam_deck(d, nc, printrate, fit=False, free=False):
+    """The eam_deck crystal with form TABULAR: the deck's three FIT
+    functions (models/builders.py:eam_crystal) sampled in internal units
+    into pair.dat (r, phi, rho; TAB_R_ROWS rows over 1.5-5.5 A) and
+    embed.dat (rho, F; TAB_RHO_ROWS rows over 0-TAB_RHO_MAX, more than
+    five times the density of the crystal's atoms), as tests/test_eam.py
+    writes its FS tables; fit=True adds tabularFit=rational (the refit
+    the EAM kernels run)."""
+    from ddcmd_tpu_torch.objects import units as U
+
+    p = eam_deck(d, nc, printrate, free)
+    eV = U.unit_scale("eV")
+    r_ang = np.linspace(1.5, 5.5, TAB_R_ROWS)
+    cols = (r_ang * U.unit_scale("Angstrom"), 0.012 * (3.6 / r_ang) ** 6 * eV,
+            (3.6 / r_ang) ** 4)
+    np.savetxt(os.path.join(d, "pair.dat"), np.stack(cols, 1), fmt="%.17g")
+    rho = np.linspace(0.0, TAB_RHO_MAX, TAB_RHO_ROWS)
+    F = (-0.3 * rho + 0.002 * rho * rho) / (1.0 + 0.05 * rho) * eV
+    np.savetxt(os.path.join(d, "embed.dat"), np.stack([rho, F], 1),
+               fmt="%.17g")
+    with open(p) as f:
+        text = f.read()
+    old = "form=RATIONAL; rmax=5.5 Angstrom;\n  density_type=elementwise;"
+    assert old in text
+    text = text.replace(old, "form=TABULAR; rmax=5.5 Angstrom; "
+                        "Cu-Cu_pair=pair.dat; Cu_embed=embed.dat;"
+                        + (" tabularFit=rational;" if fit else ""))
+    with open(p, "w") as f:
+        f.write(text)
+    return p
+
+
+def triclinic_eam_deck(d, nc, printrate, tilt=0.05, seed=7):
+    """The eam_deck crystal (FREE group) sheared into a monoclinic box with
+    b = (tilt L, L, 0): the fcc sites in fractional coordinates mapped
+    through h, jittered by 0.03 A."""
+    p = eam_deck(d, nc, printrate, free=True)
+    L = 3.615 * nc
+    h = np.diag([L, L, L])
+    h[0, 1] = tilt * L
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    cells = np.stack(np.meshgrid(*[np.arange(nc)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+    frac = (cells[:, None, :] + base).reshape(-1, 3) / nc - 0.5
+    rng = np.random.default_rng(seed)
+    r = frac @ h.T + rng.standard_normal(frac.shape) * 0.03
+    n = len(r)
+    hflat = " ".join("%.6f" % x for x in h.reshape(-1))
+    rows = [f"{i} ATOM Cu free " + " ".join("%.8f" % x for x in r[i])
+            + " 0 0 0" for i in range(n)]
+    with open(os.path.join(d, "atoms#000000"), "w") as f:
+        f.write(f"particle FILEHEADER {{type=MULTILINE; "
+                f"datatype=VARRECORDASCII; checksum=NONE;\nloop=0; "
+                f"time=0.0;\nnfiles=1; nrecord={n}; nfields=10;\n"
+                f"field_names=id class type group rx ry rz vx vy vz;\n"
+                f"field_types=u s s s f f f f f f;\nh= {hflat} ;\n}}\n\n"
+                + "\n".join(rows) + "\n")
+    with open(p) as f:
+        text = f.read()
+    box = text[text.index("box BOX"):]
+    box = box[:box.index("}") + 1]
+    text = text.replace(box, f"box BOX {{ type=GENERAL; pbc=7; h= {hflat} ; }}")
+    with open(p, "w") as f:
+        f.write(text)
+    return p
+
+
+def alloy_eam_deck(d, nc, printrate, free=True):
+    """The eam_deck crystal as a five-species FS alloy (ALLOY_FS: each
+    atom's species by its row, round robin), more species than the EAM
+    kernels take."""
+    p = eam_deck(d, nc, printrate, free)
+    names = list(ALLOY_FS)
+    path = os.path.join(d, "atoms#000000")
+    with open(path) as f:
+        head, body = f.read().split("\n\n", 1)
+    rows = body.strip().splitlines()
+    rows = [ln.replace(" ATOM Cu ", f" ATOM {names[i % len(names)]} ", 1)
+            for i, ln in enumerate(rows)]
+    with open(path, "w") as f:
+        f.write(head + "\n\n" + "\n".join(rows) + "\n")
+    with open(p) as f:
+        text = f.read()
+    start = text.index("pot POTENTIAL")
+    end = text.index("nglf INTEGRATOR")
+    fs = " ".join(f"{k} = {v};" for k, v in ALLOY_FS.items())
+    text = (text[:start] + f"pot POTENTIAL {{ type=EAM; form=FS; rmax=5.5 "
+            f"Angstrom; {fs} }}\n" + text[end:])
+    text = text.replace("species=Cu;", f"species={' '.join(names)};")
+    text = text.replace("Cu SPECIES { type=ATOM; mass=63.55; charge=0; }",
+                        "\n".join(f"{k} SPECIES {{ type=ATOM; mass=63.55; "
+                                  "charge=0; }" for k in names))
+    with open(p, "w") as f:
+        f.write(text)
+    return p
+
 def eam_form_tables(form, dev):
     """Kernel tables of one EAM_FORM_DECKS form for one species, Cu."""
     from ddcmd_tpu_torch.core.species import Species
@@ -682,7 +811,7 @@ def with_tables(slots, args, tables, seed=None):
         slots = slots.clone()
         slots[:, 4, :] = torch.as_tensor(t, dtype=torch.float32,
                                          device=slots.device)
-    kw = dict(form=tables["form"], T=int(tables["n_species"]),
+    kw = dict(form=tables["kform"], T=int(tables["n_species"]),
               degree=tables["degree"])
     return slots, (*args[:-1], tables["params"]), kw
 
@@ -722,13 +851,33 @@ def eam_agree(name, got, ref):
     return rerr, ferr, scale
 
 
+def eam_ops(kw):
+    """(density pass, force pass) f32 operations of an in-cutoff pair of a
+    RATIONAL deck of Horner degree D (csrc/eam_forms.cuh).  Density pass:
+    the values P/Q of its two fits, 4 a Horner step and a divide and a
+    multiply each (8 (D - 1) + 4), the two cut tests and selects (4), and
+    0.5 e and the four sums (5): 13 + 8 (D - 1); the derivative sums are
+    dead code there and not counted.  Force pass: the Horner sums of the
+    values and derivatives, 8 a step a fit, with the divide, the value
+    and the derivative's 3 a fit (16 (D - 1) + 10), then the factors 2,
+    the cuts, the force, its six sums and the virial: 40 + 16 (D - 1).
+    The shifted form of a
+    tabularFit=rational refit adds u = (r2 - X0) S for each fit (4) and,
+    in the force pass, the chain rule's factor S on each derivative (2)."""
+    assert kw["form"] in ("RATIONAL", "RATIONAL_SHIFTED"), kw
+    steps = kw["degree"] - 1
+    shifted = kw["form"] == "RATIONAL_SHIFTED"
+    return 13 + 8 * steps + 4 * shifted, 40 + 16 * steps + 6 * shifted
+
+
 def eam_compare(name, kernels, plains, slots, args, kw, tables,
-                with_bound=False):
+                with_bound=False, device=False):
     """Both EAM kernels against their twins on the same CUDA tensors:
     pass A on `slots`, pass B on a copy holding the twin's dF in row 6.
     Returns {"rho": (max |d rho|, ms, plain ms, bound_ms, bound_by),
     "force": (max |d f|, ms, plain ms, bound_ms, bound_by)}, the bounds
-    None unless with_bound (RATIONAL forms only)."""
+    None unless with_bound (the rational forms only: eam_ops); with
+    `device`, each pass's device time (device_us) is printed too."""
     from ddcmd_tpu_torch.ops.eam_half import embed_slots
 
     (rho_k, force_k), (rho_p, force_p) = kernels, plains
@@ -743,22 +892,29 @@ def eam_compare(name, kernels, plains, slots, args, kw, tables,
     bnd = {"rho": (None, None), "force": (None, None)}
     text = ""
     if with_bound:
-        assert kw["form"] == "RATIONAL", kw
-        horner = 16 * (kw["degree"] - 1)
-        ba = bound((slots, *args), out_a, 19 + horner)
-        bb = bound((fslots, *args), out_b, 40 + horner)
+        ops_a, ops_b = eam_ops(kw)
+        ba = bound((slots, *args), out_a, ops_a)
+        bb = bound((fslots, *args), out_b, ops_b)
         bnd = {"rho": ba[:2], "force": bb[:2]}
         text = (f"; bounds {1e3 * ba[0]:.3f} / {1e3 * bb[0]:.3f} us "
-                f"({ba[1]} / {bb[1]}; {ba[2]} candidate pairs, {ba[3]} in "
-                "cutoff)")
+                f"({ba[1]} / {bb[1]}; {OPS_TEST} + {ops_a} / {OPS_TEST} + "
+                f"{ops_b} operations a pair at degree {kw['degree']}, "
+                f"{ba[2]} candidate pairs, {ba[3]} in cutoff)")
+    if device:
+        text += "; device {:.2f} / {:.2f} us/call (profiler)".format(
+            device_us(lambda: rho_k(slots, *args, **kw), TIMED_CALLS,
+                      "eam_half"),
+            device_us(lambda: force_k(fslots, *args, **kw), TIMED_CALLS,
+                      "eam_half"))
     t = {"rho": (rerr, time_calls(lambda: rho_k(slots, *args, **kw),
                                   TIMED_CALLS),
-                 time_calls(lambda: rho_p(slots, *args, **kw), PLAIN_CALLS),
+                 time_calls(lambda: rho_p(slots, *args, **kw), PLAIN_CALLS,
+                            warm=1),
                  *bnd["rho"]),
          "force": (ferr, time_calls(lambda: force_k(fslots, *args, **kw),
                                     TIMED_CALLS),
                    time_calls(lambda: force_p(fslots, *args, **kw),
-                              PLAIN_CALLS), *bnd["force"])}
+                              PLAIN_CALLS, warm=1), *bnd["force"])}
     phase("kernel", f"{name}: rho err {rerr:.3g}, force err {ferr:.3g} "
           f"(scale {scale:.4g}), e {float(got[1]):.8g} vs "
           f"{float(ref[1]):.8g}; rho kernel {1e3 * t['rho'][1]:.2f} us/call, "
@@ -768,14 +924,18 @@ def eam_compare(name, kernels, plains, slots, args, kw, tables,
     return t
 
 
-def eam_sim_inputs(nc, dev):
-    """The EAM call the main path makes on the nc crystal's start state:
+def eam_sim_inputs(nc, dev, fit=False):
+    """The EAM call the main path makes on the nc crystal's start state
+    (eam_deck's, or with `fit` the tabularFit=rational deck's):
     (rho kernel, force kernel, slots, args, kw, tables, half grid, G)."""
     from ddcmd_tpu_torch.models import load
     from ddcmd_tpu_torch.run.simulate import Simulation
 
     with tempfile.TemporaryDirectory() as d:
-        eam_deck(d, nc, 100)
+        if fit:
+            tabular_eam_deck(d, nc, 100, fit=True)
+        else:
+            eam_deck(d, nc, 100)
         sim = Simulation(*load(d), run_dir=d, device=dev)
     ss, perm, ov = sim._build_nbr(sim.ss)
     assert not bool(ov), "overflow packing the comparison case"
@@ -831,7 +991,7 @@ def eam_kernel_phase(dev):
     assert (hg.ncells, hg.cap) == ((4, 5, 5), 128), (hg.ncells, hg.cap)
     what = f"nc={EAM_NC} crystal, {hg.ncell} cells, cap {hg.cap}"
     t = eam_compare(f"per-cell EAM RATIONAL T=1: {what}", *cell, slots,
-                    args, kw, tables, with_bound=True)
+                    args, kw, tables, with_bound=True, device=True)
     res["eam_rho"], res["eam_force"] = t["rho"], t["force"]
     for form in EAM_FORM_DECKS:
         ft = eam_form_tables(form, dev)
@@ -850,7 +1010,7 @@ def eam_kernel_phase(dev):
         EAM_BIG_PLAN, (rho_k, hg.ncells, G, U)
     t = eam_compare(f"column EAM RATIONAL T=1: nc={EAM_BIG_NC} crystal, "
                     f"{hg.ncell} cells, cap {hg.cap}, G={G}, U={U}", *col,
-                    slots, args, kw, tables, with_bound=True)
+                    slots, args, kw, tables, with_bound=True, device=True)
     res["eam_rho_col"], res["eam_force_col"] = t["rho"], t["force"]
     cell_args = (torch.as_tensor(pack_stencil(hg), device=dev), *args[2:])
     fslots = slots.clone()
@@ -875,6 +1035,27 @@ def eam_kernel_phase(dev):
     res["eam_rho_on_col_slots"] = (rerr, ms_rho)
     res["eam_force_on_col_slots"] = (ferr, ms_force)
     del slots, fslots, args, cell_args
+
+    # the tabularFit=rational refit (kernel form RATIONAL_SHIFTED) on its
+    # main paths' start slots: #4 on the nc = 12 refit deck's, #5 on the
+    # nc = 32 refit deck's
+    for nc, kernels, suffix, rho_want in (
+            (EAM_NC, cell, "refit", eh.eam_rho_half),
+            (EAM_BIG_NC, col, "col_refit", eh.eam_rho_half_col)):
+        rho_k, _, slots, args, kw, tables, hg, G = eam_sim_inputs(nc, dev,
+                                                                  fit=True)
+        assert rho_k is rho_want and kw["form"] == "RATIONAL_SHIFTED", kw
+        U = args[0].shape[1] if G > 1 else None
+        assert G == 1 or (hg.ncells, G, U) == EAM_BIG_PLAN, (hg.ncells, G, U)
+        t = eam_compare(
+            f"{'column' if G > 1 else 'per-cell'} EAM RATIONAL_SHIFTED T=1: "
+            f"nc={nc} refit deck (tabularFit=rational, Horner degree "
+            f"{kw['degree']}, {args[-1].shape[1]} floats a row), {hg.ncell} "
+            f"cells, cap {hg.cap}" + (f", G={G}, U={U}" if G > 1 else ""),
+            *kernels, slots, args, kw, tables, with_bound=True, device=True)
+        res[f"eam_rho_{suffix}"] = t["rho"]
+        res[f"eam_force_{suffix}"] = t["force"]
+        del slots, args
 
     # column on a grid with nz == G (aliased union), the alloy
     at = eam_alloy_tables(dev)
@@ -1477,14 +1658,32 @@ def ext_kernel_phase(dev):
         eam_deck(d, EAM_BIG_NC, 100)
         ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
     kernel, args, kw = ps.step_fn.kernel_inputs(ps.fields, ps.mask)
-    cp, tables = ps.cplan, ps.tables
+    cp, tables, params = ps.cplan, ps.tables, args[-1]
     assert kernel is eh.eam_rho_half_ext
     t = eam_compare(f"extended-grid EAM (1,1,1): nc={EAM_BIG_NC} crystal, "
                     f"{cp.n_prog} core cells + sentinel, cap {cp.cap}",
-                    *eam_ext, args[0], args[1:], kw, tables, with_bound=True)
+                    *eam_ext, args[0], args[1:], kw, tables, with_bound=True,
+                    device=True)
     res["eam_rho_ext"], res["eam_force_ext"] = t["rho"], t["force"]
     sentinel_zero("extended-grid EAM (1,1,1)", kernel(*args, **kw)[1])
     del ps, args
+    # the tabularFit=rational refit (RATIONAL_SHIFTED) on its (1,1,1) plan
+    with tempfile.TemporaryDirectory() as d:
+        tabular_eam_deck(d, EAM_BIG_NC, 100, fit=True)
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+    rkernel, rargs, rkw = ps.step_fn.kernel_inputs(ps.fields, ps.mask)
+    assert rkernel is eh.eam_rho_half_ext and \
+        rkw["form"] == "RATIONAL_SHIFTED", rkw
+    t = eam_compare(f"extended-grid EAM RATIONAL_SHIFTED (1,1,1): nc="
+                    f"{EAM_BIG_NC} refit deck, {ps.cplan.n_prog} core cells "
+                    f"+ sentinel, cap {ps.cplan.cap}, Horner degree "
+                    f"{rkw['degree']}", *eam_ext, rargs[0], rargs[1:], rkw,
+                    ps.tables, with_bound=True, device=True)
+    res["eam_rho_ext_refit"] = t["rho"]
+    res["eam_force_ext_refit"] = t["force"]
+    sentinel_zero("extended-grid EAM refit (1,1,1)",
+                  rkernel(*rargs, **rkw)[1])
+    del ps, rargs
     r, L = fcc(EAM_BIG_NC, seed=4)
     cp, a = brick_inputs(r, np.zeros(len(r)), np.zeros(len(r), np.int64),
                          [L] * 3, (2, 2, 2), (0, 1, 1), 0.55, 0.1,
@@ -1492,12 +1691,12 @@ def ext_kernel_phase(dev):
     eam_compare(f"extended-grid EAM, brick (0,1,1) of (2,2,2): nc="
                 f"{EAM_BIG_NC} crystal, ncore {cp.ncore}, {cp.n_slot} slot "
                 f"cells, {int(a[3][cp.n_prog:].sum())} halo atoms", *eam_ext,
-                a[0], (*a[1:], tables["params"]), kw, tables)
+                a[0], (*a[1:], params), kw, tables)
     fslots = a[0].clone()
     fslots[:, 6, :] = 0.01
     for k in eam_ext[0]:
-        sentinel_zero(f"{k.__name__} brick", k(fslots, *a[1:],
-                                                tables["params"], **kw)[1])
+        sentinel_zero(f"{k.__name__} brick", k(fslots, *a[1:], params,
+                                                **kw)[1])
     return res
 
 
@@ -2132,33 +2331,247 @@ def cellblock_phase(card, dev, counters_zero, all_counters):
           f"vs f32 {e_first[torch.float32]:.8g} (rel {rel:.2g})")
 
     # (d) card vs CPU, small deterministic runs
+    card_vs_cpu((("pbc=3 REFLECT slab 256 atoms FREE f32 40 steps",
+                  lambda d: slab(d, 256, 100), torch.float32, 40),
+                 ("monoclinic 125 atoms FREE f64 40 steps",
+                  lambda d: triclinic_deck(d, 5), torch.float64, 40)),
+                counters_zero, all_counters)
+
+
+def card_vs_cpu(cases, counters_zero, all_counters, engine="cellblock",
+                modulo_box=False):
+    """Each (name, make_deck, dtype, steps) case through Simulation on the
+    card and on the CPU: both on `engine`, the card run launching no
+    kernel (the plain cell-block engines), energies, positions and the
+    box agreeing as in phase 9; with modulo_box the positions are
+    compared modulo the box's lattice vectors, as phase 9 compares them
+    (an atom at a face may be wrapped to either side)."""
+    from ddcmd_tpu_torch.run.cli import load_db
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
     def final(where, make_deck, dtype, n_steps):
         with tempfile.TemporaryDirectory() as d:
             deck = make_deck(d)
             s = Simulation(load_db([deck], None, d), d, run_dir=d,
                            device=where, dtype=dtype)
+            assert s.engine == engine, s.engine
             counters_zero()
             s.run(n_steps, print_fn=lambda line: None)
-            idle(f"{where} run")
+            c = all_counters()
+            assert not any(c.values()), f"{where} run: kernels launched {c}"
             return (float(s.ss.energy.eion), float(s.ss.energy.rk),
                     s.ss.state.r.cpu().double().numpy(),
                     s.ss.box.h.cpu().double().numpy())
 
-    cases = (("pbc=3 REFLECT slab 256 atoms FREE f32 40 steps",
-              lambda d: slab(d, 256, 100), torch.float32, 40),
-             ("monoclinic 125 atoms FREE f64 40 steps",
-              lambda d: triclinic_deck(d, 5), torch.float64, 40))
     for name, make_deck, dtype, n_steps in cases:
         (e1, k1, r1, h1), (e0, k0, r0, h0) = (
-            final(w, make_deck, dtype, n_steps) for w in (dev, "cpu"))
-        dr = np.abs(r1 - r0).max()
+            final(w, make_deck, dtype, n_steps) for w in (DEVICE, "cpu"))
+        if modulo_box:
+            s = (r1 - r0) @ np.linalg.inv(h0).T
+            dr = float(np.abs((s - np.round(s)) @ h0.T).max())
+        else:
+            dr = float(np.abs(r1 - r0).max())
         ok = (math.isclose(e1, e0, rel_tol=1e-4, abs_tol=1e-2)
               and math.isclose(k1, k0, rel_tol=1e-3, abs_tol=1e-2)
               and dr < 1e-3 and np.allclose(h1, h0, rtol=1e-5))
-        phase("agree", f"{name}, card vs CPU: eion {e1:.6g} vs {e0:.6g}, rk "
+        phase("agree", f"{name}, card vs CPU: eion {e1:.8g} vs {e0:.8g}, rk "
               f"{k1:.6g} vs {k0:.6g}, max |dr| {dr:.3g} nm")
         if not ok:
             raise AssertionError(f"{name}: card and CPU runs disagree")
+
+
+def window_stats(run, steps):
+    """(device busy share, CUDA kernels a step) of run(), `steps` steps
+    under torch.profiler: the CUDA kernels' time over the window's host
+    wall time (the profiler's own cost included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in kernels) / 1e6 / wall,
+            len(kernels) / steps)
+
+
+def first_state(d, dev, stats=False):
+    """(engine, first energy, forces (n, 3) f64) of the deck in d through
+    Simulation on dev; with `stats`, also window_stats of PROFILE_STEPS
+    steps from that state."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    s = Simulation(*load(d), run_dir=d, device=dev)
+    s.first_energy()
+    n = s.sysdef.state.n_local
+    out = (s.engine, float(s.ss.energy.eion), s.ss.state.f[:n].double())
+    if not stats:
+        return out
+    return out + (window_stats(lambda: s.run(
+        PROFILE_STEPS, print_fn=lambda line: None), PROFILE_STEPS + 1),)
+
+
+def tabular_phase(card, dev, counters_zero, all_counters):
+    """Phase 17, tabulated EAM (tabular_eam_deck writes the table files in
+    each run directory): (c) the tabularFit=rational refit through the
+    CLI at nc = 32 on the column kernels (#5) and at nc = 12 on the
+    per-cell ones (#4), TAB_STEPS NVT steps each, its first energy held to
+    the RATIONAL deck's; the nc = 32 refit through the mesh at (1,1,1) on
+    #7, MESH_TAB_STEPS steps, its first energy held to Simulation's; (d)
+    the unfitted nc = 32 TABULAR deck on the plain cell-block EAM engine
+    (no kernel), its first energy and forces held to the RATIONAL deck's
+    on the same start state, TAB_CB_STEPS steps; small triclinic, f64
+    and five-species EAM decks on the card against the CPU.  Returns the
+    refit kernels' launches {kernels entry: n}."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    launches = {}
+    quiet = lambda line: None                                  # noqa: E731
+
+    def refit_run(nc, deck, d, ran, names):
+        """The refit deck in d through the CLI on the kernels `ran` (their
+        launches kept under `names`), its gates and its phase line."""
+        counters_zero()
+        sim = cli_run(["simulate", "-o", deck, "-n", str(TAB_STEPS),
+                       "--run-dir", d])
+        c = all_counters()
+        assert all(c[k] >= TAB_STEPS for k in ran), c
+        assert not any(v for k, v in c.items() if k not in ran), c
+        launches.update({n: c[k] for k, n in zip(ran, names)})
+        rows = read_rows(d)
+        assert sim.ss.loop == TAB_STEPS and np.isfinite(rows).all()
+        temp = float(rows[rows[:, 0] > TAB_STEPS - TAIL][:, 5].mean())
+        assert abs(temp - EAM_T) <= TEMP_TOL, f"refit mean T {temp}"
+        rate, steps = tail_rate(sim)
+        busy, kps = window_stats(
+            lambda: sim.run(PROFILE_STEPS, print_fn=quiet), PROFILE_STEPS + 1)
+        term = sim.force_fn.terms[0]
+        phase("tabular", f"(c) refit deck nc={nc} ({sim.sysdef.state.n_local}"
+              f" atoms, tabularFit=rational, {term.tables['kform']} of "
+              f"degree {term.tables['degree']}) through the CLI: plan "
+              f"{sim.grid.ncells} cap {sim.grid.cap} G={term.G}; "
+              f"{TAB_STEPS} NVT steps: mean T {temp:.2f} K over the last "
+              f"{TAIL}, launches {[c[k] for k in ran]} "
+              f"({c[ran[0]] / TAB_STEPS:.3f} a step each), {rate:.1f} "
+              f"steps/s over the last {steps} steps, busy {100 * busy:.1f}% "
+              f"over {PROFILE_STEPS} profiled steps ({kps:.1f} CUDA kernels "
+              f"a step) on {card}")
+        del sim
+
+    # nc = 12: the refit on #4
+    with tempfile.TemporaryDirectory() as d_rat, \
+            tempfile.TemporaryDirectory() as d_fit:
+        eam_deck(d_rat, EAM_NC, 10)
+        deck = tabular_eam_deck(d_fit, EAM_NC, 10, fit=True)
+        _, e_rat, _ = first_state(d_rat, dev)
+        eng, e_fit, _ = first_state(d_fit, dev)
+        rel = abs(e_fit - e_rat) / abs(e_rat)
+        assert eng == "kernel" and rel <= FIT_E_REL, (eng, e_fit, e_rat)
+        phase("tabular", f"(c) refit deck nc={EAM_NC}: first energy "
+              f"{e_fit:.8g} vs the RATIONAL deck's {e_rat:.8g} (rel "
+              f"{rel:.3g}, gate {FIT_E_REL})")
+        refit_run(EAM_NC, deck, d_fit, ("eam_rho", "eam_force"),
+                  ("eam_rho_refit", "eam_force_refit"))
+
+    nc = EAM_BIG_NC
+    with tempfile.TemporaryDirectory() as d_rat, \
+            tempfile.TemporaryDirectory() as d_fit, \
+            tempfile.TemporaryDirectory() as d_tab:
+        eam_deck(d_rat, nc, 10)
+        deck_fit = tabular_eam_deck(d_fit, nc, 10, fit=True)
+        deck_tab = tabular_eam_deck(d_tab, nc, 10)
+        _, e_rat, f_rat, (busy, kps) = first_state(d_rat, dev, stats=True)
+        eng, e_fit, _ = first_state(d_fit, dev)
+        rel = abs(e_fit - e_rat) / abs(e_rat)
+        assert eng == "kernel" and rel <= FIT_E_REL, (eng, e_fit, e_rat)
+        phase("tabular", f"(c) refit deck nc={nc}: first energy {e_fit:.8g}"
+              f" vs the RATIONAL deck's {e_rat:.8g} (rel {rel:.3g}, gate "
+              f"{FIT_E_REL}); the RATIONAL deck from its start: busy "
+              f"{100 * busy:.1f}% over {PROFILE_STEPS} profiled steps "
+              f"({kps:.1f} CUDA kernels a step) on {card}")
+        refit_run(nc, deck_fit, d_fit, ("eam_rho_col", "eam_force_col"),
+                  ("eam_rho_col_refit", "eam_force_col_refit"))
+
+        # the nc = 32 refit through the mesh at (1,1,1)
+        ps = ParallelSimulation(*load(d_fit), shape=(1, 1, 1), device=dev)
+        e_mesh = ps.first_energy()
+        rel = abs(e_mesh - e_fit) / abs(e_fit)
+        assert rel <= 2e-5, f"refit mesh first energy {e_mesh} vs {e_fit}"
+        lines = []
+        counters_zero()
+        ps.run(MESH_TAB_STEPS, print_fn=lines.append,
+               max_steps_per_dispatch=DISPATCH)
+        c = all_counters()
+        ran = ("eam_rho_ext", "eam_force_ext")
+        assert all(c[k] >= MESH_TAB_STEPS for k in ran), c
+        assert not any(v for k, v in c.items() if k not in ran), c
+        launches["eam_rho_ext_refit"] = c["eam_rho_ext"]
+        launches["eam_force_ext_refit"] = c["eam_force_ext"]
+        loops, temps, _, _, _ = mesh_lines(lines)
+        assert ps.loop == MESH_TAB_STEPS and np.isfinite(temps).all()
+        temp = float(temps[loops > MESH_TAB_STEPS - TAIL].mean())
+        assert abs(temp - EAM_T) <= TEMP_TOL, f"refit mesh mean T {temp}"
+        rate, steps = tail_rate(ps)
+        busy, kps = window_stats(
+            lambda: ps.run(PROFILE_STEPS, print_fn=quiet), PROFILE_STEPS)
+        phase("tabular", f"(c) refit deck nc={nc} through the mesh at "
+              f"(1,1,1): ncore {ps.cplan.ncore} cap {ps.cplan.cap}; first "
+              f"energy {e_mesh:.8g} vs Simulation {e_fit:.8g} (rel "
+              f"{rel:.2g}, gate 2e-5); {MESH_TAB_STEPS} NVT steps on #7 "
+              f"alone: mean T {temp:.2f} K, launches {c['eam_rho_ext']}/"
+              f"{c['eam_force_ext']}, {rate:.1f} steps/s over the last "
+              f"{steps} steps, busy {100 * busy:.1f}% ({kps:.1f} CUDA "
+              f"kernels a step) on {card}")
+        del ps
+
+        # (d) the unfitted TABULAR deck on the plain cell-block EAM engine
+        counters_zero()
+        eng, e_tab, f_tab = first_state(d_tab, dev)
+        c = all_counters()
+        assert eng == "cellblock" and not any(c.values()), (eng, c)
+        scale = float(f_rat.abs().max())
+        ferr = float((f_tab - f_rat).abs().max())
+        rel = abs(e_tab - e_rat) / abs(e_rat)
+        assert rel <= TAB_E_REL and ferr <= TAB_F_REL * scale, (
+            e_tab, e_rat, ferr, scale)
+        del f_rat, f_tab
+        counters_zero()
+        torch.cuda.reset_peak_memory_stats()
+        sim = cli_run(["simulate", "-o", deck_tab, "-n", str(TAB_CB_STEPS),
+                       "--run-dir", d_tab])
+        c = all_counters()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert sim.engine == "cellblock" and not any(c.values()), c
+        rows = read_rows(d_tab)
+        assert sim.ss.loop == TAB_CB_STEPS and np.isfinite(rows).all()
+        rate, steps = tail_rate(sim)
+        busy, kps = window_stats(lambda: sim.run(2, print_fn=quiet), 3)
+        phase("tabular", f"(d) TABULAR deck nc={nc} through the CLI on the "
+              f"plain cell-block EAM engine: cells {sim.grid.ncells} cap "
+              f"{sim.grid.cap}, no kernel launched; first energy "
+              f"{e_tab:.8g} vs the RATIONAL deck's {e_rat:.8g} on its "
+              f"kernels (rel {rel:.3g}, gate {TAB_E_REL}), force err "
+              f"{ferr:.4g} (scale {scale:.4g}, gate {TAB_F_REL} of it); "
+              f"{TAB_CB_STEPS} NVT steps: T {rows[-1, 5]:.2f} K at the end, "
+              f"{rate:.2f} steps/s over the last {steps} steps, busy "
+              f"{100 * busy:.1f}% over 2 profiled steps ({kps:.1f} CUDA "
+              f"kernels a step), peak memory {peak:.2f} GiB on {card}")
+        del sim
+
+    card_vs_cpu((("triclinic EAM crystal nc=4 (tilt 0.05) FREE f32 40 steps",
+                  lambda d: triclinic_eam_deck(d, 4, 100), torch.float32, 40),
+                 ("EAM crystal nc=4 FREE f64 40 steps",
+                  lambda d: eam_deck(d, 4, 100, free=True), torch.float64,
+                  40),
+                 ("five-species FS alloy nc=4 FREE f32 40 steps",
+                  lambda d: alloy_eam_deck(d, 4, 100), torch.float32, 40)),
+                counters_zero, all_counters, modulo_box=True)
+    return launches
 
 
 def main(argv=None):
@@ -2376,6 +2789,8 @@ def main(argv=None):
     for k, v in (*pair_launches.items(), *npt_launches.items()):
         launches[k] += v
     cellblock_phase(card, dev, counters_zero, all_counters)
+    # --- phase 17: tabulated EAM ------------------------------------------
+    launches.update(tabular_phase(card, dev, counters_zero, all_counters))
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -2397,6 +2812,13 @@ def main(argv=None):
         "cellpair_full": ("cellpair_half.cu", f"{cellpair}:389"),
         "eam_rho_ext": ("eam_half.cu", f"{shard}:434"),
         "eam_force_ext": ("eam_half.cu", f"{shard}:434"),
+        # the tabularFit=rational refit (kernel form RATIONAL_SHIFTED)
+        "eam_rho_refit": ("eam_half.cu", f"{eam}:230"),
+        "eam_force_refit": ("eam_half.cu", f"{eam}:269"),
+        "eam_rho_col_refit": ("eam_half_col.cu", f"{eam}:363"),
+        "eam_force_col_refit": ("eam_half_col.cu", f"{eam}:411"),
+        "eam_rho_ext_refit": ("eam_half.cu", f"{shard}:434"),
+        "eam_force_ext_refit": ("eam_half.cu", f"{shard}:434"),
     }
     # no single PyTorch call computes a cell-list half-stencil sum, so
     # library_ms is null for every kernel

@@ -4,8 +4,9 @@ Counterpart of ddcmd_tpu/core/system.py (system_init, ddcMD
 src/system.c; simulate_init, src/simulate.c:104-297), cut to the decks
 the port runs: MARTINI potentials, with the covalent topology of the
 residues (bonds, angles, exclusions, constraints) instantiated over the
-collection, PAIR Lennard-Jones, EAM metals of ATOM species, RESTRAINT
-springs and REFLECT walls, in an orthorhombic or a triclinic box.
+collection, PAIR Lennard-Jones, EAM metals of ATOM species (analytic or
+tabulated), RESTRAINT springs, REFLECT walls and NONE / ZEROPOTENTIAL
+terms (no force), in an orthorhombic or a triclinic box.
 Anything else raises NotImplementedError naming the ROADMAP item that
 ports it.
 """
@@ -217,14 +218,19 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
             # a post-drift hook of the step (potentials/reflect.py)
             potentials.append((ptype, pname, None))
             continue
-        else:
+        elif ptype in ("NONE", "ZEROPOTENTIAL"):
+            # no force, no cutoff (system.py:308-309 of the JAX package)
+            potentials.append(("NONE", pname, None))
+            continue
+        elif ptype in ("PAIRENERGY", "ORDERSH", "CHARMM"):
             # PAIRENERGY and ORDERSH run on the (N,K)-list engine, CHARMM
             # needs the junction terms
-            item = {"PAIRENERGY": 19, "ORDERSH": 19, "CHARMM": 12}.get(ptype,
-                                                                      21)
+            item = 12 if ptype == "CHARMM" else 19
             raise NotImplementedError(
                 f"POTENTIAL type {ptype} is not ported yet (ROADMAP queue 1, "
                 f"item {item})")
+        else:
+            raise DeckError(f"POTENTIAL type {ptype} not implemented yet")
         rcut_max = max(rcut_max, parms.rcut)
         potentials.append((ptype, pname, parms))
 

@@ -13,6 +13,13 @@
 //   RATIONAL  [phi_cut rho_cut phiP(D) phiQ(D) rhoP(D) rhoQ(D)]
 //             (rationals of r^2, Horner over degree D, the shorter fit
 //             zero-padded at the top, which leaves the Horner sums exact)
+//   RATIONAL_SHIFTED (the tabularFit=rational refit of a TABULAR deck,
+//             ddcmd_tpu/potentials/eam.py:fit_tabular_rational)
+//             the RATIONAL row, then [phiX0 phiS rhoX0 rhoS]: each fit a
+//             rational of u = (r2 - X0) * S, whose monomials stay f32-safe
+//             at the refit's degree (up to ~19); d/d(r2) = S d/du.  A
+//             form of its own, so the unshifted RATIONAL decks keep their
+//             instruction stream
 //
 // pair_eval<kForm, false> gives the pair energy phi and the density term
 // rho; pair_eval<kForm, true> gives their (d/dr)/r.  Each expression keeps
@@ -25,7 +32,14 @@
 
 namespace eam {
 
-enum Form : int { kFS = 0, kSC = 1, kEXP = 2, kAT = 3, kRational = 4 };
+enum Form : int {
+  kFS = 0,
+  kSC = 1,
+  kEXP = 2,
+  kAT = 3,
+  kRational = 4,
+  kRationalShifted = 5
+};
 
 // P(x)/Q(x) and its derivative d/dx (_rational_eval, eam.py:421)
 __device__ __forceinline__ void rational(const float* P, const float* Q,
@@ -47,11 +61,22 @@ template <int kForm, bool kDeriv>
 __device__ __forceinline__ void pair_eval(const float* row, int D, float r2,
                                           float ir, float ir2, float& e,
                                           float& p) {
-  if constexpr (kForm == kRational) {
+  if constexpr (kForm == kRational || kForm == kRationalShifted) {
     const float phi_cut = row[0], rho_cut = row[1];
     float ev, ed, pv, pd;
-    rational(row + 2, row + 2 + D, D, r2, ev, ed);
-    rational(row + 2 + 2 * D, row + 2 + 3 * D, D, r2, pv, pd);
+    if constexpr (kForm == kRationalShifted) {
+      // _pair_eval's order (eam.py:453-467): u = (r2 - X0) * S, the
+      // Horner sums in u, then the derivative times S
+      const float* sh = row + 2 + 4 * D;   // [phiX0 phiS rhoX0 rhoS]
+      rational(row + 2, row + 2 + D, D, (r2 - sh[0]) * sh[1], ev, ed);
+      rational(row + 2 + 2 * D, row + 2 + 3 * D, D, (r2 - sh[2]) * sh[3],
+               pv, pd);
+      ed = ed * sh[1];
+      pd = pd * sh[3];
+    } else {
+      rational(row + 2, row + 2 + D, D, r2, ev, ed);
+      rational(row + 2 + 2 * D, row + 2 + 3 * D, D, r2, pv, pd);
+    }
     if constexpr (kDeriv) {
       e = r2 < phi_cut ? 2.0f * ed : 0.f;
       p = r2 < rho_cut ? 2.0f * pd : 0.f;

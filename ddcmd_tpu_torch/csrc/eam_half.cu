@@ -1,6 +1,7 @@
 // Two-pass EAM on the half stencil (Newton's third law), per cell: pass A
 // (density) and pass B (force) for the analytic forms FS / SC / EXP / AT /
-// RATIONAL, alloys of 1-4 species.
+// RATIONAL and the shifted RATIONAL of a tabularFit=rational refit,
+// alloys of 1-4 species.
 //
 // Replaces the TPU kernels ddcmd_tpu/ops/pallas_eam.py:_rho_kernel (pass
 // A) and _force_kernel (pass B), with their tile math (_geometry,
@@ -209,12 +210,14 @@ using LaunchFn = cudaError_t (*)(const float*, const int*, const float*,
                                  cudaStream_t);
 
 // [form][pass]: eam::Form order, pass 0 = density, 1 = force
-constexpr LaunchFn kLaunch[5][2] = {
+constexpr LaunchFn kLaunch[6][2] = {
     {launch<eam::kFS, false>, launch<eam::kFS, true>},
     {launch<eam::kSC, false>, launch<eam::kSC, true>},
     {launch<eam::kEXP, false>, launch<eam::kEXP, true>},
     {launch<eam::kAT, false>, launch<eam::kAT, true>},
-    {launch<eam::kRational, false>, launch<eam::kRational, true>}};
+    {launch<eam::kRational, false>, launch<eam::kRational, true>},
+    {launch<eam::kRationalShifted, false>,
+     launch<eam::kRationalShifted, true>}};
 
 }  // namespace
 
@@ -227,7 +230,7 @@ extern "C" int ddcmd_eam_half(const float* slots, const int* stencil,
                               float* out_cell, int ncell, int cap,
                               int n_stencil, int T, int npar, int degree,
                               int form, int force, void* stream) {
-  if (form < 0 || form > 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (form < 0 || form > 5) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(kLaunch[form][force ? 1 : 0](
       slots, stencil, L8, counts, params, out_p, out_q, out_cell, ncell, cap,
       n_stencil, T, npar, degree, static_cast<cudaStream_t>(stream)));

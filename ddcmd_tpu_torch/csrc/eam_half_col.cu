@@ -1,6 +1,7 @@
 // Column variant of the two-pass half-stencil EAM kernels: pass A
 // (density) and pass B (force) for G z-contiguous cells per CTA, the
-// analytic forms FS / SC / EXP / AT / RATIONAL, alloys of 1-4 species.
+// analytic forms FS / SC / EXP / AT / RATIONAL and the shifted RATIONAL of
+// a tabularFit=rational refit, alloys of 1-4 species.
 //
 // Replaces the TPU kernels ddcmd_tpu/ops/pallas_eam.py:_rho_kernel_col
 // (pass A) and _force_kernel_col (pass B), with their union geometry
@@ -203,12 +204,14 @@ using LaunchFn = cudaError_t (*)(const float*, const int*, const int*,
                                  int, int, int, cudaStream_t);
 
 // [form][pass]: eam::Form order, pass 0 = density, 1 = force
-constexpr LaunchFn kLaunch[5][2] = {
+constexpr LaunchFn kLaunch[6][2] = {
     {launch<eam::kFS, false>, launch<eam::kFS, true>},
     {launch<eam::kSC, false>, launch<eam::kSC, true>},
     {launch<eam::kEXP, false>, launch<eam::kEXP, true>},
     {launch<eam::kAT, false>, launch<eam::kAT, true>},
-    {launch<eam::kRational, false>, launch<eam::kRational, true>}};
+    {launch<eam::kRational, false>, launch<eam::kRational, true>},
+    {launch<eam::kRationalShifted, false>,
+     launch<eam::kRationalShifted, true>}};
 
 }  // namespace
 
@@ -220,7 +223,7 @@ extern "C" int ddcmd_eam_half_col(
     const float* L8, const int* counts, const float* params, float* out_p,
     float* out_q, float* out_col, int ncol, int cap, int G, int U, int T,
     int npar, int degree, int form, int force, void* stream) {
-  if (form < 0 || form > 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (form < 0 || form > 5) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(kLaunch[form][force ? 1 : 0](
       slots, stencil_col, member_u, L8, counts, params, out_p, out_q, out_col,
       ncol, cap, G, U, T, npar, degree, static_cast<cudaStream_t>(stream)));

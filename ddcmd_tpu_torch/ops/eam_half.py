@@ -2,7 +2,8 @@
 twins and the evaluation.
 
 Counterpart of ddcmd_tpu/ops/pallas_eam.py for the analytic forms (FS /
-SC / EXP / AT / RATIONAL) and alloys of 1-4 species:
+SC / EXP / AT / RATIONAL, the last also as the tabularFit=rational refit
+of a TABULAR deck) and alloys of 1-4 species:
 
   eam_rho_half       / eam_rho_half_plain        per-cell pass A (TPU #4)
   eam_force_half     / eam_force_half_plain      per-cell pass B (TPU #4)
@@ -16,6 +17,12 @@ particle mask folded into the validity row, run pass A, add the two
 sides' densities, compute the embedding F(rho), dF(rho) per slot with
 torch ops, write dF into record row 6, run pass B, and scatter the
 per-slot force and energy back to particles.
+
+The refit's fits are monomials of a shifted, scaled variable u = (x - X0)
+S (ddcmd_tpu/potentials/eam.py:fit_tabular_rational); the kernels take
+such a deck as the form RATIONAL_SHIFTED, whose row is the RATIONAL row
+followed by SHIFT_KEYS, and the unshifted RATIONAL keeps its own
+instruction stream.
 
 The kernels are hand-written CUDA (csrc/eam_half.cu, csrc/eam_half_col.cu,
 the two-phase sweep of csrc/sweep.cuh they share with the pair kernels,
@@ -38,7 +45,12 @@ from .cellpair_half import (SMEM_LIMIT, SWEEP_QUEUE, _check, _kernel_fn,
                             check_ext, col_to_cell_stencil, pack_slots,
                             sweep_smem_bytes)
 
-FORMS = ("FS", "SC", "EXP", "AT", "RATIONAL")     # eam::Form order
+# the forms the kernels take, in eam::Form order (csrc/eam_forms.cuh);
+# the deck forms are the first five, RATIONAL_SHIFTED is a refit's
+FORMS = ("FS", "SC", "EXP", "AT", "RATIONAL", "RATIONAL_SHIFTED")
+DECK_FORMS = FORMS[:5]
+# the tail of a RATIONAL_SHIFTED row: each fit's shift and scale
+SHIFT_KEYS = ("phiX0", "phiS", "rhoX0", "rhoS")
 # launch constants of the kernels (kThreads of csrc/eam_half.cu; kThreads
 # and kColDirs of csrc/eam_half_col.cu, keyed by `force`: the force and
 # the density pass; kQueue of csrc/sweep.cuh), which the shared-memory
@@ -48,7 +60,8 @@ EAM_COL_THREADS = {True: 256, False: 384}
 EAM_COL_DIRS = {True: 7, False: 14}
 # parameter row of each closed form, in the column order eam_forms.cuh
 # reads; a RATIONAL row is [phi_cut, rho_cut, phiP, phiQ, rhoP, rhoQ]
-# with each coefficient block `degree` wide
+# with each coefficient block `degree` wide, a RATIONAL_SHIFTED row the
+# same followed by SHIFT_KEYS
 PARAM_KEYS = {
     "FS": ("a", "b", "c", "m", "n", "ro", "x"),
     "SC": ("eps", "a", "n", "m"),
@@ -58,18 +71,21 @@ PARAM_KEYS = {
 
 
 def eam_half_supported(tables) -> bool:
-    """Analytic forms, 1-4 species (pallas_eam_supported)."""
+    """Analytic forms (a refit's too), 1-4 species
+    (pallas_eam_supported): not TABULAR, not more than 4 species."""
     return (1 <= int(tables.get("n_species", 0)) <= 4
-            and tables.get("form") in FORMS)
+            and tables.get("form") in DECK_FORMS)
 
 
 def eam_kernel_tables(tables) -> dict:
-    """eam_device_tables' dict plus the kernels' parameter table `params`
-    (T*T, npar) f32 and the RATIONAL Horner `degree` (0 otherwise).  The
-    shorter of the phi and rho fits is zero-padded at the top, which
-    leaves its Horner sums unchanged bit for bit."""
+    """eam_device_tables' dict plus the kernels' form `kform` (the deck's,
+    or RATIONAL_SHIFTED for a refit's tables), their parameter table
+    `params` (T*T, npar) f32 and the Horner `degree` (0 but for the
+    rationals).  The shorter of the phi and rho fits is zero-padded at
+    the top, which leaves its Horner sums unchanged bit for bit."""
     form, pt = tables["form"], tables["pair"]
     TT = int(tables["n_species"]) ** 2
+    kform = form
     if form == "RATIONAL":
         degree = max(pt["phiP"].shape[-1], pt["rhoP"].shape[-1])
 
@@ -79,25 +95,38 @@ def eam_kernel_tables(tables) -> dict:
 
         cols = [pt["phi_cut"].reshape(TT, 1), pt["rho_cut"].reshape(TT, 1),
                 *(block(k) for k in ("phiP", "phiQ", "rhoP", "rhoQ"))]
+        if SHIFT_KEYS[0] in pt:
+            kform = "RATIONAL_SHIFTED"
+            cols += [pt[k].reshape(TT, 1) for k in SHIFT_KEYS]
     else:
         degree = 0
         cols = [pt[k].reshape(TT, 1) for k in PARAM_KEYS[form]]
     params = torch.cat(cols, dim=1).to(torch.float32).contiguous()
-    return dict(tables, params=params, degree=degree)
+    return dict(tables, params=params, degree=degree, kform=kform)
 
 
 def n_params(form: str, degree: int) -> int:
-    return 2 + 4 * degree if form == "RATIONAL" else len(PARAM_KEYS[form])
+    """Floats in a parameter row of the kernel form `form`."""
+    if form == "RATIONAL":
+        return 2 + 4 * degree
+    if form == "RATIONAL_SHIFTED":
+        return 2 + 4 * degree + len(SHIFT_KEYS)
+    return len(PARAM_KEYS[form])
 
 
 def _unpack(form: str, params, degree: int) -> dict:
-    """The pair-table dict _pair_eval reads, from the packed rows."""
-    if form == "RATIONAL":
+    """The pair-table dict _pair_eval reads, from the packed rows of the
+    kernel form `form` (a RATIONAL_SHIFTED row adds the shift keys)."""
+    if form in ("RATIONAL", "RATIONAL_SHIFTED"):
         D = degree
-        return dict(phi_cut=params[:, 0], rho_cut=params[:, 1],
-                    phiP=params[:, 2:2 + D], phiQ=params[:, 2 + D:2 + 2 * D],
-                    rhoP=params[:, 2 + 2 * D:2 + 3 * D],
-                    rhoQ=params[:, 2 + 3 * D:2 + 4 * D])
+        pt = dict(phi_cut=params[:, 0], rho_cut=params[:, 1],
+                  phiP=params[:, 2:2 + D], phiQ=params[:, 2 + D:2 + 2 * D],
+                  rhoP=params[:, 2 + 2 * D:2 + 3 * D],
+                  rhoQ=params[:, 2 + 3 * D:2 + 4 * D])
+        if form == "RATIONAL_SHIFTED":
+            pt.update({k: params[:, 2 + 4 * D + i]
+                       for i, k in enumerate(SHIFT_KEYS)})
+        return pt
     return {k: params[:, i] for i, k in enumerate(PARAM_KEYS[form])}
 
 
@@ -140,6 +169,8 @@ def _typed(form, pt, T, ptype, Q, d2s, ir, ir2, derivative):
     """(e, p, pT): the pair term and density term at (t_p, t_q) and the
     density term at (t_q, t_p), the density on the q side
     (_typed_pair_sums)."""
+    if form == "RATIONAL_SHIFTED":    # _pair_eval reads the shift from pt
+        form = "RATIONAL"
     if T == 1:
         e, p = _pair_eval(form, pt, 0, d2s, ir, ir2, derivative)
         return e, p, p
@@ -505,7 +536,7 @@ def eam_kernel_inputs(r, sidx, fmask, perm, box_lengths, grid: CellBlockGrid,
                                  / gt["ncells"], (0, 5))
     L8[3] = tables["rcut2"]
     counts = (perm.reshape(ncell, cap) != n_pad).sum(dim=1, dtype=torch.int32)
-    kw = dict(form=tables["form"], T=int(tables["n_species"]),
+    kw = dict(form=tables["kform"], T=int(tables["n_species"]),
               degree=tables["degree"])
     if gt["G"] > 1:
         return (eam_rho_half_col, eam_force_half_col, slots,

@@ -372,7 +372,7 @@ class BrickStepCells:
         if self.force_kind == "eam":
             fn = self.rho_fn
             return (eam_rho_half_ext, (slots, fn.stencil, L8, rb["counts"],
-                                       self.tables["params"]), fn.kw)
+                                       fn.params), fn.kw)
         fn = self.eval_fn
         return (cellpair_half_ext, (slots, fn.stencil, L8, rb["counts"],
                                     *fn.tabs), fn.kw)

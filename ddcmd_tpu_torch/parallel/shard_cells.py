@@ -43,7 +43,8 @@ import torch
 
 from ..ops.cellpair import _half_dirs
 from ..ops.cellpair_half import cellpair_half_ext, plan_lanes
-from ..ops.eam_half import FORMS, eam_force_half_ext, eam_rho_half_ext
+from ..ops.eam_half import (eam_force_half_ext, eam_half_supported,
+                            eam_kernel_tables, eam_rho_half_ext)
 from .brick import WALLS_ITEM
 
 
@@ -324,18 +325,22 @@ def make_shard_pair_kernel(plan: ShardCellPlan, tables, coulomb: bool,
 def make_shard_eam_kernels(plan: ShardCellPlan, tables, device):
     """The two EAM passes over the CORE cells with slot space over the
     extended cells (TPU kernel #7).  `tables` from
-    ops/eam_half.eam_kernel_tables.  Returns (rho_fn, force_fn):
+    potentials/eam.eam_device_tables (or ops/eam_half.eam_kernel_tables);
+    a deck the kernels cannot take raises here.  Returns (rho_fn, force_fn):
     rho_fn(slots, L8, counts) -> (p side (n_prog*cap, 2), q side (n_slot,
     8, cap)); force_fn(slots, L8, counts) -> (p-side force (n_prog*cap,
     3), q side (n_slot, 8, cap), per-core-cell (n_prog, 8) [virial6])."""
-    if tables["form"] not in FORMS or not 1 <= int(tables["n_species"]) <= 4:
+    if not eam_half_supported(tables):
         raise NotImplementedError(
-            f"EAM form {tables['form']} with {tables['n_species']} species: "
-            "the EAM kernels take the analytic forms with 1-4 species "
-            "(ROADMAP queue 1, item 17)")
+            f"EAM form {tables['form']} with {tables['n_species']} species "
+            "under the mesh: the EAM kernels take the analytic forms and "
+            "the tabularFit=rational refit with 1-4 species, and the JAX "
+            "mesh would hand the rest to its Pallas kernel, which has no "
+            "such form (ROADMAP queue 1, item 25)")
+    tables = eam_kernel_tables(tables)
     stencil = torch.as_tensor(plan.stencil_packed, device=device)
     params = tables["params"]
-    kw = dict(form=tables["form"], T=int(tables["n_species"]),
+    kw = dict(form=tables["kform"], T=int(tables["n_species"]),
               degree=tables["degree"])
 
     def rho_fn(slots, L8, counts):
@@ -345,7 +350,7 @@ def make_shard_eam_kernels(plan: ShardCellPlan, tables, device):
         return eam_force_half_ext(slots, stencil, L8, counts, params, **kw)
 
     for fn in (rho_fn, force_fn):
-        fn.stencil, fn.kw = stencil, kw
+        fn.stencil, fn.params, fn.kw = stencil, params, kw
     return rho_fn, force_fn
 
 

@@ -20,15 +20,23 @@ two-pass structure :95-210) for the analytic forms:
       rho = (r-d)^2,  F(p) = -A sqrt(p)
   RATIONAL (eam_rational.c): phi and rho rational functions of r^2 from
       in-deck FIT objects, F rational in rho.
+  TABULAR (eam_tabular.c): phi, rho and F from files
+      (<A>-<B>_pair = file of r, phi, rho; <A>_embed = file of rho, F),
+      looked up by linear interpolation (_tab_lookup); with the deck key
+      `tabularFit=rational` the tables are refit to the RATIONAL form
+      (fit_tabular_rational), in the shifted, scaled variable
+      u = (x - X0) S of each fit.
 
 Force combine (eam.c:166-190):
   (dv/dr)/r = pass2_e(r) + pass2_p(r) * (dF_i + dF_j).
 
-compile_eam is host numpy, copied from the JAX package (importing
-ddcmd_tpu imports jax).  TABULAR decks (with or without
-`tabularFit=rational`) raise NotImplementedError: the JAX package runs
-them on its XLA cell-block EAM engine, which the port does not have yet.
-The pair sums run in the EAM kernels (ops/eam_half.py).
+compile_eam, _fit_rational_1d and fit_tabular_rational are host numpy,
+copied from the JAX package (importing ddcmd_tpu imports jax), so a refit
+gives its coefficients to within float rounding.  The pair sums run in
+the EAM kernels (ops/eam_half.py: the analytic forms and the refit, 1-4
+species) or on the plain cell-block EAM engine (ops/cellpair_eam.py:
+every form, any species count, geometry and dtype).  The JAX package's
+(N,K)-list evaluation `eam_eval` waits for that engine (ROADMAP item 19).
 """
 
 from __future__ import annotations
@@ -41,10 +49,6 @@ import torch
 from ..objects import DeckError, ObjectDB
 from ..objects import units as U
 
-# the ROADMAP item the tabulated forms wait for
-_TABULAR_ITEM = ("the cell-block EAM engine tabulated EAM runs on is not "
-                 "ported yet (ROADMAP queue 1, items 16-17)")
-
 
 @dataclass
 class EamParms:
@@ -56,13 +60,10 @@ class EamParms:
 
 
 def compile_eam(db: ObjectDB, name: str, species, base_dir: str = ".") -> EamParms:
-    del base_dir                  # only TABULAR reads files
     pot = db.get(name, "POTENTIAL")
     form = pot.get_str("form", "exp").upper()
-    if form == "TABULAR":
-        raise NotImplementedError(f"{name}: EAM form TABULAR: {_TABULAR_ITEM}")
     rmax = pot.get_with_units("rmax", "0.0", "Angstrom")
-    if rmax <= 0:
+    if rmax <= 0 and form != "TABULAR":  # TABULAR can take rmax from tables
         raise DeckError(f"{name}: EAM requires rmax")
     ns = len(species)
     eV = U.unit_scale("eV")
@@ -158,6 +159,47 @@ def compile_eam(db: ObjectDB, name: str, species, base_dir: str = ".") -> EamPar
         pt = {k: 0.5 * (per[k][:, None] + per[k][None, :]) for k in keys if k != "A"}
         return EamParms(form, ns, rmax, pt, dict(negA=-per["A"]))
 
+    if form == "TABULAR":
+        # deck: <A>-<B>_pair = file (cols: r, phi(r), rho(r));
+        #       <A>_embed = file (cols: rho, F(rho))
+        # (eam_tabular.c:60-110 keyword scheme; tfunc files)
+        import os
+
+        from ..utils.tfunction import TabulatedFunction
+
+        pair_tabs = {}
+        rmax_seen = 0.0
+        for i, si in enumerate(species):
+            for j in range(i, ns):
+                sj = species[j]
+                key = f"{si.name}-{sj.name}_pair"
+                if not pot.has(key):
+                    key = f"{sj.name}-{si.name}_pair"
+                tf = TabulatedFunction.from_file(
+                    os.path.join(base_dir, pot.get_str(key)))
+                pair_tabs[(i, j)] = pair_tabs[(j, i)] = tf
+                rmax_seen = max(rmax_seen, tf.x_max)
+        embed_tabs = []
+        for si in species:
+            embed_tabs.append(TabulatedFunction.from_file(
+                os.path.join(base_dir, pot.get_str(f"{si.name}_embed"))))
+        if rmax <= 0:
+            rmax = rmax_seen
+        tab = EamParms(form, ns, rmax,
+                       dict(tabs=pair_tabs), dict(tabs=embed_tabs))
+        if pot.get_str("tabularFit", "").lower() == "rational":
+            # refit to the RATIONAL form the EAM kernels evaluate; the fit
+            # residual is checked against tabularFitTol (default 1e-3
+            # relative)
+            tol = float(pot.get_str("tabularFitTol", "1e-3"))
+            fitted, err = fit_tabular_rational(tab)
+            if err > tol:
+                raise DeckError(
+                    f"{name}: tabularFit=rational residual {err:.2e} "
+                    f"exceeds tabularFitTol={tol:.2e}")
+            return fitted
+        return tab
+
     if form == "RATIONAL":
         # FIT objects: <sp>_embedding, <i>_<j>_density (or <sp>_density for
         # density_type=elementwise), <i>_<j>_2body.  Each FIT {cutoff;
@@ -252,6 +294,140 @@ def compile_eam(db: ObjectDB, name: str, species, base_dir: str = ".") -> EamPar
     raise DeckError(f"EAM form {form} not implemented")
 
 
+def _fit_rational_1d(x, y, n_p=12, n_q=8, n_iter=12):
+    """Least-squares rational fit y(x) ~ P(x)/Q(x) by Sanathanan-Koerner
+    iteration (linearize y*Q - P = 0, reweight by 1/Q_prev) on a
+    Chebyshev basis over the sample range (monomial Vandermondes above
+    degree ~8 are too ill-conditioned for lstsq).  Candidate (deg_p,
+    deg_q) pairs are tried and any fit whose Q has a zero in range is
+    rejected; coefficients convert back to the monomial form
+    _rational_eval expects.  Returns (p, q, max_abs_err / max|y|, x_mid,
+    1 / half_range): the coefficients are monomials of
+    u = (x - x_mid) / half_range."""
+    import numpy.polynomial.chebyshev as Ch
+    from numpy.polynomial import Polynomial
+
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    scale = max(np.abs(y).max(), 1e-300)
+    # fit in the range-centred variable: converting Chebyshev to
+    # monomials of raw x explodes the coefficients (the kernels run the
+    # Horner sums in f32), while centred, scaled monomials keep term
+    # growth ~2^deg * |c_deg|
+    xm = 0.5 * (float(x.min()) + float(x.max()))
+    h = max(0.5 * (float(x.max()) - float(x.min())), 1e-300)
+    t = (x - xm) / h                             # [-1, 1]
+
+    def cheb_cols(deg):
+        return Ch.chebvander(t, deg)
+
+    def to_mono(coef):
+        series = Ch.Chebyshev(coef)             # domain = [-1, 1] = t
+        return series.convert(kind=Polynomial).coef
+
+    def attempt(np_, nq_):
+        Vp = cheb_cols(np_)
+        Vq = cheb_cols(nq_)[:, 1:] if nq_ else np.zeros((len(t), 0))
+        w = np.ones_like(y)
+        best_pq = None
+        for _ in range(n_iter):
+            A = np.concatenate([Vp * w[:, None], -(y * w)[:, None] * Vq],
+                               axis=1)
+            sol, *_ = np.linalg.lstsq(A, y * w, rcond=None)
+            p, q = sol[: np_ + 1], sol[np_ + 1:]
+            Qx = 1.0 + Vq @ q
+            if np.any(Qx <= 1e-6):               # pole (or near) in range
+                break
+            err = np.abs((Vp @ p) / Qx - y).max() / scale
+            if best_pq is None or err < best_pq[2]:
+                best_pq = (p, q, err)
+            w = 1.0 / np.abs(Qx)
+        if best_pq is None:
+            return None
+        p, q, err = best_pq
+        pk = to_mono(p)
+        qk = to_mono(np.concatenate([[1.0], q])) if len(q) else np.array([1.0])
+        return pk, qk, err
+
+    best = None
+    for np_, nq_ in ((n_p, n_q), (n_p, n_q // 2), (n_p + 4, 0), (n_p, 0),
+                     (n_p + 8, 0)):
+        got = attempt(np_, nq_)
+        if got is not None and (best is None or got[2] < best[2]):
+            best = got
+            if got[2] < 1e-8:
+                break
+    if best is None:                             # unreachable: nq=0 is Q=1
+        raise RuntimeError("rational fit failed")
+    return best + (xm, 1.0 / h)
+
+
+def fit_tabular_rational(parms: EamParms, n_p=10, n_q=6):
+    """TABULAR -> RATIONAL refit (deck `tabularFit=rational`): each pair
+    table's phi and rho become rationals of r^2, each embedding table's F
+    a rational of rho, as monomials of the fit's shifted, scaled variable
+    (keys phiX0/phiS, rhoX0/rhoS and the embedding's X0/S).  The
+    embedding's cutoff is inf: F stays live past the sampled range.
+    Returns (EamParms RATIONAL, max relative residual over all fitted
+    tables)."""
+    assert parms.form == "TABULAR"
+    ns = parms.n_species
+    worst = 0.0
+    rhoP = {}
+    phiP = {}
+    for (i, j), tf in parms.pair_tables["tabs"].items():
+        if (j, i) in phiP:                       # (i,j)/(j,i) share the tf
+            phiP[(i, j)] = phiP[(j, i)]
+            rhoP[(i, j)] = rhoP[(j, i)]
+            continue
+        r = tf.x0 + tf.dx * np.arange(tf.values.shape[1])
+        keep = r > 1e-6
+        r2 = r[keep] ** 2
+        pphi, qphi, e1, x1, s1 = _fit_rational_1d(r2, tf.values[0][keep],
+                                                  n_p, n_q)
+        prho, qrho, e2, x2, s2 = _fit_rational_1d(r2, tf.values[1][keep],
+                                                  n_p, n_q)
+        worst = max(worst, e1, e2)
+        phiP[(i, j)] = (tf.x_max ** 2, pphi, qphi, x1, s1)
+        rhoP[(i, j)] = (tf.x_max ** 2, prho, qrho, x2, s2)
+    embeds = []
+    for tf in parms.embed_tables["tabs"]:
+        rho = tf.x0 + tf.dx * np.arange(tf.values.shape[1])
+        pe, qe, e3, x3, s3 = _fit_rational_1d(rho, tf.values[0], n_p, n_q)
+        worst = max(worst, e3)
+        # keep F live past the sampled range (TABULAR clips; zeroing
+        # would kill dF and kick forces discontinuously if rho drifts)
+        embeds.append((np.inf, pe, qe, x3, s3))
+
+    def stack(fits, count):
+        dmax = max(max(len(f[1]), len(f[2])) for f in fits.values()) \
+            if isinstance(fits, dict) else \
+            max(max(len(f[1]), len(f[2])) for f in fits)
+        P = np.zeros((count, dmax))
+        Q = np.zeros((count, dmax))
+        cut = np.zeros(count)
+        x0 = np.zeros(count)
+        sc = np.ones(count)
+        items = fits.items() if isinstance(fits, dict) else enumerate(fits)
+        for k, (c, p, q, xm, ih) in items:
+            idx = k[0] * ns + k[1] if isinstance(k, tuple) else k
+            P[idx, : len(p)] = p
+            Q[idx, : len(q)] = q
+            cut[idx] = c
+            x0[idx] = xm
+            sc[idx] = ih
+        return P, Q, cut, x0, sc
+
+    rP, rQ, rc, rx, rs = stack(rhoP, ns * ns)
+    pP, pQ, pc, px, ps = stack(phiP, ns * ns)
+    eP, eQ, ec, ex, es = stack(embeds, ns)
+    fitted = EamParms("RATIONAL", ns, parms.rcut,
+                      dict(rhoP=rP, rhoQ=rQ, rho_cut=rc, rhoX0=rx, rhoS=rs,
+                           phiP=pP, phiQ=pQ, phi_cut=pc, phiX0=px, phiS=ps),
+                      dict(P=eP, Q=eQ, cut=ec, X0=ex, S=es))
+    return fitted, worst
+
+
 def _rational_eval(P, Q, x, derivative: bool):
     """P(x)/Q(x) with gathered coefficient rows P,Q of shape (..., D).
 
@@ -287,14 +463,33 @@ def _pair_eval(form: str, pt: dict, pair_idx, r2, ir, ir2, derivative: bool):
         # (rational_pass0, eam_rational.c:339-381); (d/dr)/r = 2 d/d(r2)
         ok_p = r2 < pt["rho_cut"][pair_idx]
         ok_e = r2 < pt["phi_cut"][pair_idx]
+        # tabularFit coefficients are monomials of u = (r2 - X0) * S (an
+        # f32-safe variable); FIT decks carry no shift or scale (X0 = 0,
+        # S = 1); chain rule: d/d(r2) = S d/du
+        if "phiX0" in pt:
+            s_e = pt["phiS"][pair_idx]
+            s_p = pt["rhoS"][pair_idx]
+            u_e = (r2 - pt["phiX0"][pair_idx]) * s_e
+            u_p = (r2 - pt["rhoX0"][pair_idx]) * s_p
+        else:
+            s_e = s_p = 1.0
+            u_e = u_p = r2
         e, de2 = _rational_eval(pt["phiP"][pair_idx], pt["phiQ"][pair_idx],
-                                r2, True)
+                                u_e, True)
+        de2 = de2 * s_e
         p, dp2 = _rational_eval(pt["rhoP"][pair_idx], pt["rhoQ"][pair_idx],
-                                r2, True)
+                                u_p, True)
+        dp2 = dp2 * s_p
         if not derivative:
             return torch.where(ok_e, e, 0.0), torch.where(ok_p, p, 0.0)
         return (torch.where(ok_e, 2.0 * de2, 0.0),
                 torch.where(ok_p, 2.0 * dp2, 0.0))
+    if form == "TABULAR":
+        e = _tab_lookup(pt, pair_idx, r, 0, derivative)
+        p = _tab_lookup(pt, pair_idx, r, 1, derivative)
+        if derivative:  # tables store d/dr; the engines want (d/dr)/r
+            return e * ir, p * ir
+        return e, p
     if form == "FS":
         a, b, c, m, n, ro, x = (g(k) for k in ("a", "b", "c", "m", "n", "ro", "x"))
         dri = 1.0 / (r - x)
@@ -349,8 +544,19 @@ def _embedding(form: str, et: dict, tidx, rho):
         # F(rho) = P(rho)/Q(rho) for rho < cutoff else 0
         # (rational_embedding, eam_rational.c:320-337)
         ok = rho < et["cut"][tidx]
-        v, dv = _rational_eval(et["P"][tidx], et["Q"][tidx], rho, True)
+        if "X0" in et:
+            sc = et["S"][tidx]
+            u = (rho - et["X0"][tidx]) * sc
+        else:
+            sc = 1.0
+            u = rho
+        v, dv = _rational_eval(et["P"][tidx], et["Q"][tidx], u, True)
+        dv = dv * sc
         return torch.where(ok, v, 0.0), torch.where(ok, dv, 0.0)
+    if form == "TABULAR":
+        v = _tab_lookup(et, tidx, rho, 0, False)
+        dv = _tab_lookup(et, tidx, rho, 0, True)
+        return v, dv
     if form == "FS":
         v = -torch.sqrt(rho + eps)
         dv = 0.5 / v
@@ -385,17 +591,63 @@ def _embedding(form: str, et: dict, tidx, rho):
 
 def eam_device_tables(parms: EamParms, dtype=torch.float32, device="cpu"):
     """Form parameter tensors on the device.  `parms` may come from either
-    package's compile_eam (its fields are numpy arrays).  rcut2 stays a
-    host float rounded to f32 (a launch argument, never a device read)."""
-    if parms.form == "TABULAR" or "phiX0" in parms.pair_tables:
-        raise NotImplementedError(
-            f"EAM form {parms.form} (tabulated or tabularFit=rational): "
-            f"{_TABULAR_ITEM}")
+    package's compile_eam (its fields are numpy arrays, its tables
+    TabulatedFunctions: x0, dx, values, derivs are read).  A TABULAR deck
+    gives stacked tables (pair: vals / ders (T*T, 2, m) of [phi, rho],
+    embed: (T, 1, m) of [F]) with their x0, inv_dx and m.  rcut2 stays a
+    host float rounded as `dtype` rounds it (a launch argument, never a
+    device read)."""
+    if parms.form == "TABULAR":
+        T = parms.n_species
+        ptabs = parms.pair_tables["tabs"]
+        m = max(t.values.shape[1] for t in ptabs.values())
+        vals = np.zeros((T * T, 2, m))
+        ders = np.zeros((T * T, 2, m))
+        x0 = np.zeros(T * T)
+        inv_dx = np.zeros(T * T)
+        for (i, j), t in ptabs.items():
+            vals[i * T + j, :, : t.values.shape[1]] = t.values[:2]
+            ders[i * T + j, :, : t.values.shape[1]] = t.derivs[:2]
+            x0[i * T + j] = t.x0
+            inv_dx[i * T + j] = 1.0 / t.dx
+        etabs = parms.embed_tables["tabs"]
+        me = max(t.values.shape[1] for t in etabs)
+        evals = np.zeros((T, me))
+        eders = np.zeros((T, me))
+        ex0 = np.zeros(T)
+        einv = np.zeros(T)
+        for i, t in enumerate(etabs):
+            evals[i, : t.values.shape[1]] = t.values[0]
+            eders[i, : t.values.shape[1]] = t.derivs[0]
+            ex0[i] = t.x0
+            einv[i] = 1.0 / t.dx
+        pair = dict(vals=vals, ders=ders, x0=x0, inv_dx=inv_dx)
+        embed = dict(vals=evals[:, None, :], ders=eders[:, None, :], x0=ex0,
+                     inv_dx=einv)
+    else:
+        pair, embed = parms.pair_tables, parms.embed_tables
 
     def dev(tabs):
         return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
                 for k, v in tabs.items()}
 
-    return dict(pair=dev(parms.pair_tables), embed=dev(parms.embed_tables),
-                rcut2=float(np.float32(parms.rcut ** 2)), form=parms.form,
-                n_species=parms.n_species)
+    pt, et = dev(pair), dev(embed)
+    if parms.form == "TABULAR":
+        pt["m"], et["m"] = m, me
+    return dict(pair=pt, embed=et,
+                rcut2=float(torch.tensor(parms.rcut ** 2, dtype=dtype)),
+                form=parms.form, n_species=parms.n_species)
+
+
+def _tab_lookup(tab, sel_idx, x, col, derivative):
+    """Stacked-table linear interpolation: tab tensors (P, cols, m), t
+    clamped to [0, m - 1.001] as the JAX package clamps it."""
+    src = tab["ders"] if derivative else tab["vals"]
+    t = (x - tab["x0"][sel_idx]) * tab["inv_dx"][sel_idx]
+    t = torch.clamp(t, 0.0, tab["m"] - 1.001)
+    i = torch.floor(t).long()
+    frac = t - i
+    v0 = src[sel_idx, col, i]
+    v1 = src[sel_idx, col, i + 1]
+    return v0 + frac * (v1 - v0)
+

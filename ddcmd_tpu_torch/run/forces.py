@@ -3,8 +3,10 @@
 Counterpart of ddcmd_tpu/run/forces.py:build_force_fn (ddcenergy analog,
 ddcMD src/ddcenergy.c:160-238): the MARTINI nonbond and PAIR
 Lennard-Jones terms on the pair kernels or on the plain cell-block
-engine, the analytic EAM term on its kernels, RESTRAINT springs and the
-residue-template batched bonded terms.  Excluded (bonded) pairs are
+engine, the EAM term on its kernels (the analytic forms and the
+tabularFit=rational refit) or on the plain cell-block EAM engine (every
+form), RESTRAINT springs and the residue-template batched bonded terms;
+NONE terms add nothing.  Excluded (bonded) pairs are
 masked inside the pair engine through the record's exclusion channels,
 and the bonded block adds back only the reaction-field part the
 reference keeps for them (excl_mode "rf_add").
@@ -24,6 +26,7 @@ from ..ops.cellpair import half_back_map, half_grid, pbc_allowed
 from ..ops.cellpair_half import (cell_smem_bytes, cellpair_eval_half,
                                  choose_col_group, fit_col_group,
                                  grid_tensors, kernel_inputs)
+from ..ops.cellpair_eam import eam_cellblock_eval_half
 from ..ops.eam_half import (eam_col_smem_bytes, eam_eval_half,
                             eam_half_supported, eam_kernel_inputs,
                             eam_kernel_tables, n_params)
@@ -138,8 +141,9 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
     whose column kernel fits in shared memory, else their per-cell
     kernel; EAM its two-pass kernels.  engine "cellblock" (a
     CellBlockGrid.plan grid, any dtype, triclinic boxes, pbc < 7): the
-    pair terms run the plain cell-block engine of ops/cellpair.py, which
-    launches no kernel; EAM raises (item 17).  The term list is kept as
+    pair terms run the plain cell-block engine of ops/cellpair.py, EAM
+    that of ops/cellpair_eam.py; neither launches a kernel.  EAM with
+    pbc < 7 raises on either engine (item 27).  The term list is kept as
     force_fn.terms (per-term profiling); each kernel term carries
     `kernel_inputs` (the call it makes, for chip_smoke.py), `grid` and
     `G`."""
@@ -154,11 +158,8 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
     terms = []
     for ptype, _, parms in sysdef.potentials:
         if ptype == "EAM":
-            if engine != "kernel":
-                raise NotImplementedError(
-                    "EAM on the cell-block engine (a triclinic box, pbc < 7 "
-                    "or f64) is not ported yet (ROADMAP queue 1, item 17)")
-            terms.append(_eam_term(parms, grid, device))
+            terms.append(_eam_term(parms, grid, engine, sysdef.box.pbc,
+                                   dtype, device))
         elif ptype == "MARTINI":
             tables = martini_device_tables(parms, dtype=dtype, device=device)
             tmap = torch.as_tensor(parms.species_lj_type, device=device)
@@ -187,7 +188,8 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
                                     sysdef.box.pbc, device))
         elif ptype == "RESTRAINT":
             terms.append(_restraint_term(state, parms, dtype, device))
-        elif ptype != "REFLECT":     # REFLECT is a post-drift hook
+        elif ptype not in ("NONE", "REFLECT"):
+            # REFLECT is a post-drift hook, NONE adds no force
             raise NotImplementedError(f"force term {ptype}")
 
     # covalent terms (bonds, angles, exclusion RF corrections)
@@ -291,20 +293,41 @@ def _restraint_term(state, parms, dtype, device):
     return restraint_term
 
 
-def _eam_term(parms, grid, device):
-    """The EAM term on the kernel branch (run/forces.py:290-339 of the JAX
-    package): the species index is the EAM type index.  Forms outside
-    the kernels (TABULAR, more than 4 species) raise."""
-    tables = eam_device_tables(parms, device=device)
-    if not eam_half_supported(tables):
+def _eam_term(parms, grid, engine, pbc, dtype, device):
+    """The EAM term (run/forces.py:290-339 of the JAX package), the
+    species index as the EAM type index: on "kernel" the two-pass kernels
+    (the analytic forms and the tabularFit=rational refit, 1-4 species;
+    the rest raises ValueError), on "cellblock" the plain cell-block EAM
+    engine (every form, any species count, geometry and dtype).  A deck
+    with pbc < 7 raises on either: the JAX engine would take images
+    through its non-periodic walls (item 27)."""
+    if pbc & 7 != 7:
         raise NotImplementedError(
-            f"EAM form {tables['form']} with {tables['n_species']} species: "
-            "the EAM kernels take the analytic forms with 1-4 species; the "
-            "cell-block EAM engine the rest runs on is not ported yet "
-            "(ROADMAP queue 1, item 17)")
-    tables = eam_kernel_tables(tables)
+            f"EAM with pbc={pbc}: the JAX EAM engine takes images through "
+            "non-periodic walls and the EAM kernels are fully periodic; "
+            "EAM with non-periodic axes is not ported (ROADMAP queue 1, "
+            "item 27)")
+    tables = eam_device_tables(parms, dtype=dtype, device=device)
     hg = half_grid(grid)
-    npar = n_params(tables["form"], tables["degree"])
+    if engine == "cellblock":
+        back = half_back_map(hg)
+
+        def eam_cb_term(state, box, perm):
+            return eam_cellblock_eval_half(state.r, state.species,
+                                           state.fmask, perm, box.geom, hg,
+                                           tables, back)
+
+        eam_cb_term.grid = hg
+        eam_cb_term.G = None
+        return eam_cb_term
+    if not eam_half_supported(tables):
+        raise ValueError(
+            f"engine 'kernel': EAM form {tables['form']} with "
+            f"{tables['n_species']} species: the EAM kernels take the "
+            "analytic forms and the tabularFit=rational refit with 1-4 "
+            "species; the deck runs on engine 'cellblock'")
+    tables = eam_kernel_tables(tables)
+    npar = n_params(tables["kform"], tables["degree"])
     G = fit_col_group(hg, choose_col_group(hg), lambda U: eam_col_smem_bytes(
         U, hg.cap, tables["n_species"], npar))
     gt = grid_tensors(hg, device, G)

@@ -28,7 +28,16 @@ loop; the per-step scalars and the overflow flag are mesh-wide, so all
 ranks take the same decisions.
 
 A PAIR deck runs as the JAX package runs it: the MARTINI kernel with the
-species index as type and the reaction-field constants zero.
+species index as type and the reaction-field constants zero.  An EAM
+deck runs its analytic form or its tabularFit=rational refit on #7.
+
+The nonbond term is the deck's one MARTINI, EAM or PAIR potential,
+selected by type as the JAX mesh selects it (parallel_sim.py:58-90);
+NONE terms carry no force and are dropped.  Where the JAX mesh would
+drop a force silently, the port raises naming item 25: RESTRAINT and
+REFLECT (the JAX mesh ignores both), a second nonbond term, a deck with
+no nonbond term, and EAM it cannot run (unfitted TABULAR, more than 4
+species).
 
 Deck features outside these paths raise NotImplementedError naming
 their ROADMAP item: load balance (and with it the pxyz decomposition
@@ -56,7 +65,6 @@ from ..core.molecule import build_molecule_class
 from ..core.system import build_system
 from ..objects import ObjectDB
 from ..objects import units as U
-from ..ops.eam_half import eam_half_supported, eam_kernel_tables
 from ..parallel.bonded_shard import (constraint_gid_tables,
                                      molecule_gid_tables)
 from ..parallel.brick import BrickPlan, distribute_bricks, gid64
@@ -157,10 +165,7 @@ class ParallelSimulation:
         self.mesh = BrickMesh(self.shape, dev)
         n_dev = self.mesh.size
 
-        ptype, _, parms = sd.potentials[0]
-        if len(sd.potentials) != 1:
-            raise NotImplementedError(
-                "one nonbond potential per deck under the mesh")
+        ptype, parms = self._nonbond_term(sd)
         n = sd.state.n_local
         if ptype == "MARTINI":
             tables = martini_device_tables(parms, device=dev)
@@ -182,14 +187,9 @@ class ParallelSimulation:
             tmap = np.arange(len(sd.species))
             self.force_kind = "martini"
         else:
+            # the kernels' own tables, and the refusal of a deck they
+            # cannot take, are parallel/shard_cells.make_shard_eam_kernels'
             tables = eam_device_tables(parms, device=dev)
-            if not eam_half_supported(tables):
-                raise NotImplementedError(
-                    f"EAM form {tables['form']} with {tables['n_species']} "
-                    "species: the EAM kernels take the analytic forms with "
-                    "1-4 species; the (N,K)-list engine the JAX package "
-                    "runs then is not ported yet (ROADMAP queue 1, item 19)")
-            tables = eam_kernel_tables(tables)
             tmap = np.arange(len(sd.species))
             self.force_kind = "eam"
         self.tables, self._tmap = tables, tmap
@@ -239,6 +239,29 @@ class ParallelSimulation:
         self.dispatch_log: list[tuple[int, float]] = []
 
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _nonbond_term(sd):
+        """(type, parms) of the deck's one nonbond term (MARTINI, EAM or
+        PAIR), NONE terms dropped; any other term, a second nonbond term
+        or none at all raises naming item 25."""
+        nonbond, other = [], []
+        for ptype, name, parms in sd.potentials:
+            if ptype in ("MARTINI", "EAM", "PAIR"):
+                nonbond.append((ptype, parms))
+            elif ptype != "NONE":
+                other.append(f"{ptype} ({name})")
+        if other:
+            raise NotImplementedError(
+                f"{', '.join(other)} under the mesh: the JAX mesh drops such "
+                "terms silently (parallel_sim.py:58-90); they are not ported "
+                f"to the mesh yet ({_MESH_ITEM})")
+        if len(nonbond) != 1:
+            raise NotImplementedError(
+                f"{len(nonbond)} nonbond terms (MARTINI, EAM or PAIR) under "
+                "the mesh: it runs exactly one (the JAX mesh keeps the "
+                f"first it finds and drops the rest) ({_MESH_ITEM})")
+        return nonbond[0]
 
     def _setup_barostat(self, db, gid):
         """The Berendsen barostat of the NGLFCONSTRAINT family (beta > 0)

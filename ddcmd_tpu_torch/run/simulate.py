@@ -4,16 +4,18 @@ Counterpart of ddcmd_tpu/run/simulate.py (reference ddcMD
 src/masters.c:369-559), reduced to the main paths: NGLF / NGLFCONSTRAINT
 with the Berendsen barostat and RATTLE constraints, MARTINI nonbond and
 PAIR Lennard-Jones through the cell-pair kernels plus the batched bonded
-terms, analytic EAM through the two-pass EAM kernels (an EAM deck the
-kernels do not take raises NotImplementedError when the force function
-is built), RESTRAINT springs and REFLECT walls.
+terms, EAM through the two-pass EAM kernels, RESTRAINT springs, REFLECT
+walls and NONE terms.
 
 The engine is the JAX package's choice (simulate.py:50-118) cut to what
 is ported: the kernels ("kernel", the JAX package's "pallas") for f32,
-orthorhombic, fully periodic decks; the plain cell-block engine
-("cellblock", ops/cellpair.cellpair_eval_half, no kernel) for decks
-with non-periodic axes, triclinic boxes or f64.  Its plan is
-CellBlockGrid.plan's, and an overflow grows its cap by 1.5.
+orthorhombic, fully periodic decks whose EAM term (if any) the EAM
+kernels take; the plain cell-block engines ("cellblock",
+ops/cellpair.cellpair_eval_half and ops/cellpair_eam.
+eam_cellblock_eval_half, no kernel) for decks with non-periodic axes,
+triclinic boxes, f64, TABULAR EAM without tabularFit=rational or EAM of
+more than 4 species.  Its plan is CellBlockGrid.plan's, and an overflow
+grows its cap by 1.5.  EAM with non-periodic axes raises (item 27).
 
 One dispatch runs k steps as n_rebuilds blocks of `updateRate` steps:
 each block wraps positions and rebuilds the cell slots, then runs its
@@ -59,6 +61,7 @@ from ..objects import ObjectDB
 from ..objects import units as U
 from ..ops.cellpair import CellBlockGrid, build_cell_slots
 from ..ops.cellpair_half import plan_lanes
+from ..ops.eam_half import eam_half_supported
 from .forces import build_force_fn
 from .printinfo import PrintInfo
 
@@ -129,14 +132,18 @@ def resolve_device(device=None) -> torch.device:
 def choose_engine(sd, dtype, engine: str = "auto") -> str:
     """The pair engine of a deck: "kernel" for an f32, orthorhombic, fully
     periodic deck, "cellblock" when the deck forces it (pbc < 7, a
-    triclinic box, f64), as the JAX package's auto choice on a TPU
-    (simulate.py:50-118).  An explicit engine is kept; "kernel" on a deck
-    that forces the cell-block engine raises instead of moving off the
-    kernels unasked."""
+    triclinic box, f64, an EAM term the EAM kernels do not take: TABULAR
+    without tabularFit=rational, more than 4 species), as the JAX
+    package's auto choice on a TPU (simulate.py:50-118).  An explicit
+    engine is kept; "kernel" on a deck that forces the cell-block engine
+    raises instead of moving off the kernels unasked."""
+    eam = [p[2] for p in sd.potentials if p[0] == "EAM"]
     forced = [why for why, yes in (
         (f"dtype {dtype}", dtype != torch.float32),
         (f"pbc={sd.box.pbc}", sd.box.pbc & 7 != 7),
-        ("a triclinic box", not sd.box.ortho)) if yes]
+        ("a triclinic box", not sd.box.ortho),
+        *((f"EAM form {p.form} with {p.n_species} species",
+           not eam_half_supported(vars(p))) for p in eam)) if yes]
     if engine == "auto":
         return "cellblock" if forced else "kernel"
     if engine not in ("kernel", "cellblock"):
@@ -144,7 +151,9 @@ def choose_engine(sd, dtype, engine: str = "auto") -> str:
     if engine == "kernel" and forced:
         raise ValueError(
             f"engine 'kernel' cannot run {', '.join(forced)}: the kernels "
-            "take f32, orthorhombic, fully periodic decks")
+            "take f32, orthorhombic, fully periodic decks, and EAM in the "
+            "analytic forms or the tabularFit=rational refit with 1-4 "
+            "species")
     return engine
 
 

@@ -443,23 +443,26 @@ def test_slice_matches_jax_cellblock_f64(crystal_deck):
 
 
 def test_unsupported_eam_raises(tmp_path, crystal_deck):
-    """A TABULAR deck stops at build_system, a five-species alloy when the
-    force function is built: both with NotImplementedError naming the
-    ROADMAP item, never another engine."""
+    """An EAM deck the kernels do not take -- a TABULAR deck without a
+    refit, a five-species alloy -- runs on the plain cell-block EAM
+    engine under auto; an explicit engine="kernel" raises ValueError
+    naming that engine instead of moving off the kernels unasked."""
+    import chip_smoke
     from ddcmd_tpu_torch.run.simulate import Simulation as TSimulation
     from ddcmd_tpu_torch.run.forces import _eam_term
 
-    text = open(os.path.join(crystal_deck, "object.data")).read()
-    text = text.replace("form=RATIONAL;", "form=TABULAR;")
-    (tmp_path / "object.data").write_text(text)
-    os.symlink(os.path.join(crystal_deck, "atoms#000000"),
-               tmp_path / "atoms#000000")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSimulation(*t_load(str(tmp_path)), run_dir=str(tmp_path),
-                    device="cpu")
+    for name, make in (("tab", chip_smoke.tabular_eam_deck),
+                       ("five", chip_smoke.alloy_eam_deck)):
+        d = str(tmp_path / name)
+        os.mkdir(d)
+        make(d, 2, 100)
+        assert TSimulation(*t_load(d), run_dir=d, device="cpu").engine \
+            == "cellblock"
+        with pytest.raises(ValueError, match="'kernel'.*EAM form"):
+            TSimulation(*t_load(d), run_dir=d, device="cpu", engine="kernel")
     p = _alloy_parms()
     five = team.EamParms("FS", 5, p.rcut,
                          {k: np.ones((5, 5)) for k in p.pair_tables}, {})
     grid = tch.plan_lanes([1.8] * 3, 0.55, 0.1, 500)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _eam_term(five, grid, "cpu")
+    with pytest.raises(ValueError, match="5 species.*'cellblock'"):
+        _eam_term(five, grid, "kernel", 7, torch.float32, "cpu")

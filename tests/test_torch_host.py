@@ -119,6 +119,17 @@ def test_build_system_matches_jax(tmp_path):
         assert ttab[k] == float(jtab[k]), k
 
 
+# two springs on the first rows (tests/test_torch_cellblock.py)
+_RESTRAINT = """
+rs POTENTIAL { type=RESTRAINT; }
+rlist RESTRAINTLIST { restraintList=r0 r1; }
+r0 RESTRAINTPARMS { gid=3; kb=50 kJ/mol/nm^2; x0=0.1 nm; y0=0.2 nm;
+  z0=-0.3 nm; }
+r1 RESTRAINTPARMS { gid=10; kb=80 kJ/mol/nm^2; x0=-0.5 nm; y0=0.0 nm;
+  z0=0.4 nm; fcz=0; }
+"""
+
+
 @pytest.mark.parametrize("edit,what", [
     (lambda s: s.replace("type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
                          "type=BERENDSEN; Teq=310.0K; tau=1.0ps;"),
@@ -144,6 +155,18 @@ def test_build_system_matches_jax(tmp_path):
     # cell-block engine: a triclinic box and non-periodic axes
     (lambda s: _tilted(s), r"mesh:triclinic.*item 25"),
     (lambda s: s.replace("pbc=7;", "pbc=3;"), r"mesh:pbc=3.*item 25"),
+    # the mesh's potential selection: terms the JAX mesh drops silently
+    # raise by name, as does a deck with no nonbond term
+    (lambda s: s.replace("potential=martini;", "potential=martini rs;")
+     + _RESTRAINT, r"mesh:RESTRAINT \(rs\) under the mesh.*item 25"),
+    (lambda s: s.replace("potential=martini;", "potential=rs;")
+     + _RESTRAINT, r"mesh:RESTRAINT \(rs\) under the mesh.*item 25"),
+    (lambda s: s.replace("potential=martini;", "potential=martini wall;")
+     + "wall POTENTIAL { type=REFLECT; }\n",
+     r"mesh:REFLECT \(wall\) under the mesh.*item 25"),
+    (lambda s: s.replace("potential=martini;", "potential=zero;")
+     + "zero POTENTIAL { type=NONE; }\n",
+     r"mesh:0 nonbond terms.*item 25"),
 ])
 def test_unported_deck_features_raise(tmp_path, edit, what):
     """Deck features outside the slice raise NotImplementedError naming
@@ -222,3 +245,75 @@ def test_port_imports_no_jax(tmp_path):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["jax"] == []
     assert res["loop"] == 5 and np.isfinite(res["eion"])
+
+
+def test_mesh_refuses_restraint_beside_pair(tmp_path):
+    """The deck of the mesh's selection fault: lj_fluid(n=500) with two
+    RESTRAINT springs.  Simulation runs the springs; the mesh raises
+    naming RESTRAINT and item 25 (the JAX mesh drops them and returns the
+    energy of the deck without springs)."""
+    import torch.distributed as dist
+
+    from ddcmd_tpu_torch.models import lj_fluid
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    d = str(tmp_path / "lj")
+    os.mkdir(d)
+    lj_fluid(d, n=500)
+    p = os.path.join(d, "object.data")
+    with open(p) as f:
+        text = f.read()
+    assert "potential=pot;" in text
+    with open(p, "w") as f:
+        f.write(text.replace("potential=pot;", "potential=pot rs;")
+                + _RESTRAINT)
+    sim = Simulation(*t_load(d), run_dir=d, device="cpu")
+    assert [q[0] for q in sim.sysdef.potentials] == ["PAIR", "RESTRAINT"]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(NotImplementedError,
+                           match=r"RESTRAINT \(rs\).*item 25"):
+            ParallelSimulation(*t_load(d), shape=(1, 1, 1), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tabulated_function_equals_jax(tmp_path):
+    """utils/tfunction.TabulatedFunction (host numpy, copied) reads a
+    table file to the JAX package's arrays bit for bit: comments, an
+    unsorted abscissa and a non-finite row dropped, resampled onto its
+    grid, np.gradient derivatives; the device lookup teval (torch) equals
+    JAX's in f64 (rel 1e-12) on seeded abscissae past both ends."""
+    import jax.numpy as jnp
+
+    from ddcmd_tpu.utils import tfunction as jtf
+    from ddcmd_tpu_torch.utils import tfunction as ttf
+
+    rng = np.random.default_rng(13)
+    x = np.sort(rng.uniform(0.1, 0.6, 300))
+    cols = np.stack([np.exp(-8.0 * x), 1.0 / x ** 4, np.sin(9.0 * x)], 1)
+    rows = np.concatenate([x[:, None], cols], 1)[rng.permutation(300)]
+    path = tmp_path / "tab.dat"
+    with open(path, "w") as f:
+        f.write("# r  phi  rho  extra\n")
+        for i, row in enumerate(rows):
+            f.write(" ".join("%.17g" % v for v in row)
+                    + (" // a comment\n" if i == 7 else "\n"))
+        f.write("0.3 inf 1 2\n")
+    for n_grid in (2048, 97):
+        j = jtf.TabulatedFunction.from_file(str(path), n_grid)
+        t = ttf.TabulatedFunction.from_file(str(path), n_grid)
+        assert (t.x0, t.dx, t.x_max) == (j.x0, j.dx, j.x_max)
+        np.testing.assert_array_equal(t.values, j.values)
+        np.testing.assert_array_equal(t.derivs, j.derivs)
+        jt, tt = j.device_tables(jnp.float64), t.device_tables(torch.float64)
+        xs = rng.uniform(j.x0 - 3 * j.dx, j.x_max + 3 * j.dx, 5000)
+        xs[:2] = (j.x0, j.x_max)
+        for col in range(3):
+            for deriv in (False, True):
+                np.testing.assert_allclose(
+                    ttf.teval(tt, torch.tensor(xs), col, deriv).numpy(),
+                    np.asarray(jtf.teval(jt, jnp.asarray(xs), col, deriv)),
+                    rtol=1e-12, atol=0)

@@ -87,6 +87,8 @@ def _layout_bytes(cap, nd, nblk, ntab, force, threads):
 
 @pytest.mark.parametrize("U,cap,T,form,degree", [
     (29, 128, 1, "RATIONAL", 4),      # the nc = 32 crystal's plan
+    (29, 128, 1, "RATIONAL_SHIFTED", 19),   # its tabularFit=rational refit
+    (29, 128, 4, "RATIONAL_SHIFTED", 19),
     (27, 128, 2, "FS", 0),            # an alloy on an nz == G union
     (25, 256, 4, "AT", 0),
     (8, 512, 1, "SC", 0),             # a wide cap
@@ -203,3 +205,24 @@ def test_headers_rebuild_their_sources():
     assert included == listed
     for h in tch.KERNEL_HEADERS:
         assert os.path.exists(h), h
+
+
+def test_kernel_forms_mirror_eam_forms():
+    """ops/eam_half.FORMS is eam::Form in csrc/eam_forms.cuh, value for
+    value, and both EAM sources launch every form (their range checks
+    and their [form][pass] launch tables)."""
+    with open(os.path.join(CSRC, "eam_forms.cuh")) as f:
+        enum = re.search(r"enum Form : int \{([^}]*)\}", f.read()).group(1)
+    values = dict((k, int(v)) for k, v in
+                  re.findall(r"k(\w+) = (\d+)", enum))
+    names = {"FS": "FS", "SC": "SC", "EXP": "EXP", "AT": "AT",
+             "RATIONAL": "Rational", "RATIONAL_SHIFTED": "RationalShifted"}
+    assert {names[f]: i for i, f in enumerate(teh.FORMS)} == values
+    n = len(teh.FORMS)
+    for source in ("eam_half.cu", "eam_half_col.cu"):
+        with open(os.path.join(CSRC, source)) as f:
+            text = f.read()
+        assert f"form > {n - 1})" in text, source
+        assert f"kLaunch[{n}][2]" in text, source
+        for name in names.values():
+            assert f"launch<eam::k{name}, true>" in text, (source, name)
