@@ -1,6 +1,6 @@
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --list-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -122,12 +122,28 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      energy and forces against the RATIONAL deck's kernels', 100 steps
      with the peak memory; small triclinic, f64 and five-species EAM
      decks on the card against the CPU.  The refit runs print steps/s,
-     the busy share and CUDA kernels a step of a profiled window.
+     the busy share and CUDA kernels a step of a profiled window;
+ 18. the (N,K)-list engine (nbr/celllist.py and the list terms, plain
+     PyTorch, no kernel): (a) the list on the start states of (A), the
+     nc = 32 crystal with an ORDERSH bias beside its EAM term, and (B),
+     the 131,072-atom TableFunction fluid: the card's list against the
+     CPU's, with its build time, peak memory, K and largest count; (c)
+     (A) under auto and (B) on engine "nlist", NLIST_STEPS steps each
+     through Simulation: mean T, steps/s, busy share, CUDA kernels a step,
+     peak memory, no kernel launched, sqrt(phi) of (A) and a snapshot with
+     its q6#000000 shard; (b) the list engine against the kernels on one
+     state (the nc = 32 crystal against #5, the analytic LJ fluid against
+     #2, (B) against the analytic deck on #2 with the shift added back),
+     each also against the list engine in f64; (d) small ORDERSH,
+     PAIRENERGY, table, widened-exclusion bilayer and pbc = 3 slab decks
+     on the card against the CPU.
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
 the kernels' JSON line, the card line, and last {"ok": true, "device":
-{...}}.  --kernels-only stops after phase 3 and prints no result.
+{...}}.  --kernels-only stops after phase 3 and prints no result;
+--list-only builds the kernels, runs phase 18 alone and prints no
+result.
 """
 
 import contextlib
@@ -211,6 +227,26 @@ NPT_STEPS = 3000
 # the plain cell-block engine: the REFLECT slab's steps, the monoclinic
 # box's lattice edge (24^3 = 13,824 atoms) and steps
 CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 2000, 24, 500
+# phase 18, the (N,K)-list engine: the ORDERSH bias of tests/test_eam.py:274
+# (beside the crystal's EAM term, config (A)) and the PAIRENERGY series of
+# tests/test_eam.py:236 (beside it in a card-vs-CPU case)
+NLIST_STEPS, NLIST_TAIL = 500, 200      # (c): steps, and the T window
+# (b): (e rel, force over the scale) of the list engine against #5 (the
+# EAM gates), against #2, and of the table deck against the analytic deck
+# on #2.  The LJ force gate 2e-5 and the table's 1e-5 (tests/test_eam.py:
+# 337-415) cannot hold in f32 on the 131,072-atom lattice start (box
+# 18.5 nm, force scale ~53): positions carry ulp(9 nm) ~ 1e-6 nm, and
+# against the list engine in f64 on that state #2 itself sits 1.0e-4 of
+# the scale away, the list in f32 1.4e-4, the table in f32 1.4e-4 (and
+# the table in f64 3.7e-5 from the analytic LJ); H100 80GB HBM3, 700 W.
+# So both force gates are 3e-4 of the scale; the energies keep 1e-4
+NLIST_EAM_GATES, NLIST_LJ_GATES, NLIST_TAB_GATES = \
+    (2e-5, 5e-5), (1e-4, 3e-4), (1e-4, 3e-4)
+ORDERSH_POT = ("osh POTENTIAL { type=ORDERSH; L=6; r1o=2.6 Angstrom; "
+               "r2o=3.0 Angstrom; lamda=1.0 kJ/mol; }")
+PAIRENERGY_POT = ("pen POTENTIAL { type=PAIRENERGY; rmax=5.5 Angstrom; "
+                  "r_expansion=5.5 Angstrom; "
+                  "Cu-Cu_2body= 0.0 0.05 -0.002 0.0001 ; }")
 # the least time the card could take (H100 SXM peaks at 700 W): f32
 # outside the tensor cores, and HBM3
 PEAK_F32, PEAK_BW = 67e12, 3.35e12
@@ -737,6 +773,100 @@ def triclinic_eam_deck(d, nc, printrate, tilt=0.05, seed=7):
     with open(p, "w") as f:
         f.write(text)
     return p
+
+
+def ordersh_eam_deck(d, nc, printrate, free=False):
+    """The eam_deck crystal with the ORDERSH bias of ORDERSH_POT beside
+    its EAM term (a list-only term: the deck runs on the (N,K)-list
+    engine)."""
+    p = eam_deck(d, nc, printrate, free)
+    _add_potential(p, ORDERSH_POT)
+    return p
+
+
+def pairenergy_deck(d, nc, printrate, free=False):
+    """The eam_deck crystal with the PAIRENERGY series of PAIRENERGY_POT
+    beside its EAM term (tests/test_eam.py:236's series)."""
+    p = eam_deck(d, nc, printrate, free)
+    _add_potential(p, PAIRENERGY_POT)
+    return p
+
+
+def _add_potential(p, obj):
+    """Add the POTENTIAL object `obj` (its name first) to the deck's
+    system beside its `pot`."""
+    with open(p) as f:
+        text = f.read()
+    assert "potential=pot;" in text
+    text = text.replace("potential=pot;", f"potential=pot {obj.split()[0]};")
+    with open(p, "w") as f:
+        f.write(text + "\n" + obj + "\n")
+
+
+def table_lj_deck(d, n, printrate, free=False):
+    """lj_fluid's TableFunction deck (the LJ sampled into cubic rows,
+    table.data): it runs on engine="nlist" only."""
+    from ddcmd_tpu_torch.models import lj_fluid
+
+    lj_fluid(d, n=n, table=True)
+    p = os.path.join(d, "object.data")
+    with open(p) as f:
+        text = f.read()
+    text = text.replace("printrate=100;", f"printrate={printrate};")
+    if free:
+        text = text.replace("type=LANGEVIN; Teq=120.0K; tau=0.5ps;",
+                            "type=FREE;")
+    with open(p, "w") as f:
+        f.write(text)
+    return p
+
+
+def widen_exclusions(sd):
+    """Widen a bilayer's exclusion graph past the cell engines' 12-member
+    encoding, in memory: consecutive DPPC instances pair up into one
+    24-bead residue instance each ("DPPC2"), joined by one more exclusion
+    (the first lipid's last bead, the second's first), so every merged
+    instance is one 24-member component and every bonded term stays
+    inside its instance.  Edits sd (either package's SystemDef) in place
+    and returns it."""
+    insts, merged, extra = sd.residue_instances, [], []
+    i = 0
+    while i < len(insts):
+        name, rows = insts[i]
+        if (name == "DPPC" and i + 1 < len(insts)
+                and insts[i + 1][0] == "DPPC"):
+            nxt = insts[i + 1][1]
+            merged.append(("DPPC2", list(rows) + list(nxt)))
+            extra.append((rows[-1], nxt[0]))
+            i += 2
+        else:
+            merged.append((name, rows))
+            i += 1
+    assert extra, "no DPPC pair to join"
+    sd.residue_instances[:] = merged
+    ex = np.asarray(sd.bonded.exclusions)
+    sd.bonded.exclusions = np.concatenate(
+        [ex, np.asarray(extra, ex.dtype)]).astype(ex.dtype)
+    return sd
+
+
+@contextlib.contextmanager
+def widened(*modules):
+    """Within the block, the build_system of each simulate module (the
+    port's, and in tests the JAX package's) widens the bilayer's
+    exclusions (widen_exclusions)."""
+    saved = [m.build_system for m in modules]
+
+    def wrap(build):
+        return lambda *a, **kw: widen_exclusions(build(*a, **kw))
+
+    for m, build in zip(modules, saved):
+        m.build_system = wrap(build)
+    try:
+        yield
+    finally:
+        for m, build in zip(modules, saved):
+            m.build_system = build
 
 
 def alloy_eam_deck(d, nc, printrate, free=True):
@@ -2340,20 +2470,24 @@ def cellblock_phase(card, dev, counters_zero, all_counters):
 
 def card_vs_cpu(cases, counters_zero, all_counters, engine="cellblock",
                 modulo_box=False):
-    """Each (name, make_deck, dtype, steps) case through Simulation on the
-    card and on the CPU: both on `engine`, the card run launching no
-    kernel (the plain cell-block engines), energies, positions and the
-    box agreeing as in phase 9; with modulo_box the positions are
-    compared modulo the box's lattice vectors, as phase 9 compares them
-    (an atom at a face may be wrapped to either side)."""
+    """Each (name, make_deck, dtype, steps[, opts]) case through Simulation
+    on the card and on the CPU: both on `engine`, the card run launching
+    no kernel (the plain cell-block engines, the list engine), energies,
+    positions and the box agreeing as in phase 9; with modulo_box the
+    positions are compared modulo the box's lattice vectors, as phase 9
+    compares them (an atom at a face may be wrapped to either side).
+    opts: "engine", the engine asked for (default auto); "context", a
+    context manager both runs are built in (widened)."""
     from ddcmd_tpu_torch.run.cli import load_db
     from ddcmd_tpu_torch.run.simulate import Simulation
 
-    def final(where, make_deck, dtype, n_steps):
+    def final(where, make_deck, dtype, n_steps, opts):
         with tempfile.TemporaryDirectory() as d:
             deck = make_deck(d)
-            s = Simulation(load_db([deck], None, d), d, run_dir=d,
-                           device=where, dtype=dtype)
+            with opts.get("context", contextlib.nullcontext)():
+                s = Simulation(load_db([deck], None, d), d, run_dir=d,
+                               device=where, dtype=dtype,
+                               engine=opts.get("engine", "auto"))
             assert s.engine == engine, s.engine
             counters_zero()
             s.run(n_steps, print_fn=lambda line: None)
@@ -2363,9 +2497,10 @@ def card_vs_cpu(cases, counters_zero, all_counters, engine="cellblock",
                     s.ss.state.r.cpu().double().numpy(),
                     s.ss.box.h.cpu().double().numpy())
 
-    for name, make_deck, dtype, n_steps in cases:
+    for name, make_deck, dtype, n_steps, *opts in cases:
+        opts = opts[0] if opts else {}
         (e1, k1, r1, h1), (e0, k0, r0, h0) = (
-            final(w, make_deck, dtype, n_steps) for w in (DEVICE, "cpu"))
+            final(w, make_deck, dtype, n_steps, opts) for w in (DEVICE, "cpu"))
         if modulo_box:
             s = (r1 - r0) @ np.linalg.inv(h0).T
             dr = float(np.abs((s - np.round(s)) @ h0.T).max())
@@ -2574,6 +2709,257 @@ def tabular_phase(card, dev, counters_zero, all_counters):
     return launches
 
 
+def rows_as_sets(name, a, b, r, geom, rlist, tol=1e-5):
+    """Hold two (N,K) lists of the same state (card, CPU) to each other as
+    sets a row: the same counts, and in each row the same partners, but
+    for a pair whose f64 distance lies within tol (relative) of rlist
+    (its f32 cutoff test may go either way).  Returns the rows that
+    differ."""
+    a, b = torch.sort(a.cpu(), dim=1)[0], torch.sort(b.cpu(), dim=1)[0]
+    bad = torch.nonzero((a != b).any(dim=1)).flatten().tolist()
+    r64 = r.detach().cpu().double()
+    g = geom.detach().cpu().double()
+    sentinel = r64.shape[0]
+    for i in bad:
+        sa, sb = set(a[i].tolist()), set(b[i].tolist())
+        for j in (sa ^ sb) - {sentinel}:
+            d = r64[i] - r64[j]
+            d = d - g * torch.round(d / g)
+            dist = float(torch.linalg.norm(d))
+            assert abs(dist - rlist) <= tol * rlist, (
+                f"{name}: row {i}: partner {j} at {dist} nm, rlist {rlist}")
+    return len(bad)
+
+
+def nlist_phase(card, dev, counters_zero, all_counters):
+    """Phase 18, the (N,K)-list engine (plain PyTorch, no kernel) at full
+    width: (a) the list on the start states of (A), the nc = 32 crystal
+    with the ORDERSH bias beside its EAM term, and (B), the 131,072-atom
+    TableFunction fluid: the card's build against the CPU's, its time,
+    peak memory, K and largest count; (b) the list engine against the
+    kernels on one state: the nc = 32 RATIONAL crystal on "nlist" against
+    #5, the analytic LJ fluid on "nlist" against #2, (B) against the
+    analytic deck on #2 (the shift added back); (c) (A) under auto and
+    (B) on engine "nlist", NLIST_STEPS steps each through Simulation: mean
+    T, steps/s, busy share, CUDA kernels a step, peak memory, no custom
+    kernel launched, sqrt(phi) of (A) and one snapshot of (A) with its
+    q6 shard; (d) small decks on the card against the CPU."""
+    from ddcmd_tpu_torch.io.restart import write_snapshot
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.nbr.celllist import build_neighbor_list
+    from ddcmd_tpu_torch.ops.cellpair import CellBlockGrid, build_cell_slots
+    from ddcmd_tpu_torch.potentials.ordersh import make_ordersh_eval
+    from ddcmd_tpu_torch.run import simulate as tsim
+
+    quiet = lambda line: None                                  # noqa: E731
+
+    def idle(what):
+        c = all_counters()
+        assert not any(c.values()), f"{what}: kernels launched {c}"
+
+    def gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def sim_of(d, engine="auto"):
+        return tsim.Simulation(*load(d), run_dir=d, device=dev,
+                               engine=engine)
+
+    failed = []     # the (b) cases that missed a gate
+    with tempfile.TemporaryDirectory() as da, \
+            tempfile.TemporaryDirectory() as db:
+        ordersh_eam_deck(da, EAM_BIG_NC, 10)
+        table_lj_deck(db, LJ_BIG_N, 10)
+
+        # --- (a) the list, card against CPU --------------------------------
+        for name, d, engine in (("(A) EAM + ORDERSH", da, "auto"),
+                                ("(B) table LJ", db, "nlist")):
+            sim = sim_of(d, engine)
+            assert sim.engine == "nlist", sim.engine
+            st, g, grid = sim.ss.state, sim.ss.box.geom, sim.grid
+            pbc = sim.sysdef.box.pbc
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 2 ** 30
+            nbr, cnt, ov = build_neighbor_list(st.r, st.fmask, g, grid,
+                                               pbc=pbc)
+            peak = gib() - base
+            ms = time_calls(lambda: build_neighbor_list(
+                st.r, st.fmask, g, grid, pbc=pbc), 5, warm=1)
+            # the plain cell-block engine's rebuild on the same state
+            sd = sim.sysdef
+            cbg = CellBlockGrid.plan(g.cpu().double().numpy(), sd.rcut_max,
+                                     sd.neighbor_deltaR, st.n_local)
+            ms_cb = time_calls(lambda: build_cell_slots(
+                st.r, st.fmask, g, cbg), 5, warm=1)
+            cpu = build_neighbor_list(st.r.cpu(), st.fmask.cpu(), g.cpu(),
+                                      grid, pbc=pbc)
+            assert not bool(ov) and not bool(cpu[2]), "list overflow"
+            assert torch.equal(cnt.cpu(), cpu[1]), f"{name}: counts differ"
+            nd = rows_as_sets(name, nbr, cpu[0], st.r, g, grid.rlist)
+            phase("nlist", f"(a) {name}: {st.n_local} atoms, cells "
+                  f"{grid.ncells} cap {grid.cell_capacity}, K "
+                  f"{grid.max_neighbors}, largest count {int(cnt.max())}: "
+                  f"the card's list equals the CPU's ({nd} rows differ "
+                  f"only at rlist); build {ms:.3f} ms by events, peak "
+                  f"{peak:.2f} GiB above the state (the cell-block "
+                  f"engine's binning, cells {cbg.ncells} cap {cbg.cap}: "
+                  f"{ms_cb:.3f} ms) on {card}")
+            del sim, nbr, cpu
+
+        # --- (c) the slice: (A) under auto, (B) on "nlist" ---------------
+        for name, d, engine, T in (("(A)", da, "auto", EAM_T),
+                                   ("(B)", db, "nlist", LJ_T)):
+            sim = sim_of(d, engine)
+            assert sim.engine == "nlist", sim.engine
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rows = []
+            counters_zero()
+            t0 = time.perf_counter()
+            sim.run(NLIST_STEPS, print_fn=rows.append,
+                    max_steps_per_dispatch=DISPATCH)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            idle(f"{name} run")
+            peak = gib()
+            data = np.array([ln.split() for ln in rows], dtype=np.float64)
+            assert np.isfinite(data).all(), f"{name}: non-finite row"
+            temp = float(data[data[:, 0] > NLIST_STEPS - NLIST_TAIL, 5].mean())
+            assert abs(temp - T) <= TEMP_TOL, f"{name}: mean T {temp}"
+            steps = sum(k for k, _ in sim.dispatch_log)
+            rate = steps / sum(t for _, t in sim.dispatch_log)
+            busy, kps = window_stats(lambda: sim.run(
+                PROFILE_STEPS, print_fn=quiet), PROFILE_STEPS + 1)
+            idle(f"{name} profiled window")
+            extra = ""
+            if name == "(A)":
+                osh = next(p[2] for p in sim.sysdef.potentials
+                           if p[0] == "ORDERSH")
+                ss, nbr, _ = sim._build_nbr(sim.ss)
+                phi = make_ordersh_eval(osh, ss.state.n_local)(
+                    ss.state.r, ss.state.fmask, nbr, ss.box.geom)[4]
+                snap = write_snapshot(sim, d)
+                q6 = os.path.join(snap, "q6#000000")
+                size = os.path.getsize(q6)
+                assert size > ss.state.n_local * 4 * 15, size
+                extra = (f"; sqrt(phi) {math.sqrt(float(phi)):.5f} (ideal "
+                         f"fcc 0.57452); snapshot {os.path.basename(snap)} "
+                         f"with q6#000000 ({size} bytes)")
+                del ss, nbr
+            phase("nlist", f"(c) {name} {sim.sysdef.state.n_local} atoms, "
+                  f"{NLIST_STEPS} steps through Simulation (engine "
+                  f"{sim.engine}, cells {sim.grid.ncells} cap "
+                  f"{sim.grid.cell_capacity} K {sim.grid.max_neighbors}): "
+                  f"mean T {temp:.2f} K over the last {NLIST_TAIL} steps, "
+                  f"Etot {data[-1, 2]:.6g}, redos {sim.redos}, no custom "
+                  f"kernel launched; {rate:.2f} steps/s, busy {100 * busy:.1f}%"
+                  f" over {PROFILE_STEPS} profiled steps ({kps:.1f} CUDA "
+                  f"kernels a step), peak {peak:.2f} GiB{extra} on {card}")
+            del sim
+
+        # --- (b) the list engine against the kernels, one state ---------
+        def first(d, eng, dtype=torch.float32):
+            """(first energy, forces (n,3) f64, the Simulation) of the deck
+            in d on `eng` in `dtype`, from the deck's start state; a
+            kernel engine must launch its kernels, the list none."""
+            s = tsim.Simulation(*load(d), run_dir=d, device=dev,
+                                engine=eng, dtype=dtype)
+            assert s.engine == eng, s.engine
+            counters_zero()
+            s.first_energy()
+            torch.cuda.synchronize()
+            c = all_counters()
+            assert any(c.values()) if eng == "kernel" else not any(
+                c.values()), f"{eng}: launches {c}"
+            n = s.sysdef.state.n_local
+            return float(s.ss.energy.eion), s.ss.state.f[:n].double(), s
+
+        def errs(got, ref):
+            """(e rel, force err over the reference's force scale)"""
+            return (abs(got[0] - ref[0]) / abs(ref[0]),
+                    float((got[1] - ref[1]).abs().max())
+                    / float(ref[1].abs().max()))
+
+        def gate(name, got, ref, ref64, e_gate, f_gate, what):
+            """Print got against ref (and both against the f64 list
+            engine ref64, the rounding each f32 engine carries), and hold
+            got to ref at the gates: a miss fails the phase at its end,
+            after every case has printed its numbers."""
+            e_rel, f_rel = errs(got, ref)
+            g64, r64 = errs(got, ref64), errs(ref, ref64)
+            phase("nlist", f"(b) {name}: e {got[0]:.8g} vs {ref[0]:.8g} "
+                  f"(rel {e_rel:.2g}, gate {e_gate:g}), force err "
+                  f"{f_rel:.3g} of the scale {float(ref[1].abs().max()):.4g} "
+                  f"(gate {f_gate:g}); against the list engine in f64: "
+                  f"{what} e rel {g64[0]:.2g} force {g64[1]:.3g}, the "
+                  f"reference e rel {r64[0]:.2g} force {r64[1]:.3g}")
+            if not (e_rel <= e_gate and f_rel <= f_gate):
+                failed.append((name, e_rel, f_rel))
+
+        with tempfile.TemporaryDirectory() as de:
+            eam_deck(de, EAM_BIG_NC, 50)
+            ref64 = first(de, "nlist", torch.float64)
+            got, ref = first(de, "nlist"), first(de, "kernel")
+            gate(f"nc={EAM_BIG_NC} RATIONAL crystal, list engine vs #5 "
+                 f"(G={ref[2].force_fn.terms[0].G})", got, ref, ref64,
+                 NLIST_EAM_GATES[0], NLIST_EAM_GATES[1], "the list in f32")
+            del ref64, got, ref
+
+        with tempfile.TemporaryDirectory() as dl:
+            lj_deck(dl, LJ_BIG_N, 50)
+            ref64 = first(dl, "nlist", torch.float64)
+            got, ref = first(dl, "nlist"), first(dl, "kernel")
+            gate(f"lj_fluid {LJ_BIG_N} atoms, list engine vs #2 "
+                 f"(G={ref[2].force_fn.terms[0].G})", got, ref, ref64,
+                 NLIST_LJ_GATES[0], NLIST_LJ_GATES[1], "the list in f32")
+            # (B) from the same start state (the builder's seed): the table
+            # against the analytic deck on #2, whose pairs carry the shift
+            # -v(rc) (shift=1), added back over the pairs within rc
+            tab = first(db, "nlist")
+            tab64 = first(db, "nlist", torch.float64)
+            assert torch.equal(tab[2].ss.state.r, got[2].ss.state.r)
+            pot = got[2].sysdef.potentials[0][2]
+            shift = float(pot.shift[0, 0])
+            ss, nbr, _ = got[2]._build_nbr(got[2].ss)
+            dr = ss.box.min_image(ss.state.r[:, None, :] - torch.cat(
+                [ss.state.r, ss.state.r.new_zeros((1, 3))])[nbr])
+            npair = int(((nbr != ss.state.n_pad)
+                         & ((dr * dr).sum(-1) < pot.rcut ** 2)).sum()) // 2
+            del ss, nbr, dr
+            back = lambda x: (x[0] + npair * shift, x[1])      # noqa: E731
+            tb, t32 = errs(back(tab64), ref64), errs(tab, tab64)
+            phase("nlist", f"(b) (B) table deck: {npair} pairs within rc, "
+                  f"shift {shift:.4g} a pair; the table in f64 against "
+                  f"the analytic deck in f64 (the table's own error): e rel "
+                  f"{tb[0]:.2g}, force {tb[1]:.3g}; the table in f32 "
+                  f"against f64: e rel {t32[0]:.2g}, force {t32[1]:.3g}")
+            gate("(B) table deck on the list engine, the shift added back, "
+                 f"vs the analytic deck on #2", back(tab), ref, ref64,
+                 NLIST_TAB_GATES[0], NLIST_TAB_GATES[1], "the table in f32")
+            del ref64, got, ref, tab, tab64
+
+    # --- (d) small decks, card against CPU --------------------------------
+    slab3 = lambda d: lj_deck(d, 1000, 100, free=True,          # noqa: E731
+                              edit=slab_edit)
+    card_vs_cpu((("EAM + ORDERSH crystal nc=5 (500 atoms) FREE f32 40 steps",
+                  lambda d: ordersh_eam_deck(d, 5, 100, free=True),
+                  torch.float32, 40),
+                 ("EAM + PAIRENERGY crystal nc=5 FREE f32 40 steps",
+                  lambda d: pairenergy_deck(d, 5, 100, free=True),
+                  torch.float32, 40),
+                 ("table LJ 500 atoms FREE f32 40 steps",
+                  lambda d: table_lj_deck(d, 500, 100, free=True),
+                  torch.float32, 40, dict(engine="nlist")),
+                 ("bilayer nx=8 widened exclusions FREE NPT f32 20 steps",
+                  lambda d: bilayer_deck(d, SMALL_NX, EQ_DT, 100, free=True),
+                  torch.float32, 20,
+                  dict(context=lambda: widened(tsim))),
+                 ("pbc=3 REFLECT LJ slab 1000 atoms FREE f32 40 steps",
+                  slab3, torch.float32, 40, dict(engine="nlist"))),
+                counters_zero, all_counters, engine="nlist", modulo_box=True)
+    assert not failed, f"(b) gates missed: {failed}"
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -2637,6 +3023,9 @@ def main(argv=None):
                     cellpair_half_excl=ch.cellpair_half.launches_excl,
                     cellpair_half_ext_excl=ch.cellpair_half_ext.launches_excl)
 
+    if "--list-only" in argv:
+        nlist_phase(card, dev, counters_zero, all_counters)
+        return
     res = kernel_phase(dev)
     res.update(eam_kernel_phase(dev))
     res.update(ext_kernel_phase(dev))
@@ -2791,6 +3180,8 @@ def main(argv=None):
     cellblock_phase(card, dev, counters_zero, all_counters)
     # --- phase 17: tabulated EAM ------------------------------------------
     launches.update(tabular_phase(card, dev, counters_zero, all_counters))
+    # --- phase 18: the (N,K)-list engine (no kernel) -------------------------
+    nlist_phase(card, dev, counters_zero, all_counters)
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..io.collection import CollectionData, read_collection
+from ..nbr.celllist import CellGrid
 from ..objects import DeckError, ObjectDB
 from ..objects import units as U
 from .box import Box
@@ -222,13 +223,23 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
             # no force, no cutoff (system.py:308-309 of the JAX package)
             potentials.append(("NONE", pname, None))
             continue
-        elif ptype in ("PAIRENERGY", "ORDERSH", "CHARMM"):
-            # PAIRENERGY and ORDERSH run on the (N,K)-list engine, CHARMM
-            # needs the junction terms
-            item = 12 if ptype == "CHARMM" else 19
+        elif ptype == "ORDERSH":
+            # the Steinhardt order bias; its cutoff is r2o
+            from ..potentials.ordersh import compile_ordersh
+
+            parms = compile_ordersh(db, pname)
+            rcut_max = max(rcut_max, parms.r2o)
+            potentials.append((ptype, pname, parms))
+            continue
+        elif ptype == "PAIRENERGY":
+            from ..potentials.pairenergy import compile_pairenergy
+
+            parms = compile_pairenergy(db, pname, species)
+        elif ptype == "CHARMM":
+            # CHARMM needs the junction terms
             raise NotImplementedError(
-                f"POTENTIAL type {ptype} is not ported yet (ROADMAP queue 1, "
-                f"item {item})")
+                "POTENTIAL type CHARMM is not ported yet (ROADMAP queue 1, "
+                "item 12)")
         else:
             raise DeckError(f"POTENTIAL type {ptype} not implemented yet")
         rcut_max = max(rcut_max, parms.rcut)
@@ -307,3 +318,17 @@ def integrator_parms_from_deck(db: ObjectDB, name: str):
         isotropic=bool(iobj.get_int("isotropic", 0)),
     )
     return itype, iparms
+
+
+def plan_grid(sysdef: SystemDef, density_safety: float = 2.0,
+              plan_margin: float = 1.0, box=None) -> CellGrid:
+    """The (N,K)-list engine's plan at `box` (the system's box by
+    default).  A triclinic box plans its cell counts from the
+    perpendicular plane spacings, so a one-shell stencil still covers
+    rlist (the lengths overestimate the width of tilted cells)."""
+    box = sysdef.box if box is None else box
+    L = (box.lengths if box.ortho else box.perp_spans).cpu().numpy()
+    return CellGrid.plan(L.astype(np.float64), sysdef.rcut_max,
+                         sysdef.neighbor_deltaR, sysdef.state.n_local,
+                         sysdef.state.n_pad, density_safety=density_safety,
+                         plan_margin=plan_margin)

@@ -18,10 +18,12 @@ hooks or box(t); the geometry is the box's (lengths, or a triclinic h):
      + RATTLE projection (back mode, live box)
   5. kinetic terms
 
-Positions are NOT wrapped after the drift: the cell-pair engine's static
+The cell engines do not wrap positions after the drift: their static
 image shifts need positions consistent with the rebuild-time binning, so
-the run loop wraps at each rebuild instead.  The barostat's affine
-rescale keeps them consistent: cell centres scale with the box.
+the run loop wraps at each rebuild instead, and the barostat's affine
+rescale keeps them consistent (cell centres scale with the box).  The
+(N,K)-list engine wraps after each drift (wrap_positions, backInBox,
+nglf.c:90), as the JAX step does.
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ def barostat_scale(state, box, virial, barostat: dict, dt: float,
 def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
                    constraint_fn: Callable | None = None,
                    molecular_virial_fn: Callable | None = None,
-                   post_drift_fn: Callable | None = None):
+                   post_drift_fn: Callable | None = None,
+                   wrap_positions: bool = False):
     """step(ss, handle, coeffs, noise_front, noise_back) -> StepState.
 
     force_fn(state, box, handle) -> (f (N,3), e_pot, virial (3,3), pe (N,));
@@ -95,7 +98,8 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
     velocities (box_lengths the box's geometry: a triclinic box hands its
     h); molecular_virial_fn(state, box, virial) -> the virial corrected
     for intra-molecular force moments; post_drift_fn(state, box) -> state
-    after the drift (REFLECT walls)."""
+    after the drift (REFLECT walls); wrap_positions: wrap into the box
+    after the drift, before the post-drift hook (the list engine)."""
 
     def step(ss: StepState, handle, coeffs, noise_front, noise_back):
         state, box = ss.state, ss.box
@@ -111,7 +115,10 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
             # live box geometry: the barostat above may have rescaled it
             v = constraint_fn(state.replace(v=v), dt, "front",
                               box_lengths=box.geom).v
-        state = state.replace(v=v, r=state.r + dt * v)
+        r = state.r + dt * v
+        if wrap_positions:
+            r = box.back_in_box(r)
+        state = state.replace(v=v, r=r)
         if post_drift_fn is not None:
             state = post_drift_fn(state, box)
 

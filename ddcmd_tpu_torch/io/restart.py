@@ -31,9 +31,15 @@ def _host(x) -> np.ndarray:
 
 def write_snapshot(sim, run_dir: str = ".") -> str:
     """Lightweight trajectory dump at snapshotrate (writeBXYZ analog,
-    ddcMD src/io.c:144): atoms shard + bxyz, no restart symlink update."""
+    ddcMD src/io.c:144): atoms shard + bxyz, no restart symlink update;
+    with an ORDERSH term also its q{L}#000000 shards (and cluster.000000
+    with clusterWrite=1; writeqlocal, ddcMD src/masters.c:348)."""
     snapdir = write_checkpoint(sim, run_dir, update_symlink=False)
     write_bxyz(sim, snapdir)
+    if any(p[0] == "ORDERSH" for p in sim.sysdef.potentials):
+        from ..potentials.ordersh import write_qlocal_files
+
+        write_qlocal_files(sim, snapdir)
     return snapdir
 
 

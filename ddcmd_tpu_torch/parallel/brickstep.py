@@ -5,7 +5,7 @@ Counterpart of the helpers of ddcmd_tpu/parallel/brickstep.py
 the box lengths themselves where the JAX package takes the
 perpendicular widths of a triclinic h (_perp_widths).  The (N,K)-list brick
 engine of that module, make_brick_step, is not ported (ROADMAP queue 1,
-item 19); the cell engine is parallel/brickstep_cells.
+item 25); the cell engine is parallel/brickstep_cells.
 """
 
 from __future__ import annotations

@@ -35,8 +35,8 @@ copied from the JAX package (importing ddcmd_tpu imports jax), so a refit
 gives its coefficients to within float rounding.  The pair sums run in
 the EAM kernels (ops/eam_half.py: the analytic forms and the refit, 1-4
 species) or on the plain cell-block EAM engine (ops/cellpair_eam.py:
-every form, any species count, geometry and dtype).  The JAX package's
-(N,K)-list evaluation `eam_eval` waits for that engine (ROADMAP item 19).
+every form, any species count, geometry and dtype) or over the (N,K)
+list (eam_eval: every form, any species count, geometry and dtype).
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..nbr.celllist import min_image_geom
 from ..objects import DeckError, ObjectDB
 from ..objects import units as U
 
@@ -651,3 +652,68 @@ def _tab_lookup(tab, sel_idx, x, col, derivative):
     v1 = src[sel_idx, col, i + 1]
     return v0 + frac * (v1 - v0)
 
+
+
+def eam_eval(r, sidx, fmask, nbr_idx, geom, tables):
+    """Two-pass EAM over the full (N,K) list (the JAX package's eam_eval,
+    on the same _pair_eval / _embedding).  Returns (f, e, virial, pe)."""
+    sentinel = r.shape[0]
+    form = tables["form"]
+    T = tables["n_species"]
+    r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
+    s_ext = torch.cat([sidx, sidx.new_zeros((1,))], dim=0)
+    # orthorhombic boxes keep the displacements per component, (N,K) each
+    ortho = geom.dim() == 1
+    if ortho:
+        d_c = []
+        r2 = torch.zeros(nbr_idx.shape, dtype=r.dtype, device=r.device)
+        for c in range(3):
+            dc = r[:, c][:, None] - r_ext[:, c][nbr_idx]
+            dc = dc - geom[c] * torch.round(dc / geom[c])
+            d_c.append(dc)
+            r2 = r2 + dc * dc
+    else:
+        dr = min_image_geom(r[:, None, :] - r_ext[nbr_idx], geom)
+        r2 = torch.sum(dr * dr, dim=-1)
+
+    valid = ((nbr_idx != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)
+             & (fmask[:, None] > 0))
+    w = valid.to(r.dtype)
+    r2s = torch.where(valid, r2, 1.0)
+    ir2 = 1.0 / r2s
+    ir = torch.sqrt(ir2)
+    s_j = s_ext[nbr_idx]
+    pair_idx = sidx[:, None] * T + s_j
+
+    # pass 1: pair energy and density (full list: both directions)
+    e1, p1 = _pair_eval(form, tables["pair"], pair_idx, r2s, ir, ir2, False)
+    rho = torch.sum(p1 * w, dim=1)
+    pe_pair = 0.5 * torch.sum(e1 * w, dim=1)
+
+    F_i, dF = _embedding(form, tables["embed"], sidx, rho)
+    F_i = F_i * fmask
+    dF = dF * fmask
+
+    # pass 2: forces.  The j-side embedding derivative pairs with the
+    # transposed density derivative dp(t_j, t_i): rho_j accumulates
+    # p_(t_j, t_i)(r_ij) (the eam.c:166-190 combine rule)
+    de, dp = _pair_eval(form, tables["pair"], pair_idx, r2s, ir, ir2, True)
+    if T == 1:
+        dpT = dp
+    else:
+        _, dpT = _pair_eval(form, tables["pair"], s_j * T + sidx[:, None],
+                            r2s, ir, ir2, True)
+    dF_ext = torch.cat([dF, dF.new_zeros((1,))])
+    coef = -(de + dp * dF[:, None] + dpT * dF_ext[nbr_idx]) * w
+    if ortho:
+        f = torch.stack([torch.sum(coef * d_c[c], dim=1) for c in range(3)],
+                        dim=1)
+        virial = 0.5 * torch.stack([
+            torch.stack([torch.sum(coef * d_c[a] * d_c[b])
+                         for b in range(3)]) for a in range(3)])
+    else:
+        fij = coef[:, :, None] * dr
+        f = torch.sum(fij, dim=1)
+        virial = 0.5 * torch.einsum("nka,nkb->ab", fij, dr)
+    pe = pe_pair + F_i
+    return f, pe.sum(), virial, pe

@@ -14,9 +14,10 @@ Counterpart of ddcmd_tpu/potentials/martini.py.  Nonbond physics
     (bioMartini.c:1238-1243)
   * self energy: -0.5 sum q^2 (ke/eps_r) crf (bioMartini.c:1035)
 
-The pair sums themselves run in the cell-pair kernel
-(ops/cellpair_half.py); this module compiles the host tables and moves
-them to the device.
+The pair sums run in the cell-pair kernels (ops/cellpair_half.py), in
+the plain cell-block engine (ops/cellpair.py) or over the (N,K) list
+(martini_nonbond); this module compiles the host tables, moves them to
+the device and holds the list form.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..nbr.celllist import min_image_geom
 from ..objects import ObjectDB
 from ..objects import units as U
 
@@ -129,3 +131,84 @@ def martini_device_tables(parms: MartiniParms, dtype=torch.float32,
         crf=scalar(parms.crf),
         keR=scalar(U.ke / parms.epsilon_r),
     )
+
+
+def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
+                    excl_tbl=None):
+    """Forces, energy and virial over the full (N,K) neighbor list.
+
+    r: (N,3) wrapped positions; q: (N,) charges; tidx: (N,) LJ type;
+    fmask: (N,) 1.0 for valid particles; nbr_idx: (N,K) full list,
+    sentinel N; geom: (3,) lengths or a (3,3) h; tables:
+    martini_device_tables().  excl_tbl: optional (N, Emax) per-particle
+    excluded-partner rows (sentinel N): excluded pairs are dropped from
+    the list here, never computed and subtracted, and the bonded block
+    runs its exclusion term in "rf_add" mode to restore the
+    reaction-field part the reference keeps for them
+    (bioMartini.c:1124-1208).
+    Returns (f (N,3), e_pot, virial (3,3), pe (N,), (e_lj, e_ele))."""
+    sentinel = r.shape[0]
+    r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
+    q_ext = torch.cat([q, q.new_zeros((1,))], dim=0)
+    t_ext = torch.cat([tidx, tidx.new_zeros((1,))], dim=0)
+
+    # orthorhombic boxes keep the displacements per component, (N,K) each
+    ortho = geom.dim() == 1
+    if ortho:
+        d_c = []
+        r2 = torch.zeros(nbr_idx.shape, dtype=r.dtype, device=r.device)
+        for c in range(3):
+            dc = r[:, c][:, None] - r_ext[:, c][nbr_idx]
+            dc = dc - geom[c] * torch.round(dc / geom[c])
+            d_c.append(dc)
+            r2 = r2 + dc * dc
+    else:
+        dr = min_image_geom(r[:, None, :] - r_ext[nbr_idx], geom)
+        r2 = torch.sum(dr * dr, dim=-1)
+
+    pair_t = tidx[:, None] * tables["sigma"].shape[0] + t_ext[nbr_idx]
+    sig = tables["sigma"].reshape(-1)[pair_t]
+    eps = tables["eps"].reshape(-1)[pair_t]
+    shf = tables["shift"].reshape(-1)[pair_t]
+
+    valid = (nbr_idx != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)
+    valid = valid & (fmask[:, None] > 0)
+    if excl_tbl is not None:
+        excluded = torch.any(nbr_idx[:, :, None] == excl_tbl[:, None, :],
+                             dim=-1)
+        valid = valid & ~excluded
+    r2s = torch.where(valid, r2, 1.0)
+    ir2 = 1.0 / r2s
+    ir = torch.sqrt(ir2)
+
+    s2 = sig * sig * ir2
+    s6 = s2 * s2 * s2
+    s12 = s6 * s6
+    e_lj_pair = 4.0 * eps * (s12 - s6) + shf
+    dvdr = 24.0 * eps * (s6 - 2.0 * s12) * ir2                # (dv/dr)/r
+
+    kqq = tables["keR"] * q[:, None] * q_ext[nbr_idx]
+    e_ele_pair = kqq * (ir + tables["krf"] * r2s - tables["crf"])
+    dvdr = dvdr + kqq * (2.0 * tables["krf"] - ir2 * ir)
+
+    w = valid.to(r.dtype)
+    coef = -(dvdr * w)
+    if ortho:
+        f = torch.stack([torch.sum(coef * d_c[c], dim=1) for c in range(3)],
+                        dim=1)
+        virial = 0.5 * torch.stack([
+            torch.stack([torch.sum(coef * d_c[a] * d_c[b])
+                         for b in range(3)]) for a in range(3)])
+    else:
+        fij = coef[:, :, None] * dr
+        f = torch.sum(fij, dim=1)
+        # virial_ab = 0.5 sum_pairs f_ij,a dr_ij,b (both sides counted)
+        virial = 0.5 * torch.einsum("nka,nkb->ab", fij, dr)
+
+    # per-particle energy: half of each pair + the own self term
+    # (bioMartini.c:1035)
+    e_self_i = -0.5 * q * q * fmask * tables["keR"] * tables["crf"]
+    pe = 0.5 * torch.sum((e_lj_pair + e_ele_pair) * w, dim=1) + e_self_i
+    e_lj = 0.5 * torch.sum(e_lj_pair * w)
+    e_ele = 0.5 * torch.sum(e_ele_pair * w) + torch.sum(e_self_i)
+    return f, e_lj + e_ele, virial, pe, (e_lj, e_ele)

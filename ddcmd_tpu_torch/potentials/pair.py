@@ -11,11 +11,14 @@ Energy: v = 4 eps ((s/r)^12 - (s/r)^6) - v(rc)  (shift=1, the default).
 
 function=TableFunction parses a piecewise-polynomial table
 (table_function_uniform, src/table_function.c:28-101): rows
-`x a0 a1 ... a_{terms-1}` on uniform intervals, v(r) = sum a_k (r-x_i)^k.
-The port evaluates LJ only, on the cell-pair kernels with Coulomb off; a
-table is evaluated by the JAX package's (N,K)-list engine only
-(pair_lj), which the port does not have yet (ROADMAP queue 1, item 19),
-so every engine of the port raises for it.
+`x a0 a1 ... a_{terms-1}` on uniform intervals, v(r) = sum a_k (r-x_i)^k,
+dv/dr = sum k a_k (r-x_i)^{k-1}.
+
+Lennard-Jones runs on the cell-pair kernels (Coulomb off) or the plain
+cell-block engine, and on the (N,K)-list engine through pair_lj.  A table
+is evaluated by pair_lj only, as in the JAX package, whose cell engines
+give such a deck zero pair force; the port's cell engines raise for it
+(TABLE_ENGINE) and the mesh names ROADMAP item 25.
 
 compile_pair is host numpy, copied from the JAX package (importing
 ddcmd_tpu imports jax).
@@ -29,12 +32,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..nbr.celllist import min_image_geom
 from ..objects import DeckError, ObjectDB
 from ..objects import units as U
 
-TABLE_ITEM = ("PAIR function=TableFunction: the table is evaluated only by "
-              "the JAX package's (N,K)-list engine (pair_lj), not ported "
-              "yet (ROADMAP queue 1, item 19)")
+TABLE_ENGINE = ("PAIR function=TableFunction: the table is evaluated only "
+                "on the (N,K)-list engine (pair_lj); run the deck with "
+                'engine="nlist" (the JAX package\'s cell engines give it '
+                "zero pair force)")
 
 
 @dataclass
@@ -108,20 +113,71 @@ def pair_device_tables(parms, dtype=torch.float32, device="cpu"):
     """The pair engines' tables: sigma, eps, shift (T,T) on the device and
     the host scalars rcut2 and krf = crf = keR = 0 (the Coulomb-off
     shifted LJ of the MARTINI tables, ops/cellpair_half.kernel_inputs),
-    rounded as `dtype` rounds them.  `parms` may come from either
-    package's compile_pair (its fields are numpy arrays).  A
-    TableFunction raises (ROADMAP queue 1, item 19)."""
-    if parms.table is not None:
-        raise NotImplementedError(TABLE_ITEM)
-
+    rounded as `dtype` rounds them; a TableFunction adds its rows tab_x
+    (m,) and tab_coeff (m, terms) on the device and the host scalars
+    tab_x0 and tab_idx (1/dx).  `parms` may come from either package's
+    compile_pair (its fields are numpy arrays)."""
     def scalar(x):
         return float(torch.tensor(x, dtype=dtype))
 
-    return dict(
-        sigma=torch.as_tensor(np.asarray(parms.sigma), dtype=dtype,
-                              device=device),
-        eps=torch.as_tensor(np.asarray(parms.eps), dtype=dtype,
-                            device=device),
-        shift=torch.as_tensor(np.asarray(parms.shift), dtype=dtype,
-                              device=device),
-        rcut2=scalar(parms.rcut ** 2), krf=0.0, crf=0.0, keR=0.0)
+    def ten(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    t = dict(sigma=ten(parms.sigma), eps=ten(parms.eps),
+             shift=ten(parms.shift), rcut2=scalar(parms.rcut ** 2), krf=0.0,
+             crf=0.0, keR=0.0)
+    if parms.table is not None:
+        tb = parms.table
+        t.update(tab_x=ten(tb["x"]), tab_coeff=ten(tb["coeff"]),
+                 tab_x0=scalar(tb["x0"]), tab_idx=scalar(1.0 / tb["dx"]))
+    return t
+
+
+def pair_lj(r, sidx, fmask, nbr_idx, geom, tables):
+    """Shifted LJ, or the TableFunction's piecewise polynomial, over the
+    full (N,K) neighbor list.  Returns (f, e, virial, pe)."""
+    sentinel = r.shape[0]
+    r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
+    s_ext = torch.cat([sidx, sidx.new_zeros((1,))], dim=0)
+
+    dr = min_image_geom(r[:, None, :] - r_ext[nbr_idx], geom)
+    r2 = torch.sum(dr * dr, dim=-1)
+
+    valid = ((nbr_idx != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)
+             & (fmask[:, None] > 0))
+    r2s = torch.where(valid, r2, 1.0)
+    ir2 = 1.0 / r2s
+    if "tab_coeff" in tables:
+        # piecewise polynomial in (r - x_i) (table_function_uniform,
+        # table_function.c:85-101); dvdr here is (dv/dr)/r
+        rr = torch.sqrt(r2s)
+        i = torch.clamp(((rr - tables["tab_x0"]) * tables["tab_idx"]).long(),
+                        0, tables["tab_x"].shape[0] - 1)
+        xr = rr - tables["tab_x"][i]
+        c = tables["tab_coeff"][i]          # (N, K, terms)
+        K = c.shape[-1]
+        v = c[..., K - 1]
+        d = torch.zeros_like(v)
+        for k in range(K - 2, -1, -1):
+            d = d * xr + (k + 1) * c[..., k + 1]
+            v = v * xr + c[..., k]
+        e_pair = v
+        dvdr = d / rr
+    else:
+        ns = tables["sigma"].shape[0]
+        pair_t = sidx[:, None] * ns + s_ext[nbr_idx]
+        sig = tables["sigma"].reshape(-1)[pair_t]
+        eps = tables["eps"].reshape(-1)[pair_t]
+        shf = tables["shift"].reshape(-1)[pair_t]
+        s2 = sig * sig * ir2
+        s6 = s2 * s2 * s2
+        s12 = s6 * s6
+        e_pair = 4.0 * eps * (s12 - s6) + shf
+        dvdr = 24.0 * eps * (s6 - 2.0 * s12) * ir2
+
+    w = valid.to(r.dtype)
+    fij = -(dvdr * w)[:, :, None] * dr
+    f = torch.sum(fij, dim=1)
+    pe = 0.5 * torch.sum(e_pair * w, dim=1)
+    virial = 0.5 * torch.einsum("nka,nkb->ab", fij, dr)
+    return f, pe.sum(), virial, pe

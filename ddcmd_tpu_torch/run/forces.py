@@ -1,15 +1,24 @@
 """Force orchestration: one force function from all potentials.
 
 Counterpart of ddcmd_tpu/run/forces.py:build_force_fn (ddcenergy analog,
-ddcMD src/ddcenergy.c:160-238): the MARTINI nonbond and PAIR
-Lennard-Jones terms on the pair kernels or on the plain cell-block
-engine, the EAM term on its kernels (the analytic forms and the
-tabularFit=rational refit) or on the plain cell-block EAM engine (every
-form), RESTRAINT springs and the residue-template batched bonded terms;
-NONE terms add nothing.  Excluded (bonded) pairs are
-masked inside the pair engine through the record's exclusion channels,
-and the bonded block adds back only the reaction-field part the
-reference keeps for them (excl_mode "rf_add").
+ddcMD src/ddcenergy.c:160-238) on three engines:
+
+  * "kernel" (the JAX package's "pallas"): the MARTINI nonbond and PAIR
+    Lennard-Jones terms on the pair kernels, EAM on its kernels (the
+    analytic forms and the tabularFit=rational refit);
+  * "cellblock": the same terms on the plain cell-block engines (every
+    EAM form);
+  * "nlist": every term over the (N,K) neighbor list in plain PyTorch
+    (martini_nonbond, pair_lj with the TableFunction, eam_eval,
+    pairenergy_eval, the ORDERSH bias), as the JAX package's list engine.
+
+RESTRAINT springs and the residue-template batched bonded terms run on
+all three; NONE terms add nothing.  Excluded (bonded) pairs are masked
+inside the pair engine (the record's exclusion channels on the cell
+engines, the excluded-partner table on the list), and the bonded block
+adds back only the reaction-field part the reference keeps for them
+(excl_mode "rf_add"): the port never computes excluded pairs and
+subtracts them.
 """
 
 from __future__ import annotations
@@ -30,9 +39,9 @@ from ..ops.cellpair_eam import eam_cellblock_eval_half
 from ..ops.eam_half import (eam_col_smem_bytes, eam_eval_half,
                             eam_half_supported, eam_kernel_inputs,
                             eam_kernel_tables, n_params)
-from ..potentials.eam import eam_device_tables
-from ..potentials.martini import martini_device_tables
-from ..potentials.pair import pair_device_tables
+from ..potentials.eam import eam_device_tables, eam_eval
+from ..potentials.martini import martini_device_tables, martini_nonbond
+from ..potentials.pair import TABLE_ENGINE, pair_device_tables, pair_lj
 from ..potentials.restraint import restraint_eval
 
 # widest exclusion component the exact-f32 record encoding carries
@@ -40,28 +49,18 @@ EXCL_MAX_MEMBERS = 12
 
 
 def _inlist_excl(sysdef: SystemDef) -> bool:
-    """True when the pair kernel masks excluded pairs in-kernel (and the
-    bonded block adds back only the kept RF term): the MARTINI nonbond
-    term with an exclusion list.  The port has no compute-then-subtract
-    path, so this is every deck with exclusions."""
+    """True when the pair engine masks excluded pairs (and the bonded
+    block adds back only the kept RF term): the MARTINI nonbond term with
+    an exclusion list.  The port has no compute-then-subtract path, so
+    this is every deck with exclusions."""
     return (sysdef.bonded is not None
             and sysdef.bonded.exclusions is not None
             and any(p[0] == "MARTINI" for p in sysdef.potentials))
 
 
-def _excl_channels(exclusions, n_pad: int):
-    """Per-particle in-kernel exclusion channels (n_pad, 2) f32:
-    [component_id, B + 2^-(intra+1)] with B the exclusion bitmask over the
-    particle's connected component of the exclusion graph.  All values are
-    exact in f32 when every component has <= 12 members (B < 2^12,
-    2^-(intra+1) >= 2^-12).  A wider component raises: the JAX package
-    demotes such decks to its (N,K)-list engine, which the port does not
-    have yet (ROADMAP queue 1, item 19), and the port never falls back to
-    compute-then-subtract (the f32 residual of a deep bond compression is
-    an energy-injecting catapult)."""
-    ex = np.asarray(exclusions)
-    if len(ex) == 0:
-        return None
+def _excl_components(exclusions, n_pad: int) -> dict:
+    """{root: [rows]} connected components of the exclusion graph, in the
+    order the JAX package's _excl_channels meets them."""
     parent = np.arange(n_pad)
 
     def find(x):
@@ -72,23 +71,50 @@ def _excl_channels(exclusions, n_pad: int):
             parent[x], x = root, parent[x]
         return root
 
-    for i, j in ex:
+    for i, j in exclusions:
         parent[find(int(i))] = find(int(j))
     comps = defaultdict(list)
-    for i, j in ex:
+    for i, j in exclusions:
         comps[find(int(i))].append(int(i))
         comps[find(int(j))].append(int(j))
+    return {root: sorted(set(m)) for root, m in comps.items()}
+
+
+def wide_exclusion_component(sysdef: SystemDef) -> int:
+    """Members of the deck's widest exclusion component when it is wider
+    than the EXCL_MAX_MEMBERS the cell engines' in-kernel channels
+    encode, else 0."""
+    bt = sysdef.bonded
+    if bt is None or bt.exclusions is None or len(bt.exclusions) == 0:
+        return 0
+    comps = _excl_components(np.asarray(bt.exclusions), sysdef.state.n_pad)
+    widest = max(len(m) for m in comps.values())
+    return widest if widest > EXCL_MAX_MEMBERS else 0
+
+
+def _excl_channels(exclusions, n_pad: int):
+    """Per-particle in-kernel exclusion channels (n_pad, 2) f32:
+    [component_id, B + 2^-(intra+1)] with B the exclusion bitmask over the
+    particle's connected component of the exclusion graph.  All values are
+    exact in f32 when every component has <= 12 members (B < 2^12,
+    2^-(intra+1) >= 2^-12).  A wider component raises: such a deck runs on
+    the (N,K)-list engine, which masks excluded pairs in the list (the JAX
+    package demotes it there), and the port never falls back to
+    compute-then-subtract (the f32 residual of a deep bond compression is
+    an energy-injecting catapult)."""
+    ex = np.asarray(exclusions)
+    if len(ex) == 0:
+        return None
     vals = np.zeros((n_pad, 2), np.float32)
     intra = {}
-    for cid, (root, members) in enumerate(comps.items()):
-        members = sorted(set(members))
+    for cid, members in enumerate(_excl_components(ex, n_pad).values()):
         if len(members) > EXCL_MAX_MEMBERS:
             raise NotImplementedError(
                 f"an exclusion component of {len(members)} particles "
                 f"(rows {members[:4]}...) exceeds the {EXCL_MAX_MEMBERS} the "
-                "in-kernel exclusion channels encode exactly; such decks "
-                "need the (N,K)-list engine, not ported yet (ROADMAP queue "
-                "1, item 19)")
+                "in-kernel exclusion channels of the cell engines encode "
+                'exactly; run the deck on engine="nlist", the (N,K)-list '
+                "engine, which masks excluded pairs in the list")
         for k, m in enumerate(members):
             intra[m] = k
             vals[m, 0] = float(cid + 1)
@@ -103,6 +129,21 @@ def _excl_channels(exclusions, n_pad: int):
         -np.asarray([intra[m] for m in rows], np.float64) - 1.0)
     ).astype(np.float32)
     return vals
+
+
+def _excl_table(exclusions, n_pad: int) -> np.ndarray:
+    """(n_pad, Emax) int64 per-particle excluded-partner rows, sentinel
+    n_pad, both directions of each (i, j) (the list engine's in-list
+    mask)."""
+    nbrs = defaultdict(list)
+    for i, j in np.asarray(exclusions):
+        nbrs[int(i)].append(int(j))
+        nbrs[int(j)].append(int(i))
+    emax = max(len(v) for v in nbrs.values())
+    tbl = np.full((n_pad, emax), n_pad, dtype=np.int64)
+    for i, v in nbrs.items():
+        tbl[i, :len(v)] = v
+    return tbl
 
 
 def bonded_tables(sysdef: SystemDef, dtype=torch.float32):
@@ -131,9 +172,10 @@ def bonded_tables(sysdef: SystemDef, dtype=torch.float32):
 
 def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
                    engine: str = "kernel"):
-    """Returns force_fn(state, box, perm) -> (f, e_pot, virial, pe), with
-    perm the slot permutation from ops.cellpair.build_cell_slots on
-    `grid`.
+    """Returns force_fn(state, box, handle) -> (f, e_pot, virial, pe),
+    with handle the slot permutation from ops.cellpair.build_cell_slots
+    on `grid` (the cell engines) or the (N,K) index list from
+    nbr.celllist.build_neighbor_list (engine "nlist").
 
     engine "kernel" (the JAX package's "pallas"; `grid` a plan_lanes
     grid, f32): the MARTINI and PAIR pair terms run their column kernel
@@ -143,54 +185,19 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
     CellBlockGrid.plan grid, any dtype, triclinic boxes, pbc < 7): the
     pair terms run the plain cell-block engine of ops/cellpair.py, EAM
     that of ops/cellpair_eam.py; neither launches a kernel.  EAM with
-    pbc < 7 raises on either engine (item 27).  The term list is kept as
-    force_fn.terms (per-term profiling); each kernel term carries
-    `kernel_inputs` (the call it makes, for chip_smoke.py), `grid` and
-    `G`."""
+    pbc < 7 raises on either cell engine (item 27), as do a PAIR
+    TableFunction, PAIRENERGY and ORDERSH (the list engine's alone).
+    engine "nlist" (a CellGrid, any dtype and geometry) runs every term
+    over the list (_nlist_terms) and launches no kernel.  The term list
+    is kept as force_fn.terms (per-term profiling); each kernel term
+    carries `kernel_inputs` (the call it makes, for chip_smoke.py),
+    `grid` and `G`."""
     state = sysdef.state
     device = state.device
-    n_loc = state.n_local
-    excl_vals = None
-    if _inlist_excl(sysdef):
-        excl_vals = torch.as_tensor(
-            _excl_channels(sysdef.bonded.exclusions, state.n_pad),
-            device=device)
-    terms = []
-    for ptype, _, parms in sysdef.potentials:
-        if ptype == "EAM":
-            terms.append(_eam_term(parms, grid, engine, sysdef.box.pbc,
-                                   dtype, device))
-        elif ptype == "MARTINI":
-            tables = martini_device_tables(parms, dtype=dtype, device=device)
-            tmap = torch.as_tensor(parms.species_lj_type, device=device)
-            # reaction-field Coulomb is dead weight when every local charge
-            # is zero (the Martini water box): skip the per-pair RF math and
-            # the (zero) self energy
-            coul = bool(np.any(state.q[:n_loc].cpu().numpy() != 0.0))
-            # uniform-type fast path: scalar LJ parameters in the kernel
-            used = np.unique(parms.species_lj_type[
-                state.species[:n_loc].cpu().numpy()])
-            if len(used) == 1:
-                t0 = int(used[0])
-                tables = dict(tables, **{
-                    k: tables[k][t0:t0 + 1, t0:t0 + 1]
-                    for k in ("sigma", "eps", "shift")})
-                tmap = torch.zeros_like(tmap)
-            terms.append(_pair_term(tables, tmap, coul, excl_vals, grid,
-                                    engine, sysdef.box.pbc, device))
-        elif ptype == "PAIR":
-            # the species index is the type index, the (T, T) tables whole,
-            # Coulomb off (run/forces.py:245-283 of the JAX package); a
-            # TableFunction raises here (item 19)
-            tables = pair_device_tables(parms, dtype=dtype, device=device)
-            tmap = torch.arange(parms.n_species, device=device)
-            terms.append(_pair_term(tables, tmap, False, None, grid, engine,
-                                    sysdef.box.pbc, device))
-        elif ptype == "RESTRAINT":
-            terms.append(_restraint_term(state, parms, dtype, device))
-        elif ptype not in ("NONE", "REFLECT"):
-            # REFLECT is a post-drift hook, NONE adds no force
-            raise NotImplementedError(f"force term {ptype}")
+    if engine == "nlist":
+        terms = _nlist_terms(sysdef, dtype, device)
+    else:
+        terms = _cell_terms(sysdef, grid, dtype, engine, device)
 
     # covalent terms (bonds, angles, exclusion RF corrections)
     btab = bonded_tables(sysdef, dtype)
@@ -223,6 +230,121 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
 
     force_fn.terms = terms
     return force_fn
+
+
+def _cell_terms(sysdef: SystemDef, grid, dtype, engine, device):
+    """The terms of the cell engines ("kernel", "cellblock")."""
+    state = sysdef.state
+    n_loc = state.n_local
+    excl_vals = None
+    if _inlist_excl(sysdef):
+        excl_vals = torch.as_tensor(
+            _excl_channels(sysdef.bonded.exclusions, state.n_pad),
+            device=device)
+    terms = []
+    for ptype, _, parms in sysdef.potentials:
+        if ptype == "EAM":
+            terms.append(_eam_term(parms, grid, engine, sysdef.box.pbc,
+                                   dtype, device))
+        elif ptype == "MARTINI":
+            tables = martini_device_tables(parms, dtype=dtype, device=device)
+            tmap = torch.as_tensor(parms.species_lj_type, device=device)
+            # reaction-field Coulomb is dead weight when every local charge
+            # is zero (the Martini water box): skip the per-pair RF math and
+            # the (zero) self energy
+            coul = bool(np.any(state.q[:n_loc].cpu().numpy() != 0.0))
+            # uniform-type fast path: scalar LJ parameters in the kernel
+            used = np.unique(parms.species_lj_type[
+                state.species[:n_loc].cpu().numpy()])
+            if len(used) == 1:
+                t0 = int(used[0])
+                tables = dict(tables, **{
+                    k: tables[k][t0:t0 + 1, t0:t0 + 1]
+                    for k in ("sigma", "eps", "shift")})
+                tmap = torch.zeros_like(tmap)
+            terms.append(_pair_term(tables, tmap, coul, excl_vals, grid,
+                                    engine, sysdef.box.pbc, device))
+        elif ptype == "PAIR":
+            # the species index is the type index, the (T, T) tables whole,
+            # Coulomb off (run/forces.py:245-283 of the JAX package); the
+            # cell engines read no table, so a TableFunction raises
+            if parms.table is not None:
+                raise NotImplementedError(TABLE_ENGINE)
+            tables = pair_device_tables(parms, dtype=dtype, device=device)
+            tmap = torch.arange(parms.n_species, device=device)
+            terms.append(_pair_term(tables, tmap, False, None, grid, engine,
+                                    sysdef.box.pbc, device))
+        elif ptype == "RESTRAINT":
+            terms.append(_restraint_term(state, parms, dtype, device))
+        elif ptype in ("ORDERSH", "PAIRENERGY"):
+            raise NotImplementedError(
+                f"{ptype} runs on the (N,K)-list engine only (engine "
+                '"nlist"; Simulation selects it)')
+        elif ptype not in ("NONE", "REFLECT"):
+            # REFLECT is a post-drift hook, NONE adds no force
+            raise NotImplementedError(f"force term {ptype}")
+    return terms
+
+
+def _nlist_terms(sysdef: SystemDef, dtype, device):
+    """The terms of the (N,K)-list engine (run/forces.py:223-384 of the
+    JAX package): MARTINI through martini_nonbond with the excluded
+    pairs masked in the list, PAIR through pair_lj (LJ or the table), EAM
+    through eam_eval (any form, pbc < 7 too), PAIRENERGY, the ORDERSH
+    bias and RESTRAINT springs; each term's handle is the (N,K) list."""
+    state = sysdef.state
+    excl_tbl = None
+    if _inlist_excl(sysdef):
+        excl_tbl = torch.as_tensor(
+            _excl_table(sysdef.bonded.exclusions, state.n_pad),
+            device=device)
+    terms = []
+    for ptype, _, parms in sysdef.potentials:
+        if ptype == "MARTINI":
+            tables = martini_device_tables(parms, dtype=dtype, device=device)
+            tmap = torch.as_tensor(parms.species_lj_type, device=device)
+
+            def term(state, box, nbr, tables=tables, tmap=tmap):
+                return martini_nonbond(state.r, state.q, tmap[state.species],
+                                       state.fmask, nbr, box.geom, tables,
+                                       excl_tbl=excl_tbl)[:4]
+        elif ptype == "PAIR":
+            tables = pair_device_tables(parms, dtype=dtype, device=device)
+
+            def term(state, box, nbr, tables=tables):
+                return pair_lj(state.r, state.species, state.fmask, nbr,
+                               box.geom, tables)
+        elif ptype == "EAM":
+            tables = eam_device_tables(parms, dtype=dtype, device=device)
+
+            def term(state, box, nbr, tables=tables):
+                return eam_eval(state.r, state.species, state.fmask, nbr,
+                                box.geom, tables)
+        elif ptype == "PAIRENERGY":
+            from ..potentials.pairenergy import (pairenergy_device_tables,
+                                                 pairenergy_eval)
+
+            tables = pairenergy_device_tables(parms, dtype=dtype,
+                                              device=device)
+
+            def term(state, box, nbr, tables=tables):
+                return pairenergy_eval(state.r, state.species, state.fmask,
+                                       nbr, box.geom, tables)
+        elif ptype == "ORDERSH":
+            from ..potentials.ordersh import make_ordersh_eval
+
+            osh = make_ordersh_eval(parms, state.n_local, dtype)
+
+            def term(state, box, nbr, osh=osh):
+                return osh(state.r, state.fmask, nbr, box.geom)[:4]
+        elif ptype == "RESTRAINT":
+            term = _restraint_term(state, parms, dtype, device)
+        elif ptype in ("NONE", "REFLECT"):
+            continue
+        else:
+            raise NotImplementedError(f"force term {ptype}")
+        terms.append(term)
+    return terms
 
 
 def _pair_term(tables, tmap, coul, excl_vals, grid, engine, pbc, device):

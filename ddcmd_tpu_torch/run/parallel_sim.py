@@ -35,17 +35,17 @@ The nonbond term is the deck's one MARTINI, EAM or PAIR potential,
 selected by type as the JAX mesh selects it (parallel_sim.py:58-90);
 NONE terms carry no force and are dropped.  Where the JAX mesh would
 drop a force silently, the port raises naming item 25: RESTRAINT and
-REFLECT (the JAX mesh ignores both), a second nonbond term, a deck with
-no nonbond term, and EAM it cannot run (unfitted TABULAR, more than 4
-species).
+REFLECT, PAIRENERGY and ORDERSH (the JAX mesh ignores all four), a
+second nonbond term, a deck with no nonbond term, and EAM it cannot run
+(unfitted TABULAR, more than 4 species).
 
 Deck features outside these paths raise NotImplementedError naming
 their ROADMAP item: load balance (and with it the pxyz decomposition
 restart), triclinic bricks and non-periodic axes (item 25: the JAX mesh
 reads no pbc bit and would run such a deck fully periodic), an
-exclusion component wider than the in-kernel encoding, a geometry the
-cell engine cannot take or a tabulated PAIR (the JAX package then runs
-its (N,K)-list engine, item 19), bonded families the port does not
+exclusion component wider than the in-kernel encoding, a tabulated PAIR
+or bricks narrower than the cell engine allows (the JAX package's brick
+list engine make_brick_step, item 25), bonded families the port does not
 evaluate (item 12), NGLFNEW with constraints (the JAX mesh projects
 constraints only for CONSTRAINT integrators, its Simulation also for
 NGLFNEW).  The checkpoint writer, rebalance, the gathered view and the
@@ -74,7 +74,8 @@ from ..parallel.shard_cells import plan_shard_cells
 from ..potentials.eam import eam_device_tables
 from ..potentials.martini import martini_device_tables
 from ..potentials.pair import pair_device_tables
-from .forces import _excl_channels, bonded_tables
+from .forces import (_excl_channels, bonded_tables,
+                     wide_exclusion_component)
 from .printinfo import PrintInfo
 from .simulate import (_BAROSTAT_TYPES, _NGLF_TYPES,
                        refuse_unported_outputs, uses_constraints)
@@ -182,7 +183,13 @@ class ParallelSimulation:
         elif ptype == "PAIR":
             # the MARTINI kernel with zero reaction-field constants, the
             # species index as type (parallel_sim.py:74-92 of the JAX
-            # package); a TableFunction raises (item 19)
+            # package); the kernel reads no table
+            if parms.table is not None:
+                raise NotImplementedError(
+                    "PAIR function=TableFunction under the mesh: the table "
+                    "runs on the brick (N,K)-list engine (the JAX "
+                    "package's make_brick_step), not ported yet "
+                    f"({_MESH_ITEM})")
             tables = pair_device_tables(parms, device=dev)
             tmap = np.arange(len(sd.species))
             self.force_kind = "martini"
@@ -302,7 +309,14 @@ class ParallelSimulation:
 
         n = sd.state.n_local
         if bt.exclusions is not None and self.force_kind == "martini":
-            # raises (item 19) for a component wider than the encoding
+            wide = wide_exclusion_component(sd)
+            if wide:
+                raise NotImplementedError(
+                    f"an exclusion component of {wide} particles exceeds "
+                    "what the in-kernel exclusion channels encode; under "
+                    "the mesh such a deck needs the brick "
+                    "(N,K)-list engine (the JAX package's make_brick_step), "
+                    f"not ported yet ({_MESH_ITEM})")
             self._excl_vals = _excl_channels(bt.exclusions, n)
         btab = bonded_tables(sd)
         if btab is not None:
@@ -329,9 +343,9 @@ class ParallelSimulation:
             if na > 1 and span < rlist * (2.0 if na == 2 else 1.0):
                 raise NotImplementedError(
                     f"axis {a}: brick {span:.3f} too narrow for rlist "
-                    f"{rlist:.3f}; the (N,K)-list mesh engine the JAX "
-                    "package runs then is not ported yet (ROADMAP queue 1, "
-                    "item 19)")
+                    f"{rlist:.3f}; the brick (N,K)-list engine the JAX "
+                    "package runs then (make_brick_step) is not ported yet "
+                    f"({_MESH_ITEM})")
 
     def _live_L(self) -> np.ndarray:
         return self.Lv.cpu().numpy().astype(np.float64)

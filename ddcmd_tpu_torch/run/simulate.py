@@ -5,31 +5,42 @@ src/masters.c:369-559), reduced to the main paths: NGLF / NGLFCONSTRAINT
 with the Berendsen barostat and RATTLE constraints, MARTINI nonbond and
 PAIR Lennard-Jones through the cell-pair kernels plus the batched bonded
 terms, EAM through the two-pass EAM kernels, RESTRAINT springs, REFLECT
-walls and NONE terms.
+walls and NONE terms, and on the (N,K)-list engine also PAIRENERGY, the
+ORDERSH bias and the PAIR TableFunction.
 
-The engine is the JAX package's choice (simulate.py:50-118) cut to what
-is ported: the kernels ("kernel", the JAX package's "pallas") for f32,
-orthorhombic, fully periodic decks whose EAM term (if any) the EAM
-kernels take; the plain cell-block engines ("cellblock",
-ops/cellpair.cellpair_eval_half and ops/cellpair_eam.
-eam_cellblock_eval_half, no kernel) for decks with non-periodic axes,
-triclinic boxes, f64, TABULAR EAM without tabularFit=rational or EAM of
-more than 4 species.  Its plan is CellBlockGrid.plan's, and an overflow
-grows its cap by 1.5.  EAM with non-periodic axes raises (item 27).
+The engine is the JAX package's choice (simulate.py:50-118, choose_engine)
+with "pallas" read as "kernel": the kernels for f32, orthorhombic, fully
+periodic decks whose EAM term (if any) the EAM kernels take; the plain
+cell-block engines ("cellblock", ops/cellpair.cellpair_eval_half and
+ops/cellpair_eam.eam_cellblock_eval_half, no kernel) for decks with
+non-periodic axes, triclinic boxes, f64, TABULAR EAM without
+tabularFit=rational or EAM of more than 4 species; the (N,K)-list engine
+("nlist", nbr/celllist.py and the list terms of run/forces.py, plain
+PyTorch, no kernel) for decks with PAIRENERGY or ORDERSH and decks
+whose exclusion graph has a component wider than the cell engines'
+12-member encoding.  Where the JAX choice gives a wrong result the port
+raises instead: a TableFunction PAIR deck (zero pair force on the JAX
+cell engines) asks for engine="nlist", and EAM with non-periodic axes
+raises on the cell engines (item 27).  The cell-block plan is
+CellBlockGrid.plan's and an overflow grows its cap by 1.5; the list's is
+core/system.plan_grid's and an overflow grows its cell capacity and K
+by 1.5.
 
 One dispatch runs k steps as n_rebuilds blocks of `updateRate` steps:
-each block wraps positions and rebuilds the cell slots, then runs its
-steps on that slot list.  Nothing in a dispatch reads the device; the
-per-step scalars, the overflow flag and the worst displacement are
-reduced on the device and copied to the host once at the end of the
-dispatch (the JAX package's superchunk_fixed, simulate.py:489-537).
-The host then checks them:
+each block rebuilds the cell slots or the list (the cell engines wrap
+positions there; the list engine wraps after every drift, as the JAX
+step does), then runs its steps on that handle.  Nothing in a dispatch
+reads the device; the per-step scalars, the overflow flag and the worst
+displacement are reduced on the device and copied to the host once at
+the end of the dispatch (the JAX package's superchunk_fixed,
+simulate.py:489-537).  The host then checks them:
 
-  * overflow (a rebuild dropped particles, or a shrinking box took a
-    cell edge below rlist -- `cell_edge_bad`): the dispatch is discarded
-    and the grid replanned at the live box; if that changes nothing, the
-    planner's density safety grows by 1.3 first.  Dynamic-box decks that
-    keep overflowing halve the dispatch so the host replans along the
+  * overflow (a rebuild dropped particles or pairs, or a shrinking box
+    took a cell edge below rlist -- `cell_edge_bad`): the dispatch is
+    discarded and the grid replanned at the live box; if that changes
+    nothing, the kernels' density safety grows by 1.3 first (the cell
+    engines' and the list's room by 1.5).  Dynamic-box decks that keep
+    overflowing halve the dispatch so the host replans along the
     compression;
   * non-finite energy: the kill switch raises (masters.c:470-475);
   * verlet-skin staleness (2 (max|dr| + 2 max|dh|) >= deltaR on a step
@@ -46,6 +57,7 @@ compression does not trip the cell-edge guard right away.
 
 from __future__ import annotations
 
+import dataclasses
 import time as _time
 import warnings
 
@@ -55,14 +67,16 @@ import torch
 from ..core.energy import EnergyInfo
 from ..core.groups import kick_noise
 from ..core.molecule import build_molecule_class, make_molecular_virial_fn
-from ..core.system import build_system
+from ..core.system import build_system, plan_grid
 from ..integrators.nglf import StepState, first_energy_call, make_nglf_step
+from ..nbr.celllist import build_neighbor_list, check_nonperiodic_cells
 from ..objects import ObjectDB
 from ..objects import units as U
 from ..ops.cellpair import CellBlockGrid, build_cell_slots
 from ..ops.cellpair_half import plan_lanes
 from ..ops.eam_half import eam_half_supported
-from .forces import build_force_fn
+from ..potentials.pair import TABLE_ENGINE
+from .forces import build_force_fn, wide_exclusion_component
 from .printinfo import PrintInfo
 
 # integrator types that run the NGLF step
@@ -130,13 +144,23 @@ def resolve_device(device=None) -> torch.device:
 
 
 def choose_engine(sd, dtype, engine: str = "auto") -> str:
-    """The pair engine of a deck: "kernel" for an f32, orthorhombic, fully
-    periodic deck, "cellblock" when the deck forces it (pbc < 7, a
-    triclinic box, f64, an EAM term the EAM kernels do not take: TABULAR
-    without tabularFit=rational, more than 4 species), as the JAX
-    package's auto choice on a TPU (simulate.py:50-118).  An explicit
-    engine is kept; "kernel" on a deck that forces the cell-block engine
-    raises instead of moving off the kernels unasked."""
+    """The engine of a deck, as the JAX package's auto choice on a TPU
+    (simulate.py:50-118) with "pallas" read as "kernel":
+
+      * "nlist" for a deck with PAIRENERGY or ORDERSH, and (with a
+        warning) for a deck whose exclusion graph has a component wider
+        than the cell engines' 12-member encoding;
+      * "cellblock" when the deck forces it (pbc < 7, a triclinic box,
+        f64, an EAM term the EAM kernels do not take: TABULAR without
+        tabularFit=rational, more than 4 species);
+      * "kernel" otherwise.
+
+    A PAIR TableFunction raises under auto, naming engine="nlist" (the
+    JAX cell engines give it zero pair force).  An explicit engine is
+    kept: "nlist" runs any deck; a cell engine raises ValueError for a
+    list-only term or a wide exclusion component (and NotImplementedError
+    for a table), and "kernel" on a deck that forces the cell-block
+    engine raises instead of moving off the kernels unasked."""
     eam = [p[2] for p in sd.potentials if p[0] == "EAM"]
     forced = [why for why, yes in (
         (f"dtype {dtype}", dtype != torch.float32),
@@ -144,10 +168,40 @@ def choose_engine(sd, dtype, engine: str = "auto") -> str:
         ("a triclinic box", not sd.box.ortho),
         *((f"EAM form {p.form} with {p.n_species} species",
            not eam_half_supported(vars(p))) for p in eam)) if yes]
+    list_only = [f"{p[0]} ({p[1]})" for p in sd.potentials
+                 if p[0] in ("PAIRENERGY", "ORDERSH")]
+    wide = wide_exclusion_component(sd)
+    table = any(p[0] == "PAIR" and p[2].table is not None
+                for p in sd.potentials)
     if engine == "auto":
+        if list_only:
+            return "nlist"
+        if wide:
+            cell = "cellblock" if forced else "kernel"
+            warnings.warn(
+                "exclusion graph exceeds the in-kernel encoding "
+                f"({wide}-member component); demoting {cell} -> nlist "
+                "engine for exclusion safety", stacklevel=3)
+            return "nlist"
+        if table:
+            raise NotImplementedError(TABLE_ENGINE)
         return "cellblock" if forced else "kernel"
-    if engine not in ("kernel", "cellblock"):
-        raise ValueError(f"engine {engine!r}: auto, kernel or cellblock")
+    if engine not in ("kernel", "cellblock", "nlist"):
+        raise ValueError(f"engine {engine!r}: auto, kernel, cellblock or "
+                         "nlist")
+    if engine == "nlist":
+        return engine
+    if list_only:
+        raise ValueError(
+            f"engine {engine!r} cannot run {', '.join(list_only)}: these "
+            'terms run on the (N,K)-list engine only (engine "nlist")')
+    if wide:
+        raise ValueError(
+            f"engine {engine!r}: an exclusion component of {wide} particles "
+            "exceeds what the cell engines' in-kernel exclusion channels "
+            'encode; the deck runs on engine "nlist"')
+    if table:
+        raise NotImplementedError(TABLE_ENGINE)
     if engine == "kernel" and forced:
         raise ValueError(
             f"engine 'kernel' cannot run {', '.join(forced)}: the kernels "
@@ -245,11 +299,17 @@ class Simulation:
                 self.dtype, box_lengths=L, device=self.device)
         return fn
 
-    def _plan(self, box) -> CellBlockGrid:
+    def _plan(self, box):
         """The engine's cell plan at `box`: plan_lanes for the kernels,
         CellBlockGrid.plan (perpendicular spans) for the cell-block
-        engine."""
+        engine, plan_grid (perpendicular spans) for the list, which
+        raises where a non-periodic axis has fewer than 3 cells (item
+        28)."""
         sd = self.sysdef
+        if self.engine == "nlist":
+            grid = plan_grid(sd, plan_margin=self._plan_margin, box=box)
+            check_nonperiodic_cells(grid.ncells, sd.box.pbc)
+            return grid
         geom = box.geom.cpu().numpy().astype(np.float64)
         if self.engine == "kernel":
             return plan_lanes(geom, sd.rcut_max, sd.neighbor_deltaR,
@@ -268,20 +328,35 @@ class Simulation:
             self.force_fn, sd.cfg.dt, barostat=self.barostat,
             constraint_fn=self.constraint_fn,
             molecular_virial_fn=self.mol_virial_fn,
-            post_drift_fn=self.post_drift_fn)
+            post_drift_fn=self.post_drift_fn,
+            wrap_positions=self.engine == "nlist")
         # the cell-edge guard's per-axis bound, made once per plan
         self._edge_min = (torch.tensor(self.grid.ncells, dtype=self.dtype,
                                        device=self.device)
                           * float(self.grid.rlist))
 
+    def _room(self):
+        """The plan's capacities: the cell cap, and the list's K."""
+        g = self.grid
+        if self.engine == "nlist":
+            return (g.cell_capacity, g.max_neighbors)
+        return g.cap
+
     def replan(self):
         """Re-plan the cell grid at the live box (and, for the kernels,
-        the current density safety); the cap never shrinks (the overflow
-        ladder only grows it)."""
-        prev_cap = self.grid.cap
+        the current density safety); the cap (and the list's K) never
+        shrinks (the overflow ladder only grows it)."""
+        prev = self.grid
         self.grid = self._plan(self.ss.box)
-        if self.grid.cap < prev_cap:
-            self.grid = self.grid.with_cap(prev_cap)
+        if self.engine == "nlist":
+            self.grid = dataclasses.replace(
+                self.grid,
+                cell_capacity=max(self.grid.cell_capacity,
+                                  prev.cell_capacity),
+                max_neighbors=max(self.grid.max_neighbors,
+                                  prev.max_neighbors))
+        elif self.grid.cap < prev.cap:
+            self.grid = self.grid.with_cap(prev.cap)
         self._build_step()
 
     def _grid_stale(self, slack: float = 1.0) -> bool:
@@ -292,15 +367,22 @@ class Simulation:
                            < self.grid.rlist * slack))
 
     def _build_nbr(self, ss: StepState):
-        """Wrap at rebuild; steps between rebuilds leave positions
-        unwrapped so the cell-block image shifts stay exact.  The
+        """The cell engines wrap at rebuild (steps between rebuilds leave
+        positions unwrapped so the cell-block image shifts stay exact)
+        and bin into slots; the list engine builds the (N,K) list from
+        the positions its steps wrapped, with the deck's pbc bits.  The
         overflow flag also covers a live cell edge below rlist (a
         shrinking box with a static cell count misses one-shell pairs)."""
+        edge_bad = torch.any(ss.box.perp_spans < self._edge_min)
+        if self.engine == "nlist":
+            nbr, _, overflow = build_neighbor_list(
+                ss.state.r, ss.state.fmask, ss.box.geom, self.grid,
+                pbc=ss.box.pbc)
+            return ss, nbr, overflow | edge_bad
         r = ss.box.back_in_box(ss.state.r)
         ss = ss.replace(state=ss.state.replace(r=r))
         perm, overflow = build_cell_slots(r, ss.state.fmask, ss.box.geom,
                                           self.grid)
-        edge_bad = torch.any(ss.box.perp_spans < self._edge_min)
         return ss, perm, overflow | edge_bad
 
     def first_energy(self) -> StepState:
@@ -321,13 +403,22 @@ class Simulation:
         took a cell edge below rlist needs a new cell plan, a denser box a
         new occupancy plan); when that changes nothing, or the box never
         moved, the kernels' density safety grows by 1.3 before the
-        replan, the cell-block engine's cap by 1.5 (recapacity,
-        simulate.py:611-634)."""
+        replan, the cell-block engine's cap by 1.5, the list's cell
+        capacity by 1.5 (to a multiple of 8) and its K by 1.5 (to a
+        multiple of 128) (recapacity, simulate.py:611-641)."""
         if self.barostat is not None or self._grid_stale(slack=1.05):
-            old = (self.grid.ncells, self.grid.cap)
+            old = (self.grid.ncells, self._room())
             self.replan()
-            if (self.grid.ncells, self.grid.cap) != old:
+            if (self.grid.ncells, self._room()) != old:
                 return
+        if self.engine == "nlist":
+            g = self.grid
+            self.grid = dataclasses.replace(
+                g, cell_capacity=((int(g.cell_capacity * 1.5) + 7) // 8) * 8,
+                max_neighbors=((int(g.max_neighbors * 1.5) + 127) // 128)
+                * 128)
+            self._build_step()
+            return
         if self.engine == "cellblock":
             self.grid = self.grid.with_cap(int(self.grid.cap * 1.5))
             self._build_step()

@@ -7,8 +7,9 @@ is x, columns 1..k are values.  The host side (`from_file`,
 `from_columns`) is numpy, copied from the JAX package (importing
 ddcmd_tpu imports jax): the columns are resampled onto a uniform grid of
 `n_grid` points with np.interp and differentiated with np.gradient.
-`device_tables` and `teval` are the device side in torch: a linear
-interpolation with the reference's clamp of t to [0, m - 1.001].
+The device lookup of the tables is the TABULAR EAM form's
+(potentials/eam._tab_lookup: a linear interpolation with the reference's
+clamp of t to [0, m - 1.001]).
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 
 @dataclass
@@ -53,26 +53,3 @@ class TabulatedFunction:
         der = np.gradient(vals, dx, axis=1)
         return cls(x0=float(xg[0]), dx=float(dx), values=vals, derivs=der,
                    x_max=float(x[-1]))
-
-    def device_tables(self, dtype=torch.float32, device="cpu"):
-        return dict(x0=torch.tensor(self.x0, dtype=dtype, device=device),
-                    inv_dx=torch.tensor(1.0 / self.dx, dtype=dtype,
-                                        device=device),
-                    values=torch.as_tensor(self.values, dtype=dtype,
-                                           device=device),
-                    derivs=torch.as_tensor(self.derivs, dtype=dtype,
-                                           device=device),
-                    n=self.values.shape[1])
-
-
-def teval(tab: dict, x, col: int = 0, derivative: bool = False):
-    """Linear-interpolated lookup; clamps outside the domain (t to
-    [0, n - 1.001], so t + 1 stays inside the table)."""
-    src = tab["derivs"] if derivative else tab["values"]
-    t = (x - tab["x0"]) * tab["inv_dx"]
-    t = torch.clamp(t, 0.0, tab["n"] - 1.001)
-    i = torch.floor(t).long()
-    frac = t - i
-    v0 = src[col][i]
-    v1 = src[col][i + 1]
-    return v0 + frac * (v1 - v0)

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 import jax.numpy as jnp
 
 from ddcmd_tpu.core.molecule import build_molecule_class as j_build_mol
@@ -103,27 +105,27 @@ def test_exclusion_channels_equal_jax(systems):
 
 
 def test_wide_exclusion_component_raises(systems, monkeypatch):
-    """A component wider than 12 members raises (the JAX package demotes
-    such decks to its (N,K)-list engine, which the port does not have);
-    the port never falls back to compute-then-subtract."""
+    """A component wider than 12 members raises in the cell engines'
+    exclusion channels, naming the list engine (the port never falls back
+    to compute-then-subtract); a deck with one (the bilayer, its lipids
+    joined in pairs: chip_smoke.widen_exclusions) goes to the (N,K)-list
+    engine under auto, with the JAX package's demotion warning, and
+    engine="kernel" raises ValueError."""
     from ddcmd_tpu_torch.run import simulate as tsim
 
     assert j_excl_channels([(i, i + 1) for i in range(13)], 20) is None
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(NotImplementedError, match='engine="nlist"'):
         t_excl_channels([(i, i + 1) for i in range(13)], 20)
 
-    _, tsd, d = systems
-    wide = np.concatenate([tsd.bonded.exclusions,
-                           np.stack([np.arange(14), np.arange(1, 15)], 1)])
-
-    def wide_build(db, base, **kw):
-        sd = t_build_system(db, base, **kw)
-        sd.bonded.exclusions = wide
-        return sd
-
-    monkeypatch.setattr(tsim, "build_system", wide_build)
-    with pytest.raises(NotImplementedError, match="12"):
-        tsim.Simulation(t_load(d)[0], d, run_dir=d, device="cpu")
+    _, _, d = systems
+    monkeypatch.setattr(tsim, "build_system", lambda *a, **kw:
+                        chip_smoke.widen_exclusions(t_build_system(*a, **kw)))
+    with pytest.warns(UserWarning, match="demoting kernel -> nlist"):
+        sim = tsim.Simulation(t_load(d)[0], d, run_dir=d, device="cpu")
+    assert sim.engine == "nlist"
+    with pytest.raises(ValueError, match="exclusion component of 24"):
+        tsim.Simulation(t_load(d)[0], d, run_dir=d, device="cpu",
+                        engine="kernel")
 
 
 def _bonded_tables(sd, mod, **kw):

@@ -85,13 +85,14 @@ def test_npt_overflow_rolls_back_box_and_redistributes(small_deck,
 
 def test_wide_exclusion_component_raises(tmp_path, monkeypatch):
     """An exclusion component wider than the 12 members the in-kernel
-    channels encode raises naming ROADMAP item 19, as on a single
-    device: the port never computes and subtracts excluded pairs."""
+    channels encode raises under the mesh naming ROADMAP item 25 (the
+    brick list engine): the port never computes and subtracts excluded
+    pairs."""
     from ddcmd_tpu_torch.run import forces
 
     d = str(tmp_path)
     martini_bilayer(d, nx=2, ny=2, water_nm=1.2)
     monkeypatch.setattr(forces, "EXCL_MAX_MEMBERS", 4)
     with pytest.raises(NotImplementedError,
-                       match="exclusion component(.|\n)*item 19"):
+                       match="exclusion component(.|\n)*item 25"):
         ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")

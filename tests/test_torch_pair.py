@@ -220,18 +220,22 @@ def test_pair_mesh_first_energy(tmp_path):
 
 @pytest.mark.parametrize("driver", ["simulate", "mesh", "cellblock"])
 def test_table_function_raises(tmp_path, driver):
-    """A TableFunction PAIR deck raises in every driver and engine of the
-    port, naming item 19: the JAX package evaluates the table only on its
-    (N,K)-list engine (its cell engines compute no pair force for it)."""
+    """A TableFunction PAIR deck raises under auto and on the cell
+    engines, naming engine="nlist" (the JAX package evaluates the table
+    only on its (N,K)-list engine; its cell engines compute no pair force
+    for it), and under the mesh, naming item 25 (the brick list
+    engine)."""
     d = str(tmp_path)
     lj_fluid(d, n=64, table=True)
-    with pytest.raises(NotImplementedError, match="TableFunction.*item 19"):
-        if driver == "mesh":
+    if driver == "mesh":
+        with pytest.raises(NotImplementedError,
+                           match="TableFunction.*item 25"):
             ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
-        else:
-            Simulation(*load(d), run_dir=d, device="cpu",
-                       engine="auto" if driver == "simulate"
-                       else "cellblock")
+        return
+    with pytest.raises(NotImplementedError,
+                       match='TableFunction.*engine="nlist"'):
+        Simulation(*load(d), run_dir=d, device="cpu",
+                   engine="auto" if driver == "simulate" else "cellblock")
 
 
 def test_jax_cell_engine_drops_table(tmp_path):
