@@ -1,6 +1,6 @@
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
-    python3 chip_smoke.py [--kernels-only | --list-only]
+    python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -138,12 +138,32 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      PAIRENERGY, table, widened-exclusion bilayer and pbc = 3 slab decks
      on the card against the CPU.
 
+ 19. CHARMM all-atom decks (potentials/charmm.py, the bonded families in
+     the batched and the generic evaluators): (a) (C), the c36 solvated
+     tripeptide of BASELINE.md:195 (3,630 atoms, L = 40 A), 12000 f32
+     LANGEVIN steps through the CLI, demoted to the list engine with the
+     warning, no kernel launched, mean T, steps/s, busy share, CUDA
+     kernels a step, list build and peak memory, and its first energy
+     and forces against f64 on the same state; (b) f64 NVE at 0.25 fs
+     from rest, 1000 steps, on the JAX test's 102-atom deck and on (C):
+     |dEtot| after 100 steps (JAX's 0.5 kJ/mol a 102 atoms), max |dEtot|,
+     drift;
+     (c) (E), the CHARMM ethane fluid at 4,096 molecules in 10.0 nm
+     (32,768 atoms, T = 2, RF, 8-member exclusion channels) through
+     Simulation on the kernel its plan gives (#2), that kernel against
+     its plain version on (E)'s records with device time and bound, the
+     kernels' first forces against the cell-block engine in f64, 5000
+     NVT steps with rates; in (a) and (c) the bonded term's CUDA graph
+     against its eager function, with both times; (d) (E)
+     through ParallelSimulation at (1,1,1) on #6; (e) small c36 and
+     ethane decks on the card against the CPU.
+
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
 the kernels' JSON line, the card line, and last {"ok": true, "device":
 {...}}.  --kernels-only stops after phase 3 and prints no result;
 --list-only builds the kernels, runs phase 18 alone and prints no
-result.
+result; --charmm-only does the same with phase 19.
 """
 
 import contextlib
@@ -152,10 +172,12 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -247,6 +269,24 @@ ORDERSH_POT = ("osh POTENTIAL { type=ORDERSH; L=6; r1o=2.6 Angstrom; "
 PAIRENERGY_POT = ("pen POTENTIAL { type=PAIRENERGY; rmax=5.5 Angstrom; "
                   "r_expansion=5.5 Angstrom; "
                   "Cu-Cu_2body= 0.0 0.05 -0.002 0.0001 ; }")
+# phase 19, CHARMM: (C) the c36 solvated tripeptide of BASELINE.md:195
+# (L = 40 A, 1,200 TIP3 waters, 3,630 atoms, LANGEVIN 300 K, dt 1 fs)
+# and (E) the ethane fluid at 4,096 molecules in a 10.0 nm box (32,768
+# atoms; 9.0 nm starts two hydrogens 1.30 A apart, 10.0 nm 1.92 A): f32
+# steps and the T window.  Neither start is at 300 K: (E) starts at rest
+# and its LANGEVIN group (tau 1 ps) heats it as 1 - exp(-t / 1 ps) (by
+# 1,000-step blocks 156.9, 257.9, 286.3, 294.9, 297.5 K on the card);
+# (C)'s strained start releases its structure energy over ~10 ps (419.8,
+# 363.6, 339.6, 324.2, 316.2, 311.5, 305.5, 302.6, 302.1 K; H100 80GB
+# HBM3, 700 W; 308.1 K over steps 7,001-8,000 in another call), so (C)
+# runs 12,000 steps and (E) 5,000, and each reads T over its last
+# 1,000.  The f64 NVE legs (test_c36_nve_100_steps: dt
+# 0.25 fs, |dEtot| <= 0.5 kJ/mol after 100 steps on its 102-atom deck),
+# read every C36_NVE_CHUNK steps
+C36_L, C36_MAX_W, C36_STEPS, C36_TAIL = 40.0, 1200, 12000, 1000
+C36_NVE_DT, C36_NVE_STEPS, C36_NVE_CHUNK = 0.25, 1000, 10
+C36_NVE_GATE, C36_NVE_GATE_ATOMS = 0.5, 102
+ETH_N, ETH_L, ETH_STEPS, CHARMM_T = 4096, 10.0, 5000, 300.0
 # the least time the card could take (H100 SXM peaks at 700 W): f32
 # outside the tensor cores, and HBM3
 PEAK_F32, PEAK_BW = 67e12, 3.35e12
@@ -867,6 +907,293 @@ def widened(*modules):
     finally:
         for m, build in zip(modules, saved):
             m.build_system = build
+
+
+# --- phase 19's decks: copies of the JAX package's CHARMM test fixtures
+# (tests/test_charmm.py:make_fixture, tests/test_charmm_c36.py:
+# make_solvated_fixture), which chip_smoke.py cannot import (they import
+# JAX); tests/test_torch_charmm.py holds them byte-equal
+
+ETHANE_RTF = """* synthetic topology
+*
+36  1
+
+MASS     1 CT3   12.01100 C
+MASS     2 HA     1.00800 H
+
+RESI ETHA  0.00 ! ethane
+GROUP
+ATOM C1  CT3  -0.27
+ATOM H11 HA    0.09
+ATOM H12 HA    0.09
+ATOM H13 HA    0.09
+GROUP
+ATOM C2  CT3  -0.27
+ATOM H21 HA    0.09
+ATOM H22 HA    0.09
+ATOM H23 HA    0.09
+BOND C1 C2  C1 H11  C1 H12  C1 H13
+BOND C2 H21 C2 H22  C2 H23
+
+END
+"""
+
+ETHANE_PAR = """* synthetic parameters
+*
+
+BONDS
+CT3 CT3  222.50     1.5280
+CT3 HA   322.00     1.1110
+
+ANGLES
+HA  CT3 HA    35.50    108.40    5.40   1.80200
+HA  CT3 CT3   34.60    110.10   22.53   2.17900
+
+DIHEDRALS
+X   CT3 CT3 X      0.1525  3     0.00
+
+NONBONDED nbxmod  5 atom cdiel fshift vatom vdistance vfswitch -
+cutnb 14.0 ctofnb 12.0 ctonnb 10.0 eps 1.0 e14fac 1.0 wmin 1.5
+CT3    0.0       -0.0780    2.040   0.0  -0.01  1.900
+HA     0.0       -0.0240    1.340
+
+END
+"""
+
+ETHANE_DECK = """
+simulate SIMULATE {{
+  type=MD; system=system; integrator=nglf; dt=1; maxloop=1000;
+  printrate=100; ddc=ddc;
+}}
+ddc DDC {{ updateRate=10; }}
+charmm POTENTIAL {{
+  type=CHARMM; topfile=top.rtf; parfile=par.prm;
+  cutoff=9.0 Angstrom; rcoulomb=9.0 Angstrom; epsilon_r=1.0; epsilon_rf=-1;
+}}
+nglf INTEGRATOR {{type=NGLF; T=300K;}}
+system SYSTEM {{
+  type=NORMAL; potential=charmm; neighbor=nbr; groups=free;
+  box=box; collection=collection;
+}}
+box BOX {{ type=ORTHORHOMBIC; pbc=7; h= {L} 0 0 0 {L} 0 0 0 {L} ; }}
+nbr NEIGHBOR {{ type=NORMAL; deltaR=2.0; }}
+free GROUP {{ type=LANGEVIN; Teq=300K; tau=1ps; }}
+collection COLLECTION {{ mode=VARRECORDASCII; size={n}; files=atoms#; }}
+"""
+
+# ethane geometry (Ang), roughly tetrahedral
+ETHANE_ATOMS = [
+    ("C1", (0.000, 0.000, 0.000)),
+    ("H11", (-0.390, 0.970, 0.300)),
+    ("H12", (-0.390, -0.720, 0.720)),
+    ("H13", (-0.390, -0.250, -1.020)),
+    ("C2", (1.528, 0.000, 0.000)),
+    ("H21", (1.920, 0.970, -0.300)),
+    ("H22", (1.920, -0.720, -0.720)),
+    ("H23", (1.920, -0.250, 1.020)),
+]
+
+
+def charmm_ethane_deck(d, n_mol=8, L=2.2):
+    """The synthetic CHARMM ethane fluid (RTF/PAR with autogenerated
+    X CT3 CT3 X torsions, Urey-Bradley 1-3 springs, 1-4 LJ pairs,
+    reaction-field Coulomb; LANGEVIN 300 K, cutoff 9 A, deltaR 2 A): n_mol
+    molecules anchored at C1 on a lattice in an L nm box, each with a
+    random rotation.  Returns the deck's path."""
+    with open(os.path.join(d, "top.rtf"), "w") as f:
+        f.write(ETHANE_RTF)
+    with open(os.path.join(d, "par.prm"), "w") as f:
+        f.write(ETHANE_PAR)
+    rng = np.random.default_rng(11)
+    rows = []
+    gid = 0
+    m = int(np.ceil(n_mol ** (1 / 3)))
+    centers = (np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), -1)
+               .reshape(-1, 3)[:n_mol] + 0.5) / m * L - L / 2
+    for c in centers:
+        rot = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+        for name, pos in ETHANE_ATOMS:
+            p = (rot @ np.asarray(pos)) * 0.1 + c  # Ang->nm, rotated
+            rows.append(f"{gid} ATOM {name}xETHA free "
+                        + " ".join("%.6f" % (x * 10) for x in p) + " 0 0 0")
+            gid += 1
+    n = len(rows)
+    hdr = (f"particle FILEHEADER {{type=MULTILINE; datatype=VARRECORDASCII; checksum=NONE;\n"
+           f"loop=0; time=0.0;\nnfiles=1; nrecord={n}; nfields=10;\n"
+           f"field_names=id class type group rx ry rz vx vy vz;\n"
+           f"field_types=u s s s f f f f f f;\n"
+           f"h= {L*10} 0 0 0 {L*10} 0 0 0 {L*10} ;\n}}\n\n")
+    with open(os.path.join(d, "atoms#000000"), "w") as f:
+        f.write(hdr + "\n".join(rows) + "\n")
+    p = os.path.join(d, "object.data")
+    with open(p, "w") as f:
+        f.write(ETHANE_DECK.format(L=L * 10, n=n))
+    return p
+
+
+def _unit(v):
+    v = np.asarray(v, dtype=np.float64)
+    return v / np.linalg.norm(v)
+
+
+def _cone(center, axis, bond, n, tilt_deg=70.5, phase=0.0):
+    """n positions at `bond` from center, tilted off `axis` (methyl/NH3
+    hydrogens)."""
+    u = _unit(axis)
+    a = np.array([1.0, 0.0, 0.0])
+    if abs(u @ a) > 0.9:
+        a = np.array([0.0, 1.0, 0.0])
+    e1 = _unit(np.cross(u, a))
+    e2 = np.cross(u, e1)
+    t = np.radians(tilt_deg)
+    out = []
+    for k in range(n):
+        ph = phase + 2 * np.pi * k / n
+        d = u * np.cos(t) + (e1 * np.cos(ph) + e2 * np.sin(ph)) * np.sin(t)
+        out.append(center + bond * d)
+    return out
+
+
+def _build_tripeptide():
+    """ALA(NTER)-GLY-ALA(CTER) coordinates (Angstrom), atoms in RTF
+    order per (patched) residue."""
+    shift = np.array([3.8, 0.3, 0.2])
+    out = []  # (species, xyz)
+    for i, res in enumerate(("ALAn", "GLY", "ALAc")):
+        N = np.array([0.0, 0.0, 0.0]) + i * shift
+        CA = np.array([1.2, 0.8, 0.0]) + i * shift
+        C = np.array([2.5, 0.3, 0.5]) + i * shift
+        O = np.array([2.7, -0.9, 0.7]) + i * shift
+        # HN bisects away from CA and the previous C (stays clear of -O)
+        HN = N + 0.997 * _unit([0.14, -0.88, -0.45])
+        # HA points away from N, C and CB
+        HA = CA + 1.08 * _unit([0.0, 0.57, 0.92])
+        CB = CA + 1.538 * _unit([-0.105, 0.945, -1.208])
+        HBs = _cone(CB, CB - CA, 1.111, 3)
+        delim = {"ALAn": "n", "GLY": "x", "ALAc": "c"}[res]
+        rn = "ALA" if res != "GLY" else "GLY"
+
+        def add(name, p):
+            out.append((f"{name}{delim}{rn}", p))
+
+        if res == "ALAn":
+            HTs = _cone(N, N - CA, 1.04, 3, phase=0.5)
+            add("N", N)
+            add("HT1", HTs[0])
+            add("HT2", HTs[1])
+            add("HT3", HTs[2])
+            add("CA", CA)
+            add("HA", HA)
+            add("CB", CB)
+            add("HB1", HBs[0])
+            add("HB2", HBs[1])
+            add("HB3", HBs[2])
+            add("C", C)
+            add("O", O)
+        elif res == "GLY":
+            # two backbone HAs, no CB
+            HA1 = CA + 1.08 * _unit([0.0, 0.57, 0.92])
+            HA2 = CA + 1.08 * _unit([-0.25, 0.45, -1.05])
+            add("N", N)
+            add("HN", HN)
+            add("CA", CA)
+            add("HA1", HA1)
+            add("HA2", HA2)
+            add("C", C)
+            add("O", O)
+        else:  # ALAc: CTER replaces (C, O) group with (C, OT1, OT2)
+            OT1 = O
+            OT2 = C + 1.26 * _unit([0.5, 1.05, -0.35])
+            add("N", N)
+            add("HN", HN)
+            add("CA", CA)
+            add("HA", HA)
+            add("CB", CB)
+            add("HB1", HBs[0])
+            add("HB2", HBs[1])
+            add("HB3", HBs[2])
+            add("C", C)
+            add("OT1", OT1)
+            add("OT2", OT2)
+    return out
+
+
+C36_DECK = """
+simulate SIMULATE {{
+  type=MD; system=system; integrator=integ; dt={dt}; maxloop=1000;
+  printrate=100; ddc=ddc;
+}}
+ddc DDC {{ updateRate=10; }}
+charmm POTENTIAL {{
+  type=CHARMM; topfile=c36ish_prot.rtf; parfile=c36ish_prot.prm;
+  cutoff=9.0 Angstrom; rcoulomb=9.0 Angstrom; epsilon_r=1.0; epsilon_rf=-1;
+}}
+integ INTEGRATOR {{ type=NGLF; T=300K; }}
+system SYSTEM {{
+  type=NORMAL; potential=charmm; neighbor=nbr; groups={grp};
+  box=box; collection=collection;
+}}
+box BOX {{ type=ORTHORHOMBIC; pbc=7; h= {L} 0 0 0 {L} 0 0 0 {L} ; }}
+nbr NEIGHBOR {{ type=NORMAL; deltaR=2.0; }}
+free GROUP {{ type=FREE; }}
+lang GROUP {{ type=LANGEVIN; Teq=300K; tau=1ps; }}
+collection COLLECTION {{ mode=VARRECORDASCII; size={n}; files=atoms#; }}
+"""
+
+
+def charmm_tripeptide_deck(d, L=20.0, max_w=24, nve=False, dt_fs=0.5):
+    """The c36 solvated tripeptide: ALA(NTER)-GLY-ALA(CTER) with one CMAP
+    on GLY, centred, and up to max_w TIP3 waters on a 3.2 A grid clear of
+    it, in an L A box (tests/data/c36ish_prot.rtf, .prm; cutoff 9 A,
+    reaction field, deltaR 2 A); LANGEVIN 300 K, or FREE with nve.
+    Returns the deck's path."""
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "data")
+    for f in ("c36ish_prot.rtf", "c36ish_prot.prm"):
+        shutil.copy(os.path.join(data, f), os.path.join(d, f))
+    atoms = _build_tripeptide()
+    pep = np.array([p for _, p in atoms])
+    # center the peptide so it doesn't straddle the periodic boundary
+    com = pep.mean(0)
+    atoms = [(sp, p - com) for sp, p in atoms]
+    pep = pep - com
+    # water grid, skipping sites near the peptide (min-image distance)
+    wbox = np.arange(-L / 2 + 1.8, L / 2 - 1.2, 3.2)
+    hoff = [np.array([0.76, 0.59, 0.0]), np.array([-0.76, 0.59, 0.0])]
+    n_w = 0
+    for x in wbox:
+        for y in wbox:
+            for z in wbox:
+                c = np.array([x, y, z])
+                dv = pep - c
+                dv = dv - L * np.round(dv / L)
+                if np.min(np.linalg.norm(dv, axis=1)) < 3.4:
+                    continue
+                if n_w >= max_w:
+                    break
+                atoms.append((f"OH2xTIP3", c))
+                atoms.append((f"H1xTIP3", c + hoff[0]))
+                atoms.append((f"H2xTIP3", c + hoff[1]))
+                n_w += 1
+    grp = "free" if nve else "lang"
+    rows = []
+    for gid, (sp, p) in enumerate(atoms):
+        rows.append(f"{gid} ATOM {sp} {grp} "
+                    + " ".join("%.6f" % x for x in p) + " 0 0 0")
+    n = len(rows)
+    hdr = (f"particle FILEHEADER {{type=MULTILINE; datatype=VARRECORDASCII;"
+           f" checksum=NONE;\nloop=0; time=0.0;\nnfiles=1; nrecord={n};"
+           f" nfields=10;\n"
+           f"field_names=id class type group rx ry rz vx vy vz;\n"
+           f"field_types=u s s s f f f f f f;\n"
+           f"h= {L} 0 0 0 {L} 0 0 0 {L} ;\n}}\n\n")
+    with open(os.path.join(d, "atoms#000000"), "w") as f:
+        f.write(hdr + "\n".join(rows) + "\n")
+    p = os.path.join(d, "object.data")
+    with open(p, "w") as f:
+        f.write(C36_DECK.format(L=L, n=n, grp=grp, dt=dt_fs))
+    return p
+
 
 
 def alloy_eam_deck(d, nc, printrate, free=True):
@@ -2533,6 +2860,21 @@ def window_stats(run, steps):
             len(kernels) / steps)
 
 
+def kernels_us(fn, n):
+    """Device time, us, of every CUDA kernel one call of fn launches
+    (torch.profiler over n calls, after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / n
+
+
 def first_state(d, dev, stats=False):
     """(engine, first energy, forces (n, 3) f64) of the deck in d through
     Simulation on dev; with `stats`, also window_stats of PROFILE_STEPS
@@ -2960,6 +3302,320 @@ def nlist_phase(card, dev, counters_zero, all_counters):
     assert not failed, f"(b) gates missed: {failed}"
 
 
+def charmm_phase(card, dev, counters_zero, all_counters):
+    """Phase 19, CHARMM all-atom decks: (a) (C), the c36 solvated
+    tripeptide (3,630 atoms), through the CLI in f32 for C36_STEPS steps:
+    auto demotes it to the list engine with the warning, no kernel
+    launches, mean T, steps/s, busy share, CUDA kernels a step, the list
+    build, the peak memory and the bonded term's CUDA graph against its
+    eager function; its first energy and forces against f64 on the same
+    state; (b) in f64 with a FREE group at dt 0.25 fs, C36_NVE_STEPS steps
+    from rest, the JAX test's 102-atom deck and (C): |dEtot| after 100
+    steps against JAX's bound (0.5 kJ/mol a 102 atoms), max |dEtot| and
+    the drift; (c) (E), the ethane fluid (32,768 atoms), through
+    Simulation on the kernel its plan gives (#2): that kernel against its
+    plain version on (E)'s records, the kernels' first forces against the
+    cell-block engine's in f64, ETH_STEPS NVT steps with rates and the
+    bonded graph's check; (d) (E) through ParallelSimulation at (1,1,1)
+    on #6; (e) small decks on the card against the CPU.  Every gate is
+    checked after every part has printed.  Returns ({kernels JSON entry:
+    launches}, {entry: compare result})."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.nbr.celllist import build_neighbor_list
+    from ddcmd_tpu_torch.objects import units as U
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    quiet = lambda line: None                                  # noqa: E731
+
+    def idle(what):
+        c = all_counters()
+        assert not any(c.values()), f"{what}: kernels launched {c}"
+
+    def gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def sim_of(d, where=dev, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # (C)'s demotion warning
+            return Simulation(*load(d), run_dir=d, device=where, **kw)
+
+    def on_state(d, src, dtype, **kw):
+        """A Simulation of the deck in d in dtype from src's positions,
+        after its first energy."""
+        s = sim_of(d, dtype=dtype, **kw)
+        s.ss = s.ss.replace(state=s.ss.state.replace(
+            r=src.ss.state.r.to(dtype)))
+        s.first_energy()
+        return s
+
+    def errs(got, ref):
+        """(e rel, force err over the reference's force scale, scale)"""
+        n = ref.sysdef.state.n_local
+        f0 = ref.ss.state.f[:n].double().cpu()
+        scale = float(f0.abs().max())
+        e0 = float(ref.ss.energy.eion)
+        return (abs(float(got.ss.energy.eion) - e0) / abs(e0),
+                float((got.ss.state.f[:n].double().cpu() - f0).abs().max())
+                / scale, scale)
+
+    def printrate(deck, k):
+        with open(deck) as f:
+            text = f.read()
+        with open(deck, "w") as f:
+            f.write(text.replace("printrate=100;", f"printrate={k};"))
+
+    launches, res = {}, {}
+    missed = []     # the gates missed, raised at the phase's end
+
+    def gate(ok, what):
+        if not ok:
+            missed.append(what)
+
+    def blocks(data, k=1000):
+        """mean T of each k-step block of printinfo rows"""
+        return " ".join(
+            "%.1f" % data[(data[:, 0] > a) & (data[:, 0] <= a + k), 5].mean()
+            for a in range(0, int(data[-1, 0]), k))
+
+    def bonded_check(what, sim):
+        """The bonded term's CUDA graph replay against its eager function
+        on sim's state (the graph's atomics reorder the sums: force 1e-5
+        of the scale, e rel 1e-5), with both times by events and the
+        eager kernels' device time a call."""
+        graphed = sim.force_fn.terms[-1].graphed
+        st, geom = sim.ss.state, sim.ss.box.geom
+        eager = graphed.fn(st.r, geom)
+        got = graphed(st.r, geom)
+        scale = float(eager[0].abs().max())
+        ferr = float((got[0] - eager[0]).abs().max()) / scale
+        eerr = abs(float(got[1] - eager[1])) / abs(float(eager[1]))
+        us_graph = 1e3 * time_calls(lambda: graphed(st.r, geom), 50)
+        us_eager = 1e3 * time_calls(lambda: graphed.fn(st.r, geom), 20)
+        dev_us = kernels_us(lambda: graphed.fn(st.r, geom), 10)
+        gate(ferr <= 1e-5 and eerr <= 1e-5,
+             f"{what} bonded graph vs eager: force {ferr}, e rel {eerr}")
+        return (f"the bonded term: CUDA graph {us_graph:.1f} us a call by "
+                f"events, eager {us_eager:.1f} ({dev_us:.1f} us of device "
+                f"time in its kernels); graph vs eager force {ferr:.2g} of "
+                f"the scale, e rel {eerr:.2g}")
+
+    # --- (a) (C) through the CLI, f32 -------------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        deck = charmm_tripeptide_deck(d, C36_L, C36_MAX_W, dt_fs=1.0)
+        printrate(deck, 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters_zero()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sim = cli_run(["simulate", "-o", deck, "-n", str(C36_STEPS),
+                           "--run-dir", d])
+        torch.cuda.synchronize()
+        idle("(C) run")
+        peak = gib()
+        rows = read_rows(d)
+        demoted = [str(x.message) for x in caught
+                   if "demoting" in str(x.message)]
+        assert demoted and sim.engine == "nlist", (sim.engine, demoted)
+        assert sim.ss.loop == C36_STEPS and np.isfinite(rows).all(), \
+            "(C): non-finite printinfo row"
+        temp = float(rows[rows[:, 0] > C36_STEPS - C36_TAIL, 5].mean())
+        rate, tail = tail_rate(sim, C36_TAIL)
+        st, g, grid = sim.ss.state, sim.ss.box.geom, sim.grid
+        ms_list = time_calls(lambda: build_neighbor_list(
+            st.r, st.fmask, g, grid, pbc=sim.sysdef.box.pbc), 5, warm=1)
+        busy, kps = window_stats(lambda: sim.run(
+            PROFILE_STEPS, print_fn=quiet), PROFILE_STEPS + 1)
+        idle("(C) profiled window")
+        bonded_text = bonded_check("(C)", sim)
+        n = sim.sysdef.state.n_local
+        phase("charmm", f"(a) (C) c36 tripeptide + {C36_MAX_W} TIP3, {n} "
+              f"atoms, L {C36_L:.0f} A, f32, {C36_STEPS} LANGEVIN steps at "
+              f"1 fs through the CLI: {demoted[0]!r}; engine {sim.engine} "
+              f"(cells {grid.ncells} cap {grid.cell_capacity} K "
+              f"{grid.max_neighbors}), no kernel launched, every energy "
+              f"finite, redos {sim.redos}; mean T {temp:.2f} K over the "
+              f"last {C36_TAIL} steps (by 1000 steps: {blocks(rows)}), Etot/atom "
+              f"{rows[-1, 2]:.6g}; "
+              f"{rate:.2f} steps/s over the last {tail} steps, busy "
+              f"{100 * busy:.1f}% over {PROFILE_STEPS} profiled steps "
+              f"({kps:.1f} CUDA kernels a step), list build {ms_list:.3f} "
+              f"ms by events, peak {peak:.3f} GiB; {bonded_text} on {card}")
+        gate(abs(temp - CHARMM_T) <= TEMP_TOL, f"(C): mean T {temp}")
+        del sim
+        # the first energy and forces in f32 against f64 on the same state
+        s32 = sim_of(d)
+        s32.first_energy()
+        s64 = on_state(d, s32, torch.float64)
+        e_rel, f_rel, scale = errs(s32, s64)
+        phase("charmm", f"(a) (C) first energy f32 "
+              f"{float(s32.ss.energy.eion):.8g} vs f64 "
+              f"{float(s64.ss.energy.eion):.10g} (rel {e_rel:.3g}, gate "
+              f"{NLIST_LJ_GATES[0]:g}), force err {f_rel:.3g} of the scale "
+              f"{scale:.5g} (gate {NLIST_LJ_GATES[1]:g})")
+        gate(e_rel <= NLIST_LJ_GATES[0] and f_rel <= NLIST_LJ_GATES[1],
+             f"(C) f32 vs f64: e rel {e_rel}, force {f_rel}")
+        del s32, s64
+
+    # --- (b) NVE in f64: the JAX test's deck, then (C) ------------------------
+    # test_c36_nve_100_steps holds the 102-atom deck (L = 20 A, 24 TIP3) to
+    # |dEtot| <= 0.5 kJ/mol after 100 steps from rest; most of that is the
+    # velocity-Verlet offset of the strained start, which grows with the
+    # strained atoms, so (C) is held to the same bound an atom
+    for what, L, max_w in (("the JAX test's deck", 20.0, 24),
+                           ("(C)", C36_L, C36_MAX_W)):
+        with tempfile.TemporaryDirectory() as d:
+            charmm_tripeptide_deck(d, L, max_w, nve=True, dt_fs=C36_NVE_DT)
+            sim = sim_of(d, dtype=torch.float64)
+            assert sim.engine == "nlist", sim.engine
+            sim.first_energy()
+            n = sim.sysdef.state.n_local
+            etots = [float(sim.ss.energy.eion + sim.ss.energy.rk)]
+            t0 = time.perf_counter()
+            for _ in range(C36_NVE_STEPS // C36_NVE_CHUNK):
+                sim.run(C36_NVE_CHUNK, print_fn=quiet)
+                etots.append(float(sim.ss.energy.eion + sim.ss.energy.rk))
+            secs = time.perf_counter() - t0
+            idle(f"{what} NVE")
+        etots = np.asarray(etots)
+        assert np.isfinite(etots).all(), f"{what} NVE: non-finite energy"
+        d100 = abs(etots[100 // C36_NVE_CHUNK] - etots[0])
+        bound = C36_NVE_GATE * n / C36_NVE_GATE_ATOMS
+        t_ns = np.arange(len(etots)) * C36_NVE_CHUNK * C36_NVE_DT * 1e-6
+        slope = np.polyfit(t_ns, etots, 1)[0] / n
+        phase("charmm", f"(b) {what}, {n} atoms, NVE f64, FREE, dt "
+              f"{C36_NVE_DT} fs, {C36_NVE_STEPS} steps from rest: |dEtot| "
+              f"after 100 steps {d100:.4g} kJ/mol (gate {bound:.4g}: "
+              f"{C36_NVE_GATE} kJ/mol a {C36_NVE_GATE_ATOMS} atoms), max "
+              f"|dEtot| {np.abs(etots - etots[0]).max():.4g} kJ/mol, drift "
+              f"{slope:.4g} kJ/mol/ns/atom (fit over {len(etots)} reads), "
+              f"Etot0 {etots[0]:.10g}, final T "
+              f"{2 * float(sim.ss.energy.rk) / (3 * n * U.kB):.1f} K; "
+              f"{C36_NVE_STEPS / secs:.2f} steps/s (reads included), redos "
+              f"{sim.redos} on {card}")
+        gate(d100 <= bound, f"{what} NVE: |dEtot| {d100} after 100 steps")
+        del sim
+
+    # --- (c) (E) through Simulation on the kernels -------------------------
+    with tempfile.TemporaryDirectory() as d:
+        deck = charmm_ethane_deck(d, ETH_N, ETH_L)
+        printrate(deck, 10)
+        sim = sim_of(d)
+        term = sim.force_fn.terms[0]
+        name = "cellpair_half_col" if term.G > 1 else "cellpair_half"
+        assert sim.engine == "kernel", sim.engine
+        kernel, args, kw, _ = sim_kernel_inputs(sim)
+        sig = args[5 if term.G > 1 else 4]
+        assert kw["excl"] and kw["coulomb"] and sig.shape == (2, 2), kw
+        plain = (ch.cellpair_half_col_plain if term.G > 1
+                 else ch.cellpair_half_plain)
+        res[name] = compare(
+            f"{name} on (E)'s records, {sim.sysdef.state.n_local} atoms, "
+            f"cells {sim.grid.ncells} cap {sim.grid.cap} G={term.G}, T=2, "
+            "RF, exclusions", kernel, plain, args, kw, with_bound=True,
+            device_key="cellpair_half_kernel")
+        # the kernels' first forces against the cell-block engine's in f64
+        counters_zero()
+        sim.first_energy()
+        c = all_counters()
+        assert c[name] >= 1, c
+        e_first = float(sim.ss.energy.eion)
+        cb = on_state(d, sim, torch.float64, engine="cellblock")
+        e_rel, f_rel, scale = errs(sim, cb)
+        phase("charmm", f"(c) (E) the kernels' first energy "
+              f"{e_first:.8g} vs the cell-block engine in f64 "
+              f"{float(cb.ss.energy.eion):.10g} (rel {e_rel:.3g}), force "
+              f"err {f_rel:.3g} of the scale {scale:.5g}")
+        gate(e_rel <= 1e-4 and f_rel <= 2e-5,
+             f"(E) kernels vs cell-block f64: e rel {e_rel}, force {f_rel}")
+        del cb
+        rows = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters_zero()
+        sim.run(ETH_STEPS, print_fn=rows.append,
+                max_steps_per_dispatch=DISPATCH)
+        torch.cuda.synchronize()
+        c = all_counters()
+        peak = gib()
+        assert c[name] >= ETH_STEPS, c
+        assert not any(v for k, v in c.items()
+                       if k not in (name, "cellpair_half_excl")), c
+        launches[f"{name}_charmm"] = c[name]
+        data = np.array([ln.split() for ln in rows], dtype=np.float64)
+        assert np.isfinite(data).all(), "(E): non-finite row"
+        temp = float(data[data[:, 0] > ETH_STEPS - TAIL, 5].mean())
+        rate, tail = tail_rate(sim)
+        busy, kps = window_stats(lambda: sim.run(
+            PROFILE_STEPS, print_fn=quiet), PROFILE_STEPS + 1)
+        bonded_text = bonded_check("(E)", sim)
+        n = sim.sysdef.state.n_local
+        phase("charmm", f"(c) (E) ethane {ETH_N} molecules, {n} atoms, "
+              f"box {ETH_L} nm, f32, {ETH_STEPS} LANGEVIN steps at 1 fs "
+              f"through Simulation: cells {sim.grid.ncells} cap "
+              f"{sim.grid.cap} G={term.G}, {name} launched {c[name]} times "
+              f"and no other kernel; mean T {temp:.2f} K over the last "
+              f"{TAIL} steps (by 1000 steps: {blocks(data)}), Etot/atom "
+              f"{data[-1, 2]:.6g}, redos "
+              f"{sim.redos}; {rate:.2f} steps/s over the last {tail} steps,"
+              f" busy {100 * busy:.1f}% over {PROFILE_STEPS} profiled steps "
+              f"({kps:.1f} CUDA kernels a step); {bonded_text}; peak "
+              f"{peak:.3f} GiB on {card}")
+        gate(abs(temp - CHARMM_T) <= TEMP_TOL, f"(E): mean T {temp}")
+        del sim
+
+        # --- (d) (E) through the mesh at (1,1,1) --------------------------
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+        e_mesh = ps.first_energy()
+        rel = abs(e_mesh - e_first) / abs(e_first)
+        counters_zero()
+        ps.run(2 * ps.chunk_steps, print_fn=quiet)
+        torch.cuda.synchronize()
+        c = all_counters()
+        assert c["cellpair_half_ext_excl"] >= 2 * ps.chunk_steps, c
+        assert not any(v for k, v in c.items() if k not in (
+            "cellpair_half_ext", "cellpair_half_ext_excl")), c
+        launches["cellpair_half_ext_excl"] = c["cellpair_half_ext_excl"]
+        assert torch.isfinite(ps.f[ps.mask]).all(), "(E) mesh: forces"
+        phase("charmm", f"(d) (E) through ParallelSimulation at (1,1,1): "
+              f"ncore {ps.cplan.ncore} cap {ps.cplan.cap}; first energy "
+              f"{e_mesh:.8g} vs Simulation's {e_first:.8g} (rel {rel:.3g}, "
+              f"gate 2e-5); {2 * ps.chunk_steps} steps, #6 with exclusions "
+              f"launched {c['cellpair_half_ext_excl']} times, forces finite")
+        gate(rel <= 2e-5, f"(E) mesh first energy rel {rel}")
+        del ps
+
+    # --- (e) small decks, card against CPU --------------------------------
+    cases = (("c36 tripeptide L=20 A, 24 TIP3, f64 nlist",
+              lambda d: charmm_tripeptide_deck(d), torch.float64, "nlist",
+              (1e-9, 1e-9)),
+             ("ethane 216 molecules 4.0 nm, f64 nlist",
+              lambda d: charmm_ethane_deck(d, 216, 4.0), torch.float64,
+              "nlist", (1e-9, 1e-9)),
+             ("ethane 216 molecules 4.0 nm, f32 on #1",
+              lambda d: charmm_ethane_deck(d, 216, 4.0), torch.float32,
+              "kernel", (1e-4, 2e-5)))
+    for what, make, dtype, engine, (e_gate, f_gate) in cases:
+        with tempfile.TemporaryDirectory() as d:
+            make(d)
+            card_sim = sim_of(d, dtype=dtype, engine=engine)
+            cpu_sim = sim_of(d, "cpu", dtype=dtype, engine=engine)
+            for s in (card_sim, cpu_sim):
+                s.first_energy()
+        e_rel, f_rel, scale = errs(card_sim, cpu_sim)
+        phase("agree", f"{what}, first energy card vs CPU: "
+              f"{float(card_sim.ss.energy.eion):.10g} vs "
+              f"{float(cpu_sim.ss.energy.eion):.10g} (rel {e_rel:.3g}, gate "
+              f"{e_gate:g}), force err {f_rel:.3g} of the scale {scale:.5g} "
+              f"(gate {f_gate:g})")
+        gate(e_rel <= e_gate and f_rel <= f_gate,
+             f"{what}: e rel {e_rel}, force {f_rel}")
+    assert not missed, f"phase 19 gates missed: {missed}"
+    return launches, res
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3025,6 +3681,9 @@ def main(argv=None):
 
     if "--list-only" in argv:
         nlist_phase(card, dev, counters_zero, all_counters)
+        return
+    if "--charmm-only" in argv:
+        charmm_phase(card, dev, counters_zero, all_counters)
         return
     res = kernel_phase(dev)
     res.update(eam_kernel_phase(dev))
@@ -3182,6 +3841,12 @@ def main(argv=None):
     launches.update(tabular_phase(card, dev, counters_zero, all_counters))
     # --- phase 18: the (N,K)-list engine (no kernel) -------------------------
     nlist_phase(card, dev, counters_zero, all_counters)
+    # --- phase 19: CHARMM, (C) on the list engine, (E) on #2 and #6 --------
+    charmm_launches, charmm_res = charmm_phase(card, dev, counters_zero,
+                                               all_counters)
+    launches["cellpair_half_ext_excl"] += charmm_launches.pop(
+        "cellpair_half_ext_excl")
+    launches.update(charmm_launches)
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -3211,6 +3876,11 @@ def main(argv=None):
         "eam_rho_ext_refit": ("eam_half.cu", f"{shard}:434"),
         "eam_force_ext_refit": ("eam_half.cu", f"{shard}:434"),
     }
+    # the pair kernel of (E), the CHARMM ethane fluid (T = 2, RF,
+    # exclusions), on its own records
+    for name, out in charmm_res.items():
+        kernels[f"{name}_charmm"] = kernels[name]
+        res[f"{name}_charmm"] = out
     # no single PyTorch call computes a cell-list half-stencil sum, so
     # library_ms is null for every kernel
     print(json.dumps({"kernels": [

@@ -2,10 +2,11 @@
 
 Counterpart of ddcmd_tpu/core/system.py (system_init, ddcMD
 src/system.c; simulate_init, src/simulate.c:104-297), cut to the decks
-the port runs: MARTINI potentials, with the covalent topology of the
-residues (bonds, angles, exclusions, constraints) instantiated over the
-collection, PAIR Lennard-Jones, EAM metals of ATOM species (analytic or
-tabulated), RESTRAINT springs, REFLECT walls and NONE / ZEROPOTENTIAL
+the port runs: MARTINI and CHARMM potentials, with the covalent
+topology of the residues (bonds, angles, torsions, impropers, bonded LJ
+pairs, exclusions, constraints; CHARMM's chain links and CMAP)
+instantiated over the collection, PAIR Lennard-Jones, EAM metals of
+ATOM species (analytic or tabulated), RESTRAINT springs, REFLECT walls and NONE / ZEROPOTENTIAL
 terms (no force), in an orthorhombic or a triclinic box.
 Anything else raises NotImplementedError naming the ROADMAP item that
 ports it.
@@ -120,20 +121,6 @@ def _check_static_box(boxobj) -> None:
             "prescribed box(t) is not ported yet (ROADMAP queue 1, item 22)")
 
 
-def _check_bonded_families(db: ObjectDB, mmff_name: str) -> None:
-    """Bonded families the port does not evaluate yet (torsions,
-    impropers, bonded LJ pairs; CMAP comes only with CHARMM) raise."""
-    mmff = db.get(mmff_name, "MMFF")
-    for rp_name in mmff.get_strv("resiParms"):
-        rp = db.get(rp_name, "RESIPARMS")
-        for key in ("dihedralList", "pairList"):
-            if rp.get_strv(key):
-                raise NotImplementedError(
-                    f"residue {rp_name} carries {key}: torsions, impropers "
-                    "and bonded LJ pairs are not ported yet (ROADMAP queue "
-                    "1, item 12)")
-
-
 def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
                  device="cpu", pad_multiple: int = 128) -> SystemDef:
     cfg = _find_simulate(db)
@@ -197,7 +184,6 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
         if ptype == "MARTINI":
             from ..potentials.martini import compile_martini
 
-            _check_bonded_families(db, pname)
             parms = compile_martini(db, pname)
         elif ptype == "EAM":
             from ..potentials.eam import compile_eam
@@ -236,10 +222,20 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
 
             parms = compile_pairenergy(db, pname, species)
         elif ptype == "CHARMM":
-            # CHARMM needs the junction terms
-            raise NotImplementedError(
-                "POTENTIAL type CHARMM is not ported yet (ROADMAP queue 1, "
-                "item 12)")
+            from ..potentials.charmm import compile_charmm
+
+            parms, res_types = compile_charmm(db, pname, base_dir)
+            parms.charmm_res_types = res_types
+            # species the deck does not declare take mass and charge
+            # from the RTF
+            for s in species:
+                if s.name in parms.species_mass:
+                    s.mass = parms.species_mass[s.name]
+                    s.charge = parms.species_charge[s.name]
+            # the same nonbond engines as MARTINI
+            rcut_max = max(rcut_max, parms.rcut)
+            potentials.append(("MARTINI", pname, parms))
+            continue
         else:
             raise DeckError(f"POTENTIAL type {ptype} not implemented yet")
         rcut_max = max(rcut_max, parms.rcut)
@@ -268,10 +264,17 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
         from ..potentials.bonded import (compile_residue_types,
                                          instantiate_bonded, scan_residues)
 
-        res_types = compile_residue_types(db, pname, parms.rcut)
+        charmm = getattr(parms, "charmm_res_types", None)
+        res_types = charmm or compile_residue_types(db, pname, parms.rcut)
         residue_instances = scan_residues(res_types, col.species_names,
                                           col.gid)
         bonded = instantiate_bonded(res_types, residue_instances, parms.rcut)
+        if charmm is not None:
+            # CHARMM chains: +X/-X inter-residue links and CMAP terms
+            from ..potentials.charmm import add_chain_links
+
+            add_chain_links(bonded, parms, residue_instances, col.gid,
+                            parms.rcut)
 
     # --- neighbor config ----------------------------------------------------------
     nbrobj = db.find(sysobj.get_str("neighbor", "nbr"), "NEIGHBOR")

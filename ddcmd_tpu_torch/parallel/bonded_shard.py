@@ -16,18 +16,39 @@ JAX package's (n, 2) [lo, hi] layout as lo + (hi << 32), its pack_gid).
 torch always has int64, so the JAX package's gate on gids above 2^31
 without x64 (its bonded_gid_tables) has no counterpart here.
 
-Terms resolve per residue type (resolve_batched, on a
-build_batched_bonded(gid=...) plan).  The JAX package's per-term
-resolver (bonded_gid_tables, leftover_gid_tables, resolve_terms) serves
-junction terms that cross residue instances; build_batched_bonded
-raises for those (ROADMAP queue 1, item 12), so it has no counterpart
-here yet.
+Terms resolve per residue type (resolve_batched, on the plan of
+mesh_bonded_plan).  The JAX package's per-term resolver
+(bonded_gid_tables, leftover_gid_tables, resolve_terms) serves the
+terms that cross residue instances (CHARMM junctions, CMAP); it has no
+caller until the mesh's brick list engine exists, so the port's mesh
+raises for such terms (ROADMAP queue 1, item 25).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..potentials.bonded import FAMILIES
+from ..potentials.bonded_batch import build_batched_bonded, has_terms
+
+
+def mesh_bonded_plan(terms: dict, residue_instances, n: int, gid,
+                     device="cpu"):
+    """The mesh's gid-keyed batched plan (build_batched_bonded(gid=...),
+    f32) of the term tables; raises naming item 25 when some terms do
+    not batch (they cross residue instances or break a template)."""
+    plan, left = build_batched_bonded(terms, residue_instances, n,
+                                      torch.float32, device, gid=gid)
+    if has_terms(left):
+        fams = [k for k, _ in FAMILIES if k in left]
+        raise NotImplementedError(
+            f"bonded terms ({', '.join(fams)}) cross residue instances or "
+            "break their residue template: under the mesh they need the "
+            "per-term gid resolver, not ported yet (ROADMAP queue 1, item "
+            "25)")
+    return plan
+
 
 def _sorted_pool(pool_gid64, pool_mask):
     """(order, sorted keys) of the pool gids, masked rows keyed past every

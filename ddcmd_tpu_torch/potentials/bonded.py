@@ -1,11 +1,17 @@
-"""Bonded (covalent) topology and the device tables of the batched terms.
+"""Bonded (covalent) topology, the device term tables and the generic
+per-term evaluator.
 
-Counterpart of ddcmd_tpu/potentials/bonded.py, host part: residue
-templates compiled from the MMFF RESIPARMS trees (`compile_residue_types`),
-particles matched to residue instances (`scan_residues`), the templates
-expanded over the instances (`instantiate_bonded`), and the term tables
-moved to the device (`device_bonded_tables`).  These are copies of the
-JAX package's host code.
+Counterpart of ddcmd_tpu/potentials/bonded.py.  Host part (copies of the
+JAX package's host code): residue templates compiled from the MMFF
+RESIPARMS trees (`compile_residue_types`; CHARMM's come from
+potentials/charmm.py), particles matched to residue instances
+(`scan_residues`), the templates expanded over the instances
+(`instantiate_bonded`), and the term tables moved to the device
+(`device_bonded_tables`).  Device part: the per-family term math
+(`bond_term` ... `excl_rf_term`), shared by the residue-template batched
+evaluator (potentials/bonded_batch.py) and by `bonded_eval`, the generic
+gather / index_add_ evaluator of the terms that batch does not take
+(CHARMM junction terms across residue instances, CMAP).
 
 Forms (ddcMD src/bioCharmmCovalentEnergiesSorted.c):
 
@@ -13,19 +19,28 @@ Forms (ddcMD src/bioCharmmCovalentEnergiesSorted.c):
   angle (func 1):     e = ktheta (theta - theta0)^2, theta0 raw radians
   angle cos (func 2): e = ktheta (cosA - theta0)^2, theta0 raw cosine
   angle REB (func 10):e = ktheta (cosA - theta0)^2 / sin^2 A
+  torsion:            e = kchi (1 + cos(n phi - delta))
+  improper (CHARMM):  e = kpsi (psi - psi0)^2 wrapped to [-pi, pi]
+  CMAP:               bicubic patch of the (phi, psi) grid
+                      (bioCharmmCovalentEnergies.c:395-497)
+  bpair:              shifted LJ with per-pair sigma/eps within the cutoff
+                      (BpairLennardJones_setShift, bioMartini.c:850-866)
   exclusion:          excluded (bonded) pairs are masked in the pair
-                      kernel; the reaction-field polarization part the
+                      engine; the reaction-field polarization part the
                       reference keeps for them (martiniIntraMoleReaction,
                       bioMartini.c:1124-1208) is added back here:
                       e = keR qi qj (krf r^2 - crf) within the cutoff.
 
+Torsions, impropers and CMAP take their forces by autograd of the summed
+term energies (the JAX package's jax.vjp), not by a hand-derived force
+decomposition.  Terms a weight switches off (the mesh's unowned
+instances, the `<family>_w` weights) are evaluated on a fixed
+non-degenerate geometry: their rows may coincide, and atan2(0, 0) or 1/0
+would turn the zero weight's product into NaN.
+
 The port never computes excluded pairs and subtracts them afterwards
 (the JAX package's "subtract" mode): the f32 residual of a ~1e9 LJ wall
-on a deeply compressed bond is an energy-injecting catapult.  Torsions,
-impropers, bonded LJ pairs and CMAP compile here but have no evaluator
-in the port yet (ROADMAP queue 1, item 12); `core/system.py` refuses
-decks that carry them.  The evaluation of bonds, angles and exclusions
-runs in potentials/bonded_batch.py.
+on a deeply compressed bond is an energy-injecting catapult.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.box import nearest_image
 from ..objects import DeckError, ObjectDB
 
 
@@ -288,7 +304,6 @@ def instantiate_bonded(res_types: dict[str, ResidueType], instances,
     )
 
 
-
 def device_bonded_tables(bt: BondedTerms, dtype=torch.float32, device="cpu",
                          *, lj_sigma=None, lj_eps=None, lj_shift=None,
                          rcut=None, keR=None, charges=None,
@@ -296,25 +311,42 @@ def device_bonded_tables(bt: BondedTerms, dtype=torch.float32, device="cpu",
                          excl_mode="rf_add", krf=None, crf=None):
     """Move instantiated terms to the device; precompute exclusion pair
     data (counterpart of the JAX package's device_bonded_tables).  Only
-    excl_mode "rf_add" exists here: the pair kernel masks excluded pairs
-    and the exclusion term adds back the kept RF polarization part."""
+    excl_mode "rf_add" exists here: the pair engine masks excluded pairs
+    and the exclusion term adds back the kept RF polarization part.
+    Scalars (cutoffs squared, krf, crf) are host floats rounded to
+    `dtype`, as the pair engines round them."""
     if excl_mode != "rf_add":
         raise ValueError(
             f"excl_mode={excl_mode!r}: the port masks excluded pairs in the "
-            "pair kernel and only adds back their RF part (rf_add); it never "
+            "pair engine and only adds back their RF part (rf_add); it never "
             "computes and subtracts them")
 
     def ten(x, dt=None):
         return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
 
+    def scalar(x):
+        return float(torch.tensor(x, dtype=dtype))
+
     t = {}
-    if bt.bonds is not None:
-        t["bonds"] = ten(bt.bonds, torch.int64)
-        t["bond_parms"] = ten(bt.bond_parms, dtype)
+    for key, parms in (("bonds", "bond_parms"), ("angles", "angle_parms"),
+                       ("torsions", "torsion_parms"),
+                       ("impropers", "improper_parms"),
+                       ("bpairs", "bpair_parms")):
+        if getattr(bt, key) is not None:
+            t[key] = ten(getattr(bt, key), torch.int64)
+            t[parms] = ten(getattr(bt, parms), dtype)
     if bt.angles is not None:
-        t["angles"] = ten(bt.angles, torch.int64)
-        t["angle_parms"] = ten(bt.angle_parms, dtype)
         t["angle_kind"] = ten(bt.angle_kind, torch.int64)
+    if bt.bpairs is not None:
+        t["bpair_rcut2"] = scalar(rcut ** 2)
+    if bt.cmap_atoms is not None:
+        from .charmm import _CMAP_AINV      # the bicubic-patch inverse
+
+        t["cmap_atoms"] = ten(bt.cmap_atoms, torch.int64)
+        t["cmap_type"] = ten(bt.cmap_type, torch.int64)
+        for k in ("cmap_grid", "cmap_y1", "cmap_y2", "cmap_y12"):
+            t[k] = ten(getattr(bt, k), dtype)
+        t["cmap_ainv"] = ten(_CMAP_AINV, dtype)
     if bt.exclusions is not None and lj_sigma is not None:
         ex = bt.exclusions
         tmap = np.asarray(species_lj_type)
@@ -329,9 +361,253 @@ def device_bonded_tables(bt: BondedTerms, dtype=torch.float32, device="cpu",
         t["sigma_flat"] = ten(np.asarray(lj_sigma).reshape(-1), dtype)
         t["eps_flat"] = ten(np.asarray(lj_eps).reshape(-1), dtype)
         t["shift_flat"] = ten(np.asarray(lj_shift).reshape(-1), dtype)
-        # host scalars, rounded as the pair engine rounds them
-        t["rcut2"] = float(torch.tensor(rcut ** 2, dtype=dtype))
+        t["rcut2"] = scalar(rcut ** 2)
         t["excl_mode"] = "rf_add"
-        t["excl_krf"] = float(torch.tensor(krf, dtype=dtype))
-        t["excl_crf"] = float(torch.tensor(crf, dtype=dtype))
+        t["excl_krf"] = scalar(krf)
+        t["excl_crf"] = scalar(crf)
     return t
+
+
+# ---------------------------------------------------------------------------
+# device evaluation: per-family term math on (..., 3) displacements (the
+# generic evaluator's (T, 3), the batched evaluator's (M, T, 3)); `w`, when
+# given, broadcasts against the per-term energies and gates each term
+# ---------------------------------------------------------------------------
+
+# the families of the term tables, in emission order, and their arity
+FAMILIES = (("bonds", 2), ("angles", 3), ("torsions", 4), ("impropers", 4),
+            ("cmap_atoms", 5), ("bpairs", 2), ("exclusions", 2))
+
+
+def _gate(x, w):
+    return x if w is None else x * w
+
+
+def _norm(d):
+    return torch.sqrt((d * d).sum(-1))
+
+
+def outer_sum(f, d):
+    """sum over terms of f (x) d: a family's virial part."""
+    return torch.einsum("...a,...c->ac", f, d)
+
+
+def bond_term(dr, parm, w=None):
+    """(e, f_i) of harmonic bonds on dr = r_i - r_j; f_j = -f_i."""
+    b = _norm(dr)
+    kb, b0 = parm[..., 0], parm[..., 1]
+    db = b - b0
+    e = _gate(kb * db * db, w)                   # no 1/2 (CHARMM)
+    fi = _gate(-2.0 * kb * db / b, w)[..., None] * dr
+    return e, fi
+
+
+def angle_term(rij, rkj, parm, kind, w=None):
+    """(e, f_i, f_k) of the three angle kinds (0 harmonic in theta, 1 G96
+    cosine, 2 REB) on rij = r_i - r_j, rkj = r_k - r_j; f_j = -(f_i + f_k)."""
+    bij, bkj = _norm(rij), _norm(rkj)
+    uij = rij / bij[..., None]
+    ukj = rkj / bkj[..., None]
+    cosA = torch.clamp((uij * ukj).sum(-1), -1.0 + 1e-7, 1.0 - 1e-7)
+    kt, t0 = parm[..., 0], parm[..., 1]
+    sin2 = 1.0 - cosA * cosA
+    sinA = torch.sqrt(sin2)
+    aD_h = torch.arccos(cosA) - t0
+    aD_c = cosA - t0
+    e_k = (kt * aD_h * aD_h, kt * aD_c * aD_c, kt * aD_c * aD_c / sin2)
+    coef_k = (2.0 * kt * aD_h / sinA, -2.0 * kt * aD_c,
+              -2.0 * kt * aD_c * (1.0 - cosA * t0) / (sin2 * sin2))
+    e = coef = torch.zeros_like(cosA)
+    for k in range(3):
+        e = torch.where(kind == k, e_k[k], e)
+        coef = torch.where(kind == k, coef_k[k], coef)
+    e, coef = _gate(e, w), _gate(coef, w)
+    fi = (coef / bij)[..., None] * (ukj - uij * cosA[..., None])
+    fk = (coef / bkj)[..., None] * (uij - ukj * cosA[..., None])
+    return e, fi, fk
+
+
+def _dihedral(b1, b2, b3):
+    n1 = torch.linalg.cross(b1, b2, dim=-1)
+    n2 = torch.linalg.cross(b2, b3, dim=-1)
+    x = (n1 * n2).sum(-1)
+    y = (torch.linalg.cross(n1, n2, dim=-1) * b2).sum(-1) / _norm(b2)
+    return torch.atan2(y, x)
+
+
+def _torsion_energy(d0, d2, d3, parm, harmonic):
+    phi = _dihedral(-d0, d2, d3 - d2)
+    if harmonic:
+        kpsi, psi0 = parm[..., 0], parm[..., 1]
+        dphi = phi - psi0
+        dphi = dphi - 2.0 * torch.pi * torch.round(dphi / (2.0 * torch.pi))
+        return kpsi * dphi * dphi
+    kchi, nper, delta = parm[..., 0], parm[..., 1], parm[..., 2]
+    return kchi * (1.0 + torch.cos(nper * phi - delta))
+
+
+def autograd_term(energy, *d):
+    """(per-term energies, [-dE/dd for each d]) of `energy(*d)`, the
+    forces by reverse-mode autograd of the summed energy (the JAX
+    package's jax.vjp), whatever the caller's grad mode."""
+    with torch.enable_grad():
+        dg = [x.detach().requires_grad_(True) for x in d]
+        e = energy(*dg)
+        g = torch.autograd.grad(e.sum(), dg)
+    return e.detach(), [-x for x in g]
+
+
+def torsion_term(d0, d2, d3, parm, harmonic, w=None):
+    """(e, f_i, f_k, f_l) of dihedrals (harmonic: CHARMM impropers) on the
+    displacements d0, d2, d3 of atoms i, k, l from atom j; f_j = -(f_i +
+    f_k + f_l)."""
+    e, (fi, fk, fl) = autograd_term(
+        lambda a, b, c: _gate(_torsion_energy(a, b, c, parm, harmonic), w),
+        d0, d2, d3)
+    return e, fi, fk, fl
+
+
+def bpair_term(dr, parm, rcut2, w=None):
+    """(e, f_i) of bonded LJ pairs (the CHARMM 1-4s) within rcut2."""
+    r2 = (dr * dr).sum(-1)
+    ir2 = 1.0 / r2
+    sg, ep, sh = parm[..., 0], parm[..., 1], parm[..., 2]
+    s2 = sg * sg * ir2
+    s6 = s2 * s2 * s2
+    s12 = s6 * s6
+    within = _gate((r2 < rcut2).to(dr.dtype), w)
+    e = (4.0 * ep * (s12 - s6) + sh) * within
+    dvdr = 24.0 * ep * (s6 - 2.0 * s12) * ir2 * within
+    return e, -dvdr[..., None] * dr
+
+
+def excl_rf_term(dr, qq, rcut2, krf, crf, w=None):
+    """(e, f_i) of the rf_add exclusion term: the pair engine masked these
+    pairs; add back only the RF polarization part (bioMartini.c:1124-1208)."""
+    r2 = (dr * dr).sum(-1)
+    within = _gate((r2 < rcut2).to(dr.dtype), w)
+    e = qq * (krf * r2 - crf) * within
+    dvdr = qq * (2.0 * krf) * within
+    return e, -dvdr[..., None] * dr
+
+
+def _cmap_energy(dP, dCA, dC, dN2, ctype, grid, y1, y2, y12, ainv):
+    """Per-term CMAP energies (M,): grid coordinates u = 180 - deg(phi),
+    v = 180 - deg(psi) (resCmap, bioCharmmCovalentEnergies.c:670-677);
+    the cell indices come from detached angles (the JAX package's
+    stop_gradient); ainv is the bicubic patch's inverse (16, 16)."""
+    ng = grid.shape[-1]
+    res = 360.0 / ng
+    phi = _dihedral(-dP, dCA, dC - dCA)
+    psi = _dihedral(dCA, dC - dCA, dN2 - dC)
+    u = 180.0 - phi * (180.0 / torch.pi)
+    v = 180.0 - psi * (180.0 / torch.pi)
+    iu = torch.clamp(torch.floor(u.detach() / res), 0, ng - 1).long()
+    iv = torch.clamp(torch.floor(v.detach() / res), 0, ng - 1).long()
+    iup = (iu + 1) % ng
+    ivp = (iv + 1) % ng
+
+    # the value and the three derivative maps (in grid units) at the
+    # cell's four corners, map-major: one gather
+    tabs = torch.stack([grid, y1 * res, y2 * res, y12 * (res * res)], 1)
+    cu = torch.stack([iu, iup, iu, iup])
+    cv = torch.stack([iv, iv, ivp, ivp])
+    maps = torch.arange(4, device=u.device)[:, None, None]
+    x16 = tabs[ctype, maps, cu[None], cv[None]].reshape(16, -1)
+    coef = ainv @ x16                                   # (16, M)
+    c = coef.reshape(4, 4, -1).permute(1, 0, 2)         # c[i,j] = coef[j,i]
+    t1 = (u - iu.to(u.dtype) * res) / res
+    t2 = (v - iv.to(u.dtype) * res) / res
+    p1 = torch.stack([torch.ones_like(t1), t1, t1 * t1, t1 ** 3])
+    p2 = torch.stack([torch.ones_like(t2), t2, t2 * t2, t2 ** 3])
+    return torch.einsum("ijm,im,jm->m", c, p1, p2)
+
+
+def bonded_eval(r, box_geom, terms: dict, n_pad: int, dtype):
+    """Evaluate every family of `terms` (device_bonded_tables, or the
+    leftover dict of bonded_batch.build_batched_bonded) by per-term row
+    gathers and index_add_ scatters; returns (f (n_pad, 3), e, virial
+    (3, 3), pe (n_pad,)) with e == sum(pe).  box_geom: (3,) lengths or a
+    triclinic (3, 3) h.
+
+    Optional per-family weights terms["<family>_w"] (T,) gate single
+    terms (0 = off); an off term is evaluated on a fixed non-degenerate
+    geometry, so its arbitrary (possibly coincident) rows stay finite."""
+    geom = box_geom.to(dtype)
+    dev = r.device
+    f = torch.zeros((n_pad, 3), dtype=dtype, device=dev)
+    pe = torch.zeros((n_pad,), dtype=dtype, device=dev)
+    e = torch.zeros((), dtype=dtype, device=dev)
+    virial = torch.zeros((3, 3), dtype=dtype, device=dev)
+
+    def disp(key, idx, a, b, unit):
+        """min-image r[a] - r[b] of each term; off terms get `unit`."""
+        d = nearest_image(r[idx[:, a]] - r[idx[:, b]], geom)
+        w = terms.get(key + "_w")
+        if w is None:
+            return d
+        return torch.where((w > 0)[:, None], d,
+                           torch.tensor(unit, dtype=dtype, device=dev))
+
+    for key, R in FAMILIES:
+        if key not in terms:
+            continue
+        idx = terms[key]
+        w = terms.get(key + "_w")
+        if key == "bonds":
+            dr = disp(key, idx, 0, 1, (1.0, 0.0, 0.0))
+            et, fi = bond_term(dr, terms["bond_parms"], w)
+            fs, pes = [fi, -fi], [0.5 * et, 0.5 * et]
+            virial = virial + outer_sum(fi, dr)
+        elif key == "angles":
+            rij = disp(key, idx, 0, 1, (1.0, 0.0, 0.0))
+            rkj = disp(key, idx, 2, 1, (0.0, 1.0, 0.0))
+            et, fi, fk = angle_term(rij, rkj, terms["angle_parms"],
+                                    terms["angle_kind"], w)
+            z = torch.zeros_like(et)
+            fs, pes = [fi, -(fi + fk), fk], [z, et, z]
+            virial = virial + outer_sum(fi, rij) + outer_sum(fk, rkj)
+        elif key in ("torsions", "impropers"):
+            # corners as min-image displacements about atom j
+            d0 = disp(key, idx, 0, 1, (1.0, 0.0, 0.0))
+            d2 = disp(key, idx, 2, 1, (0.0, 1.0, 0.0))
+            d3 = disp(key, idx, 3, 1, (0.0, 1.0, 1.0))
+            parm = terms["torsion_parms" if key == "torsions"
+                         else "improper_parms"]
+            et, fi, fk, fl = torsion_term(d0, d2, d3, parm,
+                                          key == "impropers", w)
+            z = torch.zeros_like(et)
+            fs, pes = [fi, -(fi + fk + fl), fk, fl], [z, et, z, z]
+            virial = virial + outer_sum(fi, d0) + outer_sum(fk, d2) \
+                + outer_sum(fl, d3)
+        elif key == "cmap_atoms":
+            # [-C, N, CA, C, +N], anchored at N
+            ds = [disp(key, idx, a, 1, u) for a, u in (
+                (0, (-1.0, 0.0, 0.0)), (2, (0.0, 1.0, 0.0)),
+                (3, (0.0, 1.0, 1.0)), (4, (1.0, 1.0, 1.0)))]
+            tabs = [terms[k] for k in ("cmap_type", "cmap_grid", "cmap_y1",
+                                       "cmap_y2", "cmap_y12", "cmap_ainv")]
+            et, fc = autograd_term(
+                lambda *d: _gate(_cmap_energy(*d, *tabs), w), *ds)
+            fP, fCA, fC, fN2 = fc
+            z = torch.zeros_like(et)
+            fs = [fP, -(fP + fCA + fC + fN2), fCA, fC, fN2]
+            pes = [z, et, z, z, z]
+            virial = virial + sum(outer_sum(fx, dx) for fx, dx in zip(fc, ds))
+        elif key == "bpairs":
+            dr = disp(key, idx, 0, 1, (1.0, 0.0, 0.0))
+            et, fi = bpair_term(dr, terms["bpair_parms"],
+                                terms["bpair_rcut2"], w)
+            fs, pes = [fi, -fi], [0.5 * et, 0.5 * et]
+            virial = virial + outer_sum(fi, dr)
+        else:
+            dr = disp(key, idx, 0, 1, (1.0, 0.0, 0.0))
+            et, fi = excl_rf_term(dr, terms["excl_qq"], terms["rcut2"],
+                                  terms["excl_krf"], terms["excl_crf"], w)
+            fs, pes = [fi, -fi], [0.5 * et, 0.5 * et]
+            virial = virial + outer_sum(fi, dr)
+        for rr in range(R):
+            f.index_add_(0, idx[:, rr], fs[rr])
+            pe.index_add_(0, idx[:, rr], pes[rr])
+        e = e + et.sum()
+    return f, e, virial, pe

@@ -1,23 +1,25 @@
 """Residue-template batched bonded evaluation.
 
-Counterpart of ddcmd_tpu/potentials/bonded_batch.py for the families
-the Martini bilayer uses: harmonic bonds (func 1), angles (harmonic,
-G96 cosine func 2 and REB) and the `rf_add` exclusion term.  Terms are
-instantiated from per-residue-type templates (bonded.instantiate_bonded),
-so every instance of a type has the same local topology.  All instances
-of a type are batched as (instance, term) arrays:
+Counterpart of ddcmd_tpu/potentials/bonded_batch.py: harmonic bonds,
+the three angle kinds, torsions, impropers, bonded LJ pairs and the
+`rf_add` exclusion term.  Terms are instantiated from per-residue-type
+templates (bonded.instantiate_bonded), so every instance of a type has
+the same local topology.  All instances of a type are batched as
+(instance, term) arrays:
 
   * one slice of the type's atoms (builder decks store each type's
     instances contiguously) or one row gather otherwise,
-  * term geometry by static local indexing of the (M, A, 3) block,
+  * term geometry by static local indexing of the (M, A, 3) block, the
+    term math that of potentials/bonded.py (torsions and impropers by
+    autograd),
   * per-atom force/pe accumulation with index_add_ over the local atom
     index (the JAX package's one-hot MXU matmul),
   * one slice-add (or index_add_) writeback.
 
-Families the port does not evaluate (torsions, impropers, bonded LJ
-pairs: ROADMAP queue 1, item 12) and terms that cross residue instances
-(which need the generic gather/scatter evaluator, not ported) raise
-NotImplementedError when the plan is built.
+Terms that cross residue instances (CHARMM chain junctions, CMAP) and
+terms that break a type's template stay in the leftover dict
+build_batched_bonded returns beside the plan, for the generic
+evaluator bonded.bonded_eval.
 """
 
 from __future__ import annotations
@@ -26,39 +28,57 @@ import numpy as np
 import torch
 
 from ..core.box import nearest_image
+from .bonded import (FAMILIES, angle_term, bond_term, bpair_term,
+                     excl_rf_term, outer_sum, torsion_term)
 
-# families evaluated here: key -> (arity R, parm keys)
+# families batched here, in emission order: key -> (arity R, parm keys)
 _FAMS = (
     ("bonds", 2, ("bond_parms",)),
     ("angles", 3, ("angle_parms", "angle_kind")),
+    ("torsions", 4, ("torsion_parms",)),
+    ("impropers", 4, ("improper_parms",)),
+    ("bpairs", 2, ("bpair_parms",)),
     ("exclusions", 2, ("excl_tidx", "excl_qq")),
 )
-_UNPORTED = ("torsions", "impropers", "bpairs", "cmap_atoms")
 
 
 def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def has_terms(terms: dict) -> bool:
+    """True when the term dict holds any family to evaluate."""
+    return any(key in terms for key, _ in FAMILIES)
+
+
 def build_batched_bonded(terms: dict, residue_instances, n_pad: int,
-                         dtype=torch.float32, device="cpu", gid=None):
+                         dtype=torch.float32, device="cpu", gid=None,
+                         min_instances: int = 1):
     """Split the term tables (device_bonded_tables) into per-residue-type
-    batches.  Returns the batch plan, or None when there is nothing to
-    evaluate.  With `gid` (rows -> global ids) each type also carries its
+    batches plus a leftover dict for the generic evaluator.
+
+    Returns (plan, leftover): plan is None when nothing batches (no
+    instances, or no family with a term inside one instance); leftover
+    keeps every non-index entry of `terms` (modes, scalars, LJ flats,
+    CMAP tables) and the index and parameter rows of the terms that did
+    not batch, on `device`, so bonded.bonded_eval evaluates it as it is.
+    With `gid` (rows -> global ids) each type also carries its
     instances' gids, tp["gids"] (M, A) int64, for the sharded resolver
-    (parallel/bonded_shard.resolve_batched).  Raises NotImplementedError
-    for what the port cannot evaluate (see the module docstring)."""
-    for key in _UNPORTED:
-        if key in terms:
-            raise NotImplementedError(
-                f"bonded family {key} has no evaluator in the port yet "
-                "(ROADMAP queue 1, item 12)")
-    if not any(key in terms for key, _, _ in _FAMS):
-        return None
+    (parallel/bonded_shard.resolve_batched).  The terms of a type with
+    fewer than `min_instances` instances stay in the leftover: a batch
+    issues as many small kernels as the generic evaluator's whole family
+    (Simulation batches types of 2 or more instances; the mesh, which
+    evaluates no leftover, batches every type)."""
+
+    def ten(x, dt=None):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    def moved(tab):
+        return {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                for k, v in tab.items()}
+
     if not residue_instances:
-        raise NotImplementedError(
-            "bonded terms without residue instances need the generic "
-            "evaluator, not ported yet (ROADMAP queue 1, item 12)")
+        return None, moved(terms)
     inst_of = np.full(n_pad, -1, np.int64)
     local_of = np.full(n_pad, -1, np.int64)
     type_names = []
@@ -77,10 +97,8 @@ def build_batched_bonded(terms: dict, residue_instances, n_pad: int,
         inst_rows[type_id[name]].append(rows)
     inst_type = np.asarray(inst_type)
 
-    def ten(x, dt=None):
-        return torch.as_tensor(x, dtype=dt, device=device)
-
     types: dict[int, dict] = {}
+    leftover = dict(terms)
     for key, R, parm_keys in _FAMS:
         if key not in terms:
             continue
@@ -102,6 +120,9 @@ def build_batched_bonded(terms: dict, residue_instances, n_pad: int,
             insts = insts[order]
             uinst, counts = np.unique(insts, return_counts=True)
             M_all = np.sum(inst_type == t)
+            if M_all < min_instances:
+                spill[tids] = True          # too few instances to batch
+                continue
             if len(uinst) != M_all or counts.min() != counts.max():
                 spill[tids] = True          # uneven instantiation
                 continue
@@ -120,12 +141,15 @@ def build_batched_bonded(terms: dict, residue_instances, n_pad: int,
                 else:
                     fam[pk] = ten(pv)
         if spill.any():
-            raise NotImplementedError(
-                f"{int(spill.sum())} {key} terms cross residue instances or "
-                "break the residue template; they need the generic bonded "
-                "evaluator, not ported yet (ROADMAP queue 1, item 12)")
+            rows = torch.as_tensor(np.nonzero(spill)[0])
+            for k in (key,) + parm_keys:
+                leftover[k] = terms[k][rows.to(terms[k].device)]
+        else:
+            for k in (key,) + parm_keys:
+                leftover.pop(k)
+    leftover = moved(leftover)
     if not types:
-        return None
+        return None, leftover
 
     plan = []
     for t, fams in sorted(types.items()):
@@ -145,10 +169,9 @@ def build_batched_bonded(terms: dict, residue_instances, n_pad: int,
         if gid is not None:
             tp["gids"] = ten(np.asarray(gid, np.int64)[rows])
         plan.append(tp)
-    meta = dict(excl_mode=terms.get("excl_mode"), rcut2=terms.get("rcut2"),
-                excl_krf=terms.get("excl_krf"),
-                excl_crf=terms.get("excl_crf"))
-    return dict(types=plan, meta=meta)
+    meta = {k: terms.get(k) for k in ("excl_mode", "rcut2", "excl_krf",
+                                      "excl_crf", "bpair_rcut2")}
+    return dict(types=plan, meta=meta), leftover
 
 
 def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
@@ -161,9 +184,10 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
     a rank of the mesh a list aligned with plan["types"] of (rows (M*A,)
     pool rows [missing -> n_pad], w (M,) ownership weights) from
     parallel/bonded_shard.resolve_batched.  Instances this rank does not
-    own are evaluated on a fixed unit geometry with weight 0 (1/r stays
-    finite), so each instance's terms land exactly once across the mesh;
-    their rows, the missing ones included, receive exact zeros."""
+    own are evaluated on a fixed unit geometry with weight 0 (1/r and
+    the torsions' autograd stay finite), so each instance's terms land
+    exactly once across the mesh; their rows, the missing ones included,
+    receive exact zeros."""
     L = box_lengths.to(dtype)
     meta = plan["meta"]
     dev = r.device
@@ -173,13 +197,13 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
     pe = torch.zeros((n_out,), dtype=dtype, device=dev)
     e = torch.zeros((), dtype=dtype, device=dev)
     virial = torch.zeros((3, 3), dtype=dtype, device=dev)
-    units = torch.eye(3, dtype=dtype, device=dev)
 
     for itp, tp in enumerate(plan["types"]):
         M, A = tp["M"], tp["A"]
-        w_inst = None
+        w_inst = w = None
         if resolved is not None:
             rows_t, w_inst = resolved[itp]
+            w = w_inst[:, None]                          # against (M, T)
             blk = r[rows_t.clamp(max=n_pad - 1)]
         elif tp["start"] is not None:
             blk = r[tp["start"]:tp["start"] + M * A]
@@ -187,88 +211,64 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
             blk = r[tp["rows"]]
         rm = blk.reshape(M, A, 3)
 
-        def san(dr, axis, w_inst=w_inst):
-            """Disowned instances gather arbitrary rows: unit geometry."""
+        def disp(loc, a, b, unit, w_inst=w_inst):
+            """min-image rm[:, a] - rm[:, b] of each term; disowned
+            instances gather arbitrary rows and get `unit`."""
+            d = nearest_image(rm[:, loc[a]] - rm[:, loc[b]], L)
             if w_inst is None:
-                return dr
-            return torch.where((w_inst > 0)[:, None, None], dr, units[axis])
-
-        def wmul(x, w_inst=w_inst):
-            if w_inst is None:
-                return x
-            return x * w_inst.reshape((M,) + (1,) * (x.dim() - 1))
+                return d
+            return torch.where((w_inst > 0)[:, None, None], d,
+                               torch.tensor(unit, dtype=dtype, device=dev))
 
         contribs_f = []        # (M, T, 3) per role, in slot order
         contribs_pe = []       # (M, T) per role
-
-        def emit(fvecs, pevals):
-            contribs_f.extend(fvecs)
-            contribs_pe.extend(pevals)
-
         fams = tp["fams"]
-        if "bonds" in fams:
-            fam = fams["bonds"]
-            li, lj = fam["loc"]
-            parm = fam["bond_parms"]                     # (M, T, 2)
-            dr = san(nearest_image(rm[:, li] - rm[:, lj], L), 0)
-            b = torch.sqrt((dr * dr).sum(-1))
-            kb, b0 = parm[..., 0], parm[..., 1]
-            db = b - b0
-            eb = wmul(kb * db * db)                      # no 1/2 (CHARMM)
-            fi = wmul(-2.0 * kb * db / b)[..., None] * dr
-            emit([fi, -fi], [0.5 * eb, 0.5 * eb])
-            virial = virial + torch.einsum("mta,mtc->ac", fi, dr)
-            e = e + eb.sum()
-
-        if "angles" in fams:
-            fam = fams["angles"]
-            li, lj, lk = fam["loc"]
-            parm = fam["angle_parms"]                    # (M, T, 2)
-            kind = fam["angle_kind"][..., 0]             # (M, T)
-            rij = san(nearest_image(rm[:, li] - rm[:, lj], L), 0)
-            rkj = san(nearest_image(rm[:, lk] - rm[:, lj], L), 1)
-            bij = torch.sqrt((rij * rij).sum(-1))
-            bkj = torch.sqrt((rkj * rkj).sum(-1))
-            uij = rij / bij[..., None]
-            ukj = rkj / bkj[..., None]
-            cosA = torch.clamp((uij * ukj).sum(-1), -1.0 + 1e-7, 1.0 - 1e-7)
-            kt, t0 = parm[..., 0], parm[..., 1]
-            sin2 = 1.0 - cosA * cosA
-            sinA = torch.sqrt(sin2)
-            aD_h = torch.arccos(cosA) - t0
-            aD_c = cosA - t0
-            e_k = (kt * aD_h * aD_h, kt * aD_c * aD_c,
-                   kt * aD_c * aD_c / sin2)
-            coef_k = (2.0 * kt * aD_h / sinA, -2.0 * kt * aD_c,
-                      -2.0 * kt * aD_c * (1.0 - cosA * t0) / (sin2 * sin2))
-            zero = torch.zeros_like(cosA)
-            e_a, coef = zero, zero
-            for k in range(3):
-                e_a = torch.where(kind == k, e_k[k], e_a)
-                coef = torch.where(kind == k, coef_k[k], coef)
-            e_a, coef = wmul(e_a), wmul(coef)
-            fi = (coef / bij)[..., None] * (ukj - uij * cosA[..., None])
-            fk = (coef / bkj)[..., None] * (uij - ukj * cosA[..., None])
-            emit([fi, -(fi + fk), fk], [zero, e_a, zero])
-            virial = virial + torch.einsum("mta,mtc->ac", fi, rij) \
-                + torch.einsum("mta,mtc->ac", fk, rkj)
-            e = e + e_a.sum()
-
-        if "exclusions" in fams:
-            fam = fams["exclusions"]
-            li, lj = fam["loc"]
-            qq = fam["excl_qq"][..., 0]                  # (M, T)
-            dr = san(nearest_image(rm[:, li] - rm[:, lj], L), 0)
-            r2 = (dr * dr).sum(-1)
-            w = wmul((r2 < meta["rcut2"]).to(dtype))
-            # rf_add: the pair kernel masked these pairs; add back only
-            # the RF polarization part (bioMartini.c:1124-1208)
-            e_x = qq * (meta["excl_krf"] * r2 - meta["excl_crf"]) * w
-            dvdr = qq * (2.0 * meta["excl_krf"]) * w
-            fi = -dvdr[..., None] * dr
-            emit([fi, -fi], [0.5 * e_x, 0.5 * e_x])
-            virial = virial + torch.einsum("mta,mtc->ac", fi, dr)
-            e = e + e_x.sum()
+        for key, _, _ in _FAMS:
+            if key not in fams:
+                continue
+            fam = fams[key]
+            loc = fam["loc"]
+            if key == "bonds":
+                dr = disp(loc, 0, 1, (1.0, 0.0, 0.0))
+                et, fi = bond_term(dr, fam["bond_parms"], w)
+                fs, pes = [fi, -fi], [0.5 * et, 0.5 * et]
+                virial = virial + outer_sum(fi, dr)
+            elif key == "angles":
+                rij = disp(loc, 0, 1, (1.0, 0.0, 0.0))
+                rkj = disp(loc, 2, 1, (0.0, 1.0, 0.0))
+                et, fi, fk = angle_term(rij, rkj, fam["angle_parms"],
+                                        fam["angle_kind"][..., 0], w)
+                z = torch.zeros_like(et)
+                fs, pes = [fi, -(fi + fk), fk], [z, et, z]
+                virial = virial + outer_sum(fi, rij) + outer_sum(fk, rkj)
+            elif key in ("torsions", "impropers"):
+                d0 = disp(loc, 0, 1, (1.0, 0.0, 0.0))
+                d2 = disp(loc, 2, 1, (0.0, 1.0, 0.0))
+                d3 = disp(loc, 3, 1, (0.0, 1.0, 1.0))
+                parm = fam["torsion_parms" if key == "torsions"
+                           else "improper_parms"]
+                et, fi, fk, fl = torsion_term(d0, d2, d3, parm,
+                                              key == "impropers", w)
+                z = torch.zeros_like(et)
+                fs, pes = [fi, -(fi + fk + fl), fk, fl], [z, et, z, z]
+                virial = virial + outer_sum(fi, d0) + outer_sum(fk, d2) \
+                    + outer_sum(fl, d3)
+            elif key == "bpairs":
+                dr = disp(loc, 0, 1, (1.0, 0.0, 0.0))
+                et, fi = bpair_term(dr, fam["bpair_parms"],
+                                    meta["bpair_rcut2"], w)
+                fs, pes = [fi, -fi], [0.5 * et, 0.5 * et]
+                virial = virial + outer_sum(fi, dr)
+            else:
+                dr = disp(loc, 0, 1, (1.0, 0.0, 0.0))
+                et, fi = excl_rf_term(dr, fam["excl_qq"][..., 0],
+                                      meta["rcut2"], meta["excl_krf"],
+                                      meta["excl_crf"], w)
+                fs, pes = [fi, -fi], [0.5 * et, 0.5 * et]
+                virial = virial + outer_sum(fi, dr)
+            contribs_f.extend(fs)
+            contribs_pe.extend(pes)
+            e = e + et.sum()
 
         # accumulate term-role slots onto local atoms (segmented sum)
         C = torch.cat(contribs_f, dim=1)                 # (M, S, 3)

@@ -12,13 +12,15 @@ ddcMD src/ddcenergy.c:160-238) on three engines:
     (martini_nonbond, pair_lj with the TableFunction, eam_eval,
     pairenergy_eval, the ORDERSH bias), as the JAX package's list engine.
 
-RESTRAINT springs and the residue-template batched bonded terms run on
-all three; NONE terms add nothing.  Excluded (bonded) pairs are masked
-inside the pair engine (the record's exclusion channels on the cell
-engines, the excluded-partner table on the list), and the bonded block
-adds back only the reaction-field part the reference keeps for them
-(excl_mode "rf_add"): the port never computes excluded pairs and
-subtracts them.
+RESTRAINT springs and the bonded terms (the residue-template batches,
+and the generic per-term evaluator on the terms that cross residue
+instances and CMAP) run on all three, the bonded terms on a CUDA device
+as one captured CUDA graph (GraphedTerm); NONE terms add nothing.  Excluded
+(bonded) pairs are masked inside the pair engine (the record's
+exclusion channels on the cell engines, the excluded-partner table on
+the list), and the bonded block adds back only the reaction-field part
+the reference keeps for them (excl_mode "rf_add"): the port never
+computes excluded pairs and subtracts them.
 """
 
 from __future__ import annotations
@@ -146,6 +148,46 @@ def _excl_table(exclusions, n_pad: int) -> np.ndarray:
     return tbl
 
 
+class GraphedTerm:
+    """A force term of the positions and the box geometry alone, fn(r,
+    geom) -> (f, e, virial, pe), replayed on a CUDA device as one captured
+    CUDA graph: the bonded terms issue ~150-700 small kernels a call
+    (the per-family math, the torsions' and CMAP's autograd), which left
+    the host issuing ~1,060 launches a step on the c36 tripeptide at 16%
+    busy.  Captured at the first call on the card (after two warm-up
+    calls on a side stream), replayed on copies of r and geom; the
+    outputs are the graph's own buffers, overwritten by the next call.
+    On the CPU it calls fn."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graph = None
+
+    def _capture(self, r, geom):
+        self.r, self.geom = r.clone(), geom.clone()
+        with torch.cuda.device(r.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self.fn(self.r, self.geom)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = self.fn(self.r, self.geom)
+
+    def __call__(self, r, geom):
+        if r.device.type != "cuda":
+            return self.fn(r, geom)
+        if self.graph is None or self.r.shape != r.shape \
+                or self.geom.shape != geom.shape:
+            self._capture(r, geom)
+        self.r.copy_(r)
+        self.geom.copy_(geom)
+        self.graph.replay()
+        return self.out
+
+
 def bonded_tables(sysdef: SystemDef, dtype=torch.float32):
     """The covalent terms' tables on the host (device_bonded_tables in
     `rf_add` mode: the pair kernel masks the excluded pairs and the
@@ -199,21 +241,40 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
     else:
         terms = _cell_terms(sysdef, grid, dtype, engine, device)
 
-    # covalent terms (bonds, angles, exclusion RF corrections)
+    # covalent terms: the residue-template batches, and the generic
+    # evaluator on what does not batch (junctions across residue
+    # instances, CMAP)
     btab = bonded_tables(sysdef, dtype)
     if btab is not None:
+        from ..potentials.bonded import bonded_eval
         from ..potentials.bonded_batch import (batched_bonded_eval,
-                                               build_batched_bonded)
+                                               build_batched_bonded,
+                                               has_terms)
 
         n_pad = state.n_pad
-        bplan = build_batched_bonded(btab, sysdef.residue_instances, n_pad,
-                                     dtype, device)
-        if bplan is not None:
-            def bonded_term(state, box, perm, bplan=bplan, n_pad=n_pad):
-                return batched_bonded_eval(state.r, box.geom, bplan,
-                                           n_pad, dtype)
+        bplan, left = build_batched_bonded(btab, sysdef.residue_instances,
+                                           n_pad, dtype, device,
+                                           min_instances=2)
+        if not has_terms(left):
+            left = None
 
-            terms.append(bonded_term)
+        def bonded(r, geom, bplan=bplan, left=left, n_pad=n_pad):
+            out = None
+            if bplan is not None:
+                out = batched_bonded_eval(r, geom, bplan, n_pad, dtype)
+            if left is not None:
+                gen = bonded_eval(r, geom, left, n_pad, dtype)
+                out = gen if out is None else tuple(
+                    a + b for a, b in zip(out, gen))
+            return out
+
+        graphed = GraphedTerm(bonded)
+
+        def bonded_term(state, box, perm):
+            return graphed(state.r, box.geom)
+
+        bonded_term.graphed = graphed
+        terms.append(bonded_term)
 
     def force_fn(state, box, perm):
         f = torch.zeros((state.n_pad, 3), dtype=dtype, device=device)

@@ -45,8 +45,9 @@ restart), triclinic bricks and non-periodic axes (item 25: the JAX mesh
 reads no pbc bit and would run such a deck fully periodic), an
 exclusion component wider than the in-kernel encoding, a tabulated PAIR
 or bricks narrower than the cell engine allows (the JAX package's brick
-list engine make_brick_step, item 25), bonded families the port does not
-evaluate (item 12), NGLFNEW with constraints (the JAX mesh projects
+list engine make_brick_step, item 25), bonded terms that cross residue
+instances (CHARMM junctions and CMAP: the JAX package's per-term gid
+resolver, item 25), NGLFNEW with constraints (the JAX mesh projects
 constraints only for CONSTRAINT integrators, its Simulation also for
 NGLFNEW).  The checkpoint writer, rebalance, the gathered view and the
 sharded analyses are not ported yet.
@@ -66,7 +67,7 @@ from ..core.system import build_system
 from ..objects import ObjectDB
 from ..objects import units as U
 from ..parallel.bonded_shard import (constraint_gid_tables,
-                                     molecule_gid_tables)
+                                     mesh_bonded_plan, molecule_gid_tables)
 from ..parallel.brick import BrickPlan, distribute_bricks, gid64
 from ..parallel.brickstep_cells import BrickStepCells
 from ..parallel.mesh import BrickMesh
@@ -305,7 +306,6 @@ class ParallelSimulation:
         if bt is None:
             return
         from ..integrators.constraints import build_constraint_templates
-        from ..potentials.bonded_batch import build_batched_bonded
 
         n = sd.state.n_local
         if bt.exclusions is not None and self.force_kind == "martini":
@@ -320,9 +320,8 @@ class ParallelSimulation:
             self._excl_vals = _excl_channels(bt.exclusions, n)
         btab = bonded_tables(sd)
         if btab is not None:
-            self._bonded_plan = build_batched_bonded(
-                btab, sd.residue_instances, n, torch.float32, self.device,
-                gid=gid)
+            self._bonded_plan = mesh_bonded_plan(
+                btab, sd.residue_instances, n, gid, self.device)
         if uses_constraints(sd):
             self._cons_templates = build_constraint_templates(
                 bt.cons_atoms, bt.cons_pairs, bt.cons_dist,

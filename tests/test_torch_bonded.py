@@ -150,8 +150,9 @@ def test_batched_bonded_matches_jax(systems):
     jplan, left = jbb.build_batched_bonded(
         _bonded_tables(jsd, jb), jsd.residue_instances, n_pad, jnp.float32)
     assert not any(k in left for k in ("bonds", "angles", "exclusions"))
-    tplan = tbb.build_batched_bonded(
+    tplan, tleft = tbb.build_batched_bonded(
         _bonded_tables(tsd, tb, device="cpu"), tsd.residue_instances, n_pad)
+    assert not tbb.has_terms(tleft)
     rng = np.random.default_rng(7)
     r = np.asarray(jsd.state.r, np.float32)
     r = r + (rng.standard_normal(r.shape) * 0.05).astype(np.float32)
@@ -168,9 +169,108 @@ def test_batched_bonded_matches_jax(systems):
     assert float(pet.sum()) == pytest.approx(float(et), abs=1e-3)
 
 
-def test_unported_bonded_families_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tbb.build_batched_bonded({"torsions": torch.zeros((1, 4))}, [], 8)
+# a dihedralList (two torsions and a GROMACS func=2 improper) and a
+# pairList edited into the DPPC RESIPARMS of the bilayer deck
+_MMFF_TORSIONS = """
+DPPC_d0 TORSPARMS { atomI=1; atomJ=2; atomK=4; atomL=5; func=1; kchi=5.0 kJ*mol^-1; n=3; delta=0.0; }
+DPPC_d1 TORSPARMS { atomI=4; atomJ=5; atomK=6; atomL=7; func=1; kchi=2.0 kJ*mol^-1; n=1; delta=0.5; }
+DPPC_d2 TORSPARMS { atomI=2; atomJ=3; atomK=4; atomL=8; func=2; kchi=20.0 kJ*mol^-1; delta=0.3; }
+DPPC_p0 BPAIRPARMS { atomI=0; atomJ=3; sigma=0.47 nm; eps=2.0 kJ*mol^-1; }
+"""
+
+
+def _torsion_deck(d):
+    """The small bilayer with _MMFF_TORSIONS in its DPPC residue."""
+    _deck(d)
+    p = os.path.join(str(d), "bilayer.data")
+    with open(p) as f:
+        text = f.read()
+    new = text.replace("  constraintList= DPPC_cl ;\n",
+                       "  constraintList= DPPC_cl ;\n  dihedralList= DPPC_d0 "
+                       "DPPC_d1 DPPC_d2 ;\n  pairList= DPPC_p0 ;\n", 1)
+    assert new != text
+    with open(p, "w") as f:
+        f.write(new + _MMFF_TORSIONS)
+    return str(d)
+
+
+def test_mmff_torsions_and_pairs_match_jax(tmp_path):
+    """An MMFF deck with a dihedralList and a pairList: the torsion,
+    improper and bonded-pair arrays equal JAX's, every term batches, and
+    the batched forces, energy and virial equal JAX's batched evaluator
+    at the jittered positions of test_batched_bonded_matches_jax (its
+    tolerances); the mesh at (1,1,1) gives Simulation's first energy
+    within rel 2e-5."""
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    d = _torsion_deck(tmp_path)
+    jsd, tsd = j_build_system(j_load(d)[0], d), t_build_system(t_load(d)[0], d)
+    assert tsd.bonded.counts()["torsions"] == 2 * 32
+    for k in ("torsions", "torsion_parms", "impropers", "improper_parms",
+              "bpairs", "bpair_parms"):
+        np.testing.assert_array_equal(getattr(tsd.bonded, k),
+                                      getattr(jsd.bonded, k), err_msg=k)
+    n_pad = tsd.state.n_pad
+    jplan, jleft = jbb.build_batched_bonded(
+        _bonded_tables(jsd, jb), jsd.residue_instances, n_pad, jnp.float32)
+    tplan, tleft = tbb.build_batched_bonded(
+        _bonded_tables(tsd, tb, device="cpu"), tsd.residue_instances, n_pad)
+    assert not tbb.has_terms(tleft)
+    assert not any(k in jleft for k in ("torsions", "impropers", "bpairs"))
+    assert {"torsions", "impropers", "bpairs"} <= set(
+        next(t for t in tplan["types"] if t["name"] == "DPPC")["fams"])
+    rng = np.random.default_rng(7)
+    r = np.asarray(jsd.state.r, np.float32)
+    r = r + (rng.standard_normal(r.shape) * 0.05).astype(np.float32)
+    L = np.asarray(jsd.box.lengths, np.float32)
+    fj, ej, vj, pej = jbb.batched_bonded_eval(
+        jnp.asarray(r), jnp.asarray(L), jplan, n_pad, jnp.float32)
+    ft, et, vt, pet = tbb.batched_bonded_eval(
+        torch.tensor(r), torch.tensor(L), tplan, n_pad, torch.float32)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=0, atol=1e-3)
+    assert float(et) == pytest.approx(float(ej), abs=1e-3)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(pet.numpy(), np.asarray(pej), rtol=0,
+                               atol=1e-4)
+    sim = Simulation(t_load(d)[0], d, run_dir=d, device="cpu")
+    sim.first_energy()
+    ps = ParallelSimulation(t_load(d)[0], d, shape=(1, 1, 1), device="cpu")
+    assert ps.first_energy() == pytest.approx(float(sim.ss.energy.eion),
+                                              rel=2e-5)
+
+
+def test_mesh_refuses_leftover_terms(systems, monkeypatch):
+    """A bonded term that crosses residue instances (here a bond joining
+    two lipids, added in memory) stays in the leftover of the batched
+    plan; Simulation evaluates it on the generic evaluator, the mesh
+    raises naming item 25 (the per-term gid resolver is not ported)."""
+    from ddcmd_tpu_torch.run import parallel_sim as tps
+
+    _, tsd, d = systems
+    rows = [r for name, r in tsd.residue_instances if name == "DPPC"]
+    junction = (rows[0][-1], rows[1][0])
+
+    def joined(*a, **kw):
+        sd = t_build_system(*a, **kw)
+        bt = sd.bonded
+        bt.bonds = np.concatenate([bt.bonds, [junction]]).astype(np.int32)
+        bt.bond_parms = np.concatenate([bt.bond_parms, [[1250.0, 0.47]]])
+        return sd
+
+    tab = _bonded_tables(tsd, tb, device="cpu")
+    tab["bonds"] = torch.cat([tab["bonds"], torch.tensor([junction])])
+    tab["bond_parms"] = torch.cat([tab["bond_parms"],
+                                   torch.tensor([[1250.0, 0.47]])])
+    plan, left = tbb.build_batched_bonded(tab, tsd.residue_instances,
+                                          tsd.state.n_pad)
+    assert plan is not None
+    assert left["bonds"].tolist() == [list(junction)]
+    monkeypatch.setattr(tps, "build_system", joined)
+    with pytest.raises(NotImplementedError,
+                       match=r"\(bonds\) cross residue instances.*item 25"):
+        tps.ParallelSimulation(t_load(d)[0], d, shape=(1, 1, 1),
+                               device="cpu")
 
 
 def test_molecular_virial_matches_jax(systems):

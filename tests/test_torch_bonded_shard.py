@@ -89,14 +89,19 @@ def test_gid_key_of_pairs_equals_jax_pack_gid():
 
 def test_junction_terms_raise_with_gids():
     """A term joining two residue instances (a junction, which the JAX
-    package resolves per term) raises naming ROADMAP item 12 when the
-    mesh's gid-keyed plan is built: the port's boundary."""
-    terms = {"bonds": torch.tensor([[0, 1], [1, 2]]),
-             "bond_parms": torch.ones((2, 2))}
+    package resolves per term) stays in the batched plan's leftover, and
+    the mesh's gid-keyed plan raises for it naming ROADMAP item 25 (the
+    per-term resolver is not ported): the port's boundary."""
+    terms = {"bonds": torch.tensor([[0, 1], [2, 3], [1, 2]]),
+             "bond_parms": torch.ones((3, 2))}
+    inst = [("A", [0, 1]), ("A", [2, 3])]
+    gid = np.arange(8, dtype=np.int64)
+    plan, left = tbb.build_batched_bonded(terms, inst, 8, gid=gid)
+    assert left["bonds"].tolist() == [[1, 2]]
+    assert plan["types"][0]["gids"].tolist() == [[0, 1], [2, 3]]
     with pytest.raises(NotImplementedError,
-                       match="cross residue instances(.|\n)*item 12"):
-        tbb.build_batched_bonded(terms, [("A", [0, 1]), ("A", [2, 3])], 8,
-                                 gid=np.arange(8, dtype=np.int64))
+                       match="cross residue instances(.|\n)*item 25"):
+        tbs.mesh_bonded_plan(terms, inst, 8, gid)
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +123,7 @@ def test_gid_tables_equal_jax(systems):
     jplan, _ = jbb.build_batched_bonded(
         _bonded_tables(jsd, jb), jsd.residue_instances, tsd.state.n_pad,
         jnp.float32, gid=gid)
-    tplan = tbb.build_batched_bonded(bonded_tables(tsd),
+    tplan, _ = tbb.build_batched_bonded(bonded_tables(tsd),
                                      tsd.residue_instances, tsd.state.n_pad,
                                      gid=gid)
     assert [t["name"] for t in tplan["types"]] == \
@@ -172,7 +177,7 @@ def test_resolved_batched_eval_matches_jax(systems):
     jplan, _ = jbb.build_batched_bonded(
         _bonded_tables(jsd, jb), jsd.residue_instances, tsd.state.n_pad,
         jnp.float32, gid=gid)
-    tplan = tbb.build_batched_bonded(bonded_tables(tsd),
+    tplan, _ = tbb.build_batched_bonded(bonded_tables(tsd),
                                      tsd.residue_instances, tsd.state.n_pad,
                                      gid=gid)
     jres = jbs.resolve_batched(jplan, jnp.asarray(pool_gid),

@@ -136,9 +136,9 @@ r1 RESTRAINTPARMS { gid=10; kb=80 kJ/mol/nm^2; x0=-0.5 nm; y0=0.0 nm;
      "GROUP"),
     (lambda s: s.replace("type=NGLF; T=310.0K;", "type=NPTGLF; T=310.0K;"),
      "integrator"),
-    # PAIR and PAIRENERGY run now; CHARMM waits for the junction terms
-    # (item 12)
-    (lambda s: s.replace("type=MARTINI;", "type=CHARMM;"), "POTENTIAL"),
+    # a prescribed box(t) (boxPrescriptiveTime.c) waits for item 22
+    (lambda s: s.replace("pbc=7;", "pbc=7; deformationRate=0 0 0.01;"),
+     r"box\(t\).*item 22"),
     # outputs the JAX Simulation writes at their rates: each raises naming
     # its ROADMAP item instead of running to the end without the output
     (lambda s: _sim_key(s, "analysis=rdf;")
