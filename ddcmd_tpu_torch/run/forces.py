@@ -252,6 +252,9 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
                                                has_terms)
 
         n_pad = state.n_pad
+        # a type of one instance goes to the generic evaluator: batched,
+        # the c36 tripeptide's three one-instance residues double its
+        # bonded graph (2.19 against 1.09 ms a call on an H100, 700 W)
         bplan, left = build_batched_bonded(btab, sysdef.residue_instances,
                                            n_pad, dtype, device,
                                            min_instances=2)
