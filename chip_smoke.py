@@ -1,6 +1,7 @@
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
-    python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only]
+    python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only |
+                           --integrators-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -157,13 +158,32 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      against its eager function, with both times; (d) (E)
      through ParallelSimulation at (1,1,1) on #6; (e) small c36 and
      ethane decks on the card against the CPU.
+ 20. integrators and box motion (ROADMAP item 22): (a) NPTGLF on the
+     nc = 32 crystal (131,072 Cu atoms at its zero-pressure lattice
+     constant 4.30 A, 1 bar, LANGEVIN 300 K) through the CLI, 2000 steps
+     on #5: mean T, the box, zeta, mean P, the volume's range; (b)
+     NGLFNK on the 131,072-atom LJ fluid (120 K, 500 bar) through the
+     CLI, 2000 steps on #2: Lx == Ly exactly, mean T, the box, bdot;
+     both with steps/s, busy share and CUDA kernels a step; (c) STRAIN
+     (dudt = 0 0 1e-6 /fs) on the nc = 32 crystal, 1000 steps on #5:
+     Lz against exp(int u dt), Lx and Ly fixed, Pzz; (d) SHEAR on the LJ
+     fluid (slices at +-L/4 driven at +-1e-3 A/fs), 2000 steps on #2:
+     the slices' mean vy and temperatures, the z profile; #5 and #2
+     against their plain versions on (a)'s, (b)'s and (d)'s last records;
+     (e) small decks on the card against the CPU with the same noise (a
+     deck for each GROUP type and GLOBAL_ENERGY, NVEGLF, NVEGLF_SIMPLE,
+     NPTGLF, NGLFNK orthorhombic and triclinic, STRAIN, VOLUME, an
+     off-diagonal DEFORMATION_RATE, ROTATION), a restart of zeta and
+     bdot, and NVEGLF with the nc = 12 deck's LANGEVIN group against NGLF
+     with a FREE group over 100 steps on #4.
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
 the kernels' JSON line, the card line, and last {"ok": true, "device":
 {...}}.  --kernels-only stops after phase 3 and prints no result;
 --list-only builds the kernels, runs phase 18 alone and prints no
-result; --charmm-only does the same with phase 19.
+result; --charmm-only does the same with phase 19, --integrators-only
+with phase 20.
 """
 
 import contextlib
@@ -739,12 +759,14 @@ def sim_kernel_inputs(sim):
     return kernel, args, kw, term.grid
 
 
-def eam_deck(d, nc, printrate, free=False):
+def eam_deck(d, nc, printrate, free=False, a_lat=None, edit=None):
     """eam_crystal deck (4 nc^3 Cu atoms, RATIONAL); free=True swaps the
-    Langevin group for FREE (NVE, deterministic)."""
+    Langevin group for FREE (NVE, deterministic); a_lat, the lattice
+    constant in A (eam_crystal's 3.615 by default); edit(text) edits the
+    deck further."""
     from ddcmd_tpu_torch.models import eam_crystal
 
-    eam_crystal(d, nc=nc)
+    eam_crystal(d, nc=nc, **({} if a_lat is None else {"a_lat": a_lat}))
     p = os.path.join(d, "object.data")
     with open(p) as f:
         text = f.read()
@@ -752,6 +774,8 @@ def eam_deck(d, nc, printrate, free=False):
     if free:
         text = text.replace(f"type=LANGEVIN; Teq={EAM_T}K; tau=0.1ps;",
                             "type=FREE;")
+    if edit is not None:
+        text = edit(text)
     with open(p, "w") as f:
         f.write(text)
     return p
@@ -3662,6 +3686,581 @@ def charmm_phase(card, dev, counters_zero, all_counters):
     return launches, res
 
 
+# --- phase 20 (item 22): the integrators, the GROUP types and box(t) ------
+# The RATIONAL deck's FITs put eam_crystal's fcc lattice (a = 3.615 A) at
+# 43.9 GPa; its static pressure crosses zero at a = 4.30 A (-0.03 GPa; at
+# 4.25 and 4.40 A +1.11 and -1.90 GPa, so B ~28.5 GPa at 19.9 A^3 an
+# atom; f64 on the CPU, 256 atoms).  NPTGLF at 1 bar from 3.615 A expands
+# the crystal past its tensile limit (~2 GPa) without bound (864 atoms on
+# the CPU: 11.8 -> 92 A^3 an atom in 3.7 ps, zeta still growing), so (a)
+# and (c) start from the zero-pressure lattice
+INT_A_LAT = 4.30
+# NPTGLF moves the volume an atom as d2V/dt2 = (P - Peq)/Gamma: a period
+# of 2 pi sqrt(Gamma V/B), ~1.0 ps at Gamma = 2.2 amu/A^4
+NPT_GAMMA, INT_NPT_STEPS = 2.2, 2000
+# NGLFNK on the LJ fluid: the atoms' affine flow S dL/dt carries N m / 12
+# (436,000 amu at n = 131,072) of an axis's inertia beside W, and its
+# kinetic pressure pushes the piston on (dL/dt grows as N m (dL/dt)^2 /
+# (12 W L)): W = 4,300 amu (a ~3 ps period by the static B ~1.7 GPa)
+# diverged at step 152 on the card, 1e4 heated the fluid to 259 K,
+# 3e4-1e6 held it within 6-18 K of 120 K (2,000 steps each, H100 80GB
+# HBM3, 700.00 W).  With W = 1e5 amu the box grows ~8% toward 500 bar
+# over the 8 ps (the period is set by the flow's inertia: ~30 ps)
+NK_P, NK_TAU, NK_W, NK_STEPS = 500.0, 0.5, 1e5, 2000
+STRAIN_U, STRAIN_STEPS = 1e-6, 1000         # dudt on z, 1/fs
+SHEAR_V, SHEAR_TAU, SHEAR_STEPS = 1e-3, 0.2, 2000   # A/fs, ps
+INT_SMALL_N, INT_SMALL_STEPS = 500, 20      # (e): card vs CPU
+NVE_CHECK_STEPS = 100
+# the small decks' NPTGLF: the LJ fluid's B ~1.7 GPa at 48.1 A^3 an atom
+# gives a ~1 ps period at 0.054 amu/A^4
+SMALL_LJ_GAMMA = 0.054
+
+
+def nptglf_edit(gamma=NPT_GAMMA, pressure=1.0):
+    """The deck's NGLF integrator made NPTGLF (Gamma in amu/A^4, pressure
+    in bar, zeta 0)."""
+    return lambda text: text.replace(
+        "type=NGLF;", f"type=NPTGLF; Gamma={gamma} amu/Angstrom^4; "
+        f"pressure={pressure} bar; zeta=0 bar*fs;", 1)
+
+
+def nglfnk_edit(W=NK_W, P=NK_P, tau=NK_TAU):
+    """The deck's NGLF integrator made NGLFNK (piston mass W amu an axis,
+    P bar, friction time tau ps; T stays the deck's)."""
+    return lambda text: text.replace(
+        "type=NGLF;", f"type=NGLFNK; tau={tau} ps; P={P} bar; "
+        f"W={W} {W} {W} amu;", 1)
+
+
+def box_edit(keywords):
+    """The deck's BOX with `keywords` added (a box(t))."""
+    return lambda text: text.replace("pbc=7;", f"pbc=7; {keywords}", 1)
+
+
+def tilt_edit(text, tilt=0.1):
+    """The deck's cubic box with its b vector tilted by tilt L in x."""
+    import re
+
+    m = re.search(r"h= (\S+) 0 0 0 (\S+) 0 0 0 (\S+) ;", text)
+    L = float(m.group(1))
+    return text.replace(m.group(0), f"h= {L} {tilt * L:.6f} 0 0 {L} 0 0 0 "
+                        f"{L} ;")
+
+
+def chain(*edits):
+    def edit(text):
+        for e in edits:
+            text = e(text)
+        return text
+    return edit
+
+
+def regroup(d, groups, assign, extra=""):
+    """Give the deck in d the GROUP objects `groups` ({name: body}) in
+    place of its one group (the SYSTEM's groups=), each atom in the group assign(r) names (r:
+    (n, 3) positions in A); `extra`: more deck objects (UNIONGROUP
+    members).  With more than one group printrate goes to 0 (the
+    per-group energy files wait for item 23)."""
+    import re
+
+    atoms = os.path.join(d, "atoms#000000")
+    with open(atoms) as f:
+        lines = f.read().split("\n")
+    rows = [i for i, ln in enumerate(lines) if ln.split(" ", 1)[0].isdigit()]
+    r = np.array([[float(x) for x in lines[i].split()[4:7]] for i in rows])
+    for i, g in zip(rows, assign(r)):
+        parts = lines[i].split(" ")
+        parts[3] = g
+        lines[i] = " ".join(parts)
+    with open(atoms, "w") as f:
+        f.write("\n".join(lines))
+    p = os.path.join(d, "object.data")
+    with open(p) as f:
+        text = f.read()
+    old = re.search(r"groups=(\w+);", text).group(1)
+    text = re.sub(rf"^{old} GROUP \{{[^}}]*\}}\n", "", text, flags=re.M)
+    text = text.replace(f"groups={old};", f"groups={' '.join(groups)};")
+    if len(groups) > 1:
+        text = re.sub(r"printrate=\d+;", "printrate=0;", text)
+    text += "".join(f"{k} GROUP {{ {v} }}\n" for k, v in groups.items())
+    with open(p, "w") as f:
+        f.write(text + extra)
+    return p
+
+
+def box_edge(d):
+    """The deck's first box edge, A."""
+    import re
+
+    with open(os.path.join(d, "object.data")) as f:
+        return float(re.search(r"h= (\S+) ", f.read()).group(1))
+
+
+def shear_groups(L, v=SHEAR_V, tau=SHEAR_TAU, temp=LJ_T, style="SHEAR"):
+    """One SHEAR (or SHWALL) group over every atom: slices at +-L/4 (SHWALL:
+    at the z faces), L/4 wide, driven at +-v A/fs in y and held at temp
+    K."""
+    body = (f"type={style}; tau={tau} ps; top_width={L / 4:.6f} Angstrom; "
+            f"bottom_width={L / 4:.6f} Angstrom; top_velocity={v} "
+            f"Angstrom/fs; bottom_velocity={-v} Angstrom/fs; "
+            f"top_temp={temp} K; bottom_temp={temp} K;")
+    if style == "SHEAR":
+        body += (f" top_center={L / 4:.6f} Angstrom; bottom_center="
+                 f"{-L / 4:.6f} Angstrom;")
+    return {"sh": body}
+
+
+def group_decks(n=INT_SMALL_N):
+    """(name, make_deck) of a small LJ fluid deck for each GROUP type and
+    Teq_dynamics=GLOBAL_ENERGY: slabs of the box in z take the other
+    groups; velocities in A/fs, forces in eV/A."""
+    def deck(groups, assign=None, extra=""):
+        def make(d):
+            p = lj_deck(d, n, printrate=10)
+            L = box_edge(d)
+            g = groups(L) if callable(groups) else groups
+            first = next(iter(g))
+            regroup(d, g, (lambda r: assign(r, L)) if assign
+                    else (lambda r: [first] * len(r)), extra)
+            return p
+        return make
+
+    def slab(r, L, names=("mob", "wall")):
+        return [names[1] if z < -L / 4 else names[0] for z in r[:, 2]]
+
+    free = "type=FREE;"
+    return (
+        ("FROZEN slab beside FREE", deck(
+            {"mob": free, "wall": "type=FROZEN;"}, slab)),
+        ("FIXEDVELOCITY slab beside FREE", deck(
+            {"mob": free, "wall": "type=FIXEDVELOCITY; velocity=0 2e-3 0 "
+             "Angstrom/fs;"}, slab)),
+        ("EXTFORCE slab beside FREE", deck(
+            {"mob": free, "wall": "type=EXTFORCE; force=0 0 0.02 "
+             "eV/Angstrom;"}, slab)),
+        ("PISTON slab (vz ramp) beside FREE", deck(
+            {"mob": free, "wall": "type=PISTON; vz=RAMP(0,2e-3,0,40fs);"},
+            slab)),
+        ("QUENCH", deck({"q": "type=QUENCH;"})),
+        ("BERENDSEN 240 K", deck({"ber": "type=BERENDSEN; Teq=240K; "
+                                  "tau=0.05ps;"})),
+        ("SHEAR", deck(lambda L: shear_groups(L))),
+        ("SHWALL", deck(lambda L: shear_groups(L, style="SHWALL"))),
+        ("DOUBLE_MIRROR", deck(lambda L: {"mir": (
+            f"type=DOUBLE_MIRROR; point1=0 0 {-L / 2 + 3:.6f} Angstrom; "
+            f"point2=0 0 {L / 2 - 3:.6f} Angstrom; normal1=0 0 1; "
+            "normal2=0 0 -1; v1=2e-3 Angstrom/fs; v2=-2e-3 Angstrom/fs;")})),
+        ("UNIONGROUP of LANGEVIN and EXTFORCE", deck(
+            {"u": "type=UNIONGROUP; groups=bath push;"}, extra=(
+                "bath GROUP { type=LANGEVIN; Teq=120K; tau=0.2ps; }\n"
+                "push GROUP { type=EXTFORCE; force=0.02 0 0 eV/Angstrom; }\n"
+            ))),
+        ("IONIZATION, NONE and an unknown type (FREE)", deck(
+            {"ion": "type=IONIZATION;", "none": "type=NONE;",
+             "odd": "type=SOMETHING;"},
+            lambda r, L: [("ion", "none", "odd")[i % 3]
+                          for i in range(len(r))])),
+        ("LANGEVIN Teq_dynamics=GLOBAL_ENERGY", deck(
+            {"ge": "type=LANGEVIN; Teq=120K; tau=0.2ps; "
+             "Teq_dynamics=GLOBAL_ENERGY; Cp=0.05 kJ*mol^-1*K^-1;"})),
+    )
+
+
+@contextlib.contextmanager
+def host_noise():
+    """Runs on the card draw the CPU's thermostat noise (kick_noise on a
+    CPU generator, copied to the card), so a run on the card and its CPU
+    twin integrate the same noise."""
+    from ddcmd_tpu_torch.run import simulate
+
+    orig = simulate.kick_noise
+    gen = torch.Generator()
+
+    def draw(generator, seed, step, callsite, shape, dtype=torch.float32):
+        return orig(gen, seed, step, callsite, shape,
+                    dtype).to(generator.device)
+
+    simulate.kick_noise = draw
+    try:
+        yield
+    finally:
+        simulate.kick_noise = orig
+
+
+def integrator_decks(n=INT_SMALL_N):
+    """(name, make_deck) of phase 20 (e)'s integrator and box(t) decks."""
+    def lj(edit):
+        return lambda d: lj_deck(d, n, printrate=10, edit=edit)
+
+    c, s = math.cos(0.1), math.sin(0.1)
+    return (
+        ("NVEGLF (LANGEVIN group ignored)", lj(
+            lambda t: t.replace("type=NGLF;", "type=NVEGLF;"))),
+        ("NVEGLF_SIMPLE", lj(
+            lambda t: t.replace("type=NGLF;", "type=NVEGLF_SIMPLE;"))),
+        ("NPTGLF, EAM nc=5 at a=4.30 A", lambda d: eam_deck(
+            d, 5, 10, a_lat=INT_A_LAT, edit=nptglf_edit())),
+        ("NPTGLF, LJ fluid", lj(nptglf_edit(SMALL_LJ_GAMMA, 500.0))),
+        ("NGLFNK orthorhombic", lj(nglfnk_edit(W=200.0, P=2000.0))),
+        ("NGLFNK triclinic (cell-block)", lj(chain(
+            nglfnk_edit(W=200.0, P=2000.0), tilt_edit))),
+        ("STRAIN dudt=0 0 1e-5", lj(box_edit("dudt=0 0 1e-5;"))),
+        ("VOLUME Veq=46 A^3", lj(box_edit("Veq=46 Angstrom^3;"))),
+        ("DEFORMATION_RATE off-diagonal (cell-block)", lj(box_edit(
+            "deformationRate=5e-6 2e-5 0 0 0 0 0 0 0;"))),
+        ("ROTATION (cell-block)", lj(box_edit(
+            f"rotationMatrix={c} {-s} 0 {s} {c} 0 0 0 1;"))),
+    )
+
+
+def small_run(where, make_deck, steps, ret_sim=False):
+    """Simulation (engine auto) of make_deck's deck on `where` for `steps`
+    steps with the CPU's noise: (engine, eion, rk, positions, h, zeta,
+    bdot) as f64 host values."""
+    from ddcmd_tpu_torch.run.cli import load_db
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    with tempfile.TemporaryDirectory() as d:
+        deck = make_deck(d)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            s = Simulation(load_db([deck], None, d), d, run_dir=d,
+                           device=where)
+            with host_noise():
+                s.run(steps, print_fn=lambda line: None)
+    ss = s.ss
+    return (s.engine, float(ss.energy.eion), float(ss.energy.rk),
+            ss.state.r.cpu().double().numpy(),
+            ss.box.h.cpu().double().numpy(),
+            float(ss.zeta), ss.bdot.cpu().double().numpy())
+
+
+def shear_profile(sim, L):
+    """(mean vy in 8 z bins (A/fs), top and bottom slice: mean vy and T K)
+    of sim's state; the slices as the SHEAR hook reads them (|z -+ L/4|
+    < L/8)."""
+    from ddcmd_tpu_torch.objects import units as U
+
+    st = sim.ss.state
+    n = st.n_local
+    r = sim.ss.box.back_in_box(st.r)[:n].cpu().double().numpy() * 10.0
+    v = st.v[:n].cpu().double().numpy()
+    m = st.mass[:n].cpu().double().numpy()
+    vy = v[:, 1] * (U.LENGTH_TO_ANG / U.TIME_TO_FS)
+    bins = np.clip(((r[:, 2] / L + 0.5) * 8).astype(int), 0, 7)
+    prof = [float(vy[bins == b].mean()) for b in range(8)]
+    out = []
+    for c in (L / 4, -L / 4):
+        dz = r[:, 2] - c
+        dz -= L * np.round(dz / L)
+        sel = np.abs(dz) < L / 8
+        vcm = (m[sel, None] * v[sel]).sum(0) / m[sel].sum()
+        ke = 0.5 * (m[sel] * ((v[sel] - vcm) ** 2).sum(1)).sum()
+        temp = 2 * ke / (3 * (sel.sum() - 1) * U.kB)
+        out.append((float(vcm[1] * U.LENGTH_TO_ANG / U.TIME_TO_FS), temp))
+    return prof, out
+
+
+def integrators_phase(card, dev, counters_zero, all_counters):
+    """Phase 20, ROADMAP item 22 (integrators/nptglf.py, nglfnk.py, the
+    GROUP types and box(t)) on the kernels #5 and #2: (a) NPTGLF on the
+    nc = 32 crystal (131,072 Cu atoms at a = INT_A_LAT) through the CLI,
+    INT_NPT_STEPS steps on #5; (b) NGLFNK on the 131,072-atom LJ fluid
+    through the CLI, NK_STEPS steps on #2; (c) STRAIN (dudt = 0 0
+    STRAIN_U) on the nc = 32 crystal, STRAIN_STEPS steps on #5; (d) SHEAR
+    on the LJ fluid, SHEAR_STEPS steps on #2; each kernel against its
+    plain version on its run's last records; (e) small decks on the card
+    against the CPU (a deck for each GROUP type and GLOBAL_ENERGY, NVEGLF
+    and NVEGLF_SIMPLE, NPTGLF, NGLFNK orthorhombic and triclinic, STRAIN,
+    VOLUME, an off-diagonal DEFORMATION_RATE, ROTATION), a restart of
+    zeta and bdot, and NVEGLF with the nc = 12 deck's LANGEVIN group
+    against NGLF with a FREE group over NVE_CHECK_STEPS steps on #4.
+    Every gate is checked after every part has printed.  Returns {kernels
+    JSON entry: launches}."""
+    from ddcmd_tpu_torch.io.restart import write_checkpoint
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.objects import units as U
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.ops import eam_half as eh
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    t_phase = time.perf_counter()
+    quiet = lambda line: None                                  # noqa: E731
+    bar = U.unit_scale("bar")
+    launches = dict.fromkeys(("eam_rho_col", "eam_force_col",
+                              "cellpair_half_col", "eam_rho", "eam_force",
+                              "cellpair_half"), 0)
+    failed = []
+    plains = {eh.eam_rho_half_col: eh.eam_rho_half_col_plain,
+              eh.eam_force_half_col: eh.eam_force_half_col_plain,
+              eh.eam_rho_half: eh.eam_rho_half_plain,
+              eh.eam_force_half: eh.eam_force_half_plain}
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    def cli(deck, d, steps):
+        counters_zero()
+        sim = cli_run(["simulate", "-o", deck, "-n", str(steps),
+                       "--run-dir", d])
+        return sim, all_counters(), read_rows(d)
+
+    def eam_check(sim, what):
+        """#5 against its plain version on the run's last records."""
+        ss, perm, ov = sim._build_nbr(sim.ss)
+        assert not bool(ov), "overflow packing the comparison case"
+        term = sim.force_fn.terms[0]
+        rho_k, force_k, slots, args, kw = term.kernel_inputs(
+            ss.state, ss.box, perm)
+        eam_compare(f"EAM kernels on {what}'s last records (cells "
+                    f"{term.grid.ncells}, G={term.G})", (rho_k, force_k),
+                    (plains[rho_k], plains[force_k]), slots, args, kw,
+                    term.tables)
+
+    def pair_check(sim, what):
+        kernel, args, kw, hg = sim_kernel_inputs(sim)
+        G = sim.force_fn.terms[0].G
+        compare(f"pair kernel on {what}'s last records (cells {hg.ncells}, "
+                f"G={G})", kernel, ch.cellpair_half_col_plain if G > 1
+                else ch.cellpair_half_plain, args, kw)
+
+    def rate_busy(sim):
+        rate, tail = tail_rate(sim)
+        busy, kps = window_stats(lambda: sim.run(
+            PROFILE_STEPS, print_fn=quiet), PROFILE_STEPS + 1)
+        return (f"{rate:.2f} steps/s over the last {tail} steps, busy "
+                f"{100 * busy:.1f}% over {PROFILE_STEPS} profiled steps "
+                f"({kps:.1f} CUDA kernels a step)")
+
+    def box_ok(rows):
+        L = rows[:, 8:11]
+        return bool(np.isfinite(L).all()
+                    and (np.abs(L / L[0] - 1.0) <= 0.2).all())
+
+    # --- (a) NPTGLF on the nc = 32 crystal, #5 ----------------------------
+    with tempfile.TemporaryDirectory() as d:
+        deck = eam_deck(d, EAM_BIG_NC, 10, a_lat=INT_A_LAT,
+                        edit=nptglf_edit())
+        sim, c, rows = cli(deck, d, INT_NPT_STEPS)
+        n = sim.sysdef.state.n_local
+        tail = rows[rows[:, 0] > INT_NPT_STEPS - TAIL]
+        temp = float(tail[:, 5].mean())
+        zeta = float(sim.ss.zeta)
+        gate(sim.sysdef.integrator_type == "NPTGLF" and sim.force_fn.terms[
+            0].G > 1 and sim.ss.loop == INT_NPT_STEPS, "(a) setup")
+        gate(np.isfinite(rows).all(), "(a) finite rows")
+        gate(abs(temp - EAM_T) <= TEMP_TOL, f"(a) mean T {temp}")
+        gate(box_ok(rows), "(a) box within 20%")
+        gate(math.isfinite(zeta), f"(a) zeta {zeta}")
+        gate(c["eam_rho_col"] >= INT_NPT_STEPS
+             and c["eam_force_col"] >= INT_NPT_STEPS
+             and not any(v for k, v in c.items()
+                         if k not in ("eam_rho_col", "eam_force_col")),
+             f"(a) launches {c}")
+        launches["eam_rho_col"] += c["eam_rho_col"]
+        launches["eam_force_col"] += c["eam_force_col"]
+        va = rows[:, 7]
+        phase("integrators", f"(a) NPTGLF nc={EAM_BIG_NC} ({n} Cu atoms, a "
+              f"= {INT_A_LAT} A, Gamma {NPT_GAMMA} amu/A^4, pressure 1 bar, "
+              f"LANGEVIN {EAM_T:.0f} K, 2 fs), {INT_NPT_STEPS} steps through "
+              f"the CLI: cells {sim.grid.ncells} G={sim.force_fn.terms[0].G}"
+              f"; #5 launched {c['eam_rho_col']} / {c['eam_force_col']} "
+              f"times, #4 {c['eam_rho']}; mean T {temp:.2f} K and mean P "
+              f"{tail[:, 6].mean():.6g} {sim.printinfo.u_press} over the "
+              f"last {TAIL} steps; V/atom {va.min():.4f}-{va.max():.4f} "
+              f"{sim.printinfo.u_vol} (start {va[0]:.4f}), last zeta "
+              f"{zeta:.6g}; redos {sim.redos}; {rate_busy(sim)} on {card}")
+        eam_check(sim, "(a)")
+        del sim
+
+    # --- (b) NGLFNK on the 131,072-atom LJ fluid, #2 ------------------------
+    with tempfile.TemporaryDirectory() as d:
+        deck = lj_deck(d, LJ_BIG_N, printrate=10, edit=nglfnk_edit())
+        sim, c, rows = cli(deck, d, NK_STEPS)
+        tail = rows[rows[:, 0] > NK_STEPS - TAIL]
+        temp = float(tail[:, 5].mean())
+        h = sim.ss.box.h
+        bdot = sim.ss.bdot.cpu().double().numpy()
+        gate(sim.ss.loop == NK_STEPS and sim.force_fn.terms[0].G > 1,
+             "(b) setup")
+        gate(np.isfinite(rows).all(), "(b) finite rows")
+        gate(bool(h[0, 0] == h[1, 1]) and bool(
+            (rows[:, 8] == rows[:, 9]).all()), "(b) Lx == Ly")
+        gate(abs(temp - LJ_T) <= TEMP_TOL, f"(b) mean T {temp}")
+        gate(box_ok(rows), "(b) box within 20%")
+        gate(np.isfinite(bdot).all() and bool(np.any(bdot != 0.0)),
+             f"(b) bdot {bdot}")
+        gate(c["cellpair_half_col"] >= NK_STEPS and not any(
+            v for k, v in c.items() if k != "cellpair_half_col"),
+            f"(b) launches {c}")
+        launches["cellpair_half_col"] += c["cellpair_half_col"]
+        L = rows[:, 8:11]
+        phase("integrators", f"(b) NGLFNK lj_fluid {LJ_BIG_N} atoms (T "
+              f"{LJ_T:.0f} K, tau {NK_TAU} ps, P {NK_P} bar, W {NK_W} amu an "
+              f"axis, 4 fs), {NK_STEPS} steps through the CLI: cells "
+              f"{sim.grid.ncells} G={sim.force_fn.terms[0].G}; #2 launched "
+              f"{c['cellpair_half_col']} times; Lx == Ly on every row "
+              f"{bool((rows[:, 8] == rows[:, 9]).all())} and at the end "
+              f"{bool(h[0, 0] == h[1, 1])}; Lx {L[:, 0].min():.4f}-"
+              f"{L[:, 0].max():.4f}, Lz {L[:, 2].min():.4f}-"
+              f"{L[:, 2].max():.4f} A (start {L[0, 0]:.4f}); mean T "
+              f"{temp:.2f} K, mean P {tail[:, 6].mean():.6g} "
+              f"{sim.printinfo.u_press} over the last {TAIL} steps; bdot "
+              f"{np.round(bdot, 6).tolist()} nm/ps; redos {sim.redos}; "
+              f"{rate_busy(sim)} on {card}")
+        pair_check(sim, "(b)")
+        del sim
+
+    # --- (c) STRAIN on the nc = 32 crystal, #5 -----------------------------
+    with tempfile.TemporaryDirectory() as d:
+        deck = eam_deck(d, EAM_BIG_NC, 10, a_lat=INT_A_LAT,
+                        edit=box_edit(f"dudt=0 0 {STRAIN_U};"))
+        sim, c, rows = cli(deck, d, STRAIN_STEPS)
+        L0 = sim.sysdef.box.lengths.cpu().double().numpy()
+        L1 = sim.ss.box.lengths.cpu().double().numpy()
+        expect = math.exp(STRAIN_U * STRAIN_STEPS * sim.sysdef.cfg.dt
+                          * U.TIME_TO_FS)
+        zerr = abs(L1[2] / L0[2] / expect - 1.0)
+        xyerr = float(np.abs(L1[:2] / L0[:2] - 1.0).max())
+        e = sim.ss.energy
+        pzz = float((e.virial[2, 2] + e.tion[2, 2]) / sim.ss.box.volume)
+        pxx = float((e.virial[0, 0] + e.tion[0, 0]) / sim.ss.box.volume)
+        gate(np.isfinite(rows).all(), "(c) finite rows")
+        gate(zerr <= 1e-5, f"(c) Lz/Lz0 off exp(int u dt) by {zerr}")
+        gate(xyerr <= 1e-6, f"(c) Lx, Ly moved by {xyerr}")
+        gate(c["eam_rho_col"] >= STRAIN_STEPS
+             and c["eam_force_col"] >= STRAIN_STEPS
+             and not any(v for k, v in c.items()
+                         if k not in ("eam_rho_col", "eam_force_col")),
+             f"(c) launches {c}")
+        launches["eam_rho_col"] += c["eam_rho_col"]
+        launches["eam_force_col"] += c["eam_force_col"]
+        phase("integrators", f"(c) STRAIN dudt=0 0 {STRAIN_U}/fs on nc="
+              f"{EAM_BIG_NC} (a = {INT_A_LAT} A), {STRAIN_STEPS} steps: Lz/"
+              f"Lz0 {L1[2] / L0[2]:.9f} vs exp(int u dt) {expect:.9f} (rel "
+              f"{zerr:.3g}), Lx, Ly moved {xyerr:.3g}; Pzz {pzz / bar:.6g} "
+              f"bar, Pxx {pxx / bar:.6g} bar at the end; #5 launched "
+              f"{c['eam_rho_col']} / {c['eam_force_col']} times; T "
+              f"{rows[-1, 5]:.2f} K; redos {sim.redos}; {rate_busy(sim)} "
+              f"on {card}")
+        del sim
+
+    # --- (d) SHEAR on the 131,072-atom LJ fluid, #2 -------------------------
+    with tempfile.TemporaryDirectory() as d:
+        deck = lj_deck(d, LJ_BIG_N, printrate=10)
+        Lb = box_edge(d)
+        regroup(d, shear_groups(Lb), lambda r: ["sh"] * len(r))
+        sim, c, rows = cli(deck, d, SHEAR_STEPS)
+        prof, ((vt, tt), (vb, tb)) = shear_profile(sim, Lb)
+        gate(np.isfinite(rows).all(), "(d) finite rows")
+        gate(vt > 0 > vb, f"(d) slice mean vy {vt}, {vb}")
+        gate(c["cellpair_half_col"] >= SHEAR_STEPS and not any(
+            v for k, v in c.items() if k != "cellpair_half_col"),
+            f"(d) launches {c}")
+        launches["cellpair_half_col"] += c["cellpair_half_col"]
+        phase("integrators", f"(d) SHEAR lj_fluid {LJ_BIG_N} atoms, slices "
+              f"at +-L/4 (L {Lb:.2f} A) L/4 wide, +-{SHEAR_V} A/fs in y, "
+              f"{LJ_T:.0f} K, tau {SHEAR_TAU} ps, {SHEAR_STEPS} steps: "
+              f"top slice vy {vt:.4g} A/fs at {tt:.2f} K, bottom {vb:.4g} "
+              f"A/fs at {tb:.2f} K; vy by z bin "
+              f"{[round(x, 6) for x in prof]}; mean T {rows[-1, 5]:.2f} K; "
+              f"#2 launched {c['cellpair_half_col']} times; redos "
+              f"{sim.redos}; {rate_busy(sim)} on {card}")
+        pair_check(sim, "(d)")
+        del sim
+    t_big = time.perf_counter() - t_phase
+
+    # --- (e) small decks, card vs CPU -------------------------------------
+    counters_zero()
+    for name, make_deck in (*group_decks(), *integrator_decks()):
+        got = small_run(DEVICE, make_deck, INT_SMALL_STEPS)
+        ref = small_run("cpu", make_deck, INT_SMALL_STEPS)
+        (eng1, e1, k1, r1, h1, z1, b1), (eng0, e0, k0, r0, h0, z0, b0) = \
+            got, ref
+        s = (r1 - r0) @ np.linalg.inv(h0).T
+        dr = float(np.abs((s - np.round(s)) @ h0.T).max())
+        ok = (eng1 == eng0 and math.isclose(e1, e0, rel_tol=1e-4,
+                                            abs_tol=1e-2)
+              and math.isclose(k1, k0, rel_tol=1e-3, abs_tol=1e-2)
+              and dr < 1e-3 and np.allclose(h1, h0, rtol=1e-5)
+              and math.isclose(z1, z0, rel_tol=1e-3, abs_tol=1e-3)
+              and np.allclose(b1, b0, rtol=1e-3, atol=1e-5))
+        gate(ok, f"(e) {name}")
+        phase("agree", f"(e) {name} ({eng1}), {INT_SMALL_STEPS} steps, card "
+              f"vs CPU: eion {e1:.8g} vs {e0:.8g}, rk {k1:.6g} vs {k0:.6g}, "
+              f"max |dr| {dr:.3g} nm, h {np.abs(h1 - h0).max():.3g}, zeta "
+              f"{z1:.6g} vs {z0:.6g}, bdot {np.abs(b1 - b0).max():.3g}")
+    c = all_counters()
+    launches["cellpair_half"] += c["cellpair_half"]
+    launches["eam_rho"] += c["eam_rho"]
+    launches["eam_force"] += c["eam_force"]
+    phase("integrators", f"(e) the card runs launched {c}")
+    # a restart of zeta (NPTGLF) and bdot (NGLFNK): 10 steps, a
+    # checkpoint, 10 more from it, against 20 in one run
+    for name, edit in (("NPTGLF zeta", nptglf_edit(SMALL_LJ_GAMMA, 500.0)),
+                       ("NGLFNK bdot", nglfnk_edit(W=200.0, P=2000.0))):
+        with tempfile.TemporaryDirectory() as d, \
+                tempfile.TemporaryDirectory() as d2:
+            lj_deck(d, INT_SMALL_N, printrate=10, edit=edit)
+            lj_deck(d2, INT_SMALL_N, printrate=10, edit=edit)
+            one = Simulation(*load(d2), run_dir=d2, device=dev)
+            one.run(INT_SMALL_STEPS, print_fn=quiet)
+            half = Simulation(*load(d), run_dir=d, device=dev)
+            half.run(INT_SMALL_STEPS // 2, print_fn=quiet)
+            write_checkpoint(half, d)
+            back = Simulation(*load(d, restart=os.path.join(d, "restart")),
+                              run_dir=d, device=dev)
+            zb = (float(back.ss.zeta), back.ss.bdot.cpu().double().numpy())
+            za = (float(half.ss.zeta), half.ss.bdot.cpu().double().numpy())
+            back.run(INT_SMALL_STEPS // 2, print_fn=quiet)
+        ok_state = (math.isclose(zb[0], za[0], rel_tol=1e-6, abs_tol=1e-9)
+                    and np.allclose(zb[1], za[1], rtol=1e-6, atol=1e-9))
+        e_b, e_1 = float(back.ss.energy.eion), float(one.ss.energy.eion)
+        ok_run = math.isclose(e_b, e_1, rel_tol=1e-4, abs_tol=1e-2)
+        gate(ok_state and ok_run, f"(e) restart of {name}")
+        phase("agree", f"(e) restart of {name} after {INT_SMALL_STEPS // 2} "
+              f"steps: zeta {za[0]:.9g} -> {zb[0]:.9g}, bdot "
+              f"{np.round(za[1], 9).tolist()} -> "
+              f"{np.round(zb[1], 9).tolist()}; {INT_SMALL_STEPS} steps "
+              f"with the restart eion {e_b:.8g} vs in one run {e_1:.8g}")
+    # NVEGLF with the nc = 12 deck's LANGEVIN group == NGLF with FREE, #4
+    energies = {}
+    for name, free, edit in (
+            ("NVEGLF", False,
+             lambda t: t.replace("type=NGLF;", "type=NVEGLF;")),
+            ("NGLF FREE", True, None)):
+        with tempfile.TemporaryDirectory() as d:
+            eam_deck(d, EAM_NC, 1, free=free, edit=edit)
+            sim = Simulation(*load(d), run_dir=d, device=dev)
+            lines = []
+            counters_zero()
+            sim.run(NVE_CHECK_STEPS, print_fn=lines.append)
+            c = all_counters()
+            gate(c["eam_rho"] >= NVE_CHECK_STEPS and not any(
+                v for k, v in c.items() if k not in ("eam_rho", "eam_force")),
+                f"(e) {name} launches {c}")
+            launches["eam_rho"] += c["eam_rho"]
+            launches["eam_force"] += c["eam_force"]
+            energies[name] = np.array([[float(x) for x in ln.split()[2:5]]
+                                       for ln in lines])
+            del sim
+    a, b = energies["NVEGLF"], energies["NGLF FREE"]
+    scale = float(np.abs(b).max())
+    err = float(np.abs(a - b).max()) / scale
+    gate(a.shape == b.shape == (NVE_CHECK_STEPS, 3) and err <= 1e-6,
+         f"(e) NVEGLF vs NGLF FREE {err}")
+    phase("integrators", f"(e) NVEGLF with the nc={EAM_NC} deck's LANGEVIN "
+          f"group vs NGLF with a FREE group, {NVE_CHECK_STEPS} steps on #4 "
+          f"({c['eam_rho']} / {c['eam_force']} launches a run): "
+          f"max |d E| {err:.3g} of the energy scale {scale:.6g} eV/atom "
+          f"(Etot, Ekin, Epot every step)")
+    phase("integrators", f"phase 20: {time.perf_counter() - t_phase:.1f} s "
+          f"((a)-(d) {t_big:.1f} s)")
+    assert not failed, f"phase 20 gates missed: {failed}"
+    return launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3730,6 +4329,9 @@ def main(argv=None):
         return
     if "--charmm-only" in argv:
         charmm_phase(card, dev, counters_zero, all_counters)
+        return
+    if "--integrators-only" in argv:
+        integrators_phase(card, dev, counters_zero, all_counters)
         return
     res = kernel_phase(dev)
     res.update(eam_kernel_phase(dev))
@@ -3893,6 +4495,10 @@ def main(argv=None):
     charmm_launches, charmm_res = charmm_phase(card, dev, counters_zero,
                                                all_counters)
     launches.update(charmm_launches)
+    # --- phase 20: item 22's integrators, groups and box(t) on #5 and #2 ----
+    for k, v in integrators_phase(card, dev, counters_zero,
+                                  all_counters).items():
+        launches[k] += v
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():

@@ -7,7 +7,8 @@ topology of the residues (bonds, angles, torsions, impropers, bonded LJ
 pairs, exclusions, constraints; CHARMM's chain links and CMAP)
 instantiated over the collection, PAIR Lennard-Jones, EAM metals of
 ATOM species (analytic or tabulated), RESTRAINT springs, REFLECT walls and NONE / ZEROPOTENTIAL
-terms (no force), in an orthorhombic or a triclinic box.
+terms (no force), in an orthorhombic or a triclinic box, static or
+prescribed in time (box(t): boxPrescriptiveTime.c).
 Anything else raises NotImplementedError naming the ROADMAP item that
 ports it.
 """
@@ -15,6 +16,7 @@ ports it.
 from __future__ import annotations
 
 import os
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -72,6 +74,7 @@ class SystemDef:
     random_seed: int = 0
     bonded: object | None = None   # potentials.bonded.BondedTerms
     residue_instances: list | None = None  # (res_name, state rows) pairs
+    box_time: dict | None = None   # prescribed box(t) (boxPrescriptiveTime.c)
 
 
 def _find_simulate(db: ObjectDB) -> SimulateConfig:
@@ -109,16 +112,67 @@ def _ddc_update_rate(db: ObjectDB, sim) -> int:
     return 20
 
 
-def _check_static_box(boxobj) -> None:
-    """A prescribed box(t) (boxPrescriptiveTime.c) is not ported."""
-    moving = (boxobj.has("dudt") or boxobj.get_literal("Veq", "").strip()
-              or any(abs(x) > 0 for x in boxobj.get_floatv(
-                  "deformationRate", "0"))
-              or any(abs(x) > 0 for x in boxobj.get_floatv(
-                  "rotationMatrix", "0")))
-    if moving:
-        raise NotImplementedError(
-            "prescribed box(t) is not ported yet (ROADMAP queue 1, item 22)")
+def _parse_box_time(boxobj) -> dict | None:
+    """Prescribed time-dependent box (boxPrescriptiveTimeParse, ddcMD
+    src/boxPrescriptiveTime.c:10-95; system.py:102-151 of the JAX
+    package).
+
+    Modes: STRAIN (full 3x3 of dudt eq targets; h_ij *= exp(int u_ij dt)
+    elementwise, boxPrescriptiveTime.c:102-117 -- 1/2/3 elements fill
+    the diagonal, 9 the full matrix), VOLUME_FUNCTION_OF_TIME (Veq =
+    per-atom volume eq target), DEFORMATION_RATE (full h <- h expm(D dt)),
+    ROTATION (constant h = R h0, applied at build -- the reference never
+    integrates it in time).  Off-diagonal terms run on the triclinic
+    cell-block engine.
+    """
+    from ..objects.eq import eq_parse
+
+    if boxobj.has("dudt"):
+        u = boxobj.get_strv("dudt")
+        n = len(u)
+        zero = "0.0"
+        if n == 0:
+            grid9 = [zero] * 9
+        elif n == 1:
+            grid9 = [u[0], zero, zero, zero, u[0], zero, zero, zero, u[0]]
+        elif n == 2:
+            grid9 = [u[0], zero, zero, zero, u[1], zero, zero, zero, u[1]]
+        elif n == 3:
+            grid9 = [u[0], zero, zero, zero, u[1], zero, zero, zero, u[2]]
+        elif n == 9:
+            grid9 = list(u)
+        else:
+            raise DeckError(f"dudt expects 1/2/3/9 elements, got {n}")
+        eqs = tuple(tuple(eq_parse(grid9[3 * i + j], "1/t", "t")
+                          for j in range(3)) for i in range(3))
+        return dict(mode="strain", eqs=eqs)
+    veq = boxobj.get_literal("Veq", "")
+    if veq.strip():
+        return dict(mode="volume",
+                    eq=eq_parse(veq.replace(" ", ""), "l^3", "t"))
+    if boxobj.has("deformationRate"):
+        d = boxobj.get_with_unitsv("deformationRate", "0 0 0 0 0 0 0 0 0",
+                                   "1/t")
+        if any(abs(x) > 0 for x in d):
+            return dict(mode="deformation",
+                        D=np.asarray(d, dtype=np.float64).reshape(3, 3))
+    if boxobj.has("rotationMatrix"):
+        R = np.asarray(boxobj.get_floatv("rotationMatrix"),
+                       dtype=np.float64).reshape(3, 3)
+        if not np.allclose(R, 0.0):
+            return dict(mode="rotation", R=R)
+    return None
+
+
+def _box_time_tilts(bt: dict) -> bool:
+    """True when a prescribed box(t) can grow off-diagonal h terms.
+    STRAIN is elementwise-multiplicative (h_ij *= exp(..)): zero entries
+    stay zero, so it never tilts a diagonal box; only an off-diagonal
+    DEFORMATION_RATE (h <- h expm(D dt)) does."""
+    if bt["mode"] == "deformation":
+        D = bt["D"]
+        return bool(np.any(D != np.diag(np.diagonal(D))))
+    return False
 
 
 def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
@@ -130,7 +184,6 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
     boxobj = db.get(sysobj.get_str("box", "box"), "BOX")
     pbc = boxobj.get_int("pbc", 7)
     hvals = boxobj.get_with_unitsv("h", "", "l") if boxobj.has("h") else None
-    _check_static_box(boxobj)
 
     # --- collection ----------------------------------------------------------
     colname = sysobj.get_str("collection", "collection")
@@ -141,8 +194,18 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
                           header_length=colobj.get_int("headerLength", 0))
     if hvals is None:
         hvals = [v * U.ANG_TO_LENGTH for v in col.header.get_floatv("h")]
-    box = Box.from_h(np.asarray(hvals).reshape(3, 3), pbc=pbc, dtype=dtype,
-                     device=device)
+    h0 = np.asarray(hvals, dtype=np.float64).reshape(3, 3)
+    box_time = _parse_box_time(boxobj)
+    if box_time is not None and box_time["mode"] == "rotation":
+        # constant h = R h0 (boxPrescriptiveTime.c:141-143 never
+        # integrates ROTATION in time): fold into the static box
+        h0 = box_time["R"] @ h0
+        box_time = None
+    box = Box.from_h(h0, pbc=pbc, dtype=dtype, device=device)
+    if box_time is not None and _box_time_tilts(box_time):
+        # an off-diagonal deformation tilts the box mid-run: the
+        # triclinic paths from step one
+        box = dataclasses.replace(box, ortho=False)
 
     # --- species -------------------------------------------------------------
     sp_names_decl = sysobj.get_strv("species")
@@ -303,14 +366,14 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
         neighbor_deltaR=deltaR, rcut_max=rcut_max,
         integrator_type=itype, integrator_parms=iparms,
         n_constraints=n_constraints, random_seed=seed, bonded=bonded,
-        residue_instances=residue_instances,
+        residue_instances=residue_instances, box_time=box_time,
     )
 
 
 def integrator_parms_from_deck(db: ObjectDB, name: str):
-    """(type, parms) for an INTEGRATOR deck object: the thermostat target
-    and the Berendsen barostat parameters of NGLFCONSTRAINT
-    (nglfconstraint.c:64-85)."""
+    """(type, parms) for an INTEGRATOR deck object: the thermostat target,
+    the Berendsen barostat parameters of NGLFCONSTRAINT
+    (nglfconstraint.c:64-85), NPTGLF's and NGLFNK's."""
     iobj = db.get(name, "INTEGRATOR")
     itype = iobj.get_str("type").upper()
     iparms = dict(
@@ -319,6 +382,14 @@ def integrator_parms_from_deck(db: ObjectDB, name: str):
         beta=iobj.get_with_units("beta", "0.0", "1/pressure"),
         tauBarostat=iobj.get_with_units("tauBarostat", "0.0", "t"),
         isotropic=bool(iobj.get_int("isotropic", 0)),
+        # NPTGLF (nptglf_parms, ddcMD src/nptglf.c:24-31)
+        Gamma=iobj.get_with_units("Gamma", "1.0", "m/l^4"),
+        zeta=iobj.get_with_units("zeta", "1.0", "pressure*t"),
+        pressure=iobj.get_with_units("pressure", "1.0", "pressure"),
+        # NGLFNK Langevin-piston NPT (nglfNK_parms, src/nglfNK.c:28-37)
+        P=iobj.get_with_units("P", "0.0", "pressure"),
+        W=iobj.get_with_unitsv("W", "1.0 1.0 1.0", "m"),
+        tau=iobj.get_with_units("tau", "1.0", "t"),
     )
     return itype, iparms
 

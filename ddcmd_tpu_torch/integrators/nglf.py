@@ -1,8 +1,8 @@
 """NGLF integrator family: leapfrog with GROUP half-kicks.
 
 Counterpart of ddcmd_tpu/integrators/nglf.py (reference nglf, ddcMD
-src/nglf.c:67-112; NGLFCONSTRAINT, src/nglfconstraint.c) without shear
-hooks or box(t); the geometry is the box's (lengths, or a triclinic h):
+src/nglf.c:67-112; NGLFCONSTRAINT, src/nglfconstraint.c); the geometry
+is the box's (lengths, or a triclinic h):
 
   0. NGLFCONSTRAINT with beta > 0: Berendsen barostat
      (changeVolume, nglfconstraint.c:64-85,510-575) -- from the molecular
@@ -10,8 +10,11 @@ hooks or box(t); the geometry is the box's (lengths, or a triclinic h):
      semi-anisotropic (Pxx, Pyy averaged; Pzz separate) or isotropic;
      h <- diag(lambda) h, positions rescaled
   1. GROUP velocityUpdate(FRONT, 0.5 dt)     [half kick]
-     + constraint projection (front mode, live box)
+     (+ the BERENDSEN rescale and the SHEAR / DOUBLE_MIRROR / UNIONGROUP
+     hooks) + constraint projection (front mode, live box)
   2. r += dt v                                [drift]
+     + prescribed box(t): h' = (E * h_ref) @ M, positions mapped by
+       A = h' h^-1 (scalePositionsByBoxChange, nglf.c:89)
      + post-drift hook (REFLECT walls, reflect.c:41)
   3. forces
   4. GROUP velocityUpdate(BACK, 0.5 dt)      [half kick]
@@ -34,6 +37,7 @@ from typing import Callable
 
 import torch
 
+from ..core.box import inv3x3
 from ..core.energy import EnergyInfo, kinetic_terms
 from ..core.groups import velocity_update
 from ..objects import units as U
@@ -49,6 +53,11 @@ class StepState:
     energy: EnergyInfo
     loop: int
     time: float              # internal ps
+    # NPTGLF's barostat friction (restart-persisted, integrator.c:173-175)
+    # and NGLFNK's box-length velocities dL/dt (box_get_dhdt diagonal,
+    # nglfNK.c:53), device tensors; unused by the other integrators
+    zeta: torch.Tensor | None = None
+    bdot: torch.Tensor | None = None
 
     def replace(self, **kw) -> "StepState":
         return dataclasses.replace(self, **kw)
@@ -83,12 +92,73 @@ def barostat_scale(state, box, virial, barostat: dict, dt: float,
     return state.replace(r=state.r * lam), box.scale(lam)
 
 
+def device_hooks(hook_groups, dtype, device):
+    """The hook groups with each DOUBLE_MIRROR's points and normals as
+    tensors on the device, made once: hooks_at then moves the planes
+    without a host copy a kick."""
+    hooks = []
+    for p in hook_groups:
+        if p.get("style") == "mirror":
+            p = dict(p, **{k: torch.as_tensor(p[k], dtype=dtype,
+                                              device=device)
+                           for k in ("point1", "point2", "normal1",
+                                     "normal2")})
+        hooks.append(p)
+    return tuple(hooks)
+
+
+def hooks_at(time: float, box, hook_groups):
+    """The hook groups with each DOUBLE_MIRROR plane point advanced to
+    `time` (doubleMirror_Update, src/doubleMirror.c:51-65: point +=
+    v*n*dt each half step, wrapped back into the box), on the box's
+    device; the other hooks as they are."""
+    hook_groups = device_hooks(hook_groups, box.h.dtype, box.h.device)
+    hooks = []
+    for p in hook_groups:
+        if p.get("style") == "mirror":
+            q = dict(p)
+            for key, vkey, nkey in (("point1", "v1", "normal1"),
+                                    ("point2", "v2", "normal2")):
+                pt = p[key] + p[vkey] * p[nkey] * time
+                q[key] = box.back_in_box(pt[None, :])[0]
+            hooks.append(q)
+        else:
+            hooks.append(p)
+    return tuple(hooks)
+
+
+def kick_context(state, box, time, shear_groups, draws):
+    """velocity_update's shear_ctx: None without hook groups."""
+    if not shear_groups:
+        return None
+    return (state.r, box.lengths, hooks_at(time, box, shear_groups), draws)
+
+
+def box_time_drift(box, r, box_lam):
+    """Prescribed box(t) at the drift (boxPrescriptiveTime.c:96-145):
+    box_lam = (E, M, h_ref) gives h' = (E * h_ref) @ M -- E carries
+    STRAIN's elementwise exp-integral factors (VOLUME's diagonal scale),
+    M DEFORMATION_RATE's expm(D dt) -- and positions map affinely by
+    A = h' h^-1 (scalePositionsByBoxChange).  The run loop passes h_ref
+    = the dispatch's first box with E, M accumulated over the dispatch
+    in f64, so an f32 box tracks exp(int u dt) without compounding a
+    rounding of every step; h_ref = h gives the JAX package's per-step
+    update."""
+    E, M, h_ref = box_lam
+    h_new = (E * h_ref) @ M
+    A = h_new @ inv3x3(box.h)
+    return dataclasses.replace(box, h=h_new), r @ A.T
+
+
 def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
                    constraint_fn: Callable | None = None,
                    molecular_virial_fn: Callable | None = None,
                    post_drift_fn: Callable | None = None,
-                   wrap_positions: bool = False):
-    """step(ss, handle, coeffs, noise_front, noise_back) -> StepState.
+                   wrap_positions: bool = False,
+                   has_berendsen: bool = False,
+                   shear_groups: tuple = ()):
+    """step(ss, handle, coeffs, noise_front, noise_back, box_lam=None,
+    draws=None) -> StepState.
 
     force_fn(state, box, handle) -> (f (N,3), e_pot, virial (3,3), pe (N,));
     noise_front/noise_back: (n_pad, 3) standard-normal draws for the two
@@ -99,23 +169,39 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
     h); molecular_virial_fn(state, box, virial) -> the virial corrected
     for intra-molecular force moments; post_drift_fn(state, box) -> state
     after the drift (REFLECT walls); wrap_positions: wrap into the box
-    after the drift, before the post-drift hook (the list engine)."""
+    after the drift, before the post-drift hook (the list engine).
+    has_berendsen: some group is BERENDSEN; shear_groups: the hook groups
+    (GroupTable.shear_groups).  box_lam: None, or the prescribed box(t)
+    update (box_time_drift); draws: None, or the UNIONGROUP member draws
+    (2, members, n_pad, 3), front and back."""
 
-    def step(ss: StepState, handle, coeffs, noise_front, noise_back):
+    hooks = {}
+
+    def step(ss: StepState, handle, coeffs, noise_front, noise_back,
+             box_lam=None, draws=None):
         state, box = ss.state, ss.box
         half = 0.5 * dt
+        key = (state.r.dtype, state.r.device)
+        if key not in hooks:
+            hooks[key] = device_hooks(shear_groups, *key)
+        shear_groups_dev = hooks[key]
         if barostat is not None:
             state, box = barostat_scale(state, box, ss.energy.virial,
                                         barostat, dt, molecular_virial_fn)
 
         mask = state.mask
-        v = velocity_update("front", state.v, state.f, state.mass,
-                            state.group, coeffs, half, noise_front, mask)
+        v = velocity_update(
+            "front", state.v, state.f, state.mass, state.group, coeffs,
+            half, noise_front, mask, has_berendsen,
+            kick_context(state, box, ss.time, shear_groups_dev,
+                         None if draws is None else draws[0]))
         if constraint_fn is not None:
             # live box geometry: the barostat above may have rescaled it
             v = constraint_fn(state.replace(v=v), dt, "front",
                               box_lengths=box.geom).v
         r = state.r + dt * v
+        if box_lam is not None:
+            box, r = box_time_drift(box, r, box_lam)
         if wrap_positions:
             r = box.back_in_box(r)
         state = state.replace(v=v, r=r)
@@ -125,8 +211,11 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
         f, e_pot, virial, pe = force_fn(state, box, handle)
         state = state.replace(f=f, pe=pe)
 
-        v = velocity_update("back", state.v, f, state.mass, state.group,
-                            coeffs, half, noise_back, mask)
+        v = velocity_update(
+            "back", state.v, f, state.mass, state.group, coeffs, half,
+            noise_back, mask, False,
+            kick_context(state, box, ss.time + dt, shear_groups_dev,
+                         None if draws is None else draws[1]))
         if constraint_fn is not None:
             v = constraint_fn(state.replace(v=v), dt, "back",
                               box_lengths=box.geom).v
@@ -136,8 +225,8 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
         rk, tion = kinetic_terms(v, state.mass, fmask)
         energy = EnergyInfo(eion=e_pot, rk=rk, virial=virial, tion=tion,
                             number=fmask.sum())
-        return StepState(state=state, box=box, energy=energy,
-                         loop=ss.loop + 1, time=ss.time + dt)
+        return ss.replace(state=state, box=box, energy=energy,
+                          loop=ss.loop + 1, time=ss.time + dt)
 
     return step
 

@@ -11,8 +11,9 @@ is keyed by deck seed and global step, core/groups.kick_noise, so a
 restart at loop L replays the noise of loop L by construction; a JAX
 run loaded from a port checkpoint draws from its deck seed), the phase
 profile table and the pxyz domain file (no consumer in the port).
-Integrator state beyond the box (NPTGLF zeta, NGLFNK piston velocities)
-belongs to integrators the port does not run yet.
+Integrator state beyond the box is written into the restart's INTEGRATOR
+object, as the JAX package writes it (io/restart.py:134-141): NPTGLF's
+zeta and NGLFNK's piston velocities bdot.
 """
 
 from __future__ import annotations
@@ -130,6 +131,18 @@ def write_checkpoint(sim, run_dir: str = ".",
     with open(os.path.join(snapdir, "restart"), "w") as f:
         f.write(f"simulate SIMULATE {{ loop={loop}; time={time_fs:.6f} ;}}\n")
         f.write(f"box BOX {{\nh={hstr} ;\n}}\n")
+        if sd.integrator_type == "NPTGLF":
+            # zeta is restart-persisted (nptglf_writedynamic, nptglf.c:34)
+            zeta_ext = U.convert(float(ss.zeta), None, "pressure*t")
+            f.write(f"{sd.cfg.integrator_name} INTEGRATOR {{ "
+                    f"zeta={zeta_ext:.12e} ; }}\n")
+        elif sd.integrator_type == "NGLFNK":
+            # piston velocities dL/dt persist across restarts (the
+            # integrator writedynamic contract, integrator.c:173-175)
+            bd = [U.convert(float(x), None, "l/t") for x in _host(ss.bdot)]
+            f.write(f"{sd.cfg.integrator_name} INTEGRATOR {{ bdot="
+                    + " ".join(f"{x:.12e}" for x in bd)
+                    + " Angstrom/fs ; }\n")
         f.write(f"collection COLLECTION {{ mode={mode}; size={n};"
                 f" files={os.path.basename(snapdir)}/atoms#;}}\n")
 

@@ -80,7 +80,8 @@ class BrickStepCells:
     project) of build_constraint_templates, or cons_tables, the
     constraint_gid_tables dict of a topology that is not
     template-regular; mol_gids, molecule_gid_tables' (M, A) gids; the
-    barostat dict of the single-device Simulation.
+    barostat dict of the single-device Simulation; has_berendsen: some
+    group is BERENDSEN (its temperature is summed over the mesh).
 
     Every method returns new tensors and leaves its inputs untouched, so
     a caller can roll back by keeping references."""
@@ -90,7 +91,7 @@ class BrickStepCells:
                  chunk_steps: int, *, coulomb: bool = True,
                  force_kind: str = "martini", excl: bool = False,
                  bonded_plan=None, cons_templates=None, cons_tables=None,
-                 mol_gids=None, barostat=None):
+                 mol_gids=None, barostat=None, has_berendsen=False):
         if force_kind not in ("martini", "eam"):
             raise ValueError(force_kind)
         if force_kind == "eam" and (excl or bonded_plan is not None):
@@ -101,6 +102,7 @@ class BrickStepCells:
         self.dt, self.seed, self.chunk_steps = dt, seed, chunk_steps
         self.coulomb, self.force_kind, self.excl = coulomb, force_kind, excl
         self.bonded_plan, self.barostat = bonded_plan, barostat
+        self.has_berendsen = has_berendsen
         self.Lv = torch.as_tensor(box_lengths, dtype=torch.float32,
                                   device=dev)
         self.tmap = torch.as_tensor(species_lj_type, dtype=torch.int64,
@@ -329,8 +331,10 @@ class BrickStepCells:
         noise = kick_noise(self._generator, self.seed, step, self._callsite,
                            (2,) + tuple(fields["r"].shape))
         half = 0.5 * self.dt
+        # a BERENDSEN group's temperature sums over every rank
         v = velocity_update("front", fields["v"], f_prev, fields["mass"],
-                            fields["group"], self.coeffs, half, noise[0], mask)
+                            fields["group"], self.coeffs, half, noise[0], mask,
+                            self.has_berendsen, group_sum=self.mesh.psum)
         v = self._rattle(fields["r"], v, True, Lv, rb)
         fields = dict(fields, r=fields["r"] + self.dt * v, v=v)
 

@@ -12,7 +12,8 @@ ddcMD src/ddcenergy.c:160-238) on three engines:
     (martini_nonbond, pair_lj with the TableFunction, eam_eval,
     pairenergy_eval, the ORDERSH bias), as the JAX package's list engine.
 
-RESTRAINT springs and the bonded terms (the residue-template batches,
+RESTRAINT springs, EXTFORCE groups' constant forces and the bonded
+terms (the residue-template batches,
 and the generic per-term evaluator on the terms that cross residue
 instances and CMAP) run on all three, the bonded terms on a CUDA device
 as one captured CUDA graph (GraphedTerm); NONE terms add nothing.  Excluded
@@ -279,6 +280,10 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
         bonded_term.graphed = graphed
         terms.append(bonded_term)
 
+    ext = np.array([g.extforce for g in sysdef.groups], dtype=np.float64)
+    if np.any(ext != 0.0):
+        terms.append(_extforce_term(ext, dtype, device))
+
     def force_fn(state, box, perm):
         f = torch.zeros((state.n_pad, 3), dtype=dtype, device=device)
         pe = torch.zeros((state.n_pad,), dtype=dtype, device=device)
@@ -459,6 +464,21 @@ def _pair_term(tables, tmap, coul, excl_vals, grid, engine, pbc, device):
     pair_term.grid = hg
     pair_term.G = G
     return pair_term
+
+
+def _extforce_term(ext, dtype, device):
+    """EXTFORCE groups: a constant external force on each member
+    particle (extforce.c; run/forces.py:459-472 of the JAX package), with
+    the potential V = -F.r per particle and no virial."""
+    ext = torch.as_tensor(ext, dtype=dtype, device=device)
+
+    def extforce_term(state, box, perm):
+        fi = ext[state.group] * state.fmask[:, None]
+        pe = -(fi * state.r).sum(dim=1)
+        return fi, pe.sum(), torch.zeros((3, 3), dtype=dtype,
+                                         device=device), pe
+
+    return extforce_term
 
 
 def _restraint_term(state, parms, dtype, device):

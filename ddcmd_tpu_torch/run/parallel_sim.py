@@ -49,8 +49,13 @@ list engine make_brick_step, item 25), bonded terms that cross residue
 instances (CHARMM junctions and CMAP: the JAX package's per-term gid
 resolver, item 25), NGLFNEW with constraints (the JAX mesh projects
 constraints only for CONSTRAINT integrators, its Simulation also for
-NGLFNEW).  The checkpoint writer, rebalance, the gathered view and the
-sharded analyses are not ported yet.
+NGLFNEW).  The kicks are the group kinds whose coefficients stay
+constant (FREE, LANGEVIN, FROZEN, FIXEDVELOCITY, QUENCH, BERENDSEN with
+its temperature summed over the ranks, a constant PISTON); the rest of
+item 22 (NPTGLF, NGLFNK, the NVEGLF variants, box(t), EXTFORCE, the hook
+groups, GLOBAL_ENERGY, Teq or vz schedules) raises naming item 25
+(_refuse_dynamics).  The checkpoint writer, rebalance, the gathered view
+and the sharded analyses are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,8 +83,9 @@ from ..potentials.pair import pair_device_tables
 from .forces import (_excl_channels, bonded_tables,
                      wide_exclusion_component)
 from .printinfo import PrintInfo
-from .simulate import (_BAROSTAT_TYPES, _NGLF_TYPES,
-                       refuse_unported_outputs, uses_constraints)
+from .simulate import (_BAROSTAT_TYPES, _MASTER_TYPES, _NPT_TYPES,
+                       _NVE_TYPES, refuse_unported_outputs,
+                       uses_constraints)
 
 _MESH_ITEM = "ROADMAP queue 1, item 25"
 # NPT decks plan cells with shrink headroom (the JAX package's
@@ -131,10 +137,11 @@ class ParallelSimulation:
         self.sysdef = sd
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         refuse_unported_outputs(db, sd, self.printinfo)
-        if sd.integrator_type not in _NGLF_TYPES:
+        if sd.integrator_type in _MASTER_TYPES:
             raise NotImplementedError(
-                f"integrator {sd.integrator_type} is not ported yet "
-                "(ROADMAP queue 1, item 22)")
+                f"integrator {sd.integrator_type}: the NEXTFILE / NGLFTEST "
+                "masters are not ported yet (ROADMAP queue 1, item 23)")
+        self._refuse_dynamics(sd)
         if not sd.box.ortho:
             raise NotImplementedError(
                 f"triclinic bricks are not ported yet ({_MESH_ITEM})")
@@ -247,6 +254,39 @@ class ParallelSimulation:
         self.dispatch_log: list[tuple[int, float]] = []
 
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _refuse_dynamics(sd):
+        """The mesh's kicks are the affine group kinds whose coefficients
+        do not change in time (FREE, LANGEVIN, FROZEN, FIXEDVELOCITY,
+        QUENCH, BERENDSEN and a constant PISTON), which is what the JAX
+        mesh's velocity_update calls compute (brickstep_pallas.py:332,
+        346).  The JAX mesh reads the integrator type only for its plan
+        margin and its Berendsen barostat (parallel_sim.py:214-217,272),
+        passes its kicks no hook context and computes the coefficients
+        once, so it runs NPTGLF and NGLFNK as NGLF, thermostats an NVEGLF
+        deck and ignores box(t), EXTFORCE, the hook groups, GLOBAL_ENERGY
+        and Teq or vz schedules (ROADMAP queue 3): each raises here,
+        naming item 25."""
+        gt = sd.group_table
+        why = []
+        if sd.integrator_type in _NPT_TYPES + _NVE_TYPES:
+            why.append(f"integrator {sd.integrator_type}")
+        if sd.box_time is not None:
+            why.append(f"a prescribed box(t) ({sd.box_time['mode']})")
+        why += [f"GROUP {g.name} of type {g.type}" for g in sd.groups
+                if g.type in ("EXTFORCE", "SHEAR", "SHWALL",
+                              "DOUBLE_MIRROR", "UNIONGROUP")]
+        why += [f"GROUP {g.name} with Teq_dynamics=GLOBAL_ENERGY"
+                for g in gt.groups
+                if g.parms.get("teq_dynamics") == "GLOBAL_ENERGY"]
+        if gt.time_dependent:
+            why.append("a time-dependent Teq or PISTON vz")
+        if why:
+            raise NotImplementedError(
+                f"{', '.join(why)} under the mesh: the JAX mesh runs such a "
+                "deck as plain NGLF with constant group coefficients; not "
+                f"ported to the mesh yet ({_MESH_ITEM})")
 
     @staticmethod
     def _nonbond_term(sd):
@@ -364,7 +404,8 @@ class ParallelSimulation:
             excl=self._excl_vals is not None, bonded_plan=self._bonded_plan,
             cons_templates=self._cons_templates,
             cons_tables=self._cons_tables, mol_gids=self._mol_gids,
-            barostat=self.barostat)
+            barostat=self.barostat,
+            has_berendsen=sd.group_table.has_berendsen)
 
     def _distribute(self, arrays):
         """This rank's brick of the host arrays at the live box, on the

@@ -2,7 +2,11 @@
 
 Counterpart of ddcmd_tpu/run/simulate.py (reference ddcMD
 src/masters.c:369-559), reduced to the main paths: NGLF / NGLFCONSTRAINT
-with the Berendsen barostat and RATTLE constraints, MARTINI nonbond and
+with the Berendsen barostat and RATTLE constraints, the NVEGLF variants
+(plain leapfrog kicks), NPTGLF and NGLFNK (integrators/nptglf.py,
+nglfnk.py), every GROUP type with Teq_dynamics=GLOBAL_ENERGY, a
+prescribed box(t) (STRAIN, VOLUME, DEFORMATION_RATE; ROTATION is folded
+into the box at build), MARTINI nonbond and
 PAIR Lennard-Jones through the cell-pair kernels plus the batched bonded
 terms, EAM through the two-pass EAM kernels, RESTRAINT springs, REFLECT
 walls and NONE terms, and on the (N,K)-list engine also PAIRENERGY, the
@@ -51,13 +55,16 @@ simulate.py:489-537).  The host then checks them:
     a row double the cadence (and the dispatch) back; a stale redo
     restarts that count.
 
-Dynamic boxes (barostat) plan the grid with a 1.08 margin on rlist, so
-compression does not trip the cell-edge guard right away.
+Dynamic boxes (a barostat's beta > 0, NPTGLF, NGLFNK, a box(t); the
+JAX package's dyn_box) plan the grid with a 1.08 margin on rlist, so
+compression does not trip the cell-edge guard right away, and count
+their box motion in the staleness test.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time as _time
 import warnings
 
@@ -65,10 +72,12 @@ import numpy as np
 import torch
 
 from ..core.energy import EnergyInfo
-from ..core.groups import kick_noise
+from ..core.groups import kick_noise, union_callsite
 from ..core.molecule import build_molecule_class, make_molecular_virial_fn
 from ..core.system import build_system, plan_grid
 from ..integrators.nglf import StepState, first_energy_call, make_nglf_step
+from ..integrators.nglfnk import make_nglfnk_step
+from ..integrators.nptglf import make_nptglf_step
 from ..nbr.celllist import build_neighbor_list, check_nonperiodic_cells
 from ..objects import ObjectDB
 from ..objects import units as U
@@ -79,14 +88,17 @@ from ..potentials.pair import TABLE_ENGINE
 from .forces import build_force_fn, wide_exclusion_component
 from .printinfo import PrintInfo
 
-# integrator types that run the NGLF step
-_NGLF_TYPES = ("NGLF", "NGLFCONSTRAINT", "NGLFCONSTRAINTGPU",
-               "NGLFCONSTRAINTGPULANGEVIN", "NGLFGPU", "NGLFGPULANGEVIN",
-               "NGLFNEW")
-# the ones with the Berendsen barostat (when beta > 0)
+# integrator types with the Berendsen barostat (when beta > 0)
 _BAROSTAT_TYPES = ("NGLFCONSTRAINT", "NGLFCONSTRAINTGPU",
                    "NGLFCONSTRAINTGPULANGEVIN", "NGLFGPU", "NGLFGPULANGEVIN",
                    "NGLFNEW")
+# NVE variants: the NGLF step on plain leapfrog coefficients (nveglf.c)
+_NVE_TYPES = ("NVEGLF", "NVEGLF_SIMPLE")
+# integrators with a step of their own (integrators/nptglf.py, nglfnk.py)
+_NPT_TYPES = ("NPTGLF", "NGLFNK")
+# integrator types that run another master (ROADMAP item 23); every other
+# type runs the NGLF step, as in the JAX package (simulate.py:264-355)
+_MASTER_TYPES = ("NEXTFILE", "NGLFTEST", "NGLFERROR")
 _NOISE_CALLSITE_NGLF = 0
 # columns of the per-step row a dispatch returns
 _ROW = ("eion", "rk", "tr_virial", "tr_tion", "volume", "Lx", "Ly", "Lz")
@@ -224,11 +236,20 @@ class Simulation:
                                         device=self.device)
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         refuse_unported_outputs(db, sd, self.printinfo)
-        if sd.integrator_type not in _NGLF_TYPES:
+        itype = sd.integrator_type
+        if itype in _MASTER_TYPES:
             raise NotImplementedError(
-                f"integrator {sd.integrator_type} is not ported yet "
-                "(ROADMAP queue 1, item 22)")
+                f"integrator {itype}: the NEXTFILE / NGLFTEST masters are "
+                "not ported yet (ROADMAP queue 1, item 23)")
         self.engine = choose_engine(sd, dtype, engine)
+        h = sd.box.h.cpu().numpy()
+        if any(g.type in ("SHEAR", "SHWALL") for g in sd.groups) and \
+                np.any(h[[2, 2, 0, 1], [0, 1, 2, 2]] != 0):
+            # the shear slabs live in Cartesian z (shear.c), as in the
+            # JAX package (simulate.py:108-117)
+            raise NotImplementedError(
+                "SHEAR/SHWALL need the c lattice vector along z (xy tilt "
+                "is fine; z-coupled tilt is not)")
         ip = sd.integrator_parms
         sysobj = db.get(sd.cfg.system_name, "SYSTEM")
         self.molecules = build_molecule_class(
@@ -252,12 +273,32 @@ class Simulation:
 
             self.post_drift_fn = reflect
         # dynamic boxes plan with shrink headroom (simulate.py:120-128)
-        self._plan_margin = 1.08 if self.barostat is not None else 1.0
+        self._dyn_box = (sd.box_time is not None or itype in _NPT_TYPES
+                         or ip["beta"] > 0)
+        self._plan_margin = 1.08 if self._dyn_box else 1.0
         self._density_safety = 1.3
         self.grid = self._plan(sd.box)
         self._build_step()
-        self.coeffs = sd.group_table.coefficients(
+        gt = sd.group_table
+        self.coeffs = gt.coefficients(
             sd.cfg.time, 0.5 * sd.cfg.dt, dtype=dtype, device=self.device)
+        # energy-feedback thermostat targets (Teq_dynamics=GLOBAL_ENERGY,
+        # langevin.c:31-51): refreshed at every dispatch from the last
+        # potential energy the host holds
+        self._ge_groups = {g.index: g for g in gt.groups
+                           if g.parms.get("teq_dynamics") == "GLOBAL_ENERGY"}
+        self._ge_total: dict = {}
+        self._eion_last = None
+        self._refresh_coeffs = gt.time_dependent or bool(self._ge_groups)
+        if itype in _NVE_TYPES:
+            # NVE variants ignore thermostats: plain leapfrog kicks
+            # (nveglf.c; simulate.py:331-337 of the JAX package)
+            a, c_on, noise, vcm, kind, ber = self.coeffs
+            self.coeffs = (torch.ones_like(a), torch.ones_like(c_on),
+                           torch.zeros_like(noise), torch.zeros_like(vcm),
+                           torch.zeros_like(kind), torch.zeros_like(ber))
+            self._refresh_coeffs = False
+        self._union_draws = gt.union_draws
         self._generator = torch.Generator(device=self.device)
         self._forced_spr = None
         self._forced_dispatch = None
@@ -267,10 +308,20 @@ class Simulation:
         # (steps, seconds) of each accepted dispatch, host clock around
         # work that ends in the dispatch's one device sync
         self.dispatch_log: list[tuple[int, float]] = []
+        # NPTGLF's zeta and NGLFNK's piston velocities start from the deck
+        # (a restart file merges its values into the INTEGRATOR object)
+        zeta0 = ip["zeta"] if itype == "NPTGLF" else 0.0
+        bdot0 = np.zeros(3)
+        if itype == "NGLFNK":
+            bdot0 = db.get(sd.cfg.integrator_name, "INTEGRATOR") \
+                .get_with_unitsv("bdot", "0 0 0", "l/t")
         self.ss = StepState(
             state=sd.state, box=sd.box,
             energy=EnergyInfo.zero(dtype=dtype, device=self.device),
-            loop=sd.cfg.loop, time=sd.cfg.time)
+            loop=sd.cfg.loop, time=sd.cfg.time,
+            zeta=torch.tensor(zeta0, dtype=dtype, device=self.device),
+            bdot=torch.as_tensor(np.asarray(bdot0, dtype=np.float64),
+                                 dtype=dtype, device=self.device))
 
     # ------------------------------------------------------------------
 
@@ -321,15 +372,39 @@ class Simulation:
                                   plan_margin=self._plan_margin)
 
     def _build_step(self):
+        """The force function on the current plan and the integrator's
+        step (simulate.py:264-355 of the JAX package): NPTGLF, NGLFNK
+        (orthorhombic, or the fixed-shape triclinic piston with h =
+        h_frac diag(L), h_frac the start box's unit lattice vectors), or
+        the NGLF step with the hook groups and the BERENDSEN rescale."""
         sd = self.sysdef
+        ip = sd.integrator_parms
+        gt = sd.group_table
         self.force_fn = build_force_fn(sd, self.grid, self.dtype,
                                        self.engine)
-        self.step_fn = make_nglf_step(
-            self.force_fn, sd.cfg.dt, barostat=self.barostat,
-            constraint_fn=self.constraint_fn,
-            molecular_virial_fn=self.mol_virial_fn,
-            post_drift_fn=self.post_drift_fn,
-            wrap_positions=self.engine == "nlist")
+        wrap = self.engine == "nlist"
+        if sd.integrator_type == "NPTGLF":
+            self.step_fn = make_nptglf_step(
+                self.force_fn, sd.cfg.dt, n_global=sd.state.n_local,
+                Gamma=ip["Gamma"], Peq=ip["pressure"], wrap_positions=wrap,
+                has_berendsen=gt.has_berendsen)
+        elif sd.integrator_type == "NGLFNK":
+            h_frac = None
+            if not sd.box.ortho:
+                h0 = sd.box.h.cpu().numpy().astype(np.float64)
+                h_frac = h0 / np.linalg.norm(h0, axis=0)[None, :]
+            self.step_fn = make_nglfnk_step(
+                self.force_fn, sd.cfg.dt, T=ip["T"], tau=ip["tau"],
+                Peq=ip["P"], W=ip["W"], kB=U.kB, wrap_positions=wrap,
+                h_frac=h_frac)
+        else:
+            self.step_fn = make_nglf_step(
+                self.force_fn, sd.cfg.dt, barostat=self.barostat,
+                constraint_fn=self.constraint_fn,
+                molecular_virial_fn=self.mol_virial_fn,
+                post_drift_fn=self.post_drift_fn, wrap_positions=wrap,
+                has_berendsen=gt.has_berendsen,
+                shear_groups=gt.shear_groups)
         # the cell-edge guard's per-axis bound, made once per plan
         self._edge_min = (torch.tensor(self.grid.ncells, dtype=self.dtype,
                                        device=self.device)
@@ -392,6 +467,8 @@ class Simulation:
             ss, perm, ov = self._build_nbr(self.ss)
             if not bool(ov):
                 self.ss = first_energy_call(ss, self.force_fn, perm)
+                if self._ge_groups:
+                    self._eion_last = float(self.ss.energy.eion)
                 return self.ss
             self._replan_after_overflow()
         raise RuntimeError(
@@ -406,7 +483,7 @@ class Simulation:
         replan, the cell-block engine's cap by 1.5, the list's cell
         capacity by 1.5 (to a multiple of 8) and its K by 1.5 (to a
         multiple of 128) (recapacity, simulate.py:611-641)."""
-        if self.barostat is not None or self._grid_stale(slack=1.05):
+        if self._dyn_box or self._grid_stale(slack=1.05):
             old = (self.grid.ncells, self._room())
             self.replan()
             if (self.grid.ncells, self._room()) != old:
@@ -426,36 +503,116 @@ class Simulation:
         self._density_safety *= 1.3
         self.replan()
 
-    def _noise(self, step: int) -> torch.Tensor:
-        return kick_noise(self._generator, self.sysdef.random_seed, step,
-                          _NOISE_CALLSITE_NGLF,
-                          (2, self.ss.state.n_pad, 3), dtype=self.dtype)
+    def _noise(self, step: int):
+        """The step's two kick draws (2, n_pad, 3) -- NGLFNK's g1 and g2
+        -- and, with UNIONGROUPs, the member draws (2, members, n_pad, 3)
+        at their own callsites, or None."""
+        shape = (2, self.ss.state.n_pad, 3)
+        seed = self.sysdef.random_seed
+        noise = kick_noise(self._generator, seed, step, _NOISE_CALLSITE_NGLF,
+                           shape, dtype=self.dtype)
+        if not self._union_draws:
+            return noise, None
+        return noise, torch.stack([
+            kick_noise(self._generator, seed, step, union_callsite(g, j),
+                       shape, dtype=self.dtype)
+            for g, j in self._union_draws], dim=1)
 
-    def _dispatch(self, ss: StepState, n_rebuilds: int, spr: int):
-        """n_rebuilds * spr steps with no host sync until the end.
-        Returns (ss, rows (k, len(_ROW)) as numpy, overflow, worst
-        displacement plus twice the box motion of a step whose list was
-        reused)."""
+    def _ge_teq_override(self):
+        """Live Teq of each GLOBAL_ENERGY Langevin group: the conserved
+        bath + system energy is pinned at the first potential energy the
+        host reads, then Teq = (total - E)/(Cp N) (langevin_getTemperature,
+        src/langevin.c:31-51; simulate.py:249-263 of the JAX package).  E
+        is the last step's energy from the previous dispatch's rows (or
+        the first energy), so the refresh reads nothing from the device."""
+        e = self._eion_last
+        if not self._ge_groups or e is None or not np.isfinite(e):
+            return None
+        ng = self.sysdef.state.n_local
+        out = {}
+        for i, g in self._ge_groups.items():
+            cp_n = g.parms["Cp"] * ng
+            if i not in self._ge_total:
+                self._ge_total[i] = float(g.Teq(0.0)) * cp_n + e
+            out[i] = (self._ge_total[i] - e) / cp_n
+        return out
+
+    def _box_lam(self, n_steps: int):
+        """The prescribed box(t) of the next n_steps steps as (E, M), each
+        (n_steps, 3, 3) on the device: step i of the dispatch sets h =
+        (E[i] * h0) @ M[i], h0 the dispatch's first box
+        (boxPrescriptiveTime.c:96-145; simulate.py:1134-1170 of the JAX
+        package, whose per-step factors are constant across a dispatch:
+        E[i], M[i] are their i+1-th powers, taken in f64).  STRAIN fills
+        E elementwise, DEFORMATION_RATE fills M = expm(D dt), VOLUME a
+        uniform E that reaches n Veq(t + S dt) at the dispatch's end.
+        None without a box(t)."""
+        bt = self.sysdef.box_time
+        if bt is None:
+            return None
+        t = self.ss.time
+        dt = self.sysdef.cfg.dt
+        S = max(1, n_steps)
+        steps = np.arange(1, S + 1, dtype=np.float64)[:, None, None]
+        E = np.ones((S, 3, 3))
+        M = np.broadcast_to(np.eye(3), (S, 3, 3)).copy()
+        if bt["mode"] == "strain":
+            log_e = np.array([[eq.integral(t, t + S * dt) / S for eq in row]
+                              for row in bt["eqs"]])
+            E = np.exp(steps * log_e[None])
+        elif bt["mode"] == "deformation":
+            D = np.asarray(bt["D"], dtype=np.float64) * dt
+            step = np.eye(3)
+            term = np.eye(3)
+            for k in range(1, 24):                # expm series (exact to
+                term = term @ D / k               # machine eps for D dt<<1)
+                step = step + term
+                if np.abs(term).max() < 1e-18:
+                    break
+            for i in range(S):
+                M[i] = (M[i - 1] if i else np.eye(3)) @ step
+        else:  # volume: n Veq(t + S dt) exactly at the dispatch's end
+            v_now = float(self.ss.box.volume)
+            v_tgt = self.sysdef.state.n_local * float(bt["eq"](t + S * dt))
+            E = E * np.exp(steps * math.log(v_tgt / v_now) / (3.0 * S))
+
+        def dev(x):
+            return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+        return dev(E), dev(M)
+
+    def _dispatch(self, ss: StepState, n_rebuilds: int, spr: int,
+                  box_lam=None):
+        """n_rebuilds * spr steps with no host sync until the end
+        (box_lam: the _box_lam of these steps, or None).  Returns (ss,
+        rows (k, len(_ROW)) as numpy, overflow, worst displacement plus
+        twice the box motion of a step whose list was reused)."""
         dev = self.device
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         worst = torch.zeros((), dtype=self.dtype, device=dev)
         rows = []
-        for _ in range(n_rebuilds):
+        h_start = ss.box.h
+        for j in range(n_rebuilds):
             ss, perm, ov = self._build_nbr(ss)
             overflow = overflow | ov
             r0, h0 = ss.state.r, ss.box.h
             fmask = ss.state.fmask
             for i in range(spr):
-                noise = self._noise(ss.loop)
-                ss = self.step_fn(ss, perm, self.coeffs, noise[0], noise[1])
+                noise, draws = self._noise(ss.loop)
+                lam = None
+                if box_lam is not None:
+                    lam = (box_lam[0][j * spr + i], box_lam[1][j * spr + i],
+                           h_start)
+                ss = self.step_fn(ss, perm, self.coeffs, noise[0], noise[1],
+                                  box_lam=lam, draws=draws)
                 if i < spr - 1:
                     # staleness only matters if more steps use this list;
-                    # box motion since the rebuild counts too (a barostat
-                    # moves boundary-wrapped particles by ~|dh|)
+                    # box motion since the rebuild counts too (a moving
+                    # box moves boundary-wrapped particles by ~|dh|)
                     dr = ss.box.min_image(ss.state.r - r0)
                     md2 = torch.max((dr * dr).sum(dim=1) * fmask)
                     eff = torch.sqrt(md2)
-                    if self.barostat is not None:
+                    if self._dyn_box:
                         eff = eff + 2.0 * torch.max(torch.abs(ss.box.h - h0))
                     worst = torch.maximum(worst, eff)
                 e = ss.energy
@@ -497,13 +654,15 @@ class Simulation:
             else:
                 spr, n_rebuilds = k, 1
             k = n_rebuilds * spr
-            if sd.group_table.time_dependent:
+            if self._refresh_coeffs:
+                # Teq schedules, PISTON vz(t) and GLOBAL_ENERGY targets
+                # (simulate.py:169-184 of the JAX package)
                 self.coeffs = sd.group_table.coefficients(
                     self.ss.time, 0.5 * cfg.dt, dtype=self.dtype,
-                    device=self.device)
+                    device=self.device, teq_override=self._ge_teq_override())
             t0 = _time.perf_counter()
-            ss_new, rows, overflow, worst = self._dispatch(self.ss,
-                                                           n_rebuilds, spr)
+            ss_new, rows, overflow, worst = self._dispatch(
+                self.ss, n_rebuilds, spr, self._box_lam(k))
             seconds = _time.perf_counter() - t0
             if overflow:
                 ov_retries += 1
@@ -513,7 +672,7 @@ class Simulation:
                     raise RuntimeError(
                         "neighbor overflow persists after repeated replans "
                         f"(loop {self.ss.loop})")
-                if self.barostat is not None and ov_retries >= 3:
+                if self._dyn_box and ov_retries >= 3:
                     # a compression faster than one dispatch: advance in
                     # shorter dispatches so the replans follow the box
                     self._forced_dispatch = max(spr, k // 2)
@@ -548,6 +707,7 @@ class Simulation:
                         self._forced_dispatch = (
                             None if fd >= max_steps_per_dispatch else fd)
             self.ss = ss_new
+            self._eion_last = float(rows[-1, 0])
             done += k
             self.dispatch_log.append((k, seconds))
             self._emit_prints(rows, k, print_fn)

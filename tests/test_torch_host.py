@@ -130,15 +130,27 @@ r1 RESTRAINTPARMS { gid=10; kb=80 kJ/mol/nm^2; x0=-0.5 nm; y0=0.0 nm;
 """
 
 
+# item 22's decks: Simulation runs them (test_item22_decks_run);
+# the mesh refuses them, naming item 25
+_BERENDSEN = (lambda s: s.replace("type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
+                                  "type=BERENDSEN; Teq=310.0K; tau=1.0ps;"))
+_NPTGLF = (lambda s: s.replace("type=NGLF; T=310.0K;",
+                               "type=NPTGLF; T=310.0K; Gamma=0.05 "
+                               "amu/Angstrom^4; pressure=1 bar; zeta=0;"))
+_DEFORMATION = (lambda s: s.replace(
+    "pbc=7;", "pbc=7; deformationRate=0 0 0.01 0 0 0 0 0 0;"))
+
+
 @pytest.mark.parametrize("edit,what", [
-    (lambda s: s.replace("type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
-                         "type=BERENDSEN; Teq=310.0K; tau=1.0ps;"),
-     "GROUP"),
-    (lambda s: s.replace("type=NGLF; T=310.0K;", "type=NPTGLF; T=310.0K;"),
-     "integrator"),
-    # a prescribed box(t) (boxPrescriptiveTime.c) waits for item 22
-    (lambda s: s.replace("pbc=7;", "pbc=7; deformationRate=0 0 0.01;"),
-     r"box\(t\).*item 22"),
+    # the mesh runs a constant BERENDSEN group, not a Teq schedule
+    pytest.param(lambda s: _BERENDSEN(s).replace(
+        "Teq=310.0K; tau=1.0ps;", "Teq=RAMP(310,330,0,10ps); tau=1.0ps;"),
+        r"mesh:time-dependent Teq.*item 25", id="<lambda>-GROUP"),
+    pytest.param(_NPTGLF, r"mesh:integrator NPTGLF.*item 25",
+                 id="<lambda>-integrator"),
+    pytest.param(_DEFORMATION,
+                 r"mesh:a prescribed box\(t\) \(deformation\).*item 25",
+                 id=r"<lambda>-box\(t\).*item 22"),
     # outputs the JAX Simulation writes at their rates: each raises naming
     # its ROADMAP item instead of running to the end without the output
     (lambda s: _sim_key(s, "analysis=rdf;")
@@ -192,6 +204,29 @@ def test_unported_deck_features_raise(tmp_path, edit, what):
                                device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("edit", [_BERENDSEN, _NPTGLF, _DEFORMATION],
+                         ids=["BERENDSEN", "NPTGLF", "deformationRate"])
+def test_item22_decks_run(tmp_path, edit):
+    """The decks the mesh refuses above run in Simulation: a BERENDSEN
+    group, NPTGLF, an off-diagonal deformationRate (a tilting box, so
+    the cell-block engine); two steps, finite energies."""
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    _, td = _decks(tmp_path, edit=edit)
+    sim = Simulation(t_load(td)[0], td, run_dir=td, device="cpu")
+    sd = sim.sysdef
+    assert (sd.group_table.has_berendsen, sd.integrator_type,
+            sd.box_time is not None) == {
+        _BERENDSEN: (True, "NGLF", False),
+        _NPTGLF: (False, "NPTGLF", False),
+        _DEFORMATION: (False, "NGLF", True)}[edit]
+    assert sim.engine == ("cellblock" if edit is _DEFORMATION else "kernel")
+    h0 = sim.ss.box.h.clone()
+    sim.run(2, print_fn=lambda line: None)
+    assert np.isfinite(float(sim.ss.energy.eion) + float(sim.ss.energy.rk))
+    assert torch.equal(sim.ss.box.h, h0) == (edit is _BERENDSEN)
 
 
 def test_deck_without_outputs_builds(tmp_path):

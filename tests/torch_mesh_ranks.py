@@ -167,3 +167,15 @@ def bilayer_npt(rank, deck_dir, shape, out, npt=True):
                  excl=ps.step_fn.excl, npt=ps.barostat is not None,
                  finite=bool(torch.isfinite(ps.f[ps.mask]).all()),
                  n_lines=len(lines))
+
+
+def affine_run(rank, deck_dir, shape, steps, out):
+    """The first energy, then `steps` steps of the mesh: positions and
+    velocities gathered by gid."""
+    ps = _psim(deck_dir, shape)
+    e = ps.first_energy()
+    ps.run(steps)
+    g = ps.gather_by_gid(("r", "v"))
+    if rank == 0:
+        np.savez(out, e=e, r=g["r"], v=g["v"], loop=ps.loop,
+                 L=ps.Lv.numpy())
