@@ -168,14 +168,16 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      (dudt = 0 0 1e-6 /fs) on the nc = 32 crystal, 1000 steps on #5:
      Lz against exp(int u dt), Lx and Ly fixed, Pzz; (d) SHEAR on the LJ
      fluid (slices at +-L/4 driven at +-1e-3 A/fs), 2000 steps on #2:
-     the slices' mean vy and temperatures, the z profile; #5 and #2
-     against their plain versions on (a)'s, (b)'s and (d)'s last records;
-     (e) small decks on the card against the CPU with the same noise (a
-     deck for each GROUP type and GLOBAL_ENERGY, NVEGLF, NVEGLF_SIMPLE,
-     NPTGLF, NGLFNK orthorhombic and triclinic, STRAIN, VOLUME, an
-     off-diagonal DEFORMATION_RATE, ROTATION), a restart of zeta and
-     bdot, and NVEGLF with the nc = 12 deck's LANGEVIN group against NGLF
-     with a FREE group over 100 steps on #4.
+     the slices' mean vy and temperatures, the z profile; (e) small
+     decks on the card against the CPU with the same noise (a deck for
+     each GROUP type and GLOBAL_ENERGY, NVEGLF, NVEGLF_SIMPLE, NPTGLF,
+     NGLFNK orthorhombic and triclinic, STRAIN, VOLUME, an off-diagonal
+     DEFORMATION_RATE, ROTATION), a restart of zeta and bdot, and NVEGLF
+     with the nc = 12 deck's LANGEVIN group against NGLF with a FREE
+     group over 100 steps on #4.  Each path's kernel against its plain
+     version on that path's last records, with its bound, printed as a
+     row of its own in the kernels' JSON line (*_nptglf, *_nglfnk,
+     *_strain, *_shear, *_small, *_nveglf) with that path's launches.
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -3913,10 +3915,10 @@ def integrator_decks(n=INT_SMALL_N):
     )
 
 
-def small_run(where, make_deck, steps, ret_sim=False):
+def small_run(where, make_deck, steps):
     """Simulation (engine auto) of make_deck's deck on `where` for `steps`
-    steps with the CPU's noise: (engine, eion, rk, positions, h, zeta,
-    bdot) as f64 host values."""
+    steps with the CPU's noise: ((engine, eion, rk, positions, h, zeta,
+    bdot) as f64 host values, the Simulation)."""
     from ddcmd_tpu_torch.run.cli import load_db
     from ddcmd_tpu_torch.run.simulate import Simulation
 
@@ -3932,7 +3934,7 @@ def small_run(where, make_deck, steps, ret_sim=False):
     return (s.engine, float(ss.energy.eion), float(ss.energy.rk),
             ss.state.r.cpu().double().numpy(),
             ss.box.h.cpu().double().numpy(),
-            float(ss.zeta), ss.bdot.cpu().double().numpy())
+            float(ss.zeta), ss.bdot.cpu().double().numpy()), s
 
 
 def shear_profile(sim, L):
@@ -3976,7 +3978,9 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     zeta and bdot, and NVEGLF with the nc = 12 deck's LANGEVIN group
     against NGLF with a FREE group over NVE_CHECK_STEPS steps on #4.
     Every gate is checked after every part has printed.  Returns {kernels
-    JSON entry: launches}."""
+    JSON row: (the kernel's entry, launches, its comparison's (max_abs_err,
+    ms, plain_ms, bound_ms, bound_by))}: a row of its own for each path,
+    its launches that path's and its comparison on that path's records."""
     from ddcmd_tpu_torch.io.restart import write_checkpoint
     from ddcmd_tpu_torch.models import load
     from ddcmd_tpu_torch.objects import units as U
@@ -3987,9 +3991,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     t_phase = time.perf_counter()
     quiet = lambda line: None                                  # noqa: E731
     bar = U.unit_scale("bar")
-    launches = dict.fromkeys(("eam_rho_col", "eam_force_col",
-                              "cellpair_half_col", "eam_rho", "eam_force",
-                              "cellpair_half"), 0)
+    rows_out = {}
     failed = []
     plains = {eh.eam_rho_half_col: eh.eam_rho_half_col_plain,
               eh.eam_force_half_col: eh.eam_force_half_col_plain,
@@ -4007,23 +4009,32 @@ def integrators_phase(card, dev, counters_zero, all_counters):
         return sim, all_counters(), read_rows(d)
 
     def eam_check(sim, what):
-        """#5 against its plain version on the run's last records."""
+        """#5 (#4 at G = 1) against its plain version on the run's last
+        records, with its bound: eam_compare's {"rho": ..., "force": ...}."""
         ss, perm, ov = sim._build_nbr(sim.ss)
         assert not bool(ov), "overflow packing the comparison case"
         term = sim.force_fn.terms[0]
         rho_k, force_k, slots, args, kw = term.kernel_inputs(
             ss.state, ss.box, perm)
-        eam_compare(f"EAM kernels on {what}'s last records (cells "
-                    f"{term.grid.ncells}, G={term.G})", (rho_k, force_k),
-                    (plains[rho_k], plains[force_k]), slots, args, kw,
-                    term.tables)
+        return eam_compare(
+            f"EAM kernels on {what}'s last records (cells "
+            f"{term.grid.ncells}, G={term.G})", (rho_k, force_k),
+            (plains[rho_k], plains[force_k]), slots, args, kw, term.tables,
+            with_bound=True)
+
+    def eam_rows(suffix, c, out, col=True):
+        for p in ("rho", "force"):
+            base = f"eam_{p}_col" if col else f"eam_{p}"
+            rows_out[f"{base}_{suffix}"] = (base, c[base], out[p])
 
     def pair_check(sim, what):
         kernel, args, kw, hg = sim_kernel_inputs(sim)
         G = sim.force_fn.terms[0].G
-        compare(f"pair kernel on {what}'s last records (cells {hg.ncells}, "
-                f"G={G})", kernel, ch.cellpair_half_col_plain if G > 1
-                else ch.cellpair_half_plain, args, kw)
+        return compare(f"pair kernel on {what}'s last records (cells "
+                       f"{hg.ncells}, G={G})", kernel,
+                       ch.cellpair_half_col_plain if G > 1
+                       else ch.cellpair_half_plain, args, kw,
+                       with_bound=True)
 
     def rate_busy(sim):
         rate, tail = tail_rate(sim)
@@ -4058,8 +4069,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
              and not any(v for k, v in c.items()
                          if k not in ("eam_rho_col", "eam_force_col")),
              f"(a) launches {c}")
-        launches["eam_rho_col"] += c["eam_rho_col"]
-        launches["eam_force_col"] += c["eam_force_col"]
         va = rows[:, 7]
         phase("integrators", f"(a) NPTGLF nc={EAM_BIG_NC} ({n} Cu atoms, a "
               f"= {INT_A_LAT} A, Gamma {NPT_GAMMA} amu/A^4, pressure 1 bar, "
@@ -4071,7 +4080,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"last {TAIL} steps; V/atom {va.min():.4f}-{va.max():.4f} "
               f"{sim.printinfo.u_vol} (start {va[0]:.4f}), last zeta "
               f"{zeta:.6g}; redos {sim.redos}; {rate_busy(sim)} on {card}")
-        eam_check(sim, "(a)")
+        eam_rows("nptglf", c, eam_check(sim, "(a)"))
         del sim
 
     # --- (b) NGLFNK on the 131,072-atom LJ fluid, #2 ------------------------
@@ -4094,7 +4103,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
         gate(c["cellpair_half_col"] >= NK_STEPS and not any(
             v for k, v in c.items() if k != "cellpair_half_col"),
             f"(b) launches {c}")
-        launches["cellpair_half_col"] += c["cellpair_half_col"]
         L = rows[:, 8:11]
         phase("integrators", f"(b) NGLFNK lj_fluid {LJ_BIG_N} atoms (T "
               f"{LJ_T:.0f} K, tau {NK_TAU} ps, P {NK_P} bar, W {NK_W} amu an "
@@ -4109,7 +4117,9 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"{sim.printinfo.u_press} over the last {TAIL} steps; bdot "
               f"{np.round(bdot, 6).tolist()} nm/ps; redos {sim.redos}; "
               f"{rate_busy(sim)} on {card}")
-        pair_check(sim, "(b)")
+        rows_out["cellpair_half_col_nglfnk"] = (
+            "cellpair_half_col", c["cellpair_half_col"],
+            pair_check(sim, "(b)"))
         del sim
 
     # --- (c) STRAIN on the nc = 32 crystal, #5 -----------------------------
@@ -4134,8 +4144,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
              and not any(v for k, v in c.items()
                          if k not in ("eam_rho_col", "eam_force_col")),
              f"(c) launches {c}")
-        launches["eam_rho_col"] += c["eam_rho_col"]
-        launches["eam_force_col"] += c["eam_force_col"]
         phase("integrators", f"(c) STRAIN dudt=0 0 {STRAIN_U}/fs on nc="
               f"{EAM_BIG_NC} (a = {INT_A_LAT} A), {STRAIN_STEPS} steps: Lz/"
               f"Lz0 {L1[2] / L0[2]:.9f} vs exp(int u dt) {expect:.9f} (rel "
@@ -4144,6 +4152,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"{c['eam_rho_col']} / {c['eam_force_col']} times; T "
               f"{rows[-1, 5]:.2f} K; redos {sim.redos}; {rate_busy(sim)} "
               f"on {card}")
+        eam_rows("strain", c, eam_check(sim, "(c)"))
         del sim
 
     # --- (d) SHEAR on the 131,072-atom LJ fluid, #2 -------------------------
@@ -4158,7 +4167,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
         gate(c["cellpair_half_col"] >= SHEAR_STEPS and not any(
             v for k, v in c.items() if k != "cellpair_half_col"),
             f"(d) launches {c}")
-        launches["cellpair_half_col"] += c["cellpair_half_col"]
         phase("integrators", f"(d) SHEAR lj_fluid {LJ_BIG_N} atoms, slices "
               f"at +-L/4 (L {Lb:.2f} A) L/4 wide, +-{SHEAR_V} A/fs in y, "
               f"{LJ_T:.0f} K, tau {SHEAR_TAU} ps, {SHEAR_STEPS} steps: "
@@ -4167,15 +4175,22 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"{[round(x, 6) for x in prof]}; mean T {rows[-1, 5]:.2f} K; "
               f"#2 launched {c['cellpair_half_col']} times; redos "
               f"{sim.redos}; {rate_busy(sim)} on {card}")
-        pair_check(sim, "(d)")
+        rows_out["cellpair_half_col_shear"] = (
+            "cellpair_half_col", c["cellpair_half_col"],
+            pair_check(sim, "(d)"))
         del sim
     t_big = time.perf_counter() - t_phase
 
     # --- (e) small decks, card vs CPU -------------------------------------
     counters_zero()
+    last = {}       # the last card run on #1 ("pair") and on #4 ("eam")
     for name, make_deck in (*group_decks(), *integrator_decks()):
-        got = small_run(DEVICE, make_deck, INT_SMALL_STEPS)
-        ref = small_run("cpu", make_deck, INT_SMALL_STEPS)
+        got, sim = small_run(DEVICE, make_deck, INT_SMALL_STEPS)
+        ref, _ = small_run("cpu", make_deck, INT_SMALL_STEPS)
+        term = sim.force_fn.terms[0]
+        if sim.engine == "kernel" and term.G == 1:
+            last["eam" if hasattr(term, "tables") else "pair"] = (sim, name)
+        del sim, term
         (eng1, e1, k1, r1, h1, z1, b1), (eng0, e0, k0, r0, h0, z0, b0) = \
             got, ref
         s = (r1 - r0) @ np.linalg.inv(h0).T
@@ -4192,10 +4207,18 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"max |dr| {dr:.3g} nm, h {np.abs(h1 - h0).max():.3g}, zeta "
               f"{z1:.6g} vs {z0:.6g}, bdot {np.abs(b1 - b0).max():.3g}")
     c = all_counters()
-    launches["cellpair_half"] += c["cellpair_half"]
-    launches["eam_rho"] += c["eam_rho"]
-    launches["eam_force"] += c["eam_force"]
+    gate(c["cellpair_half"] >= INT_SMALL_STEPS
+         and c["eam_rho"] >= INT_SMALL_STEPS and not any(
+             v for k, v in c.items()
+             if k not in ("cellpair_half", "eam_rho", "eam_force")),
+         f"(e) small decks' launches {c}")
     phase("integrators", f"(e) the card runs launched {c}")
+    rows_out["cellpair_half_small"] = (
+        "cellpair_half", c["cellpair_half"],
+        pair_check(last["pair"][0], f"(e) {last['pair'][1]}"))
+    eam_rows("small", c, eam_check(last["eam"][0], f"(e) {last['eam'][1]}"),
+             col=False)
+    del last
     # a restart of zeta (NPTGLF) and bdot (NGLFNK): 10 steps, a
     # checkpoint, 10 more from it, against 20 in one run
     for name, edit in (("NPTGLF zeta", nptglf_edit(SMALL_LJ_GAMMA, 500.0)),
@@ -4240,10 +4263,11 @@ def integrators_phase(card, dev, counters_zero, all_counters):
             gate(c["eam_rho"] >= NVE_CHECK_STEPS and not any(
                 v for k, v in c.items() if k not in ("eam_rho", "eam_force")),
                 f"(e) {name} launches {c}")
-            launches["eam_rho"] += c["eam_rho"]
-            launches["eam_force"] += c["eam_force"]
             energies[name] = np.array([[float(x) for x in ln.split()[2:5]]
                                        for ln in lines])
+            if name == "NVEGLF":
+                eam_rows("nveglf", c, eam_check(sim, "(e) NVEGLF"),
+                         col=False)
             del sim
     a, b = energies["NVEGLF"], energies["NGLF FREE"]
     scale = float(np.abs(b).max())
@@ -4258,7 +4282,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     phase("integrators", f"phase 20: {time.perf_counter() - t_phase:.1f} s "
           f"((a)-(d) {t_big:.1f} s)")
     assert not failed, f"phase 20 gates missed: {failed}"
-    return launches
+    return rows_out
 
 
 def main(argv=None):
@@ -4496,9 +4520,7 @@ def main(argv=None):
                                                all_counters)
     launches.update(charmm_launches)
     # --- phase 20: item 22's integrators, groups and box(t) on #5 and #2 ----
-    for k, v in integrators_phase(card, dev, counters_zero,
-                                  all_counters).items():
-        launches[k] += v
+    int_rows = integrators_phase(card, dev, counters_zero, all_counters)
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -4533,6 +4555,15 @@ def main(argv=None):
     for name, out in charmm_res.items():
         kernels[f"{name}_charmm"] = kernels[name]
         res[f"{name}_charmm"] = out
+    # phase 20's paths, each on its own records: (a) NPTGLF and (c) STRAIN
+    # on #5, (b) NGLFNK and (d) SHEAR on #2, (e)'s small decks on #1 and
+    # #4, the NVEGLF check on #4
+    for row, (name, n, out) in int_rows.items():
+        kernels[row] = kernels[name]
+        launches[row] = n
+        res[row] = out
+    idle = [name for name in kernels if not launches.get(name)]
+    assert not idle, f"kernels never launched on their paths: {idle}"
     # no single PyTorch call computes a cell-list half-stencil sum, so
     # library_ms is null for every kernel
     print(json.dumps({"kernels": [

@@ -168,7 +168,6 @@ class GroupTable:
 
     groups: list[Group]
     kind: np.ndarray        # int32 code
-    tau: np.ndarray         # f64
     vcm: np.ndarray         # (G,3)
 
     KIND = {"FREE": 0, "LANGEVIN": 1, "FROZEN": 2, "FIXEDVELOCITY": 3,
@@ -192,9 +191,8 @@ class GroupTable:
                 g.parms["member_idx"] = tuple(idxs)
         kind = np.array([cls.KIND.get(g.type, 0) for g in groups],
                         dtype=np.int32)
-        tau = np.array([g.tau for g in groups], dtype=np.float64)
         vcm = np.array([g.vcm for g in groups], dtype=np.float64)
-        return cls(groups=groups, kind=kind, tau=tau, vcm=vcm)
+        return cls(groups=groups, kind=kind, vcm=vcm)
 
     @property
     def shear_groups(self):
@@ -372,14 +370,12 @@ def _apply_mirror(p, v, r, box_lengths, group_ids, n_valid_mask):
     (doubleMirror_velocityUpdate, src/doubleMirror.c:98-161), after the
     plain kick in both modes; p['point1'/'point2'] are the current
     (time-advanced, wrapped) plane points the integrator supplies
-    (doubleMirror_Update, doubleMirror.c:51-65)."""
-    def ten(x):
-        return torch.as_tensor(x, dtype=v.dtype, device=v.device)
-
-    n1, n2 = ten(p["normal1"]), ten(p["normal2"])
-    r1 = r - ten(p["point1"])
+    (doubleMirror_Update, doubleMirror.c:51-65), tensors on v's device
+    (integrators/nglf.device_hooks)."""
+    n1, n2 = p["normal1"], p["normal2"]
+    r1 = r - p["point1"]
     r1 = r1 - box_lengths * torch.round(r1 / box_lengths)
-    r2 = r - ten(p["point2"])
+    r2 = r - p["point2"]
     r2 = r2 - box_lengths * torch.round(r2 / box_lengths)
     d1 = r1 @ n1
     d2 = r2 @ n2

@@ -108,11 +108,10 @@ def device_hooks(hook_groups, dtype, device):
 
 
 def hooks_at(time: float, box, hook_groups):
-    """The hook groups with each DOUBLE_MIRROR plane point advanced to
-    `time` (doubleMirror_Update, src/doubleMirror.c:51-65: point +=
-    v*n*dt each half step, wrapped back into the box), on the box's
-    device; the other hooks as they are."""
-    hook_groups = device_hooks(hook_groups, box.h.dtype, box.h.device)
+    """The hook groups (device_hooks's, on the box's device) with each
+    DOUBLE_MIRROR plane point advanced to `time` (doubleMirror_Update,
+    src/doubleMirror.c:51-65: point += v*n*dt each half step, wrapped
+    back into the box); the other hooks as they are."""
     hooks = []
     for p in hook_groups:
         if p.get("style") == "mirror":
@@ -128,7 +127,8 @@ def hooks_at(time: float, box, hook_groups):
 
 
 def kick_context(state, box, time, shear_groups, draws):
-    """velocity_update's shear_ctx: None without hook groups."""
+    """velocity_update's shear_ctx (shear_groups: device_hooks's): None
+    without hook groups."""
     if not shear_groups:
         return None
     return (state.r, box.lengths, hooks_at(time, box, shear_groups), draws)
@@ -142,10 +142,11 @@ def box_time_drift(box, r, box_lam):
     A = h' h^-1 (scalePositionsByBoxChange).  The run loop passes h_ref
     = the dispatch's first box with E, M accumulated over the dispatch
     in f64, so an f32 box tracks exp(int u dt) without compounding a
-    rounding of every step; h_ref = h gives the JAX package's per-step
-    update."""
+    rounding of every step; h_ref None takes the live box h, the JAX
+    package's per-step update (nglf.py:158), which composes with a
+    barostat that moved the box earlier in the step."""
     E, M, h_ref = box_lam
-    h_new = (E * h_ref) @ M
+    h_new = (E * (box.h if h_ref is None else h_ref)) @ M
     A = h_new @ inv3x3(box.h)
     return dataclasses.replace(box, h=h_new), r @ A.T
 

@@ -51,9 +51,10 @@ resolver, item 25), NGLFNEW with constraints (the JAX mesh projects
 constraints only for CONSTRAINT integrators, its Simulation also for
 NGLFNEW).  The kicks are the group kinds whose coefficients stay
 constant (FREE, LANGEVIN, FROZEN, FIXEDVELOCITY, QUENCH, BERENDSEN with
-its temperature summed over the ranks, a constant PISTON); the rest of
-item 22 (NPTGLF, NGLFNK, the NVEGLF variants, box(t), EXTFORCE, the hook
-groups, GLOBAL_ENERGY, Teq or vz schedules) raises naming item 25
+its temperature summed over the ranks, a constant PISTON; the JAX mesh
+takes it per brick); the other integrators and box motions (NPTGLF,
+NGLFNK, the NVEGLF variants, box(t), EXTFORCE, the hook groups,
+GLOBAL_ENERGY, Teq or vz schedules) raise naming item 25
 (_refuse_dynamics).  The checkpoint writer, rebalance, the gathered view
 and the sharded analyses are not ported yet.
 """

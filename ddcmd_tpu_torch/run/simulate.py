@@ -543,7 +543,8 @@ class Simulation:
         (E[i] * h0) @ M[i], h0 the dispatch's first box
         (boxPrescriptiveTime.c:96-145; simulate.py:1134-1170 of the JAX
         package, whose per-step factors are constant across a dispatch:
-        E[i], M[i] are their i+1-th powers, taken in f64).  STRAIN fills
+        E[i], M[i] are their i+1-th powers, taken in f64, so E[0], M[0]
+        are the one-step factors).  STRAIN fills
         E elementwise, DEFORMATION_RATE fills M = expm(D dt), VOLUME a
         uniform E that reaches n Veq(t + S dt) at the dispatch's end.
         None without a box(t)."""
@@ -600,7 +601,12 @@ class Simulation:
             for i in range(spr):
                 noise, draws = self._noise(ss.loop)
                 lam = None
-                if box_lam is not None:
+                if box_lam is not None and self.barostat is not None:
+                    # the barostat rescales the box every step: the
+                    # one-step factors go onto the live box, as in the
+                    # JAX package, so neither undoes the other
+                    lam = (box_lam[0][0], box_lam[1][0], None)
+                elif box_lam is not None:
                     lam = (box_lam[0][j * spr + i], box_lam[1][j * spr + i],
                            h_start)
                 ss = self.step_fn(ss, perm, self.coeffs, noise[0], noise[1],

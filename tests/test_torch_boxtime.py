@@ -5,7 +5,8 @@ _box_time_tilts; build_system's box (ROTATION folded into h, a tilting
 deformation demoted to the triclinic paths); Simulation._box_lam against
 the JAX package's per-step factors; 20-step runs of each mode at the
 JAX package's fixed rebuild cadence (the port's), with STRAIN and VOLUME
-also against their closed forms.
+also against their closed forms; a STRAIN beside the Berendsen barostat,
+the box(t) factor on the box the barostat left.
 
 Tolerances: parsed values exact; h at build exact; the box factors 1e-13
 relative (the port accumulates the JAX package's per-step factor over a
@@ -183,3 +184,44 @@ def test_box_time_runs_match_jax(tmp_path, monkeypatch, name):
         np.testing.assert_array_equal(ht, h0)
     else:
         assert not np.allclose(ht, h0, rtol=1e-6)
+
+
+BAROSTAT = ("type=NGLFCONSTRAINT; P0=500 bar; beta=1e-4/bar; "
+            "tauBarostat=0.1 ps;")
+
+
+def test_box_time_under_barostat_matches_jax(tmp_path, monkeypatch):
+    """A box(t) beside the Berendsen barostat (NGLFCONSTRAINT, beta > 0):
+    both move the box every step, the box(t) factor applied to the box
+    the barostat left (nglf.py:158 of the JAX package).  20 FREE steps
+    of a 9-component STRAIN against the JAX package's at 1e-10 of each
+    quantity's scale, and the box away from where the box(t) alone puts
+    it (the one-step M of a deformation takes the same path, and
+    test_box_lam_matches_jax holds it to the JAX package's)."""
+    monkeypatch.setenv("DDCMD_FIXED_REBUILD", "1")
+    d = str(tmp_path)
+    chip_smoke.lj_deck(d, 500, printrate=10, free=True,
+                       edit=chip_smoke.chain(
+                           chip_smoke.box_edit(BOXES["dudt9"]),
+                           lambda t: t.replace("type=NGLF;", BAROSTAT, 1)))
+    js = JSimulation(*j_load(d), run_dir=d, dtype=jnp.float64)
+    ts = TSimulation(*t_load(d), run_dir=d, device="cpu",
+                     dtype=torch.float64)
+    assert ts.barostat is not None and ts.sysdef.box_time is not None
+    h0 = ts.ss.box.h.numpy().copy()
+    Es, Ms = (x.numpy() for x in ts._box_lam(20))
+    js.run(20, print_fn=lambda s: None)
+    ts.run(20, print_fn=lambda s: None)
+    n = ts.sysdef.state.n_local
+    h = np.asarray(js.ss.box.h)
+    ht = ts.ss.box.h.numpy()
+    np.testing.assert_allclose(ht, h, rtol=0, atol=1e-10 * np.abs(h).max())
+    s = (ts.ss.state.r.numpy()[:n] - np.asarray(js.ss.state.r)[:n]) \
+        @ np.linalg.inv(h).T
+    assert np.abs((s - np.round(s)) @ h.T).max() <= 1e-10 * np.abs(h).max()
+    vj = np.asarray(js.ss.state.v)
+    assert np.abs(ts.ss.state.v.numpy() - vj).max() <= 1e-10 * \
+        np.abs(vj).max()
+    # the barostat's moves survive: not the box(t)'s box alone
+    alone = (Es[-1] * h0) @ Ms[-1]
+    assert np.abs(ht - alone).max() > 1e-4 * np.abs(h0).max()

@@ -34,6 +34,7 @@ from ddcmd_tpu.objects.eq import EqTarget as JEqTarget
 from ddcmd_tpu.run.simulate import Simulation as JSimulation
 from ddcmd_tpu_torch.core import groups as tg
 from ddcmd_tpu_torch.core.box import Box as TBox
+from ddcmd_tpu_torch.integrators.nglf import device_hooks as t_device_hooks
 from ddcmd_tpu_torch.integrators.nglf import hooks_at as t_hooks_at
 from ddcmd_tpu_torch.models import load as t_load
 from ddcmd_tpu_torch.objects import ObjectDB as TObjectDB
@@ -147,7 +148,7 @@ def test_group_table_matches_jax():
     assert [g.name for g in tt.groups] == [g.name for g in jt.groups]
     assert tg.GroupTable.KIND == jg.GroupTable.KIND
     np.testing.assert_array_equal(tt.kind, jt.kind)
-    np.testing.assert_array_equal(tt.tau, jt.tau)
+    np.testing.assert_array_equal([g.tau for g in tt.groups], jt.tau)
     np.testing.assert_array_equal(tt.vcm, jt.vcm)
     jh, th = jt.shear_groups, tt.shear_groups
     assert len(jh) == len(th)
@@ -238,7 +239,8 @@ def test_kick_matches_jax(case, mode):
         jctx = (jnp.asarray(r), jbox.lengths,
                 j_hooks_at(time, jbox, jt.shear_groups))
         tctx = (torch.tensor(r), tbox.lengths,
-                t_hooks_at(time, tbox, tt.shear_groups), draws)
+                t_hooks_at(time, tbox, t_device_hooks(
+                    tt.shear_groups, torch.float64, "cpu")), draws)
     jv = jg.velocity_update(mode, jnp.asarray(v), jnp.asarray(f),
                             jnp.asarray(mass), jnp.asarray(gid, jnp.int32),
                             jc, half, k, jnp.asarray(mask),
@@ -269,7 +271,8 @@ def test_mirror_planes_in_time():
     tbox = TBox.from_h(np.diag([2.0, 2.2, 1.9]), dtype=torch.float64)
     for t in (0.0, 0.4, 3.0, 17.0):
         jh, th = j_hooks_at(t, jbox, jt.shear_groups), \
-            t_hooks_at(t, tbox, tt.shear_groups)
+            t_hooks_at(t, tbox, t_device_hooks(tt.shear_groups,
+                                              torch.float64, "cpu"))
         for a, b in zip(jh, th):
             assert a["style"] == b["style"] if "style" in a else True
             for k in ("point1", "point2"):

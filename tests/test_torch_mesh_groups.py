@@ -23,7 +23,6 @@ import jax.numpy as jnp
 import chip_smoke
 import torch_mesh_ranks as ranks
 from ddcmd_tpu.models import load as j_load
-from ddcmd_tpu.run.simulate import Simulation as JSimulation
 from ddcmd_tpu_torch.models import load as t_load
 from ddcmd_tpu_torch.models import martini_water
 from ddcmd_tpu_torch.run.simulate import Simulation as TSimulation
@@ -167,8 +166,9 @@ def test_jax_mesh_ignores_extforce_hooks_and_global_energy(tmp_path):
     parallel_sim.py:224).  An EAM crystal whose z slabs are EXTFORCE,
     SHEAR, DOUBLE_MIRROR and a GLOBAL_ENERGY Langevin group runs on it as
     the same deck with FREE slabs and a Langevin slab at the starting
-    Teq, while the JAX Simulation's EXTFORCE term does change the
-    energy."""
+    Teq, while a Simulation's EXTFORCE term does change the energy (the
+    port's, whose EXTFORCE term test_torch_groups.py holds to the JAX
+    package's, at no JAX compile)."""
     L = 4 * 3.615
     hooked = {
         "ext": "type=EXTFORCE; force=0 0 0.05 eV/Angstrom;",
@@ -192,7 +192,73 @@ def test_jax_mesh_ignores_extforce_hooks_and_global_energy(tmp_path):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
     e = {}
     for k, d in decks.items():
-        js = JSimulation(*j_load(d), run_dir=d, dtype=jnp.float64)
-        js.first_energy()
-        e[k] = float(js.ss.energy.eion)
+        ts = TSimulation(*t_load(d), run_dir=d, device="cpu",
+                         dtype=torch.float64)
+        ts.first_energy()
+        e[k] = float(ts.ss.energy.eion)
     assert abs(e["hooked"] - e["plain"]) > 1.0
+
+
+def test_jax_mesh_berendsen_uses_each_bricks_temperature(tmp_path):
+    """A reference finding (ROADMAP queue 3): the JAX mesh's front kick
+    (brickstep_pallas.py:332) sums a BERENDSEN group's kinetic energy
+    over its own brick only, so at more than one brick each brick
+    rescales by its own temperature; the port's mesh sums it over the
+    ranks (test_mesh_runs_affine_kinds_as_simulation holds it to
+    Simulation).  One step of a BERENDSEN crystal whose x < 0 half starts
+    twice as fast, on the JAX mesh at (1,1,1) and at (2,1,1): the front
+    kick is v' = lam v + c f with the same f, so (r_2 - r_1) / (dt v0) =
+    lam_brick - lam_global on each atom, the closed form
+    sqrt(1 + (2 dt/2 / tau)(Teq / T - 1)) at each brick's own T, not 0."""
+    import re
+
+    from ddcmd_tpu_torch.objects import units as U
+
+    d = str(tmp_path)
+    chip_smoke.eam_deck(d, 5, 5)
+    chip_smoke.regroup(d, {"ber": "type=BERENDSEN; Teq=600K; tau=0.1ps;"},
+                       lambda r: ["ber"] * len(r))
+    atoms = os.path.join(d, "atoms#000000")
+    with open(atoms) as f:
+        lines = f.read().split("\n")
+    rows = [i for i, ln in enumerate(lines) if ln.split(" ", 1)[0].isdigit()]
+    rng = np.random.default_rng(3)
+    for i in rows:
+        p = lines[i].split(" ")
+        v = rng.standard_normal(3) * 2e-3 * (2.0 if float(p[4]) < 0 else 1.0)
+        lines[i] = " ".join(p[:7] + ["%.8f" % x for x in v])
+    with open(atoms, "w") as f:
+        f.write("\n".join(lines))
+    cols = np.array([[float(x) for x in lines[i].split()[4:10]]
+                     for i in rows])
+    r0, v0 = cols[:, :3] * 0.1, cols[:, 3:] * 100.0   # A -> nm, A/fs -> nm/ps
+    with open(os.path.join(d, "object.data")) as f:
+        mass = float(re.search(r"mass=([\d.]+);", f.read()).group(1))
+    L = chip_smoke.box_edge(d) * 0.1
+
+    def moved(shape):
+        from ddcmd_tpu.run.parallel_sim import ParallelSimulation
+
+        ps = ParallelSimulation(*j_load(d), shape=shape, dtype=jnp.float64)
+        ps.first_energy()
+        ps.run(1)
+        m = np.asarray(ps.mask).reshape(-1).astype(bool)
+        gid = np.asarray(ps.fields["gid"]).reshape(m.size, -1)[m]
+        r = np.asarray(ps.fields["r"]).reshape(-1, 3)[m][
+            np.lexsort(gid.T[::-1])]
+        dr = r - r0
+        return dr - L * np.round(dr / L)
+
+    dt, half, tau, teq = 0.002, 0.001, 0.1, 600.0
+
+    def lam(sel):
+        T = mass * (v0[sel] ** 2).sum() / (3 * sel.sum() * U.kB)
+        return np.sqrt(1.0 + 2.0 * half / tau * (teq / T - 1.0))
+
+    k = (moved((2, 1, 1)) - moved((1, 1, 1))) / (dt * v0)
+    x = r0[:, 0] - L * np.round(r0[:, 0] / L)
+    everyone = np.ones(len(x), bool)
+    for brick in (x < 0, x >= 0):
+        want = lam(brick) - lam(everyone)
+        assert abs(want) > 1e-3
+        assert np.abs(k[brick] - want).max() <= 1e-8, (brick.sum(), want)
