@@ -1,7 +1,7 @@
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
     python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only |
-                           --integrators-only]
+                           --integrators-only | --masters-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -178,6 +178,28 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      version on that path's last records, with its bound, printed as a
      row of its own in the kernels' JSON line (*_nptglf, *_nglfnk,
      *_strain, *_shear, *_small, *_nveglf) with that path's launches.
+ 21. the run-time layer and the masters (ROADMAP item 23): (a, run inside
+     phase 6 on its 20 fs restart) the full bilayer split into LANGEVIN
+     groups lipid and water (printrate 100, printGraphs=1, dispatches of
+     100 on a 20-step rebuild cadence) through Simulation.run(3000) on
+     #2, with ddcMD_CMDS written at +400 (profile), +800 (both groups'
+     Teq to 340 K) and +2400 (checkpoint exit): the stop, the profile
+     table, mean T and each group file's T on 340 K, a group row at
+     every printrate, a graphs line a dispatch with the plan's pair
+     slots, the checkpoint loading; the per-group pe sums of the nx = 8
+     two-group bilayer's first energy, card vs CPU; (b) the rollback
+     ladder on the water box (#1, 1000 steps): a one-shot NaN at loop
+     400 redone once with fresh noise, the later draws kick_noise's at
+     attempt 0, then a persistent fault raising the kill switch after 3
+     retries with the restart link unchanged; (c) NEXTFILE over (b)'s
+     snapshots (eion against (b)'s printed rows) and NGLFTEST at 20 fs,
+     subDivide 4, beside the f32 rounding floor; (d) thermalize (card vs
+     CPU), readWrite (bit-equal positions), eightFold and 200 steps of
+     the 49,384-bead deck through the CLI (first energy 8x, its kernel
+     named), testForce --f64, testPressure (lj_fluid n = 500 with its
+     slope check, the water box without), integrationTest.  Rows of its
+     own: cellpair_half_col_masters, cellpair_half_masters and the
+     eightFold deck's kernel (*_eightfold).
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -185,7 +207,8 @@ the kernels' JSON line, the card line, and last {"ok": true, "device":
 {...}}.  --kernels-only stops after phase 3 and prints no result;
 --list-only builds the kernels, runs phase 18 alone and prints no
 result; --charmm-only does the same with phase 19, --integrators-only
-with phase 20.
+with phase 20, --masters-only with phase 21 (making the bilayer's restart
+as phase 6's first stage does).
 """
 
 import contextlib
@@ -3757,21 +3780,32 @@ def chain(*edits):
     return edit
 
 
-def regroup(d, groups, assign, extra=""):
+def regroup(d, groups, assign, extra="", printrate=0, atoms=None,
+            by_species=False):
     """Give the deck in d the GROUP objects `groups` ({name: body}) in
-    place of its one group (the SYSTEM's groups=), each atom in the group assign(r) names (r:
-    (n, 3) positions in A); `extra`: more deck objects (UNIONGROUP
-    members).  With more than one group printrate goes to 0 (the
-    per-group energy files wait for item 23)."""
+    place of its one group (the SYSTEM's groups=), each atom in the group
+    assign(r) names (r: (n, 3) positions in A; with by_species, assign
+    gets the atoms' species names instead); `extra`: more deck objects
+    (UNIONGROUP members); `atoms`: the atoms file to regroup (a restart's
+    snapshot; d/atoms#000000 by default).  With more than one group the
+    deck's printrate becomes `printrate`: 0 by default, since the brick
+    mesh does not write the per-group energy files (item 25)."""
     import re
 
-    atoms = os.path.join(d, "atoms#000000")
+    atoms = atoms or os.path.join(d, "atoms#000000")
     with open(atoms) as f:
         lines = f.read().split("\n")
-    rows = [i for i, ln in enumerate(lines) if ln.split(" ", 1)[0].isdigit()]
-    r = np.array([[float(x) for x in lines[i].split()[4:7]] for i in rows])
-    for i, g in zip(rows, assign(r)):
-        parts = lines[i].split(" ")
+    # records: id class type group rx ry rz vx vy vz, whitespace-separated
+    # (a checkpoint pads its columns)
+    rows = [i for i, ln in enumerate(lines)
+            if len(ln.split()) >= 10 and ln.split()[0].isdigit()]
+    if by_species:
+        keys = [lines[i].split()[2] for i in rows]
+    else:
+        keys = np.array([[float(x) for x in lines[i].split()[4:7]]
+                         for i in rows])
+    for i, g in zip(rows, assign(keys)):
+        parts = lines[i].split()
         parts[3] = g
         lines[i] = " ".join(parts)
     with open(atoms, "w") as f:
@@ -3783,7 +3817,7 @@ def regroup(d, groups, assign, extra=""):
     text = re.sub(rf"^{old} GROUP \{{[^}}]*\}}\n", "", text, flags=re.M)
     text = text.replace(f"groups={old};", f"groups={' '.join(groups)};")
     if len(groups) > 1:
-        text = re.sub(r"printrate=\d+;", "printrate=0;", text)
+        text = re.sub(r"printrate=\d+;", f"printrate={printrate};", text)
     text += "".join(f"{k} GROUP {{ {v} }}\n" for k, v in groups.items())
     with open(p, "w") as f:
         f.write(text + extra)
@@ -3878,9 +3912,10 @@ def host_noise():
     orig = simulate.kick_noise
     gen = torch.Generator()
 
-    def draw(generator, seed, step, callsite, shape, dtype=torch.float32):
-        return orig(gen, seed, step, callsite, shape,
-                    dtype).to(generator.device)
+    def draw(generator, seed, step, callsite, shape, dtype=torch.float32,
+             attempt=0):
+        return orig(gen, seed, step, callsite, shape, dtype,
+                    attempt).to(generator.device)
 
     simulate.kick_noise = draw
     try:
@@ -3984,7 +4019,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     from ddcmd_tpu_torch.io.restart import write_checkpoint
     from ddcmd_tpu_torch.models import load
     from ddcmd_tpu_torch.objects import units as U
-    from ddcmd_tpu_torch.ops import cellpair_half as ch
     from ddcmd_tpu_torch.ops import eam_half as eh
     from ddcmd_tpu_torch.run.simulate import Simulation
 
@@ -4027,23 +4061,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
             base = f"eam_{p}_col" if col else f"eam_{p}"
             rows_out[f"{base}_{suffix}"] = (base, c[base], out[p])
 
-    def pair_check(sim, what):
-        kernel, args, kw, hg = sim_kernel_inputs(sim)
-        G = sim.force_fn.terms[0].G
-        return compare(f"pair kernel on {what}'s last records (cells "
-                       f"{hg.ncells}, G={G})", kernel,
-                       ch.cellpair_half_col_plain if G > 1
-                       else ch.cellpair_half_plain, args, kw,
-                       with_bound=True)
-
-    def rate_busy(sim):
-        rate, tail = tail_rate(sim)
-        busy, kps = window_stats(lambda: sim.run(
-            PROFILE_STEPS, print_fn=quiet), PROFILE_STEPS + 1)
-        return (f"{rate:.2f} steps/s over the last {tail} steps, busy "
-                f"{100 * busy:.1f}% over {PROFILE_STEPS} profiled steps "
-                f"({kps:.1f} CUDA kernels a step)")
-
     def box_ok(rows):
         L = rows[:, 8:11]
         return bool(np.isfinite(L).all()
@@ -4079,7 +4096,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"{tail[:, 6].mean():.6g} {sim.printinfo.u_press} over the "
               f"last {TAIL} steps; V/atom {va.min():.4f}-{va.max():.4f} "
               f"{sim.printinfo.u_vol} (start {va[0]:.4f}), last zeta "
-              f"{zeta:.6g}; redos {sim.redos}; {rate_busy(sim)} on {card}")
+              f"{zeta:.6g}; redos {sim.redos}; {sim_rate_busy(sim)} on {card}")
         eam_rows("nptglf", c, eam_check(sim, "(a)"))
         del sim
 
@@ -4116,10 +4133,10 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"{temp:.2f} K, mean P {tail[:, 6].mean():.6g} "
               f"{sim.printinfo.u_press} over the last {TAIL} steps; bdot "
               f"{np.round(bdot, 6).tolist()} nm/ps; redos {sim.redos}; "
-              f"{rate_busy(sim)} on {card}")
+              f"{sim_rate_busy(sim)} on {card}")
         rows_out["cellpair_half_col_nglfnk"] = (
             "cellpair_half_col", c["cellpair_half_col"],
-            pair_check(sim, "(b)"))
+            sim_pair_check(sim, "(b)"))
         del sim
 
     # --- (c) STRAIN on the nc = 32 crystal, #5 -----------------------------
@@ -4150,7 +4167,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"{zerr:.3g}), Lx, Ly moved {xyerr:.3g}; Pzz {pzz / bar:.6g} "
               f"bar, Pxx {pxx / bar:.6g} bar at the end; #5 launched "
               f"{c['eam_rho_col']} / {c['eam_force_col']} times; T "
-              f"{rows[-1, 5]:.2f} K; redos {sim.redos}; {rate_busy(sim)} "
+              f"{rows[-1, 5]:.2f} K; redos {sim.redos}; {sim_rate_busy(sim)} "
               f"on {card}")
         eam_rows("strain", c, eam_check(sim, "(c)"))
         del sim
@@ -4174,10 +4191,10 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"A/fs at {tb:.2f} K; vy by z bin "
               f"{[round(x, 6) for x in prof]}; mean T {rows[-1, 5]:.2f} K; "
               f"#2 launched {c['cellpair_half_col']} times; redos "
-              f"{sim.redos}; {rate_busy(sim)} on {card}")
+              f"{sim.redos}; {sim_rate_busy(sim)} on {card}")
         rows_out["cellpair_half_col_shear"] = (
             "cellpair_half_col", c["cellpair_half_col"],
-            pair_check(sim, "(d)"))
+            sim_pair_check(sim, "(d)"))
         del sim
     t_big = time.perf_counter() - t_phase
 
@@ -4215,7 +4232,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     phase("integrators", f"(e) the card runs launched {c}")
     rows_out["cellpair_half_small"] = (
         "cellpair_half", c["cellpair_half"],
-        pair_check(last["pair"][0], f"(e) {last['pair'][1]}"))
+        sim_pair_check(last["pair"][0], f"(e) {last['pair'][1]}"))
     eam_rows("small", c, eam_check(last["eam"][0], f"(e) {last['eam'][1]}"),
              col=False)
     del last
@@ -4285,13 +4302,559 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     return rows_out
 
 
+def bilayer_stage1(d_eq, d):
+    """Phase 6's first stage, as bench.py runs it: the full bilayer's
+    deck at EQ_DT in d_eq through the CLI for EQ_STEPS steps, checkpointed
+    into d beside the 20 fs deck, so the restart's relative files= path
+    resolves against d.  Returns (the 20 fs deck, the box lengths nm)."""
+    from ddcmd_tpu_torch.io.restart import write_checkpoint
+
+    deck_eq = bilayer_deck(d_eq, BILAYER_NX, EQ_DT, 200)
+    deck = bilayer_deck(d, BILAYER_NX, 20.0, 10)
+    t0 = time.perf_counter()
+    sim_eq = cli_run(["simulate", "-o", deck_eq, "-n", str(EQ_STEPS),
+                      "--run-dir", d_eq])
+    eq_s = time.perf_counter() - t0
+    assert sim_eq.ss.loop == EQ_STEPS
+    write_checkpoint(sim_eq, d)
+    L_eq = sim_eq.ss.box.lengths.cpu().numpy().astype(np.float64)
+    phase("bilayer", f"stage 1: {sim_eq.sysdef.state.n_local} beads, "
+          f"{EQ_STEPS} steps at dt={EQ_DT} fs in {eq_s:.1f} s (set-up "
+          f"included), box {L_eq.round(4).tolist()} nm, cells "
+          f"{sim_eq.grid.ncells} cap {sim_eq.grid.cap}, redos "
+          f"{sim_eq.redos}; checkpoint written")
+    return deck, L_eq
+
+
+# --- phase 21 (item 23): the run-time layer and the masters ---------------
+# (a): the command file on the full bilayer from phase 6's 20 fs restart,
+# written at these loops past the restart; Teq 323 -> MASTERS_T K at +800
+MASTERS_STEPS, MASTERS_PRINTRATE, MASTERS_T = 3000, 100, 340.0
+MASTERS_CMDS = {
+    400: "profile\n",
+    800: "".join(f"{g} GROUP {{ type=LANGEVIN; Teq={MASTERS_T}K; tau=1.0ps; "
+                 "}\n" for g in ("lipid", "water")),
+    2400: "checkpoint exit\n"}
+MASTERS_EXIT = 2400
+# the commands are read, and the group files written, at dispatch ends:
+# dispatches of one printrate, on a rebuild cadence that divides it (the
+# bilayer deck's updateRate 12 would end them at 96, 192, ...)
+MASTERS_DISPATCH, MASTERS_UPDATE_RATE = 100, 20
+MASTERS_TAIL = 400          # steps the T gates read, before the exit
+MASTERS_SMALL_NX = 8        # the per-group pe sums, card vs CPU
+# (b): the rollback ladder on the water box; the one-shot NaN at the end
+# of the dispatch that ends at ROLLBACK_AT, snapshots every 200 steps
+ROLLBACK_STEPS, ROLLBACK_AT, ROLLBACK_SNAP = 1000, 400, 200
+# (c): NGLFTEST's substeps; f32 positions round at |r| 2^-24
+NGLFTEST_SUB = 4
+F32_EPS = 2.0 ** -24
+# (d): the eightFold deck's run through the CLI
+EIGHTFOLD_STEPS = 200
+
+
+def sim_pair_check(sim, what):
+    """The pair kernel of sim's main path (#2 at G > 1, else #1) against
+    its plain version on sim's current records, with its bound:
+    compare's (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+
+    kernel, args, kw, hg = sim_kernel_inputs(sim)
+    G = sim.force_fn.terms[0].G
+    return compare(f"pair kernel on {what}'s last records (cells "
+                   f"{hg.ncells}, G={G})", kernel,
+                   ch.cellpair_half_col_plain if G > 1
+                   else ch.cellpair_half_plain, args, kw, with_bound=True)
+
+
+def sim_rate_busy(sim):
+    """steps/s over the last TAIL accepted steps, and the busy share and
+    CUDA kernels a step of PROFILE_STEPS more steps under the profiler."""
+    rate, tail = tail_rate(sim)
+    busy, kps = window_stats(lambda: sim.run(
+        PROFILE_STEPS, print_fn=lambda line: None), PROFILE_STEPS + 1)
+    return (f"{rate:.2f} steps/s over the last {tail} steps, busy "
+            f"{100 * busy:.1f}% over {PROFILE_STEPS} profiled steps "
+            f"({kps:.1f} CUDA kernels a step)")
+
+
+def lipid_or_water(species):
+    return ["water" if s == "WxW" else "lipid" for s in species]
+
+
+def two_group_bilayer(d, atoms=None, printrate=MASTERS_PRINTRATE,
+                      graphs=True):
+    """The bilayer deck in d split into LANGEVIN groups lipid and water at
+    BILAYER_T (the species decide), printrate `printrate`, with a
+    PRINTINFO that sets printGraphs=1."""
+    lang = f"type=LANGEVIN; Teq={BILAYER_T}K; tau=1.0ps;"
+    p = regroup(d, {"lipid": lang, "water": lang}, lipid_or_water,
+                printrate=printrate, atoms=atoms, by_species=True)
+    if graphs:
+        with open(p) as f:
+            text = f.read()
+        with open(p, "w") as f:
+            f.write(text.replace("type=MD;", "type=MD; printinfo=pi;", 1)
+                    + "pi PRINTINFO { printGraphs=1; }\n")
+    return p
+
+
+def group_rows(run_dir, name):
+    """group_<name>.data as an array: loop, members, T, KE and PE a member."""
+    with open(os.path.join(run_dir, f"group_{name}.data")) as f:
+        return np.array([ln.split() for ln in f], dtype=np.float64)
+
+
+def masters_bilayer_part(card, dev, d, counters_zero, all_counters,
+                         failed):
+    """Phase 21 (a): the command file on the full bilayer (#2), from the
+    20 fs restart in d (phase 6's), split into two LANGEVIN groups at
+    BILAYER_T with printrate MASTERS_PRINTRATE and printGraphs=1; a
+    Simulation.run(MASTERS_STEPS) whose print_fn writes MASTERS_CMDS into
+    ddcMD_CMDS; then the per-group pe sums of the two-group nx =
+    MASTERS_SMALL_NX bilayer's first energy, card vs CPU.  Gates go into
+    `failed`.  Returns its kernels JSON row ("cellpair_half_col",
+    launches, #2 against its plain version on the run's last records)."""
+    from ddcmd_tpu_torch.io.restart import write_checkpoint
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.simulate import Simulation
+    from ddcmd_tpu_torch.utils.profile import PROFILE
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(f"(a) {what}")
+
+    t0 = time.perf_counter()
+    restart = os.path.join(d, "restart")
+    snap = os.path.dirname(os.path.realpath(restart))
+    deck = two_group_bilayer(d, atoms=os.path.join(snap, "atoms#000000"))
+    with open(deck) as f:
+        text = f.read()
+    with open(deck, "w") as f:
+        f.write(text.replace("updateRate=12;",
+                             f"updateRate={MASTERS_UPDATE_RATE};"))
+    run_dir = os.path.join(d, "masters")
+    os.makedirs(run_dir)
+    sim = Simulation(*load(d, restart), run_dir=run_dir, device=dev)
+    start = sim.ss.loop
+    rows = []
+
+    def print_fn(line):
+        rows.append([float(x) for x in line.split()])
+        text = MASTERS_CMDS.get(int(line.split()[0]) - start)
+        if text:
+            with open(os.path.join(run_dir, "ddcMD_CMDS"), "w") as f:
+                f.write(text)
+
+    counters_zero()
+    sim.run(MASTERS_STEPS, print_fn=print_fn,
+            on_checkpoint=lambda s: write_checkpoint(s, run_dir),
+            max_steps_per_dispatch=MASTERS_DISPATCH)
+    c = all_counters()
+    end = sim.ss.loop
+    rows = np.array(rows)
+    tail = rows[rows[:, 0] > end - MASTERS_TAIL]
+    t_all = float(tail[:, 5].mean())
+    gate(end == start + MASTERS_EXIT, f"stopped at loop {end}")
+    gate(not os.path.exists(os.path.join(run_dir, "ddcMD_CMDS")),
+         "ddcMD_CMDS left behind")
+    gate(abs(t_all - MASTERS_T) <= TEMP_TOL, f"mean T {t_all}")
+    # a group file's T counts 3 degrees of freedom a bead (as the JAX
+    # package's); the lipids' RATTLE constraints take n_constraints of
+    # theirs, so their file reads T (3 N - n_c) / (3 N)
+    n_c = sim.sysdef.n_constraints
+    groups = {}
+    for g in ("lipid", "water"):
+        gr = group_rows(run_dir, g)
+        groups[g] = float(gr[gr[:, 0] > end - MASTERS_TAIL][:, 2].mean())
+        dof = 3.0 * gr[0, 1]
+        scale = dof / (dof - n_c) if g == "lipid" else 1.0
+        gate(gr[:, 0].tolist() == list(range(
+            start + MASTERS_PRINTRATE, end + 1, MASTERS_PRINTRATE)),
+            f"group_{g}.data rows {gr[:, 0].tolist()}")
+        gate(abs(groups[g] * scale - MASTERS_T) <= TEMP_TOL,
+             f"{g} mean T {groups[g]} (x {scale})")
+    with open(os.path.join(run_dir, "graphs")) as f:
+        graphs = f.read().splitlines()
+    g = sim.grid
+    slots = g.ncell * g.n_stencil * g.cap * g.cap
+    gate(len(graphs) == len(sim.dispatch_log)
+         and graphs[-1].split()[-2] == f"pair_slots={slots}",
+         f"graphs: {len(graphs)} lines for {len(sim.dispatch_log)} "
+         f"dispatches, last {graphs[-1:]}")
+    phases = {k: PROFILE.timers[k].total / PROFILE.timers[k].calls
+              for k in ("phase.nbr_rebuild", "phase.force",
+                        "phase.group_kick", "phase.step_fused")
+              if k in PROFILE.timers}
+    gate(len(phases) == 4 and min(phases.values()) > 0,
+         f"profile phases {phases}")
+    with open(os.path.join(run_dir, f"snapshot.{end:06d}", "profile")) as f:
+        gate("phase.step_fused" in f.read(), "the snapshot's profile table")
+    db, _ = load(d, os.path.join(run_dir, "restart"))
+    back = Simulation(db, run_dir, run_dir=run_dir, device=dev)
+    dr = float((back.ss.state.r - sim.ss.state.r).abs().max())
+    gate(back.ss.loop == end and dr < 1e-5, f"checkpoint at {back.ss.loop}, "
+         f"max |dr| {dr}")
+    del back
+    gate(c["cellpair_half_col"] >= MASTERS_EXIT and not any(
+        v for k, v in c.items() if k != "cellpair_half_col"),
+        f"launches {c}")
+    busy = sim_rate_busy(sim)
+    phase("masters", f"(a) the command file on the bilayer ("
+          f"{sim.sysdef.state.n_local} beads, lipid and water LANGEVIN at "
+          f"{BILAYER_T:.0f} K, printrate {MASTERS_PRINTRATE}, printGraphs=1) "
+          f"from loop {start}: profile at +400, Teq {MASTERS_T:.0f} K at "
+          f"+800, checkpoint exit at +{MASTERS_EXIT}; stopped at loop {end}; "
+          f"mean T over the last {MASTERS_TAIL} steps {t_all:.2f} K, lipid "
+          f"{groups['lipid']:.2f} K (its file's; {n_c} constraints), water "
+          f"{groups['water']:.2f} K; phases "
+          f"{ {k[6:]: round(1e3 * v, 3) for k, v in phases.items()} } ms a "
+          f"call; graphs {len(graphs)} lines, last '{graphs[-1].strip()}'; "
+          f"#2 launched {c['cellpair_half_col']} times (G="
+          f"{sim.force_fn.terms[0].G}); redos {sim.redos}; {busy} on {card}")
+    row = ("cellpair_half_col", c["cellpair_half_col"],
+           sim_pair_check(sim, "(a)"))
+    del sim
+    # the per-group pe sums of one state, card vs CPU
+    sums = {}
+    for where in (dev, "cpu"):
+        with tempfile.TemporaryDirectory() as ds:
+            bilayer_deck(ds, MASTERS_SMALL_NX, 20.0, MASTERS_PRINTRATE)
+            two_group_bilayer(ds, graphs=False)
+            s = Simulation(*load(ds), run_dir=ds, device=where)
+            s.first_energy()
+            s._emit_group_files()
+            sums[str(where)] = (
+                [float(np.prod(group_rows(ds, g)[0, [1, 4]]))
+                 for g in ("lipid", "water")], float(s.ss.energy.eion))
+            del s
+    (pc, ec), (pp, ep) = sums[str(dev)], sums["cpu"]
+    ok = all(abs(a - b) <= 1e-4 * abs(b) + 1e-2 for a, b in zip(pc, pp))
+    gate(ok and abs(sum(pc) - ec) <= 1e-4 * abs(ec),
+         f"group pe sums {pc} vs {pp}")
+    phase("masters", f"(a) nx={MASTERS_SMALL_NX} two-group bilayer, first "
+          f"energy: group pe sums (lipid, water) {[round(x, 4) for x in pc]}"
+          f" on the card vs {[round(x, 4) for x in pp]} on the CPU, "
+          f"eion {ec:.6f} vs {ep:.6f}; (a) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return row
+
+
+def nan_once(sim, at_loop):
+    """Wrap sim's step so that the first step that ends at `at_loop`
+    returns bead 0's velocity NaN (its row's kinetic energy too)."""
+    from ddcmd_tpu_torch.core.energy import kinetic_terms
+
+    orig = sim.step_fn
+    fired = []
+
+    def step(ss, *args, **kw):
+        out = orig(ss, *args, **kw)
+        if out.loop == at_loop and not fired:
+            fired.append(True)
+            v = out.state.v.clone()
+            v[0, 0] = float("nan")
+            rk, tion = kinetic_terms(v, out.state.mass, out.state.fmask)
+            out = out.replace(state=out.state.replace(v=v),
+                              energy=dataclasses.replace(
+                                  out.energy, rk=rk, tion=tion))
+        return out
+
+    sim.step_fn = step
+    return fired
+
+
+def record_noise(sim):
+    """[(step, attempt, draw)] of every kick draw sim makes, in order."""
+    out = []
+    orig = sim._noise
+
+    def rec(step, attempt=0):
+        noise, draws = orig(step, attempt)
+        out.append((step, attempt, noise.clone()))
+        return noise, draws
+
+    sim._noise = rec
+    return out
+
+
+def masters_phase(card, dev, counters_zero, all_counters, failed,
+                  n_water=6173):
+    """Phase 21 (b)-(d): (b) the rollback ladder on the water box (#1):
+    ROLLBACK_STEPS steps with a one-shot NaN at loop ROLLBACK_AT and
+    snapshots every ROLLBACK_SNAP steps, then a persistent fault (two
+    beads on one site) after a checkpoint; (c) NEXTFILE over (b)'s
+    snapshots at 200, 400 and 600 and NGLFTEST at the deck's 20 fs,
+    subDivide NGLFTEST_SUB; (d) the masters through the CLI: thermalize,
+    readWrite, eightFold and a EIGHTFOLD_STEPS-step run of the 8n deck,
+    testForce --f64, testPressure, integrationTest.  Gates go into
+    `failed`.  Returns {kernels JSON row: (entry, launches, comparison)}:
+    #1 on (b)'s records with (b) and (c)'s launches, and the eightFold
+    deck's kernel on its records with that run's launches."""
+    from ddcmd_tpu_torch.core.groups import kick_noise
+    from ddcmd_tpu_torch.io.restart import write_checkpoint
+    from ddcmd_tpu_torch.models import lj_fluid, load
+    from ddcmd_tpu_torch.objects import units as U
+    from ddcmd_tpu_torch.run.simulate import Simulation
+    from ddcmd_tpu_torch.run.testpressure import testpressure_master
+
+    t_phase = time.perf_counter()
+    quiet = lambda line: None                                  # noqa: E731
+    rows_out = {}
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    def edit(d, fn):
+        p = os.path.join(d, "object.data")
+        with open(p) as f:
+            text = f.read()
+        with open(p, "w") as f:
+            f.write(fn(text))
+        return p
+
+    keep = tempfile.mkdtemp()
+    try:
+        # --- (b) the rollback ladder on the water box, #1 ------------------
+        d = os.path.join(keep, "b")
+        os.makedirs(d)
+        water_deck(d, n_water, printrate=10)
+        edit(d, lambda t: t.replace("type=MD;", "type=MD; snapshotrate="
+                                    f"{ROLLBACK_SNAP};", 1))
+        sim = Simulation(*load(d), run_dir=d, device=dev)
+        n = sim.sysdef.state.n_local
+        fired = nan_once(sim, ROLLBACK_AT)
+        draws = record_noise(sim)
+        lines = []
+        counters_zero()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sim.run(ROLLBACK_STEPS, print_fn=lines.append,
+                    on_checkpoint=lambda s: None)
+        c_b = all_counters()
+        nan_warn = [str(w.message) for w in caught
+                    if "non-finite" in str(w.message)]
+        gate(fired and sim.ss.loop == ROLLBACK_STEPS
+             and sim.redos["nan"] == 1 and sim.redos["overflow"] == 0,
+             f"(b) one-shot NaN: loop {sim.ss.loop}, redos {sim.redos}")
+        gate(len(nan_warn) == 1 and nan_warn[0].startswith(
+            f"non-finite energy at step {ROLLBACK_AT} (chunk "
+            f"{ROLLBACK_AT - ROLLBACK_SNAP}+{ROLLBACK_SNAP}"),
+            f"(b) warnings {nan_warn}")
+        by_key = {(s, a): x for s, a, x in draws}
+        retry = [s for s, a in by_key if a == 1]
+        gate(len(retry) == ROLLBACK_SNAP and not any(
+            torch.equal(by_key[(s, 0)], by_key[(s, 1)]) for s in retry),
+            f"(b) the retry's draws ({len(retry)} steps) equal the first "
+            "attempt's")
+        gen = torch.Generator(device=dev)
+        shape = (2, sim.ss.state.n_pad, 3)
+        after = [(s, a, x) for s, a, x in draws if s >= ROLLBACK_AT]
+        gate(all(a == 0 and torch.equal(x, kick_noise(
+            gen, sim.sysdef.random_seed, s, 0, shape)) for s, a, x in after),
+            "(b) the draws after the retry are not kick_noise at attempt 0")
+        del sim._noise, draws, by_key       # stop recording
+        printed = {int(ln.split()[0]): float(ln.split()[4]) for ln in lines}
+        busy = sim_rate_busy(sim)
+        phase("masters", f"(b) rollback on the water box ({n} beads, "
+              f"{ROLLBACK_STEPS} steps): NaN injected at loop {ROLLBACK_AT}; "
+              f"'{nan_warn[0] if nan_warn else None}'; redos {sim.redos}; "
+              f"retry draws differ on {len(retry)} steps, later draws "
+              f"equal kick_noise at attempt 0 on {len(after)} steps; #1 "
+              f"launched {c_b['cellpair_half']} times; {busy} on {card}")
+        rows_b = sim_pair_check(sim, "(b)")
+        # the persistent fault: after a checkpoint, two beads on one site
+        write_checkpoint(sim, d)
+        link = os.readlink(os.path.join(d, "restart"))
+        sim.run(ROLLBACK_SNAP // 2, print_fn=quiet,
+                on_checkpoint=lambda s: None)
+        at = sim.ss.loop
+        r = sim.ss.state.r.clone()
+        r[1] = r[0]
+        sim.ss = sim.ss.replace(state=sim.ss.state.replace(r=r))
+        raised = None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                sim.run(ROLLBACK_SNAP // 2, print_fn=quiet)
+            except FloatingPointError as err:
+                raised = str(err)
+        kill_snap = os.path.join(d, f"snapshot.{at:06d}", "restart")
+        gate(raised is not None and "kill switch" in raised
+             and sim.redos["nan"] == 4 and os.path.exists(kill_snap)
+             and os.readlink(os.path.join(d, "restart")) == link,
+             f"(b) persistent fault: {raised}, redos {sim.redos}")
+        phase("masters", f"(b) persistent fault at loop {at}: "
+              f"FloatingPointError '{raised}' after 3 retries, kill-switch "
+              f"snapshot {os.path.exists(kill_snap)}, restart link still "
+              f"{os.readlink(os.path.join(d, 'restart'))}")
+        del sim
+
+        # --- (c) NEXTFILE over (b)'s snapshots, NGLFTEST, #1 ---------------
+        counters_zero()
+        dn = os.path.join(keep, "c")
+        os.makedirs(dn)
+        water_deck(dn, n_water, printrate=10)
+        loops = tuple(ROLLBACK_SNAP * k for k in (1, 2, 3))
+        files = " ".join(os.path.join(d, f"snapshot.{lp:06d}", "atoms#")
+                         for lp in loops)
+        edit(dn, lambda t: t.replace("type=NGLF;",
+                                     f"type=NEXTFILE; files={files};"))
+        sim = Simulation(*load(dn), run_dir=dn, device=dev)
+        energies = []
+        orig = sim.first_energy
+
+        def first_energy():
+            ss = orig()
+            energies.append(float(ss.energy.eion))
+            return ss
+
+        sim.first_energy = first_energy
+        t0 = time.perf_counter()
+        sim.run(print_fn=quiet)
+        nf_s = time.perf_counter() - t0
+        c_e = sim.printinfo.c_energy
+        errs = [abs(e * c_e / n / printed[lp] - 1.0)
+                for e, lp in zip(energies, loops)]
+        gate(len(energies) == 3 and max(errs) <= 2e-5,
+             f"(c) NEXTFILE eion rel errors {errs}")
+        phase("masters", f"(c) NEXTFILE over (b)'s snapshots {loops}: Epot "
+              f"{[round(e * c_e / n, 8) for e in energies]} vs printed "
+              f"{[printed[lp] for lp in loops]} eV/bead (rel "
+              f"{max(errs):.3g}), {nf_s / 3 * 1e3:.1f} ms a file")
+        del sim
+        dt_dir = os.path.join(keep, "t")
+        os.makedirs(dt_dir)
+        water_deck(dt_dir, n_water, printrate=10)
+        edit(dt_dir, lambda t: t.replace(
+            "type=NGLF;", f"type=NGLFTEST; subDivide={NGLFTEST_SUB};"))
+        sim = Simulation(*load(dt_dir), run_dir=dt_dir, device=dev)
+        out = []
+        busy, kpe = window_stats(lambda: sim.run(print_fn=out.append),
+                                 1 + 1 + NGLFTEST_SUB + 32)
+        c_c = all_counters()
+        meds = [float(ln.split("median=")[1].split()[0]) for ln in out]
+        # f32 position rounding, |r| 2^-24 at the median |r| (the
+        # positions are origin-centred); the multi-step error at dt/4 is
+        # about one floor (2.98e-7 nm in f64 on the CPU), so only the one
+        # step's truncation error stands 10x above it
+        floor = float(sim.ss.state.r[:n].norm(dim=1).median()) * F32_EPS
+        gate(len(meds) == 2 and meds[1] <= meds[0]
+             and meds[0] >= 10.0 * floor and all(os.path.exists(
+                 os.path.join(dt_dir, f)) for f in ("SingleStep.dist",
+                                                    "MultiStep.dist")),
+             f"(c) NGLFTEST medians {meds}, f32 floor {floor}")
+        gate(c_c["cellpair_half"] >= 3 + 1 + NGLFTEST_SUB + 32 and not any(
+            v for k, v in c_c.items() if k != "cellpair_half"),
+            f"(c) launches {c_c}")
+        phase("masters", f"(c) NGLFTEST dt 20 fs, subDivide {NGLFTEST_SUB}, "
+              f"reference 32 substeps: {'; '.join(out)}; f32 floor "
+              f"median |r| 2^-24 = {floor:.3g} nm: single "
+              f"{meds[0] / floor:.1f}x, multi {meds[1] / floor:.1f}x; busy "
+              f"{100 * busy:.1f}%, {kpe:.1f} CUDA kernels an evaluation; "
+              f"(c) launched #1 {c_c['cellpair_half']} times")
+        rows_out["cellpair_half_masters"] = (
+            "cellpair_half", c_b["cellpair_half"] + c_c["cellpair_half"],
+            rows_b)
+        del sim
+
+        # --- (d) the masters through the CLI ------------------------------
+        dd = os.path.join(keep, "d")
+        os.makedirs(dd)
+        deck = water_deck(dd, n_water, printrate=10)
+        with open(deck, "a") as f:
+            f.write("it INTEGRATIONTEST { testPotentialPotential=martini "
+                    "martini; }\n")
+
+        def cli(master, *extra, where=None, run_dir=None):
+            rd = run_dir or os.path.join(keep, f"{master}_{where or 'card'}")
+            return cli_run([master, "-o", deck, "--run-dir", rd, *extra],
+                           where), rd
+
+        temps = []
+        for where in (None, "cpu"):
+            s, _ = cli("thermalize", where=where)
+            v = s.ss.state.v[:n].cpu().double().numpy()
+            m = s.ss.state.mass[:n].cpu().double().numpy()
+            temps.append(float((m[:, None] * v * v).sum() / (3 * n * U.kB)))
+        gate(abs(temps[0] / temps[1] - 1.0) <= 1e-6,
+             f"(d) thermalize T {temps}")
+        s, rd = cli("readWrite")
+        db, _ = load(dd, os.path.join(rd, "restart"))
+        back = Simulation(db, rd, run_dir=rd, device=dev)
+        same = bool(torch.equal(back.ss.state.r, s.ss.state.r))
+        gate(same, "(d) readWrite positions through the codec")
+        s.first_energy()
+        e1 = float(s.ss.energy.eion)
+        del back, s
+        cli("eightFold", run_dir=dd)
+        restart8 = os.path.join(dd, "snapshot.8fold", "restart")
+        s8 = Simulation(*load(dd, restart8), run_dir=dd, device=dev)
+        s8.first_energy()
+        e8 = float(s8.ss.energy.eion)
+        del s8
+        run8 = os.path.join(keep, "run8")
+        counters_zero()
+        sim8, _ = cli("simulate", "-r", restart8, "-n", str(EIGHTFOLD_STEPS),
+                      run_dir=run8)
+        c8 = all_counters()
+        G8 = sim8.force_fn.terms[0].G
+        k8 = "cellpair_half_col" if G8 > 1 else "cellpair_half"
+        rows8 = read_rows(run8)
+        gate(abs(e8 / (8 * e1) - 1.0) <= 2e-5 and sim8.ss.loop ==
+             EIGHTFOLD_STEPS and np.isfinite(rows8).all()
+             and c8[k8] >= EIGHTFOLD_STEPS,
+             f"(d) eightFold: first energy {e8} vs 8 x {e1}, {c8}")
+        phase("masters", f"(d) thermalize T {temps[0]:.6f} K on the card, "
+              f"{temps[1]:.6f} K on the CPU; readWrite positions bit-equal "
+              f"{same}; eightFold {8 * n} beads: first energy {e8:.6f} vs 8 "
+              f"x {e1:.6f} (rel {abs(e8 / (8 * e1) - 1):.3g}), "
+              f"{EIGHTFOLD_STEPS} steps through the CLI on "
+              f"{'#2' if G8 > 1 else '#1'} (cells {sim8.grid.ncells} G={G8}, "
+              f"{c8[k8]} launches), T {rows8[-1, 5]:.2f} K, "
+              f"{tail_rate(sim8, EIGHTFOLD_STEPS // 2)[0]:.2f} steps/s")
+        rows_out[f"{k8}_eightfold"] = (k8, c8[k8], sim_pair_check(
+            sim8, "(d) eightFold"))
+        del sim8
+        (worst, _), _ = cli("testForce", "--f64")
+        gate(worst < 5e-3, f"(d) testForce worst {worst}")
+        dl = os.path.join(keep, "lj")
+        os.makedirs(dl)
+        lj_fluid(dl, n=500)
+        res = testpressure_master(*load(dl), device=dev, delta0=1e-2,
+                                  n_halvings=9, out_dir=dl, verbose=False)
+        lj_best = [min(r[2] for r in rows) / abs(p)
+                   for _, p, rows in res["atomic"]]
+        gate(max(lj_best) < 1e-6, f"(d) testPressure lj best {lj_best}")
+        res_w = testpressure_master(*load(dd), device=dev, delta0=1e-2,
+                                    n_halvings=9, out_dir=dd,
+                                    check_slope=False, verbose=False)
+        w_best = {k: [min(r[2] for r in rows) / abs(p)
+                      for _, p, rows in res_w[k]]
+                  for k in ("atomic", "molecular") if res_w[k] is not None}
+        w_text = {k: [float(f"{x:.3g}") for x in v]
+                  for k, v in w_best.items()}
+        (_, it), _ = cli("integrationTest")
+        gate(it == [("martini", "martini", 0.0)], f"(d) integrationTest {it}")
+        phase("masters", f"(d) testForce --f64 worst rel err {worst:.3g}; "
+              f"testPressure lj_fluid 500 (delta0 1e-2, 9 halvings): slope "
+              f"check passed, best err / |P| by axis "
+              f"{[float(f'{x:.3g}') for x in lj_best]}; water box "
+              f"(check_slope=False) best err / |P| "
+              f"{w_text}; "
+              f"integrationTest martini vs martini max rel err {it[0][2]}; "
+              f"phase 21 (b)-(d) {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    return rows_out
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     import ddcmd_tpu_torch  # noqa: F401  (pins TF32 off)
     from ddcmd_tpu_torch.integrators.constraints import constraint_residual
-    from ddcmd_tpu_torch.io.restart import write_checkpoint
     from ddcmd_tpu_torch.ops import cellpair_full as cf
     from ddcmd_tpu_torch.ops import cellpair_half as ch
     from ddcmd_tpu_torch.ops import eam_half as eh
@@ -4357,6 +4920,16 @@ def main(argv=None):
     if "--integrators-only" in argv:
         integrators_phase(card, dev, counters_zero, all_counters)
         return
+    if "--masters-only" in argv:
+        failed = []
+        with tempfile.TemporaryDirectory() as d_eq, \
+                tempfile.TemporaryDirectory() as d:
+            bilayer_stage1(d_eq, d)
+            masters_bilayer_part(card, dev, d, counters_zero, all_counters,
+                                 failed)
+        masters_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 21 gates missed: {failed}"
+        return
     res = kernel_phase(dev)
     res.update(eam_kernel_phase(dev))
     res.update(ext_kernel_phase(dev))
@@ -4407,23 +4980,7 @@ def main(argv=None):
     # --- phase 6: the full bilayer, staged as bench.py runs it --------------
     with tempfile.TemporaryDirectory() as d_eq, \
             tempfile.TemporaryDirectory() as d:
-        deck_eq = bilayer_deck(d_eq, BILAYER_NX, EQ_DT, 200)
-        deck = bilayer_deck(d, BILAYER_NX, 20.0, 10)
-        t0 = time.perf_counter()
-        sim_eq = cli_run(["simulate", "-o", deck_eq, "-n", str(EQ_STEPS),
-                          "--run-dir", d_eq])
-        eq_s = time.perf_counter() - t0
-        assert sim_eq.ss.loop == EQ_STEPS
-        # checkpoint into the measured deck's directory, so the restart's
-        # relative files= path resolves against it
-        write_checkpoint(sim_eq, d)
-        L_eq = sim_eq.ss.box.lengths.cpu().numpy().astype(np.float64)
-        phase("bilayer", f"stage 1: {sim_eq.sysdef.state.n_local} beads, "
-              f"{EQ_STEPS} steps at dt={EQ_DT} fs in {eq_s:.1f} s (set-up "
-              f"included), box {L_eq.round(4).tolist()} nm, cells "
-              f"{sim_eq.grid.ncells} cap {sim_eq.grid.cap}, redos "
-              f"{sim_eq.redos}; checkpoint written")
-        del sim_eq
+        deck, L_eq = bilayer_stage1(d_eq, d)
         run_dir = os.path.join(d, "run")
         counters_zero()
         sim = cli_run(["simulate", "-o", deck, "-r",
@@ -4465,6 +5022,10 @@ def main(argv=None):
         # --- phase 12: the same restart through the mesh at (1,1,1) --------
         launches["cellpair_half_ext_excl"] = mesh_bilayer_phase(
             card, dev, d, counters_zero, all_counters, rate)
+        # --- phase 21 (a): the command file on the same restart -----------
+        masters_failed = []
+        masters_rows = {"cellpair_half_col_masters": masters_bilayer_part(
+            card, dev, d, counters_zero, all_counters, masters_failed)}
 
     eam_launches, single_rates["eam"] = eam_slice_phases(
         card, counters_zero, counters, eam_counters)
@@ -4521,6 +5082,10 @@ def main(argv=None):
     launches.update(charmm_launches)
     # --- phase 20: item 22's integrators, groups and box(t) on #5 and #2 ----
     int_rows = integrators_phase(card, dev, counters_zero, all_counters)
+    # --- phase 21 (b)-(d): item 23's rollback, masters on #1 (and #2) --------
+    masters_rows.update(masters_phase(card, dev, counters_zero, all_counters,
+                                      masters_failed))
+    assert not masters_failed, f"phase 21 gates missed: {masters_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -4558,7 +5123,9 @@ def main(argv=None):
     # phase 20's paths, each on its own records: (a) NPTGLF and (c) STRAIN
     # on #5, (b) NGLFNK and (d) SHEAR on #2, (e)'s small decks on #1 and
     # #4, the NVEGLF check on #4
-    for row, (name, n, out) in int_rows.items():
+    # phase 21's paths: (a) the command file on #2, (b)-(c) the rollback,
+    # NEXTFILE and NGLFTEST on #1, (d) the eightFold deck's kernel
+    for row, (name, n, out) in (*int_rows.items(), *masters_rows.items()):
         kernels[row] = kernels[name]
         launches[row] = n
         res[row] = out

@@ -495,12 +495,19 @@ def _splitmix64(x: int) -> int:
 
 
 def kick_noise(generator: torch.Generator, seed: int, step: int,
-               callsite: int, shape, dtype=torch.float32) -> torch.Tensor:
+               callsite: int, shape, dtype=torch.float32,
+               attempt: int = 0) -> torch.Tensor:
     """Standard-normal thermostat noise for global step `step` at
     `callsite`, drawn on the generator's device.  The generator is
-    re-seeded from (seed, step, callsite), so a redone dispatch or a
-    restart at the same step replays the same numbers."""
+    re-seeded from (seed, step, callsite, attempt), so a redone dispatch
+    or a restart at the same step replays the same numbers.  `attempt`
+    is 0 on every normal dispatch and on a stale-cadence redo; the NaN
+    rollback's retries of one dispatch draw at attempts 1-3, fresh noise
+    as the JAX package's split key gives them (ddcmd_tpu/run/simulate.py:
+    924)."""
     key = _splitmix64(_splitmix64(_splitmix64(seed) ^ step) ^ callsite)
+    if attempt:
+        key = _splitmix64(key ^ attempt)
     generator.manual_seed(key >> 1)
     return torch.randn(shape, generator=generator, dtype=dtype,
                        device=generator.device)

@@ -6,11 +6,15 @@ deck that participates in config compilation (both packages load it with
 models.load(d, restart=...)); the `restart` symlink is replaced
 atomically; the atoms# FILEHEADER is self-describing.
 
-Not written: the JAX package's PRNG keyData (the port's thermostat noise
-is keyed by deck seed and global step, core/groups.kick_noise, so a
+Each snapshot directory gets the phase profile table `profile`
+(utils/profile.PROFILE; with DDCMD_PROFILE_PHASES set, the writer first
+times the phases with the Simulation's profile_phases, as the JAX
+package's io/restart.py:156-166 does).  Not written: the JAX package's
+PRNG keyData (the port's thermostat noise is keyed by deck seed, global
+step and the NaN rollback's attempt, core/groups.kick_noise, so a
 restart at loop L replays the noise of loop L by construction; a JAX
-run loaded from a port checkpoint draws from its deck seed), the phase
-profile table and the pxyz domain file (no consumer in the port).
+run loaded from a port checkpoint draws from its deck seed) and the
+pxyz domain file (the mesh's decomposition restart, ROADMAP item 25).
 Integrator state beyond the box is written into the restart's INTEGRATOR
 object, as the JAX package writes it (io/restart.py:134-141): NPTGLF's
 zeta and NGLFNK's piston velocities bdot.
@@ -145,6 +149,15 @@ def write_checkpoint(sim, run_dir: str = ".",
                     + " Angstrom/fs ; }\n")
         f.write(f"collection COLLECTION {{ mode={mode}; size={n};"
                 f" files={os.path.basename(snapdir)}/atoms#;}}\n")
+
+    # per-phase timing table into the snapshot (dumpprofile, ddcMD.c:209-
+    # 223); the phases are timed only when asked for: they re-run the
+    # rebuild, force, kick and step outside the run's dispatches
+    from ..utils.profile import PROFILE
+
+    if os.environ.get("DDCMD_PROFILE_PHASES"):
+        sim.profile_phases()
+    PROFILE.write(snapdir)
 
     if not update_symlink:
         return snapdir

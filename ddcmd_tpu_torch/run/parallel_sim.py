@@ -55,8 +55,10 @@ its temperature summed over the ranks, a constant PISTON; the JAX mesh
 takes it per brick); the other integrators and box motions (NPTGLF,
 NGLFNK, the NVEGLF variants, box(t), EXTFORCE, the hook groups,
 GLOBAL_ENERGY, Teq or vz schedules) raise naming item 25
-(_refuse_dynamics).  The checkpoint writer, rebalance, the gathered view
-and the sharded analyses are not ported yet.
+(_refuse_dynamics), as do the NEXTFILE and NGLFTEST masters, printGraphs
+and the per-group energy files (which the JAX mesh does not write;
+Simulation writes them).  The checkpoint writer, rebalance, the gathered
+view and the sharded analyses are not ported yet.
 """
 
 from __future__ import annotations
@@ -137,11 +139,12 @@ class ParallelSimulation:
         sd = build_system(db, base_dir, dtype=torch.float32, device="cpu")
         self.sysdef = sd
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
-        refuse_unported_outputs(db, sd, self.printinfo)
+        refuse_unported_outputs(db, sd, self.printinfo, mesh=True)
         if sd.integrator_type in _MASTER_TYPES:
+            # Simulation runs them; the JAX mesh has no such path
             raise NotImplementedError(
                 f"integrator {sd.integrator_type}: the NEXTFILE / NGLFTEST "
-                "masters are not ported yet (ROADMAP queue 1, item 23)")
+                f"masters do not run under the mesh yet ({_MESH_ITEM})")
         self._refuse_dynamics(sd)
         if not sd.box.ortho:
             raise NotImplementedError(

@@ -160,9 +160,16 @@ _DEFORMATION = (lambda s: s.replace(
      + "therm TRANSFORM { type=THERMALIZE; rate=10; }\n",
      r"transform=therm.*item 24"),
     (lambda s: _printinfo(s, "printStress=1;"), r"printStress.*item 24"),
-    (lambda s: _printinfo(s, "printGraphs=1;"), r"printGraphs.*item 23"),
-    (lambda s: s.replace("groups=solvent;", "groups=solvent frozen;")
-     + "frozen GROUP { type=FREE; }\n", r"per-group energy.*item 23"),
+    # Simulation writes the graphs line and the per-group energy files
+    # (tests/test_torch_runtime.py); the mesh does not, as the JAX mesh
+    pytest.param(lambda s: _printinfo(s, "printGraphs=1;"),
+                 r"mesh:printGraphs.*item 25",
+                 id=r"<lambda>-printGraphs.*item 23"),
+    pytest.param(lambda s: s.replace("groups=solvent;",
+                                     "groups=solvent frozen;")
+                 + "frozen GROUP { type=FREE; }\n",
+                 r"mesh:per-group energy.*item 25",
+                 id=r"<lambda>-per-group energy.*item 23"),
     (lambda s: _printinfo(s, "printStress=1;"), r"mesh:printStress.*item 24"),
     # what the mesh still refuses where Simulation runs the deck on its
     # cell-block engine: a triclinic box and non-periodic axes
@@ -341,3 +348,19 @@ def test_tabulated_function_equals_jax(tmp_path):
         assert (t.x0, t.dx, t.x_max) == (j.x0, j.dx, j.x_max)
         np.testing.assert_array_equal(t.values, j.values)
         np.testing.assert_array_equal(t.derivs, j.derivs)
+
+
+def test_thermalize_copy_equals_jax():
+    """transforms/thermalize.thermalize_velocities (host numpy, copied)
+    draws the JAX package's velocities bit for bit, with and without the
+    centre-of-mass removal."""
+    from ddcmd_tpu.transforms import thermalize as jth
+    from ddcmd_tpu_torch.transforms import thermalize as tth
+
+    mass = np.random.default_rng(3).uniform(1.0, 80.0, 257)
+    for remove in (True, False):
+        a = tth.thermalize_velocities(mass, 310.0, seed=385212586,
+                                      remove_vcm=remove)
+        b = jth.thermalize_velocities(mass, 310.0, seed=385212586,
+                                      remove_vcm=remove)
+        assert np.array_equal(a, b)
