@@ -1,7 +1,8 @@
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
     python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only |
-                           --integrators-only | --masters-only]
+                           --integrators-only | --masters-only |
+                           --transforms-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -129,15 +130,15 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      nc = 32 crystal with an ORDERSH bias beside its EAM term, and (B),
      the 131,072-atom TableFunction fluid: the card's list against the
      CPU's, with its build time, peak memory, K and largest count; (c)
-     (A) under auto and (B) on engine "nlist", NLIST_STEPS steps each
-     through Simulation: mean T, steps/s, busy share, CUDA kernels a step,
-     peak memory, no kernel launched, sqrt(phi) of (A) and a snapshot with
-     its q6#000000 shard; (b) the list engine against the kernels on one
-     state (the nc = 32 crystal against #5, the analytic LJ fluid against
-     #2, (B) against the analytic deck on #2 with the shift added back),
-     each also against the list engine in f64; (d) small ORDERSH,
-     PAIRENERGY, table, widened-exclusion bilayer and pbc = 3 slab decks
-     on the card against the CPU.
+     (A) under auto (NLIST_A_STEPS) and (B) on engine "nlist"
+     (NLIST_STEPS) through Simulation: mean T, steps/s, busy share, CUDA
+     kernels a step, peak memory, no kernel launched, sqrt(phi) of (A)
+     and a snapshot with its q6#000000 shard; (b) the list engine
+     against the kernels on one state (the nc = 32 crystal against #5,
+     the analytic LJ fluid against #2, (B) against the analytic deck on
+     #2 with the shift added back), each also against the list engine
+     in f64; (d) small ORDERSH, PAIRENERGY, table, widened-exclusion
+     bilayer and pbc = 3 slab decks on the card against the CPU.
 
  19. CHARMM all-atom decks (potentials/charmm.py, the bonded families in
      the batched and the generic evaluators): (a) (C), the c36 solvated
@@ -200,6 +201,18 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      slope check, the water box without), integrationTest.  Rows of its
      own: cellpair_half_col_masters, cellpair_half_masters and the
      eightFold deck's kernel (*_eightfold).
+ 22. transforms (ROADMAP item 24a): (a) the water box with SIMULATE
+     transform= REPLICATE 2x2x2 at rate 200, 390 steps through
+     Simulation.run: #1 until loop 200, where the same Simulation
+     re-plans 49,384 beads past the 256-cell gate and goes on on #2
+     (launches read at the replica and at the end), the replica's first
+     energy against 8x the energy before it, unique gids, mean T over
+     the last 100 steps, steps/s of both halves; (b) SELECTSUBSET zmin=0
+     on the replica (about half the beads); (c) the transform master
+     through the CLI (THERMALIZE, REPLICATE, SETVELOCITY vcm=0) into a
+     checkpoint, |p| and the count read back.  Rows of its own:
+     cellpair_half_transform (#1 on the records just before the
+     replica) and cellpair_half_col_transform (#2 on the last records).
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -208,7 +221,7 @@ the kernels' JSON line, the card line, and last {"ok": true, "device":
 --list-only builds the kernels, runs phase 18 alone and prints no
 result; --charmm-only does the same with phase 19, --integrators-only
 with phase 20, --masters-only with phase 21 (making the bilayer's restart
-as phase 6's first stage does).
+as phase 6's first stage does), --transforms-only with phase 22.
 """
 
 import contextlib
@@ -297,7 +310,12 @@ CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 2000, 24, 500
 # phase 18, the (N,K)-list engine: the ORDERSH bias of tests/test_eam.py:274
 # (beside the crystal's EAM term, config (A)) and the PAIRENERGY series of
 # tests/test_eam.py:236 (beside it in a card-vs-CPU case)
-NLIST_STEPS, NLIST_TAIL = 500, 200      # (c): steps, and the T window
+# (c): steps and the T window of (B); (A), at 5.9 steps/s the slowest
+# path of the script, runs NLIST_A_STEPS and reads T over its last
+# NLIST_A_TAIL (its LANGEVIN group, tau 0.1 ps, refills the crystal's
+# equipartition dip within ~200 steps)
+NLIST_STEPS, NLIST_TAIL = 500, 200
+NLIST_A_STEPS, NLIST_A_TAIL = 300, 100
 # (b): (e rel, force over the scale) of the list engine against #5 (the
 # EAM gates), against #2, and of the table deck against the analytic deck
 # on #2.  The LJ force gate 2e-5 and the table's 1e-5 (tests/test_eam.py:
@@ -3162,11 +3180,11 @@ def nlist_phase(card, dev, counters_zero, all_counters):
     peak memory, K and largest count; (b) the list engine against the
     kernels on one state: the nc = 32 RATIONAL crystal on "nlist" against
     #5, the analytic LJ fluid on "nlist" against #2, (B) against the
-    analytic deck on #2 (the shift added back); (c) (A) under auto and
-    (B) on engine "nlist", NLIST_STEPS steps each through Simulation: mean
-    T, steps/s, busy share, CUDA kernels a step, peak memory, no custom
-    kernel launched, sqrt(phi) of (A) and one snapshot of (A) with its
-    q6 shard; (d) small decks on the card against the CPU."""
+    analytic deck on #2 (the shift added back); (c) (A) under auto
+    (NLIST_A_STEPS) and (B) on engine "nlist" (NLIST_STEPS) through
+    Simulation: mean T, steps/s, busy share, CUDA kernels a step, peak
+    memory, no custom kernel launched, sqrt(phi) of (A) and one snapshot
+    of (A) with its q6 shard; (d) small decks on the card against the CPU."""
     from ddcmd_tpu_torch.io.restart import write_snapshot
     from ddcmd_tpu_torch.models import load
     from ddcmd_tpu_torch.nbr.celllist import build_neighbor_list
@@ -3230,8 +3248,9 @@ def nlist_phase(card, dev, counters_zero, all_counters):
             del sim, nbr, cpu
 
         # --- (c) the slice: (A) under auto, (B) on "nlist" ---------------
-        for name, d, engine, T in (("(A)", da, "auto", EAM_T),
-                                   ("(B)", db, "nlist", LJ_T)):
+        for name, d, engine, T, n_steps, tail in (
+                ("(A)", da, "auto", EAM_T, NLIST_A_STEPS, NLIST_A_TAIL),
+                ("(B)", db, "nlist", LJ_T, NLIST_STEPS, NLIST_TAIL)):
             sim = sim_of(d, engine)
             assert sim.engine == "nlist", sim.engine
             torch.cuda.synchronize()
@@ -3239,7 +3258,7 @@ def nlist_phase(card, dev, counters_zero, all_counters):
             rows = []
             counters_zero()
             t0 = time.perf_counter()
-            sim.run(NLIST_STEPS, print_fn=rows.append,
+            sim.run(n_steps, print_fn=rows.append,
                     max_steps_per_dispatch=DISPATCH)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
@@ -3247,7 +3266,7 @@ def nlist_phase(card, dev, counters_zero, all_counters):
             peak = gib()
             data = np.array([ln.split() for ln in rows], dtype=np.float64)
             assert np.isfinite(data).all(), f"{name}: non-finite row"
-            temp = float(data[data[:, 0] > NLIST_STEPS - NLIST_TAIL, 5].mean())
+            temp = float(data[data[:, 0] > n_steps - tail, 5].mean())
             assert abs(temp - T) <= TEMP_TOL, f"{name}: mean T {temp}"
             steps = sum(k for k, _ in sim.dispatch_log)
             rate = steps / sum(t for _, t in sim.dispatch_log)
@@ -3270,10 +3289,10 @@ def nlist_phase(card, dev, counters_zero, all_counters):
                          f"with q6#000000 ({size} bytes)")
                 del ss, nbr
             phase("nlist", f"(c) {name} {sim.sysdef.state.n_local} atoms, "
-                  f"{NLIST_STEPS} steps through Simulation (engine "
+                  f"{n_steps} steps through Simulation (engine "
                   f"{sim.engine}, cells {sim.grid.ncells} cap "
                   f"{sim.grid.cell_capacity} K {sim.grid.max_neighbors}): "
-                  f"mean T {temp:.2f} K over the last {NLIST_TAIL} steps, "
+                  f"mean T {temp:.2f} K over the last {tail} steps, "
                   f"Etot {data[-1, 2]:.6g}, redos {sim.redos}, no custom "
                   f"kernel launched; {rate:.2f} steps/s, busy {100 * busy:.1f}%"
                   f" over {PROFILE_STEPS} profiled steps ({kps:.1f} CUDA "
@@ -4352,14 +4371,15 @@ F32_EPS = 2.0 ** -24
 EIGHTFOLD_STEPS = 200
 
 
-def sim_pair_check(sim, what):
+def sim_pair_check(sim, what, saved=None):
     """The pair kernel of sim's main path (#2 at G > 1, else #1) against
-    its plain version on sim's current records, with its bound:
+    its plain version on sim's current records (or on `saved`, the
+    sim_kernel_inputs and G of an earlier plan), with its bound:
     compare's (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     from ddcmd_tpu_torch.ops import cellpair_half as ch
 
-    kernel, args, kw, hg = sim_kernel_inputs(sim)
-    G = sim.force_fn.terms[0].G
+    (kernel, args, kw, hg), G = saved or (sim_kernel_inputs(sim),
+                                          sim.force_fn.terms[0].G)
     return compare(f"pair kernel on {what}'s last records (cells "
                    f"{hg.ncells}, G={G})", kernel,
                    ch.cellpair_half_col_plain if G > 1
@@ -4849,6 +4869,181 @@ def masters_phase(card, dev, counters_zero, all_counters, failed,
     return rows_out
 
 
+# --- phase 22 (item 24a): transforms ---------------------------------------
+# the water box with SIMULATE transform= REPLICATE 2x2x2 at TRANSFORM_AT:
+# a run of TRANSFORM_STEPS ends before the rate's second multiple, its
+# temperature read over the last TRANSFORM_TAIL steps; the replica's first
+# energy against 8x the energy before it
+TRANSFORM_AT, TRANSFORM_STEPS, TRANSFORM_TAIL = 200, 390, 100
+TRANSFORM_E_REL = 1e-5
+WATER_T = 310.0
+
+
+def transforms_phase(card, dev, counters_zero, all_counters, failed,
+                     n_water=6173):
+    """Phase 22 (ROADMAP item 24a): (a) the water box (n_water beads, #1)
+    with transform= REPLICATE nx = ny = nz = 2 at rate TRANSFORM_AT,
+    TRANSFORM_STEPS steps through Simulation.run: at loop TRANSFORM_AT the
+    same Simulation re-plans the 8 n_water beads past the 256-cell gate
+    and goes on on the column kernel #2; (b) SELECTSUBSET zmin=0 on the
+    replica; (c) the transform master through the CLI (THERMALIZE,
+    REPLICATE, SETVELOCITY vcm=0) into a checkpoint.  Gates go into
+    `failed`.  Returns {kernels JSON row: (entry, launches, comparison)}:
+    #1 on the records just before the replica and #2 on the run's last
+    records, each with the run's launches."""
+    from ddcmd_tpu_torch.io.collection import read_collection
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    t_phase = time.perf_counter()
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(f"phase 22 {what}")
+
+    def rate(log):
+        return sum(k for k, _ in log) / max(sum(t for _, t in log), 1e-9)
+
+    keep = tempfile.mkdtemp()
+    try:
+        # --- (a) REPLICATE at its rate: #1, then #2 ------------------------
+        d = os.path.join(keep, "a")
+        os.makedirs(d)
+        deck = water_deck(d, n_water, printrate=10)
+        with open(deck) as f:
+            text = f.read()
+        with open(deck, "w") as f:
+            f.write(text.replace("type=MD;", "type=MD; transform=rep;", 1)
+                    + "rep TRANSFORM { type=REPLICATE; nx=2; ny=2; nz=2; "
+                    f"rate={TRANSFORM_AT}; }}\n")
+        sim = Simulation(*load(d), run_dir=d, device=dev)
+        n0 = sim.sysdef.state.n_local
+        seen = {"calls": 0}
+        apply = sim.apply_transform
+
+        def spy(tobj):
+            seen["calls"] += 1
+            if seen["calls"] > 1:
+                return apply(tobj)
+            # what the run holds just before the replica: its energy,
+            # plan, launches and dispatches, and #1's inputs there
+            seen.update(loop=sim.ss.loop, e0=float(sim.ss.energy.eion),
+                        cells0=sim.grid.ncells, c0=all_counters(),
+                        disp=len(sim.dispatch_log),
+                        saved=(sim_kernel_inputs(sim),
+                               sim.force_fn.terms[0].G))
+            t0 = time.perf_counter()
+            apply(tobj)
+            torch.cuda.synchronize()
+            seen.update(secs=time.perf_counter() - t0,
+                        e1=float(sim.ss.energy.eion))
+
+        sim.apply_transform = spy
+        lines = []
+        counters_zero()
+        sim.run(TRANSFORM_STEPS, print_fn=lines.append)
+        c = all_counters()
+        n = sim.sysdef.state.n_local
+        G = sim.force_fn.terms[0].G
+        rows = np.array([ln.split() for ln in lines], dtype=np.float64)
+        temp = float(rows[rows[:, 0] > TRANSFORM_STEPS - TRANSFORM_TAIL,
+                          5].mean())
+        c0 = seen.get("c0", {})
+        rel = abs(seen.get("e1", 0.0) / (8.0 * seen.get("e0", 1.0)) - 1.0)
+        gids = np.unique(sim.ss.state.gid[:n]).size
+        gate(seen["calls"] == 1 and seen.get("loop") == TRANSFORM_AT
+             and sim.ss.loop == TRANSFORM_STEPS and n == 8 * n0
+             and gids == n,
+             f"(a) {seen['calls']} replicas, the first at loop "
+             f"{seen.get('loop')}, {n} beads, {gids} gids")
+        gate(seen["saved"][1] == 1 and G > 1
+             and c0.get("cellpair_half", 0) >= TRANSFORM_AT
+             and c0.get("cellpair_half_col", 1) == 0
+             and c["cellpair_half"] == c0["cellpair_half"]
+             and c["cellpair_half_col"] >= TRANSFORM_STEPS - TRANSFORM_AT
+             and not any(v for k, v in c.items()
+                         if k not in ("cellpair_half", "cellpair_half_col")),
+             f"(a) launches {c0} at the replica, {c} at the end, G {G}")
+        gate(rel <= TRANSFORM_E_REL, f"(a) first energy {seen.get('e1')} vs "
+             f"8 x {seen.get('e0')}")
+        gate(np.isfinite(rows).all() and abs(temp - WATER_T) <= TEMP_TOL,
+             f"(a) mean T {temp}")
+        before = sim.dispatch_log[:seen["disp"]]
+        after = sim.dispatch_log[seen["disp"]:]
+        phase("transforms", f"(a) water box {n0} beads, transform= "
+              f"REPLICATE 2x2x2 at rate {TRANSFORM_AT}, {TRANSFORM_STEPS} "
+              f"steps through Simulation: cells {seen['cells0']} (#1, "
+              f"{c0['cellpair_half']} launches, {rate(before):.2f} steps/s) "
+              f"-> {n} beads, cells {sim.grid.ncells} G={G} cap "
+              f"{sim.grid.cap} (#2, {c['cellpair_half_col']} launches, "
+              f"{rate(after):.2f} steps/s); the replica and its first "
+              f"energy {seen['secs']:.3f} s; first energy {seen['e1']:.6f} "
+              f"vs 8 x {seen['e0']:.6f} (rel {rel:.3g}); {gids} unique "
+              f"gids; mean T {temp:.2f} K over the last {TRANSFORM_TAIL} "
+              f"steps; redos {sim.redos} on {card}")
+        rows_out = {
+            "cellpair_half_transform": ("cellpair_half", c["cellpair_half"],
+                                        sim_pair_check(
+                                            sim, "(a) before the replica",
+                                            seen.pop("saved"))),
+            "cellpair_half_col_transform": (
+                "cellpair_half_col", c["cellpair_half_col"],
+                sim_pair_check(sim, "(a) the replica"))}
+
+        # --- (b) SELECTSUBSET zmin=0 on the replica -------------------------
+        sim.db.compile_string("half TRANSFORM { type=SELECTSUBSET; zmin=0 "
+                              "Angstrom; }\n")
+        # the run's positions as the host reads them (unwrapped since the
+        # last rebuild; the first energy wraps the kept ones)
+        upper = int((sim.ss.state.r[:n, 2] >= 0).sum())
+        counters_zero()
+        apply(sim.db.get("half", "TRANSFORM"))
+        cb = all_counters()
+        m = sim.sysdef.state.n_local
+        e2 = float(sim.ss.energy.eion)
+        gate(m == upper and 0.4 * n < m < 0.6 * n and np.isfinite(e2),
+             f"(b) SELECTSUBSET: {m} of {n} beads ({upper} at z >= 0), "
+             f"e {e2}")
+        phase("transforms", f"(b) SELECTSUBSET zmin=0: {n} -> {m} beads "
+              f"(the {upper} at z >= 0), cells {sim.grid.ncells} G="
+              f"{sim.force_fn.terms[0].G} cap {sim.grid.cap}, first energy "
+              f"{e2:.6f} ({ {k: v for k, v in cb.items() if v} })")
+        del sim
+
+        # --- (c) the transform master through the CLI -----------------------
+        dm = os.path.join(keep, "c")
+        os.makedirs(dm)
+        deck = water_deck(dm, n_water, printrate=10)
+        with open(deck, "a") as f:
+            f.write("therm TRANSFORM { type=THERMALIZE; temperature=310 K; "
+                    "seed=3; }\nrep TRANSFORM { type=REPLICATE; nx=2; ny=2; "
+                    "nz=2; }\nvcm TRANSFORM { type=SETVELOCITY; vcm=0 0 0; "
+                    "}\n")
+        rd = os.path.join(dm, "run")
+        counters_zero()
+        t0 = time.perf_counter()
+        s = cli_run(["transform", "-o", deck, "--run-dir", rd])
+        secs = time.perf_counter() - t0
+        cm = all_counters()
+        col = read_collection("snapshot.000000/atoms#", rd)
+        mass = s.ss.state.mass[:col.n].double().cpu().numpy()[:, None]
+        p = np.abs((mass * col.v).sum(0)).max() / (mass * np.abs(col.v)).sum()
+        gate(col.n == 8 * n0 and np.unique(col.gid).size == col.n
+             and p < 1e-6 and cm["cellpair_half"] >= 1
+             and cm["cellpair_half_col"] >= 2,
+             f"(c) master: {col.n} beads, |p| {p}, launches {cm}")
+        phase("transforms", f"(c) transform master through the CLI: "
+              f"THERMALIZE, REPLICATE 2x2x2, SETVELOCITY vcm=0 -> "
+              f"{col.n} beads in snapshot.000000, |p| / sum m|v| {p:.3g}, "
+              f"#1 {cm['cellpair_half']} and #2 {cm['cellpair_half_col']} "
+              f"launches, {secs:.1f} s; phase 22 "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        del s
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    return rows_out
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -4919,6 +5114,11 @@ def main(argv=None):
         return
     if "--integrators-only" in argv:
         integrators_phase(card, dev, counters_zero, all_counters)
+        return
+    if "--transforms-only" in argv:
+        failed = []
+        transforms_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 22 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -5086,6 +5286,12 @@ def main(argv=None):
     masters_rows.update(masters_phase(card, dev, counters_zero, all_counters,
                                       masters_failed))
     assert not masters_failed, f"phase 21 gates missed: {masters_failed}"
+    # --- phase 22: item 24a's transforms, #1 then #2 in one run -------------
+    transforms_failed = []
+    transform_rows = transforms_phase(card, dev, counters_zero, all_counters,
+                                      transforms_failed)
+    assert not transforms_failed, \
+        f"phase 22 gates missed: {transforms_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -5124,8 +5330,10 @@ def main(argv=None):
     # on #5, (b) NGLFNK and (d) SHEAR on #2, (e)'s small decks on #1 and
     # #4, the NVEGLF check on #4
     # phase 21's paths: (a) the command file on #2, (b)-(c) the rollback,
-    # NEXTFILE and NGLFTEST on #1, (d) the eightFold deck's kernel
-    for row, (name, n, out) in (*int_rows.items(), *masters_rows.items()):
+    # NEXTFILE and NGLFTEST on #1, (d) the eightFold deck's kernel; phase
+    # 22's run: #1 before the replica, #2 after it
+    for row, (name, n, out) in (*int_rows.items(), *masters_rows.items(),
+                                *transform_rows.items()):
         kernels[row] = kernels[name]
         launches[row] = n
         res[row] = out

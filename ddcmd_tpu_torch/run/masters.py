@@ -1,11 +1,11 @@
 """Top-level masters beyond simulate (reference masterFactory, ddcMD
 src/masterFactory.c:23-122, masters.c).
 
-Counterpart of ddcmd_tpu/run/masters.py: thermalize, readWrite,
-eightFold, integrationTest and unitTest.  Each builds a Simulation on
-`device` (the CUDA card by default; raises without one) in `dtype`.  The
-analysis and transform masters need the registries of ROADMAP item 24
-and raise naming it.
+Counterpart of ddcmd_tpu/run/masters.py: transform, thermalize,
+readWrite, eightFold, integrationTest and unitTest.  Each builds a
+Simulation on `device` (the CUDA card by default; raises without one) in
+`dtype`.  The analysis master needs the registry of ROADMAP item 24b and
+raises naming it.
 """
 
 from __future__ import annotations
@@ -21,18 +21,28 @@ from .simulate import Simulation
 
 def analysis_master(*args, **kwargs):
     """analysisMaster (masters.c:85-99): the analysis registry is item
-    24's."""
+    24b's."""
     raise NotImplementedError(
         "the analysis master needs the analyses, not ported yet (ROADMAP "
-        "queue 1, item 24)")
+        "queue 1, item 24b)")
 
 
-def transform_master(*args, **kwargs):
-    """transformMaster (masters.c:58-70): the transform registry is item
-    24's."""
-    raise NotImplementedError(
-        "the transform master needs the transforms, not ported yet "
-        "(ROADMAP queue 1, item 24)")
+def transform_master(db: ObjectDB, base_dir=".", run_dir=".", *,
+                     device=None, dtype=torch.float32):
+    """transformMaster (masters.c:58-70): apply every TRANSFORM object of
+    the deck in turn (Simulation.apply_transform), write the result as a
+    checkpoint and exit."""
+    from ..io.restart import write_checkpoint
+
+    sim = Simulation(db, base_dir, run_dir=run_dir, device=device,
+                     dtype=dtype)
+    applied = 0
+    for obj in db.by_class("TRANSFORM"):
+        sim.apply_transform(obj)
+        applied += 1
+    snap = write_checkpoint(sim, run_dir)
+    print(f"transformMaster: applied {applied} transform(s) -> {snap}")
+    return sim
 
 
 def thermalize_master(db: ObjectDB, base_dir=".", run_dir=".", *,

@@ -65,10 +65,16 @@ then checks them:
 
 After an accepted dispatch the host writes the printinfo rows, the
 `graphs` line (PRINTINFO printGraphs=1) and, with more than one group,
-each group's `group_<name>.data` row at printrate; then checkpoints and
-snapshots at their rates, and reads `ddcMD_CMDS` in the run directory
-(checkpoint, exit, kill, stop, profile, analysis, hpm, and object text
-that is compiled and rescanned; readCmds.c:20-97).  Host spans are
+each group's `group_<name>.data` row at printrate; applies each SIMULATE
+transform= object whose rate divides the loop (apply_transform: the
+registry's host surgery, then a re-upload or, when the particle count
+or the species changed, a rebuild of the state, the engine, the plan
+and the step); then checkpoints and snapshots at their rates, and reads
+`ddcMD_CMDS` in the run directory (checkpoint, exit, kill, stop,
+profile, analysis, hpm, and object text that is compiled and rescanned;
+readCmds.c:20-97; a rescan that fails is undone with a warning and a
+profile that fails prints "profile: FAILED").  Dispatches end on the
+checkpoint, snapshot and transform rates.  Host spans are
 timed into utils/profile.PROFILE ("loop", "printinfo", md_steps), and
 `profile_phases` times the rebuild, the force, the group kick and the
 fused step as calls of their own.  The NEXTFILE integrator replays
@@ -101,7 +107,7 @@ from ..integrators.nglfnk import make_nglfnk_step
 from ..integrators.nptglf import make_nptglf_step
 from ..io.collection import read_collection
 from ..nbr.celllist import build_neighbor_list, check_nonperiodic_cells
-from ..objects import DeckError, ObjectDB
+from ..objects import ObjectDB
 from ..objects import units as U
 from ..ops.cellpair import CellBlockGrid, build_cell_slots
 from ..ops.cellpair_half import plan_lanes
@@ -145,24 +151,30 @@ def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo,
                             mesh: bool = False):
     """Raise NotImplementedError for the outputs a deck asks for that
     Simulation (or, with mesh=True, ParallelSimulation) does not write
-    yet, instead of running to the end without them: SIMULATE analysis= / transform= lists and PRINTINFO printStress
-    (which attaches STRESSWRITE) wait for ROADMAP item 24; under the mesh
-    (mesh=True) also printGraphs and the per-group energy files (written
-    at printrate when the SYSTEM has more than one group), which the JAX
-    mesh does not write either (parallel_sim.py:452-472), for item 25.
-    Both call this when they are built (ddcmd_tpu/run/simulate.py:
-    189-221,1105-1118)."""
+    yet, instead of running to the end without them: the SIMULATE
+    analysis= list and PRINTINFO printStress (which attaches STRESSWRITE)
+    wait for ROADMAP item 24b; under the mesh (mesh=True) also the
+    SIMULATE transform= list (the JAX mesh applies no transform),
+    printGraphs and the per-group energy files (written at printrate
+    when the SYSTEM has more than one group), which the JAX mesh does not
+    write either (parallel_sim.py:452-472), for item 25.  Both call this
+    when they are built (ddcmd_tpu/run/simulate.py:189-221,1105-1118)."""
     simobj = db.by_class("SIMULATE")[0]
-    for key, cls in (("analysis", "ANALYSIS"), ("transform", "TRANSFORM")):
-        names = [n for n in simobj.get_strv(key) if db.find(n, cls)]
-        if names:
-            raise NotImplementedError(
-                f"SIMULATE {key}={' '.join(names)}: analyses and transforms "
-                "are not ported yet (ROADMAP queue 1, item 24)")
+    names = [n for n in simobj.get_strv("analysis") if db.find(n, "ANALYSIS")]
+    if names:
+        raise NotImplementedError(
+            f"SIMULATE analysis={' '.join(names)}: analyses are not ported "
+            "yet (ROADMAP queue 1, item 24b)")
+    names = [n for n in simobj.get_strv("transform")
+             if db.find(n, "TRANSFORM")]
+    if mesh and names:
+        raise NotImplementedError(
+            f"SIMULATE transform={' '.join(names)}: the mesh applies no "
+            "transform yet, as the JAX mesh (ROADMAP queue 1, item 25)")
     if printinfo.print_stress:
         raise NotImplementedError(
             "PRINTINFO printStress attaches the STRESSWRITE analysis, not "
-            "ported yet (ROADMAP queue 1, item 24)")
+            "ported yet (ROADMAP queue 1, item 24b)")
     if not mesh:
         return
     if printinfo.print_graphs:
@@ -274,11 +286,18 @@ class Simulation:
                                         device=self.device)
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         refuse_unported_outputs(db, sd, self.printinfo)
-        # the rate-driven analyses (ROADMAP item 24; a deck that names one
+        # the rate-driven analyses (ROADMAP item 24b; a deck that names one
         # raises above): the `analysis` command evaluates this list
         self.analyses: list = []
+        # the SIMULATE transform= list, (name, object, rate): each applied
+        # at the dispatch ends its rate divides (transform.c:153;
+        # simulate.py:216-220 of the JAX package)
+        self.transforms = []
+        for t in db.by_class("SIMULATE")[0].get_strv("transform"):
+            tobj = db.find(t, "TRANSFORM")
+            if tobj is not None:
+                self.transforms.append((t, tobj, tobj.get_int("rate", 0)))
         itype = sd.integrator_type
-        self.engine = choose_engine(sd, dtype, engine)
         h = sd.box.h.cpu().numpy()
         if any(g.type in ("SHEAR", "SHWALL") for g in sd.groups) and \
                 np.any(h[[2, 2, 0, 1], [0, 1, 2, 2]] != 0):
@@ -288,22 +307,6 @@ class Simulation:
                 "SHEAR/SHWALL need the c lattice vector along z (xy tilt "
                 "is fine; z-coupled tilt is not)")
         ip = sd.integrator_parms
-        sysobj = db.get(sd.cfg.system_name, "SYSTEM")
-        self.molecules = build_molecule_class(
-            db, sysobj, sd.collection.species_names, sd.collection.gid)
-        self.n_molecules = (self.molecules.n_molecules if self.molecules
-                            else sd.state.n_local)
-        # the Berendsen barostat belongs to the constraint integrators;
-        # plain NGLF ignores beta, as the reference's nglf.c does
-        self.barostat = None
-        if sd.integrator_type in _BAROSTAT_TYPES and ip["beta"] > 0:
-            self.barostat = dict(P0=ip["P0"], beta=ip["beta"],
-                                 tau=ip["tauBarostat"], T=ip["T"],
-                                 isotropic=ip["isotropic"],
-                                 n_molecules=self.n_molecules)
-        self.mol_virial_fn = make_molecular_virial_fn(
-            self.molecules, dtype=dtype, device=self.device)
-        self.constraint_fn = self._make_constraint_fn()
         self.post_drift_fn = None
         if any(p[0] == "REFLECT" for p in sd.potentials):
             from ..potentials.reflect import reflect
@@ -314,11 +317,9 @@ class Simulation:
                          or ip["beta"] > 0)
         self._plan_margin = 1.08 if self._dyn_box else 1.0
         self._density_safety = 1.3
-        self.grid = self._plan(sd.box)
-        self._build_step()
-        self._ge_total: dict = {}
+        self._engine_request = engine
         self._eion_last = None
-        self._group_setup(sd.cfg.time)
+        self._derive(sd.box, sd.cfg.time)
         self._generator = torch.Generator(device=self.device)
         self._forced_spr = None
         self._forced_dispatch = None
@@ -346,6 +347,39 @@ class Simulation:
                                  dtype=dtype, device=self.device))
 
     # ------------------------------------------------------------------
+
+    def _derive(self, box, time: float):
+        """What the run derives from its particles and box: the engine
+        (choose_engine; the kernel a plan takes depends on its cell
+        count), the molecule class and the barostat's molecule count, the
+        constraint projector, the cell plan at `box`, the force function
+        and the step, and the group coefficients at `time` (the
+        GLOBAL_ENERGY totals are pinned anew at the next energy).  Run
+        when the Simulation is built and after a transform changed the
+        particle count or the species (apply_transform)."""
+        sd = self.sysdef
+        ip = sd.integrator_parms
+        self.engine = choose_engine(sd, self.dtype, self._engine_request)
+        sysobj = self.db.get(sd.cfg.system_name, "SYSTEM")
+        self.molecules = build_molecule_class(
+            self.db, sysobj, sd.collection.species_names, sd.collection.gid)
+        self.n_molecules = (self.molecules.n_molecules if self.molecules
+                            else sd.state.n_local)
+        # the Berendsen barostat belongs to the constraint integrators;
+        # plain NGLF ignores beta, as the reference's nglf.c does
+        self.barostat = None
+        if sd.integrator_type in _BAROSTAT_TYPES and ip["beta"] > 0:
+            self.barostat = dict(P0=ip["P0"], beta=ip["beta"],
+                                 tau=ip["tauBarostat"], T=ip["T"],
+                                 isotropic=ip["isotropic"],
+                                 n_molecules=self.n_molecules)
+        self.mol_virial_fn = make_molecular_virial_fn(
+            self.molecules, dtype=self.dtype, device=self.device)
+        self.constraint_fn = self._make_constraint_fn()
+        self.grid = self._plan(box)
+        self._build_step()
+        self._ge_total: dict = {}
+        self._group_setup(time)
 
     def _group_setup(self, time: float):
         """The group kick's coefficients at `time` and what refreshes
@@ -637,10 +671,7 @@ class Simulation:
             v_tgt = self.sysdef.state.n_local * float(bt["eq"](t + S * dt))
             E = E * np.exp(steps * math.log(v_tgt / v_now) / (3.0 * S))
 
-        def dev(x):
-            return torch.as_tensor(x, dtype=self.dtype, device=self.device)
-
-        return dev(E), dev(M)
+        return self._dev(E), self._dev(M)
 
     def _dispatch(self, ss: StepState, n_rebuilds: int, spr: int,
                   box_lam=None, attempt: int = 0):
@@ -738,6 +769,14 @@ class Simulation:
             for rate in (cfg.checkpointrate, cfg.snapshotrate):
                 if on_checkpoint and rate:
                     k = min(k, rate - self.ss.loop % rate)
+            for _, _, rate in self.transforms:
+                # a dispatch ends on each transform's next multiple (the
+                # JAX package only caps the dispatch at the rate,
+                # simulate.py:887-889, so a dispatch of whole rebuild
+                # blocks can step over a multiple: loop 30 at rate 30 on
+                # a 20-step cadence)
+                if rate:
+                    k = min(k, rate - self.ss.loop % rate)
             spr = min(update_rate, self._forced_spr or update_rate)
             if k >= spr:
                 n_rebuilds = k // spr
@@ -807,6 +846,9 @@ class Simulation:
             if len(sd.groups) > 1 and cfg.printrate \
                     and self.ss.loop % cfg.printrate == 0:
                 self._emit_group_files()
+            for _, tobj, rate in self.transforms:
+                if rate and self.ss.loop % rate == 0:
+                    self.apply_transform(tobj)
             if on_checkpoint and cfg.checkpointrate \
                     and self.ss.loop % cfg.checkpointrate == 0:
                 on_checkpoint(self)
@@ -916,6 +958,118 @@ class Simulation:
                 f.write(f"{self.ss.loop:12d} {cnt:10d} {T:14.4f} "
                         f"{ke / cnt:16.8f} {pe[sel].sum() / cnt:16.8f}\n")
 
+    def apply_transform(self, tobj):
+        """Apply the TRANSFORM object `tobj` to the run's state on the host
+        (transforms/registry.py) and re-upload it, then the first energy
+        (transform.c:153-181; simulate.py:1213-1296 of the JAX package).
+
+        Fast path, the same particles and species: r and v replace the
+        state's and the box takes the new h (a BOX that no longer holds
+        the cell plan is re-planned by the first energy's overflow
+        ladder, which reads the cell edges); the collection takes the new
+        gids and group names, the state keeps its gids, group indices and
+        masses (so GIDSHUFFLE and ASSIGNGROUPS reach only the files'
+        names, as in the JAX package).  Otherwise (REPLICATE, APPEND,
+        SELECTSUBSET, SHOCK, ALCHEMY, or a box that is no longer
+        orthorhombic) a new State is built, with the JAX package's
+        bookkeeping: masses and charges from the species (APPEND's own
+        masses are not read), an unknown group name takes group 0, and
+        the collection's class names are the old ones tiled and cut to
+        the new count (after SELECTSUBSET the first n, not the kept
+        ones); then the engine, the molecule class, the constraint
+        projector, the plan, the force function and the step are
+        derived anew (_derive), and the stale-list and overflow ladders
+        start over.  A count change on a deck with bonded terms,
+        exclusions, constraints or molecules of more than one bead
+        raises (ROADMAP item 29: the JAX package keeps the old topology,
+        so only the first copy keeps its terms)."""
+        from ..core.box import Box
+        from ..core.state import State
+        from ..transforms.registry import TransformContext, apply_transform
+
+        sd = self.sysdef
+        col = sd.collection
+        n = sd.state.n_local
+        st = self.ss.state
+
+        def host(x):
+            return x.detach().cpu().numpy().astype(np.float64)
+
+        ctx = TransformContext(
+            r=host(st.r[:n]), v=host(st.v[:n]), gid=col.gid.copy(),
+            mass=host(st.mass[:n]), species_names=list(col.species_names),
+            group_names=list(col.group_names), h=host(self.ss.box.h))
+        # what SHOCK and CUSTOM read: the time, the rate, the directories
+        ctx.time = float(self.ss.time)
+        ctx.dt = sd.cfg.dt
+        ctx.rate = next((rate for _, t, rate in self.transforms
+                         if t is tobj), 1)
+        ctx.run_dir = self.run_dir
+        ctx.base_dir = self.base_dir
+        apply_transform(ctx, tobj)
+        box = Box.from_h(ctx.h, pbc=self.ss.box.pbc, dtype=self.dtype,
+                         device=self.device)
+        n_new = len(ctx.gid)
+        if (n_new == n and ctx.species_names == col.species_names
+                and box.ortho == self.ss.box.ortho):
+            r = np.zeros((st.n_pad, 3))
+            v = np.zeros((st.n_pad, 3))
+            r[:n] = ctx.r
+            v[:n] = ctx.v
+            self.ss = self.ss.replace(
+                state=st.replace(r=self._dev(r), v=self._dev(v)), box=box)
+            col.gid = ctx.gid
+            col.group_names = ctx.group_names
+            self.first_energy()
+            return
+        topology = self._topology() if n_new != n else []
+        if topology:
+            raise NotImplementedError(
+                f"TRANSFORM {tobj.name} ({tobj.get_str('type')}) changes the "
+                f"particle count {n} -> {n_new} on a deck with "
+                f"{', '.join(topology)}: the topology is not built for the "
+                "new particles (ROADMAP queue 1, item 29)")
+        sp_index = {s.name: s.index for s in sd.species}
+        grp_index = {g.name: g.index for g in sd.groups}
+        sidx = np.array([sp_index[s] for s in ctx.species_names],
+                        dtype=np.int64)
+        gidx = np.array([grp_index.get(g, 0) for g in ctx.group_names],
+                        dtype=np.int64)
+        mass = np.array([sd.species[i].mass for i in sidx])
+        charge = np.array([sd.species[i].charge for i in sidx])
+        sd.state = State.create(ctx.r, ctx.v, charge, mass, sidx, gidx,
+                                ctx.gid, dtype=self.dtype, device=self.device)
+        col.gid = ctx.gid
+        col.species_names = ctx.species_names
+        col.group_names = ctx.group_names
+        col.class_names = (col.class_names * (n_new // max(n, 1) + 1))[:n_new]
+        col.r = ctx.r
+        col.v = ctx.v
+        sd.box = box
+        self.ss = self.ss.replace(state=sd.state, box=box)
+        self._derive(box, self.ss.time)
+        self._forced_spr = None
+        self._forced_dispatch = None
+        self._clean_disp = 0
+        self.first_energy()
+
+    def _topology(self) -> list[str]:
+        """What of the deck's topology a particle-count change would
+        leave behind: its bonded term families, constraints and
+        molecules of more than one bead."""
+        sd = self.sysdef
+        counts = sd.bonded.counts() if sd.bonded is not None else {}
+        out = [k for k, v in counts.items()
+               if v and k not in ("cons_groups", "n_constraints")]
+        if sd.n_constraints:
+            out.append("constraints")
+        if self.molecules is not None and not self.molecules.is_trivial:
+            out.append("molecules of more than one bead")
+        return out
+
+    def _dev(self, x):
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
     def _rescan_objects(self):
         """Re-derive live parameters from the re-compiled object DB, the
         reach of the reference's object_rescan (readCmds.c:66-97;
@@ -930,9 +1084,9 @@ class Simulation:
         * INTEGRATOR parameters (barostat and thermostat targets) ->
           baked into the step: when they moved, the barostat and the
           step (and with it the force function and its bonded graph)
-          are rebuilt.
-        The analyses and transforms whose rates the JAX package rescans
-        are item 24's."""
+          are rebuilt;
+        * TRANSFORM objects and rates -> the transform list (the
+          analyses' rates wait for item 24b)."""
         from ..core.groups import GroupTable, group_from_deck
         from ..core.system import integrator_parms_from_deck
 
@@ -958,6 +1112,33 @@ class Simulation:
                     isotropic=iparms["isotropic"],
                     n_molecules=self.n_molecules)
             self._build_step()
+        self.transforms = [
+            (t, self.db.find(t, "TRANSFORM") or obj,
+             (self.db.find(t, "TRANSFORM") or obj).get_int("rate", rate))
+            for t, obj, rate in self.transforms]
+
+    def _rescan_guarded(self, raw: str):
+        """Compile the command file's object text and rescan (the JAX
+        package's simulate.py:1380-1393): when either fails, the run goes
+        on as it was -- the deck's objects get back the keywords they had
+        (and lose any the text added), and the Simulation, its sysdef and
+        its SIMULATE config get back every attribute the rescan may have
+        set -- with a warning."""
+        sd = self.sysdef
+        objects = dict(self.db.objects)
+        keywords = {k: dict(o.keywords) for k, o in objects.items()}
+        saved = [(x, dict(vars(x))) for x in (self, sd, sd.cfg)]
+        try:
+            self.db.compile_string(raw)
+            self._rescan_objects()
+        except Exception as err:
+            self.db.objects = objects
+            for k, o in objects.items():
+                o.keywords = keywords[k]
+            for x, attrs in saved:
+                vars(x).update(attrs)
+            warnings.warn("ddcMD_CMDS object rescan failed: "
+                          f"{type(err).__name__}: {err}", stacklevel=3)
 
     def _poll_commands(self, on_checkpoint) -> bool:
         """The run-time command file (readCMDS, ddcMD src/readCmds.c:
@@ -975,19 +1156,14 @@ class Simulation:
         os.remove(path)
         text = raw.lower()           # object text keeps its case
         if "{" in raw:
-            # object text: a deck that does not parse is reported and the
-            # run goes on with the objects it had (as the JAX package)
-            try:
-                self.db.compile_string(raw)
-            except DeckError as err:
-                warnings.warn(f"ddcMD_CMDS object text not compiled: {err}",
-                              stacklevel=2)
-            else:
-                self._rescan_objects()
+            self._rescan_guarded(raw)
         if "checkpoint" in text and on_checkpoint:
             on_checkpoint(self)
         if "profile" in text:
-            self.profile_phases()
+            try:
+                self.profile_phases()
+            except Exception as err:
+                print(f"profile: FAILED ({type(err).__name__}: {err})")
             print(PROFILE.table())
         if "analysis" in text:
             # DO_ANALYSIS (readCmds.c:47): every registered analysis now
@@ -1081,10 +1257,6 @@ class Simulation:
         sd = self.sysdef
         iobj = self.db.get(sd.cfg.integrator_name, "INTEGRATOR")
         n_pad = sd.state.n_pad
-
-        def dev(x):
-            return torch.as_tensor(x, dtype=self.dtype, device=self.device)
-
         for i, fpat in enumerate(iobj.get_strv("files")):
             col = read_collection(fpat, self.base_dir)
             n = min(col.n, sd.state.n_local)
@@ -1093,7 +1265,7 @@ class Simulation:
             r[:n] = col.r[:n]
             v[:n] = col.v[:n]
             self.ss = self.ss.replace(
-                state=self.ss.state.replace(r=dev(r), v=dev(v)),
+                state=self.ss.state.replace(r=self._dev(r), v=self._dev(v)),
                 loop=self.ss.loop + 1)
             self.first_energy()
             e = self.ss.energy

@@ -153,13 +153,20 @@ _DEFORMATION = (lambda s: s.replace(
                  id=r"<lambda>-box\(t\).*item 22"),
     # outputs the JAX Simulation writes at their rates: each raises naming
     # its ROADMAP item instead of running to the end without the output
-    (lambda s: _sim_key(s, "analysis=rdf;")
-     + "rdf ANALYSIS { type=PAIRCORRELATION; eval_rate=10; }\n",
-     r"analysis=rdf.*item 24"),
-    (lambda s: _sim_key(s, "transform=therm;")
-     + "therm TRANSFORM { type=THERMALIZE; rate=10; }\n",
-     r"transform=therm.*item 24"),
-    (lambda s: _printinfo(s, "printStress=1;"), r"printStress.*item 24"),
+    # (the ids keep the names these cases had before item 24 was split)
+    pytest.param(lambda s: _sim_key(s, "analysis=rdf;")
+                 + "rdf ANALYSIS { type=PAIRCORRELATION; eval_rate=10; }\n",
+                 r"analysis=rdf.*item 24b",
+                 id=r"<lambda>-analysis=rdf.*item 24"),
+    # Simulation applies transforms (tests/test_torch_transform_sim.py);
+    # the mesh does not, as the JAX mesh
+    pytest.param(lambda s: _sim_key(s, "transform=therm;")
+                 + "therm TRANSFORM { type=THERMALIZE; rate=10; }\n",
+                 r"mesh:transform=therm.*item 25",
+                 id=r"<lambda>-transform=therm.*item 24"),
+    pytest.param(lambda s: _printinfo(s, "printStress=1;"),
+                 r"printStress.*item 24b",
+                 id=r"<lambda>-printStress.*item 24"),
     # Simulation writes the graphs line and the per-group energy files
     # (tests/test_torch_runtime.py); the mesh does not, as the JAX mesh
     pytest.param(lambda s: _printinfo(s, "printGraphs=1;"),
@@ -170,7 +177,9 @@ _DEFORMATION = (lambda s: s.replace(
                  + "frozen GROUP { type=FREE; }\n",
                  r"mesh:per-group energy.*item 25",
                  id=r"<lambda>-per-group energy.*item 23"),
-    (lambda s: _printinfo(s, "printStress=1;"), r"mesh:printStress.*item 24"),
+    pytest.param(lambda s: _printinfo(s, "printStress=1;"),
+                 r"mesh:printStress.*item 24b",
+                 id=r"<lambda>-mesh:printStress.*item 24"),
     # what the mesh still refuses where Simulation runs the deck on its
     # cell-block engine: a triclinic box and non-periodic axes
     (lambda s: _tilted(s), r"mesh:triclinic.*item 25"),
@@ -364,3 +373,22 @@ def test_thermalize_copy_equals_jax():
         b = jth.thermalize_velocities(mass, 310.0, seed=385212586,
                                       remove_vcm=remove)
         assert np.array_equal(a, b)
+
+
+def test_transform_registry_copy_equals_jax():
+    """transforms/registry.py is the JAX package's registry (numpy only,
+    copied): the same code statement for statement once the module
+    docstring and the reference's source paths are set aside (the 16
+    transforms' results: tests/test_torch_transforms.py)."""
+    import ast
+
+    from ddcmd_tpu.transforms import registry as jreg
+    from ddcmd_tpu_torch.transforms import registry as treg
+
+    def body(mod, text_of=lambda s: s):
+        with open(mod.__file__) as f:
+            tree = ast.parse(text_of(f.read()))
+        return ast.dump(ast.Module(body=tree.body[1:], type_ignores=[]))
+
+    assert body(treg) == body(
+        jreg, lambda s: s.replace("/root/reference/src/", "ddcMD src/"))

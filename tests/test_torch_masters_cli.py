@@ -1,8 +1,9 @@
 """Slice 15, the masters through the port's CLI on the CPU (ROADMAP item
 23), and testPressure's tables against the JAX package's (f64, rel
 1e-9): thermalize, readWrite (positions bit-equal through the codec),
-eightFold, testForce, testPressure and integrationTest with --device
-cpu; analysis and transform raise naming item 24; unitTest's pytest
+eightFold, testForce, testPressure, integrationTest and (since slice
+16) transform with --device cpu; analysis raises naming item 24b;
+unitTest's pytest
 command; integrationTest's pass and fail; testPressure's slope check on
 a broken virial and its molecular sweep."""
 
@@ -124,16 +125,20 @@ def test_unit_test_master_command(monkeypatch, tier, slow):
 
 
 def test_cli_runs_every_master(tmp_path):
-    """thermalize, readWrite, eightFold, testForce, testPressure and
-    integrationTest through `cli.run --device cpu` on the 400-bead water
-    box; readWrite's positions come back bit-equal through the codec;
-    analysis and transform raise naming item 24."""
+    """thermalize, readWrite, eightFold, testForce, testPressure,
+    integrationTest and transform through `cli.run --device cpu` on the
+    400-bead water box; readWrite's positions come back bit-equal through
+    the codec; the transform master applies the deck's TRANSFORM (a
+    velocity kick) into a checkpoint that loads; analysis raises naming
+    item 24b."""
     from ddcmd_tpu_torch.run.simulate import Simulation
 
     d = _deck(tmp_path, lambda d: martini_water(d, n=400))
     with open(os.path.join(d, "object.data"), "a") as f:
         f.write("it INTEGRATIONTEST { testPotentialPotential=martini "
-                "martini; }\n")
+                "martini; }\n"
+                "kick TRANSFORM { type=ADDVELOCITY; velocity=0 0 1e-3 "
+                "Angstrom/fs; }\n")
     deck = os.path.join(d, "object.data")
 
     def run(master, *extra, run_dir=None):
@@ -156,6 +161,13 @@ def test_cli_runs_every_master(tmp_path):
     assert os.path.exists(os.path.join(rd, "pressure2.data"))
     (_, it), _ = run("integrationTest")
     assert it[0][2] == 0.0
-    for master in ("analysis", "transform"):
-        with pytest.raises(NotImplementedError, match="item 24"):
-            run(master)
+    sim, rd = run("transform")
+    db, _ = t_load(d, restart=os.path.join(rd, "restart"))
+    back = Simulation(db, rd, run_dir=rd, device="cpu")
+    assert torch.equal(back.ss.state.v, sim.ss.state.v)
+    # the box starts at rest: every bead at 1e-3 A/fs = 0.1 nm/ps in z
+    vz = back.ss.state.v[:400, 2]
+    assert float(vz.min()) == pytest.approx(0.1, rel=1e-6)
+    assert float(vz.max()) == pytest.approx(0.1, rel=1e-6)
+    with pytest.raises(NotImplementedError, match="item 24b"):
+        run("analysis")

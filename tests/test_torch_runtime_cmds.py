@@ -3,13 +3,19 @@ port-only): the ddcMD_CMDS file (checkpoint, exit, kill, stop, hpm,
 profile, and object text that is compiled and rescanned), the phase
 profile, max_seconds.  The rescan moves a LANGEVIN Teq and the run's
 temperature follows (tests/test_masters.py:184-225 in the JAX
-package)."""
+package).  Object text whose rescan fails, and a profile that fails,
+leave the run going, beside the JAX package's warning (slice 16)."""
 
 import os
+import warnings
 
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from ddcmd_tpu.models import load as j_load
+from ddcmd_tpu.run.simulate import Simulation as JSimulation
 from ddcmd_tpu_torch.io.restart import write_checkpoint
 from ddcmd_tpu_torch.models import lj_fluid
 from ddcmd_tpu_torch.models import load as t_load
@@ -131,3 +137,60 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with open(path) as f:
         assert '"traceEvents"' in f.read()
 
+
+
+@pytest.mark.parametrize("text,err", [
+    ("top GROUP { type=LANGEVIN; Teq=RAMP(400); tau=0.5ps; }\n",
+     "eq expression needs 4 args"),
+    ("integ INTEGRATOR { type=NGLF; T=abc; }\n", "cannot parse value 'abc'")],
+    ids=["Teq=RAMP(400)", "T=abc"])
+def test_failing_rescan_warns_and_runs_on(tmp_path, text, err):
+    """Object text that compiles but fails its rescan (a RAMP with one
+    argument, a temperature that is not a number), read after loop 10 of
+    the 300-atom two-group LJ deck: both packages warn "ddcMD_CMDS object
+    rescan failed" and reach loop 30; the port's deck keeps the keywords
+    it had and its groups and integrator their values."""
+    d = _two_group_lj(tmp_path, n=300, graphs=False,
+                      groups="type=LANGEVIN; Teq=120K; tau=0.5ps;")
+    msg = f"ddcMD_CMDS object rescan failed: .*{err}"
+    runs = (("jax", lambda rd: JSimulation(*j_load(d), run_dir=rd,
+                                            dtype=jnp.float64)),
+            ("torch", lambda rd: TSimulation(*t_load(d), run_dir=rd,
+                                             device="cpu",
+                                             dtype=torch.float64)))
+    for where, make in runs:
+        rd = str(tmp_path / where)
+        os.makedirs(rd)
+        sim = make(rd)
+        _cmds(rd, text)
+        with pytest.warns(UserWarning, match=msg):
+            sim.run(30, max_steps_per_dispatch=10, **QUIET)
+        assert int(sim.ss.loop) == 30, where
+    assert sim.db.get("top", "GROUP").raw("Teq") == ["120K"]
+    assert sim.db.get("integ", "INTEGRATOR").keywords == t_load(d)[0].get(
+        "integ", "INTEGRATOR").keywords
+    assert [float(g.Teq(0.0)) for g in sim.sysdef.groups] == [120.0, 120.0]
+    assert not sim._refresh_coeffs
+
+
+def test_failing_profile_prints_failed(tmp_path, capsys):
+    """A `profile` command whose phase timing raises prints "profile:
+    FAILED (<type>: <message>)" and the table, and the run goes on."""
+    d = str(tmp_path / "deck")
+    os.makedirs(d)
+    lj_fluid(d, n=300)
+    sim = TSimulation(*t_load(d), run_dir=d, device="cpu",
+                      dtype=torch.float64)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("no phase to time")
+
+    sim.profile_phases = broken
+    _cmds(d, "profile\n")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        sim.run(20, max_steps_per_dispatch=10, **QUIET)
+    assert sim.ss.loop == 20
+    out = capsys.readouterr().out
+    assert "profile: FAILED (RuntimeError: no phase to time)" in out
+    assert "phase" in out.split("profile: FAILED")[1]
