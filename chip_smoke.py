@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only |
                            --integrators-only | --masters-only |
-                           --transforms-only]
+                           --transforms-only | --analyses-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -69,7 +69,7 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      steps on the per-cell kernel with exclusions;
   6. bilayer slice: the ~100k-bead DPPC bilayer through the CLI in two
      stages, as bench.py runs it: 3000 steps at dt = 5 fs, a checkpoint,
-     then 8000 NPT steps at dt = 20 fs from that restart;
+     then 3000 NPT steps at dt = 20 fs from that restart;
   7. EAM crystal, nc = 12 (6,912 Cu atoms, RATIONAL, per-cell EAM
      kernels): 3000 NVT steps through the CLI, a checkpoint, then 2000
      NVE steps (a FREE group) from that restart, whose energy drift is
@@ -88,7 +88,7 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
  12. mesh bilayer (run inside phase 6, from its 20 fs restart): the
      100,296-bead bilayer through `ParallelSimulation` at (1,1,1), first
      energy against the single-device Simulation's on the same restart,
-     2000 NPT steps (bonds, angles, RATTLE, in-kernel exclusions) through
+     1000 NPT steps (bonds, angles, RATTLE, in-kernel exclusions) through
      the extended-grid pair kernel with exclusions only;
  13. PAIR: the Lennard-Jones fluid (models.lj_fluid, LANGEVIN 120 K)
      through the CLI at 4,096 atoms (3000 steps, per-cell kernel) and
@@ -168,7 +168,7 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      both with steps/s, busy share and CUDA kernels a step; (c) STRAIN
      (dudt = 0 0 1e-6 /fs) on the nc = 32 crystal, 1000 steps on #5:
      Lz against exp(int u dt), Lx and Ly fixed, Pzz; (d) SHEAR on the LJ
-     fluid (slices at +-L/4 driven at +-1e-3 A/fs), 2000 steps on #2:
+     fluid (slices at +-L/4 driven at +-1e-3 A/fs), 1000 steps on #2:
      the slices' mean vy and temperatures, the z profile; (e) small
      decks on the card against the CPU with the same noise (a deck for
      each GROUP type and GLOBAL_ENERGY, NVEGLF, NVEGLF_SIMPLE, NPTGLF,
@@ -213,6 +213,23 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      checkpoint, |p| and the count read back.  Rows of its own:
      cellpair_half_transform (#1 on the records just before the
      replica) and cellpair_half_col_transform (#2 on the last records).
+ 23. analyses (ROADMAP item 24b): (a) the water box (#1) with twelve
+     SIMULATE analysis= objects (PAIRCORRELATION, VCMWRITE every 30
+     steps, off the 20-step cadence, KINETICENERGYDISTN, ZDENSITY, SSF,
+     VELOCITYAUTOCORRELATION, FORCEAVERAGE, DATASUBSET, COARSEGRAIN, DSF,
+     SUBSETWRITE, PAIRANALYSIS) and printStress, 1000 steps through the
+     CLI beside the same deck without analyses (steps/s of both, the
+     analyses' host ms an eval): VCMWRITE's rows at 30, 60, ..., 990,
+     g(r)'s core, first peak and tail, each ZDENSITY frame's count, the
+     VAF's C(0) against 3 kT/m, -tr(stress)/3 against printinfo's
+     pressure; then 300 more steps under ddcMD_CMDS (`analysis`, and
+     VCMWRITE's eval_rate to 60); (b) the nc = 12 crystal (#4, 6,912
+     atoms: _knn's cell-list route): the analysis master on the perfect
+     lattice (CENTROSYM, ACKLAND_JONES, QUATERNION's CRC32s), then 300
+     NVT steps through the CLI with the three (>= 95% FCC); (c) the
+     analysis master on (a)'s and (b)'s checkpoints, card vs CPU.  Rows
+     of its own: cellpair_half_analysis (#1 on (a)'s last records),
+     eam_rho_analysis and eam_force_analysis (#4 on (b)'s).
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -221,7 +238,8 @@ the kernels' JSON line, the card line, and last {"ok": true, "device":
 --list-only builds the kernels, runs phase 18 alone and prints no
 result; --charmm-only does the same with phase 19, --integrators-only
 with phase 20, --masters-only with phase 21 (making the bilayer's restart
-as phase 6's first stage does), --transforms-only with phase 22.
+as phase 6's first stage does), --transforms-only with phase 22,
+--analyses-only with phase 23.
 """
 
 import contextlib
@@ -249,7 +267,7 @@ PLAIN_CALLS = 3          # plain-twin calls per timing, after one warm-up
                          # call (each takes 10-500 ms at full size)
 BILAYER_NX = 48          # the builder's default: ~100k beads
 EQ_STEPS, EQ_DT = 3000, 5.0
-RUN_STEPS = 4000
+RUN_STEPS = 3000
 SMALL_NX, SMALL_STEPS = 8, 400
 BILAYER_T = 323.0
 TEMP_TOL = 10.0          # K, on the mean T over the last TAIL steps
@@ -294,7 +312,7 @@ RAGGED_RCUT, RAGGED_SKIN = 0.6, 0.3       # the pair kernels' ragged cases
 NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
 T_START = time.perf_counter()   # the phase lines' clock
-MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 3000, 2000, 2000
+MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 3000, 2000, 1000
 # PAIR Lennard-Jones fluids (models.lj_fluid: 0.0208 atoms/A^3, 8.5 A
 # cutoff, 1.2 A skin, LANGEVIN 120 K): 4,096 atoms (58.2 A box) and
 # 131,072 (184.9 A), the two-species variant's steps, the mesh's
@@ -802,14 +820,18 @@ def sim_kernel_inputs(sim):
     return kernel, args, kw, term.grid
 
 
-def eam_deck(d, nc, printrate, free=False, a_lat=None, edit=None):
+def eam_deck(d, nc, printrate, free=False, a_lat=None, edit=None,
+             jitter=None):
     """eam_crystal deck (4 nc^3 Cu atoms, RATIONAL); free=True swaps the
     Langevin group for FREE (NVE, deterministic); a_lat, the lattice
     constant in A (eam_crystal's 3.615 by default); edit(text) edits the
-    deck further."""
+    deck further; jitter, the start lattice's noise in A (eam_crystal's
+    0.03 by default; 0 a perfect lattice)."""
     from ddcmd_tpu_torch.models import eam_crystal
 
-    eam_crystal(d, nc=nc, **({} if a_lat is None else {"a_lat": a_lat}))
+    kw = {k: v for k, v in (("a_lat", a_lat), ("jitter", jitter))
+          if v is not None}
+    eam_crystal(d, nc=nc, **kw)
     p = os.path.join(d, "object.data")
     with open(p) as f:
         text = f.read()
@@ -3752,7 +3774,7 @@ NPT_GAMMA, INT_NPT_STEPS = 2.2, 2000
 # over the 8 ps (the period is set by the flow's inertia: ~30 ps)
 NK_P, NK_TAU, NK_W, NK_STEPS = 500.0, 0.5, 1e5, 2000
 STRAIN_U, STRAIN_STEPS = 1e-6, 1000         # dudt on z, 1/fs
-SHEAR_V, SHEAR_TAU, SHEAR_STEPS = 1e-3, 0.2, 2000   # A/fs, ps
+SHEAR_V, SHEAR_TAU, SHEAR_STEPS = 1e-3, 0.2, 1000   # A/fs, ps
 INT_SMALL_N, INT_SMALL_STEPS = 500, 20      # (e): card vs CPU
 NVE_CHECK_STEPS = 100
 # the small decks' NPTGLF: the LJ fluid's B ~1.7 GPa at 48.1 A^3 an atom
@@ -4038,7 +4060,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     from ddcmd_tpu_torch.io.restart import write_checkpoint
     from ddcmd_tpu_torch.models import load
     from ddcmd_tpu_torch.objects import units as U
-    from ddcmd_tpu_torch.ops import eam_half as eh
     from ddcmd_tpu_torch.run.simulate import Simulation
 
     t_phase = time.perf_counter()
@@ -4046,10 +4067,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     bar = U.unit_scale("bar")
     rows_out = {}
     failed = []
-    plains = {eh.eam_rho_half_col: eh.eam_rho_half_col_plain,
-              eh.eam_force_half_col: eh.eam_force_half_col_plain,
-              eh.eam_rho_half: eh.eam_rho_half_plain,
-              eh.eam_force_half: eh.eam_force_half_plain}
 
     def gate(ok, what):
         if not ok:
@@ -4060,20 +4077,6 @@ def integrators_phase(card, dev, counters_zero, all_counters):
         sim = cli_run(["simulate", "-o", deck, "-n", str(steps),
                        "--run-dir", d])
         return sim, all_counters(), read_rows(d)
-
-    def eam_check(sim, what):
-        """#5 (#4 at G = 1) against its plain version on the run's last
-        records, with its bound: eam_compare's {"rho": ..., "force": ...}."""
-        ss, perm, ov = sim._build_nbr(sim.ss)
-        assert not bool(ov), "overflow packing the comparison case"
-        term = sim.force_fn.terms[0]
-        rho_k, force_k, slots, args, kw = term.kernel_inputs(
-            ss.state, ss.box, perm)
-        return eam_compare(
-            f"EAM kernels on {what}'s last records (cells "
-            f"{term.grid.ncells}, G={term.G})", (rho_k, force_k),
-            (plains[rho_k], plains[force_k]), slots, args, kw, term.tables,
-            with_bound=True)
 
     def eam_rows(suffix, c, out, col=True):
         for p in ("rho", "force"):
@@ -4116,7 +4119,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"last {TAIL} steps; V/atom {va.min():.4f}-{va.max():.4f} "
               f"{sim.printinfo.u_vol} (start {va[0]:.4f}), last zeta "
               f"{zeta:.6g}; redos {sim.redos}; {sim_rate_busy(sim)} on {card}")
-        eam_rows("nptglf", c, eam_check(sim, "(a)"))
+        eam_rows("nptglf", c, sim_eam_check(sim, "(a)"))
         del sim
 
     # --- (b) NGLFNK on the 131,072-atom LJ fluid, #2 ------------------------
@@ -4188,7 +4191,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
               f"{c['eam_rho_col']} / {c['eam_force_col']} times; T "
               f"{rows[-1, 5]:.2f} K; redos {sim.redos}; {sim_rate_busy(sim)} "
               f"on {card}")
-        eam_rows("strain", c, eam_check(sim, "(c)"))
+        eam_rows("strain", c, sim_eam_check(sim, "(c)"))
         del sim
 
     # --- (d) SHEAR on the 131,072-atom LJ fluid, #2 -------------------------
@@ -4252,8 +4255,8 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     rows_out["cellpair_half_small"] = (
         "cellpair_half", c["cellpair_half"],
         sim_pair_check(last["pair"][0], f"(e) {last['pair'][1]}"))
-    eam_rows("small", c, eam_check(last["eam"][0], f"(e) {last['eam'][1]}"),
-             col=False)
+    eam_rows("small", c, sim_eam_check(last["eam"][0],
+                                       f"(e) {last['eam'][1]}"), col=False)
     del last
     # a restart of zeta (NPTGLF) and bdot (NGLFNK): 10 steps, a
     # checkpoint, 10 more from it, against 20 in one run
@@ -4302,7 +4305,7 @@ def integrators_phase(card, dev, counters_zero, all_counters):
             energies[name] = np.array([[float(x) for x in ln.split()[2:5]]
                                        for ln in lines])
             if name == "NVEGLF":
-                eam_rows("nveglf", c, eam_check(sim, "(e) NVEGLF"),
+                eam_rows("nveglf", c, sim_eam_check(sim, "(e) NVEGLF"),
                          col=False)
             del sim
     a, b = energies["NVEGLF"], energies["NGLF FREE"]
@@ -4384,6 +4387,27 @@ def sim_pair_check(sim, what, saved=None):
                    f"{hg.ncells}, G={G})", kernel,
                    ch.cellpair_half_col_plain if G > 1
                    else ch.cellpair_half_plain, args, kw, with_bound=True)
+
+
+def sim_eam_check(sim, what):
+    """#5 (#4 at G = 1) against its plain version on sim's last records,
+    with its bound: eam_compare's {"rho": ..., "force": ...}."""
+    from ddcmd_tpu_torch.ops import eam_half as eh
+
+    plains = {eh.eam_rho_half_col: eh.eam_rho_half_col_plain,
+              eh.eam_force_half_col: eh.eam_force_half_col_plain,
+              eh.eam_rho_half: eh.eam_rho_half_plain,
+              eh.eam_force_half: eh.eam_force_half_plain}
+    ss, perm, ov = sim._build_nbr(sim.ss)
+    assert not bool(ov), "overflow packing the comparison case"
+    term = sim.force_fn.terms[0]
+    rho_k, force_k, slots, args, kw = term.kernel_inputs(
+        ss.state, ss.box, perm)
+    return eam_compare(
+        f"EAM kernels on {what}'s last records (cells "
+        f"{term.grid.ncells}, G={term.G})", (rho_k, force_k),
+        (plains[rho_k], plains[force_k]), slots, args, kw, term.tables,
+        with_bound=True)
 
 
 def sim_rate_busy(sim):
@@ -5044,6 +5068,435 @@ def transforms_phase(card, dev, counters_zero, all_counters, failed,
     return rows_out
 
 
+
+# --- phase 23 (item 24b): analyses -----------------------------------------
+def analyses_edit(objects, print_stress=False):
+    """A deck edit that lists the ANALYSIS objects `objects` ({name:
+    keyword text}) in SIMULATE analysis= and appends them; print_stress
+    adds a PRINTINFO with printStress=1."""
+    def edit(text):
+        names = " ".join(objects)
+        keys = f"analysis={names};" + (" printinfo=pinfo;" if print_stress
+                                       else "")
+        text = text.replace("type=MD;", f"type=MD; {keys}", 1)
+        text += "".join(f"{name} ANALYSIS {{ {kw} }}\n"
+                        for name, kw in objects.items())
+        if print_stress:
+            text += "pinfo PRINTINFO { printStress=1; }\n"
+        return text
+    return edit
+
+
+def edit_deck(path, edit):
+    """Apply `edit` (text -> text) to the deck file at path."""
+    with open(path) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(edit(text))
+    return path
+
+
+# (a): the water box's run through the CLI, its continuation under
+# ddcMD_CMDS; (b): the crystal's steps; the analyses' rates
+ANALYSIS_STEPS, ANALYSIS_MORE, EAM_ANALYSIS_STEPS = 1000, 300, 300
+AN_RATES = "eval_rate=100; outputrate=500;"
+WATER_ANALYSES = {
+    "gr": f"type=PAIRCORRELATION; delta_r=0.02 nm; length=75; {AN_RATES}",
+    "vcm": "type=VCMWRITE; eval_rate=30; outputrate=500;",
+    "ke": f"type=KINETICENERGYDISTN; nBins=50; max=20 kJ/mol; {AN_RATES}",
+    "zd": f"type=ZDENSITY; nBins=50; {AN_RATES}",
+    "ssf": f"type=SSF; nShells=16; kmax=4 1/nm; {AN_RATES}",
+    "vaf": f"type=VELOCITYAUTOCORRELATION; {AN_RATES}",
+    "fa": f"type=FORCEAVERAGE; {AN_RATES}",
+    "ds": f"type=DATASUBSET; {AN_RATES}",
+    "cg": f"type=COARSEGRAIN; nx=8; ny=8; nz=8; {AN_RATES}",
+    "dsf": f"type=DSF; m=1 2 3; weight=number; {AN_RATES}",
+    "sub": f"type=SUBSETWRITE; {AN_RATES}",
+    "pa": "type=PAIRANALYSIS; rmax=0.5 nm; eval_rate=500; outputrate=500;",
+}
+EAM_ANALYSES = {
+    "cs": "type=CENTROSYM; eval_rate=100; outputrate=300;",
+    "aj": "type=ACKLAND_JONES; eval_rate=100; outputrate=300;",
+    "qu": "type=QUATERNION; NNs=12; eval_rate=100; outputrate=300;",
+}
+# (c): integer histograms and counts card vs CPU (of their total), and
+# floats (of their column's largest magnitude)
+AN_COUNT_TOL, AN_FLOAT_TOL = 1e-6, 1e-5
+
+
+@contextlib.contextmanager
+def analysis_clock():
+    """Time every analysis class's eval and output: yields a namespace
+    whose `secs` maps (class name, "eval" | "output") to [host wall
+    seconds, calls], `outputs` lists each output's (analysis name,
+    loop) and `zd_frames` each ZDENSITY frame's count."""
+    from ddcmd_tpu_torch.analysis import registry as areg
+
+    log = SimpleNamespace(secs={}, outputs=[], zd_frames=[])
+    saved = []
+    for cls in set(areg.REGISTRY.values()):
+        for meth in ("eval", "output"):
+            fn = cls.__dict__[meth]
+            saved.append((cls, meth, fn))
+
+            def timed(self, sim, *a, fn=fn, meth=meth, cls=cls):
+                zd = meth == "eval" and cls is areg.ZDensity
+                before = (self.state["hist"].sum() if zd
+                          and self.state["hist"] is not None else 0.0)
+                t0 = time.perf_counter()
+                try:
+                    return fn(self, sim, *a)
+                finally:
+                    tot = log.secs.setdefault((cls.__name__, meth),
+                                              [0.0, 0])
+                    tot[0] += time.perf_counter() - t0
+                    tot[1] += 1
+                    if meth == "output":
+                        log.outputs.append((self.name, sim.ss.loop))
+                    elif zd:
+                        log.zd_frames.append(
+                            float(self.state["hist"].sum() - before))
+
+            setattr(cls, meth, timed)
+    try:
+        yield log
+    finally:
+        for cls, meth, fn in saved:
+            setattr(cls, meth, fn)
+
+
+def ms_an_call(log, meth=None):
+    """"class [method] ms" for each timed class (of `meth` only when
+    given) of an analysis_clock log."""
+    return ", ".join(
+        f"{cls}{'' if meth else ' ' + m} {1e3 * s / n:.2f}"
+        for (cls, m), (s, n) in sorted(log.secs.items())
+        if meth in (None, m))
+
+
+def analysis_rows(path):
+    with open(path) as f:
+        return np.array([ln.split() for ln in f if not ln.startswith("#")],
+                        dtype=np.float64)
+
+
+def analysis_files(root):
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(dirpath, f)) as fh:
+                out[os.path.relpath(os.path.join(dirpath, f), root)] = \
+                    fh.read()
+    return out
+
+
+def masters_agree(card, cpu, dir_card, dir_cpu):
+    """The analysis master's results on the card against the CPU's on one
+    state: the integer histograms and counts (g(r), the KE and z
+    histograms, the Ackland-Jones classes, the pair count) within
+    AN_COUNT_TOL of their total; QUATERNION's file byte-equal (it reads
+    the positions only); every number of the other files within
+    AN_FLOAT_TOL of the largest magnitude of its column.  Returns
+    (worst count share, worst float share, what differs and by how
+    much)."""
+    from ddcmd_tpu_torch.analysis import registry as areg
+
+    worst_n, worst_f, skip, lines = 0.0, 0.0, set(), []
+    for a, b in zip(card.analyses, cpu.analyses):
+        if isinstance(a, (areg.PairCorrelation, areg.KineticEnergyDistn,
+                          areg.ZDensity)):
+            x, y = a.state["hist"], b.state["hist"]
+            skip.add(a.filename)
+        elif isinstance(a, areg.AcklandJones):
+            x, y = (np.bincount(s.state["kinds"], minlength=5)
+                    for s in (a, b))
+            skip.add(a.filename)
+        elif isinstance(a, areg.PairAnalysis):
+            x, y = np.array([a.state["cnt"]]), np.array([b.state["cnt"]])
+        else:
+            continue
+        moved, total = float(np.abs(x - y).sum()), float(np.abs(y).sum())
+        share = moved / max(total, 1.0)
+        worst_n = max(worst_n, share)
+        if share:
+            lines.append(f"{a.name} {share:.3g} ({moved:g} of {total:g})")
+    fa, fb = analysis_files(dir_card), analysis_files(dir_cpu)
+    assert sorted(fa) == sorted(fb), (sorted(fa), sorted(fb))
+    for name, text in fa.items():
+        if os.path.basename(name) in skip or text == fb[name]:
+            continue
+        if "quaternion" in name:
+            return worst_n, float("inf"), lines + [name]
+        scale, pairs = {}, []
+        for x, y in zip(text.splitlines(), fb[name].splitlines()):
+            tx, ty = x.split(), y.split()
+            assert len(tx) == len(ty), (name, x, y)
+            for k, (p, q) in enumerate(zip(tx, ty)):
+                try:
+                    fp, fq = float(p), float(q)
+                except ValueError:
+                    assert p == q, (name, p, q)
+                    continue
+                scale[k] = max(scale.get(k, 0.0), abs(fq))
+                pairs.append((k, fp, fq))
+        err = max((abs(fp - fq) / max(scale[k], 1e-30)
+                   for k, fp, fq in pairs), default=0.0)
+        worst_f = max(worst_f, err)
+        if err:
+            lines.append(f"{name} {err:.3g}")
+    return worst_n, worst_f, lines
+
+
+def quaternion_records(path):
+    """QUATERNION's FIXRECORDASCII file: (records, records whose CRC32
+    fails, records with a valid colour)."""
+    import zlib
+
+    with open(path, "rb") as f:
+        blob = f.read()
+    body = blob[blob.index(b"}\n\n") + 3:]
+    recs = [body[i:i + 112] for i in range(0, len(body), 112)]
+    bad = sum(int(r[:8], 16) != zlib.crc32(r[8:]) & 0xFFFFFFFF
+              for r in recs)
+    coloured = sum(float(r.split()[6]) >= 0 for r in recs)
+    return len(recs), bad, coloured
+
+
+def analyses_phase(card, dev, counters_zero, all_counters, failed,
+                   n_water=6173, nc=EAM_NC):
+    """Phase 23 (ROADMAP item 24b): (a) the water box (n_water beads, #1)
+    with every WATER_ANALYSES object and printStress, ANALYSIS_STEPS
+    steps through the CLI beside the same deck without analyses, then
+    ANALYSIS_MORE more under ddcMD_CMDS (`analysis` and VCMWRITE's
+    eval_rate 60); (b) the nc crystal (#4, the _knn cell-list route):
+    the analysis master on the perfect start lattice, then
+    EAM_ANALYSIS_STEPS NVT steps through the CLI with EAM_ANALYSES; (c)
+    the analysis master on (a)'s and (b)'s checkpoints on the card and
+    the CPU.  Gates go into `failed`.  Returns {kernels JSON row: (entry,
+    launches, comparison)}: #1 on (a)'s last records, #4's two passes on
+    (b)'s."""
+    from ddcmd_tpu_torch.analysis.registry import AcklandJones
+    from ddcmd_tpu_torch.io.restart import write_checkpoint
+    from ddcmd_tpu_torch.objects import units as U
+
+    t_phase = time.perf_counter()
+    quiet = lambda line: None                                  # noqa: E731
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(f"phase 23 {what}")
+
+    def rate(sim):
+        return sum(k for k, _ in sim.dispatch_log) / sum(
+            s for _, s in sim.dispatch_log)
+
+    keep = tempfile.mkdtemp()
+    try:
+        # --- (a) the water box on #1 --------------------------------------
+        d0 = os.path.join(keep, "a0")
+        os.makedirs(d0)
+        deck0 = water_deck(d0, n_water, printrate=100)
+        counters_zero()
+        s0 = cli_run(["simulate", "-o", deck0, "-n", str(ANALYSIS_STEPS),
+                      "--run-dir", d0])
+        rate0 = rate(s0)
+        del s0
+        d = os.path.join(keep, "a")
+        os.makedirs(d)
+        deck_a = edit_deck(water_deck(d, n_water, printrate=100),
+                           analyses_edit(WATER_ANALYSES, print_stress=True))
+        counters_zero()
+        with analysis_clock() as log:
+            sim = cli_run(["simulate", "-o", deck_a, "-n",
+                           str(ANALYSIS_STEPS), "--run-dir", d])
+        c = all_counters()
+        rate_a = rate(sim)
+        prows = read_rows(d)
+        n = sim.sysdef.state.n_local
+        names = [a.name for a in sim.analyses]
+        gate(sim.ss.loop == ANALYSIS_STEPS and np.isfinite(prows).all()
+             and names == [*WATER_ANALYSES, "printStress"],
+             f"(a) loop {sim.ss.loop}, analyses {names}")
+        gate(c["cellpair_half"] >= ANALYSIS_STEPS and not any(
+            v for k, v in c.items() if k != "cellpair_half"),
+            f"(a) launches {c}")
+        vcm = analysis_rows(os.path.join(d, "vcm.data"))
+        gate(vcm[:, 0].tolist() == list(range(30, ANALYSIS_STEPS + 1, 30)),
+             f"(a) VCMWRITE rows at {vcm[:, 0].tolist()}")
+        gr = analysis_rows(os.path.join(d, "paircorrelation.dat"))
+        r_nm, g = gr[:, 0] / 10.0, gr[:, 1]
+        peak = float(r_nm[np.argmax(g)])
+        tail = float(g[(r_nm > 1.2) & (r_nm < 1.5)].mean())
+        gate(not g[r_nm < 0.3].any() and 0.45 <= peak <= 0.65
+             and abs(tail - 1.0) <= 0.05,
+             f"(a) g(r): peak at {peak} nm, mean {tail} over 1.2-1.5 nm")
+        zd = log.zd_frames
+        gate(len(zd) == ANALYSIS_STEPS // 100 and min(zd) >= 0.99 * n,
+             f"(a) ZDENSITY frames {zd}")
+        # C(0) = <v.v> at the VAF's first eval: 3 kT/m at that step's
+        # printed T (one mass), and beside the thermostat's WATER_T
+        mass = float(sim.sysdef.state.mass[0])
+        vaf = analysis_rows(os.path.join(d, "vaf.dat"))
+        c0 = float(vaf[0, 1])
+        t0_vaf = float(prows[prows[:, 0] == vaf[0, 0], 5][0])
+        c0_ref = 3.0 * U.kB * t0_vaf / mass
+        c0_bath = 3.0 * U.kB * WATER_T / mass
+        gate(abs(c0 / c0_ref - 1.0) <= 0.05, f"(a) VAF C(0) {c0} vs {c0_ref}")
+        st = analysis_rows(os.path.join(d, "stress.data"))
+        press = dict(zip(prows[:, 0].astype(int), prows[:, 6]))
+        gpa = U.convert(1.0, "GPa", "bar")
+        p_err = max(abs(-row[1:4].sum() / 3.0 / (press[int(row[0])] * gpa)
+                        - 1.0) for row in st)
+        gate(st[:, 0].tolist() == list(range(100, ANALYSIS_STEPS + 1, 100))
+             and p_err <= 1e-4,
+             f"(a) STRESSWRITE loops {st[:, 0].tolist()}, rel {p_err}")
+        host = sum(s for s, _ in log.secs.values())
+        phase("analyses", f"(a) water box {n} beads, {len(names)} analyses "
+              f"(VCMWRITE every 30 steps, the rest every 100, output every "
+              f"500), {ANALYSIS_STEPS} steps through the CLI: "
+              f"{c['cellpair_half']} #1 launches, {len(sim.dispatch_log)} "
+              f"dispatches, {rate_a:.2f} steps/s vs {rate0:.2f} without "
+              f"analyses ({rate_a / rate0:.3f}x), analyses' host time "
+              f"{host:.2f} s; ms an eval: {ms_an_call(log, 'eval')}; "
+              f"VCMWRITE rows 30..990 by 30; g(r) "
+              f"peak {peak:.2f} nm, {tail:.4f} over 1.2-1.5 nm; ZDENSITY "
+              f"frames {min(zd):.0f}-{max(zd):.0f} of {n}; VAF C(0) "
+              f"{c0:.5g} vs 3 kT/m {c0_ref:.5g} at loop {vaf[0, 0]:.0f}'s "
+              f"T {t0_vaf:.2f} K ({c0_bath:.5g} at {WATER_T} K); "
+              f"-tr(stress)/3 vs "
+              f"printinfo's pressure max rel {p_err:.3g} on {card}")
+
+        # --- (a) continued under ddcMD_CMDS -------------------------------
+        # `analysis` read after the first dispatch, then (a command file
+        # holds commands or object text) VCMWRITE's eval_rate to 60; the
+        # rescan's loop read by a spy
+        cmds = os.path.join(d, "ddcMD_CMDS")
+        rescans = []
+        rescan = sim._rescan_objects
+        sim._rescan_objects = lambda: (rescans.append(sim.ss.loop),
+                                       rescan())
+        half = ANALYSIS_MORE // 2
+        outs = []
+        for text in ("analysis\n", "vcm ANALYSIS { type=VCMWRITE; "
+                     "eval_rate=60; outputrate=500; }\n"):
+            with open(cmds, "w") as f:
+                f.write(text)
+            with analysis_clock() as log, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                sim.run(half, print_fn=quiet)
+            outs += log.outputs
+        cmd = [loop for nm, loop in outs if nm == "gr" and loop % 500]
+        at = cmd[0] if cmd else None
+        written = {nm for nm, loop in outs if loop == at}
+        end = ANALYSIS_STEPS + ANALYSIS_MORE
+        moved = rescans[0] if rescans else end
+        later = [int(x) for x in
+                 analysis_rows(os.path.join(d, "vcm.data"))[:, 0]
+                 if x > moved]
+        gate(written == set(names) and len(rescans) == 1
+             and sim.analyses[names.index("vcm")].eval_rate == 60
+             and later == list(range(moved - moved % 60 + 60, end + 1, 60))
+             and len(later) >= 2,
+             f"(a) command at {cmd}, wrote {sorted(written)}; rescan at "
+             f"{rescans}, VCMWRITE rows after it {later}")
+        row_a = sim_pair_check(sim, "(a)")
+        write_checkpoint(sim, d)
+        phase("analyses", f"(a) {ANALYSIS_MORE} more steps, two command "
+              f"files: `analysis` at loop {at} wrote {len(written)} of "
+              f"{len(names)} analyses; VCMWRITE eval_rate=60 rescanned at "
+              f"loop {moved}, its rows after it at {later}")
+        rows_out = {"cellpair_half_analysis": ("cellpair_half",
+                                               c["cellpair_half"], row_a)}
+        del sim
+
+        # --- (b) the nc crystal on #4, _knn's cell-list route --------------
+        db = os.path.join(keep, "b")
+        os.makedirs(db)
+        deck_b = eam_deck(db, nc, 100, jitter=0.0,
+                          edit=analyses_edit(EAM_ANALYSES))
+        rb0 = os.path.join(keep, "b0")
+        t0 = time.perf_counter()
+        with analysis_clock() as log:
+            m = cli_run(["analysis", "-o", deck_b, "--run-dir", rb0])
+        m_secs = time.perf_counter() - t0
+        na = m.sysdef.state.n_local
+        cs = m.analyses[0].state["cs"] * U.LENGTH_TO_ANG ** 2
+        kinds = np.bincount(m.analyses[1].state["kinds"], minlength=5)
+        recs, bad, coloured = quaternion_records(os.path.join(
+            rb0, "snapshot.000000000000", "quaternion#000000"))
+        gate(na > 4096 and cs.max() < 1e-6 and kinds[1] == na
+             and recs == na and bad == 0,
+             f"(b) master: cs max {cs.max()}, classes {kinds.tolist()}, "
+             f"{recs} quaternion records, {bad} bad CRC32s")
+        phase("analyses", f"(b) analysis master on the perfect nc={nc} "
+              f"lattice ({na} atoms, _knn's cell-list route on the card): "
+              f"CENTROSYM max {cs.max():.3g} A^2, Ackland-Jones "
+              f"{dict(zip(AcklandJones.LABELS, kinds.tolist()))}, "
+              f"QUATERNION "
+              f"{recs} records, {bad} bad CRC32s, {coloured} coloured; "
+              f"{m_secs:.2f} s (ms: {ms_an_call(log)})")
+        del m
+        counters_zero()
+        with analysis_clock() as log:
+            sim_b = cli_run(["simulate", "-o", deck_b, "-n",
+                             str(EAM_ANALYSIS_STEPS), "--run-dir", db])
+        cb = all_counters()
+        with open(os.path.join(db, "acklandJones.dat")) as f:
+            last = f.read().splitlines()[-1]
+        fcc = int(last.split("FCC=")[1].split()[0])
+        brows = read_rows(db)
+        gate(sim_b.ss.loop == EAM_ANALYSIS_STEPS and np.isfinite(brows).all()
+             and fcc >= 0.95 * na,
+             f"(b) run: loop {sim_b.ss.loop}, {last}")
+        eam = ("eam_rho", "eam_force")
+        gate(all(cb[k] >= EAM_ANALYSIS_STEPS for k in eam) and not any(
+            v for k, v in cb.items() if k not in eam), f"(b) launches {cb}")
+        out_b = sim_eam_check(sim_b, "(b)")
+        for p in ("rho", "force"):
+            rows_out[f"eam_{p}_analysis"] = (f"eam_{p}", cb[f"eam_{p}"],
+                                             out_b[p])
+        write_checkpoint(sim_b, db)
+        phase("analyses", f"(b) {EAM_ANALYSIS_STEPS} NVT steps from the "
+              f"perfect lattice through the CLI with CENTROSYM, "
+              f"ACKLAND_JONES and QUATERNION every 100: {last}; T "
+              f"{brows[-1, 5]:.2f} K; #4 {cb['eam_rho']} / "
+              f"{cb['eam_force']} launches; {rate(sim_b):.2f} steps/s; "
+              f"ms an eval: {ms_an_call(log, 'eval')}")
+        del sim_b
+
+        # --- (c) the master on one state, card vs CPU ------------------------
+        for what, deck, rd in (("water box", deck_a, d),
+                               (f"nc={nc} crystal", deck_b, db)):
+            got, dirs, secs = {}, {}, {}
+            for where in ("cuda", "cpu"):
+                dirs[where] = os.path.join(rd, f"master-{where}")
+                t0 = time.perf_counter()
+                got[where] = cli_run(
+                    ["analysis", "-o", deck, "-r", os.path.join(rd, "restart"),
+                     "--run-dir", dirs[where]], where)
+                secs[where] = time.perf_counter() - t0
+            wn, wf, diff = masters_agree(got["cuda"], got["cpu"],
+                                         dirs["cuda"], dirs["cpu"])
+            n_rows = got["cpu"].sysdef.state.n_local
+            dr = float((got["cuda"].ss.state.r[:n_rows].cpu()
+                        - got["cpu"].ss.state.r[:n_rows]).abs().max())
+            gate(wn <= AN_COUNT_TOL and wf <= AN_FLOAT_TOL,
+                 f"(c) {what}: counts {wn}, floats {wf}")
+            phase("agree", f"(c) analysis master on the {what}'s checkpoint "
+                  f"(loop {got['cpu'].ss.loop}), card vs CPU: "
+                  f"{len(got['cpu'].analyses)} analyses, positions after "
+                  f"the first energy max |dr| {dr:.3g} nm; counts differ "
+                  f"by {wn:.3g} of their total, floats by {wf:.3g} of "
+                  f"their column's scale ({'; '.join(diff) or 'equal'}); "
+                  f"{secs['cuda']:.2f} s on the card, {secs['cpu']:.2f} s "
+                  f"on the CPU")
+            del got
+        phase("analyses", f"phase 23 {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    return rows_out
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -5119,6 +5572,11 @@ def main(argv=None):
         failed = []
         transforms_phase(card, dev, counters_zero, all_counters, failed)
         assert not failed, f"phase 22 gates missed: {failed}"
+        return
+    if "--analyses-only" in argv:
+        failed = []
+        analyses_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 23 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -5292,6 +5750,11 @@ def main(argv=None):
                                       transforms_failed)
     assert not transforms_failed, \
         f"phase 22 gates missed: {transforms_failed}"
+    # --- phase 23: item 24b's analyses on #1 and #4 ---------------------------
+    analyses_failed = []
+    analysis_rows_out = analyses_phase(card, dev, counters_zero,
+                                       all_counters, analyses_failed)
+    assert not analyses_failed, f"phase 23 gates missed: {analyses_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -5331,9 +5794,11 @@ def main(argv=None):
     # #4, the NVEGLF check on #4
     # phase 21's paths: (a) the command file on #2, (b)-(c) the rollback,
     # NEXTFILE and NGLFTEST on #1, (d) the eightFold deck's kernel; phase
-    # 22's run: #1 before the replica, #2 after it
+    # 22's run: #1 before the replica, #2 after it; phase 23's: #1 on the
+    # water box with its analyses, #4 on the crystal with its classifiers
     for row, (name, n, out) in (*int_rows.items(), *masters_rows.items(),
-                                *transform_rows.items()):
+                                *transform_rows.items(),
+                                *analysis_rows_out.items()):
         kernels[row] = kernels[name]
         launches[row] = n
         res[row] = out

@@ -4,11 +4,10 @@
 
 Counterpart of ddcmd_tpu/run/cli.py (reference CLI, ddcMD
 src/commandLineOptions.c:69-120).  Masters: simulate (the default),
-transform, thermalize, readWrite, eightFold, testForce, testPressure
-(always in float64), integrationTest (float64) and unitTest (the port's
-pytest suite); analysis raises NotImplementedError (ROADMAP queue 1,
-item 24b).  The run goes to the CUDA card; without one it raises
-unless --device cpu asks for the CPU.  --f64 runs in float64, on the
+analysis, transform, thermalize, readWrite, eightFold, testForce,
+testPressure (always in float64), integrationTest (float64) and unitTest
+(the port's pytest suite).  The run goes to the CUDA card; without one
+it raises unless --device cpu asks for the CPU.  --f64 runs in float64, on the
 plain cell-block engine (the kernels are f32).
 """
 
@@ -68,9 +67,6 @@ def run(argv=None):
 
     if args.master == "unitTest":
         return masters.unit_test_master()
-    if args.master == "analysis":
-        # item 24b's registry: this raises naming it
-        return masters.analysis_master()
 
     decks = args.object or ["object.data"]
     base_dir = os.path.dirname(os.path.abspath(decks[0]))
@@ -99,7 +95,8 @@ def run(argv=None):
         return masters.integration_test_master(db, base_dir,
                                                run_dir=args.run_dir,
                                                device=args.device)
-    fn = {"transform": masters.transform_master,
+    fn = {"analysis": masters.analysis_master,
+          "transform": masters.transform_master,
           "thermalize": masters.thermalize_master,
           "readWrite": masters.read_write_master,
           "eightFold": masters.eightfold_master}[args.master]

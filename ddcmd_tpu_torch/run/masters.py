@@ -1,11 +1,10 @@
 """Top-level masters beyond simulate (reference masterFactory, ddcMD
 src/masterFactory.c:23-122, masters.c).
 
-Counterpart of ddcmd_tpu/run/masters.py: transform, thermalize,
-readWrite, eightFold, integrationTest and unitTest.  Each builds a
-Simulation on `device` (the CUDA card by default; raises without one) in
-`dtype`.  The analysis master needs the registry of ROADMAP item 24b and
-raises naming it.
+Counterpart of ddcmd_tpu/run/masters.py: analysis, transform,
+thermalize, readWrite, eightFold, integrationTest and unitTest.  Each
+builds a Simulation on `device` (the CUDA card by default; raises without
+one) in `dtype`.
 """
 
 from __future__ import annotations
@@ -19,12 +18,28 @@ from ..objects import DeckError, ObjectDB
 from .simulate import Simulation
 
 
-def analysis_master(*args, **kwargs):
-    """analysisMaster (masters.c:85-99): the analysis registry is item
-    24b's."""
-    raise NotImplementedError(
-        "the analysis master needs the analyses, not ported yet (ROADMAP "
-        "queue 1, item 24b)")
+def analysis_master(db: ObjectDB, base_dir=".", run_dir=".", *,
+                    device=None, dtype=torch.float32):
+    """analysisMaster (masters.c:85-99): one first energy, then each
+    analysis's eval and output once: the SIMULATE analysis= list (and
+    printStress's STRESSWRITE), or, when that is empty, every ANALYSIS
+    object of the deck (one whose build raises DeckError is skipped, as
+    in the JAX package's masters.py:15-33)."""
+    from ..analysis.registry import build_analysis
+
+    sim = Simulation(db, base_dir, run_dir=run_dir, device=device,
+                     dtype=dtype)
+    sim.first_energy()
+    if not sim.analyses:
+        for obj in db.by_class("ANALYSIS"):
+            try:
+                sim.analyses.append(build_analysis(obj.name, obj))
+            except DeckError:
+                pass
+    for a in sim.analyses:
+        a.eval(sim)
+        a.output(sim, run_dir)
+    return sim
 
 
 def transform_master(db: ObjectDB, base_dir=".", run_dir=".", *,

@@ -57,8 +57,10 @@ NGLFNK, the NVEGLF variants, box(t), EXTFORCE, the hook groups,
 GLOBAL_ENERGY, Teq or vz schedules) raise naming item 25
 (_refuse_dynamics), as do the NEXTFILE and NGLFTEST masters, printGraphs
 and the per-group energy files (which the JAX mesh does not write;
-Simulation writes them).  The checkpoint writer, rebalance, the gathered
-view and the sharded analyses are not ported yet.
+Simulation writes them), and SIMULATE analysis= and PRINTINFO
+printStress (Simulation runs them; the sharded analyses,
+ddcmd_tpu/run/parallel_sim.py:1117-1148, are item 25's).  The checkpoint
+writer, rebalance and the gathered view are not ported yet.
 """
 
 from __future__ import annotations
@@ -139,7 +141,7 @@ class ParallelSimulation:
         sd = build_system(db, base_dir, dtype=torch.float32, device="cpu")
         self.sysdef = sd
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
-        refuse_unported_outputs(db, sd, self.printinfo, mesh=True)
+        refuse_unported_outputs(db, sd, self.printinfo)
         if sd.integrator_type in _MASTER_TYPES:
             # Simulation runs them; the JAX mesh has no such path
             raise NotImplementedError(

@@ -65,17 +65,21 @@ then checks them:
 
 After an accepted dispatch the host writes the printinfo rows, the
 `graphs` line (PRINTINFO printGraphs=1) and, with more than one group,
-each group's `group_<name>.data` row at printrate; applies each SIMULATE
-transform= object whose rate divides the loop (apply_transform: the
-registry's host surgery, then a re-upload or, when the particle count
-or the species changed, a rebuild of the state, the engine, the plan
-and the step); then checkpoints and snapshots at their rates, and reads
-`ddcMD_CMDS` in the run directory (checkpoint, exit, kill, stop,
-profile, analysis, hpm, and object text that is compiled and rescanned;
-readCmds.c:20-97; a rescan that fails is undone with a warning and a
-profile that fails prints "profile: FAILED").  Dispatches end on the
-checkpoint, snapshot and transform rates.  Host spans are
-timed into utils/profile.PROFILE ("loop", "printinfo", md_steps), and
+each group's `group_<name>.data` row at printrate; evaluates, then
+writes, each SIMULATE analysis= object (and printStress's STRESSWRITE)
+whose eval_rate, then outputrate, divides the loop (analysis/registry.py);
+applies each SIMULATE transform= object whose rate divides the loop
+(apply_transform: the registry's host surgery, then a re-upload or, when
+the particle count or the species changed, a rebuild of the state, the
+engine, the plan and the step), so an analysis at a transform's loop
+sees the state before it; then checkpoints and snapshots at their rates,
+and reads `ddcMD_CMDS` in the run directory (checkpoint, exit, kill,
+stop, profile, analysis, hpm, and object text that is compiled and
+rescanned; readCmds.c:20-97; a rescan that fails is undone with a
+warning and a profile that fails prints "profile: FAILED").  Dispatches
+end on the checkpoint, snapshot, transform and analysis rates.  Host
+spans are timed into utils/profile.PROFILE ("loop", "printinfo",
+"analysis", md_steps), and
 `profile_phases` times the rebuild, the force, the group kick and the
 fused step as calls of their own.  The NEXTFILE integrator replays
 snapshot files and NGLFTEST / NGLFERROR measures the integrator's
@@ -147,36 +151,34 @@ def uses_constraints(sd) -> bool:
     return uses and sd.bonded is not None and sd.bonded.n_constraints > 0
 
 
-def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo,
-                            mesh: bool = False):
+def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo):
     """Raise NotImplementedError for the outputs a deck asks for that
-    Simulation (or, with mesh=True, ParallelSimulation) does not write
-    yet, instead of running to the end without them: the SIMULATE
-    analysis= list and PRINTINFO printStress (which attaches STRESSWRITE)
-    wait for ROADMAP item 24b; under the mesh (mesh=True) also the
-    SIMULATE transform= list (the JAX mesh applies no transform),
-    printGraphs and the per-group energy files (written at printrate
-    when the SYSTEM has more than one group), which the JAX mesh does not
-    write either (parallel_sim.py:452-472), for item 25.  Both call this
-    when they are built (ddcmd_tpu/run/simulate.py:189-221,1105-1118)."""
+    ParallelSimulation does not write yet, instead of running to the end
+    without them: the SIMULATE analysis= list and PRINTINFO
+    printStress (which attaches STRESSWRITE; the sharded analyses,
+    ddcmd_tpu/run/parallel_sim.py:1117-1148), the SIMULATE transform=
+    list (the JAX mesh applies no transform), printGraphs and the
+    per-group energy files (written at printrate when the SYSTEM has more
+    than one group), which the JAX mesh does not write either
+    (parallel_sim.py:452-472): all ROADMAP item 25.  Simulation writes
+    every one of them (ddcmd_tpu/run/simulate.py:189-221,1105-1118)."""
     simobj = db.by_class("SIMULATE")[0]
     names = [n for n in simobj.get_strv("analysis") if db.find(n, "ANALYSIS")]
     if names:
         raise NotImplementedError(
-            f"SIMULATE analysis={' '.join(names)}: analyses are not ported "
-            "yet (ROADMAP queue 1, item 24b)")
+            f"SIMULATE analysis={' '.join(names)}: the mesh runs no analysis "
+            "yet (the sharded analyses, ROADMAP queue 1, item 25)")
     names = [n for n in simobj.get_strv("transform")
              if db.find(n, "TRANSFORM")]
-    if mesh and names:
+    if names:
         raise NotImplementedError(
             f"SIMULATE transform={' '.join(names)}: the mesh applies no "
             "transform yet, as the JAX mesh (ROADMAP queue 1, item 25)")
     if printinfo.print_stress:
         raise NotImplementedError(
-            "PRINTINFO printStress attaches the STRESSWRITE analysis, not "
-            "ported yet (ROADMAP queue 1, item 24b)")
-    if not mesh:
-        return
+            "PRINTINFO printStress attaches the STRESSWRITE analysis, which "
+            "the mesh does not run yet (the sharded analyses, ROADMAP queue "
+            "1, item 25)")
     if printinfo.print_graphs:
         raise NotImplementedError(
             "PRINTINFO printGraphs: the mesh does not write the graph files "
@@ -285,10 +287,12 @@ class Simulation:
         self.sysdef = sd = build_system(db, base_dir, dtype=dtype,
                                         device=self.device)
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
-        refuse_unported_outputs(db, sd, self.printinfo)
-        # the rate-driven analyses (ROADMAP item 24b; a deck that names one
-        # raises above): the `analysis` command evaluates this list
-        self.analyses: list = []
+        # the SIMULATE analysis= list, each evaluated and written at its
+        # rates (masters.c:295-302), and PRINTINFO printStress's STRESSWRITE
+        # at printrate (printinfo.c:241-260); an analysis whose setup
+        # fails is skipped with a warning, as in the JAX package
+        # (simulate.py:189-215).  They outlive a count change (_derive)
+        self.analyses = self._build_analyses()
         # the SIMULATE transform= list, (name, object, rate): each applied
         # at the dispatch ends its rate divides (transform.c:153;
         # simulate.py:216-220 of the JAX package)
@@ -347,6 +351,30 @@ class Simulation:
                                  dtype=dtype, device=self.device))
 
     # ------------------------------------------------------------------
+
+    def _build_analyses(self) -> list:
+        from ..analysis.registry import StressWrite, build_analysis
+        from ..objects import DeckObject
+
+        db, sd = self.db, self.sysdef
+        out = []
+        for name in db.by_class("SIMULATE")[0].get_strv("analysis"):
+            obj = db.find(name, "ANALYSIS")
+            if obj is None:
+                continue
+            try:
+                out.append(build_analysis(name, obj))
+            except Exception as err:
+                warnings.warn(f"analysis {name}: {err}", stacklevel=3)
+        if self.printinfo.print_stress:
+            rate = sd.cfg.printrate or 1
+            sw = StressWrite(name="printStress",
+                             obj=DeckObject("printStress", "ANALYSIS",
+                                            {"type": ["STRESSWRITE"]}),
+                             eval_rate=rate, output_rate=rate)
+            sw.setup()
+            out.append(sw)
+        return out
 
     def _derive(self, box, time: float):
         """What the run derives from its particles and box: the engine
@@ -741,11 +769,16 @@ class Simulation:
         """Run the MD loop; returns the final StepState.  With
         on_checkpoint (called with the Simulation) set, checkpoints are
         written at the deck's checkpointrate and snapshots (atoms + bxyz)
-        at its snapshotrate, as the JAX package's run loop does.  The run
-        stops early when `ddcMD_CMDS` says exit, kill or stop, or after
-        the first dispatch that ends past max_seconds of wall time.  The
-        NEXTFILE and NGLFTEST / NGLFERROR integrators run their masters
-        instead (n_loops does not apply)."""
+        at its snapshotrate, as the JAX package's run loop does.  The
+        analyses evaluate at the dispatch ends their eval_rate divides
+        and write at those their outputrate divides; every dispatch ends
+        on each of these rates' next multiple (the JAX package's cap can
+        step over one).  The run stops early when `ddcMD_CMDS` says exit,
+        kill or stop, or after the first dispatch that ends past
+        max_seconds of wall time; either way every analysis writes its
+        output once more at the end (simulate.py:1130-1131 of the JAX
+        package).  The NEXTFILE and NGLFTEST / NGLFERROR integrators run
+        their masters instead (n_loops does not apply)."""
         sd = self.sysdef
         cfg = sd.cfg
         if sd.integrator_type == "NEXTFILE":
@@ -769,14 +802,13 @@ class Simulation:
             for rate in (cfg.checkpointrate, cfg.snapshotrate):
                 if on_checkpoint and rate:
                     k = min(k, rate - self.ss.loop % rate)
-            for _, _, rate in self.transforms:
-                # a dispatch ends on each transform's next multiple (the
-                # JAX package only caps the dispatch at the rate,
-                # simulate.py:887-889, so a dispatch of whole rebuild
-                # blocks can step over a multiple: loop 30 at rate 30 on
-                # a 20-step cadence)
-                if rate:
-                    k = min(k, rate - self.ss.loop % rate)
+            for rate in self._host_rates():
+                # a dispatch ends on each transform's and each analysis's
+                # next multiple (the JAX package only caps the dispatch at
+                # the rate, simulate.py:884-889, so a dispatch of whole
+                # rebuild blocks can step over a multiple: loop 30 at rate
+                # 30 on a 20-step cadence)
+                k = min(k, rate - self.ss.loop % rate)
             spr = min(update_rate, self._forced_spr or update_rate)
             if k >= spr:
                 n_rebuilds = k // spr
@@ -846,8 +878,18 @@ class Simulation:
             if len(sd.groups) > 1 and cfg.printrate \
                     and self.ss.loop % cfg.printrate == 0:
                 self._emit_group_files()
+            loop = self.ss.loop
+            for a in self.analyses:
+                ev = a.eval_rate and loop % a.eval_rate == 0
+                out = a.output_rate and loop % a.output_rate == 0
+                if ev or out:
+                    with PROFILE.phase("analysis"):
+                        if ev:
+                            a.eval(self)
+                        if out:
+                            a.output(self, self.run_dir)
             for _, tobj, rate in self.transforms:
-                if rate and self.ss.loop % rate == 0:
+                if rate and loop % rate == 0:
                     self.apply_transform(tobj)
             if on_checkpoint and cfg.checkpointrate \
                     and self.ss.loop % cfg.checkpointrate == 0:
@@ -862,7 +904,17 @@ class Simulation:
             if max_seconds is not None \
                     and _time.monotonic() - t_start > max_seconds:
                 break
+        for a in self.analyses:
+            a.output(self, self.run_dir)
         return self.ss
+
+    def _host_rates(self) -> list[int]:
+        """The non-zero rates at which the host acts between dispatches:
+        each transform's, each analysis's eval_rate and outputrate."""
+        rates = [rate for _, _, rate in self.transforms]
+        for a in self.analyses:
+            rates += [a.eval_rate, a.output_rate]
+        return [r for r in rates if r]
 
     def _nan_rollback(self, rows, bad, k, n_rebuilds, spr, retries):
         """A dispatch whose rows hold a non-finite energy is discarded:
@@ -983,6 +1035,7 @@ class Simulation:
         exclusions, constraints or molecules of more than one bead
         raises (ROADMAP item 29: the JAX package keeps the old topology,
         so only the first copy keeps its terms)."""
+        from ..analysis.registry import VelocityAutocorrelation
         from ..core.box import Box
         from ..core.state import State
         from ..transforms.registry import TransformContext, apply_transform
@@ -1022,6 +1075,17 @@ class Simulation:
             col.group_names = ctx.group_names
             self.first_energy()
             return
+        vaf = [a.name for a in self.analyses
+               if isinstance(a, VelocityAutocorrelation)]
+        if vaf and n_new != n:
+            # its eval forms v * v0 with v0 of the old count: the JAX
+            # package raises numpy's broadcast error at the next eval
+            raise NotImplementedError(
+                f"TRANSFORM {tobj.name} ({tobj.get_str('type')}) changes the "
+                f"particle count {n} -> {n_new} under the "
+                f"VELOCITYAUTOCORRELATION analysis {', '.join(vaf)}: its "
+                "v(0) is not carried across a count change (ROADMAP queue "
+                "1, item 30)")
         topology = self._topology() if n_new != n else []
         if topology:
             raise NotImplementedError(
@@ -1085,8 +1149,12 @@ class Simulation:
           baked into the step: when they moved, the barostat and the
           step (and with it the force function and its bonded graph)
           are rebuilt;
-        * TRANSFORM objects and rates -> the transform list (the
-          analyses' rates wait for item 24b)."""
+        * TRANSFORM objects and rates -> the transform list;
+        * each SIMULATE analysis's ANALYSIS eval_rate (or evalrate) and
+          outputrate -> the analysis (simulate.py:1356-1363 of the JAX
+          package; printStress's STRESSWRITE has no object and keeps
+          printrate).  The analyses' objects and state stay: the rates
+          are what a rescan reaches."""
         from ..core.groups import GroupTable, group_from_deck
         from ..core.system import integrator_parms_from_deck
 
@@ -1116,6 +1184,12 @@ class Simulation:
             (t, self.db.find(t, "TRANSFORM") or obj,
              (self.db.find(t, "TRANSFORM") or obj).get_int("rate", rate))
             for t, obj, rate in self.transforms]
+        for a in self.analyses:
+            obj = self.db.find(a.name, "ANALYSIS")
+            if obj is not None:
+                a.eval_rate = obj.get_int(
+                    "eval_rate", obj.get_int("evalrate", a.eval_rate))
+                a.output_rate = obj.get_int("outputrate", a.output_rate)
 
     def _rescan_guarded(self, raw: str):
         """Compile the command file's object text and rescan (the JAX
@@ -1123,11 +1197,12 @@ class Simulation:
         on as it was -- the deck's objects get back the keywords they had
         (and lose any the text added), and the Simulation, its sysdef and
         its SIMULATE config get back every attribute the rescan may have
-        set -- with a warning."""
+        set, the analyses' rates among them -- with a warning."""
         sd = self.sysdef
         objects = dict(self.db.objects)
         keywords = {k: dict(o.keywords) for k, o in objects.items()}
-        saved = [(x, dict(vars(x))) for x in (self, sd, sd.cfg)]
+        saved = [(x, dict(vars(x)))
+                 for x in (self, sd, sd.cfg, *self.analyses)]
         try:
             self.db.compile_string(raw)
             self._rescan_objects()

@@ -151,12 +151,13 @@ _DEFORMATION = (lambda s: s.replace(
     pytest.param(_DEFORMATION,
                  r"mesh:a prescribed box\(t\) \(deformation\).*item 25",
                  id=r"<lambda>-box\(t\).*item 22"),
-    # outputs the JAX Simulation writes at their rates: each raises naming
-    # its ROADMAP item instead of running to the end without the output
-    # (the ids keep the names these cases had before item 24 was split)
+    # outputs the JAX Simulation writes at their rates: Simulation writes
+    # them (tests/test_torch_analysis_run.py); the mesh raises naming item
+    # 25 instead of running to the end without them (the ids keep the
+    # names these cases had before item 24 was split)
     pytest.param(lambda s: _sim_key(s, "analysis=rdf;")
                  + "rdf ANALYSIS { type=PAIRCORRELATION; eval_rate=10; }\n",
-                 r"analysis=rdf.*item 24b",
+                 r"mesh:analysis=rdf.*item 25",
                  id=r"<lambda>-analysis=rdf.*item 24"),
     # Simulation applies transforms (tests/test_torch_transform_sim.py);
     # the mesh does not, as the JAX mesh
@@ -165,7 +166,7 @@ _DEFORMATION = (lambda s: s.replace(
                  r"mesh:transform=therm.*item 25",
                  id=r"<lambda>-transform=therm.*item 24"),
     pytest.param(lambda s: _printinfo(s, "printStress=1;"),
-                 r"printStress.*item 24b",
+                 r"mesh:printStress.*item 25",
                  id=r"<lambda>-printStress.*item 24"),
     # Simulation writes the graphs line and the per-group energy files
     # (tests/test_torch_runtime.py); the mesh does not, as the JAX mesh
@@ -177,9 +178,15 @@ _DEFORMATION = (lambda s: s.replace(
                  + "frozen GROUP { type=FREE; }\n",
                  r"mesh:per-group energy.*item 25",
                  id=r"<lambda>-per-group energy.*item 23"),
-    pytest.param(lambda s: _printinfo(s, "printStress=1;"),
-                 r"mesh:printStress.*item 24b",
+    # the list names only the ANALYSIS objects the deck has
+    pytest.param(lambda s: _sim_key(s, "analysis=sw none;")
+                 + "sw ANALYSIS { type=STRESSWRITE; eval_rate=10; }\n",
+                 r"mesh:analysis=sw: .*item 25",
                  id=r"<lambda>-mesh:printStress.*item 24"),
+    # printStress comes before printGraphs
+    pytest.param(lambda s: _printinfo(s, "printStress=1; printGraphs=1;"),
+                 r"mesh:printStress attaches.*item 25",
+                 id=r"<lambda>-mesh:printStress+printGraphs.*item 25"),
     # what the mesh still refuses where Simulation runs the deck on its
     # cell-block engine: a triclinic box and non-periodic axes
     (lambda s: _tilted(s), r"mesh:triclinic.*item 25"),

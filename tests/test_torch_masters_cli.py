@@ -1,8 +1,8 @@
 """Slice 15, the masters through the port's CLI on the CPU (ROADMAP item
 23), and testPressure's tables against the JAX package's (f64, rel
 1e-9): thermalize, readWrite (positions bit-equal through the codec),
-eightFold, testForce, testPressure, integrationTest and (since slice
-16) transform with --device cpu; analysis raises naming item 24b;
+eightFold, testForce, testPressure, integrationTest, (since slice
+16) transform and (since slice 17) analysis with --device cpu;
 unitTest's pytest
 command; integrationTest's pass and fail; testPressure's slope check on
 a broken virial and its molecular sweep."""
@@ -126,11 +126,12 @@ def test_unit_test_master_command(monkeypatch, tier, slow):
 
 def test_cli_runs_every_master(tmp_path):
     """thermalize, readWrite, eightFold, testForce, testPressure,
-    integrationTest and transform through `cli.run --device cpu` on the
-    400-bead water box; readWrite's positions come back bit-equal through
-    the codec; the transform master applies the deck's TRANSFORM (a
-    velocity kick) into a checkpoint that loads; analysis raises naming
-    item 24b."""
+    integrationTest, transform and analysis through `cli.run --device
+    cpu` on the 400-bead water box; readWrite's positions come back
+    bit-equal through the codec; the transform master applies the deck's
+    TRANSFORM (a velocity kick) into a checkpoint that loads; the
+    analysis master evaluates and writes the deck's ANALYSIS object (no
+    SIMULATE analysis= list) once at loop 0."""
     from ddcmd_tpu_torch.run.simulate import Simulation
 
     d = _deck(tmp_path, lambda d: martini_water(d, n=400))
@@ -138,7 +139,8 @@ def test_cli_runs_every_master(tmp_path):
         f.write("it INTEGRATIONTEST { testPotentialPotential=martini "
                 "martini; }\n"
                 "kick TRANSFORM { type=ADDVELOCITY; velocity=0 0 1e-3 "
-                "Angstrom/fs; }\n")
+                "Angstrom/fs; }\n"
+                "zd ANALYSIS { type=ZDENSITY; nBins=8; }\n")
     deck = os.path.join(d, "object.data")
 
     def run(master, *extra, run_dir=None):
@@ -169,5 +171,7 @@ def test_cli_runs_every_master(tmp_path):
     vz = back.ss.state.v[:400, 2]
     assert float(vz.min()) == pytest.approx(0.1, rel=1e-6)
     assert float(vz.max()) == pytest.approx(0.1, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="item 24b"):
-        run("analysis")
+    sim, rd = run("analysis")
+    assert sim.ss.loop == 0 and [a.name for a in sim.analyses] == ["zd"]
+    zd = np.loadtxt(os.path.join(rd, "zdensity.dat"))
+    assert zd.shape == (8, 2) and zd[:, 1].sum() == 400

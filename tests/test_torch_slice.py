@@ -95,8 +95,23 @@ def test_cli_writes_printinfo_data(tmp_path):
 
 
 def test_cli_refuses_unported_masters(tmp_path):
-    with pytest.raises(NotImplementedError, match="analysis"):
-        cli.run(["analysis", "-o", str(tmp_path / "object.data")])
+    """Every master runs since slice 17: `cli analysis` on the FREE water
+    box evaluates and writes the SIMULATE analysis= list once after the
+    first energy, its centre-of-mass row the start state's."""
+    d = _free_deck(tmp_path / "deck", 400)
+    p = os.path.join(d, "object.data")
+    text = open(p).read().replace("type=MD;", "type=MD; analysis=vcm;", 1)
+    with open(p, "w") as f:
+        f.write(text + "vcm ANALYSIS { type=VCMWRITE; }\n")
+    run_dir = str(tmp_path / "run")
+    sim = cli.run(["analysis", "-o", p, "--run-dir", run_dir, "--device",
+                   "cpu"])
+    st = sim.ss.state
+    m, v = st.mass[:400, None].double(), st.v[:400].double()
+    row = np.loadtxt(os.path.join(run_dir, "vcm.data"))
+    assert row[0] == 0 and row.shape == (4,)
+    np.testing.assert_allclose(row[1:], ((m * v).sum(0) / m.sum()).numpy(),
+                               rtol=1e-5, atol=1e-9)
 
 
 def test_overflow_replans_and_recovers(tmp_path):
