@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only |
                            --integrators-only | --masters-only |
-                           --transforms-only | --analyses-only]
+                           --transforms-only | --analyses-only |
+                           --rebuilds-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -230,6 +231,22 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      analysis master on (a)'s and (b)'s checkpoints, card vs CPU.  Rows
      of its own: cellpair_half_analysis (#1 on (a)'s last records),
      eam_rho_analysis and eam_force_analysis (#4 on (b)'s).
+ 24. the last refusals of Simulation (ROADMAP items 27-30): (a) the nx =
+     24 bilayer patch (25,376 beads) staged at 5 fs as phase 6 stages
+     the full one, then 600 steps at 20 fs through Simulation.run on #2
+     with transform= REPLICATE 2x2x1 200 steps in (101,504 beads; the
+     topology built anew) and VELOCITYAUTOCORRELATION every 20 steps
+     across it: each force term's energy and virial against 4x those
+     before it, bonded counts and constraints 4x, the RATTLE residual,
+     mean T over the last 200 steps, the VAF rows against C(t) over the
+     kept gids; (b) the nc = 12 crystal at a = 4.30 A with pbc = 3 and
+     its z doubled (two free (100) surfaces) on the cell-block EAM engine
+     under auto:
+     first energy and forces against engine "nlist", the surface energy,
+     200 NVE steps and their drift; (c) the 500-atom LJ slab (2 list
+     cells on its non-periodic z) on engine "nlist" in f64: card against
+     the CPU and against the same deck with z doubled.  Row of its own:
+     cellpair_half_col_rebuild (#2 on (a)'s last records).
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -239,7 +256,7 @@ the kernels' JSON line, the card line, and last {"ok": true, "device":
 result; --charmm-only does the same with phase 19, --integrators-only
 with phase 20, --masters-only with phase 21 (making the bilayer's restart
 as phase 6's first stage does), --transforms-only with phase 22,
---analyses-only with phase 23.
+--analyses-only with phase 23, --rebuilds-only with phase 24.
 """
 
 import contextlib
@@ -4324,15 +4341,16 @@ def integrators_phase(card, dev, counters_zero, all_counters):
     return rows_out
 
 
-def bilayer_stage1(d_eq, d):
+def bilayer_stage1(d_eq, d, nx=BILAYER_NX):
     """Phase 6's first stage, as bench.py runs it: the full bilayer's
-    deck at EQ_DT in d_eq through the CLI for EQ_STEPS steps, checkpointed
-    into d beside the 20 fs deck, so the restart's relative files= path
-    resolves against d.  Returns (the 20 fs deck, the box lengths nm)."""
+    deck (nx = BILAYER_NX; phase 24 stages nx = REBUILD_NX) at EQ_DT in
+    d_eq through the CLI for EQ_STEPS steps, checkpointed into d beside
+    the 20 fs deck, so the restart's relative files= path resolves
+    against d.  Returns (the 20 fs deck, the box lengths nm)."""
     from ddcmd_tpu_torch.io.restart import write_checkpoint
 
-    deck_eq = bilayer_deck(d_eq, BILAYER_NX, EQ_DT, 200)
-    deck = bilayer_deck(d, BILAYER_NX, 20.0, 10)
+    deck_eq = bilayer_deck(d_eq, nx, EQ_DT, 200)
+    deck = bilayer_deck(d, nx, 20.0, 10)
     t0 = time.perf_counter()
     sim_eq = cli_run(["simulate", "-o", deck_eq, "-n", str(EQ_STEPS),
                       "--run-dir", d_eq])
@@ -5497,6 +5515,287 @@ def analyses_phase(card, dev, counters_zero, all_counters, failed,
     return rows_out
 
 
+# --- phase 24 (items 27-30): the last refusals of Simulation ---------------
+# (a) the nx = 24 bilayer patch (25,376 beads, 192 x 192 x 110.8 A),
+# staged at EQ_DT as phase 6 stages the full one, then REBUILD_STEPS at
+# 20 fs with transform= REPLICATE 2 x 2 x 1 REBUILD_AT steps in (101,504
+# beads at 384 x 384 x 110.8 A) and VELOCITYAUTOCORRELATION every
+# VAF_RATE steps in blocks of VAF_LENGTH evals (the first block spans
+# the replica, the second starts on all 101,504); T read over the last
+# REBUILD_TAIL steps, within REBUILD_T_TOL of BILAYER_T; the replica's
+# energy of each term against 4x that before it (f32) and the VAF rows
+# against C(t) in f64 over the kept gids, within VAF_TOL of C(0)
+REBUILD_NX, REBUILD_AT, REBUILD_STEPS, REBUILD_TAIL = 24, 200, 600, 200
+REBUILD_E_REL, REBUILD_T_TOL, RATTLE_TOL = 1e-5, 3.0, 5e-3
+VAF_RATE, VAF_LENGTH, VAF_TOL = 20, 15, 1e-6
+# (b) the nc = 12 crystal at its zero-pressure lattice constant INT_A_LAT
+# (at the builder's 3.615 A the deck sits at 43.9 GPa, and a free surface
+# lowers its energy) with pbc = 3 and its z doubled (two free (100)
+# surfaces) on the cell-block EAM engine: against engine "nlist" within
+# SLAB_REL of the force scale, SLAB_NVE FREE steps; (c) the 500-atom LJ
+# slab (2 list cells on z) on engine "nlist" in f64, card against the CPU
+# and against the same deck with z doubled, within LIST_REL of the scale
+# (in f32 the card's forces sat 1.86e-6 of the scale from the CPU's in
+# PR 18's first run: reduction order and contraction, no pair missing;
+# a pair through the wall or a one-sided pair moves a force by ~1e-2)
+SLAB_NC, SLAB_NVE, SLAB_REL, LIST_REL = 12, 200, 1e-5, 1e-6
+EV_PER_NM2 = 0.1602177         # J/m^2 in one eV/nm^2
+
+
+def pad_z(factor, pbc=3):
+    """A deck edit: the BOX's z length times `factor` (vacuum on z, the
+    atoms where they are) and pbc = `pbc`."""
+    def edit(text):
+        start = text.index(" h=", text.index("BOX {"))
+        end = text.index(";", start)
+        h = text[start + 3:end].split()
+        h[8] = repr(float(h[8]) * factor)
+        return (text[:start] + " h= " + " ".join(h) + " "
+                + text[end:]).replace("pbc=7", f"pbc={pbc}")
+    return edit
+
+
+def term_energies(sim):
+    """(e, virial) of each force term of sim at its current state, on
+    a handle built there."""
+    ss, handle, overflow = sim._build_nbr(sim.ss)
+    assert not bool(overflow), "overflow building the term check's handle"
+    return [(float(e), v.double().cpu().numpy()) for _, e, v, _ in
+            (t(ss.state, ss.box, handle) for t in sim.force_fn.terms)]
+
+
+def first_fe(sim):
+    """The first energy's forces (n, 3) f64 on the host and eion."""
+    sim.first_energy()
+    n = sim.sysdef.state.n_local
+    return (sim.ss.state.f[:n].double().cpu().numpy(),
+            float(sim.ss.energy.eion))
+
+
+def rebuilds_phase(card, dev, counters_zero, all_counters, failed):
+    """Phase 24 (ROADMAP items 27-30), gates into `failed`: (a) the nx =
+    REBUILD_NX bilayer patch staged, then a REPLICATE 2 x 2 x 1 mid-run
+    on #2 with VELOCITYAUTOCORRELATION across it; (b) an EAM slab with
+    two free surfaces on the cell-block EAM engine; (c) the LJ slab's
+    list on a 2-cell non-periodic axis.  Returns {kernels JSON row:
+    (entry, launches, comparison)}: #2 on (a)'s last records with the
+    run's launches."""
+    from ddcmd_tpu_torch.analysis.registry import VelocityAutocorrelation
+    from ddcmd_tpu_torch.integrators.constraints import constraint_residual
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.objects import units as U
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    t_phase = time.perf_counter()
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(f"phase 24 {what}")
+
+    def rate(log):
+        return sum(k for k, _ in log) / max(sum(t for _, t in log), 1e-9)
+
+    keep = tempfile.mkdtemp()
+    try:
+        # --- (a) items 29 and 30: REPLICATE 2 x 2 x 1 on the patch ----------
+        d_eq, d = os.path.join(keep, "eq"), os.path.join(keep, "a")
+        os.makedirs(d_eq)
+        os.makedirs(d)
+        deck, _ = bilayer_stage1(d_eq, d, nx=REBUILD_NX)
+        at = EQ_STEPS + REBUILD_AT          # the restart's loop + REBUILD_AT
+        edit_deck(deck, lambda s: s.replace(
+            "type=MD;", "type=MD; analysis=vaf; transform=rep;", 1)
+            + f"vaf ANALYSIS {{ type=VELOCITYAUTOCORRELATION; "
+            f"length={VAF_LENGTH}; eval_rate={VAF_RATE}; "
+            f"outputrate={REBUILD_STEPS}; }}\n"
+            f"rep TRANSFORM {{ type=REPLICATE; nx=2; ny=2; nz=1; "
+            f"rate={at}; }}\n")
+        run_dir = os.path.join(d, "run")
+        os.makedirs(run_dir)
+        sim = Simulation(*load(d, os.path.join(d, "restart")),
+                         run_dir=run_dir, device=dev)
+        n0 = sim.sysdef.state.n_local
+        vaf = next(a for a in sim.analyses
+                   if isinstance(a, VelocityAutocorrelation))
+        seen, vaf_seen = {"calls": 0}, []
+        apply, vaf_eval = sim.apply_transform, vaf.eval
+
+        def spy(tobj):
+            seen["calls"] += 1
+            if seen["calls"] > 1:
+                return apply(tobj)
+            bt = sim.sysdef.bonded
+            seen.update(loop=sim.ss.loop, terms0=term_energies(sim),
+                        counts0=dict(bt.counts(),
+                                     sys=sim.sysdef.n_constraints),
+                        disp=len(sim.dispatch_log))
+            t0 = time.perf_counter()
+            apply(tobj)
+            torch.cuda.synchronize()
+            seen["secs"] = time.perf_counter() - t0
+            bt = sim.sysdef.bonded
+            seen.update(terms1=term_energies(sim),
+                        counts1=dict(bt.counts(),
+                                     sys=sim.sysdef.n_constraints))
+
+        def vaf_spy(s):
+            n = s.sysdef.state.n_local
+            vaf_seen.append((s.ss.state.gid[:n].copy(),
+                             s.ss.state.v[:n].double().cpu().numpy()))
+            vaf_eval(s)
+            vaf_seen[-1] += (vaf.state["rows"][-1][1],)
+
+        sim.apply_transform, vaf.eval = spy, vaf_spy
+        lines = []
+        counters_zero()
+        sim.run(REBUILD_STEPS, print_fn=lines.append)
+        c = all_counters()
+        sd = sim.sysdef
+        n = sd.state.n_local
+        rows = np.array([ln.split() for ln in lines], dtype=np.float64)
+        end = EQ_STEPS + REBUILD_STEPS
+        temp = float(rows[rows[:, 0] > end - REBUILD_TAIL, 5].mean())
+        L1 = sim.ss.box.lengths.double().cpu().numpy()
+        bt = sd.bonded
+        resid = float(constraint_residual(sim.ss.state, bt.cons_atoms,
+                                          bt.cons_pairs, bt.cons_dist,
+                                          box_lengths=L1))
+        rel = max(abs(a / (4.0 * b) - 1.0) for (a, _), (b, _) in
+                  zip(seen.get("terms1", []), seen.get("terms0", [])))
+        vir = max(np.abs(va - 4.0 * vb).max() / (4.0 * np.abs(vb).max())
+                  for (_, va), (_, vb) in zip(seen["terms1"],
+                                              seen["terms0"]))
+        c0, c1 = seen["counts0"], seen["counts1"]
+        gate(seen["calls"] == 1 and seen.get("loop") == at and n == 4 * n0
+             and np.unique(sim.ss.state.gid[:n]).size == n,
+             f"(a) {seen['calls']} replicas, the first at loop "
+             f"{seen.get('loop')}, {n} beads")
+        gate(rel <= REBUILD_E_REL, f"(a) term energies {seen['terms1']} vs "
+             f"4 x {seen['terms0']} (rel {rel})")
+        gate(c1 == {k: 4 * v for k, v in c0.items()},
+             f"(a) counts {c1} vs 4 x {c0}")
+        gate(resid < RATTLE_TOL, f"(a) RATTLE residual {resid}")
+        gate(np.isfinite(rows).all()
+             and abs(temp - BILAYER_T) <= REBUILD_T_TOL, f"(a) mean T {temp}")
+        gate(c["cellpair_half_col"] >= REBUILD_STEPS
+             and not any(v for k, v in c.items()
+                         if k != "cellpair_half_col"),
+             f"(a) launches {c}")
+        # the VAF against C(t) over the gids present at both times, in
+        # f64, each block from its first eval's v(0)
+        verr, blocks = 0.0, []
+        for i, (g, v, got) in enumerate(vaf_seen):
+            if i % VAF_LENGTH == 0:
+                g0, v0 = g, v
+                c00 = (v0 * v0).sum() / len(g0)
+                blocks.append(len(g0))
+            _, now, then = np.intersect1d(g, g0, return_indices=True)
+            ref = (v[now] * v0[then]).sum() / len(now)
+            verr = max(verr, abs(got - ref) / c00)
+        gate(len(vaf_seen) == REBUILD_STEPS // VAF_RATE
+             and blocks == [n0, n] and verr <= VAF_TOL,
+             f"(a) VAF: {len(vaf_seen)} evals, blocks over {blocks} "
+             f"particles, err {verr} of C(0)")
+        before = sim.dispatch_log[:seen["disp"]]
+        after = sim.dispatch_log[seen["disp"]:]
+        phase("rebuilds", f"(a) bilayer patch nx={REBUILD_NX} {n0} beads, "
+              f"transform= REPLICATE 2x2x1 at loop {at} -> {n} beads, box "
+              f"{L1.round(4).tolist()} nm, cells {sim.grid.ncells} G="
+              f"{sim.force_fn.terms[0].G} cap {sim.grid.cap}; the replica, "
+              f"its topology and first energy {seen['secs']:.3f} s; term "
+              f"energies {[round(e, 3) for e, _ in seen['terms1']]} vs 4 x "
+              f"{[round(e, 3) for e, _ in seen['terms0']]} (rel {rel:.3g}, "
+              f"virial {vir:.3g}); counts {c1}; RATTLE residual "
+              f"{resid:.3g}; mean T {temp:.2f} K over the last "
+              f"{REBUILD_TAIL} steps; VAF {len(vaf_seen)} evals in blocks "
+              f"over {blocks} particles, max |C - C_ref| {verr:.3g} of "
+              f"C(0); #2 {c['cellpair_half_col']} launches; "
+              f"{rate(before):.2f} steps/s before, {rate(after):.2f} "
+              f"after; redos {sim.redos} on {card}")
+        rows_out = {"cellpair_half_col_rebuild": (
+            "cellpair_half_col", c["cellpair_half_col"],
+            sim_pair_check(sim, "(a) the replica"))}
+        del sim
+
+        # --- (b) item 27: an EAM slab on the cell-block EAM engine ----------
+        db_, ds = os.path.join(keep, "bulk"), os.path.join(keep, "b")
+        os.makedirs(db_)
+        os.makedirs(ds)
+        eam_deck(db_, SLAB_NC, 10, free=True, a_lat=INT_A_LAT)
+        eam_deck(ds, SLAB_NC, 10, free=True, a_lat=INT_A_LAT,
+                 edit=pad_z(2.0))
+        counters_zero()
+        slab = Simulation(*load(ds), run_dir=ds, device=dev)
+        f_cb, e_cb = first_fe(slab)
+        f_nl, e_nl = first_fe(Simulation(*load(ds), run_dir=ds, device=dev,
+                                         engine="nlist"))
+        _, e_bulk = first_fe(Simulation(*load(db_), run_dir=db_,
+                                        device=dev, engine="cellblock"))
+        na = slab.sysdef.state.n_local
+        L = slab.sysdef.box.lengths.double().cpu().numpy()
+        ferr = np.abs(f_cb - f_nl).max() / np.abs(f_nl).max()
+        erel = abs(e_cb / e_nl - 1.0)
+        eV = U.unit_scale("eV")
+        gamma = (e_cb - e_bulk) / eV / (2.0 * L[0] * L[1]) * EV_PER_NM2
+        lines = []
+        t0 = time.perf_counter()
+        slab.run(SLAB_NVE, print_fn=lines.append)
+        secs = time.perf_counter() - t0
+        cb = all_counters()
+        rows = np.array([ln.split() for ln in lines], dtype=np.float64)
+        drift = float(np.abs(rows[:, 2] - rows[0, 2]).max())
+        gate(slab.engine == "cellblock" and ferr <= SLAB_REL
+             and erel <= SLAB_REL,
+             f"(b) {slab.engine}: force {ferr}, e {e_cb} vs {e_nl}")
+        gate(gamma > 0 and np.isfinite(rows).all()
+             and torch.isfinite(slab.ss.state.r).all()
+             and not any(cb.values()),
+             f"(b) surface energy {gamma}, {SLAB_NVE} NVE steps, "
+             f"launches {cb}")
+        phase("rebuilds", f"(b) EAM slab nc={SLAB_NC} {na} atoms, pbc=3, "
+              f"box {L.round(4).tolist()} nm, engine {slab.engine} cells "
+              f"{slab.grid.ncells} cap {slab.grid.cap}: first energy "
+              f"{e_cb:.6f} vs {e_nl:.6f} on engine nlist (rel {erel:.3g}), "
+              f"forces {ferr:.3g} of the scale; surface energy (E_slab - "
+              f"E_bulk)/2A {gamma:.4f} J/m^2 (E_bulk {e_bulk:.6f}); "
+              f"{SLAB_NVE} NVE steps {SLAB_NVE / secs:.2f} steps/s, max "
+              f"|Etot - Etot0| {drift:.3g} eV/atom; no kernel launched")
+        del slab
+
+        # --- (c) item 28: the list on a 2-cell non-periodic axis ------------
+        dl, dp = os.path.join(keep, "c"), os.path.join(keep, "cp")
+        os.makedirs(dl)
+        os.makedirs(dp)
+        lj_deck(dl, 500, 10, edit=slab_edit)
+        lj_deck(dp, 500, 10, edit=lambda s: pad_z(2.0)(slab_edit(s)))
+        counters_zero()
+        f64 = dict(engine="nlist", dtype=torch.float64)
+        thin = Simulation(*load(dl), run_dir=dl, device=dev, **f64)
+        f_c, e_c = first_fe(thin)
+        f_h, e_h = first_fe(Simulation(*load(dl), run_dir=dl, device="cpu",
+                                       **f64))
+        padded = Simulation(*load(dp), run_dir=dp, device=dev, **f64)
+        f_p, e_p = first_fe(padded)
+        cc = all_counters()
+        scale = np.abs(f_h).max()
+        errs = (np.abs(f_c - f_h).max() / scale,
+                np.abs(f_c - f_p).max() / scale)
+        rels = (abs(e_c / e_h - 1.0), abs(e_c / e_p - 1.0))
+        gate(thin.grid.ncells[2] == 2 and padded.grid.ncells[2] >= 4
+             and max(errs + rels) <= LIST_REL and not any(cc.values()),
+             f"(c) forces {errs}, e {rels}, cells {thin.grid.ncells}, "
+             f"{padded.grid.ncells}, launches {cc}")
+        phase("rebuilds", f"(c) LJ slab 500 atoms, pbc=3, engine nlist f64, "
+              f"cells {thin.grid.ncells} (padded z: {padded.grid.ncells}): "
+              f"first energy {e_c:.6f}, the CPU's {e_h:.6f}, the padded "
+              f"box's {e_p:.6f}; forces card vs CPU {errs[0]:.3g}, vs the "
+              f"padded box {errs[1]:.3g} of the scale; phase 24 "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    return rows_out
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -5577,6 +5876,11 @@ def main(argv=None):
         failed = []
         analyses_phase(card, dev, counters_zero, all_counters, failed)
         assert not failed, f"phase 23 gates missed: {failed}"
+        return
+    if "--rebuilds-only" in argv:
+        failed = []
+        rebuilds_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 24 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -5755,6 +6059,11 @@ def main(argv=None):
     analysis_rows_out = analyses_phase(card, dev, counters_zero,
                                        all_counters, analyses_failed)
     assert not analyses_failed, f"phase 23 gates missed: {analyses_failed}"
+    # --- phase 24: items 27-30, the bilayer patch's replica on #2 -------------
+    rebuilds_failed = []
+    rebuild_rows = rebuilds_phase(card, dev, counters_zero, all_counters,
+                                  rebuilds_failed)
+    assert not rebuilds_failed, f"phase 24 gates missed: {rebuilds_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -5795,10 +6104,12 @@ def main(argv=None):
     # phase 21's paths: (a) the command file on #2, (b)-(c) the rollback,
     # NEXTFILE and NGLFTEST on #1, (d) the eightFold deck's kernel; phase
     # 22's run: #1 before the replica, #2 after it; phase 23's: #1 on the
-    # water box with its analyses, #4 on the crystal with its classifiers
+    # water box with its analyses, #4 on the crystal with its classifiers;
+    # phase 24's: #2 on the bilayer patch's replica
     for row, (name, n, out) in (*int_rows.items(), *masters_rows.items(),
                                 *transform_rows.items(),
-                                *analysis_rows_out.items()):
+                                *analysis_rows_out.items(),
+                                *rebuild_rows.items()):
         kernels[row] = kernels[name]
         launches[row] = n
         res[row] = out

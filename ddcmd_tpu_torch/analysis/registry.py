@@ -5,9 +5,10 @@ src/analysis.c:148-395): 17 classes under 18 names, each {setup, eval
 at eval_rate, output at outputrate} (masters.c:295-302).  The host math
 and the files are the JAX package's numpy; device tensors reach it
 through _host.  Two parts run on the run's device in PyTorch where the
-JAX package runs XLA: PAIRCORRELATION's histogram, in row blocks under
-a fixed memory budget with integer counts, and the cell-list candidates
-of _knn's route for more than 4096 particles.  The mesh's sharded evals
+JAX package runs XLA or dense numpy: PAIRCORRELATION's histogram and
+PAIRANALYSIS's count, in row blocks under a fixed memory budget with
+integer counts, and the cell-list candidates of _knn's route for more
+than 4096 particles.  The mesh's sharded evals
 are not ported (ROADMAP item 25).
 """
 
@@ -255,22 +256,35 @@ class Ssf(Analysis):
 
 
 class VelocityAutocorrelation(Analysis):
-    """VAF C(t) = <v(0).v(t)> (velocityAutocorrelation.c)."""
+    """VAF C(t) = <v(0).v(t)> (velocityAutocorrelation.c).  v(0) is kept
+    with its particles' gids: after a transform changed the particles,
+    the rows are matched by gid and C(t) averages over the particles
+    present at both times; new particles join at the block's next
+    restart.  Without a change it is the JAX package's sum bit for bit
+    (the JAX package breaks at a count change)."""
 
     def setup(self):
         self.length = self.obj.get_int("length", 100)
         self.filename = self.obj.get_str("filename", "vaf.dat")
         self.state["v0"] = None
+        self.state["gid0"] = None
         self.state["rows"] = []
 
     def eval(self, sim):
         st = sim.ss.state
         n = sim.sysdef.state.n_local
         v = _host(st.v, n)
+        gid = st.gid[:n]
         if self.state["v0"] is None or len(self.state["rows"]) >= self.length:
             self.state["v0"] = v.copy()
+            self.state["gid0"] = gid.copy()
             self.state["rows"] = []
-        c = (v * self.state["v0"]).sum() / n
+        v0, gid0 = self.state["v0"], self.state["gid0"]
+        if not np.array_equal(gid, gid0):
+            _, now, then = np.intersect1d(gid, gid0, assume_unique=True,
+                                          return_indices=True)
+            v, v0, n = v[now], v0[then], len(now)
+        c = (v * v0).sum() / n
         self.state["rows"].append((int(sim.ss.loop), c))
 
     def output(self, sim, run_dir="."):
@@ -816,14 +830,30 @@ class PairAnalysis(Analysis):
         self.filename = self.obj.get_str("filename", "pairAnalysis.dat")
 
     def eval(self, sim):
+        """The ordered pairs within rmax, as the reference counts them:
+        the JAX package's dense (n, n) f64 numpy form on the run's
+        device, a block of rows at a time under PAIR_BLOCK_BYTES (the
+        dense form holds ~32 bytes a pair, ~1.2 GB at 6,173 beads), with
+        the same f64 sums and divisions in the same order on every
+        device and int64 counts."""
         n = sim.sysdef.state.n_local
-        r = _host(sim.ss.state.r, n, np.float64)
-        L = _host(sim.ss.box.lengths, dtype=np.float64)
-        d = r[:, None, :] - r[None, :, :]
-        d -= L * np.round(d / L)
-        r2 = (d * d).sum(-1)
-        np.fill_diagonal(r2, np.inf)
-        cnt = int((r2 < self.rmax ** 2).sum())  # ordered pairs, as reference
+        r = sim.ss.state.r[:n].to(torch.float64)
+        L = sim.ss.box.lengths.to(torch.float64)
+        r2max = torch.tensor(self.rmax ** 2, dtype=torch.float64,
+                             device=r.device)
+        # at most four (rows, n, 3) f64 temporaries live at once
+        rows = max(1, PAIR_BLOCK_BYTES // (96 * max(n, 1)))
+        cols = torch.arange(n, device=r.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=r.device)
+        for i0 in range(0, n, rows):
+            d = r[i0:i0 + rows, None, :] - r[None, :, :]
+            d = d - L * torch.round(d / L)
+            d = d * d
+            r2 = d[..., 0] + d[..., 1] + d[..., 2]
+            del d
+            near = (r2 < r2max) & (cols[i0:i0 + rows, None] != cols[None, :])
+            cnt += near.sum()
+        cnt = int(cnt)     # ordered pairs, as reference
         self.state["cnt"] = cnt
         print(f"cnt={cnt}")
 

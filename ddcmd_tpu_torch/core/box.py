@@ -37,6 +37,25 @@ def nearest_image(d: torch.Tensor, geom: torch.Tensor) -> torch.Tensor:
     return d - torch.round(d @ inv3x3(geom).T) @ geom.T
 
 
+def nearest_image_pbc(d: torch.Tensor, geom: torch.Tensor,
+                      pbc_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """nearest_image on the periodic axes only: pbc_mask is Box.pbc_mask
+    (1.0 on a periodic axis, 0.0 on a non-periodic one, whose
+    displacement is kept whole), None for a fully periodic box.  (1,)
+    slices of lengths and mask reduce one Cartesian component."""
+    if pbc_mask is None:
+        return nearest_image(d, geom)
+    if geom.dim() == 1:
+        return d - geom * torch.round(d / geom) * pbc_mask
+    return d - (torch.round(d @ inv3x3(geom).T) * pbc_mask) @ geom.T
+
+
+def pbc_mask_or_none(box: "Box"):
+    """The box's pbc_mask where an axis is not periodic, else None (the
+    list terms then take the plain minimum image)."""
+    return None if box.pbc & 7 == 7 else box.pbc_mask
+
+
 @dataclass
 class Box:
     h: torch.Tensor         # (3,3) lattice vectors as columns, internal length

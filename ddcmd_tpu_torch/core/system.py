@@ -311,7 +311,6 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
 
     # Martini species need their LJ type index instead of species index for
     # the nonbond table lookup
-    bonded = residue_instances = None
     for ptype, pname, parms in potentials:
         if ptype != "MARTINI":
             continue
@@ -321,23 +320,8 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
                 raise DeckError(f"species {s.name} has no MMFF atom type")
             tmap[s.index] = parms.species_to_type[s.name]
         parms.species_lj_type = tmap  # attached for force-builder use
-
-        # covalent topology: residue templates instantiated over the
-        # collection (genMartiniConn analog, bioMartini.c:567-830)
-        from ..potentials.bonded import (compile_residue_types,
-                                         instantiate_bonded, scan_residues)
-
-        charmm = getattr(parms, "charmm_res_types", None)
-        res_types = charmm or compile_residue_types(db, pname, parms.rcut)
-        residue_instances = scan_residues(res_types, col.species_names,
-                                          col.gid)
-        bonded = instantiate_bonded(res_types, residue_instances, parms.rcut)
-        if charmm is not None:
-            # CHARMM chains: +X/-X inter-residue links and CMAP terms
-            from ..potentials.charmm import add_chain_links
-
-            add_chain_links(bonded, parms, residue_instances, col.gid,
-                            parms.rcut)
+    bonded, residue_instances, n_constraints = build_topology(
+        db, sysobj, potentials, col.species_names, col.gid)
 
     # --- neighbor config ----------------------------------------------------------
     nbrobj = db.find(sysobj.get_str("neighbor", "nbr"), "NEIGHBOR")
@@ -345,10 +329,6 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
 
     # --- integrator ------------------------------------------------------------------
     itype, iparms = integrator_parms_from_deck(db, cfg.integrator_name)
-
-    n_constraints = sysobj.get_int("nConstraints", 0)
-    if bonded is not None and bonded.n_constraints > 0:
-        n_constraints = bonded.n_constraints  # countConstraints analog
 
     # --- random seed ---------------------------------------------------------------
     seed = 0
@@ -368,6 +348,37 @@ def build_system(db: ObjectDB, base_dir: str = ".", *, dtype=torch.float32,
         n_constraints=n_constraints, random_seed=seed, bonded=bonded,
         residue_instances=residue_instances, box_time=box_time,
     )
+
+
+def build_topology(db: ObjectDB, sysobj, potentials, species_names, gid):
+    """The covalent topology of the deck's MARTINI (or CHARMM) term over a
+    collection: its residue templates instantiated over the particles
+    (genMartiniConn analog, bioMartini.c:567-830), CHARMM's +X/-X chain
+    links and CMAP terms, and the constraint count (the SYSTEM's
+    nConstraints unless the topology has constraints; countConstraints
+    analog).  Returns (bonded, residue_instances, n_constraints), bonded
+    and residue_instances None without such a term.  Run by build_system
+    and again by Simulation.apply_transform on a changed collection."""
+    bonded = residue_instances = None
+    for ptype, pname, parms in potentials:
+        if ptype != "MARTINI":
+            continue
+        from ..potentials.bonded import (compile_residue_types,
+                                         instantiate_bonded, scan_residues)
+
+        charmm = getattr(parms, "charmm_res_types", None)
+        res_types = charmm or compile_residue_types(db, pname, parms.rcut)
+        residue_instances = scan_residues(res_types, species_names, gid)
+        bonded = instantiate_bonded(res_types, residue_instances, parms.rcut)
+        if charmm is not None:
+            from ..potentials.charmm import add_chain_links
+
+            add_chain_links(bonded, parms, residue_instances, gid,
+                            parms.rcut)
+    n_constraints = sysobj.get_int("nConstraints", 0)
+    if bonded is not None and bonded.n_constraints > 0:
+        n_constraints = bonded.n_constraints
+    return bonded, residue_instances, n_constraints
 
 
 def integrator_parms_from_deck(db: ObjectDB, name: str):

@@ -17,10 +17,13 @@ src/geom.h:24-110, src/nlistGPU.cu:206,378):
 
 CellGrid.plan is host numpy, copied from the JAX package.  The list is
 the JAX list in every case but one: where an axis is not periodic and
-has fewer than 3 cells, the JAX list drops a stencil reach that wraps
-the axis and then takes the minimum image through the wall, which is
-wrong (an asymmetric list with 2 cells, pairs through the wall with 1).
-The port raises there (ROADMAP queue 1, item 28).
+has fewer than 3 cells, the JAX list collapses that axis's stencil as
+on a periodic axis, drops a reach that wraps it and then takes the
+minimum image through the wall, which is wrong (an asymmetric list with
+2 cells, pairs through the wall with 1).  The port keeps the full
+(-1, 0, +1) reaches on a non-periodic axis (there they do not alias),
+drops those that leave it, and takes the minimum image on the periodic
+axes only (core/box.nearest_image_pbc), here and in every list term.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.box import inv3x3, nearest_image
+from ..core.box import inv3x3, nearest_image_pbc
 
 @dataclass(frozen=True)
 class CellGrid:
@@ -86,12 +89,6 @@ class CellGrid:
                    max_neighbors=max_neighbors, rlist=rlist)
 
 
-# minimum image against (3,) orthorhombic lengths or a (3,3) triclinic h
-# (columns = lattice vectors), the fractional-round form, exact for
-# reduced cells (reference nearestImage, src/box.c)
-min_image_geom = nearest_image
-
-
 def _cell_index(r, geom, ncells):
     """(N, 3) int64 cell coordinates of origin-centred positions;
     triclinic boxes bin in fractional coordinates (GEOM non-orthorhombic
@@ -110,13 +107,15 @@ def _flat_cell(c3, ncells):
     return (c3[..., 0] * ny + c3[..., 1]) * nz + c3[..., 2]
 
 
-def _stencil_for(ncells) -> np.ndarray:
-    """Unique neighbor-cell offsets.  On an axis of fewer than 3 cells
-    the -1 and +1 offsets alias under the wrap and would count a pair
-    twice, so they collapse."""
+def _stencil_for(ncells, pbc: int = 7) -> np.ndarray:
+    """Unique neighbor-cell offsets.  On a periodic axis of fewer than 3
+    cells the -1 and +1 offsets alias under the wrap and would count a
+    pair twice, so they collapse.  A non-periodic axis keeps all three:
+    there a reach that leaves the axis is dropped (build_neighbor_list)
+    and the others do not alias."""
     axes = []
-    for n in ncells:
-        if n >= 3:
+    for a, n in enumerate(ncells):
+        if n >= 3 or not (pbc >> a) & 1:
             axes.append((-1, 0, 1))
         elif n == 2:
             axes.append((0, 1))
@@ -124,24 +123,6 @@ def _stencil_for(ncells) -> np.ndarray:
             axes.append((0,))
     return np.array([(i, j, k) for i in axes[0] for j in axes[1]
                      for k in axes[2]], dtype=np.int32)
-
-
-def check_nonperiodic_cells(ncells, pbc: int):
-    """Raise where the JAX list is wrong: an axis that is not periodic
-    and has fewer than 3 cells (its minimum image reaches through the
-    wall to a pair the stencil keeps or drops by the wrap)."""
-    if pbc & 7 == 7:
-        return
-    short = [a for a in range(3)
-             if not (pbc >> a) & 1 and ncells[a] < 3]
-    if short:
-        raise NotImplementedError(
-            f"pbc={pbc}: axis {short} is not periodic and has "
-            f"{[ncells[a] for a in short]} cell(s) of the (N,K) list; with "
-            "fewer than 3 cells the JAX list takes pairs through the wall "
-            "(2 cells: an asymmetric list; 1 cell: the minimum image "
-            "across it), and lists on such axes are not ported (ROADMAP "
-            "queue 1, item 28)")
 
 
 def build_cell_table(r, fmask, geom, grid: CellGrid):
@@ -178,9 +159,8 @@ def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
     fmask: particles that may appear as neighbors (binned into cells).
     row_mask: particles whose own rows are built (defaults to fmask).
     pbc: box periodicity bits (bit i => axis i periodic); stencil reaches
-    that wrap a non-periodic axis are dropped, and an axis that is not
-    periodic with fewer than 3 cells raises (item 28)."""
-    check_nonperiodic_cells(grid.ncells, pbc)
+    that leave a non-periodic axis are dropped, and distances take the
+    minimum image on the periodic axes only."""
     n_pad = r.shape[0]
     sentinel = n_pad
     dev = r.device
@@ -190,18 +170,20 @@ def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
 
     cap = grid.cell_capacity
     ncells = torch.tensor(grid.ncells, device=dev)
-    stencil = torch.as_tensor(_stencil_for(grid.ncells), device=dev).long()
+    stencil = torch.as_tensor(_stencil_for(grid.ncells, pbc),
+                              device=dev).long()
     n_stencil = stencil.shape[0]
     # (N, S, 3) neighbor cell coords with the periodic wrap
     raw = c3[:, None, :] + stencil[None, :, :]
     ncid = _flat_cell(raw % ncells, grid.ncells)          # (N, S)
     cand = table[ncid].reshape(n_pad, n_stencil * cap)    # (N, C)
-    pbc_ok = None
+    pbc_ok = mask = None
     if pbc & 7 != 7:
         free = torch.tensor([not (pbc >> a) & 1 for a in range(3)],
                             device=dev)
         crossed = torch.any(((raw < 0) | (raw >= ncells)) & free, dim=-1)
         pbc_ok = ~torch.repeat_interleave(crossed, cap, dim=1)
+        mask = (~free).to(r.dtype)
     del raw, ncid
 
     # distances (minimum image).  Orthorhombic boxes compute them per
@@ -210,12 +192,13 @@ def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
     if geom.dim() == 1:
         d2 = torch.zeros(cand.shape, dtype=r.dtype, device=dev)
         for c in range(3):
-            dc = r[:, c][:, None] - r_ext[:, c][cand]
-            dc = dc - geom[c] * torch.round(dc / geom[c])
+            dc = nearest_image_pbc(
+                r[:, c][:, None] - r_ext[:, c][cand], geom[c:c + 1],
+                None if mask is None else mask[c:c + 1])
             d2 = d2 + dc * dc
         del dc
     else:
-        dr = min_image_geom(r[:, None, :] - r_ext[cand], geom)
+        dr = nearest_image_pbc(r[:, None, :] - r_ext[cand], geom, mask)
         d2 = torch.sum(dr * dr, dim=-1)
         del dr
 
@@ -240,17 +223,18 @@ def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
     return out[:, :K], count, overflow
 
 
-def neighbor_displacements(r, nbr_idx, geom):
-    """dr_ij = r_i - r_j with the minimum image, (N, K, 3), and the valid
-    mask (N, K)."""
+def neighbor_displacements(r, nbr_idx, geom, pbc_mask=None):
+    """dr_ij = r_i - r_j with the minimum image on the periodic axes
+    (pbc_mask: Box.pbc_mask, None when fully periodic), (N, K, 3), and
+    the valid mask (N, K)."""
     sentinel = r.shape[0]
     r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
-    dr = min_image_geom(r[:, None, :] - r_ext[nbr_idx], geom)
+    dr = nearest_image_pbc(r[:, None, :] - r_ext[nbr_idx], geom, pbc_mask)
     return dr, nbr_idx != sentinel
 
 
-def max_displacement2(r, r0, fmask, geom):
+def max_displacement2(r, r0, fmask, geom, pbc_mask=None):
     """max_i |r_i - r_i0|^2, the verlet-skin rebuild trigger
     (neighborCheck, ddcMD src/neighbor.c:117-199)."""
-    dr = min_image_geom(r - r0, geom)
+    dr = nearest_image_pbc(r - r0, geom, pbc_mask)
     return torch.max(torch.sum(dr * dr, dim=-1) * fmask)

@@ -17,9 +17,12 @@ reaches no Pallas kernel either), and its (ncell, cap, 14 cap)
 intermediates, a dozen or more alive in each pass, size it for small and
 mid-size decks.
 
-Like the JAX engine it takes no pbc mask: every stencil block is a
-periodic image.  A deck with a non-periodic axis would feel pairs through
-that wall, so run/forces.py refuses EAM with pbc < 7 (ROADMAP item 27).
+On a box with a non-periodic axis it takes the pair engine's stencil
+mask (`allowed`, ops/cellpair.pbc_allowed): a (cell, direction) block
+that crosses a wall adds nothing to either side's density in pass 1 and
+no force in pass 2, so the embedding derivative of an atom near the wall
+comes from its reduced density.  The JAX engine takes no mask and feels
+pairs through the wall.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ from .cellpair import CellBlockGrid, block_geometry
 
 
 def eam_cellblock_eval_half(r, sidx, fmask, perm, box_geom,
-                            grid: CellBlockGrid, tables, back_map):
+                            grid: CellBlockGrid, tables, back_map,
+                            allowed=None):
     """Forces, energy, virial and per-particle pe of the EAM term on a
-    half-stencil grid (half_grid), fully periodic.  perm from
-    build_cell_slots, back_map from half_back_map, tables from
-    eam_device_tables, box_geom (3,) lengths or a (3,3) h."""
+    half-stencil grid (half_grid).  perm from build_cell_slots, back_map
+    from half_back_map, tables from eam_device_tables, box_geom (3,)
+    lengths or a (3,3) h, `allowed` the pbc_allowed mask (pbc < 7)."""
     n_pad = r.shape[0]
     dt = r.dtype
     dev = r.device
@@ -61,7 +65,11 @@ def eam_cellblock_eval_half(r, sidx, fmask, perm, box_geom,
     Pc = P - centers[:, None, :]
     Q = (Q - centers[:, None, None, :]).reshape(ncell, S * cap, 3)
     Qt = Pt[stencil].reshape(ncell, S * cap)
-    Qv = Pv[stencil].reshape(ncell, S * cap)
+    Qv = Pv[stencil]
+    if allowed is not None:
+        # one mask on the pair weight w drops both sides of a block
+        Qv = Qv & torch.as_tensor(allowed, device=dev)[:, :, None]
+    Qv = Qv.reshape(ncell, S * cap)
 
     # dedup only inside the self block (index 0): keep lane > row once
     rows = torch.arange(cap, device=dev)

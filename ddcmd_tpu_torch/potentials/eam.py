@@ -46,7 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..nbr.celllist import min_image_geom
+from ..core.box import nearest_image_pbc
 from ..objects import DeckError, ObjectDB
 from ..objects import units as U
 
@@ -654,9 +654,10 @@ def _tab_lookup(tab, sel_idx, x, col, derivative):
 
 
 
-def eam_eval(r, sidx, fmask, nbr_idx, geom, tables):
+def eam_eval(r, sidx, fmask, nbr_idx, geom, tables, pbc_mask=None):
     """Two-pass EAM over the full (N,K) list (the JAX package's eam_eval,
-    on the same _pair_eval / _embedding).  Returns (f, e, virial, pe)."""
+    on the same _pair_eval / _embedding); pbc_mask as in
+    martini_nonbond.  Returns (f, e, virial, pe)."""
     sentinel = r.shape[0]
     form = tables["form"]
     T = tables["n_species"]
@@ -668,12 +669,14 @@ def eam_eval(r, sidx, fmask, nbr_idx, geom, tables):
         d_c = []
         r2 = torch.zeros(nbr_idx.shape, dtype=r.dtype, device=r.device)
         for c in range(3):
-            dc = r[:, c][:, None] - r_ext[:, c][nbr_idx]
-            dc = dc - geom[c] * torch.round(dc / geom[c])
+            dc = nearest_image_pbc(
+                r[:, c][:, None] - r_ext[:, c][nbr_idx], geom[c:c + 1],
+                None if pbc_mask is None else pbc_mask[c:c + 1])
             d_c.append(dc)
             r2 = r2 + dc * dc
     else:
-        dr = min_image_geom(r[:, None, :] - r_ext[nbr_idx], geom)
+        dr = nearest_image_pbc(r[:, None, :] - r_ext[nbr_idx], geom,
+                               pbc_mask)
         r2 = torch.sum(dr * dr, dim=-1)
 
     valid = ((nbr_idx != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)

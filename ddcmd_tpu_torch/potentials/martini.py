@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..nbr.celllist import min_image_geom
+from ..core.box import nearest_image_pbc
 from ..objects import ObjectDB
 from ..objects import units as U
 
@@ -134,7 +134,7 @@ def martini_device_tables(parms: MartiniParms, dtype=torch.float32,
 
 
 def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
-                    excl_tbl=None):
+                    excl_tbl=None, pbc_mask=None):
     """Forces, energy and virial over the full (N,K) neighbor list.
 
     r: (N,3) wrapped positions; q: (N,) charges; tidx: (N,) LJ type;
@@ -145,7 +145,8 @@ def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
     the list here, never computed and subtracted, and the bonded block
     runs its exclusion term in "rf_add" mode to restore the
     reaction-field part the reference keeps for them
-    (bioMartini.c:1124-1208).
+    (bioMartini.c:1124-1208).  pbc_mask: Box.pbc_mask on a box with a
+    non-periodic axis (the minimum image on the periodic axes only).
     Returns (f (N,3), e_pot, virial (3,3), pe (N,), (e_lj, e_ele))."""
     sentinel = r.shape[0]
     r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
@@ -158,12 +159,14 @@ def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
         d_c = []
         r2 = torch.zeros(nbr_idx.shape, dtype=r.dtype, device=r.device)
         for c in range(3):
-            dc = r[:, c][:, None] - r_ext[:, c][nbr_idx]
-            dc = dc - geom[c] * torch.round(dc / geom[c])
+            dc = nearest_image_pbc(
+                r[:, c][:, None] - r_ext[:, c][nbr_idx], geom[c:c + 1],
+                None if pbc_mask is None else pbc_mask[c:c + 1])
             d_c.append(dc)
             r2 = r2 + dc * dc
     else:
-        dr = min_image_geom(r[:, None, :] - r_ext[nbr_idx], geom)
+        dr = nearest_image_pbc(r[:, None, :] - r_ext[nbr_idx], geom,
+                               pbc_mask)
         r2 = torch.sum(dr * dr, dim=-1)
 
     pair_t = tidx[:, None] * tables["sigma"].shape[0] + t_ext[nbr_idx]

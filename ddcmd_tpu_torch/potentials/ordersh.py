@@ -30,7 +30,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..nbr.celllist import CellGrid, build_neighbor_list, min_image_geom
+from ..core.box import nearest_image_pbc
+from ..nbr.celllist import CellGrid, build_neighbor_list
 from ..objects import ObjectDB
 
 
@@ -85,7 +86,8 @@ def compile_ordersh(db: ObjectDB, name: str) -> OrderSHParms:
 
 def make_ordersh_eval(parms: OrderSHParms, n_global: int,
                       dtype=torch.float32):
-    """eval_fn(r, fmask, nbr_idx, geom) -> (f, e, virial, pe, phi): the
+    """eval_fn(r, fmask, nbr_idx, geom, pbc_mask=None) -> (f, e, virial,
+    pe, phi) (pbc_mask as in martini_nonbond): the
     bias energy N lamda f(phi), its forces -dE/dr, a zero virial and the
     energy spread evenly over the particles (pe = e / N), as the JAX
     package returns them."""
@@ -100,7 +102,7 @@ def make_ordersh_eval(parms: OrderSHParms, n_global: int,
     r1, r2 = parms.r1o, parms.r2o
     pref = 4.0 * math.pi / (2 * L + 1)
 
-    def phi_of(r, fmask, nbr_idx, geom):
+    def phi_of(r, fmask, nbr_idx, geom, pbc_mask=None):
         sentinel = r.shape[0]
         # a sentinel slot gathers its row's own position (a zero bond,
         # masked below) where the JAX package gathers a zero padding row:
@@ -109,7 +111,7 @@ def make_ordersh_eval(parms: OrderSHParms, n_global: int,
         rows = torch.arange(sentinel, device=r.device)[:, None]
         idx = torch.where(nbr_idx == sentinel, rows, nbr_idx)
         r_j = torch.index_select(r, 0, idx.reshape(-1)).view(*idx.shape, 3)
-        dr = min_image_geom(r[:, None, :] - r_j, geom)
+        dr = nearest_image_pbc(r[:, None, :] - r_j, geom, pbc_mask)
         d2 = torch.sum(dr * dr, dim=-1)
         valid = ((nbr_idx != sentinel) & (d2 > 0) & (d2 < r2 * r2)
                  & (fmask[:, None] > 0))
@@ -138,10 +140,10 @@ def make_ordersh_eval(parms: OrderSHParms, n_global: int,
         Ws = torch.clamp(W, min=1e-12)
         return pref * acc / (Ws * Ws), W
 
-    def eval_fn(r, fmask, nbr_idx, geom):
+    def eval_fn(r, fmask, nbr_idx, geom, pbc_mask=None):
         with torch.enable_grad():
             rg = r.detach().requires_grad_(True)
-            phi, _ = phi_of(rg, fmask, nbr_idx, geom)
+            phi, _ = phi_of(rg, fmask, nbr_idx, geom, pbc_mask)
             f_phi = phi - parms.Vo if parms.function == "LINEAR" else phi
             e = n_global * parms.lamda * f_phi
             (g,) = torch.autograd.grad(e, rg)

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..nbr.celllist import min_image_geom
+from ..core.box import nearest_image_pbc
 from ..objects import DeckError, ObjectDB
 from ..objects import units as U
 
@@ -80,9 +80,9 @@ def pairenergy_device_tables(parms, dtype=torch.float32, device="cpu"):
                 n_species=parms.n_species)
 
 
-def pairenergy_eval(r, sidx, fmask, nbr_idx, geom, tables):
-    """The series pair potential over the full (N,K) list.  Returns
-    (f, e, virial, pe)."""
+def pairenergy_eval(r, sidx, fmask, nbr_idx, geom, tables, pbc_mask=None):
+    """The series pair potential over the full (N,K) list; pbc_mask as in
+    martini_nonbond.  Returns (f, e, virial, pe)."""
     sentinel = r.shape[0]
     T = tables["n_species"]
     C = tables["coeffs"]            # (T*T, n_c)
@@ -90,7 +90,7 @@ def pairenergy_eval(r, sidx, fmask, nbr_idx, geom, tables):
 
     r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
     s_ext = torch.cat([sidx, sidx.new_zeros((1,))], dim=0)
-    dr = min_image_geom(r[:, None, :] - r_ext[nbr_idx], geom)
+    dr = nearest_image_pbc(r[:, None, :] - r_ext[nbr_idx], geom, pbc_mask)
     r2 = torch.sum(dr * dr, dim=-1)
     valid = ((nbr_idx != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)
              & (fmask[:, None] > 0))

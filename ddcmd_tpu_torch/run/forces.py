@@ -31,6 +31,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..core.box import pbc_mask_or_none
 from ..core.system import SystemDef
 from ..objects import units as U
 from ..ops import cellpair as cb
@@ -227,9 +228,9 @@ def build_force_fn(sysdef: SystemDef, grid, dtype=torch.float32,
     kernel; EAM its two-pass kernels.  engine "cellblock" (a
     CellBlockGrid.plan grid, any dtype, triclinic boxes, pbc < 7): the
     pair terms run the plain cell-block engine of ops/cellpair.py, EAM
-    that of ops/cellpair_eam.py; neither launches a kernel.  EAM with
-    pbc < 7 raises on either cell engine (item 27), as do a PAIR
-    TableFunction, PAIRENERGY and ORDERSH (the list engine's alone).
+    that of ops/cellpair_eam.py, both with the pbc < 7 stencil mask;
+    neither launches a kernel.  A PAIR TableFunction, PAIRENERGY and
+    ORDERSH raise on either cell engine (the list engine's alone).
     engine "nlist" (a CellGrid, any dtype and geometry) runs every term
     over the list (_nlist_terms) and launches no kernel.  The term list
     is kept as force_fn.terms (per-term profiling); each kernel term
@@ -359,8 +360,10 @@ def _nlist_terms(sysdef: SystemDef, dtype, device):
     """The terms of the (N,K)-list engine (run/forces.py:223-384 of the
     JAX package): MARTINI through martini_nonbond with the excluded
     pairs masked in the list, PAIR through pair_lj (LJ or the table), EAM
-    through eam_eval (any form, pbc < 7 too), PAIRENERGY, the ORDERSH
-    bias and RESTRAINT springs; each term's handle is the (N,K) list."""
+    through eam_eval (any form), PAIRENERGY, the ORDERSH bias and
+    RESTRAINT springs; each term's handle is the (N,K) list, and on a box
+    with a non-periodic axis each takes the minimum image on the
+    periodic axes only (the JAX terms take it on all three)."""
     state = sysdef.state
     excl_tbl = None
     if _inlist_excl(sysdef):
@@ -376,19 +379,20 @@ def _nlist_terms(sysdef: SystemDef, dtype, device):
             def term(state, box, nbr, tables=tables, tmap=tmap):
                 return martini_nonbond(state.r, state.q, tmap[state.species],
                                        state.fmask, nbr, box.geom, tables,
-                                       excl_tbl=excl_tbl)[:4]
+                                       excl_tbl=excl_tbl,
+                                       pbc_mask=pbc_mask_or_none(box))[:4]
         elif ptype == "PAIR":
             tables = pair_device_tables(parms, dtype=dtype, device=device)
 
             def term(state, box, nbr, tables=tables):
                 return pair_lj(state.r, state.species, state.fmask, nbr,
-                               box.geom, tables)
+                               box.geom, tables, pbc_mask_or_none(box))
         elif ptype == "EAM":
             tables = eam_device_tables(parms, dtype=dtype, device=device)
 
             def term(state, box, nbr, tables=tables):
                 return eam_eval(state.r, state.species, state.fmask, nbr,
-                                box.geom, tables)
+                                box.geom, tables, pbc_mask_or_none(box))
         elif ptype == "PAIRENERGY":
             from ..potentials.pairenergy import (pairenergy_device_tables,
                                                  pairenergy_eval)
@@ -398,14 +402,16 @@ def _nlist_terms(sysdef: SystemDef, dtype, device):
 
             def term(state, box, nbr, tables=tables):
                 return pairenergy_eval(state.r, state.species, state.fmask,
-                                       nbr, box.geom, tables)
+                                       nbr, box.geom, tables,
+                                       pbc_mask_or_none(box))
         elif ptype == "ORDERSH":
             from ..potentials.ordersh import make_ordersh_eval
 
             osh = make_ordersh_eval(parms, state.n_local, dtype)
 
             def term(state, box, nbr, osh=osh):
-                return osh(state.r, state.fmask, nbr, box.geom)[:4]
+                return osh(state.r, state.fmask, nbr, box.geom,
+                           pbc_mask_or_none(box))[:4]
         elif ptype == "RESTRAINT":
             term = _restraint_term(state, parms, dtype, device)
         elif ptype in ("NONE", "REFLECT"):
@@ -504,28 +510,27 @@ def _eam_term(parms, grid, engine, pbc, dtype, device):
     species index as the EAM type index: on "kernel" the two-pass kernels
     (the analytic forms and the tabularFit=rational refit, 1-4 species;
     the rest raises ValueError), on "cellblock" the plain cell-block EAM
-    engine (every form, any species count, geometry and dtype).  A deck
-    with pbc < 7 raises on either: the JAX engine would take images
-    through its non-periodic walls (item 27)."""
-    if pbc & 7 != 7:
-        raise NotImplementedError(
-            f"EAM with pbc={pbc}: the JAX EAM engine takes images through "
-            "non-periodic walls and the EAM kernels are fully periodic; "
-            "EAM with non-periodic axes is not ported (ROADMAP queue 1, "
-            "item 27)")
+    engine (every form, any species count, geometry and dtype) with the
+    pbc < 7 stencil mask.  The kernels are fully periodic: "kernel" on a
+    deck with pbc < 7 raises ValueError."""
     tables = eam_device_tables(parms, dtype=dtype, device=device)
     hg = half_grid(grid)
     if engine == "cellblock":
         back = half_back_map(hg)
+        allowed = pbc_allowed(hg, pbc)
 
         def eam_cb_term(state, box, perm):
             return eam_cellblock_eval_half(state.r, state.species,
                                            state.fmask, perm, box.geom, hg,
-                                           tables, back)
+                                           tables, back, allowed)
 
         eam_cb_term.grid = hg
         eam_cb_term.G = None
         return eam_cb_term
+    if pbc & 7 != 7:
+        raise ValueError(
+            f"engine 'kernel': EAM with pbc={pbc}: the EAM kernels are "
+            "fully periodic; the deck runs on engine 'cellblock'")
     if not eam_half_supported(tables):
         raise ValueError(
             f"engine 'kernel': EAM form {tables['form']} with "

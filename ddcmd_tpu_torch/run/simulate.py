@@ -24,8 +24,12 @@ PyTorch, no kernel) for decks with PAIRENERGY or ORDERSH and decks
 whose exclusion graph has a component wider than the cell engines'
 12-member encoding.  Where the JAX choice gives a wrong result the port
 raises instead: a TableFunction PAIR deck (zero pair force on the JAX
-cell engines) asks for engine="nlist", and EAM with non-periodic axes
-raises on the cell engines (item 27).  The cell-block plan is
+cell engines) asks for engine="nlist".  Where a JAX engine is wrong on
+non-periodic axes the port masks them: the cell-block EAM engine drops
+the stencil blocks that cross a wall (the JAX one takes images through
+it), and the list keeps the full stencil on a non-periodic axis of
+fewer than 3 cells and takes the minimum image on the periodic axes
+only.  The cell-block plan is
 CellBlockGrid.plan's and an overflow grows its cap by 1.5; the list's is
 core/system.plan_grid's and an overflow grows its cell capacity and K
 by 1.5.
@@ -110,7 +114,7 @@ from ..integrators.nglf import StepState, first_energy_call, make_nglf_step
 from ..integrators.nglfnk import make_nglfnk_step
 from ..integrators.nptglf import make_nptglf_step
 from ..io.collection import read_collection
-from ..nbr.celllist import build_neighbor_list, check_nonperiodic_cells
+from ..nbr.celllist import build_neighbor_list
 from ..objects import ObjectDB
 from ..objects import units as U
 from ..ops.cellpair import CellBlockGrid, build_cell_slots
@@ -469,14 +473,10 @@ class Simulation:
     def _plan(self, box):
         """The engine's cell plan at `box`: plan_lanes for the kernels,
         CellBlockGrid.plan (perpendicular spans) for the cell-block
-        engine, plan_grid (perpendicular spans) for the list, which
-        raises where a non-periodic axis has fewer than 3 cells (item
-        28)."""
+        engine, plan_grid (perpendicular spans) for the list."""
         sd = self.sysdef
         if self.engine == "nlist":
-            grid = plan_grid(sd, plan_margin=self._plan_margin, box=box)
-            check_nonperiodic_cells(grid.ncells, sd.box.pbc)
-            return grid
+            return plan_grid(sd, plan_margin=self._plan_margin, box=box)
         geom = box.geom.cpu().numpy().astype(np.float64)
         if self.engine == "kernel":
             return plan_lanes(geom, sd.rcut_max, sd.neighbor_deltaR,
@@ -1031,13 +1031,17 @@ class Simulation:
         ones); then the engine, the molecule class, the constraint
         projector, the plan, the force function and the step are
         derived anew (_derive), and the stale-list and overflow ladders
-        start over.  A count change on a deck with bonded terms,
-        exclusions, constraints or molecules of more than one bead
-        raises (ROADMAP item 29: the JAX package keeps the old topology,
-        so only the first copy keeps its terms)."""
-        from ..analysis.registry import VelocityAutocorrelation
+        start over.  On a deck with a MARTINI or CHARMM term the topology
+        is built anew over the new collection first (core/system.
+        build_topology: residues, bonded terms, exclusions, chain links,
+        constraints; the JAX package keeps the old one, so only its first
+        copy keeps its terms): a REPLICATE makes each molecule whole
+        about its first bead before it tiles and wraps the copies into
+        the new box after, and a transform that keeps part of a residue
+        raises ValueError naming it."""
         from ..core.box import Box
         from ..core.state import State
+        from ..core.system import build_topology
         from ..transforms.registry import TransformContext, apply_transform
 
         sd = self.sysdef
@@ -1059,6 +1063,11 @@ class Simulation:
                          if t is tobj), 1)
         ctx.run_dir = self.run_dir
         ctx.base_dir = self.base_dir
+        graph = self._bond_graph()
+        replicate = (graph is not None
+                     and tobj.get_str("type").upper() == "REPLICATE")
+        if replicate:
+            ctx.r = self._whole_molecules(ctx.r, ctx.h, graph)
         apply_transform(ctx, tobj)
         box = Box.from_h(ctx.h, pbc=self.ss.box.pbc, dtype=self.dtype,
                          device=self.device)
@@ -1075,24 +1084,18 @@ class Simulation:
             col.group_names = ctx.group_names
             self.first_energy()
             return
-        vaf = [a.name for a in self.analyses
-               if isinstance(a, VelocityAutocorrelation)]
-        if vaf and n_new != n:
-            # its eval forms v * v0 with v0 of the old count: the JAX
-            # package raises numpy's broadcast error at the next eval
-            raise NotImplementedError(
-                f"TRANSFORM {tobj.name} ({tobj.get_str('type')}) changes the "
-                f"particle count {n} -> {n_new} under the "
-                f"VELOCITYAUTOCORRELATION analysis {', '.join(vaf)}: its "
-                "v(0) is not carried across a count change (ROADMAP queue "
-                "1, item 30)")
-        topology = self._topology() if n_new != n else []
-        if topology:
-            raise NotImplementedError(
-                f"TRANSFORM {tobj.name} ({tobj.get_str('type')}) changes the "
-                f"particle count {n} -> {n_new} on a deck with "
-                f"{', '.join(topology)}: the topology is not built for the "
-                "new particles (ROADMAP queue 1, item 29)")
+        topo = None
+        if sd.bonded is not None and n_new != n:
+            self._check_whole_residues(tobj, ctx.gid)
+            if replicate:
+                m = box.pbc_mask.cpu().numpy().astype(np.float64)
+                L = np.diagonal(ctx.h)
+                ctx.r = ctx.r - L * np.round(ctx.r / L) * m
+            # built before the state changes: a residue the scan does not
+            # match raises here and leaves the run as it was
+            topo = build_topology(
+                self.db, self.db.get(sd.cfg.system_name, "SYSTEM"),
+                sd.potentials, ctx.species_names, ctx.gid)
         sp_index = {s.name: s.index for s in sd.species}
         grp_index = {g.name: g.index for g in sd.groups}
         sidx = np.array([sp_index[s] for s in ctx.species_names],
@@ -1110,6 +1113,8 @@ class Simulation:
         col.r = ctx.r
         col.v = ctx.v
         sd.box = box
+        if topo is not None:
+            sd.bonded, sd.residue_instances, sd.n_constraints = topo
         self.ss = self.ss.replace(state=sd.state, box=box)
         self._derive(box, self.ss.time)
         self._forced_spr = None
@@ -1117,19 +1122,64 @@ class Simulation:
         self._clean_disp = 0
         self.first_energy()
 
-    def _topology(self) -> list[str]:
-        """What of the deck's topology a particle-count change would
-        leave behind: its bonded term families, constraints and
-        molecules of more than one bead."""
-        sd = self.sysdef
-        counts = sd.bonded.counts() if sd.bonded is not None else {}
-        out = [k for k, v in counts.items()
-               if v and k not in ("cons_groups", "n_constraints")]
-        if sd.n_constraints:
-            out.append("constraints")
-        if self.molecules is not None and not self.molecules.is_trivial:
-            out.append("molecules of more than one bead")
+    def _bond_graph(self):
+        """(E, 2) rows of the topology's bonds and exclusions, which hold
+        every bond, constraint and chain link, or None."""
+        bt = self.sysdef.bonded
+        edges = [] if bt is None else [
+            e for e in (bt.bonds, bt.exclusions) if e is not None and len(e)]
+        return np.concatenate(edges).astype(np.int64) if edges else None
+
+    def _whole_molecules(self, r, h, e):
+        """r (n, 3) with each molecule of the bond graph e (_bond_graph)
+        made whole about its first bead in gid order: breadth first along
+        the graph, each bead at the minimum image, on the periodic axes,
+        of its parent's place.  The state's beads are wrapped one by one,
+        so a molecule the box boundary cuts would tile with a bond ~L
+        long in each copy."""
+        a = np.concatenate([e[:, 0], e[:, 1]])
+        b = np.concatenate([e[:, 1], e[:, 0]])
+        n = len(r)
+        # component labels: the least gid rank over the component
+        rank = np.empty(n, np.int64)
+        rank[np.argsort(self.sysdef.collection.gid[:n], kind="stable")] = \
+            np.arange(n)
+        label = rank.copy()
+        while True:
+            new = label.copy()
+            np.minimum.at(new, a, label[b])
+            if np.array_equal(new, label):
+                break
+            label = new
+        L = np.diagonal(h)
+        m = self.ss.box.pbc_mask.cpu().numpy().astype(np.float64)
+        out = np.array(r, dtype=np.float64)
+        placed = rank == label
+        while True:
+            sel = placed[a] & ~placed[b]
+            if not sel.any():
+                break
+            child, first = np.unique(b[sel], return_index=True)
+            parent = a[sel][first]
+            d = r[child] - r[parent]
+            out[child] = out[parent] + d - L * np.round(d / L) * m
+            placed[child] = True
         return out
+
+    def _check_whole_residues(self, tobj, new_gid):
+        """Raise ValueError when the transform keeps part of a residue
+        instance (by gid): the topology is instantiated over whole
+        residues only."""
+        col = self.sysdef.collection
+        kept = np.isin(col.gid, new_gid)
+        for rn, rows in self.sysdef.residue_instances:
+            k = kept[rows]
+            if k.any() and not k.all():
+                raise ValueError(
+                    f"TRANSFORM {tobj.name} ({tobj.get_str('type')}) keeps "
+                    f"{int(k.sum())} of the {len(rows)} particles of residue "
+                    f"{rn} at gid {int(col.gid[rows].min())}: a particle-"
+                    "count change keeps whole residues only")
 
     def _dev(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)

@@ -252,6 +252,23 @@ def test_paircorrelation_blocks_equal_jax(tmp_path, monkeypatch):
     assert th.sum() > 1000 and th.dtype == np.float64
 
 
+@pytest.mark.parametrize("rows", [29, None])
+def test_pairanalysis_blocks_equal_jax(monkeypatch, capsys, rows):
+    """PAIRANALYSIS's count on the device in row blocks (7 blocks of 29
+    rows, or one block) equals the JAX package's dense (n, n) f64 numpy
+    count, at a radius that holds ~800 ordered pairs."""
+    x = _inputs("fluid", seed=5)
+    sims = _sims(x)
+    pair = _analyses("p ANALYSIS { type=PAIRANALYSIS; rmax=0.5 nm; }", "p")
+    if rows is not None:
+        monkeypatch.setattr(treg, "PAIR_BLOCK_BYTES", rows * 200 * 96)
+    for a, sim in zip(pair, sims):
+        a.eval(sim)
+    j, t = (a.state["cnt"] for a in pair)
+    assert t == j and isinstance(t, int) and j > 500
+    assert capsys.readouterr().out.split() == [f"cnt={j}"] * 2
+
+
 @pytest.mark.parametrize("maker,expect", [(fcc, 1), (bcc, 3)],
                          ids=["fcc", "bcc"])
 def test_classifiers_on_perfect_crystals(maker, expect):

@@ -6,8 +6,8 @@ cadence; one JAX run for the module), the dispatch that ends on a rate
 the cadence steps over, the final output after a run and after a stop,
 the `analysis` command, the rescan of the rates and its rollback, an
 analysis at a transform's loop, VELOCITYAUTOCORRELATION across a count
-change (ROADMAP item 30), and the analysis master against the JAX
-package's.
+change (ROADMAP item 30: carried by gid in the port, broken in the JAX
+package), and the analysis master against the JAX package's.
 
 Tolerances: the run's files within 1e-7 relative of the JAX run's (the
 two trajectories part at the f64 rounding level); the master's files
@@ -155,20 +155,35 @@ def test_print_stress_rows_at_printrate(runs):
 
 
 def test_vaf_across_a_count_change_is_item_30(runs, tmp_path):
-    """A REPLICATE under VELOCITYAUTOCORRELATION: the port raises naming
-    item 30 before the transform, its state untouched; the JAX package
+    """A REPLICATE 2x2x2 under VELOCITYAUTOCORRELATION: the JAX package
     replicates and its next VAF eval raises numpy's broadcast error
-    (finding 2)."""
+    (finding 2); the port's VAF carries v(0) by gid, so its eval after
+    the replica averages v.v(0) over the 400 gids present at both times
+    (the copies' 2,800 new gids join at the block's restart): the rows
+    equal a direct C(t) over the kept gids (rel 1e-10)."""
     d, out = runs
     assert isinstance(out["jax_vaf"], ValueError)
     assert "broadcast" in str(out["jax_vaf"])
     ts = _port(d, run_dir=str(tmp_path / "t"))
     ts.first_energy()
-    r0 = ts.ss.state.r.clone()
-    with pytest.raises(NotImplementedError, match="vaf.*item 30"):
-        ts.apply_transform(ts.db.get("rep", "TRANSFORM"))
-    assert ts.sysdef.state.n_local == 400
-    assert torch.equal(ts.ss.state.r, r0)
+    vaf = next(a for a in ts.analyses if a.name == "vaf")
+    v0, g0 = ts.ss.state.v[:400].numpy().copy(), ts.ss.state.gid[:400].copy()
+    vaf.eval(ts)
+    ts.apply_transform(ts.db.get("rep", "TRANSFORM"))
+    assert ts.sysdef.state.n_local == 3200
+    # new velocities, each particle's its own factor
+    st = ts.ss.state
+    scale = np.random.default_rng(4).uniform(0.5, 1.5, (st.n_pad, 1))
+    ts.ss = ts.ss.replace(state=st.replace(v=st.v * torch.as_tensor(scale)))
+    vaf.eval(ts)
+    v, g = ts.ss.state.v[:3200].numpy(), ts.ss.state.gid[:3200]
+    both, now, then = np.intersect1d(g, g0, return_indices=True)
+    assert len(both) == 400 and len(vaf.state["rows"]) == 2
+    assert vaf.state["rows"][1][1] == pytest.approx(
+        (v[now] * v0[then]).sum() / 400, rel=1e-10)
+    vaf.eval(ts)                    # length 2: a new block, all 3,200
+    assert vaf.state["rows"][0][1] == pytest.approx(
+        (v * v).sum() / 3200, rel=1e-10)
 
 
 def test_final_output_after_a_run_and_a_stop(tmp_path):

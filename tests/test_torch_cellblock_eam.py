@@ -5,7 +5,8 @@ asymmetric T = 2 alloy and five species; orthorhombic and triclinic),
 the engine choice, the TABULAR deck and its refit through Simulation and
 the mesh, triclinic / f64 / five-species decks through the CLI, NONE
 terms in both packages, and EAM with non-periodic axes: the JAX engine's
-pair through the wall and the port's refusal (item 27).
+pair through the wall, and the port's masked engine against a direct sum
+(item 27; the rest of it in tests/test_torch_walls.py).
 
 Tolerances (as tests/test_torch_tabular_eam.py states them): the f64
 engines at 1e-9 of the force scale, energy rel 1e-12, virial and
@@ -314,17 +315,34 @@ def test_jax_eam_engine_takes_images_through_walls():
 
 @pytest.mark.parametrize("engine", ["auto", "cellblock", "kernel"])
 def test_eam_with_open_axes_raises(engine, tmp_path):
-    """An EAM deck with pbc = 3 raises NotImplementedError naming item 27
-    on the cell-block engine (auto's choice for pbc < 7) and ValueError on
-    an explicit engine="kernel", instead of running it periodic as the
-    JAX engine would."""
+    """An EAM deck with pbc = 3 (the 108-atom crystal, one cell of the
+    cell-block plan on each axis) runs on the cell-block EAM engine under
+    auto and on an explicit "cellblock", its stencil masked at the z
+    walls: the first energy, forces, virial and per-particle energy in
+    f64 equal a direct O(N^2) sum over every pair and periodic image
+    (tests/test_torch_walls.py) at 1e-8 of the force scale.  An explicit
+    engine="kernel" still raises ValueError: the EAM kernels are fully
+    periodic."""
+    from test_torch_walls import assert_matches, direct_eam
+
     d = str(tmp_path)
     p = chip_smoke.eam_deck(d, 3, 10, free=True)
     with open(p) as f:
         text = f.read()
     with open(p, "w") as f:
         f.write(text.replace("pbc=7;", "pbc=3;"))
-    err, match = ((ValueError, "pbc=3") if engine == "kernel" else
-                  (NotImplementedError, "pbc=3.*item 27"))
-    with pytest.raises(err, match=match):
-        TSimulation(*t_load(d), run_dir=d, device="cpu", engine=engine)
+    if engine == "kernel":
+        with pytest.raises(ValueError, match="pbc=3"):
+            TSimulation(*t_load(d), run_dir=d, device="cpu", engine=engine)
+        return
+    sim = TSimulation(*t_load(d), run_dir=d, device="cpu", engine=engine,
+                      dtype=torch.float64)
+    assert sim.engine == "cellblock" and sim.grid.ncells == (1, 1, 1)
+    sim.first_energy()
+    st, n = sim.ss.state, sim.sysdef.state.n_local
+    tables = team.eam_device_tables(sim.sysdef.potentials[0][2],
+                                    dtype=torch.float64)
+    ref = direct_eam(st.r[:n].numpy(), st.species[:n].numpy(),
+                     sim.ss.box.lengths.numpy(), 3, tables)
+    assert_matches((st.f[:n], sim.ss.energy.eion, sim.ss.energy.virial,
+                    st.pe[:n]), ref)

@@ -2,9 +2,9 @@
 build_neighbor_list in float64 (rows element by element, counts, the
 overflow flag) on orthorhombic and triclinic boxes, pbc = 3 with 3 or
 more cells on z, 2-cell periodic axes and an overflowing plan; the
-item-28 raise where the JAX list is wrong (a non-periodic axis of 1 or
-2 cells), beside the JAX list's through-wall and asymmetric pairs; the
-engine choice; the slice: Simulation(engine="nlist") on small decks of
+port's list where the JAX list is wrong (a non-periodic axis of 1 or 2
+cells: no pair through the wall), beside the JAX list's through-wall
+and asymmetric pairs; the engine choice; the slice: Simulation(engine="nlist") on small decks of
 configurations (A) (EAM + ORDERSH) and (B) (the TableFunction fluid), a
 PAIRENERGY deck, a bilayer with a widened exclusion graph and an EAM
 crystal with pbc = 3 against
@@ -155,18 +155,24 @@ def test_neighbor_list_equals_jax(name, rows):
             jnp.asarray(geom))), rel=1e-14)
 
 
-@pytest.mark.parametrize("nz,Lz,z,jax_counts", [
-    (2, 1.2, 0.1, [1, 0]),      # the +1 reach of cell 1 wraps: dropped
-    (1, 1.0, 0.45, [1, 1]),     # one cell: the image 0.1 nm through the wall
-    (3, 2.0, 0.9, [0, 0]),      # right: no pair through the wall
+@pytest.mark.parametrize("nz,Lz,z,jax_counts,counts", [
+    # 0.2 nm apart inside the box, one in each cell: the +1 reach of cell
+    # 1 wraps and the JAX list drops it, so only cell 0 sees the pair
+    (2, 1.2, 0.1, [1, 0], [1, 1]),
+    # one cell: 0.9 nm apart inside, the image 0.1 nm through the wall
+    (1, 1.0, 0.45, [1, 1], [0, 0]),
+    # 3 cells, 0.2 nm through the wall: both lists right
+    (3, 2.0, 0.9, [0, 0], [0, 0]),
 ])
-def test_nonperiodic_axis_of_few_cells(nz, Lz, z, jax_counts):
-    """Where the JAX list is wrong (ROADMAP item 28): two atoms 0.2 nm
-    apart across the non-periodic z wall of an L = (3, 3, Lz) box, rlist
-    0.55, pbc = 3.  With 2 cells on z the JAX list is asymmetric (counts
-    [1, 0], Newton's third law fails), with 1 cell both atoms list each
-    other through the wall; the port raises naming item 28 for both.
-    With 3 cells both lists are empty and equal."""
+def test_nonperiodic_axis_of_few_cells(nz, Lz, z, jax_counts, counts):
+    """Where the JAX list is wrong (ROADMAP item 28, the finding kept):
+    two atoms at z = -+z on the non-periodic z of an L = (3, 3, Lz) box,
+    rlist 0.55, pbc = 3.  With 2 cells on z the JAX list is asymmetric
+    (counts [1, 0], Newton's third law fails), with 1 cell both atoms
+    list each other through the wall.  The port's list keeps the pair
+    inside the box from both sides and none through the wall; with 3
+    cells it equals JAX's.  Two atoms 0.3 nm apart about z = 0 list each
+    other once each on every axis length."""
     geom = np.array([3.0, 3.0, Lz])
     r = np.array([[0.0, 0.0, -z], [0.0, 0.0, z]])
     fm = np.ones(2)
@@ -175,15 +181,16 @@ def test_nonperiodic_axis_of_few_cells(nz, Lz, z, jax_counts):
     j = _jax_list(jnp.asarray(r), jnp.asarray(fm), jnp.asarray(geom),
                   grid=jcl.CellGrid(**grid), pbc=3)
     assert np.asarray(j[1]).tolist() == jax_counts
-    if nz < 3:
-        with pytest.raises(NotImplementedError, match="item 28"):
-            tcl.build_neighbor_list(_t(r), _t(fm), _t(geom),
-                                    tcl.CellGrid(**grid), pbc=3)
-        return
     t = tcl.build_neighbor_list(_t(r), _t(fm), _t(geom),
                                 tcl.CellGrid(**grid), pbc=3)
-    np.testing.assert_array_equal(t[0].numpy(), np.asarray(j[0]))
-    assert t[1].tolist() == [0, 0]
+    assert t[1].tolist() == counts
+    if nz >= 3:
+        np.testing.assert_array_equal(t[0].numpy(), np.asarray(j[0]))
+    inside = np.array([[0.0, 0.0, -0.15], [0.0, 0.0, 0.15]])
+    t = tcl.build_neighbor_list(_t(inside), _t(fm), _t(geom),
+                                tcl.CellGrid(**grid), pbc=3)
+    assert t[1].tolist() == [1, 1]
+    assert t[0][:, 0].tolist() == [1, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -218,9 +225,10 @@ def test_engine_choice(tmp_path):
     auto and raise ValueError on an explicit cell engine; the table deck
     raises under auto and on the cell engines, naming engine="nlist";
     the widened bilayer goes to "nlist" under auto with the demotion
-    warning and raises ValueError on "kernel"; "nlist" takes any deck; a
-    list plan with a non-periodic axis of fewer than 3 cells raises
-    naming item 28 (the 500-atom slab: 2 cells on z)."""
+    warning and raises ValueError on "kernel"; "nlist" takes any deck,
+    the 500-atom slab too (2 list cells on its non-periodic z), whose
+    first energy in f64 there equals the cell-block engine's under auto
+    (rel 1e-10)."""
     for kind in ("A", "pairenergy"):
         d = _deck(tmp_path, kind)
         assert tsim.Simulation(*t_load(d), run_dir=d,
@@ -245,10 +253,13 @@ def test_engine_choice(tmp_path):
             tsim.Simulation(*t_load(d), run_dir=d, device="cpu",
                             engine="kernel")
     d = _deck(tmp_path, "slab")
-    sim = tsim.Simulation(*t_load(d), run_dir=d, device="cpu")
-    assert sim.engine == "cellblock"
-    with pytest.raises(NotImplementedError, match="item 28"):
-        tsim.Simulation(*t_load(d), run_dir=d, device="cpu", engine="nlist")
+    sims = [tsim.Simulation(*t_load(d), run_dir=d, device="cpu",
+                            dtype=torch.float64, engine=eng)
+            for eng in ("auto", "nlist")]
+    assert [s.engine for s in sims] == ["cellblock", "nlist"]
+    assert sims[1].grid.ncells[2] == 2
+    e = [float(s.first_energy().energy.eion) for s in sims]
+    assert e[1] == pytest.approx(e[0], rel=1e-10)
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +276,8 @@ def test_slice_matches_jax_nlist(tmp_path, kind):
     (engine="nlist"), the crystal with a PAIRENERGY series (auto), the
     nx = 2 bilayer with its exclusions widened past 12 members the same
     way in both (the port under auto, JAX's engine "nlist"), and an EAM
-    crystal with pbc = 3 and 3 list cells on z (engine "nlist"; the cell
-    engines refuse it, item 27)."""
+    crystal with pbc = 3 and 3 list cells on z (engine "nlist"; the
+    cell-block EAM engine's turn is tests/test_torch_walls.py)."""
     d = _deck(tmp_path, kind)
     t_eng = "nlist" if kind in ("B", "eam-pbc3") else "auto"
     j_eng = "nlist" if kind in ("B", "bilayer", "eam-pbc3") else "auto"

@@ -4,7 +4,8 @@ ddcMD_CMDS (against the JAX package in f64), the re-plan of a shrinking
 BOX and the engine change of a tilting one, the change from the per-cell kernel #1 to the column kernel #2
 when a replica passes the 256-cell gate (their plain versions here), and
 ROADMAP item 29: a particle-count change on a deck with a topology
-raises, where the JAX package keeps the old topology.
+rebuilds it (2x after a replica), where the JAX package keeps the old
+topology (the rest of item 29 is tests/test_torch_topology_rebuild.py).
 
 Tolerances: positions within 1e-8 of the box edge and velocities of the
 largest |v| after the runs; first energies within 1e-10 relative in
@@ -201,34 +202,32 @@ def test_replica_moves_to_the_column_kernel(tmp_path):
 def test_count_change_on_a_topology_is_item_29(tmp_path, deck):
     """REPLICATE nz=2 in f64: on the 672-bead bilayer (bonds, angles,
     exclusions, RATTLE constraints, three-bead and larger molecules) the
-    port raises naming item 29, and the JAX package's eion goes ~1.28x
-    where a periodic replica must give 2x (its rebuild keeps the old
-    bonded terms and exclusions: only the first copy keeps them); the
-    water box of 1,500 beads, which has none, gives 2x in both (1e-10)."""
+    port builds the topology anew and its eion goes 2x (1e-10), the
+    bonded counts and the constraints too, where the JAX package's goes
+    ~1.28x (its rebuild keeps the old bonded terms and exclusions: only
+    the first copy keeps them; the finding behind item 29); the water
+    box of 1,500 beads, which has none, gives 2x in both (1e-10)."""
     d = str(tmp_path / "deck")
     os.makedirs(d)
     if deck == "bilayer":
         j_martini_bilayer(d, nx=4, ny=4)
-        with pytest.raises(NotImplementedError, match="item 29"):
-            ts = TSimulation(*t_load(d), run_dir=d, device="cpu",
-                             dtype=torch.float64)
-            ts.first_energy()
-            ts.db.compile_string("rep TRANSFORM { type=REPLICATE; nz=2; }\n")
-            ts.apply_transform(ts.db.get("rep", "TRANSFORM"))
-        assert ts.sysdef.state.n_local == 672       # nothing was changed
     else:
         martini_water(d, n=1500)
-    sims = [("jax", JSimulation(*j_load(d), run_dir=d, dtype=jnp.float64))]
-    if deck == "water":
-        sims.append(("torch", TSimulation(*t_load(d), run_dir=d,
-                                          device="cpu", dtype=torch.float64)))
+    sims = [("jax", JSimulation(*j_load(d), run_dir=d, dtype=jnp.float64)),
+            ("torch", TSimulation(*t_load(d), run_dir=d, device="cpu",
+                                  dtype=torch.float64))]
     for where, sim in sims:
         sim.first_energy()
         e0 = float(sim.ss.energy.eion)
+        c0 = sim.sysdef.bonded.counts()
         sim.db.compile_string("rep TRANSFORM { type=REPLICATE; nz=2; }\n")
         sim.apply_transform(sim.db.get("rep", "TRANSFORM"))
         ratio = float(sim.ss.energy.eion) / e0
-        if deck == "water":
+        if deck == "water" or where == "torch":
             assert ratio == pytest.approx(2.0, rel=1e-10), where
         else:
             assert 1.2 < ratio < 1.4, ratio
+        if where == "torch":
+            assert sim.sysdef.bonded.counts() == {k: 2 * v
+                                                  for k, v in c0.items()}
+            assert sim.sysdef.n_constraints == c0["n_constraints"] * 2
