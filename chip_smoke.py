@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only |
                            --integrators-only | --masters-only |
                            --transforms-only | --analyses-only |
-                           --rebuilds-only]
+                           --rebuilds-only | --loadbalance-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -243,10 +243,32 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      its z doubled (two free (100) surfaces) on the cell-block EAM engine
      under auto:
      first energy and forces against engine "nlist", the surface energy,
-     200 NVE steps and their drift; (c) the 500-atom LJ slab (2 list
+     100 NVE steps and their drift; (c) the 500-atom LJ slab (2 list
      cells on its non-periodic z) on engine "nlist" in f64: card against
      the CPU and against the same deck with z doubled.  Row of its own:
      cellpair_half_col_rebuild (#2 on (a)'s last records).
+ 25. the mesh's load balance (ROADMAP item 25, first part): (a) the dry
+     run's zRamp deck (martini_bilayer nx = ny = 12, water 1.2 nm) under
+     a (2,2,2) ZRAMP plan (tensor walls) and a BISECTION plan (ORCB
+     walls) of its start state: each plan's eight bricks through the
+     mesh's per-rank pair function on #6 with exclusions, their halo
+     shells filled from the host and the ghost shares reduced home by
+     row, forces and energy against Simulation's pair term on the same
+     state; #6 against its plain version on the narrowest and the widest
+     brick of each plan, with bounds; (b) the nc = 12 crystal's eight
+     bricks under walls x 0.42, y 0.58 through the two #7 passes (the
+     densities reduced and the embedding taken between them) against
+     Simulation, #7 against its plain version on the widest brick; (c)
+     the water box through ParallelSimulation at (1,1,1), 1000 NVT steps
+     without load balance and 1000 with ZRAMP at rate 100 on #6 (the
+     rebalances counted, steps/s of both), the checkpoint (pxyz beside
+     it), its restart through Simulation (first energy within 2e-5) and
+     through the mesh (the walls resumed), run_analyses (PAIRCORRELATION,
+     VCMWRITE, KINETICENERGYDISTN, ZDENSITY, SSF sharded, the VAF on the
+     gathered view) against the gathered view and against Simulation's
+     evals on the restart.  Rows of its own: cellpair_half_ext_excl_walls,
+     cellpair_half_ext_orcb, eam_rho_ext_walls and eam_force_ext_walls,
+     each with the launches of (a) or (b)'s eight bricks.
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -256,7 +278,8 @@ the kernels' JSON line, the card line, and last {"ok": true, "device":
 result; --charmm-only does the same with phase 19, --integrators-only
 with phase 20, --masters-only with phase 21 (making the bilayer's restart
 as phase 6's first stage does), --transforms-only with phase 22,
---analyses-only with phase 23, --rebuilds-only with phase 24.
+--analyses-only with phase 23, --rebuilds-only with phase 24,
+--loadbalance-only with phase 25.
 """
 
 import contextlib
@@ -5123,7 +5146,7 @@ WATER_ANALYSES = {
     "vcm": "type=VCMWRITE; eval_rate=30; outputrate=500;",
     "ke": f"type=KINETICENERGYDISTN; nBins=50; max=20 kJ/mol; {AN_RATES}",
     "zd": f"type=ZDENSITY; nBins=50; {AN_RATES}",
-    "ssf": f"type=SSF; nShells=16; kmax=4 1/nm; {AN_RATES}",
+    "ssf": f"type=SSF; nShells=16; kmax=3 1/nm; {AN_RATES}",
     "vaf": f"type=VELOCITYAUTOCORRELATION; {AN_RATES}",
     "fa": f"type=FORCEAVERAGE; {AN_RATES}",
     "ds": f"type=DATASUBSET; {AN_RATES}",
@@ -5538,7 +5561,7 @@ VAF_RATE, VAF_LENGTH, VAF_TOL = 20, 15, 1e-6
 # (in f32 the card's forces sat 1.86e-6 of the scale from the CPU's in
 # PR 18's first run: reduction order and contraction, no pair missing;
 # a pair through the wall or a one-sided pair moves a force by ~1e-2)
-SLAB_NC, SLAB_NVE, SLAB_REL, LIST_REL = 12, 200, 1e-5, 1e-6
+SLAB_NC, SLAB_NVE, SLAB_REL, LIST_REL = 12, 100, 1e-5, 1e-6
 EV_PER_NM2 = 0.1602177         # J/m^2 in one eV/nm^2
 
 
@@ -5796,6 +5819,422 @@ def rebuilds_phase(card, dev, counters_zero, all_counters, failed):
     return rows_out
 
 
+# --- phase 25 (item 25, first part): the mesh's load balance --------------
+# (a) the dry run's zRamp deck (__graft_entry__.py:410-444), a (2,2,2)
+# ZRAMP and a BISECTION plan of its start state, every brick evaluated
+# on the card by the mesh's own per-rank pair function with its halo
+# shell filled from the host, the ghost shares reduced home by row (what
+# halo_reduce_3d does across ranks): forces and energy against
+# Simulation's pair term on the same state; (b) the nc = 12 crystal under
+# the skewed walls of tests/test_pallas_shard.py:338-372, its eight
+# bricks through the two EAM passes with the densities reduced and the
+# embedding taken between them, against Simulation's; (c) the water box
+# through ParallelSimulation at (1,1,1), LB_STEPS NVT steps without load
+# balance and with ZRAMP at LB_RATE, the checkpoint, its restarts and
+# the analyses
+LB_BILAYER = dict(nx=12, ny=12, water_nm=1.2)
+LB_SKEW = (np.array([0.0, 0.42, 1.0]), np.array([0.0, 0.58, 1.0]),
+           np.array([0.0, 0.5, 1.0]))
+LB_STEPS, LB_RATE = 1000, 100
+# (a), (b): forces over the scale and the energy, relative, of the eight
+# bricks against Simulation's evaluation on the card (f32 both, other
+# cells and other summation orders: the mesh tests' 2e-5 (pair) and 5e-5
+# (EAM) of the scale against f64)
+LB_F_TOL, LB_EAM_F_TOL, LB_E_REL = 5e-5, 1e-4, 2e-5
+# (c): the analyses of the mesh against Simulation's on the restart: the
+# histograms exactly, the floats to AN_MESH_TOL of their scale
+LB_ANALYSES = {
+    "gr": "type=PAIRCORRELATION; delta_r=0.02 nm; length=60;",
+    "vcm": "type=VCMWRITE;",
+    "ke": "type=KINETICENERGYDISTN; nBins=50; max=20 kJ/mol;",
+    "zd": "type=ZDENSITY; nBins=50;",
+    "ssf": "type=SSF; nShells=16; kmax=4 1/nm;",
+    "vaf": "type=VELOCITYAUTOCORRELATION;",
+}
+AN_MESH_TOL = 1e-6
+
+
+def lb_walls(kind, r, L, shape, rlist):
+    """The walls ParallelSimulation computes for `kind` from positions r
+    (its _lb_walls)."""
+    from ddcmd_tpu_torch.parallel.loadbalance import (clamp_walls,
+                                                      orcb_walls,
+                                                      tensor_walls)
+
+    if kind == "BISECTION":
+        return orcb_walls(r, L, shape, min_frac=tuple(
+            1.05 * rlist / L[a] for a in range(3)))
+    return tuple(tuple(clamp_walls(w, 1.05 * rlist / L[a])) for a, w in
+                 enumerate(tensor_walls(r, L, shape, work_power=2)))
+
+
+def brick_pools(r, L, cp, dev):
+    """Each brick of plan cp as the mesh step bins it, its halo shell
+    filled from the host: [(idx3, pool rows, brick-frame fractions, slot
+    permutation, counts, Cartesian span)] for the rows whose brick-frame
+    fraction lies in the brick's core or halo shell."""
+    from ddcmd_tpu_torch.parallel import shard_cells as sc
+
+    Lv = torch.tensor(L, dtype=torch.float32, device=dev)
+    rt = torch.tensor(r, dtype=torch.float32, device=dev)
+    out = []
+    for idx3 in np.ndindex(*cp.shape):
+        geom = sc.dev_geom(cp, idx3, dev)
+        u = sc.brick_frame_frac(rt, Lv, cp, geom)
+        inside = torch.ones(len(r), dtype=torch.bool, device=dev)
+        for a in range(3):
+            if cp.open_axes[a]:
+                h = 1.0 / cp.ncore[a]
+                inside &= (u[:, a] >= -0.5 - h) & (u[:, a] < 0.5 + h)
+        rows = torch.nonzero(inside).reshape(-1)
+        perm, counts, ov = sc.bin_pool_ext(
+            sc.bin_frac(u[rows], rt[rows], Lv, cp, idx3),
+            torch.ones(len(rows), dtype=torch.bool, device=dev), cp)
+        assert not bool(ov), f"cell overflow binning brick {idx3}"
+        out.append((idx3, rows, u[rows], perm, counts, geom[1] * Lv))
+    return out
+
+
+def lb_pair_bricks(a, kind, dev):
+    """(a) for one plan: the eight bricks of a (2,2,2) `kind` plan of the
+    bilayer state `a` (bilayer_lb_arrays) through shard_pair_eval with
+    exclusions, their shares reduced by row, plus the reaction-field self
+    energy.  Returns (f (n, 3), e,
+    virial, plan, walls, pools, the kernel's args and kw of each brick)."""
+    from ddcmd_tpu_torch.parallel import shard_cells as sc
+
+    shape, n = (2, 2, 2), len(a["r"])
+    walls = lb_walls(kind, a["r"], a["L"], shape, a["rlist"])
+    sf_min = sc.walls_span_minmax(walls, shape)[0]
+    assert (sf_min * a["L"] >= 2 * a["rlist"]).all(), (
+        f"{kind}: a brick under 2 rlist ({sf_min * a['L']})")
+    cp = sc.plan_shard_cells(a["L"], shape, a["rcut"], a["skin"], n,
+                             walls=walls)
+    t = a["tables"]
+    eval_fn = sc.make_shard_pair_kernel(cp, t, True, dev, excl=True)
+    q, tidx, ex = (torch.tensor(a[k], device=dev) for k in ("q", "tidx",
+                                                            "ex"))
+    f = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    e = torch.zeros((), dtype=torch.float32, device=dev)
+    vir = torch.zeros((3, 3), dtype=torch.float32, device=dev)
+    pools, calls = brick_pools(a["r"], a["L"], cp, dev), []
+    for idx3, rows, u, perm, counts, span in pools:
+        fb, vb, pe = sc.shard_pair_eval(u, q[rows], tidx[rows], perm, counts,
+                                        span, cp, t, eval_fn, ex_pool=ex[rows])
+        f.index_add_(0, rows, fb)
+        e, vir = e + pe.sum(), vir + vb
+        slots = sc.pack_slots_ext(u, q[rows], tidx[rows], perm, span, cp,
+                                  ex[rows])
+        calls.append(((slots, eval_fn.stencil,
+                       sc.ext_L8(span, cp, t["rcut2"]), counts,
+                       *eval_fn.tabs), eval_fn.kw))
+    # the reaction-field self energy of every bead (BrickStepCells.
+    # _coul_self, counted once across the mesh)
+    e = e - 0.5 * (q * q).sum() * t["keR"] * t["crf"]
+    return f, e, vir, cp, walls, pools, calls
+
+
+def bilayer_lb_arrays(d, dev):
+    """The zRamp deck's start state on the host (bilayer_arrays at
+    LB_BILAYER) and Simulation's pair term on it: its forces, energy and
+    virial."""
+    from ddcmd_tpu_torch.core.system import build_system
+    from ddcmd_tpu_torch.models import load, martini_bilayer
+    from ddcmd_tpu_torch.potentials.martini import martini_device_tables
+    from ddcmd_tpu_torch.run.forces import _excl_channels
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    martini_bilayer(d, **LB_BILAYER)
+    sd = build_system(load(d)[0], d)
+    n = sd.state.n_local
+    parms = sd.potentials[0][2]
+    a = dict(r=sd.state.r[:n].numpy(), q=sd.state.q[:n].numpy(),
+             tidx=parms.species_lj_type[sd.state.species[:n].numpy()],
+             ex=_excl_channels(sd.bonded.exclusions, n),
+             L=sd.box.lengths.numpy().astype(np.float64), rcut=sd.rcut_max,
+             skin=sd.neighbor_deltaR, rlist=sd.rcut_max + sd.neighbor_deltaR,
+             tables=martini_device_tables(parms, device=dev))
+    sim = Simulation(*load(d), run_dir=d, device=dev)
+    ss, handle, ov = sim._build_nbr(sim.ss)
+    assert not bool(ov)
+    fr, er, vr, _ = sim.force_fn.terms[0](ss.state, ss.box, handle)
+    a.update(f_ref=fr[:n].double(), e_ref=float(er), v_ref=vr.double(),
+             engine=sim.engine)
+    return a
+
+
+def held(name, f, e, f_ref, e_ref, f_tol):
+    """(force err over the scale, e rel) of f, e against the reference;
+    raises past f_tol or LB_E_REL."""
+    scale = max(1.0, float(f_ref.abs().max()))
+    ferr = float((f.double() - f_ref).abs().max()) / scale
+    rel = abs(float(e) - e_ref) / abs(e_ref)
+    if ferr > f_tol or rel > LB_E_REL:
+        raise AssertionError(f"{name}: force err {ferr:.3g} of the scale, "
+                             f"e rel {rel:.3g}")
+    return ferr, rel
+
+
+def eam_lb_bricks(d, dev):
+    """(b): the nc = 12 crystal's eight bricks under LB_SKEW through the
+    two EAM passes (shard_eam_rho, the densities and pair energies reduced
+    by row, the embedding, shard_eam_force), against Simulation's first
+    energy and forces.  Returns (ferr, e rel, plan, the brick calls of
+    the widest brick: (slots, args, kw, tables))."""
+    from ddcmd_tpu_torch.core.system import build_system
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.parallel import shard_cells as sc
+    from ddcmd_tpu_torch.potentials.eam import _embedding, eam_device_tables
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    eam_deck(d, EAM_NC, 100)
+    sd = build_system(load(d)[0], d)
+    n = sd.state.n_local
+    r = sd.state.r[:n].numpy()
+    L = sd.box.lengths.numpy().astype(np.float64)
+    shape = (2, 2, 2)
+    sf_min = sc.walls_span_minmax(LB_SKEW, shape)[0]
+    assert (sf_min * L >= 2 * (sd.rcut_max + sd.neighbor_deltaR)).all()
+    cp = sc.plan_shard_cells(L, shape, sd.rcut_max, sd.neighbor_deltaR, n,
+                             walls=LB_SKEW)
+    tables = eam_device_tables(sd.potentials[0][2], device=dev)
+    rho_fn, force_fn = sc.make_shard_eam_kernels(cp, tables, dev)
+    tidx = torch.zeros(n, dtype=torch.int64, device=dev)
+    pools = brick_pools(r, L, cp, dev)
+    red = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    passes = []
+    for idx3, rows, u, perm, counts, span in pools:
+        rp, slots, L8 = sc.shard_eam_rho(u, tidx[rows], perm, counts, span,
+                                         cp, tables, rho_fn)
+        red.index_add_(0, rows, rp)
+        passes.append((rows, perm, counts, slots, L8))
+    F_emb, dF = _embedding(tables["form"], tables["embed"], tidx, red[:, 0])
+    f = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    for rows, perm, counts, slots, L8 in passes:
+        fb, _ = sc.shard_eam_force(slots, L8, counts, dF[rows], perm, cp,
+                                   force_fn)
+        f.index_add_(0, rows, fb)
+    e = red[:, 1].sum() + F_emb.sum()
+    sim = Simulation(*load(d), run_dir=d, device=dev)
+    sim.first_energy()
+    ferr, rel = held("EAM walls bricks vs Simulation", f, e,
+                     sim.ss.state.f[:n].double(),
+                     float(sim.ss.energy.eion), LB_EAM_F_TOL)
+    wide = max(range(len(pools)), key=lambda k: float(
+        torch.prod(pools[k][5])))
+    _, _, counts, slots, L8 = passes[wide]
+    return ferr, rel, cp, pools[wide][0], (
+        slots, (rho_fn.stencil, L8, counts, rho_fn.params), rho_fn.kw,
+        tables)
+
+
+def mesh_lb_run(d, dev, lb):
+    """(c): the water box through ParallelSimulation at (1,1,1), with
+    `lb` ("" or a LOADBALANCE type) at LB_RATE: LB_STEPS steps in chunks.
+    Returns (ps, steps/s over the run, launches of #6)."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    if lb:
+        edit_deck(os.path.join(d, "object.data"), lambda t: t.replace(
+            "ddc DDC { updateRate=20; }",
+            "ddc DDC { updateRate=20; loadBalance=bal; }\n"
+            f"bal LOADBALANCE {{ type={lb}; rate={LB_RATE}; }}"))
+    ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev)
+    ps.first_energy()
+    ch.cellpair_half_ext.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps.run(LB_STEPS, max_steps_per_dispatch=DISPATCH)
+    torch.cuda.synchronize()
+    rate = LB_STEPS / (time.perf_counter() - t0)
+    return ps, rate, ch.cellpair_half_ext.launches
+
+
+def an_states(analyses):
+    """{name: {state key: float64 array}} of evaluated analyses."""
+    return {a.name: {k: np.asarray(v, np.float64) for k, v in
+                     a.state.items() if isinstance(v, (np.ndarray, list))
+                     and len(v)} for a in analyses}
+
+
+def loadbalance_phase(card, dev, counters_zero, all_counters, failed):
+    """Phase 25 (ROADMAP item 25, first part), gates into `failed`.
+    Returns {kernels JSON row: (kernel entry, launches, compare result)}
+    for cellpair_half_ext_excl_walls (ZRAMP bricks), cellpair_half_ext_orcb
+    (BISECTION bricks) and eam_{rho,force}_ext_walls."""
+    from ddcmd_tpu_torch.analysis.registry import build_analysis
+    from ddcmd_tpu_torch.io.pxyz import read_pxyz_full
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.ops import eam_half as eh
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    rows = {}
+    ext = (ch.cellpair_half_ext, ch.cellpair_half_plain)
+    # (a) the zRamp bilayer's bricks under ZRAMP and BISECTION walls
+    with tempfile.TemporaryDirectory() as d:
+        a = bilayer_lb_arrays(d, dev)
+    n = len(a["r"])
+    for kind, row in (("ZRAMP", "cellpair_half_ext_excl_walls"),
+                      ("BISECTION", "cellpair_half_ext_orcb")):
+        counters_zero()
+        f, e, vir, cp, walls, pools, calls = lb_pair_bricks(a, kind, dev)
+        torch.cuda.synchronize()
+        launches = all_counters()["cellpair_half_ext_excl"]
+        ferr, rel = held(f"{kind} bricks vs Simulation", f, e, a["f_ref"],
+                         a["e_ref"], LB_F_TOL)
+        if launches != len(pools):
+            failed.append(f"(a) {kind}: {launches} launches of #6 for "
+                          f"{len(pools)} bricks")
+        vol = [float(torch.prod(p[5])) for p in pools]
+        res = {}
+        for which, k in (("narrowest", int(np.argmin(vol))),
+                         ("widest", int(np.argmax(vol)))):
+            args, kw = calls[k]
+            res[which] = compare(
+                f"#6 + exclusions, {which} brick {pools[k][0]} of the "
+                f"{kind} plan (zRamp bilayer {n} beads, ncore {cp.ncore}, "
+                f"cap {cp.cap}, span {pools[k][5].cpu().numpy().round(3)} "
+                f"nm, {int(args[3][:cp.n_prog].sum())} core + "
+                f"{int(args[3][cp.n_prog:].sum())} halo beads)", *ext, args,
+                kw, with_bound=True, device_key="cellpair_half_kernel")
+            sentinel_zero(f"{kind} {which} brick", ext[0](*args, **kw)[1])
+        rows[row] = ("cellpair_half_ext_excl", launches, res["widest"])
+        wtxt = [np.round(np.asarray(w), 4).tolist() for w in walls]
+        phase("loadbalance", f"(a) {kind} (2,2,2) walls {wtxt}: 8 bricks "
+              f"on #6 with exclusions ({launches} launches), forces vs "
+              f"Simulation's pair term ({a['engine']}) {ferr:.3g} of the "
+              f"scale, e {float(e):.8g} vs {a['e_ref']:.8g} (rel "
+              f"{rel:.2g}), virial trace {float(torch.trace(vir)):.6g} vs "
+              f"{float(torch.trace(a['v_ref'])):.6g}; "
+              f"{time.perf_counter() - T_START:.0f} s")
+    del a
+
+    # (b) #7 on the nc = 12 crystal's bricks under skewed walls
+    eam_ext = ((eh.eam_rho_half_ext, eh.eam_force_half_ext),
+               (eh.eam_rho_half_plain, eh.eam_force_half_plain))
+    with tempfile.TemporaryDirectory() as d:
+        counters_zero()
+        ferr, rel, cp, idx3, (slots, args, kw, tables) = eam_lb_bricks(d, dev)
+        torch.cuda.synchronize()
+        c = all_counters()
+    t = eam_compare(f"#7 on brick {idx3} of the nc = {EAM_NC} crystal under "
+                    f"walls x 0.42, y 0.58 (ncore {cp.ncore}, cap {cp.cap})",
+                    *eam_ext, slots, args, kw, tables, with_bound=True,
+                    device=True)
+    if c["eam_rho_ext"] != 8 or c["eam_force_ext"] != 8:
+        failed.append(f"(b) #7 launches {c['eam_rho_ext']}/"
+                      f"{c['eam_force_ext']} for 8 bricks")
+    rows["eam_rho_ext_walls"] = ("eam_rho_ext", c["eam_rho_ext"], t["rho"])
+    rows["eam_force_ext_walls"] = ("eam_force_ext", c["eam_force_ext"],
+                                   t["force"])
+    phase("loadbalance", f"(b) nc = {EAM_NC} crystal, 8 bricks under walls "
+          f"x 0.42 y 0.58 through #7 ({c['eam_rho_ext']} + "
+          f"{c['eam_force_ext']} launches): forces vs Simulation's "
+          f"{ferr:.3g} of the scale, e rel {rel:.2g}; "
+          f"{time.perf_counter() - T_START:.0f} s")
+
+    # (c) the water box through the mesh at (1,1,1), with and without
+    # ZRAMP at LB_RATE; the checkpoint, its restarts, the analyses
+    with tempfile.TemporaryDirectory() as d:
+        water_deck(d, 6173, 100)
+        ps0, rate0, _ = mesh_lb_run(d, dev, "")
+        del ps0
+        edit_deck(os.path.join(d, "object.data"), lambda text: text + "".join(
+            f"{k} ANALYSIS {{ {v} }}\n" for k, v in LB_ANALYSES.items()))
+        counters_zero()
+        ps, rate, n6 = mesh_lb_run(d, dev, "ZRAMP")
+        want = (LB_STEPS - 1) // LB_RATE
+        if ps.n_rebalance != want:
+            failed.append(f"(c) {ps.n_rebalance} rebalances, want {want}")
+        if n6 < LB_STEPS:
+            failed.append(f"(c) #6 launched {n6} times in {LB_STEPS} steps")
+        e_mesh = ps.first_energy()
+        snap = ps.write_checkpoint(d)
+        files = sorted(os.listdir(snap))
+        saved = read_pxyz_full(os.path.join(snap, "pxyz"))
+        run_dir = os.path.join(d, "an")
+        os.makedirs(run_dir)
+        done = ps.run_analyses(run_dir)
+        view = ps.view()
+        mesh_an, view_an = ([build_analysis(o.name, o) for o in
+                             ps.db.by_class("ANALYSIS")] for _ in range(2))
+        for an, gan in zip(mesh_an, view_an):
+            (an.eval_sharded(ps) if hasattr(an, "eval_sharded")
+             else an.eval(view))
+            gan.eval(view)
+        mesh_an, view_an = an_states(mesh_an), an_states(view_an)
+        # the mesh keeps positions unwrapped between rebuilds, Simulation
+        # reads the restart into the box: ZDENSITY's range drops the rows
+        # outside, so Simulation's histogram is held to the view's rows
+        # wrapped into the box
+        n_all = ps.sysdef.state.n_local
+        z = view.ss.state.r[:n_all, 2].cpu().numpy()
+        Lz = float(view.ss.box.lengths[2])
+        zd = [o for o in ps.db.by_class("ANALYSIS") if o.name == "zd"][0]
+        zd_wrapped = np.histogram(z - Lz * np.round(z / Lz),
+                                  bins=zd.get_int("nBins", 100),
+                                  range=(-Lz / 2, Lz / 2))[0].astype(float)
+        n_out = int((np.abs(z) > Lz / 2).sum())
+        restart = os.path.join(d, "restart")
+        sim = Simulation(*load(d, restart=restart), run_dir=d, device=dev)
+        sim.first_energy()
+        e_sim = float(sim.ss.energy.eion)
+        sim_an = [build_analysis(o.name, o) for o in sim.db.by_class(
+            "ANALYSIS")]
+        for an in sim_an:
+            an.eval(sim)
+        sim_an = an_states(sim_an)
+        ps2 = ParallelSimulation(*load(d, restart=restart), shape=(1, 1, 1),
+                                 device=dev)
+        e_mesh2 = ps2.first_energy()
+        walls2 = ps2.plan.walls
+    rel = abs(e_sim - e_mesh) / abs(e_mesh)
+    if rel > 2e-5:
+        failed.append(f"(c) restart under Simulation: e {e_sim} vs the "
+                      f"mesh's {e_mesh}")
+    if abs(e_mesh2 - e_mesh) > 2e-5 * abs(e_mesh):
+        failed.append(f"(c) restart under the mesh: e {e_mesh2} vs {e_mesh}")
+    if any(not np.array_equal(np.asarray(w), saved["walls"][k])
+           for k, w in enumerate(walls2)):
+        failed.append("(c) the mesh restart did not resume the pxyz walls")
+    if "pxyz" not in files or sorted(done) != sorted(LB_ANALYSES):
+        failed.append(f"(c) snapshot {files}, analyses {done}")
+    errs = []
+    for name, st in mesh_an.items():
+        for k, v in st.items():
+            for what, ref in (("view", view_an[name][k]),
+                              ("Simulation", zd_wrapped if name == "zd"
+                               else sim_an[name][k])):
+                if name in ("gr", "ke", "zd"):
+                    ok = np.array_equal(v if what == "view" or name != "zd"
+                                        else sim_an[name][k], ref)
+                    errs.append(f"{name}.{k} vs {what} "
+                                f"{'equal' if ok else 'DIFFER'}")
+                else:
+                    scale = max(float(np.abs(ref).max()), 1e-30)
+                    err = float(np.abs(v - ref).max()) / scale
+                    ok = err <= AN_MESH_TOL
+                    errs.append(f"{name}.{k} vs {what} {err:.2g}")
+                if not ok:
+                    failed.append(f"(c) analysis {name}.{k}: mesh vs {what}")
+    errs.append(f"{n_out} rows outside the box's z")
+    phase("loadbalance", f"(c) water box 6173 beads at (1,1,1): {LB_STEPS} "
+          f"steps {rate:.1f} steps/s with ZRAMP rate={LB_RATE} "
+          f"({ps.n_rebalance} rebalances, #6 launched {n6} times) vs "
+          f"{rate0:.1f} steps/s without load balance (phase 10's box); "
+          f"checkpoint {files}; first energy {e_mesh:.8g}, restart under "
+          f"Simulation {e_sim:.8g} (rel {rel:.2g}, {sim.engine}), under the "
+          f"mesh {e_mesh2:.8g} with the pxyz walls resumed; analyses "
+          f"{done}, mesh (sharded) vs the gathered view and vs "
+          f"Simulation: {', '.join(errs)}; "
+          f"{time.perf_counter() - T_START:.0f} s on {card}")
+    return rows
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -5881,6 +6320,11 @@ def main(argv=None):
         failed = []
         rebuilds_phase(card, dev, counters_zero, all_counters, failed)
         assert not failed, f"phase 24 gates missed: {failed}"
+        return
+    if "--loadbalance-only" in argv:
+        failed = []
+        loadbalance_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 25 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -6064,6 +6508,11 @@ def main(argv=None):
     rebuild_rows = rebuilds_phase(card, dev, counters_zero, all_counters,
                                   rebuilds_failed)
     assert not rebuilds_failed, f"phase 24 gates missed: {rebuilds_failed}"
+    # --- phase 25: item 25's load balance, #6 and #7 under walls ------------
+    lb_failed = []
+    lb_rows = loadbalance_phase(card, dev, counters_zero, all_counters,
+                                lb_failed)
+    assert not lb_failed, f"phase 25 gates missed: {lb_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -6105,11 +6554,13 @@ def main(argv=None):
     # NEXTFILE and NGLFTEST on #1, (d) the eightFold deck's kernel; phase
     # 22's run: #1 before the replica, #2 after it; phase 23's: #1 on the
     # water box with its analyses, #4 on the crystal with its classifiers;
-    # phase 24's: #2 on the bilayer patch's replica
+    # phase 24's: #2 on the bilayer patch's replica; phase 25's: #6 with
+    # exclusions on the widest brick of the ZRAMP and of the BISECTION
+    # plan, #7 on the widest brick of the skewed-walls crystal
     for row, (name, n, out) in (*int_rows.items(), *masters_rows.items(),
                                 *transform_rows.items(),
                                 *analysis_rows_out.items(),
-                                *rebuild_rows.items()):
+                                *rebuild_rows.items(), *lb_rows.items()):
         kernels[row] = kernels[name]
         launches[row] = n
         res[row] = out

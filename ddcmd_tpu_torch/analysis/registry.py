@@ -8,8 +8,15 @@ through _host.  Two parts run on the run's device in PyTorch where the
 JAX package runs XLA or dense numpy: PAIRCORRELATION's histogram and
 PAIRANALYSIS's count, in row blocks under a fixed memory budget with
 integer counts, and the cell-list candidates of _knn's route for more
-than 4096 particles.  The mesh's sharded evals
-are not ported (ROADMAP item 25).
+than 4096 particles.
+
+Five classes also evaluate on the brick mesh without gathering it
+(eval_sharded, the JAX package's dataExchange.c analog, registry.py:86-
+395 there): PAIRCORRELATION, VCMWRITE, KINETICENERGYDISTN, ZDENSITY and
+SSF sum owned-row partials over BrickMesh.psum, with the same host math
+as their gathered eval, so g(r) and the z and KE histograms equal it
+count for count.  run/parallel_sim.ParallelSimulation.run_analyses
+decides per class (shardable) which path to take.
 """
 
 from __future__ import annotations
@@ -50,6 +57,38 @@ class Analysis:
     def output(self, sim, run_dir="."):
         raise NotImplementedError
 
+    def shardable(self, psim) -> bool:
+        """eval_sharded can evaluate this mesh's state (classes that have
+        one)."""
+        return True
+
+
+def _owned(psim, name):
+    """A mesh field's owned rows on this rank's device."""
+    return psim.fields[name][psim.mask]
+
+
+def _psum_host(psim, a) -> np.ndarray:
+    """A host array summed over the mesh (in its dtype, int64 or f64)."""
+    t = torch.as_tensor(np.ascontiguousarray(a), device=psim.device)
+    return _host(psim.mesh.psum(t))
+
+
+def _pair_bins(r_rows, r_cols, L, rmin, dr, nb, own):
+    """(rows, cols) bin of each distance (nb: out of range or `own`, the
+    flags of a row against itself), the one arithmetic of the gathered
+    and the sharded g(r).  The squares summed x + y + z as separate
+    elementwise ops: a reduction's order differs between the card and
+    the CPU, and a distance on a bin edge would move with it."""
+    d = r_rows[:, None, :] - r_cols[None, :, :]
+    d = d - L * torch.round(d / L)
+    d = d * d
+    dist = torch.sqrt(d[..., 0] + d[..., 1] + d[..., 2])
+    del d
+    b = torch.floor((dist - rmin) / dr).long()
+    del dist
+    return torch.where((b >= 0) & (b < nb) & ~own, b, nb)
+
 
 # ---------------------------------------------------------------------------
 
@@ -85,23 +124,64 @@ class PairCorrelation(Analysis):
         # product with its reciprocal, which rounds otherwise
         dr = torch.tensor(self.delta_r, dtype=r.dtype, device=r.device)
         for i0 in range(0, n, rows):
-            d = r[i0:i0 + rows, None, :] - r[None, :, :]
-            d = d - L * torch.round(d / L)
-            # the squares summed x + y + z as separate elementwise ops: a
-            # reduction's order differs between the card and the CPU, and
-            # a distance on a bin edge would move with it
-            d = d * d
-            dist = torch.sqrt(d[..., 0] + d[..., 1] + d[..., 2])
-            del d
-            b = torch.floor((dist - self.rmin) / dr).long()
-            del dist
             own = cols[i0:i0 + rows, None] == cols[None, :]
-            b = torch.where((b >= 0) & (b < nb) & ~own, b, nb)
+            b = _pair_bins(r[i0:i0 + rows], r, L, self.rmin, dr, nb, own)
             hist += torch.bincount(b.reshape(-1), minlength=nb + 1)
         self.state["hist"] += _host(hist[:nb], dtype=np.float64)
         self.state["count"] += 1
         self.state["volume"] = float(ss.box.volume)
         self.state["n"] = n
+
+    def shardable(self, psim) -> bool:
+        """The halo holds every particle within rlist of a brick: rmax
+        beyond it needs the gathered view."""
+        rmax = self.rmin + self.n_bins * self.delta_r
+        return rmax <= psim.plan.rlist + 1e-12
+
+    def eval_sharded(self, psim):
+        """Each owned row against the local and ghost rows of its rank
+        (parallel/brick.halo_exchange_3d), a block of rows at a time, in
+        int64, summed over the mesh: every ordered pair is counted once,
+        on its first particle's owner, by the gathered eval's arithmetic
+        (_pair_bins) on the same f32 values, so the bins equal the
+        gathered eval's.  Requires rmax <= the halo window rlist
+        (shardable)."""
+        from ..parallel.brick import halo_exchange_3d
+        from ..parallel.brickstep import _wrap
+
+        if not self.shardable(psim):
+            raise ValueError(
+                f"sharded PAIRCORRELATION needs rmax <= halo rlist "
+                f"{psim.plan.rlist:.3f}; use the gathered view")
+        nb = self.n_bins
+        r, m = psim.fields["r"], psim.mask
+        L = psim.Lv
+        # the windows select on positions wrapped into the box, as the
+        # step's rebuild does; the distances use the unwrapped values the
+        # gathered eval sees
+        ghosts, gmask, ov, _ = halo_exchange_3d(
+            {"r": _wrap(r, L), "raw": r}, m, L, psim.plan, psim.mesh)
+        if bool(psim.mesh.psum(ov.to(torch.float32).reshape(1))[0] > 0):
+            raise RuntimeError("halo overflow in sharded PAIRCORRELATION")
+        pool_r = torch.cat([r, ghosts["raw"]])
+        pool_ok = torch.cat([m, gmask])
+        rows_idx = torch.nonzero(m).reshape(-1)
+        n_pool = pool_r.shape[0]
+        per_pair = 12 * r.element_size() + 16
+        rows = max(1, PAIR_BLOCK_BYTES // (per_pair * max(n_pool, 1)))
+        hist = torch.zeros(nb + 1, dtype=torch.int64, device=r.device)
+        cols = torch.arange(n_pool, device=r.device)
+        dr = torch.tensor(self.delta_r, dtype=r.dtype, device=r.device)
+        for i0 in range(0, rows_idx.shape[0], rows):
+            ri = rows_idx[i0:i0 + rows]
+            own = (ri[:, None] == cols[None, :]) | ~pool_ok[None, :]
+            b = _pair_bins(r[ri], pool_r, L, self.rmin, dr, nb, own)
+            hist += torch.bincount(b.reshape(-1), minlength=nb + 1)
+        self.state["hist"] += _psum_host(psim, _host(hist[:nb])).astype(
+            np.float64)
+        self.state["count"] += 1
+        self.state["volume"] = float(np.prod(psim._live_L()))
+        self.state["n"] = psim.sysdef.state.n_local
 
     def output(self, sim, run_dir="."):
         h = self.state["hist"]
@@ -134,6 +214,15 @@ class VcmWrite(Analysis):
         vcm = (m[:, None] * v).sum(axis=0) / m.sum()
         self.state["rows"].append((int(sim.ss.loop), *vcm))
 
+    def eval_sharded(self, psim):
+        """Owned-row momentum and mass partial sums in f64, summed over the
+        mesh: only the reduction travels."""
+        m = _owned(psim, "mass").double()
+        v = _owned(psim, "v").double()
+        part = torch.cat([(m[:, None] * v).sum(dim=0), m.sum().reshape(1)])
+        tot = _host(psim.mesh.psum(part))
+        self.state["rows"].append((int(psim.loop), *(tot[:3] / tot[3])))
+
     def output(self, sim, run_dir="."):
         with open(os.path.join(run_dir, self.filename), "a") as f:
             for row in self.state["rows"]:
@@ -158,6 +247,16 @@ class KineticEnergyDistn(Analysis):
         ke = 0.5 * m * (v ** 2).sum(axis=1)
         h, _ = np.histogram(ke, bins=self.n_bins, range=(0, self.emax))
         self.state["hist"] += h
+
+    def eval_sharded(self, psim):
+        """The owned rows' KE histogram, the gathered eval's numpy on the
+        same f32 values (v x^2 + v y^2 + v z^2 in that order, as numpy
+        sums three), the counts summed over the mesh."""
+        m = _host(_owned(psim, "mass"))
+        v = _host(_owned(psim, "v"))
+        ke = 0.5 * m * (v ** 2).sum(axis=1)
+        h, _ = np.histogram(ke, bins=self.n_bins, range=(0, self.emax))
+        self.state["hist"] += _psum_host(psim, h.astype(np.int64))
 
     def output(self, sim, run_dir="."):
         db = self.emax / self.n_bins
@@ -185,6 +284,19 @@ class ZDensity(Analysis):
         if self.state["hist"] is None:
             self.state["hist"] = np.zeros(self.n_bins)
         self.state["hist"] += h
+        self.state["count"] += 1
+        self.state["Lz"] = Lz
+
+    def eval_sharded(self, psim):
+        """The owned rows' z histogram (the gathered eval's numpy on the
+        same values, at the live box), the counts summed over the
+        mesh."""
+        z = _host(_owned(psim, "r"))[:, 2]
+        Lz = float(psim.Lv[2])
+        h, _ = np.histogram(z, bins=self.n_bins, range=(-Lz / 2, Lz / 2))
+        if self.state["hist"] is None:
+            self.state["hist"] = np.zeros(self.n_bins)
+        self.state["hist"] += _psum_host(psim, h.astype(np.int64))
         self.state["count"] += 1
         self.state["Lz"] = Lz
 
@@ -243,6 +355,19 @@ class Ssf(Analysis):
         rho_k = np.exp(1j * phase).sum(axis=0)
         s = (rho_k * rho_k.conj()).real / n
         self._bin_shells(s)
+
+    def eval_sharded(self, psim):
+        """Partial rho_k = sum over the owned rows of exp(i k.r), in f64
+        on the rank's device, summed over the mesh; |rho_k|^2 and the
+        shell binning on the host (ssf.c under MPI reduces the same
+        way)."""
+        kv = self._kvectors(psim._live_L())
+        r = _owned(psim, "r").double()
+        ph = r @ torch.as_tensor(kv.T, dtype=torch.float64, device=r.device)
+        cs = torch.cat([torch.cos(ph).sum(dim=0), torch.sin(ph).sum(dim=0)])
+        cs = _host(psim.mesh.psum(cs))
+        c, sn = cs[:len(kv)], cs[len(kv):]
+        self._bin_shells((c * c + sn * sn) / psim.sysdef.state.n_local)
 
     def output(self, sim, run_dir="."):
         with open(os.path.join(run_dir, self.filename), "w") as f:

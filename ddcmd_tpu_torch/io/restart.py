@@ -9,12 +9,14 @@ atomically; the atoms# FILEHEADER is self-describing.
 Each snapshot directory gets the phase profile table `profile`
 (utils/profile.PROFILE; with DDCMD_PROFILE_PHASES set, the writer first
 times the phases with the Simulation's profile_phases, as the JAX
-package's io/restart.py:156-166 does).  Not written: the JAX package's
-PRNG keyData (the port's thermostat noise is keyed by deck seed, global
-step and the NaN rollback's attempt, core/groups.kick_noise, so a
-restart at loop L replays the noise of loop L by construction; a JAX
-run loaded from a port checkpoint draws from its deck seed) and the
-pxyz domain file (the mesh's decomposition restart, ROADMAP item 25).
+package's io/restart.py:156-166 does) and the pxyz domain file
+(io/pxyz.write_pxyz: one domain for a Simulation, the live BrickPlan of
+the mesh, whose load-balanced walls a restart resumes).  Not written:
+the JAX package's PRNG keyData (the port's thermostat noise is keyed by
+deck seed, global step and the NaN rollback's attempt, core/groups.
+kick_noise, so a restart at loop L replays the noise of loop L by
+construction; a JAX run loaded from a port checkpoint draws from its
+deck seed).
 Integrator state beyond the box is written into the restart's INTEGRATOR
 object, as the JAX package writes it (io/restart.py:134-141): NPTGLF's
 zeta and NGLFNK's piston velocities bdot.
@@ -94,10 +96,17 @@ def write_bxyz(sim, snapdir: str) -> str:
     return path
 
 
-def write_checkpoint(sim, run_dir: str = ".",
-                     update_symlink: bool = True) -> str:
-    """Write snapshot.<loop>/ with atoms#000000 + restart; update the
-    `restart` symlink in run_dir.  Returns the snapshot directory."""
+def write_checkpoint(sim, run_dir: str = ".", update_symlink: bool = True,
+                     atoms_writer=None) -> str:
+    """Write snapshot.<loop>/ with atoms#000000 + restart + pxyz; update
+    the `restart` symlink in run_dir.  Returns the snapshot directory.
+
+    atoms_writer(snapdir, mode, loop, time_fs): an override for the
+    particle records -- the mesh's per-rank N-writer (pio's
+    Pio_setNumWriteFiles analog) plugs in here, so the restart, pxyz and
+    profile scaffolding stays shared (the JAX package's hook,
+    io/restart.py:81-107).  `sim.parallel_plan`, when set, is the
+    decomposition the pxyz records."""
     sd = sim.sysdef
     ss = sim.ss
     loop = int(ss.loop)
@@ -114,21 +123,24 @@ def write_checkpoint(sim, run_dir: str = ".",
                         "COLLECTION")
     mode = colobj.get_str("mode", "VARRECORDASCII") if colobj else "VARRECORDASCII"
     n = ss.state.n_local
-    write_collection(
-        os.path.join(snapdir, "atoms#000000"),
-        gid=ss.state.gid[:n],
-        species_names=col.species_names,
-        group_names=col.group_names,
-        class_names=col.class_names,
-        r=_host(ss.state.r[:n]), v=_host(ss.state.v[:n]), h=h,
-        loop=loop, time_fs=time_fs,
-        group_list=[g.name for g in sd.groups],
-        species_list=[s.name for s in sd.species],
-        gid_format="hex" if sd.cfg.gidFormat == "hex" else "dec",
-        datatype=mode,
-        nfiles=sd.cfg.nfiles,
-        precision=sd.cfg.checkpointprecision,
-    )
+    if atoms_writer is not None:
+        atoms_writer(snapdir, mode, loop, time_fs)
+    else:
+        write_collection(
+            os.path.join(snapdir, "atoms#000000"),
+            gid=ss.state.gid[:n],
+            species_names=col.species_names,
+            group_names=col.group_names,
+            class_names=col.class_names,
+            r=_host(ss.state.r[:n]), v=_host(ss.state.v[:n]), h=h,
+            loop=loop, time_fs=time_fs,
+            group_list=[g.name for g in sd.groups],
+            species_list=[s.name for s in sd.species],
+            gid_format="hex" if sd.cfg.gidFormat == "hex" else "dec",
+            datatype=mode,
+            nfiles=sd.cfg.nfiles,
+            precision=sd.cfg.checkpointprecision,
+        )
 
     hang = h * U.LENGTH_TO_ANG
     hstr = "\n".join("     %22.14g %22.14g %22.14g" % tuple(row) for row in hang)
@@ -155,9 +167,16 @@ def write_checkpoint(sim, run_dir: str = ".",
     # rebuild, force, kick and step outside the run's dispatches
     from ..utils.profile import PROFILE
 
-    if os.environ.get("DDCMD_PROFILE_PHASES"):
+    if os.environ.get("DDCMD_PROFILE_PHASES") and \
+            hasattr(sim, "profile_phases"):
         sim.profile_phases()
     PROFILE.write(snapdir)
+
+    # the domain decomposition file (writePXYZ, io.c:113)
+    from .pxyz import write_pxyz
+
+    write_pxyz(os.path.join(snapdir, "pxyz"), _host(ss.box.lengths),
+               getattr(sim, "parallel_plan", None))
 
     if not update_symlink:
         return snapdir

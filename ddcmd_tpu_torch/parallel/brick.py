@@ -2,21 +2,46 @@
 
 Counterpart of ddcmd_tpu/parallel/brick.py (the reference's CUBIC domain
 lattice, ddcMD src/ddc.h:42, with plane-pruned halos, ddcSendRecv.c:
-63-85), for uniform walls in an orthorhombic box.  Halo exchange and
-migration use the staged scheme -- exchange +-x, then +-y including the
-x ghosts, then +-z -- so three rounds of fixed-capacity buffers cover
-faces, edges and corners.  Axes of one brick exchange nothing: the cell
-stencil wraps there as on a single device.  An axis of two bricks sends
-both windows to its one neighbour (parallel/mesh.BrickMesh.exchange
-tells them apart).
+63-85), for orthorhombic boxes.  Halo exchange and migration use the
+staged scheme -- exchange +-x, then +-y including the x ghosts, then +-z
+-- so three rounds of fixed-capacity buffers cover faces, edges and
+corners.  Axes of one brick exchange nothing: the cell stencil wraps
+there as on a single device.  An axis of two bricks sends both windows
+to its one neighbour (parallel/mesh.BrickMesh.exchange tells them
+apart).
 
 Positions are GLOBAL origin-centred coordinates; ownership and halo
 windows live in fractional coordinates s = r / L.  With an `hgid` field
 (the gid of each particle's molecule head bead) migration and the
 initial distribution are molecule-coherent: the head bead's position
 decides for the whole molecule (the reference's MOLECULE ddcRule,
-ddcRuleMolecule.c:43).  Load-balanced walls, Voronoi domains and
-triclinic boxes raise NotImplementedError naming their ROADMAP item.
+ddcRuleMolecule.c:43).
+
+Walls are uniform, or load balanced (parallel/loadbalance.py): tensor
+walls share one (n + 1,) set of fractions per axis; ORCB walls hold y
+walls per x-slab (nx, ny + 1) and z walls per (x, y) column (nx, ny,
+nz + 1).  Every comparison against a wall is made in f32 with the wall
+rounded to f32 first, as the JAX package compares, so that ownership
+agrees with it row for row.
+
+ORCB ghosts: the y walls differ between x-slabs, so the x-neighbour
+(ix +- 1, iy, iz) does not cover this brick's y range, and the bricks
+(ix +- 1, iy +- 1, .) that do reach it only as ghosts forwarded in the y
+phase; likewise for z between columns.  The windows are one-sided
+(x < lo + rlist goes down, x >= hi - rlist up), so a forwarded ghost
+travels toward the side it lies on, measured without the periodic wrap.
+On an axis of two bricks both sides reach the one neighbour and every
+ghost a brick needs arrives (the JAX package's exchange, which the port
+keeps there).  With three or more bricks on the y (or z) axis a ghost
+that a brick needs across the periodic seam lies on the other side of
+the sender and goes to the other neighbour: the JAX package misses it
+and drops its pairs.  The port forwards, on such axes of ORCB plans,
+every earlier-phase ghost that lies within rlist of a receiving brick's
+range, across the seam too; with at most one brick of offset between
+neighbouring slabs' lattices (check_orcb_reach; always so with <= 3
+bricks an axis) each brick then holds every particle within rlist of
+it, once.  Voronoi domains and triclinic boxes raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,8 +53,10 @@ import torch
 
 from .slab import compact_rows
 
-WALLS_ITEM = ("load-balanced brick walls are not ported yet (ROADMAP queue "
-              "1, item 25: the mesh's load balance, loadbalance.py)")
+VORONOI_ITEM = ("VORONOI domains have no brick lattice: the JAX package runs "
+                "them on its brick (N,K)-list engine make_brick_step, not "
+                "ported yet (ROADMAP queue 1, item 25)")
+
 
 @dataclass(frozen=True)
 class BrickPlan:
@@ -38,6 +65,21 @@ class BrickPlan:
     halo_cap: int                    # per direction per phase
     migrate_cap: int
     rlist: float
+    # per-axis wall FRACTIONS from the load balancer, None = uniform:
+    # tensor (n + 1,) per axis, or ORCB y (nx, ny + 1) and z (nx, ny,
+    # nz + 1)
+    walls: tuple | None = None
+    voronoi: dict | None = None
+
+    def __post_init__(self):
+        if self.voronoi is not None:
+            raise NotImplementedError(VORONOI_ITEM)
+
+    @property
+    def orcb(self) -> bool:
+        """Hierarchical (ORCB) walls: y or z walls per slab or column."""
+        return self.walls is not None and any(
+            np.asarray(w).ndim > 1 for w in self.walls)
 
     @property
     def n_dev(self) -> int:
@@ -62,14 +104,77 @@ def geom_frac(box_geom):
     return (lambda rr: rr / g), 1.0 / g
 
 
-def _axis_bounds(n: int, idx: int, walls=None):
+def _axis_bounds(n: int, idx: int, walls=None, prefix=()):
     """FRACTIONAL [lo, hi) in [-0.5, 0.5) of brick `idx` of `n` along one
-    axis, uniform walls (host floats rounded as the JAX package's f32)."""
+    axis: uniform, or from `walls`, a shared (n + 1,) set or an ORCB set
+    with one leading dimension per EARLIER axis, whose brick indices
+    `prefix` holds.  Host floats rounded as the JAX package's f32
+    arithmetic rounds them (brick.py:90-105 there); idx may be -1 or n
+    (a neighbour across the periodic seam), its bounds then shifted by
+    one box."""
+    shift, idx = divmod(int(idx), n)
+    f32 = np.float32
     if walls is not None:
-        raise NotImplementedError(WALLS_ITEM)
-    w = np.float32(1.0 / n)
-    lo = np.float32(-0.5) + w * np.float32(idx)
-    return float(lo), float(lo + w)
+        w = np.asarray(walls, dtype=np.float64)
+        if w.ndim > 1:
+            for p in prefix:
+                w = w[int(p)]
+        w = w.astype(f32)
+        lo, hi = w[idx] - f32(0.5), w[idx + 1] - f32(0.5)
+    else:
+        w = f32(1.0 / n)
+        lo = f32(-0.5) + w * f32(idx)
+        hi = lo + w
+    return float(lo) + shift, float(hi) + shift
+
+
+def _near_range(x, lo: float, hi: float, win_f):
+    """x within win_f of [lo, hi) on the periodic unit circle (f32)."""
+    c = 0.5 * (lo + hi)
+    d = x - c
+    d = d - torch.round(d)
+    return d.abs() < 0.5 * (hi - lo) + win_f
+
+
+def check_orcb_reach(walls, shape, rlist_frac):
+    """Raise ValueError unless every brick whose region comes within
+    rlist of brick X (periodic) lies within one brick index of X on each
+    axis: the staged exchange reaches no farther.  rlist_frac: rlist as a
+    fraction of each axis.  Always holds with <= 3 bricks an axis."""
+    if all(s <= 3 for s in shape):
+        return
+    nx, ny, nz = shape
+    idx = [(i, j, k) for i in range(nx) for j in range(ny)
+           for k in range(nz)]
+
+    def ranges(i3):
+        out, prefix = [], ()
+        for a in range(3):
+            lo, hi = _axis_bounds(shape[a], i3[a], walls[a], prefix)
+            out.append((lo, hi))
+            prefix = prefix + (i3[a],)
+        return out
+
+    def gap(xl, xh, yl, yh):
+        """Distance between two arcs of the unit circle (0: they meet)."""
+        if (yl - xl) % 1.0 < xh - xl or (xl - yl) % 1.0 < yh - yl:
+            return 0.0
+        return min((yl - xh) % 1.0, (xl - yh) % 1.0)
+
+    box = {i3: ranges(i3) for i3 in idx}
+    for x3 in idx:
+        for y3 in idx:
+            if not all(gap(*box[x3][a], *box[y3][a]) < rlist_frac[a]
+                       for a in range(3)):
+                continue
+            for a in range(3):
+                d = (y3[a] - x3[a]) % shape[a]
+                if min(d, shape[a] - d) > 1:
+                    raise ValueError(
+                        f"ORCB walls: brick {y3} lies within rlist of brick "
+                        f"{x3}, more than one brick away on axis {a}; the "
+                        "staged halo exchange cannot reach it (use fewer "
+                        "bricks on that axis or TENSOR walls)")
 
 
 def _with_count(buf: dict, n) -> dict:
@@ -95,15 +200,29 @@ def halo_exchange_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan,
 
     frac, per_cart = geom_frac(box_lengths)
     pool, pool_mask = fields, valid_mask
+    n_loc = valid_mask.shape[0]
     for ax_i in range(3):
         n = plan.shape[ax_i]
         if n == 1:
             continue
-        lo, hi = _axis_bounds(n, mesh.idx3[ax_i])
+        me = mesh.idx3[ax_i]
+        walls = None if plan.walls is None else plan.walls[ax_i]
+        prefix = mesh.idx3[:ax_i]
+        lo, hi = _axis_bounds(n, me, walls, prefix)
         win_f = plan.rlist * per_cart[ax_i]
         x = frac(pool["r"])[:, ax_i]
         sel_lo = pool_mask & (x < lo + win_f)
         sel_hi = pool_mask & (x >= hi - win_f)
+        if plan.orcb and n > 2 and pool_mask.shape[0] > n_loc:
+            # forward an earlier phase's ghosts lying anywhere within
+            # rlist of a receiving brick's range, across the periodic
+            # seam too (module docstring)
+            ghost = pool_mask.clone()
+            ghost[:n_loc] = False
+            sel_lo |= ghost & _near_range(
+                x, *_axis_bounds(n, me - 1, walls, prefix), win_f)
+            sel_hi |= ghost & _near_range(
+                x, *_axis_bounds(n, me + 1, walls, prefix), win_f)
         if n == 2:
             # both windows land on the SAME neighbour: an atom within
             # rlist of both faces must ship only once or its pairs
@@ -194,7 +313,14 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
     """Staged 1-hop migration along x, then y, then z (<= 1 brick hop per
     axis per call, the lazy re-bisect assumption).  With an `hgid` field
     the destination is the molecule head bead's brick, so a molecule
-    always moves as one unit.  Returns (fields, mask, overflow)."""
+    always moves as one unit.  Ownership is decided on the fraction
+    wrapped into the box and a particle leaves toward the nearer side
+    of its brick, so one that crossed the periodic seam reaches the
+    brick across it (the JAX package sends it the other way: under
+    uniform or tensor walls it stays mis-owned for a chunk, harmless as
+    pair ownership is positional; under ORCB walls its containment check
+    flags it on every try and the run raises).  Returns (fields, mask,
+    overflow)."""
     dev = fields["r"].device
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     cur, mask = fields, valid_mask
@@ -203,12 +329,17 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
         n = plan.shape[ax_i]
         if n == 1:
             continue
-        lo, hi = _axis_bounds(n, mesh.idx3[ax_i])
+        lo, hi = _bounds_of(plan, mesh.idx3, ax_i)
         rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
-        x = frac(rr)[:, ax_i]
-        go_lo = mask & (x < lo)
-        go_hi = mask & (x >= hi)
-        stay = mask & ~(go_lo | go_hi)
+        x = _in_box(frac(rr)[:, ax_i])
+        # out of the brick: toward the nearer side, across the periodic
+        # seam too (the JAX package compares the unwrapped fraction and
+        # sends a particle that crossed the seam the long way round)
+        side = x - 0.5 * (lo + hi)
+        below = side - torch.round(side) < 0
+        out = mask & ((x < lo) | (x >= hi))
+        go_lo, go_hi = out & below, out & ~below
+        stay = mask & ~out
         buf_lo, n_lo, ov1 = compact_rows(cur, go_lo, plan.migrate_cap)
         buf_hi, n_hi, ov2 = compact_rows(cur, go_hi, plan.migrate_cap)
         from_lo, from_hi = mesh.exchange(_with_count(buf_lo, n_lo),
@@ -220,7 +351,35 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
         cur, count, ov3 = compact_rows(pool, pool_mask, plan.local_cap)
         mask = torch.arange(plan.local_cap, device=dev) < count
         overflow = overflow | ov1 | ov2 | ov3
+    if plan.orcb:
+        # crossing an x wall swaps the y and z wall sets, so one staged
+        # hop can leave a particle more than one brick from its owner
+        # (tensor walls cannot): check containment and flag an overflow,
+        # on which the run loop redistributes on the host
+        # (brick.py:366-386 of the JAX package)
+        rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
+        ss = frac(rr)
+        for ax_i in range(3):
+            if plan.shape[ax_i] == 1:
+                continue
+            lo, hi = _bounds_of(plan, mesh.idx3, ax_i)
+            x = _in_box(ss[:, ax_i])
+            overflow = overflow | torch.any(mask & ((x < lo) | (x >= hi)))
     return cur, mask, overflow
+
+
+def _in_box(x):
+    """Fractions wrapped into [-0.5, 0.5) (exact in f32; a fraction
+    already inside is unchanged): positions drift out of the box between
+    rebuilds, and ownership is decided in it."""
+    return x - torch.floor(x + 0.5)
+
+
+def _bounds_of(plan: BrickPlan, idx3, ax_i: int):
+    """[lo, hi) of brick idx3 along axis ax_i under the plan's walls."""
+    return _axis_bounds(plan.shape[ax_i], idx3[ax_i],
+                        None if plan.walls is None else plan.walls[ax_i],
+                        idx3[:ax_i])
 
 
 def gid64(gid) -> np.ndarray:
@@ -237,7 +396,9 @@ def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
     brick; brick order is rank order, rank = (ix*ny + iy)*nz + iz.
     Returns (buffers, mask, per-brick counts).  Either package's `gid`
     layout splits into identical buffers (each keeps its own layout).
-    With `hgid` a particle goes to its molecule head bead's brick."""
+    With `hgid` a particle goes to its molecule head bead's brick; under
+    load-balanced walls the owner is loadbalance.walls_assign's (in
+    f64, as the JAX package assigns on the host)."""
     r = np.asarray(arrays["r"])
     if "hgid" in arrays:
         g64, h64 = gid64(arrays["gid"]), gid64(arrays["hgid"])
@@ -251,8 +412,13 @@ def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
             "item 25)")
     fr = r / L[None, :] + 0.5
     fr = fr - np.floor(fr)
-    cj = [np.clip(np.floor(fr[:, a] * plan.shape[a]).astype(int),
-                  0, plan.shape[a] - 1) for a in range(3)]
+    if plan.walls is not None:
+        from .loadbalance import walls_assign
+
+        cj = walls_assign(fr, plan.walls, plan.shape)
+    else:
+        cj = [np.clip(np.floor(fr[:, a] * plan.shape[a]).astype(int),
+                      0, plan.shape[a] - 1) for a in range(3)]
     dest = (cj[0] * ny + cj[1]) * nz + cj[2]
     counts = np.zeros(plan.n_dev, dtype=np.int32)
     for d in range(plan.n_dev):

@@ -54,10 +54,12 @@ from .bonded_shard import resolve_batched, resolve_constraints
 from .brick import (BrickPlan, halo_exchange_3d, halo_reduce_3d,
                     halo_refresh_3d, migrate_3d)
 from .brickstep import _volume, _wrap
-from .shard_cells import (ShardCellPlan, bin_pool_ext, brick_frame_frac,
+from .shard_cells import (ShardCellPlan, bin_frac, bin_pool_ext,
+                          brick_frame_frac,
                           dev_geom, ext_L8, make_shard_eam_kernels,
                           make_shard_pair_kernel, pack_slots_ext,
-                          shard_eam_force, shard_eam_rho, shard_pair_eval)
+                          shard_eam_force, shard_eam_rho, shard_pair_eval,
+                          walls_span_minmax)
 
 # thermostat noise callsite of the mesh step (the single-device NGLF
 # step draws callsite 0); the rank rides in the bits above it
@@ -110,9 +112,12 @@ class BrickStepCells:
         self.geom = dev_geom(cplan, mesh.idx3, dev)
         self._ncore = torch.tensor(cplan.ncore, dtype=torch.float32,
                                    device=dev)
-        # the narrowest brick per axis as a box fraction (uniform walls)
-        self._brick_frac = torch.tensor([1.0 / s for s in plan.shape],
-                                        dtype=torch.float32, device=dev)
+        # the NARROWEST brick per axis as a box fraction (walls-aware):
+        # the NPT shrink guard must hold for every rank
+        # (brickstep_pallas.py:421-455 of the JAX package)
+        self._brick_frac = torch.tensor(
+            walls_span_minmax(plan.walls, plan.shape)[0],
+            dtype=torch.float32, device=dev)
         if force_kind == "eam":
             self.rho_fn, self.force_fn = make_shard_eam_kernels(cplan, tables,
                                                                 dev)
@@ -151,7 +156,9 @@ class BrickStepCells:
         pool_mask = torch.cat([mask, gmask])
         r_pool = torch.cat([fields["r"], ghosts["r"]])
         u0 = brick_frame_frac(r_pool, Lv, self.cplan, self.geom)
-        perm, counts, ov_b = bin_pool_ext(u0, pool_mask, self.cplan)
+        perm, counts, ov_b = bin_pool_ext(
+            bin_frac(u0, r_pool, Lv, self.cplan, self.mesh.idx3), pool_mask,
+            self.cplan)
         n_l = mask.shape[0]
         rb = dict(routing=routing, perm=perm, counts=counts,
                   q_pool=torch.cat([fields["q"], ghosts["q"]]),

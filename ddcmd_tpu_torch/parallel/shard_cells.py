@@ -5,14 +5,16 @@ cell-pair and EAM kernels running inside the brick-mesh step -- the
 reference's "fastest engine under domain decomposition" (device-resident
 state plus MPI halos, ddcMD src/masters.c:389-403) on a rank mesh.
 
-Geometry: every rank owns a brick (uniform walls) and plans an EXTENDED
-cell grid --
+Geometry: every rank owns a brick and plans an EXTENDED cell grid --
 
-  * core cells exactly tile the brick (the same ncore on every rank, so
-    the union of all core cells is one GLOBAL cell lattice);
+  * core cells exactly tile the brick (the same ncore on every rank:
+    under uniform walls the union of all core cells is one GLOBAL cell
+    lattice; under load-balanced walls each rank's cell edge is its own
+    span / ncore, ncore planned from the narrowest brick, so every edge
+    clears rlist);
   * on open axes (mesh size > 1) one halo cell is appended per side, as
-    wide as the core cells, so a halo cell coincides with the
-    neighbour brick's boundary core cell;
+    wide as the core cells (under uniform walls it coincides with the
+    neighbour brick's boundary core cell);
   * on periodic axes (mesh size 1) the core cells span the whole box and
     the stencil wraps as on a single device;
   * one SENTINEL cell (always empty) ends the slot array: stencil
@@ -23,6 +25,12 @@ Pair ownership (Newton's third law across the mesh): the block pair
 kernels run programs over core cells only -- so every unordered pair is
 evaluated once mesh-wide; the q-side reactions that land in halo cells
 go home through the reverse halo reduce (parallel/brick.halo_reduce_3d).
+Under walls the argument holds face by face: two bricks that differ
+first along axis a share their lattices along the earlier axes (a slab
+shares its x walls, a column its y walls), and across their a-face the
+offset is +1 in one frame and -1 in the other, so exactly one of them
+sees the pair at a positive half-stencil direction, whatever their
+lattices along the later axes.
 
 The kernels are the extended-grid entry points of the port's half-stencil
 kernels (ops/cellpair_half.cellpair_half_ext, ops/eam_half.eam_*_half_ext,
@@ -30,7 +38,6 @@ TPU kernels #6 and #7).  Unlike the TPU kernel's trimmed p side, they trim
 both loops with per-cell counts, so `bin_pool_ext` counts every slot cell
 (halo cells included, the sentinel 0).  Records carry the in-kernel
 exclusion channels of the pool rows when the step passes them.
-Load-balanced walls raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -45,7 +52,6 @@ from ..ops.cellpair import _half_dirs
 from ..ops.cellpair_half import cellpair_half_ext, plan_lanes
 from ..ops.eam_half import (eam_force_half_ext, eam_half_supported,
                             eam_kernel_tables, eam_rho_half_ext)
-from .brick import WALLS_ITEM
 
 
 @dataclass(frozen=True)
@@ -66,6 +72,8 @@ class ShardCellPlan:
     stencil_packed: np.ndarray = None    # (n_prog, 14*4) [slot,dx,dy,dz]
     alias_groups: tuple = ()
     center_frac: np.ndarray = None       # (n_slot, 3) BRICK-NORMALIZED centres
+    walls: tuple | None = None           # BrickPlan.walls (None: uniform)
+    span_frac_min: np.ndarray = None     # (3,) narrowest brick per axis
 
     @property
     def sentinel_cell(self) -> int:
@@ -137,6 +145,23 @@ def _alias_groups_ext(ncore, open_axes):
     return tuple(tuple(v) for v in groups.values())
 
 
+def walls_span_minmax(walls, shape):
+    """(min, max) brick-span FRACTIONS per axis of a BrickPlan.walls tuple
+    (tensor 1-D, or ORCB 2-D / 3-D); 1/shape on axes without walls
+    (ddcmd_tpu/parallel/pallas_shard.py:160-175)."""
+    mins = np.empty(3)
+    maxs = np.empty(3)
+    for a in range(3):
+        w = None if walls is None else walls[a]
+        if w is None:
+            mins[a] = maxs[a] = 1.0 / shape[a]
+        else:
+            d = np.diff(np.asarray(w, dtype=np.float64), axis=-1)
+            mins[a] = float(d.min())
+            maxs[a] = float(d.max())
+    return mins, maxs
+
+
 def plan_shard_cells(box_lengths, shape, rcut, skin, n_global,
                      density_safety: float = 1.3, plan_margin: float = 1.0,
                      walls=None) -> ShardCellPlan:
@@ -144,23 +169,30 @@ def plan_shard_cells(box_lengths, shape, rcut, skin, n_global,
     (open axes) or the whole box (periodic axes), at the GLOBAL density
     (ops/cellpair_half.plan_lanes).  plan_margin > 1 keeps the cell edge
     >= rlist * plan_margin: shrink headroom for a barostat.  The JAX
-    package's plan at its default lane capacity and density safety."""
-    if walls is not None:
-        raise NotImplementedError(WALLS_ITEM)
+    package's plan at its default lane capacity and density safety.
+
+    With load-balanced `walls` (BrickPlan.walls): ncore comes from the
+    NARROWEST brick, so every rank's cell edge clears rlist, and the cap
+    from the per-brick count inflated by prod(span_max / span_min), so
+    the shared cap covers the densest cell of the widest brick (the JAX
+    package's plan, pallas_shard.py:177-226)."""
     L = np.asarray(box_lengths, dtype=np.float64)
     shape = tuple(int(s) for s in shape)
     open_axes = tuple(s > 1 for s in shape)
-    spans = L / np.asarray(shape, dtype=np.float64)
+    sf_min, sf_max = walls_span_minmax(walls, shape)
+    spans = sf_min * L
     rlist = rcut + skin
     for a in range(3):
         if open_axes[a] and spans[a] < rlist:
             raise ValueError(
                 f"axis {a}: brick span {spans[a]:.4f} < rlist {rlist:.4f}"
                 " -- 1-hop halos cannot cover the cutoff; use fewer "
-                "bricks along this axis")
+                "bricks along this axis (or looser wall clamps)")
     n_brick = max(1, int(math.ceil(n_global / float(np.prod(shape)))))
-    g = plan_lanes(spans, rcut, skin, n_brick, density_safety=density_safety,
-                   plan_margin=plan_margin)
+    infl = float(np.prod(np.maximum(sf_max / np.maximum(sf_min, 1e-12),
+                                    1.0)))
+    g = plan_lanes(spans, rcut, skin, int(math.ceil(n_brick * infl)),
+                   density_safety=density_safety, plan_margin=plan_margin)
     ncore = g.ncells
     next3, n_prog, n_slot, ext2slot, slot2ext = _build_ext_tables(
         ncore, open_axes)
@@ -174,13 +206,16 @@ def plan_shard_cells(box_lengths, shape, rcut, skin, n_global,
         n_slot=n_slot, ext2slot=ext2slot, slot2ext=slot2ext,
         stencil_packed=stencil,
         alias_groups=_alias_groups_ext(ncore, open_axes),
-        center_frac=centers.astype(np.float64))
+        center_frac=centers.astype(np.float64), walls=walls,
+        span_frac_min=sf_min)
 
 
 def dev_geom(plan: ShardCellPlan, idx3, device):
     """This rank's brick geometry: (c_off (3,), span_frac (3,)) f32 --
-    the brick's centre offset and span as fractions of the box, rounded
-    as the JAX package's f32 arithmetic.  Closed axes span the box."""
+    the brick's centre offset and span as fractions of the box, uniform
+    or looked up in the plan's wall tables (ORCB y walls by the x index,
+    z walls by the x and y indices), rounded as the JAX package's f32
+    arithmetic (pallas_shard.py:229-261).  Closed axes span the box."""
     f32 = np.float32
     c, s = [], []
     for a in range(3):
@@ -188,8 +223,14 @@ def dev_geom(plan: ShardCellPlan, idx3, device):
             c.append(f32(0.0))
             s.append(f32(1.0))
             continue
-        lo = f32(idx3[a]) / f32(plan.shape[a])
-        hi = (f32(idx3[a]) + f32(1.0)) / f32(plan.shape[a])
+        w = None if plan.walls is None else plan.walls[a]
+        if w is None:
+            lo = f32(idx3[a]) / f32(plan.shape[a])
+            hi = (f32(idx3[a]) + f32(1.0)) / f32(plan.shape[a])
+        else:
+            w = np.asarray(w, dtype=np.float64).astype(f32)
+            w = w[tuple(idx3[:w.ndim - 1])]
+            lo, hi = w[idx3[a]], w[idx3[a] + 1]
         c.append(f32(0.5) * (lo + hi) - f32(0.5))
         s.append(hi - lo)
     return (torch.tensor(np.array(c, f32), device=device),
@@ -211,6 +252,39 @@ def brick_frame_frac(r, Lv, plan: ShardCellPlan, geom):
             cols.append(u / span[a])
         else:
             cols.append(s[:, a])
+    return torch.stack(cols, dim=1)
+
+
+def bin_frac(u, r, Lv, plan: ShardCellPlan, idx3):
+    """The brick-frame fractions `u` to bin with: on each open axis a row
+    lies in the core exactly when its box fraction, wrapped into the box,
+    passes the f32 wall comparison of parallel/brick.py (lo <= x < hi,
+    the comparison that decides ownership), else in the halo cell on its
+    side.  u = (x - centre) / span rounds on its own in each brick's
+    frame, so a row on a shared wall (ORCB walls split between equal
+    coordinates, a lattice layer) could otherwise fall in both bricks'
+    cores or in neither, and its pairs across the wall be counted twice
+    or not at all.  Only the binning moves; the packed coordinates keep
+    u."""
+    from .brick import _axis_bounds, _in_box
+
+    below = torch.nextafter(torch.tensor(0.5, dtype=u.dtype),
+                            torch.tensor(0.0, dtype=u.dtype)).item()
+    cols = []
+    for a in range(3):
+        ua = u[:, a]
+        if plan.open_axes[a]:
+            lo, hi = _axis_bounds(plan.shape[a], idx3[a],
+                                  None if plan.walls is None
+                                  else plan.walls[a], idx3[:a])
+            x = _in_box(r[:, a] / Lv[a])
+            side = x - 0.5 * (lo + hi)
+            low = side - torch.round(side) < 0
+            core = (x >= lo) & (x < hi)
+            ua = torch.where(core, ua.clamp(-0.5, below),
+                             torch.where(low, ua.clamp(max=-below),
+                                         ua.clamp(min=0.5)))
+        cols.append(ua)
     return torch.stack(cols, dim=1)
 
 

@@ -39,9 +39,24 @@ REFLECT, PAIRENERGY and ORDERSH (the JAX mesh ignores all four), a
 second nonbond term, a deck with no nonbond term, and EAM it cannot run
 (unfitted TABULAR, more than 4 species).
 
+Load balance: `loadBalance=lb` on the DDC object names a LOADBALANCE
+object (loadBalance.c:32-85) of type ZRAMP or TENSOR (per-axis
+equal-work walls, loadbalance.tensor_walls with workPower) or BISECTION
+(ORCB walls, loadbalance.orcb_walls), computed from the start positions
+and recomputed at `rate` inside run (rebalance), the JAX package's
+parallel_sim.py:117-160 and :926-1009.  A restart whose snapshot holds a
+pxyz of the same mesh shape and balancer family resumes its walls
+(DDCMD_PXYZ_RESTART=0 turns this off).  The walls run on the same
+extended-grid kernels, each rank's cell edge its own span / ncore.
+VORONOI raises: it has no brick lattice and runs on the JAX package's
+brick (N,K)-list engine.  write_checkpoint writes one atoms# shard per
+rank plus the restart and the pxyz (the reference's N-writer pio
+layout); view() gathers r, v and f by gid into a Simulation-shaped view;
+run_analyses() evaluates the deck's ANALYSIS objects, five of them
+sharded (analysis/registry.py eval_sharded).
+
 Deck features outside these paths raise NotImplementedError naming
-their ROADMAP item: load balance (and with it the pxyz decomposition
-restart), triclinic bricks and non-periodic axes (item 25: the JAX mesh
+their ROADMAP item: triclinic bricks and non-periodic axes (item 25: the JAX mesh
 reads no pbc bit and would run such a deck fully periodic), an
 exclusion component wider than the in-kernel encoding, a tabulated PAIR
 or bricks narrower than the cell engine allows (the JAX package's brick
@@ -58,15 +73,15 @@ GLOBAL_ENERGY, Teq or vz schedules) raise naming item 25
 (_refuse_dynamics), as do the NEXTFILE and NGLFTEST masters, printGraphs
 and the per-group energy files (which the JAX mesh does not write;
 Simulation writes them), and SIMULATE analysis= and PRINTINFO
-printStress (Simulation runs them; the sharded analyses,
-ddcmd_tpu/run/parallel_sim.py:1117-1148, are item 25's).  The checkpoint
-writer, rebalance and the gathered view are not ported yet.
+printStress (Simulation runs them; the JAX mesh runs analyses only
+through run_analyses).
 """
 
 from __future__ import annotations
 
 import os
 import time as _time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -78,10 +93,11 @@ from ..objects import ObjectDB
 from ..objects import units as U
 from ..parallel.bonded_shard import (constraint_gid_tables,
                                      mesh_bonded_plan, molecule_gid_tables)
-from ..parallel.brick import BrickPlan, distribute_bricks, gid64
+from ..parallel.brick import (BrickPlan, check_orcb_reach,
+                              distribute_bricks, gid64)
 from ..parallel.brickstep_cells import BrickStepCells
 from ..parallel.mesh import BrickMesh
-from ..parallel.shard_cells import plan_shard_cells
+from ..parallel.shard_cells import plan_shard_cells, walls_span_minmax
 from ..potentials.eam import eam_device_tables
 from ..potentials.martini import martini_device_tables
 from ..potentials.pair import pair_device_tables
@@ -164,12 +180,9 @@ class ParallelSimulation:
                 "(simulate.py:270-272); the port takes neither rule here "
                 f"({_MESH_ITEM})")
 
+        self.db = db
         sim = db.by_class("SIMULATE")[0]
         ddc = db.find(sim.get_str("ddc", "ddc"), "DDC")
-        if ddc is not None and ddc.get_str("loadBalance", ""):
-            raise NotImplementedError(
-                "load balance under the mesh is not ported yet "
-                f"({_MESH_ITEM}: parallel/loadbalance.py, voronoi.py)")
         if shape is None and ddc is not None and ddc.has("lx"):
             shape = (ddc.get_int("lx", 1), ddc.get_int("ly", 1),
                      ddc.get_int("lz", 1))
@@ -218,17 +231,25 @@ class ParallelSimulation:
 
         L = sd.box.lengths.numpy().astype(np.float64)
         rlist = sd.rcut_max + sd.neighbor_deltaR
+        walls = self._setup_loadbalance(db, ddc, base_dir, L, rlist)
         # halo windows scale with rlist / brick width (parallel_sim.py:
         # 182-202 of the JAX package)
         per_dev = max(1, n // n_dev)
         width = min(L[a] / self.shape[a] for a in range(3))
         frac = min(1.0, rlist / width)
         halo_est = int(per_dev * (1 + 2 * frac) ** 2 * frac * 1.8) + 64
+        halo = max(3 * n // n_dev // 2, halo_est)
+        if self._lb_kind == "bisection":
+            # under ORCB an earlier phase's ghosts are forwarded from
+            # across a neighbour's whole range (parallel/brick.py): half
+            # as much room again
+            halo = 3 * halo // 2
         self.plan = BrickPlan(
             shape=self.shape,
             local_cap=_cap(n) if n_dev == 1 else _cap(4 * n // n_dev),
-            halo_cap=_cap(max(3 * n // n_dev // 2, halo_est)),
-            migrate_cap=_cap(max(256, n // (4 * n_dev))), rlist=rlist)
+            halo_cap=_cap(halo),
+            migrate_cap=_cap(max(256, n // (4 * n_dev))), rlist=rlist,
+            walls=walls)
         self._check_geometry(L, rlist)
         self.chunk_steps = max(1, int(sd.cfg.ddc_update_rate))
         self.coeffs = sd.group_table.coefficients(
@@ -258,8 +279,69 @@ class ParallelSimulation:
         # (steps, seconds) of each accepted dispatch, host clock around
         # work that ends in the dispatch's one device-to-host read
         self.dispatch_log: list[tuple[int, float]] = []
+        self.n_rebalance = 0
 
     # ------------------------------------------------------------------
+
+    def _setup_loadbalance(self, db, ddc, base_dir, L, rlist):
+        """The deck's LOADBALANCE (JAX parallel_sim.py:117-180): ZRAMP and
+        TENSOR take per-axis equal-work walls (workPower, default 2),
+        clamped to 1.05 rlist; BISECTION the ORCB walls; each with its
+        `rate`.  A restart's pxyz of the same mesh shape and family
+        supplies the walls instead (DDCMD_PXYZ_RESTART=0: never).
+        Returns the walls (None: uniform)."""
+        self.lb_rate, self._lb_kind, self._lb_work_power = 0, None, 2
+        name = ddc.get_str("loadBalance", "") if ddc is not None else ""
+        if not name:
+            return None
+        lbobj = db.find(name, "LOADBALANCE")
+        if lbobj is None:
+            raise ValueError(f"DDC loadBalance={name}: no LOADBALANCE "
+                             "object of that name")
+        kind = lbobj.get_str("type", "").upper()
+        if kind == "VORONOI":
+            raise NotImplementedError(
+                "VORONOI load balance under the mesh: its domains have no "
+                "brick lattice and run on the JAX package's brick (N,K)-list "
+                f"engine make_brick_step, not ported yet ({_MESH_ITEM})")
+        if kind not in ("ZRAMP", "TENSOR", "BISECTION"):
+            raise NotImplementedError(
+                f"LOADBALANCE type={kind or '(none)'}: the mesh balances "
+                "ZRAMP, TENSOR and BISECTION walls")
+        self._lb_kind = "bisection" if kind == "BISECTION" else "tensor"
+        self._lb_work_power = lbobj.get_int("workPower", 2)
+        self.lb_rate = lbobj.get_int("rate", 0)
+        n = self.sysdef.state.n_local
+        walls = self._lb_walls(self.sysdef.state.r[:n].numpy(), L, rlist)
+        if os.environ.get("DDCMD_PXYZ_RESTART", "1") != "0":
+            from ..io.pxyz import restore_plan_lb
+
+            colobjs = db.by_class("COLLECTION")
+            files_v = colobjs[0].get_str("files", "") if colobjs else ""
+            w_saved, _ = restore_plan_lb(
+                os.path.join(base_dir, os.path.dirname(files_v), "pxyz"),
+                self.shape, self._lb_kind)
+            if w_saved is not None:
+                walls = tuple(tuple(w) if np.asarray(w).ndim == 1
+                              else np.asarray(w) for w in w_saved)
+        return walls
+
+    def _lb_walls(self, r, L, rlist):
+        """Walls of this run's balancer from positions r at box L (the
+        JAX package's __init__ and parallel_rebalance branches); ORCB
+        walls are checked against the staged exchange's reach."""
+        if self._lb_kind == "bisection":
+            from ..parallel.loadbalance import orcb_walls
+
+            walls = orcb_walls(r, L, self.shape, min_frac=tuple(
+                1.05 * rlist / L[a] for a in range(3)))
+            check_orcb_reach(walls, self.shape, rlist / L)
+            return walls
+        from ..parallel.loadbalance import clamp_walls, tensor_walls
+
+        raw = tensor_walls(r, L, self.shape, work_power=self._lb_work_power)
+        return tuple(tuple(clamp_walls(w, 1.05 * rlist / L[a]))
+                     for a, w in enumerate(raw))
 
     @staticmethod
     def _refuse_dynamics(sd):
@@ -378,13 +460,15 @@ class ParallelSimulation:
                                      bt.chain_links)
 
     def _check_geometry(self, L, rlist):
-        """The cell engine's gate (_pick_shard_engine): every open axis
-        needs bricks >= rlist, and >= 2 rlist on a 2-brick axis (an atom
-        within rlist of both faces would need two ghost images).  Where
-        the JAX package falls back to its (N,K)-list engine, raise."""
+        """The cell engine's gate (_pick_shard_engine, JAX parallel_sim.py:
+        647-686): every open axis needs its NARROWEST brick >= rlist, and
+        >= 2 rlist on a 2-brick axis (an atom within rlist of both faces
+        would need two ghost images).  Where the JAX package falls back
+        to its (N,K)-list engine, raise."""
+        sf_min, _ = walls_span_minmax(self.plan.walls, self.shape)
         for a in range(3):
             na = self.shape[a]
-            span = L[a] / na
+            span = L[a] * sf_min[a]
             if na > 1 and span < rlist * (2.0 if na == 2 else 1.0):
                 raise NotImplementedError(
                     f"axis {a}: brick {span:.3f} too narrow for rlist "
@@ -402,7 +486,8 @@ class ParallelSimulation:
         self.cplan = plan_shard_cells(
             L, self.shape, sd.rcut_max, sd.neighbor_deltaR, sd.state.n_local,
             density_safety=self._density_safety,
-            plan_margin=_NPT_PLAN_MARGIN if self.barostat else 1.0)
+            plan_margin=_NPT_PLAN_MARGIN if self.barostat else 1.0,
+            walls=self.plan.walls)
         self.step_fn = BrickStepCells(
             self.mesh, self.plan, self.cplan, self.tables, self.coeffs,
             sd.cfg.dt, L, self._tmap, sd.random_seed, self.chunk_steps,
@@ -522,8 +607,13 @@ class ParallelSimulation:
             self.first_energy()
         done = 0
         k = self.chunk_steps
+        # with load balance at a rate no superchunk spans a rebalance:
+        # chunks, each preceded by the rebalance when its loop is due
+        # (JAX parallel_sim.py:499-555)
+        rate = self.lb_rate
+        next_lb = self.loop - self.loop % rate + rate if rate else None
         M = (max_steps_per_dispatch // k if max_steps_per_dispatch
-             and max_steps_per_dispatch >= 2 * k else 0)
+             and max_steps_per_dispatch >= 2 * k and not rate else 0)
         redis_tries = 0
         while done < n_loops:
             steps = 0
@@ -531,6 +621,9 @@ class ParallelSimulation:
                 kind = "super"
             elif done + k <= n_loops:
                 kind = "chunk"
+                if next_lb is not None and self.loop >= next_lb:
+                    self.rebalance()
+                    next_lb += rate
             else:
                 kind = "chunk" if self.barostat else "step"
                 steps = n_loops - done
@@ -563,15 +656,33 @@ class ParallelSimulation:
             self.dispatch_log.append((steps, seconds))
         return self
 
-    def redistribute(self):
-        """Host-exact re-assignment of every particle to its brick at the
-        live box (no replan): recovers from a migration or halo
-        overflow."""
-        g = self.gather_by_gid(("r", "v"))
+    def redistribute(self, g=None):
+        """Host-exact re-assignment of every particle to its brick under
+        the current walls at the live box (no replan): recovers from a
+        migration or halo overflow, and from an ORCB containment flag.
+        g: the gathered r and v, when the caller has them."""
+        g = self.gather_by_gid(("r", "v")) if g is None else g
         arrays = dict(self._host_arrays, r=g["r"], v=g["v"])
         self._distribute(arrays)
         self.f = None
         self.first_energy()
+
+    def rebalance(self):
+        """Recompute the walls from the CURRENT positions (the tensor or
+        bisection branch of the JAX package's parallel_rebalance,
+        parallel_sim.py:926-1009; loadBalance at rate, loadBalance.c:
+        32-85), replan the cell grid under them and redistribute.  Every
+        rank computes the same walls from the same gathered positions."""
+        import dataclasses
+
+        g = self.gather_by_gid(("r", "v"))
+        L = self._live_L()
+        walls = self._lb_walls(g["r"], L, self.plan.rlist)
+        self.plan = dataclasses.replace(self.plan, walls=walls)
+        self._check_geometry(L, self.plan.rlist)
+        self._build_step_fns()
+        self.redistribute(g)
+        self.n_rebalance += 1
 
     def replan(self):
         """Replan the cell grid at the LIVE box (a barostat-compressed box
@@ -581,7 +692,7 @@ class ParallelSimulation:
         loop grows it), and redistribute.  A brick narrower than rlist at
         the live box makes the decomposition itself infeasible: raise."""
         L = self._live_L()
-        widths = L / np.asarray(self.shape, np.float64)
+        widths = L * walls_span_minmax(self.plan.walls, self.shape)[0]
         if widths.min() < self.plan.rlist:
             raise RuntimeError(
                 f"brick decomposition infeasible at the live box: narrowest "
@@ -593,3 +704,175 @@ class ParallelSimulation:
             self._density_safety *= 1.3
             self._build_step_fns()
         self.redistribute()
+
+    # -- checkpoint, gathered view, analyses --------------------------------
+
+    def _barrier(self):
+        if self.mesh.size > 1:
+            dist.barrier()
+
+    def _view_state(self, g: dict):
+        """StepState at the live box with the rows of the gathered fields
+        `g` (r, v, f) on this rank's device, the static fields where the
+        system holds them: the JAX package's parallel_view state
+        (parallel_sim.py:1079-1114)."""
+        from ..core.box import Box
+        from ..core.energy import EnergyInfo
+        from ..integrators.nglf import StepState
+
+        sd = self.sysdef
+        n = sd.state.n_local
+        dev = self.device
+        rep = {}
+        for k, a in g.items():
+            t = getattr(sd.state, k).to(dev).clone()
+            t[:n] = torch.as_tensor(a, dtype=t.dtype, device=dev)
+            rep[k] = t
+        state = sd.state.replace(**rep)
+        box = Box.from_h(np.diag(self._live_L()), pbc=sd.box.pbc,
+                         dtype=sd.state.r.dtype, device=dev)
+        time = (self.loop - sd.cfg.loop) * sd.cfg.dt + sd.cfg.time
+        return StepState(state=state, box=box,
+                         energy=EnergyInfo.zero(sd.state.r.dtype, dev),
+                         loop=self.loop, time=time)
+
+    def view(self):
+        """A Simulation-shaped view of the mesh (sysdef, ss, device) with
+        r, v and f gathered by gid (every rank gets it; collective), on
+        which the analysis registry's classes evaluate unchanged -- the
+        dataExchange / getRemoteData analog of the JAX package's
+        parallel_view."""
+        names = ("r", "v") + (("f",) if self.f is not None else ())
+        ss = self._view_state(self.gather_by_gid(names))
+        return SimpleNamespace(sysdef=self.sysdef, ss=ss, device=self.device,
+                               db=self.db, parallel_plan=self.plan)
+
+    def write_checkpoint(self, run_dir: str = ".") -> str:
+        """Write a snapshot directory that restarts under Simulation or the
+        mesh, in either package (writeRestart for the mesh, JAX
+        parallel_sim.py:801-921): by default each rank writes the atoms#
+        shard of its OWNED rows (pio's N-writer layout, ddcMD
+        src/simulate.c:212), and after a barrier rank 0 patches shard 0's
+        header to the global nfiles and nrecord, then writes the restart
+        and the pxyz of the live plan.  Binary checkpoint modes and
+        DDCMD_SHARD_WRITERS=0 gather by gid to one writer on rank 0.
+        Collective; returns the snapshot directory."""
+        from ..io.restart import write_checkpoint as _wc
+
+        sd = self.sysdef
+        sysobj = sd.db.get(sd.cfg.system_name, "SYSTEM")
+        colobj = sd.db.find(sysobj.get_str("collection", "collection"),
+                            "COLLECTION")
+        mode = colobj.get_str("mode", "VARRECORDASCII") if colobj \
+            else "VARRECORDASCII"
+        sharded = (os.environ.get("DDCMD_SHARD_WRITERS", "1") != "0"
+                   and mode.upper() not in ("FIXRECORDBINARY", "BINARY"))
+        rank = self.mesh.rank
+        if sharded:
+            ss = self._view_state({})
+            writer = self._shard_writer()
+        else:
+            ss = self._view_state(self.gather_by_gid(("r", "v")))
+            writer = None
+        shim = SimpleNamespace(sysdef=sd, ss=ss, parallel_plan=self.plan)
+        if rank == 0:
+            snap = _wc(shim, run_dir, atoms_writer=writer)
+        else:
+            ndig = max(sd.cfg.nLoopDigits, 6)
+            snap = os.path.join(run_dir, f"snapshot.{self.loop:0{ndig}d}")
+            if sharded:
+                os.makedirs(snap, exist_ok=True)
+                time_fs = ((sd.cfg.time + (self.loop - sd.cfg.loop)
+                            * sd.cfg.dt) * U.TIME_TO_FS)
+                writer(snap, mode, self.loop, time_fs)
+        self._barrier()
+        return snap
+
+    def _shard_writer(self):
+        """atoms_writer of write_checkpoint: this rank's atoms#<rank> from
+        its owned rows (any record order: readers key by gid), a barrier,
+        then on rank 0 shard 0's header patched to the mesh-wide nfiles
+        and nrecord (the JAX package's _make_sharded_atoms_writer, with
+        one writer a rank instead of one a device).  The record counts
+        are summed before anything is written."""
+        from ..io.collection import _strip_header, write_collection
+
+        sd = self.sysdef
+        col = sd.collection
+        m = self.mask
+        n_own = int(m.sum())
+        total = int(self.mesh.psum(m.sum().to(torch.int64).reshape(1))[0])
+        g64 = self.fields["gid"][m].cpu().numpy().astype(np.int64)
+        r = self.fields["r"][m].cpu().numpy().astype(np.float64)
+        v = self.fields["v"][m].cpu().numpy().astype(np.float64)
+        pos = np.argsort(gid64(col.gid), kind="stable")
+        idx = pos[np.searchsorted(gid64(col.gid), g64, sorter=pos)]
+        rank, size = self.mesh.rank, self.mesh.size
+        h = np.diag(self._live_L())
+
+        def pick(names):
+            return [names[i] for i in idx]
+
+        def writer(snapdir, mode, loop, time_fs):
+            path = os.path.join(snapdir, "atoms#%06d" % rank)
+            write_collection(
+                path, gid=g64.astype(np.uint64),
+                species_names=pick(col.species_names),
+                group_names=pick(col.group_names),
+                class_names=pick(col.class_names), r=r, v=v, h=h,
+                loop=loop, time_fs=time_fs,
+                group_list=[g.name for g in sd.groups],
+                species_list=[s.name for s in sd.species],
+                gid_format="hex" if sd.cfg.gidFormat == "hex" else "dec",
+                datatype=mode, precision=sd.cfg.checkpointprecision)
+            if rank > 0:
+                # continuation shards carry records only (the FILEHEADER
+                # lives in shard 0)
+                with open(path, "rb") as f:
+                    blob = f.read()
+                with open(path, "wb") as f:
+                    f.write(_strip_header(blob))
+            self._barrier()
+            if rank == 0:
+                with open(path, "rb") as f:
+                    blob = f.read()
+                blob = blob.replace(b"nfiles=1;", b"nfiles=%d;" % size, 1)
+                blob = blob.replace(b"nrecord=%d;" % n_own,
+                                    b"nrecord=%d;" % total, 1)
+                with open(path, "wb") as f:
+                    f.write(blob)
+
+        return writer
+
+    def run_analyses(self, run_dir: str = ".") -> list:
+        """Evaluate every ANALYSIS object of the deck once on the current
+        state and write its output (analysisMaster for the mesh, JAX
+        parallel_sim.py:1117-1145).  PAIRCORRELATION, VCMWRITE,
+        KINETICENERGYDISTN, ZDENSITY and SSF sum owned-row partials over
+        the mesh (eval_sharded, on every rank); the others evaluate on
+        the gathered view.  Where the JAX package catches any error of
+        eval_sharded and evaluates the gathered view instead, the port
+        decides up front -- PAIRCORRELATION with rmax beyond rlist, past
+        the halo, takes the gathered path -- and raises on any other
+        error.  Rank 0 writes the files.  Collective; returns the names
+        evaluated."""
+        import warnings
+
+        from ..analysis.registry import build_analysis
+
+        view = self.view()
+        done = []
+        for obj in self.db.by_class("ANALYSIS"):
+            try:
+                a = build_analysis(obj.name, obj)
+            except Exception as err:
+                warnings.warn(f"analysis {obj.name} skipped: {err}")
+                continue
+            if hasattr(a, "eval_sharded") and a.shardable(self):
+                a.eval_sharded(self)
+            elif self.mesh.rank == 0:
+                a.eval(view)
+            if self.mesh.rank == 0:
+                a.output(view, run_dir)
+            done.append(obj.name)
+        return done

@@ -399,3 +399,26 @@ def test_transform_registry_copy_equals_jax():
 
     assert body(treg) == body(
         jreg, lambda s: s.replace("/root/reference/src/", "ddcMD src/"))
+
+
+def test_loadbalance_copy_equals_jax():
+    """parallel/loadbalance.py is the JAX package's balancer (host numpy,
+    copied): the same code statement for statement once the docstrings
+    are set aside (its results: tests/test_torch_loadbalance.py)."""
+    import ast
+
+    from ddcmd_tpu.parallel import loadbalance as jlb
+    from ddcmd_tpu_torch.parallel import loadbalance as tlb
+
+    def body(mod):
+        with open(mod.__file__) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Module, ast.FunctionDef,
+                                 ast.ClassDef)) and node.body and \
+                    isinstance(node.body[0], ast.Expr) and \
+                    isinstance(node.body[0].value, ast.Constant):
+                node.body = node.body[1:]
+        return ast.dump(tree)
+
+    assert body(tlb) == body(jlb)

@@ -165,15 +165,17 @@ def test_device_defaults_to_cuda(tmp_path, monkeypatch):
 @pytest.mark.parametrize("edit,what", [
     (lambda s: s.replace("ddc DDC { updateRate=20; }",
                          "ddc DDC { updateRate=20; loadBalance=lb; }\n"
-                         "lb LOADBALANCE { type=TENSOR; }"), "load balance"),
+                         "lb LOADBALANCE { type=VORONOI; }"), "load balance"),
     (lambda s: s.replace("type=NGLF; T=310.0K;",
                          "type=NGLFCONSTRAINT; T=310.0K; beta=1e-5; "
                          "tauBarostat=1ps;"), "barostat"),
 ], ids=["edit0-load balance", "edit1-barostat"])
 def test_unported_mesh_features_raise(tmp_path, edit, what):
-    """Load balance under the mesh raises naming its ROADMAP item.  The
-    barostat, refused here before the NPT chunk was ported, now builds:
-    the NPT water deck carries its barostat into the mesh step."""
+    """VORONOI load balance under the mesh raises naming its ROADMAP item
+    (ZRAMP, TENSOR and BISECTION run: tests/test_torch_mesh_walls.py).
+    The barostat, refused here before the NPT chunk was ported, now
+    builds: the NPT water deck carries its barostat into the mesh
+    step."""
     d = str(tmp_path)
     martini_water(d, n=400)
     p = os.path.join(d, "object.data")

@@ -9,6 +9,7 @@ jax stays out of them.
 from __future__ import annotations
 
 import os
+import re
 import time
 from types import SimpleNamespace
 
@@ -179,3 +180,252 @@ def affine_run(rank, deck_dir, shape, steps, out):
     if rank == 0:
         np.savez(out, e=e, r=g["r"], v=g["v"], loop=ps.loop,
                  L=ps.Lv.numpy())
+
+
+# -- load-balanced walls, the mesh checkpoint, the sharded analyses ---------
+
+def skewed_water(d, n=6000, p_drop=0.8, seed=3, analyses=None):
+    """models.martini_water(n) with 80% of the beads removed from the
+    slab x < 0 at y fractions [0, 0.3) and from the slab x >= 0 at
+    [0.5, 0.8): ORCB's y walls then differ by ~0.24 of the box between
+    the two x-slabs (more than rlist), while every brick of a (2,2,2)
+    plan stays wider than 2 rlist.  `analyses`: {name: keyword text} of
+    ANALYSIS objects appended to the deck (not listed in SIMULATE
+    analysis=, which the mesh refuses)."""
+    from ddcmd_tpu_torch.io.collection import read_collection
+    from ddcmd_tpu_torch.models import martini_water
+    from ddcmd_tpu_torch.models.builders import write_atoms
+
+    martini_water(d, n=n)
+    col = read_collection("atoms#", d)
+    L = float(open(os.path.join(d, "object.data")).read().split(
+        "h= ")[1].split()[0]) / 10.0
+    f = np.asarray(col.r, np.float64) / L + 0.5
+    rng = np.random.default_rng(seed)
+    hole = (((f[:, 0] < 0.5) & (f[:, 1] < 0.3))
+            | ((f[:, 0] >= 0.5) & (f[:, 1] >= 0.5) & (f[:, 1] < 0.8)))
+    keep = ~(hole & (rng.random(len(f)) < p_drop))
+    m = int(keep.sum())
+    write_atoms(os.path.join(d, "atoms#000000"),
+                np.asarray(col.r)[keep] * 10.0, np.zeros((m, 3)),
+                ["WxW"] * m, ["solvent"] * m, np.diag([L * 10.0] * 3))
+    p = os.path.join(d, "object.data")
+    text = open(p).read().replace(f"size={n};", f"size={m};")
+    text += "".join(f"{k} ANALYSIS {{ {v} }}\n"
+                    for k, v in (analyses or {}).items())
+    open(p, "w").write(text)
+    return d
+
+
+def set_loadbalance(d, kind, rate=0, update_rate=20):
+    """Name a LOADBALANCE of `kind` at `rate` on the deck's DDC object."""
+    p = os.path.join(d, "object.data")
+    text = open(p).read()
+    text = re.sub(r"ddc DDC \{[^}]*\}\n?", "", text)
+    text = re.sub(r"bal LOADBALANCE \{[^}]*\}\n?", "", text)
+    text += (f"ddc DDC {{ updateRate={update_rate}; loadBalance=bal; }}\n"
+             f"bal LOADBALANCE {{ type={kind}; rate={rate}; }}\n")
+    open(p, "w").write(text)
+
+
+def _walls_npz(walls):
+    return {f"w{a}": np.asarray(w, np.float64) for a, w in enumerate(walls)}
+
+
+def lb_first_forces(rank, deck_dir, shape, out):
+    """First forces (gathered by gid), energy and virial of a load-balanced
+    mesh, its walls, and each rank's ghost gids from the staged halo
+    exchange (<out>_ghosts_<rank>.npz)."""
+    from ddcmd_tpu_torch.parallel.brick import halo_exchange_3d
+
+    ps = _psim(deck_dir, shape)
+    ps.f, e, virial, ov = ps.step_fn.first_forces(ps.fields, ps.mask)
+    g = ps.gather_by_gid(("f",))
+    ghosts, gmask, ov_h, _ = halo_exchange_3d(
+        {"r": ps.fields["r"], "gid": ps.fields["gid"]}, ps.mask,
+        ps.step_fn.Lv, ps.plan, ps.mesh)
+    np.savez(f"{out}_ghosts_{rank}.npz", gid=ghosts["gid"][gmask].numpy(),
+             own=ps.fields["gid"][ps.mask].numpy(), ov=bool(ov_h))
+    if rank == 0:
+        np.savez(out, e=float(e), virial=virial.numpy(), ov=bool(ov),
+                 f=g["f"], ncore=np.asarray(ps.cplan.ncore),
+                 cap=ps.cplan.cap, lb_rate=ps.lb_rate, **_walls_npz(
+                     ps.plan.walls))
+
+
+def lb_run(rank, deck_dir, shape, steps, out):
+    """`steps` steps of a load-balanced mesh with its rebalances: the walls
+    before and after, the rebalance count, every owned gid mesh-wide
+    before and after, finite forces."""
+    ps = _psim(deck_dir, shape)
+    walls0 = ps.plan.walls
+    gids0 = _owned_gids(ps)
+    ps.first_energy()
+    lines = []
+    ps.run(steps, print_fn=lines.append)
+    gids1 = _owned_gids(ps)
+    if rank == 0:
+        np.savez(out, loop=ps.loop, n_rebalance=ps.n_rebalance,
+                 gids0=gids0, gids1=gids1, n_lines=len(lines),
+                 finite=bool(torch.isfinite(ps.f[ps.mask]).all()),
+                 **{f"a{k}": v for k, v in _walls_npz(walls0).items()},
+                 **_walls_npz(ps.plan.walls))
+
+
+def orcb_misplaced(rank, deck_dir, shape, out):
+    """One particle's position and velocity swapped with a particle's two
+    x-slabs away (4 slabs), so that after the chunk's one staged hop it
+    sits outside its new owner's brick: the ORCB containment check flags
+    it, and the run's ladder recovers through redistribute (counted)."""
+    ps = _psim(deck_dir, shape)
+    r_host = ps._host_arrays["r"]
+    L = ps._live_L()
+    fx = r_host[:, 0] / L[0] + 0.5
+    w = np.asarray(ps.plan.walls[0])
+    a = int(np.nonzero((fx > w[0] + 0.02) & (fx < w[1] - 0.02))[0][0])
+    b = int(np.nonzero((fx > w[2] + 0.02) & (fx < w[3] - 0.02))[0][0])
+    gid = gid64_of(ps)
+    for i, j in ((a, b), (b, a)):
+        rows = torch.nonzero(ps.mask & (ps.fields["gid"] == int(gid[i])))
+        if len(rows):
+            ps.fields["r"][rows[0, 0]] = torch.as_tensor(r_host[j])
+            ps.fields["v"][rows[0, 0]] = torch.as_tensor(
+                ps._host_arrays["v"][j])
+    calls = []
+    redistribute = ps.redistribute
+    ps.redistribute = lambda *x: (calls.append(1), redistribute(*x))[1]
+    ps.first_energy()
+    ps.run(ps.chunk_steps)
+    gids1 = _owned_gids(ps)
+    if rank == 0:
+        np.savez(out, redistributed=len(calls), loop=ps.loop, gids1=gids1,
+                 n=len(gid),
+                 finite=bool(torch.isfinite(ps.f[ps.mask]).all()))
+
+
+def gid64_of(ps):
+    from ddcmd_tpu_torch.parallel.brick import gid64
+
+    return gid64(ps.sysdef.collection.gid)
+
+
+def lb_checkpoint(rank, deck_dir, shape, steps, run_dir, out):
+    """`steps` steps with rebalances, then the N-writer checkpoint into
+    run_dir and the gathered writer (DDCMD_SHARD_WRITERS=0) into
+    run_dir/gathered; the mesh's energy of the checkpointed state and
+    its walls."""
+    ps = _psim(deck_dir, shape)
+    ps.first_energy()
+    ps.run(steps)
+    snap = ps.write_checkpoint(run_dir)
+    os.environ["DDCMD_SHARD_WRITERS"] = "0"
+    os.makedirs(os.path.join(run_dir, "gathered"), exist_ok=True)
+    snap_g = ps.write_checkpoint(os.path.join(run_dir, "gathered"))
+    del os.environ["DDCMD_SHARD_WRITERS"]
+    e = ps.first_energy()
+    if rank == 0:
+        np.savez(out, e=e, snap=snap, snap_g=snap_g, loop=ps.loop,
+                 n_rebalance=ps.n_rebalance, **_walls_npz(ps.plan.walls))
+
+
+def lb_restart(rank, deck_dir, shape, restart, out):
+    """The mesh from a restart: its walls and first energy, then with
+    DDCMD_PXYZ_RESTART=0 the walls computed afresh."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    ps = ParallelSimulation(*load(deck_dir, restart=restart), shape=shape,
+                            device="cpu")
+    e = ps.first_energy()
+    os.environ["DDCMD_PXYZ_RESTART"] = "0"
+    fresh = ParallelSimulation(*load(deck_dir, restart=restart), shape=shape,
+                               device="cpu").plan.walls
+    del os.environ["DDCMD_PXYZ_RESTART"]
+    if rank == 0:
+        np.savez(out, e=e, **_walls_npz(ps.plan.walls),
+                 **{f"f{k}": v for k, v in _walls_npz(fresh).items()})
+
+
+def lb_analyses(rank, deck_dir, shape, steps, run_dir, out):
+    """After `steps` steps: each eval_sharded class against its gathered
+    eval on view(), run_analyses' files, and view()'s r, v and f
+    against gather_by_gid."""
+    from ddcmd_tpu_torch.analysis.registry import build_analysis
+
+    ps = _psim(deck_dir, shape)
+    ps.first_energy()
+    ps.run(steps)
+    view = ps.view()
+    g = ps.gather_by_gid(("r", "v", "f"))
+    n = ps.sysdef.state.n_local
+    res = {}
+    for obj in ps.db.by_class("ANALYSIS"):
+        sh, ga = build_analysis(obj.name, obj), build_analysis(obj.name, obj)
+        if not hasattr(sh, "eval_sharded"):
+            continue
+        res[f"{obj.name}_shardable"] = sh.shardable(ps)
+        if not sh.shardable(ps):
+            continue
+        sh.eval_sharded(ps)
+        ga.eval(view)
+        for k, v in sh.state.items():
+            if isinstance(v, (np.ndarray, list)) and len(v):
+                res[f"{obj.name}_sh_{k}"] = np.asarray(v, np.float64)
+                res[f"{obj.name}_ga_{k}"] = np.asarray(ga.state[k],
+                                                       np.float64)
+    done = ps.run_analyses(run_dir)
+    if rank == 0:
+        np.savez(out, done=np.asarray(done), loop=ps.loop,
+                 r=g["r"], v=g["v"], f=g["f"],
+                 vr=view.ss.state.r[:n].numpy(),
+                 vv=view.ss.state.v[:n].numpy(),
+                 vf=view.ss.state.f[:n].numpy(),
+                 L=ps._live_L(), **res)
+
+
+def halo_gids(rank, shape, walls, r, L, rlist, out):
+    """Each rank's ghost gids from the staged halo exchange of positions
+    r (gid = row) under a BrickPlan with `walls` in a cubic box L."""
+    from ddcmd_tpu_torch.parallel.brick import (BrickPlan,
+                                                distribute_bricks,
+                                                halo_exchange_3d)
+    from ddcmd_tpu_torch.parallel.mesh import BrickMesh
+
+    n = len(r)
+    plan = BrickPlan(shape=shape, local_cap=n, halo_cap=n, migrate_cap=64,
+                     rlist=rlist, walls=walls)
+    buf, mask, _ = distribute_bricks(
+        dict(r=r, gid=np.arange(n, dtype=np.int64)), [L] * 3, plan)
+    mesh = BrickMesh(shape, "cpu")
+    rows = slice(rank * n, (rank + 1) * n)
+    gh, gm, ov, _ = halo_exchange_3d(
+        {k: torch.as_tensor(v[rows]) for k, v in buf.items()},
+        torch.as_tensor(mask[rows]), torch.tensor([L] * 3), plan, mesh)
+    np.savez(f"{out}_{rank}.npz", gid=gh["gid"][gm].numpy(), ov=bool(ov))
+
+
+def seam_migrate(rank, shape, walls, r, L, rlist, row, x_new, out):
+    """Distribute r (gid = row) under `walls`, move particle `row`'s x to
+    the unwrapped fraction x_new (on its owner), migrate once: the
+    overflow flag and each rank's owned gids."""
+    from ddcmd_tpu_torch.parallel.brick import (BrickPlan,
+                                                distribute_bricks,
+                                                migrate_3d)
+    from ddcmd_tpu_torch.parallel.mesh import BrickMesh
+
+    n = len(r)
+    plan = BrickPlan(shape=shape, local_cap=n, halo_cap=n, migrate_cap=64,
+                     rlist=rlist, walls=walls)
+    buf, mask, _ = distribute_bricks(
+        dict(r=r, gid=np.arange(n, dtype=np.int64)), [L] * 3, plan)
+    rows = slice(rank * n, (rank + 1) * n)
+    f = {k: torch.as_tensor(v[rows]) for k, v in buf.items()}
+    m = torch.as_tensor(mask[rows])
+    hit = torch.nonzero(m & (f["gid"] == row)).reshape(-1)
+    if len(hit):
+        f["r"][hit[0], 0] = float(x_new) * L
+    cur, m2, ov = migrate_3d(f, m, torch.tensor([L] * 3), plan,
+                             BrickMesh(shape, "cpu"))
+    ov = BrickMesh(shape, "cpu").psum(ov.to(torch.float32).reshape(1))
+    np.savez(f"{out}_{rank}.npz", ov=bool(ov[0] > 0),
+             own=cur["gid"][m2].numpy())
