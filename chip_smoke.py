@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--kernels-only | --list-only | --charmm-only |
                            --integrators-only | --masters-only |
                            --transforms-only | --analyses-only |
-                           --rebuilds-only | --loadbalance-only]
+                           --rebuilds-only | --loadbalance-only |
+                           --listmesh-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -269,6 +270,24 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      evals on the restart.  Rows of its own: cellpair_half_ext_excl_walls,
      cellpair_half_ext_orcb, eam_rho_ext_walls and eam_force_ext_walls,
      each with the launches of (a) or (b)'s eight bricks.
+ 26. the mesh's brick (N,K)-list engine (ROADMAP item 25, second part;
+     plain PyTorch, no kernel launched): (a) phase 18's (B) table fluid
+     (131,072 atoms) through ParallelSimulation at (1,1,1): its first
+     energy and forces against Simulation(engine="nlist") on the same
+     state, LISTMESH_STEPS steps with the mean T in (B)'s window, steps/s
+     beside Simulation's list engine; (b) phase 19's (C) tripeptide
+     (3,630 atoms; its 30-member exclusion component masked by gid, its
+     junction and CMAP terms resolved per term): f64 first energy within
+     1e-8 of Simulation(engine="nlist", f64), a short f64 NVE run and
+     its max |dEtot|, f32 against f64 at phase 19's gates; (c) the
+     unfitted TABULAR nc = 12 crystal against Simulation's cell-block
+     EAM engine, then LISTMESH_EAM_STEPS steps; (d) phase 25's zRamp
+     bilayer under a (2,2,2) VORONOI plan after one balance_step and
+     under a uniform (4,4,2) plan of bricks narrower than 2 rlist, every
+     brick through the list engine's per-rank functions (the list of its
+     owned rows with the excluded partners dropped, martini_nonbond)
+     with its halo filled from the host, against Simulation's pair term;
+     (e) the 400-bead water box on the list engine, card against CPU.
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -279,7 +298,7 @@ result; --charmm-only does the same with phase 19, --integrators-only
 with phase 20, --masters-only with phase 21 (making the bilayer's restart
 as phase 6's first stage does), --transforms-only with phase 22,
 --analyses-only with phase 23, --rebuilds-only with phase 24,
---loadbalance-only with phase 25.
+--loadbalance-only with phase 25, --listmesh-only with phase 26.
 """
 
 import contextlib
@@ -410,7 +429,7 @@ PAIRENERGY_POT = ("pen POTENTIAL { type=PAIRENERGY; rmax=5.5 Angstrom; "
 # at steps 10, 20, ..., 100 of ddcmd_tpu's Simulation(engine="nlist")
 # in f64 on the CPU; tests/test_torch_charmm_nve.py recomputes them)
 # within C36_NVE_BAND kJ/mol
-C36_L, C36_MAX_W, C36_STEPS, C36_TAIL = 40.0, 1200, 12000, 1000
+C36_L, C36_MAX_W, C36_STEPS, C36_TAIL = 40.0, 1200, 8000, 1000
 C36_NVE_DT, C36_NVE_STEPS, C36_NVE_CHUNK = 0.25, 1000, 10
 C36_NVE_GATE, C36_NVE_BAND = 0.5, 1e-3
 C36_NVE_JAX = (-3.7426797909557, -3.8104900740345, -3.4079127853420,
@@ -5929,7 +5948,7 @@ def lb_pair_bricks(a, kind, dev):
                        sc.ext_L8(span, cp, t["rcut2"]), counts,
                        *eval_fn.tabs), eval_fn.kw))
     # the reaction-field self energy of every bead (BrickStepCells.
-    # _coul_self, counted once across the mesh)
+    # _e_self, counted once across the mesh)
     e = e - 0.5 * (q * q).sum() * t["keR"] * t["crf"]
     return f, e, vir, cp, walls, pools, calls
 
@@ -6235,6 +6254,345 @@ def loadbalance_phase(card, dev, counters_zero, all_counters, failed):
     return rows
 
 
+# --- phase 26 (item 25, second part): the mesh's brick list engine --------
+# (a) phase 18's (B) table fluid through ParallelSimulation at (1,1,1) on
+# the list engine: the first energy against Simulation(engine="nlist")
+# on the same state, LISTMESH_STEPS steps with the mean T over the last
+# LISTMESH_TAIL in (B)'s window, steps/s beside Simulation's; (b) phase
+# 19's (C) tripeptide at (1,1,1): f64 against Simulation's list engine in
+# f64, a short f64 NVE run, f32 against f64; (c) the unfitted nc = 12
+# TABULAR crystal against Simulation's cell-block EAM engine, then
+# LISTMESH_EAM_STEPS steps; (d) phase 25's zRamp bilayer under a (2,2,2)
+# VORONOI plan after one balance_step and under a uniform (4,4,2) plan
+# of bricks narrower than 2 rlist, every brick through the list engine's
+# per-rank functions with its halo filled from the host, against
+# Simulation's pair term; (e) a small list-mesh run, card against CPU
+LISTMESH_STEPS, LISTMESH_TAIL, LISTMESH_SIM_STEPS = 300, 100, 100
+LISTMESH_NVE_STEPS, LISTMESH_EAM_STEPS = 200, 200
+# the first energy (relative) and forces (over the scale) of the mesh's
+# list engine against Simulation's on one state (both f32, other lists,
+# other summation orders): the list engine's f32 floors of phase 18
+LISTMESH_E_REL, LISTMESH_F_TOL = 1e-5, 1e-4
+LISTMESH_F64_REL = 1e-8
+# (d): the bricks' forces over the scale against Simulation's pair term
+# (f32 both): the mesh tests' pair tolerance against f64
+LISTMESH_BRICK_F_TOL = 2e-5
+
+
+def mesh_rows(lines):
+    """(loop, T) of the mesh's print lines (ParallelSimulation.
+    _print_scalars)."""
+    import re
+
+    return np.array([(float(ln.split()[0]),
+                      float(re.search(r" T=\s*(\S+)", ln).group(1)))
+                     for ln in lines], dtype=np.float64)
+
+
+def list_bricks(a, owner, windows, dev):
+    """(d): the bricks of one plan through the list engine's per-rank
+    functions (BrickStepList._pool_list's list with n_rows, the excluded
+    partners dropped by gid, martini_nonbond on the local rows), each
+    brick's pool its owned rows (owner == b) and the rows within its halo
+    window (windows[b]: per axis (centre, half width + window) in nm),
+    filled from the host.  Returns (f (n, 3), e, brick sizes)."""
+    from ddcmd_tpu_torch.nbr.celllist import CellGrid, build_neighbor_list
+    from ddcmd_tpu_torch.parallel.brickstep import (BrickStepList,
+                                                    exclusion_gids)
+    from ddcmd_tpu_torch.potentials.martini import martini_nonbond
+
+    n = len(a["r"])
+    L = a["L"]
+    rt = torch.tensor(a["r"], dtype=torch.float32, device=dev)
+    Lv = torch.tensor(L, dtype=torch.float32, device=dev)
+    q, tidx = (torch.tensor(a[k], device=dev) for k in ("q", "tidx"))
+    gid = torch.arange(n, device=dev)
+    exgid = torch.as_tensor(exclusion_gids(a["exclusions"], np.arange(n), n),
+                            device=dev)
+    grid = CellGrid.plan(L, a["rcut"], a["skin"], n, n, positions=a["r"])
+    f = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    e = torch.zeros((), dtype=torch.float32, device=dev)
+    sizes = []
+    for b, win in enumerate(windows):
+        own = np.nonzero(owner == b)[0]
+        near = np.ones(n, bool)
+        for ax, (c, w) in enumerate(win):
+            x = a["r"][:, ax] - c
+            near &= np.abs(x - L[ax] * np.round(x / L[ax])) < w
+        rows = torch.as_tensor(np.concatenate(
+            [own, np.nonzero(near & (owner != b))[0]]), device=dev)
+        r_pool, pool_gid = rt[rows], gid[rows]
+        ones = torch.ones(len(rows), dtype=torch.float32, device=dev)
+        nbr, _, ov = build_neighbor_list(r_pool, ones, Lv, grid,
+                                         n_rows=len(own))
+        assert not bool(ov), f"list overflow in brick {b}"
+        nbr = BrickStepList._drop_excluded(nbr, pool_gid, ones > 0,
+                                           exgid[rows[:len(own)]])
+        fb, eb, _, _, _ = martini_nonbond(
+            r_pool, q[rows], tidx[rows], ones, nbr, Lv, a["tables"],
+            n_rows=len(own))
+        f[rows[:len(own)]] = fb
+        e = e + eb
+        sizes.append((len(own), len(rows) - len(own)))
+    return f, e, sizes
+
+
+def listmesh_phase(card, dev, counters_zero, all_counters, failed):
+    """Phase 26 (ROADMAP item 25, second part): the brick list engine,
+    which launches no custom kernel; gates into `failed`."""
+    from ddcmd_tpu_torch.core.system import build_system
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.parallel import voronoi as vor
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    quiet = lambda line: None                                  # noqa: E731
+
+    def idle(what):
+        c = all_counters()
+        if any(c.values()):
+            failed.append(f"{what}: kernels launched {c}")
+
+    def errs(got_e, got_f, ref_e, ref_f):
+        ref_f = torch.as_tensor(ref_f).double().cpu()
+        scale = float(ref_f.abs().max())
+        return (abs(got_e - ref_e) / abs(ref_e),
+                float((torch.as_tensor(got_f).double().cpu()
+                       - ref_f).abs().max()) / scale, scale)
+
+    def mesh(d, **kw):
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev, **kw)
+        if ps.shard_engine != "nlist":
+            failed.append(f"{d}: engine {ps.shard_engine}")
+        return ps
+
+    def sim_first(d, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")      # the (C) demotion warning
+            s = Simulation(*load(d), run_dir=d, device=dev, **kw)
+        s.first_energy()
+        n = s.sysdef.state.n_local
+        return s, float(s.ss.energy.eion), s.ss.state.f[:n]
+
+    def timed_run(ps, steps):
+        lines = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ps.run(steps, print_fn=lines.append)
+        torch.cuda.synchronize()
+        return lines, steps / (time.perf_counter() - t0)
+
+    # (a) the 131,072-atom table fluid
+    with tempfile.TemporaryDirectory() as d:
+        table_lj_deck(d, LJ_BIG_N, 10)
+        counters_zero()
+        ps = mesh(d)
+        e = ps.first_energy()
+        f = ps.gather_by_gid(("f",))["f"]
+        sim, e_ref, f_ref = sim_first(d, engine="nlist")
+        e_rel, f_rel, scale = errs(e, f, e_ref, f_ref)
+        if e_rel > LISTMESH_E_REL or f_rel > LISTMESH_F_TOL:
+            failed.append(f"(a) first energy rel {e_rel}, forces {f_rel}")
+        lines, rate = timed_run(ps, LISTMESH_STEPS)
+        idle("(a) mesh run")
+        rows = mesh_rows(lines)
+        temp = float(rows[rows[:, 0] > LISTMESH_STEPS - LISTMESH_TAIL,
+                          1].mean())
+        if not (np.isfinite(rows).all() and abs(temp - LJ_T) <= TEMP_TOL):
+            failed.append(f"(a) mean T {temp}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(LISTMESH_SIM_STEPS, print_fn=quiet,
+                max_steps_per_dispatch=DISPATCH)
+        torch.cuda.synchronize()
+        sim_rate = LISTMESH_SIM_STEPS / (time.perf_counter() - t0)
+        phase("listmesh", f"(a) (B) table LJ {LJ_BIG_N} atoms through "
+              f"ParallelSimulation (1,1,1) on the list engine (cells "
+              f"{ps.grid.ncells} cap {ps.grid.cell_capacity} K "
+              f"{ps.grid.max_neighbors}): first energy {e:.9g} vs "
+              f"Simulation(engine=nlist) {e_ref:.9g} (rel {e_rel:.2g}, gate "
+              f"{LISTMESH_E_REL:g}), forces {f_rel:.3g} of the scale "
+              f"{scale:.4g} (gate {LISTMESH_F_TOL:g}); {LISTMESH_STEPS} "
+              f"steps: mean T {temp:.2f} K over the last {LISTMESH_TAIL} "
+              f"(window {LJ_T:g} +- {TEMP_TOL:g}), {rate:.2f} steps/s (the "
+              f"list rebuilt every step) vs Simulation's list engine "
+              f"{sim_rate:.2f} steps/s over {LISTMESH_SIM_STEPS} steps; no "
+              f"custom kernel launched on {card}")
+        del ps, sim
+
+    # (b) the (C) tripeptide: f64, its NVE leg, f32 against f64
+    with tempfile.TemporaryDirectory() as d, \
+            tempfile.TemporaryDirectory() as dn:
+        charmm_tripeptide_deck(d, C36_L, C36_MAX_W, dt_fs=1.0)
+        counters_zero()
+        ps64 = mesh(d, dtype=torch.float64)
+        e64 = ps64.first_energy()
+        f64 = ps64.gather_by_gid(("f",))["f"]
+        _, es, fs = sim_first(d, engine="nlist", dtype=torch.float64)
+        rel64, frel64, scale = errs(e64, f64, es, fs)
+        if rel64 > LISTMESH_F64_REL:
+            failed.append(f"(b) f64 first energy rel {rel64}")
+        ps32 = mesh(d)
+        e32 = ps32.first_energy()
+        rel32, frel32, _ = errs(e32, ps32.gather_by_gid(("f",))["f"], e64,
+                                f64)
+        if rel32 > NLIST_LJ_GATES[0] or frel32 > NLIST_LJ_GATES[1]:
+            failed.append(f"(b) f32 vs f64: e rel {rel32}, forces {frel32}")
+        charmm_tripeptide_deck(dn, C36_L, C36_MAX_W, nve=True,
+                               dt_fs=C36_NVE_DT)
+        psn = mesh(dn, dtype=torch.float64)
+        n_c = psn.sysdef.state.n_local
+
+        def etot(ps):
+            """Etot of the mesh's current state (first_energy recomputes
+            the forces the state already holds)."""
+            m = ps.mask
+            return ps.first_energy() + float(0.5 * (
+                ps.fields["mass"][m, None] * ps.fields["v"][m] ** 2).sum())
+
+        de = [etot(psn)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LISTMESH_NVE_STEPS // C36_NVE_CHUNK):
+            psn.run(C36_NVE_CHUNK)
+            de.append(etot(psn))
+        torch.cuda.synchronize()
+        rate = LISTMESH_NVE_STEPS / (time.perf_counter() - t0)
+        idle("(b) mesh runs")
+        de = np.asarray(de) - de[0]
+        # Simulation's f64 list engine on the same deck, its first 100
+        # steps read at the same loops: the mesh's reads equal them
+        sn, _, _ = sim_first(dn, engine="nlist", dtype=torch.float64)
+        sde = [float(sn.ss.energy.eion + sn.ss.energy.rk)]
+        for _ in range(100 // C36_NVE_CHUNK):
+            sn.run(C36_NVE_CHUNK, print_fn=quiet)
+            sde.append(float(sn.ss.energy.eion + sn.ss.energy.rk))
+        sde = np.asarray(sde) - sde[0]
+        k = min(len(de), len(sde))
+        off = float(np.abs(de[:k] - sde[:k]).max())
+        t_ns = np.arange(len(de)) * C36_NVE_CHUNK * C36_NVE_DT * 1e-6
+        drift = float(np.polyfit(t_ns, de / n_c, 1)[0])
+        if not np.isfinite(de).all() or off > C36_NVE_BAND:
+            failed.append(f"(b) NVE: {off} kJ/mol off Simulation's reads")
+        phase("listmesh", f"(b) (C) c36 tripeptide {n_c} atoms at (1,1,1) "
+              f"on the list engine (exclusions masked by gid, "
+              f"{int(ps64._exgid.shape[1])} partners a row at most; "
+              f"junction and CMAP terms per term): f64 first energy "
+              f"{e64:.12g} vs Simulation(engine=nlist, f64) {es:.12g} (rel "
+              f"{rel64:.2g}, gate {LISTMESH_F64_REL:g}), forces "
+              f"{frel64:.3g} of the scale {scale:.5g}; f32 vs the f64 mesh: e "
+              f"rel {rel32:.3g} (gate {NLIST_LJ_GATES[0]:g}), forces "
+              f"{frel32:.3g} (gate {NLIST_LJ_GATES[1]:g}); f64 NVE, FREE, dt "
+              f"{C36_NVE_DT} fs, {LISTMESH_NVE_STEPS} steps from rest: "
+              f"|dEtot| after {(k - 1) * C36_NVE_CHUNK} steps {de[k - 1]:.6g} "
+              f"kJ/mol, max {np.abs(de).max():.4g}, drift {drift:.4g} "
+              f"kJ/mol/ns/atom (fit over {len(de)} reads); reads over the "
+              f"first 100 steps within {off:.3g} kJ/mol of Simulation's (gate "
+              f"{C36_NVE_BAND:g}); {rate:.2f} steps/s (a read every "
+              f"{C36_NVE_CHUNK}); no custom kernel launched on {card}")
+        del ps64, ps32, psn, sn
+
+    # (c) the unfitted TABULAR crystal
+    with tempfile.TemporaryDirectory() as d:
+        tabular_eam_deck(d, EAM_NC, 10)
+        counters_zero()
+        ps = mesh(d)
+        e = ps.first_energy()
+        f = ps.gather_by_gid(("f",))["f"]
+        sim, e_ref, f_ref = sim_first(d)
+        counters_zero()
+        e_rel, f_rel, scale = errs(e, f, e_ref, f_ref)
+        if e_rel > NLIST_EAM_GATES[0] or f_rel > NLIST_EAM_GATES[1]:
+            failed.append(f"(c) vs cell-block: e rel {e_rel}, forces {f_rel}")
+        lines, rate = timed_run(ps, LISTMESH_EAM_STEPS)
+        idle("(c) mesh run")
+        rows = mesh_rows(lines)
+        if not (np.isfinite(rows).all() and ps.loop == LISTMESH_EAM_STEPS):
+            failed.append("(c) run")
+        phase("listmesh", f"(c) unfitted TABULAR nc = {EAM_NC} crystal "
+              f"({ps.sysdef.state.n_local} atoms) at (1,1,1) on the list "
+              f"engine: first energy {e:.9g} vs Simulation's {sim.engine} "
+              f"engine {e_ref:.9g} (rel {e_rel:.2g}, gate "
+              f"{NLIST_EAM_GATES[0]:g}), forces {f_rel:.3g} of the scale "
+              f"{scale:.4g} (gate {NLIST_EAM_GATES[1]:g}); "
+              f"{LISTMESH_EAM_STEPS} steps, last T {rows[-1, 1]:.2f} K, "
+              f"{rate:.2f} steps/s on {card}")
+        del ps, sim
+
+    # (d) the zRamp bilayer's bricks: Voronoi (2,2,2), uniform (4,4,2)
+    with tempfile.TemporaryDirectory() as d:
+        a = bilayer_lb_arrays(d, dev)
+        a["exclusions"] = build_system(load(d)[0], d).bonded.exclusions
+    L, rl, n = a["L"], a["rlist"], len(a["r"])
+    c0 = vor.nominal_centers(L, (2, 2, 2))
+    centers, margins = vor.balance_step(c0, a["r"].astype(np.float64), L,
+                                        (2, 2, 2), rl)
+    plans = [("VORONOI (2,2,2) after one balance_step",
+              vor.assign_host(a["r"], centers, L, (2, 2, 2)),
+              [[(c0.reshape(-1, 3)[b, ax], L[ax] / 4 + rl + margins[ax])
+                for ax in range(3)] for b in range(8)])]
+    shape = (4, 4, 2)
+    fr = a["r"] / L + 0.5
+    cj = [np.clip(np.floor((fr[:, ax] - np.floor(fr[:, ax])) * shape[ax]
+                           ).astype(int), 0, shape[ax] - 1) for ax in range(3)]
+    plans.append((f"uniform {shape}, bricks {np.round(L / shape, 3).tolist()} "
+                  f"nm (2 rlist {2 * rl:.2f})",
+                  (cj[0] * shape[1] + cj[1]) * shape[2] + cj[2],
+                  [[((i3[ax] + 0.5) * L[ax] / shape[ax] - 0.5 * L[ax],
+                     L[ax] / shape[ax] / 2 + rl) for ax in range(3)]
+                   for i3 in np.ndindex(*shape)]))
+    for what, owner, windows in plans:
+        counters_zero()
+        f, e, sizes = list_bricks(a, owner, windows, dev)
+        torch.cuda.synchronize()
+        idle(f"(d) {what}")
+        try:
+            ferr, rel = held(f"(d) {what}", f, e, a["f_ref"], a["e_ref"],
+                             LISTMESH_BRICK_F_TOL)
+        except AssertionError as err:
+            failed.append(str(err))
+            ferr = rel = float("nan")
+        own = [s[0] for s in sizes]
+        phase("listmesh", f"(d) zRamp bilayer {n} beads, {what}: "
+              f"{len(sizes)} bricks through the list engine's per-rank "
+              f"functions (owned {min(own)}-{max(own)}, ghosts "
+              f"{min(s[1] for s in sizes)}-{max(s[1] for s in sizes)}; "
+              f"margins {np.round(margins, 3).tolist()} nm): forces vs "
+              f"Simulation's pair term ({a['engine']}) {ferr:.3g} of the "
+              f"scale (gate {LISTMESH_BRICK_F_TOL:g}), e {float(e):.8g} vs "
+              f"{a['e_ref']:.8g} (rel {rel:.2g}, gate {LB_E_REL:g}) on "
+              f"{card}")
+    del a
+
+    # (e) card against CPU: the 400-bead water box, FREE, 40 steps
+    out = {}
+    os.environ["DDCMD_SHARD_ENGINE"] = "nlist"
+    try:
+        for where in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as d:
+                water_deck(d, 400, printrate=100, free=True)
+                ps = ParallelSimulation(*load(d), shape=(1, 1, 1),
+                                        device=where)
+                e0 = ps.first_energy()
+                ps.run(40)
+                g = ps.gather_by_gid(("r",))
+                out[where] = (e0, ps.first_energy(), g["r"], ps.shard_engine,
+                              ps._live_L())
+    finally:
+        del os.environ["DDCMD_SHARD_ENGINE"]
+    (a0, a1, ra, ea, Lw), (b0, b1, rb, eb, _) = out["cuda"], out["cpu"]
+    dr = ra - rb
+    dr = float(np.abs(dr - Lw * np.round(dr / Lw)).max())
+    ok = (ea == eb == "nlist" and math.isclose(a0, b0, rel_tol=1e-5)
+          and math.isclose(a1, b1, rel_tol=1e-4) and dr < 1e-3)
+    if not ok:
+        failed.append(f"(e) card vs CPU: {a0} {b0} {a1} {b1} {dr}")
+    phase("listmesh", f"(e) water 400 beads FREE at (1,1,1) on the list "
+          f"engine, 40 steps, card vs CPU: first energy {a0:.8g} vs "
+          f"{b0:.8g}, after {a1:.8g} vs {b1:.8g}, max |dr| {dr:.3g} nm; "
+          f"{time.perf_counter() - T_START:.0f} s on {card}")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -6325,6 +6683,11 @@ def main(argv=None):
         failed = []
         loadbalance_phase(card, dev, counters_zero, all_counters, failed)
         assert not failed, f"phase 25 gates missed: {failed}"
+        return
+    if "--listmesh-only" in argv:
+        failed = []
+        listmesh_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 26 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -6513,6 +6876,10 @@ def main(argv=None):
     lb_rows = loadbalance_phase(card, dev, counters_zero, all_counters,
                                 lb_failed)
     assert not lb_failed, f"phase 25 gates missed: {lb_failed}"
+    # --- phase 26: item 25's brick list engine (no kernel) -----------------
+    lm_failed = []
+    listmesh_phase(card, dev, counters_zero, all_counters, lm_failed)
+    assert not lm_failed, f"phase 26 gates missed: {lm_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():

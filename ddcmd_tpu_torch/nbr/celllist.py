@@ -151,7 +151,7 @@ def build_cell_table(r, fmask, geom, grid: CellGrid):
 
 
 def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
-                        pbc: int = 7):
+                        pbc: int = 7, n_rows: int | None = None):
     """Full (N, K) neighbor index list within rlist.  Returns (nbr_idx
     (N, K) int64 padded with the sentinel n_pad, nbr_count (N,) int32,
     overflow flag).  Positions must be wrapped (origin-centred).
@@ -160,8 +160,13 @@ def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
     row_mask: particles whose own rows are built (defaults to fmask).
     pbc: box periodicity bits (bit i => axis i periodic); stencil reaches
     that leave a non-periodic axis are dropped, and distances take the
-    minimum image on the periodic axes only."""
+    minimum image on the periodic axes only.
+    n_rows: build the rows of the first n_rows particles only (the others
+    are neighbours only), returning (n_rows, K) and (n_rows,); the
+    sentinel stays N.  The brick list engine builds its local rows
+    against local and ghost particles this way."""
     n_pad = r.shape[0]
+    n_rows = n_pad if n_rows is None else n_rows
     sentinel = n_pad
     dev = r.device
     if row_mask is None:
@@ -174,9 +179,9 @@ def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
                               device=dev).long()
     n_stencil = stencil.shape[0]
     # (N, S, 3) neighbor cell coords with the periodic wrap
-    raw = c3[:, None, :] + stencil[None, :, :]
+    raw = c3[:n_rows, None, :] + stencil[None, :, :]
     ncid = _flat_cell(raw % ncells, grid.ncells)          # (N, S)
-    cand = table[ncid].reshape(n_pad, n_stencil * cap)    # (N, C)
+    cand = table[ncid].reshape(n_rows, n_stencil * cap)   # (N, C)
     pbc_ok = mask = None
     if pbc & 7 != 7:
         free = torch.tensor([not (pbc >> a) & 1 for a in range(3)],
@@ -189,22 +194,23 @@ def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
     # distances (minimum image).  Orthorhombic boxes compute them per
     # component, as the JAX list does (no (N, C, 3) intermediate)
     r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
+    ri = r[:n_rows]
     if geom.dim() == 1:
         d2 = torch.zeros(cand.shape, dtype=r.dtype, device=dev)
         for c in range(3):
             dc = nearest_image_pbc(
-                r[:, c][:, None] - r_ext[:, c][cand], geom[c:c + 1],
+                ri[:, c][:, None] - r_ext[:, c][cand], geom[c:c + 1],
                 None if mask is None else mask[c:c + 1])
             d2 = d2 + dc * dc
         del dc
     else:
-        dr = nearest_image_pbc(r[:, None, :] - r_ext[cand], geom, mask)
+        dr = nearest_image_pbc(ri[:, None, :] - r_ext[cand], geom, mask)
         d2 = torch.sum(dr * dr, dim=-1)
         del dr
 
-    i_idx = torch.arange(n_pad, device=dev)[:, None]
+    i_idx = torch.arange(n_rows, device=dev)[:, None]
     valid = ((cand != sentinel) & (cand != i_idx) & (d2 < grid.rlist ** 2)
-             & (row_mask[:, None] > 0))
+             & (row_mask[:n_rows, None] > 0))
     del d2
     if pbc_ok is not None:
         valid = valid & pbc_ok
@@ -212,11 +218,11 @@ def build_neighbor_list(r, fmask, geom, grid: CellGrid, row_mask=None,
     K = grid.max_neighbors
     pos = torch.cumsum(valid, dim=1, dtype=torch.int32) - 1
     count = (pos[:, -1] + 1 if valid.shape[1] > 0
-             else torch.zeros(n_pad, dtype=torch.int32, device=dev))
+             else torch.zeros(n_rows, dtype=torch.int32, device=dev))
     # column K is the trash of invalid and past-K candidates
     slot = torch.where(valid & (pos < K), pos, K).long()
     del pos, valid
-    out = torch.full((n_pad, K + 1), sentinel, dtype=torch.int64,
+    out = torch.full((n_rows, K + 1), sentinel, dtype=torch.int64,
                      device=dev)
     out.scatter_(1, slot, cand)
     overflow = cell_overflow | torch.any(count > K)

@@ -17,11 +17,13 @@ torch always has int64, so the JAX package's gate on gids above 2^31
 without x64 (its bonded_gid_tables) has no counterpart here.
 
 Terms resolve per residue type (resolve_batched, on the plan of
-mesh_bonded_plan).  The JAX package's per-term resolver
-(bonded_gid_tables, leftover_gid_tables, resolve_terms) serves the
-terms that cross residue instances (CHARMM junctions, CMAP); it has no
-caller until the mesh's brick list engine exists, so the port's mesh
-raises for such terms (ROADMAP queue 1, item 25).
+mesh_bonded_plan) and, where they cross residue instances (CHARMM
+junctions, CMAP) or break their template, per term (resolve_terms on
+the gid-keyed leftover of leftover_gid_tables, the JAX package's
+bonded_shard.py:39-111).  A term is owned when all its atoms resolve and
+its anchor row is local: the first atom, the N atom (slot 1) of a CMAP
+term.  Both mesh engines (parallel/brickstep_cells and
+parallel/brickstep) evaluate the two beside each other.
 """
 
 from __future__ import annotations
@@ -33,21 +35,49 @@ from ..potentials.bonded import FAMILIES
 from ..potentials.bonded_batch import build_batched_bonded, has_terms
 
 
+GID_FAMILIES = tuple(k for k, _ in FAMILIES)
+
+
 def mesh_bonded_plan(terms: dict, residue_instances, n: int, gid,
-                     device="cpu"):
-    """The mesh's gid-keyed batched plan (build_batched_bonded(gid=...),
-    f32) of the term tables; raises naming item 25 when some terms do
-    not batch (they cross residue instances or break a template)."""
-    plan, left = build_batched_bonded(terms, residue_instances, n,
-                                      torch.float32, device, gid=gid)
-    if has_terms(left):
-        fams = [k for k, _ in FAMILIES if k in left]
-        raise NotImplementedError(
-            f"bonded terms ({', '.join(fams)}) cross residue instances or "
-            "break their residue template: under the mesh they need the "
-            "per-term gid resolver, not ported yet (ROADMAP queue 1, item "
-            "25)")
-    return plan
+                     device="cpu", dtype=torch.float32):
+    """The mesh's gid-keyed bonded tables: (plan, leftover).  plan is
+    build_batched_bonded(gid=...)'s batched plan (every residue type,
+    however few its instances), leftover the gid-keyed tables
+    (leftover_gid_tables) of the terms that do not batch, or None when
+    every term batches."""
+    plan, left = build_batched_bonded(terms, residue_instances, n, dtype,
+                                      device, gid=gid)
+    return plan, (leftover_gid_tables(left, gid, device)
+                  if has_terms(left) else None)
+
+
+def bonded_gid_tables(bt, gid, device_tables, device="cpu"):
+    """device_bonded_tables output with every family's row indices
+    replaced by the gids of those rows (<family>_gids, int64): the
+    tables each rank resolves per call (resolve_terms).  `bt` is the
+    BondedTerms the tables were built from."""
+    gid = np.asarray(gid, np.int64)
+    out = dict(device_tables)
+    for fam in GID_FAMILIES:
+        arr = getattr(bt, fam, None)
+        if arr is not None and fam in out:
+            out[fam + "_gids"] = torch.as_tensor(gid[np.asarray(arr)],
+                                                 device=device)
+            del out[fam]
+    return out
+
+
+def leftover_gid_tables(leftover: dict, gid, device="cpu"):
+    """Gid-key the row-indexed families of a build_batched_bonded
+    leftover (junction terms, CMAP), as bonded_gid_tables keys a whole
+    topology."""
+    gid = np.asarray(gid, np.int64)
+    out = dict(leftover)
+    for fam in GID_FAMILIES:
+        if fam in out:
+            rows = out.pop(fam).cpu().numpy()
+            out[fam + "_gids"] = torch.as_tensor(gid[rows], device=device)
+    return out
 
 
 def _sorted_pool(pool_gid64, pool_mask):
@@ -68,6 +98,30 @@ def _lookup(order, sg, g):
     pos = torch.searchsorted(sg, g.reshape(-1)).clamp(0, n_pool - 1)
     pos = pos.reshape(g.shape)
     return order[pos], sg[pos] == g
+
+
+def resolve_terms(tables: dict, pool_gid64, pool_mask, local_cap: int):
+    """Per rank: gid-keyed term tables (bonded_gid_tables,
+    leftover_gid_tables) -> pool-row tables and per-term weights
+    (<family>_w) for bonded.bonded_eval.  A term is owned iff all its
+    atoms resolve and its anchor atom is a local row (slot 0, slot 1 for
+    CMAP); rows of a term not found are 0 (its weight is 0).  The other
+    entries pass through."""
+    order, sg = _sorted_pool(pool_gid64, pool_mask)
+    out = {}
+    for fam in GID_FAMILIES:
+        g = tables.get(fam + "_gids")
+        if g is None:
+            continue
+        rows, found = _lookup(order, sg, g)
+        anchor = 1 if fam == "cmap_atoms" else 0
+        owned = found.all(dim=-1) & (rows[:, anchor] < local_cap)
+        out[fam] = torch.where(found, rows, torch.zeros_like(rows))
+        out[fam + "_w"] = owned.to(torch.float32)
+    for k, v in tables.items():
+        if not k.endswith("_gids") and k not in out:
+            out[k] = v
+    return out
 
 
 def resolve_batched(plan: dict, pool_gid64, pool_mask, local_cap: int):

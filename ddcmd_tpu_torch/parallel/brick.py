@@ -40,8 +40,19 @@ every earlier-phase ghost that lies within rlist of a receiving brick's
 range, across the seam too; with at most one brick of offset between
 neighbouring slabs' lattices (check_orcb_reach; always so with <= 3
 bricks an axis) each brick then holds every particle within rlist of
-it, once.  Voronoi domains and triclinic boxes raise NotImplementedError
-naming their ROADMAP item.
+it, once.
+
+Voronoi domains (parallel/voronoi.py, the JAX package's brick.py:
+150-160, 293-330, 407-420): the plan carries dict(centers (nx, ny, nz,
+3), margins (3,), L0 (3,)); a particle belongs to its nearest centre.
+The halo windows widen by each axis's bisector margin, scaled with the
+live box; migration routes each row (by its head bead under hgid) to the
+nearest of the 27 neighbourhood centres, one staged hop per axis, and a
+containment check flags an overflow, on which the run loop
+redistributes on the host (assign_host).  halo_exchange_3d(centred=True)
+measures the windows from the brick's centre across the periodic seam
+(the list engine, whose positions are wrapped every step).  Triclinic
+boxes raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,11 +63,6 @@ import numpy as np
 import torch
 
 from .slab import compact_rows
-
-VORONOI_ITEM = ("VORONOI domains have no brick lattice: the JAX package runs "
-                "them on its brick (N,K)-list engine make_brick_step, not "
-                "ported yet (ROADMAP queue 1, item 25)")
-
 
 @dataclass(frozen=True)
 class BrickPlan:
@@ -69,11 +75,10 @@ class BrickPlan:
     # tensor (n + 1,) per axis, or ORCB y (nx, ny + 1) and z (nx, ny,
     # nz + 1)
     walls: tuple | None = None
+    # Voronoi domains: dict(centers (nx, ny, nz, 3), margins (3,), L0
+    # (3,)), the centres and margins at box L0 (they scale with the live
+    # box); mutually exclusive with walls
     voronoi: dict | None = None
-
-    def __post_init__(self):
-        if self.voronoi is not None:
-            raise NotImplementedError(VORONOI_ITEM)
 
     @property
     def orcb(self) -> bool:
@@ -183,9 +188,12 @@ def _with_count(buf: dict, n) -> dict:
 
 
 def halo_exchange_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan,
-                     mesh):
+                     mesh, centred: bool = False):
     """Collect ghost particles from all 26 neighbour bricks via 3 staged
-    face exchanges.  fields: (local_cap, ...) tensors with 'r'.  Returns
+    face exchanges.  fields: (local_cap, ...) tensors with 'r'.  With
+    `centred` each window is measured from the brick's centre with the
+    periodic wrap, so a row outside its brick ships toward the side it
+    lies on (the same selection for a row inside).  Returns
     (ghost fields (ghost_cap, ...), ghost_mask, overflow, routing):
     `routing` holds per active phase (ax_i, src_lo, n_lo, src_hi, n_hi,
     ghost_off), src_* the POOL rows this rank put into its lo/hi windows
@@ -209,10 +217,23 @@ def halo_exchange_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan,
         walls = None if plan.walls is None else plan.walls[ax_i]
         prefix = mesh.idx3[:ax_i]
         lo, hi = _axis_bounds(n, me, walls, prefix)
-        win_f = plan.rlist * per_cart[ax_i]
+        win = plan.rlist
+        if plan.voronoi is not None:
+            # widened by the bisector excursion beyond the nominal face,
+            # scaled with the live box
+            vor = plan.voronoi
+            win = win + (float(vor["margins"][ax_i]) / float(vor["L0"][ax_i])
+                         / per_cart[ax_i])
+        win_f = win * per_cart[ax_i]
         x = frac(pool["r"])[:, ax_i]
-        sel_lo = pool_mask & (x < lo + win_f)
-        sel_hi = pool_mask & (x >= hi - win_f)
+        if centred:
+            d = x - 0.5 * (lo + hi)
+            d = d - torch.round(d)
+            sel_lo = pool_mask & (d < 0.5 * (lo - hi) + win_f)
+            sel_hi = pool_mask & (d >= 0.5 * (hi - lo) - win_f)
+        else:
+            sel_lo = pool_mask & (x < lo + win_f)
+            sel_hi = pool_mask & (x >= hi - win_f)
         if plan.orcb and n > 2 and pool_mask.shape[0] > n_loc:
             # forward an earlier phase's ghosts lying anywhere within
             # rlist of a receiving brick's range, across the periodic
@@ -319,27 +340,39 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
     brick across it (the JAX package sends it the other way: under
     uniform or tensor walls it stays mis-owned for a chunk, harmless as
     pair ownership is positional; under ORCB walls its containment check
-    flags it on every try and the run raises).  Returns (fields, mask,
-    overflow)."""
+    flags it on every try and the run raises).  Under Voronoi domains
+    each row's hops come from its nearest neighbourhood centre, computed
+    once before the first hop (the JAX package's brick.py:293-330).
+    Returns (fields, mask, overflow)."""
     dev = fields["r"].device
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     cur, mask = fields, valid_mask
     frac, _ = geom_frac(box_lengths)
+    vor = plan.voronoi
+    if vor is not None:
+        c27 = _voronoi_c27(plan, box_lengths, mesh.idx3)
+        rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
+        cur = dict(cur, __mig=_voronoi_hops(rr, c27, box_lengths, plan))
     for ax_i in range(3):
         n = plan.shape[ax_i]
         if n == 1:
             continue
-        lo, hi = _bounds_of(plan, mesh.idx3, ax_i)
-        rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
-        x = _in_box(frac(rr)[:, ax_i])
-        # out of the brick: toward the nearer side, across the periodic
-        # seam too (the JAX package compares the unwrapped fraction and
-        # sends a particle that crossed the seam the long way round)
-        side = x - 0.5 * (lo + hi)
-        below = side - torch.round(side) < 0
-        out = mask & ((x < lo) | (x >= hi))
-        go_lo, go_hi = out & below, out & ~below
-        stay = mask & ~out
+        if vor is not None:
+            go_lo = mask & (cur["__mig"][:, ax_i] < 0)
+            go_hi = mask & (cur["__mig"][:, ax_i] > 0)
+        else:
+            lo, hi = _bounds_of(plan, mesh.idx3, ax_i)
+            rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
+            x = _in_box(frac(rr)[:, ax_i])
+            # out of the brick: toward the nearer side, across the
+            # periodic seam too (the JAX package compares the unwrapped
+            # fraction and sends a particle that crossed the seam the
+            # long way round)
+            side = x - 0.5 * (lo + hi)
+            below = side - torch.round(side) < 0
+            out = mask & ((x < lo) | (x >= hi))
+            go_lo, go_hi = out & below, out & ~below
+        stay = mask & ~(go_lo | go_hi)
         buf_lo, n_lo, ov1 = compact_rows(cur, go_lo, plan.migrate_cap)
         buf_hi, n_hi, ov2 = compact_rows(cur, go_hi, plan.migrate_cap)
         from_lo, from_hi = mesh.exchange(_with_count(buf_lo, n_lo),
@@ -351,6 +384,15 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
         cur, count, ov3 = compact_rows(pool, pool_mask, plan.local_cap)
         mask = torch.arange(plan.local_cap, device=dev) < count
         overflow = overflow | ov1 | ov2 | ov3
+    if vor is not None:
+        # containment: after the hops the nearest centre must be this
+        # brick's; a row that moved more than one brick, or a centre
+        # that moved under it, flags an overflow (host redistribution)
+        cur = {k: v for k, v in cur.items() if k != "__mig"}
+        rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
+        hops = _voronoi_hops(rr, c27, box_lengths, plan)
+        overflow = overflow | torch.any(mask & torch.any(hops != 0, dim=1))
+        return cur, mask, overflow
     if plan.orcb:
         # crossing an x wall swaps the y and z wall sets, so one staged
         # hop can leave a particle more than one brick from its owner
@@ -366,6 +408,30 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
             x = _in_box(ss[:, ax_i])
             overflow = overflow | torch.any(mask & ((x < lo) | (x >= hi)))
     return cur, mask, overflow
+
+
+def _voronoi_c27(plan: BrickPlan, box_lengths, idx3):
+    """The (27, 3) neighbourhood centres of brick idx3 at the live box."""
+    from .voronoi import neighborhood_centers
+
+    vor = plan.voronoi
+    L = box_lengths
+    scale = L / torch.as_tensor(np.asarray(vor["L0"], np.float64),
+                                dtype=L.dtype, device=L.device)
+    centers = torch.as_tensor(np.asarray(vor["centers"], np.float64),
+                              dtype=L.dtype, device=L.device) * scale
+    return neighborhood_centers(centers, L, plan.shape, idx3)
+
+
+def _voronoi_hops(rr, c27, box_lengths, plan: BrickPlan):
+    """Per-row (-1, 0, +1) hop on each axis to the nearest of the 27
+    centres, zero on axes of one brick."""
+    from .voronoi import dest_offsets
+
+    hops = dest_offsets(rr, c27, box_lengths)
+    open_ax = torch.tensor([int(n > 1) for n in plan.shape],
+                           dtype=hops.dtype, device=hops.device)
+    return hops * open_ax
 
 
 def _in_box(x):
@@ -398,7 +464,8 @@ def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
     layout splits into identical buffers (each keeps its own layout).
     With `hgid` a particle goes to its molecule head bead's brick; under
     load-balanced walls the owner is loadbalance.walls_assign's (in
-    f64, as the JAX package assigns on the host)."""
+    f64, as the JAX package assigns on the host), under Voronoi domains
+    voronoi.assign_host's nearest centre."""
     r = np.asarray(arrays["r"])
     if "hgid" in arrays:
         g64, h64 = gid64(arrays["gid"]), gid64(arrays["hgid"])
@@ -412,7 +479,15 @@ def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
             "item 25)")
     fr = r / L[None, :] + 0.5
     fr = fr - np.floor(fr)
-    if plan.walls is not None:
+    if plan.voronoi is not None:
+        from .voronoi import assign_host
+
+        vor = plan.voronoi
+        centers = np.asarray(vor["centers"]) * (
+            L / np.asarray(vor["L0"], np.float64))[None, None, None, :]
+        dest = assign_host(r, centers, L, plan.shape)
+        cj = [dest // (ny * nz), (dest // nz) % ny, dest % nz]
+    elif plan.walls is not None:
         from .loadbalance import walls_assign
 
         cj = walls_assign(fr, plan.walls, plan.shape)

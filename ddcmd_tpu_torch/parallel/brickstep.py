@@ -1,16 +1,69 @@
-"""Brick-mesh step helpers shared by the mesh engines.
+"""Brick-mesh MD steps: what both mesh engines share, and the (N,K)-list
+engine.
 
-Counterpart of the helpers of ddcmd_tpu/parallel/brickstep.py
-(_wrap, _volume), orthorhombic only: the NPT chunk's brick guard reads
-the box lengths themselves where the JAX package takes the
-perpendicular widths of a triclinic h (_perp_widths).  The (N,K)-list brick
-engine of that module, make_brick_step, is not ported (ROADMAP queue 1,
-item 25); the cell engine is parallel/brickstep_cells.
+Counterpart of ddcmd_tpu/parallel/brickstep.py.  BrickStepBase holds the
+machinery of one rank's step that does not depend on how pair forces
+are found: the kicks with their per-rank thermostat noise, the RATTLE
+projection of the owned constraint groups, the molecular virial, the
+one all-reduce of the step's scalars, migration, the chunk, the NPT
+chunk and the superchunk.  Its engines supply the rebuild at a chunk's
+start and the forces of a step:
+
+  * parallel/brickstep_cells.BrickStepCells: the extended-grid cell
+    kernels (TPU kernels #6 and #7), frozen halo routing per chunk;
+  * BrickStepList (here): make_brick_step's engine, a per-brick (N,K)
+    neighbour list in plain PyTorch (no kernel), rebuilt every step --
+    wrap -> staged halo exchange (walls or Voronoi windows) -> one list
+    over the local rows and their ghosts on a global CellGrid
+    (nbr/celllist.build_neighbor_list) -> the force path: "martini"
+    (MARTINI, and PAIR without a table with zero reaction-field
+    constants) through martini_nonbond, "pairtab" (a PAIR
+    TableFunction) through pair_lj, or "eam" (any form: density from
+    the position halo, a second halo shipping each ghost's dF from its
+    owner along the same routing, then forces with the transposed
+    density term) -> the bonded terms, batched per residue type and per
+    term for the rest (parallel/bonded_shard), resolved against the
+    pool and their ghost-row shares reduced home.
+
+Excluded pairs never enter a force: each row carries the gids of its
+excluded partners as an (n, Emax) int64 field `exgid` (pad -1) that
+migrates with it, and the list drops neighbour j of row i when gid(j)
+is in row i's set; the bonded exclusion term (rf_add mode) adds back
+only the reaction-field part the reference keeps.  The JAX list engine
+computes excluded pairs and subtracts them (its brickstep.py:183-203).
+Only local rows have list rows, so the field does not ship in the halo.
+
+The list engine takes any dtype (f32, f64).  Its halo windows are
+measured from the brick's centre with the periodic wrap (positions are
+wrapped every step, so a row that crossed the seam since the last
+migration still ships toward the side it lies on); on an axis of three
+or more bricks every brick must be at least rlist wide (the staged
+exchange reaches one brick), which the overflow flag guards under a
+barostat together with the cell edge.  Orthorhombic boxes only.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..core.groups import kick_noise, velocity_update
+from ..integrators.nglf import barostat_lambda
+from ..nbr.celllist import build_neighbor_list
+from ..potentials.bonded import bonded_eval
+from ..potentials.bonded_batch import batched_bonded_eval
+from ..potentials.eam import _embedding, _pair_eval
+from ..potentials.martini import martini_nonbond
+from ..potentials.pair import pair_lj
+from .bonded_shard import resolve_batched, resolve_constraints, resolve_terms
+from .brick import (BrickPlan, halo_exchange_3d, halo_reduce_3d,
+                    halo_refresh_3d, migrate_3d)
+from .shard_cells import walls_span_minmax
+
+# thermostat noise callsite of the mesh step (the single-device NGLF
+# step draws callsite 0); the rank rides in the bits above it
+_NOISE_CALLSITE_MESH = 1
+
 
 def _wrap(r, g):
     """Wrap origin-centred positions back into the (3,) box."""
@@ -19,3 +72,505 @@ def _wrap(r, g):
 
 def _volume(g):
     return torch.prod(g)
+
+
+def _min_image(d, Lv):
+    return d - Lv * torch.round(d / Lv)
+
+
+class BrickStepBase:
+    """One rank's mesh step, less its engine.  fields: dict of
+    (local_cap, ...) tensors r, v, q, mass, species, group, gid (int64),
+    and with a covalent topology hgid (int64, the molecule head's gid);
+    mask: (local_cap,) bool; f: (local_cap, 3).
+
+    Optional tables (host-built by run/parallel_sim): bonded_plan and
+    bonded_left, mesh_bonded_plan's batched plan and gid-keyed leftover;
+    cons_templates, the (plan, project) of build_constraint_templates,
+    or cons_tables, the constraint_gid_tables dict of a topology that is
+    not template-regular; mol_gids, molecule_gid_tables' (M, A) gids;
+    the barostat dict of the single-device Simulation; has_berendsen:
+    some group is BERENDSEN (its temperature is summed over the mesh).
+
+    An engine defines _rebuild(fields, mask, Lv) -> (fields, rb,
+    overflow), _forces(r_local, rb, Lv) -> (f, pe, virial, overflow),
+    _e_self(rb, n_l) and _narrow(Lv) (the NPT shrink guard).  Every
+    method returns new tensors and leaves its inputs untouched, so a
+    caller can roll back by keeping references."""
+
+    def __init__(self, mesh, plan: BrickPlan, tables, coeffs, dt: float,
+                 box_lengths, species_lj_type, seed: int, chunk_steps: int,
+                 *, force_kind: str, bonded_plan=None, bonded_left=None,
+                 cons_templates=None, cons_tables=None, mol_gids=None,
+                 barostat=None, has_berendsen=False, dtype=torch.float32):
+        dev = mesh.device
+        self.mesh, self.plan = mesh, plan
+        self.tables, self.coeffs = tables, coeffs
+        self.dt, self.seed, self.chunk_steps = dt, seed, chunk_steps
+        self.force_kind, self.dtype = force_kind, dtype
+        self.bonded_plan, self.bonded_left = bonded_plan, bonded_left
+        self.barostat, self.has_berendsen = barostat, has_berendsen
+        self.Lv = torch.as_tensor(box_lengths, dtype=dtype, device=dev)
+        self.tmap = torch.as_tensor(species_lj_type, dtype=torch.int64,
+                                    device=dev)
+        self.cons_templates = None
+        if cons_templates is not None:
+            tplan, project = cons_templates
+            types = [dict(tp, gids=tp["gids"].to(dev),
+                          d2=tp["d2"].to(device=dev, dtype=dtype))
+                     for tp in tplan["types"]]
+            self.cons_templates = (dict(types=types), project)
+        self.cons_tables = None
+        if cons_tables is not None:
+            from ..integrators.constraints import make_constraint_project
+
+            gids = cons_tables["cons_gids"].to(dev)
+            project = make_constraint_project(
+                cons_tables["cons_pairs"], cons_tables["cons_dist"],
+                dtype, gids.shape[1], device=dev)
+            self.cons_tables = (gids, project)
+        self.mol_gids = None if mol_gids is None else mol_gids.to(dev)
+        self._generator = torch.Generator(device=dev)
+        self._callsite = _NOISE_CALLSITE_MESH | (mesh.rank << 8)
+
+    # -- the owned groups, resolved once per rebuild ------------------------
+
+    def _resolve_local(self, fields, mask, rb):
+        """Constraint groups and molecules this rank owns (wholly local
+        by molecule coherence) into rb; inverse masses and molecule
+        masses are static within a chunk, so they are gathered here
+        once."""
+        rb.update(cons_bat=None, cons=None, mol=None)
+        n_l = mask.shape[0]
+        if self.cons_templates is not None or self.cons_tables is not None \
+                or self.mol_gids is not None:
+            rmass = torch.where(mask, 1.0 / fields["mass"].clamp(min=1e-30),
+                                torch.zeros_like(fields["mass"]))
+        if self.cons_templates is not None:
+            tplan, _ = self.cons_templates
+            rb["cons_bat"] = []
+            for tp, (rows, w) in zip(tplan["types"], resolve_batched(
+                    tplan, fields["gid"], mask, n_l)):
+                rm2 = rmass[rows.clamp(max=n_l - 1)]
+                rb["cons_bat"].append(
+                    (rows, w.to(rmass.dtype),
+                     rm2.reshape(tp["M"], tp["A"]).T))
+        if self.cons_tables is not None:
+            atoms, gw = resolve_constraints(self.cons_tables[0],
+                                            fields["gid"], mask, n_l)
+            rb["cons"] = (atoms, gw.to(rmass.dtype),
+                          torch.cat([rmass, rmass.new_zeros(1)]))
+        if self.mol_gids is not None:
+            atoms, gw = resolve_constraints(self.mol_gids, fields["gid"],
+                                            mask, n_l)
+            dt_ = fields["mass"].dtype
+            am = (atoms < n_l).to(dt_)
+            mm = torch.cat([fields["mass"], fields["mass"].new_zeros(1)]
+                           )[atoms] * am
+            rb["mol"] = (atoms, gw.to(dt_), mm, am,
+                         mm.sum(1, keepdim=True).clamp(min=1e-30))
+
+    def _resolve_bonded(self, pool_gid, pool_mask, n_l):
+        """(batched, per-term) resolutions of the bonded tables against a
+        pool (resolve_batched, resolve_terms); None for a table the deck
+        does not have."""
+        return (None if self.bonded_plan is None else resolve_batched(
+                    self.bonded_plan, pool_gid, pool_mask, n_l),
+                None if self.bonded_left is None else resolve_terms(
+                    self.bonded_left, pool_gid, pool_mask, n_l))
+
+    def _bonded_pool(self, r_pool, Lv, bat, left):
+        """(f, pe, virial) on the pool rows of the bonded terms this rank
+        owns, the batched types (resolved `bat`) and the per-term
+        leftover (resolved `left`); None without bonded terms."""
+        n_pool, dt_ = r_pool.shape[0], r_pool.dtype
+        out = None
+        if bat is not None:
+            fb, _, vb, peb = batched_bonded_eval(
+                r_pool, Lv, self.bonded_plan, n_pool, dt_, resolved=bat)
+            out = (fb, peb, vb)
+        if left is not None:
+            fl, _, vl, pel = bonded_eval(r_pool, Lv, left, n_pool, dt_)
+            out = (fl, pel, vl) if out is None else (
+                out[0] + fl, out[1] + pel, out[2] + vl)
+        return out
+
+    # -- constraints and the molecular virial -------------------------------
+
+    def _rattle(self, r, v, mode_front: bool, Lv, rb):
+        """Velocity projection of the owned constraint groups (front: the
+        post-drift lengths, back: r . v = 0) at the live box."""
+        if rb["cons_bat"] is not None:
+            tplan, project = self.cons_templates
+            n_l = v.shape[0]
+            # disowned instances write back the velocities they read, and
+            # missing rows (the sentinel n_l) land in a dropped tail row
+            v_ext = torch.cat([v, v.new_zeros((1, 3))])
+            for tp, (rows, w, rm2) in zip(tplan["types"], rb["cons_bat"]):
+                M, A = tp["M"], tp["A"]
+                rcl = rows.clamp(max=n_l - 1)
+                rb3 = r[rcl].reshape(M, A, 3).permute(2, 1, 0)
+                vb3 = v[rcl].reshape(M, A, 3).permute(2, 1, 0)
+                vb3 = project(rb3, vb3, rm2, w, tp["d2"], tp["li"], tp["lj"],
+                              self.dt, mode_front, Lv)
+                v_ext[rows] = vb3.permute(2, 1, 0).reshape(M * A, 3)
+            return v_ext[:n_l]
+        if rb["cons"] is not None:
+            atoms, gw, rm_ext = rb["cons"]
+            n_l = v.shape[0]
+            at = atoms.clamp(max=n_l)
+            zero = v.new_zeros((1, 3))
+            v_ext = torch.cat([v, zero])
+            v_new = self.cons_tables[1](torch.cat([r, zero]), v_ext, rm_ext,
+                                        at, gw, self.dt, mode_front, L=Lv)
+            v_ext[at.reshape(-1)] = v_new.reshape(-1, 3)
+            return v_ext[:n_l]
+        return v
+
+    def _mol_corr(self, r, f, Lv, rb):
+        """Diagonal molecular-virial correction sum_i d_i f_i over the owned
+        multi-bead molecules, d the bead's offset from its molecule's
+        centre of mass (molecularPressure.c:22-67)."""
+        atoms, gw, mm, am, Msum = rb["mol"]
+        zero = r.new_zeros((1, 3))
+        rm = torch.cat([r, zero])[atoms]
+        fm = torch.cat([f, zero])[atoms]
+        d = _min_image(rm - rm[:, :1], Lv)
+        com = (mm[:, :, None] * d).sum(1, keepdim=True) / Msum[:, :, None]
+        d = (d - com) * am[:, :, None]
+        return torch.einsum("m,mia,mia->a", gw, d, fm)
+
+    def _reduce(self, e_pot, rk, virial, corr, ov):
+        """(e_pot, rk, virial, molecular-virial correction (3,), overflow)
+        summed over the mesh in one all-reduce; the overflow flag rides
+        as a count (> 0 anywhere)."""
+        dev, dt_ = virial.device, virial.dtype
+        row = torch.cat([torch.as_tensor(e_pot, dtype=dt_,
+                                         device=dev).reshape(1),
+                         torch.as_tensor(rk, dtype=dt_, device=dev).reshape(1),
+                         virial.reshape(9), corr.to(dt_).reshape(3),
+                         ov.to(dt_).reshape(1)])
+        row = self.mesh.psum(row)
+        return (row[0], row[1], row[2:11].reshape(3, 3), row[11:14],
+                row[14] > 0)
+
+    # -- per-step pieces --------------------------------------------------
+
+    def _step_body(self, fields, mask, f_prev, step: int, rb, ov, Lv):
+        """One step at global step `step` on the rebuilt tables `rb` at the
+        live box Lv; ov is this rank's overflow so far, reduced with the
+        step's scalars.  Returns (fields, f, scalars (7,), overflow
+        mesh-wide); scalars [e_pot, rk, tr virial, molecular virial
+        diagonal (3), volume]."""
+        noise = kick_noise(self._generator, self.seed, step, self._callsite,
+                           (2,) + tuple(fields["r"].shape),
+                           dtype=fields["v"].dtype)
+        half = 0.5 * self.dt
+        # a BERENDSEN group's temperature sums over every rank
+        v = velocity_update("front", fields["v"], f_prev, fields["mass"],
+                            fields["group"], self.coeffs, half, noise[0], mask,
+                            self.has_berendsen, group_sum=self.mesh.psum)
+        v = self._rattle(fields["r"], v, True, Lv, rb)
+        fields = dict(fields, r=fields["r"] + self.dt * v, v=v)
+
+        f, pe, virial, ov_c = self._forces(fields["r"], rb, Lv)
+        n_l = mask.shape[0]
+        e_pot = pe.sum() + self._e_self(rb, n_l)
+
+        v = velocity_update("back", fields["v"], f, fields["mass"],
+                            fields["group"], self.coeffs, half, noise[1], mask)
+        v = self._rattle(fields["r"], v, False, Lv, rb)
+        fields = dict(fields, v=v)
+        fmask = mask.to(v.dtype)
+        rk = 0.5 * ((fields["mass"] * fmask)[:, None] * v * v).sum()
+        corr = (self._mol_corr(fields["r"], f, Lv, rb) if rb["mol"] is not None
+                else virial.new_zeros(3))
+        e_pot, rk, virial, corr, ov = self._reduce(e_pot, rk, virial, corr,
+                                                   ov | ov_c)
+        vd = torch.diagonal(virial) - corr
+        scalars = torch.stack([e_pot, rk, torch.trace(virial), vd[0], vd[1],
+                               vd[2], _volume(Lv)])
+        return fields, f, scalars, ov
+
+    def _e_self(self, rb, n_l):
+        return 0.0
+
+    # -- entry points -----------------------------------------------------
+
+    def first_forces(self, fields, mask, Lv=None):
+        """(f, e_pot, virial, overflow) of the current state at box Lv
+        (the deck's box by default), mesh-wide; the virial's diagonal
+        carries the molecular correction, as the barostat reads it."""
+        Lv = self.Lv if Lv is None else Lv
+        fields, rb, ov_r = self._rebuild(fields, mask, Lv)
+        f, pe, virial, ov_c = self._forces(fields["r"], rb, Lv)
+        e_pot = pe.sum() + self._e_self(rb, mask.shape[0])
+        corr = (self._mol_corr(fields["r"], f, Lv, rb) if rb["mol"] is not None
+                else virial.new_zeros(3))
+        e_pot, _, virial, corr, ov = self._reduce(e_pot, 0.0, virial, corr,
+                                                  ov_r | ov_c)
+        return f, e_pot, virial - torch.diag(corr), ov
+
+    def step(self, fields, mask, f_prev, step: int):
+        """One step on a freshly rebuilt table, no migration: (fields, f,
+        scalars (7,), overflow)."""
+        fields, rb, ov_r = self._rebuild(fields, mask, self.Lv)
+        return self._step_body(fields, mask, f_prev, step, rb, ov_r, self.Lv)
+
+    def migrate(self, fields, mask, f, Lv=None):
+        """Staged 1-hop migration at box Lv, forces travelling with their
+        rows: (fields, mask, f, overflow mesh-wide)."""
+        packed, new_mask, ov = migrate_3d(
+            dict(fields, f=f), mask, self.Lv if Lv is None else Lv,
+            self.plan, self.mesh)
+        f_new = packed.pop("f")
+        ov = self.mesh.psum(ov.to(torch.float32).reshape(1))[0] > 0
+        return packed, new_mask, f_new, ov
+
+    def chunk(self, fields, mask, f_prev, step0: int):
+        """Rebuild, chunk_steps steps at global steps step0 ..
+        step0+chunk_steps-1, then migrate: (fields, mask, f, scalars
+        (chunk_steps, 7), overflow)."""
+        fields, rb, ov = self._rebuild(fields, mask, self.Lv)
+        f, rows = f_prev, []
+        for i in range(self.chunk_steps):
+            fields, f, scal, ov = self._step_body(fields, mask, f, step0 + i,
+                                                  rb, ov, self.Lv)
+            rows.append(scal)
+        fields, mask, f, ov_m = self.migrate(fields, mask, f)
+        return fields, mask, f, torch.stack(rows), ov | ov_m
+
+    def chunk_npt(self, fields, mask, f_prev, vird, Lv, step0: int,
+                  steps: int | None = None):
+        """NPT chunk of `steps` (chunk_steps by default) steps: rebuild at
+        the live box, then per step the Berendsen lambda from the last
+        step's molecular virial diagonal `vird` rescales Lv and the
+        positions before the step; the engine's guard flags a brick
+        too narrow for its halo.  Returns (fields, mask, f, vird, Lv,
+        scalars (steps, 7), overflow)."""
+        fields, rb, ov = self._rebuild(fields, mask, Lv)
+        f, rows = f_prev, []
+        for i in range(self.chunk_steps if steps is None else steps):
+            lam = barostat_lambda(vird, _volume(Lv), self.barostat, self.dt)
+            Lv = Lv * lam
+            ov = ov | self._narrow(Lv)
+            fields = dict(fields, r=fields["r"] * lam)
+            fields, f, scal, ov = self._step_body(fields, mask, f, step0 + i,
+                                                  rb, ov, Lv)
+            vird = scal[3:6]
+            rows.append(scal)
+        fields, mask, f, ov_m = self.migrate(fields, mask, f, Lv)
+        return fields, mask, f, vird, Lv, torch.stack(rows), ov | ov_m
+
+    def superchunk(self, fields, mask, f_prev, step0: int, n_super: int,
+                   vird=None, Lv=None):
+        """n_super chunks (NPT chunks when the barostat is on, carrying
+        vird and Lv) in one dispatch with no host read.  Returns ((fields,
+        mask, f[, vird, Lv]), scalars (n_super*k, 7), overflow).  After an
+        overflow the later chunks still run, on state the caller
+        discards: the JAX superchunk freezes instead, and both hand back
+        a flagged dispatch that the host rolls back whole."""
+        k = self.chunk_steps
+        ov = torch.zeros((), dtype=torch.bool, device=mask.device)
+        state = (fields, mask, f_prev) + (
+            () if self.barostat is None else (vird, Lv))
+        rows = []
+        for j in range(n_super):
+            if self.barostat is None:
+                *state, scal, ov_j = self.chunk(*state, step0 + j * k)
+            else:
+                out = self.chunk_npt(*state, step0 + j * k)
+                state, scal, ov_j = out[:5], out[5], out[6]
+            rows.append(scal)
+            ov = ov | ov_j
+        return tuple(state), torch.cat(rows), ov
+
+
+def exclusion_gids(exclusions, gid, n: int):
+    """(n, Emax) int64: the gids of each row's excluded partners (both
+    directions of each pair), padded with -1; None without exclusions.
+    The list engine's per-row exclusion field."""
+    ex = np.asarray(exclusions, np.int64).reshape(-1, 2)
+    if len(ex) == 0:
+        return None
+    gid = np.asarray(gid, np.int64)
+    a = np.concatenate([ex[:, 0], ex[:, 1]])
+    b = np.concatenate([ex[:, 1], ex[:, 0]])
+    order = np.lexsort((b, a))
+    a, b = a[order], b[order]
+    cnt = np.bincount(a, minlength=n)
+    start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    slot = np.arange(len(a)) - start[a]
+    out = np.full((n, int(cnt.max())), -1, np.int64)
+    out[a, slot] = gid[b]
+    return out
+
+
+class BrickStepList(BrickStepBase):
+    """The mesh step of one rank on the (N,K)-list engine (the JAX
+    package's make_brick_step).  `grid` is the global CellGrid the pool
+    of local rows and ghosts is binned into; `tables` the force path's
+    (martini_device_tables, or for a PAIR deck without a table
+    pair_device_tables, whose reaction-field constants are zero, for
+    "martini"; pair_device_tables of a TableFunction for "pairtab";
+    eam_device_tables for "eam"), in `dtype`.  With `excl`
+    the fields carry exgid (exclusion_gids)."""
+
+    def __init__(self, mesh, plan: BrickPlan, grid, tables, coeffs,
+                 dt: float, box_lengths, species_lj_type, seed: int,
+                 chunk_steps: int, *, force_kind: str = "martini",
+                 excl: bool = False, **kw):
+        if force_kind not in ("martini", "pairtab", "eam"):
+            raise ValueError(force_kind)
+        if force_kind != "martini" and (excl or kw.get("bonded_plan")
+                                        is not None
+                                        or kw.get("bonded_left") is not None):
+            raise ValueError(f"{force_kind} decks carry no exclusions or "
+                             "bonded terms")
+        super().__init__(mesh, plan, tables, coeffs, dt, box_lengths,
+                         species_lj_type, seed, chunk_steps,
+                         force_kind=force_kind, **kw)
+        self.grid, self.excl = grid, excl
+        dev = mesh.device
+        self._ncells = torch.tensor(grid.ncells, dtype=self.dtype,
+                                    device=dev)
+        # axes of 3+ bricks: the staged exchange reaches one brick, so
+        # each must stay >= rlist (the NPT shrink guard)
+        frac = walls_span_minmax(plan.walls, plan.shape)[0]
+        self._reach_frac = torch.tensor(
+            [frac[a] if plan.shape[a] > 2 else 0.0 for a in range(3)],
+            dtype=self.dtype, device=dev)
+        self.halo_keys = ("species",) + (
+            ("q",) if force_kind == "martini" else ()) + (
+            ("gid",) if excl or self.bonded_plan is not None
+            or self.bonded_left is not None else ())
+
+    def _rebuild(self, fields, mask, Lv):
+        """Wrap, keep the static local fields the per-step halo ships, and
+        resolve the owned constraint groups and molecules."""
+        fields = dict(fields, r=_wrap(fields["r"], Lv))
+        rb = dict(static={k: fields[k] for k in self.halo_keys}, mask=mask,
+                  exgid=fields.get("exgid"))
+        self._resolve_local(fields, mask, rb)
+        zero = torch.zeros((), dtype=torch.bool, device=mask.device)
+        return fields, rb, zero
+
+    def _narrow(self, Lv):
+        return torch.any((self._reach_frac > 0)
+                         & (self._reach_frac * Lv < self.plan.rlist))
+
+    @staticmethod
+    def _drop_excluded(nbr, pool_gid, pool_mask, exgid):
+        """The local rows' (n_l, K) list with neighbour j of row i set to
+        the sentinel where gid(j) is among row i's excluded partners."""
+        sentinel = pool_gid.shape[0]
+        g = torch.where(pool_mask, pool_gid, torch.full_like(pool_gid, -2))
+        g = torch.cat([g, g.new_full((1,), -3)])[nbr]        # (n_l, K)
+        hit = torch.any(g[:, :, None] == exgid[:, None, :], dim=-1)
+        return torch.where(hit, torch.full_like(nbr, sentinel), nbr)
+
+    def _pool_list(self, r_local, rb, Lv):
+        """The staged halo of the wrapped local rows and the local rows'
+        (n_l, K) list over the pool, excluded partners dropped: (pool
+        fields, pool mask, routing, list, overflow)."""
+        mask = rb["mask"]
+        loc = dict(rb["static"], r=_wrap(r_local, Lv))
+        ghosts, gmask, ov, routing = halo_exchange_3d(
+            loc, mask, Lv, self.plan, self.mesh, centred=True)
+        pool = {k: torch.cat([loc[k], ghosts[k]]) for k in loc}
+        pool_mask = torch.cat([mask, gmask])
+        dt_ = pool["r"].dtype
+        row_mask = torch.cat([mask, torch.zeros_like(gmask)]).to(dt_)
+        nbr, _, ov_n = build_neighbor_list(pool["r"], pool_mask.to(dt_), Lv,
+                                           self.grid, row_mask=row_mask,
+                                           n_rows=mask.shape[0])
+        if self.excl:
+            nbr = self._drop_excluded(nbr, pool["gid"], pool_mask,
+                                      rb["exgid"])
+        return pool, pool_mask, routing, nbr, ov | ov_n
+
+    def neighbor_list(self, fields, mask, Lv=None):
+        """The list the next force call builds from this state (at box Lv,
+        the deck's box by default): (local rows' list (n_l, K) into the
+        pool, sentinel n_pool; pool gids or None; pool mask; overflow)."""
+        Lv = self.Lv if Lv is None else Lv
+        fields, rb, _ = self._rebuild(fields, mask, Lv)
+        pool, pool_mask, _, nbr, ov = self._pool_list(fields["r"], rb, Lv)
+        return nbr, pool.get("gid"), pool_mask, ov
+
+    def _forces(self, r_local, rb, Lv):
+        """Halo, list and forces of the local rows at box Lv: (f (n_loc,
+        3), pe (n_loc,), this rank's virial share (3, 3), overflow: a
+        halo or list overflow, or a cell edge below rlist)."""
+        mask = rb["mask"]
+        n_l = mask.shape[0]
+        pool, pool_mask, routing, nbr, ov = self._pool_list(r_local, rb, Lv)
+        r_pool = pool["r"]
+        fmask = mask.to(r_pool.dtype)
+        if self.force_kind == "martini":
+            f, _, virial, pe, _ = martini_nonbond(
+                r_pool, pool["q"], self.tmap[pool["species"]], fmask, nbr, Lv,
+                self.tables, n_rows=n_l)
+        elif self.force_kind == "pairtab":
+            f, _, virial, pe = pair_lj(r_pool, pool["species"], fmask, nbr,
+                                       Lv, self.tables, n_rows=n_l)
+        else:
+            f, virial, pe = self._eam(r_pool, pool["species"], fmask, nbr, Lv,
+                                      routing)
+        bond = None
+        if "gid" in pool:
+            bond = self._bonded_pool(r_pool, Lv, *self._resolve_bonded(
+                pool["gid"], pool_mask, n_l))
+        if bond is not None:
+            fb, peb, vb = bond
+            red = halo_reduce_3d(torch.cat([fb, peb[:, None]], dim=1),
+                                 routing, self.plan, n_l, self.mesh)
+            f, pe, virial = f + red[:, :3], pe + red[:, 3], virial + vb
+        cell_ok = torch.all(Lv / self._ncells >= self.grid.rlist)
+        return f, pe, virial, ov | ~cell_ok
+
+    def _eam(self, r_pool, s_pool, fmask, nbr, Lv, routing):
+        """Two-pass EAM on the local rows' list (eam.c:39-44): densities
+        and embedding on the local rows, each ghost's dF shipped from its
+        owner along the halo's routing, then forces with the transposed
+        density derivative (the JAX package's local_forces_eam, any
+        form).  Returns (f, virial, pe) of the local rows."""
+        tables = self.tables
+        form, T = tables["form"], tables["n_species"]
+        n_l = fmask.shape[0]
+        sentinel = r_pool.shape[0]
+        r_ext = torch.cat([r_pool, r_pool.new_zeros((1, 3))])
+        s_ext = torch.cat([s_pool, s_pool.new_zeros((1,))])
+        d_c = [_min_image(r_pool[:n_l, c][:, None] - r_ext[:, c][nbr], Lv[c])
+               for c in range(3)]
+        r2 = d_c[0] * d_c[0] + d_c[1] * d_c[1] + d_c[2] * d_c[2]
+        valid = ((nbr != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)
+                 & (fmask[:, None] > 0))
+        w = valid.to(r_pool.dtype)
+        r2s = torch.where(valid, r2, 1.0)
+        ir2 = 1.0 / r2s
+        ir = torch.sqrt(ir2)
+        s_i, s_j = s_pool[:n_l], s_ext[nbr]
+        pair_idx = s_i[:, None] * T + s_j
+        e1, p1 = _pair_eval(form, tables["pair"], pair_idx, r2s, ir, ir2,
+                            False)
+        rho = torch.sum(p1 * w, dim=1)
+        F_i, dF = _embedding(form, tables["embed"], s_i, rho)
+        F_i, dF = F_i * fmask, dF * fmask
+        # the second halo: owners ship dF for the same ghost rows
+        dF_pool = halo_refresh_3d(dF[:, None], routing, self.plan,
+                                  self.mesh)[:, 0]
+        de, dp = _pair_eval(form, tables["pair"], pair_idx, r2s, ir, ir2,
+                            True)
+        dpT = dp if T == 1 else _pair_eval(
+            form, tables["pair"], s_j * T + s_i[:, None], r2s, ir, ir2,
+            True)[1]
+        dF_ext = torch.cat([dF_pool, dF_pool.new_zeros((1,))])
+        coef = -(de + dp * dF[:, None] + dpT * dF_ext[nbr]) * w
+        f = torch.stack([torch.sum(coef * d_c[c], dim=1) for c in range(3)],
+                        dim=1)
+        virial = 0.5 * torch.stack([
+            torch.stack([torch.sum(coef * d_c[a] * d_c[b])
+                         for b in range(3)]) for a in range(3)])
+        pe = 0.5 * torch.sum(e1 * w, dim=1) + F_i
+        return f, virial, pe

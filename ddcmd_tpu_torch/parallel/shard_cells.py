@@ -400,17 +400,17 @@ def make_shard_eam_kernels(plan: ShardCellPlan, tables, device):
     """The two EAM passes over the CORE cells with slot space over the
     extended cells (TPU kernel #7).  `tables` from
     potentials/eam.eam_device_tables (or ops/eam_half.eam_kernel_tables);
-    a deck the kernels cannot take raises here.  Returns (rho_fn, force_fn):
-    rho_fn(slots, L8, counts) -> (p side (n_prog*cap, 2), q side (n_slot,
+    a deck the kernels cannot take raises ValueError.  Returns (rho_fn,
+    force_fn): rho_fn(slots, L8, counts) -> (p side (n_prog*cap, 2), q side (n_slot,
     8, cap)); force_fn(slots, L8, counts) -> (p-side force (n_prog*cap,
     3), q side (n_slot, 8, cap), per-core-cell (n_prog, 8) [virial6])."""
     if not eam_half_supported(tables):
-        raise NotImplementedError(
-            f"EAM form {tables['form']} with {tables['n_species']} species "
-            "under the mesh: the EAM kernels take the analytic forms and "
-            "the tabularFit=rational refit with 1-4 species, and the JAX "
-            "mesh would hand the rest to its Pallas kernel, which has no "
-            "such form (ROADMAP queue 1, item 25)")
+        raise ValueError(
+            f"EAM form {tables['form']} with {tables['n_species']} species: "
+            "the EAM kernels take the analytic forms and the "
+            "tabularFit=rational refit with 1-4 species; the mesh's engine "
+            "pick sends the rest to the brick list engine, as the JAX "
+            "package's does (run/parallel_sim._pick_shard_engine)")
     tables = eam_kernel_tables(tables)
     stencil = torch.as_tensor(plan.stencil_packed, device=device)
     params = tables["params"]

@@ -134,7 +134,7 @@ def martini_device_tables(parms: MartiniParms, dtype=torch.float32,
 
 
 def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
-                    excl_tbl=None, pbc_mask=None):
+                    excl_tbl=None, pbc_mask=None, n_rows=None):
     """Forces, energy and virial over the full (N,K) neighbor list.
 
     r: (N,3) wrapped positions; q: (N,) charges; tidx: (N,) LJ type;
@@ -147,8 +147,13 @@ def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
     reaction-field part the reference keeps for them
     (bioMartini.c:1124-1208).  pbc_mask: Box.pbc_mask on a box with a
     non-periodic axis (the minimum image on the periodic axes only).
+    n_rows: nbr_idx holds the rows of the first n_rows particles only
+    (the brick list engine's local rows; the others are neighbours), and
+    f and pe have n_rows rows.
     Returns (f (N,3), e_pot, virial (3,3), pe (N,), (e_lj, e_ele))."""
     sentinel = r.shape[0]
+    n_i = sentinel if n_rows is None else n_rows
+    ri, q_i, t_i, fm_i = r[:n_i], q[:n_i], tidx[:n_i], fmask[:n_i]
     r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
     q_ext = torch.cat([q, q.new_zeros((1,))], dim=0)
     t_ext = torch.cat([tidx, tidx.new_zeros((1,))], dim=0)
@@ -160,22 +165,22 @@ def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
         r2 = torch.zeros(nbr_idx.shape, dtype=r.dtype, device=r.device)
         for c in range(3):
             dc = nearest_image_pbc(
-                r[:, c][:, None] - r_ext[:, c][nbr_idx], geom[c:c + 1],
+                ri[:, c][:, None] - r_ext[:, c][nbr_idx], geom[c:c + 1],
                 None if pbc_mask is None else pbc_mask[c:c + 1])
             d_c.append(dc)
             r2 = r2 + dc * dc
     else:
-        dr = nearest_image_pbc(r[:, None, :] - r_ext[nbr_idx], geom,
+        dr = nearest_image_pbc(ri[:, None, :] - r_ext[nbr_idx], geom,
                                pbc_mask)
         r2 = torch.sum(dr * dr, dim=-1)
 
-    pair_t = tidx[:, None] * tables["sigma"].shape[0] + t_ext[nbr_idx]
+    pair_t = t_i[:, None] * tables["sigma"].shape[0] + t_ext[nbr_idx]
     sig = tables["sigma"].reshape(-1)[pair_t]
     eps = tables["eps"].reshape(-1)[pair_t]
     shf = tables["shift"].reshape(-1)[pair_t]
 
     valid = (nbr_idx != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)
-    valid = valid & (fmask[:, None] > 0)
+    valid = valid & (fm_i[:, None] > 0)
     if excl_tbl is not None:
         excluded = torch.any(nbr_idx[:, :, None] == excl_tbl[:, None, :],
                              dim=-1)
@@ -190,7 +195,7 @@ def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
     e_lj_pair = 4.0 * eps * (s12 - s6) + shf
     dvdr = 24.0 * eps * (s6 - 2.0 * s12) * ir2                # (dv/dr)/r
 
-    kqq = tables["keR"] * q[:, None] * q_ext[nbr_idx]
+    kqq = tables["keR"] * q_i[:, None] * q_ext[nbr_idx]
     e_ele_pair = kqq * (ir + tables["krf"] * r2s - tables["crf"])
     dvdr = dvdr + kqq * (2.0 * tables["krf"] - ir2 * ir)
 
@@ -210,7 +215,7 @@ def martini_nonbond(r, q, tidx, fmask, nbr_idx, geom, tables,
 
     # per-particle energy: half of each pair + the own self term
     # (bioMartini.c:1035)
-    e_self_i = -0.5 * q * q * fmask * tables["keR"] * tables["crf"]
+    e_self_i = -0.5 * q_i * q_i * fm_i * tables["keR"] * tables["crf"]
     pe = 0.5 * torch.sum((e_lj_pair + e_ele_pair) * w, dim=1) + e_self_i
     e_lj = 0.5 * torch.sum(e_lj_pair * w)
     e_ele = 0.5 * torch.sum(e_ele_pair * w) + torch.sum(e_self_i)

@@ -18,7 +18,7 @@ Lennard-Jones runs on the cell-pair kernels (Coulomb off) or the plain
 cell-block engine, and on the (N,K)-list engine through pair_lj.  A table
 is evaluated by pair_lj only, as in the JAX package, whose cell engines
 give such a deck zero pair force; the port's cell engines raise for it
-(TABLE_ENGINE) and the mesh names ROADMAP item 25.
+(TABLE_ENGINE), and the mesh runs it on its brick list engine.
 
 compile_pair is host numpy, copied from the JAX package (importing
 ddcmd_tpu imports jax).
@@ -133,19 +133,22 @@ def pair_device_tables(parms, dtype=torch.float32, device="cpu"):
     return t
 
 
-def pair_lj(r, sidx, fmask, nbr_idx, geom, tables, pbc_mask=None):
+def pair_lj(r, sidx, fmask, nbr_idx, geom, tables, pbc_mask=None,
+            n_rows=None):
     """Shifted LJ, or the TableFunction's piecewise polynomial, over the
-    full (N,K) neighbor list; pbc_mask as in martini_nonbond.  Returns
-    (f, e, virial, pe)."""
+    full (N,K) neighbor list; pbc_mask and n_rows as in martini_nonbond.
+    Returns (f, e, virial, pe)."""
     sentinel = r.shape[0]
+    n_i = sentinel if n_rows is None else n_rows
     r_ext = torch.cat([r, r.new_zeros((1, 3))], dim=0)
     s_ext = torch.cat([sidx, sidx.new_zeros((1,))], dim=0)
 
-    dr = nearest_image_pbc(r[:, None, :] - r_ext[nbr_idx], geom, pbc_mask)
+    dr = nearest_image_pbc(r[:n_i, None, :] - r_ext[nbr_idx], geom,
+                           pbc_mask)
     r2 = torch.sum(dr * dr, dim=-1)
 
     valid = ((nbr_idx != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)
-             & (fmask[:, None] > 0))
+             & (fmask[:n_i, None] > 0))
     r2s = torch.where(valid, r2, 1.0)
     ir2 = 1.0 / r2s
     if "tab_coeff" in tables:
@@ -166,7 +169,7 @@ def pair_lj(r, sidx, fmask, nbr_idx, geom, tables, pbc_mask=None):
         dvdr = d / rr
     else:
         ns = tables["sigma"].shape[0]
-        pair_t = sidx[:, None] * ns + s_ext[nbr_idx]
+        pair_t = sidx[:n_i, None] * ns + s_ext[nbr_idx]
         sig = tables["sigma"].reshape(-1)[pair_t]
         eps = tables["eps"].reshape(-1)[pair_t]
         shf = tables["shift"].reshape(-1)[pair_t]

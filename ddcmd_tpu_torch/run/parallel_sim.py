@@ -1,24 +1,41 @@
 """Deck-driven MD over a brick mesh, one rank per brick.
 
-Counterpart of ddcmd_tpu/run/parallel_sim.py:ParallelSimulation for the
-decks of the Martini water box, the Martini bilayer, PAIR Lennard-Jones
-fluids and the EAM crystal:
+Counterpart of ddcmd_tpu/run/parallel_sim.py:ParallelSimulation:
 `ddc DDC {lx=2; ly=2; lz=2;}` (the reference's domain lattice keywords,
 ddc.c:35-137) or the `shape` argument selects the mesh, and each rank
-runs parallel/brickstep_cells.BrickStepCells on its brick through the
-extended-grid kernels (TPU kernels #6 and #7).
+runs one of two engines on its brick, picked as the JAX package picks
+(_pick_shard_engine, its parallel_sim.py:647-683) at construction and
+again at every replan and rebalance:
 
-Covalent topologies (the bilayer) ride along keyed by global id: the
-residue-template bonded terms in `rf_add` mode beside the pair kernel's
-in-kernel exclusion mask, the template-batched RATTLE groups (or the
-generic groups of a topology that is not template-regular) and the
-multi-bead molecules of the molecular virial, all resolved per rank at
-each rebuild (parallel/bonded_shard.py); migration is molecule-coherent,
-the head bead of each chain deciding.  The NGLFCONSTRAINT family with
-beta > 0 runs the Berendsen barostat in the NPT chunk, which carries
-the live box and the molecular virial diagonal; the cell plan then keeps
-an 8% shrink margin, and the overflow ladder replans against the live
-box.
+  * "pallas", parallel/brickstep_cells.BrickStepCells: the
+    extended-grid kernels (TPU kernels #6 and #7), for a MARTINI deck
+    whose exclusion components fit the in-kernel channels, a PAIR deck
+    without a table (the MARTINI kernel with the species index as type
+    and zero reaction-field constants), or EAM the kernels take (the
+    analytic forms and the tabularFit=rational refit, 1-4 species), in
+    f32, without Voronoi domains, every open axis's narrowest brick at
+    least rlist (2 rlist on a 2-brick axis);
+  * "nlist", parallel/brickstep.BrickStepList: the brick (N,K)-list
+    engine in plain PyTorch for every other deck -- a PAIR
+    TableFunction, an exclusion component wider than the channels
+    (excluded partners masked in the list by gid), narrow bricks, EAM
+    of any form and species count, f64 runs (`dtype=torch.float64`),
+    VORONOI domains.
+DDCMD_SHARD_ENGINE=pallas|nlist forces the engine; a forced pallas the
+deck cannot take raises ValueError.
+
+Covalent topologies ride along keyed by global id: the bonded terms in
+`rf_add` mode (excluded pairs are masked in either engine, never
+computed and subtracted), batched per residue type and, where they
+cross residue instances (CHARMM junctions, CMAP), resolved per term; the
+template-batched RATTLE groups (or the generic groups of a topology that
+is not template-regular) and the multi-bead molecules of the molecular
+virial, all resolved per rank (parallel/bonded_shard.py); migration is
+molecule-coherent, the head bead of each chain deciding.  The
+NGLFCONSTRAINT family with beta > 0 runs the Berendsen barostat in the
+NPT chunk, which carries the live box and the molecular virial
+diagonal; the grids then keep a shrink margin, and the overflow ladder
+replans against the live box.
 
 Ranks come from torch.distributed (the caller initialises the process
 group: NCCL for CUDA tensors, one card per rank; gloo for the CPU).  A
@@ -27,54 +44,44 @@ from the deck, keeps the rows of its own brick, and runs the same host
 loop; the per-step scalars and the overflow flag are mesh-wide, so all
 ranks take the same decisions.
 
-A PAIR deck runs as the JAX package runs it: the MARTINI kernel with the
-species index as type and the reaction-field constants zero.  An EAM
-deck runs its analytic form or its tabularFit=rational refit on #7.
-
 The nonbond term is the deck's one MARTINI, EAM or PAIR potential,
 selected by type as the JAX mesh selects it (parallel_sim.py:58-90);
 NONE terms carry no force and are dropped.  Where the JAX mesh would
 drop a force silently, the port raises naming item 25: RESTRAINT and
 REFLECT, PAIRENERGY and ORDERSH (the JAX mesh ignores all four), a
-second nonbond term, a deck with no nonbond term, and EAM it cannot run
-(unfitted TABULAR, more than 4 species).
+second nonbond term and a deck with no nonbond term.
 
 Load balance: `loadBalance=lb` on the DDC object names a LOADBALANCE
 object (loadBalance.c:32-85) of type ZRAMP or TENSOR (per-axis
-equal-work walls, loadbalance.tensor_walls with workPower) or BISECTION
-(ORCB walls, loadbalance.orcb_walls), computed from the start positions
-and recomputed at `rate` inside run (rebalance), the JAX package's
-parallel_sim.py:117-160 and :926-1009.  A restart whose snapshot holds a
-pxyz of the same mesh shape and balancer family resumes its walls
-(DDCMD_PXYZ_RESTART=0 turns this off).  The walls run on the same
-extended-grid kernels, each rank's cell edge its own span / ncore.
-VORONOI raises: it has no brick lattice and runs on the JAX package's
-brick (N,K)-list engine.  write_checkpoint writes one atoms# shard per
-rank plus the restart and the pxyz (the reference's N-writer pio
-layout); view() gathers r, v and f by gid into a Simulation-shaped view;
-run_analyses() evaluates the deck's ANALYSIS objects, five of them
-sharded (analysis/registry.py eval_sharded).
+equal-work walls, loadbalance.tensor_walls with workPower), BISECTION
+(ORCB walls, loadbalance.orcb_walls) or VORONOI (nearest-centre domains
+moved by voronoi.balance_step with its eta), computed from the start
+positions and recomputed at `rate` inside run (rebalance), the JAX
+package's parallel_sim.py:117-160 and :926-1009.  A restart whose
+snapshot holds a pxyz of the same mesh shape and balancer family
+resumes its walls or centres (DDCMD_PXYZ_RESTART=0 turns this off).
+write_checkpoint writes one atoms# shard per rank plus the restart and
+the pxyz (the reference's N-writer pio layout); view() gathers r, v and
+f by gid into a Simulation-shaped view; run_analyses() evaluates the
+deck's ANALYSIS objects, five of them sharded (analysis/registry.py
+eval_sharded).  On an axis of three or more bricks every brick must be
+at least rlist wide (the staged halo reaches one brick): ValueError.
 
 Deck features outside these paths raise NotImplementedError naming
-their ROADMAP item: triclinic bricks and non-periodic axes (item 25: the JAX mesh
-reads no pbc bit and would run such a deck fully periodic), an
-exclusion component wider than the in-kernel encoding, a tabulated PAIR
-or bricks narrower than the cell engine allows (the JAX package's brick
-list engine make_brick_step, item 25), bonded terms that cross residue
-instances (CHARMM junctions and CMAP: the JAX package's per-term gid
-resolver, item 25), NGLFNEW with constraints (the JAX mesh projects
-constraints only for CONSTRAINT integrators, its Simulation also for
-NGLFNEW).  The kicks are the group kinds whose coefficients stay
-constant (FREE, LANGEVIN, FROZEN, FIXEDVELOCITY, QUENCH, BERENDSEN with
-its temperature summed over the ranks, a constant PISTON; the JAX mesh
-takes it per brick); the other integrators and box motions (NPTGLF,
-NGLFNK, the NVEGLF variants, box(t), EXTFORCE, the hook groups,
-GLOBAL_ENERGY, Teq or vz schedules) raise naming item 25
-(_refuse_dynamics), as do the NEXTFILE and NGLFTEST masters, printGraphs
-and the per-group energy files (which the JAX mesh does not write;
-Simulation writes them), and SIMULATE analysis= and PRINTINFO
-printStress (Simulation runs them; the JAX mesh runs analyses only
-through run_analyses).
+their ROADMAP item: triclinic bricks and non-periodic axes (item 25: the
+JAX mesh reads no pbc bit and would run such a deck fully periodic),
+NGLFNEW with constraints (the JAX mesh projects constraints only for
+CONSTRAINT integrators, its Simulation also for NGLFNEW).  The kicks are
+the group kinds whose coefficients stay constant (FREE, LANGEVIN,
+FROZEN, FIXEDVELOCITY, QUENCH, BERENDSEN with its temperature summed
+over the ranks, a constant PISTON; the JAX mesh takes it per brick); the
+other integrators and box motions (NPTGLF, NGLFNK, the NVEGLF variants,
+box(t), EXTFORCE, the hook groups, GLOBAL_ENERGY, Teq or vz schedules)
+raise naming item 25 (_refuse_dynamics), as do the NEXTFILE and
+NGLFTEST masters, printGraphs and the per-group energy files (which the
+JAX mesh does not write; Simulation writes them), and SIMULATE analysis=
+and PRINTINFO printStress (Simulation runs them; the JAX mesh runs
+analyses only through run_analyses).
 """
 
 from __future__ import annotations
@@ -91,10 +98,13 @@ from ..core.molecule import build_molecule_class
 from ..core.system import build_system
 from ..objects import ObjectDB
 from ..objects import units as U
+from ..nbr.celllist import CellGrid
+from ..ops.eam_half import eam_half_supported
 from ..parallel.bonded_shard import (constraint_gid_tables,
                                      mesh_bonded_plan, molecule_gid_tables)
 from ..parallel.brick import (BrickPlan, check_orcb_reach,
                               distribute_bricks, gid64)
+from ..parallel.brickstep import BrickStepList, exclusion_gids
 from ..parallel.brickstep_cells import BrickStepCells
 from ..parallel.mesh import BrickMesh
 from ..parallel.shard_cells import plan_shard_cells, walls_span_minmax
@@ -110,8 +120,9 @@ from .simulate import (_BAROSTAT_TYPES, _MASTER_TYPES, _NPT_TYPES,
 
 _MESH_ITEM = "ROADMAP queue 1, item 25"
 # NPT decks plan cells with shrink headroom (the JAX package's
-# plan_shard_cells margin for NPT decks)
+# plan_shard_cells margin for NPT decks, and its list grid's)
 _NPT_PLAN_MARGIN = 1.08
+_NPT_LIST_MARGIN = 1.1
 
 
 def _cap(x: int) -> int:
@@ -148,13 +159,17 @@ def chain_head_gids(gid, residue_instances, chain_links) -> np.ndarray:
 
 
 class ParallelSimulation:
-    """Sharded run of a Martini (water box, bilayer) or EAM deck over a
-    brick mesh, NVT or Berendsen NPT."""
+    """Sharded run of a MARTINI (water box, bilayer, CHARMM), PAIR or EAM
+    deck over a brick mesh, NVT or Berendsen NPT, in f32 or f64."""
 
     def __init__(self, db: ObjectDB, base_dir: str = ".", *, shape=None,
-                 device=None):
+                 device=None, dtype=torch.float32):
         self.device = dev = _mesh_device(device)
-        sd = build_system(db, base_dir, dtype=torch.float32, device="cpu")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype {dtype}: the mesh runs float32 or "
+                             "float64")
+        self.dtype = dtype
+        sd = build_system(db, base_dir, dtype=dtype, device="cpu")
         self.sysdef = sd
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
         refuse_unported_outputs(db, sd, self.printinfo)
@@ -195,48 +210,43 @@ class ParallelSimulation:
 
         ptype, parms = self._nonbond_term(sd)
         n = sd.state.n_local
+        # the list engine's tables in the run's dtype; the cells engine's
+        # (f32, the MARTINI types collapsed when one is used) by
+        # _cell_tables
         if ptype == "MARTINI":
-            tables = martini_device_tables(parms, device=dev)
+            tables = martini_device_tables(parms, dtype=dtype, device=dev)
             tmap = np.asarray(parms.species_lj_type)
             self.force_kind = "martini"
-            # uniform-LJ-type collapse: scalar parameters in the kernel
-            used = np.unique(tmap[sd.state.species[:n].numpy()])
-            if len(used) == 1:
-                t0 = int(used[0])
-                tables = dict(tables, **{
-                    k: tables[k][t0:t0 + 1, t0:t0 + 1]
-                    for k in ("sigma", "eps", "shift")})
-                tmap = np.zeros_like(tmap)
         elif ptype == "PAIR":
-            # the MARTINI kernel with zero reaction-field constants, the
-            # species index as type (parallel_sim.py:74-92 of the JAX
-            # package); the kernel reads no table
-            if parms.table is not None:
-                raise NotImplementedError(
-                    "PAIR function=TableFunction under the mesh: the table "
-                    "runs on the brick (N,K)-list engine (the JAX "
-                    "package's make_brick_step), not ported yet "
-                    f"({_MESH_ITEM})")
-            tables = pair_device_tables(parms, device=dev)
+            # without a table: the MARTINI path with zero reaction-field
+            # constants, the species index as type (parallel_sim.py:74-92
+            # of the JAX package); a TableFunction takes pair_lj
+            tables = pair_device_tables(parms, dtype=dtype, device=dev)
             tmap = np.arange(len(sd.species))
-            self.force_kind = "martini"
+            self.force_kind = "pairtab" if parms.table is not None \
+                else "martini"
         else:
-            # the kernels' own tables, and the refusal of a deck they
-            # cannot take, are parallel/shard_cells.make_shard_eam_kernels'
-            tables = eam_device_tables(parms, device=dev)
+            tables = eam_device_tables(parms, dtype=dtype, device=dev)
             tmap = np.arange(len(sd.species))
             self.force_kind = "eam"
+        self._ptype = ptype
         self.tables, self._tmap = tables, tmap
         self._coulomb = bool(np.any(sd.state.q[:n].numpy() != 0.0))
 
         L = sd.box.lengths.numpy().astype(np.float64)
         rlist = sd.rcut_max + sd.neighbor_deltaR
-        walls = self._setup_loadbalance(db, ddc, base_dir, L, rlist)
+        walls, voronoi = self._setup_loadbalance(db, ddc, base_dir, L, rlist)
         # halo windows scale with rlist / brick width (parallel_sim.py:
-        # 182-202 of the JAX package)
+        # 182-202 of the JAX package); Voronoi windows widen by the
+        # bisector margin, reserved for the centres' displacement bound
         per_dev = max(1, n // n_dev)
         width = min(L[a] / self.shape[a] for a in range(3))
-        frac = min(1.0, rlist / width)
+        win = rlist
+        if voronoi is not None:
+            from ..parallel.voronoi import beta_max
+
+            win = rlist + 0.75 * beta_max(L, self.shape) * width
+        frac = min(1.0, win / width)
         halo_est = int(per_dev * (1 + 2 * frac) ** 2 * frac * 1.8) + 64
         halo = max(3 * n // n_dev // 2, halo_est)
         if self._lb_kind == "bisection":
@@ -249,19 +259,20 @@ class ParallelSimulation:
             local_cap=_cap(n) if n_dev == 1 else _cap(4 * n // n_dev),
             halo_cap=_cap(halo),
             migrate_cap=_cap(max(256, n // (4 * n_dev))), rlist=rlist,
-            walls=walls)
-        self._check_geometry(L, rlist)
+            walls=walls, voronoi=voronoi)
+        self._check_reach(L)
         self.chunk_steps = max(1, int(sd.cfg.ddc_update_rate))
         self.coeffs = sd.group_table.coefficients(
-            sd.cfg.time, 0.5 * sd.cfg.dt, device=dev)
+            sd.cfg.time, 0.5 * sd.cfg.dt, dtype=dtype, device=dev)
         self._density_safety = 1.3
+        self._grid_growth = 1.0
         gid = gid64(sd.collection.gid)
         self._setup_barostat(db, gid)
         self._setup_topology(gid)
         # the live box (moves under the barostat) and the last molecular
         # virial diagonal the next NPT step's lambda reads
-        self.Lv = torch.as_tensor(L, dtype=torch.float32, device=dev)
-        self.vird = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.Lv = torch.as_tensor(L, dtype=dtype, device=dev)
+        self.vird = torch.zeros(3, dtype=dtype, device=dev)
         self._build_step_fns()
 
         self._host_arrays = dict(
@@ -271,8 +282,6 @@ class ParallelSimulation:
             group=sd.state.group[:n].numpy(), gid=gid)
         if self._hgid is not None:
             self._host_arrays["hgid"] = self._hgid
-        if self._excl_vals is not None:
-            self._host_arrays["excl"] = self._excl_vals[:n]
         self._distribute(self._host_arrays)
         self.f = None
         self.loop = sd.cfg.loop
@@ -286,45 +295,55 @@ class ParallelSimulation:
     def _setup_loadbalance(self, db, ddc, base_dir, L, rlist):
         """The deck's LOADBALANCE (JAX parallel_sim.py:117-180): ZRAMP and
         TENSOR take per-axis equal-work walls (workPower, default 2),
-        clamped to 1.05 rlist; BISECTION the ORCB walls; each with its
-        `rate`.  A restart's pxyz of the same mesh shape and family
-        supplies the walls instead (DDCMD_PXYZ_RESTART=0: never).
-        Returns the walls (None: uniform)."""
+        clamped to 1.05 rlist; BISECTION the ORCB walls; VORONOI
+        nearest-centre domains, the centres starting at the brick
+        centres and moved by balance_step (its `eta`, default 0.5); each
+        with its `rate`.  A restart's pxyz of the same mesh shape and
+        family supplies the walls or centres instead
+        (DDCMD_PXYZ_RESTART=0: never).  Returns (walls, voronoi), None
+        for what the plan does not use."""
         self.lb_rate, self._lb_kind, self._lb_work_power = 0, None, 2
+        self._lb_eta = 0.5
         name = ddc.get_str("loadBalance", "") if ddc is not None else ""
         if not name:
-            return None
+            return None, None
         lbobj = db.find(name, "LOADBALANCE")
         if lbobj is None:
             raise ValueError(f"DDC loadBalance={name}: no LOADBALANCE "
                              "object of that name")
         kind = lbobj.get_str("type", "").upper()
-        if kind == "VORONOI":
-            raise NotImplementedError(
-                "VORONOI load balance under the mesh: its domains have no "
-                "brick lattice and run on the JAX package's brick (N,K)-list "
-                f"engine make_brick_step, not ported yet ({_MESH_ITEM})")
-        if kind not in ("ZRAMP", "TENSOR", "BISECTION"):
+        if kind not in ("ZRAMP", "TENSOR", "BISECTION", "VORONOI"):
             raise NotImplementedError(
                 f"LOADBALANCE type={kind or '(none)'}: the mesh balances "
-                "ZRAMP, TENSOR and BISECTION walls")
-        self._lb_kind = "bisection" if kind == "BISECTION" else "tensor"
+                "ZRAMP, TENSOR and BISECTION walls and VORONOI domains")
+        self._lb_kind = {"BISECTION": "bisection",
+                         "VORONOI": "voronoi"}.get(kind, "tensor")
         self._lb_work_power = lbobj.get_int("workPower", 2)
+        self._lb_eta = lbobj.get_float("eta", 0.5)
         self.lb_rate = lbobj.get_int("rate", 0)
-        n = self.sysdef.state.n_local
-        walls = self._lb_walls(self.sysdef.state.r[:n].numpy(), L, rlist)
+        walls = voronoi = None
+        if self._lb_kind == "voronoi":
+            from ..parallel.voronoi import nominal_centers
+
+            voronoi = dict(centers=nominal_centers(L, self.shape),
+                           margins=np.zeros(3), L0=L.copy())
+        else:
+            n = self.sysdef.state.n_local
+            walls = self._lb_walls(self.sysdef.state.r[:n].numpy(), L, rlist)
         if os.environ.get("DDCMD_PXYZ_RESTART", "1") != "0":
             from ..io.pxyz import restore_plan_lb
 
             colobjs = db.by_class("COLLECTION")
             files_v = colobjs[0].get_str("files", "") if colobjs else ""
-            w_saved, _ = restore_plan_lb(
+            w_saved, v_saved = restore_plan_lb(
                 os.path.join(base_dir, os.path.dirname(files_v), "pxyz"),
                 self.shape, self._lb_kind)
             if w_saved is not None:
                 walls = tuple(tuple(w) if np.asarray(w).ndim == 1
                               else np.asarray(w) for w in w_saved)
-        return walls
+            if v_saved is not None:
+                voronoi = v_saved
+        return walls, voronoi
 
     def _lb_walls(self, r, L, rlist):
         """Walls of this run's balancer from positions r at box L (the
@@ -424,32 +443,32 @@ class ParallelSimulation:
 
     def _setup_topology(self, gid):
         """Gid-keyed covalent tables (JAX parallel_sim.py:226-401): the
-        batched bonded plan in rf_add mode beside the in-kernel exclusion
-        channels, the RATTLE templates (or generic groups), and the
-        chain-head gids of molecule-coherent migration."""
+        bonded terms in rf_add mode (batched per residue type, the rest
+        per term), the exclusions as the cells engine's in-kernel
+        channels (when every component fits them) and as the list
+        engine's partner gids, the RATTLE templates (or generic groups),
+        and the chain-head gids of molecule-coherent migration."""
         sd = self.sysdef
         bt = sd.bonded
-        self._bonded_plan = self._cons_templates = self._cons_tables = None
-        self._hgid = self._excl_vals = None
+        self._bonded_plan = self._bonded_left = None
+        self._cons_templates = self._cons_tables = None
+        self._hgid = self._excl_vals = self._exgid = None
+        self._wide = 0
         if bt is None:
             return
         from ..integrators.constraints import build_constraint_templates
 
         n = sd.state.n_local
-        if bt.exclusions is not None and self.force_kind == "martini":
-            wide = wide_exclusion_component(sd)
-            if wide:
-                raise NotImplementedError(
-                    f"an exclusion component of {wide} particles exceeds "
-                    "what the in-kernel exclusion channels encode; under "
-                    "the mesh such a deck needs the brick "
-                    "(N,K)-list engine (the JAX package's make_brick_step), "
-                    f"not ported yet ({_MESH_ITEM})")
-            self._excl_vals = _excl_channels(bt.exclusions, n)
-        btab = bonded_tables(sd)
+        if bt.exclusions is not None and len(bt.exclusions) \
+                and self.force_kind == "martini":
+            self._wide = wide_exclusion_component(sd)
+            if not self._wide:
+                self._excl_vals = _excl_channels(bt.exclusions, n)
+            self._exgid = exclusion_gids(bt.exclusions, gid, n)
+        btab = bonded_tables(sd, self.dtype)
         if btab is not None:
-            self._bonded_plan = mesh_bonded_plan(
-                btab, sd.residue_instances, n, gid, self.device)
+            self._bonded_plan, self._bonded_left = mesh_bonded_plan(
+                btab, sd.residue_instances, n, gid, self.device, self.dtype)
         if uses_constraints(sd):
             self._cons_templates = build_constraint_templates(
                 bt.cons_atoms, bt.cons_pairs, bt.cons_dist,
@@ -459,54 +478,159 @@ class ParallelSimulation:
         self._hgid = chain_head_gids(gid, sd.residue_instances,
                                      bt.chain_links)
 
-    def _check_geometry(self, L, rlist):
-        """The cell engine's gate (_pick_shard_engine, JAX parallel_sim.py:
-        647-686): every open axis needs its NARROWEST brick >= rlist, and
-        >= 2 rlist on a 2-brick axis (an atom within rlist of both faces
-        would need two ghost images).  Where the JAX package falls back
-        to its (N,K)-list engine, raise."""
+    def _check_reach(self, L):
+        """On an axis of three or more bricks the staged exchange reaches
+        one brick, so every brick there must be at least rlist wide at
+        box L, on either engine (an axis of one or two bricks takes any
+        width: min-image covers it).  Raises ValueError."""
         sf_min, _ = walls_span_minmax(self.plan.walls, self.shape)
         for a in range(3):
-            na = self.shape[a]
             span = L[a] * sf_min[a]
-            if na > 1 and span < rlist * (2.0 if na == 2 else 1.0):
-                raise NotImplementedError(
-                    f"axis {a}: brick {span:.3f} too narrow for rlist "
-                    f"{rlist:.3f}; the brick (N,K)-list engine the JAX "
-                    "package runs then (make_brick_step) is not ported yet "
-                    f"({_MESH_ITEM})")
+            if self.shape[a] > 2 and span < self.plan.rlist:
+                raise ValueError(
+                    f"axis {a}: brick {span:.4f} < rlist "
+                    f"{self.plan.rlist:.4f} with {self.shape[a]} bricks: "
+                    "the staged halo exchange reaches one brick; use fewer "
+                    "bricks along that axis")
+
+    def _pick_shard_engine(self, L) -> str:
+        """"pallas" (the cells engine, TPU kernels #6 and #7) or "nlist"
+        (the brick list engine), the JAX package's _pick_shard_engine
+        (parallel_sim.py:647-683): the cells engine takes a MARTINI deck
+        (its exclusion components within the in-kernel channels), a PAIR
+        deck without a table, or EAM the kernels take, in f32, without
+        Voronoi domains, with every open axis's narrowest brick at least
+        rlist (2 rlist on a 2-brick axis); every other deck takes the
+        list engine.  DDCMD_SHARD_ENGINE=pallas|nlist forces the engine;
+        a forced pallas the deck or geometry cannot take raises
+        ValueError."""
+        why = None
+        if self.force_kind == "pairtab":
+            why = "a PAIR TableFunction"
+        elif self.force_kind == "eam" and not eam_half_supported(self.tables):
+            why = (f"EAM form {self.tables['form']} with "
+                   f"{self.tables['n_species']} species (the EAM kernels "
+                   "take the analytic forms and the tabularFit=rational "
+                   "refit with 1-4 species)")
+        elif self.dtype != torch.float32:
+            why = f"dtype {self.dtype}"
+        elif self.plan.voronoi is not None:
+            why = "VORONOI domains"
+        elif self._wide:
+            why = (f"an exclusion component of {self._wide} particles "
+                   "(wider than the in-kernel channels encode)")
+        else:
+            sf_min, _ = walls_span_minmax(self.plan.walls, self.shape)
+            for a in range(3):
+                na, span = self.shape[a], L[a] * sf_min[a]
+                if na > 1 and span < self.plan.rlist * (2.0 if na == 2
+                                                        else 1.0):
+                    why = (f"axis {a}: brick {span:.3f} too narrow for "
+                           f"rlist {self.plan.rlist:.3f}")
+        forced = os.environ.get("DDCMD_SHARD_ENGINE", "")
+        if forced == "nlist":
+            return "nlist"
+        if forced == "pallas" and why:
+            raise ValueError(f"DDCMD_SHARD_ENGINE=pallas infeasible: {why}")
+        return "nlist" if why else "pallas"
 
     def _live_L(self) -> np.ndarray:
         return self.Lv.cpu().numpy().astype(np.float64)
 
+    def _cell_tables(self):
+        """(tables, tmap) of the cells engine: the MARTINI LJ tables
+        collapsed to scalars when the deck uses one type (scalar
+        parameters in the kernel)."""
+        tables, tmap = self.tables, self._tmap
+        if self._ptype == "MARTINI":
+            n = self.sysdef.state.n_local
+            used = np.unique(tmap[self.sysdef.state.species[:n].numpy()])
+            if len(used) == 1:
+                t0 = int(used[0])
+                tables = dict(tables, **{
+                    k: tables[k][t0:t0 + 1, t0:t0 + 1]
+                    for k in ("sigma", "eps", "shift")})
+                tmap = np.zeros_like(tmap)
+        return tables, tmap
+
     def _build_step_fns(self):
-        """Plan the extended grid at the LIVE box and build the step."""
+        """Pick the engine at the LIVE box (at every replan and
+        rebalance, JAX _build_step_fns :728-747) and build its step:
+        the extended cell grid of the cells engine, or the global cell
+        grid of the list engine, planned on the current positions with
+        the ghost-duplication factor (JAX :204-222)."""
         sd = self.sysdef
         L = self._live_L()
-        self.cplan = plan_shard_cells(
-            L, self.shape, sd.rcut_max, sd.neighbor_deltaR, sd.state.n_local,
-            density_safety=self._density_safety,
-            plan_margin=_NPT_PLAN_MARGIN if self.barostat else 1.0,
-            walls=self.plan.walls)
-        self.step_fn = BrickStepCells(
-            self.mesh, self.plan, self.cplan, self.tables, self.coeffs,
-            sd.cfg.dt, L, self._tmap, sd.random_seed, self.chunk_steps,
-            coulomb=self._coulomb, force_kind=self.force_kind,
-            excl=self._excl_vals is not None, bonded_plan=self._bonded_plan,
+        self.shard_engine = self._pick_shard_engine(L)
+        common = dict(
+            bonded_plan=self._bonded_plan, bonded_left=self._bonded_left,
             cons_templates=self._cons_templates,
             cons_tables=self._cons_tables, mol_gids=self._mol_gids,
             barostat=self.barostat,
             has_berendsen=sd.group_table.has_berendsen)
+        if self.shard_engine == "pallas":
+            self.cplan = plan_shard_cells(
+                L, self.shape, sd.rcut_max, sd.neighbor_deltaR,
+                sd.state.n_local, density_safety=self._density_safety,
+                plan_margin=_NPT_PLAN_MARGIN if self.barostat else 1.0,
+                walls=self.plan.walls)
+            tables, tmap = self._cell_tables()
+            self.step_fn = BrickStepCells(
+                self.mesh, self.plan, self.cplan, tables, self.coeffs,
+                sd.cfg.dt, L, tmap, sd.random_seed, self.chunk_steps,
+                coulomb=self._coulomb, force_kind=self.force_kind,
+                excl=self._excl_vals is not None, **common)
+            return
+        self.cplan = None
+        self.grid = self._plan_grid(L)
+        self.step_fn = BrickStepList(
+            self.mesh, self.plan, self.grid, self.tables, self.coeffs,
+            sd.cfg.dt, L, self._tmap, sd.random_seed, self.chunk_steps,
+            force_kind=self.force_kind, excl=self._exgid is not None,
+            dtype=self.dtype, **common)
+
+    def _plan_grid(self, L):
+        """The list engine's global CellGrid at box L, its occupancy
+        measured on the current positions (the start positions, or the
+        gathered ones after the first build) times the ghost-duplication
+        factor of a halo window wrapping a small box, and the replan
+        ladder's growth."""
+        sd = self.sysdef
+        n = sd.state.n_local
+        r = (self.gather_by_gid(("r",))["r"] if hasattr(self, "fields")
+             else sd.state.r[:n].numpy())
+        rlist = self.plan.rlist
+        spans = [min(1.0, rlist / (L[a] / self.shape[a])) for a in range(3)]
+        # an axis of one brick ships no ghosts (the JAX package counts
+        # its window there too, which inflates the grid of a (1,1,1)
+        # mesh 2.6x on the water box)
+        dup = float(np.prod([
+            max(1.0, (L[a] / self.shape[a]) * (1 + 2 * spans[a]) / L[a])
+            if self.shape[a] > 1 else 1.0 for a in range(3)]))
+        return CellGrid.plan(
+            L, sd.rcut_max, sd.neighbor_deltaR, n,
+            self.plan.local_cap + self.plan.ghost_cap, positions=r,
+            occupancy_factor=dup * self._grid_growth,
+            plan_margin=_NPT_LIST_MARGIN if self.barostat else 1.0)
 
     def _distribute(self, arrays):
         """This rank's brick of the host arrays at the live box, on the
-        device."""
+        device, with the engine's exclusion field: the in-kernel channels
+        (excl) of the cells engine, the partner gids (exgid) of the list
+        engine."""
+        arrays = dict(arrays)
+        n = self.sysdef.state.n_local
+        if self.shard_engine == "pallas" and self._excl_vals is not None:
+            arrays["excl"] = self._excl_vals[:n]
+        if self.shard_engine == "nlist" and self._exgid is not None:
+            arrays["exgid"] = self._exgid
         buf, mask, _ = distribute_bricks(arrays, self._live_L(), self.plan)
         cap, rank = self.plan.local_cap, self.mesh.rank
         rows = slice(rank * cap, (rank + 1) * cap)
         self.fields = {k: torch.as_tensor(v[rows], device=self.device)
                        for k, v in buf.items()}
         self.mask = torch.as_tensor(mask[rows], device=self.device)
+
     def gather_by_gid(self, names=("r", "v")) -> dict:
         """Every rank's owned rows of the named fields (and "f") on the
         host, in the collection's original order (the pio gather
@@ -658,9 +782,10 @@ class ParallelSimulation:
 
     def redistribute(self, g=None):
         """Host-exact re-assignment of every particle to its brick under
-        the current walls at the live box (no replan): recovers from a
-        migration or halo overflow, and from an ORCB containment flag.
-        g: the gathered r and v, when the caller has them."""
+        the current walls or Voronoi centres at the live box (no
+        replan): recovers from a migration or halo overflow, and from an
+        ORCB or Voronoi containment flag.  g: the gathered r and v, when
+        the caller has them."""
         g = self.gather_by_gid(("r", "v")) if g is None else g
         arrays = dict(self._host_arrays, r=g["r"], v=g["v"])
         self._distribute(arrays)
@@ -668,40 +793,68 @@ class ParallelSimulation:
         self.first_energy()
 
     def rebalance(self):
-        """Recompute the walls from the CURRENT positions (the tensor or
-        bisection branch of the JAX package's parallel_rebalance,
-        parallel_sim.py:926-1009; loadBalance at rate, loadBalance.c:
-        32-85), replan the cell grid under them and redistribute.  Every
-        rank computes the same walls from the same gathered positions."""
+        """Recompute the decomposition from the CURRENT positions (the
+        JAX package's parallel_rebalance, parallel_sim.py:926-1009;
+        loadBalance at rate, loadBalance.c:32-85): the tensor or
+        bisection walls, or one balance_step of the Voronoi centres (a
+        density-weighted Lloyd move, re-clamped, with its margins);
+        then pick the engine and plan its grid under it, and
+        redistribute.  Every rank computes the same decomposition from
+        the same gathered positions."""
         import dataclasses
 
         g = self.gather_by_gid(("r", "v"))
         L = self._live_L()
-        walls = self._lb_walls(g["r"], L, self.plan.rlist)
-        self.plan = dataclasses.replace(self.plan, walls=walls)
-        self._check_geometry(L, self.plan.rlist)
+        if self._lb_kind == "voronoi":
+            from ..parallel.voronoi import balance_step
+
+            vor = self.plan.voronoi
+            scale = L / np.asarray(vor["L0"], np.float64)
+            centers, margins = balance_step(
+                np.asarray(vor["centers"]) * scale[None, None, None, :],
+                np.asarray(g["r"], np.float64), L, self.shape,
+                self.plan.rlist, eta=self._lb_eta)
+            self.plan = dataclasses.replace(
+                self.plan, voronoi=dict(centers=centers, margins=margins,
+                                        L0=L.copy()))
+        else:
+            self.plan = dataclasses.replace(
+                self.plan, walls=self._lb_walls(g["r"], L, self.plan.rlist))
+        self._check_reach(L)
         self._build_step_fns()
         self.redistribute(g)
         self.n_rebalance += 1
 
+    def _plan_key(self):
+        """What a replan can change: the engine and its grid's shape."""
+        if self.shard_engine == "pallas":
+            return ("pallas", self.cplan.ncore, self.cplan.cap)
+        return ("nlist", self.grid.ncells, self.grid.cell_capacity,
+                self.grid.max_neighbors)
+
     def replan(self):
-        """Replan the cell grid at the LIVE box (a barostat-compressed box
-        can take a cell edge below rlist; fewer, larger cells restore the
-        one-shell stencil), with 1.3x the density safety when that
-        changes nothing (a larger cell capacity, as the single-device run
-        loop grows it), and redistribute.  A brick narrower than rlist at
-        the live box makes the decomposition itself infeasible: raise."""
+        """Pick the engine again and replan its grid at the LIVE box (a
+        barostat-compressed box can take a cell edge below rlist; fewer,
+        larger cells restore the one-shell stencil), with 1.3x the room
+        when that changes nothing (the cells engine's density safety,
+        the list grid's occupancy: a larger cell capacity and list
+        width, as the single-device run loop grows them), and
+        redistribute.  A brick narrower than rlist on an axis of three or
+        more bricks at the live box makes the decomposition itself
+        infeasible: raise."""
         L = self._live_L()
-        widths = L * walls_span_minmax(self.plan.walls, self.shape)[0]
-        if widths.min() < self.plan.rlist:
-            raise RuntimeError(
-                f"brick decomposition infeasible at the live box: narrowest "
-                f"brick {widths.min():.4f} < rlist {self.plan.rlist:.4f} "
-                f"(box {L}); use fewer bricks along the compressed axis")
-        old = (self.cplan.ncore, self.cplan.cap)
+        try:
+            self._check_reach(L)
+        except ValueError as err:
+            raise RuntimeError(f"brick decomposition infeasible at the live "
+                               f"box {L}: {err}") from None
+        old = self._plan_key()
         self._build_step_fns()
-        if (self.cplan.ncore, self.cplan.cap) == old:
-            self._density_safety *= 1.3
+        if self._plan_key() == old:
+            if self.shard_engine == "pallas":
+                self._density_safety *= 1.3
+            else:
+                self._grid_growth *= 1.3
             self._build_step_fns()
         self.redistribute()
 

@@ -242,21 +242,29 @@ def test_mmff_torsions_and_pairs_match_jax(tmp_path):
 
 def test_mesh_refuses_leftover_terms(systems, monkeypatch):
     """A bonded term that crosses residue instances (here a bond joining
-    two lipids, added in memory) stays in the leftover of the batched
-    plan; Simulation evaluates it on the generic evaluator, the mesh
-    raises naming item 25 (the per-term gid resolver is not ported)."""
+    two lipids, added in memory to both packages' systems) stays in the
+    leftover of the batched plan.  The mesh no longer refuses it: its
+    gid-keyed leftover resolves per term beside the batched plan, on the
+    cells engine (#6's plain version here), and the mesh's first energy
+    and forces at (1,1,1) match the JAX package's f64 Simulation on the
+    joined system (energy 1e-5 relative, forces 2e-5 of the scale, the
+    bilayer mesh's tolerances)."""
+    from ddcmd_tpu.run import simulate as jsim
     from ddcmd_tpu_torch.run import parallel_sim as tps
 
     _, tsd, d = systems
     rows = [r for name, r in tsd.residue_instances if name == "DPPC"]
     junction = (rows[0][-1], rows[1][0])
 
-    def joined(*a, **kw):
-        sd = t_build_system(*a, **kw)
-        bt = sd.bonded
-        bt.bonds = np.concatenate([bt.bonds, [junction]]).astype(np.int32)
-        bt.bond_parms = np.concatenate([bt.bond_parms, [[1250.0, 0.47]]])
-        return sd
+    def joiner(build):
+        def joined(*a, **kw):
+            sd = build(*a, **kw)
+            bt = sd.bonded
+            bt.bonds = np.concatenate([bt.bonds, [junction]]).astype(
+                np.int32)
+            bt.bond_parms = np.concatenate([bt.bond_parms, [[1250.0, 0.47]]])
+            return sd
+        return joined
 
     tab = _bonded_tables(tsd, tb, device="cpu")
     tab["bonds"] = torch.cat([tab["bonds"], torch.tensor([junction])])
@@ -266,11 +274,21 @@ def test_mesh_refuses_leftover_terms(systems, monkeypatch):
                                           tsd.state.n_pad)
     assert plan is not None
     assert left["bonds"].tolist() == [list(junction)]
-    monkeypatch.setattr(tps, "build_system", joined)
-    with pytest.raises(NotImplementedError,
-                       match=r"\(bonds\) cross residue instances.*item 25"):
-        tps.ParallelSimulation(t_load(d)[0], d, shape=(1, 1, 1),
-                               device="cpu")
+    monkeypatch.setattr(tps, "build_system", joiner(t_build_system))
+    monkeypatch.setattr(jsim, "build_system", joiner(j_build_system))
+    ps = tps.ParallelSimulation(t_load(d)[0], d, shape=(1, 1, 1),
+                                device="cpu")
+    assert ps.shard_engine == "pallas"
+    assert ps._bonded_left["bonds_gids"].shape == (1, 2)
+    e = ps.first_energy()
+    sim = jsim.Simulation(*j_load(d), run_dir=d, engine="nlist",
+                          dtype=jnp.float64)
+    sim.first_energy()
+    n = tsd.state.n_local
+    f0 = np.asarray(sim.ss.state.f[:n], np.float64)
+    assert e == pytest.approx(float(sim.ss.energy.eion), rel=1e-5)
+    f = ps.gather_by_gid(("f",))["f"]
+    assert np.abs(f - f0).max() <= 2e-5 * np.abs(f0).max()
 
 
 def test_molecular_virial_matches_jax(systems):

@@ -88,20 +88,37 @@ def test_gid_key_of_pairs_equals_jax_pack_gid():
 
 
 def test_junction_terms_raise_with_gids():
-    """A term joining two residue instances (a junction, which the JAX
-    package resolves per term) stays in the batched plan's leftover, and
-    the mesh's gid-keyed plan raises for it naming ROADMAP item 25 (the
-    per-term resolver is not ported): the port's boundary."""
+    """A term joining two residue instances (a junction) stays in the
+    batched plan's leftover; the mesh's plan no longer raises for it but
+    keys the leftover by gid (leftover_gid_tables), and resolve_terms
+    maps it to pool rows and ownership weights as the JAX package's
+    resolver does, on the same pool."""
     terms = {"bonds": torch.tensor([[0, 1], [2, 3], [1, 2]]),
              "bond_parms": torch.ones((3, 2))}
     inst = [("A", [0, 1]), ("A", [2, 3])]
-    gid = np.arange(8, dtype=np.int64)
+    gids, mask = _pool(seed=4)
+    gid = np.concatenate([gids[[2, 14, 9, 4]], np.arange(4) + 5000])
     plan, left = tbb.build_batched_bonded(terms, inst, 8, gid=gid)
     assert left["bonds"].tolist() == [[1, 2]]
-    assert plan["types"][0]["gids"].tolist() == [[0, 1], [2, 3]]
-    with pytest.raises(NotImplementedError,
-                       match="cross residue instances(.|\n)*item 25"):
-        tbs.mesh_bonded_plan(terms, inst, 8, gid)
+    assert plan["types"][0]["gids"].tolist() == [[gid[0], gid[1]],
+                                                 [gid[2], gid[3]]]
+    plan, left = tbs.mesh_bonded_plan(terms, inst, 8, gid)
+    assert left["bonds_gids"].tolist() == [[gid[1], gid[2]]]
+    assert "bonds" not in left
+    jleft = jbs.leftover_gid_tables(
+        {"bonds": jnp.asarray([[1, 2]]), "bond_parms": jnp.ones((1, 2))},
+        gid)
+    np.testing.assert_array_equal(left["bonds_gids"].numpy(),
+                                  np.asarray(jleft["bonds_gids"]))
+    tres = tbs.resolve_terms(left, torch.as_tensor(gids),
+                             torch.as_tensor(mask), LOCAL_CAP)
+    jres = jbs.resolve_terms(jleft, jnp.asarray(gids), jnp.asarray(mask),
+                             LOCAL_CAP)
+    np.testing.assert_array_equal(tres["bonds"].numpy(),
+                                  np.asarray(jres["bonds"]))
+    np.testing.assert_array_equal(tres["bonds_w"].numpy(),
+                                  np.asarray(jres["bonds_w"]))
+    assert tres["bonds_w"].tolist() == [0.0]      # its anchor is a ghost
 
 
 @pytest.fixture(scope="module")

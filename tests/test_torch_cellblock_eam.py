@@ -211,10 +211,15 @@ def test_cell_block_eam_decks_step(what, tmp_path):
 def test_refit_mesh_matches_simulation(decks, tmp_path):
     """The refit deck under ParallelSimulation at (1,1,1) over gloo on
     #7's plain versions: first energy and forces equal Simulation's (rel
-    2e-5, F_REL of the scale), then 10 finite steps; the TABULAR deck is
-    refused naming item 25."""
+    2e-5, F_REL of the scale), then 10 finite steps.  The decks #7 does
+    not take, the unfitted TABULAR deck and a five-species FS alloy, run
+    on the brick list engine (as the JAX package's pick sends them to
+    its own): in f64 their first energy and forces equal the JAX mesh's
+    list engine's to 1e-10, and the TABULAR deck runs 10 f32 steps."""
     import torch.distributed as dist
 
+    from ddcmd_tpu.run.parallel_sim import \
+        ParallelSimulation as JParallelSimulation
     from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
 
     d = decks["fit"]
@@ -234,9 +239,29 @@ def test_refit_mesh_matches_simulation(decks, tmp_path):
         assert np.abs(f - f0).max() <= F_REL * np.abs(f0).max()
         ps.run(10, print_fn=lambda s: None)
         assert ps.loop == 10
-        with pytest.raises(NotImplementedError, match="TABULAR.*item 25"):
-            ParallelSimulation(*t_load(decks["tab"]), shape=(1, 1, 1),
-                               device="cpu")
+        five = str(tmp_path / "five")
+        os.makedirs(five)
+        chip_smoke.alloy_eam_deck(five, 2, 10)
+        for deck in (decks["tab"], five):
+            jps = JParallelSimulation(*j_load(deck), shape=(1, 1, 1),
+                                      dtype=jnp.float64)
+            assert jps.shard_engine == "nlist"
+            je = jps.first_energy()
+            m = np.asarray(jps.mask)
+            jg = np.asarray(jps.fields["gid"])[m][:, 0].astype(np.int64)
+            ps = ParallelSimulation(*t_load(deck), shape=(1, 1, 1),
+                                    device="cpu", dtype=torch.float64)
+            assert ps.force_kind == "eam" and ps.shard_engine == "nlist"
+            assert abs(ps.first_energy() - je) <= 1e-10 * abs(je)
+            jf = np.zeros((len(jg), 3))
+            jf[jg] = np.asarray(jps.f)[m]
+            f = ps.gather_by_gid(("f",))["f"]
+            assert np.abs(f - jf).max() <= 1e-10 * np.abs(jf).max()
+        ps = ParallelSimulation(*t_load(decks["tab"]), shape=(1, 1, 1),
+                                device="cpu")
+        assert ps.shard_engine == "nlist"
+        ps.run(10, print_fn=lambda s: None)
+        assert ps.loop == 10 and torch.isfinite(ps.f[ps.mask]).all()
     finally:
         dist.destroy_process_group()
 

@@ -5,7 +5,7 @@ Simulation(engine="nlist") in f64 with its finite-difference forces and
 the engine choice (auto demotes it to the list); the ethane fluid
 (tests/test_charmm.py:make_fixture) at 216 molecules in 4.0 nm on the
 per-cell kernel's plain twin and through the mesh at (1,1,1) over gloo;
-the mesh's refusal of chains (item 25); chip_smoke.py's deck writers.
+the chains under the mesh on both engines; chip_smoke.py's deck writers.
 tests/test_torch_charmm.py holds the host layer and the evaluators.
 
 Tolerances: the f64 first energy rel 1e-9 and forces 1e-9 of the scale;
@@ -168,18 +168,37 @@ def test_ethane_mesh_first_energy(tmp_path):
 
 @pytest.mark.parametrize("kind", ["c36", "chain"])
 def test_mesh_refuses_chains(tmp_path, kind):
-    """Under the mesh, CHARMM chains raise naming item 25: the c36
-    tripeptide for its 30-member exclusion component, the 12-atom chain
-    (narrow enough for the channels) for its junction and CMAP terms."""
+    """Under the mesh CHARMM chains run: the c36 tripeptide (its
+    30-member exclusion component) on the brick list engine, the 12-atom
+    chain (narrow enough for the channels) with its junction and CMAP
+    terms resolved per term by gid.  In f64 (the list engine) the mesh's
+    first energy and forces at (1,1,1) match the JAX package's f64
+    Simulation on its list engine (rel 1e-9, 1e-9 of the scale); in f32
+    (c36: the list engine; the chain: the cells engine, #6's plain
+    version, with the per-term leftovers beside it) at the list engine's
+    f32 gates against f64 (e rel 1e-4, forces 3e-4 of the scale), then
+    one chunk with finite forces."""
     if kind == "c36":
         d = _c36(tmp_path)
-        what = "exclusion component of 30"
     else:
         make_chain_fixture(tmp_path)
         d = str(tmp_path)
-        what = "cross residue instances"
-    with pytest.raises(NotImplementedError, match=f"{what}(.|\n)*item 25"):
-        ParallelSimulation(*t_load(d), shape=(1, 1, 1), device="cpu")
+    js = JSim(*j_load(d), run_dir=d, dtype=jnp.float64, engine="nlist")
+    js.first_energy()
+    e0 = float(js.ss.energy.eion)
+    ps = ParallelSimulation(*t_load(d), shape=(1, 1, 1), device="cpu",
+                            dtype=torch.float64)
+    assert ps.shard_engine == "nlist" and ps._bonded_left is not None
+    n = ps.sysdef.state.n_local
+    f0 = np.asarray(js.ss.state.f[:n], np.float64)
+    assert ps.first_energy() == pytest.approx(e0, rel=1e-9)
+    _close(ps.gather_by_gid(("f",))["f"], f0, 1e-9, "f64 f")
+    ps = ParallelSimulation(*t_load(d), shape=(1, 1, 1), device="cpu")
+    assert ps.shard_engine == ("nlist" if kind == "c36" else "pallas")
+    assert ps.first_energy() == pytest.approx(e0, rel=1e-4)
+    _close(ps.gather_by_gid(("f",))["f"], f0, 3e-4, "f32 f")
+    ps.run(ps.chunk_steps)
+    assert int(ps.mask.sum()) == n and torch.isfinite(ps.f[ps.mask]).all()
 
 
 # ---------------------------------------------------------------------------

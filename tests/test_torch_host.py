@@ -422,3 +422,40 @@ def test_loadbalance_copy_equals_jax():
         return ast.dump(tree)
 
     assert body(tlb) == body(jlb)
+
+
+def test_voronoi_copy_equals_jax():
+    """The host half of parallel/voronoi.py (OFFSETS, SELF_IDX,
+    nominal_centers, beta_max, face_margins, clamp_centers, balance_step,
+    assign_host and their helper) is the JAX package's numpy, copied:
+    the same code statement for statement once the docstrings are set
+    aside (its results: tests/test_torch_mesh_voronoi.py).  The device
+    half (neighborhood_centers, dest_offsets) is torch and differs."""
+    import ast
+
+    from ddcmd_tpu.parallel import voronoi as jvor
+    from ddcmd_tpu_torch.parallel import voronoi as tvor
+
+    host = {"OFFSETS", "SELF_IDX", "nominal_centers", "beta_max",
+            "_wrap_delta", "face_margins", "clamp_centers", "balance_step",
+            "assign_host"}
+
+    def body(mod):
+        with open(mod.__file__) as f:
+            tree = ast.parse(f.read())
+        out = {}
+        for node in tree.body:
+            name = (node.name if isinstance(node, ast.FunctionDef) else
+                    node.targets[0].id if isinstance(node, ast.Assign)
+                    else None)
+            if name not in host:
+                continue
+            if isinstance(node, ast.FunctionDef) and node.body and \
+                    isinstance(node.body[0], ast.Expr) and \
+                    isinstance(node.body[0].value, ast.Constant):
+                node.body = node.body[1:]
+            out[name] = ast.dump(node)
+        return out
+
+    t, j = body(tvor), body(jvor)
+    assert set(t) == host and t == j

@@ -171,11 +171,12 @@ def test_device_defaults_to_cuda(tmp_path, monkeypatch):
                          "tauBarostat=1ps;"), "barostat"),
 ], ids=["edit0-load balance", "edit1-barostat"])
 def test_unported_mesh_features_raise(tmp_path, edit, what):
-    """VORONOI load balance under the mesh raises naming its ROADMAP item
-    (ZRAMP, TENSOR and BISECTION run: tests/test_torch_mesh_walls.py).
-    The barostat, refused here before the NPT chunk was ported, now
-    builds: the NPT water deck carries its barostat into the mesh
-    step."""
+    """Both deck features once refused here now build.  VORONOI load
+    balance takes the brick list engine; at (1,1,1) its first energy and
+    forces match the JAX package's f64 Simulation (energy 2e-5
+    relative, forces 2e-5 of the scale) and it runs a chunk (the (2,2,2)
+    domains: tests/test_torch_mesh_voronoi.py).  The barostat, refused
+    before the NPT chunk was ported, carries into the mesh step."""
     d = str(tmp_path)
     martini_water(d, n=400)
     p = os.path.join(d, "object.data")
@@ -185,10 +186,19 @@ def test_unported_mesh_features_raise(tmp_path, edit, what):
     assert new != text
     with open(p, "w") as f:
         f.write(new)
+    ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
     if what == "barostat":
-        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
         assert ps.barostat is not None and ps.step_fn.barostat is not None
         assert ps.barostat["n_molecules"] == 400      # single-bead waters
         return
-    with pytest.raises(NotImplementedError, match=what):
-        ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
+    assert ps.shard_engine == "nlist" and ps.plan.voronoi is not None
+    sim = JSimulation(*j_load(d), run_dir=d, engine="nlist",
+                      dtype=jnp.float64)
+    sim.first_energy()
+    f0 = np.asarray(sim.ss.state.f[:400], np.float64)
+    e = ps.first_energy()
+    assert e == pytest.approx(float(sim.ss.energy.eion), rel=2e-5)
+    f = ps.gather_by_gid(("f",))["f"]
+    assert np.abs(f - f0).max() <= 2e-5 * np.abs(f0).max()
+    ps.run(ps.chunk_steps)
+    assert int(ps.mask.sum()) == 400 and torch.isfinite(ps.f).all()

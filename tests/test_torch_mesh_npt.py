@@ -1,8 +1,8 @@
 """The NPT chunk of the port's brick mesh on a small Martini bilayer
 (nx = 4, 528 beads, one (1,1,1) brick on the CPU): the generic
 constraint path against the template one, the host's rollback of a
-flagged dispatch (box and virial diagonal included), and the refusal of
-exclusion graphs wider than the in-kernel encoding."""
+flagged dispatch (box and virial diagonal included), and an exclusion
+graph wider than the in-kernel encoding on the brick list engine."""
 
 from types import SimpleNamespace
 
@@ -84,15 +84,39 @@ def test_npt_overflow_rolls_back_box_and_redistributes(small_deck,
 
 
 def test_wide_exclusion_component_raises(tmp_path, monkeypatch):
-    """An exclusion component wider than the 12 members the in-kernel
-    channels encode raises under the mesh naming ROADMAP item 25 (the
-    brick list engine): the port never computes and subtracts excluded
-    pairs."""
+    """An exclusion component wider than the in-kernel channels encode
+    (here wider than 4, patched) no longer raises: the engine pick sends
+    the deck to the brick list engine, which masks the excluded pairs by
+    gid.  In f64 its first energy and forces match the JAX package's f64
+    Simulation on its list engine (1e-10 relative, 1e-10 of the force
+    scale); in f32 it runs an NPT chunk keeping every bead."""
+    import numpy as np
+
+    import jax.numpy as jnp
+
+    from ddcmd_tpu.models import load as j_load
+    from ddcmd_tpu.run.simulate import Simulation as JSimulation
     from ddcmd_tpu_torch.run import forces
 
     d = str(tmp_path)
     martini_bilayer(d, nx=2, ny=2, water_nm=1.2)
     monkeypatch.setattr(forces, "EXCL_MAX_MEMBERS", 4)
-    with pytest.raises(NotImplementedError,
-                       match="exclusion component(.|\n)*item 25"):
-        ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
+    sim = JSimulation(*j_load(d), run_dir=d, engine="nlist",
+                      dtype=jnp.float64)
+    sim.first_energy()
+    n = sim.sysdef.state.n_local
+    f0 = np.asarray(sim.ss.state.f[:n], np.float64)
+    e0 = float(sim.ss.energy.eion)
+    ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu",
+                            dtype=torch.float64)
+    assert ps.shard_engine == "nlist" and ps._wide > 4
+    assert ps._excl_vals is None and "exgid" in ps.fields
+    e = ps.first_energy()
+    assert abs(e - e0) <= 1e-10 * abs(e0)
+    f = ps.gather_by_gid(("f",))["f"]
+    assert np.abs(f - f0).max() <= 1e-10 * np.abs(f0).max()
+    ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
+    assert ps.barostat is not None and ps.shard_engine == "nlist"
+    ps.run(ps.chunk_steps)
+    assert ps.loop == ps.chunk_steps and int(ps.mask.sum()) == n
+    assert torch.isfinite(ps.f[ps.mask]).all()

@@ -8,8 +8,9 @@ and asymmetric pairs; the engine choice; the slice: Simulation(engine="nlist") o
 configurations (A) (EAM + ORDERSH) and (B) (the TableFunction fluid), a
 PAIRENERGY deck, a bilayer with a widened exclusion graph and an EAM
 crystal with pbc = 3 against
-JAX's Simulation(engine="nlist"); the mesh's refusals (item 25) and the
-JAX mesh dropping ORDERSH beside EAM.
+JAX's Simulation(engine="nlist"); under the mesh, the refusal of ORDERSH
+and PAIRENERGY (item 25; the JAX mesh drops ORDERSH beside EAM) and the
+table and widened decks on the brick list engine.
 
 Tolerances: the lists bit for bit; the f64 slice's first energy rel
 1e-10, forces 1e-9 of the force scale, virial rel 1e-9 (abs 1e-9 of its
@@ -319,17 +320,38 @@ def test_slice_matches_jax_nlist(tmp_path, kind):
 ])
 def test_mesh_refuses_list_decks(tmp_path, kind, what):
     """ParallelSimulation at (1,1,1) refuses by name, naming item 25, a
-    deck with ORDERSH or PAIRENERGY beside its EAM term, a TableFunction
-    PAIR deck and a bilayer whose exclusion graph is wider than the
-    in-kernel encoding: each needs the brick list engine (the JAX
-    package's make_brick_step).  It never drops a term."""
+    deck with ORDERSH or PAIRENERGY beside its EAM term (the JAX mesh
+    drops such terms; the port never drops a term).  The TableFunction
+    PAIR deck and the bilayer whose exclusion graph is wider than the
+    in-kernel encoding, once refused here, run on the brick list engine:
+    in f64 their first energy and forces match the JAX package's f64
+    Simulation on its list engine (rel 1e-10, 1e-10 of the scale), and
+    in f32 they run a chunk."""
     from ddcmd_tpu_torch.run import parallel_sim as tps
 
     d = _deck(tmp_path, kind)
-    with chip_smoke.widened(*((tps,) if kind == "bilayer" else ())):
+    if kind in ("A", "pairenergy"):
         with pytest.raises(NotImplementedError,
                            match=f"{what}(.|\n)*item 25"):
             ParallelSimulation(*t_load(d), shape=(1, 1, 1), device="cpu")
+        return
+    with chip_smoke.widened(*((tps, jsim) if kind == "bilayer" else ())):
+        js = jsim.Simulation(*j_load(d), run_dir=d, engine="nlist",
+                             dtype=jnp.float64)
+        js.first_energy()
+        n = js.sysdef.state.n_local
+        f0 = np.asarray(js.ss.state.f[:n], np.float64)
+        e0 = float(js.ss.energy.eion)
+        ps = ParallelSimulation(*t_load(d), shape=(1, 1, 1), device="cpu",
+                                dtype=torch.float64)
+        assert ps.shard_engine == "nlist"
+        assert ps.first_energy() == pytest.approx(e0, rel=1e-10)
+        f = ps.gather_by_gid(("f",))["f"]
+        assert np.abs(f - f0).max() <= 1e-10 * np.abs(f0).max()
+        ps = ParallelSimulation(*t_load(d), shape=(1, 1, 1), device="cpu")
+        assert ps.shard_engine == "nlist"
+        ps.run(ps.chunk_steps)
+    assert int(ps.mask.sum()) == n and torch.isfinite(ps.f[ps.mask]).all()
 
 
 def test_jax_mesh_drops_ordersh(tmp_path):

@@ -223,14 +223,33 @@ def test_table_function_raises(tmp_path, driver):
     """A TableFunction PAIR deck raises under auto and on the cell
     engines, naming engine="nlist" (the JAX package evaluates the table
     only on its (N,K)-list engine; its cell engines compute no pair force
-    for it), and under the mesh, naming item 25 (the brick list
-    engine)."""
+    for it).  Under the mesh it runs on the brick list engine through
+    pair_lj: in f64 its first energy and forces equal the JAX mesh's
+    (its make_brick_step "pairtab" path) to 1e-12, and in f32 it runs a
+    chunk."""
     d = str(tmp_path)
     lj_fluid(d, n=64, table=True)
     if driver == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="TableFunction.*item 25"):
-            ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
+        from ddcmd_tpu.run.parallel_sim import \
+            ParallelSimulation as JParallelSimulation
+
+        jps = JParallelSimulation(*j_load(d), shape=(1, 1, 1),
+                                  dtype=jnp.float64)
+        assert jps.force_kind == "pairtab" and jps.shard_engine == "nlist"
+        je = jps.first_energy()
+        m = np.asarray(jps.mask)
+        jf = np.zeros((64, 3))
+        jf[np.asarray(jps.fields["gid"])[m][:, 0].astype(np.int64)] = \
+            np.asarray(jps.f)[m]
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu",
+                                dtype=torch.float64)
+        assert ps.force_kind == "pairtab" and ps.shard_engine == "nlist"
+        assert abs(ps.first_energy() - je) <= 1e-12 * abs(je)
+        f = ps.gather_by_gid(("f",))["f"]
+        assert np.abs(f - jf).max() <= 1e-12 * np.abs(jf).max()
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
+        ps.run(ps.chunk_steps)
+        assert int(ps.mask.sum()) == 64 and torch.isfinite(ps.f).all()
         return
     with pytest.raises(NotImplementedError,
                        match='TableFunction.*engine="nlist"'):

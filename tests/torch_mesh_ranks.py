@@ -429,3 +429,158 @@ def seam_migrate(rank, shape, walls, r, L, rlist, row, x_new, out):
     ov = BrickMesh(shape, "cpu").psum(ov.to(torch.float32).reshape(1))
     np.savez(f"{out}_{rank}.npz", ov=bool(ov[0] > 0),
              own=cur["gid"][m2].numpy())
+
+
+# -- the brick (N,K)-list engine ---------------------------------------------
+
+def list_bricks(rank, spec, shape, dtype, out, move=None):
+    """The dry run's brick legs on parallel/brickstep.BrickStepList: the
+    system in the npz `spec` (r, v, q, mass, species, group, gid, the LJ
+    and RF tables, L, rcut, skin; with `bonds` the dimers' bonds and
+    constraints, gid-keyed, and hgid) on a mesh of `shape` in `dtype`:
+    first forces gathered by gid, energy, overflow, then one step and one
+    migration (their overflows, every owned gid after it).  move: (gid,
+    x) sets that particle's x on its owner after the distribution, as if
+    it had drifted there since the last migration."""
+    from ddcmd_tpu_torch.core.groups import Group, GroupTable
+    from ddcmd_tpu_torch.nbr.celllist import CellGrid
+    from ddcmd_tpu_torch.parallel.brick import BrickPlan, distribute_bricks
+    from ddcmd_tpu_torch.parallel.brickstep import BrickStepList
+    from ddcmd_tpu_torch.parallel.mesh import BrickMesh
+
+    z = dict(np.load(spec))
+    dt_ = getattr(torch, dtype)
+    n, L = len(z["r"]), float(z["L"])
+    rcut, skin = float(z["rcut"]), float(z["skin"])
+    n_dev = int(np.prod(shape))
+    plan = BrickPlan(shape=shape, local_cap=8 * n // n_dev,
+                     halo_cap=4 * n // n_dev, migrate_cap=256,
+                     rlist=rcut + skin)
+    grid = CellGrid.plan([L] * 3, rcut, skin, n,
+                         plan.local_cap + plan.ghost_cap)
+    mesh = BrickMesh(shape, "cpu")
+    tables = {k: torch.as_tensor(z[k], dtype=dt_)
+              for k in ("sigma", "eps", "shift")}
+    tables.update({k: float(z[k]) for k in ("rcut2", "krf", "crf", "keR")})
+    coeffs = GroupTable.build([Group("free", 0, "LANGEVIN",
+                                     Teq=lambda t: 310.0, tau=1.0)]
+                              ).coefficients(0.0, 0.01, dtype=dt_)
+    keys = ["r", "v", "q", "mass", "species", "group", "gid"] + (
+        ["hgid"] if "hgid" in z else [])
+    arrays = {k: (z[k].astype(np.float64 if dtype == "float64"
+                              else np.float32)
+                  if k in ("r", "v", "q", "mass") else z[k]) for k in keys}
+    buf, mask, _ = distribute_bricks(arrays, [L] * 3, plan)
+    rows = slice(rank * plan.local_cap, (rank + 1) * plan.local_cap)
+    fields = {k: torch.as_tensor(v[rows]) for k, v in buf.items()}
+    mask = torch.as_tensor(mask[rows])
+    if move is not None:
+        hit = torch.nonzero(mask & (fields["gid"] == move[0])).reshape(-1)
+        fields["r"][hit, 0] = move[1]
+    kw = {}
+    if "bonds" in z:
+        from ddcmd_tpu_torch.parallel.bonded_shard import (
+            constraint_gid_tables, mesh_bonded_plan)
+        from ddcmd_tpu_torch.potentials.bonded import (BondedTerms,
+                                                       device_bonded_tables)
+
+        bt = BondedTerms(bonds=z["bonds"], bond_parms=z["bond_parms"])
+        bplan, left = mesh_bonded_plan(device_bonded_tables(bt, dt_), None, n,
+                                       z["gid"], "cpu", dt_)
+        bt.cons_atoms, bt.cons_pairs = z["bonds"].copy(), z["cons_pairs"]
+        bt.cons_dist, bt.n_constraints = z["cons_dist"], len(z["bonds"])
+        kw = dict(bonded_plan=bplan, bonded_left=left,
+                  cons_tables=constraint_gid_tables(bt, z["gid"]))
+    st = BrickStepList(mesh, plan, grid, tables, coeffs, 0.02, [L] * 3,
+                       np.array([0, 1]), 0, 1, force_kind="martini",
+                       dtype=dt_, **kw)
+    f, e, virial, ov = st.first_forces(fields, mask)
+    m = mesh.all_gather(mask.to(torch.int64)).reshape(-1).bool()
+    g = mesh.all_gather(fields["gid"]).reshape(-1)[m].numpy()
+    fa = mesh.all_gather(f).reshape(-1, 3)[m].numpy()
+    order = np.argsort(z["gid"], kind="stable")
+    f_gid = np.zeros((n, 3), fa.dtype)
+    f_gid[order[np.searchsorted(z["gid"], g, sorter=order)]] = fa
+    fields2, f2, scal, ov_s = st.step(fields, mask, f, 0)
+    fields3, mask3, _, ov_m = st.migrate(fields2, mask, f2)
+    m3 = mesh.all_gather(mask3.to(torch.int64)).reshape(-1).bool()
+    g3 = mesh.all_gather(fields3["gid"]).reshape(-1)[m3].numpy()
+    if rank == 0:
+        np.savez(out, e=float(e), f=f_gid, ov=bool(ov), ov_s=bool(ov_s),
+                 ov_m=bool(ov_m), gids=g3, e_step=float(scal[0]),
+                 finite=bool(torch.isfinite(f2[mask]).all()),
+                 fmax=float(np.linalg.norm(fa, axis=1).max()))
+
+
+def mesh_forces(rank, deck_dir, shape, out, engine=None, dtype="float32",
+                steps=0, lb_first=False):
+    """The mesh of a deck on the engine DDCMD_SHARD_ENGINE=`engine` forces
+    (None: the pick) in `dtype`, after one rebalance when `lb_first`:
+    first forces gathered by gid, energy, virial, the engine, the first
+    energy's wall time, then `steps` steps (finite forces, every owned
+    gid mesh-wide)."""
+    if engine is not None:
+        os.environ["DDCMD_SHARD_ENGINE"] = engine
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    ps = ParallelSimulation(*load(deck_dir), shape=shape, device="cpu",
+                            dtype=getattr(torch, dtype))
+    if lb_first:
+        ps.rebalance()
+    t0 = time.perf_counter()
+    ps.f, e, virial, ov = ps.step_fn.first_forces(ps.fields, ps.mask)
+    seconds = time.perf_counter() - t0
+    g = ps.gather_by_gid(("f",))
+    ps.vird = torch.diagonal(virial).clone()
+    extra = {}
+    if steps:
+        ps.run(steps)
+        extra = dict(gids=_owned_gids(ps), loop=ps.loop,
+                     n_rebalance=ps.n_rebalance,
+                     finite=bool(torch.isfinite(ps.f[ps.mask]).all()))
+    if ps.plan.voronoi is not None:
+        extra.update(centers=ps.plan.voronoi["centers"],
+                     margins=ps.plan.voronoi["margins"])
+    if rank == 0:
+        np.savez(out, e=float(e), virial=virial.numpy(), ov=bool(ov),
+                 f=g["f"], engine=ps.shard_engine, seconds=seconds, **extra)
+
+
+def voronoi_halo(rank, deck_dir, shape, out):
+    """After one rebalance of a VORONOI deck: each rank's owned and ghost
+    gids from the list engine's staged halo (<out>_<rank>.npz), and on
+    rank 0 the gathered positions, the centres and the margins."""
+    from ddcmd_tpu_torch.parallel.brick import halo_exchange_3d
+
+    ps = _psim(deck_dir, shape)
+    ps.rebalance()
+    gh, gm, ov, _ = halo_exchange_3d(
+        {"r": ps.fields["r"], "gid": ps.fields["gid"]}, ps.mask, ps.Lv,
+        ps.plan, ps.mesh, centred=True)
+    np.savez(f"{out}_{rank}.npz", ghost=gh["gid"][gm].numpy(),
+             own=ps.fields["gid"][ps.mask].numpy(), ov=bool(ov))
+    r = ps.gather_by_gid(("r",))["r"]
+    if rank == 0:
+        np.savez(out, r=r, centers=ps.plan.voronoi["centers"],
+                 margins=ps.plan.voronoi["margins"], L=ps._live_L(),
+                 rlist=ps.plan.rlist)
+
+
+def voronoi_checkpoint(rank, deck_dir, shape, run_dir, out, restart=None):
+    """A VORONOI mesh: without `restart` one rebalance then a checkpoint
+    into run_dir; with it, the mesh from that restart.  Its centres,
+    margins and first energy (and the snapshot directory)."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    ps = ParallelSimulation(*load(deck_dir, restart=restart), shape=shape,
+                            device="cpu")
+    snap = ""
+    if restart is None:
+        ps.rebalance()
+        snap = ps.write_checkpoint(run_dir)
+    e = ps.first_energy()
+    if rank == 0:
+        np.savez(out, e=e, snap=snap, centers=ps.plan.voronoi["centers"],
+                 margins=ps.plan.voronoi["margins"])
