@@ -4,7 +4,7 @@
                            --integrators-only | --masters-only |
                            --transforms-only | --analyses-only |
                            --rebuilds-only | --loadbalance-only |
-                           --listmesh-only]
+                           --listmesh-only | --triclinic-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -108,9 +108,9 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      against Simulation's): mean T and the box gated, mean P printed;
  16. the plain cell-block engine, which launches no kernel: (a) the
      4,096-atom fluid's first energy and forces against the kernels' on
-     the same state; (b) a pbc = 3 REFLECT slab of 4,096 atoms, 2000 f32
+     the same state; (b) a pbc = 3 REFLECT slab of 4,096 atoms, 1000 f32
      steps, every atom within the walls; (c) a monoclinic box (tilt 0.2)
-     of 13,824 atoms, 1000 steps in f32 and in f64, their first energies
+     of 13,824 atoms, 250 steps in f32 and in f64, their first energies
      against each other, the NVE drift printed; (d) small slab and
      triclinic runs on the card against the same runs on the CPU;
  17. tabulated EAM (tabular_eam_deck samples the crystal's three FIT
@@ -123,7 +123,7 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      the RATIONAL deck's, and at nc = 32 through the mesh at (1,1,1) (#7,
      first energy against Simulation's); (d) the unfitted nc = 32 TABULAR
      deck on the plain cell-block EAM engine (no kernel), its first
-     energy and forces against the RATIONAL deck's kernels', 100 steps
+     energy and forces against the RATIONAL deck's kernels', 20 steps
      with the peak memory; small triclinic, f64 and five-species EAM
      decks on the card against the CPU.  The refit runs print steps/s,
      the busy share and CUDA kernels a step of a profiled window;
@@ -288,6 +288,26 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      owned rows with the excluded partners dropped, martini_nonbond)
      with its halo filled from the host, against Simulation's pair term;
      (e) the 400-bead water box on the list engine, card against CPU.
+ 27. triclinic bricks and the 1-D slab engine (ROADMAP item 25, the last
+     of what the JAX mesh has; plain PyTorch, no kernel launched): (a)
+     the water box with its b vector tilted by TRI_TILT L (same
+     fractions, same density) through ParallelSimulation at (1,1,1) on
+     the list engine, first energy and forces against
+     Simulation(engine="nlist"), TRI_STEPS LANGEVIN steps with the mean T
+     over the last TRI_TAIL, steps/s over the last TRI_SIM_STEPS beside
+     Simulation's list engine restarted from the same state; (b)
+     phase 25's zRamp bilayer tilted the same way, its bricks under a
+     uniform, a ZRAMP and a VORONOI (2,2,2) plan (one balance_step)
+     through the list engine's per-rank functions, halos filled from the
+     host and windows in the fraction, against Simulation's list pair
+     term; (c) the NPT water deck tilted, in f64, TRI_STEPS steps
+     through the mesh at (1,1,1): first energy against Simulation's, the
+     box within 20%, the tilt ratio h01 / h00 kept, the mean T; (d) the
+     water box in SLAB_N x-slabs, uniform and between ZRAMP walls,
+     through the slab step's per-rank forces (parallel/step.pool_forces)
+     with host halos against the single-device list, then SLAB_STEPS f64
+     steps of make_sharded_step at one slab on the same box, FREE, the
+     first SLAB_CMP of them against Simulation's list engine.
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -298,7 +318,8 @@ result; --charmm-only does the same with phase 19, --integrators-only
 with phase 20, --masters-only with phase 21 (making the bilayer's restart
 as phase 6's first stage does), --transforms-only with phase 22,
 --analyses-only with phase 23, --rebuilds-only with phase 24,
---loadbalance-only with phase 25, --listmesh-only with phase 26.
+--loadbalance-only with phase 25, --listmesh-only with phase 26,
+--triclinic-only with phase 27.
 """
 
 import contextlib
@@ -339,7 +360,7 @@ TAB_R_ROWS, TAB_RHO_ROWS, TAB_RHO_MAX = 4000, 8000, 400.0
 # phase 17: the refit decks' steps through the CLI (nc = 12 and 32) and
 # the mesh, the unfitted TABULAR deck's on the cell-block EAM engine, the
 # steps of a busy-share window
-TAB_STEPS, MESH_TAB_STEPS, TAB_CB_STEPS, PROFILE_STEPS = 2000, 2000, 100, 10
+TAB_STEPS, MESH_TAB_STEPS, TAB_CB_STEPS, PROFILE_STEPS = 2000, 2000, 20, 10
 # the refit's first energy against the RATIONAL deck's, and the table
 # lookups' energy and forces (the JAX package's tests/test_eam.py
 # tolerances for tabularFit=rational and for tabular against analytic)
@@ -383,7 +404,7 @@ NPT_INTEGRATOR = ("type=NGLFCONSTRAINT; T=310.0K; P0=1.0 bar; "
 NPT_STEPS = 3000
 # the plain cell-block engine: the REFLECT slab's steps, the monoclinic
 # box's lattice edge (24^3 = 13,824 atoms) and steps
-CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 2000, 24, 500
+CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 1000, 24, 250
 # phase 18, the (N,K)-list engine: the ORDERSH bias of tests/test_eam.py:274
 # (beside the crystal's EAM term, config (A)) and the PAIRENERGY series of
 # tests/test_eam.py:236 (beside it in a card-vs-CPU case)
@@ -391,7 +412,7 @@ CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 2000, 24, 500
 # path of the script, runs NLIST_A_STEPS and reads T over its last
 # NLIST_A_TAIL (its LANGEVIN group, tau 0.1 ps, refills the crystal's
 # equipartition dip within ~200 steps)
-NLIST_STEPS, NLIST_TAIL = 500, 200
+NLIST_STEPS, NLIST_TAIL = 400, 200
 NLIST_A_STEPS, NLIST_A_TAIL = 300, 100
 # (b): (e rel, force over the scale) of the list engine against #5 (the
 # EAM gates), against #2, and of the table deck against the analytic deck
@@ -3863,13 +3884,14 @@ def box_edit(keywords):
 
 
 def tilt_edit(text, tilt=0.1):
-    """The deck's cubic box with its b vector tilted by tilt L in x."""
+    """The deck's orthorhombic box with its b vector tilted by tilt Lx in
+    x (the lengths kept)."""
     import re
 
     m = re.search(r"h= (\S+) 0 0 0 (\S+) 0 0 0 (\S+) ;", text)
-    L = float(m.group(1))
-    return text.replace(m.group(0), f"h= {L} {tilt * L:.6f} 0 0 {L} 0 0 0 "
-                        f"{L} ;")
+    Lx, Ly, Lz = (float(m.group(i)) for i in (1, 2, 3))
+    return text.replace(m.group(0), f"h= {Lx} {tilt * Lx:.6f} 0 0 {Ly} "
+                        f"0 0 0 {Lz} ;")
 
 
 def chain(*edits):
@@ -6267,8 +6289,8 @@ def loadbalance_phase(card, dev, counters_zero, all_counters, failed):
 # of bricks narrower than 2 rlist, every brick through the list engine's
 # per-rank functions with its halo filled from the host, against
 # Simulation's pair term; (e) a small list-mesh run, card against CPU
-LISTMESH_STEPS, LISTMESH_TAIL, LISTMESH_SIM_STEPS = 300, 100, 100
-LISTMESH_NVE_STEPS, LISTMESH_EAM_STEPS = 200, 200
+LISTMESH_STEPS, LISTMESH_TAIL, LISTMESH_SIM_STEPS = 300, 100, 50
+LISTMESH_NVE_STEPS, LISTMESH_EAM_STEPS = 100, 200
 # the first energy (relative) and forces (over the scale) of the mesh's
 # list engine against Simulation's on one state (both f32, other lists,
 # other summation orders): the list engine's f32 floors of phase 18
@@ -6294,7 +6316,8 @@ def list_bricks(a, owner, windows, dev):
     functions (BrickStepList._pool_list's list with n_rows, the excluded
     partners dropped by gid, martini_nonbond on the local rows), each
     brick's pool its owned rows (owner == b) and the rows within its halo
-    window (windows[b]: per axis (centre, half width + window) in nm),
+    window (windows[b]: per axis (centre, half width + window) in nm,
+    in the load-balance frame a["r_lb"] of a triclinic state a["h"]),
     filled from the host.  Returns (f (n, 3), e, brick sizes)."""
     from ddcmd_tpu_torch.nbr.celllist import CellGrid, build_neighbor_list
     from ddcmd_tpu_torch.parallel.brickstep import (BrickStepList,
@@ -6302,14 +6325,17 @@ def list_bricks(a, owner, windows, dev):
     from ddcmd_tpu_torch.potentials.martini import martini_nonbond
 
     n = len(a["r"])
-    L = a["L"]
+    # a triclinic state carries its h, and its positions and spans in the
+    # load-balance frame (the fraction scaled by the spans), where the
+    # windows are measured
+    spans, frame = a.get("spans", a["L"]), a.get("r_lb", a["r"])
     rt = torch.tensor(a["r"], dtype=torch.float32, device=dev)
-    Lv = torch.tensor(L, dtype=torch.float32, device=dev)
+    Lv = torch.tensor(a.get("h", a["L"]), dtype=torch.float32, device=dev)
     q, tidx = (torch.tensor(a[k], device=dev) for k in ("q", "tidx"))
     gid = torch.arange(n, device=dev)
     exgid = torch.as_tensor(exclusion_gids(a["exclusions"], np.arange(n), n),
                             device=dev)
-    grid = CellGrid.plan(L, a["rcut"], a["skin"], n, n, positions=a["r"])
+    grid = CellGrid.plan(spans, a["rcut"], a["skin"], n, n, positions=frame)
     f = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     e = torch.zeros((), dtype=torch.float32, device=dev)
     sizes = []
@@ -6317,8 +6343,8 @@ def list_bricks(a, owner, windows, dev):
         own = np.nonzero(owner == b)[0]
         near = np.ones(n, bool)
         for ax, (c, w) in enumerate(win):
-            x = a["r"][:, ax] - c
-            near &= np.abs(x - L[ax] * np.round(x / L[ax])) < w
+            x = frame[:, ax] - c
+            near &= np.abs(x - spans[ax] * np.round(x / spans[ax])) < w
         rows = torch.as_tensor(np.concatenate(
             [own, np.nonzero(near & (owner != b))[0]]), device=dev)
         r_pool, pool_gid = rt[rows], gid[rows]
@@ -6593,6 +6619,524 @@ def listmesh_phase(card, dev, counters_zero, all_counters, failed):
           f"{time.perf_counter() - T_START:.0f} s on {card}")
 
 
+# --- phase 27 (item 25, the last of the JAX mesh): triclinic bricks and --
+# the 1-D slab engine (plain PyTorch, no kernel).  (a) the water box with
+# its b vector tilted by TRI_TILT L (same fractions, same density) through
+# ParallelSimulation at (1,1,1) on the list engine: its first energy and
+# forces against Simulation(engine="nlist"), TRI_STEPS steps with the mean
+# T over the last TRI_TAIL, steps/s over the last TRI_SIM_STEPS beside
+# Simulation's list engine restarted from the mesh's checkpoint there; (b)
+# phase 25's zRamp bilayer tilted the same way, its bricks under a uniform,
+# a ZRAMP and a VORONOI (2,2,2) plan (one balance_step) through the list
+# engine's per-rank functions, halos from the host, windows in the
+# fraction, against Simulation's pair term on the list engine; (c) the
+# NPT water deck tilted, TRI_STEPS steps through the mesh in f64: the
+# box, the tilt ratio, the mean T; (d) the water box in SLAB_N
+# x-slabs, uniform and between ZRAMP walls, through the slab step's
+# per-rank forces (parallel/step.pool_forces) with host halos against the
+# single-device list, then SLAB_STEPS steps of make_sharded_step at one
+# slab in f64 on the same box, FREE, the first SLAB_CMP against
+# Simulation's list engine
+TRI_TILT = 0.2
+TRI_STEPS, TRI_TAIL, TRI_SIM_STEPS = 1000, 500, 200
+# (a), (c): the mesh's first energy (relative) and forces (of the scale)
+# against Simulation's on one state; (b): the bricks against Simulation's
+# pair term; (c): the tilt ratio h01 / h00 against its start
+TRI_E_REL, TRI_F_TOL = 2e-5, 1e-5
+TRI_BRICK_F_TOL, TRI_BRICK_E_REL = 2e-5, 1e-6
+TRI_RATIO_REL = 1e-6
+# (d): SLAB_N slabs, forces over the scale of the single-device list; one
+# slab SLAB_STEPS steps, its first SLAB_CMP (one migration) against
+# Simulation's in f64 (an f32 pair of runs parts by ~2e-2 nm in 200 steps
+# of a water box: the dynamics is chaotic)
+SLAB_N, SLAB_F_TOL, SLAB_STEPS, SLAB_CMP, SLAB_DR = 4, 1e-5, 200, 20, 1e-5
+
+
+def tilt_deck(d, tilt=TRI_TILT):
+    """Tilt the deck in d: its BOX's b vector by tilt Lx in x (tilt_edit)
+    and every position of atoms#000000 with it, x' = x + tilt (Lx / Ly) y
+    (the same fractions, the same density); the file header's h too."""
+    import re
+
+    p = os.path.join(d, "object.data")
+    with open(p) as f:
+        text = f.read()
+    m = re.search(r"h= (\S+) 0 0 0 (\S+) 0 0 0 (\S+) ;", text)
+    k = tilt * float(m.group(1)) / float(m.group(2))
+    with open(p, "w") as f:
+        f.write(tilt_edit(text, tilt))
+    a = os.path.join(d, "atoms#000000")
+    with open(a) as f:
+        head, body = f.read().split("}\n", 1)
+    names = re.search(r"field_names=([^;]*);", head).group(1).split()
+    ix, iy = names.index("rx"), names.index("ry")
+    hm = re.search(r"h= (.*?) ;", head)
+    h = [float(x) for x in hm.group(1).split()]
+    h[1] = tilt * h[0]
+    head = head.replace(hm.group(0), "h= " + " ".join(
+        f"{x:.6f}" for x in h) + " ;")
+    rows = []
+    for line in body.split("\n"):
+        tok = line.split()
+        if len(tok) == len(names):
+            tok[ix] = f"{float(tok[ix]) + k * float(tok[iy]):.8f}"
+            line = " ".join(tok)
+        rows.append(line)
+    with open(a, "w") as f:
+        f.write(head + "}\n" + "\n".join(rows))
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tilted_bilayer_arrays(d, dev):
+    """(b): phase 25's zRamp bilayer (LB_BILAYER) tilted by TRI_TILT: its
+    start state on the host with the h, the perpendicular spans and the
+    positions of the load-balance frame (the fraction scaled by the
+    spans), its exclusions, and Simulation's pair term on it (the list
+    engine, f32 and f64: the forces, the energy)."""
+    from ddcmd_tpu_torch.core.system import build_system
+    from ddcmd_tpu_torch.models import load, martini_bilayer
+    from ddcmd_tpu_torch.potentials.martini import martini_device_tables
+    from ddcmd_tpu_torch.run.parallel_sim import lb_frame
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    martini_bilayer(d, **LB_BILAYER)
+    tilt_deck(d)
+    sd = build_system(load(d)[0], d)
+    n = sd.state.n_local
+    parms = sd.potentials[0][2]
+    h = sd.box.h.numpy().astype(np.float64)
+    r = sd.state.r[:n].numpy()
+    spans, r_lb = lb_frame(h, r)
+    a = dict(r=r, q=sd.state.q[:n].numpy(), h=h, L=np.diagonal(h).copy(),
+             spans=spans, r_lb=r_lb,
+             tidx=parms.species_lj_type[sd.state.species[:n].numpy()],
+             exclusions=sd.bonded.exclusions, rcut=sd.rcut_max,
+             skin=sd.neighbor_deltaR, rlist=sd.rcut_max + sd.neighbor_deltaR,
+             tables=martini_device_tables(parms, device=dev))
+    # the reference: Simulation's list engine in f32, the bricks'
+    # arithmetic; and in f64, against which both f32 list evaluations of
+    # this tilted state sit ~2.2e-5 of the force scale off (the h's
+    # minimum image in f32)
+    for key, dtype in (("", torch.float32), ("_f64", torch.float64)):
+        sim = Simulation(*load(d), run_dir=d, device=dev, engine="nlist",
+                         dtype=dtype)
+        ss, handle, ov = sim._build_nbr(sim.ss)
+        assert not bool(ov)
+        fr, er, _, _ = sim.force_fn.terms[0](ss.state, ss.box, handle)
+        a.update({f"f_ref{key}": fr[:n].double(), f"e_ref{key}": float(er)})
+    a["engine"] = sim.engine
+    return a
+
+
+def tilted_plans(a, shape=(2, 2, 2)):
+    """(b): [(name, owner per row, windows per brick)] of a uniform, a
+    ZRAMP and a VORONOI plan of the tilted state `a`, windows per axis
+    (centre, half width + rlist (+ the Voronoi margin)) in the
+    load-balance frame, the owners as ParallelSimulation assigns them."""
+    from ddcmd_tpu_torch.parallel import voronoi as vor
+    from ddcmd_tpu_torch.parallel.loadbalance import walls_assign
+
+    S, rl = a["spans"], a["rlist"]
+    fr = a["r_lb"] / S + 0.5
+    fr = fr - np.floor(fr)
+    ravel = np.ravel_multi_index
+    bricks = list(np.ndindex(*shape))
+    out = []
+    walls = lb_walls("ZRAMP", a["r_lb"], S, shape, rl)
+    for name, w in (("uniform", None), ("ZRAMP", walls)):
+        if w is None:
+            cj = [np.clip(np.floor(fr[:, ax] * shape[ax]).astype(int), 0,
+                          shape[ax] - 1) for ax in range(3)]
+            w = [np.linspace(0.0, 1.0, n + 1) for n in shape]
+        else:
+            cj = walls_assign(fr, w, shape)
+        owner = ravel(tuple(cj), shape)
+        windows = [[((w[ax][i3[ax]] + w[ax][i3[ax] + 1] - 1.0) / 2 * S[ax],
+                     (w[ax][i3[ax] + 1] - w[ax][i3[ax]]) / 2 * S[ax] + rl)
+                    for ax in range(3)] for i3 in bricks]
+        out.append((f"{name} {shape}", owner, windows))
+    c0 = vor.nominal_centers(S, shape)
+    centers, margins = vor.balance_step(c0, a["r_lb"].astype(np.float64), S,
+                                        shape, rl)
+    out.append((f"VORONOI {shape} after one balance_step (margins "
+                f"{np.round(margins, 3).tolist()} nm)",
+                vor.assign_host(a["r_lb"], centers, S, shape),
+                [[(c0[i3][ax], S[ax] / shape[ax] / 2 + rl + margins[ax])
+                  for ax in range(3)] for i3 in bricks]))
+    return out
+
+
+def slab_rows(a, plan):
+    """(d): [(owned rows, ghost rows)] of each slab of `plan` over the
+    water state `a`: the owners distribute gives; the ghosts the rows that
+    parallel/slab.halo_exchange ships to the slab, by its send_masks, the
+    -1 neighbour's toward it first, then the +1 neighbour's."""
+    from ddcmd_tpu_torch.parallel.slab import (distribute, send_masks,
+                                               slab_bounds)
+
+    n, Lx, k = len(a["r"]), float(a["L"][0]), plan.n_dev
+    buf, _, counts = distribute({"r": a["r"], "i": np.arange(n)}, Lx, plan)
+    own = [buf["i"][s * plan.local_cap:s * plan.local_cap + counts[s]]
+           for s in range(k)]
+    ships = []
+    for s in range(k):
+        lo, hi = send_masks(torch.as_tensor(a["r"][own[s], 0]),
+                            torch.ones(len(own[s]), dtype=torch.bool), Lx,
+                            plan, s)
+        ships.append((own[s][lo.numpy()], own[s][hi.numpy()]))
+    out = []
+    for s in range(k):
+        ghost = np.concatenate([ships[(s - 1) % k][1], ships[(s + 1) % k][0]])
+        # a slab's halo is the rows within rlist of its faces (the wrapped
+        # distance from its centre under half its width + rlist), not the
+        # rest of the box
+        lo, hi = slab_bounds(Lx, k, s, plan.walls)
+        d = a["r"][ghost, 0] - 0.5 * (lo + hi)
+        d = np.abs(d - Lx * np.round(d / Lx))
+        assert (d < 0.5 * (hi - lo) + plan.rlist + 1e-5).all(), f"slab {s}"
+        assert len(ghost) < n - len(own[s]), (
+            f"slab {s}: {len(ghost)} ghosts of {n - len(own[s])} rows")
+        out.append((own[s], ghost))
+    return out
+
+
+def slab_phase_forces(a, plan, dev):
+    """(d): every slab of `plan` through parallel/step.pool_forces with its
+    halo filled from the host: (forces by row, e, [(owned, ghosts)])."""
+    from ddcmd_tpu_torch.nbr.celllist import CellGrid
+    from ddcmd_tpu_torch.parallel.step import pool_forces
+
+    n = len(a["r"])
+    rt = torch.tensor(a["r"], dtype=torch.float32, device=dev)
+    q = torch.tensor(a["q"], dtype=torch.float32, device=dev)
+    sp = torch.tensor(a["species"], device=dev)
+    tmap = torch.tensor(a["tmap"], device=dev)
+    Lv = torch.tensor(a["L"], dtype=torch.float32, device=dev)
+    grid = CellGrid.plan(a["L"], a["rcut"], a["skin"], n, n,
+                         positions=a["r"])
+    f = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    e = torch.zeros((), dtype=torch.float32, device=dev)
+    sizes = []
+    for own, ghost in slab_rows(a, plan):
+        rows = torch.as_tensor(np.concatenate([own, ghost]), device=dev)
+        m = torch.ones(len(own), dtype=torch.bool, device=dev)
+        gm = torch.ones(len(ghost), dtype=torch.bool, device=dev)
+        fs, es, _, _, ov = pool_forces(rt[rows], q[rows], sp[rows], m, gm, Lv,
+                                       grid, a["tables"], tmap)
+        assert not bool(ov), "list overflow in a slab"
+        f[rows[:len(own)]] = fs
+        e = e + es
+        sizes.append((len(own), len(ghost)))
+    return f, e, sizes
+
+
+def slab_run(d, where, steps, snap=SLAB_CMP):
+    """(d): the deck in d (the water box, FREE) through make_sharded_step
+    at one slab in f64 on `where`, `steps` steps with a migration every
+    updateRate: (positions by gid after `snap` steps, the box, the first
+    energy, [e_pot, rk, tr virial] after `snap` steps and after the last,
+    any overflow, steps/s)."""
+    from ddcmd_tpu_torch.core.system import build_system
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.nbr.celllist import CellGrid
+    from ddcmd_tpu_torch.parallel.slab import SlabPlan, collect, distribute
+    from ddcmd_tpu_torch.parallel.step import make_mesh, make_sharded_step
+    from ddcmd_tpu_torch.potentials.martini import martini_device_tables
+
+    f64 = torch.float64
+    sd = build_system(load(d)[0], d, dtype=f64)
+    n = sd.state.n_local
+    parms = sd.potentials[0][2]
+    L = sd.box.lengths.numpy().astype(np.float64)
+    plan = SlabPlan(n_dev=1, local_cap=n, halo_cap=8, migrate_cap=8,
+                    rlist=sd.rcut_max + sd.neighbor_deltaR)
+    step, first, migrate = make_sharded_step(
+        make_mesh(1, where), plan,
+        CellGrid.plan(L, sd.rcut_max, sd.neighbor_deltaR, n, n),
+        martini_device_tables(parms, dtype=f64, device=where),
+        sd.group_table.coefficients(0.0, 0.5 * sd.cfg.dt, dtype=f64,
+                                    device=where),
+        sd.cfg.dt, L, parms.species_lj_type, n, seed=sd.random_seed)
+    arrays = {k: getattr(sd.state, k)[:n].numpy()
+              for k in ("r", "v", "q", "mass", "species", "group")}
+    buf, mask, _ = distribute(dict(arrays, gid=np.arange(n)), float(L[0]),
+                              plan)
+    fields = {k: torch.as_tensor(v, device=where) for k, v in buf.items()}
+    mask = torch.as_tensor(mask, device=where)
+    f, e0, _, ov = first(fields, mask)
+    k = max(1, int(sd.cfg.ddc_update_rate))
+    _sync(where)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        fields, f, scal, ov_s = step(fields, mask, f, i)
+        ov = ov | ov_s
+        if (i + 1) % k == 0:
+            fields, mask, f, ov_m = migrate(fields, mask, f)
+            ov = ov | ov_m
+        if i + 1 == snap:
+            got = collect(fields, mask, plan)
+            r = np.zeros((n, 3))
+            r[got["gid"]] = got["r"]
+            scal_snap = scal.double().cpu().numpy()
+    _sync(where)
+    rate = steps / (time.perf_counter() - t0)
+    return (r, L, float(e0), scal_snap, scal.double().cpu().numpy(),
+            bool(ov), rate)
+
+
+def triclinic_slab_phase(card, dev, counters_zero, all_counters, failed):
+    """Phase 27 (ROADMAP item 25, the last of what the JAX mesh has):
+    triclinic bricks and the slab engine, no custom kernel; gates into
+    `failed`."""
+    from ddcmd_tpu_torch.core.system import build_system
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.parallel.loadbalance import zramp_walls
+    from ddcmd_tpu_torch.parallel.slab import SlabPlan
+    from ddcmd_tpu_torch.potentials.martini import martini_device_tables
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    t_phase = time.perf_counter()
+    quiet = lambda line: None                                  # noqa: E731
+
+    def idle(what):
+        c = all_counters()
+        if any(c.values()):
+            failed.append(f"{what}: kernels launched {c}")
+
+    def mesh_vs_sim(d, dtype=torch.float32, **kw):
+        """The mesh at (1,1,1) and Simulation on the deck in d, in dtype:
+        (mesh, Simulation, e, e_ref, e rel, forces over the scale)."""
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev,
+                                dtype=dtype)
+        if ps.shard_engine != "nlist" or ps.sysdef.box.ortho:
+            failed.append(f"{d}: engine {ps.shard_engine}, ortho "
+                          f"{ps.sysdef.box.ortho}")
+        e = ps.first_energy()
+        f = torch.as_tensor(ps.gather_by_gid(("f",))["f"]).double()
+        sim = Simulation(*load(d), run_dir=d, device=dev, dtype=dtype, **kw)
+        sim.first_energy()
+        e_ref = float(sim.ss.energy.eion)
+        f_ref = sim.ss.state.f[:sim.sysdef.state.n_local].double().cpu()
+        return (ps, sim, e, e_ref, abs(e - e_ref) / abs(e_ref),
+                float((f - f_ref).abs().max() / f_ref.abs().max()))
+
+    def timed(fn, steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        return steps / (time.perf_counter() - t0)
+
+    # (a) the tilted water box at (1,1,1)
+    with tempfile.TemporaryDirectory() as d:
+        water_deck(d, 6173, printrate=10)
+        tilt_deck(d)
+        counters_zero()
+        ps, sim, e, e_ref, rel, ferr = mesh_vs_sim(d, engine="nlist")
+        if rel > TRI_E_REL or ferr > TRI_F_TOL:
+            failed.append(f"(a) first energy rel {rel}, forces {ferr}")
+        del sim
+        # both rates from one thermalised state over one step count: the
+        # mesh's last TRI_SIM_STEPS, and Simulation restarted from the
+        # mesh's checkpoint before them
+        lines = []
+        ps.run(TRI_STEPS - TRI_SIM_STEPS, print_fn=lines.append)
+        ps.write_checkpoint(d)
+        rate = timed(lambda: ps.run(TRI_SIM_STEPS, print_fn=lines.append),
+                     TRI_SIM_STEPS)
+        rows = mesh_rows(lines)
+        temp = float(rows[rows[:, 0] > TRI_STEPS - TRI_TAIL, 1].mean())
+        if not (np.isfinite(rows).all() and abs(temp - 310.0) <= TEMP_TOL
+                and ps.loop == TRI_STEPS):
+            failed.append(f"(a) mean T {temp}")
+        sim = Simulation(*load(d, restart=os.path.join(d, "restart")),
+                         run_dir=d, device=dev, engine="nlist")
+        sim.first_energy()
+        sim_rate = timed(lambda: sim.run(TRI_SIM_STEPS, print_fn=quiet,
+                                         max_steps_per_dispatch=DISPATCH),
+                         TRI_SIM_STEPS)
+        idle("(a)")
+        h = ps.Lv.double().cpu().numpy()
+        phase("triclinic", f"(a) martini_water 6173 beads, b tilted by "
+              f"{TRI_TILT} L (h01 {10 * h[0, 1]:.4f} A), through "
+              f"ParallelSimulation (1,1,1) on the list engine (cells "
+              f"{ps.grid.ncells} cap {ps.grid.cell_capacity} K "
+              f"{ps.grid.max_neighbors}): first energy {e:.9g} vs "
+              f"Simulation(engine=nlist) {e_ref:.9g} (rel {rel:.2g}, gate "
+              f"{TRI_E_REL:g}), forces {ferr:.3g} of the scale (gate "
+              f"{TRI_F_TOL:g}); {TRI_STEPS} LANGEVIN steps: mean T "
+              f"{temp:.2f} K over the last {TRI_TAIL} (window 310 +- "
+              f"{TEMP_TOL:g}); over steps {TRI_STEPS - TRI_SIM_STEPS}-"
+              f"{TRI_STEPS} {rate:.2f} steps/s (halo and list every step) "
+              f"vs Simulation's list engine {sim_rate:.2f} steps/s over "
+              f"{TRI_SIM_STEPS} steps from the mesh's checkpoint at step "
+              f"{TRI_STEPS - TRI_SIM_STEPS}; no custom kernel launched on "
+              f"{card}")
+        del ps, sim
+
+    # (b) the tilted zRamp bilayer's bricks: uniform, ZRAMP, VORONOI
+    with tempfile.TemporaryDirectory() as d:
+        a = tilted_bilayer_arrays(d, dev)
+    for what, owner, windows in tilted_plans(a):
+        counters_zero()
+        f, e, sizes = list_bricks(a, owner, windows, dev)
+        _sync(dev)
+        idle(f"(b) {what}")
+        f = f.double().cpu()
+        scale = max(1.0, float(a["f_ref"].abs().max()))
+        ferr = float((f - a["f_ref"].cpu()).abs().max()) / scale
+        f64err = float((f - a["f_ref_f64"].cpu()).abs().max()) / scale
+        rel = abs(float(e) - a["e_ref"]) / abs(a["e_ref"])
+        if ferr > TRI_BRICK_F_TOL or rel > TRI_BRICK_E_REL:
+            failed.append(f"(b) {what}: forces {ferr}, e rel {rel}")
+        own = [s[0] for s in sizes]
+        phase("triclinic", f"(b) zRamp bilayer {len(a['r'])} beads tilted "
+              f"by {TRI_TILT} L, {what}: {len(sizes)} bricks through the list "
+              f"engine's per-rank functions, windows in the fraction (owned "
+              f"{min(own)}-{max(own)}, ghosts {min(s[1] for s in sizes)}-"
+              f"{max(s[1] for s in sizes)}): forces vs Simulation's pair term "
+              f"({a['engine']}, f32) {ferr:.3g} of the scale (gate "
+              f"{TRI_BRICK_F_TOL:g}; vs its f64 {f64err:.3g}), e "
+              f"{float(e):.8g} vs {a['e_ref']:.8g} (rel {rel:.2g}, gate "
+              f"{TRI_BRICK_E_REL:g}; f64 {a['e_ref_f64']:.8g}) on {card}")
+    del a
+
+    # (c) the tilted NPT water deck at (1,1,1), in f64: in f32 each step
+    # rounds h01 and h00 apart, and their ratio walks ~5e-8 a step
+    with tempfile.TemporaryDirectory() as d:
+        npt_water_deck(d, 6173, printrate=10)
+        tilt_deck(d)
+        counters_zero()
+        ps, sim, e, e_ref, rel, ferr = mesh_vs_sim(d, torch.float64)
+        del sim
+        if rel > TRI_E_REL:
+            failed.append(f"(c) first energy rel {rel}")
+        h0 = ps.Lv.double().cpu().numpy()
+        lines = []
+        rate = timed(lambda: ps.run(TRI_STEPS, print_fn=lines.append),
+                     TRI_STEPS)
+        idle("(c)")
+        h1 = ps.Lv.double().cpu().numpy()
+        loops, temps, _, press, vols = mesh_lines(lines)
+        sel = loops > TRI_STEPS - TRI_TAIL
+        temp = float(temps[sel].mean())
+        ratio = (h1[0, 1] / h1[0, 0]) / (h0[0, 1] / h0[0, 0]) - 1.0
+        box = np.diagonal(h1) / np.diagonal(h0) - 1.0
+        if not (np.isfinite(h1).all() and np.abs(box).max() <= 0.2
+                and abs(ratio) <= TRI_RATIO_REL
+                and abs(temp - 310.0) <= TEMP_TOL and ps.barostat):
+            failed.append(f"(c) box {box}, tilt ratio {ratio}, T {temp}")
+        phase("triclinic", f"(c) NPT water 6173 beads (NGLFCONSTRAINT P0 1 "
+              f"bar) tilted by {TRI_TILT} L through the mesh at (1,1,1) in "
+              f"f64: first energy {e:.12g} vs Simulation ({e_ref:.12g}, rel "
+              f"{rel:.2g}, gate {TRI_E_REL:g}); {TRI_STEPS} steps: h "
+              f"diagonal {np.round(10 * np.diagonal(h0), 4).tolist()} -> "
+              f"{np.round(10 * np.diagonal(h1), 4).tolist()} A (+-20%), tilt "
+              f"ratio h01/h00 moved {ratio:.3g} (gate {TRI_RATIO_REL:g}), "
+              f"mean T {temp:.2f} K and P {press[sel].mean():.4g} over the "
+              f"last {TRI_TAIL}; {rate:.2f} steps/s on {card}")
+        del ps
+
+    # (d) the slab engine: SLAB_N slabs of the water box, then one slab
+    # card vs CPU
+    with tempfile.TemporaryDirectory() as d:
+        water_deck(d, 6173, printrate=10)
+        sd = build_system(load(d)[0], d)
+    n = sd.state.n_local
+    parms = sd.potentials[0][2]
+    a = dict(r=sd.state.r[:n].numpy(), q=sd.state.q[:n].numpy(),
+             species=sd.state.species[:n].numpy(),
+             tmap=np.asarray(parms.species_lj_type),
+             L=sd.box.lengths.numpy().astype(np.float64), rcut=sd.rcut_max,
+             skin=sd.neighbor_deltaR,
+             tables=martini_device_tables(parms, device=dev))
+    rl = sd.rcut_max + sd.neighbor_deltaR
+    Lx = float(a["L"][0])
+    f_ref, e_ref, _ = slab_reference(a, dev)
+    scale = float(f_ref.abs().max())
+    for name, walls in (("uniform", None),
+                        ("ZRAMP", tuple(zramp_walls(a["r"][:, 0], -Lx / 2,
+                                                    Lx, SLAB_N,
+                                                    work_power=1)))):
+        plan = SlabPlan(n_dev=SLAB_N, local_cap=n, halo_cap=n,
+                        migrate_cap=256, rlist=rl, walls=walls)
+        counters_zero()
+        f, e, sizes = slab_phase_forces(a, plan, dev)
+        _sync(dev)
+        idle(f"(d) {name}")
+        ferr = float((f.double().cpu() - f_ref).abs().max()) / scale
+        rel = abs(float(e) - e_ref) / abs(e_ref)
+        if ferr > SLAB_F_TOL or rel > TRI_E_REL:
+            failed.append(f"(d) {name} slabs: forces {ferr}, e rel {rel}")
+        shown = np.round(walls, 4).tolist() if walls else "uniform"
+        phase("triclinic", f"(d) water 6173 beads in {SLAB_N} {name} "
+              f"x-slabs (walls {shown}; owned "
+              f"{[s[0] for s in sizes]}, ghosts {[s[1] for s in sizes]}) "
+              f"through the slab step's per-rank forces with host halos: "
+              f"forces vs the single-device list {ferr:.3g} of the scale "
+              f"{scale:.4g} (gate {SLAB_F_TOL:g}), e {float(e):.9g} vs "
+              f"{e_ref:.9g} (rel {rel:.2g}) on {card}")
+    with tempfile.TemporaryDirectory() as d:
+        water_deck(d, 6173, printrate=10, free=True)
+        counters_zero()
+        ra, Ls, a0, sa, sa_end, ov, rate = slab_run(d, dev, SLAB_STEPS)
+        sim = Simulation(*load(d), run_dir=d, device=dev, engine="nlist",
+                         dtype=torch.float64)
+        sim.first_energy()
+        b0 = float(sim.ss.energy.eion)
+        sim.run(SLAB_CMP, print_fn=quiet, max_steps_per_dispatch=DISPATCH)
+        idle("(d) one slab")
+    st = sim.ss.state
+    rb = np.zeros_like(ra)
+    rb[torch.as_tensor(st.gid[:len(ra)]).cpu().numpy()] = (
+        st.r[:len(ra)].cpu().numpy())
+    dr = ra - rb
+    dr = float(np.abs(dr - Ls * np.round(dr / Ls)).max())
+    b1 = float(sim.ss.energy.eion)
+    e_cmp, e_end = sa[0] + sa[1], sa_end[0] + sa_end[1]
+    if (ov or dr >= SLAB_DR or not np.isfinite(sa_end).all()
+            or not math.isclose(sa[0], b1, rel_tol=1e-9)):
+        failed.append(f"(d) one slab vs Simulation: |dr| {dr}, e_pot "
+                      f"{sa[0]} {b1}")
+    phase("triclinic", f"(d) water 6173 beads FREE, one slab, "
+          f"{SLAB_STEPS} f64 steps of make_sharded_step (a migration every "
+          f"updateRate, {rate:.2f} steps/s), the first {SLAB_CMP} against "
+          f"Simulation(engine=nlist, f64): first energy {a0:.12g} vs "
+          f"{b0:.12g}, e_pot at step {SLAB_CMP} {sa[0]:.12g} vs {b1:.12g}, "
+          f"max |dr| {dr:.3g} nm (gate {SLAB_DR:g}); e_pot + rk "
+          f"{e_cmp:.12g} at step {SLAB_CMP}, {e_end:.12g} at step "
+          f"{SLAB_STEPS} (drift {(e_end - e_cmp) / abs(e_cmp):.3g} "
+          f"relative); phase 27 {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+
+
+def slab_reference(a, dev):
+    """(d): the single-device list on the water state (f32): (forces
+    (n, 3) f64 on the host, energy, the list's overflow)."""
+    from ddcmd_tpu_torch.nbr.celllist import CellGrid, build_neighbor_list
+    from ddcmd_tpu_torch.potentials.martini import martini_nonbond
+
+    n = len(a["r"])
+    r = torch.tensor(a["r"], dtype=torch.float32, device=dev)
+    Lv = torch.tensor(a["L"], dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    grid = CellGrid.plan(a["L"], a["rcut"], a["skin"], n, n,
+                         positions=a["r"])
+    nbr, _, ov = build_neighbor_list(r, ones, Lv, grid)
+    assert not bool(ov), "single-device list overflow"
+    f, e, _, _, _ = martini_nonbond(
+        r, torch.tensor(a["q"], dtype=torch.float32, device=dev),
+        torch.tensor(a["tmap"], device=dev)[torch.tensor(a["species"],
+                                                         device=dev)],
+        ones, nbr, Lv, a["tables"])
+    return f.double().cpu(), float(e), bool(ov)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -6688,6 +7232,11 @@ def main(argv=None):
         failed = []
         listmesh_phase(card, dev, counters_zero, all_counters, failed)
         assert not failed, f"phase 26 gates missed: {failed}"
+        return
+    if "--triclinic-only" in argv:
+        failed = []
+        triclinic_slab_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 27 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -6880,6 +7429,10 @@ def main(argv=None):
     lm_failed = []
     listmesh_phase(card, dev, counters_zero, all_counters, lm_failed)
     assert not lm_failed, f"phase 26 gates missed: {lm_failed}"
+    # --- phase 27: item 25's triclinic bricks and slab engine (no kernel) --
+    tri_failed = []
+    triclinic_slab_phase(card, dev, counters_zero, all_counters, tri_failed)
+    assert not tri_failed, f"phase 27 gates missed: {tri_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():

@@ -134,9 +134,11 @@ class PairCorrelation(Analysis):
 
     def shardable(self, psim) -> bool:
         """The halo holds every particle within rlist of a brick: rmax
-        beyond it needs the gathered view."""
+        beyond it needs the gathered view.  So does a triclinic box: the
+        gathered eval takes its distances against the diagonal lengths,
+        which the perpendicular-span halo does not cover."""
         rmax = self.rmin + self.n_bins * self.delta_r
-        return rmax <= psim.plan.rlist + 1e-12
+        return rmax <= psim.plan.rlist + 1e-12 and psim.Lv.dim() == 1
 
     def eval_sharded(self, psim):
         """Each owned row against the local and ghost rows of its rank
@@ -147,12 +149,13 @@ class PairCorrelation(Analysis):
         gathered eval's.  Requires rmax <= the halo window rlist
         (shardable)."""
         from ..parallel.brick import halo_exchange_3d
-        from ..parallel.brickstep import _wrap
+        from ..core.box import nearest_image
 
         if not self.shardable(psim):
             raise ValueError(
-                f"sharded PAIRCORRELATION needs rmax <= halo rlist "
-                f"{psim.plan.rlist:.3f}; use the gathered view")
+                f"sharded PAIRCORRELATION needs an orthorhombic box and "
+                f"rmax <= halo rlist {psim.plan.rlist:.3f}; use the "
+                "gathered view")
         nb = self.n_bins
         r, m = psim.fields["r"], psim.mask
         L = psim.Lv
@@ -160,7 +163,7 @@ class PairCorrelation(Analysis):
         # step's rebuild does; the distances use the unwrapped values the
         # gathered eval sees
         ghosts, gmask, ov, _ = halo_exchange_3d(
-            {"r": _wrap(r, L), "raw": r}, m, L, psim.plan, psim.mesh)
+            {"r": nearest_image(r, L), "raw": r}, m, L, psim.plan, psim.mesh)
         if bool(psim.mesh.psum(ov.to(torch.float32).reshape(1))[0] > 0):
             raise RuntimeError("halo overflow in sharded PAIRCORRELATION")
         pool_r = torch.cat([r, ghosts["raw"]])
@@ -292,7 +295,7 @@ class ZDensity(Analysis):
         same values, at the live box), the counts summed over the
         mesh."""
         z = _host(_owned(psim, "r"))[:, 2]
-        Lz = float(psim.Lv[2])
+        Lz = float(psim._live_L()[2])
         h, _ = np.histogram(z, bins=self.n_bins, range=(-Lz / 2, Lz / 2))
         if self.state["hist"] is None:
             self.state["hist"] = np.zeros(self.n_bins)

@@ -37,6 +37,28 @@ def nearest_image(d: torch.Tensor, geom: torch.Tensor) -> torch.Tensor:
     return d - torch.round(d @ inv3x3(geom).T) @ geom.T
 
 
+def geom_volume(geom: torch.Tensor) -> torch.Tensor:
+    """Volume of a box geometry: the product of (3,) lengths, |det h| of
+    a (3,3) h."""
+    if geom.dim() == 1:
+        return torch.prod(geom)
+    return torch.abs(torch.linalg.det(geom))
+
+
+def perp_spans(geom: torch.Tensor) -> torch.Tensor:
+    """Per-axis perpendicular spans of a box geometry, volume / |a_j x
+    a_k| (the lengths when orthorhombic): the widths the cells and
+    bricks measure rlist against."""
+    if geom.dim() == 1:
+        return geom
+    a = geom.T  # rows = lattice vectors
+    v = geom_volume(geom)
+    return torch.stack([
+        v / torch.linalg.norm(torch.linalg.cross(a[1], a[2])),
+        v / torch.linalg.norm(torch.linalg.cross(a[2], a[0])),
+        v / torch.linalg.norm(torch.linalg.cross(a[0], a[1]))])
+
+
 def nearest_image_pbc(d: torch.Tensor, geom: torch.Tensor,
                       pbc_mask: torch.Tensor | None = None) -> torch.Tensor:
     """nearest_image on the periodic axes only: pbc_mask is Box.pbc_mask
@@ -85,21 +107,12 @@ class Box:
 
     @property
     def volume(self) -> torch.Tensor:
-        if self.ortho:
-            return torch.prod(self.lengths)
-        return torch.abs(torch.linalg.det(self.h))
+        return geom_volume(self.geom)
 
     @property
     def perp_spans(self) -> torch.Tensor:
         """Per-axis perpendicular spans (the lengths when orthorhombic)."""
-        if self.ortho:
-            return self.lengths
-        a = self.h.T  # rows = lattice vectors
-        v = self.volume
-        return torch.stack([
-            v / torch.linalg.norm(torch.linalg.cross(a[1], a[2])),
-            v / torch.linalg.norm(torch.linalg.cross(a[2], a[0])),
-            v / torch.linalg.norm(torch.linalg.cross(a[0], a[1]))])
+        return perp_spans(self.geom)
 
     def scale(self, lam: torch.Tensor) -> "Box":
         """h <- diag(lam) @ h (barostat volume change, nglfconstraint.c:64)."""

@@ -6,9 +6,11 @@ reproduces the decomposition), in the same text format.  The file
 records the mesh shape, the brick centres and, when the run is load
 balanced, the wall fractions (tensor or ORCB plans) so that a restart of
 a balanced run resumes the saved walls (readPXYZ.c:1-50).  A
-Simulation's snapshot records one domain.  One divergence:
-restore_plan_lb warns when a pxyz exists but cannot be read, where the
-JAX package returns "no saved state" in silence.
+Simulation's snapshot records one domain, a slab plan (parallel/
+slab.py) the mesh shape n 1 1.  Two divergences: restore_plan_lb warns
+when a pxyz exists but cannot be read, where the JAX package returns "no
+saved state" in silence; and a slab plan's walls are written as the x
+walls of an (n, 1, 1) tensor plan, which a restart reads back.
 """
 
 from __future__ import annotations
@@ -37,8 +39,13 @@ def write_pxyz(path: str, box_lengths, plan=None) -> None:
         shape = (1, 1, 1)
     elif hasattr(plan, "shape"):
         shape = tuple(plan.shape)
-    else:  # slab
+    else:
+        # a slab plan: the mesh (n, 1, 1), its walls the x walls of that
+        # mesh's tensor plan (the JAX package writes a line per fraction,
+        # which its reader cannot take back)
         shape = (plan.n_dev, 1, 1)
+        if walls is not None:
+            walls = (tuple(walls), (0.0, 1.0), (0.0, 1.0))
     nx, ny, nz = shape
     centers = []
     if voronoi is not None:

@@ -2,17 +2,18 @@
 
 Counterpart of ddcmd_tpu/parallel/brick.py (the reference's CUBIC domain
 lattice, ddcMD src/ddc.h:42, with plane-pruned halos, ddcSendRecv.c:
-63-85), for orthorhombic boxes.  Halo exchange and migration use the
-staged scheme -- exchange +-x, then +-y including the x ghosts, then +-z
--- so three rounds of fixed-capacity buffers cover faces, edges and
-corners.  Axes of one brick exchange nothing: the cell stencil wraps
-there as on a single device.  An axis of two bricks sends both windows
-to its one neighbour (parallel/mesh.BrickMesh.exchange tells them
-apart).
+63-85), for orthorhombic and triclinic boxes.  Halo exchange and
+migration use the staged scheme -- exchange +-x, then +-y including the
+x ghosts, then +-z -- so three rounds of fixed-capacity buffers cover
+faces, edges and corners.  Axes of one brick exchange nothing: the cell
+stencil wraps there as on a single device.  An axis of two bricks sends
+both windows to its one neighbour (parallel/mesh.BrickMesh.exchange
+tells them apart).
 
 Positions are GLOBAL origin-centred coordinates; ownership and halo
-windows live in fractional coordinates s = r / L.  With an `hgid` field
-(the gid of each particle's molecule head bead) migration and the
+windows live in fractional coordinates s = r / L (s = h^-1 r in a
+triclinic box, below).  With an `hgid` field (the gid of each
+particle's molecule head bead) migration and the
 initial distribution are molecule-coherent: the head bead's position
 decides for the whole molecule (the reference's MOLECULE ddcRule,
 ddcRuleMolecule.c:43).
@@ -51,8 +52,16 @@ nearest of the 27 neighbourhood centres, one staged hop per axis, and a
 containment check flags an overflow, on which the run loop
 redistributes on the host (assign_host).  halo_exchange_3d(centred=True)
 measures the windows from the brick's centre across the periodic seam
-(the list engine, whose positions are wrapped every step).  Triclinic
-boxes raise NotImplementedError naming their ROADMAP item.
+(the list engine, whose positions are wrapped every step).
+
+Triclinic boxes (BOX type=GENERAL, a (3, 3) h with the lattice vectors
+as columns; the JAX package's brick.py:75-88, 137-170, 301-330,
+400-425): ownership, walls and halo windows live in the fraction
+s = h^-1 r, and a Cartesian depth w becomes the fractional window
+w ||row_a(h^-1)||, the exact slab that holds every point within w of a
+fractional face.  Voronoi domains run in the scaled-fractional frame
+(s times the perpendicular spans), where a tilted box is Euclidean: the
+centres, their margins and the nearest-centre hops live there.
 """
 
 from __future__ import annotations
@@ -62,6 +71,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.box import inv3x3, perp_spans
+from ..ops.cellpair import perp_spans as host_spans
 from .slab import compact_rows
 
 @dataclass(frozen=True)
@@ -99,14 +110,15 @@ class BrickPlan:
 
 def geom_frac(box_geom):
     """(frac_fn, per_cart): origin-centred fractional coordinates
-    s = r / L and the fractional width of one Cartesian length unit (1/L)
-    per axis.  A (3, 3) h raises."""
+    s = h^-1 r (r / L for (3,) lengths) and the per-axis fractional width
+    of one Cartesian length unit measured across the brick faces (1/L,
+    or ||row_a(h^-1)|| for a (3, 3) h): a Cartesian halo depth w becomes
+    the fractional window w * per_cart."""
     g = box_geom
-    if g.dim() != 1:
-        raise NotImplementedError(
-            "triclinic brick meshes are not ported yet (ROADMAP queue 1, "
-            "item 25)")
-    return (lambda rr: rr / g), 1.0 / g
+    if g.dim() == 1:
+        return (lambda rr: rr / g), 1.0 / g
+    hin = inv3x3(g)
+    return (lambda rr: rr @ hin.T), torch.sqrt(torch.sum(hin * hin, dim=1))
 
 
 def _axis_bounds(n: int, idx: int, walls=None, prefix=()):
@@ -187,7 +199,7 @@ def _with_count(buf: dict, n) -> dict:
     return dict(buf, __n=n.reshape(1))
 
 
-def halo_exchange_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan,
+def halo_exchange_3d(fields: dict, valid_mask, box_geom, plan: BrickPlan,
                      mesh, centred: bool = False):
     """Collect ghost particles from all 26 neighbour bricks via 3 staged
     face exchanges.  fields: (local_cap, ...) tensors with 'r'.  With
@@ -206,7 +218,7 @@ def halo_exchange_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan,
     gmask = torch.zeros((0,), dtype=torch.bool, device=dev)
     routing = []
 
-    frac, per_cart = geom_frac(box_lengths)
+    frac, per_cart = geom_frac(box_geom)
     pool, pool_mask = fields, valid_mask
     n_loc = valid_mask.shape[0]
     for ax_i in range(3):
@@ -330,7 +342,7 @@ def _head_positions(cur: dict, mask):
     return torch.where(ok, cur["r"][order[pos]], cur["r"])
 
 
-def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
+def migrate_3d(fields: dict, valid_mask, box_geom, plan: BrickPlan, mesh):
     """Staged 1-hop migration along x, then y, then z (<= 1 brick hop per
     axis per call, the lazy re-bisect assumption).  With an `hgid` field
     the destination is the molecule head bead's brick, so a molecule
@@ -347,12 +359,12 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
     dev = fields["r"].device
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     cur, mask = fields, valid_mask
-    frac, _ = geom_frac(box_lengths)
+    frac, _ = geom_frac(box_geom)
     vor = plan.voronoi
     if vor is not None:
-        c27 = _voronoi_c27(plan, box_lengths, mesh.idx3)
+        c27 = _voronoi_c27(plan, box_geom, mesh.idx3)
         rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
-        cur = dict(cur, __mig=_voronoi_hops(rr, c27, box_lengths, plan))
+        cur = dict(cur, __mig=_voronoi_hops(rr, c27, box_geom, plan))
     for ax_i in range(3):
         n = plan.shape[ax_i]
         if n == 1:
@@ -390,7 +402,7 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
         # that moved under it, flags an overflow (host redistribution)
         cur = {k: v for k, v in cur.items() if k != "__mig"}
         rr = _head_positions(cur, mask) if "hgid" in cur else cur["r"]
-        hops = _voronoi_hops(rr, c27, box_lengths, plan)
+        hops = _voronoi_hops(rr, c27, box_geom, plan)
         overflow = overflow | torch.any(mask & torch.any(hops != 0, dim=1))
         return cur, mask, overflow
     if plan.orcb:
@@ -410,12 +422,24 @@ def migrate_3d(fields: dict, valid_mask, box_lengths, plan: BrickPlan, mesh):
     return cur, mask, overflow
 
 
-def _voronoi_c27(plan: BrickPlan, box_lengths, idx3):
-    """The (27, 3) neighbourhood centres of brick idx3 at the live box."""
+def _voronoi_frame(rr, box_geom):
+    """(positions, spans) in the Voronoi frame: Cartesian and the box
+    lengths for (3,) lengths; for a (3, 3) h the scaled-fractional frame,
+    s times the perpendicular spans, where a tilted box is Euclidean
+    (the JAX package's brick.py:301-316)."""
+    spans = perp_spans(box_geom)
+    if box_geom.dim() == 1:
+        return rr, spans
+    return geom_frac(box_geom)[0](rr) * spans, spans
+
+
+def _voronoi_c27(plan: BrickPlan, box_geom, idx3):
+    """The (27, 3) neighbourhood centres of brick idx3 at the live box,
+    in the Voronoi frame."""
     from .voronoi import neighborhood_centers
 
     vor = plan.voronoi
-    L = box_lengths
+    L = perp_spans(box_geom)
     scale = L / torch.as_tensor(np.asarray(vor["L0"], np.float64),
                                 dtype=L.dtype, device=L.device)
     centers = torch.as_tensor(np.asarray(vor["centers"], np.float64),
@@ -423,12 +447,13 @@ def _voronoi_c27(plan: BrickPlan, box_lengths, idx3):
     return neighborhood_centers(centers, L, plan.shape, idx3)
 
 
-def _voronoi_hops(rr, c27, box_lengths, plan: BrickPlan):
+def _voronoi_hops(rr, c27, box_geom, plan: BrickPlan):
     """Per-row (-1, 0, +1) hop on each axis to the nearest of the 27
-    centres, zero on axes of one brick."""
+    centres (Cartesian positions rr), zero on axes of one brick."""
     from .voronoi import dest_offsets
 
-    hops = dest_offsets(rr, c27, box_lengths)
+    r_v, spans = _voronoi_frame(rr, box_geom)
+    hops = dest_offsets(r_v, c27, spans)
     open_ax = torch.tensor([int(n > 1) for n in plan.shape],
                            dtype=hops.dtype, device=hops.device)
     return hops * open_ax
@@ -457,7 +482,7 @@ def gid64(gid) -> np.ndarray:
     return g.astype(np.int64)
 
 
-def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
+def distribute_bricks(arrays: dict, box_geom, plan: BrickPlan):
     """Host-side: split arrays into flat (n_dev*local_cap, ...) buffers by
     brick; brick order is rank order, rank = (ix*ny + iy)*nz + iz.
     Returns (buffers, mask, per-brick counts).  Either package's `gid`
@@ -465,27 +490,33 @@ def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
     With `hgid` a particle goes to its molecule head bead's brick; under
     load-balanced walls the owner is loadbalance.walls_assign's (in
     f64, as the JAX package assigns on the host), under Voronoi domains
-    voronoi.assign_host's nearest centre."""
+    voronoi.assign_host's nearest centre (in the scaled-fractional frame
+    when box_geom is a (3, 3) h)."""
     r = np.asarray(arrays["r"])
     if "hgid" in arrays:
         g64, h64 = gid64(arrays["gid"]), gid64(arrays["hgid"])
         order = np.argsort(g64, kind="stable")
         r = r[order[np.searchsorted(g64, h64, sorter=order)]]
     nx, ny, nz = plan.shape
-    L = np.asarray(box_lengths, dtype=np.float64)
-    if L.ndim != 1:
-        raise NotImplementedError(
-            "triclinic brick meshes are not ported yet (ROADMAP queue 1, "
-            "item 25)")
-    fr = r / L[None, :] + 0.5
+    L = np.asarray(box_geom, dtype=np.float64)
+    if L.ndim == 2:
+        hin = np.linalg.inv(L)
+        fr = r @ hin.T + 0.5                    # fractional, triclinic h
+    else:
+        fr = r / L[None, :] + 0.5
     fr = fr - np.floor(fr)
     if plan.voronoi is not None:
         from .voronoi import assign_host
 
         vor = plan.voronoi
+        if L.ndim == 2:
+            spans = host_spans(L)[0]
+            r_v = (fr - 0.5) * spans          # scaled-fractional frame
+        else:
+            spans, r_v = L, r
         centers = np.asarray(vor["centers"]) * (
-            L / np.asarray(vor["L0"], np.float64))[None, None, None, :]
-        dest = assign_host(r, centers, L, plan.shape)
+            spans / np.asarray(vor["L0"], np.float64))[None, None, None, :]
+        dest = assign_host(r_v, centers, spans, plan.shape)
         cj = [dest // (ny * nz), (dest // nz) % ny, dest % nz]
     elif plan.walls is not None:
         from .loadbalance import walls_assign

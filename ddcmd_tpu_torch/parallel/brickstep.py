@@ -39,7 +39,14 @@ wrapped every step, so a row that crossed the seam since the last
 migration still ships toward the side it lies on); on an axis of three
 or more bricks every brick must be at least rlist wide (the staged
 exchange reaches one brick), which the overflow flag guards under a
-barostat together with the cell edge.  Orthorhombic boxes only.
+barostat together with the cell edge.  It takes orthorhombic boxes and a
+triclinic (3, 3) h: the JAX package's engine pick sends every triclinic
+deck here (its parallel_sim.py:647-683).  Under an h the halo windows are
+fractional with perpendicular-span depths (parallel/brick.geom_frac),
+the pair terms and both EAM passes take the full vector's minimum image,
+brick and cell widths are perpendicular spans, and the Berendsen move is
+h' = diag(lam) h by rows (the JAX package's brickstep.py:26-48,
+102-160, 357-415).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.box import geom_volume, nearest_image, perp_spans
 from ..core.groups import kick_noise, velocity_update
 from ..integrators.nglf import barostat_lambda
 from ..nbr.celllist import build_neighbor_list
@@ -63,19 +71,6 @@ from .shard_cells import walls_span_minmax
 # thermostat noise callsite of the mesh step (the single-device NGLF
 # step draws callsite 0); the rank rides in the bits above it
 _NOISE_CALLSITE_MESH = 1
-
-
-def _wrap(r, g):
-    """Wrap origin-centred positions back into the (3,) box."""
-    return r - g * torch.round(r / g)
-
-
-def _volume(g):
-    return torch.prod(g)
-
-
-def _min_image(d, Lv):
-    return d - Lv * torch.round(d / Lv)
 
 
 class BrickStepBase:
@@ -235,7 +230,7 @@ class BrickStepBase:
         zero = r.new_zeros((1, 3))
         rm = torch.cat([r, zero])[atoms]
         fm = torch.cat([f, zero])[atoms]
-        d = _min_image(rm - rm[:, :1], Lv)
+        d = nearest_image(rm - rm[:, :1], Lv)
         com = (mm[:, :, None] * d).sum(1, keepdim=True) / Msum[:, :, None]
         d = (d - com) * am[:, :, None]
         return torch.einsum("m,mia,mia->a", gw, d, fm)
@@ -289,7 +284,7 @@ class BrickStepBase:
                                                    ov | ov_c)
         vd = torch.diagonal(virial) - corr
         scalars = torch.stack([e_pot, rk, torch.trace(virial), vd[0], vd[1],
-                               vd[2], _volume(Lv)])
+                               vd[2], geom_volume(Lv)])
         return fields, f, scalars, ov
 
     def _e_self(self, rb, n_l):
@@ -351,8 +346,11 @@ class BrickStepBase:
         fields, rb, ov = self._rebuild(fields, mask, Lv)
         f, rows = f_prev, []
         for i in range(self.chunk_steps if steps is None else steps):
-            lam = barostat_lambda(vird, _volume(Lv), self.barostat, self.dt)
-            Lv = Lv * lam
+            lam = barostat_lambda(vird, geom_volume(Lv), self.barostat,
+                                  self.dt)
+            # h' = diag(lam) h: a (3, 3) h scales by rows (the JAX
+            # package's brickstep.py:397-399)
+            Lv = lam[:, None] * Lv if Lv.dim() == 2 else Lv * lam
             ov = ov | self._narrow(Lv)
             fields = dict(fields, r=fields["r"] * lam)
             fields, f, scal, ov = self._step_body(fields, mask, f, step0 + i,
@@ -448,7 +446,7 @@ class BrickStepList(BrickStepBase):
     def _rebuild(self, fields, mask, Lv):
         """Wrap, keep the static local fields the per-step halo ships, and
         resolve the owned constraint groups and molecules."""
-        fields = dict(fields, r=_wrap(fields["r"], Lv))
+        fields = dict(fields, r=nearest_image(fields["r"], Lv))
         rb = dict(static={k: fields[k] for k in self.halo_keys}, mask=mask,
                   exgid=fields.get("exgid"))
         self._resolve_local(fields, mask, rb)
@@ -457,7 +455,8 @@ class BrickStepList(BrickStepBase):
 
     def _narrow(self, Lv):
         return torch.any((self._reach_frac > 0)
-                         & (self._reach_frac * Lv < self.plan.rlist))
+                         & (self._reach_frac * perp_spans(Lv)
+                            < self.plan.rlist))
 
     @staticmethod
     def _drop_excluded(nbr, pool_gid, pool_mask, exgid):
@@ -474,7 +473,7 @@ class BrickStepList(BrickStepBase):
         (n_l, K) list over the pool, excluded partners dropped: (pool
         fields, pool mask, routing, list, overflow)."""
         mask = rb["mask"]
-        loc = dict(rb["static"], r=_wrap(r_local, Lv))
+        loc = dict(rb["static"], r=nearest_image(r_local, Lv))
         ghosts, gmask, ov, routing = halo_exchange_3d(
             loc, mask, Lv, self.plan, self.mesh, centred=True)
         pool = {k: torch.cat([loc[k], ghosts[k]]) for k in loc}
@@ -526,7 +525,7 @@ class BrickStepList(BrickStepBase):
             red = halo_reduce_3d(torch.cat([fb, peb[:, None]], dim=1),
                                  routing, self.plan, n_l, self.mesh)
             f, pe, virial = f + red[:, :3], pe + red[:, 3], virial + vb
-        cell_ok = torch.all(Lv / self._ncells >= self.grid.rlist)
+        cell_ok = torch.all(perp_spans(Lv) / self._ncells >= self.grid.rlist)
         return f, pe, virial, ov | ~cell_ok
 
     def _eam(self, r_pool, s_pool, fmask, nbr, Lv, routing):
@@ -541,9 +540,18 @@ class BrickStepList(BrickStepBase):
         sentinel = r_pool.shape[0]
         r_ext = torch.cat([r_pool, r_pool.new_zeros((1, 3))])
         s_ext = torch.cat([s_pool, s_pool.new_zeros((1,))])
-        d_c = [_min_image(r_pool[:n_l, c][:, None] - r_ext[:, c][nbr], Lv[c])
-               for c in range(3)]
-        r2 = d_c[0] * d_c[0] + d_c[1] * d_c[1] + d_c[2] * d_c[2]
+        # per-component displacements in an orthorhombic box, the full
+        # vector's minimum image under a (3, 3) h (the JAX package keeps
+        # both branches, its brickstep.py:102-160)
+        ortho = Lv.dim() == 1
+        if ortho:
+            d_c = [nearest_image(
+                r_pool[:n_l, c][:, None] - r_ext[:, c][nbr], Lv[c:c + 1])
+                for c in range(3)]
+            r2 = d_c[0] * d_c[0] + d_c[1] * d_c[1] + d_c[2] * d_c[2]
+        else:
+            dr = nearest_image(r_pool[:n_l, None, :] - r_ext[nbr], Lv)
+            r2 = torch.sum(dr * dr, dim=-1)
         valid = ((nbr != sentinel) & (r2 < tables["rcut2"]) & (r2 > 0)
                  & (fmask[:, None] > 0))
         w = valid.to(r_pool.dtype)
@@ -567,10 +575,15 @@ class BrickStepList(BrickStepBase):
             True)[1]
         dF_ext = torch.cat([dF_pool, dF_pool.new_zeros((1,))])
         coef = -(de + dp * dF[:, None] + dpT * dF_ext[nbr]) * w
-        f = torch.stack([torch.sum(coef * d_c[c], dim=1) for c in range(3)],
-                        dim=1)
-        virial = 0.5 * torch.stack([
-            torch.stack([torch.sum(coef * d_c[a] * d_c[b])
-                         for b in range(3)]) for a in range(3)])
+        if ortho:
+            f = torch.stack([torch.sum(coef * d_c[c], dim=1)
+                             for c in range(3)], dim=1)
+            virial = 0.5 * torch.stack([
+                torch.stack([torch.sum(coef * d_c[a] * d_c[b])
+                             for b in range(3)]) for a in range(3)])
+        else:
+            fij = coef[:, :, None] * dr
+            f = torch.sum(fij, dim=1)
+            virial = 0.5 * torch.einsum("nka,nkb->ab", fij, dr)
         pe = 0.5 * torch.sum(e1 * w, dim=1) + F_i
         return f, virial, pe

@@ -43,6 +43,7 @@ energies from one state and in ensemble means, not trajectories.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.cellpair_half import cellpair_half_ext
@@ -50,7 +51,8 @@ from ..ops.eam_half import eam_rho_half_ext
 from ..potentials.eam import _embedding
 from .brick import (BrickPlan, halo_exchange_3d, halo_reduce_3d,
                     halo_refresh_3d)
-from .brickstep import BrickStepBase, _wrap
+from ..core.box import nearest_image
+from .brickstep import BrickStepBase
 from .shard_cells import (ShardCellPlan, bin_frac, bin_pool_ext,
                           brick_frame_frac,
                           dev_geom, ext_L8, make_shard_eam_kernels,
@@ -74,6 +76,9 @@ class BrickStepCells(BrickStepBase):
         if force_kind == "eam" and (excl or kw.get("bonded_plan") is not None
                                     or kw.get("bonded_left") is not None):
             raise ValueError("EAM decks carry no exclusions or bonded terms")
+        # the extended cell grids are orthorhombic (dev_geom, bin_frac): a
+        # triclinic deck takes the list engine, as the JAX pick sends it
+        assert np.ndim(box_lengths) == 1, "the cells engine takes (3,) lengths"
         super().__init__(mesh, plan, tables, coeffs, dt, box_lengths,
                          species_lj_type, seed, chunk_steps,
                          force_kind=force_kind, dtype=torch.float32, **kw)
@@ -101,7 +106,7 @@ class BrickStepCells(BrickStepBase):
     # -- rebuild: tables, routing, slot permutation (once per chunk) ------
 
     def _rebuild(self, fields, mask, Lv):
-        fields = dict(fields, r=_wrap(fields["r"], Lv))
+        fields = dict(fields, r=nearest_image(fields["r"], Lv))
         ghosts, gmask, ov, routing = halo_exchange_3d(
             {k: fields[k] for k in self.halo_keys}, mask, Lv, self.plan,
             self.mesh)

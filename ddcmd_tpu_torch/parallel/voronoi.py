@@ -11,7 +11,12 @@ cell inside its brick's 26 neighbours: (1 + beta) |a| < (3 - beta)
 a_min, a the brick edges.  Halo windows widen by each axis's bisector
 margin (face_margins, a certified upper bound of the cells' excursion
 beyond the nominal faces); migration routes a row to its nearest of the
-27 neighbourhood centres.
+27 neighbourhood centres.  Under a triclinic box every function here
+works in the scaled-fractional frame (the fraction s = h^-1 r times the
+perpendicular spans, where a tilted box is Euclidean): the callers
+(parallel/brick.py, run/parallel_sim.py) pass positions, centres and the
+spans of that frame as `r` and `box_lengths` (the JAX package's
+parallel_sim.py:150-151).
 
 The host half (nominal_centers, beta_max, face_margins, clamp_centers,
 balance_step, assign_host) is the JAX package's numpy, copied

@@ -67,10 +67,18 @@ deck's ANALYSIS objects, five of them sharded (analysis/registry.py
 eval_sharded).  On an axis of three or more bricks every brick must be
 at least rlist wide (the staged halo reaches one brick): ValueError.
 
+Triclinic boxes (BOX type=GENERAL) run as the JAX mesh runs them
+(parallel_sim.py:1-17, 96-107, 926-937 there): on the list engine, with
+ownership, walls, halos and migration in the fraction s = h^-1 r and
+perpendicular-span windows (parallel/brick.py), the Berendsen move
+h' = diag(lam) h, and the load balance in the frame r h^-T L (L the
+perpendicular spans), where VORONOI domains are Euclidean; `Lv` carries
+the (3, 3) h, the checkpoint and the view a GENERAL box.
+
 Deck features outside these paths raise NotImplementedError naming
-their ROADMAP item: triclinic bricks and non-periodic axes (item 25: the
-JAX mesh reads no pbc bit and would run such a deck fully periodic),
-NGLFNEW with constraints (the JAX mesh projects constraints only for
+their ROADMAP item: non-periodic axes (item 25: the JAX mesh reads no
+pbc bit and would run such a deck fully periodic), NGLFNEW with
+constraints (the JAX mesh projects constraints only for
 CONSTRAINT integrators, its Simulation also for NGLFNEW).  The kicks are
 the group kinds whose coefficients stay constant (FREE, LANGEVIN,
 FROZEN, FIXEDVELOCITY, QUENCH, BERENDSEN with its temperature summed
@@ -99,6 +107,7 @@ from ..core.system import build_system
 from ..objects import ObjectDB
 from ..objects import units as U
 from ..nbr.celllist import CellGrid
+from ..ops.cellpair import perp_spans as host_spans
 from ..ops.eam_half import eam_half_supported
 from ..parallel.bonded_shard import (constraint_gid_tables,
                                      mesh_bonded_plan, molecule_gid_tables)
@@ -127,6 +136,27 @@ _NPT_LIST_MARGIN = 1.1
 
 def _cap(x: int) -> int:
     return ((int(x) + 7) // 8) * 8
+
+
+def lb_frame(geom, r=None):
+    """(L, r_lb) of the box geom ((3,) lengths or a (3, 3) h): the
+    per-axis perpendicular spans and the positions r in the load-balance
+    frame, the fraction scaled by the spans (r itself when orthorhombic;
+    None without r), the JAX package's _lb_frame (parallel_sim.py:
+    926-937)."""
+    geom = np.asarray(geom, np.float64)
+    if geom.ndim == 1:
+        return geom, r
+    L = host_spans(geom)[0]
+    if r is None:
+        return L, None
+    return L, np.asarray(r) @ np.linalg.inv(geom).T * L[None, :]
+
+
+def live_h(geom) -> np.ndarray:
+    """The (3, 3) h of a box geometry ((3,) lengths or h)."""
+    geom = np.asarray(geom, np.float64)
+    return np.diag(geom) if geom.ndim == 1 else geom
 
 
 def _mesh_device(device):
@@ -179,9 +209,6 @@ class ParallelSimulation:
                 f"integrator {sd.integrator_type}: the NEXTFILE / NGLFTEST "
                 f"masters do not run under the mesh yet ({_MESH_ITEM})")
         self._refuse_dynamics(sd)
-        if not sd.box.ortho:
-            raise NotImplementedError(
-                f"triclinic bricks are not ported yet ({_MESH_ITEM})")
         if sd.box.pbc & 7 != 7:
             raise NotImplementedError(
                 f"pbc={sd.box.pbc} under the mesh: the JAX mesh reads no pbc "
@@ -233,9 +260,20 @@ class ParallelSimulation:
         self.tables, self._tmap = tables, tmap
         self._coulomb = bool(np.any(sd.state.q[:n].numpy() != 0.0))
 
-        L = sd.box.lengths.numpy().astype(np.float64)
+        # geom feeds the step and the halos ((3,) lengths or the (3, 3) h);
+        # L, the per-axis perpendicular spans, is what every plan measures
+        # rlist against, and the load balance bins r_lb, the fraction
+        # scaled by them (JAX parallel_sim.py:96-107)
+        self._tri = not sd.box.ortho
+        geom = np.asarray((sd.box.h if self._tri else sd.box.lengths)
+                          .numpy(), dtype=np.float64)
+        L = np.asarray(sd.box.perp_spans.numpy(), dtype=np.float64)
+        r_lb = sd.state.r[:n].numpy()
+        if self._tri:
+            r_lb = r_lb @ np.linalg.inv(geom).T * L[None, :]
         rlist = sd.rcut_max + sd.neighbor_deltaR
-        walls, voronoi = self._setup_loadbalance(db, ddc, base_dir, L, rlist)
+        walls, voronoi = self._setup_loadbalance(db, ddc, base_dir, L, rlist,
+                                                 r_lb)
         # halo windows scale with rlist / brick width (parallel_sim.py:
         # 182-202 of the JAX package); Voronoi windows widen by the
         # bisector margin, reserved for the centres' displacement bound
@@ -271,7 +309,7 @@ class ParallelSimulation:
         self._setup_topology(gid)
         # the live box (moves under the barostat) and the last molecular
         # virial diagonal the next NPT step's lambda reads
-        self.Lv = torch.as_tensor(L, dtype=dtype, device=dev)
+        self.Lv = torch.as_tensor(geom, dtype=dtype, device=dev)
         self.vird = torch.zeros(3, dtype=dtype, device=dev)
         self._build_step_fns()
 
@@ -292,8 +330,9 @@ class ParallelSimulation:
 
     # ------------------------------------------------------------------
 
-    def _setup_loadbalance(self, db, ddc, base_dir, L, rlist):
-        """The deck's LOADBALANCE (JAX parallel_sim.py:117-180): ZRAMP and
+    def _setup_loadbalance(self, db, ddc, base_dir, L, rlist, r_lb):
+        """The deck's LOADBALANCE (JAX parallel_sim.py:117-180), at the
+        spans L from the positions r_lb of the load-balance frame: ZRAMP and
         TENSOR take per-axis equal-work walls (workPower, default 2),
         clamped to 1.05 rlist; BISECTION the ORCB walls; VORONOI
         nearest-centre domains, the centres starting at the brick
@@ -328,8 +367,7 @@ class ParallelSimulation:
             voronoi = dict(centers=nominal_centers(L, self.shape),
                            margins=np.zeros(3), L0=L.copy())
         else:
-            n = self.sysdef.state.n_local
-            walls = self._lb_walls(self.sysdef.state.r[:n].numpy(), L, rlist)
+            walls = self._lb_walls(r_lb, L, rlist)
         if os.environ.get("DDCMD_PXYZ_RESTART", "1") != "0":
             from ..io.pxyz import restore_plan_lb
 
@@ -346,9 +384,10 @@ class ParallelSimulation:
         return walls, voronoi
 
     def _lb_walls(self, r, L, rlist):
-        """Walls of this run's balancer from positions r at box L (the
-        JAX package's __init__ and parallel_rebalance branches); ORCB
-        walls are checked against the staged exchange's reach."""
+        """Walls of this run's balancer from positions r of the
+        load-balance frame at spans L (the JAX package's __init__ and
+        parallel_rebalance branches); ORCB walls are checked against the
+        staged exchange's reach."""
         if self._lb_kind == "bisection":
             from ..parallel.loadbalance import orcb_walls
 
@@ -496,16 +535,19 @@ class ParallelSimulation:
     def _pick_shard_engine(self, L) -> str:
         """"pallas" (the cells engine, TPU kernels #6 and #7) or "nlist"
         (the brick list engine), the JAX package's _pick_shard_engine
-        (parallel_sim.py:647-683): the cells engine takes a MARTINI deck
-        (its exclusion components within the in-kernel channels), a PAIR
-        deck without a table, or EAM the kernels take, in f32, without
-        Voronoi domains, with every open axis's narrowest brick at least
-        rlist (2 rlist on a 2-brick axis); every other deck takes the
+        (parallel_sim.py:647-683): the cells engine takes an orthorhombic
+        MARTINI deck (its exclusion components within the in-kernel
+        channels), PAIR deck without a table, or EAM deck the kernels
+        take, in f32, without Voronoi domains, with every open axis's
+        narrowest brick at least rlist (2 rlist on a 2-brick axis), at
+        the spans L; every other deck, a triclinic one too, takes the
         list engine.  DDCMD_SHARD_ENGINE=pallas|nlist forces the engine;
         a forced pallas the deck or geometry cannot take raises
         ValueError."""
         why = None
-        if self.force_kind == "pairtab":
+        if self._tri:
+            why = "a triclinic box"
+        elif self.force_kind == "pairtab":
             why = "a PAIR TableFunction"
         elif self.force_kind == "eam" and not eam_half_supported(self.tables):
             why = (f"EAM form {self.tables['form']} with "
@@ -534,8 +576,16 @@ class ParallelSimulation:
             raise ValueError(f"DDCMD_SHARD_ENGINE=pallas infeasible: {why}")
         return "nlist" if why else "pallas"
 
-    def _live_L(self) -> np.ndarray:
+    def _live_geom(self) -> np.ndarray:
+        """The live box as the step takes it: (3,) lengths or the (3, 3)
+        h, f64 on the host."""
         return self.Lv.cpu().numpy().astype(np.float64)
+
+    def _live_L(self) -> np.ndarray:
+        """The live box's lengths, the diagonal of h (what the gathered
+        view's box.lengths reads)."""
+        g = self._live_geom()
+        return g if g.ndim == 1 else np.diagonal(g).copy()
 
     def _cell_tables(self):
         """(tables, tmap) of the cells engine: the MARTINI LJ tables
@@ -560,7 +610,8 @@ class ParallelSimulation:
         grid of the list engine, planned on the current positions with
         the ghost-duplication factor (JAX :204-222)."""
         sd = self.sysdef
-        L = self._live_L()
+        geom = self._live_geom()
+        L = lb_frame(geom)[0]
         self.shard_engine = self._pick_shard_engine(L)
         common = dict(
             bonded_plan=self._bonded_plan, bonded_left=self._bonded_left,
@@ -582,23 +633,25 @@ class ParallelSimulation:
                 excl=self._excl_vals is not None, **common)
             return
         self.cplan = None
-        self.grid = self._plan_grid(L)
+        self.grid = self._plan_grid(geom)
         self.step_fn = BrickStepList(
             self.mesh, self.plan, self.grid, self.tables, self.coeffs,
-            sd.cfg.dt, L, self._tmap, sd.random_seed, self.chunk_steps,
+            sd.cfg.dt, geom, self._tmap, sd.random_seed, self.chunk_steps,
             force_kind=self.force_kind, excl=self._exgid is not None,
             dtype=self.dtype, **common)
 
-    def _plan_grid(self, L):
-        """The list engine's global CellGrid at box L, its occupancy
+    def _plan_grid(self, geom):
+        """The list engine's global CellGrid at box geom, its occupancy
         measured on the current positions (the start positions, or the
-        gathered ones after the first build) times the ghost-duplication
-        factor of a halo window wrapping a small box, and the replan
-        ladder's growth."""
+        gathered ones after the first build; in the load-balance frame,
+        whose axes the cells bin) times the ghost-duplication factor of a
+        halo window wrapping a small box, and the replan ladder's
+        growth."""
         sd = self.sysdef
         n = sd.state.n_local
         r = (self.gather_by_gid(("r",))["r"] if hasattr(self, "fields")
              else sd.state.r[:n].numpy())
+        L, r = lb_frame(geom, r)
         rlist = self.plan.rlist
         spans = [min(1.0, rlist / (L[a] / self.shape[a])) for a in range(3)]
         # an axis of one brick ships no ghosts (the JAX package counts
@@ -624,7 +677,7 @@ class ParallelSimulation:
             arrays["excl"] = self._excl_vals[:n]
         if self.shard_engine == "nlist" and self._exgid is not None:
             arrays["exgid"] = self._exgid
-        buf, mask, _ = distribute_bricks(arrays, self._live_L(), self.plan)
+        buf, mask, _ = distribute_bricks(arrays, self._live_geom(), self.plan)
         cap, rank = self.plan.local_cap, self.mesh.rank
         rows = slice(rank * cap, (rank + 1) * cap)
         self.fields = {k: torch.as_tensor(v[rows], device=self.device)
@@ -804,7 +857,7 @@ class ParallelSimulation:
         import dataclasses
 
         g = self.gather_by_gid(("r", "v"))
-        L = self._live_L()
+        L, r_lb = lb_frame(self._live_geom(), g["r"])
         if self._lb_kind == "voronoi":
             from ..parallel.voronoi import balance_step
 
@@ -812,14 +865,14 @@ class ParallelSimulation:
             scale = L / np.asarray(vor["L0"], np.float64)
             centers, margins = balance_step(
                 np.asarray(vor["centers"]) * scale[None, None, None, :],
-                np.asarray(g["r"], np.float64), L, self.shape,
+                np.asarray(r_lb, np.float64), L, self.shape,
                 self.plan.rlist, eta=self._lb_eta)
             self.plan = dataclasses.replace(
                 self.plan, voronoi=dict(centers=centers, margins=margins,
                                         L0=L.copy()))
         else:
             self.plan = dataclasses.replace(
-                self.plan, walls=self._lb_walls(g["r"], L, self.plan.rlist))
+                self.plan, walls=self._lb_walls(r_lb, L, self.plan.rlist))
         self._check_reach(L)
         self._build_step_fns()
         self.redistribute(g)
@@ -842,12 +895,12 @@ class ParallelSimulation:
         redistribute.  A brick narrower than rlist on an axis of three or
         more bricks at the live box makes the decomposition itself
         infeasible: raise."""
-        L = self._live_L()
+        L = lb_frame(self._live_geom())[0]
         try:
             self._check_reach(L)
         except ValueError as err:
             raise RuntimeError(f"brick decomposition infeasible at the live "
-                               f"box {L}: {err}") from None
+                               f"box (spans {L}): {err}") from None
         old = self._plan_key()
         self._build_step_fns()
         if self._plan_key() == old:
@@ -882,7 +935,7 @@ class ParallelSimulation:
             t[:n] = torch.as_tensor(a, dtype=t.dtype, device=dev)
             rep[k] = t
         state = sd.state.replace(**rep)
-        box = Box.from_h(np.diag(self._live_L()), pbc=sd.box.pbc,
+        box = Box.from_h(live_h(self._live_geom()), pbc=sd.box.pbc,
                          dtype=sd.state.r.dtype, device=dev)
         time = (self.loop - sd.cfg.loop) * sd.cfg.dt + sd.cfg.time
         return StepState(state=state, box=box,
@@ -961,7 +1014,7 @@ class ParallelSimulation:
         pos = np.argsort(gid64(col.gid), kind="stable")
         idx = pos[np.searchsorted(gid64(col.gid), g64, sorter=pos)]
         rank, size = self.mesh.rank, self.mesh.size
-        h = np.diag(self._live_L())
+        h = live_h(self._live_geom())
 
         def pick(names):
             return [names[i] for i in idx]

@@ -159,7 +159,9 @@ def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo):
     """Raise NotImplementedError for the outputs a deck asks for that
     ParallelSimulation does not write yet, instead of running to the end
     without them: the SIMULATE analysis= list and PRINTINFO
-    printStress (which attaches STRESSWRITE; the sharded analyses,
+    printStress (which attaches STRESSWRITE) at SIMULATE's rates (the
+    mesh evaluates analyses once a call, five of them sharded, through
+    ParallelSimulation.run_analyses, as the JAX mesh does,
     ddcmd_tpu/run/parallel_sim.py:1117-1148), the SIMULATE transform=
     list (the JAX mesh applies no transform), printGraphs and the
     per-group energy files (written at printrate when the SYSTEM has more
@@ -170,8 +172,10 @@ def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo):
     names = [n for n in simobj.get_strv("analysis") if db.find(n, "ANALYSIS")]
     if names:
         raise NotImplementedError(
-            f"SIMULATE analysis={' '.join(names)}: the mesh runs no analysis "
-            "yet (the sharded analyses, ROADMAP queue 1, item 25)")
+            f"SIMULATE analysis={' '.join(names)}: the mesh runs analyses "
+            "through run_analyses() (five of them sharded), not at "
+            "SIMULATE's eval and output rates yet (ROADMAP queue 1, item "
+            "25)")
     names = [n for n in simobj.get_strv("transform")
              if db.find(n, "TRANSFORM")]
     if names:
@@ -180,9 +184,9 @@ def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo):
             "transform yet, as the JAX mesh (ROADMAP queue 1, item 25)")
     if printinfo.print_stress:
         raise NotImplementedError(
-            "PRINTINFO printStress attaches the STRESSWRITE analysis, which "
-            "the mesh does not run yet (the sharded analyses, ROADMAP queue "
-            "1, item 25)")
+            "PRINTINFO printStress attaches the STRESSWRITE analysis at "
+            "printrate; the mesh runs analyses through run_analyses(), not "
+            "at SIMULATE's rates yet (ROADMAP queue 1, item 25)")
     if printinfo.print_graphs:
         raise NotImplementedError(
             "PRINTINFO printGraphs: the mesh does not write the graph files "

@@ -188,8 +188,8 @@ _DEFORMATION = (lambda s: s.replace(
                  r"mesh:printStress attaches.*item 25",
                  id=r"<lambda>-mesh:printStress+printGraphs.*item 25"),
     # what the mesh still refuses where Simulation runs the deck on its
-    # cell-block engine: a triclinic box and non-periodic axes
-    (lambda s: _tilted(s), r"mesh:triclinic.*item 25"),
+    # cell-block engine: non-periodic axes (a triclinic box runs,
+    # test_tilted_deck_runs_under_the_mesh)
     (lambda s: s.replace("pbc=7;", "pbc=3;"), r"mesh:pbc=3.*item 25"),
     # the mesh's potential selection: terms the JAX mesh drops silently
     # raise by name, as does a deck with no nonbond term
@@ -227,6 +227,31 @@ def test_unported_deck_features_raise(tmp_path, edit, what):
                                device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+def test_tilted_deck_runs_under_the_mesh(tmp_path):
+    """The water deck in a triclinic box (_tilted), which the mesh refused
+    until it took triclinic bricks: ParallelSimulation at (1,1,1) picks
+    the list engine and its first energy equals Simulation's (cell-block
+    engine) within the mesh's 2e-5."""
+    import torch.distributed as dist
+
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    _, td = _decks(tmp_path, edit=_tilted)
+    sim = Simulation(t_load(td)[0], td, run_dir=td, device="cpu")
+    sim.first_energy()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        ps = ParallelSimulation(t_load(td)[0], td, shape=(1, 1, 1),
+                                device="cpu")
+        e = ps.first_energy()
+    finally:
+        dist.destroy_process_group()
+    assert not ps.sysdef.box.ortho and ps.shard_engine == "nlist"
+    assert e == pytest.approx(float(sim.ss.energy.eion), rel=2e-5)
 
 
 @pytest.mark.parametrize("edit", [_BERENDSEN, _NPTGLF, _DEFORMATION],

@@ -64,24 +64,34 @@ def system():
 
 def _jax_reference(spec, dtype, bonded=False):
     """The JAX package's single-device list evaluation of the system (the
-    dry run's e_ref0 and, with the bonds, its bonded reference): (e, f,
-    max |f|)."""
+    dry run's e_ref0 and, with the bonds, its bonded reference), in one
+    jit: (e, f, max |f|)."""
+    import jax
+
     L, n = float(spec["L"]), len(spec["r"])
     grid = JCellGrid.plan([L] * 3, float(spec["rcut"]), SKIN, n, n)
-    r = jnp.asarray(spec["r"], dtype)
-    Lv = jnp.asarray([L] * 3, dtype)
-    nbr, _, ov = j_build(r, jnp.ones(n, dtype), Lv, grid)
-    assert not bool(ov)
     tables = {k: jnp.asarray(spec[k], dtype)
               for k in ("sigma", "eps", "shift", "rcut2", "krf", "crf",
                         "keR")}
-    f, e, *_ = j_martini(r, jnp.asarray(spec["q"], dtype),
-                         jnp.asarray(spec["species"]), jnp.ones(n, dtype),
-                         nbr, Lv, tables)
+    btab = None
     if bonded:
         bt = JBondedTerms(bonds=spec["bonds"], bond_parms=spec["bond_parms"])
-        fb, eb, _, _ = j_bonded_eval(r, Lv, j_dbt(bt, dtype), n, dtype)
-        f, e = f + fb, e + eb
+        btab = j_dbt(bt, dtype)
+
+    @jax.jit
+    def run(r, q, species):
+        Lv = jnp.asarray([L] * 3, dtype)
+        ones = jnp.ones(n, dtype)
+        nbr, _, ov = j_build(r, ones, Lv, grid)
+        f, e, *_ = j_martini(r, q, species, ones, nbr, Lv, tables)
+        if btab is not None:
+            fb, eb, _, _ = j_bonded_eval(r, Lv, btab, n, dtype)
+            f, e = f + fb, e + eb
+        return f, e, ov
+
+    f, e, ov = run(jnp.asarray(spec["r"], dtype),
+                   jnp.asarray(spec["q"], dtype), jnp.asarray(spec["species"]))
+    assert not bool(ov)
     f = np.asarray(f, np.float64)
     return float(e), f, float(np.linalg.norm(f, axis=1).max())
 
@@ -151,27 +161,53 @@ def _jax_mesh_first_forces(spec, shape=SHAPE, move=None):
     return float(e), out
 
 
+def _checked(z, spec):
+    """One leg's results: no overflow, finite forces, every particle
+    owned once after the migration."""
+    assert not (bool(z["ov"]) or bool(z["ov_s"]) or bool(z["ov_m"]))
+    assert bool(z["finite"])
+    assert sorted(z["gids"].tolist()) == sorted(spec["gid"].tolist())
+    return z
+
+
+@pytest.fixture(scope="module")
+def legs(system, tmp_path_factory):
+    """One spawn of eight ranks (torch_mesh_ranks.run_legs of list_bricks):
+    the bricks leg in f32 and the bonded bricks leg in f32 and f64, at
+    (2,2,2): {leg name: its results}."""
+    spec, dimers = system
+    tmp = tmp_path_factory.mktemp("legs")
+    paths = {}
+    for name, z in (("spec", spec), ("dimers", dimers)):
+        paths[name] = str(tmp / f"{name}.npz")
+        np.savez(paths[name], **z)
+    todo = {"bricks": ("spec", "float32"),
+            "bonded_float32": ("dimers", "float32"),
+            "bonded_float64": ("dimers", "float64")}
+    ranks.run_ranks(ranks.run_legs, 8, tmp, tuple(
+        ("list_bricks", (paths[z], SHAPE, dtype, str(tmp / f"{name}.npz")))
+        for name, (z, dtype) in todo.items()))
+    return {name: _checked(np.load(str(tmp / f"{name}.npz")),
+                           spec if z == "spec" else dimers)
+            for name, (z, _) in todo.items()}
+
+
 def _run(tmp_path, spec, dtype, name, shape=SHAPE, move=None):
     p = str(tmp_path / f"{name}_spec.npz")
     np.savez(p, **spec)
     out = str(tmp_path / f"{name}.npz")
     ranks.run_ranks(ranks.list_bricks, int(np.prod(shape)), tmp_path, p,
                     shape, dtype, out, move)
-    z = np.load(out)
-    assert not (bool(z["ov"]) or bool(z["ov_s"]) or bool(z["ov_m"]))
-    assert bool(z["finite"])
-    # every particle owned once after the migration
-    assert sorted(z["gids"].tolist()) == sorted(spec["gid"].tolist())
-    return z
+    return _checked(np.load(out), spec)
 
 
-def test_dry_run_bricks_leg(tmp_path, system):
+def test_dry_run_bricks_leg(system, legs):
     """The "bricks" leg on the list engine at (2,2,2) in f32: first
     energy within 1e-4 relative of the JAX single-device list evaluation
     (the dry run's gate), forces by gid within 2e-5 of the force scale;
     one step and one migration without overflow."""
     spec, _ = system
-    z = _run(tmp_path, spec, "float32", "bricks")
+    z = legs["bricks"]
     e_ref, f_ref, _ = _jax_reference(spec, jnp.float32)
     assert abs(float(z["e"]) - e_ref) <= 1e-4 * max(abs(e_ref), 1.0)
     scale = np.abs(f_ref).max()
@@ -180,7 +216,7 @@ def test_dry_run_bricks_leg(tmp_path, system):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_dry_run_bonded_bricks_leg(tmp_path, system, dtype):
+def test_dry_run_bonded_bricks_leg(system, legs, dtype):
     """The "bonded bricks" leg (dimers: gid-keyed bonds resolved per
     term, constraints by gid, molecule-coherent migration) on the list
     engine at (2,2,2): in f32 the energy and the max force within the dry
@@ -190,7 +226,7 @@ def test_dry_run_bonded_bricks_leg(tmp_path, system, dtype):
     dimers whose atoms lie far apart: 1.6e-4 of the energy, which is why
     the dry run allows 1e-3)."""
     _, dimers = system
-    z = _run(tmp_path, dimers, dtype, f"bonded_{dtype}")
+    z = legs[f"bonded_{dtype}"]
     if dtype == "float32":
         e_ref, _, fmax = _jax_reference(dimers, jnp.float32, bonded=True)
         assert abs(float(z["e"]) - e_ref) <= 1e-3 * max(abs(e_ref), 1.0)

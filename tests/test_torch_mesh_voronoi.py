@@ -56,6 +56,31 @@ def deck(tmp_path_factory):
                 r=np.asarray(sd.state.r[:n], np.float64))
 
 
+@pytest.fixture(scope="module")
+def eight(deck, tmp_path_factory):
+    """One spawn of eight gloo ranks (torch_mesh_ranks.run_legs) for the
+    mesh tests below: the first forces after one rebalance, the halo
+    after one rebalance, six steps at rate 2 (all on the deck), and on a
+    fresh copy of it the checkpoint after one rebalance and the mesh
+    restarted from it.  {leg: the npz path (prefix) it wrote}."""
+    tmp = tmp_path_factory.mktemp("vor8")
+    ck = str(tmp / "deck")
+    os.makedirs(ck)
+    ranks.skewed_water(ck, n=4000)
+    ranks.set_loadbalance(ck, "VORONOI", rate=2, update_rate=2)
+    out = {k: str(tmp / f"{k}.npz") for k in ("ff", "run", "ck", "rs")}
+    out.update(halo=str(tmp / "halo"), ck_dir=ck)
+    d = deck["d"]
+    ranks.run_ranks(ranks.run_legs, 8, tmp, (
+        ("mesh_forces", (d, SHAPE, out["ff"], None, "float32", 0, True)),
+        ("voronoi_halo", (d, SHAPE, out["halo"])),
+        ("mesh_forces", (d, SHAPE, out["run"], None, "float32", 6)),
+        ("voronoi_checkpoint", (ck, SHAPE, ck, out["ck"])),
+        ("voronoi_checkpoint", (ck, SHAPE, ck, out["rs"],
+                                os.path.join(ck, "restart")))))
+    return out
+
+
 def test_host_functions_equal_jax(deck):
     """assign_host, face_margins, clamp_centers and balance_step of the
     port equal the JAX package's on the deck's positions, bit for bit,
@@ -78,16 +103,13 @@ def test_host_functions_equal_jax(deck):
         np.testing.assert_array_equal(a, b)
 
 
-def test_voronoi_first_forces_match_jax(tmp_path, deck):
+def test_voronoi_first_forces_match_jax(deck, eight):
     """After one rebalance (one balance_step from the brick centres) the
     centres and margins are the JAX package's from the same positions,
     the mesh runs the list engine, and its first energy and forces match
     the JAX package's f64 Simulation (energy 2e-5 relative, forces 4e-5
     of the scale)."""
-    out = str(tmp_path / "ff.npz")
-    ranks.run_ranks(ranks.mesh_forces, 8, tmp_path, deck["d"], SHAPE, out,
-                    None, "float32", 0, True)
-    z = np.load(out)
+    z = np.load(eight["ff"])
     assert str(z["engine"]) == "nlist" and not bool(z["ov"])
     c, m = jv.balance_step(jv.nominal_centers(deck["L"], SHAPE), deck["r"],
                            deck["L"], SHAPE, RLIST)
@@ -99,12 +121,11 @@ def test_voronoi_first_forces_match_jax(tmp_path, deck):
     assert float(np.abs(z["f"] - deck["f"]).max()) <= F_TOL * scale
 
 
-def test_voronoi_halo_complete(tmp_path, deck):
+def test_voronoi_halo_complete(deck, eight):
     """Each rank's ghosts hold every particle within rlist of a particle
     it owns (its Voronoi domain's neighbours), and lie within the window
     of rlist plus each axis's margin about its nominal brick."""
-    out = str(tmp_path / "halo")
-    ranks.run_ranks(ranks.voronoi_halo, 8, tmp_path, deck["d"], SHAPE, out)
+    out = eight["halo"]
     z = np.load(out + ".npz")
     r, L, margins = z["r"], z["L"], z["margins"]
     owner = tv.assign_host(r, z["centers"], L, SHAPE)
@@ -129,45 +150,31 @@ def test_voronoi_halo_complete(tmp_path, deck):
                           + margins[a] + 1e-6)
 
 
-def test_voronoi_rebalance_at_rate(tmp_path, deck):
+def test_voronoi_rebalance_at_rate(deck, eight):
     """At rate 2 with updateRate 2, six steps rebalance at loops 2 and 4;
     every particle stays owned once and the forces stay finite."""
-    out = str(tmp_path / "run.npz")
-    ranks.run_ranks(ranks.mesh_forces, 8, tmp_path, deck["d"], SHAPE, out,
-                    None, "float32", 6)
-    z = np.load(out)
+    z = np.load(eight["run"])
     assert int(z["n_rebalance"]) == 2 and int(z["loop"]) == 6
     assert bool(z["finite"])
     assert sorted(z["gids"].tolist()) == list(range(deck["n"]))
 
 
-def test_voronoi_pxyz_restart_both_meshes(tmp_path, deck):
+def test_voronoi_pxyz_restart_both_meshes(eight):
     """A checkpoint after one rebalance writes the centres into its pxyz;
     the port's mesh restarted from it resumes them (its first energy the
     checkpointed mesh's), and so does the JAX package's mesh."""
     from ddcmd_tpu.run.parallel_sim import \
         ParallelSimulation as JParallelSimulation
 
-    d = str(tmp_path / "deck")
-    os.makedirs(d)
-    ranks.skewed_water(d, n=4000)
-    ranks.set_loadbalance(d, "VORONOI", rate=2, update_rate=2)
-    out = str(tmp_path / "ck.npz")
-    (tmp_path / "a").mkdir()
-    ranks.run_ranks(ranks.voronoi_checkpoint, 8, tmp_path / "a", d, SHAPE, d,
-                    out)
-    z = np.load(out)
+    d = eight["ck_dir"]
+    z = np.load(eight["ck"])
     saved = read_pxyz_full(os.path.join(str(z["snap"]), "pxyz"))
     assert saved["lb"] == "voronoi"
     c = np.asarray(saved["voronoi"]["centers"]).reshape(z["centers"].shape)
     # the pxyz writes centres as %.8f in Angstrom: 5e-10 nm
     np.testing.assert_allclose(c, z["centers"], rtol=0, atol=1e-9)
     restart = os.path.join(d, "restart")
-    out2 = str(tmp_path / "rs.npz")
-    (tmp_path / "b").mkdir()
-    ranks.run_ranks(ranks.voronoi_checkpoint, 8, tmp_path / "b", d, SHAPE, d,
-                    out2, restart)
-    rz = np.load(out2)
+    rz = np.load(eight["rs"])
     np.testing.assert_array_equal(rz["centers"], c)
     assert float(rz["e"]) == pytest.approx(float(z["e"]), rel=1e-6)
     jps = JParallelSimulation(*j_load(d, restart=restart), shape=SHAPE)

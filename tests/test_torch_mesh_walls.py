@@ -19,6 +19,8 @@ axis it misses ghosts across the periodic seam, which the port's halo
 holds (parallel/brick.py).
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -59,6 +61,53 @@ def deck(tmp_path_factory):
                 gid=gid64(sd.collection.gid))
 
 
+def _seam_case():
+    """test_seam_crossing_migrates_to_its_brick's state: 2000 particles in
+    a unit box under ORCB walls at (2,2,2), rlist 0.08, and the row of
+    the top x-slab moved to the unwrapped fraction x_new."""
+    shape, L, rlist = (2, 2, 2), 1.0, 0.08
+    r = (np.random.default_rng(4).random((2000, 3)) - 0.5).astype(
+        np.float32)
+    walls = tuple(_orcb(r, shape, rlist))
+    fx = r[:, 0] + 0.5
+    row = int(np.nonzero(fx > walls[0][1] + 0.05)[0][0])
+    return shape, walls, r, L, rlist, row, np.float32(0.503)
+
+
+@pytest.fixture(scope="module")
+def eight(deck, tmp_path_factory):
+    """One spawn of eight gloo ranks (torch_mesh_ranks.run_legs) for the
+    tests below, each leg on its own copy of the deck: the first forces
+    under ZRAMP and BISECTION walls, the BISECTION run with rebalances,
+    the ORCB misplacement at (4,2,1) and the seam-crossing migration.
+    {leg: the npz path (prefix) it wrote}."""
+    tmp = tmp_path_factory.mktemp("walls8")
+    out, todo = {}, []
+
+    def deck_copy(name, *lb, **kw):
+        d = str(tmp / name)
+        shutil.copytree(deck["d"], d)
+        ranks.set_loadbalance(d, *lb, **kw)
+        return d
+
+    for kind in ("ZRAMP", "BISECTION"):
+        out[kind] = str(tmp / f"ff_{kind}.npz")
+        todo.append(("lb_first_forces",
+                     (deck_copy(kind, kind), SHAPE, out[kind])))
+    out["run"] = str(tmp / "run.npz")
+    todo.append(("lb_run", (deck_copy("run", "BISECTION", rate=5,
+                                      update_rate=5), SHAPE, 15,
+                            out["run"])))
+    out["mis"] = str(tmp / "mis.npz")
+    todo.append(("orcb_misplaced", (deck_copy("mis", "BISECTION",
+                                              update_rate=5), (4, 2, 1),
+                                    out["mis"])))
+    out["seam"] = str(tmp / "seam")
+    todo.append(("seam_migrate", _seam_case() + (out["seam"],)))
+    ranks.run_ranks(ranks.run_legs, 8, tmp, todo)
+    return out
+
+
 def _jax_walls(kind, r, L):
     """The JAX package's walls from these positions (its __init__)."""
     from ddcmd_tpu.parallel.loadbalance import (clamp_walls, orcb_walls,
@@ -96,15 +145,12 @@ def _required(r, L, walls, shape, rlist=RLIST):
 
 
 @pytest.mark.parametrize("kind", ["ZRAMP", "BISECTION"])
-def test_walls_first_forces_match_jax(tmp_path, deck, kind):
+def test_walls_first_forces_match_jax(deck, eight, kind):
     """(2,2,2) under ZRAMP (tensor walls) and BISECTION (ORCB walls): the
     walls equal the JAX package's from the same positions; first forces,
     energy and virial match the JAX package's f64 Simulation; each rank's
     halo holds every particle within rlist of its brick exactly once."""
-    d = deck["d"]
-    ranks.set_loadbalance(d, kind)
-    out = str(tmp_path / "ff.npz")
-    ranks.run_ranks(ranks.lb_first_forces, 8, tmp_path, d, SHAPE, out)
+    out = eight[kind]
     z = np.load(out)
     assert not bool(z["ov"])
     jw = _jax_walls(kind, deck["r"], deck["L"])
@@ -121,7 +167,7 @@ def test_walls_first_forces_match_jax(tmp_path, deck, kind):
     need = _required(deck["r"], deck["L"], jw, SHAPE)
     row = {int(g): i for i, g in enumerate(deck["gid"])}
     for rank in range(8):
-        g = np.load(str(tmp_path / f"ff.npz_ghosts_{rank}.npz"))
+        g = np.load(f"{out}_ghosts_{rank}.npz")
         got = [row[int(x)] for x in g["gid"]]
         assert not bool(g["ov"])
         assert len(got) == len(set(got))                   # each once
@@ -204,15 +250,11 @@ def test_orcb_three_brick_axis_jax_misses_port_holds(tmp_path):
         assert need[k] <= set(g), (k, len(need[k] - set(g)))
 
 
-def test_rebalance_at_rate_with_migration(tmp_path, deck):
+def test_rebalance_at_rate_with_migration(deck, eight):
     """BISECTION at rate 5 on a 5-step cadence: 15 steps rebalance at
     loops 5 and 10, each chunk migrating; every particle owned once
     before and after, finite forces, walls still ORCB."""
-    d = deck["d"]
-    ranks.set_loadbalance(d, "BISECTION", rate=5, update_rate=5)
-    out = str(tmp_path / "run.npz")
-    ranks.run_ranks(ranks.lb_run, 8, tmp_path, d, SHAPE, 15, out)
-    z = np.load(out)
+    z = np.load(eight["run"])
     assert int(z["loop"]) == 15 and int(z["n_rebalance"]) == 2
     for key in ("gids0", "gids1"):
         np.testing.assert_array_equal(np.sort(z[key]), np.sort(deck["gid"]))
@@ -221,22 +263,18 @@ def test_rebalance_at_rate_with_migration(tmp_path, deck):
     assert not np.array_equal(z["w1"], z["aw1"])       # walls moved
 
 
-def test_orcb_misplacement_recovered_by_redistribute(tmp_path, deck):
+def test_orcb_misplacement_recovered_by_redistribute(deck, eight):
     """(4,2,1) under BISECTION: a particle moved two x-slabs away is left
     one brick short by the chunk's staged hop; the ORCB containment check
     flags it and the run's ladder redistributes once, keeping every
     particle."""
-    d = deck["d"]
-    ranks.set_loadbalance(d, "BISECTION", update_rate=5)
-    out = str(tmp_path / "mis.npz")
-    ranks.run_ranks(ranks.orcb_misplaced, 8, tmp_path, d, (4, 2, 1), out)
-    z = np.load(out)
+    z = np.load(eight["mis"])
     assert int(z["redistributed"]) == 1
     assert int(z["loop"]) == 5 and bool(z["finite"])
     np.testing.assert_array_equal(np.sort(z["gids1"]), np.sort(deck["gid"]))
 
 
-def test_seam_crossing_migrates_to_its_brick(tmp_path):
+def test_seam_crossing_migrates_to_its_brick(eight):
     """Finding: a particle of the top x-slab that drifted across the
     periodic seam (x fraction 0.503, unwrapped) under ORCB walls.  The
     JAX package's migration sends it toward the other face and its
@@ -250,13 +288,7 @@ def test_seam_crossing_migrates_to_its_brick(tmp_path):
                                           migrate_3d as jmig)
     from ddcmd_tpu.parallel.brickstep import make_brick_mesh
 
-    shape, L, rlist = (2, 2, 2), 1.0, 0.08
-    r = (np.random.default_rng(4).random((2000, 3)) - 0.5).astype(
-        np.float32)
-    walls = tuple(_orcb(r, shape, rlist))
-    fx = r[:, 0] + 0.5
-    row = int(np.nonzero(fx > walls[0][1] + 0.05)[0][0])
-    x_new = np.float32(0.503)
+    shape, walls, r, L, rlist, row, x_new = _seam_case()
     n = len(r)
     g = np.arange(n, dtype=np.int64)
     plan = JPlan(shape=shape, local_cap=n, halo_cap=n, migrate_cap=64,
@@ -278,10 +310,7 @@ def test_seam_crossing_migrates_to_its_brick(tmp_path):
     put = lambda a: jax.device_put(jnp.asarray(a),  # noqa: E731
                                    NamedSharding(mesh, PS))
     assert bool(f({k: put(v) for k, v in buf.items()}, put(mask)))
-    out = str(tmp_path / "seam")
-    ranks.run_ranks(ranks.seam_migrate, 8, tmp_path, shape, walls, r, L,
-                    rlist, row, x_new, out)
-    res = [np.load(f"{out}_{k}.npz") for k in range(8)]
+    res = [np.load(f"{eight['seam']}_{k}.npz") for k in range(8)]
     assert not any(bool(z["ov"]) for z in res)
     own = np.concatenate([z["own"] for z in res])
     np.testing.assert_array_equal(np.sort(own), g)

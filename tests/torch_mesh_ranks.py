@@ -437,26 +437,37 @@ def list_bricks(rank, spec, shape, dtype, out, move=None):
     """The dry run's brick legs on parallel/brickstep.BrickStepList: the
     system in the npz `spec` (r, v, q, mass, species, group, gid, the LJ
     and RF tables, L, rcut, skin; with `bonds` the dimers' bonds and
-    constraints, gid-keyed, and hgid) on a mesh of `shape` in `dtype`:
-    first forces gathered by gid, energy, overflow, then one step and one
-    migration (their overflows, every owned gid after it).  move: (gid,
-    x) sets that particle's x on its owner after the distribution, as if
-    it had drifted there since the last migration."""
+    constraints, gid-keyed, and hgid; with `h` a triclinic box) on a mesh
+    of `shape` in `dtype`: first forces gathered by gid, energy,
+    overflow, then one step and one migration (their overflows, every
+    owned gid after it).  move: (gid, x) sets that particle's x on its
+    owner after the distribution, as if it had drifted there since the
+    last migration."""
+    res = _list_bricks(rank, dict(np.load(spec)), shape, dtype, move)
+    if rank == 0:
+        np.savez(out, **res)
+
+
+def _list_bricks(rank, z, shape, dtype, move=None):
+    """list_bricks' work on the loaded spec `z`: its npz fields (on rank
+    0; the others' are those of their own copies)."""
     from ddcmd_tpu_torch.core.groups import Group, GroupTable
     from ddcmd_tpu_torch.nbr.celllist import CellGrid
     from ddcmd_tpu_torch.parallel.brick import BrickPlan, distribute_bricks
     from ddcmd_tpu_torch.parallel.brickstep import BrickStepList
     from ddcmd_tpu_torch.parallel.mesh import BrickMesh
 
-    z = dict(np.load(spec))
     dt_ = getattr(torch, dtype)
     n, L = len(z["r"]), float(z["L"])
+    geom = np.asarray(z["h"], np.float64) if "h" in z else np.full(3, L)
+    spans = (1.0 / np.linalg.norm(np.linalg.inv(geom), axis=1)
+             if geom.ndim == 2 else geom)
     rcut, skin = float(z["rcut"]), float(z["skin"])
     n_dev = int(np.prod(shape))
     plan = BrickPlan(shape=shape, local_cap=8 * n // n_dev,
                      halo_cap=4 * n // n_dev, migrate_cap=256,
                      rlist=rcut + skin)
-    grid = CellGrid.plan([L] * 3, rcut, skin, n,
+    grid = CellGrid.plan(spans, rcut, skin, n,
                          plan.local_cap + plan.ghost_cap)
     mesh = BrickMesh(shape, "cpu")
     tables = {k: torch.as_tensor(z[k], dtype=dt_)
@@ -470,7 +481,7 @@ def list_bricks(rank, spec, shape, dtype, out, move=None):
     arrays = {k: (z[k].astype(np.float64 if dtype == "float64"
                               else np.float32)
                   if k in ("r", "v", "q", "mass") else z[k]) for k in keys}
-    buf, mask, _ = distribute_bricks(arrays, [L] * 3, plan)
+    buf, mask, _ = distribute_bricks(arrays, geom, plan)
     rows = slice(rank * plan.local_cap, (rank + 1) * plan.local_cap)
     fields = {k: torch.as_tensor(v[rows]) for k, v in buf.items()}
     mask = torch.as_tensor(mask[rows])
@@ -491,7 +502,7 @@ def list_bricks(rank, spec, shape, dtype, out, move=None):
         bt.cons_dist, bt.n_constraints = z["cons_dist"], len(z["bonds"])
         kw = dict(bonded_plan=bplan, bonded_left=left,
                   cons_tables=constraint_gid_tables(bt, z["gid"]))
-    st = BrickStepList(mesh, plan, grid, tables, coeffs, 0.02, [L] * 3,
+    st = BrickStepList(mesh, plan, grid, tables, coeffs, 0.02, geom,
                        np.array([0, 1]), 0, 1, force_kind="martini",
                        dtype=dt_, **kw)
     f, e, virial, ov = st.first_forces(fields, mask)
@@ -505,11 +516,10 @@ def list_bricks(rank, spec, shape, dtype, out, move=None):
     fields3, mask3, _, ov_m = st.migrate(fields2, mask, f2)
     m3 = mesh.all_gather(mask3.to(torch.int64)).reshape(-1).bool()
     g3 = mesh.all_gather(fields3["gid"]).reshape(-1)[m3].numpy()
-    if rank == 0:
-        np.savez(out, e=float(e), f=f_gid, ov=bool(ov), ov_s=bool(ov_s),
-                 ov_m=bool(ov_m), gids=g3, e_step=float(scal[0]),
-                 finite=bool(torch.isfinite(f2[mask]).all()),
-                 fmax=float(np.linalg.norm(fa, axis=1).max()))
+    return dict(e=float(e), f=f_gid, ov=bool(ov), ov_s=bool(ov_s),
+                ov_m=bool(ov_m), gids=g3, e_step=float(scal[0]),
+                finite=bool(torch.isfinite(f2[mask]).all()),
+                fmax=float(np.linalg.norm(fa, axis=1).max()))
 
 
 def mesh_forces(rank, deck_dir, shape, out, engine=None, dtype="float32",
@@ -584,3 +594,187 @@ def voronoi_checkpoint(rank, deck_dir, shape, run_dir, out, restart=None):
     if rank == 0:
         np.savez(out, e=e, snap=snap, centers=ps.plan.voronoi["centers"],
                  margins=ps.plan.voronoi["margins"])
+
+
+# -- triclinic bricks (tests/test_torch_mesh_triclinic.py) -------------------
+
+def owners_by_gid(ps) -> np.ndarray:
+    """(n,) the rank that owns each particle, in the collection's order
+    (collective)."""
+    m = ps.mesh.all_gather(ps.mask.to(torch.int64)).numpy().astype(bool)
+    g = ps.mesh.all_gather(ps.fields["gid"]).numpy()
+    col = gid64_of(ps)
+    order = np.argsort(col, kind="stable")
+    out = np.full(len(col), -1, np.int64)
+    for r in range(ps.mesh.size):
+        out[order[np.searchsorted(col, g[r][m[r]], sorter=order)]] = r
+    return out
+
+
+def _deck_run(ps, steps):
+    """First energy and forces by gid, then `steps` steps: the owned gids
+    mesh-wide and whether the forces stayed finite."""
+    e = ps.first_energy()
+    f = ps.gather_by_gid(("f",))["f"]
+    ps.run(steps)
+    return dict(e=e, f=f, gids=_owned_gids(ps), loop=ps.loop,
+                finite=bool(torch.isfinite(ps.f[ps.mask]).all()))
+
+
+def triclinic_mesh(rank, spec, decks, out):
+    """The eight ranks of the triclinic tests.  The tilted synthetic
+    system of the npz `spec` through _list_bricks at (2,2,2) in f32 and
+    f64, and at (8,1,1) in f64 with the row spec["seam_gid"] moved past
+    the +x seam to spec["seam_x"]; then through ParallelSimulation at
+    (2,2,2) in f64: the GENERAL PAIR deck decks["pair"] (first energy and
+    forces by gid, two chunks, its checkpoint into the deck directory
+    and the mesh restarted from it), the ZRAMP deck decks["zramp"] (its
+    walls and owners, first forces, two chunks) and the VORONOI deck
+    decks["voronoi"] (its centres and owners at the start, then one
+    rebalance, first forces and two chunks).  Rank 0 writes every result
+    into the npz `out`, keys prefixed by leg."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    z = dict(np.load(spec))
+    res = {}
+    for key, shape, dtype, move in (
+            ("f32", (2, 2, 2), "float32", None),
+            ("f64", (2, 2, 2), "float64", None),
+            ("seam", (8, 1, 1), "float64",
+             (int(z["seam_gid"]), float(z["seam_x"])))):
+        out_k = _list_bricks(rank, z, shape, dtype, move)
+        res.update({f"{key}_{k}": v for k, v in out_k.items()})
+
+    def mesh(kind, restart=None):
+        d = decks[kind]
+        return ParallelSimulation(*load(d, restart=restart), shape=(2, 2, 2),
+                                  device="cpu", dtype=torch.float64)
+
+    ps = mesh("pair")
+    res.update({f"pair_{k}": v for k, v in _deck_run(ps, 20).items()},
+               pair_engine=ps.shard_engine, pair_h=ps.Lv.numpy())
+    res["pair_e1"] = ps.first_energy()
+    ps.write_checkpoint(decks["pair"])
+    ps2 = mesh("pair", os.path.join(decks["pair"], "restart"))
+    res.update(pair_restart_e=ps2.first_energy(),
+               pair_restart_h=ps2.Lv.numpy())
+    ps = mesh("zramp")
+    res.update(zramp_owner=owners_by_gid(ps), **{
+        f"zramp_{k}": v for k, v in _walls_npz(ps.plan.walls).items()})
+    res.update({f"zramp_{k}": v for k, v in _deck_run(ps, 20).items()})
+    ps = mesh("voronoi")
+    res.update(voronoi_owner=owners_by_gid(ps),
+               voronoi_centers=ps.plan.voronoi["centers"])
+    ps.rebalance()
+    res.update(voronoi_centers_rb=ps.plan.voronoi["centers"],
+               voronoi_margins_rb=ps.plan.voronoi["margins"],
+               voronoi_r_rb=ps.gather_by_gid(("r",))["r"])
+    res.update({f"voronoi_{k}": v for k, v in _deck_run(ps, 20).items()})
+    if rank == 0:
+        np.savez(out, **res)
+
+
+def triclinic_npt(rank, deck_dir, shape, steps, out):
+    """The GENERAL NPT deck through the mesh in f64: first energy, then
+    `steps` steps; the live h after them, the owned gids mesh-wide."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    ps = ParallelSimulation(*load(deck_dir), shape=shape, device="cpu",
+                            dtype=torch.float64)
+    res = _deck_run(ps, steps)
+    if rank == 0:
+        np.savez(out, h=ps.Lv.numpy(), engine=ps.shard_engine,
+                 barostat=ps.barostat is not None, **res)
+
+
+# -- the 1-D slab engine (tests/test_torch_slab.py) --------------------------
+
+def _slab_setup(z, walls=None, dtype=torch.float32):
+    """(plan, grid, tables, L, arrays) of the dry run's system on the
+    world's ring of slabs, walls: load-balanced wall fractions."""
+    from ddcmd_tpu_torch.nbr.celllist import CellGrid
+    from ddcmd_tpu_torch.parallel.slab import SlabPlan
+
+    n, L = len(z["r"]), float(z["L"])
+    n_dev = dist.get_world_size() if dist.is_initialized() else 1
+    rcut, skin = float(z["rcut"]), float(z["skin"])
+    plan = SlabPlan(n_dev=n_dev, local_cap=4 * n // n_dev,
+                    halo_cap=4 * n // n_dev, migrate_cap=256,
+                    rlist=rcut + skin, walls=walls)
+    grid = CellGrid.plan([L] * 3, rcut, skin, n,
+                         plan.local_cap + 2 * plan.halo_cap)
+    tables = {k: torch.as_tensor(z[k], dtype=dtype)
+              for k in ("sigma", "eps", "shift")}
+    tables.update({k: float(z[k]) for k in ("rcut2", "krf", "crf", "keR")})
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    arrays = {k: (z[k].astype(npdt) if k in ("r", "v", "q", "mass")
+                  else z[k])
+              for k in ("r", "v", "q", "mass", "species", "group", "gid")}
+    return plan, grid, tables, L, arrays
+
+
+def slab_legs(rank, spec, out):
+    """tests/test_parallel.py:53, 82, 145 on the port's slab ring: with
+    uniform slabs the first forces (collected by gid), energy and virial,
+    five LANGEVIN steps and a migration; with the ZRAMP walls spec["walls"]
+    the first forces and energy, three steps and a migration; in f64 with
+    the row spec["seam_gid"] moved past the +x seam to spec["seam_x"] the
+    first energy and forces.  Rank 0 writes the npz `out`."""
+    from ddcmd_tpu_torch.core.groups import Group, GroupTable
+    from ddcmd_tpu_torch.parallel.slab import collect, distribute
+    from ddcmd_tpu_torch.parallel.step import make_mesh, make_sharded_step
+
+    z = dict(np.load(spec))
+    mesh = make_mesh()
+    res = {}
+    for key, walls, group, steps, dtype in (
+            ("uniform", None, "LANGEVIN", 5, torch.float32),
+            ("zramp", tuple(z["walls"]), "FREE", 3, torch.float32),
+            ("seam", None, "FREE", 0, torch.float64)):
+        plan, grid, tables, L, arrays = _slab_setup(z, walls, dtype)
+        coeffs = GroupTable.build([Group("g", 0, group, Teq=lambda t: 300.0,
+                                         tau=1.0)]).coefficients(
+                                             0.0, 0.01, dtype=dtype)
+        step, first, migrate = make_sharded_step(
+            mesh, plan, grid, tables, coeffs, 0.02, [L] * 3,
+            np.array([0, 1]), len(z["r"]), seed=1)
+        buf, mask, counts = distribute(arrays, L, plan)
+        rows = slice(rank * plan.local_cap, (rank + 1) * plan.local_cap)
+        fields = {k: torch.as_tensor(v[rows]) for k, v in buf.items()}
+        mask = torch.as_tensor(mask[rows])
+        if key == "seam":
+            hit = fields["gid"] == int(z["seam_gid"])
+            fields["r"][mask & hit, 0] = float(z["seam_x"])
+        f, e, virial, ov = first(fields, mask)
+        got = collect(dict(fields, f=f), mask, plan, mesh)
+        f_gid = np.zeros((len(z["r"]), 3))
+        f_gid[got["gid"]] = got["f"]
+        res.update({f"{key}_e": float(e), f"{key}_virial": virial.numpy(),
+                    f"{key}_ov": bool(ov), f"{key}_f": f_gid,
+                    f"{key}_counts": counts})
+        ovs, scal = [], []
+        for i in range(steps):
+            fields, f, s, ov_s = step(fields, mask, f, i)
+            ovs.append(bool(ov_s))
+            scal.append(s.numpy())
+        if steps:
+            fields, mask, f, ov_m = migrate(fields, mask, f)
+            m_all = mesh.all_gather(mask.to(torch.int64)).reshape(-1).bool()
+            res.update({f"{key}_ov_steps": np.array(ovs),
+                        f"{key}_scalars": np.array(scal),
+                        f"{key}_ov_m": bool(ov_m),
+                        f"{key}_gids": mesh.all_gather(fields["gid"]
+                                                       ).reshape(-1)[m_all]
+                        .numpy(),
+                        f"{key}_finite": bool(torch.isfinite(f[mask]).all())})
+    if rank == 0:
+        np.savez(out, **res)
+
+
+def run_legs(rank, todo):
+    """Several rank functions of this module in one spawn, in order: todo
+    holds (function name, its arguments after the rank)."""
+    for name, args in todo:
+        globals()[name](rank, *args)
