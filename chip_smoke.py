@@ -4,7 +4,8 @@
                            --integrators-only | --masters-only |
                            --transforms-only | --analyses-only |
                            --rebuilds-only | --loadbalance-only |
-                           --listmesh-only | --triclinic-only]
+                           --listmesh-only | --triclinic-only |
+                           --outputs-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -66,14 +67,14 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      the water box's and the full bilayer's start states (no simulate
      path reaches it), against the half-stencil evaluation;
   4. water slice: the Martini water box through `ddcmd_tpu_torch.run.cli
-     simulate`, 3000 NVT steps in dispatches of 400;
+     simulate`, SLICE_STEPS NVT steps in dispatches of 400;
   5. small-bilayer slice: a 2,888-bead bilayer through the CLI, 400 NPT
      steps on the per-cell kernel with exclusions;
   6. bilayer slice: the ~100k-bead DPPC bilayer through the CLI in two
      stages, as bench.py runs it: 3000 steps at dt = 5 fs, a checkpoint,
-     then 3000 NPT steps at dt = 20 fs from that restart;
+     then RUN_STEPS NPT steps at dt = 20 fs from that restart;
   7. EAM crystal, nc = 12 (6,912 Cu atoms, RATIONAL, per-cell EAM
-     kernels): 3000 NVT steps through the CLI, a checkpoint, then 2000
+     kernels): EAM_STEPS NVT steps through the CLI, a checkpoint, then 2000
      NVE steps (a FREE group) from that restart, whose energy drift is
      read;
   8. EAM crystal, nc = 32 (131,072 atoms, column EAM kernels): 2000 NVT
@@ -83,7 +84,7 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      500-atom EAM crystal) against the same runs on the CPU (plain
      twins);
  10. mesh water: `ParallelSimulation` on the water box at (1,1,1): first
-     energy against the single-device Simulation's, 3000 NVT steps in
+     energy against the single-device Simulation's, MESH_STEPS NVT steps in
      dispatches of 400 through the extended-grid pair kernel only;
  11. mesh EAM: the nc = 32 crystal (131,072 atoms) the same way, 2000
      NVT steps through the two extended-grid EAM passes only;
@@ -93,18 +94,18 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      1000 NPT steps (bonds, angles, RATTLE, in-kernel exclusions) through
      the extended-grid pair kernel with exclusions only;
  13. PAIR: the Lennard-Jones fluid (models.lj_fluid, LANGEVIN 120 K)
-     through the CLI at 4,096 atoms (3000 steps, per-cell kernel) and
-     131,072 atoms (2000 steps, the kernel its plan gives), the plan and
+     through the CLI at 4,096 atoms (LJ_STEPS, per-cell kernel) and
+     131,072 atoms (LJ_BIG_STEPS, the kernel its plan gives), the plan and
      the kernel printed, the mean T gated, that kernel held against its
      plain version on the run's slots; a two-species variant (per-pair
      PAIRPARMS, T = 2) through the CLI at 4,096 atoms and on the
      131,072-atom start state, kernel vs plain on its slots;
  14. mesh PAIR: the 131,072-atom fluid through `ParallelSimulation` at
-     (1,1,1): first energy against the single-device one, 2000 NVT
-     steps through the extended-grid pair kernel only;
+     (1,1,1): first energy against the single-device one, MESH_LJ_STEPS
+     NVT steps through the extended-grid pair kernel only;
  15. NPT water: the water box under the reference deck's NGLFCONSTRAINT
-     barostat (P0 1 bar, beta 3.0e-4/bar, tauBarostat 1 ps), 3000 steps
-     through the CLI and 3000 through the mesh at (1,1,1) (first energy
+     barostat (P0 1 bar, beta 3.0e-4/bar, tauBarostat 1 ps), NPT_STEPS
+     steps through the CLI and through the mesh at (1,1,1) (first energy
      against Simulation's): mean T and the box gated, mean P printed;
  16. the plain cell-block engine, which launches no kernel: (a) the
      4,096-atom fluid's first energy and forces against the kernels' on
@@ -119,7 +120,7 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      deck's slots, #5 on the nc = 32 one's, #7 on its (1,1,1) plan) in
      their RATIONAL_SHIFTED form against their plain versions, with
      device times and bounds; (c) the refit through the CLI at nc = 12
-     (#4) and nc = 32 (#5), 2000 NVT steps each, first energies against
+     (#4) and nc = 32 (#5), TAB_STEPS NVT steps each, first energies against
      the RATIONAL deck's, and at nc = 32 through the mesh at (1,1,1) (#7,
      first energy against Simulation's); (d) the unfitted nc = 32 TABULAR
      deck on the plain cell-block EAM engine (no kernel), its first
@@ -308,6 +309,29 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      with host halos against the single-device list, then SLAB_STEPS f64
      steps of make_sharded_step at one slab on the same box, FREE, the
      first SLAB_CMP of them against Simulation's list engine.
+ 28. the mesh's outputs at their rates and run(migrate_rate=) (ROADMAP
+     queue 1, item 2): (a) the water box (6,173 beads, f32) through
+     ParallelSimulation at (1,1,1) on #6 with phase 23's WATER_ANALYSES,
+     printStress, printGraphs and two LANGEVIN groups, OUT_STEPS steps:
+     every dispatch ends on each rate's multiple, VCMWRITE, stress.data,
+     the group files and the graphs have their rows, -tr(stress)/3
+     matches the printed pressure, #6 at least once a step and no other
+     kernel, steps/s beside the same deck without outputs (not gated);
+     (b) the same outputs in f64 on a FREE deck at OUT_B_RATES,
+     OUT_B_STEPS steps through the mesh's list engine and through
+     Simulation(engine="nlist") from one state: counts within
+     AN_COUNT_TOL, the files within AN_FLOAT_TOL (outputs_agree), the
+     stress and group files within 1e-8 beyond their printed digits,
+     nlocal equal; (c) the NPT water deck in f64, OUT_C_STEPS steps at
+     the default cadence and with migrate_rate = 2 chunk_steps (the chunk
+     length), loop exact, box and energies finite, the first forces'
+     gap to Simulation's printed; then (a)'s run continued OUT_C_STEPS
+     NVT steps with migrate_rate = 2 chunk_steps (per-step dispatches on
+     #6), mean T within TEMP_TOL of 310 K, the counters set to 0 just
+     before this leg: #6 at least once a step and no other kernel; (d)
+     #6 against its plain version on (a)'s last records (row
+     cellpair_half_ext_outputs, (a)'s launches) and on the NVT leg's
+     (row cellpair_half_ext_migrate_rate, that leg's launches).
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -319,7 +343,8 @@ with phase 20, --masters-only with phase 21 (making the bilayer's restart
 as phase 6's first stage does), --transforms-only with phase 22,
 --analyses-only with phase 23, --rebuilds-only with phase 24,
 --loadbalance-only with phase 25, --listmesh-only with phase 26,
---triclinic-only with phase 27.
+--triclinic-only with phase 27, --outputs-only with phase 28.  The line
+before the card line gives the script's seconds in all.
 """
 
 import contextlib
@@ -339,7 +364,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-SLICE_STEPS = 3000
+SLICE_STEPS = 2000
 DISPATCH = 400
 TAIL = 1000              # steps the temperature and rate are read over
 TIMED_CALLS = 200        # kernel calls per timing
@@ -347,7 +372,7 @@ PLAIN_CALLS = 3          # plain-twin calls per timing, after one warm-up
                          # call (each takes 10-500 ms at full size)
 BILAYER_NX = 48          # the builder's default: ~100k beads
 EQ_STEPS, EQ_DT = 3000, 5.0
-RUN_STEPS = 3000
+RUN_STEPS = 2000
 SMALL_NX, SMALL_STEPS = 8, 400
 BILAYER_T = 323.0
 TEMP_TOL = 10.0          # K, on the mean T over the last TAIL steps
@@ -360,7 +385,7 @@ TAB_R_ROWS, TAB_RHO_ROWS, TAB_RHO_MAX = 4000, 8000, 400.0
 # phase 17: the refit decks' steps through the CLI (nc = 12 and 32) and
 # the mesh, the unfitted TABULAR deck's on the cell-block EAM engine, the
 # steps of a busy-share window
-TAB_STEPS, MESH_TAB_STEPS, TAB_CB_STEPS, PROFILE_STEPS = 2000, 2000, 20, 10
+TAB_STEPS, MESH_TAB_STEPS, TAB_CB_STEPS, PROFILE_STEPS = 1500, 1500, 20, 10
 # the refit's first energy against the RATIONAL deck's, and the table
 # lookups' energy and forces (the JAX package's tests/test_eam.py
 # tolerances for tabularFit=rational and for tabular against analytic)
@@ -392,16 +417,16 @@ RAGGED_RCUT, RAGGED_SKIN = 0.6, 0.3       # the pair kernels' ragged cases
 NVE_DRIFT_TOL = 1e-3     # eV/atom, max |Etot - Etot0| over the NVE leg
 DEVICE = "cuda:0"
 T_START = time.perf_counter()   # the phase lines' clock
-MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 3000, 2000, 1000
+MESH_STEPS, MESH_EAM_STEPS, MESH_BL_STEPS = 2000, 2000, 1000
 # PAIR Lennard-Jones fluids (models.lj_fluid: 0.0208 atoms/A^3, 8.5 A
 # cutoff, 1.2 A skin, LANGEVIN 120 K): 4,096 atoms (58.2 A box) and
 # 131,072 (184.9 A), the two-species variant's steps, the mesh's
-LJ_N, LJ_STEPS, LJ_BIG_N, LJ_BIG_STEPS = 4096, 3000, 131072, 2000
-LJ_T2_STEPS, MESH_LJ_STEPS, LJ_T = 500, 2000, 120.0
+LJ_N, LJ_STEPS, LJ_BIG_N, LJ_BIG_STEPS = 4096, 2000, 131072, 1500
+LJ_T2_STEPS, MESH_LJ_STEPS, LJ_T = 500, 1500, 120.0
 # the reference deck's integrator (BASELINE.md:14) on the water box
 NPT_INTEGRATOR = ("type=NGLFCONSTRAINT; T=310.0K; P0=1.0 bar; "
                   "beta=3.0e-4/bar; tauBarostat=1.0 ps;")
-NPT_STEPS = 3000
+NPT_STEPS = 2000
 # the plain cell-block engine: the REFLECT slab's steps, the monoclinic
 # box's lattice edge (24^3 = 13,824 atoms) and steps
 CB_SLAB_STEPS, CB_TRI_M, CB_TRI_STEPS = 1000, 24, 250
@@ -3910,8 +3935,8 @@ def regroup(d, groups, assign, extra="", printrate=0, atoms=None,
     gets the atoms' species names instead); `extra`: more deck objects
     (UNIONGROUP members); `atoms`: the atoms file to regroup (a restart's
     snapshot; d/atoms#000000 by default).  With more than one group the
-    deck's printrate becomes `printrate`: 0 by default, since the brick
-    mesh does not write the per-group energy files (item 25)."""
+    deck's printrate becomes `printrate`: 0 by default (no per-group
+    energy files)."""
     import re
 
     atoms = atoms or os.path.join(d, "atoms#000000")
@@ -5272,18 +5297,18 @@ def analysis_files(root):
     return out
 
 
-def masters_agree(card, cpu, dir_card, dir_cpu):
+def masters_agree(card, cpu, dir_card, dir_cpu, skip_files=()):
     """The analysis master's results on the card against the CPU's on one
     state: the integer histograms and counts (g(r), the KE and z
     histograms, the Ackland-Jones classes, the pair count) within
     AN_COUNT_TOL of their total; QUATERNION's file byte-equal (it reads
     the positions only); every number of the other files within
-    AN_FLOAT_TOL of the largest magnitude of its column.  Returns
-    (worst count share, worst float share, what differs and by how
-    much)."""
+    AN_FLOAT_TOL of the largest magnitude of its column; files named in
+    skip_files (base names) are left to the caller.  Returns (worst count
+    share, worst float share, what differs and by how much)."""
     from ddcmd_tpu_torch.analysis import registry as areg
 
-    worst_n, worst_f, skip, lines = 0.0, 0.0, set(), []
+    worst_n, worst_f, skip, lines = 0.0, 0.0, set(skip_files), []
     for a, b in zip(card.analyses, cpu.analyses):
         if isinstance(a, (areg.PairCorrelation, areg.KineticEnergyDistn,
                           areg.ZDensity)):
@@ -5302,14 +5327,27 @@ def masters_agree(card, cpu, dir_card, dir_cpu):
         worst_n = max(worst_n, share)
         if share:
             lines.append(f"{a.name} {share:.3g} ({moved:g} of {total:g})")
-    fa, fb = analysis_files(dir_card), analysis_files(dir_cpu)
+    worst_f, more = files_agree(analysis_files(dir_card),
+                                analysis_files(dir_cpu), skip)
+    return worst_n, worst_f, lines + more
+
+
+def files_agree(fa, fb, skip=()):
+    """Two runs' files ({relative path: text}, analysis_files): the same
+    names; each file whose base name is not in `skip` equal, or of as
+    many lines with each number within its column's largest magnitude
+    times the returned share (QUATERNION's file must be byte-equal: inf
+    otherwise).
+    Returns (worst share, what differs and by how much)."""
     assert sorted(fa) == sorted(fb), (sorted(fa), sorted(fb))
+    worst_f, lines = 0.0, []
     for name, text in fa.items():
         if os.path.basename(name) in skip or text == fb[name]:
             continue
         if "quaternion" in name:
-            return worst_n, float("inf"), lines + [name]
+            return float("inf"), lines + [name]
         scale, pairs = {}, []
+        assert len(text.splitlines()) == len(fb[name].splitlines()), name
         for x, y in zip(text.splitlines(), fb[name].splitlines()):
             tx, ty = x.split(), y.split()
             assert len(tx) == len(ty), (name, x, y)
@@ -5326,7 +5364,75 @@ def masters_agree(card, cpu, dir_card, dir_cpu):
         worst_f = max(worst_f, err)
         if err:
             lines.append(f"{name} {err:.3g}")
-    return worst_n, worst_f, lines
+    return worst_f, lines
+
+
+def outputs_agree(da, db, L, skip=()):
+    """Two runs' output directories of one deck (analysis_files; the
+    mesh's graphs lines differ by design and are not read, nor the files
+    named in `skip`): (float
+    share, exact share, vcm gap, what differs).  float share: every
+    analysis file by files_agree, and the SUBSETWRITE records' positions
+    to the periodic image of box edge L (a row on the box edge may wrap
+    to either side) and velocities, each over its column's largest
+    magnitude; exact share: stress.data and the group files, each number
+    over its column's largest magnitude less half a unit of its printed
+    last digit (the files print T to 4 decimals); vcm gap: VCMWRITE's
+    largest absolute difference (a FREE run's centre-of-mass velocity is
+    zero to rounding, so its columns have no scale)."""
+    fa, fb = analysis_files(da), analysis_files(db)
+    assert sorted(fa) == sorted(fb), (sorted(fa), sorted(fb))
+    exact = [k for k in fa if k == "stress.data" or k.startswith("group_")]
+    subset = [k for k in fa if k.startswith("subset/")]
+    skip = {"graphs", "vcm.data", *skip, *exact, *subset}
+    worst_f, lines = files_agree({k: v for k, v in fa.items() if k not in skip},
+                                 {k: v for k, v in fb.items() if k not in skip})
+    for k in subset:
+        (ha, ra), (hb, rb) = (atoms_records(t[k]) for t in (fa, fb))
+        assert ha == hb and ra.shape == rb.shape, k
+        d = ra[:, :3] - rb[:, :3]
+        d -= L * np.round(d / L)
+        err = max(float(np.abs(d).max()) / max(np.abs(rb[:, :3]).max(), 1e-30),
+                  float((np.abs(ra[:, 3:] - rb[:, 3:]).max(0)
+                         / np.maximum(np.abs(rb[:, 3:]).max(0), 1e-30)).max()))
+        worst_f = max(worst_f, err)
+        if err:
+            lines.append(f"{k} {err:.3g}")
+    worst_x = 0.0
+    for k in exact:
+        xa, xb = analysis_rows(os.path.join(da, k)), analysis_rows(
+            os.path.join(db, k))
+        assert xa.shape == xb.shape and (xa[:, 0] == xb[:, 0]).all(), k
+        digits = [4, 8, 8] if k.startswith("group_") else [8] * 6
+        res = np.zeros(xa.shape[1])
+        if k.startswith("group_"):
+            assert (xa[:, 1] == xb[:, 1]).all(), k
+            res[2:] = [0.5 * 10.0 ** -p for p in digits]
+            cols = range(2, xa.shape[1])
+        else:
+            cols = range(1, xa.shape[1])
+        for c in cols:
+            scale = max(np.abs(xb[:, c]).max(), 1e-30)
+            gap = np.abs(xa[:, c] - xb[:, c]).max()
+            if k == "stress.data":
+                # %16.8e: nine significant digits
+                res[c] = 0.5e-8 * scale
+            err = max(0.0, gap - res[c]) / scale
+            worst_x = max(worst_x, err)
+            if err:
+                lines.append(f"{k} column {c} {err:.3g}")
+    va, vb = (analysis_rows(os.path.join(x, "vcm.data")) for x in (da, db))
+    assert (va[:, 0] == vb[:, 0]).all()
+    return worst_f, worst_x, float(np.abs(va[:, 1:] - vb[:, 1:]).max()), lines
+
+
+def atoms_records(text):
+    """(header, (n, 6) r and v) of an atoms file's records, in gid
+    order."""
+    head, body = text.split("}\n", 1)
+    recs = sorted((ln.split() for ln in body.splitlines() if ln.strip()),
+                  key=lambda p: int(p[0]))
+    return head, np.array([p[4:10] for p in recs], np.float64)
 
 
 def quaternion_records(path):
@@ -5969,8 +6075,8 @@ def lb_pair_bricks(a, kind, dev):
         calls.append(((slots, eval_fn.stencil,
                        sc.ext_L8(span, cp, t["rcut2"]), counts,
                        *eval_fn.tabs), eval_fn.kw))
-    # the reaction-field self energy of every bead (BrickStepCells.
-    # _e_self, counted once across the mesh)
+    # the reaction-field self energy of every bead (BrickStepCells._rebuild's
+    # pe_self, counted once across the mesh)
     e = e - 0.5 * (q * q).sum() * t["keR"] * t["crf"]
     return f, e, vir, cp, walls, pools, calls
 
@@ -7137,6 +7243,297 @@ def slab_reference(a, dev):
     return f.double().cpu(), float(e), bool(ov)
 
 
+# --- phase 28: the mesh's outputs at their rates and migrate_rate ----------
+# (a) the water box (6,173 beads, f32, #6) at (1,1,1) with phase 23's
+# WATER_ANALYSES, printStress, printGraphs and two LANGEVIN groups (x < 0
+# and the rest; printrate 100), OUT_STEPS steps beside the same deck
+# without outputs; (b) the same outputs in f64 on a FREE deck at rates
+# the 20-step cadence divides (OUT_B_RATES), OUT_B_STEPS steps through
+# the mesh's list engine and through Simulation(engine="nlist"), from the
+# deck's start; (c) the NPT water deck (f64) OUT_C_STEPS steps at the
+# default cadence and with migrate_rate = 2 chunk_steps, then (a)'s run
+# continued OUT_C_STEPS steps under NVT with migrate_rate = 2 chunk_steps
+# (per-step dispatches on #6); (d) #6 against its plain version on (a)'s
+# last records and on the NVT leg's
+OUT_STEPS, OUT_B_STEPS, OUT_C_STEPS, OUT_WARM = 1000, 100, 200, 100
+OUT_B_RATES = "eval_rate=20; outputrate=100;"
+
+
+def outputs_deck(d, n, free=False, rates=None, outputs=True, npt=False):
+    """The water box (n beads) with two groups, `solvent` (x < 0) and
+    `half`, LANGEVIN at 310 K or FREE, printrate 100; with `outputs`
+    phase 23's WATER_ANALYSES (every rate replaced by `rates` when
+    given), printStress and printGraphs; `npt`: the NPT water deck."""
+    make = npt_water_deck if npt else water_deck
+    deck = make(d, n, printrate=100, free=free)
+    if outputs:
+        objects = WATER_ANALYSES if rates is None else {
+            k: " ".join(w for w in v.split() if not w.startswith(
+                ("eval_rate=", "outputrate="))) + " " + rates
+            for k, v in WATER_ANALYSES.items()}
+        edit_deck(deck, lambda t: analyses_edit(objects, print_stress=True)(
+            t).replace("printStress=1;", "printStress=1; printGraphs=1;"))
+    body = "type=FREE;" if free else "type=LANGEVIN; Teq=310.0K; tau=1.0ps;"
+    return regroup(d, {"solvent": body, "half": body},
+                   lambda r: np.where(r[:, 0] < 0, "solvent", "half"),
+                   printrate=100)
+
+
+def outputs_phase(card, dev, counters_zero, all_counters, failed,
+                  n_water=6173):
+    """Phase 28: ParallelSimulation's outputs at their rates and
+    run(migrate_rate=) on the card (see the constants above).  Gates go
+    into `failed`.  Returns {kernels JSON row: (entry, launches,
+    comparison)}: #6 with (a)'s launches on (a)'s last records, and with
+    (c)'s NVT leg's launches on that leg's last records."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.objects import units as U
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    t_phase = time.perf_counter()
+    quiet = lambda line: None                                  # noqa: E731
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(f"phase 28 {what}")
+
+    def mesh(d, **kw):
+        return ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev,
+                                  run_dir=d, **kw)
+
+    def multiples(r, end, start=0):
+        return list(range(start - start % r + r, end + 1, r))
+
+    def compare_ext(ps, what):
+        """#6 against its plain version on ps's current records."""
+        kernel, args, kw = ps.step_fn.kernel_inputs(ps.fields, ps.mask)
+        cp = ps.cplan
+        assert kernel is ch.cellpair_half_ext
+        return compare(f"{what}, {cp.n_prog} core cells, cap {cp.cap}",
+                       ch.cellpair_half_ext, ch.cellpair_half_plain, args,
+                       kw, with_bound=True)
+
+    keep = tempfile.mkdtemp()
+    try:
+        # --- (a) the water box on #6 with its outputs -----------------------
+        d0, d = os.path.join(keep, "a0"), os.path.join(keep, "a")
+        os.makedirs(d0)
+        os.makedirs(d)
+        outputs_deck(d0, n_water, outputs=False)
+        outputs_deck(d, n_water)
+        # steps/s by the host clock around run(), the outputs' host work
+        # included; the bare deck after OUT_WARM warm-up steps
+        bare = mesh(d0)
+        bare.run(OUT_WARM, print_fn=quiet)
+        t0 = time.perf_counter()
+        bare.run(OUT_STEPS, print_fn=quiet, max_steps_per_dispatch=DISPATCH)
+        rate0 = OUT_STEPS / (time.perf_counter() - t0)
+        del bare
+        ps = mesh(d)
+        lines = []
+        counters_zero()
+        t0 = time.perf_counter()
+        ps.run(OUT_STEPS, print_fn=lines.append,
+               max_steps_per_dispatch=DISPATCH)
+        rate_a = OUT_STEPS / (time.perf_counter() - t0)
+        c = all_counters()
+        n = ps.sysdef.state.n_local
+        ends = np.cumsum([k for k, _ in ps.dispatch_log]).tolist()
+        names = [a.name for a in ps.analyses]
+        rates = sorted({r for a in ps.analyses
+                        for r in (a.eval_rate, a.output_rate) if r} | {100})
+        gate(ps.shard_engine == "pallas" and ps.loop == OUT_STEPS
+             and names == [*WATER_ANALYSES, "printStress"]
+             and all(set(multiples(r, OUT_STEPS)) <= set(ends)
+                     for r in rates) and ends[-1] == OUT_STEPS,
+             f"(a) engine {ps.shard_engine}, loop {ps.loop}, analyses "
+             f"{names}, dispatch ends {ends}")
+        gate(c["cellpair_half_ext"] >= OUT_STEPS and not any(
+            v for k, v in c.items() if k != "cellpair_half_ext"),
+            f"(a) launches {c}")
+        vcm = analysis_rows(os.path.join(d, "vcm.data"))
+        gate(vcm[:, 0].tolist() == multiples(30, OUT_STEPS),
+             f"(a) VCMWRITE rows at {vcm[:, 0].tolist()}")
+        st = analysis_rows(os.path.join(d, "stress.data"))
+        press = {int(ln.split()[0]): float(ln.split("P=")[1].split()[0])
+                 for ln in lines}
+        gpa = U.convert(1.0, "GPa", "bar")
+        # the print line's P has 6 decimals of GPa
+        p_gap = max(abs(-row[1:4].sum() / 3.0 / gpa - press[int(row[0])])
+                    for row in st)
+        gate(st[:, 0].tolist() == multiples(100, OUT_STEPS)
+             and np.isfinite(st).all() and np.abs(st[:, 1:4]).min() > 0
+             and p_gap <= 1e-6,
+             f"(a) STRESSWRITE loops {st[:, 0].tolist()}, -tr/3 vs the "
+             f"printed P {p_gap} GPa")
+        groups = {g: analysis_rows(os.path.join(d, f"group_{g}.data"))
+                  for g in ("solvent", "half")}
+        counts = sum(x[:, 1] for x in groups.values())
+        gate(all(x[:, 0].tolist() == multiples(100, OUT_STEPS)
+                 and np.isfinite(x).all() for x in groups.values())
+             and (counts == n).all(),
+             f"(a) group files {[x[:, :2].tolist() for x in groups.values()]}")
+        with open(os.path.join(d, "graphs")) as f:
+            graphs = f.read().splitlines()
+        owned = [sum(int(x) for x in ln.split("owned=")[1].split(","))
+                 for ln in graphs]
+        gate(len(graphs) == len(ends) and set(owned) == {n}
+             and all(f"nlocal={n} " in ln for ln in graphs),
+             f"(a) graphs: {len(graphs)} lines for {len(ends)} dispatches, "
+             f"owned {sorted(set(owned))}")
+        files = sorted(analysis_files(d))
+        phase("outputs", f"(a) water box {n} beads at (1,1,1) on #6, "
+              f"{len(names)} analyses (VCMWRITE every 30, the rest every "
+              f"100, output every 500), printStress, printGraphs, two "
+              f"groups: {OUT_STEPS} steps in {len(ends)} dispatches, each "
+              f"ending on every rate's multiple; {c['cellpair_half_ext']} "
+              f"#6 launches; {rate_a:.2f} steps/s by the host clock around "
+              f"run(), the outputs included, vs {rate0:.2f} for the deck "
+              f"without them after {OUT_WARM} warm-up steps "
+              f"({rate_a / rate0:.3f}x; not gated); "
+              f"stress.data rows 100..{OUT_STEPS} by 100, -tr/3 within "
+              f"{p_gap:.2g} GPa of the printed P; group rows 100..."
+              f"{OUT_STEPS}, {int(groups['solvent'][-1, 1])} + "
+              f"{int(groups['half'][-1, 1])} beads, T "
+              f"{groups['solvent'][-1, 2]:.2f} / {groups['half'][-1, 2]:.2f}"
+              f" K; {len(graphs)} graphs lines, last '{graphs[-1]}'; "
+              f"{len(files)} files on {card}")
+
+        # (d) on (a)'s last records
+        row_a = compare_ext(ps, f"extended grid (1,1,1) after phase 28 (a): "
+                            f"water box {n} beads")
+        launches_a = c["cellpair_half_ext"]
+
+        # --- (b) f64 FREE against Simulation ---------------------------------
+        db = os.path.join(keep, "b")
+        os.makedirs(os.path.join(db, "mesh"))
+        os.makedirs(os.path.join(db, "sim"))
+        outputs_deck(db, n_water, free=True, rates=OUT_B_RATES)
+        t0 = time.perf_counter()
+        pb = ParallelSimulation(*load(db), shape=(1, 1, 1), device=dev,
+                                dtype=torch.float64,
+                                run_dir=os.path.join(db, "mesh"))
+        pb.run(OUT_B_STEPS, print_fn=quiet)
+        t_mesh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sb = Simulation(*load(db), run_dir=os.path.join(db, "sim"),
+                        device=dev, dtype=torch.float64, engine="nlist")
+        sb.run(OUT_B_STEPS, print_fn=quiet)
+        t_sim = time.perf_counter() - t0
+        L = box_edge(db)
+        wf, wx, vcm_gap, diff = outputs_agree(os.path.join(db, "mesh"),
+                                              os.path.join(db, "sim"), L)
+        sub = {os.path.basename(k) for k in analysis_files(
+            os.path.join(db, "mesh")) if k.startswith(("subset/",
+                                                         "group_"))}
+        wn, _, more = masters_agree(
+            pb, sb, os.path.join(db, "mesh"), os.path.join(db, "sim"),
+            skip_files={"graphs", "vcm.data", "stress.data", *sub})
+        nl = {w: {ln.split("nlocal=")[1].split()[0] for ln in open(
+            os.path.join(db, w, "graphs"))} for w in ("mesh", "sim")}
+        gate(pb.shard_engine == "nlist" and wn <= AN_COUNT_TOL
+             and wf <= AN_FLOAT_TOL and wx <= 1e-8 and vcm_gap <= 1e-12
+             and nl["mesh"] == nl["sim"] == {str(n)},
+             f"(b) counts {wn}, floats {wf}, stress and groups {wx}, vcm "
+             f"{vcm_gap}, nlocal {nl}: {diff + more}")
+        phase("outputs", f"(b) the same outputs in f64 (FREE, rates "
+              f"'{OUT_B_RATES}'), {OUT_B_STEPS} steps, the mesh's list "
+              f"engine vs Simulation(engine=nlist) from one state: counts "
+              f"differ by {wn:.3g} of their total (gate {AN_COUNT_TOL}), "
+              f"floats by {wf:.3g} of their column's scale (gate "
+              f"{AN_FLOAT_TOL}), stress.data and the group files by "
+              f"{wx:.3g} beyond their print (gate 1e-8), VCM by {vcm_gap:.3g}"
+              f" (gate 1e-12), nlocal {sorted(nl['mesh'])} in both graphs "
+              f"({'; '.join(diff + more) or 'equal'}); {t_mesh:.2f} s the "
+              f"mesh, {t_sim:.2f} s Simulation on {card}")
+        del pb, sb
+
+        # --- (c) migrate_rate: the NPT deck in f64, then NVT on #6 ----------
+        dc = os.path.join(keep, "c")
+        os.makedirs(dc)
+        npt_water_deck(dc, n_water, printrate=100)
+        sc = Simulation(*load(dc), run_dir=dc, device=dev,
+                        dtype=torch.float64, engine="nlist")
+        sc.first_energy()
+        f_sim = sc.ss.state.f[:n].cpu().numpy()
+        del sc
+        out = {}
+        for what in ("default", "migrate_rate"):
+            pc = ParallelSimulation(*load(dc), shape=(1, 1, 1), device=dev,
+                                    dtype=torch.float64, run_dir=dc)
+            pc.first_energy()
+            mr = None
+            if what == "default":
+                f_mesh = pc.gather_by_gid(("f",))["f"]
+            else:
+                mr = 2 * pc.chunk_steps
+            rows = []
+            t0 = time.perf_counter()
+            pc.run(OUT_C_STEPS, migrate_rate=mr, print_fn=rows.append)
+            secs = time.perf_counter() - t0
+            out[what] = (pc.loop, pc._live_L(), pc._last_row[:2].copy(),
+                         len(pc.dispatch_log), OUT_C_STEPS / secs)
+            del pc
+        fgap = float(np.abs(f_mesh - f_sim).max() / np.abs(f_sim).max())
+        gate(all(o[0] == OUT_C_STEPS and np.isfinite(o[1]).all()
+                 and np.isfinite(o[2]).all() for o in out.values()),
+             f"(c) NPT {out}")
+        # (a)'s f32 run continued under NVT, migrate_rate 2 chunk_steps
+        k = ps.chunk_steps
+        rks = []
+        real = ps._dispatch
+
+        def recorded(*a, **kw):
+            got = real(*a, **kw)
+            if not got[2]:
+                rks.extend(got[1][:, 1].tolist())
+            return got
+
+        ps._dispatch = recorded
+        loop0 = ps.loop
+        counters_zero()
+        ps.run(OUT_C_STEPS, migrate_rate=2 * k, print_fn=quiet)
+        c = all_counters()
+        launches = c["cellpair_half_ext"]
+        dof = 3.0 * n - ps.sysdef.n_constraints
+        temp = float(np.mean([2.0 * x / (dof * U.kB) for x in rks]))
+        gate(ps.loop == loop0 + OUT_C_STEPS and len(rks) == OUT_C_STEPS
+             and abs(temp - 310.0) <= TEMP_TOL
+             and launches >= OUT_C_STEPS and not any(
+                 v for k_, v in c.items() if k_ != "cellpair_half_ext"),
+             f"(c) NVT migrate_rate: loop {ps.loop}, {len(rks)} rows, mean "
+             f"T {temp}, launches {c}")
+        (lo, Lo, eo, no, ro), (lm, Lm, em, nm, rm) = (out["default"],
+                                                     out["migrate_rate"])
+        box_gap = float(np.abs(Lm / Lo - 1.0).max())
+        phase("outputs", f"(c) NPT water deck f64 at (1,1,1) (list engine), "
+              f"{OUT_C_STEPS} steps from one state: default cadence loop "
+              f"{lo}, box {Lo.round(4).tolist()} nm, e_pot {eo[0]:.8g}, "
+              f"{no} dispatches, {ro:.2f} steps/s; migrate_rate={2 * k} "
+              f"(the chunk length) loop {lm}, box {Lm.round(4).tolist()} nm, "
+              f"e_pot {em[0]:.8g}, {nm} dispatches, {rm:.2f} steps/s (the "
+              f"boxes {box_gap:.3g} apart, relative); the "
+              f"first forces' gap to Simulation(engine=nlist, f64) "
+              f"{fgap:.3g} of the scale; (a)'s f32 run continued "
+              f"{OUT_C_STEPS} NVT steps with migrate_rate={2 * k} "
+              f"(per-step dispatches, a migration every {2 * k}): mean T "
+              f"{temp:.2f} K, #6 launched {launches} times in this leg "
+              f"({launches_a} in (a)) on {card}")
+
+        # --- (d) #6 against its plain version on the NVT leg's records ------
+        row_c = compare_ext(ps, f"extended grid (1,1,1) after phase 28 (c)'s "
+                            f"NVT leg: water box {n} beads")
+        phase("outputs", f"phase 28 {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    return {"cellpair_half_ext_outputs": ("cellpair_half_ext", launches_a,
+                                          row_a),
+            "cellpair_half_ext_migrate_rate": ("cellpair_half_ext", launches,
+                                               row_c)}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -7237,6 +7634,11 @@ def main(argv=None):
         failed = []
         triclinic_slab_phase(card, dev, counters_zero, all_counters, failed)
         assert not failed, f"phase 27 gates missed: {failed}"
+        return
+    if "--outputs-only" in argv:
+        failed = []
+        outputs_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 28 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -7433,6 +7835,11 @@ def main(argv=None):
     tri_failed = []
     triclinic_slab_phase(card, dev, counters_zero, all_counters, tri_failed)
     assert not tri_failed, f"phase 27 gates missed: {tri_failed}"
+    # --- phase 28: the mesh's outputs at their rates, migrate_rate (#6) ----
+    out_failed = []
+    out_rows = outputs_phase(card, dev, counters_zero, all_counters,
+                             out_failed)
+    assert not out_failed, f"phase 28 gates missed: {out_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -7476,11 +7883,14 @@ def main(argv=None):
     # water box with its analyses, #4 on the crystal with its classifiers;
     # phase 24's: #2 on the bilayer patch's replica; phase 25's: #6 with
     # exclusions on the widest brick of the ZRAMP and of the BISECTION
-    # plan, #7 on the widest brick of the skewed-walls crystal
+    # plan, #7 on the widest brick of the skewed-walls crystal; phase 28's:
+    # #6 on the water box after its outputs run (a) and after its NVT
+    # migrate_rate leg (c)
     for row, (name, n, out) in (*int_rows.items(), *masters_rows.items(),
                                 *transform_rows.items(),
                                 *analysis_rows_out.items(),
-                                *rebuild_rows.items(), *lb_rows.items()):
+                                *rebuild_rows.items(), *lb_rows.items(),
+                                *out_rows.items()):
         kernels[row] = kernels[name]
         launches[row] = n
         res[row] = out
@@ -7496,6 +7906,7 @@ def main(argv=None):
          "bound_ms": res[name][3], "bound_by": res[name][4],
          "library_ms": None}
         for name, (src, tpu) in kernels.items()]}))
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -136,9 +136,12 @@ class PairCorrelation(Analysis):
         """The halo holds every particle within rlist of a brick: rmax
         beyond it needs the gathered view.  So does a triclinic box: the
         gathered eval takes its distances against the diagonal lengths,
-        which the perpendicular-span halo does not cover."""
+        which the perpendicular-span halo does not cover, and a state
+        whose rows have left their bricks since the last migration (the
+        mesh's per-step dispatch, psim.rows_home false)."""
         rmax = self.rmin + self.n_bins * self.delta_r
-        return rmax <= psim.plan.rlist + 1e-12 and psim.Lv.dim() == 1
+        return (rmax <= psim.plan.rlist + 1e-12 and psim.Lv.dim() == 1
+                and getattr(psim, "rows_home", True))
 
     def eval_sharded(self, psim):
         """Each owned row against the local and ghost rows of its rank

@@ -71,6 +71,9 @@ from .shard_cells import walls_span_minmax
 # thermostat noise callsite of the mesh step (the single-device NGLF
 # step draws callsite 0); the rank rides in the bits above it
 _NOISE_CALLSITE_MESH = 1
+# columns of a step's scalar row: e_pot, rk, tr virial, the molecular
+# virial diagonal (3), volume, then the mesh-wide virial (9), row-major
+SCALAR_COLS = 16
 
 
 class BrickStepBase:
@@ -79,6 +82,11 @@ class BrickStepBase:
     and with a covalent topology hgid (int64, the molecule head's gid);
     mask: (local_cap,) bool; f: (local_cap, 3).
 
+    fields also carry r0, the position at the row's last migration or
+    distribution, which the drift guard measures from; a step writes pe,
+    each row's potential energy after its force call (the per-group
+    files and the gathered view read it).
+
     Optional tables (host-built by run/parallel_sim): bonded_plan and
     bonded_left, mesh_bonded_plan's batched plan and gid-keyed leftover;
     cons_templates, the (plan, project) of build_constraint_templates,
@@ -86,18 +94,31 @@ class BrickStepBase:
     not template-regular; mol_gids, molecule_gid_tables' (M, A) gids;
     the barostat dict of the single-device Simulation; has_berendsen:
     some group is BERENDSEN (its temperature is summed over the mesh).
+    skin: the deck's neighbour skin deltaR (the drift guard's bound).
+
+    The drift guard (the per-step dispatch of step() and a chunk longer
+    than chunk_steps, where rows go longer between migrations than the
+    deck's updateRate promises): a row that moved half the skin or more
+    since its last migration flags an overflow, as the single-device
+    run's stale test does (2 max_disp >= deltaR), so the host rolls
+    the dispatch back and redistributes instead of losing its pairs.
+    An engine says where it needs it (drift_in_step, drift_in_chunk)
+    and adds its own check of a rebuild between migrations
+    (_rebuild_guard).
 
     An engine defines _rebuild(fields, mask, Lv) -> (fields, rb,
-    overflow), _forces(r_local, rb, Lv) -> (f, pe, virial, overflow),
-    _e_self(rb, n_l) and _narrow(Lv) (the NPT shrink guard).  Every
+    overflow), _forces(r_local, rb, Lv) -> (f, pe, virial, overflow)
+    and _narrow(Lv) (the NPT shrink guard); rb["pe_self"], when set, is
+    each local row's self energy, added to its pe.  Every
     method returns new tensors and leaves its inputs untouched, so a
     caller can roll back by keeping references."""
 
     def __init__(self, mesh, plan: BrickPlan, tables, coeffs, dt: float,
                  box_lengths, species_lj_type, seed: int, chunk_steps: int,
-                 *, force_kind: str, bonded_plan=None, bonded_left=None,
-                 cons_templates=None, cons_tables=None, mol_gids=None,
-                 barostat=None, has_berendsen=False, dtype=torch.float32):
+                 *, force_kind: str, skin: float, bonded_plan=None,
+                 bonded_left=None, cons_templates=None, cons_tables=None,
+                 mol_gids=None, barostat=None, has_berendsen=False,
+                 dtype=torch.float32):
         dev = mesh.device
         self.mesh, self.plan = mesh, plan
         self.tables, self.coeffs = tables, coeffs
@@ -105,6 +126,13 @@ class BrickStepBase:
         self.force_kind, self.dtype = force_kind, dtype
         self.bonded_plan, self.bonded_left = bonded_plan, bonded_left
         self.barostat, self.has_berendsen = barostat, has_berendsen
+        self.skin = skin
+        # where the drift guard holds: the per-step dispatch, a long chunk
+        self.drift_in_step = self.drift_in_chunk = True
+        # wrap the positions after each drift (the list engine, as
+        # Simulation's list engine does; the cells engine keeps them
+        # unwrapped between rebuilds, as Simulation's kernel path does)
+        self.wrap_drift = False
         self.Lv = torch.as_tensor(box_lengths, dtype=dtype, device=dev)
         self.tmap = torch.as_tensor(species_lj_type, dtype=torch.int64,
                                     device=dev)
@@ -249,14 +277,32 @@ class BrickStepBase:
         return (row[0], row[1], row[2:11].reshape(3, 3), row[11:14],
                 row[14] > 0)
 
+    # -- the drift guard --------------------------------------------------
+
+    def _drift_guard(self, fields, mask, Lv):
+        """True when an owned row moved half the skin or more since its
+        last migration (its r0 field), at box Lv: the bound within which
+        both engines find every pair of a row that left its brick."""
+        d = nearest_image(fields["r"] - fields["r0"], Lv)
+        d2 = torch.where(mask, (d * d).sum(1), torch.zeros_like(d[:, 0]))
+        return 4.0 * d2.max() >= self.skin * self.skin
+
+    def _rebuild_guard(self, fields, mask, Lv):
+        """The engine's check of a rebuild made between migrations (the
+        per-step dispatch): none here."""
+        return torch.zeros((), dtype=torch.bool, device=mask.device)
+
     # -- per-step pieces --------------------------------------------------
 
-    def _step_body(self, fields, mask, f_prev, step: int, rb, ov, Lv):
+    def _step_body(self, fields, mask, f_prev, step: int, rb, ov, Lv,
+                   guard=False):
         """One step at global step `step` on the rebuilt tables `rb` at the
         live box Lv; ov is this rank's overflow so far, reduced with the
-        step's scalars.  Returns (fields, f, scalars (7,), overflow
-        mesh-wide); scalars [e_pot, rk, tr virial, molecular virial
-        diagonal (3), volume]."""
+        step's scalars, and with `guard` the drift guard's flag.  Returns
+        (fields, f, scalars (SCALAR_COLS,), overflow mesh-wide); scalars
+        [e_pot, rk, tr virial, molecular virial diagonal (3), volume,
+        virial (9)]; the pe field takes the step's per-row potential
+        energy."""
         noise = kick_noise(self._generator, self.seed, step, self._callsite,
                            (2,) + tuple(fields["r"].shape),
                            dtype=fields["v"].dtype)
@@ -266,16 +312,20 @@ class BrickStepBase:
                             fields["group"], self.coeffs, half, noise[0], mask,
                             self.has_berendsen, group_sum=self.mesh.psum)
         v = self._rattle(fields["r"], v, True, Lv, rb)
-        fields = dict(fields, r=fields["r"] + self.dt * v, v=v)
+        r = fields["r"] + self.dt * v
+        fields = dict(fields, r=nearest_image(r, Lv) if self.wrap_drift
+                      else r, v=v)
 
         f, pe, virial, ov_c = self._forces(fields["r"], rb, Lv)
-        n_l = mask.shape[0]
-        e_pot = pe.sum() + self._e_self(rb, n_l)
+        pe = self._with_self(pe, rb)
+        e_pot = pe.sum()
+        if guard:
+            ov_c = ov_c | self._drift_guard(fields, mask, Lv)
 
         v = velocity_update("back", fields["v"], f, fields["mass"],
                             fields["group"], self.coeffs, half, noise[1], mask)
         v = self._rattle(fields["r"], v, False, Lv, rb)
-        fields = dict(fields, v=v)
+        fields = dict(fields, v=v, pe=pe)
         fmask = mask.to(v.dtype)
         rk = 0.5 * ((fields["mass"] * fmask)[:, None] * v * v).sum()
         corr = (self._mol_corr(fields["r"], f, Lv, rb) if rb["mol"] is not None
@@ -283,38 +333,52 @@ class BrickStepBase:
         e_pot, rk, virial, corr, ov = self._reduce(e_pot, rk, virial, corr,
                                                    ov | ov_c)
         vd = torch.diagonal(virial) - corr
+        # one stack, as many launches as the 7-column row took
         scalars = torch.stack([e_pot, rk, torch.trace(virial), vd[0], vd[1],
-                               vd[2], geom_volume(Lv)])
+                               vd[2], geom_volume(Lv),
+                               *virial.reshape(9).unbind()])
         return fields, f, scalars, ov
 
-    def _e_self(self, rb, n_l):
-        return 0.0
+    @staticmethod
+    def _with_self(pe, rb):
+        """The local rows' pe with the engine's self energy, when it has
+        one (rb["pe_self"])."""
+        return pe if rb.get("pe_self") is None else pe + rb["pe_self"]
 
     # -- entry points -----------------------------------------------------
 
     def first_forces(self, fields, mask, Lv=None):
-        """(f, e_pot, virial, overflow) of the current state at box Lv
-        (the deck's box by default), mesh-wide; the virial's diagonal
-        carries the molecular correction, as the barostat reads it."""
+        """(f, e_pot, virial, overflow, pe) of the current state at box Lv
+        (the deck's box by default): e_pot, the virial and the overflow
+        mesh-wide, the virial's diagonal carrying the molecular
+        correction, as the barostat reads it; pe the local rows'
+        potential energies."""
         Lv = self.Lv if Lv is None else Lv
         fields, rb, ov_r = self._rebuild(fields, mask, Lv)
         f, pe, virial, ov_c = self._forces(fields["r"], rb, Lv)
-        e_pot = pe.sum() + self._e_self(rb, mask.shape[0])
+        pe = self._with_self(pe, rb)
+        e_pot = pe.sum()
         corr = (self._mol_corr(fields["r"], f, Lv, rb) if rb["mol"] is not None
                 else virial.new_zeros(3))
         e_pot, _, virial, corr, ov = self._reduce(e_pot, 0.0, virial, corr,
                                                   ov_r | ov_c)
-        return f, e_pot, virial - torch.diag(corr), ov
+        return f, e_pot, virial - torch.diag(corr), ov, pe
 
     def step(self, fields, mask, f_prev, step: int):
-        """One step on a freshly rebuilt table, no migration: (fields, f,
-        scalars (7,), overflow)."""
+        """One step on a freshly rebuilt table, no migration, under the
+        drift and rebuild guards (the per-step dispatch, rows away from
+        their last migration for longer than a chunk): (fields, f, scalars
+        (SCALAR_COLS,), overflow)."""
         fields, rb, ov_r = self._rebuild(fields, mask, self.Lv)
-        return self._step_body(fields, mask, f_prev, step, rb, ov_r, self.Lv)
+        ov_r = ov_r | self._rebuild_guard(fields, mask, self.Lv)
+        return self._step_body(fields, mask, f_prev, step, rb, ov_r, self.Lv,
+                               guard=self.drift_in_step)
 
     def migrate(self, fields, mask, f, Lv=None):
         """Staged 1-hop migration at box Lv, forces travelling with their
-        rows: (fields, mask, f, overflow mesh-wide)."""
+        rows, each row's r0 set to its position: (fields, mask, f,
+        overflow mesh-wide)."""
+        fields = dict(fields, r0=fields["r"])
         packed, new_mask, ov = migrate_3d(
             dict(fields, f=f), mask, self.Lv if Lv is None else Lv,
             self.plan, self.mesh)
@@ -322,15 +386,19 @@ class BrickStepBase:
         ov = self.mesh.psum(ov.to(torch.float32).reshape(1))[0] > 0
         return packed, new_mask, f_new, ov
 
-    def chunk(self, fields, mask, f_prev, step0: int):
-        """Rebuild, chunk_steps steps at global steps step0 ..
-        step0+chunk_steps-1, then migrate: (fields, mask, f, scalars
-        (chunk_steps, 7), overflow)."""
+    def chunk(self, fields, mask, f_prev, step0: int,
+              steps: int | None = None):
+        """Rebuild, `steps` (chunk_steps by default) steps at global steps
+        step0 .. step0+steps-1, then migrate; a chunk longer than
+        chunk_steps runs under the drift guard.  Returns (fields, mask,
+        f, scalars (steps, SCALAR_COLS), overflow)."""
+        steps = self.chunk_steps if steps is None else steps
+        guard = steps > self.chunk_steps and self.drift_in_chunk
         fields, rb, ov = self._rebuild(fields, mask, self.Lv)
         f, rows = f_prev, []
-        for i in range(self.chunk_steps):
+        for i in range(steps):
             fields, f, scal, ov = self._step_body(fields, mask, f, step0 + i,
-                                                  rb, ov, self.Lv)
+                                                  rb, ov, self.Lv, guard)
             rows.append(scal)
         fields, mask, f, ov_m = self.migrate(fields, mask, f)
         return fields, mask, f, torch.stack(rows), ov | ov_m
@@ -340,44 +408,48 @@ class BrickStepBase:
         """NPT chunk of `steps` (chunk_steps by default) steps: rebuild at
         the live box, then per step the Berendsen lambda from the last
         step's molecular virial diagonal `vird` rescales Lv and the
-        positions before the step; the engine's guard flags a brick
-        too narrow for its halo.  Returns (fields, mask, f, vird, Lv,
-        scalars (steps, 7), overflow)."""
+        positions (r0 too) before the step; the engine's guard flags a
+        brick too narrow for its halo, and a chunk longer than chunk_steps
+        runs under the drift guard.  Returns (fields, mask, f, vird, Lv,
+        scalars (steps, SCALAR_COLS), overflow)."""
+        steps = self.chunk_steps if steps is None else steps
+        guard = steps > self.chunk_steps and self.drift_in_chunk
         fields, rb, ov = self._rebuild(fields, mask, Lv)
         f, rows = f_prev, []
-        for i in range(self.chunk_steps if steps is None else steps):
+        for i in range(steps):
             lam = barostat_lambda(vird, geom_volume(Lv), self.barostat,
                                   self.dt)
             # h' = diag(lam) h: a (3, 3) h scales by rows (the JAX
             # package's brickstep.py:397-399)
             Lv = lam[:, None] * Lv if Lv.dim() == 2 else Lv * lam
             ov = ov | self._narrow(Lv)
-            fields = dict(fields, r=fields["r"] * lam)
+            fields = dict(fields, r=fields["r"] * lam, r0=fields["r0"] * lam)
             fields, f, scal, ov = self._step_body(fields, mask, f, step0 + i,
-                                                  rb, ov, Lv)
+                                                  rb, ov, Lv, guard)
             vird = scal[3:6]
             rows.append(scal)
         fields, mask, f, ov_m = self.migrate(fields, mask, f, Lv)
         return fields, mask, f, vird, Lv, torch.stack(rows), ov | ov_m
 
     def superchunk(self, fields, mask, f_prev, step0: int, n_super: int,
-                   vird=None, Lv=None):
-        """n_super chunks (NPT chunks when the barostat is on, carrying
-        vird and Lv) in one dispatch with no host read.  Returns ((fields,
-        mask, f[, vird, Lv]), scalars (n_super*k, 7), overflow).  After an
+                   vird=None, Lv=None, steps: int | None = None):
+        """n_super chunks of `steps` (chunk_steps by default) steps (NPT
+        chunks when the barostat is on, carrying vird and Lv) in one
+        dispatch with no host read.  Returns ((fields, mask, f[, vird,
+        Lv]), scalars (n_super*steps, SCALAR_COLS), overflow).  After an
         overflow the later chunks still run, on state the caller
         discards: the JAX superchunk freezes instead, and both hand back
         a flagged dispatch that the host rolls back whole."""
-        k = self.chunk_steps
+        k = self.chunk_steps if steps is None else steps
         ov = torch.zeros((), dtype=torch.bool, device=mask.device)
         state = (fields, mask, f_prev) + (
             () if self.barostat is None else (vird, Lv))
         rows = []
         for j in range(n_super):
             if self.barostat is None:
-                *state, scal, ov_j = self.chunk(*state, step0 + j * k)
+                *state, scal, ov_j = self.chunk(*state, step0 + j * k, k)
             else:
-                out = self.chunk_npt(*state, step0 + j * k)
+                out = self.chunk_npt(*state, step0 + j * k, k)
                 state, scal, ov_j = out[:5], out[5], out[6]
             rows.append(scal)
             ov = ov | ov_j
@@ -429,6 +501,11 @@ class BrickStepList(BrickStepBase):
                          species_lj_type, seed, chunk_steps,
                          force_kind=force_kind, **kw)
         self.grid, self.excl = grid, excl
+        # the list is rebuilt every step: only halo windows (an axis of
+        # two or more bricks) need the rows near their bricks
+        self.drift_in_step = self.drift_in_chunk = any(
+            n > 1 for n in plan.shape)
+        self.wrap_drift = True
         dev = mesh.device
         self._ncells = torch.tensor(grid.ncells, dtype=self.dtype,
                                     device=dev)

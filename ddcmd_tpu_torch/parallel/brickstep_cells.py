@@ -83,6 +83,10 @@ class BrickStepCells(BrickStepBase):
                          species_lj_type, seed, chunk_steps,
                          force_kind=force_kind, dtype=torch.float32, **kw)
         dev = mesh.device
+        # a per-step rebuild bins every row where it lies (_rebuild_guard
+        # covers what that cannot); a chunk's binning is frozen, so a long
+        # chunk needs the drift guard
+        self.drift_in_step = False
         self.cplan, self.coulomb, self.excl = cplan, coulomb, excl
         self.geom = dev_geom(cplan, mesh.idx3, dev)
         self._ncore = torch.tensor(cplan.ncore, dtype=torch.float32,
@@ -121,7 +125,15 @@ class BrickStepCells(BrickStepBase):
                   q_pool=torch.cat([fields["q"], ghosts["q"]]),
                   tidx=self.tmap[torch.cat([fields["species"],
                                             ghosts["species"]])],
-                  pool_mask=pool_mask, bat=None, left=None, ex_pool=None)
+                  pool_mask=pool_mask, bat=None, left=None, ex_pool=None,
+                  pe_self=None)
+        if self.coulomb:
+            # the reaction-field self energy of each LOCAL row
+            # (bioMartini.c:1035), -1/2 q^2 keR crf: counted once across
+            # the mesh, once a rebuild
+            q = fields["q"]
+            rb["pe_self"] = (-0.5 * self.tables["keR"] * self.tables["crf"]
+                             * q * q * mask.to(q.dtype))
         if self.excl:
             rb["ex_pool"] = torch.cat([fields["excl"], ghosts["excl"]])
         if "gid" in self.halo_keys:
@@ -134,6 +146,30 @@ class BrickStepCells(BrickStepBase):
 
     def _narrow(self, Lv):
         return torch.any(self._brick_frac * Lv < self.plan.rlist)
+
+    def _rebuild_guard(self, fields, mask, Lv):
+        """A rebuild between migrations bins each row where it lies, and on
+        an axis of three or more bricks a row outside its brick can sit
+        in a cell whose pairs a brick two away evaluates, which the staged
+        exchange does not reach (or, across the periodic seam, ship the
+        wrong way): flag any owned row (its molecule head under hgid)
+        outside its brick on such an axis, by the wall comparison that
+        decides ownership.  Axes of one or two bricks take any excursion
+        (every neighbour of the cell holding the row is within one brick
+        of its owner)."""
+        from .brick import _bounds_of, _head_positions, _in_box
+
+        out = torch.zeros((), dtype=torch.bool, device=mask.device)
+        if all(n < 3 for n in self.plan.shape):
+            return out
+        r = _head_positions(fields, mask) if "hgid" in fields else fields["r"]
+        for a, n in enumerate(self.plan.shape):
+            if n < 3:
+                continue
+            lo, hi = _bounds_of(self.plan, self.mesh.idx3, a)
+            x = _in_box(r[:, a] / Lv[a])
+            out = out | torch.any(mask & ((x < lo) | (x >= hi)))
+        return out
 
     # -- forces -----------------------------------------------------------
 
@@ -189,16 +225,6 @@ class BrickStepCells(BrickStepBase):
         # the live cell edge must stay >= rlist (the NPT shrink guard)
         return f, pe, virial, torch.any(span_cart / self._ncore
                                         < self.cplan.rlist)
-
-    def _e_self(self, rb, n_l):
-        """Reaction-field self energy of the LOCAL rows (bioMartini.c:1035),
-        -1/2 q^2 keR crf each: counted once across the mesh."""
-        if not self.coulomb:
-            return 0.0
-        ql = rb["q_pool"][:n_l]
-        w = rb["pool_mask"][:n_l].to(ql.dtype)
-        return (-0.5 * ql * ql * w).sum() * self.tables["keR"] \
-            * self.tables["crf"]
 
     # -- entry points -----------------------------------------------------
 

@@ -75,6 +75,25 @@ h' = diag(lam) h, and the load balance in the frame r h^-T L (L the
 perpendicular spans), where VORONOI domains are Euclidean; `Lv` carries
 the (3, 3) h, the checkpoint and the view a GENERAL box.
 
+Outputs at their rates, as Simulation writes them: SIMULATE analysis=
+and printStress's STRESSWRITE (built once, their accumulators kept
+across evaluations), the graphs file (printGraphs, one line a dispatch
+with the owned count of each brick) and the per-group energy files
+(more than one group, at printrate, each group's count and energies
+summed over the mesh in one all-reduce).  Every dispatch ends on each
+analysis's eval_rate and outputrate multiple and, with group files, on
+each printrate multiple.  At an eval the five classes with eval_sharded
+sum owned-row partials over the mesh; the others evaluate on rank 0
+over view(), which carries the last step's per-row forces and potential
+energies and its mesh-wide virial and kinetic tensors; rank 0 writes.
+The JAX mesh writes none of these (its parallel_sim.py:452-472).
+run(migrate_rate=) takes the JAX package's migration cadence: the
+chunk length under the barostat, per-step dispatches with a migration
+on each loop migrate_rate divides under NVT, both under a drift guard
+(parallel/brickstep.BrickStepBase) that flags a row moved half the skin
+since its last migration, so the host redistributes instead of losing
+its pairs.
+
 Deck features outside these paths raise NotImplementedError naming
 their ROADMAP item: non-periodic axes (item 25: the JAX mesh reads no
 pbc bit and would run such a deck fully periodic), NGLFNEW with
@@ -86,10 +105,7 @@ over the ranks, a constant PISTON; the JAX mesh takes it per brick); the
 other integrators and box motions (NPTGLF, NGLFNK, the NVEGLF variants,
 box(t), EXTFORCE, the hook groups, GLOBAL_ENERGY, Teq or vz schedules)
 raise naming item 25 (_refuse_dynamics), as do the NEXTFILE and
-NGLFTEST masters, printGraphs and the per-group energy files (which the
-JAX mesh does not write; Simulation writes them), and SIMULATE analysis=
-and PRINTINFO printStress (Simulation runs them; the JAX mesh runs
-analyses only through run_analyses).
+NGLFTEST masters and SIMULATE transform= (the JAX mesh applies none).
 """
 
 from __future__ import annotations
@@ -113,7 +129,8 @@ from ..parallel.bonded_shard import (constraint_gid_tables,
                                      mesh_bonded_plan, molecule_gid_tables)
 from ..parallel.brick import (BrickPlan, check_orcb_reach,
                               distribute_bricks, gid64)
-from ..parallel.brickstep import BrickStepList, exclusion_gids
+from ..parallel.brickstep import (SCALAR_COLS, BrickStepList,
+                                  exclusion_gids)
 from ..parallel.brickstep_cells import BrickStepCells
 from ..parallel.mesh import BrickMesh
 from ..parallel.shard_cells import plan_shard_cells, walls_span_minmax
@@ -124,8 +141,8 @@ from .forces import (_excl_channels, bonded_tables,
                      wide_exclusion_component)
 from .printinfo import PrintInfo
 from .simulate import (_BAROSTAT_TYPES, _MASTER_TYPES, _NPT_TYPES,
-                       _NVE_TYPES, refuse_unported_outputs,
-                       uses_constraints)
+                       _NVE_TYPES, deck_analyses, refuse_unported_outputs,
+                       uses_constraints, write_graphs_line, write_group_row)
 
 _MESH_ITEM = "ROADMAP queue 1, item 25"
 # NPT decks plan cells with shrink headroom (the JAX package's
@@ -193,8 +210,9 @@ class ParallelSimulation:
     deck over a brick mesh, NVT or Berendsen NPT, in f32 or f64."""
 
     def __init__(self, db: ObjectDB, base_dir: str = ".", *, shape=None,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, run_dir: str = "."):
         self.device = dev = _mesh_device(device)
+        self.run_dir = run_dir
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype {dtype}: the mesh runs float32 or "
                              "float64")
@@ -327,6 +345,12 @@ class ParallelSimulation:
         # work that ends in the dispatch's one device-to-host read
         self.dispatch_log: list[tuple[int, float]] = []
         self.n_rebalance = 0
+        self.analyses = deck_analyses(db, sd, self.printinfo)
+        # the last accepted step's scalar row (virial and kinetic tensors
+        # for the view), and whether every row sits in its brick (the
+        # last dispatch ended in a migration or a distribution)
+        self._last_row = None
+        self.rows_home = True
 
     # ------------------------------------------------------------------
 
@@ -617,7 +641,7 @@ class ParallelSimulation:
             bonded_plan=self._bonded_plan, bonded_left=self._bonded_left,
             cons_templates=self._cons_templates,
             cons_tables=self._cons_tables, mol_gids=self._mol_gids,
-            barostat=self.barostat,
+            barostat=self.barostat, skin=sd.neighbor_deltaR,
             has_berendsen=sd.group_table.has_berendsen)
         if self.shard_engine == "pallas":
             self.cplan = plan_shard_cells(
@@ -670,9 +694,11 @@ class ParallelSimulation:
         """This rank's brick of the host arrays at the live box, on the
         device, with the engine's exclusion field: the in-kernel channels
         (excl) of the cells engine, the partner gids (exgid) of the list
-        engine."""
-        arrays = dict(arrays)
+        engine; r0 (the drift guard's origin) is the position, pe zero
+        until the first energy."""
         n = self.sysdef.state.n_local
+        arrays = dict(arrays, r0=arrays["r"],
+                      pe=np.zeros(n, np.asarray(arrays["r"]).dtype))
         if self.shard_engine == "pallas" and self._excl_vals is not None:
             arrays["excl"] = self._excl_vals[:n]
         if self.shard_engine == "nlist" and self._exgid is not None:
@@ -683,6 +709,7 @@ class ParallelSimulation:
         self.fields = {k: torch.as_tensor(v[rows], device=self.device)
                        for k, v in buf.items()}
         self.mask = torch.as_tensor(mask[rows], device=self.device)
+        self.rows_home = True
 
     def gather_by_gid(self, names=("r", "v")) -> dict:
         """Every rank's owned rows of the named fields (and "f") on the
@@ -707,12 +734,14 @@ class ParallelSimulation:
         return out
 
     def first_energy(self) -> float:
-        """Forces and energy of the current state at the live box; keeps
-        the molecular virial diagonal the next NPT step reads."""
-        self.f, e, virial, ov = self.step_fn.first_forces(
+        """Forces, per-row potential energies and energy of the current
+        state at the live box; keeps the molecular virial diagonal the
+        next NPT step reads."""
+        self.f, e, virial, ov, pe = self.step_fn.first_forces(
             self.fields, self.mask, self.Lv)
         if bool(ov):
             raise RuntimeError("neighbor overflow at first energy")
+        self.fields = dict(self.fields, pe=pe)
         self.vird = torch.diagonal(virial).clone()
         return float(e)
 
@@ -748,68 +777,93 @@ class ParallelSimulation:
     def _dispatch(self, kind: str, n_super: int = 0, steps: int = 0):
         """One dispatch from the current state, one device-to-host read
         at its end: (new state (fields, mask, f[, vird, Lv]), scalars
-        (k, 7) numpy, overflow, steps).  kind "super" runs n_super
-        chunks, "chunk" one chunk (NPT: of `steps` steps), "step" one NVT
-        step without migration."""
+        (k, SCALAR_COLS) numpy, overflow, steps).  kind "super" runs
+        n_super chunks of steps / n_super steps, "chunk" one chunk of
+        `steps` steps (chunk_steps when 0), "step" one NVT step without
+        migration."""
         st = self.step_fn
         npt = (self.vird, self.Lv) if self.barostat else ()
         if kind == "super":
-            state, scal, ov = st.superchunk(self.fields, self.mask, self.f,
-                                            self.loop, n_super, *npt)
+            state, scal, ov = st.superchunk(
+                self.fields, self.mask, self.f, self.loop, n_super,
+                *(npt or (None, None)), steps=steps // n_super)
         elif kind == "chunk" and npt:
             *state, scal, ov = st.chunk_npt(self.fields, self.mask, self.f,
                                             *npt, self.loop, steps or None)
         elif kind == "chunk":
             *state, scal, ov = st.chunk(self.fields, self.mask, self.f,
-                                        self.loop)
+                                        self.loop, steps or None)
         else:
             fields, f, scal, ov = st.step(self.fields, self.mask, self.f,
                                           self.loop)
             state, scal = (fields, self.mask, f), scal[None]
         host = torch.cat([scal.reshape(-1),
                           ov.to(scal.dtype).reshape(1)]).cpu().numpy()
-        rows = host[:-1].astype(np.float64).reshape(-1, 7)
+        rows = host[:-1].astype(np.float64).reshape(-1, SCALAR_COLS)
         return tuple(state), rows, bool(host[-1]), rows.shape[0]
 
-    def run(self, n_loops: int, *, print_fn=None,
-            max_steps_per_dispatch: int | None = None):
+    def run(self, n_loops: int, *, migrate_rate: int | None = None,
+            print_fn=None, max_steps_per_dispatch: int | None = None):
         """Chunked dispatch: ddc updateRate steps plus one migration per
         chunk; with max_steps_per_dispatch >= 2 chunks, that many chunks
-        per dispatch (the superchunk).  Leftover loops take the per-step
-        path (NVT) or one shorter NPT chunk.  An overflowing dispatch
-        rolls back to the state before it (the box and virial diagonal
-        too) and escalates: (1) host redistribute, (2) replan at the live
-        box, (3) raise."""
+        per dispatch (the superchunk).  Every dispatch ends on each host
+        rate's next multiple (_host_rates; the superchunk runs only where
+        it fits before it) and at n_loops, in a shorter chunk.  After each
+        dispatch the outputs at their rates (_outputs); at the end every
+        analysis writes once more, as Simulation.run does.
+
+        migrate_rate (the JAX package's run(migrate_rate=)): None or
+        chunk_steps changes nothing; under the barostat it is the chunk
+        length; under NVT the run dispatches one step at a time (no
+        superchunk) and migrates on each loop migrate_rate divides.  Steps
+        away from their last migration for longer than a chunk run under
+        the drift guard.  An overflowing dispatch, the per-step path's and
+        its migration's too (the JAX per-step path raises), rolls back to
+        the state before it (the box and virial diagonal too) and
+        escalates: (1) host redistribute, (2) replan at the live box, (3)
+        raise."""
         if self.f is None:
             self.first_energy()
         done = 0
         k = self.chunk_steps
+        mr = k if migrate_rate is None else int(migrate_rate)
+        if mr < 1:
+            raise ValueError(f"migrate_rate={migrate_rate}")
+        per_step = mr != k and not self.barostat
+        if self.barostat:
+            k = mr
         # with load balance at a rate no superchunk spans a rebalance:
         # chunks, each preceded by the rebalance when its loop is due
         # (JAX parallel_sim.py:499-555)
         rate = self.lb_rate
         next_lb = self.loop - self.loop % rate + rate if rate else None
         M = (max_steps_per_dispatch // k if max_steps_per_dispatch
-             and max_steps_per_dispatch >= 2 * k and not rate else 0)
+             and max_steps_per_dispatch >= 2 * k and not rate
+             and not per_step else 0)
+        host_rates = self._host_rates()
         redis_tries = 0
         while done < n_loops:
-            steps = 0
-            if M and done + M * k <= n_loops:
-                kind = "super"
-            elif done + k <= n_loops:
-                kind = "chunk"
-                if next_lb is not None and self.loop >= next_lb:
-                    self.rebalance()
-                    next_lb += rate
+            room = n_loops - done
+            for r_ in host_rates:
+                room = min(room, r_ - self.loop % r_)
+            if per_step:
+                kind, steps = "step", 1
+            elif M and room >= M * k:
+                kind, steps = "super", M * k
             else:
-                kind = "chunk" if self.barostat else "step"
-                steps = n_loops - done
+                kind, steps = "chunk", min(k, room)
+            if kind != "super" and next_lb is not None \
+                    and self.loop >= next_lb:
+                self.rebalance()
+                next_lb += rate
             t0 = _time.perf_counter()
             state, rows, ov, steps = self._dispatch(kind, M, steps)
+            migrated = kind != "step"
+            if not ov and per_step and (self.loop + 1) % mr == 0:
+                *state, ov = self.step_fn.migrate(*state)
+                migrated = True
             seconds = _time.perf_counter() - t0
             if ov:
-                if kind == "step":
-                    raise RuntimeError(f"overflow at loop {self.loop}")
                 redis_tries += 1
                 if redis_tries > 2:
                     raise RuntimeError(f"overflow in {kind} at loop "
@@ -827,11 +881,108 @@ class ParallelSimulation:
             self.fields, self.mask, self.f = state[:3]
             if self.barostat:
                 self.vird, self.Lv = state[3:]
+            self._last_row = rows[-1]
+            self.rows_home = migrated
             self._print_scalars(rows, print_fn, self.loop)
             self.loop += steps
             done += steps
             self.dispatch_log.append((steps, seconds))
+            self._outputs(steps)
+        if self.analyses:
+            view = self.view()
+            if self.mesh.rank == 0:
+                for a in self.analyses:
+                    a.output(view, self.run_dir)
         return self
+
+    # -- outputs at their rates ---------------------------------------------
+
+    def _host_rates(self) -> list[int]:
+        """The non-zero rates a dispatch ends on: each analysis's eval_rate
+        and outputrate, and printrate when the per-group files are
+        written (Simulation writes them only at dispatch ends printrate
+        divides)."""
+        rates = []
+        for a in self.analyses:
+            rates += [a.eval_rate, a.output_rate]
+        if self._group_files():
+            rates.append(self.sysdef.cfg.printrate)
+        return [r for r in rates if r]
+
+    def _group_files(self) -> bool:
+        sd = self.sysdef
+        return len(sd.groups) > 1 and bool(sd.cfg.printrate)
+
+    def _outputs(self, k: int):
+        """What a dispatch of k steps that ended at self.loop writes: the
+        graphs line, the per-group files at printrate, the analyses'
+        evaluations and outputs at their rates (Simulation.run's order).
+        Collective."""
+        loop = self.loop
+        if self.printinfo.print_graphs:
+            self._emit_graphs(k)
+        if self._group_files() and loop % self.sysdef.cfg.printrate == 0:
+            self._emit_group_files()
+        due = [(a, bool(a.eval_rate and loop % a.eval_rate == 0),
+                bool(a.output_rate and loop % a.output_rate == 0))
+               for a in self.analyses]
+        due = [d for d in due if d[1] or d[2]]
+        if not due:
+            return
+        view = self.view()
+        rank0 = self.mesh.rank == 0
+        for a, ev, out in due:
+            if ev:
+                if hasattr(a, "eval_sharded") and a.shardable(self):
+                    a.eval_sharded(self)
+                elif rank0:
+                    a.eval(view)
+            if out and rank0:
+                a.output(view, self.run_dir)
+
+    def _emit_graphs(self, k: int):
+        """One graphs line a dispatch (write_graphs_line, Simulation's
+        columns): the mesh-wide nlocal, on the cells engine the mesh's
+        core cells, their cap and the pair slots its sweep covers, then
+        the owned count of each brick (what the rebalance reads).  Rank 0
+        writes.  Collective."""
+        owned = self.mesh.all_gather(self.mask.sum().to(torch.int64)
+                                     .reshape(1)).reshape(-1).cpu().tolist()
+        if self.mesh.rank != 0:
+            return
+        sd = self.sysdef
+        cells = None
+        if self.shard_engine == "pallas":
+            cp = self.cplan
+            ncell = cp.n_prog * self.mesh.size
+            n_stencil = cp.stencil_packed.shape[1] // 4
+            cells = (ncell, cp.cap, ncell * n_stencil * cp.cap * cp.cap)
+        write_graphs_line(
+            self.run_dir, self.loop,
+            (self.loop - sd.cfg.loop) * sd.cfg.dt + sd.cfg.time, sum(owned),
+            k, cells, " owned=" + ",".join(str(int(x)) for x in owned))
+
+    def _emit_group_files(self):
+        """Per-group temperature and energies (write_group_row), each
+        group's count and energies summed over the owned rows of every
+        rank in one all-reduce (f64), no rows gathered.  Rank 0 writes."""
+        sd = self.sysdef
+        fl, m = self.fields, self.mask
+        idx = torch.tensor([g.index for g in sd.groups], device=self.device)
+        sel = ((fl["group"].to(torch.int64)[:, None] == idx[None, :])
+               & m[:, None]).to(torch.float64)
+        v = fl["v"].double()
+        ke = 0.5 * fl["mass"].double() * (v * v).sum(1)
+        part = torch.stack([sel.sum(0), (ke[:, None] * sel).sum(0),
+                            (fl["pe"].double()[:, None] * sel).sum(0)], 1)
+        tot = self.mesh.psum(part).cpu().numpy()
+        if self.mesh.rank != 0:
+            return
+        for g, (cnt, ke_g, pe_g) in zip(sd.groups, tot):
+            cnt = int(round(cnt))
+            if cnt:
+                write_group_row(self.run_dir, g.name, self.loop, cnt, ke_g,
+                                pe_g)
 
     def redistribute(self, g=None):
         """Host-exact re-assignment of every particle to its brick under
@@ -919,16 +1070,21 @@ class ParallelSimulation:
 
     def _view_state(self, g: dict):
         """StepState at the live box with the rows of the gathered fields
-        `g` (r, v, f) on this rank's device, the static fields where the
-        system holds them: the JAX package's parallel_view state
-        (parallel_sim.py:1079-1114)."""
+        `g` (r, v, f, pe) on this rank's device, the static fields where
+        the system holds them, and the energy of the last accepted step
+        (e_pot, rk and its mesh-wide virial from the step's row, the
+        kinetic tensor from the gathered v; zero before the first
+        dispatch): the JAX package's parallel_view state
+        (parallel_sim.py:1079-1114), with what printStress's STRESSWRITE
+        and the per-row analyses read."""
         from ..core.box import Box
-        from ..core.energy import EnergyInfo
+        from ..core.energy import EnergyInfo, kinetic_terms
         from ..integrators.nglf import StepState
 
         sd = self.sysdef
         n = sd.state.n_local
         dev = self.device
+        dt_ = sd.state.r.dtype
         rep = {}
         for k, a in g.items():
             t = getattr(sd.state, k).to(dev).clone()
@@ -936,19 +1092,30 @@ class ParallelSimulation:
             rep[k] = t
         state = sd.state.replace(**rep)
         box = Box.from_h(live_h(self._live_geom()), pbc=sd.box.pbc,
-                         dtype=sd.state.r.dtype, device=dev)
+                         dtype=dt_, device=dev)
         time = (self.loop - sd.cfg.loop) * sd.cfg.dt + sd.cfg.time
-        return StepState(state=state, box=box,
-                         energy=EnergyInfo.zero(sd.state.r.dtype, dev),
+        energy = EnergyInfo.zero(dt_, dev)
+        row = self._last_row
+        if row is not None:
+            def t(x):
+                return torch.as_tensor(x, dtype=dt_, device=dev)
+
+            tion = (kinetic_terms(state.v, state.mass.to(dev),
+                                  state.fmask)[1]
+                    if "v" in g else energy.tion)
+            energy = EnergyInfo(eion=t(row[0]), rk=t(row[1]),
+                                virial=t(row[7:16]).reshape(3, 3), tion=tion,
+                                number=t(float(n)))
+        return StepState(state=state, box=box, energy=energy,
                          loop=self.loop, time=time)
 
     def view(self):
         """A Simulation-shaped view of the mesh (sysdef, ss, device) with
-        r, v and f gathered by gid (every rank gets it; collective), on
-        which the analysis registry's classes evaluate unchanged -- the
+        r, v, f and pe gathered by gid (every rank gets it; collective),
+        on which the analysis registry's classes evaluate unchanged -- the
         dataExchange / getRemoteData analog of the JAX package's
         parallel_view."""
-        names = ("r", "v") + (("f",) if self.f is not None else ())
+        names = ("r", "v", "pe") + (("f",) if self.f is not None else ())
         ss = self._view_state(self.gather_by_gid(names))
         return SimpleNamespace(sysdef=self.sysdef, ss=ss, device=self.device,
                                db=self.db, parallel_plan=self.plan)

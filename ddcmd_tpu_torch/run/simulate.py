@@ -157,45 +157,74 @@ def uses_constraints(sd) -> bool:
 
 def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo):
     """Raise NotImplementedError for the outputs a deck asks for that
-    ParallelSimulation does not write yet, instead of running to the end
-    without them: the SIMULATE analysis= list and PRINTINFO
-    printStress (which attaches STRESSWRITE) at SIMULATE's rates (the
-    mesh evaluates analyses once a call, five of them sharded, through
-    ParallelSimulation.run_analyses, as the JAX mesh does,
-    ddcmd_tpu/run/parallel_sim.py:1117-1148), the SIMULATE transform=
-    list (the JAX mesh applies no transform), printGraphs and the
-    per-group energy files (written at printrate when the SYSTEM has more
-    than one group), which the JAX mesh does not write either
-    (parallel_sim.py:452-472): all ROADMAP item 25.  Simulation writes
-    every one of them (ddcmd_tpu/run/simulate.py:189-221,1105-1118)."""
+    ParallelSimulation does not apply yet, instead of running to the end
+    without them: the SIMULATE transform= list (the JAX mesh applies no
+    transform either), ROADMAP item 25.  The mesh writes the rest at
+    their rates as Simulation does (ddcmd_tpu/run/simulate.py:189-221,
+    1170-1211): SIMULATE analysis=, printStress's STRESSWRITE, the graphs
+    file and the per-group energy files (ParallelSimulation.run)."""
     simobj = db.by_class("SIMULATE")[0]
-    names = [n for n in simobj.get_strv("analysis") if db.find(n, "ANALYSIS")]
-    if names:
-        raise NotImplementedError(
-            f"SIMULATE analysis={' '.join(names)}: the mesh runs analyses "
-            "through run_analyses() (five of them sharded), not at "
-            "SIMULATE's eval and output rates yet (ROADMAP queue 1, item "
-            "25)")
     names = [n for n in simobj.get_strv("transform")
              if db.find(n, "TRANSFORM")]
     if names:
         raise NotImplementedError(
             f"SIMULATE transform={' '.join(names)}: the mesh applies no "
             "transform yet, as the JAX mesh (ROADMAP queue 1, item 25)")
+
+
+def deck_analyses(db: ObjectDB, sd, printinfo: PrintInfo) -> list:
+    """The deck's SIMULATE analysis= objects built once, with their
+    accumulators (an object that does not build warns and is skipped),
+    and printStress's STRESSWRITE at printrate (simulate.py:189-221 of
+    the JAX package): what Simulation and ParallelSimulation evaluate at
+    the rates."""
+    from ..analysis.registry import StressWrite, build_analysis
+    from ..objects import DeckObject
+
+    out = []
+    for name in db.by_class("SIMULATE")[0].get_strv("analysis"):
+        obj = db.find(name, "ANALYSIS")
+        if obj is None:
+            continue
+        try:
+            out.append(build_analysis(name, obj))
+        except Exception as err:
+            warnings.warn(f"analysis {name}: {err}", stacklevel=3)
     if printinfo.print_stress:
-        raise NotImplementedError(
-            "PRINTINFO printStress attaches the STRESSWRITE analysis at "
-            "printrate; the mesh runs analyses through run_analyses(), not "
-            "at SIMULATE's rates yet (ROADMAP queue 1, item 25)")
-    if printinfo.print_graphs:
-        raise NotImplementedError(
-            "PRINTINFO printGraphs: the mesh does not write the graph files "
-            "yet (ROADMAP queue 1, item 25)")
-    if len(sd.groups) > 1 and sd.cfg.printrate:
-        raise NotImplementedError(
-            f"{len(sd.groups)} groups with printrate={sd.cfg.printrate}: the "
-            "mesh does not write the per-group energy files yet (ROADMAP "
-            "queue 1, item 25)")
+        rate = sd.cfg.printrate or 1
+        sw = StressWrite(name="printStress",
+                         obj=DeckObject("printStress", "ANALYSIS",
+                                        {"type": ["STRESSWRITE"]}),
+                         eval_rate=rate, output_rate=rate)
+        sw.setup()
+        out.append(sw)
+    return out
+
+
+def write_graphs_line(run_dir, loop: int, time: float, nlocal: int,
+                      steps: int, cells=None, tail: str = ""):
+    """Append one line to run_dir/graphs (graphWrite analog, ddcMD
+    src/graph.c:23-110; simulate.py:1170-1187 of the JAX package): loop,
+    time, nlocal, a cell engine's (ncell, cap, pair_slots) when `cells`
+    gives them, the dispatch's steps, then `tail`."""
+    line = f"{loop:10d} {time:12.6f} nlocal={nlocal}"
+    if cells is not None:
+        ncell, cap, pair_slots = cells
+        line += f" ncell={ncell} cap={cap} pair_slots={pair_slots}"
+    with open(os.path.join(run_dir, "graphs"), "a") as f:
+        f.write(f"{line} steps={steps}{tail}\n")
+
+
+def write_group_row(run_dir, name: str, loop: int, count: int, ke: float,
+                    pe: float):
+    """Append one row to run_dir/group_<name>.data (printinfo.c:261-279;
+    simulate.py:1189-1211 of the JAX package): loop, members, T =
+    2 ke / (3 count kB), kinetic and potential energy a member, from the
+    group's summed ke and pe."""
+    T = 2.0 * ke / (3.0 * count * U.kB)
+    with open(os.path.join(run_dir, f"group_{name}.data"), "a") as f:
+        f.write(f"{loop:12d} {count:10d} {T:14.4f} {ke / count:16.8f} "
+                f"{pe / count:16.8f}\n")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -300,7 +329,7 @@ class Simulation:
         # at printrate (printinfo.c:241-260); an analysis whose setup
         # fails is skipped with a warning, as in the JAX package
         # (simulate.py:189-215).  They outlive a count change (_derive)
-        self.analyses = self._build_analyses()
+        self.analyses = deck_analyses(db, sd, self.printinfo)
         # the SIMULATE transform= list, (name, object, rate): each applied
         # at the dispatch ends its rate divides (transform.c:153;
         # simulate.py:216-220 of the JAX package)
@@ -359,30 +388,6 @@ class Simulation:
                                  dtype=dtype, device=self.device))
 
     # ------------------------------------------------------------------
-
-    def _build_analyses(self) -> list:
-        from ..analysis.registry import StressWrite, build_analysis
-        from ..objects import DeckObject
-
-        db, sd = self.db, self.sysdef
-        out = []
-        for name in db.by_class("SIMULATE")[0].get_strv("analysis"):
-            obj = db.find(name, "ANALYSIS")
-            if obj is None:
-                continue
-            try:
-                out.append(build_analysis(name, obj))
-            except Exception as err:
-                warnings.warn(f"analysis {name}: {err}", stacklevel=3)
-        if self.printinfo.print_stress:
-            rate = sd.cfg.printrate or 1
-            sw = StressWrite(name="printStress",
-                             obj=DeckObject("printStress", "ANALYSIS",
-                                            {"type": ["STRESSWRITE"]}),
-                             eval_rate=rate, output_rate=rate)
-            sw.setup()
-            out.append(sw)
-        return out
 
     def _derive(self, box, time: float):
         """What the run derives from its particles and box: the engine
@@ -973,26 +978,17 @@ class Simulation:
         self.redos["nan"] += 1
 
     def _emit_graphs(self, k: int):
-        """Load-diagnostics file (graphWrite analog, ddcMD src/graph.c:
-        23-110), one line a dispatch: the cell engines' cell count, cap
-        and the pair slots their sweep covers (simulate.py:1170-1187 of
-        the JAX package; plan_lanes gives both packages' kernel plans)."""
+        """One graphs line a dispatch (write_graphs_line): the cell
+        engines' cell count, cap and the pair slots their sweep covers
+        (plan_lanes gives both packages' kernel plans)."""
         g = self.grid
-        n = self.sysdef.state.n_local
-        head = f"{self.ss.loop:10d} {self.ss.time:12.6f} nlocal={n}"
-        if hasattr(g, "cap"):
-            pair_slots = g.ncell * g.n_stencil * g.cap * g.cap
-            line = (f"{head} ncell={g.ncell} cap={g.cap} "
-                    f"pair_slots={pair_slots} steps={k}")
-        else:
-            line = f"{head} steps={k}"
-        with open(os.path.join(self.run_dir, "graphs"), "a") as f:
-            f.write(line + "\n")
+        cells = ((g.ncell, g.cap, g.ncell * g.n_stencil * g.cap * g.cap)
+                 if hasattr(g, "cap") else None)
+        write_graphs_line(self.run_dir, self.ss.loop, self.ss.time,
+                          self.sysdef.state.n_local, k, cells)
 
     def _emit_group_files(self):
-        """Per-group temperature and energies, group_<name>.data
-        (printinfo.c:261-279; simulate.py:1189-1211 of the JAX package):
-        loop, members, T, kinetic and potential energy a member."""
+        """Per-group temperature and energies (write_group_row)."""
         sd = self.sysdef
         n = sd.state.n_local
         st = self.ss.state
@@ -1008,11 +1004,8 @@ class Simulation:
             if cnt == 0:
                 continue
             ke = 0.5 * (m[sel, None] * v[sel] ** 2).sum()
-            T = 2.0 * ke / (3.0 * cnt * U.kB)
-            path = os.path.join(self.run_dir, f"group_{g.name}.data")
-            with open(path, "a") as f:
-                f.write(f"{self.ss.loop:12d} {cnt:10d} {T:14.4f} "
-                        f"{ke / cnt:16.8f} {pe[sel].sum() / cnt:16.8f}\n")
+            write_group_row(self.run_dir, g.name, self.ss.loop, cnt, ke,
+                            pe[sel].sum())
 
     def apply_transform(self, tobj):
         """Apply the TRANSFORM object `tobj` to the run's state on the host

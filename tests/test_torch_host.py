@@ -151,13 +151,13 @@ _DEFORMATION = (lambda s: s.replace(
     pytest.param(_DEFORMATION,
                  r"mesh:a prescribed box\(t\) \(deformation\).*item 25",
                  id=r"<lambda>-box\(t\).*item 22"),
-    # outputs the JAX Simulation writes at their rates: Simulation writes
-    # them (tests/test_torch_analysis_run.py); the mesh raises naming item
-    # 25 instead of running to the end without them (the ids keep the
-    # names these cases had before item 24 was split)
+    # outputs the JAX Simulation writes at their rates, which the mesh
+    # refused until it wrote them too: these decks now run under the mesh
+    # and write their files (`runs:`; the ids keep the names these cases
+    # had when they were refusals)
     pytest.param(lambda s: _sim_key(s, "analysis=rdf;")
                  + "rdf ANALYSIS { type=PAIRCORRELATION; eval_rate=10; }\n",
-                 r"mesh:analysis=rdf.*item 25",
+                 "runs:paircorrelation.dat",
                  id=r"<lambda>-analysis=rdf.*item 24"),
     # Simulation applies transforms (tests/test_torch_transform_sim.py);
     # the mesh does not, as the JAX mesh
@@ -166,26 +166,25 @@ _DEFORMATION = (lambda s: s.replace(
                  r"mesh:transform=therm.*item 25",
                  id=r"<lambda>-transform=therm.*item 24"),
     pytest.param(lambda s: _printinfo(s, "printStress=1;"),
-                 r"mesh:printStress.*item 25",
+                 "runs:stress.data",
                  id=r"<lambda>-printStress.*item 24"),
-    # Simulation writes the graphs line and the per-group energy files
-    # (tests/test_torch_runtime.py); the mesh does not, as the JAX mesh
+    # the graphs line and the per-group energy files, which the JAX mesh
+    # does not write (Simulation's: tests/test_torch_runtime.py)
     pytest.param(lambda s: _printinfo(s, "printGraphs=1;"),
-                 r"mesh:printGraphs.*item 25",
+                 "runs:graphs",
                  id=r"<lambda>-printGraphs.*item 23"),
     pytest.param(lambda s: s.replace("groups=solvent;",
                                      "groups=solvent frozen;")
                  + "frozen GROUP { type=FREE; }\n",
-                 r"mesh:per-group energy.*item 25",
+                 "runs:group_solvent.data",
                  id=r"<lambda>-per-group energy.*item 23"),
     # the list names only the ANALYSIS objects the deck has
     pytest.param(lambda s: _sim_key(s, "analysis=sw none;")
                  + "sw ANALYSIS { type=STRESSWRITE; eval_rate=10; }\n",
-                 r"mesh:analysis=sw: .*item 25",
+                 "runs:stress.data",
                  id=r"<lambda>-mesh:printStress.*item 24"),
-    # printStress comes before printGraphs
     pytest.param(lambda s: _printinfo(s, "printStress=1; printGraphs=1;"),
-                 r"mesh:printStress attaches.*item 25",
+                 "runs:stress.data graphs",
                  id=r"<lambda>-mesh:printStress+printGraphs.*item 25"),
     # what the mesh still refuses where Simulation runs the deck on its
     # cell-block engine: non-periodic axes (a triclinic box runs,
@@ -207,9 +206,18 @@ _DEFORMATION = (lambda s: s.replace(
 def test_unported_deck_features_raise(tmp_path, edit, what):
     """Deck features outside the slice raise NotImplementedError naming
     what is missing, never run a different model silently; a `mesh:`
-    case goes through ParallelSimulation at (1,1,1) over gloo."""
+    case goes through ParallelSimulation at (1,1,1) over gloo.  A
+    `runs:` case is a deck the mesh refused until it wrote its outputs at
+    their rates: at printrate 10 it runs 20 steps under the mesh at
+    (1,1,1) over gloo and writes the named files, each with a row past
+    its header."""
     from ddcmd_tpu_torch.run.simulate import Simulation
 
+    if what.startswith("runs:"):
+        _, td = _decks(tmp_path, edit=lambda s: edit(s).replace(
+            "printrate=100;", "printrate=10;"))
+        _mesh_writes(tmp_path, td, what[len("runs:"):].split())
+        return
     _, td = _decks(tmp_path, edit=edit)
     if not what.startswith("mesh:"):
         with pytest.raises(NotImplementedError, match=what):
@@ -227,6 +235,30 @@ def test_unported_deck_features_raise(tmp_path, edit, what):
                                device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+def _mesh_writes(tmp_path, td, files):
+    """The deck in td through ParallelSimulation at (1,1,1) over a gloo
+    rank of one, 20 steps into td: each of `files` there with a row past
+    its header line."""
+    import torch.distributed as dist
+
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        ps = ParallelSimulation(t_load(td)[0], td, shape=(1, 1, 1),
+                                device="cpu", run_dir=td)
+        ps.run(20, print_fn=lambda line: None)
+    finally:
+        dist.destroy_process_group()
+    assert ps.loop == 20
+    for name in files:
+        with open(os.path.join(td, name)) as f:
+            rows = [ln for ln in f.read().splitlines()
+                    if ln.strip() and not ln.startswith("#")]
+        assert rows, name
 
 
 def test_tilted_deck_runs_under_the_mesh(tmp_path):

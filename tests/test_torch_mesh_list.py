@@ -161,10 +161,13 @@ def _jax_mesh_first_forces(spec, shape=SHAPE, move=None):
     return float(e), out
 
 
-def _checked(z, spec):
-    """One leg's results: no overflow, finite forces, every particle
-    owned once after the migration."""
-    assert not (bool(z["ov"]) or bool(z["ov_s"]) or bool(z["ov_m"]))
+def _checked(z, spec, step_flags=False):
+    """One leg's results: no overflow of the first forces and the
+    migration, the step's flagged exactly when `step_flags` (a row that
+    the step carries half the skin or more: the drift guard), finite
+    forces, every particle owned once after the migration."""
+    assert not (bool(z["ov"]) or bool(z["ov_m"]))
+    assert bool(z["ov_s"]) == step_flags
     assert bool(z["finite"])
     assert sorted(z["gids"].tolist()) == sorted(spec["gid"].tolist())
     return z
@@ -192,13 +195,14 @@ def legs(system, tmp_path_factory):
             for name, (z, _) in todo.items()}
 
 
-def _run(tmp_path, spec, dtype, name, shape=SHAPE, move=None):
+def _run(tmp_path, spec, dtype, name, shape=SHAPE, move=None,
+         step_flags=False):
     p = str(tmp_path / f"{name}_spec.npz")
     np.savez(p, **spec)
     out = str(tmp_path / f"{name}.npz")
     ranks.run_ranks(ranks.list_bricks, int(np.prod(shape)), tmp_path, p,
                     shape, dtype, out, move)
-    return _checked(np.load(out), spec)
+    return _checked(np.load(out), spec, step_flags)
 
 
 def test_dry_run_bricks_leg(system, legs):
@@ -256,7 +260,10 @@ def test_seam_crossing_row_keeps_its_pairs(tmp_path, system):
     x_new = 0.5 * L + 0.05 - L                 # 0.05 nm past the seam
     moved = dict(spec, r=spec["r"].copy())
     moved["r"][k, 0] = x_new
-    z = _run(tmp_path, spec, "float64", "seam", (4, 1, 1), (k, x_new))
+    # the moved row lands 0.18 nm from a neighbour (|f| ~1.5e8): the step
+    # carries it ~4.4 nm, and the drift guard flags that step
+    z = _run(tmp_path, spec, "float64", "seam", (4, 1, 1), (k, x_new),
+             step_flags=True)
     e_ref, f_ref, _ = _jax_reference(moved, jnp.float64)
     assert abs(float(z["e"]) - e_ref) <= 1e-10 * abs(e_ref)
     assert np.abs(z["f"] - f_ref).max() <= 1e-10 * np.abs(f_ref).max()

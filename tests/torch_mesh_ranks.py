@@ -31,10 +31,11 @@ def _entry(fn, rank, world, rdv, args):
         dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, tmp_dir, *args, timeout=JOIN_TIMEOUT):
-    """fn(rank, *args) in `world` spawned gloo ranks (a file:// rendezvous
-    in tmp_dir).  Every rank is joined within `timeout` seconds all told
-    or killed; raises unless all exit 0."""
+def start_ranks(fn, world: int, tmp_dir, *args, timeout=JOIN_TIMEOUT):
+    """Start fn(rank, *args) in `world` spawned gloo ranks (a file://
+    rendezvous in tmp_dir) and return join(): every rank is joined within
+    `timeout` seconds of the start all told or killed; join raises
+    unless all exit 0.  The caller may work in between."""
     rdv = os.path.join(str(tmp_dir), f"rdv_{fn.__name__}")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(fn, r, world, rdv, args))
@@ -42,19 +43,29 @@ def run_ranks(fn, world: int, tmp_dir, *args, timeout=JOIN_TIMEOUT):
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if hung:
-        raise TimeoutError(f"ranks {hung} of {world} still running after "
-                           f"{timeout} s")
-    codes = [p.exitcode for p in procs]
-    if any(codes):
-        raise RuntimeError(f"rank exit codes {codes}")
+
+    def join():
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung:
+            raise TimeoutError(f"ranks {hung} of {world} still running "
+                               f"after {timeout} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise RuntimeError(f"rank exit codes {codes}")
+
+    return join
+
+
+def run_ranks(fn, world: int, tmp_dir, *args, timeout=JOIN_TIMEOUT):
+    """fn(rank, *args) in `world` spawned gloo ranks (start_ranks), joined
+    before it returns."""
+    start_ranks(fn, world, tmp_dir, *args, timeout=timeout)()
 
 
 def _psim(deck_dir, shape):
@@ -89,7 +100,8 @@ def halo_invariants(rank, deck_dir, shape, out):
 def first_forces(rank, deck_dir, shape, out):
     """First forces (gathered by gid), energy and virial of the mesh."""
     ps = _psim(deck_dir, shape)
-    ps.f, e, virial, ov = ps.step_fn.first_forces(ps.fields, ps.mask)
+    ps.f, e, virial, ov, _ = ps.step_fn.first_forces(ps.fields,
+                                                      ps.mask)
     g = ps.gather_by_gid(("f",))
     if rank == 0:
         np.savez(out, e=float(e), virial=virial.numpy(), ov=bool(ov),
@@ -239,7 +251,8 @@ def lb_first_forces(rank, deck_dir, shape, out):
     from ddcmd_tpu_torch.parallel.brick import halo_exchange_3d
 
     ps = _psim(deck_dir, shape)
-    ps.f, e, virial, ov = ps.step_fn.first_forces(ps.fields, ps.mask)
+    ps.f, e, virial, ov, _ = ps.step_fn.first_forces(ps.fields,
+                                                      ps.mask)
     g = ps.gather_by_gid(("f",))
     ghosts, gmask, ov_h, _ = halo_exchange_3d(
         {"r": ps.fields["r"], "gid": ps.fields["gid"]}, ps.mask,
@@ -488,6 +501,8 @@ def _list_bricks(rank, z, shape, dtype, move=None):
     if move is not None:
         hit = torch.nonzero(mask & (fields["gid"] == move[0])).reshape(-1)
         fields["r"][hit, 0] = move[1]
+    # the drift guard's origin: the positions the step starts from
+    fields["r0"] = fields["r"].clone()
     kw = {}
     if "bonds" in z:
         from ddcmd_tpu_torch.parallel.bonded_shard import (
@@ -504,8 +519,8 @@ def _list_bricks(rank, z, shape, dtype, move=None):
                   cons_tables=constraint_gid_tables(bt, z["gid"]))
     st = BrickStepList(mesh, plan, grid, tables, coeffs, 0.02, geom,
                        np.array([0, 1]), 0, 1, force_kind="martini",
-                       dtype=dt_, **kw)
-    f, e, virial, ov = st.first_forces(fields, mask)
+                       skin=skin, dtype=dt_, **kw)
+    f, e, virial, ov, _ = st.first_forces(fields, mask)
     m = mesh.all_gather(mask.to(torch.int64)).reshape(-1).bool()
     g = mesh.all_gather(fields["gid"]).reshape(-1)[m].numpy()
     fa = mesh.all_gather(f).reshape(-1, 3)[m].numpy()
@@ -539,7 +554,8 @@ def mesh_forces(rank, deck_dir, shape, out, engine=None, dtype="float32",
     if lb_first:
         ps.rebalance()
     t0 = time.perf_counter()
-    ps.f, e, virial, ov = ps.step_fn.first_forces(ps.fields, ps.mask)
+    ps.f, e, virial, ov, _ = ps.step_fn.first_forces(ps.fields,
+                                                      ps.mask)
     seconds = time.perf_counter() - t0
     g = ps.gather_by_gid(("f",))
     ps.vird = torch.diagonal(virial).clone()
@@ -769,6 +785,92 @@ def slab_legs(rank, spec, out):
                                                        ).reshape(-1)[m_all]
                         .numpy(),
                         f"{key}_finite": bool(torch.isfinite(f[mask]).all())})
+    if rank == 0:
+        np.savez(out, **res)
+
+
+def _by_gid(ps, names):
+    """The named fields gathered by gid (collective), float64."""
+    return {k: v.astype(np.float64) for k, v in
+            ps.gather_by_gid(names).items()}
+
+
+def _outside(ps) -> int:
+    """Owned rows outside their brick mesh-wide, by the wall comparison
+    that decides ownership (collective)."""
+    from ddcmd_tpu_torch.parallel.brick import _bounds_of, _in_box
+
+    out = torch.zeros_like(ps.mask)
+    for a, n in enumerate(ps.shape):
+        if n > 1:
+            lo, hi = _bounds_of(ps.plan, ps.mesh.idx3, a)
+            x = _in_box(ps.fields["r"][:, a] / ps.Lv[a])
+            out = out | (ps.mask & ((x < lo) | (x >= hi)))
+    return int(ps.mesh.psum(out.sum().reshape(1))[0])
+
+
+def mesh_outputs(rank, decks, out):
+    """ParallelSimulation.run(migrate_rate=) and the outputs at their
+    rates at (2,1,1), one leg a deck of `decks` ({leg: (deck dir, dict of
+    the leg's settings)}):
+      nvt: FREE f64, run(3 R, migrate_rate=R): positions by gid, loop;
+      npt: the Berendsen deck, FREE f64: run(2 k + 3), then run(2 h,
+        migrate_rate=h): loop and box after each;
+      hot_<engine>: a hot FREE fluid (f64 list engine, or f32 cells
+        engine), `steps` one-step calls of run(1, migrate_rate=R): each
+        step's positions, forces and energy, the rows outside their
+        bricks before it, the redistributes;
+      outputs: the deck with analyses, printStress, printGraphs and two
+        groups, run `steps` into its run dir (rank 0 writes).
+    Rank 0 saves every leg into out (npz)."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+
+    res = {}
+    quiet = dict(print_fn=lambda line: None)
+    for leg, (d, kw) in decks.items():
+        dtype = getattr(torch, kw.get("dtype", "float64"))
+        ps = ParallelSimulation(*load(d), shape=(2, 1, 1), device="cpu",
+                                dtype=dtype, run_dir=kw.get("run_dir", "."))
+        res[f"{leg}_engine"] = ps.shard_engine
+        ps.first_energy()
+        if leg == "nvt":
+            ps.run(3 * kw["R"], migrate_rate=kw["R"], **quiet)
+            res.update(nvt_r=_by_gid(ps, ("r",))["r"], nvt_loop=ps.loop)
+        elif leg == "npt":
+            k = ps.chunk_steps
+            half = max(1, k // 2)
+            ps.run(2 * k + 3, **quiet)
+            res.update(npt_loop1=ps.loop, npt_L1=ps.Lv.numpy().copy())
+            ps.run(2 * half, migrate_rate=half, **quiet)
+            res.update(npt_loop2=ps.loop, npt_L2=ps.Lv.numpy().copy(),
+                       npt_n=int(ps.mesh.psum(ps.mask.sum().reshape(1))[0]))
+        elif leg.startswith("hot"):
+            redis = []
+            real = ps.redistribute
+
+            def counted(*a, **k_):
+                redis.append(ps.loop)
+                return real(*a, **k_)
+
+            ps.redistribute = counted
+            rows = []
+            for _ in range(kw["steps"]):
+                outside = _outside(ps)
+                ps.run(1, migrate_rate=kw["R"], **quiet)
+                g = _by_gid(ps, ("r", "f"))
+                rows.append((outside, float(ps._last_row[0]), g["r"],
+                             g["f"]))
+            res.update({f"{leg}_outside": np.array([x[0] for x in rows]),
+                        f"{leg}_e": np.array([x[1] for x in rows]),
+                        f"{leg}_r": np.stack([x[2] for x in rows]),
+                        f"{leg}_f": np.stack([x[3] for x in rows]),
+                        f"{leg}_redis": np.array(redis, np.int64)})
+        else:
+            ps.run(kw["steps"], **quiet)
+            res.update(outputs_loop=ps.loop,
+                       outputs_ends=np.cumsum([k_ for k_, _ in
+                                               ps.dispatch_log]))
     if rank == 0:
         np.savez(out, **res)
 
