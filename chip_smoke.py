@@ -5,7 +5,7 @@
                            --transforms-only | --analyses-only |
                            --rebuilds-only | --loadbalance-only |
                            --listmesh-only | --triclinic-only |
-                           --outputs-only]
+                           --outputs-only | --dynamics-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -169,9 +169,9 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      NGLFNK on the 131,072-atom LJ fluid (120 K, 500 bar) through the
      CLI, 2000 steps on #2: Lx == Ly exactly, mean T, the box, bdot;
      both with steps/s, busy share and CUDA kernels a step; (c) STRAIN
-     (dudt = 0 0 1e-6 /fs) on the nc = 32 crystal, 1000 steps on #5:
+     (dudt = 0 0 1e-6 /fs) on the nc = 32 crystal, 500 steps on #5:
      Lz against exp(int u dt), Lx and Ly fixed, Pzz; (d) SHEAR on the LJ
-     fluid (slices at +-L/4 driven at +-1e-3 A/fs), 1000 steps on #2:
+     fluid (slices at +-L/4 driven at +-1e-3 A/fs), 500 steps on #2:
      the slices' mean vy and temperatures, the z profile; (e) small
      decks on the card against the CPU with the same noise (a deck for
      each GROUP type and GLOBAL_ENERGY, NVEGLF, NVEGLF_SIMPLE, NPTGLF,
@@ -332,6 +332,27 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      #6 against its plain version on (a)'s last records (row
      cellpair_half_ext_outputs, (a)'s launches) and on the NVT leg's
      (row cellpair_half_ext_migrate_rate, that leg's launches).
+ 29. item 22's dynamics under the mesh (ParallelSimulation at (1,1,1)):
+     (a) NPTGLF on the nc = 12 crystal at its zero-pressure lattice
+     constant 4.30 A (LANGEVIN 300 K) on #7: mean T, the box within 20%,
+     zeta; (b) NGLFNK on the 4,096-atom LJ fluid on #6: Lx == Ly exactly,
+     mean T, the box, bdot; (c) STRAIN (dudt = 0 0 1e-6 /fs) on the
+     water box on #6: Lz against exp(int u dt), Lx and Ly fixed; (d)
+     SHEAR on the 4,096-atom fluid on #6: the slices' mean vy; (e)
+     NVEGLF on the nc = 12 crystal (its LANGEVIN group ignored) against
+     NGLF with a FREE group, 100 steps each on #7, energies equal.  Each
+     f32 leg's first energy and forces against Simulation's on the same
+     deck, then 1000 steps ((a), (b)) or 500 ((c), (d)) with the launches
+     counted (counters set to 0 just before the run), the mean T over
+     the last 500; then a 20-step f64 leg of the path on a small
+     deck (the nc = 4 crystal, the 500-atom fluid, the 400-bead water
+     box; no noise) held to Simulation(engine="nlist") one step a
+     dispatch: box, zeta or bdot, e_pot, rk.  Each f32 leg's kernels
+     against their plain versions on that leg's last records, in rows of
+     the leg's own with its launches: eam_rho_ext_dynamics_nptglf /
+     eam_force_ext_dynamics_nptglf ((a)), cellpair_half_ext_dynamics_
+     nglfnk, _strain and _shear ((b)-(d)), eam_rho_ext_dynamics_nveglf /
+     eam_force_ext_dynamics_nveglf ((e)).
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -343,8 +364,9 @@ with phase 20, --masters-only with phase 21 (making the bilayer's restart
 as phase 6's first stage does), --transforms-only with phase 22,
 --analyses-only with phase 23, --rebuilds-only with phase 24,
 --loadbalance-only with phase 25, --listmesh-only with phase 26,
---triclinic-only with phase 27, --outputs-only with phase 28.  The line
-before the card line gives the script's seconds in all.
+--triclinic-only with phase 27, --outputs-only with phase 28,
+--dynamics-only with phase 29.  The line before the card line gives the
+script's seconds in all.
 """
 
 import contextlib
@@ -3878,8 +3900,8 @@ NPT_GAMMA, INT_NPT_STEPS = 2.2, 2000
 # HBM3, 700.00 W).  With W = 1e5 amu the box grows ~8% toward 500 bar
 # over the 8 ps (the period is set by the flow's inertia: ~30 ps)
 NK_P, NK_TAU, NK_W, NK_STEPS = 500.0, 0.5, 1e5, 2000
-STRAIN_U, STRAIN_STEPS = 1e-6, 1000         # dudt on z, 1/fs
-SHEAR_V, SHEAR_TAU, SHEAR_STEPS = 1e-3, 0.2, 1000   # A/fs, ps
+STRAIN_U, STRAIN_STEPS = 1e-6, 500          # dudt on z, 1/fs
+SHEAR_V, SHEAR_TAU, SHEAR_STEPS = 1e-3, 0.2, 500    # A/fs, ps
 INT_SMALL_N, INT_SMALL_STEPS = 500, 20      # (e): card vs CPU
 NVE_CHECK_STEPS = 100
 # the small decks' NPTGLF: the LJ fluid's B ~1.7 GPa at 48.1 A^3 an atom
@@ -4097,6 +4119,94 @@ def integrator_decks(n=INT_SMALL_N):
     )
 
 
+def mesh_dynamics_decks(n=INT_SMALL_N):
+    """(name, make_deck) of item 22's decks that ParallelSimulation runs
+    as Simulation does (phase 29, tests/test_torch_mesh_dynamics.py): the
+    n-atom LJ fluid with a FREE group (no noise), updateRate and
+    printrate 10 (so both drivers' dispatches, which refresh the group
+    coefficients at their start, end at the same loops), under NVEGLF
+    (its LANGEVIN group kept: the NVE variants ignore it), NVEGLF_SIMPLE,
+    NPTGLF,
+    NGLFNK at a 0 K target (its draws' amplitude zero), STRAIN,
+    DEFORMATION_RATE (off-diagonal: a tilting box), VOLUME, EXTFORCE, a
+    SHEAR group whose top slice spans z = 0 and whose bottom slice spans
+    the periodic seam, SHWALL, DOUBLE_MIRROR, UNIONGROUP of FREE
+    members, a BERENDSEN Teq ramp, a PISTON vz(t) slab, and the nx = 2
+    bilayer (132 beads, FREE, 10 fs) under NGLFNEW with its constraints
+    and the Berendsen barostat; then GLOBAL_ENERGY, a LANGEVIN target
+    (noisy)."""
+    printrate = 10
+
+    def rate(t):
+        return (t.replace("updateRate=20;", "updateRate=10;")
+                .replace("updateRate=12;", "updateRate=10;"))
+
+    def lj(edit=None, free=True):
+        return lambda d: lj_deck(d, n, printrate=printrate, free=free,
+                                 edit=chain(rate, edit or (lambda t: t)))
+
+    def grouped(groups, assign=None, extra=""):
+        def make(d):
+            p = lj_deck(d, n, printrate=printrate, free=True, edit=rate)
+            L = box_edge(d)
+            g = groups(L) if callable(groups) else groups
+            first = next(iter(g))
+            regroup(d, g, (lambda r: assign(r, L)) if assign
+                    else (lambda r: [first] * len(r)), extra,
+                    printrate=printrate)
+            return p
+        return make
+
+    def slab(r, L):
+        return ["wall" if z < -L / 4 else "mob" for z in r[:, 2]]
+
+    def seam_shear(L):
+        body = shear_groups(L)["sh"]
+        return {"sh": body.replace(
+            f"top_center={L / 4:.6f}", f"top_center={L / 16:.6f}").replace(
+            f"bottom_center={-L / 4:.6f}",
+            f"bottom_center={-L / 2 + L / 16:.6f}")}
+
+    def bilayer(d):
+        p = bilayer_deck(d, 2, 10.0, printrate, free=True)
+        edit_deck(p, lambda t: rate(t).replace("type=NGLFCONSTRAINT;",
+                                               "type=NGLFNEW;"))
+        return p
+
+    return (
+        ("NVEGLF", lj(lambda t: t.replace("type=NGLF;", "type=NVEGLF;"),
+                      free=False)),
+        ("NVEGLF_SIMPLE", lj(lambda t: t.replace("type=NGLF;",
+                                                 "type=NVEGLF_SIMPLE;"))),
+        ("NPTGLF", lj(nptglf_edit(SMALL_LJ_GAMMA, 500.0))),
+        ("NGLFNK", lj(chain(nglfnk_edit(W=200.0, P=2000.0),
+                            lambda t: t.replace("T=120.0K;", "T=0K;")))),
+        ("STRAIN", lj(box_edit("dudt=0 0 1e-4;"))),
+        ("DEFORMATION_RATE", lj(box_edit(
+            "deformationRate=5e-6 2e-5 0 0 0 0 0 0 0;"))),
+        ("VOLUME", lj(box_edit("Veq=46 Angstrom^3;"))),
+        ("EXTFORCE", grouped({"mob": "type=FREE;", "wall": (
+            "type=EXTFORCE; force=0 0 0.02 eV/Angstrom;")}, slab)),
+        ("SHEAR", grouped(seam_shear)),
+        ("SHWALL", grouped(lambda L: shear_groups(L, style="SHWALL"))),
+        ("DOUBLE_MIRROR", grouped(lambda L: {"mir": (
+            f"type=DOUBLE_MIRROR; point1=0 0 {-L / 2 + 3:.6f} Angstrom; "
+            f"point2=0 0 {L / 2 - 3:.6f} Angstrom; normal1=0 0 1; "
+            "normal2=0 0 -1; v1=2e-3 Angstrom/fs; v2=-2e-3 Angstrom/fs;")})),
+        ("UNIONGROUP", grouped({"u": "type=UNIONGROUP; groups=m1 m2;"},
+                               extra="m1 GROUP { type=FREE; }\n"
+                               "m2 GROUP { type=FREE; }\n")),
+        ("BERENDSEN_RAMP", grouped({"ber": (
+            "type=BERENDSEN; Teq=RAMP(120,240,0,80fs); tau=0.05ps;")})),
+        ("PISTON_VZ", grouped({"mob": "type=FREE;", "wall": (
+            "type=PISTON; vz=RAMP(0,2e-3,0,40fs);")}, slab)),
+        ("NGLFNEW_CONSTRAINTS", bilayer),
+        ("GLOBAL_ENERGY", grouped({"ge": (
+            "type=LANGEVIN; Teq=120K; tau=0.2ps; "
+            "Teq_dynamics=GLOBAL_ENERGY; Cp=0.05 kJ*mol^-1*K^-1;")})),
+    )
+
+
 def small_run(where, make_deck, steps):
     """Simulation (engine auto) of make_deck's deck on `where` for `steps`
     steps with the CPU's noise: ((engine, eion, rk, positions, h, zeta,
@@ -4123,13 +4233,20 @@ def shear_profile(sim, L):
     """(mean vy in 8 z bins (A/fs), top and bottom slice: mean vy and T K)
     of sim's state; the slices as the SHEAR hook reads them (|z -+ L/4|
     < L/8)."""
-    from ddcmd_tpu_torch.objects import units as U
-
     st = sim.ss.state
     n = st.n_local
-    r = sim.ss.box.back_in_box(st.r)[:n].cpu().double().numpy() * 10.0
-    v = st.v[:n].cpu().double().numpy()
-    m = st.mass[:n].cpu().double().numpy()
+    return shear_profile_arrays(st.r[:n].cpu().double().numpy(),
+                                st.v[:n].cpu().double().numpy(),
+                                st.mass[:n].cpu().double().numpy(), L)
+
+
+def shear_profile_arrays(r, v, m, L):
+    """shear_profile of positions r (nm, any image), velocities v and
+    masses m in a cubic box of edge L (A)."""
+    from ddcmd_tpu_torch.objects import units as U
+
+    r = r * 10.0
+    r = r - L * np.round(r / L)
     vy = v[:, 1] * (U.LENGTH_TO_ANG / U.TIME_TO_FS)
     bins = np.clip(((r[:, 2] / L + 0.5) * 8).astype(int), 0, 7)
     prof = [float(vy[bins == b].mean()) for b in range(8)]
@@ -7534,6 +7651,285 @@ def outputs_phase(card, dev, counters_zero, all_counters, failed,
                                                row_c)}
 
 
+# --- phase 29: item 22's dynamics under the brick mesh ----------------------
+# Five paths through ParallelSimulation at (1,1,1) on the card, each an
+# f32 leg (its first energy and forces held to Simulation's on the same
+# deck, then phase 20's gates for the path: a mean T over the last
+# DYN_TAIL of DYN_STEPS steps; the box and the slices' gates after
+# DYN_SHORT_STEPS) and a DYN_F64_STEPS-step f64 leg held to
+# Simulation(engine="nlist") step by step (dispatches of one step: box,
+# zeta or bdot, energies): (a) NPTGLF on the nc = EAM_NC crystal at its
+# zero-pressure lattice constant INT_A_LAT (#7); (b) NGLFNK on the LJ_N
+# fluid (#6); (c) STRAIN on the water box (#6); (d) SHEAR on the LJ_N
+# fluid (#6); (e) NVEGLF on the nc = EAM_NC crystal with its LANGEVIN
+# group against NGLF with a FREE group, DYN_NVE_STEPS steps each (#7)
+DYN_STEPS, DYN_TAIL, DYN_SHORT_STEPS = 1000, 500, 500
+DYN_F64_STEPS, DYN_NVE_STEPS = 20, 100
+DYN_E_REL, DYN_F_TOL, DYN_F64_TOL = 2e-5, 1e-4, 1e-9
+DYN_WATER_N = 6173
+
+
+def run_rows(ps, steps, **kw):
+    """ps.run(steps, **kw) -> every accepted step's scalar row
+    (brickstep.SCALAR_COLS: e_pot, rk, tr virial, virial diagonal, volume,
+    virial)."""
+    rows = []
+    real = ps._dispatch
+
+    def recorded(*a, **k):
+        got = real(*a, **k)
+        if not got[2]:
+            rows.append(got[1])
+        return got
+
+    ps._dispatch = recorded
+    try:
+        ps.run(steps, **kw)
+    finally:
+        ps._dispatch = real
+    return np.concatenate(rows)
+
+
+def dynamics_paths():
+    """(key, tag of its kernels rows, what, f32 deck, f64 deck, the
+    kernels its f32 leg launches, its steps) of phase 29's paths."""
+    small = dict(mesh_dynamics_decks())
+    pair, eam = ("cellpair_half_ext",), ("eam_rho_ext", "eam_force_ext")
+    nve = lambda t: t.replace("type=NGLF;", "type=NVEGLF;")   # noqa: E731
+    strain = box_edit(f"dudt=0 0 {STRAIN_U};")
+
+    def shear_lj(d):
+        p = lj_deck(d, LJ_N, printrate=10)
+        L = box_edge(d)
+        regroup(d, shear_groups(L), lambda r: ["sh"] * len(r))
+        return p
+
+    def water(n, free):
+        return lambda d: edit_deck(water_deck(d, n, 10, free=free), strain)
+
+    return (
+        ("a", "nptglf", f"NPTGLF nc={EAM_NC} Cu crystal at a = {INT_A_LAT} A",
+         lambda d: eam_deck(d, EAM_NC, 10, a_lat=INT_A_LAT,
+                            edit=nptglf_edit()),
+         lambda d: eam_deck(d, 4, 10, free=True, a_lat=INT_A_LAT,
+                            edit=nptglf_edit()), eam, DYN_STEPS),
+        ("b", "nglfnk", f"NGLFNK lj_fluid {LJ_N} atoms",
+         lambda d: lj_deck(d, LJ_N, printrate=10, edit=nglfnk_edit()),
+         small["NGLFNK"], pair, DYN_STEPS),
+        ("c", "strain", f"STRAIN dudt=0 0 {STRAIN_U}/fs on the water box",
+         water(DYN_WATER_N, False), water(400, True), pair, DYN_SHORT_STEPS),
+        ("d", "shear", f"SHEAR lj_fluid {LJ_N} atoms", shear_lj, small["SHEAR"], pair,
+         DYN_SHORT_STEPS),
+        ("e", "nveglf", f"NVEGLF nc={EAM_NC} Cu crystal (LANGEVIN group ignored)",
+         lambda d: eam_deck(d, EAM_NC, 10, edit=nve),
+         lambda d: eam_deck(d, 4, 10, edit=nve), eam, DYN_NVE_STEPS),
+    )
+
+
+def dynamics_phase(card, dev, counters_zero, all_counters, failed):
+    """Phase 29: item 22's dynamics through ParallelSimulation on the card
+    (see the constants above).  Gates go into `failed`.  Returns {kernels
+    JSON row: (entry, launches, comparison)}: each f32 leg's kernels
+    against their plain versions on that leg's last records (its moved
+    box's frozen cell grid and halo), with that leg's launches."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.objects import units as U
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.ops import eam_half as eh
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation, live_h
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    t_phase = time.perf_counter()
+    quiet = lambda line: None                                  # noqa: E731
+    launches = {"cellpair_half_ext": 0, "eam_rho_ext": 0, "eam_force_ext": 0}
+    out = {}
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(f"phase 29 {what}")
+
+    def mesh(d, dtype=torch.float32):
+        return ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev,
+                                  dtype=dtype, run_dir=d)
+
+    def first_gap(d, ps):
+        """(e rel, f max err / scale) of the mesh's first energy and
+        forces against Simulation's on the same deck (f32, the card)."""
+        sim = Simulation(*load(d), run_dir=d, device=dev)
+        sim.first_energy()
+        n = sim.sysdef.state.n_local
+        e1, f1 = float(sim.ss.energy.eion), sim.ss.state.f[:n].cpu().numpy()
+        del sim
+        e = ps.first_energy()
+        f = ps.gather_by_gid(("f",))["f"]
+        scale = float(np.abs(f1).max())
+        return abs(e - e1) / abs(e1), float(np.abs(f - f1).max()) / scale
+
+    def f64_leg(make, key):
+        """The path's f64 deck through the mesh and Simulation(engine=
+        "nlist") one step a dispatch: the largest gap over the steps of
+        box, zeta, bdot, e_pot and rk, each over its scale."""
+        with tempfile.TemporaryDirectory() as d:
+            make(d)
+            sim = Simulation(*load(d), run_dir=d, device=dev,
+                             dtype=torch.float64, engine="nlist")
+            ps = mesh(d, torch.float64)
+            ps.first_energy()
+            gaps = []
+            for _ in range(DYN_F64_STEPS):
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    sim.run(1, print_fn=quiet)
+                row = run_rows(ps, 1, print_fn=quiet)[-1]
+                ss = sim.ss
+                h = ss.box.h.cpu().double().numpy()
+                pairs = ((live_h(ps._live_geom()), h),
+                         (float(ps.zeta), float(ss.zeta)),
+                         (ps.bdot.cpu().double().numpy(),
+                          ss.bdot.cpu().double().numpy()),
+                         (row[0], float(ss.energy.eion)),
+                         (row[1], float(ss.energy.rk)))
+                gaps.append(max(float(np.abs(np.asarray(a) - b).max())
+                                / max(float(np.abs(b).max()), 1e-300)
+                                for a, b in pairs))
+            moved = float(np.abs(np.diagonal(h) / np.diagonal(
+                sim.sysdef.box.h.cpu().double().numpy()) - 1.0).max())
+            ok = (ps.loop == sim.ss.loop == DYN_F64_STEPS
+                  and ps.shard_engine == "nlist" and max(gaps) <= DYN_F64_TOL)
+            gate(ok, f"({key}) f64 leg gaps {max(gaps)}")
+            return max(gaps), moved
+
+    def leg_rows(key, tag, ps, c):
+        """The leg's kernels against their plain versions on its last
+        records, binned at the live box as the next chunk bins them (the
+        deck's box would fold a moved box's rows onto wrong images):
+        {row: (entry, the leg's launches, comparison)}."""
+        kernel, args, kw = ps.step_fn.kernel_inputs(ps.fields, ps.mask,
+                                                    ps.Lv)
+        where = f"(1,1,1) after phase 29 ({key}) {tag}"
+        if kernel is ch.cellpair_half_ext:
+            return {f"cellpair_half_ext_dynamics_{tag}": (
+                "cellpair_half_ext", c["cellpair_half_ext"], compare(
+                    f"extended grid {where}", ch.cellpair_half_ext,
+                    ch.cellpair_half_plain, args, kw, with_bound=True))}
+        assert kernel is eh.eam_rho_half_ext
+        t = eam_compare(f"extended-grid EAM {where}",
+                        (eh.eam_rho_half_ext, eh.eam_force_half_ext),
+                        (eh.eam_rho_half_plain, eh.eam_force_half_plain),
+                        args[0], args[1:], kw, ps.tables, with_bound=True)
+        return {f"eam_rho_ext_dynamics_{tag}": ("eam_rho_ext",
+                                                c["eam_rho_ext"], t["rho"]),
+                f"eam_force_ext_dynamics_{tag}": (
+                    "eam_force_ext", c["eam_force_ext"], t["force"])}
+
+    for key, tag, what, make32, make64, kernels, n_steps in dynamics_paths():
+        t_path = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            make32(d)
+            ps = mesh(d)
+            e_rel, f_rel = first_gap(d, ps)
+            n = ps.sysdef.state.n_local
+            L0 = ps._live_L()
+            counters_zero()
+            rows = run_rows(ps, n_steps, print_fn=quiet,
+                            max_steps_per_dispatch=DISPATCH)
+            c = all_counters()
+            steps = rows.shape[0]
+            gate(e_rel <= DYN_E_REL and f_rel <= DYN_F_TOL,
+                 f"({key}) first energy rel {e_rel}, forces {f_rel}")
+            gate(ps.shard_engine == "pallas" and np.isfinite(rows).all()
+                 and ps.loop == steps, f"({key}) engine "
+                 f"{ps.shard_engine}, loop {ps.loop}, finite rows")
+            gate(all(c[k] >= steps for k in kernels) and not any(
+                v for k, v in c.items() if k not in kernels),
+                f"({key}) launches {c}")
+            for k in kernels:
+                launches[k] += c[k]
+            dof = 3.0 * n - ps.sysdef.n_constraints
+            temp = float(np.mean(2.0 * rows[-DYN_TAIL:, 1] / (dof * U.kB)))
+            L1 = ps._live_L()
+            box = float(np.abs(L1 / L0 - 1.0).max())
+            text = ""
+            if key in ("a", "b"):
+                T0 = EAM_T if key == "a" else LJ_T
+                gate(abs(temp - T0) <= TEMP_TOL and box <= 0.2,
+                     f"({key}) mean T {temp}, box moved {box}")
+                if key == "a":
+                    gate(math.isfinite(float(ps.zeta)) and float(ps.zeta) != 0,
+                         f"(a) zeta {float(ps.zeta)}")
+                    text = (f"zeta {float(ps.zeta):.6g}, V/atom "
+                            f"{rows[:, 6].min() / n:.6g}-"
+                            f"{rows[:, 6].max() / n:.6g} nm^3 (start "
+                            f"{np.prod(L0) / n:.6g})")
+                else:
+                    bdot = ps.bdot.cpu().double().numpy()
+                    gate(bool(L1[0] == L1[1]) and np.isfinite(bdot).all()
+                         and bool(np.any(bdot != 0.0)),
+                         f"(b) Lx {L1[0]} Ly {L1[1]}, bdot {bdot}")
+                    text = (f"Lx == Ly {bool(L1[0] == L1[1])}, bdot "
+                            f"{np.round(bdot, 6).tolist()} nm/ps")
+                text += f"; mean T {temp:.2f} K over the last {DYN_TAIL}"
+            elif key == "c":
+                expect = math.exp(STRAIN_U * steps * ps.sysdef.cfg.dt
+                                  * U.TIME_TO_FS)
+                zerr = abs(L1[2] / L0[2] / expect - 1.0)
+                xyerr = float(np.abs(L1[:2] / L0[:2] - 1.0).max())
+                gate(zerr <= 1e-5 and xyerr <= 1e-6,
+                     f"(c) Lz off exp(int u dt) by {zerr}, Lx, Ly {xyerr}")
+                text = (f"Lz/Lz0 {L1[2] / L0[2]:.9f} vs exp(int u dt) "
+                        f"{expect:.9f} (rel {zerr:.3g}), Lx, Ly moved "
+                        f"{xyerr:.3g}; mean T {temp:.2f} K")
+            elif key == "d":
+                g = ps.gather_by_gid(("r", "v", "mass"))
+                prof, ((vt, tt), (vb, tb)) = shear_profile_arrays(
+                    g["r"].astype(np.float64), g["v"].astype(np.float64),
+                    g["mass"].astype(np.float64), box_edge(d))
+                gate(vt > 0 > vb, f"(d) slice mean vy {vt}, {vb}")
+                text = (f"top slice vy {vt:.4g} A/fs at {tt:.2f} K, bottom "
+                        f"{vb:.4g} A/fs at {tb:.2f} K; vy by z bin "
+                        f"{[round(x, 6) for x in prof]}")
+            else:
+                # NGLF with a FREE group on the same crystal: the same rows
+                with tempfile.TemporaryDirectory() as d2:
+                    eam_deck(d2, EAM_NC, 10, free=True)
+                    ref = mesh(d2)
+                    ref.first_energy()
+                    rows_ref = run_rows(ref, DYN_NVE_STEPS, print_fn=quiet)
+                    del ref
+                scale = float(np.abs(rows_ref[:, :2]).max())
+                err = float(np.abs(rows[:, :2] - rows_ref[:, :2]).max()) \
+                    / scale
+                etot = (rows[:, 0] + rows[:, 1]) / n
+                gate(rows.shape == rows_ref.shape and err <= 1e-6,
+                     f"(e) NVEGLF vs NGLF FREE {err}")
+                text = (f"e_pot and e_kin against NGLF with a FREE group "
+                        f"within {err:.3g} of their scale {scale:.6g}; "
+                        f"Etot/atom drift {etot.max() - etot.min():.3g} "
+                        "kJ/mol")
+            gap64, moved64 = f64_leg(make64, key)
+            rate = steps / sum(t for _, t in ps.dispatch_log)
+            phase("dynamics", f"({key}) {what}: {n} particles at (1,1,1) on "
+                  f"{'#7' if kernels[0].startswith('eam') else '#6'} "
+                  f"(ncore {ps.cplan.ncore}, cap {ps.cplan.cap}), first "
+                  f"energy rel {e_rel:.2g} and forces {f_rel:.2g} of the "
+                  f"scale against Simulation, {steps} f32 steps "
+                  f"({len(ps.dispatch_log)} dispatches, {rate:.2f} steps/s "
+                  f"by the dispatch clock): {text}; box moved {box:.4g}; launches "
+                  f"{ {k: c[k] for k in kernels} }; f64 leg "
+                  f"{DYN_F64_STEPS} steps one a dispatch against "
+                  f"Simulation(engine=nlist): largest gap {gap64:.3g} of the "
+                  f"scale (gate {DYN_F64_TOL:g}), its box moved "
+                  f"{moved64:.3g}; {time.perf_counter() - t_path:.1f} s on "
+                  f"{card}")
+            out.update(leg_rows(key, tag, ps, c))
+            del ps
+
+    gate(all(launches.values()), f"launches {launches}")
+    phase("dynamics", f"phase 29 {time.perf_counter() - t_phase:.1f} s "
+          f"(launches {launches})")
+    return out
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -7639,6 +8035,11 @@ def main(argv=None):
         failed = []
         outputs_phase(card, dev, counters_zero, all_counters, failed)
         assert not failed, f"phase 28 gates missed: {failed}"
+        return
+    if "--dynamics-only" in argv:
+        failed = []
+        dynamics_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 29 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -7840,6 +8241,11 @@ def main(argv=None):
     out_rows = outputs_phase(card, dev, counters_zero, all_counters,
                              out_failed)
     assert not out_failed, f"phase 28 gates missed: {out_failed}"
+    # --- phase 29: item 22's dynamics under the mesh (#6, #7) --------------
+    dyn_failed = []
+    dyn_rows = dynamics_phase(card, dev, counters_zero, all_counters,
+                              dyn_failed)
+    assert not dyn_failed, f"phase 29 gates missed: {dyn_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -7885,12 +8291,14 @@ def main(argv=None):
     # exclusions on the widest brick of the ZRAMP and of the BISECTION
     # plan, #7 on the widest brick of the skewed-walls crystal; phase 28's:
     # #6 on the water box after its outputs run (a) and after its NVT
-    # migrate_rate leg (c)
+    # migrate_rate leg (c); phase 29's: #7 on (a)'s NPTGLF and (e)'s NVEGLF
+    # crystal, #6 on (b)'s NGLFNK and (d)'s SHEAR fluid and (c)'s strained
+    # water, each with that leg's launches
     for row, (name, n, out) in (*int_rows.items(), *masters_rows.items(),
                                 *transform_rows.items(),
                                 *analysis_rows_out.items(),
                                 *rebuild_rows.items(), *lb_rows.items(),
-                                *out_rows.items()):
+                                *out_rows.items(), *dyn_rows.items()):
         kernels[row] = kernels[name]
         launches[row] = n
         res[row] = out

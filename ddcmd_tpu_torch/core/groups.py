@@ -278,8 +278,25 @@ class GroupTable:
             self.kind, dtype=torch.int64, device=device), dev(ber))
 
 
-def _shear_slice(p, tag, v, f, mass, w_sl, dt):
-    """Slice statistics -> (vcm, chi, delta, v_b, chi_b, delta_b).
+def _slice_sums(v, f, mass, w_sl):
+    """(11,) sums over a shear slice's rows (weights w_sl): count, mass,
+    momentum (3), force (3), sum |f|^2 / m, sum v . f and the kinetic
+    energy -- what _shear_slice reads, summable over the mesh's ranks."""
+    def one(x):
+        return x.reshape(1)
+
+    return torch.cat([
+        one(w_sl.sum()), one((mass * w_sl).sum()),
+        (mass[:, None] * v * w_sl[:, None]).sum(dim=0),
+        (f * w_sl[:, None]).sum(dim=0),
+        one(((f * f).sum(dim=1) / mass * w_sl).sum()),
+        one(((v * f).sum(dim=1) * w_sl).sum()),
+        one((0.5 * mass * (v * v).sum(dim=1) * w_sl).sum())])
+
+
+def _shear_slice(p, tag, sums, dt):
+    """Slice statistics -> (vcm, chi, delta, v_b, chi_b, delta_b) from
+    the slice's _slice_sums.
 
     shear_Update (src/shear.c:108-215): mass-weighted CM velocity, slice
     temperature T = 2 rk / (3 (n-1) kB), velocity drag delta = dt/tau
@@ -290,13 +307,10 @@ def _shear_slice(p, tag, v, f, mass, w_sl, dt):
     sv = p[f"{tag}_velocity"]
     sT = p[f"{tag}_temp"]
     dtau = dt / p["tau"]
-    n = w_sl.sum()
-    M = torch.clamp((mass * w_sl).sum(), min=1e-30)
-    P = (mass[:, None] * v * w_sl[:, None]).sum(dim=0)
-    F = (f * w_sl[:, None]).sum(dim=0)
-    af = ((f * f).sum(dim=1) / mass * w_sl).sum()
-    vf = ((v * f).sum(dim=1) * w_sl).sum()
-    rk = (0.5 * mass * (v * v).sum(dim=1) * w_sl).sum()
+    n = sums[0]
+    M = torch.clamp(sums[1], min=1e-30)
+    P, F = sums[2:5], sums[5:8]
+    af, vf, rk = sums[8], sums[9], sums[10]
     vcm = P / M
     rk = rk - 0.5 * M * (vcm * vcm).sum()
     ndof = torch.clamp(3.0 * (n - 1.0), min=1.0) * U.kB
@@ -318,14 +332,15 @@ def _shear_slice(p, tag, v, f, mass, w_sl, dt):
 
 
 def _apply_shear(mode, p, v, v_pre, z, f, mass, group_ids, n_valid_mask,
-                 dt, Lz):
+                 dt, Lz, group_sum=None):
     """SHEAR group hook, applied after the plain leapfrog kick
     (shear_velocityUpdate, src/shear.c:217-283): v += (chi - 1)(v -
     v_slice), + delta on y.  Slice statistics sum over every local
     particle (shear.c:132, no group filter) with the PRE-kick velocities;
     the kick applies only to the group's own particles.  In the
     statistics top wins ties (else-if, shear.c:137-152); in the kick
-    bottom wins (sequential ifs, shear.c:242-254)."""
+    bottom wins (sequential ifs, shear.c:242-254).  group_sum: the
+    mesh's all-reduce of both slices' sums (over every rank's rows)."""
     dtype = v.dtype
     if p.get("style", "shear") == "shwall":
         # slices anchored at the z faces, one-sided distances
@@ -340,9 +355,13 @@ def _apply_shear(mode, p, v, v_pre, z, f, mass, group_ids, n_valid_mask,
         zbot = zbot - Lz * torch.round(zbot / Lz)
         in_top = (torch.abs(ztop) < 0.5 * p["top_width"]) & n_valid_mask
         in_bot = (torch.abs(zbot) < 0.5 * p["bot_width"]) & n_valid_mask
-    top = _shear_slice(p, "top", v_pre, f, mass, in_top.to(dtype), dt)
-    bot = _shear_slice(p, "bot", v_pre, f, mass,
-                       (in_bot & ~in_top).to(dtype), dt)
+    sums = torch.stack([
+        _slice_sums(v_pre, f, mass, in_top.to(dtype)),
+        _slice_sums(v_pre, f, mass, (in_bot & ~in_top).to(dtype))])
+    if group_sum is not None:
+        sums = group_sum(sums)
+    top = _shear_slice(p, "top", sums[0], dt)
+    bot = _shear_slice(p, "bot", sums[1], dt)
     k = 0 if mode == "front" else 3
     vcm_t, chi_t, del_t = top[k:k + 3]
     vcm_b, chi_b, del_b = bot[k:k + 3]
@@ -425,8 +444,9 @@ def velocity_update(mode: str, state_v, state_f, state_mass, group_ids,
     shear_ctx: None, or (r, box lengths, hook groups with the mirror
     points at this time (integrators/nglf.hooks_at), UNIONGROUP member
     draws in GroupTable.union_draws order).  group_sum(x) -> the sum of
-    a per-group tensor over every rank (the mesh's all-reduce; the
-    BERENDSEN temperature is the group's, not a brick's).
+    a tensor over every rank (the mesh's all-reduce: the BERENDSEN
+    temperature and the SHEAR / SHWALL slice statistics are the
+    group's and the slice's, not a brick's).
     """
     a_g, c_on_g, noise_g, vcm_g, kind_g, ber_g = coeffs
     a = a_g[group_ids][:, None]
@@ -471,7 +491,7 @@ def velocity_update(mode: str, state_v, state_f, state_mass, group_ids,
             if style in ("shear", "shwall"):
                 v = _apply_shear(mode, p, v, state_v, r[:, 2], state_f,
                                  state_mass, group_ids, n_valid_mask, dt,
-                                 box_lengths[2])
+                                 box_lengths[2], group_sum)
             elif style == "mirror":
                 v = _apply_mirror(p, v, r, box_lengths, group_ids,
                                   n_valid_mask)

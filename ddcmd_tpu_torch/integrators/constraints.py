@@ -308,14 +308,18 @@ def build_constraint_templates(cons_atoms, cons_pairs, cons_dist,
                             residue_instances, len(gid))
     if found is None:
         return None
+    # d2 in f64: the step engine casts it to the run's dtype (an f32
+    # copy here would cap an f64 run's bond lengths at f32 precision)
     types = [dict(M=M, A=A, li=li, lj=lj,
-                  d2=torch.as_tensor(d2, dtype=torch.float32),
+                  d2=torch.as_tensor(d2, dtype=torch.float64),
                   gids=torch.as_tensor(gid[rows]))
              for M, A, li, lj, d2, rows in found]
 
     def project(rb3, vb3, rm2, w, d2, li, lj, dt, mode_front, Lv):
-        """One type: rb3/vb3 (3, A, M), rm2 (A, M), w (M,) ownership."""
+        """One type: rb3/vb3 (3, A, M), rm2 (A, M), w (M,) ownership; d2
+        in any float dtype (taken in rb3's)."""
         vb3 = vb3.clone()
+        d2 = d2.to(rb3.dtype)
         unit = torch.tensor([1.0, 0.0, 0.0], dtype=rb3.dtype,
                             device=rb3.device)
         for k in range(len(li)):

@@ -126,12 +126,21 @@ def hooks_at(time: float, box, hook_groups):
     return tuple(hooks)
 
 
-def kick_context(state, box, time, shear_groups, draws):
-    """velocity_update's shear_ctx (shear_groups: device_hooks's): None
-    without hook groups."""
+def kick_context(r, box, time, shear_groups, draws):
+    """velocity_update's shear_ctx at positions r and the box (shear_groups:
+    device_hooks's): None without hook groups."""
     if not shear_groups:
         return None
-    return (state.r, box.lengths, hooks_at(time, box, shear_groups), draws)
+    return (r, box.lengths, hooks_at(time, box, shear_groups), draws)
+
+
+def box_time_map(h, box_lam):
+    """(h', A) of a prescribed box(t) step from the box h: box_lam = (E, M,
+    h_ref) gives h' = (E * h_ref) @ M (h_ref None: h itself) and the
+    affine position map A = h' h^-1 (scalePositionsByBoxChange)."""
+    E, M, h_ref = box_lam
+    h_new = (E * (h if h_ref is None else h_ref)) @ M
+    return h_new, h_new @ inv3x3(h)
 
 
 def box_time_drift(box, r, box_lam):
@@ -145,9 +154,7 @@ def box_time_drift(box, r, box_lam):
     rounding of every step; h_ref None takes the live box h, the JAX
     package's per-step update (nglf.py:158), which composes with a
     barostat that moved the box earlier in the step."""
-    E, M, h_ref = box_lam
-    h_new = (E * (box.h if h_ref is None else h_ref)) @ M
-    A = h_new @ inv3x3(box.h)
+    h_new, A = box_time_map(box.h, box_lam)
     return dataclasses.replace(box, h=h_new), r @ A.T
 
 
@@ -194,7 +201,7 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
         v = velocity_update(
             "front", state.v, state.f, state.mass, state.group, coeffs,
             half, noise_front, mask, has_berendsen,
-            kick_context(state, box, ss.time, shear_groups_dev,
+            kick_context(state.r, box, ss.time, shear_groups_dev,
                          None if draws is None else draws[0]))
         if constraint_fn is not None:
             # live box geometry: the barostat above may have rescaled it
@@ -215,7 +222,7 @@ def make_nglf_step(force_fn: Callable, dt: float, *, barostat=None,
         v = velocity_update(
             "back", state.v, f, state.mass, state.group, coeffs, half,
             noise_back, mask, False,
-            kick_context(state, box, ss.time + dt, shear_groups_dev,
+            kick_context(state.r, box, ss.time + dt, shear_groups_dev,
                          None if draws is None else draws[1]))
         if constraint_fn is not None:
             v = constraint_fn(state.replace(v=v), dt, "back",

@@ -30,107 +30,166 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.box import geom_volume
 from ..core.energy import EnergyInfo, kinetic_terms
 from .nglf import StepState
+
+
+class PistonNK:
+    """The NGLFNK arithmetic of one step in three pieces around the force
+    call, which the single-device step (make_nglfnk_step) and the brick
+    mesh's step (parallel/brickstep.py) both run: front (the front
+    half-kick, the first piston half-step from the last step's pressure
+    tensor, the drift of particles and box), half_velocity (the
+    velocities whose kinetic tensor the back piston kick reads) and back
+    (the second piston half-step, the implicit back half-kick).  The
+    mesh passes the pressure tensors summed over its ranks.  h_frac:
+    None for an orthorhombic box; a static (3,3) shape matrix for a
+    triclinic one, with h = h_frac @ diag(L) (fixed cell shape, per-axis
+    piston lengths L): r, v and f are de-tilted by h_frac^-1, run the
+    per-axis dynamics, and map back -- the diagonal algorithm exactly
+    when h_frac = I."""
+
+    def __init__(self, dt: float, *, T: float, tau: float, Peq: float, W,
+                 kB: float, h_frac=None):
+        self.dt, self.T, self.tau, self.Peq, self.kB = dt, T, tau, Peq, kB
+        self.W = np.asarray(W, dtype=np.float64)
+        self.h_frac = h_frac
+        self._consts = {}
+
+    def tensors(self, dtype, dev):
+        """W, h_frac and its inverse on the device, made once (a host
+        copy each step would wait for the stream)."""
+        key = (dtype, dev)
+        if key not in self._consts:
+            def ten(x):
+                return torch.as_tensor(x, dtype=dtype, device=dev)
+
+            hf = self.h_frac
+            self._consts[key] = (ten(self.W), None, None) if hf is None \
+                else (ten(self.W), ten(np.asarray(hf)),
+                      ten(np.linalg.inv(np.asarray(hf))))
+        return self._consts[key]
+
+    @staticmethod
+    def axis_pressure(ptens, V):
+        """Per-axis pressure from a virial plus kinetic tensor, Pxx and
+        Pyy averaged."""
+        p = torch.diagonal(ptens) / V
+        pxy = 0.5 * (p[0] + p[1])
+        return torch.stack([pxy, pxy, p[2]])
+
+    def front(self, r, v, f, mass, fmask, h, bdot, ptens, g1):
+        """(carry, r, h) after the drift: r and h the new positions
+        (unwrapped) and box, carry what the later pieces read."""
+        dt, half = self.dt, 0.5 * self.dt
+        mask = fmask[:, None]
+        Wt, hf, hf_inv = self.tensors(r.dtype, r.device)
+        if hf is None:
+            L = torch.diagonal(h)
+            r_p, v_p, f_p = r, v, f
+        else:
+            # de-tilted frame: h = h_frac diag(L)
+            L = torch.diagonal(hf_inv @ h)
+            r_p = r @ hf_inv.T
+            v_p = v @ hf_inv.T
+            f_p = f @ hf_inv.T
+        V = geom_volume(L if hf is None else h)
+        dLdt = bdot.to(r.dtype)
+
+        S = r_p / L
+        dSdt = (v_p - r_p * (dLdt / L)) / L
+
+        mu = 1.0 / self.tau
+        rmass = (1.0 / mass)[:, None]
+        sigma = torch.sqrt(2.0 * self.kB * self.T * (rmass * mu) / half)
+
+        acc = f_p * rmass - mu * dLdt * S + sigma * g1
+        dSdt = dSdt + half * (acc - (mu * L + 2.0 * dLdt) * dSdt) / L
+        dSdt = dSdt * mask
+
+        P = self.axis_pressure(ptens, V)
+        dLdt = dLdt + half * V / (Wt * L) * (P - self.Peq)
+
+        S = S + dt * dSdt
+        L = L + dt * dLdt
+        if hf is None:
+            h = torch.diag(L)
+            r = S * L
+        else:
+            h = hf * L[None, :]
+            r = (S * L) @ hf.T
+        carry = dict(S=S, dSdt=dSdt, dLdt=dLdt, L=L, mask=mask,
+                     rmass=rmass, sigma=sigma)
+        return carry, r, h
+
+    def wrapped(self, carry, r):
+        """carry with S taken from the wrapped positions r."""
+        _, _, hf_inv = self.tensors(r.dtype, r.device)
+        return dict(carry, S=(r if hf_inv is None else r @ hf_inv.T)
+                    / carry["L"])
+
+    def half_velocity(self, carry):
+        """The canonical velocities at the half step mapped to native
+        space (the back piston kick's kinetic tensor)."""
+        c = carry
+        _, hf, _ = self.tensors(c["L"].dtype, c["L"].device)
+        v_half = (c["L"] * c["dSdt"] + c["S"] * c["dLdt"]) * c["mask"]
+        if hf is not None:
+            v_half = v_half @ hf.T        # native frame (virial is native)
+        return v_half
+
+    def back(self, carry, f, ptens_half, V, g2):
+        """(v, dLdt) after the second piston half-step (pressure from the
+        step's virial plus the half-step kinetic tensor, ptens_half, at
+        the new volume V) and the implicit back half-kick."""
+        c = carry
+        half = 0.5 * self.dt
+        Wt, hf, hf_inv = self.tensors(f.dtype, f.device)
+        L, S, mask = c["L"], c["S"], c["mask"]
+        P2 = self.axis_pressure(ptens_half, V)
+        dLdt = c["dLdt"] + half * V / (Wt * L) * (P2 - self.Peq)
+
+        mu = 1.0 / self.tau
+        f_p2 = f if hf is None else f @ hf_inv.T
+        acc2 = f_p2 * c["rmass"] - mu * dLdt * S + c["sigma"] * g2
+        dSdt = ((c["dSdt"] + half * acc2 / L)
+                / (1.0 + half * (mu * L + 2.0 * dLdt) / L))
+        dSdt = dSdt * mask
+
+        v = (L * dSdt + S * dLdt) * mask
+        if hf is not None:
+            v = v @ hf.T
+        return v, dLdt
 
 
 def make_nglfnk_step(force_fn, dt: float, *, T: float, tau: float,
                      Peq: float, W, kB: float, wrap_positions: bool = False,
                      h_frac=None):
     """step(ss, handle, coeffs, g1, g2, box_lam=None, draws=None) ->
-    StepState.  h_frac: None for an orthorhombic box; a static (3,3)
-    shape matrix for a triclinic one, with h = h_frac @ diag(L) (fixed
-    cell shape, per-axis piston lengths L): r, v and f are de-tilted by
-    h_frac^-1, run the per-axis dynamics, and map back -- the diagonal
-    algorithm exactly when h_frac = I."""
-    W = np.asarray(W, dtype=np.float64)
-    consts = {}
-
-    def tensors(dtype, dev):
-        """W, h_frac and its inverse on the device, made once (a host
-        copy each step would wait for the stream)."""
-        key = (dtype, dev)
-        if key not in consts:
-            def ten(x):
-                return torch.as_tensor(x, dtype=dtype, device=dev)
-
-            consts[key] = (ten(W), None, None) if h_frac is None else (
-                ten(W), ten(np.asarray(h_frac)),
-                ten(np.linalg.inv(np.asarray(h_frac))))
-        return consts[key]
-
-    def axis_pressure(virial, tion, V):
-        p = (torch.diagonal(virial) + torch.diagonal(tion)) / V
-        pxy = 0.5 * (p[0] + p[1])
-        return torch.stack([pxy, pxy, p[2]])
+    StepState (PistonNK's pieces around the force call; h_frac as
+    PistonNK takes it)."""
+    piston = PistonNK(dt, T=T, tau=tau, Peq=Peq, W=W, kB=kB, h_frac=h_frac)
 
     def step(ss: StepState, handle, coeffs, g1, g2, box_lam=None,
              draws=None) -> StepState:
         state, box = ss.state, ss.box
-        half = 0.5 * dt
-        mask = state.fmask[:, None]
-        Wt, hf, hf_inv = tensors(state.r.dtype, state.r.device)
-        if h_frac is None:
-            L = box.lengths
-            r_p, v_p, f_p = state.r, state.v, state.f
-        else:
-            # de-tilted frame: h = h_frac diag(L)
-            L = torch.diagonal(hf_inv @ box.h)
-            r_p = state.r @ hf_inv.T
-            v_p = state.v @ hf_inv.T
-            f_p = state.f @ hf_inv.T
-        V = box.volume
-        dLdt = ss.bdot.to(state.r.dtype)
-
-        S = r_p / L
-        dSdt = (v_p - r_p * (dLdt / L)) / L
-
-        mu = 1.0 / tau
-        rmass = (1.0 / state.mass)[:, None]
-        sigma = torch.sqrt(2.0 * kB * T * (rmass * mu) / half)
-
-        acc = f_p * rmass - mu * dLdt * S + sigma * g1
-        dSdt = dSdt + half * (acc - (mu * L + 2.0 * dLdt) * dSdt) / L
-        dSdt = dSdt * mask
-
-        P = axis_pressure(ss.energy.virial, ss.energy.tion, V)
-        dLdt = dLdt + half * V / (Wt * L) * (P - Peq)
-
-        S = S + dt * dSdt
-        L = L + dt * dLdt
-        if h_frac is None:
-            box = dataclasses.replace(box, h=torch.diag(L))
-            r = S * L
-        else:
-            box = dataclasses.replace(box, h=hf * L[None, :])
-            r = (S * L) @ hf.T
-        V = box.volume
+        e = ss.energy
+        carry, r, h = piston.front(state.r, state.v, state.f, state.mass,
+                                   state.fmask, box.h, ss.bdot,
+                                   e.virial + e.tion, g1)
+        box = dataclasses.replace(box, h=h)
         if wrap_positions:
             r = box.back_in_box(r)
-            S = (r if h_frac is None else r @ hf_inv.T) / L
+            carry = piston.wrapped(carry, r)
         state = state.replace(r=r)
 
         f, e_pot, virial, pe = force_fn(state, box, handle)
         state = state.replace(f=f, pe=pe)
 
-        # the back piston kick needs the kinetic tensor at the half step:
-        # the current canonical velocities mapped to native space
-        v_half = (L * dSdt + S * dLdt) * mask
-        if h_frac is not None:
-            v_half = v_half @ hf.T        # native frame (virial is native)
-        _, tion_h = kinetic_terms(v_half, state.mass, state.fmask)
-        P2 = axis_pressure(virial, tion_h, V)
-        dLdt = dLdt + half * V / (Wt * L) * (P2 - Peq)
-
-        f_p2 = f if h_frac is None else f @ hf_inv.T
-        acc2 = f_p2 * rmass - mu * dLdt * S + sigma * g2
-        dSdt = ((dSdt + half * acc2 / L)
-                / (1.0 + half * (mu * L + 2.0 * dLdt) / L))
-        dSdt = dSdt * mask
-
-        v = (L * dSdt + S * dLdt) * mask
-        if h_frac is not None:
-            v = v @ hf.T
+        _, tion_h = kinetic_terms(piston.half_velocity(carry), state.mass,
+                                  state.fmask)
+        v, dLdt = piston.back(carry, f, virial + tion_h, box.volume, g2)
         state = state.replace(v=v)
         fmask = state.fmask
         rk, tion = kinetic_terms(v, state.mass, fmask)

@@ -5,8 +5,10 @@ Counterpart of ddcmd_tpu/parallel/brickstep.py.  BrickStepBase holds the
 machinery of one rank's step that does not depend on how pair forces
 are found: the kicks with their per-rank thermostat noise, the RATTLE
 projection of the owned constraint groups, the molecular virial, the
-one all-reduce of the step's scalars, migration, the chunk, the NPT
-chunk and the superchunk.  Its engines supply the rebuild at a chunk's
+one all-reduce of the step's scalars, migration, the chunk -- whose
+steps move the box by the deck's rule (the Berendsen lambda, box(t),
+NPTGLF's zeta, NGLFNK's pistons; the integrators' own pieces) -- and the
+superchunk.  Its engines supply the rebuild at a chunk's
 start and the forces of a step:
 
   * parallel/brickstep_cells.BrickStepCells: the extended-grid cell
@@ -54,9 +56,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.box import geom_volume, nearest_image, perp_spans
-from ..core.groups import kick_noise, velocity_update
-from ..integrators.nglf import barostat_lambda
+from ..core.box import Box, geom_volume, inv3x3, nearest_image, perp_spans
+from ..core.energy import kinetic_terms
+from ..core.groups import kick_noise, union_callsite, velocity_update
+from ..integrators.nglf import (barostat_lambda, box_time_map, device_hooks,
+                                kick_context)
+from ..integrators.nptglf import nptglf_close, nptglf_drift, nptglf_open
 from ..nbr.celllist import build_neighbor_list
 from ..potentials.bonded import bonded_eval
 from ..potentials.bonded_batch import batched_bonded_eval
@@ -96,6 +101,15 @@ class BrickStepBase:
     some group is BERENDSEN (its temperature is summed over the mesh).
     skin: the deck's neighbour skin deltaR (the drift guard's bound).
 
+    The integrator's step: kind "nglf" (the NGLF family, the NVE
+    variants by their coefficients), "nptglf" with nptglf = {n_global,
+    Gamma, Peq}, or "nglfnk" with piston, an integrators/nglfnk.PistonNK;
+    hooks, the hook groups (integrators/nglf.kick_context), and
+    union_draws, the UNIONGROUP members' draws (GroupTable's), of the
+    NGLF family; extforce, the EXTFORCE forces by group or None;
+    clock(loop) -> the run's time at a loop (the host's clock, which
+    the hooks read).
+
     The drift guard (the per-step dispatch of step() and a chunk longer
     than chunk_steps, where rows go longer between migrations than the
     deck's updateRate promises): a row that moved half the skin or more
@@ -118,7 +132,8 @@ class BrickStepBase:
                  *, force_kind: str, skin: float, bonded_plan=None,
                  bonded_left=None, cons_templates=None, cons_tables=None,
                  mol_gids=None, barostat=None, has_berendsen=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, kind="nglf", nptglf=None, piston=None,
+                 hooks=(), union_draws=(), extforce=None, clock=None):
         dev = mesh.device
         self.mesh, self.plan = mesh, plan
         self.tables, self.coeffs = tables, coeffs
@@ -127,6 +142,16 @@ class BrickStepBase:
         self.bonded_plan, self.bonded_left = bonded_plan, bonded_left
         self.barostat, self.has_berendsen = barostat, has_berendsen
         self.skin = skin
+        self.kind, self.npt, self.piston = kind, nptglf, piston
+        self._step_body = {"nglf": self._step_nglf,
+                           "nptglf": self._step_nptglf,
+                           "nglfnk": self._step_nglfnk}[kind]
+        self.clock = clock
+        self.hooks = device_hooks(hooks, dtype, dev)
+        self.union_draws = union_draws
+        self.extforce = (None if extforce is None else
+                         torch.as_tensor(extforce, dtype=dtype, device=dev))
+        self._pbc_ones = torch.ones(3, dtype=dtype, device=dev)
         # where the drift guard holds: the per-step dispatch, a long chunk
         self.drift_in_step = self.drift_in_chunk = True
         # wrap the positions after each drift (the list engine, as
@@ -162,8 +187,13 @@ class BrickStepBase:
         """Constraint groups and molecules this rank owns (wholly local
         by molecule coherence) into rb; inverse masses and molecule
         masses are static within a chunk, so they are gathered here
-        once."""
-        rb.update(cons_bat=None, cons=None, mol=None)
+        once, as is rb["mass"], the rows' masses with 1 on the rows this
+        rank does not own (mass 0 there), as the single-device state
+        pads: every per-row term of a kick and every slice sum stays
+        finite."""
+        rb.update(cons_bat=None, cons=None, mol=None,
+                  mass=torch.where(mask, fields["mass"],
+                                   torch.ones_like(fields["mass"])))
         n_l = mask.shape[0]
         if self.cons_templates is not None or self.cons_tables is not None \
                 or self.mol_gids is not None:
@@ -263,19 +293,28 @@ class BrickStepBase:
         d = (d - com) * am[:, :, None]
         return torch.einsum("m,mia,mia->a", gw, d, fm)
 
+    def _psum_parts(self, *parts):
+        """Each tensor of `parts` summed over the mesh, in one all-reduce
+        of their concatenation (the dtype of the first)."""
+        dt_ = parts[0].dtype
+        flat = self.mesh.psum(torch.cat([p.to(dt_).reshape(-1)
+                                         for p in parts]))
+        out, i = [], 0
+        for p in parts:
+            out.append(flat[i:i + p.numel()].reshape(p.shape))
+            i += p.numel()
+        return out
+
     def _reduce(self, e_pot, rk, virial, corr, ov):
         """(e_pot, rk, virial, molecular-virial correction (3,), overflow)
         summed over the mesh in one all-reduce; the overflow flag rides
         as a count (> 0 anywhere)."""
         dev, dt_ = virial.device, virial.dtype
-        row = torch.cat([torch.as_tensor(e_pot, dtype=dt_,
-                                         device=dev).reshape(1),
-                         torch.as_tensor(rk, dtype=dt_, device=dev).reshape(1),
-                         virial.reshape(9), corr.to(dt_).reshape(3),
-                         ov.to(dt_).reshape(1)])
-        row = self.mesh.psum(row)
-        return (row[0], row[1], row[2:11].reshape(3, 3), row[11:14],
-                row[14] > 0)
+        e_pot, rk, virial, corr, ov = self._psum_parts(
+            torch.as_tensor(e_pot, dtype=dt_, device=dev).reshape(1),
+            torch.as_tensor(rk, dtype=dt_, device=dev).reshape(1), virial,
+            corr, ov.reshape(1))
+        return e_pot[0], rk[0], virial, corr, ov[0] > 0
 
     # -- the drift guard --------------------------------------------------
 
@@ -294,36 +333,122 @@ class BrickStepBase:
 
     # -- per-step pieces --------------------------------------------------
 
-    def _step_body(self, fields, mask, f_prev, step: int, rb, ov, Lv,
-                   guard=False):
-        """One step at global step `step` on the rebuilt tables `rb` at the
-        live box Lv; ov is this rank's overflow so far, reduced with the
-        step's scalars, and with `guard` the drift guard's flag.  Returns
-        (fields, f, scalars (SCALAR_COLS,), overflow mesh-wide); scalars
-        [e_pot, rk, tr virial, molecular virial diagonal (3), volume,
-        virial (9)]; the pe field takes the step's per-row potential
-        energy."""
+    def _noise(self, step: int, shape, dtype):
+        """The step's two kick draws (2, *shape) at this rank's callsite
+        and, with UNIONGROUPs, each member's (2, members, *shape) at its
+        union_callsite in the bits above the rank's, or None."""
+        shape = (2,) + tuple(shape)
         noise = kick_noise(self._generator, self.seed, step, self._callsite,
-                           (2,) + tuple(fields["r"].shape),
-                           dtype=fields["v"].dtype)
+                           shape, dtype=dtype)
+        if not self.union_draws:
+            return noise, None
+        return noise, torch.stack([
+            kick_noise(self._generator, self.seed, step,
+                       self._callsite | (union_callsite(g, j) << 32),
+                       shape, dtype=dtype)
+            for g, j in self.union_draws], dim=1)
+
+    def _box(self, Lv) -> Box:
+        """The live box geometry Lv ((3,) lengths or the (3, 3) h) as a
+        fully periodic Box."""
+        ortho = Lv.dim() == 1
+        return Box(h=torch.diag(Lv) if ortho else Lv, pbc=7,
+                   pbc_mask=self._pbc_ones, ortho=ortho)
+
+    def _hooks(self, r, Lv, step: int, draws, k: int):
+        """velocity_update's shear_ctx of kick k of global step `step` (0
+        the front kick, at the step's start time; 1 the back kick, at its
+        end), None without hook groups."""
+        if not self.hooks:
+            return None
+        return kick_context(r, self._box(Lv), self.clock(step + k),
+                            self.hooks, None if draws is None else draws[k])
+
+    def _force_call(self, fields, mask, rb, Lv):
+        """The engine's forces at box Lv with its self energy and the
+        EXTFORCE groups' constant forces (potential -F.r a row, no
+        virial; run/forces._extforce_term): (f, pe, virial, overflow)."""
+        f, pe, virial, ov = self._forces(fields["r"], rb, Lv)
+        pe = self._with_self(pe, rb)
+        if self.extforce is not None:
+            fe = self.extforce[fields["group"]] * mask.to(f.dtype)[:, None]
+            f = f + fe
+            pe = pe - (fe * fields["r"]).sum(dim=1)
+        return f, pe, virial, ov
+
+    @staticmethod
+    def _geom(h, Lv):
+        """h in the live box's form: its diagonal for (3,) lengths."""
+        return torch.diagonal(h) if Lv.dim() == 1 else h
+
+    @staticmethod
+    def _row(e_pot, rk, virial, vd, Lv):
+        """The step's scalar row (SCALAR_COLS), one stack."""
+        return torch.stack([e_pot, rk, torch.trace(virial), vd[0], vd[1],
+                            vd[2], geom_volume(Lv),
+                            *virial.reshape(9).unbind()])
+
+    # _step_body, bound to the kind's step in __init__:
+    # (fields, mask, f_prev, step, rb, ov, dyn, guard=False, box_lam=None)
+    # -> one step at global step `step` on the rebuilt tables `rb`, from
+    # the box and barostat state `dyn` (the chunk's carry: Lv, vird,
+    # zeta, bdot, ptens); ov is this rank's overflow so far, reduced with
+    # the step's scalars, and with `guard` the drift guard's flag;
+    # box_lam: this step's prescribed box(t) (E, M, h_ref) or None.
+    # Returns (fields, f, dyn, scalars (SCALAR_COLS,), overflow
+    # mesh-wide); scalars [e_pot, rk, tr virial, molecular virial
+    # diagonal (3), volume, virial (9)]; the pe field takes the step's
+    # per-row potential energy.
+
+    def _step_nglf(self, fields, mask, f_prev, step, rb, ov, dyn, guard=False,
+                   box_lam=None):
+        """The NGLF family (integrators/nglf.make_nglf_step's order): the
+        Berendsen rescale from the last step's molecular virial diagonal,
+        the front kick with the hook groups, RATTLE, the drift, the
+        prescribed box(t) mapping the rows (r0 too), the wrap, forces, the
+        back kick, RATTLE; one all-reduce."""
+        Lv = dyn["Lv"]
+        if self.barostat is not None:
+            lam = barostat_lambda(dyn["vird"], geom_volume(Lv), self.barostat,
+                                  self.dt)
+            # h' = diag(lam) h: a (3, 3) h scales by rows (the JAX
+            # package's brickstep.py:397-399)
+            Lv = lam[:, None] * Lv if Lv.dim() == 2 else Lv * lam
+            ov = ov | self._narrow(Lv)
+            fields = dict(fields, r=fields["r"] * lam, r0=fields["r0"] * lam)
+        noise, draws = self._noise(step, fields["r"].shape,
+                                   fields["v"].dtype)
         half = 0.5 * self.dt
-        # a BERENDSEN group's temperature sums over every rank
-        v = velocity_update("front", fields["v"], f_prev, fields["mass"],
+        mass = rb["mass"]
+        # a BERENDSEN group's temperature and a SHEAR slice's statistics
+        # sum over every rank
+        v = velocity_update("front", fields["v"], f_prev, mass,
                             fields["group"], self.coeffs, half, noise[0], mask,
-                            self.has_berendsen, group_sum=self.mesh.psum)
+                            self.has_berendsen,
+                            self._hooks(fields["r"], Lv, step, draws, 0),
+                            group_sum=self.mesh.psum)
         v = self._rattle(fields["r"], v, True, Lv, rb)
         r = fields["r"] + self.dt * v
+        r0 = fields["r0"]
+        if box_lam is not None:
+            h = torch.diag(Lv) if Lv.dim() == 1 else Lv
+            h_new, A = box_time_map(h, box_lam)
+            Lv = self._geom(h_new, Lv)
+            r, r0 = r @ A.T, r0 @ A.T
+            ov = ov | self._narrow(Lv)
         fields = dict(fields, r=nearest_image(r, Lv) if self.wrap_drift
-                      else r, v=v)
+                      else r, v=v, r0=r0)
 
-        f, pe, virial, ov_c = self._forces(fields["r"], rb, Lv)
-        pe = self._with_self(pe, rb)
+        f, pe, virial, ov_c = self._force_call(fields, mask, rb, Lv)
         e_pot = pe.sum()
         if guard:
             ov_c = ov_c | self._drift_guard(fields, mask, Lv)
 
-        v = velocity_update("back", fields["v"], f, fields["mass"],
-                            fields["group"], self.coeffs, half, noise[1], mask)
+        v = velocity_update("back", fields["v"], f, mass,
+                            fields["group"], self.coeffs, half, noise[1], mask,
+                            False,
+                            self._hooks(fields["r"], Lv, step, draws, 1),
+                            group_sum=self.mesh.psum)
         v = self._rattle(fields["r"], v, False, Lv, rb)
         fields = dict(fields, v=v, pe=pe)
         fmask = mask.to(v.dtype)
@@ -333,11 +458,96 @@ class BrickStepBase:
         e_pot, rk, virial, corr, ov = self._reduce(e_pot, rk, virial, corr,
                                                    ov | ov_c)
         vd = torch.diagonal(virial) - corr
-        # one stack, as many launches as the 7-column row took
-        scalars = torch.stack([e_pot, rk, torch.trace(virial), vd[0], vd[1],
-                               vd[2], geom_volume(Lv),
-                               *virial.reshape(9).unbind()])
-        return fields, f, scalars, ov
+        return (fields, f, dict(dyn, Lv=Lv, vird=vd),
+                self._row(e_pot, rk, virial, vd, Lv), ov)
+
+    def _step_nptglf(self, fields, mask, f_prev, step, rb, ov, dyn,
+                     guard=False, box_lam=None):
+        """NPTGLF (integrators/nptglf.py's pieces): zeta from the last
+        step's mesh-wide pressure tensor (dyn["ptens"]), the drag, the
+        front kick, the breathing drift and the isotropic box move (r0
+        scaled with it), forces, the back kick, then one all-reduce of
+        the energy, the virial and the kinetic tensor for the
+        self-consistent rescale.  No hooks and no box(t), as the
+        single-device step."""
+        p = self.npt
+        Lv = dyn["Lv"]
+        vol = geom_volume(Lv)
+        zeta, vol_atom, drag = nptglf_open(dyn["zeta"], dyn["ptens"], vol,
+                                           p["n_global"], self.dt,
+                                           p["Gamma"], p["Peq"])
+        noise, _ = self._noise(step, fields["r"].shape, fields["v"].dtype)
+        half = 0.5 * self.dt
+        mass = rb["mass"]
+        v = velocity_update("front", fields["v"] * drag, f_prev,
+                            mass, fields["group"], self.coeffs, half,
+                            noise[0], mask, self.has_berendsen,
+                            group_sum=self.mesh.psum)
+        r, lam, vol_atom = nptglf_drift(fields["r"], v, zeta, vol_atom, vol,
+                                        p["n_global"], self.dt, p["Gamma"])
+        Lv = lam[:, None] * Lv if Lv.dim() == 2 else Lv * lam
+        ov = ov | self._narrow(Lv)
+        fields = dict(fields, r=nearest_image(r, Lv) if self.wrap_drift
+                      else r, v=v, r0=fields["r0"] * lam)
+
+        f, pe, virial, ov_c = self._force_call(fields, mask, rb, Lv)
+        if guard:
+            ov_c = ov_c | self._drift_guard(fields, mask, Lv)
+        v = velocity_update("back", fields["v"], f, mass,
+                            fields["group"], self.coeffs, half, noise[1], mask)
+        _, tion = kinetic_terms(v, mass, mask.to(v.dtype))
+        e_pot, virial, tion, ovs = self._psum_parts(
+            pe.sum().reshape(1), virial, tion, (ov | ov_c).reshape(1))
+        rk = 0.5 * torch.trace(tion)
+        zeta, fac = nptglf_close(zeta, virial, tion, rk, geom_volume(Lv),
+                                 vol_atom, self.dt, p["Gamma"], p["Peq"])
+        fields = dict(fields, v=v * fac, pe=pe)
+        tion = tion * fac * fac
+        dyn = dict(dyn, Lv=Lv, zeta=zeta, ptens=virial + tion)
+        return (fields, f, dyn, self._row(e_pot[0], rk * fac * fac, virial,
+                                          torch.diagonal(virial), Lv),
+                ovs[0] > 0)
+
+    def _step_nglfnk(self, fields, mask, f_prev, step, rb, ov, dyn,
+                     guard=False, box_lam=None):
+        """NGLFNK (integrators/nglfnk.PistonNK's pieces): the front
+        half-kick and the piston's first half-step from the last step's
+        mesh-wide pressure tensor, the drift of rows and box (r0 mapped
+        with the box), the wrap, forces, one all-reduce of the energy,
+        the virial and the half-step kinetic tensor, the second half-step
+        and the back half-kick, one all-reduce of the kinetic tensor.
+        The group coefficients play no part."""
+        pis = self.piston
+        Lv = dyn["Lv"]
+        h = torch.diag(Lv) if Lv.dim() == 1 else Lv
+        noise, _ = self._noise(step, fields["r"].shape, fields["v"].dtype)
+        fmask = mask.to(fields["v"].dtype)
+        mass = rb["mass"]
+        carry, r, h_new = pis.front(fields["r"], fields["v"], f_prev, mass,
+                                    fmask, h, dyn["bdot"], dyn["ptens"],
+                                    noise[0])
+        Lv_new = self._geom(h_new, Lv)
+        ov = ov | self._narrow(Lv_new)
+        if self.wrap_drift:
+            r = nearest_image(r, Lv_new)
+            carry = pis.wrapped(carry, r)
+        fields = dict(fields, r=r, r0=fields["r0"] @ (h_new @ inv3x3(h)).T)
+
+        f, pe, virial, ov_c = self._force_call(fields, mask, rb, Lv_new)
+        if guard:
+            ov_c = ov_c | self._drift_guard(fields, mask, Lv_new)
+        _, tion_h = kinetic_terms(pis.half_velocity(carry), mass, fmask)
+        e_pot, virial, tion_h, ovs = self._psum_parts(
+            pe.sum().reshape(1), virial, tion_h, (ov | ov_c).reshape(1))
+        V = geom_volume(Lv_new)
+        v, dLdt = pis.back(carry, f, virial + tion_h, V, noise[1])
+        _, tion = kinetic_terms(v, mass, fmask)
+        tion = self.mesh.psum(tion)
+        fields = dict(fields, v=v, pe=pe)
+        dyn = dict(dyn, Lv=Lv_new, bdot=dLdt, ptens=virial + tion)
+        return (fields, f, dyn, self._row(e_pot[0], 0.5 * torch.trace(tion),
+                                          virial, torch.diagonal(virial),
+                                          Lv_new), ovs[0] > 0)
 
     @staticmethod
     def _with_self(pe, rb):
@@ -355,8 +565,7 @@ class BrickStepBase:
         potential energies."""
         Lv = self.Lv if Lv is None else Lv
         fields, rb, ov_r = self._rebuild(fields, mask, Lv)
-        f, pe, virial, ov_c = self._forces(fields["r"], rb, Lv)
-        pe = self._with_self(pe, rb)
+        f, pe, virial, ov_c = self._force_call(fields, mask, rb, Lv)
         e_pot = pe.sum()
         corr = (self._mol_corr(fields["r"], f, Lv, rb) if rb["mol"] is not None
                 else virial.new_zeros(3))
@@ -365,14 +574,16 @@ class BrickStepBase:
         return f, e_pot, virial - torch.diag(corr), ov, pe
 
     def step(self, fields, mask, f_prev, step: int):
-        """One step on a freshly rebuilt table, no migration, under the
-        drift and rebuild guards (the per-step dispatch, rows away from
-        their last migration for longer than a chunk): (fields, f, scalars
-        (SCALAR_COLS,), overflow)."""
+        """One step of a fixed box (the deck's) on a freshly rebuilt table,
+        no migration, under the drift and rebuild guards (the per-step
+        dispatch, rows away from their last migration for longer than a
+        chunk): (fields, f, scalars (SCALAR_COLS,), overflow)."""
         fields, rb, ov_r = self._rebuild(fields, mask, self.Lv)
         ov_r = ov_r | self._rebuild_guard(fields, mask, self.Lv)
-        return self._step_body(fields, mask, f_prev, step, rb, ov_r, self.Lv,
-                               guard=self.drift_in_step)
+        fields, f, _, scal, ov = self._step_body(
+            fields, mask, f_prev, step, rb, ov_r, dict(Lv=self.Lv),
+            guard=self.drift_in_step)
+        return fields, f, scal, ov
 
     def migrate(self, fields, mask, f, Lv=None):
         """Staged 1-hop migration at box Lv, forces travelling with their
@@ -386,71 +597,49 @@ class BrickStepBase:
         ov = self.mesh.psum(ov.to(torch.float32).reshape(1))[0] > 0
         return packed, new_mask, f_new, ov
 
-    def chunk(self, fields, mask, f_prev, step0: int,
-              steps: int | None = None):
-        """Rebuild, `steps` (chunk_steps by default) steps at global steps
-        step0 .. step0+steps-1, then migrate; a chunk longer than
-        chunk_steps runs under the drift guard.  Returns (fields, mask,
-        f, scalars (steps, SCALAR_COLS), overflow)."""
+    def chunk(self, fields, mask, f_prev, dyn, step0: int,
+              steps: int | None = None, box_lam=None):
+        """Rebuild at dyn's box, `steps` (chunk_steps by default) steps at
+        global steps step0 .. step0+steps-1, then migrate at the live box.
+        Each step moves the box by the deck's rule (the Berendsen lambda,
+        box(t) -- box_lam = (E, M, h_ref) with E[i], M[i] step i's
+        factors --, NPTGLF's zeta or NGLFNK's pistons) inside _step_body,
+        carrying dyn ({Lv, vird, zeta, bdot, ptens}) from step to step;
+        the engine's guard flags a brick too narrow for its halo, and a
+        chunk longer than chunk_steps runs under the drift guard.
+        Returns (fields, mask, f, dyn, scalars (steps, SCALAR_COLS),
+        overflow)."""
         steps = self.chunk_steps if steps is None else steps
         guard = steps > self.chunk_steps and self.drift_in_chunk
-        fields, rb, ov = self._rebuild(fields, mask, self.Lv)
+        fields, rb, ov = self._rebuild(fields, mask, dyn["Lv"])
         f, rows = f_prev, []
         for i in range(steps):
-            fields, f, scal, ov = self._step_body(fields, mask, f, step0 + i,
-                                                  rb, ov, self.Lv, guard)
+            lam = None if box_lam is None else (box_lam[0][i], box_lam[1][i],
+                                                box_lam[2])
+            fields, f, dyn, scal, ov = self._step_body(
+                fields, mask, f, step0 + i, rb, ov, dyn, guard, lam)
             rows.append(scal)
-        fields, mask, f, ov_m = self.migrate(fields, mask, f)
-        return fields, mask, f, torch.stack(rows), ov | ov_m
+        fields, mask, f, ov_m = self.migrate(fields, mask, f, dyn["Lv"])
+        return fields, mask, f, dyn, torch.stack(rows), ov | ov_m
 
-    def chunk_npt(self, fields, mask, f_prev, vird, Lv, step0: int,
-                  steps: int | None = None):
-        """NPT chunk of `steps` (chunk_steps by default) steps: rebuild at
-        the live box, then per step the Berendsen lambda from the last
-        step's molecular virial diagonal `vird` rescales Lv and the
-        positions (r0 too) before the step; the engine's guard flags a
-        brick too narrow for its halo, and a chunk longer than chunk_steps
-        runs under the drift guard.  Returns (fields, mask, f, vird, Lv,
-        scalars (steps, SCALAR_COLS), overflow)."""
-        steps = self.chunk_steps if steps is None else steps
-        guard = steps > self.chunk_steps and self.drift_in_chunk
-        fields, rb, ov = self._rebuild(fields, mask, Lv)
-        f, rows = f_prev, []
-        for i in range(steps):
-            lam = barostat_lambda(vird, geom_volume(Lv), self.barostat,
-                                  self.dt)
-            # h' = diag(lam) h: a (3, 3) h scales by rows (the JAX
-            # package's brickstep.py:397-399)
-            Lv = lam[:, None] * Lv if Lv.dim() == 2 else Lv * lam
-            ov = ov | self._narrow(Lv)
-            fields = dict(fields, r=fields["r"] * lam, r0=fields["r0"] * lam)
-            fields, f, scal, ov = self._step_body(fields, mask, f, step0 + i,
-                                                  rb, ov, Lv, guard)
-            vird = scal[3:6]
-            rows.append(scal)
-        fields, mask, f, ov_m = self.migrate(fields, mask, f, Lv)
-        return fields, mask, f, vird, Lv, torch.stack(rows), ov | ov_m
-
-    def superchunk(self, fields, mask, f_prev, step0: int, n_super: int,
-                   vird=None, Lv=None, steps: int | None = None):
-        """n_super chunks of `steps` (chunk_steps by default) steps (NPT
-        chunks when the barostat is on, carrying vird and Lv) in one
-        dispatch with no host read.  Returns ((fields, mask, f[, vird,
-        Lv]), scalars (n_super*steps, SCALAR_COLS), overflow).  After an
-        overflow the later chunks still run, on state the caller
+    def superchunk(self, fields, mask, f_prev, dyn, step0: int, n_super: int,
+                   steps: int | None = None, box_lam=None):
+        """n_super chunks of `steps` (chunk_steps by default) steps in one
+        dispatch with no host read, carrying dyn; box_lam spans the whole
+        dispatch (chunk j takes its rows j*steps ...).  Returns ((fields,
+        mask, f, dyn), scalars (n_super*steps, SCALAR_COLS), overflow).
+        After an overflow the later chunks still run, on state the caller
         discards: the JAX superchunk freezes instead, and both hand back
         a flagged dispatch that the host rolls back whole."""
         k = self.chunk_steps if steps is None else steps
         ov = torch.zeros((), dtype=torch.bool, device=mask.device)
-        state = (fields, mask, f_prev) + (
-            () if self.barostat is None else (vird, Lv))
+        state = (fields, mask, f_prev, dyn)
         rows = []
         for j in range(n_super):
-            if self.barostat is None:
-                *state, scal, ov_j = self.chunk(*state, step0 + j * k, k)
-            else:
-                out = self.chunk_npt(*state, step0 + j * k, k)
-                state, scal, ov_j = out[:5], out[5], out[6]
+            lam = None if box_lam is None else (
+                box_lam[0][j * k:(j + 1) * k], box_lam[1][j * k:(j + 1) * k],
+                box_lam[2])
+            *state, scal, ov_j = self.chunk(*state, step0 + j * k, k, lam)
             rows.append(scal)
             ov = ov | ov_j
         return tuple(state), torch.cat(rows), ov

@@ -28,13 +28,13 @@ ddcMD src/masters.c:389-403) --
 Per-pair work is done once across the mesh (core-cell ownership), each
 bonded term, constraint group and molecule once by the rank owning its
 first atom.  The per-step scalars, virial, molecular-virial correction
-and overflow flag are summed over the mesh in one all-reduce.  The NPT
-chunk (chunk_npt) carries the box lengths and the corrected virial
-diagonal: each step first rescales the box and positions by the
-Berendsen lambda (integrators/nglf.barostat_lambda, the single-device
-formula); the frozen fractional cell grid and halo tables stretch
-affinely with the box, and the brick and cell-edge guards flag a shrink
-past rlist for the host's replan ladder.  Thermostat noise is drawn per
+and overflow flag are summed over the mesh in one all-reduce.  A chunk
+carries the box and barostat state (BrickStepBase.chunk): each step
+moves the box by the deck's rule -- the Berendsen lambda, box(t),
+NPTGLF's zeta or NGLFNK's pistons, the single-device formulas -- and
+the rows with it; the frozen fractional cell grid and halo tables
+stretch affinely with the box, and the brick and cell-edge guards flag
+a shrink past rlist for the host's replan ladder.  Thermostat noise is drawn per
 (deck seed, global step, rank) (core/groups.kick_noise), the counterpart
 of the JAX package's fold_in(key, axis_index): it never matches a single
 device's noise, so mesh and single-device runs agree in forces and

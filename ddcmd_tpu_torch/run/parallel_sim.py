@@ -33,9 +33,9 @@ is not template-regular) and the multi-bead molecules of the molecular
 virial, all resolved per rank (parallel/bonded_shard.py); migration is
 molecule-coherent, the head bead of each chain deciding.  The
 NGLFCONSTRAINT family with beta > 0 runs the Berendsen barostat in the
-NPT chunk, which carries the live box and the molecular virial
-diagonal; the grids then keep a shrink margin, and the overflow ladder
-replans against the live box.
+chunk, which carries the live box and the molecular virial diagonal;
+the grids of every moving box keep a shrink margin, and the overflow
+ladder replans against the live box.
 
 Ranks come from torch.distributed (the caller initialises the process
 group: NCCL for CUDA tensors, one card per rank; gloo for the CPU).  A
@@ -88,24 +88,38 @@ over view(), which carries the last step's per-row forces and potential
 energies and its mesh-wide virial and kinetic tensors; rank 0 writes.
 The JAX mesh writes none of these (its parallel_sim.py:452-472).
 run(migrate_rate=) takes the JAX package's migration cadence: the
-chunk length under the barostat, per-step dispatches with a migration
+chunk length under a moving box, per-step dispatches with a migration
 on each loop migrate_rate divides under NVT, both under a drift guard
 (parallel/brickstep.BrickStepBase) that flags a row moved half the skin
 since its last migration, so the host redistributes instead of losing
 its pairs.
 
+Dynamics as Simulation runs them (ROADMAP item 22; integrators/nglf.py,
+nptglf.py, nglfnk.py and core/groups.py, whose pieces both drivers
+call): the NGLF family with the Berendsen barostat and RATTLE (NGLFNEW
+with constraints too, as Simulation's uses_constraints has it), the
+NVEGLF variants on plain leapfrog coefficients, NPTGLF (zeta from the
+last step's mesh-wide pressure, the five-pass rescale on the mesh-wide
+kinetic tensor) and NGLFNK (per-axis pistons, Pxx and Pyy averaged, the
+fixed-shape triclinic piston), a prescribed box(t) (STRAIN, VOLUME at
+the mesh-wide volume, DEFORMATION_RATE; a tilting rate takes the list
+engine from the start, as any triclinic box), EXTFORCE forces, the hook
+groups (the SHEAR and SHWALL slice statistics summed over the ranks,
+DOUBLE_MIRROR per row, UNIONGROUP member draws at their own callsites
+on each rank's rows), and the group coefficients refreshed once a
+dispatch at its start time (Teq and PISTON vz schedules, GLOBAL_ENERGY
+targets from the mesh-wide energy of the last row).  One chunk carries
+the box and barostat state (BrickStepBase.chunk: the live box, the
+molecular virial diagonal, zeta, bdot, the last pressure tensor), and a
+flagged chunk rolls back whole and replans.  The JAX mesh runs every one
+of these decks as plain NGLF with constant coefficients (ROADMAP
+queue 3); the port does not copy that.
+
 Deck features outside these paths raise NotImplementedError naming
 their ROADMAP item: non-periodic axes (item 25: the JAX mesh reads no
-pbc bit and would run such a deck fully periodic), NGLFNEW with
-constraints (the JAX mesh projects constraints only for
-CONSTRAINT integrators, its Simulation also for NGLFNEW).  The kicks are
-the group kinds whose coefficients stay constant (FREE, LANGEVIN,
-FROZEN, FIXEDVELOCITY, QUENCH, BERENDSEN with its temperature summed
-over the ranks, a constant PISTON; the JAX mesh takes it per brick); the
-other integrators and box motions (NPTGLF, NGLFNK, the NVEGLF variants,
-box(t), EXTFORCE, the hook groups, GLOBAL_ENERGY, Teq or vz schedules)
-raise naming item 25 (_refuse_dynamics), as do the NEXTFILE and
-NGLFTEST masters and SIMULATE transform= (the JAX mesh applies none).
+pbc bit and would run such a deck fully periodic), the NEXTFILE and
+NGLFTEST masters and SIMULATE transform= (the JAX mesh applies none),
+as do a SHEAR group in a box whose c vector is tilted (as Simulation).
 """
 
 from __future__ import annotations
@@ -118,6 +132,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.box import geom_volume
+from ..core.energy import kinetic_terms
 from ..core.molecule import build_molecule_class
 from ..core.system import build_system
 from ..objects import ObjectDB
@@ -140,8 +156,11 @@ from ..potentials.pair import pair_device_tables
 from .forces import (_excl_channels, bonded_tables,
                      wide_exclusion_component)
 from .printinfo import PrintInfo
-from .simulate import (_BAROSTAT_TYPES, _MASTER_TYPES, _NPT_TYPES,
-                       _NVE_TYPES, deck_analyses, refuse_unported_outputs,
+from .simulate import (_BAROSTAT_TYPES, _MASTER_TYPES, box_time_factors,
+                       deck_analyses, dynamic_box, global_energy_groups,
+                       global_energy_teq, live_coefficients, nglfnk_h_frac,
+                       piston_start, refreshes_coefficients,
+                       refuse_shear_tilt, refuse_unported_outputs,
                        uses_constraints, write_graphs_line, write_group_row)
 
 _MESH_ITEM = "ROADMAP queue 1, item 25"
@@ -207,7 +226,9 @@ def chain_head_gids(gid, residue_instances, chain_links) -> np.ndarray:
 
 class ParallelSimulation:
     """Sharded run of a MARTINI (water box, bilayer, CHARMM), PAIR or EAM
-    deck over a brick mesh, NVT or Berendsen NPT, in f32 or f64."""
+    deck over a brick mesh under any of Simulation's integrators (the
+    NGLF family with the Berendsen barostat, the NVE variants, NPTGLF,
+    NGLFNK), box(t) and GROUP types, in f32 or f64."""
 
     def __init__(self, db: ObjectDB, base_dir: str = ".", *, shape=None,
                  device=None, dtype=torch.float32, run_dir: str = "."):
@@ -226,19 +247,12 @@ class ParallelSimulation:
             raise NotImplementedError(
                 f"integrator {sd.integrator_type}: the NEXTFILE / NGLFTEST "
                 f"masters do not run under the mesh yet ({_MESH_ITEM})")
-        self._refuse_dynamics(sd)
+        refuse_shear_tilt(sd)
         if sd.box.pbc & 7 != 7:
             raise NotImplementedError(
                 f"pbc={sd.box.pbc} under the mesh: the JAX mesh reads no pbc "
                 "bit and would run the deck fully periodic; non-periodic "
                 f"bricks are not ported yet ({_MESH_ITEM})")
-        if sd.integrator_type == "NGLFNEW" and uses_constraints(sd):
-            raise NotImplementedError(
-                "NGLFNEW with constraints under the mesh: the JAX mesh "
-                "projects constraints only for CONSTRAINT integrators "
-                "(parallel_sim.py:249), its Simulation also for NGLFNEW "
-                "(simulate.py:270-272); the port takes neither rule here "
-                f"({_MESH_ITEM})")
 
         self.db = db
         sim = db.by_class("SIMULATE")[0]
@@ -318,17 +332,31 @@ class ParallelSimulation:
             walls=walls, voronoi=voronoi)
         self._check_reach(L)
         self.chunk_steps = max(1, int(sd.cfg.ddc_update_rate))
-        self.coeffs = sd.group_table.coefficients(
-            sd.cfg.time, 0.5 * sd.cfg.dt, dtype=dtype, device=dev)
+        # the group coefficients, refreshed once a dispatch at its start
+        # time when a schedule or a GLOBAL_ENERGY target moves them
+        # (Simulation's rule); the energy the targets read
+        self._ge_groups, self._ge_total = global_energy_groups(sd), {}
+        self._eion_last = None
+        self._refresh_coeffs = refreshes_coefficients(sd)
+        self.coeffs = live_coefficients(sd, sd.cfg.time, dtype, dev)
+        self._dyn_box = dynamic_box(sd)
         self._density_safety = 1.3
         self._grid_growth = 1.0
         gid = gid64(sd.collection.gid)
         self._setup_barostat(db, gid)
         self._setup_topology(gid)
-        # the live box (moves under the barostat) and the last molecular
-        # virial diagonal the next NPT step's lambda reads
+        self._dynamics = self._dynamics_spec()
+        # the box and barostat state a step carries (box_state): the live
+        # box, the last molecular virial diagonal the next Berendsen
+        # lambda reads, NPTGLF's zeta, NGLFNK's piston velocities and the
+        # last step's mesh-wide virial plus kinetic tensor (their
+        # pressure)
+        zeta0, bdot0 = piston_start(db, sd)
         self.Lv = torch.as_tensor(geom, dtype=dtype, device=dev)
         self.vird = torch.zeros(3, dtype=dtype, device=dev)
+        self.zeta = torch.tensor(zeta0, dtype=dtype, device=dev)
+        self.bdot = torch.as_tensor(bdot0, dtype=dtype, device=dev)
+        self.ptens = torch.zeros((3, 3), dtype=dtype, device=dev)
         self._build_step_fns()
 
         self._host_arrays = dict(
@@ -425,38 +453,33 @@ class ParallelSimulation:
         return tuple(tuple(clamp_walls(w, 1.05 * rlist / L[a]))
                      for a, w in enumerate(raw))
 
-    @staticmethod
-    def _refuse_dynamics(sd):
-        """The mesh's kicks are the affine group kinds whose coefficients
-        do not change in time (FREE, LANGEVIN, FROZEN, FIXEDVELOCITY,
-        QUENCH, BERENDSEN and a constant PISTON), which is what the JAX
-        mesh's velocity_update calls compute (brickstep_pallas.py:332,
-        346).  The JAX mesh reads the integrator type only for its plan
-        margin and its Berendsen barostat (parallel_sim.py:214-217,272),
-        passes its kicks no hook context and computes the coefficients
-        once, so it runs NPTGLF and NGLFNK as NGLF, thermostats an NVEGLF
-        deck and ignores box(t), EXTFORCE, the hook groups, GLOBAL_ENERGY
-        and Teq or vz schedules (ROADMAP queue 3): each raises here,
-        naming item 25."""
+    def _dynamics_spec(self) -> dict:
+        """BrickStepBase's keywords of the deck's integrator and groups:
+        the step kind (NGLF family, NPTGLF, NGLFNK), NPTGLF's constants or
+        NGLFNK's PistonNK (with the fixed-shape h_frac of a triclinic
+        start box, as Simulation), the hook groups and the UNIONGROUP
+        member draws (NGLF family only, as Simulation's steps read them),
+        the EXTFORCE forces by group, and the run's clock (_time)."""
+        sd = self.sysdef
+        ip = sd.integrator_parms
         gt = sd.group_table
-        why = []
-        if sd.integrator_type in _NPT_TYPES + _NVE_TYPES:
-            why.append(f"integrator {sd.integrator_type}")
-        if sd.box_time is not None:
-            why.append(f"a prescribed box(t) ({sd.box_time['mode']})")
-        why += [f"GROUP {g.name} of type {g.type}" for g in sd.groups
-                if g.type in ("EXTFORCE", "SHEAR", "SHWALL",
-                              "DOUBLE_MIRROR", "UNIONGROUP")]
-        why += [f"GROUP {g.name} with Teq_dynamics=GLOBAL_ENERGY"
-                for g in gt.groups
-                if g.parms.get("teq_dynamics") == "GLOBAL_ENERGY"]
-        if gt.time_dependent:
-            why.append("a time-dependent Teq or PISTON vz")
-        if why:
-            raise NotImplementedError(
-                f"{', '.join(why)} under the mesh: the JAX mesh runs such a "
-                "deck as plain NGLF with constant group coefficients; not "
-                f"ported to the mesh yet ({_MESH_ITEM})")
+        kind = {"NPTGLF": "nptglf",
+                "NGLFNK": "nglfnk"}.get(sd.integrator_type, "nglf")
+        ext = np.array([g.extforce for g in sd.groups], dtype=np.float64)
+        spec = dict(kind=kind, clock=self._time,
+                    extforce=ext if np.any(ext != 0.0) else None)
+        if kind == "nglf":
+            spec.update(hooks=gt.shear_groups, union_draws=gt.union_draws)
+        elif kind == "nptglf":
+            spec["nptglf"] = dict(n_global=sd.state.n_local,
+                                  Gamma=ip["Gamma"], Peq=ip["pressure"])
+        else:
+            from ..integrators.nglfnk import PistonNK
+
+            spec["piston"] = PistonNK(sd.cfg.dt, T=ip["T"], tau=ip["tau"],
+                                      Peq=ip["P"], W=ip["W"], kB=U.kB,
+                                      h_frac=nglfnk_h_frac(sd))
+        return spec
 
     @staticmethod
     def _nonbond_term(sd):
@@ -642,12 +665,12 @@ class ParallelSimulation:
             cons_templates=self._cons_templates,
             cons_tables=self._cons_tables, mol_gids=self._mol_gids,
             barostat=self.barostat, skin=sd.neighbor_deltaR,
-            has_berendsen=sd.group_table.has_berendsen)
+            has_berendsen=sd.group_table.has_berendsen, **self._dynamics)
         if self.shard_engine == "pallas":
             self.cplan = plan_shard_cells(
                 L, self.shape, sd.rcut_max, sd.neighbor_deltaR,
                 sd.state.n_local, density_safety=self._density_safety,
-                plan_margin=_NPT_PLAN_MARGIN if self.barostat else 1.0,
+                plan_margin=_NPT_PLAN_MARGIN if self._dyn_box else 1.0,
                 walls=self.plan.walls)
             tables, tmap = self._cell_tables()
             self.step_fn = BrickStepCells(
@@ -688,7 +711,7 @@ class ParallelSimulation:
             L, sd.rcut_max, sd.neighbor_deltaR, n,
             self.plan.local_cap + self.plan.ghost_cap, positions=r,
             occupancy_factor=dup * self._grid_growth,
-            plan_margin=_NPT_LIST_MARGIN if self.barostat else 1.0)
+            plan_margin=_NPT_LIST_MARGIN if self._dyn_box else 1.0)
 
     def _distribute(self, arrays):
         """This rank's brick of the host arrays at the live box, on the
@@ -736,14 +759,76 @@ class ParallelSimulation:
     def first_energy(self) -> float:
         """Forces, per-row potential energies and energy of the current
         state at the live box; keeps the molecular virial diagonal the
-        next NPT step reads."""
+        next Berendsen step reads, the virial plus the kinetic tensor
+        (mesh-wide) the next NPTGLF or NGLFNK step's pressure reads, and
+        the energy the GLOBAL_ENERGY targets read."""
         self.f, e, virial, ov, pe = self.step_fn.first_forces(
             self.fields, self.mask, self.Lv)
         if bool(ov):
             raise RuntimeError("neighbor overflow at first energy")
         self.fields = dict(self.fields, pe=pe)
         self.vird = torch.diagonal(virial).clone()
-        return float(e)
+        if self.step_fn.kind != "nglf":
+            fm = self.mask.to(self.dtype)
+            tion = kinetic_terms(self.fields["v"], self.fields["mass"], fm)[1]
+            self.ptens = virial + self.mesh.psum(tion)
+        e = float(e)
+        if self._ge_groups:
+            self._eion_last = e
+        return e
+
+    def box_state(self) -> dict:
+        """The box and barostat state the next step reads (the chunks'
+        carry, BrickStepBase.chunk): Lv, vird, zeta, bdot, ptens."""
+        return dict(Lv=self.Lv, vird=self.vird, zeta=self.zeta,
+                    bdot=self.bdot, ptens=self.ptens)
+
+    def _set_box_state(self, dyn: dict):
+        self.Lv, self.vird, self.zeta, self.bdot, self.ptens = (
+            dyn[k] for k in ("Lv", "vird", "zeta", "bdot", "ptens"))
+
+    def _time(self, loop: int | None = None) -> float:
+        """The run's time at `loop` (the current loop by default;
+        internal units): the one clock of the host and the step's
+        hooks."""
+        sd = self.sysdef
+        loop = self.loop if loop is None else loop
+        return (loop - sd.cfg.loop) * sd.cfg.dt + sd.cfg.time
+
+    def _refresh(self):
+        """The group coefficients at the dispatch's start time with the
+        live GLOBAL_ENERGY targets (from the last accepted row's energy),
+        into the step engine: Simulation's once-a-dispatch refresh."""
+        if not self._refresh_coeffs:
+            return
+        sd = self.sysdef
+        self.coeffs = live_coefficients(
+            sd, self._time(), self.dtype, self.device,
+            global_energy_teq(self._ge_groups, self._ge_total,
+                              self._eion_last, sd.state.n_local))
+        self.step_fn.coeffs = self.coeffs
+
+    def _box_lam(self, steps: int):
+        """The prescribed box(t) of the next `steps` steps as (E, M, h_ref)
+        on the device (box_time_factors at the live time and mesh-wide
+        volume): step i's box is (E[i] * h_ref) @ M[i], h_ref the
+        dispatch's first box; under the Berendsen barostat the one-step
+        factors go onto the live box each step (h_ref None), as
+        Simulation's dispatch does.  None without a box(t)."""
+        sd = self.sysdef
+        bt = sd.box_time
+        if bt is None:
+            return None
+        vol = (float(geom_volume(self.Lv)) if bt["mode"] == "volume"
+               else 0.0)
+        E, M = (torch.as_tensor(x, dtype=self.dtype, device=self.device)
+                for x in box_time_factors(bt, self._time(), sd.cfg.dt, steps,
+                                          vol, sd.state.n_local))
+        if self.barostat is not None:
+            return (E[:1].expand(steps, 3, 3), M[:1].expand(steps, 3, 3),
+                    None)
+        return E, M, torch.as_tensor(live_h(self._live_geom()),
+                                     dtype=self.dtype, device=self.device)
 
     def _print_scalars(self, scalars, print_fn, loop0):
         """One line per printrate row: energies per particle, T over
@@ -776,27 +861,26 @@ class ParallelSimulation:
 
     def _dispatch(self, kind: str, n_super: int = 0, steps: int = 0):
         """One dispatch from the current state, one device-to-host read
-        at its end: (new state (fields, mask, f[, vird, Lv]), scalars
+        at its end: (new state (fields, mask, f, box_state), scalars
         (k, SCALAR_COLS) numpy, overflow, steps).  kind "super" runs
         n_super chunks of steps / n_super steps, "chunk" one chunk of
-        `steps` steps (chunk_steps when 0), "step" one NVT step without
-        migration."""
+        `steps` steps (chunk_steps when 0), "step" one step of the fixed
+        box without migration."""
         st = self.step_fn
-        npt = (self.vird, self.Lv) if self.barostat else ()
+        dyn = self.box_state()
+        box_lam = None if kind == "step" else self._box_lam(
+            steps or self.chunk_steps)
         if kind == "super":
             state, scal, ov = st.superchunk(
-                self.fields, self.mask, self.f, self.loop, n_super,
-                *(npt or (None, None)), steps=steps // n_super)
-        elif kind == "chunk" and npt:
-            *state, scal, ov = st.chunk_npt(self.fields, self.mask, self.f,
-                                            *npt, self.loop, steps or None)
+                self.fields, self.mask, self.f, dyn, self.loop, n_super,
+                steps // n_super, box_lam)
         elif kind == "chunk":
-            *state, scal, ov = st.chunk(self.fields, self.mask, self.f,
-                                        self.loop, steps or None)
+            *state, scal, ov = st.chunk(self.fields, self.mask, self.f, dyn,
+                                        self.loop, steps or None, box_lam)
         else:
             fields, f, scal, ov = st.step(self.fields, self.mask, self.f,
                                           self.loop)
-            state, scal = (fields, self.mask, f), scal[None]
+            state, scal = (fields, self.mask, f, dyn), scal[None]
         host = torch.cat([scal.reshape(-1),
                           ov.to(scal.dtype).reshape(1)]).cpu().numpy()
         rows = host[:-1].astype(np.float64).reshape(-1, SCALAR_COLS)
@@ -813,7 +897,7 @@ class ParallelSimulation:
         analysis writes once more, as Simulation.run does.
 
         migrate_rate (the JAX package's run(migrate_rate=)): None or
-        chunk_steps changes nothing; under the barostat it is the chunk
+        chunk_steps changes nothing; under a moving box it is the chunk
         length; under NVT the run dispatches one step at a time (no
         superchunk) and migrates on each loop migrate_rate divides.  Steps
         away from their last migration for longer than a chunk run under
@@ -821,7 +905,9 @@ class ParallelSimulation:
         its migration's too (the JAX per-step path raises), rolls back to
         the state before it (the box and virial diagonal too) and
         escalates: (1) host redistribute, (2) replan at the live box, (3)
-        raise."""
+        raise.  Before each dispatch the group coefficients are refreshed
+        at its start time (_refresh); a box(t) deck's dispatch takes its
+        factors from there (_box_lam)."""
         if self.f is None:
             self.first_energy()
         done = 0
@@ -829,8 +915,8 @@ class ParallelSimulation:
         mr = k if migrate_rate is None else int(migrate_rate)
         if mr < 1:
             raise ValueError(f"migrate_rate={migrate_rate}")
-        per_step = mr != k and not self.barostat
-        if self.barostat:
+        per_step = mr != k and not self._dyn_box
+        if self._dyn_box:
             k = mr
         # with load balance at a rate no superchunk spans a rebalance:
         # chunks, each preceded by the rebalance when its loop is due
@@ -856,11 +942,13 @@ class ParallelSimulation:
                     and self.loop >= next_lb:
                 self.rebalance()
                 next_lb += rate
+            self._refresh()
             t0 = _time.perf_counter()
             state, rows, ov, steps = self._dispatch(kind, M, steps)
             migrated = kind != "step"
             if not ov and per_step and (self.loop + 1) % mr == 0:
-                *state, ov = self.step_fn.migrate(*state)
+                *moved, ov = self.step_fn.migrate(*state[:3], state[3]["Lv"])
+                state = (*moved, state[3])
                 migrated = True
             seconds = _time.perf_counter() - t0
             if ov:
@@ -879,9 +967,10 @@ class ParallelSimulation:
                     f"non-finite energy after loop {self.loop} (reference "
                     "kill switch, masters.c:470-475)")
             self.fields, self.mask, self.f = state[:3]
-            if self.barostat:
-                self.vird, self.Lv = state[3:]
+            self._set_box_state(state[3])
             self._last_row = rows[-1]
+            if self._ge_groups:
+                self._eion_last = float(rows[-1, 0])
             self.rows_home = migrated
             self._print_scalars(rows, print_fn, self.loop)
             self.loop += steps
@@ -950,7 +1039,6 @@ class ParallelSimulation:
                                      .reshape(1)).reshape(-1).cpu().tolist()
         if self.mesh.rank != 0:
             return
-        sd = self.sysdef
         cells = None
         if self.shard_engine == "pallas":
             cp = self.cplan
@@ -958,8 +1046,7 @@ class ParallelSimulation:
             n_stencil = cp.stencil_packed.shape[1] // 4
             cells = (ncell, cp.cap, ncell * n_stencil * cp.cap * cp.cap)
         write_graphs_line(
-            self.run_dir, self.loop,
-            (self.loop - sd.cfg.loop) * sd.cfg.dt + sd.cfg.time, sum(owned),
+            self.run_dir, self.loop, self._time(), sum(owned),
             k, cells, " owned=" + ",".join(str(int(x)) for x in owned))
 
     def _emit_group_files(self):
@@ -1093,7 +1180,6 @@ class ParallelSimulation:
         state = sd.state.replace(**rep)
         box = Box.from_h(live_h(self._live_geom()), pbc=sd.box.pbc,
                          dtype=dt_, device=dev)
-        time = (self.loop - sd.cfg.loop) * sd.cfg.dt + sd.cfg.time
         energy = EnergyInfo.zero(dt_, dev)
         row = self._last_row
         if row is not None:
@@ -1107,7 +1193,8 @@ class ParallelSimulation:
                                 virial=t(row[7:16]).reshape(3, 3), tion=tion,
                                 number=t(float(n)))
         return StepState(state=state, box=box, energy=energy,
-                         loop=self.loop, time=time)
+                         loop=self.loop, time=self._time(), zeta=self.zeta,
+                         bdot=self.bdot)
 
     def view(self):
         """A Simulation-shaped view of the mesh (sysdef, ss, device) with

@@ -239,6 +239,134 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def refuse_shear_tilt(sd):
+    """SHEAR / SHWALL slabs live in Cartesian z (shear.c), as in the JAX
+    package (simulate.py:108-117): a box whose c vector is coupled to z
+    by a tilt raises NotImplementedError (an xy tilt is fine).  Simulation
+    and ParallelSimulation both check it."""
+    h = sd.box.h.cpu().numpy()
+    if any(g.type in ("SHEAR", "SHWALL") for g in sd.groups) and \
+            np.any(h[[2, 2, 0, 1], [0, 1, 2, 2]] != 0):
+        raise NotImplementedError(
+            "SHEAR/SHWALL need the c lattice vector along z (xy tilt "
+            "is fine; z-coupled tilt is not)")
+
+
+def dynamic_box(sd) -> bool:
+    """True when the box moves: a barostat's beta > 0, NPTGLF, NGLFNK or a
+    prescribed box(t) (the JAX package's dyn_box)."""
+    return (sd.box_time is not None or sd.integrator_type in _NPT_TYPES
+            or sd.integrator_parms["beta"] > 0)
+
+
+def piston_start(db: ObjectDB, sd):
+    """(zeta, bdot) at the start of a run: NPTGLF's zeta and NGLFNK's
+    piston velocities from the deck (a restart file merges its values
+    into the INTEGRATOR object), 0 for the other integrators; floats and
+    a (3,) f64 array."""
+    itype = sd.integrator_type
+    zeta0 = sd.integrator_parms["zeta"] if itype == "NPTGLF" else 0.0
+    bdot0 = np.zeros(3)
+    if itype == "NGLFNK":
+        bdot0 = db.get(sd.cfg.integrator_name, "INTEGRATOR") \
+            .get_with_unitsv("bdot", "0 0 0", "l/t")
+    return float(zeta0), np.asarray(bdot0, dtype=np.float64)
+
+
+def nglfnk_h_frac(sd):
+    """NGLFNK's fixed cell shape: None for an orthorhombic start box, else
+    its unit lattice vectors h0 / |h0 columns| (h = h_frac diag(L))."""
+    if sd.box.ortho:
+        return None
+    h0 = sd.box.h.cpu().numpy().astype(np.float64)
+    return h0 / np.linalg.norm(h0, axis=0)[None, :]
+
+
+def global_energy_groups(sd) -> dict:
+    """{group index: group} of the LANGEVIN groups whose Teq follows the
+    energy (Teq_dynamics=GLOBAL_ENERGY)."""
+    return {g.index: g for g in sd.group_table.groups
+            if g.parms.get("teq_dynamics") == "GLOBAL_ENERGY"}
+
+
+def refreshes_coefficients(sd) -> bool:
+    """True when a run refreshes the group coefficients once a dispatch:
+    a Teq or PISTON vz schedule, or a GLOBAL_ENERGY target, under an
+    integrator that reads them (the NVE variants do not)."""
+    gt = sd.group_table
+    return ((gt.time_dependent or bool(global_energy_groups(sd)))
+            and sd.integrator_type not in _NVE_TYPES)
+
+
+def global_energy_teq(ge_groups: dict, ge_total: dict, e, n_global: int):
+    """Live Teq of each GLOBAL_ENERGY Langevin group: the conserved bath +
+    system energy is pinned (into ge_total) at the first potential
+    energy the host reads, then Teq = (total - E)/(Cp N)
+    (langevin_getTemperature, src/langevin.c:31-51; simulate.py:249-263
+    of the JAX package), E the last step's energy.  None without such
+    groups or without a finite E."""
+    if not ge_groups or e is None or not np.isfinite(e):
+        return None
+    out = {}
+    for i, g in ge_groups.items():
+        cp_n = g.parms["Cp"] * n_global
+        if i not in ge_total:
+            ge_total[i] = float(g.Teq(0.0)) * cp_n + e
+        out[i] = (ge_total[i] - e) / cp_n
+    return out
+
+
+def live_coefficients(sd, time: float, dtype, device, teq_override=None):
+    """GroupTable.coefficients at `time` with the live GLOBAL_ENERGY
+    targets (teq_override); the NVE variants ignore thermostats and kick
+    with plain leapfrog coefficients (nveglf.c; simulate.py:331-337 of
+    the JAX package)."""
+    c = sd.group_table.coefficients(time, 0.5 * sd.cfg.dt, dtype=dtype,
+                                    device=device, teq_override=teq_override)
+    if sd.integrator_type in _NVE_TYPES:
+        a, c_on, noise, vcm, kind, ber = c
+        c = (torch.ones_like(a), torch.ones_like(c_on),
+             torch.zeros_like(noise), torch.zeros_like(vcm),
+             torch.zeros_like(kind), torch.zeros_like(ber))
+    return c
+
+
+def box_time_factors(bt: dict, time: float, dt: float, n_steps: int,
+                     volume: float, n_global: int):
+    """The prescribed box(t) of the next n_steps steps as (E, M), each
+    (n_steps, 3, 3) f64 on the host: step i of the dispatch sets h =
+    (E[i] * h0) @ M[i], h0 the dispatch's first box
+    (boxPrescriptiveTime.c:96-145; simulate.py:1134-1170 of the JAX
+    package, whose per-step factors are constant across a dispatch:
+    E[i], M[i] are their i+1-th powers, taken in f64, so E[0], M[0] are
+    the one-step factors).  STRAIN fills E elementwise, DEFORMATION_RATE
+    fills M = expm(D dt), VOLUME a uniform E that reaches n Veq(t + S
+    dt) at the dispatch's end from the volume at its start."""
+    S = max(1, n_steps)
+    steps = np.arange(1, S + 1, dtype=np.float64)[:, None, None]
+    E = np.ones((S, 3, 3))
+    M = np.broadcast_to(np.eye(3), (S, 3, 3)).copy()
+    if bt["mode"] == "strain":
+        log_e = np.array([[eq.integral(time, time + S * dt) / S
+                           for eq in row] for row in bt["eqs"]])
+        E = np.exp(steps * log_e[None])
+    elif bt["mode"] == "deformation":
+        D = np.asarray(bt["D"], dtype=np.float64) * dt
+        step = np.eye(3)
+        term = np.eye(3)
+        for k in range(1, 24):                # expm series (exact to
+            term = term @ D / k               # machine eps for D dt<<1)
+            step = step + term
+            if np.abs(term).max() < 1e-18:
+                break
+        for i in range(S):
+            M[i] = (M[i - 1] if i else np.eye(3)) @ step
+    else:  # volume: n Veq(t + S dt) exactly at the dispatch's end
+        v_tgt = n_global * float(bt["eq"](time + S * dt))
+        E = E * np.exp(steps * math.log(v_tgt / volume) / (3.0 * S))
+    return E, M
+
+
 def choose_engine(sd, dtype, engine: str = "auto") -> str:
     """The engine of a deck, as the JAX package's auto choice on a TPU
     (simulate.py:50-118) with "pallas" read as "kernel":
@@ -338,24 +466,14 @@ class Simulation:
             tobj = db.find(t, "TRANSFORM")
             if tobj is not None:
                 self.transforms.append((t, tobj, tobj.get_int("rate", 0)))
-        itype = sd.integrator_type
-        h = sd.box.h.cpu().numpy()
-        if any(g.type in ("SHEAR", "SHWALL") for g in sd.groups) and \
-                np.any(h[[2, 2, 0, 1], [0, 1, 2, 2]] != 0):
-            # the shear slabs live in Cartesian z (shear.c), as in the
-            # JAX package (simulate.py:108-117)
-            raise NotImplementedError(
-                "SHEAR/SHWALL need the c lattice vector along z (xy tilt "
-                "is fine; z-coupled tilt is not)")
-        ip = sd.integrator_parms
+        refuse_shear_tilt(sd)
         self.post_drift_fn = None
         if any(p[0] == "REFLECT" for p in sd.potentials):
             from ..potentials.reflect import reflect
 
             self.post_drift_fn = reflect
         # dynamic boxes plan with shrink headroom (simulate.py:120-128)
-        self._dyn_box = (sd.box_time is not None or itype in _NPT_TYPES
-                         or ip["beta"] > 0)
+        self._dyn_box = dynamic_box(sd)
         self._plan_margin = 1.08 if self._dyn_box else 1.0
         self._density_safety = 1.3
         self._engine_request = engine
@@ -372,20 +490,13 @@ class Simulation:
         # (steps, seconds) of each accepted dispatch, host clock around
         # work that ends in the dispatch's one device sync
         self.dispatch_log: list[tuple[int, float]] = []
-        # NPTGLF's zeta and NGLFNK's piston velocities start from the deck
-        # (a restart file merges its values into the INTEGRATOR object)
-        zeta0 = ip["zeta"] if itype == "NPTGLF" else 0.0
-        bdot0 = np.zeros(3)
-        if itype == "NGLFNK":
-            bdot0 = db.get(sd.cfg.integrator_name, "INTEGRATOR") \
-                .get_with_unitsv("bdot", "0 0 0", "l/t")
+        zeta0, bdot0 = piston_start(db, sd)
         self.ss = StepState(
             state=sd.state, box=sd.box,
             energy=EnergyInfo.zero(dtype=dtype, device=self.device),
             loop=sd.cfg.loop, time=sd.cfg.time,
             zeta=torch.tensor(zeta0, dtype=dtype, device=self.device),
-            bdot=torch.as_tensor(np.asarray(bdot0, dtype=np.float64),
-                                 dtype=dtype, device=self.device))
+            bdot=torch.as_tensor(bdot0, dtype=dtype, device=self.device))
 
     # ------------------------------------------------------------------
 
@@ -429,30 +540,16 @@ class Simulation:
         every dispatch from the last potential energy the host holds.
         Called when the Simulation is built and after the command file's
         object rescan (a CONSTANT Teq may have become a ramp)."""
-        gt = self.sysdef.group_table
-        self._ge_groups = {g.index: g for g in gt.groups
-                           if g.parms.get("teq_dynamics") == "GLOBAL_ENERGY"}
-        self._refresh_coeffs = (
-            (gt.time_dependent or bool(self._ge_groups))
-            and self.sysdef.integrator_type not in _NVE_TYPES)
-        self._union_draws = gt.union_draws
+        self._ge_groups = global_energy_groups(self.sysdef)
+        self._refresh_coeffs = refreshes_coefficients(self.sysdef)
+        self._union_draws = self.sysdef.group_table.union_draws
         self.coeffs = self._coefficients(time)
 
     def _coefficients(self, time: float):
-        """GroupTable.coefficients at `time` with the live GLOBAL_ENERGY
-        targets; the NVE variants ignore thermostats and kick with plain
-        leapfrog coefficients (nveglf.c; simulate.py:331-337 of the JAX
-        package)."""
-        sd = self.sysdef
-        c = sd.group_table.coefficients(
-            time, 0.5 * sd.cfg.dt, dtype=self.dtype, device=self.device,
-            teq_override=self._ge_teq_override())
-        if sd.integrator_type in _NVE_TYPES:
-            a, c_on, noise, vcm, kind, ber = c
-            c = (torch.ones_like(a), torch.ones_like(c_on),
-                 torch.zeros_like(noise), torch.zeros_like(vcm),
-                 torch.zeros_like(kind), torch.zeros_like(ber))
-        return c
+        """live_coefficients at `time` with the live GLOBAL_ENERGY
+        targets."""
+        return live_coefficients(self.sysdef, time, self.dtype, self.device,
+                                 self._ge_teq_override())
 
     def _make_constraint_fn(self):
         """Residue-template batched RATTLE when the topology allows it in
@@ -514,14 +611,10 @@ class Simulation:
                 Gamma=ip["Gamma"], Peq=ip["pressure"], wrap_positions=wrap,
                 has_berendsen=gt.has_berendsen)
         elif sd.integrator_type == "NGLFNK":
-            h_frac = None
-            if not sd.box.ortho:
-                h0 = sd.box.h.cpu().numpy().astype(np.float64)
-                h_frac = h0 / np.linalg.norm(h0, axis=0)[None, :]
             self.step_fn = make_nglfnk_step(
                 self.force_fn, sd.cfg.dt, T=ip["T"], tau=ip["tau"],
                 Peq=ip["P"], W=ip["W"], kB=U.kB, wrap_positions=wrap,
-                h_frac=h_frac)
+                h_frac=nglfnk_h_frac(sd))
         else:
             self.step_fn = make_nglf_step(
                 self.force_fn, sd.cfg.dt, barostat=self.barostat,
@@ -650,64 +743,22 @@ class Simulation:
             for g, j in self._union_draws], dim=1)
 
     def _ge_teq_override(self):
-        """Live Teq of each GLOBAL_ENERGY Langevin group: the conserved
-        bath + system energy is pinned at the first potential energy the
-        host reads, then Teq = (total - E)/(Cp N) (langevin_getTemperature,
-        src/langevin.c:31-51; simulate.py:249-263 of the JAX package).  E
-        is the last step's energy from the previous dispatch's rows (or
-        the first energy), so the refresh reads nothing from the device."""
-        e = self._eion_last
-        if not self._ge_groups or e is None or not np.isfinite(e):
-            return None
-        ng = self.sysdef.state.n_local
-        out = {}
-        for i, g in self._ge_groups.items():
-            cp_n = g.parms["Cp"] * ng
-            if i not in self._ge_total:
-                self._ge_total[i] = float(g.Teq(0.0)) * cp_n + e
-            out[i] = (self._ge_total[i] - e) / cp_n
-        return out
+        """global_energy_teq from E, the last step's energy of the previous
+        dispatch's rows (or the first energy), so the refresh reads
+        nothing from the device."""
+        return global_energy_teq(self._ge_groups, self._ge_total,
+                                 self._eion_last, self.sysdef.state.n_local)
 
     def _box_lam(self, n_steps: int):
-        """The prescribed box(t) of the next n_steps steps as (E, M), each
-        (n_steps, 3, 3) on the device: step i of the dispatch sets h =
-        (E[i] * h0) @ M[i], h0 the dispatch's first box
-        (boxPrescriptiveTime.c:96-145; simulate.py:1134-1170 of the JAX
-        package, whose per-step factors are constant across a dispatch:
-        E[i], M[i] are their i+1-th powers, taken in f64, so E[0], M[0]
-        are the one-step factors).  STRAIN fills
-        E elementwise, DEFORMATION_RATE fills M = expm(D dt), VOLUME a
-        uniform E that reaches n Veq(t + S dt) at the dispatch's end.
-        None without a box(t)."""
+        """box_time_factors of the next n_steps steps from the live time
+        and volume, as (E, M) on the device; None without a box(t)."""
         bt = self.sysdef.box_time
         if bt is None:
             return None
-        t = self.ss.time
-        dt = self.sysdef.cfg.dt
-        S = max(1, n_steps)
-        steps = np.arange(1, S + 1, dtype=np.float64)[:, None, None]
-        E = np.ones((S, 3, 3))
-        M = np.broadcast_to(np.eye(3), (S, 3, 3)).copy()
-        if bt["mode"] == "strain":
-            log_e = np.array([[eq.integral(t, t + S * dt) / S for eq in row]
-                              for row in bt["eqs"]])
-            E = np.exp(steps * log_e[None])
-        elif bt["mode"] == "deformation":
-            D = np.asarray(bt["D"], dtype=np.float64) * dt
-            step = np.eye(3)
-            term = np.eye(3)
-            for k in range(1, 24):                # expm series (exact to
-                term = term @ D / k               # machine eps for D dt<<1)
-                step = step + term
-                if np.abs(term).max() < 1e-18:
-                    break
-            for i in range(S):
-                M[i] = (M[i - 1] if i else np.eye(3)) @ step
-        else:  # volume: n Veq(t + S dt) exactly at the dispatch's end
-            v_now = float(self.ss.box.volume)
-            v_tgt = self.sysdef.state.n_local * float(bt["eq"](t + S * dt))
-            E = E * np.exp(steps * math.log(v_tgt / v_now) / (3.0 * S))
-
+        volume = (float(self.ss.box.volume) if bt["mode"] == "volume"
+                  else 0.0)
+        E, M = box_time_factors(bt, self.ss.time, self.sysdef.cfg.dt,
+                                n_steps, volume, self.sysdef.state.n_local)
         return self._dev(E), self._dev(M)
 
     def _dispatch(self, ss: StepState, n_rebuilds: int, spr: int,

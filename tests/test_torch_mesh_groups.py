@@ -2,10 +2,11 @@
 group kinds whose coefficients do not change in time (FREE, FROZEN,
 FIXEDVELOCITY, QUENCH, BERENDSEN with its temperature summed over the
 ranks, a constant PISTON) and matches the single-device Simulation over
-two gloo ranks; every other item-22 feature raises naming item 25; and
-the reference finding behind those refusals: the JAX mesh runs EXTFORCE,
-the hook groups (SHEAR, DOUBLE_MIRROR) and GLOBAL_ENERGY as if the deck
-had none of them.
+two gloo ranks; the other item-22 features, which the mesh once
+refused, run (tests/test_torch_mesh_dynamics.py holds them to
+Simulation); and the reference finding behind the port's choice not to
+copy the JAX mesh: it runs EXTFORCE, the hook groups (SHEAR,
+DOUBLE_MIRROR) and GLOBAL_ENERGY as if the deck had none of them.
 
 Tolerances: the mesh's first energy rel 2e-5 of Simulation's (f32),
 positions after 20 steps 1e-4 nm, velocities 1e-3 of their scale; the
@@ -87,36 +88,44 @@ def test_mesh_runs_affine_kinds_as_simulation(tmp_path):
     assert np.abs(vb).max() > 0.0
 
 
+# item 22's decks, which the mesh refused until it ran them as Simulation
+# does: each now builds and runs under the mesh ("runs"; the ids keep the
+# names these cases had when they were refusals;
+# tests/test_torch_mesh_dynamics.py holds the mesh to Simulation on such
+# decks); the NEXTFILE master still raises
+RUNS = "runs"
 REFUSED = {
-    "NGLFNK": lambda t: t.replace("type=NGLF;", "type=NGLFNK; tau=0.5ps; "
-                                  "P=1 bar; W=1000 1000 1000 amu;"),
-    "NVEGLF": lambda t: t.replace("type=NGLF;", "type=NVEGLF;"),
-    "NVEGLF_SIMPLE": lambda t: t.replace("type=NGLF;",
-                                         "type=NVEGLF_SIMPLE;"),
-    "box\\(t\\) \\(strain\\)": lambda t: t.replace("pbc=7;",
-                                                   "pbc=7; dudt=1e-6;"),
-    "box\\(t\\) \\(volume\\)": lambda t: t.replace(
-        "pbc=7;", "pbc=7; Veq=140 Angstrom^3;"),
-    "GROUP solvent of type EXTFORCE": lambda t: t.replace(
+    "NGLFNK": (lambda t: t.replace("type=NGLF;", "type=NGLFNK; tau=0.5ps; "
+                                   "P=1 bar; W=1000 1000 1000 amu;"), RUNS),
+    "NVEGLF": (lambda t: t.replace("type=NGLF;", "type=NVEGLF;"), RUNS),
+    "NVEGLF_SIMPLE": (lambda t: t.replace("type=NGLF;",
+                                          "type=NVEGLF_SIMPLE;"), RUNS),
+    "box\\(t\\) \\(strain\\)": (lambda t: t.replace(
+        "pbc=7;", "pbc=7; dudt=1e-6;"), RUNS),
+    "box\\(t\\) \\(volume\\)": (lambda t: t.replace(
+        "pbc=7;", "pbc=7; Veq=140 Angstrom^3;"), RUNS),
+    "GROUP solvent of type EXTFORCE": (lambda t: t.replace(
         "type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
-        "type=EXTFORCE; force=0 0 0.01 eV/Angstrom;"),
-    "GROUP solvent of type SHEAR": lambda t: t.replace(
+        "type=EXTFORCE; force=0 0 0.01 eV/Angstrom;"), RUNS),
+    "GROUP solvent of type SHEAR": (lambda t: t.replace(
         "type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
         "type=SHEAR; tau=0.1ps; top_width=5 Angstrom; bottom_width=5 "
         "Angstrom; top_center=10 Angstrom; bottom_center=-10 Angstrom;"),
-    "GROUP solvent of type SHWALL": lambda t: t.replace(
-        "type=LANGEVIN; Teq=310.0K; tau=1.0ps;", "type=SHWALL;"),
-    "GROUP solvent of type DOUBLE_MIRROR": lambda t: t.replace(
+        RUNS),
+    "GROUP solvent of type SHWALL": (lambda t: t.replace(
+        "type=LANGEVIN; Teq=310.0K; tau=1.0ps;", "type=SHWALL;"), RUNS),
+    "GROUP solvent of type DOUBLE_MIRROR": (lambda t: t.replace(
         "type=LANGEVIN; Teq=310.0K; tau=1.0ps;", "type=DOUBLE_MIRROR;"),
-    "GROUP solvent of type UNIONGROUP": lambda t: t.replace(
+        RUNS),
+    "GROUP solvent of type UNIONGROUP": (lambda t: t.replace(
         "type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
-        "type=UNIONGROUP; groups=m1;") + "m1 GROUP { type=FREE; }\n",
-    "GLOBAL_ENERGY": lambda t: t.replace(
+        "type=UNIONGROUP; groups=m1;") + "m1 GROUP { type=FREE; }\n", RUNS),
+    "GLOBAL_ENERGY": (lambda t: t.replace(
         "Teq=310.0K; tau=1.0ps;", "Teq=310.0K; tau=1.0ps; "
-        "Teq_dynamics=GLOBAL_ENERGY; Cp=0.05 kJ*mol^-1*K^-1;"),
-    "time-dependent Teq or PISTON vz": lambda t: t.replace(
+        "Teq_dynamics=GLOBAL_ENERGY; Cp=0.05 kJ*mol^-1*K^-1;"), RUNS),
+    "time-dependent Teq or PISTON vz": (lambda t: t.replace(
         "type=LANGEVIN; Teq=310.0K; tau=1.0ps;",
-        "type=PISTON; vz=RAMP(0,1e-3,0,1ps);"),
+        "type=PISTON; vz=RAMP(0,1e-3,0,1ps);"), RUNS),
     # Simulation runs the NEXTFILE master (tests/test_torch_runtime.py);
     # the mesh has no such path, as the JAX mesh
     "NEXTFILE.*item 23": (lambda t: t.replace("type=NGLF;",
@@ -128,9 +137,12 @@ REFUSED = {
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_mesh_refuses_what_the_jax_mesh_drops(tmp_path, what):
     """NGLFNK, the NVEGLF variants, box(t), EXTFORCE, the hook groups,
-    GLOBAL_ENERGY and time-dependent coefficients raise under the mesh
-    naming item 25 (NPTGLF, deformationRate and a BERENDSEN schedule are
-    tests/test_torch_host.py's cases), as does the NEXTFILE master."""
+    GLOBAL_ENERGY and time-dependent coefficients, which the JAX mesh
+    runs as plain NGLF with constant coefficients, run under the port's
+    mesh: 20 steps at (1,1,1), every energy finite, the moving boxes
+    moved (NPTGLF, deformationRate and a BERENDSEN schedule are
+    tests/test_torch_host.py's cases); the NEXTFILE master raises naming
+    item 25."""
     import torch.distributed as dist
 
     from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
@@ -138,19 +150,29 @@ def test_mesh_refuses_what_the_jax_mesh_drops(tmp_path, what):
     martini_water(str(tmp_path), n=400)
     p = tmp_path / "object.data"
     text = p.read_text()
-    edit, pattern = (REFUSED[what] if isinstance(REFUSED[what], tuple)
-                     else (REFUSED[what], what + ".*item 25"))
+    edit, pattern = REFUSED[what]
     new = edit(text)
     assert new != text
     p.write_text(new)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
                             rank=0, world_size=1)
     try:
-        with pytest.raises(NotImplementedError, match=pattern):
-            ParallelSimulation(*t_load(str(tmp_path)), shape=(1, 1, 1),
-                               device="cpu")
+        if pattern != RUNS:
+            with pytest.raises(NotImplementedError, match=pattern):
+                ParallelSimulation(*t_load(str(tmp_path)), shape=(1, 1, 1),
+                                   device="cpu")
+            return
+        ps = ParallelSimulation(*t_load(str(tmp_path)), shape=(1, 1, 1),
+                                device="cpu", run_dir=str(tmp_path))
+        L0 = ps.Lv.clone()
+        rows = []
+        ps.run(20, print_fn=rows.append)
     finally:
         dist.destroy_process_group()
+    assert ps.loop == 20 and np.isfinite(ps._last_row).all()
+    assert torch.isfinite(ps.fields["v"][ps.mask]).all()
+    moves = what.startswith(("NGLFNK", "box"))
+    assert torch.equal(ps.Lv, L0) != moves
 
 
 def _jax_mesh_run(d, steps=5):
@@ -165,7 +187,7 @@ def _jax_mesh_run(d, steps=5):
 
 
 def test_jax_mesh_ignores_extforce_hooks_and_global_energy(tmp_path):
-    """The finding behind the group refusals: the JAX ParallelSimulation
+    """The finding the port's mesh does not copy: the JAX ParallelSimulation
     reads no EXTFORCE force, passes its kicks no hook context and
     computes the coefficients once (brickstep_pallas.py:332,346;
     parallel_sim.py:224).  An EAM crystal whose z slabs are EXTFORCE,

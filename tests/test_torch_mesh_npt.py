@@ -41,9 +41,10 @@ def test_generic_rattle_matches_templates(small_deck, monkeypatch):
     outs = []
     for ps in (pt, pg):
         ps.first_energy()
-        outs.append(ps.step_fn.chunk_npt(ps.fields, ps.mask, ps.f, ps.vird,
-                                         ps.Lv, 0))
-    (ft, mt, _, _, Lt, _, ovt), (fg, mg, _, _, Lg, _, ovg) = outs
+        outs.append(ps.step_fn.chunk(ps.fields, ps.mask, ps.f,
+                                     ps.box_state(), 0))
+    (ft, mt, _, dt_, _, ovt), (fg, mg, _, dg, _, ovg) = outs
+    Lt, Lg = dt_["Lv"], dg["Lv"]
     assert not bool(ovt) and not bool(ovg) and torch.equal(mt, mg)
     torch.testing.assert_close(Lg, Lt, rtol=1e-6, atol=0)
     for k in ("r", "v"):
@@ -64,15 +65,15 @@ def test_npt_overflow_rolls_back_box_and_redistributes(small_deck,
     ps.first_energy()
     L0 = ps.Lv.clone()
     st = ps.step_fn
-    real = st.chunk_npt
+    real = st.chunk
     seen = []
 
     def once(*a, **kw):
         out = real(*a, **kw)
-        seen.append(a[4].clone())               # the box the chunk began at
+        seen.append(a[3]["Lv"].clone())         # the box the chunk began at
         return (*out[:-1], out[-1] | torch.tensor(len(seen) == 1))
 
-    monkeypatch.setattr(st, "chunk_npt", once)
+    monkeypatch.setattr(st, "chunk", once)
     redis = []
     monkeypatch.setattr(ps, "redistribute", lambda: redis.append(1)
                         or ParallelSimulation.redistribute(ps))

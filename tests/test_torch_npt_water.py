@@ -10,6 +10,7 @@ is held to it at the tolerances of tests/test_pallas_cellpair.py (force
 """
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -101,7 +102,7 @@ def test_one_step_simulate(reference):
 
 
 def test_one_step_mesh(reference):
-    """The mesh at (1,1,1): one NPT chunk of one step (chunk_npt)."""
+    """The mesh at (1,1,1): one NPT chunk of one step."""
     td = reference["td"]
     ps = ParallelSimulation(*load(td), shape=(1, 1, 1), device="cpu")
     assert ps.barostat is not None and ps.barostat["n_molecules"] == 400
@@ -156,9 +157,14 @@ def test_cli_npt_water_steps(tmp_path):
 
 
 def test_mesh_refuses_nglfnew_with_constraints(tmp_path):
-    """NGLFNEW with constraints raises under the mesh instead of picking
-    one of the JAX package's two rules (its mesh does not project, its
-    Simulation does); Simulation projects, as the JAX Simulation."""
+    """NGLFNEW with constraints, which the mesh refused while the JAX
+    package has two rules (its mesh does not project, its Simulation
+    does): the mesh now projects them as Simulation does
+    (uses_constraints), through one chunk with the RATTLE residual of
+    the NPT bilayer's constraints kept; Simulation projects, as the JAX
+    Simulation."""
+    from ddcmd_tpu_torch.integrators.constraints import constraint_residual
+
     d = str(tmp_path)
     martini_bilayer(d, nx=4, ny=4, water_nm=1.2)
     p = os.path.join(d, "object.data")
@@ -168,7 +174,15 @@ def test_mesh_refuses_nglfnew_with_constraints(tmp_path):
     assert new != text
     with open(p, "w") as f:
         f.write(new)
-    with pytest.raises(NotImplementedError, match="NGLFNEW.*item 25"):
-        ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
+    ps = ParallelSimulation(*load(d), shape=(1, 1, 1), device="cpu")
+    assert ps.sysdef.integrator_type == "NGLFNEW"
+    assert ps.step_fn.cons_templates is not None
+    ps.run(ps.chunk_steps)
+    bt = ps.sysdef.bonded
+    r = ps.gather_by_gid(("r",))["r"]
+    assert ps.loop == ps.chunk_steps
+    assert constraint_residual(SimpleNamespace(r=r), bt.cons_atoms,
+                               bt.cons_pairs, bt.cons_dist,
+                               box_lengths=ps.Lv.numpy()) < 5e-3
     sim = Simulation(*load(d), run_dir=d, device="cpu")
     assert sim.constraint_fn is not None

@@ -155,8 +155,9 @@ def bilayer_npt(rank, deck_dir, shape, out, npt=True):
                      npt=ps.barostat is not None)
         return
     st = ps.step_fn
-    _, _, _, _, L1, _, ov1 = st.chunk_npt(ps.fields, ps.mask, ps.f, ps.vird,
-                                          ps.Lv, ps.loop, steps=1)
+    _, _, _, dyn1, _, ov1 = st.chunk(ps.fields, ps.mask, ps.f,
+                                     ps.box_state(), ps.loop, steps=1)
+    L1 = dyn1["Lv"]
     box0 = Box.from_h(np.diag(ps.Lv.numpy()))
     _, box1 = barostat_scale(ps.sysdef.state, box0, torch.diag(ps.vird),
                              ps.barostat, ps.sysdef.cfg.dt)
@@ -871,6 +872,59 @@ def mesh_outputs(rank, decks, out):
             res.update(outputs_loop=ps.loop,
                        outputs_ends=np.cumsum([k_ for k_, _ in
                                                ps.dispatch_log]))
+    if rank == 0:
+        np.savez(out, **res)
+
+
+def mesh_dynamics(rank, decks, steps, out, restarts=(), f32=()):
+    """Item 22's decks through ParallelSimulation at (1,1,2) in f64 (the
+    legs of `f32` in f32), one leg a deck of `decks` ({leg: deck dir}):
+    the first energy, `steps` steps, then the positions and velocities
+    by gid, the live h, zeta, bdot, the last row's energy, kinetic
+    energy and virial, the loop, the engine, each brick's owned count
+    and the dispatch ends; and the
+    energy and the coefficients' noise column of the last coefficient
+    refresh (the GLOBAL_ENERGY leg's live Teq).  Each leg of `restarts`
+    then writes its checkpoint into its deck directory and a second mesh
+    restarts from it: its loop, zeta and bdot.  Rank 0 saves every leg
+    into out (npz), keys prefixed by leg."""
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation, live_h
+
+    res = {}
+    for leg, d in decks.items():
+        dtype = torch.float32 if leg in f32 else torch.float64
+        ps = ParallelSimulation(*load(d), shape=(1, 1, 2), device="cpu",
+                                dtype=dtype, run_dir=d)
+        seen = []
+        real = ps._refresh
+
+        def refresh(ps=ps, real=real, seen=seen):
+            real()
+            seen.append((ps._eion_last, ps.coeffs[2].numpy().copy()))
+
+        ps._refresh = refresh
+        e0 = ps.first_energy()
+        ps.run(steps, print_fn=lambda line: None)
+        g = _by_gid(ps, ("r", "v"))
+        owned = ps.mesh.all_gather(ps.mask.sum().reshape(1)).reshape(-1)
+        row = ps._last_row
+        res.update({f"{leg}_{k}": v for k, v in dict(
+            r=g["r"], v=g["v"], h=live_h(ps._live_geom()),
+            zeta=float(ps.zeta), bdot=ps.bdot.numpy(), e=row[0], rk=row[1],
+            virial=row[7:16].reshape(3, 3), e0=e0, loop=ps.loop,
+            engine=ps.shard_engine, owned=owned.numpy(),
+            ends=np.cumsum([k for k, _ in ps.dispatch_log])).items()})
+        if seen and seen[-1][0] is not None:
+            res[f"{leg}_ge_e"], res[f"{leg}_ge_noise"] = seen[-1]
+        if leg in restarts:
+            ps.write_checkpoint(d)
+            back = ParallelSimulation(
+                *load(d, restart=os.path.join(d, "restart")),
+                shape=(1, 1, 2), device="cpu", dtype=torch.float64)
+            res.update({f"{leg}_restart_loop": back.loop,
+                        f"{leg}_restart_zeta": float(back.zeta),
+                        f"{leg}_restart_bdot": back.bdot.numpy()})
     if rank == 0:
         np.savez(out, **res)
 
