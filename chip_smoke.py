@@ -5,7 +5,8 @@
                            --transforms-only | --analyses-only |
                            --rebuilds-only | --loadbalance-only |
                            --listmesh-only | --triclinic-only |
-                           --outputs-only | --dynamics-only]
+                           --outputs-only | --dynamics-only |
+                           --mesh-transforms-only]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
@@ -230,7 +231,10 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      atoms: _knn's cell-list route): the analysis master on the perfect
      lattice (CENTROSYM, ACKLAND_JONES, QUATERNION's CRC32s), then 300
      NVT steps through the CLI with the three (>= 95% FCC); (c) the
-     analysis master on (a)'s and (b)'s checkpoints, card vs CPU.  Rows
+     analysis master on (a)'s and (b)'s checkpoints, card vs CPU (every
+     file's numbers within AN_FLOAT_TOL of their column's largest
+     magnitude, stress.data's of the stress tensor's largest in their
+     own row).  Rows
      of its own: cellpair_half_analysis (#1 on (a)'s last records),
      eam_rho_analysis and eam_force_analysis (#4 on (b)'s).
  24. the last refusals of Simulation (ROADMAP items 27-30): (a) the nx =
@@ -353,6 +357,27 @@ nothing of JAX.  Phases, one line each (any failure raises, exit != 0):
      eam_force_ext_dynamics_nptglf ((a)), cellpair_half_ext_dynamics_
      nglfnk, _strain and _shear ((b)-(d)), eam_rho_ext_dynamics_nveglf /
      eam_force_ext_dynamics_nveglf ((e)).
+ 30. SIMULATE transform= under the mesh (ParallelSimulation at (1,1,1)):
+     (a) the water box (6,173 beads, f32, LANGEVIN 310 K) on #6 with
+     transform= REPLICATE 2x2x2 at loop 200, 390 steps in all (phase 22
+     (a)'s run): the replica's first energy within MT_E8_REL of 8x the
+     first energy just before it and within MT_SIM_REL of Simulation's
+     on the same state (Simulation's fast and rebuild steps are the
+     mesh's), 49,384 unique gids, #6 at least once a step and no other
+     kernel, the mean T over the last 100 steps; (b) the nx = 8 bilayer
+     (2,888 beads, f32, NPT) staged MT_BL_STAGE steps at 5 fs on #6 with
+     exclusions, replicated 2x2x1 (11,552 beads, the topology built
+     anew) and run MT_BL_AFTER steps: each bonded family (f64, over the
+     mesh's rebuilt topology at the transform's own positions) within
+     MT_FAMILY_REL of 4x that before it, the RATTLE residual under
+     RATTLE_TOL, #6 with exclusions at least once a step; (c) the f64
+     same-count leg of tests/test_torch_mesh_transforms.py (400 FREE
+     beads; THERMALIZE, SETVELOCITY, BOX, GIDSHUFFLE at rate 20; 60
+     steps) against Simulation(engine="nlist"): every step's e_pot and
+     rk, r and v by gid within MT_F64_TOL of their scale.  Rows of its
+     own: cellpair_half_ext_transform (#6 on (a)'s last records at the
+     live box, (a)'s launches) and cellpair_half_ext_excl_transform (on
+     (b)'s, (b)'s launches).
 
 Every main-path phase (and each entry-point call of TPU #3) sets the
 launch counters to 0 just before it and reads them just after.  Prints
@@ -365,8 +390,8 @@ as phase 6's first stage does), --transforms-only with phase 22,
 --analyses-only with phase 23, --rebuilds-only with phase 24,
 --loadbalance-only with phase 25, --listmesh-only with phase 26,
 --triclinic-only with phase 27, --outputs-only with phase 28,
---dynamics-only with phase 29.  The line before the card line gives the
-script's seconds in all.
+--dynamics-only with phase 29, --mesh-transforms-only with phase 30.
+The line before the card line gives the script's seconds in all.
 """
 
 import contextlib
@@ -5157,13 +5182,8 @@ def transforms_phase(card, dev, counters_zero, all_counters, failed,
         # --- (a) REPLICATE at its rate: #1, then #2 ------------------------
         d = os.path.join(keep, "a")
         os.makedirs(d)
-        deck = water_deck(d, n_water, printrate=10)
-        with open(deck) as f:
-            text = f.read()
-        with open(deck, "w") as f:
-            f.write(text.replace("type=MD;", "type=MD; transform=rep;", 1)
-                    + "rep TRANSFORM { type=REPLICATE; nx=2; ny=2; nz=2; "
-                    f"rate={TRANSFORM_AT}; }}\n")
+        edit_deck(water_deck(d, n_water, printrate=10), transforms_edit(
+            {"rep": "type=REPLICATE; nx=2; ny=2; nz=2;"}, TRANSFORM_AT))
         sim = Simulation(*load(d), run_dir=d, device=dev)
         n0 = sim.sysdef.state.n_local
         seen = {"calls": 0}
@@ -5420,9 +5440,13 @@ def masters_agree(card, cpu, dir_card, dir_cpu, skip_files=()):
     histograms, the Ackland-Jones classes, the pair count) within
     AN_COUNT_TOL of their total; QUATERNION's file byte-equal (it reads
     the positions only); every number of the other files within
-    AN_FLOAT_TOL of the largest magnitude of its column; files named in
-    skip_files (base names) are left to the caller.  Returns (worst count
-    share, worst float share, what differs and by how much)."""
+    AN_FLOAT_TOL of the largest magnitude of its column, but
+    stress.data's within AN_FLOAT_TOL of the largest magnitude of the
+    stress tensor in its own row (a column of one row whose component
+    sits near zero would turn f32 rounding into any share); files named
+    in skip_files (base names) are left to the caller.  Returns (worst
+    count share, worst float share, what differs and by how much, the
+    stress.data share named first)."""
     from ddcmd_tpu_torch.analysis import registry as areg
 
     worst_n, worst_f, skip, lines = 0.0, 0.0, set(skip_files), []
@@ -5445,21 +5469,38 @@ def masters_agree(card, cpu, dir_card, dir_cpu, skip_files=()):
         if share:
             lines.append(f"{a.name} {share:.3g} ({moved:g} of {total:g})")
     worst_f, more = files_agree(analysis_files(dir_card),
-                                analysis_files(dir_cpu), skip)
+                                analysis_files(dir_cpu), skip,
+                                row_scaled=("stress.data",))
     return worst_n, worst_f, lines + more
 
 
-def files_agree(fa, fb, skip=()):
+def _numbers(tokens):
+    """The tokens that read as numbers, as floats."""
+    out = []
+    for t in tokens:
+        try:
+            out.append(float(t))
+        except ValueError:
+            pass
+    return out
+
+
+def files_agree(fa, fb, skip=(), row_scaled=()):
     """Two runs' files ({relative path: text}, analysis_files): the same
     names; each file whose base name is not in `skip` equal, or of as
     many lines with each number within its column's largest magnitude
     times the returned share (QUATERNION's file must be byte-equal: inf
-    otherwise).
+    otherwise).  In a file whose base name is in `row_scaled` every
+    number after a row's first is scaled by the largest magnitude of
+    those numbers in its own row (a tensor a row), and its share is
+    listed first even when the files are equal.
     Returns (worst share, what differs and by how much)."""
     assert sorted(fa) == sorted(fb), (sorted(fa), sorted(fb))
-    worst_f, lines = 0.0, []
+    worst_f, lines, first = 0.0, [], []
     for name, text in fa.items():
-        if os.path.basename(name) in skip or text == fb[name]:
+        by_row = os.path.basename(name) in row_scaled
+        if os.path.basename(name) in skip or (text == fb[name]
+                                              and not by_row):
             continue
         if "quaternion" in name:
             return float("inf"), lines + [name]
@@ -5468,20 +5509,26 @@ def files_agree(fa, fb, skip=()):
         for x, y in zip(text.splitlines(), fb[name].splitlines()):
             tx, ty = x.split(), y.split()
             assert len(tx) == len(ty), (name, x, y)
+            row = max(map(abs, _numbers(ty[1:])), default=0.0)
             for k, (p, q) in enumerate(zip(tx, ty)):
                 try:
                     fp, fq = float(p), float(q)
                 except ValueError:
                     assert p == q, (name, p, q)
                     continue
+                if by_row and k:
+                    pairs.append((None, fp, fq, row))
+                    continue
                 scale[k] = max(scale.get(k, 0.0), abs(fq))
-                pairs.append((k, fp, fq))
-        err = max((abs(fp - fq) / max(scale[k], 1e-30)
-                   for k, fp, fq in pairs), default=0.0)
+                pairs.append((k, fp, fq, None))
+        err = max((abs(fp - fq) / max(scale[k] if s is None else s, 1e-30)
+                   for k, fp, fq, s in pairs), default=0.0)
         worst_f = max(worst_f, err)
-        if err:
+        if by_row:
+            first.append(f"{name} {err:.3g} of its row's largest")
+        elif err:
             lines.append(f"{name} {err:.3g}")
-    return worst_f, lines
+    return worst_f, first + lines
 
 
 def outputs_agree(da, db, L, skip=()):
@@ -5792,7 +5839,8 @@ def analyses_phase(card, dev, counters_zero, all_counters, failed,
                   f"{len(got['cpu'].analyses)} analyses, positions after "
                   f"the first energy max |dr| {dr:.3g} nm; counts differ "
                   f"by {wn:.3g} of their total, floats by {wf:.3g} of "
-                  f"their column's scale ({'; '.join(diff) or 'equal'}); "
+                  f"their column's scale, stress.data's of its row's "
+                  f"({'; '.join(diff) or 'equal'}); "
                   f"{secs['cuda']:.2f} s on the card, {secs['cpu']:.2f} s "
                   f"on the CPU")
             del got
@@ -7930,6 +7978,363 @@ def dynamics_phase(card, dev, counters_zero, all_counters, failed):
     return out
 
 
+# --- phase 30: SIMULATE transform= under the brick mesh ---------------------
+# (a) the water box (MT_WATER_N beads, f32, #6) at (1,1,1) with
+# transform= REPLICATE 2x2x2 at TRANSFORM_AT, TRANSFORM_STEPS steps in all
+# (phase 22 (a)'s run through ParallelSimulation); (b) the nx = MT_BL_NX
+# bilayer (f32, #6 with exclusions) staged MT_BL_STAGE steps at EQ_DT,
+# then REPLICATE 2x2x1 and MT_BL_AFTER steps; (c) the f64 same-count leg
+# of tests/test_torch_mesh_transforms.py (MT_SMALL_N FREE beads, the
+# transforms of MT_SAME at rate MT_RATE, MT_F64_STEPS steps) against
+# Simulation(engine="nlist"); (d) #6 against its plain version on (a)'s
+# and (b)'s last records at the live box
+MT_WATER_N, MT_BL_NX, MT_BL_STAGE, MT_BL_AFTER = 6173, 8, 100, 100
+MT_SMALL_N, MT_RATE, MT_F64_STEPS = 400, 20, 60
+MT_E8_REL, MT_SIM_REL, MT_FAMILY_REL, MT_F64_TOL = 2.05e-7, 2e-5, 1e-7, 1e-10
+# the same-count transforms, in the order they apply at each multiple
+MT_SAME = ("therm", "vcm", "shrink", "shuffle")
+
+
+def transforms_edit(objects, rate=None):
+    """A deck edit that lists the TRANSFORM objects `objects` ({name:
+    keyword text}) in SIMULATE transform= and appends them, each with
+    rate=`rate` when given."""
+    def edit(text):
+        tail = f" rate={rate};" if rate else ""
+        return (text.replace("type=MD;", "type=MD; transform="
+                             + " ".join(objects) + ";", 1)
+                + "".join(f"{k} TRANSFORM {{ {v}{tail} }}\n"
+                          for k, v in objects.items()))
+    return edit
+
+
+def same_count_transforms(d):
+    """MT_SAME's objects for the deck in d: THERMALIZE to 310 K (seeded),
+    SETVELOCITY vcm = 0, a BOX 2% smaller on each axis, GIDSHUFFLE."""
+    L = 0.98 * box_edge(d)
+    return {"therm": "type=THERMALIZE; temperature=310 K; seed=3;",
+            "vcm": "type=SETVELOCITY; vcm=0 0 0;",
+            "shrink": f"type=BOX; hNew={L!r} 0 0 0 {L!r} 0 0 0 {L!r} "
+                      "Angstrom;",
+            "shuffle": "type=GIDSHUFFLE; seed=7;"}
+
+
+def family_energies(sd, r, geom):
+    """{family: energy} of the bonded terms of the system sd (its
+    topology as run/forces.bonded_tables gives it, in f64) at positions
+    r (n, 3) and box geom, each family of potentials/bonded.FAMILIES
+    evaluated alone by bonded_eval."""
+    from ddcmd_tpu_torch.potentials.bonded import FAMILIES, bonded_eval
+    from ddcmd_tpu_torch.run.forces import bonded_tables
+
+    f64 = torch.float64
+    tabs = bonded_tables(sd, f64)
+    keys = {k for k, _ in FAMILIES}
+    r = torch.as_tensor(np.asarray(r, np.float64), dtype=f64)
+    geom = torch.as_tensor(np.asarray(geom, np.float64), dtype=f64)
+    out = {}
+    for key, _ in FAMILIES:
+        if key in tabs:
+            one = {k: v for k, v in tabs.items() if k not in keys or k == key}
+            out[key] = float(bonded_eval(r, geom, one, r.shape[0], f64)[1])
+    return out
+
+
+def mesh_transform_deck(d, n=MT_SMALL_N, objects=None, rate=MT_RATE,
+                        free=True, printrate=MT_RATE):
+    """The water box (n beads, FREE unless free=False) with SIMULATE
+    transform= naming `objects` ({name: keyword text}; MT_SAME's by
+    default), each at `rate`."""
+    deck = water_deck(d, n, printrate, free=free)
+    objects = same_count_transforms(d) if objects is None else objects
+    return edit_deck(deck, transforms_edit(objects, rate))
+
+
+def sim_step_rows(sim):
+    """Install a recorder of Simulation's accepted per-step rows: returns
+    a function that gives their (e_pot, rk) columns (steps, 2) in loop
+    order (a redone dispatch replaces the one it redoes)."""
+    rows = {}
+    real = sim._dispatch
+
+    def dispatch(ss, *a, **k):
+        got = real(ss, *a, **k)
+        rows[int(ss.loop)] = got[1][:, :2]
+        return got
+
+    sim._dispatch = dispatch
+    return lambda: np.concatenate([rows[k] for k in sorted(rows)])
+
+
+def mesh_transforms_phase(card, dev, counters_zero, all_counters, failed):
+    """Phase 30: SIMULATE transform= through ParallelSimulation on the
+    card (see the constants above).  Gates go into `failed`.  Returns
+    {kernels JSON row: (entry, launches, comparison)}: #6 on (a)'s last
+    records with (a)'s launches, #6 with exclusions on (b)'s with
+    (b)'s."""
+    from ddcmd_tpu_torch.integrators.constraints import constraint_residual
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.objects import units as U
+    from ddcmd_tpu_torch.ops import cellpair_half as ch
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation
+    from ddcmd_tpu_torch.run.simulate import Simulation
+
+    t_phase = time.perf_counter()
+    quiet = lambda line: None                                  # noqa: E731
+    out = {}
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(f"phase 30 {what}")
+
+    def rate(log):
+        return sum(k for k, _ in log) / max(sum(t for _, t in log), 1e-9)
+
+    def mesh(d, dtype=torch.float32):
+        return ParallelSimulation(*load(d), shape=(1, 1, 1), device=dev,
+                                  dtype=dtype, run_dir=d)
+
+    def spied(ps, families=False):
+        """Wrap ps.apply_transform; returns the list that gets, for each
+        call, the first energy and the gathered r and v (and the bonded
+        families) just before it, and after it the seconds it took, its
+        host result's f64 positions and box, the first energy and the
+        gathered forces (and the families at the card's positions)."""
+        seen, real = [], ps.apply_transform
+
+        def wrapped(tobj):
+            g = ps.gather_by_gid(("r", "v"))
+            rec = dict(loop=ps.loop, e0=ps.first_energy(), r=g["r"],
+                       v=g["v"], n0=ps.sysdef.state.n_local,
+                       disp=len(ps.dispatch_log))
+            if families:
+                rec["fam0"] = family_energies(ps.sysdef, g["r"],
+                                              ps._live_geom())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctx = real(tobj)
+            torch.cuda.synchronize()
+            rec.update(secs=time.perf_counter() - t0, r1=ctx.r,
+                       L1=np.diagonal(ctx.h).copy(), e1=ps.first_energy())
+            g = ps.gather_by_gid(("r", "f"))
+            rec["f1"] = g["f"]
+            if families:
+                rec["fam_card"] = family_energies(ps.sysdef, g["r"],
+                                                  ps._live_geom())
+            seen.append(rec)
+            return ctx
+
+        ps.apply_transform = wrapped
+        return seen
+
+    def kernel_row(ps, what):
+        """#6 against its plain version on ps's current records, binned
+        at the live box."""
+        kernel, args, kw = ps.step_fn.kernel_inputs(ps.fields, ps.mask,
+                                                    ps.Lv)
+        cp = ps.cplan
+        assert kernel is ch.cellpair_half_ext
+        return compare(f"{what}, {cp.n_prog} core cells, cap {cp.cap}",
+                       ch.cellpair_half_ext, ch.cellpair_half_plain, args,
+                       kw, with_bound=True)
+
+    def same_state(d, rec, name):
+        """Simulation (f32, the card) on the deck in d with rec's r and v,
+        then the transform `name`: (first energy, forces)."""
+        sim = Simulation(*load(d), run_dir=d, device=dev)
+        st, n0 = sim.ss.state, rec["n0"]
+        r, v = st.r.clone(), st.v.clone()
+        r[:n0] = torch.as_tensor(rec["r"], dtype=r.dtype, device=dev)
+        v[:n0] = torch.as_tensor(rec["v"], dtype=v.dtype, device=dev)
+        sim.ss = sim.ss.replace(state=st.replace(r=r, v=v))
+        sim.apply_transform(sim.db.get(name, "TRANSFORM"))
+        n = sim.sysdef.state.n_local
+        got = (float(sim.ss.energy.eion),
+               sim.ss.state.f[:n].double().cpu().numpy())
+        del sim
+        return got
+
+    keep = tempfile.mkdtemp()
+    try:
+        # --- (a) the water box replicated 2x2x2 at its rate on #6 ----------
+        d = os.path.join(keep, "a")
+        os.makedirs(d)
+        edit_deck(water_deck(d, MT_WATER_N, printrate=10), transforms_edit(
+            {"rep": "type=REPLICATE; nx=2; ny=2; nz=2;"}, TRANSFORM_AT))
+        ps = mesh(d)
+        n0 = ps.sysdef.state.n_local
+        engine0 = ps.shard_engine
+        seen = spied(ps)
+        counters_zero()
+        rows = run_rows(ps, TRANSFORM_STEPS, print_fn=quiet,
+                        max_steps_per_dispatch=DISPATCH)
+        c = all_counters()
+        n = ps.sysdef.state.n_local
+        rec = seen[0] if seen else {}
+        gids = np.unique(ps.gather_by_gid(("gid",))["gid"]).size
+        temp = float(np.mean(2.0 * rows[-TRANSFORM_TAIL:, 1]
+                             / (3.0 * n * U.kB)))
+        rel8 = abs(rec.get("e1", 0.0) / (8.0 * rec.get("e0", 1.0)) - 1.0)
+        e_sim, f_sim = same_state(d, rec, "rep")
+        rel_sim = abs(rec["e1"] - e_sim) / abs(e_sim)
+        f_gap = float(np.abs(rec["f1"] - f_sim).max()) / float(
+            np.abs(f_sim).max())
+        gate(len(seen) == 1 and rec.get("loop") == TRANSFORM_AT
+             and ps.loop == TRANSFORM_STEPS and n == 8 * n0 and gids == n
+             and engine0 == ps.shard_engine == "pallas",
+             f"(a) {len(seen)} replicas, the first at loop "
+             f"{rec.get('loop')}, {n} beads, {gids} gids, engine "
+             f"{engine0} -> {ps.shard_engine}")
+        gate(rel8 <= MT_E8_REL, f"(a) first energy {rec.get('e1')} vs 8 x "
+             f"{rec.get('e0')} (rel {rel8})")
+        gate(rel_sim <= MT_SIM_REL, f"(a) first energy {rec['e1']} vs "
+             f"Simulation's {e_sim} on the same state (rel {rel_sim})")
+        gate(c["cellpair_half_ext"] >= TRANSFORM_STEPS and not any(
+            v for k, v in c.items() if k != "cellpair_half_ext"),
+            f"(a) launches {c}")
+        gate(np.isfinite(rows).all() and abs(temp - WATER_T) <= TEMP_TOL,
+             f"(a) mean T {temp}")
+        cp = ps.cplan
+        log = ps.dispatch_log
+        phase("mesh-transforms", f"(a) water box {n0} beads at (1,1,1), "
+              f"transform= REPLICATE 2x2x2 at rate {TRANSFORM_AT}, "
+              f"{TRANSFORM_STEPS} steps through ParallelSimulation: -> {n} "
+              f"beads, ncore {cp.ncore} cap {cp.cap}, {gids} unique gids; "
+              f"the replica and its first energy {rec['secs']:.3f} s; "
+              f"first energy {rec['e1']:.6f} vs 8 x {rec['e0']:.6f} (rel "
+              f"{rel8:.3g}, gate {MT_E8_REL:g}), vs Simulation's on the "
+              f"same state {e_sim:.6f} (rel {rel_sim:.3g}, gate "
+              f"{MT_SIM_REL:g}; forces {f_gap:.3g} of the scale); #6 "
+              f"{c['cellpair_half_ext']} launches; "
+              f"{rate(log[:rec['disp']]):.2f} steps/s before, "
+              f"{rate(log[rec['disp']:]):.2f} after (dispatch clock); "
+              f"mean T {temp:.2f} K over the last {TRANSFORM_TAIL} steps "
+              f"on {card}")
+        out["cellpair_half_ext_transform"] = (
+            "cellpair_half_ext", c["cellpair_half_ext"], kernel_row(
+                ps, f"extended grid (1,1,1) after phase 30 (a): water box "
+                f"replica {n} beads"))
+        del ps
+        torch.cuda.empty_cache()
+
+        # --- (b) the nx = 8 bilayer replicated 2x2x1 on #6 with exclusions -
+        d = os.path.join(keep, "b")
+        os.makedirs(d)
+        edit_deck(bilayer_deck(d, MT_BL_NX, EQ_DT, 10), transforms_edit(
+            {"rep": "type=REPLICATE; nx=2; ny=2; nz=1;"}))
+        ps = mesh(d)
+        n0 = ps.sysdef.state.n_local
+        seen = spied(ps, families=True)
+        counters_zero()
+        rows = run_rows(ps, MT_BL_STAGE, print_fn=quiet)
+        ps.apply_transform(ps.db.get("rep", "TRANSFORM"))
+        rows = np.concatenate([rows, run_rows(ps, MT_BL_AFTER,
+                                              print_fn=quiet)])
+        c = all_counters()
+        n = ps.sysdef.state.n_local
+        rec = seen[0]
+        fam1 = family_energies(ps.sysdef, rec["r1"], rec["L1"])
+        fam_rel = max(abs(fam1[k] / (4.0 * rec["fam0"][k]) - 1.0)
+                      for k in rec["fam0"])
+        card_rel = max(abs(rec["fam_card"][k] / (4.0 * rec["fam0"][k])
+                           - 1.0) for k in rec["fam0"])
+        view = ps.view()
+        bt = ps.sysdef.bonded
+        resid = float(constraint_residual(
+            view.ss.state, bt.cons_atoms, bt.cons_pairs, bt.cons_dist,
+            box_lengths=ps._live_L()))
+        steps = MT_BL_STAGE + MT_BL_AFTER
+        gate(n == 4 * n0 and ps.loop == steps and ps.shard_engine == "pallas"
+             and sorted(fam1) == sorted(rec["fam0"])
+             and fam_rel <= MT_FAMILY_REL,
+             f"(b) {n} beads from {n0}, loop {ps.loop}, engine "
+             f"{ps.shard_engine}, families {fam1} vs 4 x {rec['fam0']} "
+             f"(rel {fam_rel})")
+        gate(np.isfinite(rows).all() and resid < RATTLE_TOL,
+             f"(b) RATTLE residual {resid}")
+        gate(c["cellpair_half_ext_excl"] >= steps
+             and c["cellpair_half_ext"] == c["cellpair_half_ext_excl"]
+             and not any(v for k, v in c.items() if k not in (
+                 "cellpair_half_ext", "cellpair_half_ext_excl")),
+             f"(b) launches {c}")
+        temp = float(np.mean(2.0 * rows[-50:, 1] / (
+            (3.0 * n - ps.sysdef.n_constraints) * U.kB)))
+        phase("mesh-transforms", f"(b) bilayer nx={MT_BL_NX} {n0} beads at "
+              f"(1,1,1), {MT_BL_STAGE} NPT steps at {EQ_DT} fs, REPLICATE "
+              f"2x2x1 -> {n} beads (the topology built anew: "
+              f"{bt.counts()}), {MT_BL_AFTER} steps more; the replica, its "
+              f"topology and first energy {rec['secs']:.3f} s; bonded "
+              f"families {[round(fam1[k], 4) for k in sorted(fam1)]} vs 4 "
+              f"x {[round(rec['fam0'][k], 4) for k in sorted(fam1)]} (rel "
+              f"{fam_rel:.3g}, gate {MT_FAMILY_REL:g}; at the card's f32 "
+              f"positions {card_rel:.3g}, not gated); first energy "
+              f"{rec['e1']:.6f} vs 4 x {rec['e0']:.6f} (rel "
+              f"{abs(rec['e1'] / (4 * rec['e0']) - 1):.3g}, not gated); "
+              f"RATTLE residual {resid:.3g}; T {temp:.2f} K over the last "
+              f"50 steps (not gated: the deck's synthetic start, staged "
+              f"{MT_BL_STAGE} steps); #6 with exclusions "
+              f"{c['cellpair_half_ext_excl']} "
+              f"launches on {card}")
+        out["cellpair_half_ext_excl_transform"] = (
+            "cellpair_half_ext_excl", c["cellpair_half_ext_excl"],
+            kernel_row(ps, f"extended grid (1,1,1) with exclusions after "
+                       f"phase 30 (b): bilayer replica {n} beads"))
+        del ps, view
+        torch.cuda.empty_cache()
+
+        # --- (c) the f64 same-count leg against Simulation -----------------
+        d = os.path.join(keep, "c")
+        os.makedirs(d)
+        mesh_transform_deck(d)
+        ps = mesh(d, torch.float64)
+        sim = Simulation(*load(d), run_dir=d, device=dev,
+                         dtype=torch.float64, engine="nlist")
+        sim_rows = sim_step_rows(sim)
+        t0 = time.perf_counter()
+        ps.first_energy()
+        rows = run_rows(ps, MT_F64_STEPS, print_fn=quiet)
+        secs = time.perf_counter() - t0
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            sim.run(MT_F64_STEPS, print_fn=quiet)
+        ref = sim_rows()
+        n = sim.sysdef.state.n_local
+        g = ps.gather_by_gid(("r", "v"))
+        h = sim.ss.box.h.cpu().numpy()
+        s_ = (g["r"] - sim.ss.state.r[:n].cpu().numpy()) @ np.linalg.inv(h).T
+        gaps = {
+            "e_pot": float(np.abs(rows[:, 0] - ref[:, 0]).max()
+                           / np.abs(ref[:, 0]).max()),
+            "rk": float(np.abs(rows[:, 1] - ref[:, 1]).max()
+                        / np.abs(ref[:, 1]).max()),
+            "r": float(np.abs((s_ - np.round(s_)) @ h.T).max()
+                       / np.abs(h).max()),
+            "v": float(np.abs(g["v"] - sim.ss.state.v[:n].cpu().numpy())
+                       .max() / np.abs(g["v"]).max())}
+        same_gid = bool(np.array_equal(ps.sysdef.collection.gid,
+                                       sim.sysdef.collection.gid))
+        ends = np.cumsum([k for k, _ in ps.dispatch_log]).tolist()
+        gate(ps.loop == sim.ss.loop == MT_F64_STEPS
+             and rows.shape[0] == ref.shape[0] == MT_F64_STEPS
+             and ends == list(range(MT_RATE, MT_F64_STEPS + 1, MT_RATE))
+             and same_gid and max(gaps.values()) <= MT_F64_TOL,
+             f"(c) loop {ps.loop}, dispatch ends {ends}, gids equal "
+             f"{same_gid}, gaps {gaps}")
+        phase("mesh-transforms", f"(c) f64 water box {n} FREE beads at "
+              f"(1,1,1), {'/'.join(MT_SAME)} at rate {MT_RATE}, "
+              f"{MT_F64_STEPS} steps ({secs:.2f} s) against "
+              f"Simulation(engine=nlist): every step's e_pot "
+              f"{gaps['e_pot']:.3g} and rk {gaps['rk']:.3g}, r "
+              f"{gaps['r']:.3g} and v {gaps['v']:.3g} of their scale "
+              f"(gate {MT_F64_TOL:g}), the collection's gids equal "
+              f"{same_gid}; phase 30 {time.perf_counter() - t_phase:.1f} s "
+              f"on {card}")
+        del ps, sim
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -8040,6 +8445,11 @@ def main(argv=None):
         failed = []
         dynamics_phase(card, dev, counters_zero, all_counters, failed)
         assert not failed, f"phase 29 gates missed: {failed}"
+        return
+    if "--mesh-transforms-only" in argv:
+        failed = []
+        mesh_transforms_phase(card, dev, counters_zero, all_counters, failed)
+        assert not failed, f"phase 30 gates missed: {failed}"
         return
     if "--masters-only" in argv:
         failed = []
@@ -8246,6 +8656,11 @@ def main(argv=None):
     dyn_rows = dynamics_phase(card, dev, counters_zero, all_counters,
                               dyn_failed)
     assert not dyn_failed, f"phase 29 gates missed: {dyn_failed}"
+    # --- phase 30: SIMULATE transform= under the mesh (#6, #6 excl) --------
+    mt_failed = []
+    mt_rows = mesh_transforms_phase(card, dev, counters_zero, all_counters,
+                                    mt_failed)
+    assert not mt_failed, f"phase 30 gates missed: {mt_failed}"
     assert "jax" not in sys.modules
 
     for name, old_us in OLD_BODY_US.items():
@@ -8293,12 +8708,14 @@ def main(argv=None):
     # #6 on the water box after its outputs run (a) and after its NVT
     # migrate_rate leg (c); phase 29's: #7 on (a)'s NPTGLF and (e)'s NVEGLF
     # crystal, #6 on (b)'s NGLFNK and (d)'s SHEAR fluid and (c)'s strained
-    # water, each with that leg's launches
+    # water, each with that leg's launches; phase 30's: #6 on (a)'s water
+    # replica, #6 with exclusions on (b)'s bilayer replica
     for row, (name, n, out) in (*int_rows.items(), *masters_rows.items(),
                                 *transform_rows.items(),
                                 *analysis_rows_out.items(),
                                 *rebuild_rows.items(), *lb_rows.items(),
-                                *out_rows.items(), *dyn_rows.items()):
+                                *out_rows.items(), *dyn_rows.items(),
+                                *mt_rows.items()):
         kernels[row] = kernels[name]
         launches[row] = n
         res[row] = out

@@ -81,6 +81,14 @@ _NOISE_CALLSITE_MESH = 1
 SCALAR_COLS = 16
 
 
+def _e_pot(pe):
+    """The rows' potential energy summed in f64 and rounded once to their
+    dtype: an f32 sum strays from the exact one by a few units in its
+    last place, and a periodic replica's energy would stray as far from
+    the sum of its copies'."""
+    return pe.sum(dtype=torch.float64).to(pe.dtype)
+
+
 class BrickStepBase:
     """One rank's mesh step, less its engine.  fields: dict of
     (local_cap, ...) tensors r, v, q, mass, species, group, gid (int64),
@@ -440,7 +448,7 @@ class BrickStepBase:
                       else r, v=v, r0=r0)
 
         f, pe, virial, ov_c = self._force_call(fields, mask, rb, Lv)
-        e_pot = pe.sum()
+        e_pot = _e_pot(pe)
         if guard:
             ov_c = ov_c | self._drift_guard(fields, mask, Lv)
 
@@ -497,7 +505,7 @@ class BrickStepBase:
                             fields["group"], self.coeffs, half, noise[1], mask)
         _, tion = kinetic_terms(v, mass, mask.to(v.dtype))
         e_pot, virial, tion, ovs = self._psum_parts(
-            pe.sum().reshape(1), virial, tion, (ov | ov_c).reshape(1))
+            _e_pot(pe).reshape(1), virial, tion, (ov | ov_c).reshape(1))
         rk = 0.5 * torch.trace(tion)
         zeta, fac = nptglf_close(zeta, virial, tion, rk, geom_volume(Lv),
                                  vol_atom, self.dt, p["Gamma"], p["Peq"])
@@ -538,7 +546,7 @@ class BrickStepBase:
             ov_c = ov_c | self._drift_guard(fields, mask, Lv_new)
         _, tion_h = kinetic_terms(pis.half_velocity(carry), mass, fmask)
         e_pot, virial, tion_h, ovs = self._psum_parts(
-            pe.sum().reshape(1), virial, tion_h, (ov | ov_c).reshape(1))
+            _e_pot(pe).reshape(1), virial, tion_h, (ov | ov_c).reshape(1))
         V = geom_volume(Lv_new)
         v, dLdt = pis.back(carry, f, virial + tion_h, V, noise[1])
         _, tion = kinetic_terms(v, mass, fmask)
@@ -566,7 +574,7 @@ class BrickStepBase:
         Lv = self.Lv if Lv is None else Lv
         fields, rb, ov_r = self._rebuild(fields, mask, Lv)
         f, pe, virial, ov_c = self._force_call(fields, mask, rb, Lv)
-        e_pot = pe.sum()
+        e_pot = _e_pot(pe)
         corr = (self._mol_corr(fields["r"], f, Lv, rb) if rb["mol"] is not None
                 else virial.new_zeros(3))
         e_pot, _, virial, corr, ov = self._reduce(e_pot, 0.0, virial, corr,

@@ -115,11 +115,21 @@ flagged chunk rolls back whole and replans.  The JAX mesh runs every one
 of these decks as plain NGLF with constant coefficients (ROADMAP
 queue 3); the port does not copy that.
 
+SIMULATE transform= at its rates, as Simulation applies it (the JAX mesh
+reads no transform= and applies none): every dispatch ends on each
+transform's rate, and after the outputs each due transform runs through
+apply_transform -- r and v gathered by gid, the transform on rank 0's
+host, its result broadcast; the same particles re-uploaded at the new
+box, or the system rebuilt (state, topology, load balance, plan,
+engine and step: _derive, which construction runs too).  The rows keep
+their own key, the state's gid, while a GIDSHUFFLE renames the
+collection's gids, which the checkpoint writes.
+
 Deck features outside these paths raise NotImplementedError naming
 their ROADMAP item: non-periodic axes (item 25: the JAX mesh reads no
-pbc bit and would run such a deck fully periodic), the NEXTFILE and
-NGLFTEST masters and SIMULATE transform= (the JAX mesh applies none),
-as do a SHEAR group in a box whose c vector is tilted (as Simulation).
+pbc bit and would run such a deck fully periodic) and the NEXTFILE and
+NGLFTEST masters, as do a SHEAR group in a box whose c vector is tilted
+(as Simulation).
 """
 
 from __future__ import annotations
@@ -157,11 +167,12 @@ from .forces import (_excl_channels, bonded_tables,
                      wide_exclusion_component)
 from .printinfo import PrintInfo
 from .simulate import (_BAROSTAT_TYPES, _MASTER_TYPES, box_time_factors,
-                       deck_analyses, dynamic_box, global_energy_groups,
-                       global_energy_teq, live_coefficients, nglfnk_h_frac,
-                       piston_start, refreshes_coefficients,
-                       refuse_shear_tilt, refuse_unported_outputs,
-                       uses_constraints, write_graphs_line, write_group_row)
+                       deck_analyses, deck_transforms, dynamic_box,
+                       global_energy_groups, global_energy_teq,
+                       host_transform, live_coefficients, nglfnk_h_frac,
+                       piston_start, rebuild_system, refreshes_coefficients,
+                       refuse_shear_tilt, same_particles, uses_constraints,
+                       write_graphs_line, write_group_row)
 
 _MESH_ITEM = "ROADMAP queue 1, item 25"
 # NPT decks plan cells with shrink headroom (the JAX package's
@@ -224,16 +235,30 @@ def chain_head_gids(gid, residue_instances, chain_links) -> np.ndarray:
     return hgid
 
 
+def _portable(err: Exception) -> Exception:
+    """err when it pickles (a broadcast carries it to every rank), else a
+    RuntimeError naming it."""
+    import pickle
+
+    try:
+        pickle.loads(pickle.dumps(err))
+        return err
+    except Exception:
+        return RuntimeError(f"{type(err).__name__}: {err}")
+
+
 class ParallelSimulation:
     """Sharded run of a MARTINI (water box, bilayer, CHARMM), PAIR or EAM
     deck over a brick mesh under any of Simulation's integrators (the
     NGLF family with the Berendsen barostat, the NVE variants, NPTGLF,
-    NGLFNK), box(t) and GROUP types, in f32 or f64."""
+    NGLFNK), box(t) and GROUP types, in f32 or f64, with SIMULATE's
+    analyses and transforms at their rates (run, apply_transform)."""
 
     def __init__(self, db: ObjectDB, base_dir: str = ".", *, shape=None,
                  device=None, dtype=torch.float32, run_dir: str = "."):
         self.device = dev = _mesh_device(device)
         self.run_dir = run_dir
+        self.base_dir = base_dir
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype {dtype}: the mesh runs float32 or "
                              "float64")
@@ -241,7 +266,6 @@ class ParallelSimulation:
         sd = build_system(db, base_dir, dtype=dtype, device="cpu")
         self.sysdef = sd
         self.printinfo = PrintInfo.from_deck(db, sd.cfg.printinfo_name)
-        refuse_unported_outputs(db, sd, self.printinfo)
         if sd.integrator_type in _MASTER_TYPES:
             # Simulation runs them; the JAX mesh has no such path
             raise NotImplementedError(
@@ -265,10 +289,8 @@ class ParallelSimulation:
                      1, 1)
         self.shape = tuple(int(s) for s in shape)
         self.mesh = BrickMesh(self.shape, dev)
-        n_dev = self.mesh.size
 
         ptype, parms = self._nonbond_term(sd)
-        n = sd.state.n_local
         # the list engine's tables in the run's dtype; the cells engine's
         # (f32, the MARTINI types collapsed when one is used) by
         # _cell_tables
@@ -290,22 +312,122 @@ class ParallelSimulation:
             self.force_kind = "eam"
         self._ptype = ptype
         self.tables, self._tmap = tables, tmap
-        self._coulomb = bool(np.any(sd.state.q[:n].numpy() != 0.0))
+        self.chunk_steps = max(1, int(sd.cfg.ddc_update_rate))
+        self.loop = sd.cfg.loop
+        self._density_safety = 1.3
+        self._grid_growth = 1.0
+        self._eion_last = None
+        # the box and barostat state a step carries (box_state): the live
+        # box (_derive), the last molecular virial diagonal the next
+        # Berendsen lambda reads, NPTGLF's zeta, NGLFNK's piston
+        # velocities and the last step's mesh-wide virial plus kinetic
+        # tensor (their pressure); a transform keeps zeta and bdot, as
+        # Simulation's does
+        zeta0, bdot0 = piston_start(db, sd)
+        self.vird = torch.zeros(3, dtype=dtype, device=dev)
+        self.zeta = torch.tensor(zeta0, dtype=dtype, device=dev)
+        self.bdot = torch.as_tensor(bdot0, dtype=dtype, device=dev)
+        self.ptens = torch.zeros((3, 3), dtype=dtype, device=dev)
+        # the load balance at the start positions (or a restart's pxyz)
+        _, L, r_lb = self._system_frame()
+        self._derive(*self._setup_loadbalance(db, ddc, base_dir, L,
+                                              self._rlist(), r_lb))
+        self.f = None
+        # (steps, seconds) of each accepted dispatch, host clock around
+        # work that ends in the dispatch's one device-to-host read
+        self.dispatch_log: list[tuple[int, float]] = []
+        self.n_rebalance = 0
+        self.analyses = deck_analyses(db, sd, self.printinfo)
+        # SIMULATE transform=, applied after the analyses at the dispatch
+        # ends their rates divide (apply_transform)
+        self.transforms = deck_transforms(db)
+        # the last accepted step's scalar row (virial and kinetic tensors
+        # for the view), and whether every row sits in its brick (the
+        # last dispatch ended in a migration or a distribution)
+        self._last_row = None
+        self.rows_home = True
 
-        # geom feeds the step and the halos ((3,) lengths or the (3, 3) h);
-        # L, the per-axis perpendicular spans, is what every plan measures
-        # rlist against, and the load balance bins r_lb, the fraction
-        # scaled by them (JAX parallel_sim.py:96-107)
-        self._tri = not sd.box.ortho
-        geom = np.asarray((sd.box.h if self._tri else sd.box.lengths)
-                          .numpy(), dtype=np.float64)
-        L = np.asarray(sd.box.perp_spans.numpy(), dtype=np.float64)
-        r_lb = sd.state.r[:n].numpy()
-        if self._tri:
+    def _rlist(self) -> float:
+        sd = self.sysdef
+        return sd.rcut_max + sd.neighbor_deltaR
+
+    def _system_frame(self):
+        """(geom, L, r_lb) of the system's box (the deck's, or a
+        rebuilding transform's) and positions: geom as the step takes it
+        ((3,) lengths, or the (3, 3) h when triclinic), L the per-axis
+        perpendicular spans every plan measures rlist against, r_lb the
+        positions in the load-balance frame, the fraction scaled by L
+        (JAX parallel_sim.py:96-107); f64 on the host."""
+        sd = self.sysdef
+        box = sd.box
+        geom = np.asarray((box.lengths if box.ortho else box.h).numpy(),
+                          dtype=np.float64)
+        L = np.asarray(box.perp_spans.numpy(), dtype=np.float64)
+        r_lb = sd.state.r[:sd.state.n_local].numpy()
+        if not box.ortho:
             r_lb = r_lb @ np.linalg.inv(geom).T * L[None, :]
-        rlist = sd.rcut_max + sd.neighbor_deltaR
-        walls, voronoi = self._setup_loadbalance(db, ddc, base_dir, L, rlist,
-                                                 r_lb)
+        return geom, L, r_lb
+
+    def _derive(self, walls=None, voronoi=None):
+        """What the run derives from its particles and box (Simulation's
+        _derive): the box kind and geometry (`_tri`, the live box `Lv`,
+        (3,) lengths or the (3, 3) h), the brick plan at the spans with
+        `walls` or `voronoi` (the load balance from the positions when
+        both are None), the Coulomb flag, the group coefficients and
+        their refresh, the barostat, the topology's gid tables and the
+        step's dynamics, the engine and its step, the host arrays and
+        their distribution.  Run at construction and after a transform
+        changed the particle count, the species or the box kind."""
+        sd = self.sysdef
+        n = sd.state.n_local
+        self._tri = not sd.box.ortho
+        geom, L, r_lb = self._system_frame()
+        if walls is None and voronoi is None and self._lb_kind is not None:
+            if self._lb_kind == "voronoi":
+                from ..parallel.voronoi import nominal_centers
+
+                voronoi = dict(centers=nominal_centers(L, self.shape),
+                               margins=np.zeros(3), L0=L.copy())
+            else:
+                walls = self._lb_walls(r_lb, L, self._rlist())
+        self.plan = self._brick_plan(L, walls, voronoi)
+        self._check_reach(L)
+        self._coulomb = bool(np.any(sd.state.q[:n].numpy() != 0.0))
+        # the group coefficients, refreshed once a dispatch at its start
+        # time when a schedule or a GLOBAL_ENERGY target moves them
+        # (Simulation's rule); the energy the targets read pins their
+        # totals anew at the next refresh
+        self._ge_groups, self._ge_total = global_energy_groups(sd), {}
+        self._refresh_coeffs = refreshes_coefficients(sd)
+        self.coeffs = live_coefficients(sd, self._time(), self.dtype,
+                                        self.device)
+        self._dyn_box = dynamic_box(sd)
+        # the rows' own key: the state's gids, which a transform's fast
+        # path keeps while the collection takes its new gids (GIDSHUFFLE)
+        # for the files
+        self._gid = gid = gid64(sd.state.gid[:n])
+        self._setup_barostat(gid)
+        self._setup_topology(gid)
+        self._dynamics = self._dynamics_spec()
+        self.Lv = torch.as_tensor(geom, dtype=self.dtype, device=self.device)
+        self._host_arrays = dict(
+            r=sd.state.r[:n].numpy(), v=sd.state.v[:n].numpy(),
+            q=sd.state.q[:n].numpy(), mass=sd.state.mass[:n].numpy(),
+            species=sd.state.species[:n].numpy(),
+            group=sd.state.group[:n].numpy(), gid=gid)
+        if self._hgid is not None:
+            self._host_arrays["hgid"] = self._hgid
+        self.fields = None
+        self._build_step_fns()
+        self._distribute(self._host_arrays)
+
+    def _brick_plan(self, L, walls, voronoi) -> BrickPlan:
+        """The BrickPlan of the current particle count at spans L: local,
+        halo and migration capacities from n, the bricks and the halo
+        windows."""
+        n = self.sysdef.state.n_local
+        n_dev = self.mesh.size
+        rlist = self._rlist()
         # halo windows scale with rlist / brick width (parallel_sim.py:
         # 182-202 of the JAX package); Voronoi windows widen by the
         # bisector margin, reserved for the centres' displacement bound
@@ -324,61 +446,12 @@ class ParallelSimulation:
             # across a neighbour's whole range (parallel/brick.py): half
             # as much room again
             halo = 3 * halo // 2
-        self.plan = BrickPlan(
+        return BrickPlan(
             shape=self.shape,
             local_cap=_cap(n) if n_dev == 1 else _cap(4 * n // n_dev),
             halo_cap=_cap(halo),
             migrate_cap=_cap(max(256, n // (4 * n_dev))), rlist=rlist,
             walls=walls, voronoi=voronoi)
-        self._check_reach(L)
-        self.chunk_steps = max(1, int(sd.cfg.ddc_update_rate))
-        # the group coefficients, refreshed once a dispatch at its start
-        # time when a schedule or a GLOBAL_ENERGY target moves them
-        # (Simulation's rule); the energy the targets read
-        self._ge_groups, self._ge_total = global_energy_groups(sd), {}
-        self._eion_last = None
-        self._refresh_coeffs = refreshes_coefficients(sd)
-        self.coeffs = live_coefficients(sd, sd.cfg.time, dtype, dev)
-        self._dyn_box = dynamic_box(sd)
-        self._density_safety = 1.3
-        self._grid_growth = 1.0
-        gid = gid64(sd.collection.gid)
-        self._setup_barostat(db, gid)
-        self._setup_topology(gid)
-        self._dynamics = self._dynamics_spec()
-        # the box and barostat state a step carries (box_state): the live
-        # box, the last molecular virial diagonal the next Berendsen
-        # lambda reads, NPTGLF's zeta, NGLFNK's piston velocities and the
-        # last step's mesh-wide virial plus kinetic tensor (their
-        # pressure)
-        zeta0, bdot0 = piston_start(db, sd)
-        self.Lv = torch.as_tensor(geom, dtype=dtype, device=dev)
-        self.vird = torch.zeros(3, dtype=dtype, device=dev)
-        self.zeta = torch.tensor(zeta0, dtype=dtype, device=dev)
-        self.bdot = torch.as_tensor(bdot0, dtype=dtype, device=dev)
-        self.ptens = torch.zeros((3, 3), dtype=dtype, device=dev)
-        self._build_step_fns()
-
-        self._host_arrays = dict(
-            r=sd.state.r[:n].numpy(), v=sd.state.v[:n].numpy(),
-            q=sd.state.q[:n].numpy(), mass=sd.state.mass[:n].numpy(),
-            species=sd.state.species[:n].numpy(),
-            group=sd.state.group[:n].numpy(), gid=gid)
-        if self._hgid is not None:
-            self._host_arrays["hgid"] = self._hgid
-        self._distribute(self._host_arrays)
-        self.f = None
-        self.loop = sd.cfg.loop
-        # (steps, seconds) of each accepted dispatch, host clock around
-        # work that ends in the dispatch's one device-to-host read
-        self.dispatch_log: list[tuple[int, float]] = []
-        self.n_rebalance = 0
-        self.analyses = deck_analyses(db, sd, self.printinfo)
-        # the last accepted step's scalar row (virial and kinetic tensors
-        # for the view), and whether every row sits in its brick (the
-        # last dispatch ended in a migration or a distribution)
-        self._last_row = None
-        self.rows_home = True
 
     # ------------------------------------------------------------------
 
@@ -504,7 +577,7 @@ class ParallelSimulation:
                 f"first it finds and drops the rest) ({_MESH_ITEM})")
         return nonbond[0]
 
-    def _setup_barostat(self, db, gid):
+    def _setup_barostat(self, gid):
         """The Berendsen barostat of the NGLFCONSTRAINT family (beta > 0)
         and, for multi-bead molecules, the gid-keyed molecule table of
         the sharded molecular virial (JAX parallel_sim.py:266-295)."""
@@ -514,8 +587,9 @@ class ParallelSimulation:
         self.n_molecules = sd.state.n_local
         if sd.integrator_type not in _BAROSTAT_TYPES or not ip["beta"] > 0:
             return
-        sysobj = db.get(sd.cfg.system_name, "SYSTEM")
-        mols = build_molecule_class(db, sysobj, sd.collection.species_names,
+        sysobj = self.db.get(sd.cfg.system_name, "SYSTEM")
+        mols = build_molecule_class(self.db, sysobj,
+                                    sd.collection.species_names,
                                     sd.collection.gid)
         if mols:
             self.n_molecules = mols.n_molecules
@@ -689,15 +763,15 @@ class ParallelSimulation:
 
     def _plan_grid(self, geom):
         """The list engine's global CellGrid at box geom, its occupancy
-        measured on the current positions (the start positions, or the
-        gathered ones after the first build; in the load-balance frame,
+        measured on the current positions (the host arrays' before they
+        are distributed, else the gathered rows; in the load-balance frame,
         whose axes the cells bin) times the ghost-duplication factor of a
         halo window wrapping a small box, and the replan ladder's
         growth."""
         sd = self.sysdef
         n = sd.state.n_local
-        r = (self.gather_by_gid(("r",))["r"] if hasattr(self, "fields")
-             else sd.state.r[:n].numpy())
+        r = (self.gather_by_gid(("r",))["r"] if self.fields is not None
+             else self._host_arrays["r"])
         L, r = lb_frame(geom, r)
         rlist = self.plan.rlist
         spans = [min(1.0, rlist / (L[a] / self.shape[a])) for a in range(3)]
@@ -736,13 +810,14 @@ class ParallelSimulation:
 
     def gather_by_gid(self, names=("r", "v")) -> dict:
         """Every rank's owned rows of the named fields (and "f") on the
-        host, in the collection's original order (the pio gather
-        analog: rows keyed by gid)."""
+        host, in the system's row order (the pio gather analog: rows
+        keyed by their own gid, the state's, which a GIDSHUFFLE leaves
+        as it is).  Collective."""
         m = self.mesh.all_gather(self.mask.to(torch.int64)).cpu().numpy()
         m = m.reshape(-1).astype(bool)
         g = self.mesh.all_gather(self.fields["gid"]).cpu().numpy()
         g = g.reshape(-1)[m]
-        col = gid64(self.sysdef.collection.gid)
+        col = self._gid
         pos = {int(x): i for i, x in enumerate(col)}
         idx = np.fromiter((pos[int(x)] for x in g), dtype=np.int64,
                           count=len(g))
@@ -893,8 +968,10 @@ class ParallelSimulation:
         per dispatch (the superchunk).  Every dispatch ends on each host
         rate's next multiple (_host_rates; the superchunk runs only where
         it fits before it) and at n_loops, in a shorter chunk.  After each
-        dispatch the outputs at their rates (_outputs); at the end every
-        analysis writes once more, as Simulation.run does.
+        dispatch the outputs at their rates (_outputs), then each SIMULATE
+        transform= whose rate divides the loop (apply_transform), in
+        Simulation.run's order; at the end every analysis writes once
+        more, as Simulation.run does.
 
         migrate_rate (the JAX package's run(migrate_rate=)): None or
         chunk_steps changes nothing; under a moving box it is the chunk
@@ -977,6 +1054,9 @@ class ParallelSimulation:
             done += steps
             self.dispatch_log.append((steps, seconds))
             self._outputs(steps)
+            for _, tobj, rate_t in self.transforms:
+                if rate_t and self.loop % rate_t == 0:
+                    self.apply_transform(tobj)
         if self.analyses:
             view = self.view()
             if self.mesh.rank == 0:
@@ -987,11 +1067,11 @@ class ParallelSimulation:
     # -- outputs at their rates ---------------------------------------------
 
     def _host_rates(self) -> list[int]:
-        """The non-zero rates a dispatch ends on: each analysis's eval_rate
-        and outputrate, and printrate when the per-group files are
-        written (Simulation writes them only at dispatch ends printrate
-        divides)."""
-        rates = []
+        """The non-zero rates a dispatch ends on: each transform's, each
+        analysis's eval_rate and outputrate, and printrate when the
+        per-group files are written (Simulation writes them only at
+        dispatch ends printrate divides)."""
+        rates = [rate for _, _, rate in self.transforms]
         for a in self.analyses:
             rates += [a.eval_rate, a.output_rate]
         if self._group_files():
@@ -1070,6 +1150,113 @@ class ParallelSimulation:
             if cnt:
                 write_group_row(self.run_dir, g.name, self.loop, cnt, ke_g,
                                 pe_g)
+
+    # -- transforms -----------------------------------------------------------
+
+    def apply_transform(self, tobj):
+        """Apply the TRANSFORM object `tobj` to the mesh's state, with
+        Simulation.apply_transform's semantics (transform.c:153-181, which
+        the reference's parallel run applies; the JAX mesh applies none).
+        Collective: r and v are gathered by gid at the live box, rank 0
+        applies the transform on the host (host_transform: a REPLICATE
+        on a bonded deck makes each molecule whole first) and broadcasts
+        its result -- gids, r, v, masses, species and group names, h --
+        or its error, so every rank takes one state (THERMALIZE's
+        randomizeSeed draws from os.urandom, CUSTOM reads files) or
+        raises one error.
+
+        Fast path, the same particles, species and box kind
+        (same_particles): the new r and v, the new box (when it moved,
+        the brick plan's capacities and the engine are planned again at
+        its spans; walls and Voronoi centres are fractions of it and
+        stay), and the collection's new gids and group names (the rows
+        keep their own key, the state's gids, as Simulation's state keeps
+        them; gathers key by it, the files write the collection's); the
+        rows are distributed again.  Otherwise the system is rebuilt
+        (rebuild_system: a new State; on a count change the topology is
+        built anew before anything changes, so a transform that keeps
+        part of a residue raises ValueError on every rank and leaves the
+        run as it was) and derived anew (_derive: the box kind, the load
+        balance from the new positions, the plan's capacities, the
+        topology's gid tables, the dynamics, the engine and its step),
+        the replan ladder reset.  Then the first energy.  Returns the
+        transform's host result, a TransformContext (f64, the rows in
+        the system's new order)."""
+        from ..core.box import Box
+        from ..transforms.registry import TransformContext
+
+        sd = self.sysdef
+        g = self.gather_by_gid(("r", "v"))
+        out = None
+        if self.mesh.rank == 0:
+            try:
+                ctx, replicate = host_transform(
+                    sd, tobj, g["r"].astype(np.float64),
+                    g["v"].astype(np.float64),
+                    self._host_arrays["mass"].astype(np.float64),
+                    live_h(self._live_geom()),
+                    sd.box.pbc_mask.numpy().astype(np.float64),
+                    time=self._time(),
+                    rate=next((r_ for _, t, r_ in self.transforms
+                               if t is tobj), 1),
+                    run_dir=self.run_dir, base_dir=self.base_dir)
+                out = (dict(r=ctx.r, v=ctx.v, gid=ctx.gid, mass=ctx.mass,
+                            species_names=ctx.species_names,
+                            group_names=ctx.group_names, h=ctx.h),
+                       replicate, None)
+            except Exception as err:
+                out = (None, False, _portable(err))
+        res, replicate, err = self._broadcast(out)
+        if err is not None:
+            raise err
+        ctx = TransformContext(**res)
+        box = Box.from_h(ctx.h, pbc=sd.box.pbc, dtype=self.dtype,
+                         device="cpu")
+        if same_particles(sd, ctx, box, not self._tri):
+            self._reupload(ctx)
+        else:
+            rebuild_system(self.db, sd, tobj, ctx, box, replicate,
+                           dtype=self.dtype, device="cpu")
+            self._density_safety, self._grid_growth = 1.3, 1.0
+            self._derive()
+        self.f = None
+        self.first_energy()
+        return ctx
+
+    def _reupload(self, ctx):
+        """The fast path of apply_transform: ctx's r, v and box into the
+        host arrays and the step, the collection's gids and group names,
+        then the rows distributed at the new box."""
+        geom = ctx.h if self._tri else np.diagonal(ctx.h).copy()
+        moved = not np.array_equal(geom, self._live_geom())
+        if moved:
+            # checked before anything changes
+            L = lb_frame(geom)[0]
+            self._check_reach(L)
+        col = self.sysdef.collection
+        col.gid = ctx.gid
+        col.group_names = ctx.group_names
+        dt_ = self._host_arrays["r"].dtype
+        self._host_arrays = dict(self._host_arrays, r=ctx.r.astype(dt_),
+                                 v=ctx.v.astype(dt_))
+        self.Lv = torch.as_tensor(geom, dtype=self.dtype, device=self.device)
+        self.fields = None
+        if moved:
+            self.plan = self._brick_plan(L, self.plan.walls,
+                                         self.plan.voronoi)
+            self._build_step_fns()
+        self._distribute(self._host_arrays)
+
+    def _broadcast(self, obj):
+        """Rank 0's picklable `obj` on every rank (collective; obj itself
+        on a mesh of one)."""
+        if self.mesh.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=0,
+            device=self.device if self.device.type == "cuda" else None)
+        return box[0]
 
     def redistribute(self, g=None):
         """Host-exact re-assignment of every particle to its brick under
@@ -1233,6 +1420,10 @@ class ParallelSimulation:
             writer = self._shard_writer()
         else:
             ss = self._view_state(self.gather_by_gid(("r", "v")))
+            # the records carry the collection's gids, as the shards do
+            gid = ss.state.gid.copy()
+            gid[:sd.state.n_local] = gid64(sd.collection.gid)
+            ss = ss.replace(state=ss.state.replace(gid=gid))
             writer = None
         shim = SimpleNamespace(sysdef=sd, ss=ss, parallel_plan=self.plan)
         if rank == 0:
@@ -1265,8 +1456,11 @@ class ParallelSimulation:
         g64 = self.fields["gid"][m].cpu().numpy().astype(np.int64)
         r = self.fields["r"][m].cpu().numpy().astype(np.float64)
         v = self.fields["v"][m].cpu().numpy().astype(np.float64)
-        pos = np.argsort(gid64(col.gid), kind="stable")
-        idx = pos[np.searchsorted(gid64(col.gid), g64, sorter=pos)]
+        # each row's place in the system by its own key, then the
+        # collection's gid and names there
+        pos = np.argsort(self._gid, kind="stable")
+        idx = pos[np.searchsorted(self._gid, g64, sorter=pos)]
+        names = gid64(col.gid)[idx]
         rank, size = self.mesh.rank, self.mesh.size
         h = live_h(self._live_geom())
 
@@ -1276,7 +1470,7 @@ class ParallelSimulation:
         def writer(snapdir, mode, loop, time_fs):
             path = os.path.join(snapdir, "atoms#%06d" % rank)
             write_collection(
-                path, gid=g64.astype(np.uint64),
+                path, gid=names.astype(np.uint64),
                 species_names=pick(col.species_names),
                 group_names=pick(col.group_names),
                 class_names=pick(col.class_names), r=r, v=v, h=h,

@@ -155,23 +155,6 @@ def uses_constraints(sd) -> bool:
     return uses and sd.bonded is not None and sd.bonded.n_constraints > 0
 
 
-def refuse_unported_outputs(db: ObjectDB, sd, printinfo: PrintInfo):
-    """Raise NotImplementedError for the outputs a deck asks for that
-    ParallelSimulation does not apply yet, instead of running to the end
-    without them: the SIMULATE transform= list (the JAX mesh applies no
-    transform either), ROADMAP item 25.  The mesh writes the rest at
-    their rates as Simulation does (ddcmd_tpu/run/simulate.py:189-221,
-    1170-1211): SIMULATE analysis=, printStress's STRESSWRITE, the graphs
-    file and the per-group energy files (ParallelSimulation.run)."""
-    simobj = db.by_class("SIMULATE")[0]
-    names = [n for n in simobj.get_strv("transform")
-             if db.find(n, "TRANSFORM")]
-    if names:
-        raise NotImplementedError(
-            f"SIMULATE transform={' '.join(names)}: the mesh applies no "
-            "transform yet, as the JAX mesh (ROADMAP queue 1, item 25)")
-
-
 def deck_analyses(db: ObjectDB, sd, printinfo: PrintInfo) -> list:
     """The deck's SIMULATE analysis= objects built once, with their
     accumulators (an object that does not build warns and is skipped),
@@ -199,6 +182,168 @@ def deck_analyses(db: ObjectDB, sd, printinfo: PrintInfo) -> list:
         sw.setup()
         out.append(sw)
     return out
+
+
+def deck_transforms(db: ObjectDB) -> list:
+    """The SIMULATE transform= list as (name, object, rate), each applied
+    at the dispatch ends its rate divides (transform.c:153;
+    simulate.py:216-220 of the JAX package): what Simulation and
+    ParallelSimulation apply."""
+    out = []
+    for t in db.by_class("SIMULATE")[0].get_strv("transform"):
+        tobj = db.find(t, "TRANSFORM")
+        if tobj is not None:
+            out.append((t, tobj, tobj.get_int("rate", 0)))
+    return out
+
+
+def bond_graph(bt):
+    """(E, 2) rows of the topology's bonds and exclusions, which hold
+    every bond, constraint and chain link, or None."""
+    edges = [] if bt is None else [
+        e for e in (bt.bonds, bt.exclusions) if e is not None and len(e)]
+    return np.concatenate(edges).astype(np.int64) if edges else None
+
+
+def whole_molecules(r, h, e, gid, pbc_mask):
+    """r (n, 3) with each molecule of the bond graph e (bond_graph) made
+    whole about its first bead in gid order: breadth first along the
+    graph, each bead at the minimum image, on the axes pbc_mask (3,)
+    marks periodic, of its parent's place.  The run's beads are wrapped
+    one by one, so a molecule the box boundary cuts would tile with a
+    bond ~L long in each copy."""
+    a = np.concatenate([e[:, 0], e[:, 1]])
+    b = np.concatenate([e[:, 1], e[:, 0]])
+    n = len(r)
+    # component labels: the least gid rank over the component
+    rank = np.empty(n, np.int64)
+    rank[np.argsort(np.asarray(gid)[:n], kind="stable")] = np.arange(n)
+    label = rank.copy()
+    while True:
+        new = label.copy()
+        np.minimum.at(new, a, label[b])
+        if np.array_equal(new, label):
+            break
+        label = new
+    L = np.diagonal(h)
+    out = np.array(r, dtype=np.float64)
+    placed = rank == label
+    while True:
+        sel = placed[a] & ~placed[b]
+        if not sel.any():
+            break
+        child, first = np.unique(b[sel], return_index=True)
+        parent = a[sel][first]
+        d = r[child] - r[parent]
+        out[child] = out[parent] + d - L * np.round(d / L) * pbc_mask
+        placed[child] = True
+    return out
+
+
+def check_whole_residues(sd, tobj, new_gid):
+    """Raise ValueError when the transform keeps part of a residue
+    instance (by the collection's gid): the topology is instantiated over
+    whole residues only."""
+    col = sd.collection
+    kept = np.isin(col.gid, new_gid)
+    for rn, rows in sd.residue_instances:
+        k = kept[rows]
+        if k.any() and not k.all():
+            raise ValueError(
+                f"TRANSFORM {tobj.name} ({tobj.get_str('type')}) keeps "
+                f"{int(k.sum())} of the {len(rows)} particles of residue "
+                f"{rn} at gid {int(col.gid[rows].min())}: a particle-"
+                "count change keeps whole residues only")
+
+
+def host_transform(sd, tobj, r, v, mass, h, pbc_mask, *, time: float,
+                   rate: int, run_dir: str, base_dir: str):
+    """Apply the TRANSFORM object `tobj` on the host to the run's state
+    (r, v, mass (n,), h (3, 3), f64 numpy in the collection's row order)
+    with the collection's gids, species and group names
+    (transforms/registry.py): a REPLICATE on a deck with a bond graph
+    first makes each molecule whole (whole_molecules).  Returns (ctx,
+    replicate): the TransformContext after the transform, and whether
+    that whole-molecule step ran (the rebuild wraps the copies then)."""
+    from ..transforms.registry import TransformContext, apply_transform
+
+    col = sd.collection
+    ctx = TransformContext(
+        r=r, v=v, gid=col.gid.copy(), mass=mass,
+        species_names=list(col.species_names),
+        group_names=list(col.group_names), h=h)
+    # what SHOCK and CUSTOM read: the time, the rate, the directories
+    ctx.time = time
+    ctx.dt = sd.cfg.dt
+    ctx.rate = rate
+    ctx.run_dir = run_dir
+    ctx.base_dir = base_dir
+    graph = bond_graph(sd.bonded)
+    replicate = (graph is not None
+                 and tobj.get_str("type").upper() == "REPLICATE")
+    if replicate:
+        ctx.r = whole_molecules(ctx.r, ctx.h, graph, col.gid, pbc_mask)
+    apply_transform(ctx, tobj)
+    return ctx, replicate
+
+
+def same_particles(sd, ctx, box, ortho: bool) -> bool:
+    """True when a transform's result (ctx, at the new Box `box`) keeps
+    the run's particles, species and box kind (`ortho`, the live box's):
+    the drivers' fast path, a re-upload of r, v and the box."""
+    return (len(ctx.gid) == sd.state.n_local
+            and ctx.species_names == sd.collection.species_names
+            and box.ortho == ortho)
+
+
+def rebuild_system(db: ObjectDB, sd, tobj, ctx, box, replicate: bool, *,
+                   dtype, device):
+    """A transform's count or species change into the system `sd`, with
+    the JAX package's bookkeeping (simulate.py:1255-1295 there): a new
+    State with masses and charges from the species (APPEND's own masses
+    are not read), an unknown group name taking group 0, the
+    collection's class names the old ones tiled and cut to the new count
+    (after SELECTSUBSET the first n, not the kept ones), the box.  On a
+    deck with a topology and a count change the topology is built anew
+    over the new collection first (core/system.build_topology: residues,
+    bonded terms, exclusions, chain links, constraints; the JAX package
+    keeps the old one), after a REPLICATE's copies are wrapped into the
+    new box; a transform that keeps part of a residue, or a residue the
+    scan does not match, raises before anything changes."""
+    from ..core.state import State
+    from ..core.system import build_topology
+
+    col = sd.collection
+    n = sd.state.n_local
+    n_new = len(ctx.gid)
+    topo = None
+    if sd.bonded is not None and n_new != n:
+        check_whole_residues(sd, tobj, ctx.gid)
+        if replicate:
+            m = box.pbc_mask.cpu().numpy().astype(np.float64)
+            L = np.diagonal(ctx.h)
+            ctx.r = ctx.r - L * np.round(ctx.r / L) * m
+        topo = build_topology(db, db.get(sd.cfg.system_name, "SYSTEM"),
+                              sd.potentials, ctx.species_names, ctx.gid)
+    sp_index = {s.name: s.index for s in sd.species}
+    grp_index = {g.name: g.index for g in sd.groups}
+    sidx = np.array([sp_index[s] for s in ctx.species_names],
+                    dtype=np.int64)
+    gidx = np.array([grp_index.get(g, 0) for g in ctx.group_names],
+                    dtype=np.int64)
+    mass = np.array([sd.species[i].mass for i in sidx])
+    charge = np.array([sd.species[i].charge for i in sidx])
+    sd.state = State.create(ctx.r, ctx.v, charge, mass, sidx, gidx,
+                            ctx.gid, dtype=dtype, device=device)
+    col.gid = ctx.gid
+    col.species_names = ctx.species_names
+    col.group_names = ctx.group_names
+    col.class_names = (col.class_names * (n_new // max(n, 1) + 1))[:n_new]
+    col.r = ctx.r
+    col.v = ctx.v
+    sd.box = box
+    if topo is not None:
+        sd.bonded, sd.residue_instances, sd.n_constraints = topo
 
 
 def write_graphs_line(run_dir, loop: int, time: float, nlocal: int,
@@ -461,11 +606,7 @@ class Simulation:
         # the SIMULATE transform= list, (name, object, rate): each applied
         # at the dispatch ends its rate divides (transform.c:153;
         # simulate.py:216-220 of the JAX package)
-        self.transforms = []
-        for t in db.by_class("SIMULATE")[0].get_strv("transform"):
-            tobj = db.find(t, "TRANSFORM")
-            if tobj is not None:
-                self.transforms.append((t, tobj, tobj.get_int("rate", 0)))
+        self.transforms = deck_transforms(db)
         refuse_shear_tilt(sd)
         self.post_drift_fn = None
         if any(p[0] == "REFLECT" for p in sd.potentials):
@@ -1086,11 +1227,9 @@ class Simulation:
         copy keeps its terms): a REPLICATE makes each molecule whole
         about its first bead before it tiles and wraps the copies into
         the new box after, and a transform that keeps part of a residue
-        raises ValueError naming it."""
+        raises ValueError naming it.  The host steps (host_transform,
+        same_particles, rebuild_system) are ParallelSimulation's too."""
         from ..core.box import Box
-        from ..core.state import State
-        from ..core.system import build_topology
-        from ..transforms.registry import TransformContext, apply_transform
 
         sd = self.sysdef
         col = sd.collection
@@ -1100,28 +1239,16 @@ class Simulation:
         def host(x):
             return x.detach().cpu().numpy().astype(np.float64)
 
-        ctx = TransformContext(
-            r=host(st.r[:n]), v=host(st.v[:n]), gid=col.gid.copy(),
-            mass=host(st.mass[:n]), species_names=list(col.species_names),
-            group_names=list(col.group_names), h=host(self.ss.box.h))
-        # what SHOCK and CUSTOM read: the time, the rate, the directories
-        ctx.time = float(self.ss.time)
-        ctx.dt = sd.cfg.dt
-        ctx.rate = next((rate for _, t, rate in self.transforms
-                         if t is tobj), 1)
-        ctx.run_dir = self.run_dir
-        ctx.base_dir = self.base_dir
-        graph = self._bond_graph()
-        replicate = (graph is not None
-                     and tobj.get_str("type").upper() == "REPLICATE")
-        if replicate:
-            ctx.r = self._whole_molecules(ctx.r, ctx.h, graph)
-        apply_transform(ctx, tobj)
+        ctx, replicate = host_transform(
+            sd, tobj, host(st.r[:n]), host(st.v[:n]), host(st.mass[:n]),
+            host(self.ss.box.h),
+            self.ss.box.pbc_mask.cpu().numpy().astype(np.float64),
+            time=float(self.ss.time),
+            rate=next((rate for _, t, rate in self.transforms if t is tobj),
+                      1), run_dir=self.run_dir, base_dir=self.base_dir)
         box = Box.from_h(ctx.h, pbc=self.ss.box.pbc, dtype=self.dtype,
                          device=self.device)
-        n_new = len(ctx.gid)
-        if (n_new == n and ctx.species_names == col.species_names
-                and box.ortho == self.ss.box.ortho):
+        if same_particles(sd, ctx, box, self.ss.box.ortho):
             r = np.zeros((st.n_pad, 3))
             v = np.zeros((st.n_pad, 3))
             r[:n] = ctx.r
@@ -1132,102 +1259,14 @@ class Simulation:
             col.group_names = ctx.group_names
             self.first_energy()
             return
-        topo = None
-        if sd.bonded is not None and n_new != n:
-            self._check_whole_residues(tobj, ctx.gid)
-            if replicate:
-                m = box.pbc_mask.cpu().numpy().astype(np.float64)
-                L = np.diagonal(ctx.h)
-                ctx.r = ctx.r - L * np.round(ctx.r / L) * m
-            # built before the state changes: a residue the scan does not
-            # match raises here and leaves the run as it was
-            topo = build_topology(
-                self.db, self.db.get(sd.cfg.system_name, "SYSTEM"),
-                sd.potentials, ctx.species_names, ctx.gid)
-        sp_index = {s.name: s.index for s in sd.species}
-        grp_index = {g.name: g.index for g in sd.groups}
-        sidx = np.array([sp_index[s] for s in ctx.species_names],
-                        dtype=np.int64)
-        gidx = np.array([grp_index.get(g, 0) for g in ctx.group_names],
-                        dtype=np.int64)
-        mass = np.array([sd.species[i].mass for i in sidx])
-        charge = np.array([sd.species[i].charge for i in sidx])
-        sd.state = State.create(ctx.r, ctx.v, charge, mass, sidx, gidx,
-                                ctx.gid, dtype=self.dtype, device=self.device)
-        col.gid = ctx.gid
-        col.species_names = ctx.species_names
-        col.group_names = ctx.group_names
-        col.class_names = (col.class_names * (n_new // max(n, 1) + 1))[:n_new]
-        col.r = ctx.r
-        col.v = ctx.v
-        sd.box = box
-        if topo is not None:
-            sd.bonded, sd.residue_instances, sd.n_constraints = topo
+        rebuild_system(self.db, sd, tobj, ctx, box, replicate,
+                       dtype=self.dtype, device=self.device)
         self.ss = self.ss.replace(state=sd.state, box=box)
         self._derive(box, self.ss.time)
         self._forced_spr = None
         self._forced_dispatch = None
         self._clean_disp = 0
         self.first_energy()
-
-    def _bond_graph(self):
-        """(E, 2) rows of the topology's bonds and exclusions, which hold
-        every bond, constraint and chain link, or None."""
-        bt = self.sysdef.bonded
-        edges = [] if bt is None else [
-            e for e in (bt.bonds, bt.exclusions) if e is not None and len(e)]
-        return np.concatenate(edges).astype(np.int64) if edges else None
-
-    def _whole_molecules(self, r, h, e):
-        """r (n, 3) with each molecule of the bond graph e (_bond_graph)
-        made whole about its first bead in gid order: breadth first along
-        the graph, each bead at the minimum image, on the periodic axes,
-        of its parent's place.  The state's beads are wrapped one by one,
-        so a molecule the box boundary cuts would tile with a bond ~L
-        long in each copy."""
-        a = np.concatenate([e[:, 0], e[:, 1]])
-        b = np.concatenate([e[:, 1], e[:, 0]])
-        n = len(r)
-        # component labels: the least gid rank over the component
-        rank = np.empty(n, np.int64)
-        rank[np.argsort(self.sysdef.collection.gid[:n], kind="stable")] = \
-            np.arange(n)
-        label = rank.copy()
-        while True:
-            new = label.copy()
-            np.minimum.at(new, a, label[b])
-            if np.array_equal(new, label):
-                break
-            label = new
-        L = np.diagonal(h)
-        m = self.ss.box.pbc_mask.cpu().numpy().astype(np.float64)
-        out = np.array(r, dtype=np.float64)
-        placed = rank == label
-        while True:
-            sel = placed[a] & ~placed[b]
-            if not sel.any():
-                break
-            child, first = np.unique(b[sel], return_index=True)
-            parent = a[sel][first]
-            d = r[child] - r[parent]
-            out[child] = out[parent] + d - L * np.round(d / L) * m
-            placed[child] = True
-        return out
-
-    def _check_whole_residues(self, tobj, new_gid):
-        """Raise ValueError when the transform keeps part of a residue
-        instance (by gid): the topology is instantiated over whole
-        residues only."""
-        col = self.sysdef.collection
-        kept = np.isin(col.gid, new_gid)
-        for rn, rows in self.sysdef.residue_instances:
-            k = kept[rows]
-            if k.any() and not k.all():
-                raise ValueError(
-                    f"TRANSFORM {tobj.name} ({tobj.get_str('type')}) keeps "
-                    f"{int(k.sum())} of the {len(rows)} particles of residue "
-                    f"{rn} at gid {int(col.gid[rows].min())}: a particle-"
-                    "count change keeps whole residues only")
 
     def _dev(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)

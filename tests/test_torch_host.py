@@ -164,11 +164,12 @@ _DEFORMATION = (lambda s: s.replace(
                  + "rdf ANALYSIS { type=PAIRCORRELATION; eval_rate=10; }\n",
                  "runs:paircorrelation.dat",
                  id=r"<lambda>-analysis=rdf.*item 24"),
-    # Simulation applies transforms (tests/test_torch_transform_sim.py);
-    # the mesh does not, as the JAX mesh
+    # Simulation applies transforms (tests/test_torch_transform_sim.py),
+    # and so does the mesh since it applies them at their rates
+    # (tests/test_torch_mesh_transforms.py; the JAX mesh applies none)
     pytest.param(lambda s: _sim_key(s, "transform=therm;")
                  + "therm TRANSFORM { type=THERMALIZE; rate=10; }\n",
-                 r"mesh:transform=therm.*item 25",
+                 "runs:",
                  id=r"<lambda>-transform=therm.*item 24"),
     pytest.param(lambda s: _printinfo(s, "printStress=1;"),
                  "runs:stress.data",
@@ -213,7 +214,8 @@ def test_unported_deck_features_raise(tmp_path, edit, what):
     what is missing, never run a different model silently; a `mesh:`
     case goes through ParallelSimulation at (1,1,1) over gloo.  A
     `runs:` case is a deck the mesh refused until it wrote its outputs at
-    their rates or ran item 22's dynamics: at printrate 10 it runs 20
+    their rates, ran item 22's dynamics or applied SIMULATE transform=
+    at its rate: at printrate 10 it runs 20
     steps (`runsN:`: N) under the mesh at (1,1,1) over gloo and writes the
     named files (if any), each with a row past its header."""
     from ddcmd_tpu_torch.run.simulate import Simulation

@@ -934,3 +934,179 @@ def run_legs(rank, todo):
     holds (function name, its arguments after the rank)."""
     for name, args in todo:
         globals()[name](rank, *args)
+
+
+def _spy_transforms(ps, record):
+    """Wrap ps.apply_transform: record(ps, tobj, when) runs before ("pre")
+    and after ("post") each call on every rank (it may gather)."""
+    real = ps.apply_transform
+
+    def spy(tobj):
+        record(ps, tobj, "pre")
+        ctx = real(tobj)
+        record(ps, tobj, "post")
+        return ctx
+
+    ps.apply_transform = spy
+
+
+def mesh_transforms(rank, decks, out):
+    """SIMULATE transform= under ParallelSimulation at (2,1,1), one leg a
+    deck of `decks` ({leg: deck dir}):
+      same: MT_SAME at rate 20 over 60 f64 steps (every step's row, r
+        and v by gid before the transforms of each multiple and at the
+        end, the view's r, the collection's gids); checkpoints with the
+        shard writers and the gathered writer; then THERMALIZE with
+        randomizeSeed=1 applied directly (each rank's host velocities);
+      rep64: REPLICATE 2x1x1 at rate 20 over 40 f64 steps (every step's
+        row, r and v by gid at the end; its VELOCITYAUTOCORRELATION and
+        graphs files in the deck's mesh64/);
+      rep32: the same deck in f32, 20 steps (the replica at 20), 5
+        more, then a BOX that tilts applied directly, and 2 steps: for
+        each transform r and v before it, the energy, forces by gid,
+        engine and box after it;
+      bilayer: the nx = 4 NPT bilayer (FREE, RATTLE) in f64, 12 steps,
+        its REPLICATE 2x1x1 (no rate) applied directly, 12 more (every
+        step's row, r, v and the box at the end, each bonded family's
+        energy before and after the replica); then a SELECTSUBSET that
+        cuts a lipid: the error on each rank and the state before and
+        after it.
+    Rank 0 saves every leg into out (npz), keys prefixed by leg."""
+    import chip_smoke
+    from ddcmd_tpu_torch.models import load
+    from ddcmd_tpu_torch.parallel.brick import gid64
+    from ddcmd_tpu_torch.run.parallel_sim import ParallelSimulation, live_h
+
+    res = {}
+    quiet = dict(print_fn=lambda line: None)
+
+    def mesh(d, dtype=torch.float64, run_dir=None):
+        run_dir = run_dir or d
+        os.makedirs(run_dir, exist_ok=True)
+        return ParallelSimulation(*load(d), shape=(2, 1, 1), device="cpu",
+                                  dtype=dtype, run_dir=run_dir)
+
+    def put(leg, **kw):
+        res.update({f"{leg}_{k}": v for k, v in kw.items()})
+
+    def final(leg, ps, rows):
+        g = _by_gid(ps, ("r", "v"))
+        owned = ps.mesh.all_gather(ps.mask.sum().reshape(1)).reshape(-1)
+        put(leg, rows=rows, r=g["r"], v=g["v"],
+            h=live_h(ps._live_geom()), loop=ps.loop, engine=ps.shard_engine,
+            n=ps.sysdef.state.n_local, owned=owned.numpy(),
+            ends=np.cumsum([k for k, _ in ps.dispatch_log]))
+
+    # --- same: the same-count transforms ------------------------------
+    d = decks["same"]
+    ps = mesh(d)
+    before = []
+
+    def same_rec(ps_, tobj, when):
+        if when == "pre" and tobj.name == "therm":
+            before.append(_by_gid(ps_, ("r", "v")))
+
+    _spy_transforms(ps, same_rec)
+    final("same", ps, chip_smoke.run_rows(ps, 60, **quiet))
+    view = ps.view()
+    n = ps.sysdef.state.n_local
+    put("same", pre_r=np.stack([b["r"] for b in before]),
+        pre_v=np.stack([b["v"] for b in before]),
+        view_r=view.ss.state.r[:n].double().numpy(),
+        col_gid=gid64(ps.sysdef.collection.gid),
+        row_gid=gid64(ps.sysdef.state.gid[:n]),
+        ck_shards=ps.write_checkpoint(os.path.join(d, "ck_shards")))
+    os.environ["DDCMD_SHARD_WRITERS"] = "0"
+    try:
+        put("same", ck_gathered=ps.write_checkpoint(
+            os.path.join(d, "ck_gathered")))
+    finally:
+        del os.environ["DDCMD_SHARD_WRITERS"]
+    # THERMALIZE with randomizeSeed=1: rank 0 draws, every rank takes it
+    ps.db.compile_string("rnd TRANSFORM { type=THERMALIZE; "
+                         "temperature=310 K; randomizeSeed=1; }\n")
+    v0 = _by_gid(ps, ("v",))["v"]
+    ps.apply_transform(ps.db.get("rnd", "TRANSFORM"))
+    host_v = ps.mesh.all_gather(torch.as_tensor(ps._host_arrays["v"]))
+    put("random", v0=v0, v=_by_gid(ps, ("v",))["v"], host_v=host_v.numpy())
+    del ps
+
+    # --- rep64: REPLICATE at its rate in f64 ---------------------------
+    ps = mesh(decks["rep"], run_dir=os.path.join(decks["rep"], "mesh64"))
+    final("rep64", ps, chip_smoke.run_rows(ps, 40, **quiet))
+    del ps
+
+    # --- rep32: the same in f32 on the cells engine, then a tilt -------
+    ps = mesh(decks["rep"], torch.float32,
+              os.path.join(decks["rep"], "mesh32"))
+    seen = []
+
+    def rec32(ps_, tobj, when):
+        if when == "pre":
+            g = _by_gid(ps_, ("r", "v"))
+            seen.append(dict(name=tobj.name, r=g["r"], v=g["v"],
+                             engine0=ps_.shard_engine,
+                             h0=live_h(ps_._live_geom())))
+        else:
+            e = ps_.first_energy()
+            seen[-1].update(e=e, f=_by_gid(ps_, ("f",))["f"],
+                            engine=ps_.shard_engine,
+                            h=live_h(ps_._live_geom()))
+
+    _spy_transforms(ps, rec32)
+    ps.first_energy()
+    ps.run(20, **quiet)
+    ps.run(5, **quiet)
+    L = [10.0 * float(x) for x in ps._live_L()]
+    tilt = (f"tilt TRANSFORM {{ type=BOX; hNew={L[0]!r} 0 {0.1 * L[2]!r} "
+            f"0 {L[1]!r} 0 0 0 {L[2]!r} Angstrom; }}\n")
+    ps.db.compile_string(tilt)
+    ps.apply_transform(ps.db.get("tilt", "TRANSFORM"))
+    ps.run(2, **quiet)
+    for i, s in enumerate(seen):
+        put(f"rep32_{i}", **{k: v for k, v in s.items()})
+    put("rep32", count=len(seen), loop=ps.loop, tilt=tilt,
+        finite=bool(np.isfinite(ps._last_row).all()))
+    del ps
+
+    # --- bilayer: REPLICATE on a topology, then a cut ------------------
+    ps = mesh(decks["bilayer"])
+    fams = []
+
+    def rec_bl(ps_, tobj, when):
+        g = _by_gid(ps_, ("r",))
+        fams.append(chip_smoke.family_energies(
+            ps_.sysdef, g["r"], ps_._live_geom()))
+
+    _spy_transforms(ps, rec_bl)
+    rows = chip_smoke.run_rows(ps, 12, **quiet)
+    ps.apply_transform(ps.db.get("rep", "TRANSFORM"))
+    final("bilayer", ps, np.concatenate(
+        [rows, chip_smoke.run_rows(ps, 12, **quiet)]))
+    names = sorted(fams[0])
+    put("bilayer", families=names,
+        fam0=np.array([fams[0][k] for k in names]),
+        fam1=np.array([fams[1][k] for k in names]),
+        counts=np.array([ps.sysdef.bonded.counts()[k] for k in
+                         ("bonds", "angles", "n_constraints")]))
+    # a SELECTSUBSET through a lipid: every rank raises, nothing changes
+    g0 = _by_gid(ps, ("r", "v", "f"))
+    sd = ps.sysdef
+    rn, rws = next(i for i in sd.residue_instances if i[0] == "DPPC")
+    x = np.sort(g0["r"][rws, 0])
+    ps.db.compile_string(f"cut TRANSFORM {{ type=SELECTSUBSET; xmin="
+                         f"{0.5 * (x[0] + x[-1]) * 10.0} Angstrom; }}\n")
+    try:
+        ps.apply_transform(ps.db.get("cut", "TRANSFORM"))
+        err = ""
+    except ValueError as e:
+        err = str(e)
+    errs = [None] * ps.mesh.size
+    dist.all_gather_object(errs, err)
+    g1 = _by_gid(ps, ("r", "v", "f"))
+    put("cut", errs=np.array(errs), n=sd.state.n_local,
+        gid=int(sd.collection.gid[rws].min()),
+        same=all(np.array_equal(g0[k], g1[k]) for k in g0),
+        e0=float(ps._last_row[0]), e1=ps.first_energy())
+    if rank == 0:
+        np.savez(out, **res)
